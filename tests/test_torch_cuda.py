@@ -1,0 +1,144 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch twins on
+the card, at small and ragged shapes (the serving shapes are
+chip_smoke.py's). Marked ``cuda``: each test skips where there is no card.
+On a machine with one, run ``python -m pytest tests/test_torch_cuda.py``.
+
+Tolerances: f32 within 1e-4 (another summation order, and tanhf/expf of
+the device library against PyTorch's); a bf16 transform output within one
+bf16 rounding of the twin's (rtol 1e-2) plus 1e-3 of its scale, since the
+two round f32 sums taken in different orders."""
+import numpy as np
+import pytest
+import torch
+
+from insenticap_model_tpu_torch.config import Settings
+from insenticap_model_tpu_torch.models import captioner as cap
+from insenticap_model_tpu_torch.models import sentiment_detector as sd
+from insenticap_model_tpu_torch.ops import beam
+from insenticap_model_tpu_torch.ops import fused_attention as fa
+from insenticap_model_tpu_torch.ops import winograd_kernels as wk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(got, want, rtol, scale_frac):
+    got, want = got.float(), want.float()
+    tol = rtol * want.abs() + scale_frac * want.abs().max()
+    assert ((got - want).abs() <= tol).all(), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,B,N", [(1, 3, 196), (7, 3, 50), (5, 1, 9),
+                                    (3, 8, 196)])
+def test_attention_kernel_matches_twin(dev, dtype, bs, B, N):
+    g = torch.Generator().manual_seed(bs * 31 + B)
+    H, Ah, Fe = 48, 40, 72
+    p = {"h2att": {"weight": torch.randn(Ah, H, generator=g) * 0.2,
+                   "bias": torch.randn(Ah, generator=g)},
+         "att_alpha": {"weight": torch.randn(1, Ah, generator=g),
+                       "bias": torch.randn(1, generator=g)}}
+    p = {k: {kk: vv.to(dev, dtype) for kk, vv in v.items()}
+         for k, v in p.items()}
+    h = torch.randn(bs * B, H, generator=g).to(dev, dtype)
+    att = torch.rand(bs, N, Fe, generator=g).to(dev, dtype)
+    p_att = torch.rand(bs, N, Ah, generator=g).to(dev, dtype)
+    before = fa.beam_content_attention.launches
+    got = fa.beam_content_attention(h, p, att, p_att, B=B)
+    torch.cuda.synchronize()
+    assert fa.beam_content_attention.launches == before + 1
+    want = fa.beam_content_attention_plain(h, p, att, p_att, B=B)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _close(got, want, 1e-2, 1e-3)
+
+
+def test_attention_kernel_refuses_what_it_cannot_take(dev):
+    p = {"h2att": {"weight": torch.zeros(4, 4, device=dev),
+                   "bias": torch.zeros(4, device=dev)},
+         "att_alpha": {"weight": torch.zeros(1, 4, device=dev)}}
+    att = torch.zeros(2, 3, 4, device=dev)
+    with pytest.raises(TypeError):
+        fa.beam_content_attention(torch.zeros(6, 4, device=dev).half(), p,
+                                  att, att, B=3)
+    with pytest.raises(ValueError):
+        fa.beam_content_attention(torch.zeros(5, 4, device=dev), p, att,
+                                  att, B=3)
+    with pytest.raises(ValueError):
+        fa.beam_content_attention(torch.zeros(18, 4, device=dev), p, att,
+                                  att, B=9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,bsz,c", [((14, 14), 3, 40), ((11, 13), 5, 7),
+                                      ((5, 3), 1, 130)])
+def test_winograd_kernels_match_twins(dev, dtype, hw, bsz, c):
+    g = torch.Generator().manual_seed(c)
+    h, w = hw
+    x = torch.randn(h, w, bsz, c, generator=g).to(dev, dtype)
+    v = wk.wino_input(x)
+    _close(v, wk.wino_input_plain(x), 1e-2 if dtype == torch.bfloat16
+           else 1e-5, 1e-3 if dtype == torch.bfloat16 else 1e-5)
+    m = torch.randn(v.shape, generator=g).to(dev, dtype)
+    bias = torch.randn(c, generator=g).to(dev)
+    frac = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    _close(wk.wino_middle(m, bias, h, w),
+           wk.wino_middle_plain(m, bias, h, w), rtol, frac)
+    _close(wk.wino_output(m, bias, h, w),
+           wk.wino_output_plain(m, bias, h, w), rtol, frac)
+    torch.cuda.synchronize()
+
+
+def test_winograd_stack_f32_matches_direct_conv(dev):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 14, 14, 24, generator=g)
+    layers = [(torch.randn(3, 3, 24, 12, generator=g) * 0.1,
+               torch.randn(12, generator=g)),
+              (torch.randn(3, 3, 12, 6, generator=g) * 0.1,
+               torch.randn(6, generator=g))]
+    from insenticap_model_tpu_torch import nn
+    want = x
+    for wt, b in layers:
+        want = nn.conv2d({"weight": wt, "bias": b}, want)
+    got = wk.conv3x3_stack_sm(x.to(dev).permute(1, 2, 0, 3),
+                              [(wt.to(dev), b.to(dev)) for wt, b in layers])
+    got = got.permute(2, 0, 1, 3).cpu()
+    scale = want.abs().max()
+    assert ((got - want).abs().max() / scale) < 2e-5
+
+
+def test_decode_kernel_path_matches_plain_path(dev):
+    """detect_and_decode on the card, kernels against plain, f32."""
+    from insenticap_model_tpu_torch import inference
+    s = Settings(word_emb_dim=32, fc_feat_dim=64, att_feat_dim=64,
+                 feat_emb_dim=32, rnn_hid_dim=32, att_hid_dim=32)
+    ids = cap.TokenIds(0, 1, 2, 3, 2)
+    gen = torch.Generator().manual_seed(0)
+    params = inference.ServingParams(
+        cap.init_params(gen, 50, 3, s, device=dev),
+        sd.init_params(gen, 3, s, device=dev))
+    g = torch.Generator().manual_seed(1)
+    fc = torch.rand(6, 64, generator=g).to(dev)
+    att = torch.rand(6, 14, 14, 64, generator=g).to(dev)
+    sentis = torch.randint(4, 50, (6, 5), generator=g).to(dev)
+    before = fa.beam_content_attention.launches
+    got = inference.detect_and_decode(params, fc, att, sentis, settings=s,
+                                      ids=ids, max_seq_len=8)
+    assert fa.beam_content_attention.launches > before
+    want = inference.detect_and_decode(params, fc, att, sentis, settings=s,
+                                       ids=ids, max_seq_len=8,
+                                       use_kernels=False)
+    torch.testing.assert_close(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+    assert beam.NEG_INF < got[1].min()
