@@ -27,8 +27,8 @@ class Settings:
     concept_mid_dim: int = 1024      # reference settings['concept_mid_him']
     sentiment_convs_num: int = 2
     sentiment_fcs_num: int = 2
-    # 0 = the standard SentimentDetector; >0 selects the "full" variant,
-    # which this package does not carry yet
+    # 0 = the standard SentimentDetector; >0 selects the "full" variant
+    # (models/sentiment_detector.module_for)
     num_kernels_per_sentiment: int = 0
     # vestigial in the reference (opts.py:92-95); kept for checkpoint
     # metadata compatibility only

@@ -10,8 +10,10 @@ the port's nested dicts of tensors (layouts in ``nn``):
   {"w_ih" [in, 4H], "w_hh", "b_ih", "b_hh"}
       -> {"weight_ih" [4H, in], "weight_hh" [4H, H], "bias_ih", "bias_hh"}
 
-``to_jax_numpy`` is the exact inverse (numpy out), used by the round-trip
-test. Neither needs JAX: the arrays cross as numpy.
+A leaf may also be a CPU tensor, as the port's checkpoint reader gives
+(``training/checkpoint.py``: numpy has no bfloat16, so bf16 arrays arrive
+as ``torch.bfloat16``). ``to_jax_numpy`` is the exact inverse (numpy out),
+used by the round-trip test. Neither needs JAX: the arrays cross as numpy.
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ _LSTM = ("w_ih", "w_hh", "b_ih", "b_hh")
 
 
 def _tensor(a, device, dtype):
+    if torch.is_tensor(a):
+        return torch.empty(a.shape, dtype=dtype or a.dtype,
+                           device=device).copy_(a)
     a = np.asarray(a)
     bf16 = a.dtype.name == "bfloat16"     # ml_dtypes: torch cannot read it
     # a copy: JAX's host arrays are read-only
@@ -32,6 +37,10 @@ def _tensor(a, device, dtype):
     if bf16 and dtype is None:
         dtype = torch.bfloat16
     return t.to(device=device, dtype=dtype)
+
+
+def _transpose(a):
+    return a.t() if torch.is_tensor(a) else np.asarray(a).T
 
 
 def _np(t) -> np.ndarray:
@@ -55,15 +64,16 @@ def from_jax_numpy(tree, *, device="cuda", dtype=None):
         if keys == {"table"}:
             return {"weight": _tensor(node["table"], dev, dtype)}
         if keys == set(_LSTM):
-            return {"weight_ih": _tensor(np.asarray(node["w_ih"]).T, dev,
+            return {"weight_ih": _tensor(_transpose(node["w_ih"]), dev,
                                          dtype),
-                    "weight_hh": _tensor(np.asarray(node["w_hh"]).T, dev,
+                    "weight_hh": _tensor(_transpose(node["w_hh"]), dev,
                                          dtype),
                     "bias_ih": _tensor(node["b_ih"], dev, dtype),
                     "bias_hh": _tensor(node["b_hh"], dev, dtype)}
         if "w" in keys and keys <= {"w", "b"}:
-            w = np.asarray(node["w"])
-            out = {"weight": _tensor(w.T if w.ndim == 2 else w, dev, dtype)}
+            w = node["w"]
+            out = {"weight": _tensor(_transpose(w) if w.ndim == 2 else w,
+                                     dev, dtype)}
             if "b" in node:
                 out["bias"] = _tensor(node["b"], dev, dtype)
             return out

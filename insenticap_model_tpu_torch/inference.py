@@ -1,6 +1,6 @@
 """Serving path: image-sentiment detection, then the batched beam decode.
 
-Counterpart of ``insenticap_model_tpu/inference.py`` (:26-65, 128-137,
+Counterpart of ``insenticap_model_tpu/inference.py`` (:26-65, 96-137,
 173-249), mirroring the reference ``Detector.sample`` (models/decoder.py:
 182-192): the detector's label (threshold -> neutral fallback) conditions a
 sentiment-aware beam search over the whole batch. PyTorch runs eagerly, so
@@ -11,6 +11,8 @@ variants come with the multi-device slice.
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import torch
 
 from .models import captioner as cap
 from .models import sentiment_detector as senti_det
@@ -37,7 +39,7 @@ def detect_and_decode(params: ServingParams, fc, att, sentis, *, settings,
     senti_labels [bs] int32), plus the weights dict with
     ``return_weights``. ``use_kernels=False`` runs the plain PyTorch
     versions on the card too (the CPU always runs them)."""
-    senti_labels, _, _ = senti_det.sample(
+    senti_labels, _, _ = senti_det.module_for(settings).sample(
         params.senti_detector, att, senti_threshold, ids.neutral,
         use_kernels=use_kernels)
     ctx = cap.build_visual_context(params.captioner, fc, att,
@@ -62,6 +64,35 @@ def decode_xe(params_captioner, fc, att, *, settings, ids: cap.TokenIds,
         beam_size=beam_size, max_seq_len=max_seq_len, mode="xe")
 
 
+def sweep_sentiments(params_captioner, fc, att, sentis_by_label, *,
+                     settings, ids: cap.TokenIds, num_labels: int = 3,
+                     beam_size: int = 3, max_seq_len: int = 16):
+    """Decode every image under every sentiment label (the paper's
+    controllable-sentiment sweep). sentis_by_label: [num_labels, bs, M]
+    sentiment-word ids per label. Returns (seqs [num_labels, bs, beam, T],
+    scores [num_labels, bs, beam]).
+
+    The label axis folds into the batch (rows label-major, as the JAX
+    package folds it), so the sweep is one decode at num_labels times the
+    rows; each row decodes independently, so the outputs equal the
+    per-label decodes."""
+    bs = fc.shape[0]
+    fc_flat = fc.repeat(num_labels, 1)
+    att_flat = att.repeat(num_labels, *([1] * (att.dim() - 1)))
+    sentis_flat = sentis_by_label.reshape(num_labels * bs,
+                                          *sentis_by_label.shape[2:])
+    labels_flat = torch.arange(num_labels, dtype=torch.int32,
+                               device=fc.device).repeat_interleave(bs)
+    ctx = cap.build_visual_context(params_captioner, fc_flat, att_flat,
+                                   senti_words=sentis_flat,
+                                   senti_labels=labels_flat, pad_id=ids.pad)
+    seqs, scores = beam.beam_search_batched(
+        params_captioner, ctx, settings=settings, ids=ids,
+        beam_size=beam_size, max_seq_len=max_seq_len, mode="rl")
+    return (seqs.reshape(num_labels, bs, *seqs.shape[1:]),
+            scores.reshape(num_labels, bs, *scores.shape[1:]))
+
+
 def make_serving_fn(settings, ids: cap.TokenIds, beam_size: int = 3,
                     max_seq_len: int = 16, return_weights: bool = False):
     """detect_and_decode with the static configuration bound."""
@@ -74,10 +105,14 @@ def make_serving_fn(settings, ids: cap.TokenIds, beam_size: int = 3,
 
 
 def make_detect_fn(senti_threshold: float = SENTI_THRESHOLD,
-                   neutral: int = 2):
-    """Image-sentiment label detection: fn(params, att) -> labels [bs]."""
+                   neutral: int = 2, settings=None):
+    """Image-sentiment label detection: fn(params, att) -> labels [bs].
+    ``settings`` selects the detector variant
+    (``sentiment_detector.module_for``); None is the standard head."""
+    sd = senti_det.module_for(settings)
+
     def fn(params, att):
-        return senti_det.sample(params, att, senti_threshold, neutral)[0]
+        return sd.sample(params, att, senti_threshold, neutral)[0]
     return fn
 
 

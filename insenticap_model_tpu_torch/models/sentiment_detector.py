@@ -10,11 +10,12 @@ pre-softmax logits and the softmax-weighted 14x14 spatial map.
 
 On a CUDA bf16 batch the 3x3 stack runs through the Winograd kernels
 (``ops/winograd_kernels.py``) spatial-major ``[H, W, bs, C]``; f32, and every
-CPU tensor, keeps the direct convolution. The "full" variant and
-``module_for`` come in a later slice.
+CPU tensor, keeps the direct convolution. ``module_for`` picks this head
+or the "full" variant (``sentiment_detector_full.py``) from ``Settings``.
 """
 from __future__ import annotations
 
+import sys
 from typing import Dict
 
 import torch
@@ -23,6 +24,17 @@ from .. import nn
 from ..ops.winograd import kernel_eligible
 from ..ops.winograd_kernels import conv3x3_stack_sm
 from ..utils.dtypes import resolve_device
+
+
+def module_for(settings):
+    """The detector module ``settings`` selects: this standard head, or the
+    "full" variant when ``num_kernels_per_sentiment > 0`` (the JAX
+    package's ``sentiment_detector.module_for``, :29-40). Both expose
+    ``init_params`` / ``forward`` / ``sample``."""
+    if getattr(settings, "num_kernels_per_sentiment", 0) > 0:
+        from . import sentiment_detector_full
+        return sentiment_detector_full
+    return sys.modules[__name__]
 
 
 def init_params(gen: torch.Generator, num_sentiments: int, settings, *,
@@ -42,10 +54,12 @@ def init_params(gen: torch.Generator, num_sentiments: int, settings, *,
     return params
 
 
-def forward(params, features, *, use_kernels: bool = True):
-    """features [bs, 14, 14, C] (NHWC). Returns (logits [bs, S], spatial
-    map [bs, 14, 14]). ``use_kernels=False`` keeps the direct convolution
-    on the card too (the reference run of the smoke check)."""
+def conv_stack(params, features, *, use_kernels: bool = True):
+    """The shared 3x3 conv stack and its ReLU, for both detector heads.
+    Returns (x, spatial_major): x is [H, W, bs, C] when the Winograd
+    kernels ran (``spatial_major`` True), else [bs, H, W, C].
+    ``use_kernels=False`` keeps the direct convolution on the card too
+    (the reference run of the smoke check)."""
     convs = params["convs"]
     fast = use_kernels and bool(convs) and all(
         kernel_eligible(features.shape, cp["weight"].shape, features.dtype,
@@ -60,7 +74,13 @@ def forward(params, features, *, use_kernels: bool = True):
         x = features
         for cp in convs:
             x = nn.conv2d(cp, x, padding="SAME")
-    x = torch.relu(x)
+    return torch.relu(x), fast
+
+
+def forward(params, features, *, use_kernels: bool = True):
+    """features [bs, 14, 14, C] (NHWC). Returns (logits [bs, S], spatial
+    map [bs, 14, 14])."""
+    x, fast = conv_stack(params, features, use_kernels=use_kernels)
     # a 1x1 conv mixes channels only, so it is correct on both layouts
     senti_maps = nn.conv2d(params["senti_conv"], x, padding="SAME")
     if fast:
@@ -79,8 +99,15 @@ def sample(params, features, senti_threshold: float, neu_idx: int, *,
     neutral (reference :47-60). Returns (labels [bs] int32, spatial
     [bs, 14, 14], scores [bs])."""
     logits, spatial = forward(params, features, use_kernels=use_kernels)
+    labels, scores = threshold_labels(logits, senti_threshold, neu_idx)
+    return labels, spatial, scores
+
+
+def threshold_labels(logits, senti_threshold: float, neu_idx: int):
+    """softmax -> (argmax labels [bs] int32 with the ones below the
+    threshold set to ``neu_idx``, max scores [bs])."""
     probs = torch.softmax(logits, dim=-1)
     scores, labels = probs.max(dim=-1)
     labels = torch.where(scores < senti_threshold,
                          torch.full_like(labels, neu_idx), labels)
-    return labels.to(torch.int32), spatial, scores
+    return labels.to(torch.int32), scores

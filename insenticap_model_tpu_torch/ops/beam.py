@@ -12,31 +12,38 @@ Counterpart of ``insenticap_model_tpu/ops/beam.py::beam_search_batched``
   * logits and the log-softmax normaliser are f32 even with bf16 params;
   * top-k is ``B`` argmax passes, the first index winning a tie
     (``torch.argmax`` returns the first maximal index; ``torch.topk``
-    leaves the tie order unspecified, so it is not used);
+    leaves the tie order unspecified, so it is not used); this vocab-wide
+    tail is ``ops/fused_topk.classifier_topk_plain``;
   * the loop stops early once every candidate has ended, then a backtrack
     rebuilds the sequences from the per-step (word, parent) records.
 
 On a CUDA batch the decode cell takes the beam-shared attention kernel
-(``ops/fused_attention.py``), which reads each image's att/p_att once for
-all its beams, for any batch size. The CPU, ``return_weights`` and
-``use_kernels=False`` run the plain tiled-rows cell, as the JAX package does
-off the TPU. The beam select of the LSTM state is a gather by parent (the
-JAX package's one-hot product was a TPU layout rule; both are exact).
+(``ops/fused_attention.py``; ``ISC_ATT_KERNEL`` picks v1 or v2), which
+reads each image's att/p_att once for all its beams, for any batch size.
+The CPU, ``return_weights`` and ``use_kernels=False`` run the plain
+tiled-rows cell, as the JAX package does off the TPU. ``ISC_FUSED_TOPK=1``,
+read at each call as the JAX package reads it at trace (its beam.py:
+165-207), sends the tail through ``fused_topk.classifier_topk``: the CUDA
+kernel for a CUDA batch, the same plain function on the CPU; it is not
+taken under ``return_weights`` or ``use_kernels=False``. The beam select
+of the LSTM state is a gather by parent (the JAX package's one-hot
+product was a TPU layout rule; both are exact).
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 import torch
-import torch.nn.functional as F
 
 from .. import nn
 from ..models.captioner import (DecodeContext, DecodeState, TokenIds,
                                 att_lstm_step, decode_cell, gated_fusion,
                                 senti_attention)
 from . import fused_attention as fa
-
-NEG_INF = -1e30  # finite sentinel: -inf arithmetic breaks tie handling
+from . import fused_topk
+# NEG_INF: finite sentinel (-inf arithmetic breaks tie handling)
+from .fused_topk import NEG_INF, _topk_argmax
 
 
 def _tile_ctx(ctx: DecodeContext, B: int) -> DecodeContext:
@@ -67,18 +74,6 @@ def _decode_cell_shared_att(params, sctx: DecodeContext, att, p_att,
     return h_lang, DecodeState(h_att, c_att, h_lang, c_lang)
 
 
-def _topk_argmax(x, k: int):
-    """Exact top-k along the last axis by k argmax passes: descending, the
-    first index winning a tie (the JAX package's ``_topk_argmax``)."""
-    vals, idxs = [], []
-    for _ in range(k):
-        i = x.argmax(dim=-1, keepdim=True)
-        vals.append(x.gather(-1, i)[..., 0])
-        idxs.append(i[..., 0])
-        x = x.scatter(-1, i, NEG_INF)
-    return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
-
-
 def beam_search_batched(params, ctx: DecodeContext, *, settings,
                         ids: TokenIds, beam_size: int, max_seq_len: int,
                         mode: str, decoding_constraint: bool = True,
@@ -95,7 +90,8 @@ def beam_search_batched(params, ctx: DecodeContext, *, settings,
     attention weights along each returned candidate's path, a dict of
     'cont' [bs, beam, T, N] (+ 'senti' [bs, beam, T, M+1] and 'fuse'
     [bs, beam, T, 1] in rl mode); it runs every step on the plain cell.
-    use_kernels=False runs the plain cell on the card as well."""
+    use_kernels=False runs the plain cell and the plain tail on the card
+    as well."""
     bs = ctx.fc.shape[0]
     B = beam_size
     T = max_seq_len
@@ -116,9 +112,19 @@ def beam_search_batched(params, ctx: DecodeContext, *, settings,
         sctx = _tile_ctx(ctx._replace(att=None, p_att=None), B)
     else:
         bctx = _tile_ctx(ctx, B)
-    # f32 classifier: logits and normaliser in f32 even with bf16 params
-    w_cls = params["classifier"]["weight"].float()
-    b_cls = params["classifier"]["bias"].float()
+    # the vocab-wide tail: f32 logits and normaliser even with bf16
+    # params; the fused kernel takes the params as they are
+    fused = (os.environ.get("ISC_FUSED_TOPK") == "1" and use_kernels
+             and not return_weights)
+    topk = fused_topk.classifier_topk if fused else \
+        fused_topk.classifier_topk_plain
+    w_cls, b_cls = params["classifier"]["weight"], params["classifier"]["bias"]
+    if not fused:   # cast once for the whole decode
+        w_cls, b_cls = w_cls.float(), b_cls.float()
+    # without the constraint no row bans its last word (the JAX package
+    # passes -1, beam.py:203-204)
+    no_last = None if decoding_constraint else torch.full(
+        (bs * B,), -1, dtype=torch.long, device=dev)
     k_idx = torch.arange(B, device=dev)
 
     words_buf = torch.full((T, bs, B), ids.eos, dtype=torch.long, device=dev)
@@ -136,14 +142,10 @@ def beam_search_batched(params, ctx: DecodeContext, *, settings,
         else:
             out, new_state, wts = decode_cell(params, bctx, state,
                                               last.reshape(-1), mode=mode)
-        with nn.exact_numerics():
-            logits = F.linear(out.float(), w_cls, b_cls)
-        logprobs = nn.log_softmax(logits)                     # [bs*B, V]
-        if ban_static:
-            logprobs[:, ban_static] = NEG_INF
-        if decoding_constraint:
-            logprobs.scatter_(1, last.reshape(-1, 1), NEG_INF)
-        topv2, topi2 = _topk_argmax(logprobs, B)              # [bs*B, B]
+        topv2, topi2 = topk(                                  # [bs*B, B]
+            out, w_cls, b_cls,
+            last.reshape(-1) if decoding_constraint else no_last,
+            k=B, banned=ban_static)
 
         ended = (last == ids.eos) if t > 0 else torch.zeros_like(
             last, dtype=torch.bool)

@@ -13,8 +13,8 @@ Counterpart of ``insenticap_model_tpu/serving_daemon.py``'s single-device
   when any row asks for it, forced rows override the detected label on
   the device, and one forced-label decode serves the mixed batch.
 
-The mesh and multi-host branches and ``make_batcher_from_checkpoint`` come
-in later slices.
+``make_batcher_from_checkpoint`` builds one from a JAX-written RL
+checkpoint. The mesh and multi-host branches come in later slices.
 """
 from __future__ import annotations
 
@@ -24,20 +24,13 @@ import numpy as np
 import torch
 
 from . import inference
+from .config import Settings
 from .serving.batching import (AUTO, DEFAULT_BUCKETS,   # noqa: F401
                                Saturated, _BatcherBase, _RequestBase,
                                default_buckets, prometheus_metrics)
-from .utils.dtypes import cast_bf16, resolve_device
+from .utils.dtypes import cast_bf16, resolve_device, to_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
 
 
 class _Request(_RequestBase):
@@ -82,8 +75,8 @@ class DynamicBatcher(_BatcherBase):
         self._device = resolve_device(device)
         self._ids = ids
         self._feat_dtype = _DTYPES[compute_dtype]
-        cap_params = _to_device(cap_params, self._device)
-        senti_params = _to_device(senti_params, self._device)
+        cap_params = to_device(cap_params, self._device)
+        senti_params = to_device(senti_params, self._device)
         if compute_dtype == "bfloat16":
             cap_params = cast_bf16(cap_params)
             senti_params = cast_bf16(senti_params)
@@ -97,7 +90,7 @@ class DynamicBatcher(_BatcherBase):
         self._num_cats = int(num_cats)
         self._buckets = tuple(int(b) for b in bucket_sizes)
         self._detect = inference.make_detect_fn(senti_threshold,
-                                                ids.neutral)
+                                                ids.neutral, settings)
         self._serve = inference.make_forced_serving_fn(
             settings, ids, beam_size, max_seq_len)
         super().__init__(cap_n=self._buckets[-1], max_wait_s=max_wait_s,
@@ -190,3 +183,37 @@ class DynamicBatcher(_BatcherBase):
                 self._stage(np.full((b, self._m), self._ids.pad, np.int64)),
                 self._stage(np.zeros((b,), np.int32)), True)
             seqs.cpu()
+
+
+def make_batcher_from_checkpoint(rl_model: str, *, beam_size: int = 3,
+                                 max_seq_len: int = 16,
+                                 bucket_sizes=None,
+                                 max_wait_s: float = 0.005,
+                                 compute_dtype: str = "float32",
+                                 num_sentiments: int = 10, device="cuda"):
+    """A DynamicBatcher (plus vocab, categories and settings) from a
+    composite RL checkpoint written by the JAX package (its
+    ``serving_daemon.make_batcher_from_checkpoint``, :337-369). The
+    checkpoint must carry ``idx2word`` and ``sentiment_categories`` in its
+    metadata and both the captioner and the detector in its tree."""
+    from .training import checkpoint as ckpt
+    from .vocab import Vocab, token_ids
+
+    device = resolve_device(device)
+    meta = ckpt.load_metadata(rl_model)
+    if meta.get("idx2word") is None:
+        raise ckpt.CheckpointError(f"{rl_model}: no idx2word in metadata")
+    params, meta = ckpt.load(rl_model, device=device)
+    for part in ("captioner", "senti_detector"):
+        if part not in params:
+            raise ckpt.CheckpointError(f"{rl_model}: no {part} in the tree")
+    settings = Settings.from_dict(meta["settings"])
+    vocab = Vocab(meta["idx2word"])
+    cats = meta["sentiment_categories"]
+    b = DynamicBatcher(params["captioner"], params["senti_detector"],
+                       settings=settings, ids=token_ids(vocab, cats),
+                       beam_size=beam_size, max_seq_len=max_seq_len,
+                       bucket_sizes=bucket_sizes, max_wait_s=max_wait_s,
+                       num_cats=len(cats), compute_dtype=compute_dtype,
+                       num_sentiments=num_sentiments, device=device)
+    return b, vocab, cats, settings

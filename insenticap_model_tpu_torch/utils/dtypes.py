@@ -27,6 +27,19 @@ def cast_f32(tree):
     return _map_floats(tree, torch.float32)
 
 
+def to_device(tree, device, dtype=None):
+    """Every tensor of a nested dict/list tree moved to ``device`` (lists
+    and tuples come back as lists); float tensors cast to ``dtype`` when it
+    is given."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_device(v, device, dtype) for v in tree]
+    if dtype is not None and tree.is_floating_point():
+        return tree.to(device=device, dtype=dtype)
+    return tree.to(device)
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The port runs on the card unless the caller asks for the CPU: a CUDA
     device is refused, not silently replaced, when CUDA is absent."""

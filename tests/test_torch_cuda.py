@@ -6,7 +6,10 @@ On a machine with one, run ``python -m pytest tests/test_torch_cuda.py``.
 Tolerances: f32 within 1e-4 (another summation order, and tanhf/expf of
 the device library against PyTorch's); a bf16 transform output within one
 bf16 rounding of the twin's (rtol 1e-2) plus 1e-3 of its scale, since the
-two round f32 sums taken in different orders."""
+two round f32 sums taken in different orders. The fused top-k: values
+within 1e-4, indices identical except at near-ties (where the plain
+version's neighbouring values differ by at most 1e-4), since the logits
+are sums in another order."""
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,7 @@ from insenticap_model_tpu_torch.models import captioner as cap
 from insenticap_model_tpu_torch.models import sentiment_detector as sd
 from insenticap_model_tpu_torch.ops import beam
 from insenticap_model_tpu_torch.ops import fused_attention as fa
+from insenticap_model_tpu_torch.ops import fused_topk as ft
 from insenticap_model_tpu_torch.ops import winograd_kernels as wk
 
 pytestmark = pytest.mark.cuda
@@ -35,18 +39,22 @@ def _close(got, want, rtol, scale_frac):
         float((got - want).abs().max())
 
 
+def _att_params(g, H, Ah, dev, dtype):
+    p = {"h2att": {"weight": torch.randn(Ah, H, generator=g) * 0.2,
+                   "bias": torch.randn(Ah, generator=g)},
+         "att_alpha": {"weight": torch.randn(1, Ah, generator=g),
+                       "bias": torch.randn(1, generator=g)}}
+    return {k: {kk: vv.to(dev, dtype) for kk, vv in v.items()}
+            for k, v in p.items()}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs,B,N", [(1, 3, 196), (7, 3, 50), (5, 1, 9),
                                     (3, 8, 196)])
 def test_attention_kernel_matches_twin(dev, dtype, bs, B, N):
     g = torch.Generator().manual_seed(bs * 31 + B)
     H, Ah, Fe = 48, 40, 72
-    p = {"h2att": {"weight": torch.randn(Ah, H, generator=g) * 0.2,
-                   "bias": torch.randn(Ah, generator=g)},
-         "att_alpha": {"weight": torch.randn(1, Ah, generator=g),
-                       "bias": torch.randn(1, generator=g)}}
-    p = {k: {kk: vv.to(dev, dtype) for kk, vv in v.items()}
-         for k, v in p.items()}
+    p = _att_params(g, H, Ah, dev, dtype)
     h = torch.randn(bs * B, H, generator=g).to(dev, dtype)
     att = torch.rand(bs, N, Fe, generator=g).to(dev, dtype)
     p_att = torch.rand(bs, N, Ah, generator=g).to(dev, dtype)
@@ -142,3 +150,156 @@ def test_decode_kernel_path_matches_plain_path(dev):
     torch.testing.assert_close(got[0], want[0])
     torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
     assert beam.NEG_INF < got[1].min()
+
+
+def _topk_agrees(got, want, tol=1e-4):
+    """got = kernel (v, i) [rows, k]; want = plain (v, i) [rows, k + 1]."""
+    gv, gi = (x.cpu() for x in got)
+    wv, wi = (x.cpu() for x in want)
+    k = gv.shape[1]
+    torch.testing.assert_close(gv, wv[:, :k], rtol=0, atol=tol)
+    for r, j in (gi != wi[:, :k]).nonzero().tolist():
+        gaps = [abs(float(wv[r, j] - wv[r, q])) for q in (j - 1, j + 1)
+                if 0 <= q <= k]
+        assert min(gaps) <= tol, (r, j, gi[r].tolist(), wi[r].tolist())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,V,H,k", [
+    (1, 1, 40, 3), (7, 1, 40, 8), (7, 300, 40, 1), (7, 300, 40, 8),
+    (1153, 300, 48, 5), (64, 129, 33, 2), (1, 10_000, 512, 3),
+    (1153, 10_000, 512, 3)])
+def test_topk_kernel_matches_plain(dev, dtype, rows, V, H, k):
+    g = torch.Generator().manual_seed(rows + V + k)
+    h = torch.randn(rows, H, generator=g).to(dev, dtype)
+    w = (torch.randn(V, H, generator=g) * 0.1).to(dev, dtype)
+    b = (torch.randn(V, generator=g) * 0.1).to(dev, dtype)
+    last = torch.randint(-1, V, (rows,), generator=g).to(dev)
+    banned = (0, 1, 2) if V > 3 else ()
+    before = ft.classifier_topk.launches
+    got = ft.classifier_topk(h, w, b, last, k=k, banned=banned)
+    torch.cuda.synchronize()
+    assert ft.classifier_topk.launches == before + 1
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int64
+    want = ft.classifier_topk_plain(h, w, b, last, k=k + 1, banned=banned)
+    _topk_agrees(got, want)
+    gi = got[1].cpu()
+    real = got[0].cpu() > ft.NEG_INF
+    assert not (real & torch.isin(gi, torch.tensor(banned, dtype=torch.long))
+                ).any()
+    assert not (real & (gi == last.cpu()[:, None])).any()
+    # no last-word bans at all
+    got = ft.classifier_topk(h, w, b, None, k=k, banned=banned)
+    want = ft.classifier_topk_plain(h, w, b, None, k=k + 1, banned=banned)
+    _topk_agrees(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_breaks_ties_to_the_lower_index(dev, dtype):
+    """Words 150..299 repeat words 0..149 exactly: in every row a twin
+    comes after its original."""
+    g = torch.Generator().manual_seed(3)
+    w = (torch.randn(150, 64, generator=g) * 0.1).repeat(2, 1)
+    b = (torch.randn(150, generator=g) * 0.1).repeat(2)
+    h = torch.randn(9, 64, generator=g)
+    w, b, h = (x.to(dev, dtype) for x in (w, b, h))
+    v, i = ft.classifier_topk(h, w, b, None, k=8)
+    vp, ip = ft.classifier_topk_plain(h.cpu(), w.cpu(), b.cpu(), None, k=8)
+    torch.testing.assert_close(v.cpu(), vp, rtol=0, atol=1e-4)
+    for row in i.cpu().tolist():
+        assert row[0::2] == [x - 150 for x in row[1::2]], row
+
+
+def test_topk_kernel_refuses_what_it_cannot_take(dev):
+    h = torch.zeros(4, 8, device=dev)
+    w = torch.zeros(20, 8, device=dev)
+    b = torch.zeros(20, device=dev)
+    with pytest.raises(ValueError):
+        ft.classifier_topk(h, w, b, None, k=9)
+    with pytest.raises(ValueError):
+        ft.classifier_topk(h, w, b, None, k=3, banned=tuple(range(9)))
+    with pytest.raises(TypeError):
+        ft.classifier_topk(h, w.bfloat16(), b, None, k=3)
+    with pytest.raises(TypeError):
+        ft.classifier_topk(h.half(), w.half(), b.half(), None, k=3)
+    with pytest.raises(ValueError):
+        ft.classifier_topk(h, w[:, :4], b, None, k=3)
+    with pytest.raises(ValueError):
+        ft.classifier_topk(h, w, b, torch.zeros(5, dtype=torch.long,
+                                                 device=dev), k=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,B,N,Fe", [(1, 3, 196, 72), (7, 3, 50, 72),
+                                       (5, 1, 9, 72), (3, 8, 196, 72),
+                                       (2, 3, 30, 1032)])
+def test_attention_v2_kernel_matches_plain(dev, dtype, bs, B, N, Fe):
+    g = torch.Generator().manual_seed(bs * 31 + B + Fe)
+    H, Ah = 48, 40
+    p = _att_params(g, H, Ah, dev, dtype)
+    h = torch.randn(bs * B, H, generator=g).to(dev, dtype)
+    att = torch.rand(bs, N, Fe, generator=g).to(dev, dtype)
+    p_att = torch.rand(bs, N, Ah, generator=g).to(dev, dtype)
+    before = (fa.beam_content_attention.launches,
+              fa.beam_content_attention.launches_v2)
+    got = fa.beam_content_attention(h, p, att, p_att, B=B, variant="v2")
+    torch.cuda.synchronize()
+    assert (fa.beam_content_attention.launches,
+            fa.beam_content_attention.launches_v2) == (before[0],
+                                                       before[1] + 1)
+    want = fa.beam_content_attention_plain(h, p, att, p_att, B=B,
+                                           variant="v2")
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _close(got, want, 1e-2, 1e-3)
+
+
+def test_attention_v2_kernel_refuses_what_it_cannot_take(dev):
+    g = torch.Generator().manual_seed(0)
+    att = torch.rand(2, 5, 16, generator=g).to(dev)
+    h = torch.rand(6, 32, generator=g).to(dev)
+    p = _att_params(g, 32, 16, dev, torch.float32)
+    with pytest.raises(ValueError):      # H % 16
+        fa.beam_content_attention(h[:, :24], _att_params(
+            g, 24, 16, dev, torch.float32), att, att, B=3, variant="v2")
+    with pytest.raises(ValueError):      # Fe % 8
+        fa.beam_content_attention(h, p, att[..., :12], att, B=3,
+                                  variant="v2")
+    with pytest.raises(ValueError):
+        fa.beam_content_attention(h, p, att, att, B=3, variant="v3")
+    with pytest.raises(TypeError):
+        fa.beam_content_attention(h.bfloat16(), p, att, att, B=3,
+                                  variant="v2")
+
+
+def test_decode_with_both_switches_matches_plain_path(dev, monkeypatch):
+    """ISC_FUSED_TOPK=1 and ISC_ATT_KERNEL=v2: detect_and_decode on the
+    card, both new kernels against the plain path, f32."""
+    from insenticap_model_tpu_torch import inference
+    monkeypatch.setenv("ISC_FUSED_TOPK", "1")
+    monkeypatch.setenv("ISC_ATT_KERNEL", "v2")
+    s = Settings(word_emb_dim=32, fc_feat_dim=64, att_feat_dim=64,
+                 feat_emb_dim=32, rnn_hid_dim=32, att_hid_dim=32)
+    ids = cap.TokenIds(0, 1, 2, 3, 2)
+    gen = torch.Generator().manual_seed(0)
+    params = inference.ServingParams(
+        cap.init_params(gen, 50, 3, s, device=dev),
+        sd.init_params(gen, 3, s, device=dev))
+    g = torch.Generator().manual_seed(1)
+    fc = torch.rand(6, 64, generator=g).to(dev)
+    att = torch.rand(6, 14, 14, 64, generator=g).to(dev)
+    sentis = torch.randint(4, 50, (6, 5), generator=g).to(dev)
+    before = (ft.classifier_topk.launches,
+              fa.beam_content_attention.launches_v2)
+    got = inference.detect_and_decode(params, fc, att, sentis, settings=s,
+                                      ids=ids, max_seq_len=8)
+    assert ft.classifier_topk.launches > before[0]
+    assert fa.beam_content_attention.launches_v2 > before[1]
+    want = inference.detect_and_decode(params, fc, att, sentis, settings=s,
+                                       ids=ids, max_seq_len=8,
+                                       use_kernels=False)
+    torch.testing.assert_close(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)

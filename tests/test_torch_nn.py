@@ -133,9 +133,10 @@ def _port_sources():
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports jax, flax or
-    the JAX package (the port keeps its own copies)."""
-    banned = ("jax", "flax", "insenticap_model_tpu")
+    """No module of the port, and not chip_smoke.py, imports jax, flax,
+    msgpack (the card's machine has none: the port decodes checkpoints
+    itself) or the JAX package (the port keeps its own copies)."""
+    banned = ("jax", "flax", "msgpack", "insenticap_model_tpu")
     offenders = []
     for path in _port_sources():
         with open(path) as fh:
@@ -154,13 +155,23 @@ def test_port_imports_no_jax():
     assert not offenders, offenders
 
 
-def test_entry_points_refuse_a_missing_card(monkeypatch, settings):
+def test_entry_points_refuse_a_missing_card(monkeypatch, settings, vocab,
+                                            tmp_path):
     """Entry points default to CUDA and raise when it is absent; the CPU
     is used only when the caller asks for it."""
+    from insenticap_model_tpu.training import checkpoint as jck
     from insenticap_model_tpu_torch.models import captioner as tcap
     from insenticap_model_tpu_torch.models import sentiment_detector as tsd
-    from insenticap_model_tpu_torch.serving_daemon import DynamicBatcher
-    from torch_parity import TIDS, port_settings
+    from insenticap_model_tpu_torch.serving_daemon import (
+        DynamicBatcher, make_batcher_from_checkpoint)
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    from torch_parity import TIDS, captioner_params, port_settings
+
+    path = str(tmp_path / "model.ckpt")
+    jp, _ = captioner_params(settings)
+    jck.save(path, {"captioner": jp}, None, {
+        "settings": settings.to_dict(), "idx2word": vocab.idx2word,
+        "sentiment_categories": ["positive", "negative", "neutral"]})
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     s = port_settings(settings)
@@ -176,4 +187,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, settings):
     dp = tsd.init_params(gen, 3, s, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         DynamicBatcher(cp, dp, settings=s, ids=TIDS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tck.load(path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_batcher_from_checkpoint(path)
     assert cp["classifier"]["weight"].device.type == "cpu"
+    assert tck.load(path, device="cpu")[0]["captioner"]["classifier"][
+        "weight"].device.type == "cpu"

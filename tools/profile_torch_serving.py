@@ -2,10 +2,14 @@
 """Where the time of the PyTorch port's serving step goes, on one card.
 
     python3 tools/profile_torch_serving.py [--bs 384] [--dtype bfloat16]
+        [--plain] [--switches default|fused_topk|v2|both] [--trained]
 
 Builds the full-width model (``Settings()`` defaults, vocab 10,000, beam
-3, 16 tokens, random weights from a seed), warms ``detect_and_decode``
-up, then times it three ways:
+3, 16 tokens, random weights from a seed and uniform features; with
+``--trained`` the captioner of ``assets/bench_trained.ckpt`` and
+standard-normal features), sets the kernel switches (``--switches``:
+``ISC_FUSED_TOPK=1``, ``ISC_ATT_KERNEL=v2`` or both), warms
+``detect_and_decode`` up, then times it three ways:
 
 1. host clock around synchronised steps (median of 5): the step time;
 2. the detector alone and the beam decode alone, the same way;
@@ -30,6 +34,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 VOCAB = 10_000
+SWITCHES = {"default": {}, "fused_topk": {"ISC_FUSED_TOPK": "1"},
+            "v2": {"ISC_ATT_KERNEL": "v2"},
+            "both": {"ISC_FUSED_TOPK": "1", "ISC_ATT_KERNEL": "v2"}}
+TRAINED_CKPT = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets", "bench_trained.ckpt")
 BEAM = 3
 T = 16
 M = 10
@@ -67,7 +76,15 @@ def main():
                     choices=("bfloat16", "float32"))
     ap.add_argument("--plain", action="store_true",
                     help="profile the plain PyTorch path instead")
+    ap.add_argument("--switches", default="default", choices=SWITCHES,
+                    help="kernel switches to set for the run")
+    ap.add_argument("--trained", action="store_true",
+                    help="the trained captioner and standard-normal "
+                    "features")
     args = ap.parse_args()
+    for k in ("ISC_FUSED_TOPK", "ISC_ATT_KERNEL"):
+        os.environ.pop(k, None)
+    os.environ.update(SWITCHES[args.switches])
 
     import torch
     if not torch.cuda.is_available():
@@ -79,7 +96,8 @@ def main():
     from insenticap_model_tpu_torch.models import captioner as cap
     from insenticap_model_tpu_torch.models import sentiment_detector as sd
     from insenticap_model_tpu_torch.ops import beam
-    from insenticap_model_tpu_torch.utils.dtypes import cast_bf16
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    from insenticap_model_tpu_torch.utils.dtypes import cast_bf16, cast_f32
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -88,17 +106,20 @@ def main():
     s = Settings()
     ids = cap.TokenIds(pad=0, unk=1, sos=2, eos=3, neutral=2)
     gen = torch.Generator().manual_seed(0)
+    if args.trained:
+        captioner = tck.load(TRAINED_CKPT, device=dev)[0]["captioner"]
+    else:
+        captioner = cap.init_params(gen, VOCAB, NUM_CATS, s, device=dev)
     params = inference.ServingParams(
-        cap.init_params(gen, VOCAB, NUM_CATS, s, device=dev),
-        sd.init_params(gen, NUM_CATS, s, device=dev))
+        captioner, sd.init_params(gen, NUM_CATS, s, device=dev))
     dt = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    if dt == torch.bfloat16:
-        params = inference.ServingParams(*map(cast_bf16, params))
+    params = inference.ServingParams(*map(
+        cast_bf16 if dt == torch.bfloat16 else cast_f32, params))
     g = torch.Generator(device=dev).manual_seed(1)
     bs = args.bs
-    fc = torch.rand(bs, s.fc_feat_dim, generator=g, device=dev).to(dt)
-    att = torch.rand(bs, 14, 14, s.att_feat_dim, generator=g,
-                     device=dev).to(dt)
+    feats = torch.randn if args.trained else torch.rand
+    fc = feats(bs, s.fc_feat_dim, generator=g, device=dev).to(dt)
+    att = feats(bs, 14, 14, s.att_feat_dim, generator=g, device=dev).to(dt)
     sw = torch.randint(4, VOCAB, (bs, M), generator=g, device=dev)
     use_kernels = not args.plain
     kw = dict(settings=s, ids=ids, beam_size=BEAM, max_seq_len=T)
@@ -151,6 +172,8 @@ def main():
     report = {
         "device": smi, "bs": bs, "dtype": args.dtype,
         "path": "plain" if args.plain else "kernels",
+        "switches": args.switches,
+        "weights": "trained" if args.trained else "random",
         "step_ms": step_s * 1e3, "captions_per_s": bs / step_s,
         "detect_ms": detect_s * 1e3, "decode_ms": decode_s * 1e3,
         "profiled_step_wall_ms": prof_wall_s * 1e3,
@@ -163,7 +186,8 @@ def main():
                         for k, (c, us) in top],
     }
     print(f"device: {smi}")
-    print(f"bs={bs} {args.dtype} {report['path']}: step "
+    print(f"bs={bs} {args.dtype} {report['path']} switches="
+          f"{args.switches} weights={report['weights']}: step "
           f"{report['step_ms']:.2f} ms ({report['captions_per_s']:.1f} "
           f"captions/s), detector {report['detect_ms']:.2f} ms, decode "
           f"{report['decode_ms']:.2f} ms")
@@ -174,7 +198,8 @@ def main():
     for k in report["top_kernels"]:
         print(f"  {k['ms']:8.3f} ms {k['launches']:5d}x  {k['name'][:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    tag = f"{report['path']}_{args.dtype}_bs{bs}"
+    tag = (f"{report['path']}_{args.switches}_{report['weights']}_"
+           f"{args.dtype}_bs{bs}")
     prof.export_chrome_trace(os.path.join("chiprun_out",
                                           f"serve_trace_{tag}.json"))
     with open(os.path.join("chiprun_out", f"serve_profile_{tag}.json"),
