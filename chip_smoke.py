@@ -11,7 +11,10 @@ into the git-ignored build directory), then:
 2. holds every kernel against its plain PyTorch version on the card, at
    the serving shapes (bs=384; attention v1 and v2 in bf16 and f32, the
    Winograd transforms in bf16, the fused classifier top-k at 1152 rows x
-   10,000 words in bf16 and f32), with the tolerances stated at each check;
+   10,000 words in bf16 and f32; the encoder stem's max pool in bf16 and
+   f32 at [32,224,224,64] and [32,192,256,64], the 448x448 and 384x512
+   buckets at bs=32, and an odd extent, exactly), with the tolerances
+   stated at each check;
 3. drives the main path: a full-width bf16 ``DynamicBatcher`` (512-d
    model, 2048-d 14x14 features, vocab 10,000, beam 3, 16 tokens, random
    weights from a seed) answers 41 requests from threads, mixing auto and
@@ -25,17 +28,31 @@ into the git-ignored build directory), then:
    answers 40 requests; the launch counts are set to 0 just before and
    read just after, and every caption must end, with a mean length in
    [8, 13] and fewer than 16 decode steps a batch;
+3c. drives the image path: a bf16 ``EncodeBatcher`` (ResNet-101 at full
+   depth and the 2000-concept MLP, random weights from a seed, the ladder
+   1/4/16/32 over the three resize buckets) chained to a phase-3 decode
+   batcher through the concepts' ranked sentiment words (a synthetic
+   concept list, sentiment table and vocabulary from the same seed)
+   answers 40 uint8 image requests and 4 fc requests from threads, auto
+   and forced labels; the launch counts are set to 0 just before and read
+   just after, and the pool's must equal the image encode groups
+   dispatched; every request gets a caption and 5 distinct concept ids in
+   range; then 96 images of 448x448 at once give the encode throughput;
 4. runs ``detect_and_decode`` at bs=384 in f32 on the kernel path and on
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
    identical top-beam tokens on at least 99% of the images and, on those,
-   top-beam scores within 1e-3;
+   top-beam scores within 1e-3; runs the f32 encoder (bs=16, 448x448) with
+   the pool kernel and with the plain pool (fc/att within 1e-5 of scale,
+   identical concept ids), and the bf16 encoder against the f32 one (rms
+   error at most 0.1 of the f32 features' rms);
 5. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of 5
    runs after warm-up); the bf16 serving step at bs=384 under the four
    switch settings on random weights, and captions/s and mean caption
    length on the trained weights, default and both switches (host clock,
-   the settings taken in turns, median of 6 each);
+   the settings taken in turns, median of 6 each); ``forward_raw_batch``
+   at bs=32, 448x448, bf16 and f32 (host clock, median of 5);
 6. prints one ``kernels`` JSON line (every check above passed, or the run
    would have stopped), the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
@@ -64,7 +81,14 @@ T = 16
 M = 10                       # sentiment words per request
 NUM_CATS = 3
 BANNED = (0, 1, 2)           # pad, unk, sos: the beam's static bans
-SOURCES = ["fused_attention", "winograd", "fused_topk", "fused_attention_v2"]
+SOURCES = ["fused_attention", "winograd", "fused_topk", "fused_attention_v2",
+           "maxpool"]
+N_CONCEPTS = 2000            # the concept detector's outputs
+K_CONCEPTS = 5               # concepts per image
+ENC_BS = 32                  # the encode ladder's top bucket
+# the stem's pool inputs at ENC_BS for the 448x448 and 384x512 buckets
+POOL_SHAPES = {"448x448": (ENC_BS, 224, 224, 64),
+               "384x512": (ENC_BS, 192, 256, 64)}
 TRAINED_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "assets", "bench_trained.ckpt")
 SWITCH_SETS = {"default": {}, "fused_topk": {"ISC_FUSED_TOPK": "1"},
@@ -141,16 +165,15 @@ def _first_eos(seqs, eos):
     return np.where(hit.any(axis=1), hit.argmax(axis=1), seqs.shape[1])
 
 
-def _serve(batcher, fcs, atts, sentis, forced, groups):
-    """Submit every request from its own thread, group after group; returns
-    (results, errors, seconds)."""
-    results = [None] * len(fcs)
+def _run_groups(request, n, groups):
+    """Call request(i) for every i from its own thread, the groups one
+    after another; returns (results, errors, seconds)."""
+    results = [None] * n
     errors = []
 
     def ask(i):
         try:
-            results[i] = batcher.submit(fcs[i], atts[i], sentis[i],
-                                        forced_label=forced[i], timeout=600)
+            results[i] = request(i)
         except Exception as e:  # noqa: BLE001 — raised by the caller
             errors.append(repr(e))
 
@@ -163,6 +186,14 @@ def _serve(batcher, fcs, atts, sentis, forced, groups):
             th.join(timeout=900)
             _check(not th.is_alive(), "a request never returned")
     return results, errors, time.time() - t0
+
+
+def _serve(batcher, fcs, atts, sentis, forced, groups):
+    """Submit every request from its own thread, group after group; returns
+    (results, errors, seconds)."""
+    return _run_groups(lambda i: batcher.submit(
+        fcs[i], atts[i], sentis[i], forced_label=forced[i], timeout=600),
+        len(fcs), groups)
 
 
 def _check_results(results, errors):
@@ -225,19 +256,27 @@ def main():
         _fail("torch.cuda.is_available() is false: this check needs a card")
     try:
         from insenticap_model_tpu_torch import inference, nn
+        from insenticap_model_tpu_torch.cli.common import senti_word_ids
         from insenticap_model_tpu_torch.config import Settings
         from insenticap_model_tpu_torch.models import captioner as cap
+        from insenticap_model_tpu_torch.models import concept_detector as cpt
+        from insenticap_model_tpu_torch.models import encoder
         from insenticap_model_tpu_torch.models import sentiment_detector as sd
         from insenticap_model_tpu_torch.ops import _build
         from insenticap_model_tpu_torch.ops import fused_attention as fa
         from insenticap_model_tpu_torch.ops import fused_topk as ft
+        from insenticap_model_tpu_torch.ops import pool
         from insenticap_model_tpu_torch.ops import winograd_kernels as wk
         from insenticap_model_tpu_torch.ops.winograd import transform_filter
+        from insenticap_model_tpu_torch.preprocessing import (
+            DEFAULT_BUCKET_SHAPES)
+        from insenticap_model_tpu_torch.serving.encode import make_cpt_apply
         from insenticap_model_tpu_torch.serving_daemon import (
-            AUTO, DynamicBatcher)
+            AUTO, DynamicBatcher, EncodeBatcher)
         from insenticap_model_tpu_torch.training import checkpoint as tck
         from insenticap_model_tpu_torch.utils.dtypes import (cast_bf16,
                                                              cast_f32)
+        from insenticap_model_tpu_torch.vocab import Vocab
     except ImportError as e:
         _fail(f"the port's package is not importable here: {e}")
     import numpy as np
@@ -423,6 +462,31 @@ def main():
     del stack_k, stack_p, ref, direct16, m1, m2, v, v2, y
     torch.cuda.empty_cache()
 
+    # the stem's ceil-mode max pool at the serving buckets' shapes, an odd
+    # extent (the ceil-pad row and column masked) and the spatial-major
+    # form: max is exact, so torch.equal
+    pool_in = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        for name, shape in list(POOL_SHAPES.items()) + [
+                ("odd", (5, 111, 97, 64))]:
+            xp = torch.randn(shape, generator=g, device=dev).to(dt)
+            same = torch.equal(pool.ceil_maxpool_3x3s2_nhwc(xp),
+                               pool.ceil_maxpool_3x3s2_plain(xp))
+            if name == "odd":
+                same = same and torch.equal(
+                    pool.ceil_maxpool_3x3s2_sm(
+                        xp.permute(1, 2, 0, 3).contiguous())
+                    .permute(2, 0, 1, 3), pool.ceil_maxpool_3x3s2_plain(xp))
+            else:
+                pool_in[(name, dt)] = xp
+            torch.cuda.synchronize()
+            print(f"check ceil_maxpool_3x3s2 {tag} {list(shape)}: equal "
+                  f"{same} {'ok' if same else 'FAIL'}")
+            _check(same, f"max pool kernel {tag} {shape} differs from its "
+                   "plain version")
+    checks["ceil_maxpool_3x3s2"] = 0.0
+
     # -- 3. the main path: full-width bf16 serving through DynamicBatcher --
     rng = np.random.default_rng(2)
     n_req = 41
@@ -437,7 +501,8 @@ def main():
         fa.beam_content_attention.launches = 0
         fa.beam_content_attention.launches_v2 = 0
         ft.classifier_topk.launches = 0
-        for c in (wk.wino_input, wk.wino_middle, wk.wino_output):
+        for c in (wk.wino_input, wk.wino_middle, wk.wino_output,
+                  pool.ceil_maxpool_3x3s2_nhwc):
             c.launches = 0
 
     def read_counters():
@@ -447,7 +512,8 @@ def main():
                 "classifier_topk": ft.classifier_topk.launches,
                 "wino_input": wk.wino_input.launches,
                 "wino_middle": wk.wino_middle.launches,
-                "wino_output": wk.wino_output.launches}
+                "wino_output": wk.wino_output.launches,
+                "ceil_maxpool_3x3s2": pool.ceil_maxpool_3x3s2_nhwc.launches}
 
     with _switches("default"):
         batcher = DynamicBatcher(cap32, det32, settings=settings, ids=ids,
@@ -534,6 +600,115 @@ def main():
         "mean_len": float(lens.mean()), "max_len": int(lens.max()),
         "steps_per_batch": steps_per_batch}
 
+    # -- 3c. the image path: uint8 images -> ResNet-101 + concepts -> ------
+    # sentiment words -> captions, two batchers chained
+    gen_e = torch.Generator().manual_seed(5)
+    enc32 = encoder.init_params(gen_e, device=dev)
+    cpt32 = cpt.init_params(gen_e, N_CONCEPTS, settings, device=dev)
+    enc16 = cast_bf16(enc32)
+    rng = np.random.default_rng(6)
+    idx2concept = [f"concept{i}" for i in range(N_CONCEPTS)]
+    words = ["<PAD>", "<UNK>", "<SOS>", "<EOS>"] + [
+        f"word{i}" for i in range(VOCAB - 4)]
+    vocab = Vocab(words)
+    _check((vocab.pad_id, vocab.unk_id, vocab.sos_id, vocab.eos_id)
+           == (ids.pad, ids.unk, ids.sos, ids.eos), "vocab special ids")
+    senti_table = {c: [[words[int(w)], float(s)] for w, s in zip(
+        rng.integers(4, VOCAB, 6), rng.random(6))] for c in idx2concept}
+    n_img, n_fc = 40, 4
+    shapes = [DEFAULT_BUCKET_SHAPES[i % 3] for i in range(n_img)]
+    imgs = [rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+            for h, w in shapes]
+    fcs_c = rng.random((n_fc, settings.fc_feat_dim), np.float32)
+    atts_c = rng.random((n_fc, 14, 14, C0), np.float32)
+    forced_c = [AUTO if i % 3 else i % NUM_CATS for i in range(n_img + n_fc)]
+
+    def image_request(eb, db):
+        def request(i):
+            if i < n_img:
+                fc, att, top = eb.submit_image(imgs[i], timeout=600)
+            else:
+                fc, att = fcs_c[i - n_img], atts_c[i - n_img]
+                top = eb.submit_fc(fc, timeout=600)
+            sentis = senti_word_ids([idx2concept[k] for k in top],
+                                    senti_table, vocab, M)
+            return top, sentis, db.submit(fc, att, sentis,
+                                          forced_label=forced_c[i],
+                                          timeout=600)
+        return request
+
+    eb = EncodeBatcher(lambda x: encoder.forward_raw_batch(enc16, x),
+                       make_cpt_apply(cpt32, K_CONCEPTS),
+                       fc_dim=settings.fc_feat_dim,
+                       shape_buckets=DEFAULT_BUCKET_SHAPES, max_wait_s=0.05,
+                       device=dev)
+    db = DynamicBatcher(cap32, det32, settings=settings, ids=ids,
+                        beam_size=BEAM, max_seq_len=T, max_wait_s=0.05,
+                        num_sentiments=M, num_cats=NUM_CATS,
+                        compute_dtype="bfloat16", device=dev)
+    try:
+        with _switches("default"):
+            t0 = time.time()
+            eb.warm()
+            db.warm([1, 8, 32])
+            torch.cuda.synchronize()
+            warm_c_s = time.time() - t0
+            zero_counters()
+            results_c, errors_c, serve_c_s = _run_groups(
+                image_request(eb, db), n_img + n_fc,
+                ([0], range(1, 7), range(7, 37), range(37, n_img + n_fc)))
+            launches_c = read_counters()
+            enc_stats, dec_stats = eb.stats(), db.stats()
+            # encode throughput: 96 images of 448x448 in flight at once
+            tput = [rng.integers(0, 256, size=(448, 448, 3), dtype=np.uint8)
+                    for _ in range(3 * ENC_BS)]
+            torch.cuda.synchronize()
+            _, errors_t, tput_s = _run_groups(
+                lambda i: eb.submit_image(tput[i], timeout=600),
+                len(tput), [range(len(tput))])
+            _check(not errors_t, f"throughput requests failed: {errors_t}")
+    finally:
+        eb.close()
+        db.close()
+    _check(not errors_c, f"image-path requests failed: {errors_c}")
+    _check_results([r[2] for r in results_c], [])
+    for top, sentis, _ in results_c:
+        top = np.asarray(top)
+        _check(top.shape == (K_CONCEPTS,) and top.min() >= 0
+               and top.max() < N_CONCEPTS, f"concept ids {top}")
+        _check(len(set(top.tolist())) == K_CONCEPTS, "repeated concept id")
+    img_groups = sum(enc_stats["by_bucket"][f"{h}x{w}"]
+                     for h, w in DEFAULT_BUCKET_SHAPES)
+    print(f"image path: {n_img} images + {n_fc} fc requests in "
+          f"{serve_c_s:.2f} s (warm-up {warm_c_s:.1f} s); encode groups by "
+          f"bucket {enc_stats['by_bucket']}, decode batches by bucket "
+          f"{dec_stats['by_bucket']}, launches {launches_c}; encode "
+          f"throughput {len(tput) / tput_s:.1f} images/s ({len(tput)} "
+          f"images of 448x448 in {tput_s:.2f} s)")
+    _check(enc_stats["requests"] == n_img + n_fc
+           and enc_stats["failed_requests"] == 0, f"encode stats {enc_stats}")
+    _check(launches_c["ceil_maxpool_3x3s2"] > 0
+           and launches_c["ceil_maxpool_3x3s2"] == img_groups,
+           f"max pool launches {launches_c['ceil_maxpool_3x3s2']} != "
+           f"{img_groups} image encode groups")
+    for k in ("beam_content_attention", "wino_input", "wino_middle",
+              "wino_output"):
+        _check(launches_c[k] > 0, f"kernel {k} never launched on the image "
+               "path")
+    report["image_path"] = {
+        "serve_s": serve_c_s, "warm_s": warm_c_s,
+        "encode_by_bucket": enc_stats["by_bucket"],
+        "encode_latency": enc_stats["latency_by_bucket"],
+        "decode_by_bucket": dec_stats["by_bucket"],
+        "decode_latency": dec_stats["latency_by_bucket"],
+        "padded_rows": enc_stats["padded_rows"], "launches": launches_c,
+        "encode_images_per_s_448": len(tput) / tput_s,
+        "labels": sorted({int(r[2][2]) for r in results_c}),
+        "distinct_concept_sets": len({tuple(np.asarray(r[0]).tolist())
+                                      for r in results_c})}
+    del tput, imgs
+    torch.cuda.empty_cache()
+
     # -- 4. f32 end to end: kernel path against the plain path -------------
     params32 = inference.ServingParams(cap32, det32)
     fc = torch.rand(BS, settings.fc_feat_dim, generator=g, device=dev)
@@ -564,6 +739,47 @@ def main():
     _check(0 < steps_f32 < T, f"f32 trained decode ran {steps_f32} steps")
     report["e2e_f32_trained_both"]["steps"] = steps_f32
     del params32, params_t32, kernel_out
+    torch.cuda.empty_cache()
+
+    # the f32 encoder at 448x448, pool kernel against the plain pool: the
+    # pool is exact, so only cuDNN's choice of algorithm between calls may
+    # move fc/att (held to 1e-5 of scale); concept ids identical. Then the
+    # bf16 encoder against the f32 one: 101 layers of bf16 roundings, held
+    # to an rms error of 0.1 of the f32 features' rms
+    imgs4 = torch.randint(0, 256, (16, 448, 448, 3), dtype=torch.uint8,
+                          generator=g, device=dev)
+    fk, ak = encoder.forward_raw_batch(enc32, imgs4)
+    fp, ap = encoder.forward_raw_batch(enc32, imgs4, use_kernels=False)
+    e_fc = float((fk - fp).abs().max()) / float(fp.abs().max())
+    e_att = float((ak - ap).abs().max()) / float(ap.abs().max())
+    tk = cpt.sample(cpt32, fk, K_CONCEPTS)[1]
+    tp_ = cpt.sample(cpt32, fp, K_CONCEPTS)[1]
+    f16, a16 = encoder.forward_raw_batch(enc16, imgs4)
+    rel = lambda a, b: float((a.float() - b).pow(2).mean().sqrt()  # noqa
+                             / b.pow(2).mean().sqrt())
+    r_fc, r_att = rel(f16, fp), rel(a16, ap)
+    m_fc = float((f16.float() - fp).abs().max()) / float(fp.abs().max())
+    t16 = cpt.sample(cpt32, f16.float(), K_CONCEPTS)[1]
+    shared = float(np.mean([len(set(a) & set(b)) / K_CONCEPTS for a, b in
+                            zip(t16.tolist(), tp_.tolist())]))
+    sat = float((cpt.forward(cpt32, fp) == 1.0).float().mean())
+    print(f"encoder f32 bs=16 448x448, kernel vs plain pool: max err of "
+          f"scale fc {e_fc:.3g} att {e_att:.3g} (<= 1e-5), concept ids "
+          f"equal {bool(torch.equal(tk, tp_))}; bf16 vs f32: rms err fc "
+          f"{r_fc:.4g} att {r_att:.4g} (<= 0.1), max err of scale fc "
+          f"{m_fc:.4g}, top-{K_CONCEPTS} concepts shared {shared:.2%}; "
+          f"features scale fc {float(fp.abs().max()):.4g}, concept scores "
+          f"at exactly 1.0: {sat:.2%}")
+    _check(e_fc <= 1e-5 and e_att <= 1e-5, "encoder kernel path differs from "
+           "the plain path")
+    _check(torch.equal(tk, tp_), "concept ids differ between the kernel "
+           "and plain encoder paths")
+    _check(r_fc <= 0.1 and r_att <= 0.1, "bf16 encoder too far from f32")
+    report["encoder_f32_kernel_vs_plain"] = {"fc": e_fc, "att": e_att}
+    report["encoder_bf16_vs_f32"] = {
+        "rms_fc": r_fc, "rms_att": r_att, "max_fc_of_scale": m_fc,
+        "concepts_shared": shared, "saturated_scores_f32": sat}
+    del fk, ak, fp, ap, f16, a16
     torch.cuda.empty_cache()
 
     # -- 5. times ------------------------------------------------------------
@@ -696,6 +912,53 @@ def main():
                                 "bound_ms": stack_bound}
     del v, v2, m1, m2, xn
 
+    # the stem's max pool at both buckets' shapes, bf16 and f32: each
+    # input read once and each output written once; the library's
+    # F.max_pool2d on the channels-last view as the yardstick
+    pool_times = {}
+    for (name, dt), xp in pool_in.items():
+        B_, H_, W_, C_ = xp.shape
+        oh_, ow_ = pool.out_extent(H_), pool.out_extent(W_)
+        x_cl = xp.permute(0, 3, 1, 2)
+        nbytes = xp.element_size() * (B_ * H_ * W_ + B_ * oh_ * ow_) * C_
+        bnd, by_ = _bound(nbytes, 8 * B_ * oh_ * ow_ * C_, F32_FLOP_S)
+        pool_times[f"{name}_{'bf16' if dt == torch.bfloat16 else 'f32'}"] = {
+            "ms": _ms(torch, lambda: pool.ceil_maxpool_3x3s2_nhwc(xp)),
+            "plain_ms": _ms(torch, lambda: pool.ceil_maxpool_3x3s2_plain(xp),
+                            reps=5),
+            "library_ms": _ms(torch, lambda: torch.nn.functional.max_pool2d(
+                x_cl, 3, 2, 0, ceil_mode=True)),
+            "bound_ms": bnd, "bound_by": by_}
+    report["ceil_maxpool_3x3s2"] = pool_times
+    p16 = pool_times["448x448_bf16"]
+    kernels.append({
+        "name": "ceil_maxpool_3x3s2", "route": "cuda",
+        "source": "insenticap_model_tpu_torch/csrc/maxpool.cu",
+        "replaces": "insenticap_model_tpu/ops/pool_pallas.py:38",
+        "launches": launches_c["ceil_maxpool_3x3s2"],
+        "max_abs_err": checks["ceil_maxpool_3x3s2"], "ms": p16["ms"],
+        "plain_ms": p16["plain_ms"], "bound_ms": p16["bound_ms"],
+        "bound_by": p16["bound_by"], "library_ms": p16["library_ms"],
+        "passed": True})
+    del pool_in, x_cl
+
+    # the encoder at the top of the encode ladder, 448x448, host clock
+    imgs32 = torch.randint(0, 256, (ENC_BS, 448, 448, 3), dtype=torch.uint8,
+                           generator=g, device=dev)
+    enc_times = {}
+    for tag, ep in (("bf16", enc16), ("f32", enc32)):
+        walls = []
+        for r in range(6):
+            t0 = time.perf_counter()
+            encoder.forward_raw_batch(ep, imgs32)
+            torch.cuda.synchronize()
+            if r:                                  # the first is warm-up
+                walls.append(time.perf_counter() - t0)
+        s_ = statistics.median(walls)
+        enc_times[tag] = {"ms": s_ * 1e3, "images_per_s": ENC_BS / s_}
+    report["encoder_bs32_448"] = enc_times
+    del imgs32, enc32, enc16
+
     # the serving step: detect + decode, bf16, bs=384, host clock; its
     # detector alone; and the same step on the plain path
     params16 = inference.ServingParams(cap16, det16)
@@ -772,6 +1035,14 @@ def main():
                   total_s=time.time() - t_start)
     print(f"winograd stack bf16 bs={BS}: {stack_ms:.3f} ms (bound "
           f"{stack_bound:.3f} ms), F.conv2d two convs {lib_ms:.3f} ms")
+    for name, r in pool_times.items():
+        print(f"ceil_maxpool_3x3s2 {name} bs={ENC_BS}: {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, F.max_pool2d "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+    for tag, r in enc_times.items():
+        print(f"encoder forward_raw_batch {tag} bs={ENC_BS} 448x448: "
+              f"{r['ms']:.2f} ms median of 5 -> {r['images_per_s']:.1f} "
+              "images/s")
     print(f"attention f32 bs={BS}: {a32_ms:.4f} ms (bound "
           f"{a32_bound:.4f} ms)")
     print(f"attention v2 f32 bs={BS}: {v2_32:.4f} ms; classifier_topk "

@@ -9,6 +9,7 @@ the port's nested dicts of tensors (layouts in ``nn``):
   {"table"}                            -> {"weight"}
   {"w_ih" [in, 4H], "w_hh", "b_ih", "b_hh"}
       -> {"weight_ih" [4H, in], "weight_hh" [4H, H], "bias_ih", "bias_hh"}
+  {"scale", "bias", "mean", "var"}     -> the same (the encoder's BatchNorm)
 
 A leaf may also be a CPU tensor, as the port's checkpoint reader gives
 (``training/checkpoint.py``: numpy has no bfloat16, so bf16 arrays arrive
@@ -23,6 +24,7 @@ import torch
 from .utils.dtypes import resolve_device
 
 _LSTM = ("w_ih", "w_hh", "b_ih", "b_hh")
+_BN = {"scale", "bias", "mean", "var"}
 
 
 def _tensor(a, device, dtype):
@@ -63,6 +65,8 @@ def from_jax_numpy(tree, *, device="cuda", dtype=None):
         keys = set(node)
         if keys == {"table"}:
             return {"weight": _tensor(node["table"], dev, dtype)}
+        if keys == _BN:
+            return {k: _tensor(v, dev, dtype) for k, v in node.items()}
         if keys == set(_LSTM):
             return {"weight_ih": _tensor(_transpose(node["w_ih"]), dev,
                                          dtype),
@@ -87,6 +91,8 @@ def to_jax_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return [to_jax_numpy(v) for v in tree]
     keys = set(tree)
+    if keys == _BN:
+        return {k: _np(v) for k, v in tree.items()}
     if keys == {"weight"} and tree["weight"].dim() == 2:
         return {"table": _np(tree["weight"])}
     if keys == {"weight_ih", "weight_hh", "bias_ih", "bias_hh"}:

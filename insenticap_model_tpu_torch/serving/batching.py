@@ -28,6 +28,10 @@ AUTO = -1  # submit(forced_label=AUTO) -> use the image sentiment detector
 
 DEFAULT_BUCKETS = (1, 8, 32, 128, 384)
 
+# Batch ladder of the encode stage: a smaller cap than the decode ladder,
+# since the encoder is compute-heavy per row.
+DEFAULT_ENCODE_BUCKETS = (1, 4, 16, 32)
+
 # per-bucket request-latency ring size for stats() percentiles
 _LAT_WINDOW = 1024
 
@@ -35,6 +39,11 @@ _LAT_WINDOW = 1024
 def default_buckets():
     """The default decode-stage bucket ladder."""
     return DEFAULT_BUCKETS
+
+
+def default_encode_buckets():
+    """The default encode-stage batch ladder."""
+    return DEFAULT_ENCODE_BUCKETS
 
 
 class Saturated(RuntimeError):

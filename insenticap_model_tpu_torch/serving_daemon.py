@@ -14,7 +14,9 @@ Counterpart of ``insenticap_model_tpu/serving_daemon.py``'s single-device
   the device, and one forced-label decode serves the mixed batch.
 
 ``make_batcher_from_checkpoint`` builds one from a JAX-written RL
-checkpoint. The mesh and multi-host branches come in later slices.
+checkpoint. The encode stage, ``EncodeBatcher`` (``serving/encode.py``),
+and its ladder are re-exported here, as the JAX module does. The mesh and
+multi-host branches come in later slices.
 """
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ from . import inference
 from .config import Settings
 from .serving.batching import (AUTO, DEFAULT_BUCKETS,   # noqa: F401
                                Saturated, _BatcherBase, _RequestBase,
-                               default_buckets, prometheus_metrics)
+                               default_buckets, default_encode_buckets,
+                               prometheus_metrics)
+from .serving.encode import EncodeBatcher  # noqa: F401 (re-export)
 from .utils.dtypes import cast_bf16, resolve_device, to_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -16,7 +16,10 @@ The JAX package restores into a template of the expected structure. With
 no template passed in, ``load`` builds one: the port's ``init_params`` for
 the metadata's settings, vocabulary size and categories, for each subtree
 it knows (``captioner`` and ``senti_detector`` of a composite checkpoint,
-or a bare captioner or detector tree). Every leaf's shape must match it,
+or a bare captioner, detector, concept-detector or ResNet-101 tree; the
+last two as ``train_cpt.py`` and ``convert_checkpoint.py resnet101``
+write them, the concept count from the metadata's ``idx2concept``). Every
+leaf's shape must match it,
 or ``CheckpointError`` is raised. Subtrees the port has no model for yet
 (the RL composite's ``sent_senti_cls``) and the optimizer state are left
 out, as a JAX template restore leaves out what its template lacks. The
@@ -33,6 +36,8 @@ import torch
 from .. import convert
 from ..config import Settings
 from ..models import captioner as cap
+from ..models import concept_detector as cpt_det
+from ..models import encoder
 from ..models import sentiment_detector as senti_det
 from ..utils import msgpack
 from ..utils.dtypes import resolve_device, to_device
@@ -92,7 +97,7 @@ def _match(node, tmpl, path: str):
 def _templates(tree, metadata) -> Dict[str, Any]:
     """The port's init_params for every subtree of ``tree`` it knows, at
     the metadata's settings; keyed like ``tree`` (a composite) or under
-    "" (a bare captioner or detector tree)."""
+    "" (a bare model tree)."""
     settings = Settings.from_dict(metadata.get("settings", {}))
     cats = metadata.get("sentiment_categories")
     n_cats = len(cats) if cats is not None else 3
@@ -114,6 +119,14 @@ def _templates(tree, metadata) -> Dict[str, Any]:
         return senti_det.module_for(settings).init_params(
             gen, n_cats, settings, device="cpu")
 
+    def concepts():
+        if metadata.get("idx2concept") is None:
+            raise CheckpointError("a concept tree needs idx2concept in the "
+                                  "metadata: the number of concepts is "
+                                  "unknown")
+        return cpt_det.init_params(gen, len(metadata["idx2concept"]),
+                                   settings, device="cpu")
+
     if "captioner" in tree or "senti_detector" in tree:
         makers = {"captioner": captioner, "senti_detector": detector}
         return {k: makers[k]() for k in makers if k in tree}
@@ -121,6 +134,10 @@ def _templates(tree, metadata) -> Dict[str, Any]:
         return {"": captioner()}
     if "senti_conv" in tree:
         return {"": detector()}
+    if "layers" in tree:                  # convert_checkpoint.py resnet101
+        return {"": encoder.init_params(gen, device="cpu")}
+    if "fc1" in tree:
+        return {"": concepts()}
     raise CheckpointError(f"the port has no model for a tree with keys "
                           f"{sorted(tree)}")
 

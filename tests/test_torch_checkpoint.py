@@ -3,8 +3,8 @@ msgpack package's encoder for every format it covers, checkpoints written
 by the JAX package's ``checkpoint.save`` loaded bit for bit like
 ``convert.from_jax_numpy`` of the same tree (f32 and bf16, both detector
 variants), the committed trained checkpoint loaded bit for bit like the
-JAX package's own ``checkpoint.load``, the shape check, and
-``make_batcher_from_checkpoint``."""
+JAX package's own ``checkpoint.load``, a full ResNet-101 and a concept
+checkpoint likewise, the shape check, and ``make_batcher_from_checkpoint``."""
 import dataclasses
 import os
 import struct
@@ -17,19 +17,24 @@ import jax
 import jax.numpy as jnp
 
 from insenticap_model_tpu import inference as jinf
+from insenticap_model_tpu.cli import common as jcommon
 from insenticap_model_tpu.config import Settings as JSettings
 from insenticap_model_tpu.models import captioner as jcap
+from insenticap_model_tpu.models import concept_detector as jcpt
+from insenticap_model_tpu.models import encoder as jenc
 from insenticap_model_tpu.models import sentiment_detector as jsd
 from insenticap_model_tpu.training import checkpoint as jck
 from insenticap_model_tpu.utils.dtypes import cast_bf16
 
 from insenticap_model_tpu_torch import convert
+from insenticap_model_tpu_torch.cli import common as tcommon
 from insenticap_model_tpu_torch.serving_daemon import (
     make_batcher_from_checkpoint)
 from insenticap_model_tpu_torch.training import checkpoint as tck
 from insenticap_model_tpu_torch.utils import msgpack as tmsgpack
 
-from torch_parity import JIDS, features, n, port_settings
+from torch_parity import (JIDS, features, n, port_settings,
+                          resnet_state_dict)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAINED = os.path.join(REPO, "assets", "bench_trained.ckpt")
@@ -220,6 +225,64 @@ def test_a_wrong_shape_raises(tmp_path, settings, vocab):
     with open(path, "wb") as f:                      # not a checkpoint
         f.write(struct.pack("<Q", 2) + b"{}" + b"\xc1")
     with pytest.raises(tck.CheckpointError):
+        tck.load(path, device="cpu")
+
+
+def test_jax_written_resnet101_checkpoint_loads_bit_identical(tmp_path):
+    """A full ResNet-101 tree as ``convert_checkpoint.py resnet101``
+    writes it (BatchNorm nodes {scale, bias, mean, var}), read like the JAX
+    package's own ``checkpoint.load``; a wrong conv shape raises."""
+    params = jenc.convert_torch_state_dict(resnet_state_dict(2))
+    path = str(tmp_path / "resnet101.ckpt")
+    meta = {"kind": "resnet101", "epoch": -1}
+    jck.save(path, params, None, meta)
+    got, gmeta = tck.load(path, device="cpu")
+    assert gmeta == meta
+    want, _, _ = jck.load(path, params)
+    _identical(got, convert.from_jax_numpy(
+        jax.tree_util.tree_map(np.asarray, want), device="cpu"))
+    assert set(got["layers"][1][0]["bn1"]) == {"scale", "bias", "mean",
+                                               "var"}
+    assert got["layers"][3][2]["conv2"]["weight"].shape == (3, 3, 512, 512)
+    bad = jax.tree_util.tree_map(lambda x: x, params)
+    bad["layers"][0][0]["conv2"] = {"w": np.zeros((3, 3, 64, 32),
+                                                  np.float32)}
+    jck.save(path, bad, None, meta)
+    with pytest.raises(tck.CheckpointError, match="shape"):
+        tck.load(path, device="cpu")
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_jax_written_concept_checkpoint_loads_bit_identical(tmp_path,
+                                                            settings, bf16):
+    """A concept checkpoint as train_cpt.py writes it; the concept count
+    comes from idx2concept. load_concept_model gives the same params."""
+    idx2concept = [f"c{i}" for i in range(40)]
+    params = jcpt.init_params(jax.random.PRNGKey(5), 40, settings)
+    if bf16:
+        params = cast_bf16(params)
+    path = str(tmp_path / "concept.ckpt")
+    meta = {"epoch": 3, "settings": settings.to_dict(),
+            "idx2concept": idx2concept}
+    jck.save(path, params, None, meta)
+    got, _ = tck.load(path, device="cpu")
+    want, _, _ = jck.load(path, params)
+    _identical(got, convert.from_jax_numpy(
+        jax.tree_util.tree_map(np.asarray, want), device="cpu"))
+    tparams, ti2c = tcommon.load_concept_model(path, device="cpu")
+    assert ti2c == idx2concept
+    _identical(tparams, got)
+    if not bf16:
+        jparams, ji2c = jcommon.load_concept_model(path)
+        assert ji2c == idx2concept
+        _identical(tparams, convert.from_jax_numpy(
+            jax.tree_util.tree_map(np.asarray, jparams), device="cpu"))
+    # one concept short in the metadata: fc3 has the wrong shape
+    jck.save(path, params, None, {**meta, "idx2concept": idx2concept[:-1]})
+    with pytest.raises(tck.CheckpointError, match="shape"):
+        tck.load(path, device="cpu")
+    jck.save(path, params, None, {**meta, "idx2concept": None})
+    with pytest.raises(tck.CheckpointError, match="idx2concept"):
         tck.load(path, device="cpu")
 
 

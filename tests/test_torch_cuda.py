@@ -9,7 +9,7 @@ bf16 rounding of the twin's (rtol 1e-2) plus 1e-3 of its scale, since the
 two round f32 sums taken in different orders. The fused top-k: values
 within 1e-4, indices identical except at near-ties (where the plain
 version's neighbouring values differ by at most 1e-4), since the logits
-are sums in another order."""
+are sums in another order. The max pool: exact equality."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +20,7 @@ from insenticap_model_tpu_torch.models import sentiment_detector as sd
 from insenticap_model_tpu_torch.ops import beam
 from insenticap_model_tpu_torch.ops import fused_attention as fa
 from insenticap_model_tpu_torch.ops import fused_topk as ft
+from insenticap_model_tpu_torch.ops import pool
 from insenticap_model_tpu_torch.ops import winograd_kernels as wk
 
 pytestmark = pytest.mark.cuda
@@ -272,6 +273,70 @@ def test_attention_v2_kernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(TypeError):
         fa.beam_content_attention(h.bfloat16(), p, att, att, B=3,
                                   variant="v2")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (32, 224, 224, 64), (32, 192, 256, 64),     # the serving buckets' stems
+    (3, 111, 97, 64), (2, 14, 14, 8), (1, 13, 13, 4), (2, 7, 7, 3),
+    (9, 14, 14, 64), (2, 2, 5, 16), (1, 36, 26, 12)])
+def test_pool_kernel_equals_plain(dev, dtype, shape):
+    """Exact: max is exact. C = 3, 4 and 12 take the scalar path in bf16
+    (and 3 in f32); the rest the 16-byte path."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g).to(dev, dtype)
+    before = pool.ceil_maxpool_3x3s2_nhwc.launches
+    got = pool.ceil_maxpool_3x3s2_nhwc(x)
+    torch.cuda.synchronize()
+    assert pool.ceil_maxpool_3x3s2_nhwc.launches == before + 1
+    want = pool.ceil_maxpool_3x3s2_plain(x)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    sm = pool.ceil_maxpool_3x3s2_sm(x.permute(1, 2, 0, 3).contiguous())
+    assert torch.equal(sm.permute(2, 0, 1, 3), want)
+    assert pool.ceil_maxpool_3x3s2_nhwc.launches == before + 2
+
+
+def test_pool_kernel_strided_and_unaligned_views(dev):
+    """A view with other strides, and one whose first channel is not
+    16-byte aligned (the scalar path), still equal the plain version."""
+    g = torch.Generator().manual_seed(0)
+    big = torch.randn(4, 30, 40, 72, generator=g).to(dev, torch.bfloat16)
+    for x in (big[::2, 1:, ::3], big[..., 8:], big[..., 1:65]):
+        assert torch.equal(pool.ceil_maxpool_3x3s2_nhwc(x),
+                           pool.ceil_maxpool_3x3s2_plain(x))
+    nan = big[:1, :5, :5].clone()
+    nan[0, 1, 1, 0] = float("nan")
+    assert pool.ceil_maxpool_3x3s2_nhwc(nan)[0, 0, 0, 0].isnan()
+
+
+def test_pool_kernel_refuses_what_it_cannot_take(dev):
+    x = torch.zeros(2, 9, 9, 8, device=dev)
+    with pytest.raises(ValueError):               # a CPU tensor
+        pool._launch(x.cpu(), torch.empty(2, 4, 4, 8))
+    with pytest.raises(ValueError):               # channels not contiguous
+        pool.ceil_maxpool_3x3s2_nhwc(x.permute(0, 3, 1, 2))
+    with pytest.raises(TypeError):
+        pool.ceil_maxpool_3x3s2_nhwc(x.half())
+    with pytest.raises(ValueError):               # no window fits
+        pool.ceil_maxpool_3x3s2_nhwc(x[:, :1])
+
+
+def test_encoder_kernel_path_matches_plain_path(dev):
+    """forward_raw_batch at full depth on the card, f32: the pool kernel
+    against the plain pool (1e-5 of scale: cuDNN may pick another
+    algorithm between calls)."""
+    from insenticap_model_tpu_torch.models import encoder
+    p = encoder.init_params(torch.Generator().manual_seed(0), device=dev)
+    imgs = torch.randint(0, 256, (2, 96, 80, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    before = pool.ceil_maxpool_3x3s2_nhwc.launches
+    fc, att = encoder.forward_raw_batch(p, imgs)
+    assert pool.ceil_maxpool_3x3s2_nhwc.launches == before + 1
+    fcp, attp = encoder.forward_raw_batch(p, imgs, use_kernels=False)
+    assert pool.ceil_maxpool_3x3s2_nhwc.launches == before + 1
+    for a, b in ((fc, fcp), (att, attp)):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
 
 
 def test_decode_with_both_switches_matches_plain_path(dev, monkeypatch):

@@ -130,13 +130,16 @@ def _port_sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "profile_torch_serving.py")
+    yield os.path.join(REPO, "tools", "profile_torch_encoder.py")
 
 
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax, flax,
     msgpack (the card's machine has none: the port decodes checkpoints
-    itself) or the JAX package (the port keeps its own copies)."""
-    banned = ("jax", "flax", "msgpack", "insenticap_model_tpu")
+    itself), PIL or h5py (neither is there either) or the JAX package (the
+    port keeps its own copies)."""
+    banned = ("jax", "flax", "msgpack", "PIL", "h5py",
+              "insenticap_model_tpu")
     offenders = []
     for path in _port_sources():
         with open(path) as fh:
@@ -159,11 +162,15 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, settings, vocab,
                                             tmp_path):
     """Entry points default to CUDA and raise when it is absent; the CPU
     is used only when the caller asks for it."""
+    from insenticap_model_tpu.models import concept_detector as jcpt
     from insenticap_model_tpu.training import checkpoint as jck
+    from insenticap_model_tpu_torch.cli.common import load_concept_model
     from insenticap_model_tpu_torch.models import captioner as tcap
+    from insenticap_model_tpu_torch.models import concept_detector as tcpt
+    from insenticap_model_tpu_torch.models import encoder as tenc
     from insenticap_model_tpu_torch.models import sentiment_detector as tsd
     from insenticap_model_tpu_torch.serving_daemon import (
-        DynamicBatcher, make_batcher_from_checkpoint)
+        DynamicBatcher, EncodeBatcher, make_batcher_from_checkpoint)
     from insenticap_model_tpu_torch.training import checkpoint as tck
     from torch_parity import TIDS, captioner_params, port_settings
 
@@ -172,6 +179,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, settings, vocab,
     jck.save(path, {"captioner": jp}, None, {
         "settings": settings.to_dict(), "idx2word": vocab.idx2word,
         "sentiment_categories": ["positive", "negative", "neutral"]})
+    cpath = str(tmp_path / "concept.ckpt")
+    jck.save(cpath, jcpt.init_params(jax.random.PRNGKey(0), 6, settings),
+             None, {"settings": settings.to_dict(),
+                    "idx2concept": [f"c{i}" for i in range(6)]})
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     s = port_settings(settings)
@@ -191,6 +202,18 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, settings, vocab,
         tck.load(path)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_batcher_from_checkpoint(path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tenc.init_params(gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tenc.convert_torch_state_dict({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcpt.init_params(gen, 6, s)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_concept_model(cpath)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EncodeBatcher(None, lambda fc: fc, fc_dim=4, shape_buckets=())
     assert cp["classifier"]["weight"].device.type == "cpu"
     assert tck.load(path, device="cpu")[0]["captioner"]["classifier"][
+        "weight"].device.type == "cpu"
+    assert load_concept_model(cpath, device="cpu")[0]["fc3"][
         "weight"].device.type == "cpu"

@@ -49,6 +49,55 @@ def detector_params(settings, seed=1, scale=1.0):
     return p, to_port(p)
 
 
+def resnet_state_dict(seed=0):
+    """A torchvision-style ResNet-101 state dict of numpy arrays:
+    kaiming-normal (fan-out) convs, BatchNorm statistics drawn around the
+    identity, and each residual branch's last BatchNorm scaled by 0.2 so
+    that the features stay O(1) through 101 layers."""
+    from insenticap_model_tpu.models import encoder as jenc
+    g = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[name + ".weight"] = (g.standard_normal((cout, cin, k, k))
+                                * np.sqrt(2.0 / (k * k * cout))
+                                ).astype(np.float32)
+
+    def bn(name, c, scale=1.0):
+        sd[name + ".weight"] = (scale * g.uniform(0.9, 1.1, c)
+                                ).astype(np.float32)
+        sd[name + ".bias"] = g.normal(0, 0.05, c).astype(np.float32)
+        sd[name + ".running_mean"] = g.normal(0, 0.05, c).astype(np.float32)
+        sd[name + ".running_var"] = g.uniform(0.5, 1.5, c).astype(np.float32)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for li, (nblocks, mid) in enumerate(zip(jenc.LAYERS, jenc.MIDS)):
+        cout = mid * jenc.EXPANSION
+        for b in range(nblocks):
+            base = f"layer{li + 1}.{b}"
+            conv(base + ".conv1", mid, cin, 1)
+            bn(base + ".bn1", mid)
+            conv(base + ".conv2", mid, mid, 3)
+            bn(base + ".bn2", mid)
+            conv(base + ".conv3", cout, mid, 1)
+            bn(base + ".bn3", cout, 0.2)
+            if b == 0:
+                conv(base + ".downsample.0", cout, cin, 1)
+                bn(base + ".downsample.1", cout)
+            cin = cout
+    return sd
+
+
+def encoder_params(seed=0):
+    """JAX encoder params (through the JAX package's
+    ``convert_torch_state_dict``) and their port copy."""
+    from insenticap_model_tpu.models import encoder as jenc
+    p = jenc.convert_torch_state_dict(resnet_state_dict(seed))
+    return p, to_port(p)
+
+
 def features(settings, bs, seed, m=5):
     """(fc, att, sentis) as numpy: att non-negative like a ResNet grid."""
     g = np.random.default_rng(seed)
