@@ -13,8 +13,10 @@ into the git-ignored build directory), then:
    Winograd transforms in bf16, the fused classifier top-k at 1152 rows x
    10,000 words in bf16 and f32; the encoder stem's max pool in bf16 and
    f32 at [32,224,224,64] and [32,192,256,64], the 448x448 and 384x512
-   buckets at bs=32, and an odd extent, exactly), with the tolerances
-   stated at each check;
+   buckets at bs=32, and an odd extent, exactly; the int8-storage
+   attention at bs=384, N=196, 512 wide and the row-tiled product at the
+   decode cell's two LSTM shapes and tile_rows 24, 48 and 96, both in bf16
+   within one bf16 ulp), with the tolerances stated at each check;
 3. drives the main path: a full-width bf16 ``DynamicBatcher`` (512-d
    model, 2048-d 14x14 features, vocab 10,000, beam 3, 16 tokens, random
    weights from a seed) answers 41 requests from threads, mixing auto and
@@ -38,6 +40,13 @@ into the git-ignored build directory), then:
    just after, and the pool's must equal the image encode groups
    dispatched; every request gets a caption and 5 distinct concept ids in
    range; then 96 images of 448x448 at once give the encode throughput;
+3d. drives the two studies' paths at their full shapes with few
+   repetitions: ``tools/bench_torch_int8.attention`` (the bf16 v1 kernel
+   against the int8-storage kernel at bs=384, and the int8 context's error)
+   and ``tools/bench_torch_megacell.measure`` (both LSTM products through
+   the row-tiled kernel at the three tile sizes, beside ``torch.matmul``);
+   the launch counts are set to 0 just before and must equal the calls
+   each function reports;
 4. runs ``detect_and_decode`` at bs=384 in f32 on the kernel path and on
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
@@ -48,7 +57,10 @@ into the git-ignored build directory), then:
    error at most 0.1 of the f32 features' rms);
 5. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of 5
-   runs after warm-up); the bf16 serving step at bs=384 under the four
+   runs after warm-up); the row-tiled product and ``torch.matmul``, some
+   50 us a call, by the profiler's device time from phase 3d, since events
+   around back-to-back launches of that size also read the host's
+   dispatch; the bf16 serving step at bs=384 under the four
    switch settings on random weights, and captions/s and mean caption
    length on the trained weights, default and both switches (host clock,
    the settings taken in turns, median of 6 each); ``forward_raw_batch``
@@ -82,7 +94,7 @@ M = 10                       # sentiment words per request
 NUM_CATS = 3
 BANNED = (0, 1, 2)           # pad, unk, sos: the beam's static bans
 SOURCES = ["fused_attention", "winograd", "fused_topk", "fused_attention_v2",
-           "maxpool"]
+           "maxpool", "fused_attention_i8", "tiled_mm"]
 N_CONCEPTS = 2000            # the concept detector's outputs
 K_CONCEPTS = 5               # concepts per image
 ENC_BS = 32                  # the encode ladder's top bucket
@@ -112,25 +124,6 @@ def _smi():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
-
-
-def _ms(torch, fn, reps=20, warm=3, runs=5):
-    """Median over ``runs`` of the mean time of ``reps`` back-to-back
-    calls, by CUDA events, after ``warm`` calls."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / reps)
-    return statistics.median(times)
 
 
 def _bound(nbytes, flops, rate):
@@ -264,8 +257,10 @@ def main():
         from insenticap_model_tpu_torch.models import sentiment_detector as sd
         from insenticap_model_tpu_torch.ops import _build
         from insenticap_model_tpu_torch.ops import fused_attention as fa
+        from insenticap_model_tpu_torch.ops import fused_attention_i8 as fa8
         from insenticap_model_tpu_torch.ops import fused_topk as ft
         from insenticap_model_tpu_torch.ops import pool
+        from insenticap_model_tpu_torch.ops import tiled_mm as tmm
         from insenticap_model_tpu_torch.ops import winograd_kernels as wk
         from insenticap_model_tpu_torch.ops.winograd import transform_filter
         from insenticap_model_tpu_torch.preprocessing import (
@@ -276,7 +271,11 @@ def main():
         from insenticap_model_tpu_torch.training import checkpoint as tck
         from insenticap_model_tpu_torch.utils.dtypes import (cast_bf16,
                                                              cast_f32)
+        from insenticap_model_tpu_torch.utils.timing import cuda_ms
+        from insenticap_model_tpu_torch.utils.tolerance import bf16_ulp_error
         from insenticap_model_tpu_torch.vocab import Vocab
+        from tools import bench_torch_int8 as bti
+        from tools import bench_torch_megacell as btm
     except ImportError as e:
         _fail(f"the port's package is not importable here: {e}")
     import numpy as np
@@ -486,6 +485,46 @@ def main():
             _check(same, f"max pool kernel {tag} {shape} differs from its "
                    "plain version")
     checks["ceil_maxpool_3x3s2"] = 0.0
+
+    # the int8-storage attention at the study's shapes: bf16 h and weights,
+    # int8 att/p_att with per-(image, channel) scales; the kernel and its
+    # plain version both sum in f32 and round once to bf16
+    p_cont16 = cap16["attention"]["cont"]
+    h16 = (torch.rand(BS * BEAM, H, generator=g, device=dev) * 2 - 1).to(
+        torch.bfloat16)
+    att_f = torch.randn(BS, N, Fe, generator=g, device=dev)
+    p_att_f = torch.randn(BS, N, Ah, generator=g, device=dev)
+    i8_in = (h16, p_cont16) + fa8.quantize_per_channel(att_f) \
+        + fa8.quantize_per_channel(p_att_f)
+    got = fa8.beam_content_attention_i8(*i8_in, B=BEAM)
+    torch.cuda.synchronize()
+    err, ulps = bf16_ulp_error(
+        got, fa8.beam_content_attention_i8_plain(*i8_in, B=BEAM))
+    ok = ulps <= 1
+    checks["attention_i8"] = err
+    print(f"check attention_i8 bs={BS} N={N} {Fe} wide: max_abs_err={err:.3g}"
+          f" ({ulps:.2f} bf16 ulp) {'ok' if ok else 'FAIL'}")
+    _check(ok, "int8 attention kernel disagrees with its plain version")
+
+    # the row-tiled product at the decode cell's LSTM shapes, every tile
+    mm_in = {}
+    for name, K, Nw in btm.LSTM_SHAPES:
+        x, w = btm.make_inputs(K, Nw, dev, seed=K)
+        want = tmm.tiled_mm_plain(x, w)
+        for tile_b in btm.TILE_BS:
+            tr = tile_b * BEAM
+            got = tmm.tiled_mm(x, w, tile_rows=tr)
+            torch.cuda.synchronize()
+            err, ulps = bf16_ulp_error(got, want)
+            ok = ulps <= 1
+            checks[f"tiled_mm_{name}_{tr}"] = err
+            print(f"check tiled_mm {name} [{x.shape[0]}x{K}]@[{K}x{Nw}] "
+                  f"tile_rows={tr}: max_abs_err={err:.3g} ({ulps:.2f} bf16 "
+                  f"ulp) {'ok' if ok else 'FAIL'}")
+            _check(ok, f"tiled_mm kernel {name} tile_rows={tr} disagrees "
+                   "with its plain version")
+        mm_in[name] = (x, w)
+    del got, want
 
     # -- 3. the main path: full-width bf16 serving through DynamicBatcher --
     rng = np.random.default_rng(2)
@@ -709,6 +748,37 @@ def main():
     del tput, imgs
     torch.cuda.empty_cache()
 
+    # -- 3d. the two studies' paths at full shapes, few repetitions -------
+    fa.beam_content_attention.launches = 0
+    fa8.beam_content_attention_i8.launches = 0
+    study_t, study_err, study_calls = bti.attention(dev, iters=4, reps=3)
+    launches_d = {"beam_content_attention_i8":
+                  fa8.beam_content_attention_i8.launches,
+                  "beam_content_attention": fa.beam_content_attention.launches}
+    tmm.tiled_mm.launches = 0
+    mega = btm.measure(dev, iters=16, reps=3)
+    launches_d["tiled_mm"] = tmm.tiled_mm.launches
+    print(f"studies: int8 attention {study_t['int8_ms']:.4f} ms against the "
+          f"bf16 v1 kernel {study_t['bf16_ms']:.4f} ms, context error "
+          + ", ".join(f"{k} mean {v['mean']:.5f} max {v['max']:.4f}"
+                      for k, v in study_err.items())
+          + "; decode cell: " + "; ".join(
+              f"{name} device ms: matmul "
+              f"{mega[name]['matmul_device_ms']:.4f}, tiled "
+              + ", ".join(f"{tr}: {t:.4f}" for tr, t in
+                          mega[name]["tiled_device_ms"].items())
+              for name, _, _ in btm.LSTM_SHAPES)
+          + f"; launches {launches_d}")
+    _check(launches_d["beam_content_attention_i8"] == study_calls["i8"]
+           and launches_d["beam_content_attention"] == study_calls["v1"],
+           f"attention launches {launches_d} != calls {study_calls}")
+    _check(launches_d["tiled_mm"] == mega["calls"],
+           f"tiled_mm launches {launches_d['tiled_mm']} != {mega['calls']}")
+    _check(all(np.isfinite(v["max"]) for v in study_err.values()),
+           f"int8 context error {study_err}")
+    report["studies"] = {"attention_ms": study_t, "attention_error": study_err,
+                         "megacell": mega, "launches": launches_d}
+
     # -- 4. f32 end to end: kernel path against the plain path -------------
     params32 = inference.ServingParams(cap32, det32)
     fc = torch.rand(BS, settings.fc_feat_dim, generator=g, device=dev)
@@ -785,10 +855,10 @@ def main():
     # -- 5. times ------------------------------------------------------------
     kernels = []
     h, p_cont, att16, p_att16 = att_in[torch.bfloat16]
-    a_ms = _ms(torch, lambda: fa.beam_content_attention(
+    a_ms = cuda_ms(lambda: fa.beam_content_attention(
         h, p_cont, att16, p_att16, B=BEAM))
-    a_plain = _ms(torch, lambda: fa.beam_content_attention_plain(
-        h, p_cont, att16, p_att16, B=BEAM), reps=5)
+    a_plain = cuda_ms(lambda: fa.beam_content_attention_plain(
+        h, p_cont, att16, p_att16, B=BEAM), iters=5)
     rows = BS * BEAM
     a_bytes = 2 * (rows * H + Ah * H + Ah + Ah + BS * N * (Ah + Fe)
                    + rows * Fe)
@@ -796,7 +866,7 @@ def main():
         + 2 * rows * N * Fe
     a_bound, a_by = _bound(a_bytes, a_flops, F32_FLOP_S)
     h32, p32, att32, patt32 = att_in[torch.float32]
-    a32_ms = _ms(torch, lambda: fa.beam_content_attention(
+    a32_ms = cuda_ms(lambda: fa.beam_content_attention(
         h32, p32, att32, patt32, B=BEAM))
     a32_bound, _ = _bound(2 * a_bytes, a_flops, F32_FLOP_S)
     report["attention_f32"] = {"ms": a32_ms, "bound_ms": a32_bound}
@@ -811,11 +881,11 @@ def main():
         "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
         "bound_by": a_by, "library_ms": None, "passed": True})
     # v2: the same function up to the weights' rounding, the same bound
-    v2_ms = _ms(torch, lambda: fa.beam_content_attention(
+    v2_ms = cuda_ms(lambda: fa.beam_content_attention(
         h, p_cont, att16, p_att16, B=BEAM, variant="v2"))
-    v2_plain = _ms(torch, lambda: fa.beam_content_attention_plain(
-        h, p_cont, att16, p_att16, B=BEAM, variant="v2"), reps=5)
-    v2_32 = _ms(torch, lambda: fa.beam_content_attention(
+    v2_plain = cuda_ms(lambda: fa.beam_content_attention_plain(
+        h, p_cont, att16, p_att16, B=BEAM, variant="v2"), iters=5)
+    v2_32 = cuda_ms(lambda: fa.beam_content_attention(
         h32, p32, att32, patt32, B=BEAM, variant="v2"))
     report["attention_v2_f32"] = {"ms": v2_32, "bound_ms": a32_bound}
     kernels.append({
@@ -830,14 +900,14 @@ def main():
     # the fused top-k: 2 rows H V flops on the tensor cores (bf16), the
     # operands read once, [rows, k] values and ids written once
     tk16, tk32 = topk_in[torch.bfloat16], topk_in[torch.float32]
-    tk_ms = _ms(torch, lambda: ft.classifier_topk(*tk16, k=BEAM,
-                                                  banned=BANNED))
-    tk_plain = _ms(torch, lambda: ft.classifier_topk_plain(
-        *tk16, k=BEAM, banned=BANNED), reps=5)
-    tk32_ms = _ms(torch, lambda: ft.classifier_topk(*tk32, k=BEAM,
-                                                    banned=BANNED))
-    tk32_plain = _ms(torch, lambda: ft.classifier_topk_plain(
-        *tk32, k=BEAM, banned=BANNED), reps=5)
+    tk_ms = cuda_ms(lambda: ft.classifier_topk(*tk16, k=BEAM,
+                                               banned=BANNED))
+    tk_plain = cuda_ms(lambda: ft.classifier_topk_plain(
+        *tk16, k=BEAM, banned=BANNED), iters=5)
+    tk32_ms = cuda_ms(lambda: ft.classifier_topk(*tk32, k=BEAM,
+                                                 banned=BANNED))
+    tk32_plain = cuda_ms(lambda: ft.classifier_topk_plain(
+        *tk32, k=BEAM, banned=BANNED), iters=5)
     tk_flops = 2 * rows * H * VOCAB
     tk_io = 8 * rows + rows * BEAM * (4 + 8)
     tk_bound, tk_by = _bound(2 * (rows * H + VOCAB * H + VOCAB) + tk_io,
@@ -880,8 +950,8 @@ def main():
          9 * BS * c2 * inv),
     ]
     for name, replaces, kfn, pfn, nbytes, flops in specs:
-        k_ms = _ms(torch, kfn)
-        p_ms = _ms(torch, pfn, reps=3)
+        k_ms = cuda_ms(kfn)
+        p_ms = cuda_ms(pfn, iters=3)
         bnd, by_ = _bound(nbytes, flops, F32_FLOP_S)
         kernels.append({
             "name": name, "route": "cuda",
@@ -893,8 +963,8 @@ def main():
 
     # the whole stack (kernels + the two products) beside the library's
     # two bf16 convolutions on the same input, NCHW as cuDNN prefers
-    stack_ms = _ms(torch, lambda: wk.conv3x3_stack_sm(x16, layers16),
-                   reps=5)
+    stack_ms = cuda_ms(lambda: wk.conv3x3_stack_sm(x16, layers16),
+                       iters=5)
     xn = x16.permute(2, 3, 0, 1).contiguous()
     wn = [c["weight"].permute(3, 2, 0, 1).contiguous() for c in convs]
 
@@ -902,7 +972,7 @@ def main():
         with nn.exact_numerics():
             y = torch.nn.functional.conv2d(xn, wn[0], b1, padding=1)
             return torch.nn.functional.conv2d(y, wn[1], b2, padding=1)
-    lib_ms = _ms(torch, lib, reps=5)
+    lib_ms = cuda_ms(lib, iters=5)
     gemm_flops = 2 * 49 * 9 * BS * (C0 * c1 + c1 * c2)
     stack_bytes = 2 * (14 * 14 * BS * C0 + 14 * 14 * BS * c2
                        + 9 * (C0 * c1 + c1 * c2))
@@ -923,10 +993,10 @@ def main():
         nbytes = xp.element_size() * (B_ * H_ * W_ + B_ * oh_ * ow_) * C_
         bnd, by_ = _bound(nbytes, 8 * B_ * oh_ * ow_ * C_, F32_FLOP_S)
         pool_times[f"{name}_{'bf16' if dt == torch.bfloat16 else 'f32'}"] = {
-            "ms": _ms(torch, lambda: pool.ceil_maxpool_3x3s2_nhwc(xp)),
-            "plain_ms": _ms(torch, lambda: pool.ceil_maxpool_3x3s2_plain(xp),
-                            reps=5),
-            "library_ms": _ms(torch, lambda: torch.nn.functional.max_pool2d(
+            "ms": cuda_ms(lambda: pool.ceil_maxpool_3x3s2_nhwc(xp)),
+            "plain_ms": cuda_ms(lambda: pool.ceil_maxpool_3x3s2_plain(xp),
+                                iters=5),
+            "library_ms": cuda_ms(lambda: torch.nn.functional.max_pool2d(
                 x_cl, 3, 2, 0, ceil_mode=True)),
             "bound_ms": bnd, "bound_by": by_}
     report["ceil_maxpool_3x3s2"] = pool_times
@@ -941,6 +1011,54 @@ def main():
         "bound_by": p16["bound_by"], "library_ms": p16["library_ms"],
         "passed": True})
     del pool_in, x_cl
+
+    # the int8-storage attention: int8 att/p_att and their f32 scales read
+    # once, h and W read and the bf16 output written once; v1's operations
+    # plus one multiply a dequantised value. No one PyTorch call computes
+    # it: the bf16 v1 kernel on the same values is its reference
+    i8_ms = cuda_ms(lambda: fa8.beam_content_attention_i8(*i8_in, B=BEAM))
+    i8_plain = cuda_ms(lambda: fa8.beam_content_attention_i8_plain(
+        *i8_in, B=BEAM), iters=5)
+    att16_i8, p_att16_i8 = att_f.bfloat16(), p_att_f.bfloat16()
+    i8_ref = cuda_ms(lambda: fa.beam_content_attention(
+        h16, p_cont16, att16_i8, p_att16_i8, B=BEAM))
+    i8_bytes = BS * N * (Ah + Fe) + 4 * BS * (Ah + Fe) \
+        + 2 * (rows * H + Ah * H + 2 * Ah + rows * Fe)
+    i8_bound, i8_by = _bound(i8_bytes, a_flops + BS * N * (Ah + Fe),
+                             F32_FLOP_S)
+    kernels.append({
+        "name": "beam_content_attention_i8", "route": "cuda",
+        "source": "insenticap_model_tpu_torch/csrc/fused_attention_i8.cu",
+        "replaces": "tools/bench_int8.py:283",
+        "launches": launches_d["beam_content_attention_i8"],
+        "max_abs_err": checks["attention_i8"], "ms": i8_ms,
+        "plain_ms": i8_plain, "bound_ms": i8_bound, "bound_by": i8_by,
+        "library_ms": None, "reference_ms": i8_ref, "passed": True})
+    del att16_i8, p_att16_i8
+
+    # the row-tiled product at both LSTM shapes and every tile, timed in
+    # phase 3d's run of the study: at some 50 us a call, CUDA events around
+    # back-to-back launches also read the host's dispatch, so the line
+    # carries the profiler's device time (events beside it). att_lstm at
+    # tile_rows=24 (tile_b 8); torch.matmul at the full 1152 rows, with f32
+    # accumulation as the kernel, is the yardstick
+    mm_times = {}
+    for name, (x, w) in mm_in.items():
+        mm_times[name] = dict(mega[name], plain_ms=cuda_ms(
+            lambda: tmm.tiled_mm_plain(x, w), iters=5))
+    report["tiled_mm"] = mm_times
+    m24 = mm_times["att_lstm"]
+    kernels.append({
+        "name": "tiled_mm", "route": "cuda",
+        "source": "insenticap_model_tpu_torch/csrc/tiled_mm.cu",
+        "replaces": "tools/bench_megacell.py:71",
+        "launches": launches_d["tiled_mm"],
+        "max_abs_err": checks["tiled_mm_att_lstm_24"],
+        "ms": m24["tiled_device_ms"][24], "ms_events": m24["tiled_ms"][24],
+        "plain_ms": m24["plain_ms"], "bound_ms": m24["bound_ms"],
+        "bound_by": m24["bound_by"], "library_ms": m24["matmul_device_ms"],
+        "library_ms_events": m24["matmul_ms"], "passed": True})
+    del mm_in, i8_in
 
     # the encoder at the top of the encode ladder, 448x448, host clock
     imgs32 = torch.randint(0, 256, (ENC_BS, 448, 448, 3), dtype=torch.uint8,
@@ -1039,6 +1157,16 @@ def main():
         print(f"ceil_maxpool_3x3s2 {name} bs={ENC_BS}: {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, F.max_pool2d "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+    for name, r in mm_times.items():
+        print(f"tiled_mm {name} bf16, device ms (events): " + ", ".join(
+            f"tile_rows={tr} {t:.4f} ({r['tiled_ms'][tr]:.4f})"
+            for tr, t in r["tiled_device_ms"].items())
+            + f"; torch.matmul {r['matmul_device_ms']:.4f} "
+            f"({r['matmul_ms']:.4f}); plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print(f"attention_i8 bf16 bs={BS}: {i8_ms:.4f} ms, v1 bf16 kernel on the "
+          f"same values {i8_ref:.4f} ms, plain {i8_plain:.4f} ms, bound "
+          f"{i8_bound:.4f} ms ({i8_by})")
     for tag, r in enc_times.items():
         print(f"encoder forward_raw_batch {tag} bs={ENC_BS} 448x448: "
               f"{r['ms']:.2f} ms median of 5 -> {r['images_per_s']:.1f} "

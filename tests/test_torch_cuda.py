@@ -9,7 +9,10 @@ bf16 rounding of the twin's (rtol 1e-2) plus 1e-3 of its scale, since the
 two round f32 sums taken in different orders. The fused top-k: values
 within 1e-4, indices identical except at near-ties (where the plain
 version's neighbouring values differ by at most 1e-4), since the logits
-are sums in another order. The max pool: exact equality."""
+are sums in another order. The max pool: exact equality. The int8-storage
+attention and the row-tiled product: within one bf16 ulp of the plain
+version (taken at no less than 1e-3 of the output's scale), since both
+sides sum in f32 in other orders and round once to bf16."""
 import numpy as np
 import pytest
 import torch
@@ -19,9 +22,13 @@ from insenticap_model_tpu_torch.models import captioner as cap
 from insenticap_model_tpu_torch.models import sentiment_detector as sd
 from insenticap_model_tpu_torch.ops import beam
 from insenticap_model_tpu_torch.ops import fused_attention as fa
+from insenticap_model_tpu_torch.ops import fused_attention_i8 as fa8
 from insenticap_model_tpu_torch.ops import fused_topk as ft
 from insenticap_model_tpu_torch.ops import pool
+from insenticap_model_tpu_torch.ops import tiled_mm as tmm
 from insenticap_model_tpu_torch.ops import winograd_kernels as wk
+from insenticap_model_tpu_torch.utils.timing import device_ms
+from insenticap_model_tpu_torch.utils.tolerance import bf16_ulp_error
 
 pytestmark = pytest.mark.cuda
 
@@ -368,3 +375,107 @@ def test_decode_with_both_switches_matches_plain_path(dev, monkeypatch):
     torch.testing.assert_close(got[2], want[2])
     torch.testing.assert_close(got[0], want[0])
     torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+
+
+def _within_bf16_ulp(got, want):
+    err, ulps = bf16_ulp_error(got, want)
+    assert ulps <= 1, (ulps, err)
+
+
+def _i8_inputs(g, bs, B, N, H, Ah, Fe, dev, dtype):
+    p = _att_params(g, H, Ah, dev, dtype)
+    h = torch.randn(bs * B, H, generator=g).to(dev, dtype)
+    att_q, att_s = fa8.quantize_per_channel(
+        torch.randn(bs, N, Fe, generator=g).to(dev))
+    p_att_q, p_att_s = fa8.quantize_per_channel(
+        torch.randn(bs, N, Ah, generator=g).to(dev))
+    return h, p, att_q, att_s, p_att_q, p_att_s
+
+
+@pytest.mark.parametrize("bs,B,N,Fe", [
+    (1, 3, 196, 80), (7, 3, 50, 80), (5, 1, 9, 80), (3, 8, 196, 80),
+    (9, 2, 17, 1040), (3, 4, 33, 512), (1, 5, 7, 16), (11, 6, 20, 96),
+    (2, 7, 31, 48)])
+def test_attention_i8_kernel_matches_plain(dev, bs, B, N, Fe):
+    g = torch.Generator().manual_seed(bs * 31 + B + Fe)
+    args = _i8_inputs(g, bs, B, N, 48, 32, Fe, dev, torch.bfloat16)
+    before = fa8.beam_content_attention_i8.launches
+    got = fa8.beam_content_attention_i8(*args, B=B)
+    torch.cuda.synchronize()
+    assert fa8.beam_content_attention_i8.launches == before + 1
+    want = fa8.beam_content_attention_i8_plain(*args, B=B)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _within_bf16_ulp(got, want)
+
+
+def test_attention_i8_kernel_refuses_what_it_cannot_take(dev):
+    g = torch.Generator().manual_seed(0)
+    h, p, aq, as_, pq, ps = _i8_inputs(g, 2, 3, 5, 48, 32, 32, dev,
+                                       torch.bfloat16)
+    f = fa8.beam_content_attention_i8
+    with pytest.raises(TypeError):                    # h and W differ
+        f(h.float(), p, aq, as_, pq, ps, B=3)
+    with pytest.raises(TypeError):                    # f32: plain only
+        f(h.float(), {k: {kk: vv.float() for kk, vv in v.items()}
+                      for k, v in p.items()}, aq, as_, pq, ps, B=3)
+    with pytest.raises(TypeError):                    # att not int8
+        f(h, p, aq.float(), as_, pq, ps, B=3)
+    with pytest.raises(TypeError):                    # scales not f32
+        f(h, p, aq, as_.double(), pq, ps, B=3)
+    with pytest.raises(ValueError):                   # h rows != bs * B
+        f(h[:5], p, aq, as_, pq, ps, B=3)
+    with pytest.raises(ValueError):                   # B > 8
+        f(torch.cat([h, h, h]), p, aq, as_, pq, ps, B=9)
+    with pytest.raises(ValueError):                   # Fe % 16
+        f(h, p, aq[..., :24].contiguous(), as_[..., :24].contiguous(), pq,
+          ps, B=3)
+
+
+@pytest.mark.parametrize("tile_rows", [24, 48, 96])
+@pytest.mark.parametrize("rows_tiles,K,N", [(2, 64, 128), (3, 72, 136),
+                                            (1, 1536, 2048), (4, 8, 8)])
+def test_tiled_mm_kernel_matches_plain(dev, tile_rows, rows_tiles, K, N):
+    g = torch.Generator().manual_seed(tile_rows + K + N)
+    rows = rows_tiles * tile_rows
+    x = torch.randn(rows, K, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(K, N, generator=g) * 0.05).to(dev, torch.bfloat16)
+    before = tmm.tiled_mm.launches
+    got = tmm.tiled_mm(x, w, tile_rows=tile_rows)
+    torch.cuda.synchronize()
+    assert tmm.tiled_mm.launches == before + 1
+    want = tmm.tiled_mm_plain(x, w)
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, N)
+    _within_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("tile_rows", [1, 5, 16, 17, 128])
+def test_tiled_mm_kernel_odd_tiles(dev, tile_rows):
+    g = torch.Generator().manual_seed(tile_rows)
+    x = torch.randn(3 * tile_rows, 200, generator=g).to(dev, torch.bfloat16)
+    w = torch.randn(200, 264, generator=g).to(dev, torch.bfloat16)
+    _within_bf16_ulp(tmm.tiled_mm(x, w, tile_rows=tile_rows),
+                     tmm.tiled_mm_plain(x, w))
+
+
+def test_tiled_mm_kernel_refuses_what_it_cannot_take(dev):
+    x = torch.zeros(48, 64, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(64, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        tmm.tiled_mm(x.float(), w.float(), tile_rows=24)
+    with pytest.raises(ValueError):                   # ragged
+        tmm.tiled_mm(x, w, tile_rows=36)
+    with pytest.raises(ValueError):                   # tile too tall
+        tmm.tiled_mm(torch.zeros(258, 64, device=dev, dtype=torch.bfloat16),
+                     w, tile_rows=129)
+    with pytest.raises(ValueError):                   # N % 8
+        tmm.tiled_mm(x, w[:, :100], tile_rows=24)
+
+
+def test_device_ms_reads_the_tiled_kernels_time(dev):
+    """The profiler records the ctypes-launched kernel: a positive device
+    time well under a millisecond at the att_lstm shape."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1152, 1536, generator=g).to(dev, torch.bfloat16)
+    w = torch.randn(1536, 2048, generator=g).to(dev, torch.bfloat16)
+    t = device_ms(lambda: tmm.tiled_mm(x, w, tile_rows=48), iters=8)
+    assert 0.001 < t < 1.0, t

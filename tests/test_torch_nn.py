@@ -131,10 +131,13 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "profile_torch_serving.py")
     yield os.path.join(REPO, "tools", "profile_torch_encoder.py")
+    yield os.path.join(REPO, "tools", "bench_torch_int8.py")
+    yield os.path.join(REPO, "tools", "bench_torch_megacell.py")
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports jax, flax,
+    """No module of the port, not chip_smoke.py and not the port's tools
+    (the profilers and the int8 and decode-cell studies) imports jax, flax,
     msgpack (the card's machine has none: the port decodes checkpoints
     itself), PIL or h5py (neither is there either) or the JAX package (the
     port keeps its own copies)."""

@@ -12,8 +12,9 @@ from insenticap_model_tpu.models import sentiment_detector as jsd
 from insenticap_model_tpu_torch import convert
 from insenticap_model_tpu_torch.config import Settings
 from insenticap_model_tpu_torch.models import captioner as tcap
+from insenticap_model_tpu_torch.utils.tolerance import bf16_ulp_error
 
-V = 24                                   # the conftest vocab's size
+V = 24                                  # the conftest vocab's size
 JIDS = jcap.TokenIds(pad=0, unk=1, sos=2, eos=3, neutral=2)
 TIDS = tcap.TokenIds(*JIDS)
 
@@ -118,3 +119,12 @@ def n(x):
         x = x.detach().float().numpy() if x.is_floating_point() \
             else x.numpy()
     return np.asarray(x)
+
+
+def assert_within_bf16_ulp(got, want, floor_frac=1e-3):
+    """|got - want| <= one bf16 ulp of want everywhere, the ulp taken at no
+    less than floor_frac of max|want| (``utils.tolerance.bf16_ulp_error``)."""
+    err, ulps = bf16_ulp_error(torch.tensor(np.asarray(n(got), np.float64)),
+                               torch.tensor(np.asarray(n(want), np.float64)),
+                               floor_frac)
+    assert ulps <= 1, (ulps, err)
