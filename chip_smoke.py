@@ -9,7 +9,9 @@ into the git-ignored build directory), then:
 
 1. prints the card's name and power limit and the build time;
 2. holds every kernel against its plain PyTorch version on the card, at
-   the serving shapes (bs=384; attention v1 and v2 in bf16 and f32, the
+   the serving shapes (bs=384; attention v1 at beams 1, 3 and 8 and v2 at
+   beam 3, in bf16 and f32, v1's bf16 instance also with tanhf in place of
+   tanh.approx.f32, both within the same tolerance; the
    Winograd transforms in bf16, the fused classifier top-k at 1152 rows x
    10,000 words in bf16 and f32; the encoder stem's max pool in bf16 and
    f32 at [32,224,224,64] and [32,192,256,64], the 448x448 and 384x512
@@ -51,14 +53,18 @@ into the git-ignored build directory), then:
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
    identical top-beam tokens on at least 99% of the images and, on those,
-   top-beam scores within 1e-3; runs the f32 encoder (bs=16, 448x448) with
+   top-beam scores within 1e-3; decodes a beam of 9 (wider than the
+   kernels take) in bf16 at bs=8, with and without ``ISC_FUSED_TOPK=1``,
+   and requires the plain path's tokens and scores exactly, with no v1 or
+   top-k launch; runs the f32 encoder (bs=16, 448x448) with
    the pool kernel and with the plain pool (fc/att within 1e-5 of scale,
    identical concept ids), and the bf16 encoder against the f32 one (rms
    error at most 0.1 of the f32 features' rms);
 5. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of 5
-   runs after warm-up); the row-tiled product and ``torch.matmul``, some
-   50 us a call, by the profiler's device time from phase 3d, since events
+   runs after warm-up); v1 (query product + attention, printed apart),
+   the row-tiled product and ``torch.matmul``, some 50-100 us a call, by
+   the profiler's device time (the latter two from phase 3d), since events
    around back-to-back launches of that size also read the host's
    dispatch; the bf16 serving step at bs=384 under the four
    switch settings on random weights, and captions/s and mean caption
@@ -103,6 +109,7 @@ POOL_SHAPES = {"448x448": (ENC_BS, 224, 224, 64),
                "384x512": (ENC_BS, 192, 256, 64)}
 TRAINED_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "assets", "bench_trained.ckpt")
+ATT_BEAMS = (1, BEAM, 8)     # v1's checks: narrowest, serving, widest
 SWITCH_SETS = {"default": {}, "fused_topk": {"ISC_FUSED_TOPK": "1"},
                "v2": {"ISC_ATT_KERNEL": "v2"},
                "both": {"ISC_FUSED_TOPK": "1", "ISC_ATT_KERNEL": "v2"}}
@@ -271,7 +278,8 @@ def main():
         from insenticap_model_tpu_torch.training import checkpoint as tck
         from insenticap_model_tpu_torch.utils.dtypes import (cast_bf16,
                                                              cast_f32)
-        from insenticap_model_tpu_torch.utils.timing import cuda_ms
+        from insenticap_model_tpu_torch.utils.timing import (
+            cuda_ms, device_ms, device_ms_by_name)
         from insenticap_model_tpu_torch.utils.tolerance import bf16_ulp_error
         from insenticap_model_tpu_torch.vocab import Vocab
         from tools import bench_torch_int8 as bti
@@ -310,24 +318,50 @@ def main():
     # -- 2. every kernel against its plain version at serving shapes -------
     checks = {}
     att_in = {}
+
+    def att_tol(dt, got, want):
+        if dt == torch.bfloat16:   # one bf16 rounding of the same f32 value
+            return _within_rounding(torch, got, want, 1e-2, 1e-3)
+        # f32: another order of the same sums
+        return _within_rounding(torch, got, want, 1e-4, 1e-4)
+
     for dt in (torch.bfloat16, torch.float32):
         p_cont = (cap16 if dt == torch.bfloat16 else cap32)[
             "attention"]["cont"]
-        h = (torch.rand(BS * BEAM, H, generator=g, device=dev) * 2 - 1).to(dt)
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
         att = torch.rand(BS, N, Fe, generator=g, device=dev).to(dt)
         p_att = torch.rand(BS, N, Ah, generator=g, device=dev).to(dt)
-        got = fa.beam_content_attention(h, p_cont, att, p_att, B=BEAM)
-        torch.cuda.synchronize()
-        want = fa.beam_content_attention_plain(h, p_cont, att, p_att, B=BEAM)
-        if dt == torch.bfloat16:   # one bf16 rounding of the same f32 value
-            ok, err = _within_rounding(torch, got, want, 1e-2, 1e-3)
-        else:                      # f32: another order of the same sums
-            ok, err = _within_rounding(torch, got, want, 1e-4, 1e-4)
-        tag = "bf16" if dt == torch.bfloat16 else "f32"
-        checks[f"attention_{tag}"] = err
-        print(f"check attention {tag} bs={BS}: max_abs_err={err:.3g} "
-              f"{'ok' if ok else 'FAIL'}")
-        _check(ok, f"attention kernel {tag} disagrees with its plain version")
+        # v1 at the narrowest, the serving and the widest beam
+        for b_ in ATT_BEAMS:
+            hb = (torch.rand(BS * b_, H, generator=g, device=dev) * 2
+                  - 1).to(dt)
+            got = fa.beam_content_attention(hb, p_cont, att, p_att, B=b_)
+            torch.cuda.synchronize()
+            want_b = fa.beam_content_attention_plain(hb, p_cont, att, p_att,
+                                                     B=b_)
+            ok, err = att_tol(dt, got, want_b)
+            checks[f"attention_{tag}_B{b_}"] = err
+            print(f"check attention {tag} bs={BS} B={b_}: max_abs_err="
+                  f"{err:.3g} {'ok' if ok else 'FAIL'}")
+            _check(ok, f"attention kernel {tag} B={b_} disagrees with its "
+                   "plain version")
+            if b_ == BEAM:
+                h, want = hb, want_b
+        checks[f"attention_{tag}"] = checks[f"attention_{tag}_B{BEAM}"]
+        if dt == torch.bfloat16:
+            # the bf16 instance's tanh.approx.f32 against tanhf: both held
+            # to the same tolerance, both errors kept
+            got = fa.beam_content_attention(h, p_cont, att, p_att, B=BEAM,
+                                            exact_tanh=True)
+            torch.cuda.synchronize()
+            ok, err = att_tol(dt, got, want)
+            checks["attention_bf16_tanhf"] = err
+            print(f"check attention bf16 bs={BS} B={BEAM} with tanhf: "
+                  f"max_abs_err={err:.3g} (tanh.approx.f32: "
+                  f"{checks['attention_bf16']:.3g}) {'ok' if ok else 'FAIL'}")
+            _check(ok, "attention kernel bf16 with tanhf disagrees with its "
+                   "plain version")
+        del hb, want_b
         att_in[dt] = (h, p_cont, att, p_att)
         # v2: the same inputs, v1's tolerances
         got = fa.beam_content_attention(h, p_cont, att, p_att, B=BEAM,
@@ -335,10 +369,7 @@ def main():
         torch.cuda.synchronize()
         want = fa.beam_content_attention_plain(h, p_cont, att, p_att, B=BEAM,
                                                variant="v2")
-        if dt == torch.bfloat16:
-            ok, err = _within_rounding(torch, got, want, 1e-2, 1e-3)
-        else:
-            ok, err = _within_rounding(torch, got, want, 1e-4, 1e-4)
+        ok, err = att_tol(dt, got, want)
         checks[f"attention_v2_{tag}"] = err
         print(f"check attention v2 {tag} bs={BS}: max_abs_err={err:.3g} "
               f"{'ok' if ok else 'FAIL'}")
@@ -808,6 +839,35 @@ def main():
                                         use_kernels=False, **kw))
     _check(0 < steps_f32 < T, f"f32 trained decode ran {steps_f32} steps")
     report["e2e_f32_trained_both"]["steps"] = steps_f32
+
+    # a beam wider than the kernels take (kernel_takes): bf16 at full width,
+    # bs=8, through the plain cell and tail on the card, token for token the
+    # use_kernels=False path, with no v1 or top-k launch
+    params16 = inference.ServingParams(cap16, det16)
+    fc9 = torch.rand(8, settings.fc_feat_dim, generator=g,
+                     device=dev).bfloat16()
+    att9 = torch.rand(8, 14, 14, C0, generator=g, device=dev).bfloat16()
+    kw9 = dict(kw, beam_size=9)
+    beam9 = {}
+    for name in ("default", "fused_topk"):
+        with _switches(name):
+            zero_counters()
+            got9 = inference.detect_and_decode(params16, fc9, att9, sw[:8],
+                                               **kw9)
+            l9 = read_counters()
+            want9 = inference.detect_and_decode(params16, fc9, att9, sw[:8],
+                                                use_kernels=False, **kw9)
+        same = all(torch.equal(a, b) for a, b in zip(got9, want9))
+        beam9[name] = {"identical_to_plain": same, "launches": l9}
+        _check(tuple(got9[0].shape) == (8, 9, T) and same,
+               f"beam 9 ({name}) differs from the plain path")
+        _check(l9["beam_content_attention"] == 0
+               and l9["classifier_topk"] == 0,
+               f"beam 9 ({name}) launched a kernel that does not take it: "
+               f"{l9}")
+    print(f"beam 9 decode bf16 bs=8: identical to the plain path, launches "
+          f"{ {k: v['launches'] for k, v in beam9.items()} }")
+    report["beam9_decode"] = beam9
     del params32, params_t32, kernel_out
     torch.cuda.empty_cache()
 
@@ -855,8 +915,16 @@ def main():
     # -- 5. times ------------------------------------------------------------
     kernels = []
     h, p_cont, att16, p_att16 = att_in[torch.bfloat16]
+    # v1 is two launches of some 0.1 ms together, near the host's dispatch
+    # of a call: the line carries the profiler's device time, split into
+    # the query product and the attention, with CUDA events beside it
+    v1_parts = ("query_", "beam_att_kernel")
+    a_dev = device_ms_by_name(lambda: fa.beam_content_attention(
+        h, p_cont, att16, p_att16, B=BEAM), v1_parts)
     a_ms = cuda_ms(lambda: fa.beam_content_attention(
         h, p_cont, att16, p_att16, B=BEAM))
+    a_tanhf = device_ms_by_name(lambda: fa.beam_content_attention(
+        h, p_cont, att16, p_att16, B=BEAM, exact_tanh=True), v1_parts)
     a_plain = cuda_ms(lambda: fa.beam_content_attention_plain(
         h, p_cont, att16, p_att16, B=BEAM), iters=5)
     rows = BS * BEAM
@@ -866,10 +934,26 @@ def main():
         + 2 * rows * N * Fe
     a_bound, a_by = _bound(a_bytes, a_flops, F32_FLOP_S)
     h32, p32, att32, patt32 = att_in[torch.float32]
+    a32_dev = device_ms_by_name(lambda: fa.beam_content_attention(
+        h32, p32, att32, patt32, B=BEAM), v1_parts)
     a32_ms = cuda_ms(lambda: fa.beam_content_attention(
         h32, p32, att32, patt32, B=BEAM))
     a32_bound, _ = _bound(2 * a_bytes, a_flops, F32_FLOP_S)
-    report["attention_f32"] = {"ms": a32_ms, "bound_ms": a32_bound}
+    report["attention_f32"] = {"device_ms": a32_dev, "ms_events": a32_ms,
+                               "bound_ms": a32_bound}
+    # the narrowest and the widest beam on the same att/p_att
+    a_by_beam = {BEAM: a_dev}
+    for b_ in ATT_BEAMS:
+        if b_ != BEAM:
+            hb = (torch.rand(BS * b_, H, generator=g, device=dev) * 2
+                  - 1).bfloat16()
+            a_by_beam[b_] = device_ms_by_name(
+                lambda: fa.beam_content_attention(hb, p_cont, att16, p_att16,
+                                                  B=b_), v1_parts)
+    del hb
+    report["attention_bf16"] = {"device_ms": a_dev, "ms_events": a_ms,
+                                "device_ms_tanhf": a_tanhf,
+                                "device_ms_by_beam": a_by_beam}
     per_batch = launches["beam_content_attention"] / stats["batches"]
     kernels.append({
         "name": "beam_content_attention",
@@ -878,16 +962,21 @@ def main():
         "replaces": "insenticap_model_tpu/ops/fused_attention.py:27",
         "launches": launches["beam_content_attention"],
         "max_abs_err": checks["attention_bf16"],
-        "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
+        "ms": a_dev["total"], "ms_events": a_ms,
+        "query_ms": a_dev["query_"], "attention_ms": a_dev["beam_att_kernel"],
+        "plain_ms": a_plain, "bound_ms": a_bound,
         "bound_by": a_by, "library_ms": None, "passed": True})
     # v2: the same function up to the weights' rounding, the same bound
     v2_ms = cuda_ms(lambda: fa.beam_content_attention(
+        h, p_cont, att16, p_att16, B=BEAM, variant="v2"))
+    v2_dev = device_ms(lambda: fa.beam_content_attention(
         h, p_cont, att16, p_att16, B=BEAM, variant="v2"))
     v2_plain = cuda_ms(lambda: fa.beam_content_attention_plain(
         h, p_cont, att16, p_att16, B=BEAM, variant="v2"), iters=5)
     v2_32 = cuda_ms(lambda: fa.beam_content_attention(
         h32, p32, att32, patt32, B=BEAM, variant="v2"))
     report["attention_v2_f32"] = {"ms": v2_32, "bound_ms": a32_bound}
+    report["attention_v2_bf16"] = {"ms": v2_ms, "device_ms": v2_dev}
     kernels.append({
         "name": "beam_content_attention_v2",
         "route": "cuda",
@@ -1079,7 +1168,6 @@ def main():
 
     # the serving step: detect + decode, bf16, bs=384, host clock; its
     # detector alone; and the same step on the plain path
-    params16 = inference.ServingParams(cap16, det16)
     fc16, att16b = fc.bfloat16(), att.bfloat16()
 
     def wall_s(fn, runs=5):
@@ -1171,8 +1259,19 @@ def main():
         print(f"encoder forward_raw_batch {tag} bs={ENC_BS} 448x448: "
               f"{r['ms']:.2f} ms median of 5 -> {r['images_per_s']:.1f} "
               "images/s")
-    print(f"attention f32 bs={BS}: {a32_ms:.4f} ms (bound "
-          f"{a32_bound:.4f} ms)")
+    print(f"attention v1 bf16 bs={BS} B={BEAM}, device ms: query "
+          f"{a_dev['query_']:.4f} + attention {a_dev['beam_att_kernel']:.4f}"
+          f" = {a_dev['total']:.4f} (events {a_ms:.4f}; with tanhf "
+          f"{a_tanhf['beam_att_kernel']:.4f}, total {a_tanhf['total']:.4f});"
+          f" v2 {v2_dev:.4f} (events {v2_ms:.4f}); bound {a_bound:.4f} ms")
+    print(f"attention v1 bf16 bs={BS} by beam, device ms (query + "
+          "attention): " + ", ".join(
+              f"B={b_} {d['query_']:.4f} + {d['beam_att_kernel']:.4f}"
+              for b_, d in sorted(a_by_beam.items())))
+    print(f"attention v1 f32 bs={BS}, device ms: query "
+          f"{a32_dev['query_']:.4f} + attention "
+          f"{a32_dev['beam_att_kernel']:.4f} = {a32_dev['total']:.4f} "
+          f"(events {a32_ms:.4f}; bound {a32_bound:.4f} ms)")
     print(f"attention v2 f32 bs={BS}: {v2_32:.4f} ms; classifier_topk "
           f"f32: {tk32_ms:.4f} ms (plain {tk32_plain:.4f} ms, bound "
           f"{tk32_bound:.4f} ms)")

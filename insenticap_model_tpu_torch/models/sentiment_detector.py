@@ -9,9 +9,10 @@ conv to one channel per sentiment, a global mean pool and
 pre-softmax logits and the softmax-weighted 14x14 spatial map.
 
 On a CUDA bf16 batch the 3x3 stack runs through the Winograd kernels
-(``ops/winograd_kernels.py``) spatial-major ``[H, W, bs, C]``; f32, and every
-CPU tensor, keeps the direct convolution. ``module_for`` picks this head
-or the "full" variant (``sentiment_detector_full.py``) from ``Settings``.
+(``ops/winograd_kernels.py``) spatial-major ``[H, W, bs, C]``; f32, every
+CPU tensor and ``deterministic=False`` keep the direct convolution.
+``module_for`` picks this head or the "full" variant
+(``sentiment_detector_full.py``) from ``Settings``.
 """
 from __future__ import annotations
 
@@ -54,14 +55,18 @@ def init_params(gen: torch.Generator, num_sentiments: int, settings, *,
     return params
 
 
-def conv_stack(params, features, *, use_kernels: bool = True):
+def conv_stack(params, features, *, use_kernels: bool = True,
+               deterministic: bool = True):
     """The shared 3x3 conv stack and its ReLU, for both detector heads.
     Returns (x, spatial_major): x is [H, W, bs, C] when the Winograd
     kernels ran (``spatial_major`` True), else [bs, H, W, C].
     ``use_kernels=False`` keeps the direct convolution on the card too
-    (the reference run of the smoke check)."""
+    (the reference run of the smoke check). ``deterministic=False`` (a
+    training step, as in the JAX package, sentiment_detector.py:75-77)
+    keeps the differentiable direct convolution: the kernels have no
+    backward."""
     convs = params["convs"]
-    fast = use_kernels and bool(convs) and all(
+    fast = deterministic and use_kernels and bool(convs) and all(
         kernel_eligible(features.shape, cp["weight"].shape, features.dtype,
                         features.device) for cp in convs)
     if fast:
@@ -77,10 +82,13 @@ def conv_stack(params, features, *, use_kernels: bool = True):
     return torch.relu(x), fast
 
 
-def forward(params, features, *, use_kernels: bool = True):
+def forward(params, features, *, use_kernels: bool = True,
+            deterministic: bool = True):
     """features [bs, 14, 14, C] (NHWC). Returns (logits [bs, S], spatial
-    map [bs, 14, 14])."""
-    x, fast = conv_stack(params, features, use_kernels=use_kernels)
+    map [bs, 14, 14]). ``deterministic=False`` keeps the kernels out
+    (``conv_stack``)."""
+    x, fast = conv_stack(params, features, use_kernels=use_kernels,
+                         deterministic=deterministic)
     # a 1x1 conv mixes channels only, so it is correct on both layouts
     senti_maps = nn.conv2d(params["senti_conv"], x, padding="SAME")
     if fast:

@@ -48,10 +48,13 @@ def init_params(gen: torch.Generator, num_sentiments: int, settings, *,
     return params
 
 
-def forward_full(params, features, *, use_kernels: bool = True):
+def forward_full(params, features, *, use_kernels: bool = True,
+                 deterministic: bool = True):
     """features [bs, H, W, C] -> (det_out [bs, S], cls_out [bs, S],
-    spatial map [bs, H, W])."""
-    x, spatial_major = conv_stack(params, features, use_kernels=use_kernels)
+    spatial map [bs, H, W]). ``deterministic=False`` keeps the kernels out
+    (``conv_stack``)."""
+    x, spatial_major = conv_stack(params, features, use_kernels=use_kernels,
+                                  deterministic=deterministic)
     if spatial_major:   # not a hot path: one transpose back after the stack
         x = x.permute(2, 0, 1, 3)
     senti_maps = nn.conv2d(params["senti_conv"], x, padding="SAME")
@@ -68,12 +71,14 @@ def forward_full(params, features, *, use_kernels: bool = True):
     return det_out, cls_out, spatial
 
 
-def forward(params, features, *, use_kernels: bool = True):
+def forward(params, features, *, use_kernels: bool = True,
+            deterministic: bool = True):
     """The standard detector's surface: (cls logits [bs, S], spatial
     [bs, H, W]); sample runs on the classification branch, the branch the
     reference's own ``sample`` thresholds (:59-61)."""
     _, cls_out, spatial = forward_full(params, features,
-                                       use_kernels=use_kernels)
+                                       use_kernels=use_kernels,
+                                       deterministic=deterministic)
     return cls_out, spatial
 
 

@@ -8,6 +8,8 @@ flags, so an edited source is never served from a stale build. Pointers
 and the CUDA stream cross as ``c_void_p``; every C entry point returns
 ``cudaGetLastError()`` after its launch and ``check`` raises on a non-zero
 code. There is no fallback: a missing ``nvcc`` or a failed build raises.
+``no_grad_guard`` is every wrapper's refusal to launch a kernel where
+autograd would record a graph through it.
 """
 from __future__ import annotations
 
@@ -92,6 +94,20 @@ def load(name: str, signatures: Dict[str, int]) -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"CUDA launch of {what} failed: error {code}")
+
+
+def no_grad_guard(what: str, *tensors) -> None:
+    """Raise where autograd would record a graph through a kernel: the
+    kernels have no backward, so their outputs would carry no ``grad_fn``
+    and the operands would silently get no gradient. ``None`` entries are
+    skipped."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an operand requires grad, but the CUDA kernel has no "
+            "backward; call it under torch.no_grad() or use the plain "
+            "version")
 
 
 def stream_ptr(device) -> int:

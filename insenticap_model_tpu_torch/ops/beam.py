@@ -19,13 +19,17 @@ Counterpart of ``insenticap_model_tpu/ops/beam.py::beam_search_batched``
 
 On a CUDA batch the decode cell takes the beam-shared attention kernel
 (``ops/fused_attention.py``; ``ISC_ATT_KERNEL`` picks v1 or v2), which
-reads each image's att/p_att once for all its beams, for any batch size.
-The CPU, ``return_weights`` and ``use_kernels=False`` run the plain
-tiled-rows cell, as the JAX package does off the TPU. ``ISC_FUSED_TOPK=1``,
-read at each call as the JAX package reads it at trace (its beam.py:
-165-207), sends the tail through ``fused_topk.classifier_topk``: the CUDA
-kernel for a CUDA batch, the same plain function on the CPU; it is not
-taken under ``return_weights`` or ``use_kernels=False``. The beam select
+reads each image's att/p_att once for all its beams, for any batch size,
+where ``fused_attention.kernel_takes`` holds for the beam size, the widths
+and the dtype. The CPU, ``return_weights``, ``use_kernels=False`` and what
+the kernel does not take (a beam wider than 8) run the plain tiled-rows
+cell, as the JAX package's beam sends what its kernel's gate refuses to
+the plain cell (its beam.py:157-161). ``ISC_FUSED_TOPK=1``, read at each
+call as the JAX package reads it at trace (its beam.py:165-207), sends the
+tail through ``fused_topk.classifier_topk`` where
+``fused_topk.kernel_takes(beam_size)`` holds: the CUDA kernel for a CUDA
+batch, the same plain function on the CPU; it is not taken under
+``return_weights`` or ``use_kernels=False``. The beam select
 of the LSTM state is a gather by parent (the JAX package's one-hot
 product was a TPU layout rule; both are exact).
 """
@@ -106,8 +110,11 @@ def beam_search_batched(params, ctx: DecodeContext, *, settings,
     if return_weights:
         early_exit = False
 
+    w_att = params["attention"]["cont"]["h2att"]["weight"]     # [Ah, H]
     use_fa = (ctx.att is not None and mode in ("xe", "rl")
-              and not return_weights and use_kernels and dev.type == "cuda")
+              and not return_weights and use_kernels and dev.type == "cuda"
+              and fa.kernel_takes(B, w_att.shape[1], w_att.shape[0],
+                                  ctx.att.shape[-1], ctx.att.dtype))
     if use_fa:
         sctx = _tile_ctx(ctx._replace(att=None, p_att=None), B)
     else:
@@ -115,7 +122,7 @@ def beam_search_batched(params, ctx: DecodeContext, *, settings,
     # the vocab-wide tail: f32 logits and normaliser even with bf16
     # params; the fused kernel takes the params as they are
     fused = (os.environ.get("ISC_FUSED_TOPK") == "1" and use_kernels
-             and not return_weights)
+             and not return_weights and fused_topk.kernel_takes(B))
     topk = fused_topk.classifier_topk if fused else \
         fused_topk.classifier_topk_plain
     w_cls, b_cls = params["classifier"]["weight"], params["classifier"]["bias"]

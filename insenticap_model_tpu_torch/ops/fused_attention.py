@@ -14,10 +14,14 @@ beams:
     out[b,k] = softmax_n(e[b,k]) @ att[b]
 
 What bounds it on the H100: the att/p_att bytes (154 MB a step at bs=384,
-bf16, N=196, 512 wide: about 46 us at 3.35 TB/s), with 115.6 M tanh beside
-them. The design streams each image's p_att rows once to form all B logits
-and att once for all B weighted sums, with the queries and softmax weights
-in f32 shared memory (see the source's header). Serving only: no backward.
+bf16, N=196, 512 wide: about 46.9 us at 3.35 TB/s), with 115.6 M tanh beside
+them. v1 is two launches (``csrc/fused_attention.cu``): a tiled query
+product Q = h W^T + b for all bs*B rows into an f32 scratch (bf16 on the
+tensor cores, f32 on FFMA), then one block per image that streams p_att and
+att through a cp.async ring once for all B beams (see the source's header).
+The bf16 instance takes ``tanh.approx.f32`` (``exact_tanh=True`` takes
+tanhf, to measure the approximation); f32 takes tanhf. Serving only: no
+backward, so a CUDA call raises where an operand requires grad.
 
 v2 (``csrc/fused_attention_v2.cu``) computes v1's function with one
 difference, as ``_kernel_v2`` does: the softmax weights are rounded to
@@ -26,11 +30,15 @@ two are the same function). Its design puts the q product and, for bf16,
 the weighted sum on the tensor cores (``mma.sync`` m16n8k16), and reads
 p_att and att with 16-byte loads; the bound is v1's.
 
+``kernel_takes(B, H, Ah, Fe, dtype)`` says whether a kernel takes a shape;
+the beam runs the plain tiled-rows cell where it does not (a beam wider
+than ``MAX_BEAM``, odd widths), as the JAX package's beam gates its kernel.
 ``beam_content_attention`` takes the plain version for CPU tensors and
-launches a kernel for CUDA tensors. ``variant=None`` reads
-``ISC_ATT_KERNEL`` ("v1" when unset) at each call, here in the wrapper;
-``beam_content_attention.launches`` and ``.launches_v2`` count the v1 and
-v2 kernel launches.
+launches a kernel for CUDA tensors, or raises on what the kernel does not
+take. ``variant=None`` reads ``ISC_ATT_KERNEL`` ("v1" when unset) at each
+call, here in the wrapper; ``beam_content_attention.launches`` and
+``.launches_v2`` count the v1 and v2 wrapper calls that launched (one
+each, though v1 is two kernels).
 """
 from __future__ import annotations
 
@@ -42,22 +50,28 @@ import torch
 from .. import nn
 from . import _build
 
-MAX_BEAM = 8   # the kernels' softmax runs one warp per beam
+MAX_BEAM = 8     # the kernels' softmax runs one warp per beam
+MAX_WIDTH = 2048  # v1: a lane owns 8 of Ah's (and Fe's) channels, 256 lanes
 VARIANTS = ("v1", "v2")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = [_P] * 7 + [_I] * 6 + [_P]
+# h, w, b, alpha, p_att, att, out, [v1: the f32 query scratch], bs, B, H,
+# Ah, N, Fe, stream
+_SIGS = {"v1": [_P] * 8 + [_I] * 6 + [_P], "v2": [_P] * 7 + [_I] * 6 + [_P]}
 _LIBS = {"v1": "fused_attention", "v2": "fused_attention_v2"}
 _FNS = {"v1": {torch.float32: "isc_beam_att_f32",
                torch.bfloat16: "isc_beam_att_bf16"},
         "v2": {torch.float32: "isc_beam_att_v2_f32",
                torch.bfloat16: "isc_beam_att_v2_bf16"}}
+_V1_BF16_TANHF = "isc_beam_att_bf16_tanhf"
 
 
 def _lib(variant: str):
-    return _build.load(_LIBS[variant],
-                       {fn: _SIG for fn in _FNS[variant].values()})
+    fns = list(_FNS[variant].values())
+    if variant == "v1":
+        fns.append(_V1_BF16_TANHF)
+    return _build.load(_LIBS[variant], {fn: _SIGS[variant] for fn in fns})
 
 
 def resolve_variant(variant=None) -> str:
@@ -68,6 +82,25 @@ def resolve_variant(variant=None) -> str:
         raise ValueError(f"attention kernel variant {variant!r}: one of "
                          f"{VARIANTS}")
     return variant
+
+
+def kernel_takes(B: int, H: int, Ah: int, Fe: int, dtype,
+                 variant=None) -> bool:
+    """Whether the ``variant`` kernel (``ISC_ATT_KERNEL`` for None) takes a
+    beam of ``B`` with h width H, attention width Ah and feature width Fe
+    in ``dtype``. v1: B <= 8; bf16 needs H % 16 == 0 (the ``mma`` K) and
+    Ah, Fe % 8 == 0, f32 H, Ah, Fe % 4 == 0 (16-byte rows); Ah, Fe <= 2048.
+    v2: B <= 8, H % 16 == 0, Ah and Fe % 8 == 0."""
+    variant = resolve_variant(variant)
+    if dtype not in _FNS[variant] or not 1 <= B <= MAX_BEAM or min(
+            H, Ah, Fe) < 1:
+        return False
+    if variant == "v2":
+        return H % 16 == 0 and Ah % 8 == 0 and Fe % 8 == 0
+    vec = 8 if dtype == torch.bfloat16 else 4      # elements in 16 bytes
+    return (H % (16 if dtype == torch.bfloat16 else 4) == 0
+            and Ah % vec == 0 and Fe % vec == 0
+            and max(Ah, Fe) <= MAX_WIDTH)
 
 
 def beam_content_attention_plain(h, p_cont, att, p_att, *, B: int,
@@ -94,11 +127,12 @@ def beam_content_attention_plain(h, p_cont, att, p_att, *, B: int,
 
 
 def beam_content_attention(h, p_cont, att, p_att, *, B: int,
-                           variant=None):
+                           variant=None, exact_tanh: bool = False):
     """h [bs*B, H] in image-major row order, p_cont =
     params['attention']['cont'], att [bs, N, Fe] and p_att [bs, N, Ah]
-    untiled. Returns [bs*B, Fe] in att's dtype. Any bs works; v2 needs
-    H % 16 == 0 and Ah, Fe % 8 == 0."""
+    untiled. Returns [bs*B, Fe] in att's dtype. Any bs and N; the widths
+    and B that ``kernel_takes`` accepts, 16-byte aligned operands.
+    ``exact_tanh``: v1 bf16 only, tanhf in place of ``tanh.approx.f32``."""
     variant = resolve_variant(variant)
     if att.device.type == "cpu":
         return beam_content_attention_plain(h, p_cont, att, p_att, B=B,
@@ -108,9 +142,8 @@ def beam_content_attention(h, p_cont, att, p_att, *, B: int,
     w = p_cont["h2att"]["weight"]
     b = p_cont["h2att"]["bias"]
     alpha = p_cont["att_alpha"]["weight"]
-    bs, N, Fe = att.shape
-    Ah, H = w.shape
     tensors = (h, w, b, alpha, p_att, att)
+    _build.no_grad_guard("beam_content_attention", *tensors)
     fns = _FNS[variant]
     if att.dtype not in fns or any(t.dtype != att.dtype for t in tensors):
         raise TypeError("beam_content_attention: all operands must share "
@@ -119,25 +152,35 @@ def beam_content_attention(h, p_cont, att, p_att, *, B: int,
     if any(t.device != att.device for t in tensors):
         raise ValueError("beam_content_attention: operands on several "
                          "devices")
-    if not 1 <= B <= MAX_BEAM:
-        raise ValueError(f"beam size {B} outside [1, {MAX_BEAM}]")
+    bs, N, Fe = att.shape
+    Ah, H = w.shape
     if (h.shape != (bs * B, H) or p_att.shape != (bs, N, Ah)
             or b.shape != (Ah,) or alpha.numel() != Ah):
         raise ValueError(
             f"beam_content_attention shapes: h {tuple(h.shape)}, W "
             f"{tuple(w.shape)}, att {tuple(att.shape)}, p_att "
             f"{tuple(p_att.shape)}, B={B}")
-    h, w, b, alpha, p_att, att = (t.contiguous() for t in tensors)
-    if variant == "v2" and (H % 16 or Ah % 8 or Fe % 8 or any(
-            t.data_ptr() % 16 for t in (h, w, p_att, att))):
+    if not kernel_takes(B, H, Ah, Fe, att.dtype, variant):
         raise ValueError(
-            f"beam_content_attention v2 needs H % 16 == 0 (H={H}), Ah and "
-            f"Fe % 8 == 0 (Ah={Ah}, Fe={Fe}) and 16-byte aligned operands")
+            f"beam_content_attention {variant} does not take B={B} (at "
+            f"most {MAX_BEAM}), H={H}, Ah={Ah}, Fe={Fe} in {att.dtype} "
+            "(kernel_takes)")
+    h, w, b, alpha, p_att, att = (t.contiguous() for t in tensors)
+    if any(t.data_ptr() % 16 for t in (h, w, alpha, p_att, att)):
+        raise ValueError("beam_content_attention needs 16-byte aligned "
+                         "operands")
     out = torch.empty((bs * B, Fe), dtype=att.dtype, device=att.device)
-    fn = getattr(_lib(variant), fns[att.dtype])
-    _build.check(fn(h.data_ptr(), w.data_ptr(), b.data_ptr(),
-                    alpha.data_ptr(), p_att.data_ptr(), att.data_ptr(),
-                    out.data_ptr(), bs, B, H, Ah, N, Fe,
+    lib = _lib(variant)
+    ptrs = [h.data_ptr(), w.data_ptr(), b.data_ptr(), alpha.data_ptr(),
+            p_att.data_ptr(), att.data_ptr(), out.data_ptr()]
+    fn = getattr(lib, fns[att.dtype])
+    if variant == "v1":
+        q = torch.empty((bs * B, Ah), dtype=torch.float32,
+                        device=att.device)
+        ptrs.append(q.data_ptr())
+        if exact_tanh and att.dtype == torch.bfloat16:
+            fn = getattr(lib, _V1_BF16_TANHF)
+    _build.check(fn(*ptrs, bs, B, H, Ah, N, Fe,
                     _build.stream_ptr(att.device)),
                  f"beam_content_attention {variant}")
     if variant == "v2":
@@ -147,5 +190,5 @@ def beam_content_attention(h, p_cont, att, p_att, *, B: int,
     return out
 
 
-beam_content_attention.launches = 0      # v1 kernel launches
+beam_content_attention.launches = 0      # v1 wrapper calls that launched
 beam_content_attention.launches_v2 = 0   # v2 kernel launches

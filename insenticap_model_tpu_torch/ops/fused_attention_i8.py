@@ -18,7 +18,8 @@ bytes. Every byte stream is read 16 bytes a thread (see the source's
 header).
 
 ``beam_content_attention_i8`` takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors (bf16 only), or raises;
+launches the kernel for CUDA tensors (bf16 only, no operand requiring
+grad), or raises;
 ``beam_content_attention_i8.launches`` counts the launches.
 """
 from __future__ import annotations
@@ -113,6 +114,7 @@ def beam_content_attention_i8(h, p_cont, att_q, att_s, p_att_q, p_att_s, *,
                                                p_att_q, p_att_s, B=B)
     if att_q.device.type != "cuda":
         raise ValueError(f"beam_content_attention_i8: device {att_q.device}")
+    _build.no_grad_guard("beam_content_attention_i8", *tensors)
     if h.dtype != torch.bfloat16:
         raise TypeError("beam_content_attention_i8: the kernel takes h, W, b "
                         f"and alpha in bfloat16: {h.dtype}")

@@ -34,7 +34,8 @@ partials (max, rescaled sum, top-k) and writes ``[rows, k]``. The
 ``[rows, V]`` logits never reach device memory.
 
 ``classifier_topk`` runs the plain version for CPU tensors and launches
-the kernels for CUDA tensors; ``classifier_topk.launches`` counts its
+the kernels for CUDA tensors (raising where an operand requires grad or
+``kernel_takes(k)`` fails); ``classifier_topk.launches`` counts its
 launches (one per call).
 """
 from __future__ import annotations
@@ -63,6 +64,14 @@ _FNS = {torch.float32: "isc_topk_f32", torch.bfloat16: "isc_topk_bf16"}
 
 def _lib():
     return _build.load("fused_topk", {fn: _SIG for fn in _FNS.values()})
+
+
+def kernel_takes(k: int) -> bool:
+    """Whether the kernel takes a top-k of width ``k`` (the merge keeps at
+    most ``MAX_K`` candidates a row); the beam runs the plain tail
+    otherwise, as the JAX package's beam does where its kernel's gate
+    fails."""
+    return 1 <= k <= MAX_K
 
 
 def _topk_argmax(x, k: int):
@@ -108,13 +117,14 @@ def classifier_topk(h, w, b, last: Optional[torch.Tensor], *, k: int,
     if h.device.type != "cuda":
         raise ValueError(f"classifier_topk: device {h.device}")
     tensors = (h, w, b)
+    _build.no_grad_guard("classifier_topk", *tensors)
     if h.dtype not in _FNS or any(t.dtype != h.dtype for t in tensors):
         raise TypeError("classifier_topk: h, w and b must share one dtype, "
                         f"float32 or bfloat16: {[t.dtype for t in tensors]}")
     if any(t.device != h.device for t in tensors) or (
             last is not None and last.device != h.device):
         raise ValueError("classifier_topk: operands on several devices")
-    if not 1 <= k <= MAX_K:
+    if not kernel_takes(k):
         raise ValueError(f"classifier_topk: k={k} outside [1, {MAX_K}]")
     banned = [int(x) for x in banned]
     if len(banned) > MAX_BANNED:

@@ -20,7 +20,8 @@ kernel on a permuted view. A scalar instance takes what the 16-byte path
 cannot (a channel count, stride or pointer not 16-byte aligned).
 
 Both forms run the plain version for a CPU tensor and launch the kernel for
-a CUDA tensor; ``ceil_maxpool_3x3s2_nhwc.launches`` counts the launches of
+a CUDA tensor (raising where it requires grad: the kernel has no
+backward); ``ceil_maxpool_3x3s2_nhwc.launches`` counts the launches of
 both (one per call).
 """
 from __future__ import annotations
@@ -72,6 +73,7 @@ def _launch(xv, yv):
     views with unit channel stride."""
     if xv.device.type != "cuda":
         raise ValueError(f"ceil_maxpool_3x3s2 kernel: device {xv.device}")
+    _build.no_grad_guard("ceil_maxpool_3x3s2", xv)
     if xv.dtype not in _FNS:
         raise TypeError(f"ceil_maxpool_3x3s2: dtype {xv.dtype} (float32 or "
                         "bfloat16)")

@@ -13,8 +13,8 @@ What bounds it on the H100 at [1152, 1536] x [1536, 2048] (bf16): 7.25
 GFLOP, 0.0073 ms at 989 TFLOP/s, against 14.5 MB, 0.0043 ms: operations.
 
 ``tiled_mm`` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors (bf16 only), or raises; ``tiled_mm.launches``
-counts the launches.
+kernel for CUDA tensors (bf16 only, no operand requiring grad), or
+raises; ``tiled_mm.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -60,6 +60,7 @@ def tiled_mm(x, w, *, tile_rows: int):
         return tiled_mm_plain(x, w)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"tiled_mm: devices {x.device}, {w.device}")
+    _build.no_grad_guard("tiled_mm", x, w)
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"tiled_mm: the kernel takes bfloat16: {x.dtype}, "
                         f"{w.dtype}")

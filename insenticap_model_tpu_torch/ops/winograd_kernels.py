@@ -4,7 +4,9 @@ Replaces the Pallas kernels of ``insenticap_model_tpu/ops/winograd_pallas.py``
 (``conv3x3_stack_sm``, :155-229): ``_input_kernel`` (:67), ``_middle_kernel``
 (:99) and ``_output_kernel`` (:83). The kernels are in ``csrc/winograd.cu``;
 each has a wrapper here that launches it for a CUDA tensor, runs its plain
-PyTorch twin for a CPU tensor, and counts its launches (``.launches``):
+PyTorch twin for a CPU tensor, and counts its launches (``.launches``);
+on a CUDA tensor it raises where an operand requires grad (the kernels
+have no backward: ``_build.no_grad_guard``):
 
   wino_input   x [H, W, B, C]        -> V [49, tiles, B, C]   V = B^T d B
   wino_middle  M [49, tiles, B, K]   -> V [49, tiles, B, K]   A^T M A + bias,
@@ -138,6 +140,7 @@ def wino_input(x):
     """x [H, W, B, C] -> V [49, tiles, B, C] in x's dtype."""
     if x.device.type == "cpu":
         return wino_input_plain(x)
+    _build.no_grad_guard("wino_input", x)
     _check("wino_input", x, 4)
     h, w, bsz, c = x.shape
     _check_extent("wino_input", h, w)
@@ -157,6 +160,7 @@ def wino_middle(m, bias, h: int, w: int):
     conv of the chain, in M's dtype."""
     if m.device.type == "cpu":
         return wino_middle_plain(m, bias, h, w)
+    _build.no_grad_guard("wino_middle", m, bias)
     _check("wino_middle", m, 4)
     _check_extent("wino_middle", h, w)
     th, tw = _tiles(h, w)
@@ -178,6 +182,7 @@ def wino_output(m, bias, h: int, w: int):
     """M [49, tiles, B, K] + bias [K] -> y [h, w, B, K] in M's dtype."""
     if m.device.type == "cpu":
         return wino_output_plain(m, bias, h, w)
+    _build.no_grad_guard("wino_output", m, bias)
     _check("wino_output", m, 4)
     _check_extent("wino_output", h, w)
     th, tw = _tiles(h, w)

@@ -77,7 +77,7 @@ def test_beam_search_matches_jax(settings, mode, early_exit):
     assert ended_early >= 1     # the EOS-biased seeds end before T
 
 
-@pytest.mark.parametrize("B", [1, 2, 4])
+@pytest.mark.parametrize("B", [1, 2, 4, 9])
 def test_beam_sizes_match_jax(settings, B):
     ps = port_settings(settings)
     jp, tp = captioner_params(settings, seed=4, eos_bias=2.0)

@@ -58,7 +58,7 @@ def _att_params(g, H, Ah, dev, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs,B,N", [(1, 3, 196), (7, 3, 50), (5, 1, 9),
-                                    (3, 8, 196)])
+                                    (3, 8, 196), (4, 5, 196), (2, 5, 17)])
 def test_attention_kernel_matches_twin(dev, dtype, bs, B, N):
     g = torch.Generator().manual_seed(bs * 31 + B)
     H, Ah, Fe = 48, 40, 72
@@ -78,6 +78,23 @@ def test_attention_kernel_matches_twin(dev, dtype, bs, B, N):
         _close(got, want, 1e-2, 1e-3)
 
 
+@pytest.mark.parametrize("B,N,exact_tanh", [(3, 196, False),
+                                            (8, 33, False), (3, 196, True)])
+def test_attention_kernel_at_serving_width(dev, B, N, exact_tanh):
+    """bf16 at the model's 512 widths (two warps a position, four
+    position slices), with the fast and the exact tanh."""
+    g = torch.Generator().manual_seed(B + N)
+    p = _att_params(g, 512, 512, dev, torch.bfloat16)
+    h = torch.randn(2 * B, 512, generator=g).to(dev, torch.bfloat16)
+    att = torch.rand(2, N, 512, generator=g).to(dev, torch.bfloat16)
+    p_att = torch.rand(2, N, 512, generator=g).to(dev, torch.bfloat16)
+    got = fa.beam_content_attention(h, p, att, p_att, B=B,
+                                    exact_tanh=exact_tanh)
+    torch.cuda.synchronize()
+    _close(got, fa.beam_content_attention_plain(h, p, att, p_att, B=B),
+           1e-2, 1e-3)
+
+
 def test_attention_kernel_refuses_what_it_cannot_take(dev):
     p = {"h2att": {"weight": torch.zeros(4, 4, device=dev),
                    "bias": torch.zeros(4, device=dev)},
@@ -92,6 +109,23 @@ def test_attention_kernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError):
         fa.beam_content_attention(torch.zeros(18, 4, device=dev), p, att,
                                   att, B=9)
+    # widths kernel_takes refuses: Ah % 8 in bf16, H % 4 in f32
+    g = torch.Generator().manual_seed(0)
+    p36 = _att_params(g, 48, 36, dev, torch.bfloat16)
+    att16 = torch.rand(2, 5, 72, generator=g).to(dev, torch.bfloat16)
+    patt36 = torch.rand(2, 5, 36, generator=g).to(dev, torch.bfloat16)
+    h16 = torch.rand(6, 48, generator=g).to(dev, torch.bfloat16)
+    assert not fa.kernel_takes(3, 48, 36, 72, torch.bfloat16, "v1")
+    with pytest.raises(ValueError):
+        fa.beam_content_attention(h16, p36, att16, patt36, B=3,
+                                  variant="v1")
+    p6 = _att_params(g, 6, 8, dev, torch.float32)
+    assert not fa.kernel_takes(3, 6, 8, 8, torch.float32, "v1")
+    with pytest.raises(ValueError):
+        fa.beam_content_attention(torch.rand(6, 6, device=dev), p6,
+                                  torch.rand(2, 5, 8, device=dev),
+                                  torch.rand(2, 5, 8, device=dev), B=3,
+                                  variant="v1")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -375,6 +409,81 @@ def test_decode_with_both_switches_matches_plain_path(dev, monkeypatch):
     torch.testing.assert_close(got[2], want[2])
     torch.testing.assert_close(got[0], want[0])
     torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("fused_topk", [False, True])
+def test_decode_beam_9_takes_the_plain_cell(dev, monkeypatch, fused_topk):
+    """A beam wider than the kernels take decodes on the card through the
+    plain cell and the plain tail, token for token the use_kernels=False
+    path, and launches neither kernel."""
+    from insenticap_model_tpu_torch import inference
+    if fused_topk:
+        monkeypatch.setenv("ISC_FUSED_TOPK", "1")
+    else:
+        monkeypatch.delenv("ISC_FUSED_TOPK", raising=False)
+    monkeypatch.delenv("ISC_ATT_KERNEL", raising=False)
+    s = Settings(word_emb_dim=32, fc_feat_dim=64, att_feat_dim=64,
+                 feat_emb_dim=32, rnn_hid_dim=32, att_hid_dim=32)
+    ids = cap.TokenIds(0, 1, 2, 3, 2)
+    gen = torch.Generator().manual_seed(0)
+    params = inference.ServingParams(
+        cap.init_params(gen, 50, 3, s, device=dev),
+        sd.init_params(gen, 3, s, device=dev))
+    g = torch.Generator().manual_seed(1)
+    fc = torch.rand(6, 64, generator=g).to(dev)
+    att = torch.rand(6, 14, 14, 64, generator=g).to(dev)
+    sentis = torch.randint(4, 50, (6, 5), generator=g).to(dev)
+    before = (fa.beam_content_attention.launches, ft.classifier_topk.launches)
+    got = inference.detect_and_decode(params, fc, att, sentis, settings=s,
+                                      ids=ids, beam_size=9, max_seq_len=8)
+    assert (fa.beam_content_attention.launches,
+            ft.classifier_topk.launches) == before
+    want = inference.detect_and_decode(params, fc, att, sentis, settings=s,
+                                       ids=ids, beam_size=9, max_seq_len=8,
+                                       use_kernels=False)
+    assert got[0].shape[1] == 9
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_every_wrapper_raises_under_grad(dev):
+    """No kernel has a backward: each CUDA wrapper refuses an operand that
+    requires grad while grad mode is on, and runs under no_grad."""
+    g = torch.Generator().manual_seed(0)
+    p = _att_params(g, 48, 40, dev, torch.bfloat16)
+    h = torch.randn(6, 48, generator=g).to(dev, torch.bfloat16)
+    att = torch.rand(2, 9, 72, generator=g).to(dev, torch.bfloat16)
+    p_att = torch.rand(2, 9, 40, generator=g).to(dev, torch.bfloat16)
+    hq, p8, aq, as_, pq, ps = _i8_inputs(g, 2, 3, 9, 48, 32, 32, dev,
+                                         torch.bfloat16)
+    w_cls = torch.randn(50, 48, generator=g).to(dev, torch.bfloat16)
+    b_cls = torch.zeros(50, device=dev, dtype=torch.bfloat16)
+    x_sm = torch.randn(14, 14, 2, 8, generator=g).to(dev, torch.bfloat16)
+    m = torch.randn(49, 9, 2, 8, generator=g).to(dev, torch.bfloat16)
+    bias = torch.zeros(8, device=dev)
+    x_pool = torch.randn(2, 9, 9, 8, generator=g).to(dev)
+    x_mm = torch.randn(48, 64, generator=g).to(dev, torch.bfloat16)
+    w_mm = torch.randn(64, 128, generator=g).to(dev, torch.bfloat16)
+    calls = [
+        lambda r: fa.beam_content_attention(r(h), p, att, p_att, B=3),
+        lambda r: fa.beam_content_attention(h, p, r(att), p_att, B=3,
+                                            variant="v2"),
+        lambda r: fa8.beam_content_attention_i8(r(hq), p8, aq, as_, pq, ps,
+                                                B=3),
+        lambda r: ft.classifier_topk(h, r(w_cls), b_cls, None, k=3),
+        lambda r: wk.wino_input(r(x_sm)),
+        lambda r: wk.wino_middle(r(m), bias, 14, 14),
+        lambda r: wk.wino_output(m, r(bias), 14, 14),
+        lambda r: pool.ceil_maxpool_3x3s2_nhwc(r(x_pool)),
+        lambda r: pool.ceil_maxpool_3x3s2_sm(r(x_pool)),
+        lambda r: tmm.tiled_mm(r(x_mm), w_mm, tile_rows=24),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call(lambda x: x.detach().requires_grad_(True))
+        with torch.no_grad():
+            call(lambda x: x.detach().requires_grad_(True))
+    torch.cuda.synchronize()
 
 
 def _within_bf16_ulp(got, want):
