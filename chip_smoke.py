@@ -13,7 +13,8 @@ into the git-ignored build directory), then:
    beam 3, in bf16 and f32, v1's bf16 instance also with tanhf in place of
    tanh.approx.f32, both within the same tolerance; the
    Winograd transforms in bf16, the fused classifier top-k at 1152 rows x
-   10,000 words in bf16 and f32; the encoder stem's max pool in bf16 and
+   10,000 words in bf16 and f32, and the bf16 top-k's wgmma product alone
+   against the f32 library product; the encoder stem's max pool in bf16 and
    f32 at [32,224,224,64] and [32,192,256,64], the 448x448 and 384x512
    buckets at bs=32, and an odd extent, exactly; the int8-storage
    attention at bs=384, N=196, 512 wide and the row-tiled product at the
@@ -56,14 +57,18 @@ into the git-ignored build directory), then:
    top-beam scores within 1e-3; decodes a beam of 9 (wider than the
    kernels take) in bf16 at bs=8, with and without ``ISC_FUSED_TOPK=1``,
    and requires the plain path's tokens and scores exactly, with no v1 or
-   top-k launch; runs the f32 encoder (bs=16, 448x448) with
+   top-k launch; compares the detector's labels, bf16 (Winograd kernels,
+   and the direct conv) against f32 direct, at bs=384 (printed, no limit);
+   runs the f32 encoder (bs=16, 448x448) with
    the pool kernel and with the plain pool (fc/att within 1e-5 of scale,
    identical concept ids), and the bf16 encoder against the f32 one (rms
    error at most 0.1 of the f32 features' rms);
 5. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of 5
-   runs after warm-up); v1 (query product + attention, printed apart),
-   the row-tiled product and ``torch.matmul``, some 50-100 us a call, by
+   runs after warm-up); v1 and v2 (query product + attention, printed
+   apart), the fused top-k (pass 1 + merge, printed apart, beside the bf16
+   ``torch.matmul`` of its product as a yardstick), the row-tiled product
+   and ``torch.matmul``, some 30-100 us a call, by
    the profiler's device time (the latter two from phase 3d), since events
    around back-to-back launches of that size also read the host's
    dispatch; the bf16 serving step at bs=384 under the four
@@ -99,8 +104,8 @@ T = 16
 M = 10                       # sentiment words per request
 NUM_CATS = 3
 BANNED = (0, 1, 2)           # pad, unk, sos: the beam's static bans
-SOURCES = ["fused_attention", "winograd", "fused_topk", "fused_attention_v2",
-           "maxpool", "fused_attention_i8", "tiled_mm"]
+SOURCES = ["fused_attention", "winograd", "fused_topk", "maxpool",
+           "fused_attention_i8", "tiled_mm"]
 N_CONCEPTS = 2000            # the concept detector's outputs
 K_CONCEPTS = 5               # concepts per image
 ENC_BS = 32                  # the encode ladder's top bucket
@@ -408,6 +413,23 @@ def main():
         _check(ok, f"classifier_topk kernel {tag} disagrees with its plain "
                "version")
         topk_in[dt] = args
+    # the bf16 pass's wgmma product alone against the f32 library product
+    # of the same bf16 values: products exact in f32, sums in another
+    # order, held to 1e-4 of the logits' scale (a layout fault is O(1))
+    hq, wq = topk_in[torch.bfloat16][:2]
+    got = ft.wgmma_product(hq, wq)
+    torch.cuda.synchronize()
+    with nn.exact_numerics():
+        want = hq.float() @ wq.float().t()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    checks["topk_wgmma_product"] = err
+    ok = err <= 1e-4 * max(1.0, scale)
+    print(f"check topk wgmma product bf16 [{rows},{H}]x[{H},{VOCAB}]: "
+          f"max_abs_err={err:.3g} (logits scale {scale:.3g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    _check(ok, "the top-k's wgmma product disagrees with torch.matmul")
+    del got, want
 
     x16 = torch.rand(14, 14, BS, C0, generator=g, device=dev).to(
         torch.bfloat16)
@@ -868,6 +890,40 @@ def main():
     print(f"beam 9 decode bf16 bs=8: identical to the plain path, launches "
           f"{ {k: v['launches'] for k, v in beam9.items()} }")
     report["beam9_decode"] = beam9
+
+    # the detector's labels at bs=384: its bf16 path through the Winograd
+    # kernels (deterministic, as served) and its bf16 direct conv, each
+    # against the f32 direct conv, on uniform and on standard-normal
+    # features: labels after the 0.7 threshold, argmax before it, and the
+    # logits' max error. A record of what the bf16 F(5x5,3x3) loss does to
+    # labels (the same in both packages): no limit is set, since the repo
+    # has no trained detector to judge labels by
+    label_check = {}
+    for name, feats in (("uniform", att), ("normal", att_n)):
+        l32 = sd.forward(det32, feats, use_kernels=False)[0]
+        lab32 = sd.threshold_labels(l32, 0.7, ids.neutral)[0]
+        wk.wino_input.launches = 0
+        l16k = sd.forward(det16, feats.bfloat16())[0].float()
+        _check(wk.wino_input.launches == 1, "the bf16 detector did not take "
+               "the Winograd kernels")
+        l16d = sd.forward(det16, feats.bfloat16(),
+                          use_kernels=False)[0].float()
+        for path, l16 in (("winograd", l16k), ("direct", l16d)):
+            lab16 = sd.threshold_labels(l16, 0.7, ids.neutral)[0]
+            label_check[f"{name}_bf16_{path}"] = {
+                "labels_agree": float((lab16 == lab32).float().mean()),
+                "argmax_agree": float((l16.argmax(-1) == l32.argmax(-1))
+                                      .float().mean()),
+                "logits_max_err": float((l16 - l32).abs().max()),
+                "logits_scale": float(l32.abs().max()),
+                "neutral_share_f32": float((lab32 == ids.neutral)
+                                           .float().mean())}
+    print(f"detector labels bf16 vs f32 direct bs={BS}: " + "; ".join(
+        f"{k}: labels {v['labels_agree']:.4f}, argmax "
+        f"{v['argmax_agree']:.4f}, logits max err {v['logits_max_err']:.4g}"
+        f" (scale {v['logits_scale']:.4g}, f32 neutral share "
+        f"{v['neutral_share_f32']:.3f})" for k, v in label_check.items()))
+    report["detector_labels_bf16_vs_f32"] = label_check
     del params32, params_t32, kernel_out
     torch.cuda.empty_cache()
 
@@ -966,33 +1022,49 @@ def main():
         "query_ms": a_dev["query_"], "attention_ms": a_dev["beam_att_kernel"],
         "plain_ms": a_plain, "bound_ms": a_bound,
         "bound_by": a_by, "library_ms": None, "passed": True})
-    # v2: the same function up to the weights' rounding, the same bound
+    # v2: the same function up to the weights' rounding, on v1's kernels
+    # (kRoundW), the same bound
     v2_ms = cuda_ms(lambda: fa.beam_content_attention(
         h, p_cont, att16, p_att16, B=BEAM, variant="v2"))
-    v2_dev = device_ms(lambda: fa.beam_content_attention(
-        h, p_cont, att16, p_att16, B=BEAM, variant="v2"))
+    v2_dev = device_ms_by_name(lambda: fa.beam_content_attention(
+        h, p_cont, att16, p_att16, B=BEAM, variant="v2"), v1_parts)
     v2_plain = cuda_ms(lambda: fa.beam_content_attention_plain(
         h, p_cont, att16, p_att16, B=BEAM, variant="v2"), iters=5)
     v2_32 = cuda_ms(lambda: fa.beam_content_attention(
         h32, p32, att32, patt32, B=BEAM, variant="v2"))
     report["attention_v2_f32"] = {"ms": v2_32, "bound_ms": a32_bound}
-    report["attention_v2_bf16"] = {"ms": v2_ms, "device_ms": v2_dev}
+    report["attention_v2_bf16"] = {"ms_events": v2_ms, "device_ms": v2_dev}
     kernels.append({
         "name": "beam_content_attention_v2",
         "route": "cuda",
-        "source": "insenticap_model_tpu_torch/csrc/fused_attention_v2.cu",
+        "source": "insenticap_model_tpu_torch/csrc/fused_attention.cu",
         "replaces": "insenticap_model_tpu/ops/fused_attention.py:51",
         "launches": launches_t["beam_content_attention_v2"],
         "max_abs_err": checks["attention_v2_bf16"],
-        "ms": v2_ms, "plain_ms": v2_plain, "bound_ms": a_bound,
+        "ms": v2_dev["total"], "ms_events": v2_ms,
+        "query_ms": v2_dev["query_"],
+        "attention_ms": v2_dev["beam_att_kernel"],
+        "plain_ms": v2_plain, "bound_ms": a_bound,
         "bound_by": a_by, "library_ms": None, "passed": True})
     # the fused top-k: 2 rows H V flops on the tensor cores (bf16), the
-    # operands read once, [rows, k] values and ids written once
+    # operands read once, [rows, k] values and ids written once. Two
+    # launches of some 0.03-0.1 ms together: the line carries the
+    # profiler's device time, pass 1 and the merge apart, CUDA events
+    # beside it; the bf16 torch.matmul of the same product is a yardstick
+    # for the product alone (no one call computes the top-k)
     tk16, tk32 = topk_in[torch.bfloat16], topk_in[torch.float32]
+    tk_parts = ("topk_wgmma", "topk_merge")
+    tk_dev = device_ms_by_name(lambda: ft.classifier_topk(
+        *tk16, k=BEAM, banned=BANNED), tk_parts)
     tk_ms = cuda_ms(lambda: ft.classifier_topk(*tk16, k=BEAM,
                                                banned=BANNED))
     tk_plain = cuda_ms(lambda: ft.classifier_topk_plain(
         *tk16, k=BEAM, banned=BANNED), iters=5)
+    wt16 = tk16[1].t()
+    mm16_dev = device_ms(lambda: torch.matmul(tk16[0], wt16))
+    mm16_ms = cuda_ms(lambda: torch.matmul(tk16[0], wt16))
+    tk32_dev = device_ms_by_name(lambda: ft.classifier_topk(
+        *tk32, k=BEAM, banned=BANNED), ("topk_tiles_f32", "topk_merge"))
     tk32_ms = cuda_ms(lambda: ft.classifier_topk(*tk32, k=BEAM,
                                                  banned=BANNED))
     tk32_plain = cuda_ms(lambda: ft.classifier_topk_plain(
@@ -1003,8 +1075,12 @@ def main():
                              tk_flops, BF16_FLOP_S)
     tk32_bound, _ = _bound(4 * (rows * H + VOCAB * H + VOCAB) + tk_io,
                            tk_flops, F32_FLOP_S)
-    report["classifier_topk_f32"] = {"ms": tk32_ms, "plain_ms": tk32_plain,
-                                     "bound_ms": tk32_bound}
+    report["classifier_topk_f32"] = {
+        "device_ms": tk32_dev, "ms_events": tk32_ms, "plain_ms": tk32_plain,
+        "bound_ms": tk32_bound}
+    report["classifier_topk_bf16"] = {
+        "device_ms": tk_dev, "ms_events": tk_ms,
+        "matmul_bf16_device_ms": mm16_dev, "matmul_bf16_ms_events": mm16_ms}
     kernels.append({
         "name": "classifier_topk",
         "route": "cuda",
@@ -1012,8 +1088,11 @@ def main():
         "replaces": "insenticap_model_tpu/ops/fused_topk.py:59",
         "launches": launches_t["classifier_topk"],
         "max_abs_err": checks["classifier_topk_bf16"],
-        "ms": tk_ms, "plain_ms": tk_plain, "bound_ms": tk_bound,
-        "bound_by": tk_by, "library_ms": None, "passed": True})
+        "ms": tk_dev["total"], "ms_events": tk_ms,
+        "pass1_ms": tk_dev["topk_wgmma"], "pass2_ms": tk_dev["topk_merge"],
+        "matmul_yardstick_ms": mm16_dev, "plain_ms": tk_plain,
+        "bound_ms": tk_bound, "bound_by": tk_by, "library_ms": None,
+        "passed": True})
 
     x16 = torch.rand(14, 14, BS, C0, generator=g, device=dev).to(
         torch.bfloat16)
@@ -1263,7 +1342,9 @@ def main():
           f"{a_dev['query_']:.4f} + attention {a_dev['beam_att_kernel']:.4f}"
           f" = {a_dev['total']:.4f} (events {a_ms:.4f}; with tanhf "
           f"{a_tanhf['beam_att_kernel']:.4f}, total {a_tanhf['total']:.4f});"
-          f" v2 {v2_dev:.4f} (events {v2_ms:.4f}); bound {a_bound:.4f} ms")
+          f" v2 {v2_dev['query_']:.4f} + {v2_dev['beam_att_kernel']:.4f} = "
+          f"{v2_dev['total']:.4f} (events {v2_ms:.4f}); bound "
+          f"{a_bound:.4f} ms")
     print(f"attention v1 bf16 bs={BS} by beam, device ms (query + "
           "attention): " + ", ".join(
               f"B={b_} {d['query_']:.4f} + {d['beam_att_kernel']:.4f}"
@@ -1272,8 +1353,16 @@ def main():
           f"{a32_dev['query_']:.4f} + attention "
           f"{a32_dev['beam_att_kernel']:.4f} = {a32_dev['total']:.4f} "
           f"(events {a32_ms:.4f}; bound {a32_bound:.4f} ms)")
+    print(f"classifier_topk bf16 rows={rows} H={H} V={VOCAB} k={BEAM}, "
+          f"device ms: pass 1 {tk_dev['topk_wgmma']:.4f} + merge "
+          f"{tk_dev['topk_merge']:.4f} = {tk_dev['total']:.4f} (events "
+          f"{tk_ms:.4f}); bound {tk_bound:.4f} ms ({tk_by}); bf16 "
+          f"torch.matmul of the product alone {mm16_dev:.4f} (events "
+          f"{mm16_ms:.4f})")
     print(f"attention v2 f32 bs={BS}: {v2_32:.4f} ms; classifier_topk "
-          f"f32: {tk32_ms:.4f} ms (plain {tk32_plain:.4f} ms, bound "
+          f"f32, device ms: tiles {tk32_dev['topk_tiles_f32']:.4f} + merge "
+          f"{tk32_dev['topk_merge']:.4f} = {tk32_dev['total']:.4f} (events "
+          f"{tk32_ms:.4f}; plain {tk32_plain:.4f} ms, bound "
           f"{tk32_bound:.4f} ms)")
     print(f"serving step bf16 bs={BS}: {step_s * 1e3:.2f} ms median of 5 "
           f"-> {BS / step_s:.1f} captions/s (detector alone "

@@ -1,13 +1,19 @@
-// Beam-shared additive content attention (v1) for beam decode on Hopper.
+// Beam-shared additive content attention (v1 and v2) for beam decode on
+// Hopper.
 //
-// Replaces the Pallas kernel insenticap_model_tpu/ops/fused_attention.py:27
-// `_kernel`. For every image of the batch and each of its B beams:
+// Replaces the Pallas kernels insenticap_model_tpu/ops/fused_attention.py:27
+// `_kernel` (v1) and :51 `_kernel_v2` (v2). For every image of the batch and
+// each of its B beams:
 //
 //   q[k]    = h[img*B + k] @ W_h2att^T + b_h2att            (f32 accumulate)
 //   e[k, n] = sum_j alpha[j] * tanh(p_att[n, j] + q[k, j])  (alpha's bias
 //             dropped: it shifts every logit equally and cancels in softmax)
 //   w[k]    = softmax_n(e[k])                                (f32)
 //   out[k]  = sum_n w[k, n] * att[n]                         (att's dtype)
+//
+// v2 is the same function but for one rounding: each softmax weight is
+// rounded to att's dtype before the weighted sum (kRoundW; in f32 nothing
+// changes, so isc_beam_att_v2_f32 runs v1's instance).
 //
 // What bounds it on the H100, at serving width (bs=384, N=196, Ah=Fe=512,
 // B=3, bf16): att + p_att are 384*196*1024*2 B = 154 MB, read once for all
@@ -28,7 +34,7 @@
 //     GFLOP, about as long at a third of the rows: likely the memory
 //     latency of 16 K stages, three in flight (the attention's 154 MB
 //     stream passes through L2 between calls, so W is likely not there).
-//  2. beam_att_kernel<T, B, fast_tanh>, one 256-thread block per image,
+//  2. beam_att_kernel<T, B, kFast, kRoundW>, one 256-thread block an image,
 //     one instance per beam size 1..8 so that the per-beam sums stay in
 //     registers. The image's p_att rows, then its att rows, stream through
 //     a 3-stage cp.async ring of 16-byte copies, 16 positions a stage for
@@ -44,7 +50,8 @@
 //     end and the output is written with 16-byte stores.
 //  tanh: the f32 instance keeps tanhf; the bf16 instance takes
 //  tanh.approx.f32 (isc_beam_att_bf16) or tanhf (isc_beam_att_bf16_tanhf,
-//  kept to measure the approximation's error).
+//  kept to measure the approximation's error); v2 in bf16
+//  (isc_beam_att_v2_bf16) takes tanh.approx.f32 as v1 does.
 //
 // What this does about the first version's four faults: (1) every block
 // recomputed the query product, reading all of W (512 KB) with 2-byte loads,
@@ -399,7 +406,17 @@ query_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
 
 // -- 2. the attention over one image --------------------------------------
 
-template <typename T, int B, bool kFast>
+// v2's rounding: a softmax weight rounded to att's dtype (nothing in f32)
+template <typename T, bool kRoundW>
+__device__ __forceinline__ float round_w(float x) {
+  if constexpr (kRoundW && sizeof(T) == 2) {
+    return __bfloat162float(__float2bfloat16(x));
+  } else {
+    return x;
+  }
+}
+
+template <typename T, int B, bool kFast, bool kRoundW>
 __global__ void __launch_bounds__(kThreads, B <= 4 ? 3 : 2)
 beam_att_kernel(const float* __restrict__ q, const T* __restrict__ alpha,
                 const T* __restrict__ p_att, const T* __restrict__ att,
@@ -528,7 +545,8 @@ beam_att_kernel(const float* __restrict__ q, const T* __restrict__ alpha,
       sum += x;
     }
     sum = warp_sum(sum);
-    for (int n = lane; n < N; n += 32) e[n] = e[n] / sum;
+    for (int n = lane; n < N; n += 32)
+      e[n] = round_w<T, kRoundW>(e[n] / sum);
   }
   __syncthreads();
 
@@ -604,7 +622,7 @@ beam_att_kernel(const float* __restrict__ q, const T* __restrict__ alpha,
 
 // raises the instance's dynamic shared-memory limit to the device's opt-in
 // maximum, once; returns that maximum, or minus a CUDA error code
-template <typename T, int B, bool kFast>
+template <typename T, int B, bool kFast, bool kRoundW>
 int smem_limit() {
   static const int limit = [] {
     int dev = 0, optin = 0;
@@ -613,7 +631,7 @@ int smem_limit() {
       err = cudaDeviceGetAttribute(
           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(beam_att_kernel<T, B, kFast>,
+      err = cudaFuncSetAttribute(beam_att_kernel<T, B, kFast, kRoundW>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  optin);
     return err == cudaSuccess ? optin : -(int)err;
@@ -635,25 +653,25 @@ int launch_query(const bf16* h, const bf16* w, const bf16* b, float* q,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int B, bool kFast>
+template <typename T, int B, bool kFast, bool kRoundW>
 int launch_b(const void* h, const void* w, const void* b, const void* alpha,
              const void* p_att, const void* att, void* out, void* q, int bs,
              int H, int Ah, int N, int Fe, void* stream) {
   const size_t smem = layout<T>(B, Ah, N, Fe).total;
-  const int limit = smem_limit<T, B, kFast>();
+  const int limit = smem_limit<T, B, kFast, kRoundW>();
   if (limit < 0) return -limit;
   if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int err = launch_query((const T*)h, (const T*)w, (const T*)b,
                                (float*)q, bs * B, H, Ah, s);
   if (err != 0) return err;
-  beam_att_kernel<T, B, kFast><<<bs, kThreads, smem, s>>>(
+  beam_att_kernel<T, B, kFast, kRoundW><<<bs, kThreads, smem, s>>>(
       (const float*)q, (const T*)alpha, (const T*)p_att, (const T*)att,
       (T*)out, Ah, N, Fe);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kFast>
+template <typename T, bool kFast, bool kRoundW>
 int launch(const void* h, const void* w, const void* b, const void* alpha,
            const void* p_att, const void* att, void* out, void* q, int bs,
            int B, int H, int Ah, int N, int Fe, void* stream) {
@@ -664,8 +682,8 @@ int launch(const void* h, const void* w, const void* b, const void* alpha,
     return (int)cudaErrorInvalidValue;
 #define ISC_ATT_CASE(BB)                                                    \
   case BB:                                                                  \
-    return launch_b<T, BB, kFast>(h, w, b, alpha, p_att, att, out, q, bs, H, \
-                                  Ah, N, Fe, stream);
+    return launch_b<T, BB, kFast, kRoundW>(h, w, b, alpha, p_att, att, out, \
+                                           q, bs, H, Ah, N, Fe, stream);
   switch (B) {
     ISC_ATT_CASE(1)
     ISC_ATT_CASE(2)
@@ -692,16 +710,16 @@ int isc_beam_att_f32(const void* h, const void* w, const void* b,
                      const void* alpha, const void* p_att, const void* att,
                      void* out, void* q, int bs, int B, int H, int Ah, int N,
                      int Fe, void* stream) {
-  return launch<float, false>(h, w, b, alpha, p_att, att, out, q, bs, B, H,
-                              Ah, N, Fe, stream);
+  return launch<float, false, false>(h, w, b, alpha, p_att, att, out, q, bs,
+                                     B, H, Ah, N, Fe, stream);
 }
 
 int isc_beam_att_bf16(const void* h, const void* w, const void* b,
                       const void* alpha, const void* p_att, const void* att,
                       void* out, void* q, int bs, int B, int H, int Ah, int N,
                       int Fe, void* stream) {
-  return launch<bf16, true>(h, w, b, alpha, p_att, att, out, q, bs, B, H, Ah,
-                            N, Fe, stream);
+  return launch<bf16, true, false>(h, w, b, alpha, p_att, att, out, q, bs, B,
+                                   H, Ah, N, Fe, stream);
 }
 
 int isc_beam_att_bf16_tanhf(const void* h, const void* w, const void* b,
@@ -709,8 +727,26 @@ int isc_beam_att_bf16_tanhf(const void* h, const void* w, const void* b,
                             const void* att, void* out, void* q, int bs,
                             int B, int H, int Ah, int N, int Fe,
                             void* stream) {
-  return launch<bf16, false>(h, w, b, alpha, p_att, att, out, q, bs, B, H,
-                             Ah, N, Fe, stream);
+  return launch<bf16, false, false>(h, w, b, alpha, p_att, att, out, q, bs,
+                                    B, H, Ah, N, Fe, stream);
+}
+
+// v2: v1's function with the softmax weights rounded to att's dtype before
+// the weighted sum (in f32 the same function as v1)
+int isc_beam_att_v2_f32(const void* h, const void* w, const void* b,
+                        const void* alpha, const void* p_att, const void* att,
+                        void* out, void* q, int bs, int B, int H, int Ah,
+                        int N, int Fe, void* stream) {
+  return launch<float, false, false>(h, w, b, alpha, p_att, att, out, q, bs,
+                                     B, H, Ah, N, Fe, stream);
+}
+
+int isc_beam_att_v2_bf16(const void* h, const void* w, const void* b,
+                         const void* alpha, const void* p_att,
+                         const void* att, void* out, void* q, int bs, int B,
+                         int H, int Ah, int N, int Fe, void* stream) {
+  return launch<bf16, true, true>(h, w, b, alpha, p_att, att, out, q, bs, B,
+                                  H, Ah, N, Fe, stream);
 }
 
 }  // extern "C"

@@ -27,7 +27,8 @@ cell, as the JAX package's beam sends what its kernel's gate refuses to
 the plain cell (its beam.py:157-161). ``ISC_FUSED_TOPK=1``, read at each
 call as the JAX package reads it at trace (its beam.py:165-207), sends the
 tail through ``fused_topk.classifier_topk`` where
-``fused_topk.kernel_takes(beam_size)`` holds: the CUDA kernel for a CUDA
+``fused_topk.kernel_takes(beam_size, H, dtype)`` holds (beam size, h's
+width and the classifier's dtype): the CUDA kernel for a CUDA
 batch, the same plain function on the CPU; it is not taken under
 ``return_weights`` or ``use_kernels=False``. The beam select
 of the LSTM state is a gather by parent (the JAX package's one-hot
@@ -121,11 +122,12 @@ def beam_search_batched(params, ctx: DecodeContext, *, settings,
         bctx = _tile_ctx(ctx, B)
     # the vocab-wide tail: f32 logits and normaliser even with bf16
     # params; the fused kernel takes the params as they are
+    w_cls, b_cls = params["classifier"]["weight"], params["classifier"]["bias"]
     fused = (os.environ.get("ISC_FUSED_TOPK") == "1" and use_kernels
-             and not return_weights and fused_topk.kernel_takes(B))
+             and not return_weights
+             and fused_topk.kernel_takes(B, w_cls.shape[1], w_cls.dtype))
     topk = fused_topk.classifier_topk if fused else \
         fused_topk.classifier_topk_plain
-    w_cls, b_cls = params["classifier"]["weight"], params["classifier"]["bias"]
     if not fused:   # cast once for the whole decode
         w_cls, b_cls = w_cls.float(), b_cls.float()
     # without the constraint no row bans its last word (the JAX package

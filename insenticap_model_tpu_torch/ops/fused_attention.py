@@ -23,12 +23,12 @@ The bf16 instance takes ``tanh.approx.f32`` (``exact_tanh=True`` takes
 tanhf, to measure the approximation); f32 takes tanhf. Serving only: no
 backward, so a CUDA call raises where an operand requires grad.
 
-v2 (``csrc/fused_attention_v2.cu``) computes v1's function with one
-difference, as ``_kernel_v2`` does: the softmax weights are rounded to
-att's dtype before the weighted sum, which accumulates in f32 (in f32 the
-two are the same function). Its design puts the q product and, for bf16,
-the weighted sum on the tensor cores (``mma.sync`` m16n8k16), and reads
-p_att and att with 16-byte loads; the bound is v1's.
+v2 computes v1's function with one difference, as ``_kernel_v2`` does: the
+softmax weights are rounded to att's dtype before the weighted sum, which
+accumulates in f32 (in f32 the two are the same function). It runs on v1's
+kernels, with the rounding as the attention kernel's ``kRoundW`` flag
+(``isc_beam_att_v2_bf16``, ``tanh.approx.f32`` as v1; the f32 entry runs
+v1's instance), so it takes what v1 takes and has v1's bound.
 
 ``kernel_takes(B, H, Ah, Fe, dtype)`` says whether a kernel takes a shape;
 the beam runs the plain tiled-rows cell where it does not (a beam wider
@@ -38,7 +38,7 @@ launches a kernel for CUDA tensors, or raises on what the kernel does not
 take. ``variant=None`` reads ``ISC_ATT_KERNEL`` ("v1" when unset) at each
 call, here in the wrapper; ``beam_content_attention.launches`` and
 ``.launches_v2`` count the v1 and v2 wrapper calls that launched (one
-each, though v1 is two kernels).
+each, though each is two kernels).
 """
 from __future__ import annotations
 
@@ -51,15 +51,14 @@ from .. import nn
 from . import _build
 
 MAX_BEAM = 8     # the kernels' softmax runs one warp per beam
-MAX_WIDTH = 2048  # v1: a lane owns 8 of Ah's (and Fe's) channels, 256 lanes
+MAX_WIDTH = 2048  # a lane owns 8 of Ah's (and Fe's) channels, 256 lanes
 VARIANTS = ("v1", "v2")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# h, w, b, alpha, p_att, att, out, [v1: the f32 query scratch], bs, B, H,
-# Ah, N, Fe, stream
-_SIGS = {"v1": [_P] * 8 + [_I] * 6 + [_P], "v2": [_P] * 7 + [_I] * 6 + [_P]}
-_LIBS = {"v1": "fused_attention", "v2": "fused_attention_v2"}
+# h, w, b, alpha, p_att, att, out, the f32 query scratch, bs, B, H, Ah, N,
+# Fe, stream
+_SIG = [_P] * 8 + [_I] * 6 + [_P]
 _FNS = {"v1": {torch.float32: "isc_beam_att_f32",
                torch.bfloat16: "isc_beam_att_bf16"},
         "v2": {torch.float32: "isc_beam_att_v2_f32",
@@ -67,11 +66,10 @@ _FNS = {"v1": {torch.float32: "isc_beam_att_f32",
 _V1_BF16_TANHF = "isc_beam_att_bf16_tanhf"
 
 
-def _lib(variant: str):
-    fns = list(_FNS[variant].values())
-    if variant == "v1":
-        fns.append(_V1_BF16_TANHF)
-    return _build.load(_LIBS[variant], {fn: _SIGS[variant] for fn in fns})
+def _lib():
+    fns = [fn for v in VARIANTS for fn in _FNS[v].values()]
+    return _build.load("fused_attention",
+                       {fn: _SIG for fn in fns + [_V1_BF16_TANHF]})
 
 
 def resolve_variant(variant=None) -> str:
@@ -86,17 +84,15 @@ def resolve_variant(variant=None) -> str:
 
 def kernel_takes(B: int, H: int, Ah: int, Fe: int, dtype,
                  variant=None) -> bool:
-    """Whether the ``variant`` kernel (``ISC_ATT_KERNEL`` for None) takes a
-    beam of ``B`` with h width H, attention width Ah and feature width Fe
-    in ``dtype``. v1: B <= 8; bf16 needs H % 16 == 0 (the ``mma`` K) and
-    Ah, Fe % 8 == 0, f32 H, Ah, Fe % 4 == 0 (16-byte rows); Ah, Fe <= 2048.
-    v2: B <= 8, H % 16 == 0, Ah and Fe % 8 == 0."""
+    """Whether the ``variant`` kernel (``ISC_ATT_KERNEL`` for None; an
+    unknown name raises) takes a beam of ``B`` with h width H, attention
+    width Ah and feature width Fe in ``dtype``. v1 and v2 run one kernel:
+    B <= 8; bf16 needs H % 16 == 0 (the ``mma`` K) and Ah, Fe % 8 == 0,
+    f32 H, Ah, Fe % 4 == 0 (16-byte rows); Ah, Fe <= 2048."""
     variant = resolve_variant(variant)
     if dtype not in _FNS[variant] or not 1 <= B <= MAX_BEAM or min(
             H, Ah, Fe) < 1:
         return False
-    if variant == "v2":
-        return H % 16 == 0 and Ah % 8 == 0 and Fe % 8 == 0
     vec = 8 if dtype == torch.bfloat16 else 4      # elements in 16 bytes
     return (H % (16 if dtype == torch.bfloat16 else 4) == 0
             and Ah % vec == 0 and Fe % vec == 0
@@ -170,17 +166,14 @@ def beam_content_attention(h, p_cont, att, p_att, *, B: int,
         raise ValueError("beam_content_attention needs 16-byte aligned "
                          "operands")
     out = torch.empty((bs * B, Fe), dtype=att.dtype, device=att.device)
-    lib = _lib(variant)
-    ptrs = [h.data_ptr(), w.data_ptr(), b.data_ptr(), alpha.data_ptr(),
-            p_att.data_ptr(), att.data_ptr(), out.data_ptr()]
+    q = torch.empty((bs * B, Ah), dtype=torch.float32, device=att.device)
+    lib = _lib()
     fn = getattr(lib, fns[att.dtype])
-    if variant == "v1":
-        q = torch.empty((bs * B, Ah), dtype=torch.float32,
-                        device=att.device)
-        ptrs.append(q.data_ptr())
-        if exact_tanh and att.dtype == torch.bfloat16:
-            fn = getattr(lib, _V1_BF16_TANHF)
-    _build.check(fn(*ptrs, bs, B, H, Ah, N, Fe,
+    if variant == "v1" and exact_tanh and att.dtype == torch.bfloat16:
+        fn = getattr(lib, _V1_BF16_TANHF)
+    _build.check(fn(h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                    alpha.data_ptr(), p_att.data_ptr(), att.data_ptr(),
+                    out.data_ptr(), q.data_ptr(), bs, B, H, Ah, N, Fe,
                     _build.stream_ptr(att.device)),
                  f"beam_content_attention {variant}")
     if variant == "v2":
@@ -191,4 +184,4 @@ def beam_content_attention(h, p_cont, att, p_att, *, B: int,
 
 
 beam_content_attention.launches = 0      # v1 wrapper calls that launched
-beam_content_attention.launches_v2 = 0   # v2 kernel launches
+beam_content_attention.launches_v2 = 0   # v2 wrapper calls that launched

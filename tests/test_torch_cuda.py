@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from insenticap_model_tpu_torch import nn
 from insenticap_model_tpu_torch.config import Settings
 from insenticap_model_tpu_torch.models import captioner as cap
 from insenticap_model_tpu_torch.models import sentiment_detector as sd
@@ -209,7 +210,7 @@ def _topk_agrees(got, want, tol=1e-4):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,V,H,k", [
     (1, 1, 40, 3), (7, 1, 40, 8), (7, 300, 40, 1), (7, 300, 40, 8),
-    (1153, 300, 48, 5), (64, 129, 33, 2), (1, 10_000, 512, 3),
+    (1153, 300, 48, 5), (64, 129, 56, 2), (1, 10_000, 512, 3),
     (1153, 10_000, 512, 3)])
 def test_topk_kernel_matches_plain(dev, dtype, rows, V, H, k):
     g = torch.Generator().manual_seed(rows + V + k)
@@ -271,6 +272,159 @@ def test_topk_kernel_refuses_what_it_cannot_take(dev):
                                                  device=dev), k=3)
 
 
+def _topk_inputs(g, rows, V, H, dev, dtype):
+    h = torch.randn(rows, H, generator=g).to(dev, dtype)
+    w = (torch.randn(V, H, generator=g) * 0.1).to(dev, dtype)
+    b = (torch.randn(V, generator=g) * 0.1).to(dev, dtype)
+    return h, w, b
+
+
+def _groups(rows, V, dtype, dev):
+    """The (first, end) vocab tiles of each partial's range: the bf16
+    kernel's groups, or one 128-word tile each in f32."""
+    tiles = -(-V // ft.VOCAB_TILE)
+    n = (ft.vocab_groups(rows, V, torch.cuda.get_device_properties(
+        dev).multi_processor_count) if dtype == torch.bfloat16 else tiles)
+    return [(q * tiles // n, (q + 1) * tiles // n) for q in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_topk_kernel_every_k(dev, dtype, k):
+    """Every K instance of the bf16 pass (and the f32 tiles) at the serving
+    width and vocabulary, with the beam's bans."""
+    g = torch.Generator().manual_seed(k)
+    h, w, b = _topk_inputs(g, 300, 10_000, 512, dev, dtype)
+    last = torch.randint(-1, 10_000, (300,), generator=g).to(dev)
+    got = ft.classifier_topk(h, w, b, last, k=k, banned=(0, 1, 2))
+    torch.cuda.synchronize()
+    _topk_agrees(got, ft.classifier_topk_plain(h, w, b, last, k=k + 1,
+                                               banned=(0, 1, 2)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 127, 129, 1153])
+@pytest.mark.parametrize("V", [1, 129, 10_000])
+def test_topk_kernel_rows_and_vocab(dev, dtype, rows, V):
+    """Ragged row blocks (128 rows) and vocab tiles (128 words), one word
+    to the serving vocabulary; K = 3 with the beam's bans."""
+    g = torch.Generator().manual_seed(rows + V)
+    h, w, b = _topk_inputs(g, rows, V, 64, dev, dtype)
+    last = torch.randint(-1, V, (rows,), generator=g).to(dev)
+    banned = (0, 1, 2) if V > 3 else ()
+    got = ft.classifier_topk(h, w, b, last, k=3, banned=banned)
+    torch.cuda.synchronize()
+    _topk_agrees(got, ft.classifier_topk_plain(h, w, b, last, k=4,
+                                               banned=banned))
+    if V == 1:   # one candidate or none: the empty slots hold (-1e30, 0)
+        assert (got[0][:, 1:] == ft.NEG_INF).all()
+        assert (got[1][:, 1:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_ties_across_vocab_groups(dev, dtype):
+    """Two words with the same weights and bias in two different vocab
+    groups (partials) lead every row: the lower index comes first; a banned
+    word above both and each row's last word stay out."""
+    rows, V, H = 1153, 10_000, 64
+    g = torch.Generator().manual_seed(11)
+    h, w, b = _topk_inputs(g, rows, V, H, dev, dtype)
+    grp = _groups(rows, V, dtype, dev)
+    assert len(grp) > 2
+    a = grp[0][0] * ft.VOCAB_TILE + 5               # in the first group
+    z = grp[len(grp) // 2][0] * ft.VOCAB_TILE + 7   # in a middle group
+    w[z] = w[a]
+    b[a] = b[z] = 16.0
+    b[1] = 20.0                                      # banned, above both
+    last = torch.randint(3, V, (rows,), generator=g).to(dev)
+    last[(last == a) | (last == z)] = 3
+    last[::2] = a                                    # half the rows ban a
+    v, i = ft.classifier_topk(h, w, b, last, k=4, banned=(0, 1, 2))
+    torch.cuda.synchronize()
+    i = i.cpu()
+    assert (i[1::2, 0] == a).all() and (i[1::2, 1] == z).all()
+    assert (i[::2, 0] == z).all() and not (i[::2] == a).any()
+    torch.testing.assert_close(v[1::2, 0], v[1::2, 1], rtol=0, atol=0)
+    _topk_agrees((v, i), ft.classifier_topk_plain(h, w, b, last, k=5,
+                                                  banned=(0, 1, 2)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_bans_last_at_group_boundaries(dev, dtype):
+    """The first and last word of every vocab group lead; each row's last
+    word is one of them, and it alone stays out."""
+    rows, V, H = 1153, 10_000, 64
+    g = torch.Generator().manual_seed(12)
+    h, w, b = _topk_inputs(g, rows, V, H, dev, dtype)
+    edges = sorted({x for t0, t1 in _groups(rows, V, dtype, dev)
+                    for x in (t0 * ft.VOCAB_TILE,
+                              min(t1 * ft.VOCAB_TILE, V) - 1)})
+    b[edges] = 6.0 + torch.arange(len(edges), device=dev).to(dtype) * 0.25
+    last = torch.tensor(edges, device=dev)[
+        torch.arange(rows, device=dev) % len(edges)]
+    got = ft.classifier_topk(h, w, b, last, k=8)
+    torch.cuda.synchronize()
+    gi = got[1].cpu()
+    assert not (gi == last.cpu()[:, None]).any()
+    assert torch.isin(gi, torch.tensor(edges)).all()
+    _topk_agrees(got, ft.classifier_topk_plain(h, w, b, last, k=9))
+
+
+@pytest.mark.parametrize("rows,H,V", [(128, 512, 128), (129, 56, 300),
+                                      (1152, 512, 10_000), (7, 640, 200)])
+def test_topk_wgmma_product_matches_matmul(dev, rows, H, V):
+    """The bf16 pass's product alone (h resident in the 128-byte swizzle,
+    W through the cp.async ring, wgmma m64n128k16) against the f32
+    library product of the same bf16 values: products exact in f32, sums
+    in another order."""
+    g = torch.Generator().manual_seed(rows + H)
+    h, w, _ = _topk_inputs(g, rows, V, H, dev, torch.bfloat16)
+    got = ft.wgmma_product(h, w)
+    torch.cuda.synchronize()
+    with nn.exact_numerics():
+        want = h.float() @ w.float().t()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_topk_kernel_refuses_an_h_it_cannot_take(dev, monkeypatch):
+    """bf16 rows that are not 16-byte multiples, or wider than h's panels
+    in shared memory, are refused (f32 takes any width, here 33); a bf16
+    beam at such a width decodes on
+    the plain tail under ISC_FUSED_TOPK=1, with no top-k launch, exactly
+    as use_kernels=False does."""
+    g = torch.Generator().manual_seed(0)
+    for H in (36, ft.MAX_H_BF16 + 8):
+        assert not ft.kernel_takes(3, H, torch.bfloat16)
+        assert ft.kernel_takes(3, H, torch.float32)
+        h, w, b = _topk_inputs(g, 6, 50, H, dev, torch.bfloat16)
+        with pytest.raises(ValueError, match="kernel_takes"):
+            ft.classifier_topk(h, w, b, None, k=3)
+    # the f32 kernel takes any width
+    h, w, b = _topk_inputs(g, 64, 129, 33, dev, torch.float32)
+    _topk_agrees(ft.classifier_topk(h, w, b, None, k=2),
+                 ft.classifier_topk_plain(h, w, b, None, k=3))
+    monkeypatch.setenv("ISC_FUSED_TOPK", "1")
+    s = Settings(word_emb_dim=32, fc_feat_dim=64, att_feat_dim=64,
+                 feat_emb_dim=32, rnn_hid_dim=36, att_hid_dim=32)
+    ids = cap.TokenIds(0, 1, 2, 3, 2)
+    params = cap.init_params(torch.Generator().manual_seed(0), 50, 3, s,
+                             device=dev, dtype=torch.bfloat16)
+    fc = torch.rand(6, 64, generator=g).to(dev, torch.bfloat16)
+    att = torch.rand(6, 14, 14, 64, generator=g).to(dev, torch.bfloat16)
+    ctx = cap.build_visual_context(
+        params, fc, att, senti_words=torch.randint(4, 50, (6, 5),
+                                                   generator=g).to(dev),
+        senti_labels=torch.tensor([0, 1, 2, 0, 1, 2], dtype=torch.int32,
+                                  device=dev), pad_id=ids.pad)
+    kw = dict(settings=s, ids=ids, beam_size=3, max_seq_len=8, mode="rl")
+    before = ft.classifier_topk.launches
+    got = beam.beam_search_batched(params, ctx, **kw)
+    assert ft.classifier_topk.launches == before
+    want = beam.beam_search_batched(params, ctx, use_kernels=False, **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs,B,N,Fe", [(1, 3, 196, 72), (7, 3, 50, 72),
                                        (5, 1, 9, 72), (3, 8, 196, 72),
@@ -299,21 +453,56 @@ def test_attention_v2_kernel_matches_plain(dev, dtype, bs, B, N, Fe):
 
 
 def test_attention_v2_kernel_refuses_what_it_cannot_take(dev):
+    """v2 runs on v1's kernel, so it refuses what v1 refuses."""
     g = torch.Generator().manual_seed(0)
     att = torch.rand(2, 5, 16, generator=g).to(dev)
     h = torch.rand(6, 32, generator=g).to(dev)
     p = _att_params(g, 32, 16, dev, torch.float32)
-    with pytest.raises(ValueError):      # H % 16
-        fa.beam_content_attention(h[:, :24], _att_params(
-            g, 24, 16, dev, torch.float32), att, att, B=3, variant="v2")
-    with pytest.raises(ValueError):      # Fe % 8
-        fa.beam_content_attention(h, p, att[..., :12], att, B=3,
+    with pytest.raises(ValueError):      # H % 16 in bf16
+        fa.beam_content_attention(
+            h[:, :24].bfloat16(), _att_params(g, 24, 16, dev,
+                                              torch.bfloat16),
+            att.bfloat16(), att.bfloat16(), B=3, variant="v2")
+    with pytest.raises(ValueError):      # Fe % 4 in f32
+        fa.beam_content_attention(h, p, att[..., :10], att, B=3,
                                   variant="v2")
+    with pytest.raises(ValueError):      # a beam wider than 8
+        fa.beam_content_attention(torch.rand(18, 32, device=dev), p, att,
+                                  att, B=9, variant="v2")
     with pytest.raises(ValueError):
         fa.beam_content_attention(h, p, att, att, B=3, variant="v3")
     with pytest.raises(TypeError):
         fa.beam_content_attention(h.bfloat16(), p, att, att, B=3,
                                   variant="v2")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", range(1, 9))
+def test_attention_v2_runs_on_v1s_kernel_at_every_beam(dev, dtype, B):
+    """v2 through v1's beam_att_kernel (kRoundW) at B = 1..8, at widths
+    only v1's predicate took (H % 16 != 0 in f32), against its plain
+    version; counted as v2, not v1."""
+    g = torch.Generator().manual_seed(B)
+    H = 24 if dtype == torch.float32 else 48
+    Ah, Fe, bs, N = 40, 72, 3, 50
+    assert fa.kernel_takes(B, H, Ah, Fe, dtype, "v2")
+    p = _att_params(g, H, Ah, dev, dtype)
+    h = torch.randn(bs * B, H, generator=g).to(dev, dtype)
+    att = torch.rand(bs, N, Fe, generator=g).to(dev, dtype)
+    p_att = torch.rand(bs, N, Ah, generator=g).to(dev, dtype)
+    before = (fa.beam_content_attention.launches,
+              fa.beam_content_attention.launches_v2)
+    got = fa.beam_content_attention(h, p, att, p_att, B=B, variant="v2")
+    torch.cuda.synchronize()
+    assert (fa.beam_content_attention.launches,
+            fa.beam_content_attention.launches_v2) == (before[0],
+                                                       before[1] + 1)
+    want = fa.beam_content_attention_plain(h, p, att, p_att, B=B,
+                                           variant="v2")
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _close(got, want, 1e-2, 1e-3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
