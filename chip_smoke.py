@@ -12,7 +12,9 @@ into the git-ignored build directory), then:
    the serving shapes (bs=384; attention v1 at beams 1, 3 and 8 and v2 at
    beam 3, in bf16 and f32, v1's bf16 instance also with tanhf in place of
    tanh.approx.f32, both within the same tolerance; the
-   Winograd transforms in bf16, the fused classifier top-k at 1152 rows x
+   Winograd transforms in bf16, the input transform also on the
+   detector's permuted NHWC view, which must give the contiguous input's
+   V exactly, and the stack on that view; the fused classifier top-k at 1152 rows x
    10,000 words in bf16 and f32, and the bf16 top-k's wgmma product alone
    against the f32 library product; the encoder stem's max pool in bf16 and
    f32 at [32,224,224,64] and [32,192,256,64], the 448x448 and 384x512
@@ -71,7 +73,11 @@ into the git-ignored build directory), then:
    and ``torch.matmul``, some 30-100 us a call, by
    the profiler's device time (the latter two from phase 3d), since events
    around back-to-back launches of that size also read the host's
-   dispatch; the bf16 serving step at bs=384 under the four
+   dispatch; the three Winograd transforms by the profiler's device time
+   beside events (the input transform on the permuted view the detector
+   passes, and on contiguous x), and the stack's device time split into
+   the transforms, the two products, the per-call filter transform and
+   the rest; the bf16 serving step at bs=384 under the four
    switch settings on random weights, and captions/s and mean caption
    length on the trained weights, default and both switches (host clock,
    the settings taken in turns, median of 6 each); ``forward_raw_batch``
@@ -284,7 +290,7 @@ def main():
         from insenticap_model_tpu_torch.utils.dtypes import (cast_bf16,
                                                              cast_f32)
         from insenticap_model_tpu_torch.utils.timing import (
-            cuda_ms, device_ms, device_ms_by_name)
+            cuda_ms, device_ms, device_ms_by_kernel, device_ms_by_name)
         from insenticap_model_tpu_torch.utils.tolerance import bf16_ulp_error
         from insenticap_model_tpu_torch.vocab import Vocab
         from tools import bench_torch_int8 as bti
@@ -442,6 +448,19 @@ def main():
     print(f"check wino_input bf16: max_abs_err={err:.3g} "
           f"{'ok' if ok else 'FAIL'}")
     _check(ok, "wino_input kernel disagrees with its plain version")
+    # the detector's own input: the permuted view of NHWC features, read
+    # in place through its strides (no copy); the same values as x16
+    feats16 = x16.permute(2, 0, 1, 3).contiguous()
+    x16_view = feats16.permute(1, 2, 0, 3)
+    v_view = wk.wino_input(x16_view)
+    torch.cuda.synchronize()
+    same = torch.equal(v_view, v)
+    checks["wino_input_view_equal"] = same
+    print(f"check wino_input bf16 on the permuted NHWC view: identical to "
+          f"the contiguous input's {'ok' if same else 'FAIL'}")
+    _check(same, "wino_input on the permuted view differs from the "
+           "contiguous input's")
+    del v_view
 
     def gemm(v, w):
         cin, cout = w.shape[2], w.shape[3]
@@ -473,7 +492,8 @@ def main():
     # the whole stack: kernels against the plain stack at the same cast
     # points, and both against the f32 direct conv chain
     layers16 = [(c["weight"], c["bias"]) for c in convs]
-    stack_k = wk.conv3x3_stack_sm(x16, layers16).float()
+    stack_k = wk.conv3x3_stack_sm(x16_view, layers16).float()
+    del x16_view, feats16
     ref = x16.float().permute(2, 0, 1, 3)
     for c in det32["convs"]:
         ref = nn.conv2d(c, ref)                    # f32, TF32 off
@@ -1094,8 +1114,11 @@ def main():
         "bound_ms": tk_bound, "bound_by": tk_by, "library_ms": None,
         "passed": True})
 
-    x16 = torch.rand(14, 14, BS, C0, generator=g, device=dev).to(
+    # the detector's input as it serves it: NHWC features, permuted
+    feats16 = torch.rand(BS, 14, 14, C0, generator=g, device=dev).to(
         torch.bfloat16)
+    x16 = feats16.permute(1, 2, 0, 3)
+    x16c = x16.contiguous()
     v = wk.wino_input(x16)
     m1 = gemm(v, convs[0]["weight"])
     v2 = wk.wino_middle(m1, b1, 14, 14)
@@ -1117,22 +1140,75 @@ def main():
          2 * (49 * 9 * BS * c2 + 14 * 14 * BS * c2) + 4 * c2,
          9 * BS * c2 * inv),
     ]
+    # each transform by the profiler's device time (the kernel alone;
+    # "total" also holds any copy the wrapper makes) beside CUDA events;
+    # wino_input on the permuted view, as the detector calls it
+    wino_names = ("wino_input_kernel", "wino_middle_kernel",
+                  "wino_output_kernel")
+    wino_times = {}
     for name, replaces, kfn, pfn, nbytes, flops in specs:
+        k_dev = device_ms_by_name(kfn, wino_names)
         k_ms = cuda_ms(kfn)
         p_ms = cuda_ms(pfn, iters=3)
         bnd, by_ = _bound(nbytes, flops, F32_FLOP_S)
+        wino_times[name] = {"device_ms": k_dev[name + "_kernel"],
+                            "device_total_ms": k_dev["total"],
+                            "ms_events": k_ms, "plain_ms": p_ms,
+                            "bound_ms": bnd, "bound_by": by_}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "insenticap_model_tpu_torch/csrc/winograd.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": checks[name], "ms": k_ms, "plain_ms": p_ms,
+            "max_abs_err": checks[name], "ms": k_dev[name + "_kernel"],
+            "ms_events": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd, "bound_by": by_, "library_ms": None,
             "passed": True})
+    wino_times["wino_input_contiguous"] = {
+        "device_ms": device_ms_by_name(lambda: wk.wino_input(x16c),
+                                       wino_names)["wino_input_kernel"],
+        "ms_events": cuda_ms(lambda: wk.wino_input(x16c))}
+    report["winograd_transforms"] = wino_times
 
-    # the whole stack (kernels + the two products) beside the library's
-    # two bf16 convolutions on the same input, NCHW as cuDNN prefers
-    stack_ms = cuda_ms(lambda: wk.conv3x3_stack_sm(x16, layers16),
-                       iters=5)
+    # the whole stack (kernels + the two products) on the permuted view,
+    # beside the library's two bf16 convolutions on the same input, NCHW
+    # as cuDNN prefers; then its device time split by activity, by the
+    # names of the device activities: the three transforms, the two
+    # products (the names the two torch.bmm show alone), the per-call
+    # filter transform (the other names its f32 einsums and casts show
+    # alone) and the rest; the copy kernels among them apart
+    def stack_fn():
+        return wk.conv3x3_stack_sm(x16, layers16)
+    stack_ms = cuda_ms(stack_fn, iters=5)
+    stack_by = device_ms_by_kernel(stack_fn, iters=5)
+
+    def filters():
+        with nn.exact_numerics():
+            return [transform_filter(c["weight"]).to(torch.bfloat16)
+                    .reshape(49, *c["weight"].shape[2:]) for c in convs]
+    us = filters()
+    vs = [v.reshape(49, -1, C0), v2.reshape(49, -1, c1)]
+    bmm_by = device_ms_by_kernel(
+        lambda: [torch.bmm(vs[i], us[i]) for i in range(2)], iters=5)
+    filt_by = device_ms_by_kernel(filters, iters=5)
+    del us, vs
+
+    def part(names):
+        return sum(ms for n_, ms in stack_by.items() if n_ in names)
+    wino_in_stack = {n_: sum(ms for k_, ms in stack_by.items() if n_ in k_)
+                     for n_ in wino_names}
+    trans_names = {n_ for n_ in stack_by if "wino_" in n_}
+    prod_names = set(bmm_by) - trans_names
+    filt_names = set(filt_by) - prod_names - trans_names
+    stack_split = {
+        "total": sum(stack_by.values()), **wino_in_stack,
+        "transforms": part(trans_names), "products": part(prod_names),
+        "filter_transform": part(filt_names),
+        "rest": part(set(stack_by) - trans_names - prod_names - filt_names),
+        "copy_kernels": sum(ms for n_, ms in stack_by.items()
+                            if "copy" in n_.lower()),
+        "products_alone": sum(bmm_by.values()),
+        "filter_transform_alone": sum(filt_by.values()),
+        "by_kernel": dict(sorted(stack_by.items(), key=lambda kv: -kv[1]))}
     xn = x16.permute(2, 3, 0, 1).contiguous()
     wn = [c["weight"].permute(3, 2, 0, 1).contiguous() for c in convs]
 
@@ -1147,8 +1223,9 @@ def main():
     stack_bound = max(stack_bytes / HBM_BYTES_S, gemm_flops / BF16_FLOP_S) \
         * 1e3
     report["winograd_stack"] = {"ms": stack_ms, "library_ms": lib_ms,
-                                "bound_ms": stack_bound}
-    del v, v2, m1, m2, xn
+                                "bound_ms": stack_bound,
+                                "device_ms": stack_split}
+    del v, v2, m1, m2, xn, x16c, feats16
 
     # the stem's max pool at both buckets' shapes, bf16 and f32: each
     # input read once and each output written once; the library's
@@ -1320,6 +1397,25 @@ def main():
                   total_s=time.time() - t_start)
     print(f"winograd stack bf16 bs={BS}: {stack_ms:.3f} ms (bound "
           f"{stack_bound:.3f} ms), F.conv2d two convs {lib_ms:.3f} ms")
+    sp = stack_split
+    print(f"winograd stack bf16 bs={BS}, device ms: total {sp['total']:.4f}"
+          f" = transforms {sp['transforms']:.4f} (input "
+          f"{sp['wino_input_kernel']:.4f}, middle "
+          f"{sp['wino_middle_kernel']:.4f}, output "
+          f"{sp['wino_output_kernel']:.4f}) + products {sp['products']:.4f}"
+          f" + filter transform {sp['filter_transform']:.4f} + rest "
+          f"{sp['rest']:.4f}; copy kernels among them "
+          f"{sp['copy_kernels']:.4f}; alone: products "
+          f"{sp['products_alone']:.4f}, filter transform "
+          f"{sp['filter_transform_alone']:.4f}")
+    for name, r in wino_times.items():
+        print(f"{name} bf16 bs={BS}: device {r['device_ms']:.4f} ms "
+              + (f"(with the wrapper's work {r['device_total_ms']:.4f}) "
+                 if "device_total_ms" in r else "")
+              + f"events {r['ms_events']:.4f} ms"
+              + (f", plain {r['plain_ms']:.4f} ms, bound "
+                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+                 if "bound_ms" in r else ""))
     for name, r in pool_times.items():
         print(f"ceil_maxpool_3x3s2 {name} bs={ENC_BS}: {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, F.max_pool2d "

@@ -78,7 +78,8 @@ def build(names: Iterable[str]) -> None:
 def load(name: str, signatures: Dict[str, int]) -> ctypes.CDLL:
     """The loaded library ``name``, built if needed. ``signatures`` maps
     each C entry point to its ``argtypes`` (``c_void_p`` for every pointer
-    and the stream, ``c_int`` for every int); each returns an int."""
+    and the stream, ``c_int`` or ``c_longlong`` for every integer); each
+    returns an int."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -67,12 +67,13 @@ def kernel_eligible(x_shape, w_shape, dtype, device) -> bool:
     """True when the CUDA Winograd stack serves a 3x3 SAME conv: a 3x3
     kernel, bf16 (the serving policy; f32 keeps the direct conv), a CUDA
     tensor, and the 14x14-class spatial cap (at most 3x3 output tiles of
-    5x5, i.e. h, w <= 15 — the middle kernel keeps a whole padded plane per
-    thread in shared memory). x_shape is [bs, h, w, C] (NHWC).
+    5x5, i.e. h, w <= 15 — the input and middle kernels keep a slab's
+    h x w positions in shared memory). x_shape is [bs, h, w, C] (NHWC).
 
     Dropped from the JAX gate: batch % 8 and channels % 256, which were the
-    TPU's (8, 128) block-tiling rules; the CUDA kernels index per element
-    and mask nothing, so any batch and channel count works."""
+    TPU's (8, 128) block-tiling rules; the CUDA kernels mask a ragged
+    channel tail and take unaligned inputs element by element, so any batch
+    and channel count works."""
     _, h, wd = x_shape[0], x_shape[1], x_shape[2]
     kh, kw = w_shape[0], w_shape[1]
     return ((kh, kw) == (3, 3) and dtype == torch.bfloat16

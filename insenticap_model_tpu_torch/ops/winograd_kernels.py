@@ -21,14 +21,22 @@ casts ``m.astype(gemm_dtype)`` (winograd_pallas.py:200).
 
 What bounds the kernels on the H100: bytes. At the detector's serving
 shapes (bs=384, 2048 -> 1024 -> 512, bf16) they move about 1.0, 0.69 and
-0.25 GB; the transforms are a few hundred f32 FMAs per 7x7 tile, well under
-the memory time. The design gives one thread a (batch, channel) column over
-every tile, neighbouring threads neighbouring channels, so every warp's
-loads and stores are contiguous; the SAME padding is applied on the fly
-(the input is never padded in memory) and the output kernel writes only the
-H x W interior. The middle kernel keeps the whole padded f32 plane of its
-columns in shared memory, so the activation between the two convs never
-reaches device memory (see the source's header).
+0.25 GB; the transforms are a few hundred f32 FMAs per 7x7 tile, under the
+memory time once the zero terms of the transform matrices are skipped.
+The input and middle kernels take one block a slab (one image, a run of
+channels, a lane two adjacent channels): the input kernel brings the
+slab's positions into shared memory once with 16-byte ``cp.async`` (the
+7x7 windows overlap at stride 5), the middle one keeps the slab's f32
+interior plane in shared memory, so the activation between the two convs
+never reaches device memory; both store V with two-channel stores. The
+SAME padding is applied on the fly (the input is never padded in memory)
+and the output kernel (one thread a (batch, channel) column) writes only
+the H x W interior (see the source's header).
+
+``wino_input`` reads x through its strides wherever its channels lie at
+stride 1, so the detector's permuted NHWC features go in without a copy;
+a base pointer or strides that are not 16-byte multiples take the
+kernel's element-by-element load path, never the plain twin.
 """
 from __future__ import annotations
 
@@ -44,10 +52,12 @@ from .winograd import _AT5, _BT5, _G5, M5, MAX_TILES, T5, transform_filter
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _DT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SIGS = {}
 for _sfx in _DT.values():
-    _SIGS[f"isc_wino_input_{_sfx}"] = [_P, _P, _P, _I, _I, _I, _P]
+    _SIGS[f"isc_wino_input_{_sfx}"] = [_P, _P, _P, _I, _I, _I, _I, _L, _L,
+                                       _L, _P]
     _SIGS[f"isc_wino_middle_{_sfx}"] = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
     _SIGS[f"isc_wino_output_{_sfx}"] = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
 
@@ -97,6 +107,8 @@ def _same_pad(y):
 
 
 def wino_input_plain(x, out_dtype=None):
+    """x [H, W, B, C], any strides (the detector's permuted features
+    included): the same numbers as for its contiguous copy."""
     return _forward_plain(_same_pad(x.float())).to(out_dtype or x.dtype)
 
 
@@ -137,7 +149,9 @@ def _bias_f32(name, bias, m):
 
 
 def wino_input(x):
-    """x [H, W, B, C] -> V [49, tiles, B, C] in x's dtype."""
+    """x [H, W, B, C] -> V [49, tiles, B, C] in x's dtype. x may be any
+    view whose channels lie at stride 1 (the kernel takes the other three
+    strides); another layout is copied first."""
     if x.device.type == "cpu":
         return wino_input_plain(x)
     _build.no_grad_guard("wino_input", x)
@@ -145,12 +159,14 @@ def wino_input(x):
     h, w, bsz, c = x.shape
     _check_extent("wino_input", h, w)
     th, tw = _tiles(h, w)
-    x = x.contiguous()
+    if x.stride(3) != 1:
+        x = x.contiguous()
     v = torch.empty((T5 * T5, th * tw, bsz, c), dtype=x.dtype,
                     device=x.device)
     fn = getattr(_lib(), f"isc_wino_input_{_DT[x.dtype]}")
     _build.check(fn(x.data_ptr(), v.data_ptr(), _MATS.ctypes.data, h, w,
-                    bsz * c, _build.stream_ptr(x.device)), "wino_input")
+                    bsz, c, x.stride(0), x.stride(1), x.stride(2),
+                    _build.stream_ptr(x.device)), "wino_input")
     wino_input.launches += 1
     return v
 

@@ -71,3 +71,12 @@ def device_ms_by_name(fn, parts, *, iters: int = 20,
            / iters / 1e3 for part in parts}
     out["total"] = sum(us for _, us in events) / iters / 1e3
     return out
+
+
+def device_ms_by_kernel(fn, *, iters: int = 20, warm: int = 3) -> dict:
+    """``device_ms`` split by activity name: {name: mean ms a call}, for
+    a breakdown whose kernel names are not known in advance."""
+    out: dict = {}
+    for name, us in _device_events(fn, iters, warm):
+        out[name] = out.get(name, 0.0) + us / iters / 1e3
+    return out

@@ -168,6 +168,87 @@ def test_winograd_stack_f32_matches_direct_conv(dev):
     assert ((got - want).abs().max() / scale) < 2e-5
 
 
+def _wino_tol(dtype):
+    """(rtol, scale_frac) of a transform against its twin."""
+    return (1e-2, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+
+
+def _wino_x(g, h, w, bsz, c, dtype, dev, layout):
+    """x [h, w, bsz, c] laid out as ``layout``: contiguous, the permuted
+    view of NHWC features, or contiguous one element past a 16-byte
+    boundary."""
+    if layout == "permuted":
+        return torch.randn(bsz, h, w, c, generator=g).to(
+            dev, dtype).permute(1, 2, 0, 3)
+    if layout == "offset":
+        buf = torch.randn(h * w * bsz * c + 1, generator=g).to(dev, dtype)
+        return buf[1:].view(h, w, bsz, c)
+    return torch.randn(h, w, bsz, c, generator=g).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "permuted", "offset"])
+@pytest.mark.parametrize("hw,bsz,c", [((15, 15), 2, 64), ((6, 6), 3, 1026),
+                                      ((1, 1), 4, 7), ((14, 14), 3, 130)])
+def test_winograd_input_and_middle_layouts(dev, dtype, layout, hw, bsz, c):
+    """The redesigned input and middle kernels against their twins at the
+    extents the gate takes (15x15, 6x6, 1x1), channel counts that leave a
+    ragged slab (1026, 7, 130), and inputs that are not contiguous or not
+    16-byte aligned (the kernels' element-by-element path)."""
+    g = torch.Generator().manual_seed(c + hw[0])
+    h, w = hw
+    rtol, frac = _wino_tol(dtype)
+    x = _wino_x(g, h, w, bsz, c, dtype, dev, layout)
+    _close(wk.wino_input(x), wk.wino_input_plain(x), rtol, frac)
+    th, tw = -(-h // 5), -(-w // 5)
+    m = _wino_x(g, 49, th * tw, bsz, c, dtype, dev,
+                "offset" if layout == "offset" else "contiguous")
+    bias = torch.randn(c, generator=g).to(dev)
+    _close(wk.wino_middle(m, bias, h, w), wk.wino_middle_plain(m, bias, h, w),
+           rtol, frac)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "permuted"])
+def test_winograd_kernels_at_the_serving_shape(dev, layout):
+    """bs=384, 14x14, 2048 -> 1024, bf16: the input kernel on x as laid
+    out, the middle kernel on a product's output, each against its twin,
+    and one launch a call."""
+    g = torch.Generator().manual_seed(384)
+    x = _wino_x(g, 14, 14, 384, 2048, torch.bfloat16, dev, layout)
+    before = wk.wino_input.launches
+    v = wk.wino_input(x)
+    assert wk.wino_input.launches == before + 1
+    _close(v, wk.wino_input_plain(x), 1e-2, 1e-3)
+    del v
+    m = torch.randn(49, 9, 384, 1024, generator=g).to(dev, torch.bfloat16)
+    bias = torch.randn(1024, generator=g).to(dev)
+    before = wk.wino_middle.launches
+    v2 = wk.wino_middle(m, bias, 14, 14)
+    assert wk.wino_middle.launches == before + 1
+    _close(v2, wk.wino_middle_plain(m, bias, 14, 14), 1e-2, 1e-3)
+    torch.cuda.synchronize()
+
+
+def test_winograd_stack_reads_the_permuted_view_in_place(dev):
+    """The bf16 stack on the detector's permuted features equals the stack
+    on their contiguous copy, one launch of each kernel a call."""
+    g = torch.Generator().manual_seed(5)
+    feats = torch.randn(6, 14, 14, 40, generator=g).to(dev, torch.bfloat16)
+    layers = [(torch.randn(3, 3, 40, 24, generator=g).to(dev, torch.bfloat16)
+               * 0.1, torch.randn(24, generator=g).to(dev, torch.bfloat16)),
+              (torch.randn(3, 3, 24, 8, generator=g).to(dev, torch.bfloat16)
+               * 0.1, torch.randn(8, generator=g).to(dev, torch.bfloat16))]
+    counts = [wk.wino_input.launches, wk.wino_middle.launches,
+              wk.wino_output.launches]
+    got = wk.conv3x3_stack_sm(feats.permute(1, 2, 0, 3), layers)
+    assert [wk.wino_input.launches, wk.wino_middle.launches,
+            wk.wino_output.launches] == [n + 1 for n in counts]
+    want = wk.conv3x3_stack_sm(feats.permute(1, 2, 0, 3).contiguous(),
+                               layers)
+    assert torch.equal(got, want)
+
+
 def test_decode_kernel_path_matches_plain_path(dev):
     """detect_and_decode on the card, kernels against plain, f32."""
     from insenticap_model_tpu_torch import inference

@@ -64,15 +64,22 @@ def test_transform_filter_matches_jax():
 @pytest.mark.parametrize("hw,chans", [((14, 14), (16, 8, 4)),
                                       ((14, 14), (12, 6)),
                                       ((11, 13), (8, 6, 4, 2)),
-                                      ((5, 3), (4, 4))])
+                                      ((5, 3), (4, 4)),
+                                      ((1, 1), (3, 2))])
 def test_plain_stack_matches_jax_direct_chain(hw, chans):
+    """The stack on the detector's permuted NHWC view, as the detector
+    calls it; the view and its contiguous copy give the same numbers."""
     g = np.random.default_rng(sum(hw) + len(chans))
     bs = 3
     x = g.normal(size=(bs, *hw, chans[0])).astype(np.float32)
     layers = _layers(g, chans)
     ref = _direct_chain(x, layers)
-    got = wk.conv3x3_stack_sm(t(x).permute(1, 2, 0, 3),
-                              [(t(w), t(b)) for w, b in layers])
+    view = t(x).permute(1, 2, 0, 3)
+    tl = [(t(w), t(b)) for w, b in layers]
+    got = wk.conv3x3_stack_sm(view, tl)
+    assert torch.equal(got, wk.conv3x3_stack_sm(view.contiguous(), tl))
+    assert torch.equal(wk.wino_input_plain(view),
+                       wk.wino_input_plain(view.contiguous()))
     got = n(got.permute(2, 0, 1, 3))
     scale = np.abs(ref).max()
     np.testing.assert_allclose(got / scale, ref / scale, rtol=0,
@@ -123,9 +130,13 @@ def test_bf16_stack_error_is_the_f5_algorithms():
     err_rounded = np.abs(n(rounded.permute(2, 0, 1, 3)) - ref).max() / scale
     assert err_rounded < max(4 * err_direct, 0.05), (err_rounded,
                                                      err_direct)
-    got = wk.conv3x3_stack_sm(bf(x).permute(1, 2, 0, 3),
-                              [(bf(w), bf(b)) for w, b in layers])
+    view = bf(x).permute(1, 2, 0, 3)
+    bl = [(bf(w), bf(b)) for w, b in layers]
+    got = wk.conv3x3_stack_sm(view, bl)
     assert got.dtype == torch.bfloat16
+    assert torch.equal(got, wk.conv3x3_stack_sm(view.contiguous(), bl))
+    assert torch.equal(wk.wino_input_plain(view),
+                       wk.wino_input_plain(view.contiguous()))
     err = np.abs(n(got.permute(2, 0, 1, 3)) - ref).max() / scale
     assert err < 0.15, err
 
