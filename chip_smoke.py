@@ -20,8 +20,12 @@ into the git-ignored build directory), then:
    f32 at [32,224,224,64] and [32,192,256,64], the 448x448 and 384x512
    buckets at bs=32, and an odd extent, exactly; the int8-storage
    attention at bs=384, N=196, 512 wide and the row-tiled product at the
-   decode cell's two LSTM shapes and tile_rows 24, 48 and 96, both in bf16
-   within one bf16 ulp), with the tolerances stated at each check;
+   decode cell's two LSTM shapes and tile_rows 24, 48 and 96, at K = 4096
+   (w streamed, not resident) and at a tile of 5 rows (wgmma n8), both in
+   bf16 within one bf16 ulp; the Winograd output transform also equal to
+   its plain version in bf16, on its element-wise path (M off its
+   alignment) equal to its vector path, and in f32 within rounding), with
+   the tolerances stated at each check;
 3. drives the main path: a full-width bf16 ``DynamicBatcher`` (512-d
    model, 2048-d 14x14 features, vocab 10,000, beam 3, 16 tokens, random
    weights from a seed) answers 41 requests from threads, mixing auto and
@@ -83,7 +87,9 @@ into the git-ignored build directory), then:
    the settings taken in turns, median of 6 each); ``forward_raw_batch``
    at bs=32, 448x448, bf16 and f32 (host clock, median of 5);
 6. prints one ``kernels`` JSON line (every check above passed, or the run
-   would have stopped), the card's name and power limit, then
+   would have stopped; each kernel's ``design`` says whether it is a
+   Hopper-specific redesign or the first port), the card's name and power
+   limit, then
    ``{"ok": true, "device": ...}``.
 
 Any failed check raises and the script exits non-zero without the last
@@ -121,6 +127,16 @@ POOL_SHAPES = {"448x448": (ENC_BS, 224, 224, 64),
 TRAINED_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "assets", "bench_trained.ckpt")
 ATT_BEAMS = (1, BEAM, 8)     # v1's checks: narrowest, serving, widest
+# each kernel's design on this card: "redesigned" for the Hopper-specific
+# designs that replaced the first port, "first design" for the others
+# (PERF.md's kernel table gives their history)
+DESIGNS = {"beam_content_attention": "redesigned",
+           "beam_content_attention_v2": "redesigned (runs on v1's kernel)",
+           "wino_input": "redesigned", "wino_middle": "redesigned",
+           "wino_output": "redesigned", "classifier_topk": "redesigned",
+           "ceil_maxpool_3x3s2": "first design",
+           "beam_content_attention_i8": "first design",
+           "tiled_mm": "redesigned"}
 SWITCH_SETS = {"default": {}, "fused_topk": {"ISC_FUSED_TOPK": "1"},
                "v2": {"ISC_ATT_KERNEL": "v2"},
                "both": {"ISC_FUSED_TOPK": "1", "ISC_ATT_KERNEL": "v2"}}
@@ -488,6 +504,31 @@ def main():
     print(f"check wino_output bf16: max_abs_err={err:.3g} "
           f"{'ok' if ok else 'FAIL'}")
     _check(ok, "wino_output kernel disagrees with its plain version")
+    # the same f32 sums in the same order as the twin, one rounding: equal;
+    # M one element past an aligned base takes the kernel's element-wise
+    # path, which must give the same numbers; f32 within rounding
+    same = torch.equal(y, wk.wino_output_plain(m2, b2, 14, 14))
+    buf = torch.empty(m2.numel() + 1, dtype=m2.dtype, device=dev)
+    m2_off = buf[1:].view(m2.shape)
+    m2_off.copy_(m2)
+    same_off = torch.equal(wk.wino_output(m2_off, b2, 14, 14), y)
+    del buf, m2_off
+    m2_32 = m2.float()
+    ok32, err32 = _within_rounding(
+        torch, wk.wino_output(m2_32, b2, 14, 14),
+        wk.wino_output_plain(m2_32, b2, 14, 14), 1e-5, 1e-5)
+    del m2_32
+    torch.cuda.synchronize()
+    checks.update(wino_output_equal=same,
+                  wino_output_elementwise_equal=same_off,
+                  wino_output_f32=err32)
+    ok = same and same_off and ok32
+    print(f"check wino_output bf16 equal to its plain version {same}, "
+          f"element-wise path (M off its alignment) equal {same_off}; f32: "
+          f"max_abs_err={err32:.3g} {'ok' if ok else 'FAIL'}")
+    _check(same and same_off, "wino_output kernel is not equal to its plain "
+           "version in bf16, or its element-wise path differs")
+    _check(ok32, "wino_output f32 kernel disagrees with its plain version")
 
     # the whole stack: kernels against the plain stack at the same cast
     # points, and both against the f32 direct conv chain
@@ -597,7 +638,29 @@ def main():
             _check(ok, f"tiled_mm kernel {name} tile_rows={tr} disagrees "
                    "with its plain version")
         mm_in[name] = (x, w)
-    del got, want
+    # the kernel's other cases: K = 4096, whose 64-column slab (512 KB)
+    # does not fit a block, so w streams with x; and a tile of 5 rows,
+    # which runs as wgmma n8 with 3 zero rows
+    for tr, K, Nw, rows_ in ((24, 4096, 2048, 1152), (96, 4096, 2048, 1152),
+                             (5, 1536, 2048, 1150)):
+        x = (torch.randn(rows_, K, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        w = (torch.randn(K, Nw, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        pl = tmm.plan(rows_, tr, K, Nw, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        got = tmm.tiled_mm(x, w, tile_rows=tr)
+        torch.cuda.synchronize()
+        err, ulps = bf16_ulp_error(got, tmm.tiled_mm_plain(x, w))
+        ok = ulps <= 1
+        checks[f"tiled_mm_K{K}_{tr}"] = err
+        print(f"check tiled_mm [{rows_}x{K}]@[{K}x{Nw}] tile_rows={tr} "
+              f"(n{pl.n}, w {'resident' if pl.resident else 'streamed'}, "
+              f"{pl.stages} stages): max_abs_err={err:.3g} ({ulps:.2f} bf16 "
+              f"ulp) {'ok' if ok else 'FAIL'}")
+        _check(ok, f"tiled_mm kernel K={K} tile_rows={tr} disagrees with "
+               "its plain version")
+    del got, want, x, w
 
     # -- 3. the main path: full-width bf16 serving through DynamicBatcher --
     rng = np.random.default_rng(2)
@@ -1302,7 +1365,12 @@ def main():
         "ms": m24["tiled_device_ms"][24], "ms_events": m24["tiled_ms"][24],
         "plain_ms": m24["plain_ms"], "bound_ms": m24["bound_ms"],
         "bound_by": m24["bound_by"], "library_ms": m24["matmul_device_ms"],
-        "library_ms_events": m24["matmul_ms"], "passed": True})
+        "library_ms_events": m24["matmul_ms"],
+        "by_shape": {name: {"device_ms": r["tiled_device_ms"],
+                            "bound_ms": r["bound_ms"],
+                            "library_ms": r["matmul_device_ms"]}
+                     for name, r in mm_times.items()},
+        "passed": True})
     del mm_in, i8_in
 
     # the encoder at the top of the encode ladder, 448x448, host clock
@@ -1474,7 +1542,9 @@ def main():
               + (f", {r['decode_steps']} decode steps"
                  if "decode_steps" in r else ""))
     for k in kernels:
-        print(f"  {k['name']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} "
+        k["design"] = DESIGNS[k["name"]]
+        print(f"  {k['name']} ({k['design']}): {k['ms']:.4f} ms, plain "
+              f"{k['plain_ms']:.4f} "
               f"ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
               f"{k['launches']} launches on the main path")
     os.makedirs("chiprun_out", exist_ok=True)

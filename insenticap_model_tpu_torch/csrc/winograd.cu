@@ -19,8 +19,9 @@
 // their permuted view, with no copy.
 //
 // What bounds them on the H100: bytes. At the serving shape (bs=384, 14x14,
-// 2048 -> 1024, bf16) the input transform reads 308 MB and writes 694 MB,
-// the middle one reads and writes 347 MB each; their f32 transforms would
+// 2048 -> 1024 -> 512, bf16) the input transform reads 308 MB and writes
+// 694 MB, the middle one reads and writes 347 MB each, the output one reads
+// 173 MB and writes 77 MB; their f32 transforms would
 // take 0.5-0.8 of that time in FFMA instruction slots if every term of the
 // 7x7 products were taken, so the kernels skip the terms that are zero in
 // B^T (15 of 49) and A^T (8 of 35): the nonzero pattern is a compile-time
@@ -54,14 +55,26 @@
 // measured best on the H100 among the variants tried (PERF.md). The
 // dynamic shared-memory limit is raised once per instantiation.
 //
-// Both keep the arithmetic and the order of sums of the one-thread-a-column
-// kernels they replaced (f32 transforms in the same index order, one
-// rounding into V's dtype, the bias summed in f32), so their results equal
-// those kernels' except for the sign of a zero.
+// wino_output_kernel<T, kVec>: the middle kernel's phase 1 with the store
+// going to y in place of the shared-memory plane. One block a slab (one
+// image, 64 channels), a warp a tile, a lane two adjacent channels: 49
+// independent two-channel loads of M straight into registers (a warp 128
+// contiguous bytes each in bf16), the inverse transform in f32 with A^T's
+// zeros skipped, the f32 bias, and the trimmed 5x5 written with
+// two-channel stores (a warp 64 contiguous channels of each output
+// position). It needs no shared memory, so registers bound the blocks an
+// SM (a lane holds 50 output sums and a column of 7 planes), as the launch
+// bounds below ask.
 //
-// wino_output_kernel: one thread a (b, c) column over every tile,
-// neighbouring threads neighbouring channels. The matrices arrive by value
-// in a kernel parameter (constant-bank reads), as they do for all three.
+// kVec false (M's or y's base not aligned to two elements, or an odd
+// channel count) loads and stores element by element in the same kernel.
+//
+// All three keep the arithmetic and the order of sums of the
+// one-thread-a-column kernels of the first design (f32 transforms in the
+// same index order, one rounding into the output's dtype, the bias summed
+// in f32), so their results equal those kernels' except for the sign of a
+// zero. The matrices arrive by value in a kernel parameter (constant-bank
+// reads).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -74,7 +87,6 @@ constexpr int kM = 5;            // output tile
 constexpr int kT = kM + 2;       // input tile / transform size
 constexpr int kMaxTiles = 3;     // per spatial dim: h, w <= 15
 constexpr int kMaxExtent = kM * kMaxTiles;
-constexpr int kThreads = 256;    // output kernel
 constexpr int kNC = 2;           // channels a lane (input and middle)
 constexpr int kWarps = 3;        // warps a block (input and middle)
 constexpr int kCB = 32 * kNC;    // channels a block (a slab)
@@ -87,6 +99,13 @@ constexpr int kCB = 32 * kNC;    // channels a block (a slab)
 // spill nothing.
 constexpr int kInMinBlocks = 5;
 constexpr int kMidMinBlocks = 4;
+// The output kernel has no shared memory: a lane's 50 output sums and a
+// column of 7 planes bound it, so its launch bounds trade registers for
+// blocks an SM. At 5 (128 registers a lane) it was the fastest of 3, 4
+// and 5 in each of three rounds taken in turns, about 10% ahead; 3 and 4
+// both give 168 registers, 4 blocks an SM, and spill more in the bf16
+// vector instance (44 bytes against 24).
+constexpr int kOutMinBlocks = 5;
 
 // nonzero entries of B^T (bit a*7+i) and A^T (bit x*7+a) of the port's
 // cook_toom(5, 3, [0, 1, -1, 2, -2, 1/2]) (ops/winograd.py _BT5, _AT5)
@@ -229,7 +248,8 @@ __device__ __forceinline__ void forward_tile(const Mats& mt, Load load,
 }
 
 // y[x][yy] = sum_b at[yy][b] (sum_a at[x][a] m[a*7+b]): load(p, m) gives
-// plane p. The sums run over a, then b, as inverse_load's do.
+// plane p. The sums run over a, then b, as the one-thread-a-column
+// kernels of the first design took them.
 template <typename Load>
 __device__ __forceinline__ void inverse_tile(const Mats& mt, Load load,
                                              float (&y)[kM][kM][kNC]) {
@@ -336,61 +356,46 @@ wino_input_kernel(const T* __restrict__ x, T* __restrict__ v,
   }
 }
 
-// m [49, tiles, BK] (+ f32 bias [K]) -> y [H, W, BK], one thread a column
-template <typename T>
-__device__ __forceinline__ void inverse_load(const Mats& mt, const T* m,
-                                             size_t plane_stride,
-                                             float (&y)[kM][kM]) {
-  float mm[kT][kT];
-#pragma unroll
-  for (int a = 0; a < kT; ++a)
-#pragma unroll
-    for (int b = 0; b < kT; ++b)
-      mm[a][b] = to_f32(m[(size_t)(a * kT + b) * plane_stride]);
-  float t2[kM][kT];
-#pragma unroll
-  for (int x = 0; x < kM; ++x)
-#pragma unroll
-    for (int b = 0; b < kT; ++b) {
-      float acc = 0.f;
-#pragma unroll
-      for (int a = 0; a < kT; ++a) acc = fmaf(mt.at[x][a], mm[a][b], acc);
-      t2[x][b] = acc;
-    }
-#pragma unroll
-  for (int x = 0; x < kM; ++x)
-#pragma unroll
-    for (int yy = 0; yy < kM; ++yy) {
-      float acc = 0.f;
-#pragma unroll
-      for (int b = 0; b < kT; ++b) acc = fmaf(mt.at[yy][b], t2[x][b], acc);
-      y[x][yy] = acc;
-    }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// m [49, tiles, B, K] (+ f32 bias [K]) -> y [H, W, B, K]: inverse
+// transform, bias, trimmed to H x W; a block a slab (one image, 64
+// channels), a warp a tile, a lane two channels, no shared memory
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kWarps * 32, kOutMinBlocks)
 wino_output_kernel(const T* __restrict__ m, const float* __restrict__ bias,
                    T* __restrict__ y, const __grid_constant__ Mats mt,
-                   int H, int W, int th, int tw, int K, int BK) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= BK) return;
-  const float bk = bias[idx % K];
-  const size_t tiles = (size_t)th * tw;
-  for (int ti = 0; ti < th; ++ti)
-    for (int tj = 0; tj < tw; ++tj) {
-      float yy[kM][kM];
-      inverse_load<T>(mt, m + ((size_t)ti * tw + tj) * BK + idx,
-                      tiles * BK, yy);
+                   int H, int W, int th, int tw, int B, int K, int groups) {
+  const int g = blockIdx.x % groups, b = blockIdx.x / groups;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = g * kCB + lane * kNC, valid = K - c;
+  const int tiles = th * tw;
+  const size_t pstride = (size_t)tiles * B * K;
+  float bk[kNC];
 #pragma unroll
-      for (int a = 0; a < kM; ++a)
+  for (int n = 0; n < kNC; ++n) bk[n] = n < valid ? bias[c + n] : 0.f;
+  for (int t = warp; t < tiles; t += kWarps) {
+    const int ti = t / tw, tj = t - ti * tw;
+    const T* mt_ = m + ((size_t)t * B + b) * K + c;
+    float yv[kM][kM][kNC];
+    inverse_tile(
+        mt,
+        [&](int p, float(&o)[kNC]) {
+          ldg<T, kVec>(mt_ + p * pstride, o, valid);
+        },
+        yv);
 #pragma unroll
-        for (int b = 0; b < kM; ++b) {
-          const int oh = kM * ti + a, ow = kM * tj + b;
-          if (oh < H && ow < W)
-            y[((size_t)oh * W + ow) * BK + idx] = from_f32<T>(yy[a][b] + bk);
+    for (int a = 0; a < kM; ++a)
+#pragma unroll
+      for (int bb = 0; bb < kM; ++bb) {
+        const int oh = kM * ti + a, ow = kM * tj + bb;
+        if (oh < H && ow < W) {   // trim the tile overhang
+          float o[kNC];
+#pragma unroll
+          for (int n = 0; n < kNC; ++n) o[n] = yv[a][bb][n] + bk[n];
+          stg<T, kVec>(y + (((size_t)oh * W + ow) * B + b) * K + c, o,
+                       valid);
         }
-    }
+      }
+  }
 }
 
 // m [49, tiles, B, K] (+ bias [K]) -> v [49, tiles, B, K]: inverse
@@ -530,17 +535,30 @@ int input(const void* x, void* v, const float* mats, int H, int W, int B,
                                       sH, sW, sB, (cudaStream_t)stream);
 }
 
+template <typename T, bool kVec>
+int launch_output(const T* m, const float* bias, T* y, const Mats& mt, int H,
+                  int W, int B, int K, cudaStream_t st) {
+  const int groups = (K + kCB - 1) / kCB;
+  wino_output_kernel<T, kVec><<<groups * B, kWarps * 32, 0, st>>>(
+      m, bias, y, mt, H, W, tiles_of(H), tiles_of(W), B, K, groups);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int output(const void* m, const void* bias, void* y, const float* mats,
            int H, int W, int K, int BK, void* stream) {
   Mats mt;
-  if (bad_extent(H, W, BK) || K < 1 || BK % K || !make_mats(mats, &mt))
+  if (bad_extent(H, W, BK) || K < 1 || BK % K || !make_mats(mats, &mt) ||
+      (long long)(BK / K) * ((K + kCB - 1) / kCB) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  wino_output_kernel<T><<<(BK + kThreads - 1) / kThreads, kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      (const T*)m, (const float*)bias, (T*)y, mt, H, W, tiles_of(H),
-      tiles_of(W), K, BK);
-  return (int)cudaGetLastError();
+  const bool vec = (uintptr_t)m % (kNC * sizeof(T)) == 0 &&
+                   (uintptr_t)y % (kNC * sizeof(T)) == 0 && K % kNC == 0;
+  return vec ? launch_output<T, true>((const T*)m, (const float*)bias, (T*)y,
+                                      mt, H, W, BK / K, K,
+                                      (cudaStream_t)stream)
+             : launch_output<T, false>((const T*)m, (const float*)bias,
+                                       (T*)y, mt, H, W, BK / K, K,
+                                       (cudaStream_t)stream);
 }
 
 template <typename T, bool kVec>

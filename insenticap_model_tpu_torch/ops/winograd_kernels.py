@@ -23,15 +23,18 @@ What bounds the kernels on the H100: bytes. At the detector's serving
 shapes (bs=384, 2048 -> 1024 -> 512, bf16) they move about 1.0, 0.69 and
 0.25 GB; the transforms are a few hundred f32 FMAs per 7x7 tile, under the
 memory time once the zero terms of the transform matrices are skipped.
-The input and middle kernels take one block a slab (one image, a run of
-channels, a lane two adjacent channels): the input kernel brings the
-slab's positions into shared memory once with 16-byte ``cp.async`` (the
-7x7 windows overlap at stride 5), the middle one keeps the slab's f32
-interior plane in shared memory, so the activation between the two convs
-never reaches device memory; both store V with two-channel stores. The
-SAME padding is applied on the fly (the input is never padded in memory)
-and the output kernel (one thread a (batch, channel) column) writes only
-the H x W interior (see the source's header).
+All three take one block a slab (one image, a run of 64 channels, a lane
+two adjacent channels): the input kernel brings the slab's positions into
+shared memory once with 16-byte ``cp.async`` (the 7x7 windows overlap at
+stride 5), the middle one keeps the slab's f32 interior plane in shared
+memory, so the activation between the two convs never reaches device
+memory, and the output one loads each tile's 49 planes straight into
+registers and writes the trimmed 5x5 with two-channel stores. The SAME
+padding is applied on the fly (the input is never padded in memory) and
+the output kernel writes only the H x W interior (see the source's
+header). An operand whose base is not aligned to two elements, or an odd
+channel count, takes the kernels' element-by-element path, never the
+plain twin.
 
 ``wino_input`` reads x through its strides wherever its channels lie at
 stride 1, so the detector's permuted NHWC features go in without a copy;

@@ -230,6 +230,42 @@ def test_winograd_kernels_at_the_serving_shape(dev, layout):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "offset"])
+@pytest.mark.parametrize("hw,bsz,c", [((15, 15), 2, 64), ((6, 6), 3, 1026),
+                                      ((1, 1), 4, 7), ((14, 14), 3, 130)])
+def test_winograd_output_layouts(dev, dtype, layout, hw, bsz, c):
+    """The redesigned output kernel against its twin at the extents the
+    gate takes, channel counts that leave a ragged slab (1026, 130) or are
+    odd (7), and an M one element past a 16-byte boundary (the kernel's
+    element-by-element path)."""
+    g = torch.Generator().manual_seed(c + hw[0] + 1)
+    h, w = hw
+    rtol, frac = _wino_tol(dtype)
+    th, tw = -(-h // 5), -(-w // 5)
+    m = _wino_x(g, 49, th * tw, bsz, c, dtype, dev, layout)
+    bias = torch.randn(c, generator=g).to(dev)
+    before = wk.wino_output.launches
+    got = wk.wino_output(m, bias, h, w)
+    assert wk.wino_output.launches == before + 1
+    want = wk.wino_output_plain(m, bias, h, w)
+    assert got.shape == (h, w, bsz, c) and got.dtype == dtype
+    _close(got, want, rtol, frac)
+    torch.cuda.synchronize()
+
+
+def test_winograd_output_at_the_serving_shape(dev):
+    """bs=384, 14x14, K=512, bf16: the output kernel sums as its twin does
+    (the same f32 terms in the same order, A^T's zeros skipped) and rounds
+    once, so the two are equal."""
+    g = torch.Generator().manual_seed(512)
+    m = torch.randn(49, 9, 384, 512, generator=g).to(dev, torch.bfloat16)
+    bias = torch.randn(512, generator=g).to(dev)
+    got = wk.wino_output(m, bias, 14, 14)
+    torch.cuda.synchronize()
+    assert torch.equal(got, wk.wino_output_plain(m, bias, 14, 14))
+
+
 def test_winograd_stack_reads_the_permuted_view_in_place(dev):
     """The bf16 stack on the detector's permuted features equals the stack
     on their contiguous copy, one launch of each kernel a call."""
@@ -833,6 +869,34 @@ def test_tiled_mm_kernel_odd_tiles(dev, tile_rows):
     x = torch.randn(3 * tile_rows, 200, generator=g).to(dev, torch.bfloat16)
     w = torch.randn(200, 264, generator=g).to(dev, torch.bfloat16)
     _within_bf16_ulp(tmm.tiled_mm(x, w, tile_rows=tile_rows),
+                     tmm.tiled_mm_plain(x, w))
+
+
+@pytest.mark.parametrize("tile_rows", [24, 96])
+def test_tiled_mm_kernel_streams_w_past_the_slab(dev, tile_rows):
+    """K = 4096: a 64-column slab of w (512 KB) does not fit a block, so
+    the kernel streams w with x (the plan's other path)."""
+    g = torch.Generator().manual_seed(4096 + tile_rows)
+    rows, K, N = 4 * tile_rows, 4096, 520
+    assert not tmm.plan(rows, tile_rows, K, N).resident
+    x = torch.randn(rows, K, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(K, N, generator=g) * 0.05).to(dev, torch.bfloat16)
+    before = tmm.tiled_mm.launches
+    got = tmm.tiled_mm(x, w, tile_rows=tile_rows)
+    torch.cuda.synchronize()
+    assert tmm.tiled_mm.launches == before + 1
+    _within_bf16_ulp(got, tmm.tiled_mm_plain(x, w))
+
+
+@pytest.mark.parametrize("K", [1536, 4096])
+def test_tiled_mm_kernel_tile_of_5_takes_n8(dev, K):
+    """A tile of 5 rows runs as wgmma n8, its 3 padded rows zero-filled
+    and never stored, on both paths."""
+    g = torch.Generator().manual_seed(5 + K)
+    assert tmm.plan(40, 5, K, 136).n == 8
+    x = torch.randn(40, K, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(K, 136, generator=g) * 0.05).to(dev, torch.bfloat16)
+    _within_bf16_ulp(tmm.tiled_mm(x, w, tile_rows=5),
                      tmm.tiled_mm_plain(x, w))
 
 
