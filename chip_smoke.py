@@ -7,7 +7,9 @@ Builds the port's hand-written kernels from ``insenticap_model_tpu_torch/
 csrc`` (``nvcc`` for sm_90a, one process a source, all started together,
 into the git-ignored build directory), then:
 
-1. prints the card's name and power limit and the build time;
+1. prints the card's name and power limit, the build time and ptxas's
+   registers and spills of the int8 attention's instances (the B = 3
+   ones must spill nothing);
 2. holds every kernel against its plain PyTorch version on the card, at
    the serving shapes (bs=384; attention v1 at beams 1, 3 and 8 and v2 at
    beam 3, in bf16 and f32, v1's bf16 instance also with tanhf in place of
@@ -19,7 +21,8 @@ into the git-ignored build directory), then:
    against the f32 library product; the encoder stem's max pool in bf16 and
    f32 at [32,224,224,64] and [32,192,256,64], the 448x448 and 384x512
    buckets at bs=32, and an odd extent, exactly; the int8-storage
-   attention at bs=384, N=196, 512 wide and the row-tiled product at the
+   attention at bs=384, N=196, 512 wide (both tanh entries) and the
+   row-tiled product at the
    decode cell's two LSTM shapes and tile_rows 24, 48 and 96, at K = 4096
    (w streamed, not resident) and at a tile of 5 rows (wgmma n8), both in
    bf16 within one bf16 ulp; the Winograd output transform also equal to
@@ -71,9 +74,11 @@ into the git-ignored build directory), then:
    error at most 0.1 of the f32 features' rms);
 5. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of 5
-   runs after warm-up); v1 and v2 (query product + attention, printed
-   apart), the fused top-k (pass 1 + merge, printed apart, beside the bf16
-   ``torch.matmul`` of its product as a yardstick), the row-tiled product
+   runs after warm-up); v1, v2 and the int8 attention (query product +
+   attention, printed apart; the int8 one beside v1 on the same values,
+   both tanh entries), the fused top-k (pass 1 + merge, printed apart,
+   beside the bf16 ``torch.matmul`` of its product as a yardstick), the
+   row-tiled product
    and ``torch.matmul``, some 30-100 us a call, by
    the profiler's device time (the latter two from phase 3d), since events
    around back-to-back launches of that size also read the host's
@@ -99,6 +104,7 @@ not beside it. Details go to ``chiprun_out/chip_smoke.json``.
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -108,6 +114,12 @@ import time
 HBM_BYTES_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOP_S = 67e12           # f32 outside the tensor cores
 BF16_FLOP_S = 989e12         # bf16 tensor cores, dense
+# tanh.approx.f32 runs on the special-function units (MUFU), 16 a clock on
+# each SM of sm_90 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), at the H100 SXM's maximum boost clock of 1980 MHz (NVIDIA
+# data sheet; the card's own clocks.max.sm is printed beside it)
+SFU_OPS_CLK = 16
+SM_CLOCK_HZ = 1.98e9
 
 BS = 384
 VOCAB = 10_000
@@ -117,7 +129,7 @@ M = 10                       # sentiment words per request
 NUM_CATS = 3
 BANNED = (0, 1, 2)           # pad, unk, sos: the beam's static bans
 SOURCES = ["fused_attention", "winograd", "fused_topk", "maxpool",
-           "fused_attention_i8", "tiled_mm"]
+           "tiled_mm"]
 N_CONCEPTS = 2000            # the concept detector's outputs
 K_CONCEPTS = 5               # concepts per image
 ENC_BS = 32                  # the encode ladder's top bucket
@@ -135,7 +147,7 @@ DESIGNS = {"beam_content_attention": "redesigned",
            "wino_input": "redesigned", "wino_middle": "redesigned",
            "wino_output": "redesigned", "classifier_topk": "redesigned",
            "ceil_maxpool_3x3s2": "first design",
-           "beam_content_attention_i8": "first design",
+           "beam_content_attention_i8": "redesigned",
            "tiled_mm": "redesigned"}
 SWITCH_SETS = {"default": {}, "fused_topk": {"ISC_FUSED_TOPK": "1"},
                "v2": {"ISC_ATT_KERNEL": "v2"},
@@ -152,17 +164,30 @@ def _check(cond, msg):
         raise AssertionError(msg)
 
 
-def _smi():
+def _smi(fields="name,power.limit"):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", f"--query-gpu={fields}",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
 
 
-def _bound(nbytes, flops, rate):
-    mem, ops = nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3
-    return (mem, "bytes") if mem >= ops else (ops, "operations")
+def _bound(nbytes, flops, rate, tanh=0, sms=0):
+    """The least time in ms and what sets it: the bytes over the memory
+    rate ("bytes"), the flops over ``rate`` ("operations"), or ``tanh``
+    special-function operations over SFU_OPS_CLK a clock on each of
+    ``sms`` SMs at SM_CLOCK_HZ ("tanh"), whichever is the largest."""
+    terms = [(nbytes / HBM_BYTES_S * 1e3, "bytes"),
+             (flops / rate * 1e3, "operations")]
+    if tanh:
+        terms.append((tanh / (SFU_OPS_CLK * sms * SM_CLOCK_HZ) * 1e3, "tanh"))
+    return max(terms, key=lambda t: t[0])
+
+
+def _bound_by(term):
+    """The kernels line's word for a bound's term: a tanh is an operation,
+    over its type's peak rate."""
+    return "bytes" if term == "bytes" else "operations"
 
 
 @contextlib.contextmanager
@@ -321,6 +346,9 @@ def main():
     # -- 1. device and build ------------------------------------------------
     smi = _smi()
     print(f"device: {smi}")
+    print(f"SM clock, maximum (nvidia-smi clocks.max.sm): "
+          f"{_smi('clocks.max.sm')}; the tanh bounds take "
+          f"{SM_CLOCK_HZ / 1e6:.0f} MHz")
     t0 = time.time()
     _build.build(SOURCES)                  # one nvcc each, all together
     build_s = time.time() - t0
@@ -330,6 +358,25 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     report["build_s"] = build_s
+    # the int8 attention's instances by beam and tanh; where this run built
+    # the source, the B = 3 ones must spill nothing
+    i8_ptxas = {}
+    for entry, r in _build.ptxas_report(
+            _build.build_logs.get("fused_attention", "")).items():
+        m = re.search(r"beam_att_i8_kernelILi(\d+)ELb([01])E", entry)
+        if m:
+            i8_ptxas[f"B={m.group(1)} " + ("factored exp" if m.group(2)
+                                           == "1" else "tanhf")] = r
+    for name, r in sorted(i8_ptxas.items()):
+        print(f"  ptxas beam_att_i8_kernel {name}: {r.get('registers')} "
+              f"registers, spill stores {r.get('spill_stores')} bytes, "
+              f"loads {r.get('spill_loads')} bytes")
+    if "fused_attention" in _build.build_logs:
+        b3 = [r for name, r in i8_ptxas.items() if name.startswith("B=3 ")]
+        _check(len(b3) == 2 and all(
+            r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+            for r in b3), f"int8 attention at B=3 spills: {i8_ptxas}")
+    report["ptxas_attention_i8"] = i8_ptxas
 
     settings = Settings()
     ids = cap.TokenIds(pad=0, unk=1, sos=2, eos=3, neutral=2)
@@ -619,6 +666,18 @@ def main():
     print(f"check attention_i8 bs={BS} N={N} {Fe} wide: max_abs_err={err:.3g}"
           f" ({ulps:.2f} bf16 ulp) {'ok' if ok else 'FAIL'}")
     _check(ok, "int8 attention kernel disagrees with its plain version")
+    # the tanhf entry, held to the same check
+    got = fa8.beam_content_attention_i8(*i8_in, B=BEAM, exact_tanh=True)
+    torch.cuda.synchronize()
+    err, ulps = bf16_ulp_error(
+        got, fa8.beam_content_attention_i8_plain(*i8_in, B=BEAM))
+    ok = ulps <= 1
+    checks["attention_i8_tanhf"] = err
+    print(f"check attention_i8 with tanhf bs={BS} N={N} {Fe} wide: "
+          f"max_abs_err={err:.3g} ({ulps:.2f} bf16 ulp) "
+          f"{'ok' if ok else 'FAIL'}")
+    _check(ok, "int8 attention kernel with tanhf disagrees with its plain "
+           "version")
 
     # the row-tiled product at the decode cell's LSTM shapes, every tile
     mm_in = {}
@@ -894,8 +953,11 @@ def main():
     tmm.tiled_mm.launches = 0
     mega = btm.measure(dev, iters=16, reps=3)
     launches_d["tiled_mm"] = tmm.tiled_mm.launches
-    print(f"studies: int8 attention {study_t['int8_ms']:.4f} ms against the "
-          f"bf16 v1 kernel {study_t['bf16_ms']:.4f} ms, context error "
+    i8_t, v1_t = (study_t["int8_device_ms"]["total"],
+                  study_t["bf16_device_ms"]["total"])
+    print(f"studies: int8 attention device {i8_t:.4f} ms (events "
+          f"{study_t['int8_ms']:.4f}) against the bf16 v1 kernel's "
+          f"{v1_t:.4f} ms (events {study_t['bf16_ms']:.4f}), context error "
           + ", ".join(f"{k} mean {v['mean']:.5f} max {v['max']:.4f}"
                       for k, v in study_err.items())
           + "; decode cell: " + "; ".join(
@@ -1071,13 +1133,15 @@ def main():
                    + rows * Fe)
     a_flops = 2 * rows * H * Ah + 3 * rows * N * Ah + 5 * rows * N \
         + 2 * rows * N * Fe
-    a_bound, a_by = _bound(a_bytes, a_flops, F32_FLOP_S)
+    a_tanh = rows * N * Ah           # one tanh a (beam, position, channel)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    a_bound, a_by = _bound(a_bytes, a_flops, F32_FLOP_S, a_tanh, sms)
     h32, p32, att32, patt32 = att_in[torch.float32]
     a32_dev = device_ms_by_name(lambda: fa.beam_content_attention(
         h32, p32, att32, patt32, B=BEAM), v1_parts)
     a32_ms = cuda_ms(lambda: fa.beam_content_attention(
         h32, p32, att32, patt32, B=BEAM))
-    a32_bound, _ = _bound(2 * a_bytes, a_flops, F32_FLOP_S)
+    a32_bound, _ = _bound(2 * a_bytes, a_flops, F32_FLOP_S, a_tanh, sms)
     report["attention_f32"] = {"device_ms": a32_dev, "ms_events": a32_ms,
                                "bound_ms": a32_bound}
     # the narrowest and the widest beam on the same att/p_att
@@ -1104,7 +1168,8 @@ def main():
         "ms": a_dev["total"], "ms_events": a_ms,
         "query_ms": a_dev["query_"], "attention_ms": a_dev["beam_att_kernel"],
         "plain_ms": a_plain, "bound_ms": a_bound,
-        "bound_by": a_by, "library_ms": None, "passed": True})
+        "bound_by": _bound_by(a_by), "bound_term": a_by, "library_ms": None,
+        "passed": True})
     # v2: the same function up to the weights' rounding, on v1's kernels
     # (kRoundW), the same bound
     v2_ms = cuda_ms(lambda: fa.beam_content_attention(
@@ -1128,7 +1193,8 @@ def main():
         "query_ms": v2_dev["query_"],
         "attention_ms": v2_dev["beam_att_kernel"],
         "plain_ms": v2_plain, "bound_ms": a_bound,
-        "bound_by": a_by, "library_ms": None, "passed": True})
+        "bound_by": _bound_by(a_by), "bound_term": a_by, "library_ms": None,
+        "passed": True})
     # the fused top-k: 2 rows H V flops on the tensor cores (bf16), the
     # operands read once, [rows, k] values and ids written once. Two
     # launches of some 0.03-0.1 ms together: the line carries the
@@ -1322,26 +1388,46 @@ def main():
 
     # the int8-storage attention: int8 att/p_att and their f32 scales read
     # once, h and W read and the bf16 output written once; v1's operations
-    # plus one multiply a dequantised value. No one PyTorch call computes
-    # it: the bf16 v1 kernel on the same values is its reference
+    # plus one multiply a dequantised value, and v1's tanh. Two launches of
+    # some 0.05 ms together: the line carries the profiler's device time,
+    # the query product and the attention apart, CUDA events beside it. No
+    # one PyTorch call computes it: the bf16 v1 kernel on the same values,
+    # timed the same way, is its reference
+    i8_parts = bti.I8_PARTS
+    i8_dev = device_ms_by_name(lambda: fa8.beam_content_attention_i8(
+        *i8_in, B=BEAM), i8_parts)
     i8_ms = cuda_ms(lambda: fa8.beam_content_attention_i8(*i8_in, B=BEAM))
+    i8_tanhf = device_ms_by_name(lambda: fa8.beam_content_attention_i8(
+        *i8_in, B=BEAM, exact_tanh=True), i8_parts)
     i8_plain = cuda_ms(lambda: fa8.beam_content_attention_i8_plain(
         *i8_in, B=BEAM), iters=5)
     att16_i8, p_att16_i8 = att_f.bfloat16(), p_att_f.bfloat16()
-    i8_ref = cuda_ms(lambda: fa.beam_content_attention(
+    i8_ref = device_ms_by_name(lambda: fa.beam_content_attention(
+        h16, p_cont16, att16_i8, p_att16_i8, B=BEAM), v1_parts)
+    i8_ref_ms = cuda_ms(lambda: fa.beam_content_attention(
         h16, p_cont16, att16_i8, p_att16_i8, B=BEAM))
     i8_bytes = BS * N * (Ah + Fe) + 4 * BS * (Ah + Fe) \
         + 2 * (rows * H + Ah * H + 2 * Ah + rows * Fe)
     i8_bound, i8_by = _bound(i8_bytes, a_flops + BS * N * (Ah + Fe),
-                             F32_FLOP_S)
+                             F32_FLOP_S, a_tanh, sms)
+    i8_bytes_ms = i8_bytes / HBM_BYTES_S * 1e3
+    report["attention_i8"] = {
+        "device_ms": i8_dev, "ms_events": i8_ms, "device_ms_tanhf": i8_tanhf,
+        "reference_device_ms": i8_ref, "reference_ms_events": i8_ref_ms,
+        "bound_ms": i8_bound, "bound_term": i8_by,
+        "bytes_bound_ms": i8_bytes_ms}
     kernels.append({
         "name": "beam_content_attention_i8", "route": "cuda",
-        "source": "insenticap_model_tpu_torch/csrc/fused_attention_i8.cu",
+        "source": "insenticap_model_tpu_torch/csrc/fused_attention.cu",
         "replaces": "tools/bench_int8.py:283",
         "launches": launches_d["beam_content_attention_i8"],
-        "max_abs_err": checks["attention_i8"], "ms": i8_ms,
-        "plain_ms": i8_plain, "bound_ms": i8_bound, "bound_by": i8_by,
-        "library_ms": None, "reference_ms": i8_ref, "passed": True})
+        "max_abs_err": checks["attention_i8"], "ms": i8_dev["total"],
+        "ms_events": i8_ms, "query_ms": i8_dev["query_"],
+        "attention_ms": i8_dev["beam_att_i8_kernel"],
+        "plain_ms": i8_plain, "bound_ms": i8_bound,
+        "bound_by": _bound_by(i8_by), "bound_term": i8_by,
+        "library_ms": None, "reference_ms": i8_ref["total"],
+        "reference_ms_events": i8_ref_ms, "passed": True})
     del att16_i8, p_att16_i8
 
     # the row-tiled product at both LSTM shapes and every tile, timed in
@@ -1495,9 +1581,17 @@ def main():
             + f"; torch.matmul {r['matmul_device_ms']:.4f} "
             f"({r['matmul_ms']:.4f}); plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-    print(f"attention_i8 bf16 bs={BS}: {i8_ms:.4f} ms, v1 bf16 kernel on the "
-          f"same values {i8_ref:.4f} ms, plain {i8_plain:.4f} ms, bound "
-          f"{i8_bound:.4f} ms ({i8_by})")
+    print(f"attention_i8 bf16 bs={BS} B={BEAM}, device ms: query "
+          f"{i8_dev['query_']:.4f} + attention "
+          f"{i8_dev['beam_att_i8_kernel']:.4f} = {i8_dev['total']:.4f} "
+          f"(events {i8_ms:.4f}; with tanhf "
+          f"{i8_tanhf['beam_att_i8_kernel']:.4f}, total "
+          f"{i8_tanhf['total']:.4f}); v1 bf16 kernel on the same values "
+          f"{i8_ref['query_']:.4f} + {i8_ref['beam_att_kernel']:.4f} = "
+          f"{i8_ref['total']:.4f} (events {i8_ref_ms:.4f}); plain "
+          f"{i8_plain:.4f} ms; bound {i8_bound:.4f} ms ({i8_by}; bytes "
+          f"{i8_bytes_ms:.4f}, tanh at {SFU_OPS_CLK} a clock on {sms} SMs "
+          f"at {SM_CLOCK_HZ / 1e6:.0f} MHz)")
     for tag, r in enc_times.items():
         print(f"encoder forward_raw_batch {tag} bs={ENC_BS} 448x448: "
               f"{r['ms']:.2f} ms median of 5 -> {r['images_per_s']:.1f} "

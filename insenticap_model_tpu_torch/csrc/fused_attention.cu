@@ -1,9 +1,10 @@
-// Beam-shared additive content attention (v1 and v2) for beam decode on
-// Hopper.
+// Beam-shared additive content attention (v1, v2 and over int8 storage)
+// for beam decode on Hopper.
 //
 // Replaces the Pallas kernels insenticap_model_tpu/ops/fused_attention.py:27
-// `_kernel` (v1) and :51 `_kernel_v2` (v2). For every image of the batch and
-// each of its B beams:
+// `_kernel` (v1) and :51 `_kernel_v2` (v2), and the int8 study's
+// tools/bench_int8.py:283 `_kernel_i8` (its pallas_call at :309). For every
+// image of the batch and each of its B beams:
 //
 //   q[k]    = h[img*B + k] @ W_h2att^T + b_h2att            (f32 accumulate)
 //   e[k, n] = sum_j alpha[j] * tanh(p_att[n, j] + q[k, j])  (alpha's bias
@@ -13,58 +14,82 @@
 //
 // v2 is the same function but for one rounding: each softmax weight is
 // rounded to att's dtype before the weighted sum (kRoundW; in f32 nothing
-// changes, so isc_beam_att_v2_f32 runs v1's instance).
+// changes, so isc_beam_att_v2_f32 runs v1's instance). The int8 variant
+// stores att and p_att as int8 with one f32 scale per (image, channel),
+// p_att[n, j] = p_att_q[n, j] * p_att_s[j] and att[n, f] = att_q[n, f] *
+// att_s[f]; h, W, the bias and alpha are bf16 and so is the output.
 //
 // What bounds it on the H100, at serving width (bs=384, N=196, Ah=Fe=512,
 // B=3, bf16): att + p_att are 384*196*1024*2 B = 154 MB, read once for all
 // B beams: 46.9 us at 3.35 TB/s. Beside the bytes there are 115.6 M tanh:
 // with tanhf (about two special-function (MUFU) operations each) some
-// 55-60 us, with tanh.approx.f32 (one MUFU op, 16 a clock an SM) about
-// 30 us. The products are small beside that: the query product is
-// [1152,512]x[512,512], the weighted sum 115.6 M FMAs.
+// 55-60 us, with tanh.approx.f32 (one MUFU op, 16 a clock an SM) 27.6 us
+// at 1.98 GHz. The products are small beside that: the query product is
+// [1152,512]x[512,512], the weighted sum 115.6 M FMAs. In int8 the bytes
+// halve, 81.5 MB with the scales: 24.3 us, so there the tanh bound the
+// kernel (27.6 us against 24.3 at one MUFU operation a tanh), not the
+// bytes.
 //
 // The design is two launches on one stream:
 //  1. query_*_kernel computes Q = h @ W^T + b for all bs*B rows into an f32
-//     scratch [bs*B, Ah] (allocated by the wrapper): for bf16 64 x 64 block
-//     tiles on the tensor cores (mma.sync m16n8k16, f32 accumulate; h and W
-//     staged through shared memory by 16-byte cp.async, 4 stages of K 32),
-//     for f32 32 x 64 tiles on FFMA (no TF32: it would change the
-//     function). W crosses L2 once a 64-row block (18 times at bs=384), not
-//     once an image (384 times). At bs=384 it takes some 10 us for 0.6
-//     GFLOP, about as long at a third of the rows: likely the memory
-//     latency of 16 K stages, three in flight (the attention's 154 MB
-//     stream passes through L2 between calls, so W is likely not there).
-//  2. beam_att_kernel<T, B, kFast, kRoundW>, one 256-thread block an image,
-//     one instance per beam size 1..8 so that the per-beam sums stay in
-//     registers. The image's p_att rows, then its att rows, stream through
-//     a 3-stage cp.async ring of 16-byte copies, 16 positions a stage for
-//     bf16 (8 for f32), 16 KB a stage at 512 wide; the first att stages are
-//     started before the softmax runs. Logits: a lane owns 8 channels (one
-//     16-byte segment for bf16, two for f32) for the whole image, with their
-//     B query values and alpha in registers; a warp takes one position at
-//     a time and reduces the B partial logits with shuffles (a position
-//     spans ceil(Ah/256) warps, their partials summed in the softmax).
-//     Softmax: one warp per beam, f32. Weighted sum: a thread owns 8
-//     features and a slice of the positions, with B x 8 f32 accumulators;
-//     the slices are summed through shared memory (the ring's space) at the
-//     end and the output is written with 16-byte stores.
+//     scratch [bs*B, Ah] (allocated by the wrapper): for bf16 (v1, v2 and
+//     int8) 64 x 64 block tiles on the tensor cores (mma.sync m16n8k16, f32
+//     accumulate; h and W staged through shared memory by 16-byte cp.async,
+//     4 stages of K 32), for f32 32 x 64 tiles on FFMA (no TF32: it would
+//     change the function). W crosses L2 once a 64-row block (18 times at
+//     bs=384), not once an image (384 times). At bs=384 it takes some 10 us
+//     for 0.6 GFLOP, about as long at a third of the rows: likely the memory
+//     latency of 16 K stages, three in flight (the attention's stream
+//     passes through L2 between calls, so W is likely not there).
+//  2. beam_att_kernel<T, B, kFast, kRoundW> and beam_att_i8_kernel<B,
+//     kFast>, one 256-thread block an image, one instance per beam size
+//     1..8 so that the per-beam sums stay in registers. The image's p_att
+//     rows, then its att rows, stream through a 3-stage cp.async ring
+//     (Ring) of 16-byte copies, 16 KB a stage at 512 wide: 16 positions for
+//     bf16, 8 for f32, 32 for int8; the first att stages are started before
+//     the softmax runs. Logits: a lane owns 8 channels (one 16-byte segment
+//     for bf16, two for f32, 8 bytes of the stage for int8) for the whole
+//     image, with their B query values and alpha (and for int8 the p_att
+//     scales) in registers; a warp takes one position at a time and reduces
+//     the B partial logits with shuffles (a position spans ceil(Ah/256)
+//     warps, their partials summed in the softmax). Softmax (softmax_beams):
+//     one warp per beam, f32. Weighted sum: a thread owns 8 features and a
+//     slice of the positions, with B x 8 f32 accumulators; the slices are
+//     summed through shared memory (the ring's space) at the end
+//     (gather_slices) and the output is written with 16-byte stores; the
+//     int8 variant applies att's scale once a feature after the sum,
+//     out = s_f * sum_n w * att_q (another f32 order of the same sum).
 //  tanh: the f32 instance keeps tanhf; the bf16 instance takes
 //  tanh.approx.f32 (isc_beam_att_bf16) or tanhf (isc_beam_att_bf16_tanhf,
 //  kept to measure the approximation's error); v2 in bf16
-//  (isc_beam_att_v2_bf16) takes tanh.approx.f32 as v1 does.
+//  (isc_beam_att_v2_bf16) takes tanh.approx.f32 as v1 does. The int8
+//  instance takes 1 - 2 / (1 + e^2p e^2q) with e^2p shared by the beams
+//  (isc_beam_att_i8_bf16, see beam_att_i8_kernel) or tanhf
+//  (isc_beam_att_i8_bf16_tanhf): tanh.approx.f32 misses the int8 kernel's
+//  check of one bf16 ulp.
 //
-// What this does about the first version's four faults: (1) every block
-// recomputed the query product, reading all of W (512 KB) with 2-byte loads,
-// 201 MB of L2 reads a call: now one tiled product; (2) the logits pass read
-// p_att 2 bytes a lane with nothing else in flight: now 16-byte copies, two
-// stages ahead; (3) the weighted sum walked the positions serially, one
-// 2-byte load a step: now 16-byte reads from shared memory, 8 features x B
-// beams of FMAs each, 4 position slices in parallel; (4) the dynamic
-// shared-memory limit was set on every launch: now once an instance.
+// What this does about the first versions' faults (v1's first port and the
+// int8 kernel's, which had the same ones): (1) every block recomputed
+// the query product, reading all of W (512 KB), 201 MB of L2 reads a call:
+// now one tiled product; (2) the logits pass read p_att with nothing else
+// in flight: now 16-byte copies, two stages ahead; (3) the weighted sum
+// walked the positions serially with no copy ahead (int8: B x 16
+// accumulators a thread, spilling at large B): now the ring, B x 8
+// accumulators, 4 position slices in parallel; (4) the dynamic
+// shared-memory limit was set on every launch: now once an instance. And
+// for int8: (5) tanhf took two MUFU operations a tanh, 2B a value: the
+// default entry takes 1 + B (e^2p once for the B beams, one reciprocal a
+// beam), as accurate; (6) every int8 value went through the int-to-float
+// convert, 77 M a call at 16 a clock an SM, the MUFU's rate, competing
+// with the tanh for it: now a byte permute (prmt) builds a float of
+// exponent 2^23 from the byte offset by 128, and one FADD takes 2^23 + 128
+// away, exactly, on the integer and FMA pipes (Seg<int8_t>::load).
 //
-// Widths: Ah and Fe % 8 (bf16) or % 4 (f32), both at most 2048; H % 16
-// (bf16) or % 4 (f32); 16-byte aligned operands; any N and bs. The wrapper
-// (ops/fused_attention.py) checks them and raises otherwise.
+// Widths: Ah and Fe % 8 (bf16), % 4 (f32) or % 16 (int8), all at most
+// 2048; H % 16 (bf16), % 4 (f32) or % 8 (int8, whose query product stages
+// H in zero-filled 8-element segments); 16-byte aligned operands; any N
+// and bs. The wrappers (ops/fused_attention.py, ops/fused_attention_i8.py)
+// check them and raise otherwise.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -81,6 +106,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 3;       // cp.async ring
 constexpr int kLaneCh = 8;       // channels (features) a lane owns
 constexpr int kMaxWidth = kThreads * kLaneCh;   // Ah, Fe <= 2048
+
+// the instances a launch picks from, one a beam size 1..kMaxBeam
+#define ISC_BEAM_CASES(CASE) \
+  CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 
 // query kernels: bf16 64 rows x 64 outputs a block (8 warps, 2 x 4, of
 // 32 x 16), K 32 a stage, 4 stages; f32 32 rows x 64 outputs (256 threads
@@ -123,6 +152,19 @@ __device__ __forceinline__ float tanh_(float x) {
   }
 }
 
+// ex2.approx (2^x, about 2 ulp) and rcp.approx (1 / x, 1 ulp), one
+// special-function (MUFU) operation each; rcp(inf) = 0
+__device__ __forceinline__ float ex2_(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp_(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -151,7 +193,8 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 16 bytes of a row as f32, and back: 8 bf16 or 4 f32 (kVec elements)
+// A segment of a row as f32, and back: 8 bf16 or 4 f32 (16 bytes), or
+// 8 int8 (8 bytes: a lane's channels; kVec elements)
 template <typename T> struct Seg;
 template <> struct Seg<bf16> {
   static constexpr int kVec = 8;
@@ -189,17 +232,38 @@ template <> struct Seg<float> {
     *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
   }
 };
+template <> struct Seg<int8_t> {
+  static constexpr int kVec = 8;
+  static constexpr int kChunk = 32;
+  // Without the int-to-float convert (16 a clock an SM, the MUFU's rate):
+  // byte b ^ 0x80 = b + 128 in [0, 255] becomes the low mantissa byte of
+  // 0x4b0000xx = 2^23 + b + 128 (prmt), and one FADD of -(2^23 + 128)
+  // leaves b, exactly. The offset is not folded into a later scale
+  // multiply: fma(f, s, -(2^23 + 128) s) would cancel catastrophically.
+  __device__ __forceinline__ static void load(const int8_t* p, float* out) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const uint32_t w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      uint32_t f;
+      asm("prmt.b32 %0, %1, %2, %3;"
+          : "=r"(f)
+          : "r"(w[i / 4]), "r"(0x4b000000u), "r"(0x7440u | (i % 4)));
+      out[i] = __uint_as_float(f) - 8388736.f;
+    }
+  }
+};
 
-// A lane's 8 channels of a row of width W: kLaneCh / kVec segments of 16
-// bytes, at segment indices u + s * units(W), so that neighbouring lanes
-// read neighbouring 16 bytes (no bank conflicts) for f32 as for bf16
+// A lane's 8 channels of a row of width W: kLaneCh / kVec segments, at
+// segment indices u + s * units(W), so that neighbouring lanes read
+// neighbouring segments (no bank conflicts) for f32 as for bf16 and int8
 template <typename T>
 __host__ __device__ __forceinline__ int units(int W) {
   constexpr int kSeg = kLaneCh / Seg<T>::kVec;
   return (W / Seg<T>::kVec + kSeg - 1) / kSeg;
 }
 
-// Shared memory of the attention kernel: the ring (reused for the slices'
+// Shared memory of an attention kernel: the ring (reused for the slices'
 // partial sums at the end), then the per-warp-group partial logits
 // [G][B][N] and the softmax weights [B][N], all f32
 struct Layout {
@@ -224,6 +288,110 @@ __host__ __device__ __forceinline__ Layout layout(int B, int Ah, int N,
   return l;
 }
 
+// The image's two row streams through the kStages-stage cp.async ring:
+// tile i < nC holds positions [i*CH, ..) of `first` (rows of W1 elements,
+// p_att), tile nC + c the same positions of `second` (W2, att). Every
+// thread issues its share of a tile's 16-byte copies.
+template <typename T>
+struct Ring {
+  static constexpr int CH = Seg<T>::kChunk;
+  const T* first;
+  const T* second;
+  int W1, W2, N, nC;
+  size_t stage;
+  unsigned char* smem;
+
+  __device__ __forceinline__ void copy(int i, int tid) const {
+    constexpr int V = 16 / sizeof(T);   // elements a copy
+    if (i < 2 * nC) {
+      const bool is1 = i < nC;
+      const int c = is1 ? i : i - nC, W = is1 ? W1 : W2;
+      const int rows = min(CH, N - c * CH);
+      const T* src = (is1 ? first : second) + (size_t)c * CH * W;
+      unsigned char* dst = smem + (i % kStages) * stage;
+      const int pieces = rows * W / V;
+      for (int x = tid; x < pieces; x += kThreads)
+        cp_async16(dst + 16 * x, src + (size_t)x * V);
+    }
+    cp_async_commit();   // an empty group past the end keeps the count
+  }
+  __device__ __forceinline__ void start(int tid) const {
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) copy(i, tid);
+  }
+  // tile i, landed for every thread; the copy kStages - 1 tiles on starts
+  __device__ __forceinline__ const T* arrive(int i, int tid) const {
+    copy(i + kStages - 1, tid);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    return reinterpret_cast<const T*>(smem + (i % kStages) * stage);
+  }
+};
+
+// v2's rounding: a softmax weight rounded to att's dtype (nothing in f32)
+template <typename T, bool kRoundW>
+__device__ __forceinline__ float round_w(float x) {
+  if constexpr (kRoundW && sizeof(T) == 2) {
+    return __bfloat162float(__float2bfloat16(x));
+  } else {
+    return x;
+  }
+}
+
+// softmax over n, one warp per beam: the logits, summed over the G warp
+// groups' partials part [G][B][N], become the weights wts [B][N]
+template <typename T, bool kRoundW>
+__device__ __forceinline__ void softmax_beams(const float* part, float* wts,
+                                              int G, int B, int N, int warp,
+                                              int lane) {
+  if (warp >= B) return;
+  float* e = wts + (size_t)warp * N;
+  float m = -INFINITY;
+  for (int n = lane; n < N; n += 32) {
+    float x = 0.f;
+    for (int g = 0; g < G; ++g) x += part[((size_t)g * B + warp) * N + n];
+    e[n] = x;
+    m = fmaxf(m, x);
+  }
+  m = warp_max(m);
+  float sum = 0.f;
+  for (int n = lane; n < N; n += 32) {
+    const float x = expf(e[n] - m);
+    e[n] = x;
+    sum += x;
+  }
+  sum = warp_sum(sum);
+  for (int n = lane; n < N; n += 32) e[n] = round_w<T, kRoundW>(e[n] / sum);
+}
+
+// The weighted sum's position slices meet through shared memory (the
+// ring's space, idle once every copy has landed), [Q-1][B][8][Uf]; slice 0
+// adds them to its own in order
+template <int B>
+__device__ __forceinline__ void gather_slices(float (&acc)[B][kLaneCh],
+                                              unsigned char* smem, int sl,
+                                              int Q, int Uf, int fb) {
+  cp_async_wait<0>();
+  float* red = reinterpret_cast<float*>(smem);
+  if (sl >= 1 && sl < Q) {
+#pragma unroll
+    for (int k = 0; k < B; ++k)
+#pragma unroll
+      for (int j = 0; j < kLaneCh; ++j)
+        red[(((size_t)(sl - 1) * B + k) * kLaneCh + j) * Uf + fb] = acc[k][j];
+  }
+  __syncthreads();
+  if (sl == 0) {
+    for (int o = 0; o < Q - 1; ++o) {
+#pragma unroll
+      for (int k = 0; k < B; ++k)
+#pragma unroll
+        for (int j = 0; j < kLaneCh; ++j)
+          acc[k][j] += red[(((size_t)o * B + k) * kLaneCh + j) * Uf + fb];
+    }
+  }
+}
+
 // -- 1. the query product -------------------------------------------------
 
 // A fragment of m16n8k16 from a row-major [16][stride] bf16 tile
@@ -237,7 +405,8 @@ __device__ __forceinline__ void load_a(const bf16* a, int stride, int k0,
 }
 
 // q[r][j] = bias[j] + sum_i h[r][i] W[j][i]; W [Ah, H] row-major is the
-// col-major B operand as it lies. Needs H % 16 == 0.
+// col-major B operand as it lies. Needs H % 8 == 0: K is staged in 8-element
+// segments, those past H filled with zeros.
 __global__ void __launch_bounds__(kQThreads16)
 query_bf16_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
                   const bf16* __restrict__ bias, float* __restrict__ q, int R,
@@ -406,16 +575,6 @@ query_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
 
 // -- 2. the attention over one image --------------------------------------
 
-// v2's rounding: a softmax weight rounded to att's dtype (nothing in f32)
-template <typename T, bool kRoundW>
-__device__ __forceinline__ float round_w(float x) {
-  if constexpr (kRoundW && sizeof(T) == 2) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
-  }
-}
-
 template <typename T, int B, bool kFast, bool kRoundW>
 __global__ void __launch_bounds__(kThreads, B <= 4 ? 3 : 2)
 beam_att_kernel(const float* __restrict__ q, const T* __restrict__ alpha,
@@ -435,30 +594,9 @@ beam_att_kernel(const float* __restrict__ q, const T* __restrict__ alpha,
   const int Sf = Fe / V, Uf = units<T>(Fe);
   const int G = L.G, P = kWarps / G, Q = L.Q;
   const int nC = (N + CH - 1) / CH;
-  const T* pa = p_att + (size_t)img * N * Ah;
-  const T* at = att + (size_t)img * N * Fe;
-
-  // tile i < nC: p_att positions [i*CH, ..); then att's, the same chunks
-  auto copy_tile = [&](int i) {
-    if (i < 2 * nC) {
-      const bool is_p = i < nC;
-      const int c = is_p ? i : i - nC, W = is_p ? Ah : Fe;
-      const int rows = min(CH, N - c * CH);
-      const T* src = (is_p ? pa : at) + (size_t)c * CH * W;
-      unsigned char* dst = smem + (i % kStages) * L.stage;
-      const int pieces = rows * W / V;
-      for (int x = tid; x < pieces; x += kThreads)
-        cp_async16(dst + 16 * x, src + (size_t)x * V);
-    }
-    cp_async_commit();   // an empty group past the end keeps the count
-  };
-  auto arrive = [&](int i) {   // tile i landed for every thread
-    copy_tile(i + kStages - 1);
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-  };
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) copy_tile(i);
+  const Ring<T> ring{p_att + (size_t)img * N * Ah, att + (size_t)img * N * Fe,
+                     Ah, Fe, N, nC, L.stage, smem};
+  ring.start(tid);
 
   // logits: warp = (group grp of 32 lanes along the channels, position
   // lane pl); lane's 8 channels: unit u, with its B queries and alpha
@@ -494,8 +632,7 @@ beam_att_kernel(const float* __restrict__ q, const T* __restrict__ alpha,
   }
 
   for (int i = 0; i < nC; ++i) {
-    arrive(i);
-    const T* st = reinterpret_cast<const T*>(smem + (i % kStages) * L.stage);
+    const T* st = ring.arrive(i, tid);
     const int rows = min(CH, N - i * CH);
     if (pl < P) {
       for (int r = pl; r < rows; r += P) {
@@ -527,27 +664,8 @@ beam_att_kernel(const float* __restrict__ q, const T* __restrict__ alpha,
     __syncthreads();   // the stage is free for the copy started next
   }
 
-  // softmax over n, one warp per beam; the att copies are in flight
-  if (warp < B) {
-    float* e = wts + (size_t)warp * N;
-    float m = -INFINITY;
-    for (int n = lane; n < N; n += 32) {
-      float x = 0.f;
-      for (int g = 0; g < G; ++g) x += part[((size_t)g * B + warp) * N + n];
-      e[n] = x;
-      m = fmaxf(m, x);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      const float x = expf(e[n] - m);
-      e[n] = x;
-      sum += x;
-    }
-    sum = warp_sum(sum);
-    for (int n = lane; n < N; n += 32)
-      e[n] = round_w<T, kRoundW>(e[n] / sum);
-  }
+  // softmax over n; the att copies are in flight
+  softmax_beams<T, kRoundW>(part, wts, G, B, N, warp, lane);
   __syncthreads();
 
   // weighted sum: thread = (feature unit fb, position slice sl)
@@ -558,9 +676,8 @@ beam_att_kernel(const float* __restrict__ q, const T* __restrict__ alpha,
 #pragma unroll
     for (int j = 0; j < kLaneCh; ++j) acc[k][j] = 0.f;
   for (int i = nC; i < 2 * nC; ++i) {
-    arrive(i);
+    const T* st = ring.arrive(i, tid);
     const int c = i - nC;
-    const T* st = reinterpret_cast<const T*>(smem + (i % kStages) * L.stage);
     const int rows = min(CH, N - c * CH);
     if (sl < Q) {
       for (int r = sl; r < rows; r += Q) {
@@ -586,26 +703,8 @@ beam_att_kernel(const float* __restrict__ q, const T* __restrict__ alpha,
     __syncthreads();
   }
 
-  // the slices' sums through shared memory (the ring's space, now idle),
-  // [Q-1][B][8][Uf], then slice 0 adds them in order and stores
-  cp_async_wait<0>();
-  float* red = reinterpret_cast<float*>(smem);
-  if (sl >= 1 && sl < Q) {
-#pragma unroll
-    for (int k = 0; k < B; ++k)
-#pragma unroll
-      for (int j = 0; j < kLaneCh; ++j)
-        red[(((size_t)(sl - 1) * B + k) * kLaneCh + j) * Uf + fb] = acc[k][j];
-  }
-  __syncthreads();
+  gather_slices<B>(acc, smem, sl, Q, Uf, fb);
   if (sl == 0) {
-    for (int o = 0; o < Q - 1; ++o) {
-#pragma unroll
-      for (int k = 0; k < B; ++k)
-#pragma unroll
-        for (int j = 0; j < kLaneCh; ++j)
-          acc[k][j] += red[(((size_t)o * B + k) * kLaneCh + j) * Uf + fb];
-    }
 #pragma unroll
     for (int k = 0; k < B; ++k) {
       T* orow = out + ((size_t)img * B + k) * Fe;
@@ -618,24 +717,231 @@ beam_att_kernel(const float* __restrict__ q, const T* __restrict__ alpha,
   }
 }
 
+// The same over int8 storage: p_att and att stream through the ring at one
+// byte a value (32 positions a 16 KB stage at 512 wide), a lane's 8
+// channels as one 8-byte read of the stage, converted by Seg<int8_t>. The
+// lane keeps its channels' B queries, alpha and p_att scales in registers
+// (at B = 8 the queries alone are 64), so p = p_att_q * p_att_s costs one
+// multiply a value; att's scale is applied once a feature after the sum.
+//
+// tanh: kFast false takes tanhf (two MUFU operations and a dozen others a
+// tanh). kFast true takes tanh(p + q) = 1 - 2 r, r = 1 / (1 + e^2p e^2q):
+// e^2q is a lane's B x 8 registers, made once an image, e^2p one ex2 a
+// value for all B beams, then one FMA, one rcp and one FMA a beam, with the
+// logit summed as A - 2 sum_j alpha_j r_j (A: the lane's sum of alpha).
+// That is 1 + B MUFU operations a value against tanhf's 2B, within f32
+// rounding of tanh: tanh.approx.f32 (B operations) errs by up to 2^-11
+// relative, which summed over 512 channels moved the output by up to 9 bf16
+// ulps on the card tests. e^2p e^2q stays finite and nonzero where |2p
+// log2 e| and |2q log2 e| are at most 62; a block whose image's scales or
+// queries may pass that (|p| or |q| above 21.5) takes r = 1 / (1 + 2^(2 (p
+// + q) log2 e)) a beam instead, two MUFU operations, exact at any
+// magnitude (2^x overflows to inf and r to 0, or underflows and r is 1).
+template <int B, bool kFast>
+__global__ void __launch_bounds__(kThreads, B <= 4 ? 3 : 2)
+beam_att_i8_kernel(const float* __restrict__ q, const bf16* __restrict__ alpha,
+                   const int8_t* __restrict__ p_att_q,
+                   const float* __restrict__ p_att_s,
+                   const int8_t* __restrict__ att_q,
+                   const float* __restrict__ att_s, bf16* __restrict__ out,
+                   int Ah, int N, int Fe) {
+  constexpr int CH = Seg<int8_t>::kChunk;
+  constexpr float kTwoLog2e = 2.885390081777927f;   // e^2x = 2^(x kTwoLog2e)
+  constexpr float kMaxArg = 62.f;                   // 2^±62 products: normal
+  static_assert(Seg<int8_t>::kVec == kLaneCh, "a lane's channels: one read");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = layout<int8_t>(B, Ah, N, Fe);
+  float* part = reinterpret_cast<float*>(smem + L.region0);   // [G][B][N]
+  float* wts = part + L.part;                                  // [B][N]
+
+  const int img = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Ua = units<int8_t>(Ah), Uf = units<int8_t>(Fe);
+  const int G = L.G, P = kWarps / G, Q = L.Q;
+  const int nC = (N + CH - 1) / CH;
+  const Ring<int8_t> ring{p_att_q + (size_t)img * N * Ah,
+                          att_q + (size_t)img * N * Fe, Ah, Fe, N, nC,
+                          L.stage, smem};
+  ring.start(tid);
+
+  // logits: warp = (group grp of 32 lanes along the channels, position
+  // lane pl); lane's 8 channels u*8 .. u*8+7 with their B queries, alpha
+  // and p_att scales (read once, element by element)
+  const int grp = warp % G, pl = warp / G;
+  const int u = grp * 32 + lane;
+  const bool own = u < Ua;
+  float qr[B][kLaneCh], ar[kLaneCh], sr[kLaneCh];
+  float A = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLaneCh; ++j) {
+    ar[j] = own ? __bfloat162float(alpha[u * kLaneCh + j]) : 0.f;
+    sr[j] = own ? p_att_s[(size_t)img * Ah + u * kLaneCh + j] : 0.f;
+    A += ar[j];
+  }
+#pragma unroll
+  for (int k = 0; k < B; ++k) {
+    if (own) {
+      const float* qk = q + ((size_t)img * B + k) * Ah + u * kLaneCh;
+      Seg<float>::load(qk, qr[k]);
+      Seg<float>::load(qk + 4, qr[k] + 4);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kLaneCh; ++j) qr[k][j] = 0.f;
+    }
+  }
+  // kFast: the factored form where the whole block's |p| <= 127 s and |q|
+  // keep 2^±62; the exponents are scaled by 2 log2 e once
+  bool factored = false;
+  if constexpr (kFast) {
+    bool small = true;
+#pragma unroll
+    for (int j = 0; j < kLaneCh; ++j) {
+      sr[j] *= kTwoLog2e;
+      small = small && 127.f * sr[j] <= kMaxArg;
+#pragma unroll
+      for (int k = 0; k < B; ++k) {
+        qr[k][j] *= kTwoLog2e;
+        small = small && fabsf(qr[k][j]) <= kMaxArg;
+      }
+    }
+    factored = __syncthreads_and(small);
+    if (factored) {
+#pragma unroll
+      for (int j = 0; j < kLaneCh; ++j)
+#pragma unroll
+        for (int k = 0; k < B; ++k) qr[k][j] = ex2_(qr[k][j]);
+    }
+  }
+
+  for (int i = 0; i < nC; ++i) {
+    const int8_t* st = ring.arrive(i, tid);
+    const int rows = min(CH, N - i * CH);
+    if (pl < P) {
+      for (int r = pl; r < rows; r += P) {
+        float acc[B];
+#pragma unroll
+        for (int k = 0; k < B; ++k) acc[k] = 0.f;
+        if (own) {
+          float p[kLaneCh];
+          Seg<int8_t>::load(st + (size_t)r * Ah + u * kLaneCh, p);
+          if constexpr (kFast) {
+            // acc = sum_j alpha_j r_j; the logit is A - 2 acc
+            if (factored) {
+#pragma unroll
+              for (int j = 0; j < kLaneCh; ++j) {
+                const float ep = ex2_(p[j] * sr[j]);
+#pragma unroll
+                for (int k = 0; k < B; ++k)
+                  acc[k] = fmaf(ar[j], rcp_(fmaf(ep, qr[k][j], 1.f)),
+                                acc[k]);
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < kLaneCh; ++j)
+#pragma unroll
+                for (int k = 0; k < B; ++k)
+                  acc[k] = fmaf(
+                      ar[j], rcp_(1.f + ex2_(fmaf(p[j], sr[j], qr[k][j]))),
+                      acc[k]);
+            }
+#pragma unroll
+            for (int k = 0; k < B; ++k) acc[k] = fmaf(-2.f, acc[k], A);
+          } else {
+#pragma unroll
+            for (int j = 0; j < kLaneCh; ++j) {
+              const float pv = p[j] * sr[j];
+#pragma unroll
+              for (int k = 0; k < B; ++k)
+                acc[k] = fmaf(ar[j], tanhf(pv + qr[k][j]), acc[k]);
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < B; ++k) {
+          const float e = warp_sum(acc[k]);
+          if (lane == 0) part[((size_t)grp * B + k) * N + i * CH + r] = e;
+        }
+      }
+    }
+    __syncthreads();   // the stage is free for the copy started next
+  }
+
+  // softmax over n; the att copies are in flight
+  softmax_beams<float, false>(part, wts, G, B, N, warp, lane);
+  __syncthreads();
+
+  // weighted sum of att_q: thread = (feature unit fb, position slice sl)
+  const int fb = tid % Uf, sl = tid / Uf;
+  float acc[B][kLaneCh];
+#pragma unroll
+  for (int k = 0; k < B; ++k)
+#pragma unroll
+    for (int j = 0; j < kLaneCh; ++j) acc[k][j] = 0.f;
+  for (int i = nC; i < 2 * nC; ++i) {
+    const int8_t* st = ring.arrive(i, tid);
+    const int c = i - nC;
+    const int rows = min(CH, N - c * CH);
+    if (sl < Q) {
+      for (int r = sl; r < rows; r += Q) {
+        float wk[B];
+#pragma unroll
+        for (int k = 0; k < B; ++k) wk[k] = wts[(size_t)k * N + c * CH + r];
+        float a[kLaneCh];
+        Seg<int8_t>::load(st + (size_t)r * Fe + fb * kLaneCh, a);
+#pragma unroll
+        for (int k = 0; k < B; ++k)
+#pragma unroll
+          for (int j = 0; j < kLaneCh; ++j)
+            acc[k][j] = fmaf(wk[k], a[j], acc[k][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  gather_slices<B>(acc, smem, sl, Q, Uf, fb);
+  if (sl == 0) {
+    float s[kLaneCh];
+#pragma unroll
+    for (int j = 0; j < kLaneCh; ++j)
+      s[j] = att_s[(size_t)img * Fe + fb * kLaneCh + j];
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+#pragma unroll
+      for (int j = 0; j < kLaneCh; ++j) acc[k][j] *= s[j];
+      Seg<bf16>::store(out + ((size_t)img * B + k) * Fe + fb * kLaneCh,
+                       acc[k]);
+    }
+  }
+}
+
 // -- launch ----------------------------------------------------------------
 
-// raises the instance's dynamic shared-memory limit to the device's opt-in
-// maximum, once; returns that maximum, or minus a CUDA error code
+// raises a kernel's dynamic shared-memory limit to the device's opt-in
+// maximum; returns that maximum, or minus a CUDA error code
+template <typename Kernel>
+int raise_smem_limit(Kernel kernel) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  return err == cudaSuccess ? optin : -(int)err;
+}
+
+// the limit of each instance, raised once
 template <typename T, int B, bool kFast, bool kRoundW>
 int smem_limit() {
-  static const int limit = [] {
-    int dev = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(beam_att_kernel<T, B, kFast, kRoundW>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 optin);
-    return err == cudaSuccess ? optin : -(int)err;
-  }();
+  static const int limit =
+      raise_smem_limit(beam_att_kernel<T, B, kFast, kRoundW>);
+  return limit;
+}
+
+template <int B, bool kFast>
+int smem_limit_i8() {
+  static const int limit = raise_smem_limit(beam_att_i8_kernel<B, kFast>);
   return limit;
 }
 
@@ -685,21 +991,56 @@ int launch(const void* h, const void* w, const void* b, const void* alpha,
     return launch_b<T, BB, kFast, kRoundW>(h, w, b, alpha, p_att, att, out, \
                                            q, bs, H, Ah, N, Fe, stream);
   switch (B) {
-    ISC_ATT_CASE(1)
-    ISC_ATT_CASE(2)
-    ISC_ATT_CASE(3)
-    ISC_ATT_CASE(4)
-    ISC_ATT_CASE(5)
-    ISC_ATT_CASE(6)
-    ISC_ATT_CASE(7)
-    ISC_ATT_CASE(8)
+    ISC_BEAM_CASES(ISC_ATT_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef ISC_ATT_CASE
 }
 
+template <int B, bool kFast>
+int launch_i8_b(const void* h, const void* w, const void* b,
+                const void* alpha, const void* p_att_q, const void* p_att_s,
+                const void* att_q, const void* att_s, void* out, void* q,
+                int bs, int H, int Ah, int N, int Fe, void* stream) {
+  const size_t smem = layout<int8_t>(B, Ah, N, Fe).total;
+  const int limit = smem_limit_i8<B, kFast>();
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_query((const bf16*)h, (const bf16*)w,
+                               (const bf16*)b, (float*)q, bs * B, H, Ah, s);
+  if (err != 0) return err;
+  beam_att_i8_kernel<B, kFast><<<bs, kThreads, smem, s>>>(
+      (const float*)q, (const bf16*)alpha, (const int8_t*)p_att_q,
+      (const float*)p_att_s, (const int8_t*)att_q, (const float*)att_s,
+      (bf16*)out, Ah, N, Fe);
+  return (int)cudaGetLastError();
+}
+
+template <bool kFast>
+int launch_i8(const void* h, const void* w, const void* b, const void* alpha,
+              const void* p_att_q, const void* p_att_s, const void* att_q,
+              const void* att_s, void* out, void* q, int bs, int B, int H,
+              int Ah, int N, int Fe, void* stream) {
+  constexpr int kW = 16;   // a 16-byte copy of int8
+  if (bs < 1 || N < 1 || H < 8 || H % 8 || Ah < kW || Ah % kW || Fe < kW ||
+      Fe % kW || Ah > kMaxWidth || Fe > kMaxWidth)
+    return (int)cudaErrorInvalidValue;
+#define ISC_I8_CASE(BB)                                                    \
+  case BB:                                                                 \
+    return launch_i8_b<BB, kFast>(h, w, b, alpha, p_att_q, p_att_s, att_q, \
+                                  att_s, out, q, bs, H, Ah, N, Fe, stream);
+  switch (B) {
+    ISC_BEAM_CASES(ISC_I8_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef ISC_I8_CASE
+}
+
 static_assert(kMaxBeam <= kWarps, "softmax runs one warp per beam");
+static_assert(kMaxBeam == 8, "ISC_BEAM_CASES lists the beams 1..8");
 
 }  // namespace
 
@@ -747,6 +1088,28 @@ int isc_beam_att_v2_bf16(const void* h, const void* w, const void* b,
                          int H, int Ah, int N, int Fe, void* stream) {
   return launch<bf16, true, true>(h, w, b, alpha, p_att, att, out, q, bs, B,
                                   H, Ah, N, Fe, stream);
+}
+
+// int8 storage: h, W, b and alpha bf16; p_att_q [bs, N, Ah] and att_q
+// [bs, N, Fe] int8 with f32 scales p_att_s [bs, Ah] and att_s [bs, Fe];
+// out bf16 [bs*B, Fe]; q the f32 scratch [bs*B, Ah] of the query product
+int isc_beam_att_i8_bf16(const void* h, const void* w, const void* b,
+                         const void* alpha, const void* p_att_q,
+                         const void* p_att_s, const void* att_q,
+                         const void* att_s, void* out, void* q, int bs, int B,
+                         int H, int Ah, int N, int Fe, void* stream) {
+  return launch_i8<true>(h, w, b, alpha, p_att_q, p_att_s, att_q, att_s, out,
+                         q, bs, B, H, Ah, N, Fe, stream);
+}
+
+int isc_beam_att_i8_bf16_tanhf(const void* h, const void* w, const void* b,
+                               const void* alpha, const void* p_att_q,
+                               const void* p_att_s, const void* att_q,
+                               const void* att_s, void* out, void* q, int bs,
+                               int B, int H, int Ah, int N, int Fe,
+                               void* stream) {
+  return launch_i8<false>(h, w, b, alpha, p_att_q, p_att_s, att_q, att_s, out,
+                          q, bs, B, H, Ah, N, Fe, stream);
 }
 
 }  // extern "C"

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_typed: set = set()          # (library, entry point) whose types are set
 # ptxas register/shared-memory report of each build, for the smoke run
 build_logs: Dict[str, str] = {}
 
@@ -79,17 +81,44 @@ def load(name: str, signatures: Dict[str, int]) -> ctypes.CDLL:
     """The loaded library ``name``, built if needed. ``signatures`` maps
     each C entry point to its ``argtypes`` (``c_void_p`` for every pointer
     and the stream, ``c_int`` or ``c_longlong`` for every integer); each
-    returns an int."""
+    returns an int. Wrappers that share a library each pass their own
+    entry points: every one is typed at its first request."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(_target(name))
-            for fn, argtypes in signatures.items():
+            _libs[name] = lib
+        for fn, argtypes in signatures.items():
+            if (name, fn) not in _typed:
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
+                _typed.add((name, fn))
         return lib
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """{mangled entry function: {"registers", "spill_stores",
+    "spill_loads"}} from a build's ``-Xptxas -v`` log (``build_logs``)."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry]["spill_stores"] = int(m.group(1))
+            out[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def check(code: int, what: str) -> None:

@@ -4,23 +4,31 @@ Replaces the Pallas kernel ``tools/bench_int8.py`` ``_kernel_i8`` (:283,
 pallas_call :309-333), the int8-storage variant that the JAX package's
 int8 study measures against the bf16 attention. att and p_att ([bs, N, ·])
 are stored as int8 with one f32 scale per (image, channel), from
-``quantize_per_channel``; the kernel (``csrc/fused_attention_i8.cu``)
-dequantises them in registers and computes v1's function
-(``ops/fused_attention.py``), reading each image's rows once for all B
+``quantize_per_channel``, and dequantised in registers; the function is
+v1's (``ops/fused_attention.py``), each image's rows read once for all B
 beams. h, W_h2att, its bias and alpha are bf16 (the plain version also
 takes them all in f32); the output is bf16, as ``_kernel_i8``'s
 ``out_shape`` is.
 
-What bounds it on the H100: the int8 bytes, about 81.5 MB at bs=384, N=196,
-512 wide (0.024 ms at 3.35 TB/s, half of v1's bf16 bound), with the same
-115.6 M tanh. There are no int8 tensor-core products: int8 only halves the
-bytes. Every byte stream is read 16 bytes a thread (see the source's
-header).
+What bounds it on the H100: at bs=384, N=196, 512 wide the int8 bytes are
+81.5 MB (24.3 us at 3.35 TB/s, half of v1's bf16 bound), and the 115.6 M
+tanh take 27.6 us at one special-function operation each, 16 a clock an
+SM: the tanh, not the bytes, set the floor. The kernels are v1's design,
+in the same source (``csrc/fused_attention.cu``): v1's tiled query product
+into an f32 scratch that the wrapper allocates, then
+``beam_att_i8_kernel<B, kFast>``, a block an image streaming p_att and att
+through v1's ``cp.async`` ring, each int8 value converted by a byte
+permute and one add rather than the int-to-float convert. Its tanh is
+1 - 2 / (1 + e^2p e^2q) with e^2p shared by the B beams (1 + B
+special-function operations a value, within f32 rounding; see the
+source); ``exact_tanh=True`` takes tanhf (2B). ``tanh.approx.f32`` is not
+used here: it moves the output by more than one bf16 ulp at 512 wide.
 
 ``beam_content_attention_i8`` takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors (bf16 only, no operand requiring
-grad), or raises;
-``beam_content_attention_i8.launches`` counts the launches.
+launches the kernels for CUDA tensors (bf16 only, no operand requiring
+grad), or raises; ``beam_content_attention_i8.launches`` counts the wrapper
+calls that launched (one each, though each is two kernels; v1's own count,
+``fused_attention.beam_content_attention.launches``, does not move).
 """
 from __future__ import annotations
 
@@ -29,17 +37,21 @@ import ctypes
 import torch
 
 from . import _build
-from .fused_attention import beam_content_attention_plain
+from .fused_attention import MAX_WIDTH, beam_content_attention_plain
 
 MAX_BEAM = 8              # the kernel is instantiated for B = 1..8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGS = {"isc_beam_att_i8_bf16": [_P] * 9 + [_I] * 6 + [_P]}
+# h, w, b, alpha, p_att_q, p_att_s, att_q, att_s, out, the f32 query
+# scratch, bs, B, H, Ah, N, Fe, stream
+_SIG = [_P] * 10 + [_I] * 6 + [_P]
+_FN, _FN_TANHF = "isc_beam_att_i8_bf16", "isc_beam_att_i8_bf16_tanhf"
+_SIGS = {_FN: _SIG, _FN_TANHF: _SIG}
 
 
 def _lib():
-    return _build.load("fused_attention_i8", _SIGS)
+    return _build.load("fused_attention", _SIGS)
 
 
 def quantize_per_channel(x):
@@ -69,14 +81,17 @@ def beam_content_attention_i8_plain(h, p_cont, att_q, att_s, p_att_q,
 
 
 def beam_content_attention_i8(h, p_cont, att_q, att_s, p_att_q, p_att_s, *,
-                              B: int):
+                              B: int, exact_tanh: bool = False):
     """h [bs*B, H] in image-major row order, p_cont = {"h2att": {"weight"
     [Ah, H], "bias" [Ah]}, "att_alpha": {"weight" [1, Ah]}} in h's dtype,
     att_q [bs, N, Fe] and p_att_q [bs, N, Ah] int8 with f32 scales att_s
     [bs, 1, Fe] and p_att_s [bs, 1, Ah]. Returns [bs*B, Fe] bf16. Types
     and shapes are checked on every device; the kernel also needs bf16,
-    B <= 8, H % 8 == 0, Ah and Fe % 16 == 0 and 16-byte aligned
-    operands (the plain version also takes h and the weights in f32)."""
+    B <= 8, H % 8 == 0, Ah and Fe % 16 == 0 and at most 2048 (a lane owns
+    8 channels, 256 lanes) and 16-byte aligned operands (the plain version
+    also takes h and the weights in f32). ``exact_tanh``: the kernel takes
+    tanhf in place of its factored exponential (the plain version's tanh
+    is PyTorch's either way)."""
     w = p_cont["h2att"]["weight"]
     b = p_cont["h2att"]["bias"]
     alpha = p_cont["att_alpha"]["weight"]
@@ -120,19 +135,22 @@ def beam_content_attention_i8(h, p_cont, att_q, att_s, p_att_q, p_att_s, *,
                         f"and alpha in bfloat16: {h.dtype}")
     if not 1 <= B <= MAX_BEAM:
         raise ValueError(f"beam size {B} outside [1, {MAX_BEAM}]")
-    if H % 8 or Ah % 16 or Fe % 16:
+    if H % 8 or Ah % 16 or Fe % 16 or max(Ah, Fe) > MAX_WIDTH:
         raise ValueError(f"beam_content_attention_i8 needs H % 8 == 0 "
-                         f"(H={H}), Ah and Fe % 16 == 0 (Ah={Ah}, Fe={Fe})")
+                         f"(H={H}), Ah and Fe % 16 == 0 and at most "
+                         f"{MAX_WIDTH} (Ah={Ah}, Fe={Fe})")
     h, w, b, alpha, att_q, att_s, p_att_q, p_att_s = (
         t.contiguous() for t in tensors)
     if any(t.data_ptr() % 16 for t in (h, w, att_q, att_s, p_att_q)):
         raise ValueError("beam_content_attention_i8 needs 16-byte aligned "
                          "operands")
     out = torch.empty((bs * B, Fe), dtype=torch.bfloat16, device=att_q.device)
-    _build.check(_lib().isc_beam_att_i8_bf16(
+    q = torch.empty((bs * B, Ah), dtype=torch.float32, device=att_q.device)
+    fn = getattr(_lib(), _FN_TANHF if exact_tanh else _FN)
+    _build.check(fn(
         h.data_ptr(), w.data_ptr(), b.data_ptr(), alpha.data_ptr(),
         p_att_q.data_ptr(), p_att_s.data_ptr(), att_q.data_ptr(),
-        att_s.data_ptr(), out.data_ptr(), bs, B, H, Ah, N, Fe,
+        att_s.data_ptr(), out.data_ptr(), q.data_ptr(), bs, B, H, Ah, N, Fe,
         _build.stream_ptr(att_q.device)), "beam_content_attention_i8")
     beam_content_attention_i8.launches += 1
     return out

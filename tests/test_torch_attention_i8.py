@@ -138,6 +138,18 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     assert torch.equal(got, fa8.beam_content_attention_i8_plain(*args, B=B))
 
 
+@pytest.mark.parametrize("exact_tanh", [False, True])
+def test_wrapper_takes_exact_tanh_and_the_plain_version_on_the_cpu(
+        exact_tanh):
+    """``exact_tanh`` picks the kernel's tanh on the card; on the CPU it is
+    accepted and the plain version runs as without it."""
+    args = _port(*_inputs(5))
+    before = fa8.beam_content_attention_i8.launches
+    got = fa8.beam_content_attention_i8(*args, B=B, exact_tanh=exact_tanh)
+    assert fa8.beam_content_attention_i8.launches == before
+    assert torch.equal(got, fa8.beam_content_attention_i8_plain(*args, B=B))
+
+
 def _bad(h, p, aq, as_, pq, ps):
     f32 = {k: {kk: vv.float() for kk, vv in v.items()} for k, v in p.items()}
     return [

@@ -28,7 +28,8 @@ from insenticap_model_tpu_torch.ops import fused_topk as ft
 from insenticap_model_tpu_torch.ops import pool
 from insenticap_model_tpu_torch.ops import tiled_mm as tmm
 from insenticap_model_tpu_torch.ops import winograd_kernels as wk
-from insenticap_model_tpu_torch.utils.timing import device_ms
+from insenticap_model_tpu_torch.utils.timing import (device_ms,
+                                                     device_ms_by_name)
 from insenticap_model_tpu_torch.utils.tolerance import bf16_ulp_error
 
 pytestmark = pytest.mark.cuda
@@ -844,6 +845,120 @@ def test_attention_i8_kernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError):                   # Fe % 16
         f(h, p, aq[..., :24].contiguous(), as_[..., :24].contiguous(), pq,
           ps, B=3)
+
+
+@pytest.mark.parametrize("exact_tanh", [False, True])
+@pytest.mark.parametrize("B", range(1, 9))
+def test_attention_i8_kernel_at_every_beam(dev, B, exact_tanh):
+    """Every instance, both tanh entries; 33 positions (a ring stage and
+    one more)."""
+    g = torch.Generator().manual_seed(100 + B)
+    args = _i8_inputs(g, 3, B, 33, 48, 32, 80, dev, torch.bfloat16)
+    before = fa8.beam_content_attention_i8.launches
+    got = fa8.beam_content_attention_i8(*args, B=B, exact_tanh=exact_tanh)
+    torch.cuda.synchronize()
+    assert fa8.beam_content_attention_i8.launches == before + 1
+    _within_bf16_ulp(got, fa8.beam_content_attention_i8_plain(*args, B=B))
+
+
+@pytest.mark.parametrize("exact_tanh", [False, True])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 196])
+def test_attention_i8_kernel_at_ring_stage_edges(dev, N, exact_tanh):
+    """A stage holds 32 positions: N below, at and past its edge, and the
+    serving N, at the serving width."""
+    g = torch.Generator().manual_seed(200 + N)
+    args = _i8_inputs(g, 2, 3, N, 64, 512, 512, dev, torch.bfloat16)
+    got = fa8.beam_content_attention_i8(*args, B=3, exact_tanh=exact_tanh)
+    torch.cuda.synchronize()
+    _within_bf16_ulp(got, fa8.beam_content_attention_i8_plain(*args, B=3))
+
+
+@pytest.mark.parametrize("exact_tanh", [False, True])
+@pytest.mark.parametrize("Ah,Fe", [(16, 16), (80, 80), (512, 512),
+                                   (1040, 1040), (16, 1040), (1040, 16),
+                                   (512, 80), (2048, 2048)])
+def test_attention_i8_kernel_at_every_width(dev, Ah, Fe, exact_tanh):
+    """Widths from one 16-byte copy to the 2048 a block's lanes own, a
+    position spanning one to eight warps; H = 40 is a multiple of 8 and
+    not of the query product's K step of 16 (the rest staged as zeros)."""
+    g = torch.Generator().manual_seed(Ah + 3 * Fe)
+    args = _i8_inputs(g, 3, 3, 37, 40, Ah, Fe, dev, torch.bfloat16)
+    got = fa8.beam_content_attention_i8(*args, B=3, exact_tanh=exact_tanh)
+    torch.cuda.synchronize()
+    _within_bf16_ulp(got, fa8.beam_content_attention_i8_plain(*args, B=3))
+
+
+@pytest.mark.parametrize("exact_tanh", [False, True])
+def test_attention_i8_kernel_with_all_zero_channels(dev, exact_tanh):
+    """A channel that is zero over an image's positions quantises with the
+    scale 1e-12 and values 0; some are, in att and in p_att."""
+    g = torch.Generator().manual_seed(7)
+    p = _att_params(g, 48, 64, dev, torch.bfloat16)
+    h = torch.randn(4 * 3, 48, generator=g).to(dev, torch.bfloat16)
+    att = torch.randn(4, 50, 96, generator=g).to(dev)
+    p_att = torch.randn(4, 50, 64, generator=g).to(dev)
+    att[0, :, 5] = 0.0
+    att[3, :, 90:] = 0.0
+    p_att[1, :, 0] = 0.0
+    p_att[2, :, 17:33] = 0.0
+    att_q, att_s = fa8.quantize_per_channel(att)
+    p_att_q, p_att_s = fa8.quantize_per_channel(p_att)
+    assert float(att_s[0, 0, 5]) == pytest.approx(1e-12)
+    args = (h, p, att_q, att_s, p_att_q, p_att_s)
+    got = fa8.beam_content_attention_i8(*args, B=3, exact_tanh=exact_tanh)
+    torch.cuda.synchronize()
+    want = fa8.beam_content_attention_i8_plain(*args, B=3)
+    _within_bf16_ulp(got, want)
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("exact_tanh", [False, True])
+@pytest.mark.parametrize("p_scale,w_scale", [(40.0, 0.2), (1.0, 10.0),
+                                             (20.0, 3.0)])
+def test_attention_i8_kernel_at_large_magnitudes(dev, p_scale, w_scale,
+                                                 exact_tanh):
+    """|p_att| or |q| past 21.5, where e^2p e^2q could leave f32's range:
+    the default entry's blocks take the unfactored form there."""
+    g = torch.Generator().manual_seed(int(p_scale + w_scale))
+    p = _att_params(g, 48, 512, dev, torch.bfloat16)
+    p["h2att"]["weight"] = (p["h2att"]["weight"].float() * w_scale / 0.2
+                            ).bfloat16()
+    h = torch.randn(2 * 3, 48, generator=g).to(dev, torch.bfloat16)
+    att_q, att_s = fa8.quantize_per_channel(
+        torch.randn(2, 40, 512, generator=g).to(dev))
+    p_att_q, p_att_s = fa8.quantize_per_channel(
+        torch.randn(2, 40, 512, generator=g).to(dev) * p_scale)
+    args = (h, p, att_q, att_s, p_att_q, p_att_s)
+    got = fa8.beam_content_attention_i8(*args, B=3, exact_tanh=exact_tanh)
+    torch.cuda.synchronize()
+    _within_bf16_ulp(got, fa8.beam_content_attention_i8_plain(*args, B=3))
+
+
+def test_attention_i8_kernel_launches_the_query_product_and_the_attention(
+        dev):
+    """One wrapper call is two launches, the query product into its f32
+    scratch and the attention; it counts once on the int8 wrapper and not
+    on v1's."""
+    g = torch.Generator().manual_seed(11)
+    args = _i8_inputs(g, 5, 3, 40, 48, 64, 64, dev, torch.bfloat16)
+    before = (fa.beam_content_attention.launches,
+              fa8.beam_content_attention_i8.launches)
+    parts = device_ms_by_name(
+        lambda: fa8.beam_content_attention_i8(*args, B=3),
+        ("query_bf16_kernel", "beam_att_i8_kernel"), iters=2, warm=1)
+    assert parts["query_bf16_kernel"] > 0 and parts["beam_att_i8_kernel"] > 0
+    assert parts["query_bf16_kernel"] + parts["beam_att_i8_kernel"] \
+        == pytest.approx(parts["total"])
+    assert fa.beam_content_attention.launches == before[0]
+    assert fa8.beam_content_attention_i8.launches >= before[1] + 3
+
+
+def test_attention_i8_kernel_refuses_widths_past_its_lanes(dev):
+    g = torch.Generator().manual_seed(0)
+    for Ah, Fe in ((2064, 32), (32, 2064)):
+        args = _i8_inputs(g, 1, 3, 5, 48, Ah, Fe, dev, torch.bfloat16)
+        with pytest.raises(ValueError, match="at most 2048"):
+            fa8.beam_content_attention_i8(*args, B=3)
 
 
 @pytest.mark.parametrize("tile_rows", [24, 48, 96])

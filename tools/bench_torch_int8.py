@@ -22,11 +22,14 @@ PyTorch port's twin of ``tools/bench_int8.py``, with its three modes.
 - ``attention``: the beam-shared attention at bs=384, N=196, 512 wide,
   beam 3: the bf16 v1 kernel (``ops/fused_attention``) against the
   int8-storage kernel (``ops/fused_attention_i8``, per (image, channel)
-  scales), both on the card, and the int8 context's error against the bf16
-  kernel's (as the JAX tool reports it) and against the f32 ideal (the
-  plain version in f32 on the unquantised values).
+  scales), both on the card, by the device time that ``torch.profiler``
+  records (``utils/timing.device_ms_by_name``, the query product and the
+  attention apart) beside CUDA events, and the int8 context's error
+  against the bf16 kernel's (as the JAX tool reports it) and against the
+  f32 ideal (the plain version in f32 on the unquantised values).
 
     python3 tools/bench_torch_int8.py [detector|stack|attention|both]
+                                      [--root DIR]
 
 ("both" runs all three, as in the JAX tool.) The int8 products go through
 ``torch._int_mm`` on the card, which needs M > 16 and K, N multiples of 8
@@ -35,10 +38,16 @@ same functions take an int32 ``torch.matmul``, so that the tests can run
 them. With the activations row-major, as here, row-major weights are
 cuBLASLt's "NN" case and column-major weights its "TN" case. Times are
 CUDA events around back-to-back calls after a warm-up, the median of
-``reps`` runs; the JAX tool's fold-back through a ``lax.scan`` only keeps
-XLA from eliding steps, which eager PyTorch does not do. A failure
-raises. It needs a CUDA card and exits non-zero without one.
+``reps`` runs (below some 45 us a call they also read the host's dispatch,
+hence the attention's device times); the JAX tool's fold-back through a
+``lax.scan`` only keeps XLA from eliding steps, which eager PyTorch does
+not do. ``--root`` imports the package from another checkout that lies
+inside this one (an earlier commit unpacked by ``git archive`` into a
+git-ignored directory; run the two in turns, in one call, to compare
+them); the kernels are then built into that copy. A failure raises. It
+needs a CUDA card and exits non-zero without one.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -47,19 +56,16 @@ import sys
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-
-from insenticap_model_tpu_torch import nn  # noqa: E402
-from insenticap_model_tpu_torch.ops import fused_attention as fa  # noqa: E402
-from insenticap_model_tpu_torch.ops import (  # noqa: E402
-    fused_attention_i8 as fa8)
-from insenticap_model_tpu_torch.ops import (  # noqa: E402
-    winograd_kernels as wk)
-from insenticap_model_tpu_torch.utils.timing import cuda_ms  # noqa: E402
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if HERE not in sys.path:
+    sys.path.insert(0, HERE)
 
 BS = 384
 MODES = ("detector", "stack", "attention", "both")
+# device activities of one call: v1's query product and attention, the
+# int8 kernel's (its first design had no query launch)
+V1_PARTS = ("query_", "beam_att_kernel")
+I8_PARTS = ("query_", "beam_att_i8_kernel")
 
 
 # ------------------------------------------------------------ int8 products
@@ -136,6 +142,8 @@ def _normal(g, shape, device, scale=1.0):
 def detector(device, iters=8, reps=4, hw=14, cin=2048, cout=1024, bs=BS):
     """conv1 four ways (the int8 ones with the weights in both layouts)
     and one tap's product alone; returns {name: ms}."""
+    from insenticap_model_tpu_torch import nn
+    from insenticap_model_tpu_torch.utils.timing import cuda_ms
     g = torch.Generator(device=device).manual_seed(0)
     x_f = _normal(g, (bs, hw, hw, cin), device)
     w_f = _normal(g, (3, 3, cin, cout), device, 0.02)
@@ -183,6 +191,9 @@ def detector(device, iters=8, reps=4, hw=14, cin=2048, cout=1024, bs=BS):
 def stack(device, iters=8, reps=4, hw=14, chans=(2048, 1024, 512), bs=BS):
     """The bf16 Winograd stack against the int8 stack; returns {name: ms}
     and the int8 stack's error against the f32 direct stack."""
+    from insenticap_model_tpu_torch import nn
+    from insenticap_model_tpu_torch.ops import winograd_kernels as wk
+    from insenticap_model_tpu_torch.utils.timing import cuda_ms
     g = torch.Generator(device=device).manual_seed(0)
     c0, c1, c2 = chans
     x_f = _normal(g, (bs, hw, hw, c0), device, 0.5).abs()
@@ -230,24 +241,37 @@ def attention_inputs(device, bs=BS, beam=3, n=196, width=512, seed=0):
 
 def attention(device, iters=16, reps=8, warm=3, **shape):
     """The bf16 v1 kernel against the int8-storage kernel. Returns (times
-    {"bf16_ms", "int8_ms"}, errors, calls {"v1", "i8"}: the number of
+    {"bf16_ms", "int8_ms": CUDA events; "bf16_device_ms",
+    "int8_device_ms": {part: device ms a call} over ``V1_PARTS`` and
+    ``I8_PARTS`` and "total"}, errors, calls {"v1", "i8"}: the number of
     kernel calls made)."""
+    from insenticap_model_tpu_torch.ops import fused_attention as fa
+    from insenticap_model_tpu_torch.ops import fused_attention_i8 as fa8
+    from insenticap_model_tpu_torch.utils.timing import (cuda_ms,
+                                                         device_ms_by_name)
     beam = shape.get("beam", 3)
     h0, p_cont, att_f, patt_f = attention_inputs(device, **shape)
     att, patt = att_f.bfloat16(), patt_f.bfloat16()
     att_q, att_s = fa8.quantize_per_channel(att_f)
     patt_q, patt_s = fa8.quantize_per_channel(patt_f)
+    calls = {"v1": 0, "i8": 0}
 
     def bf16():
+        calls["v1"] += 1
         return fa.beam_content_attention(h0, p_cont, att, patt, B=beam,
                                          variant="v1")
 
     def i8():
+        calls["i8"] += 1
         return fa8.beam_content_attention_i8(h0, p_cont, att_q, att_s,
                                              patt_q, patt_s, B=beam)
 
     kw = dict(iters=iters, reps=reps, warm=warm)
-    times = {"bf16_ms": cuda_ms(bf16, **kw), "int8_ms": cuda_ms(i8, **kw)}
+    times = {"bf16_ms": cuda_ms(bf16, **kw), "int8_ms": cuda_ms(i8, **kw),
+             "bf16_device_ms": device_ms_by_name(bf16, V1_PARTS,
+                                                 iters=iters, warm=warm),
+             "int8_device_ms": device_ms_by_name(i8, I8_PARTS, iters=iters,
+                                                 warm=warm)}
     got, ref = i8().float(), bf16().float()
     ideal = fa.beam_content_attention_plain(
         h0.float(), {k: {kk: vv.float() for kk, vv in v.items()}
@@ -258,23 +282,30 @@ def attention(device, iters=16, reps=8, warm=3, **shape):
         den = float(want.abs().mean()) + 1e-9
         errors[name] = {"mean": float(err.mean()), "max": float(err.max()),
                         "rel_to_mean": float(err.mean()) / den}
-    calls = warm + iters * reps + 1
-    return times, errors, {"v1": calls, "i8": calls}
+    return times, errors, calls
 
 
 def main():
-    which = sys.argv[1] if len(sys.argv) > 1 else "both"
-    if which not in MODES:
-        raise SystemExit(f"unknown mode {which!r}: usage: bench_torch_int8.py"
-                         " [detector|stack|attention|both]")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("mode", nargs="?", default="both", choices=MODES)
+    ap.add_argument("--root", default=HERE)
+    args = ap.parse_args()
+    which = args.mode
+    root = os.path.realpath(args.root)
+    if os.path.commonpath([root, os.path.realpath(HERE)]) != \
+            os.path.realpath(HERE):
+        ap.error(f"--root {args.root} lies outside this checkout")
     if not torch.cuda.is_available():
         sys.exit("bench_torch_int8: needs a CUDA card")
+    sys.path.insert(0, root)
+    import insenticap_model_tpu_torch
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"device: {smi}")
-    report = {"device": smi}
+    print(f"package: {os.path.dirname(insenticap_model_tpu_torch.__file__)}")
+    report = {"device": smi, "root": root}
     if which in ("detector", "both"):
         res = detector(dev)
         base = res["conv1 direct bf16 (F.conv2d)"]
@@ -298,10 +329,16 @@ def main():
         torch.cuda.empty_cache()
     if which in ("attention", "both"):
         times, errors, _ = attention(dev)
-        print(f"beam attention bf16 storage (v1 kernel): "
-              f"{times['bf16_ms']:.4f} ms/step", flush=True)
-        print(f"beam attention int8 storage: {times['int8_ms']:.4f} ms/step "
-              f"({times['bf16_ms'] / times['int8_ms']:.2f}x)", flush=True)
+        for name, tag in (("bf16 storage (v1 kernel)", "bf16"),
+                          ("int8 storage", "int8")):
+            d = times[f"{tag}_device_ms"]
+            print(f"beam attention {name}: device {d['total']:.4f} ms/step "
+                  f"(query {d['query_']:.4f} + attention "
+                  f"{d['total'] - d['query_']:.4f}), events "
+                  f"{times[f'{tag}_ms']:.4f} ms/step", flush=True)
+        ratio = (times["bf16_device_ms"]["total"]
+                 / times["int8_device_ms"]["total"])
+        print(f"int8 against v1 by device time: {ratio:.2f}x", flush=True)
         for name, e in errors.items():
             print(f"context |err| {name}: mean {e['mean']:.5f} max "
                   f"{e['max']:.4f} (rel-to-mean-|ref| {e['rel_to_mean']:.4%})",
