@@ -1,10 +1,21 @@
 """The inference-side subset of ``insenticap_model_tpu/cli/common.py``
-(:58-83): the concept checkpoint bootstrap and the detected-concepts ->
-sentiment-word ids step, shared by the captioning and serving entry points.
+(:34-83): JSON artefact reading, the decode's special ids, the concept
+checkpoint bootstrap and the detected-concepts -> sentiment-word ids step,
+shared by the captioning and serving entry points.
 """
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
+
+from ..vocab import token_ids  # noqa: F401 (re-export, as the JAX module)
+
+
+def load_json(*parts):
+    with open(os.path.join(*parts)) as f:
+        return json.load(f)
 
 
 def load_concept_model(path: str, *, device="cuda"):

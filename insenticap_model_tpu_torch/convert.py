@@ -14,7 +14,9 @@ the port's nested dicts of tensors (layouts in ``nn``):
 A leaf may also be a CPU tensor, as the port's checkpoint reader gives
 (``training/checkpoint.py``: numpy has no bfloat16, so bf16 arrays arrive
 as ``torch.bfloat16``). ``to_jax_numpy`` is the exact inverse (numpy out),
-used by the round-trip test. Neither needs JAX: the arrays cross as numpy.
+used by the round-trip test; ``to_jax_tensors`` the same with CPU tensors
+of the params' own dtype, for the checkpoint writer. None needs JAX: the
+arrays cross as numpy.
 """
 from __future__ import annotations
 
@@ -85,24 +87,36 @@ def from_jax_numpy(tree, *, device="cuda", dtype=None):
     return conv(tree)
 
 
+def to_jax_tensors(tree):
+    """The port's params -> the JAX package's pytree layout, contiguous CPU
+    tensors of the same dtype (bf16 stays bf16): what the checkpoint writer
+    packs."""
+    return _to_jax(tree, lambda t: t.detach().cpu().contiguous(),
+                   lambda t: t.t().contiguous())
+
+
 def to_jax_numpy(tree):
     """The port's params -> the JAX package's pytree layout, numpy leaves
     (bf16 tensors come back as float32)."""
+    return _to_jax(tree, _np, lambda a: a.T.copy())
+
+
+def _to_jax(tree, leaf, transpose):
     if isinstance(tree, (list, tuple)):
-        return [to_jax_numpy(v) for v in tree]
+        return [_to_jax(v, leaf, transpose) for v in tree]
     keys = set(tree)
     if keys == _BN:
-        return {k: _np(v) for k, v in tree.items()}
+        return {k: leaf(v) for k, v in tree.items()}
     if keys == {"weight"} and tree["weight"].dim() == 2:
-        return {"table": _np(tree["weight"])}
+        return {"table": leaf(tree["weight"])}
     if keys == {"weight_ih", "weight_hh", "bias_ih", "bias_hh"}:
-        return {"w_ih": _np(tree["weight_ih"]).T.copy(),
-                "w_hh": _np(tree["weight_hh"]).T.copy(),
-                "b_ih": _np(tree["bias_ih"]), "b_hh": _np(tree["bias_hh"])}
+        return {"w_ih": transpose(leaf(tree["weight_ih"])),
+                "w_hh": transpose(leaf(tree["weight_hh"])),
+                "b_ih": leaf(tree["bias_ih"]), "b_hh": leaf(tree["bias_hh"])}
     if "weight" in keys and keys <= {"weight", "bias"}:
-        w = _np(tree["weight"])
-        out = {"w": w.T.copy() if w.ndim == 2 else w}
+        w = leaf(tree["weight"])
+        out = {"w": transpose(w) if w.ndim == 2 else w}
         if "bias" in tree:
-            out["b"] = _np(tree["bias"])
+            out["b"] = leaf(tree["bias"])
         return out
-    return {k: to_jax_numpy(v) for k, v in tree.items()}
+    return {k: _to_jax(v, leaf, transpose) for k, v in tree.items()}

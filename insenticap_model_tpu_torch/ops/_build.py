@@ -8,6 +8,10 @@ flags, so an edited source is never served from a stale build. Pointers
 and the CUDA stream cross as ``c_void_p``; every C entry point returns
 ``cudaGetLastError()`` after its launch and ``check`` raises on a non-zero
 code. There is no fallback: a missing ``nvcc`` or a failed build raises.
+Host code (``csrc/<name>.cc``, the image decoders) builds the same way
+with the host's C++ compiler (``load_host``), no ``nvcc`` needed; its
+name also hashes the machine, its C library and the compiler's version,
+so a library built on one host is never loaded on another.
 ``no_grad_guard`` is every wrapper's refusal to launch a kernel where
 autograd would record a graph through it.
 """
@@ -16,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -27,10 +32,12 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _typed: set = set()          # (library, entry point) whose types are set
+_host_key: bytes = b""       # _host_target's host part, once computed
 # ptxas register/shared-memory report of each build, for the smoke run
 build_logs: Dict[str, str] = {}
 
@@ -43,11 +50,57 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
+def _cxx() -> str:
+    for name in ("c++", "g++"):
+        path = shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler (c++ or g++ on PATH): the "
+                       "host libraries cannot be built")
+
+
+def _target(name: str, ext: str = ".cu", flags=NVCC_FLAGS,
+            extra: bytes = b"") -> str:
+    src = os.path.join(CSRC, name + ext)
     with open(src, "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha1(f.read() + " ".join(flags).encode() + extra)
     return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
+
+
+def _host_target(name: str) -> str:
+    """``_target`` of ``csrc/<name>.cc``, its hash also over the machine,
+    the C library and ``c++ --version``."""
+    global _host_key
+    if not _host_key:
+        ver = subprocess.run([_cxx(), "--version"], capture_output=True,
+                             text=True, check=True).stdout
+        _host_key = " ".join([platform.machine(), *platform.libc_ver(),
+                              ver]).encode()
+    return _target(name, ".cc", CXX_FLAGS, _host_key)
+
+
+def _compile(jobs, what: str) -> None:
+    """Run every (name, source, target, compiler command) at once, the
+    command's log kept in ``build_logs[name]``; each writes a temporary
+    file that replaces the target when its command succeeds."""
+    os.makedirs(BUILD, exist_ok=True)
+    procs = []
+    for n, src, target, cmd in jobs:
+        tmp = target + f".tmp{os.getpid()}"
+        procs.append((n, src, target, tmp, subprocess.Popen(
+            [*cmd, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for n, src, target, tmp, p in procs:
+        out, _ = p.communicate()
+        build_logs[n] = out
+        if p.returncode != 0:
+            failed.append(f"{os.path.basename(src)} (exit {p.returncode}):"
+                          f"\n{out}")
+            continue
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError(f"{what} build failed: " + "\n".join(failed))
 
 
 def build(names: Iterable[str]) -> None:
@@ -56,25 +109,31 @@ def build(names: Iterable[str]) -> None:
     todo = [n for n in names if not os.path.exists(_target(n))]
     if not todo:
         return
-    os.makedirs(BUILD, exist_ok=True)
     nvcc = _nvcc()
-    procs = []
-    for n in todo:
-        tmp = _target(n) + f".tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, n + ".cu")]
-        procs.append((n, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for n, tmp, p in procs:
-        out, _ = p.communicate()
-        build_logs[n] = out
-        if p.returncode != 0:
-            failed.append(f"{n}.cu (nvcc exit {p.returncode}):\n{out}")
-            continue
-        os.replace(tmp, _target(n))
-    if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    _compile([(n, os.path.join(CSRC, n + ".cu"), _target(n),
+               [nvcc, *NVCC_FLAGS]) for n in todo], "CUDA kernel")
+
+
+def build_host(name: str) -> None:
+    """Compile ``csrc/<name>.cc`` with the host's C++ compiler unless it
+    has a current build."""
+    target = _host_target(name)
+    if not os.path.exists(target):
+        _compile([(name, os.path.join(CSRC, name + ".cc"), target,
+                   [_cxx(), *CXX_FLAGS])], "host library")
+
+
+def _with_types(name: str, signatures) -> ctypes.CDLL:
+    """The loaded library ``name``, every entry point of ``signatures``
+    typed at its first request. Called at every launch: it touches no file
+    (the build's name hashes its source)."""
+    lib = _libs[name]
+    for fn, argtypes in signatures.items():
+        if (name, fn) not in _typed:
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+            _typed.add((name, fn))
+    return lib
 
 
 def load(name: str, signatures: Dict[str, int]) -> ctypes.CDLL:
@@ -84,17 +143,20 @@ def load(name: str, signatures: Dict[str, int]) -> ctypes.CDLL:
     returns an int. Wrappers that share a library each pass their own
     entry points: every one is typed at its first request."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
+        if name not in _libs:
             build([name])
-            lib = ctypes.CDLL(_target(name))
-            _libs[name] = lib
-        for fn, argtypes in signatures.items():
-            if (name, fn) not in _typed:
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-                _typed.add((name, fn))
-        return lib
+            _libs[name] = ctypes.CDLL(_target(name))
+        return _with_types(name, signatures)
+
+
+def load_host(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """``load`` for host code: ``csrc/<name>.cc`` built by ``build_host``;
+    every entry point returns an int."""
+    with _lock:
+        if name not in _libs:
+            build_host(name)
+            _libs[name] = ctypes.CDLL(_host_target(name))
+        return _with_types(name, signatures)
 
 
 def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:

@@ -1,8 +1,8 @@
-"""Checkpoint reader: the JAX package's checkpoint files, loaded into the
-port's parameter layout without JAX, flax or msgpack.
+"""Checkpoints: the JAX package's checkpoint files, read into the port's
+parameter layout and written from it, without JAX, flax or msgpack.
 
-Counterpart of the load side of ``insenticap_model_tpu/training/
-checkpoint.py`` (:33-121). The file format (:11-12) is
+Counterpart of ``insenticap_model_tpu/training/checkpoint.py`` (:33-121).
+The file format (:11-12) is
 
     [8-byte little-endian header length][JSON metadata][msgpack payload]
 
@@ -22,12 +22,17 @@ write them, the concept count from the metadata's ``idx2concept``). Every
 leaf's shape must match it,
 or ``CheckpointError`` is raised. Subtrees the port has no model for yet
 (the RL composite's ``sent_senti_cls``) and the optimizer state are left
-out, as a JAX template restore leaves out what its template lacks. The
-writer comes with the training slice.
+out, as a JAX template restore leaves out what its template lacks.
+
+``save`` writes the same file from the port's params (``convert.
+to_jax_tensors``, then ``msgpack.packb``), which the JAX package's ``load``
+reads back bit for bit; the optimizer state must be None until training
+is ported.
 """
 from __future__ import annotations
 
 import json
+import os
 import struct
 from typing import Any, Dict, Optional, Tuple
 
@@ -57,6 +62,28 @@ def _read(path: str, header_only: bool = False):
         return metadata, (None if header_only else f.read())
 
 
+def save(path: str, params: Any, opt_state: Any, metadata: Dict) -> None:
+    """Write ``params`` (the port's layout, any device and float type,
+    each kept) as the JAX package's ``checkpoint.save`` writes them:
+    the 8-byte header length, the JSON metadata (sorted keys), the
+    msgpack payload ``{"params": ...}``; through a temporary file and
+    ``os.replace``, so a reader never sees half a file."""
+    if opt_state is not None:
+        raise NotImplementedError("checkpoint.save: the port writes no "
+                                  "optimizer state until training is "
+                                  "ported; pass opt_state=None")
+    blob = msgpack.packb(
+        {"params": _state_dict(convert.to_jax_tensors(params))})
+    header = json.dumps(metadata, sort_keys=True).encode()
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(header)))
+        f.write(header)
+        f.write(blob)
+    os.replace(tmp, path)
+
+
 def load_metadata(path: str) -> Dict:
     return _read(path, header_only=True)[0]
 
@@ -67,6 +94,18 @@ def _lists(node):
         node = {k: _lists(v) for k, v in node.items()}
         if node and set(node) == {str(i) for i in range(len(node))}:
             return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def _state_dict(node):
+    """The tree as the JAX package's ``save`` hands it to msgpack: lists as
+    flax's ``to_state_dict`` writes them, maps keyed "0".."n-1" (the
+    inverse of ``_lists``), and map keys in sorted order, as JAX's
+    ``tree_map`` leaves them."""
+    if isinstance(node, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(node)}
+    if isinstance(node, dict):
+        return {str(k): _state_dict(node[k]) for k in sorted(node)}
     return node
 
 
