@@ -76,6 +76,31 @@ into the git-ignored build directory) and the host image decoders
    ``cli.caption.run`` on two fixtures in f32 dumps attention maps that
    sum to 1 within 1e-5; and the host's decode of a 448x448 JPEG (4:2:0)
    and PNG and a 480x640 ``resize_to_bucket`` are timed (median of 5);
+3f. drives the XE pre-training stage (``cli.train_xe.train``) at full
+   width (``Settings()``, the vocabulary padded to 10,000 words, xe_bs 20,
+   the seq2seq batch 80, 16 tokens, beam 3) on a synthetic tree the
+   port's ``synthetic`` writes (5 train batches, val with a padded last
+   batch, 20 test images): the port's writer saves a seeded sentence
+   classifier, read back bit-identical; two f32 epochs at dropout 0.5
+   (epoch 1's ss_prob 0.05) with finite losses, epoch 1's train XE loss
+   below epoch 0's, one caption a test image in result_0.json, and v1
+   launched in the beam dumps (its count set to 0 just before, read just
+   after); the epoch-0 checkpoint with its optimizer state read back
+   bit-identical; ``--xe_resume`` from it for epoch 1, its params within
+   1e-5 of the uninterrupted run's (the two softmax-invariant
+   attention-score biases within lr a step); one f32 step with dropout
+   off on the card against the same step on the CPU (losses within 1e-5
+   relative, each leaf's gradient within 1e-4 of its norm, params within
+   1e-5, the two biases within lr); one bf16 epoch with finite losses
+   that fall over its steps; the ms a train step (f32, bf16; median of
+   5) and the dump's captions/s; and that dump's decode (v1, mode xe,
+   bs 20, beam 3) against the plain path: on the random weights of the
+   timed dump no empty top-beam caption, and in f32 every top beam
+   identical with scores within 1e-3; with the trained captioner on 400
+   images of standard-normal features, in f32 every top beam identical
+   with scores within 1e-3, in bf16 the share of identical top beams at
+   least v1 with tanhf's, rounded down to a whole percent (phase 4's
+   gate);
 4. runs ``detect_and_decode`` at bs=384 in f32 on the kernel path and on
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
@@ -184,6 +209,27 @@ FIXTURES = {"j444.jpg": "decode", "j422.jpg": "decode",
             "j420_448.jpg": "decode", "grey.jpg": "decode",
             "rst.jpg": "decode", "prog.jpg": "refuse", "rgb.png": "decode",
             "rgba.png": "decode", "p.png": "decode"}
+# phase 3f, the XE stage: the reference trainer's xe batch and learning
+# rate; 34 train images of 3 captions give 5 batches, 7 val images 2 (the
+# last padded), 20 test images one dump batch
+XE_BS = 20
+XE_LR = 4e-4
+XE_N_IMG = {"train": 34, "val": 7, "test": 20}
+# the card's f32 gradient of a leaf against the CPU's, |diff| / |CPU's|
+# (L2): the two sum in other orders, so they part by rounding. f32 keeps
+# within 1e-5 of f64 at the test widths
+# (test_torch_training_steps.py::test_xe_gradients_f32_match_f64); the
+# sums here are longer (10,000 logits, 2048 x 196 features), hence 1e-4.
+# A wrong gradient size parts by far more; the params after one Adam step
+# hold only the gradients' signs
+XE_GRAD_RTOL = 1e-4
+# the dump's decode with the trained captioner against the plain path: 20
+# batches of 20 (400 images, as phase 4's 384)
+XE_CMP_BATCHES = 20
+# the captioner's attention-score biases, to which the softmax over
+# positions is invariant (their gradient is zero up to rounding)
+SOFTMAX_INVARIANT = (("attention", "cont", "att_alpha", "bias"),
+                     ("attention", "senti", "word_alpha", "bias"))
 SWITCH_SETS = {"default": {}, "fused_topk": {"ISC_FUSED_TOPK": "1"},
                "v2": {"ISC_ATT_KERNEL": "v2"},
                "both": {"ISC_FUSED_TOPK": "1", "ISC_ATT_KERNEL": "v2"}}
@@ -353,6 +399,15 @@ def _compare_e2e(torch, tag, kernel_out, plain_out):
     _check(dscore <= 1e-3, f"{tag}: top-beam score diff {dscore}")
     return {"top_beam_identical": same, "max_score_diff": dscore,
             "diverged": diverged}
+
+
+def _top_beams_vs_plain(seqs, scores, plain_seqs, plain_scores):
+    """(the images whose top beam equals the plain path's, [bs] bool; the
+    largest top-beam score difference on those)."""
+    eq = (seqs[:, 0] == plain_seqs[:, 0]).all(dim=1)
+    dscore = float((scores[eq, 0].float() - plain_scores[eq, 0].float())
+                   .abs().max()) if eq.any() else float("inf")
+    return eq, dscore
 
 
 def _within_rounding(torch, got, want, rtol, scale_frac):
@@ -668,6 +723,438 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
           f"{times['resize_480x640_ms']:.2f} ms")
     out["host_times"] = dict(times, cpu=cpu, jpeg_bytes=len(jpeg),
                              png_bytes=len(png))
+    return out
+
+
+def _tree_paths(tree, prefix=()):
+    """[(path, tensor)] of a nested dict/list tree, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_paths(tree[k],
+                                                            prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _tree_paths(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def _param_diff(a, b):
+    """(max |a - b| over the captioner's leaves but the two
+    softmax-invariant attention-score biases, max over those two): the
+    softmax over positions ignores those biases, so their gradient is zero
+    up to rounding and Adam's g / (|g| + eps) makes that rounding an
+    update of up to lr a step."""
+    pa, pb = _tree_paths(a), _tree_paths(b)
+    _check([p for p, _ in pa] == [p for p, _ in pb], "param trees differ")
+    rest = inv = 0.0
+    for (path, x), (_, y) in zip(pa, pb):
+        d = float((x.detach().float().cpu()
+                   - y.detach().float().cpu()).abs().max())
+        if path in SOFTMAX_INVARIANT:
+            inv = max(inv, d)
+        else:
+            rest = max(rest, d)
+    return rest, inv
+
+
+def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
+              read_counters):
+    """Phase 3f: the XE pre-training stage through ``cli.train_xe.train``
+    at full width on a synthetic tree: two f32 epochs, the epoch-0
+    checkpoint read back bit for bit, a resume from it against the
+    uninterrupted run, one f32 step on the card against the same step on
+    the CPU, one bf16 epoch, and the step and dump times."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from insenticap_model_tpu_torch import inference, nn, synthetic
+    from insenticap_model_tpu_torch.cli import common
+    from insenticap_model_tpu_torch.cli import train_xe
+    from insenticap_model_tpu_torch.config import Opts
+    from insenticap_model_tpu_torch.models import captioner as cap
+    from insenticap_model_tpu_torch.models import sent_senti_cls as ss_cls
+    from insenticap_model_tpu_torch.ops import fused_attention as fa
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    from insenticap_model_tpu_torch.training import optim, steps
+    from insenticap_model_tpu_torch.utils.timing import device_ms_by_kernel
+    from insenticap_model_tpu_torch.vocab import Vocab
+    cats = ["positive", "negative", "neutral"]
+    out = {}
+    saved, step_losses = {}, []
+    orig_save, orig_make = tck.save, steps.make_xe_steps
+
+    def recording_save(path, params, opt_state, metadata):
+        """The trees each checkpoint was given, kept on the host."""
+        saved[os.path.basename(path)] = (
+            nn.tree_map(lambda x: x.detach().cpu().clone(), params),
+            opt_state)
+        orig_save(path, params, opt_state, metadata)
+
+    def recording_make(settings_, adam):
+        """make_xe_steps whose train step also records its losses."""
+        train_step, eval_step = orig_make(settings_, adam)
+
+        def step(*args):
+            losses = train_step(*args)
+            step_losses.append({k: float(v) for k, v in losses.items()})
+            return losses
+        return step, eval_step
+
+    def dump_trained(params, feats, tag, ids):
+        """The dump's decode (mode xe, bs 20, beam 3) with the trained
+        captioner on XE_CMP_BATCHES batches of standard-normal features,
+        against the plain path: in f32 every top beam identical, scores
+        within 1e-3; in bf16 phase 4's gate, the share of identical top
+        beams at least v1 with tanhf's, rounded down to a whole percent."""
+        g = torch.Generator(device=dev).manual_seed(6)
+        runs = {"kernel": [], "plain": [], "tanhf": []}
+        for _ in range(XE_CMP_BATCHES):
+            fc, att = (torch.randn(feats[k].shape, generator=g, device=dev)
+                       .to(feats[k].dtype) for k in ("fc", "att"))
+
+            def dec(**kw):
+                return inference.decode_xe(
+                    params, fc, att, settings=settings, ids=ids,
+                    beam_size=BEAM, max_seq_len=T, **kw)
+            runs["kernel"].append(dec())
+            runs["plain"].append(dec(use_kernels=False))
+            with _v1_exact_tanh(fa):
+                runs["tanhf"].append(dec())
+        ks, ksc, ps, psc, ts, tsc = (
+            torch.cat([r[i] for r in runs[k]]) for k in
+            ("kernel", "plain", "tanhf") for i in (0, 1))
+        eq, dscore = _top_beams_vs_plain(ks, ksc, ps, psc)
+        eq_t, _ = _top_beams_vs_plain(ts, tsc, ps, psc)
+        share, share_t = float(eq.float().mean()), float(eq_t.float().mean())
+        gate = 1.0 if tag == "f32" else \
+            math.floor(100 * share_t + 1e-9) / 100
+        res = {"images": int(eq.numel()), "top_beam_identical": share,
+               "top_beam_identical_tanhf": share_t,
+               "max_score_diff": dscore, "gate": gate}
+        _check(share >= gate and (tag != "f32" or dscore <= 1e-3),
+               f"train_xe {tag} trained dump against the plain path: {res}")
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the tree: >= 5 train batches, val (its last batch padded) and
+        # test; the vocabulary padded to VOCAB words
+        t0 = time.time()
+        synthetic.build_tree(tmp, settings, seed=0, n_img=XE_N_IMG)
+        synthetic.write_det_concepts(tmp)
+        vpath = os.path.join(tmp, "data/captions/coco/part/idx2word.json")
+        with open(vpath) as f:
+            words = json.load(f)
+        words += [f"w{i}" for i in range(len(words), VOCAB)]
+        with open(vpath, "w") as f:
+            json.dump(words, f)
+        out["tree_s"] = time.time() - t0
+
+        # 2. a seeded full-width sentence classifier through the port's
+        # writer and reader
+        cls = ss_cls.init_params(torch.Generator().manual_seed(5), VOCAB,
+                                 NUM_CATS, settings, device=dev)
+        cls_file = os.path.join(tmp, "cls.ckpt")
+        tck.save(cls_file, cls, None, {
+            "settings": settings.to_dict(), "idx2word": words,
+            "sentiment_categories": cats, "dataset_name": "coco",
+            "corpus_type": "part"})
+        back, _ = tck.load(cls_file, device=dev)
+        _check([p for p, _ in _tree_paths(back)]
+               == [p for p, _ in _tree_paths(cls)] and all(
+                   torch.equal(a, b) for (_, a), (_, b) in
+                   zip(_tree_paths(back), _tree_paths(cls))),
+               "the classifier checkpoint did not read back bit-identical")
+
+        def opts(name, **kw):
+            ck = os.path.join(tmp, "ck_" + name)
+            d = os.path.join(ck, "sent_senti_cls", "coco", "part")
+            os.makedirs(d)
+            shutil.copy(cls_file, os.path.join(d, "model-best.ckpt"))
+            return Opts(**dict(dict(
+                settings=settings, xe_bs=XE_BS, beam_size=BEAM,
+                max_seq_len=T, seed=0, scheduled_sampling_increase_every=1,
+                captions_dir=os.path.join(tmp, "data/captions"),
+                feats_dir=os.path.join(tmp, "data/features"),
+                checkpoint=ck, result_dir=os.path.join(tmp, "res_" + name),
+                device=str(dev)), **kw))
+
+        def stage(o, *parts):
+            return os.path.join(o.checkpoint, "xe", "coco", "part", *parts)
+
+        tck.save, steps.make_xe_steps = recording_save, recording_make
+        try:
+            # 3. two f32 epochs at the default dropout; epoch 1's ss_prob
+            # 0.05. No training step reaches a kernel, so v1's count, set
+            # to 0 here, counts the two epochs' beam dumps
+            o32 = opts("f32", xe_epochs=2)
+            zero_counters()
+            t0 = time.time()
+            full = train_xe.train(o32)
+            torch.cuda.synchronize()
+            out["f32_two_epochs_s"] = time.time() - t0
+            out["launches"] = read_counters()
+            metrics = [json.loads(x) for x in open(stage(o32,
+                                                         "metrics.jsonl"))]
+            f32_steps = [s["all_loss"] for s in step_losses]
+            _check(len(metrics) == 2 and all(
+                math.isfinite(v) for m in metrics for v in m.values()
+                if isinstance(v, float)) and all(
+                    math.isfinite(v) for s in step_losses
+                    for v in s.values()), f"non-finite losses {metrics}")
+            _check(metrics[1]["ss_prob"] == 0.05, "epoch 1's ss_prob")
+            _check(metrics[1]["train_xe_loss"] < metrics[0]["train_xe_loss"],
+                   "epoch 1's train XE loss is not below epoch 0's: "
+                   f"{metrics}")
+            res0 = json.load(open(os.path.join(
+                o32.result_dir, "xe", "coco", "part", "result_0.json")))
+            _check(len(res0) == XE_N_IMG["test"] and len(
+                {r["image_id"] for r in res0}) == XE_N_IMG["test"] and all(
+                    isinstance(r["caption"], str) for r in res0),
+                   f"result_0.json: {len(res0)} captions")
+            _check(out["launches"]["beam_content_attention"] > 0,
+                   f"no v1 launch in the beam dumps: {out['launches']}")
+            out["dump_mean_words"] = [float(np.mean([
+                len(r["caption"].split()) for r in json.load(open(
+                    os.path.join(o32.result_dir, "xe", "coco", "part",
+                                 f"result_{e}.json")))])) for e in (0, 1)]
+
+            # 4. the epoch-0 checkpoint, with its optimizer state, reads
+            # back bit-identical to what was saved
+            [name0] = [k for k in saved if k.startswith("model_0_")]
+            p_back, s_back, meta0 = tck.load(stage(o32, name0), device=dev,
+                                             with_opt_state=True)
+            p_saved, s_saved = saved[name0]
+            for tree_a, tree_b, what in ((p_back, p_saved, "params"),
+                                         (s_back, s_saved, "opt_state")):
+                pa, pb = _tree_paths(tree_a), _tree_paths(tree_b)
+                _check([p for p, _ in pa] == [p for p, _ in pb] and all(
+                    a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                    for (_, a), (_, b) in zip(pa, pb)),
+                    f"epoch-0 {what} did not read back bit-identical")
+            _check(int(s_back["count"]) == len(f32_steps) // 2
+                   and meta0["epoch"] == 0, "epoch-0 step count")
+
+            # 5. --xe_resume from it: epoch 1 again, against the
+            # uninterrupted run (the same batches and draws)
+            t0 = time.time()
+            resumed = train_xe.train(opts("resume", xe_epochs=2,
+                                          xe_resume=stage(o32, name0)))
+            torch.cuda.synchronize()
+            out["resume_epoch_s"] = time.time() - t0
+            steps1 = len(f32_steps) // 2
+            rest, inv = _param_diff(resumed, full)
+            out["resume_max_abs_diff"] = {"params": rest,
+                                          "softmax_invariant_biases": inv}
+            _check(rest <= 1e-5 and inv <= XE_LR * steps1,
+                   f"resumed params differ from the uninterrupted run's: "
+                   f"{rest} (tolerance 1e-5), biases {inv} (tolerance "
+                   f"{XE_LR * steps1})")
+
+            # 7. one bf16 epoch: finite losses that fall over its steps
+            step_losses.clear()
+            t0 = time.time()
+            train_xe.train(opts("bf16", xe_epochs=1,
+                                compute_dtype="bfloat16"))
+            torch.cuda.synchronize()
+            out["bf16_epoch_s"] = time.time() - t0
+            bf16_steps = [s["all_loss"] for s in step_losses]
+            _check(all(math.isfinite(v) for s in step_losses
+                       for v in s.values())
+                   and bf16_steps[-1] < bf16_steps[0],
+                   f"bf16 epoch losses {bf16_steps}")
+        finally:
+            tck.save, steps.make_xe_steps = orig_save, orig_make
+        out.update(metrics_f32=metrics, step_all_loss_f32=f32_steps,
+                   step_all_loss_bf16=bf16_steps)
+
+        # 6. one deterministic f32 step (dropout off, ss_prob 0) on the card
+        # and on the CPU from the same weights and the tree's first batch
+        o = opts("inputs")
+        vocab = Vocab(words)
+        caps_id = common.tokenize_captions(common.load_json(
+            common.dataset_path(o, "img_captions.json")), vocab)
+        cpts_id = common.tokenize_concepts(common.load_json(
+            common.dataset_path(o, "img_det_concepts.json")), vocab)
+        scs_id = common.tokenize_senti_corpus(common.load_json(
+            common.corpus_path(o, "senti_captions.json")), vocab, cats)
+        fc_s, att_s = (common.open_store(p) for p in common.feature_paths(o))
+        loader = common.caption_loader(fc_s, att_s, caps_id["train"],
+                                       cpts_id, vocab, o, XE_BS)
+        batch = loader.assemble(loader._index_batches()[0])
+        scs_loader = common.scs_loader(scs_id, vocab, o, train_xe.SCS_BS)
+        scs_b = scs_loader.assemble(scs_loader._index_batches()[0])
+        nodrop = dataclasses.replace(settings, dropout_p=0.0)
+
+        class RecordingAdam(optim.Adam):
+            """Adam that keeps, on the host, the gradients it steps on."""
+            def step(self):
+                self.grads = [(path, torch.zeros(p.shape) if p.grad is None
+                               else p.grad.detach().float().cpu())
+                              for path, p in _tree_paths(self.params)]
+                super().step()
+
+        def one_step(device):
+            params = nn.tree_map(
+                lambda x: x.requires_grad_(True),
+                cap.init_params(torch.Generator().manual_seed(3), VOCAB,
+                                NUM_CATS, nodrop, device=device))
+            adam = RecordingAdam(params, XE_LR)
+            train_step, _ = steps.make_xe_steps(nodrop, adam)
+            rt = common.Runtime(Opts(device=str(device)))
+            with nn.exact_numerics():
+                losses = train_step(
+                    nn.tree_map(lambda x: x.to(device), cls),
+                    rt.put(batch), rt.put(scs_b),
+                    torch.Generator(device=device).manual_seed(0), 0.0)
+            return ({k: float(v) for k, v in losses.items()},
+                    nn.tree_map(lambda x: x.detach().cpu(), params),
+                    adam.grads)
+        t0 = time.time()
+        l_card, p_card, g_card = one_step(dev)
+        l_cpu, p_cpu, g_cpu = one_step(torch.device("cpu"))
+        out["cpu_step_s"] = time.time() - t0
+        loss_rel = max(abs(l_card[k] - l_cpu[k]) / abs(l_cpu[k])
+                       for k in l_cpu)
+        # Adam's first update is about lr * sign(g), so the params hold the
+        # gradients' signs only: their sizes are held here, leaf by leaf
+        grad_rel = {}
+        for (path, gc), (_, gp) in zip(g_card, g_cpu):
+            if path in SOFTMAX_INVARIANT:
+                continue
+            norm = float(gp.norm())
+            grad_rel["/".join(path)] = (
+                float((gc - gp).norm()) / norm if norm
+                else (0.0 if torch.equal(gc, gp) else math.inf))
+        worst = max(grad_rel, key=grad_rel.get)
+        rest, inv = _param_diff(p_card, p_cpu)
+        out["card_vs_cpu"] = {"losses_card": l_card, "losses_cpu": l_cpu,
+                              "loss_max_rel": loss_rel,
+                              "grad_max_rel": grad_rel[worst],
+                              "grad_max_rel_leaf": worst,
+                              "params_max_abs": rest,
+                              "softmax_invariant_biases_max_abs": inv}
+        _check(loss_rel <= 1e-5, f"card step losses {l_card} against the "
+               f"CPU's {l_cpu}: {loss_rel} relative (tolerance 1e-5)")
+        _check(grad_rel[worst] <= XE_GRAD_RTOL,
+               f"card step gradient of {worst} differs from the CPU's by "
+               f"{grad_rel[worst]} of its norm (tolerance {XE_GRAD_RTOL})")
+        _check(rest <= 1e-5 and inv <= XE_LR,
+               f"card step params differ from the CPU's by {rest} "
+               f"(tolerance 1e-5), biases {inv} (tolerance {XE_LR})")
+
+        # 8. ms per XE train step (bs 20 + the seq2seq batch of 80, the
+        # default dropout, ss_prob 0), median of 5 after one warm-up, and
+        # the beam dump's captions/s at bs 20, beam 3 (host clock around
+        # synchronised calls)
+        def wall_ms(fn, runs=5):
+            fn()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            return statistics.median(walls) * 1e3
+        test_fns = sorted(caps_id["test"])[:XE_BS]
+        ids = cap.TokenIds(pad=0, unk=1, sos=2, eos=3, neutral=2)
+        timing = {}
+        for tag, cdt in (("f32", "float32"), ("bf16", "bfloat16")):
+            rt = common.Runtime(Opts(device=str(dev), compute_dtype=cdt))
+            params = nn.tree_map(
+                lambda x: x.requires_grad_(True),
+                rt.cast(cap.init_params(torch.Generator().manual_seed(3),
+                                        VOCAB, NUM_CATS, settings,
+                                        device=dev)))
+            # the dump on the random weights, before the timed steps
+            # train them: random weights end no caption early (a few
+            # steps of training make EOS the first word of every caption)
+            frozen = nn.tree_map(lambda x: x.detach().clone(), params)
+            train_step, _ = steps.make_xe_steps(
+                settings, optim.Adam(params, XE_LR))
+            b, s, c = rt.put(batch), rt.put(scs_b), rt.cast(cls)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            step_ms = wall_ms(lambda: train_step(c, b, s, gen, 0.0))
+            # the profiler's device time of a step, by kernel: the busy
+            # share of the host-clock step
+            by_kernel = device_ms_by_kernel(
+                lambda: train_step(c, b, s, gen, 0.0), iters=5, warm=1)
+            busy = sum(by_kernel.values())
+            feats = rt.put({"fc": fc_s.batch(test_fns),
+                            "att": att_s.batch(test_fns)})
+            with torch.no_grad():
+                def dump(use_kernels=True):
+                    return inference.decode_xe(
+                        frozen, feats["fc"], feats["att"], settings=settings,
+                        ids=ids, beam_size=BEAM, max_seq_len=T,
+                        use_kernels=use_kernels)
+                dump_ms = wall_ms(dump)
+                fa.beam_content_attention.launches = 0   # a v1 call a step
+                seqs, scores = dump()
+                dump_steps = fa.beam_content_attention.launches
+                eq, dscore = _top_beams_vs_plain(
+                    seqs, scores, *dump(use_kernels=False))
+                _check(bool((seqs[:, 0, 0] != ids.eos).all()),
+                       f"train_xe {tag} dump: an empty top-beam caption")
+                vs_plain = {"random_weights": {
+                    "top_beam_identical": float(eq.float().mean()),
+                    "max_score_diff": dscore}}
+                if tag == "f32":
+                    _check(bool(eq.all()) and dscore <= 1e-3,
+                           f"train_xe f32 dump: top beams identical to "
+                           f"the plain path's on {vs_plain}")
+                vs_plain["trained"] = dump_trained(
+                    rt.cast(nn.tree_map(lambda x: x.float(), cap_t)),
+                    feats, tag, ids)
+            timing[tag] = {
+                "train_step_ms": step_ms, "device_ms": busy,
+                "idle_share": max(0.0, 1.0 - busy / step_ms),
+                "top_kernels_ms": dict(sorted(
+                    by_kernel.items(), key=lambda kv: -kv[1])[:6]),
+                "dump_ms": dump_ms, "dump_steps": dump_steps,
+                "dump_captions_per_s": XE_BS / dump_ms * 1e3,
+                "dump_vs_plain": vs_plain}
+        out["timing"] = timing
+    smi = _smi()
+    print(f"train_xe (phase 3f, full width, vocab {VOCAB}, xe_bs {XE_BS}, "
+          f"seq2seq {train_xe.SCS_BS}): tree {out['tree_s']:.1f} s; two f32 "
+          f"epochs {out['f32_two_epochs_s']:.1f} s ({len(f32_steps)} steps), "
+          "train/val all_loss by epoch " + ", ".join(
+              f"{m['train_all_loss']:.4f}/{m['val_all_loss']:.4f}"
+              for m in metrics) + f"; v1 launches in the dumps "
+          f"{out['launches']['beam_content_attention']} (mean caption words "
+          f"by epoch {out['dump_mean_words']}); resumed epoch 1 "
+          f"{out['resume_epoch_s']:.1f} s, max |diff| "
+          f"{out['resume_max_abs_diff']['params']:.3g} (biases "
+          f"{out['resume_max_abs_diff']['softmax_invariant_biases']:.3g}); "
+          f"bf16 epoch {out['bf16_epoch_s']:.1f} s, step all_loss "
+          + " ".join(f"{v:.4f}" for v in bf16_steps))
+    cv = out["card_vs_cpu"]
+    print(f"train_xe card step against the CPU's (f32, dropout off): loss "
+          f"{cv['losses_card']['all_loss']:.6f} vs "
+          f"{cv['losses_cpu']['all_loss']:.6f}, max rel "
+          f"{cv['loss_max_rel']:.3g}; gradients max |diff|/|CPU's| "
+          f"{cv['grad_max_rel']:.3g} ({cv['grad_max_rel_leaf']}, tolerance "
+          f"{XE_GRAD_RTOL}); params max |diff| "
+          f"{cv['params_max_abs']:.3g} (biases "
+          f"{cv['softmax_invariant_biases_max_abs']:.3g})")
+    for tag, r in timing.items():
+        print(f"train_xe {tag} on {smi}: {r['train_step_ms']:.2f} ms a train "
+              f"step (median of 5; device {r['device_ms']:.2f} ms, idle "
+              f"share {r['idle_share']:.3f}; largest: " + ", ".join(
+                  f"{k[:40]} {v:.3f}" for k, v in
+                  list(r["top_kernels_ms"].items())[:3])
+              + f"), beam dump {r['dump_ms']:.2f} ms a batch of {XE_BS} "
+              f"({r['dump_steps']} steps, random weights) -> "
+              f"{r['dump_captions_per_s']:.1f} captions/s")
+        vr, vt = r["dump_vs_plain"]["random_weights"], \
+            r["dump_vs_plain"]["trained"]
+        print(f"train_xe {tag} dump against the plain path, top beams "
+              f"identical: random weights {vr['top_beam_identical']:.2%} of "
+              f"{XE_BS} (score diff {vr['max_score_diff']:.3g}); trained "
+              f"{vt['top_beam_identical']:.2%} of {vt['images']} (v1 tanhf "
+              f"{vt['top_beam_identical_tanhf']:.2%}, gate {vt['gate']:.2f},"
+              f" score diff {vt['max_score_diff']:.3g})")
+    out["device"] = smi
     return out
 
 
@@ -1374,6 +1861,11 @@ def main():
         idx2concept, senti_table, zero_counters, read_counters)
     torch.cuda.empty_cache()
 
+    # -- 3f. the XE pre-training stage (train_xe) -------------------------
+    report["train_xe"] = _train_xe(torch, np, dev, settings, cap_t,
+                                   zero_counters, read_counters)
+    torch.cuda.empty_cache()
+
     # -- 4. f32 end to end: kernel path against the plain path -------------
     params32 = inference.ServingParams(cap32, det32)
     fc = torch.rand(BS, settings.fc_feat_dim, generator=g, device=dev)
@@ -1606,6 +2098,8 @@ def main():
         "source": "insenticap_model_tpu_torch/csrc/fused_attention.cu",
         "replaces": "insenticap_model_tpu/ops/fused_attention.py:27",
         "launches": launches["beam_content_attention"],
+        "launches_train_xe": report["train_xe"]["launches"][
+            "beam_content_attention"],
         "max_abs_err": checks["attention_bf16"],
         "ms": a_dev["total"], "ms_events": a_ms,
         "query_ms": a_dev["query_"], "attention_ms": a_dev["beam_att_kernel"],

@@ -7,16 +7,26 @@ two against each other on the CPU. This package imports ``torch`` only;
 whatever it needs from the JAX package's host modules it keeps its own copy
 of.
 
-Layer map (serving slices):
-  config        — ``Settings`` (architecture) and the sentiment categories
-  vocab         — ``Vocab`` and the decode's special ids (``token_ids``)
+Layer map:
+  config        — ``Settings`` (architecture), ``Opts`` (run flags) and
+                  the sentiment categories
+  vocab         — ``Vocab``, the decode's special ids (``token_ids``) and
+                  the sentiment corpus's upsampling
   nn            — primitives on plain tensors (linear, embed, lstm_cell,
-                  NHWC conv2d, log_softmax) with torch-default initialisers
+                  NHWC conv2d, log_softmax, dropout) with torch-default
+                  initialisers, and parameter-tree helpers
   convert       — weight bridge from/to the JAX package's numpy pytrees
-  training      — ``checkpoint``: reads the JAX package's checkpoint files
-                  (its own msgpack decoder in ``utils/msgpack.py``)
-  models        — captioner decode cell, image-sentiment detector and its
-                  "full" variant (``sentiment_detector.module_for``)
+  training      — ``checkpoint``: reads and writes the JAX package's
+                  checkpoint files (its own msgpack codec in
+                  ``utils/msgpack.py``), optimizer state included;
+                  ``optim``: Adam behind the gradient clamp; ``steps``:
+                  the XE train and eval steps
+  data          — batch assembly, loaders and the native feature store;
+                  ``synthetic`` writes a small artefact tree
+  models        — the captioner (decode cell, training forwards,
+                  criteria), the sentence classifier, the image-sentiment
+                  detector and its "full" variant
+                  (``sentiment_detector.module_for``)
   ops           — beam search, the beam-shared attention (v1, v2), the
                   fused classifier top-k and the chained Winograd detector
                   convs, each a hand-written CUDA kernel under ``csrc/``
@@ -27,6 +37,7 @@ Layer map (serving slices):
   serving       — the dynamic-batching core; ``serving_daemon`` holds the
                   single-device ``DynamicBatcher`` and
                   ``make_batcher_from_checkpoint``
+  cli           — entry points: ``serve``, ``caption``, ``train_xe``
 
 Two switches, read at each call as the JAX package reads them:
 ``ISC_FUSED_TOPK=1`` sends the beam's vocabulary tail through the fused

@@ -1,16 +1,41 @@
-"""The inference-side subset of ``insenticap_model_tpu/cli/common.py``
-(:34-83): JSON artefact reading, the decode's special ids, the concept
-checkpoint bootstrap and the detected-concepts -> sentiment-word ids step,
-shared by the captioning and serving entry points.
+"""Shared CLI plumbing: the counterpart of
+``insenticap_model_tpu/cli/common.py`` for the ported entry points.
+
+Inference side (:34-83): JSON artefact reading, the decode's special ids,
+the concept checkpoint bootstrap and the detected-concepts ->
+sentiment-word ids step. Training side (:39-50, :93-143, :341-360,
+:420-486): the artefact paths and reference-compatible tokenizers, a
+single-device ``Runtime`` (batch placement from pinned memory and the
+dtype policy), the caption and sentiment-corpus loaders, stage
+directories, checkpoint selection and result and metrics writing.
+
+Artefact schemas are the reference's JSON contracts (SURVEY.md §1):
+idx2word.json (list), img_captions.json ({split: {fn: [[word, ...],
+...]}}), img_det_concepts.json ({fn: [word]}), senti_captions.json
+({senti: [[cap_words, cpt_words, senti_words], ...]}).
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
-from ..vocab import token_ids  # noqa: F401 (re-export, as the JAX module)
+from .. import nn
+from ..config import Opts
+from ..data import collate
+from ..data.feature_store import open_store  # noqa: F401 (re-export, as
+#   the JAX module: the trainers open stores as common.open_store)
+from ..data.loaders import Loader
+from ..utils.dtypes import resolve_device
+from ..vocab import Vocab, token_ids, upsample_to_neutral  # noqa: F401
+
+# batch keys that stay on the host (``valid``, the count of true rows of a
+# padded eval batch, goes through as a Python int)
+HOST_KEYS = ("fns", "ground_truth")
 
 
 def load_json(*parts):
@@ -37,3 +62,217 @@ def senti_word_ids(concepts, senti_table, vocab,
     ids = vocab.encode_filter(words)
     row[:len(ids)] = ids
     return row
+
+
+# ---------------------------------------------------------------------------
+# Artefacts and tokenization (reference train_xe.py:76-120)
+# ---------------------------------------------------------------------------
+
+def corpus_path(opt: Opts, *names):
+    return os.path.join(opt.captions_dir, opt.dataset_name, opt.corpus_type,
+                        *names)
+
+
+def dataset_path(opt: Opts, *names):
+    return os.path.join(opt.captions_dir, opt.dataset_name, *names)
+
+
+def load_vocab(opt: Opts) -> Vocab:
+    return Vocab(load_json(corpus_path(opt, "idx2word.json")))
+
+
+def feature_paths(opt: Opts):
+    """<feats_dir>/<ds>/<ds>_fc.isc and _att.isc (the reference's
+    <ds>_fc.h5 layout, train_xe.py:122-123, in the native format; an .h5
+    path is returned where only it exists, for ``open_store`` to refuse
+    by name)."""
+    base = os.path.join(opt.feats_dir, opt.dataset_name)
+    out = []
+    for kind in ("fc", "att"):
+        stem = os.path.join(base, f"{opt.dataset_name}_{kind}")
+        out.append(stem + ".h5" if not os.path.exists(stem + ".isc")
+                   and os.path.exists(stem + ".h5") else stem + ".isc")
+    return tuple(out)
+
+
+def tokenize_captions(img_captions: Dict, vocab: Vocab) -> Dict:
+    """{split: {fn: [[w..]..]}} -> ids with SOS/EOS (train_xe.py:81-94)."""
+    return {split: {fn: [vocab.encode_caption(seq) for seq in seqs]
+                    for fn, seqs in caps.items()}
+            for split, caps in img_captions.items()}
+
+
+def tokenize_concepts(img_det_concepts: Dict, vocab: Vocab) -> Dict:
+    """Strict lookup (train_xe.py:97-100)."""
+    return {fn: vocab.encode_strict(ws)
+            for fn, ws in img_det_concepts.items()}
+
+
+def tokenize_senti_corpus(senti_captions: Dict, vocab: Vocab,
+                          sentiment_categories,
+                          upsample: bool = True) -> List:
+    """-> [[cap_ids, cpt_ids, senti_ids, senti_label], ...] with the
+    integer-ratio pos/neg upsampling (train_xe.py:102-120)."""
+    if upsample:
+        senti_captions = upsample_to_neutral(senti_captions)
+    label2idx = {w: i for i, w in enumerate(sentiment_categories)}
+    out = []
+    for senti, caps in senti_captions.items():
+        sid = label2idx[senti]
+        for cap, cpts, sentis in caps:
+            out.append([vocab.encode_caption(cap),
+                        vocab.encode_filter(cpts),
+                        vocab.encode_strict(sentis), sid])
+    return out
+
+
+def flatten_caption_items(captions_id: Dict, concepts_id: Dict) -> List:
+    """One row per caption, images repeated (dataloader.py:164-181)."""
+    return [(fn, cap, concepts_id[fn])
+            for fn, caps in captions_id.items() for cap in caps]
+
+
+# ---------------------------------------------------------------------------
+# Runtime: one device, placement and dtype policy
+# ---------------------------------------------------------------------------
+
+class Runtime:
+    """Device and dtype policy for a CLI run: the card unless
+    ``opt.device`` says cpu, float32 or bfloat16 compute. One device: a
+    ``mesh_shape`` of more than one device exits with a message."""
+
+    def __init__(self, opt: Opts):
+        if int(np.prod(opt.mesh_shape or (1,))) > 1:
+            raise SystemExit(
+                f"--mesh_shape {list(opt.mesh_shape)}: multi-device "
+                "training is not ported yet; train on one device (leave "
+                "--mesh_shape unset)")
+        self.opt = opt
+        self.device = resolve_device(opt.device)
+        self.dtype = torch.bfloat16 if opt.compute_dtype == "bfloat16" \
+            else torch.float32
+        print(f"====> device: {self.device}, compute dtype "
+              f"{opt.compute_dtype}")
+
+    def round_bs(self, bs: int) -> int:
+        """The batch size (one device: as given)."""
+        return bs
+
+    def put(self, batch: Dict) -> Dict:
+        """Array values to the device (from pinned memory, not blocking,
+        on the card), float ones cast to the compute dtype; host-only keys
+        left out, ``valid`` kept as an int."""
+        out = {}
+        for k, v in batch.items():
+            if k in HOST_KEYS:
+                continue
+            if k == "valid":
+                out[k] = int(v)
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t.to(self.dtype) if t.is_floating_point() else t
+        return out
+
+    def cast(self, tree):
+        """Float32 leaves to the compute dtype."""
+        return nn.tree_map(lambda t: t.to(self.dtype)
+                           if t.dtype == torch.float32 else t, tree)
+
+
+# ---------------------------------------------------------------------------
+# Loader builders (the reference's get_*_dataloader factories,
+# dataloader.py:275-370)
+# ---------------------------------------------------------------------------
+
+def caption_loader(fc_store, att_store, captions_id, concepts_id, vocab,
+                   opt: Opts, bs: int, shuffle=True, drop_last=True,
+                   seed=0) -> Loader:
+    items = flatten_caption_items(captions_id, concepts_id)
+    fn = functools.partial(collate.caption_batch,
+                           max_seq_len=opt.max_seq_len,
+                           num_concepts=opt.num_concepts, pad_id=vocab.pad_id,
+                           fc_store=fc_store, att_store=att_store)
+    return Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                  seed=seed)
+
+
+def scs_loader(senti_corpus_id, vocab, opt: Opts, bs: int, seed=0) -> Loader:
+    fn = functools.partial(collate.scs_batch, max_seq_len=opt.max_seq_len,
+                           num_concepts=opt.num_concepts,
+                           num_sentiments=opt.num_sentiments,
+                           pad_id=vocab.pad_id)
+    return Loader(senti_corpus_id, bs, fn, shuffle=True, seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# Results / checkpoints
+# ---------------------------------------------------------------------------
+
+def ensure_dir(path: str) -> str:
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def stage_dirs(opt: Opts, stage: str):
+    ck = ensure_dir(os.path.join(opt.checkpoint, stage, opt.dataset_name,
+                                 opt.corpus_type))
+    rs = ensure_dir(os.path.join(opt.result_dir, stage, opt.dataset_name,
+                                 opt.corpus_type))
+    return ck, rs
+
+
+def best_checkpoint(opt: Opts, stage: str) -> str:
+    """<checkpoint>/<stage>/<ds>/<corpus>/model-best.ckpt (the reference
+    picks the best by hand, train_xe.py:60), else the newest epoch
+    checkpoint there."""
+    d = os.path.join(opt.checkpoint, stage, opt.dataset_name, opt.corpus_type)
+    best = os.path.join(d, "model-best.ckpt")
+    if os.path.exists(best):
+        return best
+    cands = sorted((os.path.getmtime(os.path.join(d, f)),
+                    os.path.join(d, f)) for f in os.listdir(d)
+                   if f.endswith(".ckpt")) if os.path.isdir(d) else []
+    if not cands:
+        raise FileNotFoundError(f"no checkpoint under {d}")
+    return cands[-1][1]
+
+
+def dump_results(result_dir: str, tag: str, results: List[Dict],
+                 vocab: Optional[Vocab] = None) -> None:
+    """result_<tag>.json + .txt, and the id form .txt when ids are present
+    (the input of eval_cls_rnn, reference train_rl.py:283-309)."""
+    with open(os.path.join(result_dir, f"result_{tag}.json"), "w") as f:
+        json.dump([{"image_id": r["image_id"], "caption": r["caption"]}
+                   for r in results], f)
+    with open(os.path.join(result_dir, f"result_{tag}.txt"), "w") as f:
+        f.write("".join(r["caption"] + "\n" for r in results))
+    if results and "ids" in results[0]:
+        with open(os.path.join(result_dir, f"result_{tag}_ids.txt"),
+                  "w") as f:
+            for r in results:
+                f.write(" ".join(map(str, r["ids"])) + "\n")
+
+
+def metrics_line(log_path: str, record: Dict) -> None:
+    """One JSON line of metrics."""
+    with open(log_path, "a") as f:
+        f.write(json.dumps(record, sort_keys=True) + "\n")
+
+
+def run_with_post_mortem(fn, *args):
+    """Run a trainer; under ISC_PDB=1 drop into pdb.post_mortem on a
+    failure (the reference wraps every entry point so, train_xe.py:257-267;
+    here opt-in, so unattended runs fail fast)."""
+    if os.environ.get("ISC_PDB") != "1":
+        return fn(*args)
+    try:
+        return fn(*args)
+    except BaseException:
+        import pdb
+        import traceback
+        traceback.print_exc()
+        print("-" * 60)
+        pdb.post_mortem()
+        raise

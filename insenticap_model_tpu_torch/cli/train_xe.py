@@ -1,0 +1,229 @@
+"""Captioner XE pre-training (reference train_xe.py) on the card.
+
+    python -m insenticap_model_tpu_torch.cli.train_xe [--xe_bs 20] \\
+        [--compute_dtype bfloat16] [--xe_resume CKPT] [--device cpu] ...
+
+Counterpart of ``insenticap_model_tpu/cli/train_xe.py``, with its flags
+(``cli/opts.py``) and its epoch: the scheduled-sampling schedule
+(:209-212), the train step (XE + domain alignment + seq2seq, with the
+frozen sentence classifier's pseudo labels; ``training/steps.py``), the
+val pass by masked sums, the beam decode of the whole test split
+(:219-232; ``inference.decode_xe``, which runs the beam-shared attention
+kernel on the card), lr halving on a val plateau (:234-238) and
+checkpoints, with the optimizer state, at the reference's epochs
+(:241-254). Files are the JAX package's: its CLI resumes from the port's
+checkpoints and the port from its.
+
+Each step draws its dropout masks and scheduled-sampling inputs from a
+generator seeded from (seed, epoch, step). ``--xe_resume`` restores the
+parameters, the optimizer state and the learning rate, and replays the
+loaders' shuffles of the epochs before it, so that a resumed run meets
+the batches and draws an uninterrupted one meets (the JAX CLI restarts
+its loaders' streams instead).
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .. import inference, nn
+from ..config import Opts
+from ..data.loaders import CycleIterator, device_prefetch
+from ..models import captioner as cap
+from ..training import checkpoint as ckpt
+from ..training import optim, steps
+from . import common
+from .opts import parse_opt
+
+CKPT_EPOCHS = {0, 10, 15, 20, 25, 29, 30, 35, 39}  # train_xe.py:240
+SCS_BS = 80                     # the seq2seq batch (the JAX CLI's)
+
+
+def load_frozen_cls(opt: Opts, vocab, device):
+    """The frozen sentence-sentiment classifier from its best checkpoint
+    (train_xe.py:58-74)."""
+    path = common.best_checkpoint(opt, "sent_senti_cls")
+    print(f"====> loading checkpoint '{path}'")
+    params, meta = ckpt.load(path, device=device)
+    ckpt.validate_metadata(meta, settings=opt.settings,
+                           idx2word=vocab.idx2word,
+                           sentiment_categories=opt.sentiment_categories,
+                           dataset_name=opt.dataset_name,
+                           corpus_type=opt.corpus_type)
+    if "excitation1" not in params:
+        raise ckpt.CheckpointError(f"{path}: not a sentence-classifier "
+                                   f"checkpoint (keys {sorted(params)})")
+    return params
+
+
+def step_seed(seed: int, epoch: int, i: int) -> int:
+    """The seed of step i of an epoch's generator."""
+    return int(np.random.SeedSequence([seed, epoch, i]).generate_state(1)[0])
+
+
+def ss_prob_at(opt: Opts, epoch: int) -> float:
+    """The scheduled-sampling probability of an epoch (train_xe.py:209-212)."""
+    if epoch > opt.scheduled_sampling_start >= 0:
+        frac = ((epoch - opt.scheduled_sampling_start)
+                // opt.scheduled_sampling_increase_every)
+        return min(opt.scheduled_sampling_increase_prob * frac,
+                   opt.scheduled_sampling_max_prob)
+    return 0.0
+
+
+def train(opt: Opts):
+    """Run the stage; returns the trained captioner params."""
+    rt = common.Runtime(opt)
+    vocab = common.load_vocab(opt)
+    ids = common.token_ids(vocab, opt.sentiment_categories)
+    img_captions = common.load_json(
+        common.dataset_path(opt, "img_captions.json"))
+    img_det_concepts = common.load_json(
+        common.dataset_path(opt, "img_det_concepts.json"))
+    senti_captions = common.load_json(
+        common.corpus_path(opt, "senti_captions.json"))
+
+    params = cap.init_params(torch.Generator().manual_seed(opt.seed),
+                             len(vocab), len(opt.sentiment_categories),
+                             opt.settings, device=rt.device)
+    lr = opt.xe_lr
+    epoch0, opt_state = 0, None
+    if opt.xe_resume:
+        print(f"====> loading checkpoint '{opt.xe_resume}'")
+        params, opt_state, meta = ckpt.load(
+            opt.xe_resume, device=rt.device, dtype=torch.float32,
+            with_opt_state=True)
+        ckpt.validate_metadata(meta, settings=opt.settings,
+                               idx2word=vocab.idx2word,
+                               sentiment_categories=opt.sentiment_categories,
+                               dataset_name=opt.dataset_name,
+                               corpus_type=opt.corpus_type)
+        lr = meta.get("lr", lr)
+        epoch0 = meta["epoch"] + 1
+        print(f"====> loaded checkpoint, epoch: {meta['epoch']}")
+    params = nn.tree_map(lambda t: t.requires_grad_(True), rt.cast(params))
+    adam = optim.Adam(params, lr, opt.grad_clip)
+    if opt_state is not None:
+        optim.load_optax_state(adam, opt_state)
+        optim.set_lr(adam, lr)
+
+    cls_params = rt.cast(load_frozen_cls(opt, vocab, rt.device))
+
+    print("====> tokenizing artifacts")
+    captions_id = common.tokenize_captions(img_captions, vocab)
+    concepts_id = common.tokenize_concepts(img_det_concepts, vocab)
+    scs_id = common.tokenize_senti_corpus(senti_captions, vocab,
+                                          opt.sentiment_categories)
+
+    fc_path, att_path = common.feature_paths(opt)
+    fc_store = common.open_store(fc_path)
+    att_store = common.open_store(att_path)
+    bs = rt.round_bs(opt.xe_bs)
+    train_data = common.caption_loader(fc_store, att_store,
+                                       captions_id["train"], concepts_id,
+                                       vocab, opt, bs, seed=opt.seed)
+    val_data = common.caption_loader(fc_store, att_store, captions_id["val"],
+                                     concepts_id, vocab, opt, bs,
+                                     shuffle=False, drop_last=False)
+    scs_data = CycleIterator(common.scs_loader(scs_id, vocab, opt,
+                                               rt.round_bs(SCS_BS),
+                                               seed=opt.seed))
+    # the shuffles and seq2seq batches of the epochs before a resume
+    train_data.advance(epoch0)
+    scs_data.skip(epoch0 * len(train_data))
+    test_fns = sorted(captions_id["test"])
+
+    train_step, eval_step = steps.make_xe_steps(opt.settings, adam)
+    ck_dir, result_dir = common.stage_dirs(opt, "xe")
+    previous_loss = None
+    for epoch in range(epoch0, opt.xe_epochs):
+        print(f"--------------------epoch: {epoch}")
+        ss_prob = ss_prob_at(opt, epoch)
+        print(f"ss_prob: {ss_prob}")
+
+        agg, n = {}, 0
+        for i, b in enumerate(device_prefetch(train_data, rt.put)):
+            scs_b = rt.put(scs_data.next())
+            gen = torch.Generator(device=rt.device).manual_seed(
+                step_seed(opt.seed, epoch, i))
+            losses = train_step(cls_params, b, scs_b, gen, ss_prob)
+            for k, v in losses.items():   # summed on the device, read once
+                agg[k] = agg.get(k, 0.0) + v.double()
+            n += 1
+        train_loss = {k: float(v) / max(n, 1) for k, v in agg.items()}
+
+        # val: masked sums over the batches divided once, so padding rows
+        # add nothing and the batching does not move the result
+        sums, cnts = {}, {}
+        for b in device_prefetch(val_data, rt.put):
+            s, c = eval_step(cls_params, b)
+            for k in s:
+                sums[k] = sums.get(k, 0.0) + s[k].double()
+                cnts[k] = cnts.get(k, 0.0) + c[k].double()
+        val_loss = {k: float(sums[k]) / max(float(cnts[k]), 1.0)
+                    for k in sums}
+        val_loss["cap_loss"] = val_loss["xe_loss"] + val_loss["da_loss"]
+        val_loss["all_loss"] = val_loss["cap_loss"]
+
+        common.dump_results(result_dir, str(epoch),
+                            decode_split(params, fc_store, att_store,
+                                         test_fns, bs, rt, opt, ids, vocab),
+                            vocab)
+
+        if previous_loss is not None and \
+                val_loss["all_loss"] > previous_loss:
+            lr *= 0.5
+            optim.set_lr(adam, lr)
+        previous_loss = val_loss["all_loss"]
+
+        print(f"train_loss: {train_loss}, val_loss: {val_loss}")
+        common.metrics_line(os.path.join(ck_dir, "metrics.jsonl"), {
+            "epoch": epoch, "ss_prob": ss_prob, "lr": lr,
+            **{f"train_{k}": v for k, v in train_loss.items()},
+            **{f"val_{k}": v for k, v in val_loss.items()}})
+        if epoch in CKPT_EPOCHS:
+            ckpt.save(
+                ckpt.checkpoint_name(ck_dir, epoch, train_loss["all_loss"],
+                                     val_loss["all_loss"]),
+                params, optim.to_optax_state(adam), {
+                    "epoch": epoch, "lr": lr,
+                    "settings": opt.settings.to_dict(),
+                    "idx2word": vocab.idx2word,
+                    "sentiment_categories": list(opt.sentiment_categories),
+                    "dataset_name": opt.dataset_name,
+                    "corpus_type": opt.corpus_type})
+    return params
+
+
+@torch.no_grad()
+def decode_split(params, fc_store, att_store, fns, bs, rt, opt, ids, vocab):
+    """Beam-decode the images ``fns`` in batches of ``bs`` (the last padded
+    with its last image) on the detached params -> the dump's records
+    (train_xe.py:219-232)."""
+    frozen = nn.tree_map(torch.Tensor.detach, params)
+    results = []
+    for s in range(0, len(fns), bs):
+        chunk = fns[s:s + bs]
+        padded = chunk + [chunk[-1]] * (bs - len(chunk))
+        b = rt.put({"fc": fc_store.batch(padded),
+                    "att": att_store.batch(padded)})
+        seqs, _ = inference.decode_xe(frozen, b["fc"], b["att"],
+                                      settings=opt.settings, ids=ids,
+                                      beam_size=opt.beam_size,
+                                      max_seq_len=opt.max_seq_len)
+        seqs = seqs.cpu().numpy()
+        for i, fn in enumerate(chunk):
+            results.append({"image_id": fn,
+                            "caption": vocab.decode_to_text(seqs[i, 0]),
+                            "ids": [int(t) for t in seqs[i, 0]]})
+    return results
+
+
+def main(argv=None):
+    common.run_with_post_mortem(train, parse_opt(argv))
+
+
+if __name__ == "__main__":
+    main()

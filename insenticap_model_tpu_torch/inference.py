@@ -54,14 +54,30 @@ def detect_and_decode(params: ServingParams, fc, att, sentis, *, settings,
 
 
 def decode_xe(params_captioner, fc, att, *, settings, ids: cap.TokenIds,
-              beam_size: int = 3, max_seq_len: int = 16):
+              beam_size: int = 3, max_seq_len: int = 16,
+              use_kernels: bool = True):
     """XE-stage beam decode: no sentiment words and no sentiment-label
-    embedding (reference train_xe.py:221-229, captioner.py:375-376)."""
+    embedding (reference train_xe.py:221-229, captioner.py:375-376).
+    use_kernels=False runs the plain cell and tail (``beam_search_batched``)."""
     ctx = cap.build_visual_context(params_captioner, fc, att,
                                    pad_id=ids.pad)
     return beam.beam_search_batched(
         params_captioner, ctx, settings=settings, ids=ids,
-        beam_size=beam_size, max_seq_len=max_seq_len, mode="xe")
+        beam_size=beam_size, max_seq_len=max_seq_len, mode="xe",
+        use_kernels=use_kernels)
+
+
+def decode_greedy(params_captioner, fc, att, sentis, senti_labels, *,
+                  settings, ids: cap.TokenIds, max_seq_len: int = 16):
+    """Greedy decode with sentiment conditioning: ``forward_rl`` with
+    ``sample_max``, in eval mode (reference captioner.py:290-349, greedy
+    branch). Returns (seqs [bs, T] int32, masks [bs, T])."""
+    seq, _, masks, _ = cap.forward_rl(
+        params_captioner, fc, att,
+        torch.zeros((fc.shape[0], 1), dtype=torch.int32, device=fc.device),
+        sentis, senti_labels, settings=settings, ids=ids,
+        max_seq_len=max_seq_len, sample_max=True, deterministic=True)
+    return seq, masks
 
 
 def sweep_sentiments(params_captioner, fc, att, sentis_by_label, *,

@@ -1,10 +1,18 @@
-"""Sentiment-controllable attention-LSTM captioner: the serving part.
+"""Sentiment-controllable attention-LSTM captioner.
 
 Counterpart of ``insenticap_model_tpu/models/captioner.py`` (reference
 models/captioner.py:121-424): the Up-Down-style two-LSTM decode cell with
-content / sentiment-word / gated-fusion attention. Serving runs the cell in
-eval mode, so nothing here draws dropout; the teacher-forced and RL
-training forwards and the criteria come with the training slice.
+content / sentiment-word / gated-fusion attention, the teacher-forced
+(``forward_xe``, ``forward_seq2seq``) and rollout (``forward_rl``) training
+forwards, and the criteria. Where the JAX package runs a ``lax.scan`` the
+port runs a Python loop over the fixed ``max_seq_len`` steps.
+
+Randomness (dropout masks, scheduled sampling, multinomial rollouts)
+draws from one ``torch.Generator`` on the tensors' device, passed as
+``gen``: the JAX package splits keys instead, so the two agree in
+distribution, not draw for draw. ``deterministic=True`` (the default of
+the eval-mode entries serving uses) draws nothing and returns the inputs
+of every dropout site unchanged.
 """
 from __future__ import annotations
 
@@ -90,31 +98,87 @@ def embed_word(params, ids):
     return torch.relu(nn.embed(params["word_embed"], ids, pad_id=0))
 
 
-def build_visual_context(params, fc_feats, att_feats, *, senti_words=None,
-                         senti_labels=None, pad_id: int = 0
-                         ) -> DecodeContext:
-    """Embed visual features (+ optional sentiment words/labels) once, in
-    eval mode (the JAX package's ``deterministic=True``)."""
-    fc = _relu_linear(params["fc_embed"], fc_feats)               # [bs, Fe]
+def init_state(batch: int, hid_dim: int, dtype=torch.float32,
+               device="cpu") -> DecodeState:
+    z = torch.zeros((batch, hid_dim), dtype=dtype, device=device)
+    return DecodeState(z, z, z, z)
+
+
+def concept_fc(params, cpt_words):
+    """Concept words -> mean word embedding -> fc space (reference
+    captioner.py:201-203); the pre-dropout cpt_feats of the
+    domain-alignment loss."""
+    cpt = embed_word(params, cpt_words).mean(dim=1)               # [bs, We]
+    return _relu_linear(params["cpt2fc"], cpt)                    # [bs, Fe]
+
+
+def _senti_word_column(params, senti_words, pad_id):
+    """A PAD column prepended gives the sentiment attention a null slot
+    (reference captioner.py:307-309); -> ReLU'd embeddings [bs, M+1, We]."""
+    pad_col = torch.full((senti_words.shape[0], 1), pad_id,
+                         dtype=senti_words.dtype, device=senti_words.device)
+    return embed_word(params, torch.cat([pad_col, senti_words], dim=1))
+
+
+def _label_embed(params, senti_labels):
+    return torch.relu(nn.embed(params["senti_label_embed"], senti_labels))
+
+
+def build_visual_context_train(params, fc_feats, att_feats, dropout_p: float,
+                               gen, deterministic: bool, *, senti_words=None,
+                               senti_labels=None, pad_id: int = 0):
+    """Embed visual features (+ optional sentiment words/labels) once.
+    Returns (ctx, aux) with aux's pre-dropout ``fc_emb`` for the
+    domain-alignment MSE (reference captioner.py:199, decoder.py:89). One
+    mask a site a forward, not a step (reference captioner.py:198-214),
+    drawn in the JAX package's order: fc, att, sentiment words, label."""
+    fc_emb = _relu_linear(params["fc_embed"], fc_feats)           # [bs, Fe]
+    fc = nn.dropout(gen, fc_emb, dropout_p, deterministic)
     bs = att_feats.shape[0]
     att = att_feats.reshape(bs, -1, att_feats.shape[-1])          # [bs, N, Fa]
     att = _relu_linear(params["att_embed"], att)                  # [bs, N, Fe]
+    att = nn.dropout(gen, att, dropout_p, deterministic)
     # att2att is Linear+ReLU in the reference (captioner.py:149-150)
     p_att = _relu_linear(params["att2att"], att)                  # [bs, N, Ah]
 
     senti_word = p_senti_word = senti_label = None
     if senti_words is not None:
-        # a PAD column gives the sentiment attention a null slot
-        # (reference captioner.py:307-309)
-        pad_col = torch.full((bs, 1), pad_id, dtype=senti_words.dtype,
-                             device=senti_words.device)
-        sw = torch.cat([pad_col, senti_words], dim=1)             # [bs, M+1]
-        senti_word = embed_word(params, sw)
+        senti_word = nn.dropout(gen, _senti_word_column(params, senti_words,
+                                                        pad_id),
+                                dropout_p, deterministic)
         p_senti_word = _relu_linear(params["senti2att"], senti_word)
     if senti_labels is not None:
-        senti_label = torch.relu(nn.embed(params["senti_label_embed"],
-                                          senti_labels))
-    return DecodeContext(fc, att, p_att, senti_word, p_senti_word,
+        senti_label = nn.dropout(gen, _label_embed(params, senti_labels),
+                                 dropout_p, deterministic)
+    ctx = DecodeContext(fc, att, p_att, senti_word, p_senti_word,
+                        senti_label)
+    return ctx, {"fc_emb": fc_emb}
+
+
+def build_visual_context(params, fc_feats, att_feats, *, senti_words=None,
+                         senti_labels=None, pad_id: int = 0
+                         ) -> DecodeContext:
+    """The eval-mode context (the JAX package's ``deterministic=True``)."""
+    return build_visual_context_train(
+        params, fc_feats, att_feats, 0.0, None, True,
+        senti_words=senti_words, senti_labels=senti_labels,
+        pad_id=pad_id)[0]
+
+
+def build_seq2seq_context(params, cpt_words, senti_words, senti_labels,
+                          dropout_p: float, gen, deterministic: bool,
+                          pad_id: int = 0) -> DecodeContext:
+    """Text-only context: cpt_feats stand in for the fc features; no
+    visual attention (reference captioner.py:247-263)."""
+    fc = nn.dropout(gen, concept_fc(params, cpt_words), dropout_p,
+                    deterministic)
+    senti_word = nn.dropout(gen, _senti_word_column(params, senti_words,
+                                                    pad_id),
+                            dropout_p, deterministic)
+    p_senti_word = _relu_linear(params["senti2att"], senti_word)
+    senti_label = nn.dropout(gen, _label_embed(params, senti_labels),
+                             dropout_p, deterministic)
+    return DecodeContext(fc, None, None, senti_word, p_senti_word,
                          senti_label)
 
 
@@ -188,22 +252,190 @@ def att_lstm_step(params, ctx: DecodeContext, state: DecodeState, it):
 
 
 def decode_cell(params, ctx: DecodeContext, state: DecodeState, it, *,
-                mode: str):
-    """The eval-mode decode step up to the vocabulary projection: embed
-    token -> att LSTM -> attention -> lang LSTM. Returns (out, new_state,
-    weights)."""
+                mode: str, dropout_p: float = 0.0, gen=None,
+                deterministic: bool = True):
+    """The decode step up to the vocabulary projection: embed token ->
+    att LSTM -> attention -> lang LSTM -> dropout (eval mode by default).
+    Returns (out, new_state, weights)."""
     h_att, c_att = att_lstm_step(params, ctx, state, it)
     att_res, weights = fused_attention(params["attention"], h_att, ctx, mode)
     l_in = torch.cat([att_res, h_att], dim=1)
     h_lang, c_lang = nn.lstm_cell(params["lang_lstm"], l_in,
                                   (state.h_lang, state.c_lang))
-    return h_lang, DecodeState(h_att, c_att, h_lang, c_lang), weights
+    out = nn.dropout(gen, h_lang, dropout_p, deterministic)
+    return out, DecodeState(h_att, c_att, h_lang, c_lang), weights
 
 
 def decode_step(params, ctx: DecodeContext, state: DecodeState, it, *,
-                mode: str):
-    """One eval-mode decoder timestep: decode_cell -> classifier ->
-    log-softmax. Returns (logprobs, new_state, weights)."""
-    out, new_state, weights = decode_cell(params, ctx, state, it, mode=mode)
+                mode: str, dropout_p: float = 0.0, gen=None,
+                deterministic: bool = True):
+    """One decoder timestep: decode_cell -> classifier -> log-softmax.
+    Returns (logprobs, new_state, weights)."""
+    out, new_state, weights = decode_cell(
+        params, ctx, state, it, mode=mode, dropout_p=dropout_p, gen=gen,
+        deterministic=deterministic)
     logprobs = nn.log_softmax(nn.linear(params["classifier"], out))
     return logprobs, new_state, weights
+
+
+def _categorical(gen, logprobs):
+    """One draw a row from the distribution exp(logprobs) -> [rows]."""
+    return torch.multinomial(logprobs.float().exp(), 1, generator=gen)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forced forwards (xe / seq2seq) with scheduled sampling
+# (reference captioner.py:194-288)
+# ---------------------------------------------------------------------------
+
+def _teacher_forced_scan(params, ctx: DecodeContext, captions, *, mode: str,
+                         dropout_p: float, gen, ss_prob: float,
+                         deterministic: bool, hid_dim: int):
+    """captions [bs, T+1] padded ids SOS...EOS -> logprobs [bs, T, V] of
+    the steps predicting captions[:, 1:]. Scheduled sampling (reference
+    captioner.py:218-228): at t >= 1, with probability ss_prob a row, the
+    input is a draw from the previous step's distribution instead of the
+    ground truth."""
+    bs, tp1 = captions.shape
+    state = init_state(bs, hid_dim, ctx.fc.dtype, ctx.fc.device)
+    outs = []
+    for t in range(tp1 - 1):
+        it = captions[:, t]
+        if not deterministic and t >= 1 and ss_prob > 0:
+            use = torch.rand((bs,), generator=gen,
+                             device=captions.device) < ss_prob
+            it = torch.where(use, _categorical(gen, outs[-1].detach()),
+                             it.long())
+        logprobs, state, _ = decode_step(
+            params, ctx, state, it, mode=mode, dropout_p=dropout_p, gen=gen,
+            deterministic=deterministic)
+        outs.append(logprobs)
+    return torch.stack(outs, dim=1)
+
+
+def forward_xe(params, fc_feats, att_feats, cpt_words, captions,
+               senti_labels, *, settings, gen=None, ss_prob: float = 0.0,
+               deterministic: bool = False):
+    """XE teacher forcing (reference forward_xe, captioner.py:194-240).
+    Returns (logprobs [bs, T, V], aux) with aux = {fc_emb, cpt_feats} for
+    the domain-alignment loss MSE(cpt_feats, fc_emb.detach()) (reference
+    train_xe.py:163)."""
+    p = settings.dropout_p
+    ctx, caux = build_visual_context_train(params, fc_feats, att_feats, p,
+                                           gen, deterministic)
+    # the label embedding is added to the word embedding in xe mode too
+    lab = nn.dropout(gen, _label_embed(params, senti_labels), p,
+                     deterministic)
+    ctx = ctx._replace(senti_label=lab)
+    cpt_feats = concept_fc(params, cpt_words)
+    logprobs = _teacher_forced_scan(
+        params, ctx, captions, mode="xe", dropout_p=p, gen=gen,
+        ss_prob=ss_prob, deterministic=deterministic,
+        hid_dim=settings.rnn_hid_dim)
+    return logprobs, {"fc_emb": caux["fc_emb"], "cpt_feats": cpt_feats}
+
+
+def forward_seq2seq(params, senti_captions, cpt_words, senti_words,
+                    senti_labels, *, settings, gen=None,
+                    ss_prob: float = 0.0, deterministic: bool = False):
+    """Text-only seq2seq mode (reference forward_seq2seq,
+    captioner.py:242-288)."""
+    ctx = build_seq2seq_context(params, cpt_words, senti_words, senti_labels,
+                                settings.dropout_p, gen, deterministic)
+    return _teacher_forced_scan(
+        params, ctx, senti_captions, mode="seq2seq",
+        dropout_p=settings.dropout_p, gen=gen, ss_prob=ss_prob,
+        deterministic=deterministic, hid_dim=settings.rnn_hid_dim)
+
+
+def forward_rl(params, fc_feats, att_feats, cpt_words, senti_words,
+               senti_labels, *, settings, ids: TokenIds, max_seq_len: int,
+               sample_max: bool, gen=None, deterministic: bool = False):
+    """Greedy (``sample_max``) or multinomial rollout of max_seq_len steps
+    (reference forward_rl, captioner.py:290-349), with the reference's
+    masks: seq_masks[:, t] is the row's ``unfinished`` before step t, a
+    finished row emits pad (0), and a row finishes on emitting EOS; the
+    reference's all-EOS early break only skips all-masked steps.
+    Returns (seq [bs, T] int32, seq_logprobs [bs, T], seq_masks [bs, T],
+    aux)."""
+    p = settings.dropout_p
+    ctx, caux = build_visual_context_train(
+        params, fc_feats, att_feats, p, gen, deterministic,
+        senti_words=senti_words, senti_labels=senti_labels, pad_id=ids.pad)
+    cpt_feats = concept_fc(params, cpt_words)
+    bs = fc_feats.shape[0]
+    dev = fc_feats.device
+    state = init_state(bs, settings.rnn_hid_dim, ctx.fc.dtype, dev)
+    it = torch.full((bs,), ids.sos, dtype=torch.long, device=dev)
+    unfinished = torch.ones((bs,), dtype=torch.bool, device=dev)
+    seq, seq_lp, masks = [], [], []
+    for _ in range(max_seq_len):
+        logprobs, state, _ = decode_step(
+            params, ctx, state, it, mode="rl", dropout_p=p, gen=gen,
+            deterministic=deterministic)
+        if sample_max:
+            nxt = logprobs.argmax(dim=-1)     # the first maximal index
+            samp_lp = logprobs.amax(dim=-1)
+        else:
+            nxt = _categorical(gen, logprobs.detach())
+            samp_lp = logprobs.gather(-1, nxt[:, None])[:, 0]
+        masks.append(unfinished)
+        nxt = torch.where(unfinished, nxt, torch.zeros_like(nxt))
+        unfinished = unfinished & (nxt != ids.eos)
+        seq.append(nxt)
+        seq_lp.append(samp_lp)
+        it = nxt
+    seq_lp = torch.stack(seq_lp, dim=1)
+    aux = {"fc_emb": caux["fc_emb"], "cpt_feats": cpt_feats}
+    return (torch.stack(seq, dim=1).to(torch.int32), seq_lp,
+            torch.stack(masks, dim=1).to(seq_lp.dtype), aux)
+
+
+# ---------------------------------------------------------------------------
+# Losses (reference XECriterion captioner.py:427-440, RewardCriterion
+# self_critical/utils.py:169-177)
+# ---------------------------------------------------------------------------
+
+def length_mask(lengths, max_len: int, dtype=torch.float32):
+    """mask[i, t] = t < lengths[i]."""
+    t = torch.arange(max_len, device=lengths.device)[None, :]
+    return (t < lengths[:, None]).to(dtype)
+
+
+def xe_criterion_sums(logprobs, targets, lengths):
+    """(masked NLL sum, unmasked token count): the sum form of
+    xe_criterion, for batch-boundary-invariant eval aggregation (rows
+    left out of an eval get length 0 and add nothing)."""
+    mask = length_mask(lengths, targets.shape[1], logprobs.dtype)
+    nll = -logprobs.gather(-1, targets.long()[..., None])[..., 0]
+    return (nll * mask).sum(), mask.sum()
+
+
+def xe_criterion(logprobs, targets, lengths):
+    """Length-masked NLL over the unmasked tokens. logprobs [bs, T, V],
+    targets [bs, T], lengths [bs]."""
+    s, c = xe_criterion_sums(logprobs, targets, lengths)
+    return s / c
+
+
+def reward_criterion_sums(seq_logprobs, seq_masks, rewards):
+    """(sum of -logprob * mask * reward, mask sum)."""
+    return (-seq_logprobs * seq_masks * rewards).sum(), seq_masks.sum()
+
+
+def reward_criterion(seq_logprobs, seq_masks, rewards):
+    """-logprob * mask * reward over the mask sum."""
+    s, c = reward_criterion_sums(seq_logprobs, seq_masks, rewards)
+    return s / c
+
+
+def domain_alignment_sums(cpt_feats, fc_emb, row_mask):
+    """(masked per-row MSE sum, row count) over the rows of row_mask."""
+    per_row = ((cpt_feats - fc_emb.detach()) ** 2).mean(dim=-1)
+    return (per_row * row_mask).sum(), row_mask.sum()
+
+
+def domain_alignment_loss(cpt_feats, fc_emb):
+    """MSE(cpt_feats, fc_emb.detach()) (reference train_xe.py:163,
+    decoder.py:89: the fc side is detached)."""
+    return ((cpt_feats - fc_emb.detach()) ** 2).mean()

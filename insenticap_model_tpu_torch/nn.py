@@ -21,7 +21,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -152,3 +152,45 @@ def conv2d(p, x, padding: str = "SAME"):
 
 def log_softmax(x, dim: int = -1):
     return F.log_softmax(x, dim=dim)
+
+
+def dropout(gen: Optional[torch.Generator], x, rate: float,
+            deterministic: bool):
+    """Inverted dropout (torch semantics: kept values scaled by 1/(1-p) at
+    train time), the mask drawn from ``gen``, a generator on x's device.
+    Deterministic or rate 0 returns x itself."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict/list tree, dict keys in sorted order
+    (JAX's flattening order)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` on every tensor of a nested dict/list tree (lists and tuples
+    come back as lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+

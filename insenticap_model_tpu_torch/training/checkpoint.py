@@ -15,25 +15,24 @@ arrays through ``convert.from_jax_numpy`` onto the port's layout.
 The JAX package restores into a template of the expected structure. With
 no template passed in, ``load`` builds one: the port's ``init_params`` for
 the metadata's settings, vocabulary size and categories, for each subtree
-it knows (``captioner`` and ``senti_detector`` of a composite checkpoint,
-or a bare captioner, detector, concept-detector or ResNet-101 tree; the
-last two as ``train_cpt.py`` and ``convert_checkpoint.py resnet101``
-write them, the concept count from the metadata's ``idx2concept``). Every
-leaf's shape must match it,
-or ``CheckpointError`` is raised. Subtrees the port has no model for yet
-(the RL composite's ``sent_senti_cls``) and the optimizer state are left
-out, as a JAX template restore leaves out what its template lacks.
+it knows (``captioner``, ``senti_detector`` and ``sent_senti_cls`` of a
+composite checkpoint, or a bare captioner, detector, sentence-classifier,
+concept-detector or ResNet-101 tree; the last two as ``train_cpt.py`` and
+``convert_checkpoint.py resnet101`` write them, the concept count from the
+metadata's ``idx2concept``). Every leaf's shape must match it, or
+``CheckpointError`` is raised. The optimizer state (optax's tree, as
+``training/optim.to_optax_state`` gives it) comes back only when asked.
 
-``save`` writes the same file from the port's params (``convert.
-to_jax_tensors``, then ``msgpack.packb``), which the JAX package's ``load``
-reads back bit for bit; the optimizer state must be None until training
-is ported.
+``save`` writes the same file from the port's params and optimizer state
+(``convert.to_jax_tensors``, then ``msgpack.packb``), which the JAX
+package's ``load`` reads back bit for bit.
 """
 from __future__ import annotations
 
 import json
 import os
 import struct
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -43,9 +42,16 @@ from ..config import Settings
 from ..models import captioner as cap
 from ..models import concept_detector as cpt_det
 from ..models import encoder
+from ..models import sent_senti_cls as ss_cls
 from ..models import sentiment_detector as senti_det
 from ..utils import msgpack
 from ..utils.dtypes import resolve_device, to_device
+
+
+# flax's state dict of the JAX package's optimizer (optax's
+# inject_hyperparams state)
+OPTAX_STATE_KEYS = {"count", "hyperparams", "hyperparams_states",
+                    "inner_state"}
 
 
 class CheckpointError(RuntimeError):
@@ -64,16 +70,20 @@ def _read(path: str, header_only: bool = False):
 
 def save(path: str, params: Any, opt_state: Any, metadata: Dict) -> None:
     """Write ``params`` (the port's layout, any device and float type,
-    each kept) as the JAX package's ``checkpoint.save`` writes them:
-    the 8-byte header length, the JSON metadata (sorted keys), the
-    msgpack payload ``{"params": ...}``; through a temporary file and
-    ``os.replace``, so a reader never sees half a file."""
+    each kept) and ``opt_state`` (None, or optax's tree as
+    ``optim.to_optax_state`` gives it) as the JAX package's
+    ``checkpoint.save`` writes them: the 8-byte header length, the JSON
+    metadata (sorted keys), the msgpack payload ``{"params": ...,
+    "opt_state": ...}``; through a temporary file and ``os.replace``, so
+    a reader never sees half a file."""
+    if opt_state is not None and set(opt_state) != OPTAX_STATE_KEYS:
+        raise ValueError("checkpoint.save: the optimizer state must be "
+                         "optax's tree, as optim.to_optax_state gives it "
+                         f"(keys {sorted(OPTAX_STATE_KEYS)})")
+    payload = {"params": _state_dict(convert.to_jax_tensors(params))}
     if opt_state is not None:
-        raise NotImplementedError("checkpoint.save: the port writes no "
-                                  "optimizer state until training is "
-                                  "ported; pass opt_state=None")
-    blob = msgpack.packb(
-        {"params": _state_dict(convert.to_jax_tensors(params))})
+        payload["opt_state"] = _state_dict(opt_state)
+    blob = msgpack.packb(payload)
     header = json.dumps(metadata, sort_keys=True).encode()
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -158,6 +168,14 @@ def _templates(tree, metadata) -> Dict[str, Any]:
         return senti_det.module_for(settings).init_params(
             gen, n_cats, settings, device="cpu")
 
+    def classifier():
+        if vocab is None:
+            raise CheckpointError("metadata has neither idx2word nor "
+                                  "vocab_size: the classifier's vocabulary "
+                                  "size is unknown")
+        return ss_cls.init_params(gen, int(vocab), n_cats, settings,
+                                  device="cpu")
+
     def concepts():
         if metadata.get("idx2concept") is None:
             raise CheckpointError("a concept tree needs idx2concept in the "
@@ -166,9 +184,13 @@ def _templates(tree, metadata) -> Dict[str, Any]:
         return cpt_det.init_params(gen, len(metadata["idx2concept"]),
                                    settings, device="cpu")
 
-    if "captioner" in tree or "senti_detector" in tree:
-        makers = {"captioner": captioner, "senti_detector": detector}
+    makers = {"captioner": captioner, "senti_detector": detector,
+              "sent_senti_cls": classifier}
+    if set(makers) & set(tree):
         return {k: makers[k]() for k in makers if k in tree}
+    # the classifier's tree also has a word_embed: tell it by its own keys
+    if "excitation1" in tree and "cls2" in tree:
+        return {"": classifier()}
     if "word_embed" in tree:
         return {"": captioner()}
     if "senti_conv" in tree:
@@ -181,13 +203,15 @@ def _templates(tree, metadata) -> Dict[str, Any]:
                           f"{sorted(tree)}")
 
 
-def load(path: str, *, device="cuda", dtype: Optional[torch.dtype] = None
-         ) -> Tuple[Dict, Dict]:
+def load(path: str, *, device="cuda", dtype: Optional[torch.dtype] = None,
+         with_opt_state: bool = False) -> Tuple:
     """Read a checkpoint written by the JAX package's ``checkpoint.save``.
     Returns (params, metadata): params in the port's layout on ``device``,
     each float keeping its stored type unless ``dtype`` is given. A
     composite comes back as a dict of its known parts; a bare model tree
-    as that model's params."""
+    as that model's params. ``with_opt_state`` returns (params, opt_state,
+    metadata), opt_state the stored optax tree (CPU tensors in the JAX
+    package's layout, for ``optim.load_optax_state``), or None."""
     dev = resolve_device(device)
     metadata, blob = _read(path)
     try:
@@ -208,7 +232,12 @@ def load(path: str, *, device="cuda", dtype: Optional[torch.dtype] = None
         except (TypeError, AttributeError) as e:
             raise CheckpointError(f"{where}: {e}") from e
         out[key] = to_device(_match(port, tmpl, where), dev, dtype)
-    return (out[""] if "" in out else out), metadata
+    params = out[""] if "" in out else out
+    if not with_opt_state:
+        return params, metadata
+    opt_state = payload.get("opt_state")
+    return params, (None if opt_state is None else _lists(opt_state)), \
+        metadata
 
 
 def validate_metadata(metadata: Dict, *, settings: Settings,
@@ -235,3 +264,12 @@ def validate_metadata(metadata: Dict, *, settings: Settings,
                 and metadata[name] != val:
             raise CheckpointError(
                 f"{name} mismatch: {metadata[name]} != {val}")
+
+
+def checkpoint_name(stage_dir: str, epoch: int, train_loss: float,
+                    val_loss: float) -> str:
+    """The reference's file name (train_xe.py:252-253:
+    model_<epoch>_<train>_<val>_<mmdd-HHMM>, here .ckpt)."""
+    stamp = time.strftime("%m%d-%H%M")
+    return os.path.join(stage_dir, f"model_{epoch}_{train_loss:.4f}_"
+                        f"{val_loss:.4f}_{stamp}.ckpt")

@@ -167,7 +167,7 @@ def _array_parts(x) -> Tuple[list, str, bytes]:
             return list(t.shape), "bfloat16", \
                 t.view(torch.int16).numpy().tobytes()
         x = t.numpy()
-    a = np.ascontiguousarray(x)
+    a = np.asarray(x, order="C")   # not ascontiguousarray: 0-d stays 0-d
     if a.dtype.hasobject or a.dtype.names is not None:
         raise TypeError(f"msgpack: cannot pack an array of {a.dtype}")
     return list(a.shape), a.dtype.name, a.tobytes()

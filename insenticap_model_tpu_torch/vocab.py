@@ -1,7 +1,8 @@
 """Vocabulary with reference-compatible semantics.
 
-The port's own copy of ``insenticap_model_tpu/vocab.py``'s ``Vocab``
-(:20-68), plus ``token_ids`` (``insenticap_model_tpu/cli/common.py:52-55``).
+The port's own copy of ``insenticap_model_tpu/vocab.py``'s ``Vocab`` and
+``upsample_to_neutral`` (:20-79), plus ``token_ids``
+(``insenticap_model_tpu/cli/common.py:52-55``).
 The reference builds ``word2idx`` from an ``idx2word`` list with ``<PAD>``
 at index 0 followed by ``<UNK>``, ``<SOS>``, ``<EOS>`` (reference
 preprocess.py:276, train_xe.py:76-78), and tokenizes with the idiom
@@ -77,3 +78,16 @@ def token_ids(vocab: Vocab, sentiment_categories) -> TokenIds:
     return TokenIds(pad=vocab.pad_id, unk=vocab.unk_id, sos=vocab.sos_id,
                     eos=vocab.eos_id,
                     neutral=list(sentiment_categories).index("neutral"))
+
+
+def upsample_to_neutral(senti_captions: Dict[str, list]) -> Dict[str, list]:
+    """Integer-ratio upsampling of the positive and negative corpora to the
+    neutral corpus's size (reference train_xe.py:106-107,
+    train_rl.py:147-148)."""
+    out = dict(senti_captions)
+    n_neu = len(senti_captions["neutral"])
+    for senti in ("positive", "negative"):
+        lst = senti_captions[senti]
+        if lst:
+            out[senti] = lst * int(n_neu / len(lst))
+    return out

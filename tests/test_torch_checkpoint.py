@@ -22,6 +22,7 @@ from insenticap_model_tpu.config import Settings as JSettings
 from insenticap_model_tpu.models import captioner as jcap
 from insenticap_model_tpu.models import concept_detector as jcpt
 from insenticap_model_tpu.models import encoder as jenc
+from insenticap_model_tpu.models import sent_senti_cls as jss
 from insenticap_model_tpu.models import sentiment_detector as jsd
 from insenticap_model_tpu.training import checkpoint as jck
 from insenticap_model_tpu.utils.dtypes import cast_bf16
@@ -167,11 +168,14 @@ def _meta(s, vocab):
 def test_jax_written_checkpoint_loads_bit_identical(tmp_path, settings,
                                                     vocab, full, bf16):
     s, params = _composite(settings, len(vocab), full)
+    # the RL composite's third part, the sentence classifier
+    params["sent_senti_cls"] = jss.init_params(jax.random.PRNGKey(2),
+                                               len(vocab), 3, s)
     if bf16:
         params = cast_bf16(params)
-    # a part the port has no model for yet is left out, as a JAX template
+    # a part the port has no model for is left out, as a JAX template
     # restore leaves it out
-    extra = {"sent_senti_cls": {"head": {"w": np.ones((3, 2), np.float32)}}}
+    extra = {"other_model": {"head": {"w": np.ones((3, 2), np.float32)}}}
     path = str(tmp_path / "model.ckpt")
     jck.save(path, {**params, **extra}, None, _meta(s, vocab))
     got, meta = tck.load(path, device="cpu")

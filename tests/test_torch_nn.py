@@ -138,10 +138,10 @@ def _port_sources():
 def test_port_imports_no_jax():
     """No module of the port, not chip_smoke.py and not the port's tools
     (the profilers and the int8 and decode-cell studies) imports jax, flax,
-    msgpack (the card's machine has none: the port decodes checkpoints
+    optax, msgpack (the card's machine has none: the port decodes checkpoints
     itself), PIL or h5py (neither is there either) or the JAX package (the
     port keeps its own copies)."""
-    banned = ("jax", "flax", "msgpack", "PIL", "h5py",
+    banned = ("jax", "flax", "optax", "msgpack", "PIL", "h5py",
               "insenticap_model_tpu")
     offenders = []
     for path in _port_sources():
@@ -167,10 +167,13 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, settings, vocab,
     is used only when the caller asks for it."""
     from insenticap_model_tpu.models import concept_detector as jcpt
     from insenticap_model_tpu.training import checkpoint as jck
+    from insenticap_model_tpu_torch.cli import train_xe as ttrain_xe
     from insenticap_model_tpu_torch.cli.common import load_concept_model
+    from insenticap_model_tpu_torch.config import Opts as TOpts
     from insenticap_model_tpu_torch.models import captioner as tcap
     from insenticap_model_tpu_torch.models import concept_detector as tcpt
     from insenticap_model_tpu_torch.models import encoder as tenc
+    from insenticap_model_tpu_torch.models import sent_senti_cls as tss
     from insenticap_model_tpu_torch.models import sentiment_detector as tsd
     from insenticap_model_tpu_torch.serving_daemon import (
         DynamicBatcher, EncodeBatcher, make_batcher_from_checkpoint)
@@ -215,6 +218,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, settings, vocab,
         load_concept_model(cpath)
     with pytest.raises(RuntimeError, match="CUDA"):
         EncodeBatcher(None, lambda fc: fc, fc_dim=4, shape_buckets=())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tss.init_params(gen, 24, 3, s)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttrain_xe.train(TOpts(captions_dir=str(tmp_path)))
     assert cp["classifier"]["weight"].device.type == "cpu"
     assert tck.load(path, device="cpu")[0]["captioner"]["classifier"][
         "weight"].device.type == "cpu"

@@ -128,3 +128,73 @@ def assert_within_bf16_ulp(got, want, floor_frac=1e-3):
                                torch.tensor(np.asarray(n(want), np.float64)),
                                floor_frac)
     assert ulps <= 1, (ulps, err)
+
+
+def caption_batches(settings, bs, seed, maxlen=8, vocab=V, n_att=9):
+    """(batch, scs_batch) of numpy arrays for the XE step: captions SOS ...
+    EOS of lengths 2..maxlen (the length counts the tokens after SOS), an
+    att grid of n_att positions, 5 concepts, 6 sentiment words, labels."""
+    g = np.random.default_rng(seed)
+
+    def caps_lengths():
+        caps = np.zeros((bs, maxlen + 1), np.int32)
+        lengths = []
+        for i in range(bs):
+            L = int(g.integers(2, maxlen + 1))
+            caps[i, 0] = JIDS.sos
+            caps[i, 1:L] = g.integers(4, vocab, size=L - 1)
+            caps[i, L] = JIDS.eos
+            lengths.append(L)
+        return caps, np.asarray(lengths, np.int32)
+
+    caps, lengths = caps_lengths()
+    batch = {
+        "fc": g.normal(size=(bs, settings.fc_feat_dim)).astype(np.float32),
+        "att": g.normal(size=(bs, n_att, settings.att_feat_dim)).astype(
+            np.float32),
+        "caps": caps, "lengths": lengths,
+        "cpts": g.integers(4, vocab, size=(bs, 5)).astype(np.int32)}
+    scaps, slengths = caps_lengths()
+    scs = {"caps": scaps, "lengths": slengths,
+           "cpts": g.integers(4, vocab, size=(bs, 5)).astype(np.int32),
+           "sentis": g.integers(4, vocab, size=(bs, 6)).astype(np.int32),
+           "senti_labels": g.integers(0, 3, size=(bs,)).astype(np.int32)}
+    return batch, scs
+
+
+def jax_numpy(tree):
+    """The port's params -> the JAX package's layout as numpy, flattened
+    in JAX's order: [(path, array)]."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        convert.to_jax_numpy(tree))
+    return [(jax.tree_util.keystr(p), np.asarray(a)) for p, a in flat]
+
+
+def jax_flat(tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return [(jax.tree_util.keystr(p), np.asarray(a)) for p, a in flat]
+
+
+def classifier_params(settings, seed=1):
+    """JAX sentence-classifier params and their port copy."""
+    from insenticap_model_tpu.models import sent_senti_cls as jss
+    p = jss.init_params(jax.random.PRNGKey(seed), V, 3, settings)
+    return p, to_port(p)
+
+
+# the captioner's attention-score biases (JAX layout paths): the softmax
+# over positions is invariant to them, so their gradient is zero up to
+# rounding, and Adam's g / (|g| + eps) turns that rounding into an update
+# of up to lr a step in either package
+SOFTMAX_INVARIANT = ("['attention']['cont']['att_alpha']['b']",
+                     "['attention']['senti']['word_alpha']['b']")
+
+
+def assert_params_match(port_params, jax_params, steps, lr):
+    """Trained params against the JAX package's: within 1e-6 absolute, the
+    SOFTMAX_INVARIANT biases within lr * steps."""
+    got, want = jax_numpy(port_params), jax_flat(jax_params)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(got, want):
+        tol = lr * steps if path in SOFTMAX_INVARIANT else 1e-6
+        np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=path)
