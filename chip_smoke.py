@@ -101,6 +101,35 @@ into the git-ignored build directory) and the host image decoders
    with scores within 1e-3, in bf16 the share of identical top beams at
    least v1 with tanhf's, rounded down to a whole percent (phase 4's
    gate);
+3g. drives the head-stage trainers and the concept CLIs at full width
+   (``Settings()``: 2048-d features on a 14x14 grid, the detector 2048 ->
+   1024 -> 512, 2000 concepts, vocab 10,000, bs 80) on a synthetic tree
+   (240 train images, 100 val, 100 and 120 test): ``cli.train_cpt`` for
+   two f32 epochs (finite losses, epoch 1's train loss below epoch 0's),
+   ``cli.detect_concepts`` on its checkpoint (5 distinct known concepts
+   for each of the 900 images of both fc stores) and ``cli.test_cpt``;
+   ``cli.train_senti`` for two epochs in f32 and in bf16, with the launch
+   counts set to 0 just before each run and read just after: each
+   Winograd transform launched 2 x (val + test batches) x epochs times in
+   bf16 (the eval step's two forwards a batch) and never in f32; on the
+   f32-trained detector, over the eval batches of 80 that
+   ``train_senti`` runs (120 test and 100 val images), the bf16 logits
+   through the kernels within rounding of their plain twins' (rtol 1e-2,
+   1e-3 of the scale, phase 2's tolerances), and the bf16 labels through
+   the kernels, through the twins and by the direct conv, each against
+   the f32 direct conv's, at thresholds 0 and 0.7 (printed), the kernels'
+   equal to the twins' on at least 99% (at both thresholds);
+   ``cli.train_sent_senti_cls_rnn`` resumed
+   from an epoch-27 checkpoint the port's writer made (seeded weights,
+   fresh Adam state) for epochs 28-29, finite accuracies; every checkpoint
+   of the phase read back bit-identical with its optimizer state; one
+   concept and one detector step with dropout off on the card against the
+   CPU (phase 3f's loss and gradient gates; the params within 1e-5 of
+   what Adam's first update makes of each side's gradient, which may part
+   by 2 lr where a gradient is a near-cancelling sum); ms a train step of
+   each trainer (host clock, median of 5), the bf16 detector step's
+   device time and idle share, a bf16 eval batch's ms and its logits
+   through the kernels within rounding of the twins';
 4. runs ``detect_and_decode`` at bs=384 in f32 on the kernel path and on
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
@@ -230,6 +259,20 @@ XE_CMP_BATCHES = 20
 # positions is invariant (their gradient is zero up to rounding)
 SOFTMAX_INVARIANT = (("attention", "cont", "att_alpha", "bias"),
                      ("attention", "senti", "word_alpha", "bias"))
+# phase 3g, the head stages: the reference trainers' batch (concept_bs,
+# senti_bs and the classifier's hard-coded 80) and learning rate; 240
+# train images give 3 batches, 100 val images 2 (the last padded), 100 and
+# 120 test images 2 (the sentiment split's last padded)
+HEAD_BS = 80
+HEAD_LR = 4e-4
+HEAD_EPOCHS = 2
+HEAD_N_IMG = {"train": 240, "val": 100, "test": 100}
+HEAD_N_SENTI_IMG = {"train": 240, "val": 100, "test": 120}
+# the detector's labels through the Winograd kernels against the plain
+# twins' on the trained detector, on the eval batches train_senti runs: a
+# printed reading and a floor (the logits are gated within rounding, as
+# phase 2's transforms: rtol 1e-2, 1e-3 of the scale)
+HEAD_LABEL_GATE = 0.99
 SWITCH_SETS = {"default": {}, "fused_topk": {"ISC_FUSED_TOPK": "1"},
                "v2": {"ISC_ATT_KERNEL": "v2"},
                "both": {"ISC_FUSED_TOPK": "1", "ISC_ATT_KERNEL": "v2"}}
@@ -295,6 +338,20 @@ def _switches(name):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _wino_plain(wk):
+    """The Winograd stack's three wrappers replaced, for the block, by
+    their plain twins, which ``conv3x3_stack_sm`` then calls on the card
+    (the twins count no launch); restored on exit."""
+    saved = wk.wino_input, wk.wino_middle, wk.wino_output
+    wk.wino_input, wk.wino_middle, wk.wino_output = (
+        wk.wino_input_plain, wk.wino_middle_plain, wk.wino_output_plain)
+    try:
+        yield
+    finally:
+        wk.wino_input, wk.wino_middle, wk.wino_output = saved
 
 
 @contextlib.contextmanager
@@ -1158,6 +1215,536 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
     return out
 
 
+def _step_card_vs_cpu(torch, dev, make_params, make_steps, batch, lr):
+    """One train step with dropout off from the same seeded weights on the
+    card and on the CPU: (the card's and the CPU's loss, {leaf: |card's
+    gradient - CPU's| / |CPU's|} (L2), the params record).
+
+    Adam's first update is lr * c / (|c| + eps), c the clipped gradient:
+    about lr * sign(g), so an element whose gradient is a near-cancelling
+    sum (rounding on one side) may move up to 2 lr apart on the two. The
+    params record holds the max over the elements of |(card's params -
+    CPU's) - lr * (u(CPU's gradient) - u(card's))|, u that first update
+    computed on the host in float64 from each side's gradient, and, as
+    readings, the raw max |card's params - CPU's| and the share of
+    elements whose updates part by more than lr."""
+    from insenticap_model_tpu_torch import nn
+    from insenticap_model_tpu_torch.cli import common
+    from insenticap_model_tpu_torch.config import Opts
+    from insenticap_model_tpu_torch.training import optim
+
+    class RecordingAdam(optim.Adam):
+        """Adam that keeps, on the host, the gradients it steps on."""
+        def step(self):
+            self.grads = [(path, p.grad.detach().float().cpu().clone())
+                          for path, p in _tree_paths(self.params)]
+            super().step()
+
+    def one_step(device):
+        params = nn.tree_map(lambda x: x.requires_grad_(True),
+                             make_params(device))
+        adam = RecordingAdam(params, lr)
+        train_step, _ = make_steps(adam)
+        rt = common.Runtime(Opts(device=str(device)))
+        loss = float(train_step(rt.put(batch), torch.Generator(
+            device=device).manual_seed(0)))
+        return (loss, nn.tree_map(lambda x: x.detach().cpu(), params),
+                adam.grads, adam.grad_clip)
+    l_card, p_card, g_card, clip = one_step(dev)
+    l_cpu, p_cpu, g_cpu, _ = one_step(torch.device("cpu"))
+
+    def first_update(g):
+        c = g.double().clamp(-clip, clip)
+        return c / (c.abs() + optim.EPS)
+    grad_rel = {}
+    params = {"max_abs": 0.0, "raw_max_abs": 0.0, "parted_elements": 0,
+              "elements": 0}
+    for (path, gc), (_, gp), (_, pc), (_, pp) in zip(
+            g_card, g_cpu, _tree_paths(p_card), _tree_paths(p_cpu)):
+        norm = float(gp.norm())
+        grad_rel["/".join(map(str, path))] = (
+            float((gc - gp).norm()) / norm if norm
+            else (0.0 if torch.equal(gc, gp) else math.inf))
+        diff = pc.double() - pp.double()
+        parted = lr * (first_update(gp) - first_update(gc))
+        params["max_abs"] = max(params["max_abs"],
+                                float((diff - parted).abs().max()))
+        params["raw_max_abs"] = max(params["raw_max_abs"],
+                                    float(diff.abs().max()))
+        params["parted_elements"] += int((parted.abs() > lr).sum())
+        params["elements"] += diff.numel()
+    return l_card, l_cpu, grad_rel, params
+
+
+def _check_card_vs_cpu(name, l_card, l_cpu, grad_rel, params):
+    """Phase 3f's gates on a head stage's step: the loss within 1e-5
+    relative, each leaf's gradient within XE_GRAD_RTOL of its norm, the
+    params within 1e-5 of what Adam's first update makes of each side's
+    gradient (see ``_step_card_vs_cpu``). Returns the record."""
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst = max(grad_rel, key=grad_rel.get)
+    rec = {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel": loss_rel,
+           "grad_max_rel": grad_rel[worst], "grad_max_rel_leaf": worst,
+           "params_max_abs": params["max_abs"],
+           "params_raw_max_abs": params["raw_max_abs"],
+           "params_parted_share": (params["parted_elements"]
+                                   / params["elements"])}
+    _check(loss_rel <= 1e-5 and grad_rel[worst] <= XE_GRAD_RTOL
+           and params["max_abs"] <= 1e-5,
+           f"{name} card step against the CPU's: {rec} (tolerances: loss "
+           f"1e-5 relative, gradients {XE_GRAD_RTOL} of the norm, params "
+           f"1e-5 of Adam's first update of each side's gradient)")
+    return rec
+
+
+def _head_stages(torch, np, dev, settings, zero_counters, read_counters):
+    """Phase 3g: the head-stage trainers at full width on a synthetic tree
+    through their CLIs' functions: ``train_cpt``, ``detect_concepts`` and
+    ``test_cpt`` (f32); ``train_senti`` in f32, then in bf16 with the
+    Winograd kernels' launches counted over its eval batches; the trained
+    detector's labels, bf16 through the kernels and through their plain
+    twins against f32; ``train_sent_senti_cls_rnn`` resumed for its last
+    two epochs; one step of the concept and detector trainers on the card
+    against the CPU; the step and eval times."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from insenticap_model_tpu_torch import nn, synthetic
+    from insenticap_model_tpu_torch.cli import (
+        common, detect_concepts, test_cpt, train_cpt,
+        train_sent_senti_cls_rnn, train_senti)
+    from insenticap_model_tpu_torch.config import Opts
+    from insenticap_model_tpu_torch.models import concept_detector as cpt
+    from insenticap_model_tpu_torch.models import sent_senti_cls as ss_cls
+    from insenticap_model_tpu_torch.models import sentiment_detector as sd
+    from insenticap_model_tpu_torch.ops import winograd_kernels as wk
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    from insenticap_model_tpu_torch.training import optim, steps
+    from insenticap_model_tpu_torch.utils.dtypes import cast_bf16
+    from insenticap_model_tpu_torch.utils.timing import device_ms_by_kernel
+    cats = ["positive", "negative", "neutral"]
+    wino = ("wino_input", "wino_middle", "wino_output")
+    out, saved = {}, {}
+    orig_save = tck.save
+
+    def recording_save(path, params, opt_state, metadata):
+        """The trees each checkpoint was given, kept on the host."""
+        saved[path] = (nn.tree_map(lambda x: x.detach().cpu().clone(),
+                                   params), opt_state)
+        orig_save(path, params, opt_state, metadata)
+
+    def read_back(path):
+        """The checkpoint at ``path`` reads back bit-identical to the trees
+        it was written from."""
+        p_back, s_back, _ = tck.load(path, device=dev, with_opt_state=True)
+        for tree_a, tree_b, what in ((p_back, saved[path][0], "params"),
+                                     (s_back, saved[path][1], "opt_state")):
+            pa, pb = _tree_paths(tree_a), _tree_paths(tree_b)
+            _check([p for p, _ in pa] == [p for p, _ in pb] and all(
+                a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                for (_, a), (_, b) in zip(pa, pb)),
+                f"{os.path.basename(path)}: {what} did not read back "
+                "bit-identical")
+
+    def finite(metrics):
+        return all(math.isfinite(v) for m in metrics for v in m.values()
+                   if isinstance(v, float))
+
+    def wall_ms(fn, runs=5):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls) * 1e3
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the tree at full feature width; idx2concept padded to
+        # N_CONCEPTS concepts and idx2word to VOCAB words (the images'
+        # concepts and the captions' words stay among the first few)
+        t0 = time.time()
+        synthetic.build_tree(tmp, settings, seed=0, n_img=HEAD_N_IMG,
+                             n_senti_img=HEAD_N_SENTI_IMG)
+        padded = {}
+        for rel, n, stem in (("data/captions/coco/idx2concept.json",
+                              N_CONCEPTS, "c"),
+                             ("data/captions/coco/part/idx2word.json",
+                              VOCAB, "w")):
+            with open(os.path.join(tmp, rel)) as f:
+                words = json.load(f)
+            words += [f"{stem}{i}" for i in range(len(words), n)]
+            with open(os.path.join(tmp, rel), "w") as f:
+                json.dump(words, f)
+            padded[stem] = words
+        idx2concept, idx2word = padded["c"], padded["w"]
+        out["tree_s"] = time.time() - t0
+
+        def opts(name, **kw):
+            return Opts(**dict(dict(
+                settings=settings, seed=0, concept_bs=HEAD_BS,
+                senti_bs=HEAD_BS, concept_lr=HEAD_LR, senti_lr=HEAD_LR,
+                concept_epochs=HEAD_EPOCHS, senti_epochs=HEAD_EPOCHS,
+                num_concepts=K_CONCEPTS,
+                captions_dir=os.path.join(tmp, "data/captions"),
+                feats_dir=os.path.join(tmp, "data/features"),
+                img_senti_labels=os.path.join(
+                    tmp, "data/captions/img_senti_labels.json"),
+                checkpoint=os.path.join(tmp, "ck_" + name),
+                result_dir=os.path.join(tmp, "res_" + name),
+                device=str(dev)), **kw))
+
+        def metrics_of(*parts):
+            with open(os.path.join(*parts, "metrics.jsonl")) as f:
+                return [json.loads(x) for x in f]
+
+        tck.save = recording_save
+        try:
+            # 2. the concept stage, f32: train, detect, test
+            o = opts("cpt")
+            t0 = time.time()
+            train_cpt.train(o)
+            torch.cuda.synchronize()
+            out["cpt_train_s"] = time.time() - t0
+            ck_dir = os.path.join(o.checkpoint, "concept", "coco")
+            m_cpt = metrics_of(ck_dir)
+            _check(len(m_cpt) == HEAD_EPOCHS and finite(m_cpt)
+                   and m_cpt[1]["train_loss"] < m_cpt[0]["train_loss"],
+                   f"train_cpt metrics {m_cpt}")
+            [ck1] = [p for p in saved if os.path.basename(p)
+                     .startswith(f"model_{HEAD_EPOCHS - 1}_")
+                     and p.startswith(ck_dir)]
+            read_back(ck1)
+            t0 = time.time()
+            det = detect_concepts.run(opts("cpt", eval_model=ck1))
+            out["detect_concepts_s"] = time.time() - t0
+            n_fc = sum(HEAD_N_IMG.values()) + sum(HEAD_N_SENTI_IMG.values())
+            known = set(idx2concept)
+            _check(len(det) == n_fc and all(
+                len(v) == K_CONCEPTS and len(set(v)) == K_CONCEPTS
+                and set(v) <= known for v in det.values()),
+                f"detect_concepts: {len(det)} entries for {n_fc} images")
+            with open(os.path.join(tmp, "data/captions/coco",
+                                   "img_det_concepts.json")) as f:
+                _check(json.load(f) == det, "img_det_concepts.json is not "
+                       "what detect_concepts returned")
+            img, concepts, scores, wrong = test_cpt.run(
+                opts("cpt", test_model=ck1))
+            _check(len(concepts) == K_CONCEPTS and bool(np.isfinite(
+                scores).all()), f"test_cpt: {concepts} {scores}")
+            out["concept"] = {"metrics": m_cpt, "detected_images": len(det),
+                              "test_cpt": {"image": img,
+                                           "concepts": concepts,
+                                           "wrong": wrong}}
+
+            # 3. the detector, f32 then bf16; the Winograd kernels counted
+            # over each run (the eval batches: 2 forwards each)
+            runs = {}
+            for tag, cdt in (("f32", "float32"), ("bf16", "bfloat16")):
+                o = opts("senti_" + tag, compute_dtype=cdt)
+                zero_counters()
+                t0 = time.time()
+                trained = train_senti.train(o)
+                torch.cuda.synchronize()
+                runs[tag] = {"s": time.time() - t0,
+                             "launches": read_counters(),
+                             "metrics": metrics_of(o.checkpoint,
+                                                   "sentiment")}
+                if tag == "f32":
+                    det32 = nn.tree_map(lambda x: x.detach().clone(),
+                                        trained)
+            eval_batches = (-(-HEAD_N_SENTI_IMG["val"] // HEAD_BS)
+                            + -(-HEAD_N_SENTI_IMG["test"] // HEAD_BS))
+            want = 2 * eval_batches * HEAD_EPOCHS
+            for tag, r in runs.items():
+                _check(len(r["metrics"]) == HEAD_EPOCHS
+                       and finite(r["metrics"]),
+                       f"train_senti {tag} metrics {r['metrics']}")
+                n_launch = [r["launches"][k] for k in wino]
+                _check(n_launch == ([want] * 3 if tag == "bf16"
+                                    else [0] * 3),
+                       f"train_senti {tag}: Winograd launches {n_launch}, "
+                       f"expected {want if tag == 'bf16' else 0} each")
+            for path in saved:
+                if "ck_senti_" in path or "ck_cpt" in path:
+                    read_back(path)
+            out["senti"] = runs
+        finally:
+            tck.save = orig_save
+
+        # 4. the trained f32 detector on the eval batches train_senti runs
+        # (the 120 test and 100 val images, bs HEAD_BS, the last of each
+        # split padded): the bf16 logits through the kernels against their
+        # plain twins' within rounding (phase 2's tolerances); the labels,
+        # bf16 through the kernels, through the twins and by the direct
+        # conv, each against the f32 direct conv's at the thresholds 0 and
+        # 0.7, the kernels' equal to the twins' on at least HEAD_LABEL_GATE
+        # of the images
+        labels_json = common.load_json(os.path.join(
+            tmp, "data/captions/img_senti_labels.json"))
+        store = common.open_store(common.sniff_store_path(os.path.join(
+            tmp, "data/features/sentiment/feats_att.h5")))
+        det16 = cast_bf16(det32)
+        parts = {k: [] for k in ("f32", "bf16_kernels", "bf16_plain_twins",
+                                 "bf16_direct")}
+        truth, twins_ok, twins_err, n_batches = [], True, 0.0, 0
+        wk.wino_input.launches = 0
+        with torch.no_grad():
+            for split in ("test", "val"):
+                items = [(fn, cats.index(c)) for fn, c in labels_json[split]]
+                for batch in common.senti_image_loader(
+                        store, items, HEAD_BS, shuffle=False,
+                        drop_last=False):
+                    feats = torch.from_numpy(batch["att"]).to(dev)
+                    f16 = feats.bfloat16()
+                    got = {"f32": sd.forward(det32, feats,
+                                             use_kernels=False)[0],
+                           "bf16_kernels": sd.forward(det16, f16)[0]}
+                    with _wino_plain(wk):
+                        got["bf16_plain_twins"] = sd.forward(det16, f16)[0]
+                    got["bf16_direct"] = sd.forward(det16, f16,
+                                                    use_kernels=False)[0]
+                    ok, err = _within_rounding(
+                        torch, got["bf16_kernels"], got["bf16_plain_twins"],
+                        1e-2, 1e-3)
+                    twins_ok, twins_err = twins_ok and ok, max(twins_err, err)
+                    n = batch["valid"]
+                    for k, v in got.items():
+                        parts[k].append(v[:n].float())
+                    truth += batch["labels"][:n].tolist()
+                    n_batches += 1
+        del feats, f16
+        _check(wk.wino_input.launches == n_batches, "the bf16 detector did "
+               f"not take the Winograd kernels: {wk.wino_input.launches} "
+               f"launches over {n_batches} eval batches")
+        _check(twins_ok, "trained detector: the bf16 logits through the "
+               "Winograd kernels disagree with the plain twins' (rtol 1e-2, "
+               f"1e-3 of the scale): max |diff| {twins_err:.4g}")
+        logits = {k: torch.cat(v) for k, v in parts.items()}
+        neutral = cats.index("neutral")
+        labels = {thr: {k: sd.threshold_labels(v, thr, neutral)[0]
+                        for k, v in logits.items()} for thr in (0.0, 0.7)}
+        scores32 = sd.threshold_labels(logits["f32"], 0.0, neutral)[1]
+        agree = {}
+        for thr, lab in labels.items():
+            for k in ("bf16_kernels", "bf16_plain_twins", "bf16_direct"):
+                agree[f"{k}_vs_f32_t{thr}"] = float(
+                    (lab[k] == lab["f32"]).float().mean())
+            agree[f"kernels_vs_plain_twins_t{thr}"] = float(
+                (lab["bf16_kernels"] == lab["bf16_plain_twins"])
+                .float().mean())
+        out["labels"] = {
+            "images": len(truth), "eval_batches": n_batches,
+            "agreement": agree,
+            "f32_scores_above_0.7": int((scores32 > 0.7).sum()),
+            "f32_accuracy_t0": float((labels[0.0]["f32"].cpu() == torch.tensor(
+                truth)).float().mean()),
+            "logits_kernels_vs_plain_twins_max_abs_err": twins_err,
+            "logits_max_err_vs_f32": {
+                k: float((v - logits["f32"]).abs().max())
+                for k, v in logits.items() if k != "f32"},
+            "logits_scale": float(logits["f32"].abs().max())}
+        for thr in (0.0, 0.7):
+            share = agree[f"kernels_vs_plain_twins_t{thr}"]
+            _check(share >= HEAD_LABEL_GATE,
+                   f"trained detector, threshold {thr}: the kernels' bf16 "
+                   f"labels equal the plain twins' on {share:.4f} of "
+                   f"{len(truth)} images (gate {HEAD_LABEL_GATE})")
+
+        # 5. the sentence classifier at full width (vocab VOCAB): an
+        # epoch-27 checkpoint through the port's writer (seeded weights,
+        # fresh Adam state), then the CLI resumed from it for epochs 28-29
+        cls = ss_cls.init_params(torch.Generator().manual_seed(5), VOCAB,
+                                 NUM_CATS, settings, device=dev)
+        cls_file = os.path.join(tmp, "cls27.ckpt")
+        meta = {"epoch": train_sent_senti_cls_rnn.EPOCHS - 3,
+                "lr": train_sent_senti_cls_rnn.LR,
+                "settings": settings.to_dict(), "idx2word": idx2word,
+                "sentiment_categories": cats, "dataset_name": "coco",
+                "corpus_type": "part"}
+        tck.save(cls_file, cls, optim.to_optax_state(optim.Adam(
+            cls, train_sent_senti_cls_rnn.LR)), meta)
+        o = opts("cls", senti_resume=cls_file)
+        saved.clear()
+        tck.save = recording_save
+        try:
+            t0 = time.time()
+            train_sent_senti_cls_rnn.train(o)
+            torch.cuda.synchronize()
+            out["cls_two_epochs_s"] = time.time() - t0
+        finally:
+            tck.save = orig_save
+        m_cls = metrics_of(o.checkpoint, "sent_senti_cls", "coco", "part")
+        _check(len(m_cls) == 2 and [m["epoch"] for m in m_cls] == [
+            train_sent_senti_cls_rnn.EPOCHS - 2,
+            train_sent_senti_cls_rnn.EPOCHS - 1] and finite(m_cls),
+            f"train_sent_senti_cls_rnn metrics {m_cls}")
+        _check(len(saved) == 2, f"classifier checkpoints {sorted(saved)}")
+        for path in saved:
+            read_back(path)
+        out["cls"] = {"metrics": m_cls}
+
+        # 6. one step of the concept and detector trainers with dropout
+        # off, on the card and on the CPU, from the same seeded weights
+        # and the tree's first train batch
+        nodrop = dataclasses.replace(settings, dropout_p=0.0)
+        o = opts("inputs")
+        img_concepts = common.load_json(common.dataset_path(
+            o, "img_concepts.json"))
+        c2i = {w: i for i, w in enumerate(idx2concept)}
+        cpt_items = [(fn, [c2i[c] for c in cs])
+                     for fn, cs in img_concepts["train"].items()]
+        fc_store = common.open_store(common.feature_paths(o)[0])
+        loader = common.concept_loader(fc_store, cpt_items, N_CONCEPTS,
+                                       HEAD_BS)
+        cpt_batch = loader.assemble(loader._index_batches()[0])
+        senti_items = [(fn, cats.index(c))
+                       for fn, c in labels_json["train"]]
+        loader = common.senti_image_loader(store, senti_items, HEAD_BS)
+        senti_batch = loader.assemble(loader._index_batches()[0])
+        vocab = common.load_vocab(o)
+        train_set, _ = train_sent_senti_cls_rnn.build_datasets(
+            common.load_json(common.corpus_path(o, "senti_captions.json")),
+            vocab, cats)
+        loader = common.senti_sents_loader(train_set, o.max_seq_len,
+                                           vocab.pad_id, HEAD_BS)
+        cls_batch = loader.assemble(loader._index_batches()[0])
+
+        def cpt_params(device):
+            return cpt.init_params(torch.Generator().manual_seed(3),
+                                   N_CONCEPTS, nodrop, device=device)
+
+        def senti_params(device):
+            return sd.init_params(torch.Generator().manual_seed(3),
+                                  NUM_CATS, nodrop, device=device)
+        t0 = time.time()
+        out["card_vs_cpu"] = {
+            "concept": _check_card_vs_cpu("train_cpt", *_step_card_vs_cpu(
+                torch, dev, cpt_params,
+                lambda a: steps.make_concept_steps(nodrop, a), cpt_batch,
+                HEAD_LR)),
+            "senti": _check_card_vs_cpu("train_senti", *_step_card_vs_cpu(
+                torch, dev, senti_params,
+                lambda a: steps.make_senti_steps(nodrop, a), senti_batch,
+                HEAD_LR))}
+        out["card_vs_cpu_s"] = time.time() - t0
+
+        # 7. ms a train step (bs 80, the default dropout; host clock,
+        # median of 5 after one warm-up), the bf16 detector step's device
+        # time and idle share (the profiler, 5 steps), and a bf16 eval
+        # batch of the detector (bs 80, its two forwards through the
+        # kernels)
+        timing = {}
+        cases = (
+            ("concept_f32", "float32", lambda d: cpt.init_params(
+                torch.Generator().manual_seed(3), N_CONCEPTS, settings,
+                device=d), steps.make_concept_steps, cpt_batch),
+            ("senti_f32", "float32", lambda d: sd.init_params(
+                torch.Generator().manual_seed(3), NUM_CATS, settings,
+                device=d), steps.make_senti_steps, senti_batch),
+            ("senti_bf16", "bfloat16", lambda d: sd.init_params(
+                torch.Generator().manual_seed(3), NUM_CATS, settings,
+                device=d), steps.make_senti_steps, senti_batch),
+            ("cls_f32", "float32", lambda d: ss_cls.init_params(
+                torch.Generator().manual_seed(3), VOCAB, NUM_CATS, settings,
+                device=d), steps.make_cls_steps, cls_batch))
+        for name, cdt, make, make_steps, batch in cases:
+            rt = common.Runtime(Opts(device=str(dev), compute_dtype=cdt))
+            params = nn.tree_map(lambda x: x.requires_grad_(True),
+                                 rt.cast(make(dev)))
+            train_step, eval_step = make_steps(
+                settings, optim.Adam(params, HEAD_LR))
+            b = rt.put(batch)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            rec = {"train_step_ms": wall_ms(lambda: train_step(b, gen))}
+            if name == "senti_bf16":
+                by_kernel = device_ms_by_kernel(
+                    lambda: train_step(b, gen), iters=5, warm=1)
+                busy = sum(by_kernel.values())
+                rec.update(device_ms=busy, idle_share=max(
+                    0.0, 1.0 - busy / rec["train_step_ms"]),
+                    top_kernels_ms=dict(sorted(
+                        by_kernel.items(), key=lambda kv: -kv[1])[:6]))
+                vb = dict(b, valid=HEAD_BS)
+                zero_counters()
+                eval_step(vb)
+                _check(read_counters()["wino_input"] == 2,
+                       "the bf16 eval batch did not take the kernels twice")
+                # the batch's bf16 logits through the kernels against
+                # their plain twins' (phase 2's tolerances)
+                with torch.no_grad():
+                    lk = sd.forward(params, b["att"])[0]
+                    with _wino_plain(wk):
+                        lp = sd.forward(params, b["att"])[0]
+                ok, err = _within_rounding(torch, lk, lp, 1e-2, 1e-3)
+                _check(ok, "the bf16 eval batch's logits through the "
+                       "Winograd kernels disagree with the plain twins' "
+                       f"(rtol 1e-2, 1e-3 of the scale): max |diff| "
+                       f"{err:.4g}")
+                rec["eval_logits_kernels_vs_twins_max_abs_err"] = err
+                rec["eval_batch_ms"] = wall_ms(lambda: eval_step(vb))
+            timing[name] = rec
+        out["timing"] = timing
+    smi = _smi()
+    c, lab = out["concept"], out["labels"]
+    print(f"head stages (phase 3g, full width, bs {HEAD_BS}, "
+          f"{HEAD_EPOCHS} epochs): tree {out['tree_s']:.1f} s; train_cpt "
+          f"{out['cpt_train_s']:.1f} s, train/val/test loss by epoch "
+          + ", ".join(f"{m['train_loss']:.4f}/{m['val_loss']:.4f}/"
+                      f"{m['test_loss']:.4f}" for m in c["metrics"])
+          + f", precision {c['metrics'][-1]['precision']:.4f} recall "
+          f"{c['metrics'][-1]['recall']:.4f}; detect_concepts "
+          f"{c['detected_images']} images in "
+          f"{out['detect_concepts_s']:.1f} s; test_cpt "
+          f"{c['test_cpt']['image']}: {c['test_cpt']['concepts']}")
+    for tag, r in out["senti"].items():
+        print(f"train_senti {tag}: {r['s']:.1f} s, train/val loss and test "
+              "accuracy by epoch " + ", ".join(
+                  f"{m['train_loss']:.4f}/{m['val_loss']:.4f}/"
+                  f"{m['corr_rate']:.4f}" for m in r["metrics"])
+              + f"; Winograd launches "
+              f"{[r['launches'][k] for k in wino]}")
+    print(f"trained detector on {lab['images']} images in "
+          f"{lab['eval_batches']} eval batches of {HEAD_BS}: bf16 logits, "
+          f"kernels against plain twins, max |diff| "
+          f"{lab['logits_kernels_vs_plain_twins_max_abs_err']:.4g} (gate: "
+          f"rtol 1e-2, 1e-3 of the scale); labels (f32 direct "
+          f"accuracy at threshold 0 {lab['f32_accuracy_t0']:.4f}; "
+          f"{lab['f32_scores_above_0.7']} f32 scores above 0.7): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in lab["agreement"].items())
+          + "; logits max err vs f32 " + ", ".join(
+              f"{k} {v:.4g}" for k, v in lab["logits_max_err_vs_f32"].items())
+          + f" (scale {lab['logits_scale']:.4g})")
+    print("train_sent_senti_cls_rnn epochs 28-29 (resumed): train loss / "
+          "all acc " + ", ".join(f"{m['train_loss']:.4f}/{m['all_acc']:.2f}"
+                                 for m in out["cls"]["metrics"])
+          + f" in {out['cls_two_epochs_s']:.1f} s")
+    for name, r in out["card_vs_cpu"].items():
+        print(f"{name} card step against the CPU's (f32, dropout off): loss "
+              f"{r['loss_card']:.6f} vs {r['loss_cpu']:.6f} (rel "
+              f"{r['loss_rel']:.3g}); gradients max |diff|/|CPU's| "
+              f"{r['grad_max_rel']:.3g} ({r['grad_max_rel_leaf']}); params "
+              f"max |diff - Adam's first update of each side's gradient| "
+              f"{r['params_max_abs']:.3g}; raw max |diff| "
+              f"{r['params_raw_max_abs']:.3g}, updates more than lr apart "
+              f"on {r['params_parted_share']:.3g} of the elements")
+    for name, r in out["timing"].items():
+        print(f"{name} on {smi}: {r['train_step_ms']:.2f} ms a train step "
+              f"(bs {HEAD_BS}, median of 5)" + (
+                  f"; device {r['device_ms']:.2f} ms, idle share "
+                  f"{r['idle_share']:.3f}; largest: " + ", ".join(
+                      f"{k[:40]} {v:.3f}" for k, v in
+                      list(r["top_kernels_ms"].items())[:3])
+                  + f"; eval batch {r['eval_batch_ms']:.2f} ms, its bf16 "
+                  f"logits kernels vs plain twins max |diff| "
+                  f"{r['eval_logits_kernels_vs_twins_max_abs_err']:.4g}"
+                  if "device_ms" in r else ""))
+    out["device"] = smi
+    return out
+
+
 def main():
     t_start = time.time()
     import torch
@@ -1866,6 +2453,11 @@ def main():
                                    zero_counters, read_counters)
     torch.cuda.empty_cache()
 
+    # -- 3g. the head-stage trainers and the concept CLIs -----------------
+    report["head_stages"] = _head_stages(torch, np, dev, settings,
+                                         zero_counters, read_counters)
+    torch.cuda.empty_cache()
+
     # -- 4. f32 end to end: kernel path against the plain path -------------
     params32 = inference.ServingParams(cap32, det32)
     fc = torch.rand(BS, settings.fc_feat_dim, generator=g, device=dev)
@@ -2224,6 +2816,8 @@ def main():
             "name": name, "route": "cuda",
             "source": "insenticap_model_tpu_torch/csrc/winograd.cu",
             "replaces": replaces, "launches": launches[name],
+            "launches_train_senti": report["head_stages"]["senti"]["bf16"][
+                "launches"][name],
             "max_abs_err": checks[name], "ms": k_dev[name + "_kernel"],
             "ms_events": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd, "bound_by": by_, "library_ms": None,

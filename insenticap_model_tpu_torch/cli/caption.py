@@ -84,8 +84,8 @@ def load_models(a, device):
     settings = Settings.from_dict(meta["settings"])
     vocab = Vocab(meta["idx2word"])
     cats = meta["sentiment_categories"]
-    cpt_params, idx2concept = common.load_concept_model(a.concept_model,
-                                                        device=device)
+    cpt_params, idx2concept, _ = common.load_concept_model(
+        a.concept_model, device=device)
     enc_params, _ = ckpt.load(a.resnet101_ckpt, device=device)
     return (settings, vocab, cats, loaded["captioner"],
             loaded["senti_detector"], cpt_params, idx2concept, enc_params)

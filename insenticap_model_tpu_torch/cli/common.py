@@ -3,11 +3,13 @@
 
 Inference side (:34-83): JSON artefact reading, the decode's special ids,
 the concept checkpoint bootstrap and the detected-concepts ->
-sentiment-word ids step. Training side (:39-50, :93-143, :341-360,
-:420-486): the artefact paths and reference-compatible tokenizers, a
+sentiment-word ids step. Training side (:39-50, :86-143, :341-360,
+:392-486): the artefact paths (``sniff_store_path``: the ``.isc`` store
+beside a reference ``.h5`` path) and reference-compatible tokenizers, a
 single-device ``Runtime`` (batch placement from pinned memory and the
-dtype policy), the caption and sentiment-corpus loaders, stage
-directories, checkpoint selection and result and metrics writing.
+dtype policy), each step's seed, the caption, sentiment-corpus, concept,
+sentiment-image and sentence loaders, stage directories, checkpoint
+selection and result and metrics writing.
 
 Artefact schemas are the reference's JSON contracts (SURVEY.md §1):
 idx2word.json (list), img_captions.json ({split: {fn: [[word, ...],
@@ -29,7 +31,9 @@ from ..config import Opts
 from ..data import collate
 from ..data.feature_store import open_store  # noqa: F401 (re-export, as
 #   the JAX module: the trainers open stores as common.open_store)
-from ..data.loaders import Loader
+from ..data.loaders import Loader, device_prefetch
+from ..training import checkpoint as ckpt
+from ..training import optim
 from ..utils.dtypes import resolve_device
 from ..vocab import Vocab, token_ids, upsample_to_neutral  # noqa: F401
 
@@ -44,11 +48,13 @@ def load_json(*parts):
 
 
 def load_concept_model(path: str, *, device="cuda"):
-    """Concept checkpoint written by the JAX package -> (params on
-    ``device``, idx2concept)."""
-    from ..training import checkpoint as ckpt
+    """Concept checkpoint written by either package -> (params on
+    ``device``, idx2concept, metadata)."""
     params, meta = ckpt.load(path, device=device)
-    return params, meta["idx2concept"]
+    if "fc1" not in params:
+        raise ckpt.CheckpointError(f"{path}: not a concept-detector "
+                                   f"checkpoint (keys {sorted(params)})")
+    return params, meta["idx2concept"], meta
 
 
 def senti_word_ids(concepts, senti_table, vocab,
@@ -79,6 +85,14 @@ def dataset_path(opt: Opts, *names):
 
 def load_vocab(opt: Opts) -> Vocab:
     return Vocab(load_json(corpus_path(opt, "idx2word.json")))
+
+
+def sniff_store_path(path: str) -> str:
+    """The native (``.isc``) store at ``path``'s stem where one exists,
+    else ``path`` itself (a reference ``.h5``, which ``open_store``
+    refuses by name)."""
+    stem, _ = os.path.splitext(path)
+    return stem + ".isc" if os.path.exists(stem + ".isc") else path
 
 
 def feature_paths(opt: Opts):
@@ -181,6 +195,37 @@ class Runtime:
                            if t.dtype == torch.float32 else t, tree)
 
 
+def start_training(rt: Runtime, params, lr: float, resume: str, validate):
+    """The trainable params and their Adam for a stage: ``params`` (float32,
+    from the stage's ``init_params``), or the checkpoint ``resume`` with
+    its optimizer state and learning rate, which must have ``params``'
+    structure and shapes and pass ``validate(metadata)``. The params are
+    cast to the compute dtype and then require grad; Adam keeps float32
+    moments. Returns (adam, lr, the first epoch to run)."""
+    epoch0, opt_state = 0, None
+    if resume:
+        print(f"====> loading checkpoint '{resume}'")
+        loaded, opt_state, meta = ckpt.load(
+            resume, device=rt.device, dtype=torch.float32,
+            with_opt_state=True)
+        params = ckpt.match_tree(loaded, params, resume)
+        validate(meta)
+        lr = meta.get("lr", lr)
+        epoch0 = meta["epoch"] + 1
+        print(f"====> loaded checkpoint, epoch: {meta['epoch']}")
+    params = nn.tree_map(lambda t: t.requires_grad_(True), rt.cast(params))
+    adam = optim.Adam(params, lr, rt.opt.grad_clip)
+    if opt_state is not None:
+        optim.load_optax_state(adam, opt_state)
+        optim.set_lr(adam, lr)
+    return adam, lr, epoch0
+
+
+def step_seed(seed: int, epoch: int, i: int) -> int:
+    """The seed of the generator of step i of an epoch."""
+    return int(np.random.SeedSequence([seed, epoch, i]).generate_state(1)[0])
+
+
 # ---------------------------------------------------------------------------
 # Loader builders (the reference's get_*_dataloader factories,
 # dataloader.py:275-370)
@@ -204,6 +249,60 @@ def scs_loader(senti_corpus_id, vocab, opt: Opts, bs: int, seed=0) -> Loader:
                            num_sentiments=opt.num_sentiments,
                            pad_id=vocab.pad_id)
     return Loader(senti_corpus_id, bs, fn, shuffle=True, seed=seed)
+
+
+def concept_loader(fc_store, items, num_total_concepts: int, bs: int,
+                   shuffle=True, drop_last=True, seed=0) -> Loader:
+    """items [(fn, [concept index, ...])] -> {fc, cpts (one-hot)}."""
+    fn = functools.partial(collate.concept_batch,
+                           num_total_concepts=num_total_concepts,
+                           fc_store=fc_store)
+    return Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                  seed=seed)
+
+
+def senti_image_loader(att_store, items, bs: int, shuffle=True,
+                       drop_last=True, seed=0) -> Loader:
+    """items [(fn, label)] -> {att, labels}."""
+    fn = functools.partial(collate.senti_image_batch, att_store=att_store)
+    return Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                  seed=seed)
+
+
+def senti_sents_loader(items, max_seq_len: int, pad_id: int, bs: int,
+                       shuffle=True, drop_last=True, seed=0) -> Loader:
+    """items [[label, ids]] -> {caps, lengths, labels}."""
+    fn = functools.partial(collate.senti_sents_batch,
+                           max_seq_len=max_seq_len, pad_id=pad_id)
+    return Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                  seed=seed)
+
+
+def train_epoch(train_step, loader, rt: Runtime, seed: int,
+                epoch: int) -> float:
+    """A head stage's train pass over ``loader``: step i draws its dropout
+    mask from a generator on the device seeded ``step_seed(seed, epoch,
+    i)``; the losses are summed on the device in float64 and read once.
+    Returns the mean loss."""
+    tot, n = 0.0, 0
+    for i, b in enumerate(device_prefetch(loader, rt.put)):
+        gen = torch.Generator(device=rt.device).manual_seed(
+            step_seed(seed, epoch, i))
+        tot = tot + train_step(b, gen).double()
+        n += 1
+    return float(tot) / max(n, 1)
+
+
+def masked_mean(eval_step, loader, rt: Runtime) -> float:
+    """A head stage's eval loss over a split: ``eval_step``'s masked sums
+    and row counts, summed on the device and divided once, so that the
+    eval loader's padding rows add nothing and the batching does not move
+    the result."""
+    tot = cnt = 0.0
+    for b in device_prefetch(loader, rt.put):
+        s, c, _ = eval_step(b)
+        tot, cnt = tot + s.double(), cnt + c.double()
+    return float(tot) / max(float(cnt), 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -181,8 +181,8 @@ class ServeApp:
             (int(h), int(w)) for h, w in json.loads(a.image_buckets))
             if a.image_buckets else preprocessing.DEFAULT_BUCKET_SHAPES)
         try:
-            self.cpt_params, self.idx2concept = common.load_concept_model(
-                a.concept_model, device=device)
+            self.cpt_params, self.idx2concept, _ = \
+                common.load_concept_model(a.concept_model, device=device)
             # f32 scoring whatever the serving dtype (the ranking is the
             # product; bf16 fc rows from the encoder cast up in the apply)
             cpt_apply = make_cpt_apply(self.cpt_params, self.num_concepts)

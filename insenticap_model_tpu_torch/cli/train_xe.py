@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import os
 
-import numpy as np
 import torch
 
 from .. import inference, nn
@@ -58,11 +57,6 @@ def load_frozen_cls(opt: Opts, vocab, device):
     return params
 
 
-def step_seed(seed: int, epoch: int, i: int) -> int:
-    """The seed of step i of an epoch's generator."""
-    return int(np.random.SeedSequence([seed, epoch, i]).generate_state(1)[0])
-
-
 def ss_prob_at(opt: Opts, epoch: int) -> float:
     """The scheduled-sampling probability of an epoch (train_xe.py:209-212)."""
     if epoch > opt.scheduled_sampling_start >= 0:
@@ -88,26 +82,13 @@ def train(opt: Opts):
     params = cap.init_params(torch.Generator().manual_seed(opt.seed),
                              len(vocab), len(opt.sentiment_categories),
                              opt.settings, device=rt.device)
-    lr = opt.xe_lr
-    epoch0, opt_state = 0, None
-    if opt.xe_resume:
-        print(f"====> loading checkpoint '{opt.xe_resume}'")
-        params, opt_state, meta = ckpt.load(
-            opt.xe_resume, device=rt.device, dtype=torch.float32,
-            with_opt_state=True)
-        ckpt.validate_metadata(meta, settings=opt.settings,
-                               idx2word=vocab.idx2word,
-                               sentiment_categories=opt.sentiment_categories,
-                               dataset_name=opt.dataset_name,
-                               corpus_type=opt.corpus_type)
-        lr = meta.get("lr", lr)
-        epoch0 = meta["epoch"] + 1
-        print(f"====> loaded checkpoint, epoch: {meta['epoch']}")
-    params = nn.tree_map(lambda t: t.requires_grad_(True), rt.cast(params))
-    adam = optim.Adam(params, lr, opt.grad_clip)
-    if opt_state is not None:
-        optim.load_optax_state(adam, opt_state)
-        optim.set_lr(adam, lr)
+    adam, lr, epoch0 = common.start_training(
+        rt, params, opt.xe_lr, opt.xe_resume,
+        lambda meta: ckpt.validate_metadata(
+            meta, settings=opt.settings, idx2word=vocab.idx2word,
+            sentiment_categories=opt.sentiment_categories,
+            dataset_name=opt.dataset_name, corpus_type=opt.corpus_type))
+    params = adam.params
 
     cls_params = rt.cast(load_frozen_cls(opt, vocab, rt.device))
 
@@ -147,7 +128,7 @@ def train(opt: Opts):
         for i, b in enumerate(device_prefetch(train_data, rt.put)):
             scs_b = rt.put(scs_data.next())
             gen = torch.Generator(device=rt.device).manual_seed(
-                step_seed(opt.seed, epoch, i))
+                common.step_seed(opt.seed, epoch, i))
             losses = train_step(cls_params, b, scs_b, gen, ss_prob)
             for k, v in losses.items():   # summed on the device, read once
                 agg[k] = agg.get(k, 0.0) + v.double()

@@ -15,7 +15,7 @@ first.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -33,12 +33,16 @@ def init_params(gen: torch.Generator, num_concepts: int, settings, *,
             "fc3": nn.linear_init(gen, mid, num_concepts, **kw)}
 
 
-def forward(params, features):
+def forward(params, features, *, dropout_p: float = 0.0,
+            gen: Optional[torch.Generator] = None,
+            deterministic: bool = True):
     """features [bs, fc_feat_dim] -> sigmoid scores [bs, num_concepts]
-    (reference :10-18, eval mode)."""
+    (reference :10-18). Unless deterministic, dropout (its mask drawn from
+    ``gen``) sits between fc2's ReLU and fc3."""
     with nn.exact_numerics():
         x = torch.relu(nn.linear(params["fc1"], features))
         x = torch.relu(nn.linear(params["fc2"], x))
+        x = nn.dropout(gen, x, dropout_p, deterministic)
         return torch.sigmoid(nn.linear(params["fc3"], x))
 
 
@@ -50,3 +54,22 @@ def sample(params, features, num: int):
     top_scores, top_idx = torch.sort(out, dim=-1, descending=True,
                                      stable=True)
     return out, top_idx[:, :num], top_scores[:, :num]
+
+
+def multi_label_loss_rows(result, target):
+    """The per-row multi-label BCE (its mean over rows is
+    ``multi_label_loss``), for the masked eval sums that leave padding
+    rows out. Both logs are clamped at 1e-12, so that a score saturated to
+    exactly 0 or 1 gives a finite loss (the reference has no clamp)."""
+    t = target.to(result.dtype)
+    eps = 1e-12
+    pos = -(t * torch.log(result.clamp_min(eps))).mean(dim=-1)
+    neg = -((1.0 - t) * torch.log((1.0 - result).clamp_min(eps))).mean(
+        dim=-1)
+    return pos + neg
+
+
+def multi_label_loss(result, target):
+    """The reference's MultiLabelClsLoss (:44-58): -mean(t log p) -
+    mean((1 - t) log(1 - p)), each mean over both dims."""
+    return multi_label_loss_rows(result, target).mean()

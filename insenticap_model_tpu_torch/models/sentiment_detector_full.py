@@ -14,19 +14,22 @@ belongs to class c). Two branches:
   one spatial map; [mean(x), mean(x * map)] over space feeds one Linear
   -> ``cls_out`` [bs, S].
 
-``sample`` thresholds softmax(cls_out) like the standard detector. On a
-CUDA bf16 batch the conv stack runs through the Winograd kernels, as the
-standard head's does; the training losses come with the training slice.
+``sample`` thresholds softmax(cls_out) like the standard detector, and
+``xent_loss`` / ``xent_nll_rows`` are the cross entropy on cls_out (the
+detection branch carries no loss of its own in the reference, :71-73).
+On a CUDA bf16 batch the conv stack runs through the Winograd kernels, as
+the standard head's does; a training forward (dropout after the stack)
+keeps the direct conv.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from .. import nn
 from ..utils.dtypes import resolve_device
-from .sentiment_detector import conv_stack, threshold_labels
+from .sentiment_detector import conv_stack, nll_rows, threshold_labels
 
 
 def init_params(gen: torch.Generator, num_sentiments: int, settings, *,
@@ -49,11 +52,14 @@ def init_params(gen: torch.Generator, num_sentiments: int, settings, *,
 
 
 def forward_full(params, features, *, use_kernels: bool = True,
+                 dropout_p: float = 0.0,
+                 gen: Optional[torch.Generator] = None,
                  deterministic: bool = True):
     """features [bs, H, W, C] -> (det_out [bs, S], cls_out [bs, S],
-    spatial map [bs, H, W]). ``deterministic=False`` keeps the kernels out
-    (``conv_stack``)."""
+    spatial map [bs, H, W]). ``deterministic=False`` (dropout from
+    ``gen``) keeps the kernels out (``conv_stack``)."""
     x, spatial_major = conv_stack(params, features, use_kernels=use_kernels,
+                                  dropout_p=dropout_p, gen=gen,
                                   deterministic=deterministic)
     if spatial_major:   # not a hot path: one transpose back after the stack
         x = x.permute(2, 0, 1, 3)
@@ -72,12 +78,14 @@ def forward_full(params, features, *, use_kernels: bool = True,
 
 
 def forward(params, features, *, use_kernels: bool = True,
+            dropout_p: float = 0.0, gen: Optional[torch.Generator] = None,
             deterministic: bool = True):
     """The standard detector's surface: (cls logits [bs, S], spatial
     [bs, H, W]); sample runs on the classification branch, the branch the
     reference's own ``sample`` thresholds (:59-61)."""
     _, cls_out, spatial = forward_full(params, features,
                                        use_kernels=use_kernels,
+                                       dropout_p=dropout_p, gen=gen,
                                        deterministic=deterministic)
     return cls_out, spatial
 
@@ -89,3 +97,18 @@ def sample(params, features, senti_threshold: float, neu_idx: int, *,
     logits, spatial = forward(params, features, use_kernels=use_kernels)
     labels, scores = threshold_labels(logits, senti_threshold, neu_idx)
     return labels, spatial, scores
+
+
+def xent_loss(params, features, labels, *, dropout_p: float,
+              gen: Optional[torch.Generator], deterministic: bool):
+    """The training cross entropy on the classification logits (reference
+    get_optim_criterion :71-73)."""
+    logits, _ = forward(params, features, dropout_p=dropout_p, gen=gen,
+                        deterministic=deterministic)
+    return nll_rows(logits, labels).mean()
+
+
+def xent_nll_rows(params, features, labels, *, use_kernels: bool = True):
+    """Per-row cross entropy of the deterministic forward."""
+    logits, _ = forward(params, features, use_kernels=use_kernels)
+    return nll_rows(logits, labels)

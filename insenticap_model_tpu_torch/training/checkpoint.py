@@ -119,16 +119,17 @@ def _state_dict(node):
     return node
 
 
-def _match(node, tmpl, path: str):
+def match_tree(node, tmpl, path: str):
     """``node`` with the structure of ``tmpl``: the same keys, list
-    lengths and leaf shapes; an empty map stands for an empty list."""
+    lengths and leaf shapes (else ``CheckpointError``, naming ``path``);
+    an empty map stands for an empty list."""
     if isinstance(tmpl, list):
         if node == {}:
             node = []
         if not isinstance(node, list) or len(node) != len(tmpl):
             raise CheckpointError(f"{path}: expected a list of {len(tmpl)}, "
                                   f"got {type(node).__name__}")
-        return [_match(a, b, f"{path}/{i}")
+        return [match_tree(a, b, f"{path}/{i}")
                 for i, (a, b) in enumerate(zip(node, tmpl))]
     if isinstance(tmpl, dict):
         if not isinstance(node, dict) or set(node) != set(tmpl):
@@ -136,7 +137,7 @@ def _match(node, tmpl, path: str):
                 type(node).__name__
             raise CheckpointError(f"{path}: keys {got} != expected "
                                   f"{sorted(tmpl)}")
-        return {k: _match(node[k], tmpl[k], f"{path}/{k}") for k in tmpl}
+        return {k: match_tree(node[k], tmpl[k], f"{path}/{k}") for k in tmpl}
     if tuple(node.shape) != tuple(tmpl.shape):
         raise CheckpointError(f"{path}: shape {tuple(node.shape)} != "
                               f"expected {tuple(tmpl.shape)}")
@@ -231,7 +232,7 @@ def load(path: str, *, device="cuda", dtype: Optional[torch.dtype] = None,
                                           device="cpu")
         except (TypeError, AttributeError) as e:
             raise CheckpointError(f"{where}: {e}") from e
-        out[key] = to_device(_match(port, tmpl, where), dev, dtype)
+        out[key] = to_device(match_tree(port, tmpl, where), dev, dtype)
     params = out[""] if "" in out else out
     if not with_opt_state:
         return params, metadata

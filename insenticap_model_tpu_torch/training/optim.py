@@ -96,17 +96,28 @@ def to_optax_state(opt: Adam) -> Dict:
             "inner_state": [{}, adam, {}]}
 
 
-def _check_like(got, want, path: str):
+def _like(got, want, path: str):
+    """``got`` in ``want``'s structure: the same keys, list lengths (the
+    detector's conv and fc stacks; an empty list may come as the empty map
+    flax stores it as) and leaf shapes, else ValueError."""
     if isinstance(want, dict):
         if not isinstance(got, dict) or set(got) != set(want):
             raise ValueError(f"optimizer state {path}: keys "
                              f"{sorted(got) if isinstance(got, dict) else got}"
                              f" != {sorted(want)}")
-        for k in want:
-            _check_like(got[k], want[k], f"{path}/{k}")
-    elif tuple(got.shape) != tuple(want.shape):
+        return {k: _like(got[k], want[k], f"{path}/{k}") for k in want}
+    if isinstance(want, (list, tuple)):
+        if isinstance(got, dict) and not got:
+            got = []
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            raise ValueError(f"optimizer state {path}: expected a list of "
+                             f"{len(want)}, got {type(got).__name__}")
+        return [_like(a, b, f"{path}/{i}")
+                for i, (a, b) in enumerate(zip(got, want))]
+    if tuple(got.shape) != tuple(want.shape):
         raise ValueError(f"optimizer state {path}: shape {tuple(got.shape)}"
                          f" != {tuple(want.shape)}")
+    return got
 
 
 def load_optax_state(opt: Adam, state: Dict) -> None:
@@ -124,8 +135,8 @@ def load_optax_state(opt: Adam, state: Dict) -> None:
     adam = inner[1]
     moments = {}
     for name in ("mu", "nu"):
-        tree = convert.from_jax_numpy(adam[name], device="cpu")
-        _check_like(tree, opt.params, name)
+        tree = _like(convert.from_jax_numpy(adam[name], device="cpu"),
+                     opt.params, name)
         moments[name] = nn.tree_map(lambda t: t.float(), tree)
     dev = nn.tree_leaves(opt.params)[0].device
     opt.mu = nn.tree_map(lambda t: t.to(dev), moments["mu"])

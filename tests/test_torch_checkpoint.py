@@ -273,7 +273,7 @@ def test_jax_written_concept_checkpoint_loads_bit_identical(tmp_path,
     want, _, _ = jck.load(path, params)
     _identical(got, convert.from_jax_numpy(
         jax.tree_util.tree_map(np.asarray, want), device="cpu"))
-    tparams, ti2c = tcommon.load_concept_model(path, device="cpu")
+    tparams, ti2c, _ = tcommon.load_concept_model(path, device="cpu")
     assert ti2c == idx2concept
     _identical(tparams, got)
     if not bf16:
