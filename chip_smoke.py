@@ -130,6 +130,35 @@ into the git-ignored build directory) and the host image decoders
    each trainer (host clock, median of 5), the bf16 detector step's
    device time and idle share, a bf16 eval batch's ms and its logits
    through the kernels within rounding of the twins';
+3h. drives the RL fine-tuning stage (``cli.train_rl.train``) at full width
+   (``Settings()``, vocab 10,000, rl_bs 40, the seq2seq batch 80, 16
+   tokens, beam 3) on a synthetic tree (80 captioned train images, 40 val,
+   40 test; 40 sentiment train and 40 test images), bootstrapped from
+   checkpoints the port's writer saves (a seeded XE captioner, phase 3g's
+   trained detector and classifier): one f32 epoch, epoch 1 resumed from
+   its composite checkpoint (``--rl_resume``), one epoch under
+   ``--compute_dtype bfloat16 --rl_detector_dtype bf16``, with the launch
+   counts set to 0 just before each run and read just after: v1's launches
+   equal the dump's decode steps (the beam's vocabulary tail counted) and
+   each Winograd transform's the bf16 detector's calls (none in f32);
+   finite metrics, each composite checkpoint read back bit-identical with
+   its optimizer state, the resumed run at epoch 1; ``eval_cls_rnn`` on
+   the f32 dump's sentiment split (all three sentiments detected); the
+   device CIDEr-D within rtol 2e-5 of the host scorer on the sample,
+   greedy and ground-truth rows of a fact batch; one fact step with
+   dropout off and the draw forced to argmax(logprobs + G) on the card
+   against the CPU (phase 3f's gates: losses within 1e-5 relative, each
+   leaf's gradient within 1e-4 of its norm but the two softmax-invariant
+   biases, the params within 1e-5 of Adam's first update of each side's
+   gradient); the bf16 detector's logits through the kernels within
+   rounding of the plain twins' (phase 2's tolerances) and its labels
+   against f32's at thresholds 0 and 0.7 (printed); the dump's decode
+   (``detect_and_decode``) against the plain path, in f32 on the test
+   images (identical labels and top beams, scores within 1e-3) and in
+   bf16 on 400 images of standard-normal features (phase 4's gate); the
+   ms an RL step (f32, bf16; median of 5), its device time, idle share and
+   largest kernels, the CIDEr-D reward's device time, the tables' build
+   seconds and bytes and the dump's captions/s;
 4. runs ``detect_and_decode`` at bs=384 in f32 on the kernel path and on
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
@@ -273,6 +302,13 @@ HEAD_N_SENTI_IMG = {"train": 240, "val": 100, "test": 120}
 # printed reading and a floor (the logits are gated within rounding, as
 # phase 2's transforms: rtol 1e-2, 1e-3 of the scale)
 HEAD_LABEL_GATE = 0.99
+# phase 3h, the RL stage: the reference trainer's rl_bs and learning rate;
+# 80 train images give 2 fact batches, 40 sentiment train images 1, one
+# val batch, one test batch of each split for the dump
+RL_BS = 40
+RL_LR = 4e-5
+RL_N_IMG = {"train": 80, "val": 40, "test": 40}
+RL_N_SENTI_IMG = {"train": 40, "val": 4, "test": 40}
 SWITCH_SETS = {"default": {}, "fused_topk": {"ISC_FUSED_TOPK": "1"},
                "v2": {"ISC_ATT_KERNEL": "v2"},
                "both": {"ISC_FUSED_TOPK": "1", "ISC_ATT_KERNEL": "v2"}}
@@ -1215,10 +1251,12 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
     return out
 
 
-def _step_card_vs_cpu(torch, dev, make_params, make_steps, batch, lr):
+def _step_card_vs_cpu(torch, dev, make_params, make_steps, batch, lr,
+                      skip=()):
     """One train step with dropout off from the same seeded weights on the
     card and on the CPU: (the card's and the CPU's loss, {leaf: |card's
-    gradient - CPU's| / |CPU's|} (L2), the params record).
+    gradient - CPU's| / |CPU's|} (L2) but the leaves of ``skip``, the
+    params record).
 
     Adam's first update is lr * c / (|c| + eps), c the clipped gradient:
     about lr * sign(g), so an element whose gradient is a near-cancelling
@@ -1236,7 +1274,8 @@ def _step_card_vs_cpu(torch, dev, make_params, make_steps, batch, lr):
     class RecordingAdam(optim.Adam):
         """Adam that keeps, on the host, the gradients it steps on."""
         def step(self):
-            self.grads = [(path, p.grad.detach().float().cpu().clone())
+            self.grads = [(path, torch.zeros(p.shape) if p.grad is None
+                           else p.grad.detach().float().cpu().clone())
                           for path, p in _tree_paths(self.params)]
             super().step()
 
@@ -1262,9 +1301,10 @@ def _step_card_vs_cpu(torch, dev, make_params, make_steps, batch, lr):
     for (path, gc), (_, gp), (_, pc), (_, pp) in zip(
             g_card, g_cpu, _tree_paths(p_card), _tree_paths(p_cpu)):
         norm = float(gp.norm())
-        grad_rel["/".join(map(str, path))] = (
-            float((gc - gp).norm()) / norm if norm
-            else (0.0 if torch.equal(gc, gp) else math.inf))
+        if path not in skip:
+            grad_rel["/".join(map(str, path))] = (
+                float((gc - gp).norm()) / norm if norm
+                else (0.0 if torch.equal(gc, gp) else math.inf))
         diff = pc.double() - pp.double()
         parted = lr * (first_update(gp) - first_update(gc))
         params["max_abs"] = max(params["max_abs"],
@@ -1305,7 +1345,8 @@ def _head_stages(torch, np, dev, settings, zero_counters, read_counters):
     detector's labels, bf16 through the kernels and through their plain
     twins against f32; ``train_sent_senti_cls_rnn`` resumed for its last
     two epochs; one step of the concept and detector trainers on the card
-    against the CPU; the step and eval times."""
+    against the CPU; the step and eval times. Returns (the record, the
+    f32-trained detector and the trained classifier, for phase 3h)."""
     import dataclasses
     import shutil
     import tempfile
@@ -1571,7 +1612,8 @@ def _head_stages(torch, np, dev, settings, zero_counters, read_counters):
         tck.save = recording_save
         try:
             t0 = time.time()
-            train_sent_senti_cls_rnn.train(o)
+            cls_trained = nn.tree_map(lambda x: x.detach().clone(),
+                                      train_sent_senti_cls_rnn.train(o))
             torch.cuda.synchronize()
             out["cls_two_epochs_s"] = time.time() - t0
         finally:
@@ -1741,6 +1783,577 @@ def _head_stages(torch, np, dev, settings, zero_counters, read_counters):
                   f"logits kernels vs plain twins max |diff| "
                   f"{r['eval_logits_kernels_vs_twins_max_abs_err']:.4g}"
                   if "device_ms" in r else ""))
+    out["device"] = smi
+    return out, {"detector": det32, "classifier": cls_trained}
+
+
+def _train_rl(torch, np, dev, settings, zero_counters, read_counters,
+              trained):
+    """Phase 3h: the RL stage through ``cli.train_rl.train`` at full width
+    on a synthetic tree, bootstrapped from checkpoints the port's writer
+    saves (a seeded XE captioner, phase 3g's trained detector and
+    classifier): one f32 epoch, a resumed epoch, one bf16 epoch with the
+    bf16 detector, ``eval_cls_rnn`` on the dump; the device CIDEr-D
+    against the host scorer, one fact step on the card against the CPU,
+    the detector's and the dump's kernels against their plain twins, and
+    the step, reward and dump times."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from insenticap_model_tpu_torch import inference, nn, synthetic
+    from insenticap_model_tpu_torch.cli import common, eval_cls_rnn, train_rl
+    from insenticap_model_tpu_torch.config import Opts
+    from insenticap_model_tpu_torch.models import captioner as cap
+    from insenticap_model_tpu_torch.models import sentiment_detector as sd
+    from insenticap_model_tpu_torch.ops import ciderd_device
+    from insenticap_model_tpu_torch.ops import fused_attention as fa
+    from insenticap_model_tpu_torch.ops import fused_topk as ft
+    from insenticap_model_tpu_torch.ops import winograd_kernels as wk
+    from insenticap_model_tpu_torch.rewards.ciderd import (build_scorer,
+                                                           seq_from_ids)
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    from insenticap_model_tpu_torch.training import optim, steps
+    from insenticap_model_tpu_torch.utils.dtypes import cast_bf16
+    from insenticap_model_tpu_torch.utils.timing import (device_ms,
+                                                         device_ms_by_kernel)
+    from insenticap_model_tpu_torch.vocab import Vocab
+    cats = ["positive", "negative", "neutral"]
+    wino = ("wino_input", "wino_middle", "wino_output")
+    ids = cap.TokenIds(pad=0, unk=1, sos=2, eos=3, neutral=2)
+    out, saved, calls = {}, {}, {"detector_bf16": 0, "decode_steps": 0}
+    orig_save, orig_fwd = tck.save, sd.forward
+    orig_tail = ft.classifier_topk_plain
+
+    def recording_save(path, params, opt_state, metadata):
+        """The trees each checkpoint was given, kept on the host."""
+        saved[path] = (nn.tree_map(lambda x: x.detach().cpu().clone(),
+                                   params), opt_state)
+        orig_save(path, params, opt_state, metadata)
+
+    def counting_fwd(params, features, **kw):
+        """The detector's forward, its bf16 calls on the card counted."""
+        if features.dtype == torch.bfloat16 and features.is_cuda:
+            calls["detector_bf16"] += 1
+        return orig_fwd(params, features, **kw)
+
+    def counting_tail(*args, **kw):
+        """The beam's vocabulary tail, once a decode step."""
+        calls["decode_steps"] += 1
+        return orig_tail(*args, **kw)
+
+    def read_back(path):
+        """The checkpoint at ``path`` reads back bit-identical to the trees
+        it was written from, optimizer state included."""
+        p_back, s_back, _ = tck.load(path, device=dev, with_opt_state=True)
+        for tree_a, tree_b, what in ((p_back, saved[path][0], "params"),
+                                     (s_back, saved[path][1], "opt_state")):
+            pa, pb = _tree_paths(tree_a), _tree_paths(tree_b)
+            _check([p for p, _ in pa] == [p for p, _ in pb] and all(
+                a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                for (_, a), (_, b) in zip(pa, pb)),
+                f"{os.path.basename(path)}: {what} did not read back "
+                "bit-identical")
+
+    def wall_ms(fn, runs=5):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls) * 1e3
+
+    with tempfile.TemporaryDirectory(prefix="rl_") as tmp:
+        # 1. the tree at full feature width (the vocabulary padded to VOCAB
+        # words) and the RL inputs; the bootstrap's checkpoints through
+        # the port's writer: a seeded XE captioner, phase 3g's trained
+        # detector and classifier
+        t0 = time.time()
+        synthetic.build_tree(tmp, settings, seed=0, n_img=RL_N_IMG,
+                             n_senti_img=RL_N_SENTI_IMG)
+        synthetic.write_rl_inputs(tmp)
+        vpath = os.path.join(tmp, "data/captions/coco/part/idx2word.json")
+        with open(vpath) as f:
+            words = json.load(f)
+        words += [f"w{i}" for i in range(len(words), VOCAB)]
+        with open(vpath, "w") as f:
+            json.dump(words, f)
+        out["tree_s"] = time.time() - t0
+        meta = {"settings": settings.to_dict(), "idx2word": words,
+                "sentiment_categories": cats, "dataset_name": "coco",
+                "corpus_type": "part"}
+        cap0 = cap.init_params(torch.Generator().manual_seed(3), VOCAB,
+                               NUM_CATS, settings, device=dev)
+        det_file = os.path.join(tmp, "det.ckpt")
+        tck.save(det_file, trained["detector"], None, meta)
+        boot = {"xe": cap0, "sent_senti_cls": trained["classifier"]}
+
+        def opts(name, **kw):
+            ck = os.path.join(tmp, "ck_" + name)
+            for stage, params in boot.items():
+                d = os.path.join(ck, stage, "coco", "part")
+                os.makedirs(d, exist_ok=True)
+                tck.save(os.path.join(d, "model-best.ckpt"), params, None,
+                         meta)
+            return Opts(**dict(dict(
+                settings=settings, rl_bs=RL_BS, beam_size=BEAM,
+                max_seq_len=T, seed=0, rl_senti_times=1,
+                rl_senti_resume=det_file,
+                img_senti_labels=os.path.join(
+                    tmp, "data/captions/img_senti_labels.json"),
+                captions_dir=os.path.join(tmp, "data/captions"),
+                feats_dir=os.path.join(tmp, "data/features"),
+                checkpoint=ck, result_dir=os.path.join(tmp, "res_" + name),
+                device=str(dev)), **kw))
+
+        def stage(o, *parts):
+            return os.path.join(o.checkpoint, "rl", "coco", "part", *parts)
+
+        def metrics_of(o):
+            with open(stage(o, "metrics.jsonl")) as f:
+                return [json.loads(x) for x in f]
+
+        def finite(metrics):
+            return all(math.isfinite(v) for m in metrics for v in m.values()
+                       if isinstance(v, float))
+
+        # 2. the epochs: f32, then resumed from its checkpoint, then bf16
+        # with the bf16 detector; the kernels counted over each run, the
+        # bf16 detector's calls and the beam's decode steps beside them
+        runs = {}
+        tck.save, sd.forward = recording_save, counting_fwd
+        ft.classifier_topk_plain = counting_tail
+        try:
+            for tag, kw in (
+                    ("f32", dict(rl_epochs=1)),
+                    ("resume", dict(rl_epochs=2)),
+                    ("bf16", dict(rl_epochs=1, compute_dtype="bfloat16",
+                                  rl_detector_dtype="bf16"))):
+                if tag == "resume":
+                    kw["rl_resume"] = stage(runs["f32"]["opts"],
+                                            "model_0.ckpt")
+                o = opts(tag, **kw)
+                calls.update(detector_bf16=0, decode_steps=0)
+                zero_counters()
+                t0 = time.time()
+                params = train_rl.train(o)
+                torch.cuda.synchronize()
+                runs[tag] = {"opts": o, "s": time.time() - t0,
+                             "launches": read_counters(),
+                             "calls": dict(calls), "metrics": metrics_of(o),
+                             "params": params}
+        finally:
+            tck.save, sd.forward = orig_save, orig_fwd
+            ft.classifier_topk_plain = orig_tail
+        for tag, r in runs.items():
+            m, n = r["metrics"], r["launches"]
+            _check(finite(m), f"train_rl {tag}: non-finite metrics {m}")
+            _check([x["epoch"] for x in m] == ([1] if tag == "resume"
+                                                else [0]),
+                   f"train_rl {tag}: epochs {[x['epoch'] for x in m]}")
+            _check(n["beam_content_attention"] == r["calls"]["decode_steps"]
+                   and n["beam_content_attention"] > 0,
+                   f"train_rl {tag}: v1 launches {n['beam_content_attention']}"
+                   f" != the dump's decode steps {r['calls']['decode_steps']}")
+            want = r["calls"]["detector_bf16"]
+            _check([n[k] for k in wino] == [want] * 3
+                   and (want > 0) == (tag == "bf16"),
+                   f"train_rl {tag}: Winograd launches "
+                   f"{[n[k] for k in wino]}, bf16 detector calls {want}")
+            read_back(stage(r["opts"], f"model_{m[0]['epoch']}.ckpt"))
+        out["epochs"] = {tag: {k: v for k, v in r.items()
+                               if k not in ("opts", "params")}
+                         for tag, r in runs.items()}
+
+        # 3. eval_cls_rnn on the f32 dump's sentiment split (the trained
+        # detector labels it with all three sentiments)
+        o = runs["f32"]["opts"]
+        prefix = os.path.join(o.result_dir, "rl", "coco", "part",
+                              "result_0")
+        for c in cats:
+            _check(os.path.exists(f"{prefix}_{c}_senti.txt"),
+                   f"the dump has no {c} captions of the sentiment split")
+        t0 = time.time()
+        out["cls_acc"] = eval_cls_rnn.compute_cls(prefix, "senti",
+                                                  o.checkpoint, device=dev)
+        out["eval_cls_s"] = time.time() - t0
+        _check(set(out["cls_acc"]) == {"all", *cats} and all(
+            0.0 <= v <= 1.0 for v in out["cls_acc"].values()),
+            f"eval_cls_rnn: {out['cls_acc']}")
+
+        # 4. the inputs of the checks: the tree's first fact batch, a
+        # seq2seq batch, the tables (timed, with their bytes)
+        vocab = Vocab(words)
+        caps_id = common.tokenize_captions(common.load_json(
+            common.dataset_path(o, "img_captions.json")), vocab)
+        cpts_id = common.tokenize_concepts(common.load_json(
+            common.dataset_path(o, "img_det_concepts.json")), vocab)
+        sentis_id = common.tokenize_sentiments(common.load_json(
+            common.corpus_path(o, "img_det_sentiments.json")), vocab)
+        scs_id = common.tokenize_senti_corpus(common.load_json(
+            common.corpus_path(o, "senti_captions.json")), vocab, cats)
+        t0 = time.time()
+        scorer = build_scorer(caps_id, vocab.sos_id, vocab.eos_id)
+        gts = {**caps_id["train"], **caps_id["val"]}
+        tables, fn2row = ciderd_device.build_tables(
+            scorer, gts, list(gts), T, vocab.sos_id, vocab.eos_id,
+            device=dev)
+        torch.cuda.synchronize()
+        out["tables"] = {"build_s": time.time() - t0,
+                         "bytes": tables.nbytes(), "images": len(fn2row),
+                         "ngrams": int(tables.df_h1.numel())}
+        cpu_tables, _ = ciderd_device.build_tables(
+            scorer, gts, list(gts), T, vocab.sos_id, vocab.eos_id)
+        fc_s, att_s = (common.open_store(p) for p in common.feature_paths(o))
+        loader = common.rl_fact_loader(fc_s, att_s, caps_id["train"],
+                                       cpts_id, sentis_id, vocab, o, RL_BS,
+                                       fn2row=fn2row)
+        batch = loader.assemble(loader._index_batches()[0])
+        scs_loader = common.scs_loader(scs_id, vocab, o, train_rl.SCS_BS)
+        scs_b = scs_loader.assemble(scs_loader._index_batches()[0])
+        rt = common.Runtime(Opts(device=str(dev)))
+        b = rt.put(batch)
+
+        # 5. the device CIDEr-D against the host scorer on one fact batch:
+        # the sample and greedy rollouts of the seeded captioner, and
+        # ground-truth captions (which score high)
+        with torch.no_grad():
+            labels = sd.sample(trained["detector"], b["att"], 0.7,
+                               ids.neutral)[0]
+            rolls = [cap.forward_rl(
+                cap0, b["fc"], b["att"], b["cpts"], b["sentis"], labels,
+                settings=settings, ids=ids, max_seq_len=T, sample_max=greedy,
+                gen=torch.Generator(device=dev).manual_seed(1),
+                deterministic=True)[0] for greedy in (False, True)]
+        gt_rows = torch.from_numpy(batch["caps"][:, 1:]).to(dev)
+        hyps = torch.cat(rolls + [gt_rows.to(torch.int32)])
+        img = torch.cat([b["img_rows"]] * 3)
+        cid, clen = ciderd_device.canonicalize(hyps, ids.eos, T + 1)
+        card = ciderd_device.cider_d(tables, cid, clen, img).cpu().numpy()
+        fns = batch["fns"] * 3
+        host = scorer.compute_score(
+            {str(i): [seq_from_ids(c, ids.sos, ids.eos)
+                      for c in batch["ground_truth"][fn]]
+             for i, fn in enumerate(fns)},
+            [{"image_id": str(i), "caption": [seq_from_ids(
+                h, ids.sos, ids.eos)]} for i, h in
+             enumerate(hyps.cpu().numpy())])[1]
+        rel = np.abs(card - host) / np.maximum(np.abs(host), 1e-30)
+        out["cider_vs_host"] = {
+            "rows": len(host), "max_rel": float(np.where(
+                host != 0, rel, np.abs(card)).max()),
+            "mean_sample": float(host[:RL_BS].mean()),
+            "mean_greedy": float(host[RL_BS:2 * RL_BS].mean()),
+            "mean_ground_truth": float(host[2 * RL_BS:].mean())}
+        _check(np.allclose(card, host, rtol=2e-5, atol=0),
+               f"device CIDEr-D against the host scorer: "
+               f"{out['cider_vs_host']} (tolerance rtol 2e-5)")
+        out["reward_device_ms"] = device_ms(
+            lambda: ciderd_device.self_critical_reward(
+                tables, rolls[0], rolls[1], b["img_rows"], ids.eos),
+            iters=10)
+
+        # 6. one fact step with dropout off and the draw forced to
+        # argmax(logprobs + G) (G one seeded Gumbel array), the
+        # scheduled-sampling probabilities 0, on the card and on the CPU
+        # from the same weights; a seeded detector (its labels far from
+        # the threshold) and the trained classifier. In f32: the losses
+        # within 1e-5 relative, the params within 1e-5 of Adam's first
+        # update of each side's gradient. The gradients of att_embed and
+        # att2att are near-cancelling sums over the batch's 7,840
+        # positions, which f32 rounds to up to 1e-3 of their norms, on
+        # either device (each side against float64 is printed); the same
+        # step in float64 on both holds each leaf's gradient within
+        # XE_GRAD_RTOL of its norm (the two softmax-invariant biases, zero
+        # but for rounding, aside)
+        nodrop = dataclasses.replace(settings, dropout_p=0.0)
+        gumbel = torch.from_numpy(np.random.default_rng(123).gumbel(
+            size=(train_rl.SCS_BS, VOCAB)).astype(np.float32))
+        det_seeded = sd.init_params(torch.Generator().manual_seed(3),
+                                    NUM_CATS, settings, device="cpu")
+        step_losses, step_grads = [], []    # card, CPU; f32, then f64
+
+        def forced(gen, logprobs):
+            g = gumbel[:logprobs.shape[0]].to(logprobs.device)
+            return (logprobs.float() + g).argmax(dim=-1)
+
+        def rl_steps(adam):
+            p0 = nn.tree_leaves(adam.params)[0]
+            d, dt = p0.device, p0.dtype
+            rl = steps.make_rl_steps(
+                nodrop, adam, ids, T, tables if d.type == "cuda"
+                else cpu_tables)
+
+            def put(t):
+                return t.to(d, dt) if t.is_floating_point() else t.to(d)
+            fz = steps.RLModels(nn.tree_map(put, det_seeded),
+                                nn.tree_map(put, trained["classifier"]))
+            scs = {k: put(v) if torch.is_tensor(v) else v
+                   for k, v in common.Runtime(Opts(
+                       device=str(d))).put(scs_b).items()}
+
+            def step(b_, gen):
+                b_ = {k: put(v) if torch.is_tensor(v) else v
+                      for k, v in b_.items()}
+                losses = rl[("fact", True)](fz, b_, scs, gen)
+                step_losses.append({k: float(v) for k, v in losses.items()})
+                step_grads.append(adam.grads)
+                return losses["cap_loss"] + losses["xe_loss"]
+            return step, None
+        saved_ss = steps.RL_XE_SS_PROB, steps.RL_SEQ_SS_PROB
+        orig_cat = cap._categorical
+        steps.RL_XE_SS_PROB = steps.RL_SEQ_SS_PROB = 0.0
+        cap._categorical = forced
+        t0 = time.time()
+        try:
+            card_cpu = {tag: _step_card_vs_cpu(
+                torch, dev, lambda d, dt=dt: cap.init_params(
+                    torch.Generator().manual_seed(3), VOCAB, NUM_CATS,
+                    nodrop, device=d, dtype=dt), rl_steps, batch, RL_LR,
+                skip=SOFTMAX_INVARIANT)
+                for tag, dt in (("f32", torch.float32),
+                                ("f64", torch.float64))}
+        finally:
+            steps.RL_XE_SS_PROB, steps.RL_SEQ_SS_PROB = saved_ss
+            cap._categorical = orig_cat
+        out["cpu_step_s"] = time.time() - t0
+
+        def rel_max(a, b):
+            return max(abs(a[k] - b[k]) / abs(b[k]) if b[k] else abs(a[k])
+                       for k in b)
+
+        def grad_vs(got, want):
+            """(max over leaves of |got - want| / |want| (L2), its leaf),
+            the softmax-invariant biases aside."""
+            r = {"/".join(map(str, p)): float((a.double() - b).norm()
+                                              / b.norm())
+                 for (p, a), (_, b) in zip(got, want)
+                 if p not in SOFTMAX_INVARIANT}
+            worst = max(r, key=r.get)
+            return r[worst], worst
+        l32c, l32p, l64c, l64p = step_losses
+        g32c, g32p, g64c, g64p = step_grads
+        rec = {"losses_card": l32c, "losses_cpu": l32p,
+               "losses_max_rel": rel_max(l32c, l32p),
+               "losses_f64_max_rel": rel_max(l64c, l64p)}
+        for tag, (_, _, grad_rel, params) in card_cpu.items():
+            worst = max(grad_rel, key=grad_rel.get)
+            rec[f"grad_max_rel_{tag}"] = grad_rel[worst]
+            rec[f"grad_max_rel_leaf_{tag}"] = worst
+            rec[f"params_max_abs_{tag}"] = params["max_abs"]
+            rec[f"params_raw_max_abs_{tag}"] = params["raw_max_abs"]
+        for side, g32, g64 in (("card", g32c, g64c), ("cpu", g32p, g64p)):
+            rec[f"grad_f32_vs_f64_{side}"] = grad_vs(g32, g64)
+        out["card_vs_cpu"] = rec
+        _check(set(l32c) == set(l32p) and rec["losses_max_rel"] <= 1e-5
+               and rec["losses_f64_max_rel"] <= 1e-5
+               and rec["params_max_abs_f32"] <= 1e-5
+               and rec["params_max_abs_f64"] <= 1e-5
+               and rec["grad_max_rel_f64"] <= XE_GRAD_RTOL,
+               f"train_rl card step against the CPU's: {rec} (tolerances: "
+               "losses 1e-5 relative, params 1e-5 of Adam's first update "
+               f"of each side's gradient, the f64 gradients {XE_GRAD_RTOL} "
+               "of the norm)")
+
+        # 7. the bf16 detector: its logits through the kernels against the
+        # plain twins' (phase 2's tolerances) and its labels against the
+        # f32 direct conv's at thresholds 0 and 0.7, on the fact batch and
+        # the sentiment split's first batch
+        senti_imgs = common.load_json(o.img_senti_labels)["train"]
+        s_att = common.open_store(common.sniff_store_path(os.path.join(
+            o.feats_dir, "sentiment", "feats_att.h5"))).batch(
+            [fn for fn, _ in senti_imgs[:RL_BS]])
+        feats = torch.cat([b["att"], torch.from_numpy(s_att).to(dev)])
+        det16 = cast_bf16(trained["detector"])
+        with torch.no_grad():
+            with nn.exact_numerics():
+                l32 = sd.forward(trained["detector"], feats,
+                                 use_kernels=False)[0]
+            f16 = feats.bfloat16()
+            wk.wino_input.launches = 0
+            lk = sd.forward(det16, f16)[0]
+            _check(wk.wino_input.launches == 1,
+                   "the bf16 detector did not take the Winograd kernels")
+            with _wino_plain(wk):
+                lp = sd.forward(det16, f16)[0]
+        ok, err = _within_rounding(torch, lk, lp, 1e-2, 1e-3)
+        _check(ok, "train_rl bf16 detector: the logits through the Winograd "
+               "kernels disagree with the plain twins' (rtol 1e-2, 1e-3 of "
+               f"the scale): max |diff| {err:.4g}")
+        agree = {}
+        for thr in (0.0, 0.7):
+            lab32 = sd.threshold_labels(l32, thr, ids.neutral)[0]
+            for k, v in (("kernels", lk), ("plain_twins", lp)):
+                agree[f"{k}_vs_f32_t{thr}"] = float(
+                    (sd.threshold_labels(v, thr, ids.neutral)[0] == lab32)
+                    .float().mean())
+        out["detector_bf16"] = {
+            "images": int(feats.shape[0]),
+            "logits_kernels_vs_twins_max_abs_err": err,
+            "logits_scale": float(l32.abs().max()), "labels": agree}
+
+        # 8. the dump's decode (detect_and_decode: the detector, then the
+        # beam with v1) against the plain path: the f32-trained captioner
+        # on the tree's test images in f32, every top beam identical and
+        # scores within 1e-3; in bf16 on XE_CMP_BATCHES batches of
+        # standard-normal features, phase 4's gate (the share of identical
+        # top beams at least v1 with tanhf's, rounded down to a percent)
+        test_fns = sorted(caps_id["test"])[:RL_BS]
+        tb = next(train_rl.fact_test_batches(test_fns, RL_BS, fc_s, att_s,
+                                             sentis_id, vocab, o))
+        vs_plain = {}
+        for tag in ("f32", "bf16"):
+            rt_ = common.Runtime(Opts(device=str(dev), compute_dtype=(
+                "bfloat16" if tag == "bf16" else "float32")))
+            sp = inference.ServingParams(
+                rt_.cast(nn.tree_map(lambda x: x.detach().float(),
+                                     runs["f32"]["params"])),
+                rt_.cast(trained["detector"]))
+            kwd = dict(settings=settings, ids=ids, beam_size=BEAM,
+                       max_seq_len=T)
+            with torch.no_grad():
+                if tag == "f32":
+                    x = rt_.put(tb)
+                    ks, ksc, kl = inference.detect_and_decode(
+                        sp, x["fc"], x["att"], x["sentis"], **kwd)
+                    ps, psc, pl = inference.detect_and_decode(
+                        sp, x["fc"], x["att"], x["sentis"], **kwd,
+                        use_kernels=False)
+                    eq, dscore = _top_beams_vs_plain(ks, ksc, ps, psc)
+                    vs_plain[tag] = {"images": int(eq.numel()),
+                                     "top_beam_identical":
+                                     float(eq.float().mean()),
+                                     "labels_identical":
+                                     bool(torch.equal(kl, pl)),
+                                     "max_score_diff": dscore}
+                    _check(bool(eq.all()) and dscore <= 1e-3
+                           and torch.equal(kl, pl),
+                           f"train_rl f32 dump against the plain path: "
+                           f"{vs_plain[tag]}")
+                    dump_ms = wall_ms(lambda: inference.detect_and_decode(
+                        sp, x["fc"], x["att"], x["sentis"], **kwd))
+                    continue
+                g = torch.Generator(device=dev).manual_seed(6)
+                got = {"kernel": [], "plain": [], "tanhf": []}
+                for _ in range(XE_CMP_BATCHES):
+                    fc = torch.randn(RL_BS, settings.fc_feat_dim,
+                                     generator=g, device=dev)
+                    att = torch.randn(RL_BS, 14, 14, settings.att_feat_dim,
+                                      generator=g, device=dev)
+                    sw = torch.randint(4, VOCAB, (RL_BS, M), generator=g,
+                                       device=dev)
+                    fc, att = fc.bfloat16(), att.bfloat16()
+                    got["kernel"].append(inference.detect_and_decode(
+                        sp, fc, att, sw, **kwd)[:2])
+                    got["plain"].append(inference.detect_and_decode(
+                        sp, fc, att, sw, **kwd, use_kernels=False)[:2])
+                    with _v1_exact_tanh(fa):
+                        got["tanhf"].append(inference.detect_and_decode(
+                            sp, fc, att, sw, **kwd)[:2])
+            cat = {k: [torch.cat([r[i] for r in v]) for i in (0, 1)]
+                   for k, v in got.items()}
+            eq, dscore = _top_beams_vs_plain(*cat["kernel"], *cat["plain"])
+            eq_t, _ = _top_beams_vs_plain(*cat["tanhf"], *cat["plain"])
+            share, share_t = float(eq.float().mean()), float(
+                eq_t.float().mean())
+            gate = math.floor(100 * share_t + 1e-9) / 100
+            vs_plain[tag] = {"images": int(eq.numel()),
+                             "top_beam_identical": share,
+                             "top_beam_identical_tanhf": share_t,
+                             "max_score_diff": dscore, "gate": gate}
+            _check(share >= gate, f"train_rl bf16 dump against the plain "
+                   f"path: {vs_plain[tag]}")
+        out["dump_vs_plain"] = vs_plain
+        out["dump_ms"] = dump_ms
+        out["dump_captions_per_s"] = RL_BS / dump_ms * 1e3
+
+        # 9. ms an RL fact step (rl_bs 40 + the seq2seq batch of 80, the
+        # default dropout and scheduled sampling; host clock, median of 5
+        # after one warm-up), f32 and bf16 (the bf16 detector), its device
+        # time and idle share (the profiler over 5 steps)
+        timing = {}
+        for tag, cdt in (("f32", "float32"), ("bf16", "bfloat16")):
+            rt_ = common.Runtime(Opts(device=str(dev), compute_dtype=cdt))
+            params = nn.tree_map(lambda x: x.requires_grad_(True),
+                                 rt_.cast(nn.tree_map(torch.clone, cap0)))
+            rl = steps.make_rl_steps(settings, optim.Adam(params, RL_LR),
+                                     ids, T, tables)
+            fz = steps.RLModels(
+                (cast_bf16(trained["detector"]) if tag == "bf16"
+                 else trained["detector"]), rt_.cast(trained["classifier"]))
+            bb, ss = rt_.put(batch), rt_.put(scs_b)
+            gen = torch.Generator(device=dev).manual_seed(0)
+
+            def one():
+                return rl[("fact", True)](fz, bb, ss, gen)
+            ms = wall_ms(one)
+            by_kernel = device_ms_by_kernel(one, iters=5, warm=1)
+            busy = sum(by_kernel.values())
+            timing[tag] = {
+                "train_step_ms": ms, "device_ms": busy,
+                "idle_share": max(0.0, 1.0 - busy / ms),
+                "top_kernels_ms": dict(sorted(
+                    by_kernel.items(), key=lambda kv: -kv[1])[:6])}
+        out["timing"] = timing
+    smi = _smi()
+    ep = out["epochs"]
+    print(f"train_rl (phase 3h, full width, vocab {VOCAB}, rl_bs {RL_BS}, "
+          f"seq2seq {train_rl.SCS_BS}, beam {BEAM}): tree "
+          f"{out['tree_s']:.1f} s; CIDEr-D tables {out['tables']['images']} "
+          f"images, {out['tables']['ngrams']} n-grams, "
+          f"{out['tables']['bytes']} bytes, built in "
+          f"{out['tables']['build_s']:.3f} s; " + "; ".join(
+              f"{tag} epoch {r['metrics'][0]['epoch']} {r['s']:.1f} s, val "
+              f"cap/xe loss {r['metrics'][0]['val_cap_loss']:.4f}/"
+              f"{r['metrics'][0]['val_xe_loss']:.4f}, fact reward "
+              f"{r['metrics'][0]['val_fact_reward']:.4f}, wrong rate "
+              f"{r['metrics'][0]['det_sentis_wrong_rate']:.3f}, v1 "
+              f"{r['launches']['beam_content_attention']} = decode steps, "
+              f"Winograd {[r['launches'][k] for k in wino]} = bf16 detector "
+              f"calls {r['calls']['detector_bf16']}" for tag, r in ep.items())
+          + f"; eval_cls_rnn {out['cls_acc']}")
+    cv, cc = out["cider_vs_host"], out["card_vs_cpu"]
+    print(f"train_rl device CIDEr-D against the host scorer on {cv['rows']} "
+          f"rows (sample, greedy, ground truth; means "
+          f"{cv['mean_sample']:.4f}/{cv['mean_greedy']:.4f}/"
+          f"{cv['mean_ground_truth']:.4f}): max rel {cv['max_rel']:.3g} "
+          f"(tolerance 2e-5); the reward's device time "
+          f"{out['reward_device_ms']:.4f} ms at rl_bs {RL_BS} on {smi}")
+    print(f"train_rl card step against the CPU's (dropout off, forced "
+          f"draw): f32 losses max rel {cc['losses_max_rel']:.3g} (cap_loss "
+          f"{cc['losses_card']['cap_loss']:.6f} vs "
+          f"{cc['losses_cpu']['cap_loss']:.6f}), params max |diff - Adam's "
+          f"first update of each side's gradient| "
+          f"{cc['params_max_abs_f32']:.3g}, gradients max |diff|/|CPU's| "
+          f"{cc['grad_max_rel_f32']:.3g} ({cc['grad_max_rel_leaf_f32']}; "
+          f"against f64: card {cc['grad_f32_vs_f64_card'][0]:.3g} "
+          f"({cc['grad_f32_vs_f64_card'][1]}), CPU "
+          f"{cc['grad_f32_vs_f64_cpu'][0]:.3g} "
+          f"({cc['grad_f32_vs_f64_cpu'][1]})); f64 gradients max "
+          f"|diff|/|CPU's| {cc['grad_max_rel_f64']:.3g} "
+          f"({cc['grad_max_rel_leaf_f64']}, tolerance {XE_GRAD_RTOL})")
+    db = out["detector_bf16"]
+    print(f"train_rl bf16 detector on {db['images']} images: logits kernels "
+          f"vs plain twins max |diff| "
+          f"{db['logits_kernels_vs_twins_max_abs_err']:.4g} (scale "
+          f"{db['logits_scale']:.4g}); labels against f32 " + ", ".join(
+              f"{k} {v:.4f}" for k, v in db["labels"].items()))
+    for tag, r in out["dump_vs_plain"].items():
+        print(f"train_rl {tag} dump against the plain path: top beams "
+              f"identical {r['top_beam_identical']:.2%} of {r['images']}"
+              + (f" (v1 tanhf {r['top_beam_identical_tanhf']:.2%}, gate "
+                 f"{r['gate']:.2f})" if "gate" in r else "")
+              + f", score diff {r['max_score_diff']:.3g}")
+    print(f"train_rl dump on {smi}: {out['dump_ms']:.2f} ms a batch of "
+          f"{RL_BS} -> {out['dump_captions_per_s']:.1f} captions/s")
+    for tag, r in out["timing"].items():
+        print(f"train_rl {tag} on {smi}: {r['train_step_ms']:.2f} ms an RL "
+              f"fact step (median of 5; device {r['device_ms']:.2f} ms, idle "
+              f"share {r['idle_share']:.3f}; largest: " + ", ".join(
+                  f"{k[:40]} {v:.3f}" for k, v in
+                  list(r["top_kernels_ms"].items())[:3]) + ")")
     out["device"] = smi
     return out
 
@@ -2454,8 +3067,14 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 3g. the head-stage trainers and the concept CLIs -----------------
-    report["head_stages"] = _head_stages(torch, np, dev, settings,
-                                         zero_counters, read_counters)
+    report["head_stages"], trained = _head_stages(
+        torch, np, dev, settings, zero_counters, read_counters)
+    torch.cuda.empty_cache()
+
+    # -- 3h. the RL fine-tuning stage (train_rl) -------------------------
+    report["train_rl"] = _train_rl(torch, np, dev, settings, zero_counters,
+                                   read_counters, trained)
+    del trained
     torch.cuda.empty_cache()
 
     # -- 4. f32 end to end: kernel path against the plain path -------------
@@ -2692,6 +3311,9 @@ def main():
         "launches": launches["beam_content_attention"],
         "launches_train_xe": report["train_xe"]["launches"][
             "beam_content_attention"],
+        "launches_train_rl": sum(
+            r["launches"]["beam_content_attention"]
+            for r in report["train_rl"]["epochs"].values()),
         "max_abs_err": checks["attention_bf16"],
         "ms": a_dev["total"], "ms_events": a_ms,
         "query_ms": a_dev["query_"], "attention_ms": a_dev["beam_att_kernel"],
@@ -2817,6 +3439,8 @@ def main():
             "source": "insenticap_model_tpu_torch/csrc/winograd.cu",
             "replaces": replaces, "launches": launches[name],
             "launches_train_senti": report["head_stages"]["senti"]["bf16"][
+                "launches"][name],
+            "launches_train_rl": report["train_rl"]["epochs"]["bf16"][
                 "launches"][name],
             "max_abs_err": checks[name], "ms": k_dev[name + "_kernel"],
             "ms_events": k_ms, "plain_ms": p_ms,

@@ -3,13 +3,13 @@
 
 Inference side (:34-83): JSON artefact reading, the decode's special ids,
 the concept checkpoint bootstrap and the detected-concepts ->
-sentiment-word ids step. Training side (:39-50, :86-143, :341-360,
-:392-486): the artefact paths (``sniff_store_path``: the ``.isc`` store
-beside a reference ``.h5`` path) and reference-compatible tokenizers, a
+sentiment-word ids step. Training side (:39-50, :86-143, :341-486): the
+artefact paths (``sniff_store_path``: the ``.isc`` store beside a
+reference ``.h5`` path) and reference-compatible tokenizers, a
 single-device ``Runtime`` (batch placement from pinned memory and the
-dtype policy), each step's seed, the caption, sentiment-corpus, concept,
-sentiment-image and sentence loaders, stage directories, checkpoint
-selection and result and metrics writing.
+dtype policy), each step's seed, the caption, sentiment-corpus, RL fact
+and sentiment-image, concept, sentiment-image and sentence loaders,
+stage directories, checkpoint selection and result and metrics writing.
 
 Artefact schemas are the reference's JSON contracts (SURVEY.md §1):
 idx2word.json (list), img_captions.json ({split: {fn: [[word, ...],
@@ -122,6 +122,13 @@ def tokenize_concepts(img_det_concepts: Dict, vocab: Vocab) -> Dict:
             for fn, ws in img_det_concepts.items()}
 
 
+def tokenize_sentiments(img_det_sentiments: Dict, vocab: Vocab) -> Dict:
+    """Filtered lookup (train_rl.py:126-131 indexes words already
+    restricted to the vocabulary; the filter keeps it OOV-safe)."""
+    return {fn: vocab.encode_filter(ws)
+            for fn, ws in img_det_sentiments.items()}
+
+
 def tokenize_senti_corpus(senti_captions: Dict, vocab: Vocab,
                           sentiment_categories,
                           upsample: bool = True) -> List:
@@ -221,9 +228,10 @@ def start_training(rt: Runtime, params, lr: float, resume: str, validate):
     return adam, lr, epoch0
 
 
-def step_seed(seed: int, epoch: int, i: int) -> int:
-    """The seed of the generator of step i of an epoch."""
-    return int(np.random.SeedSequence([seed, epoch, i]).generate_state(1)[0])
+def step_seed(seed: int, *keys: int) -> int:
+    """The seed of a step's generator: ``step_seed(seed, epoch, i)`` for
+    step i of an epoch (the RL stage adds its phase and pass)."""
+    return int(np.random.SeedSequence([seed, *keys]).generate_state(1)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +257,43 @@ def scs_loader(senti_corpus_id, vocab, opt: Opts, bs: int, seed=0) -> Loader:
                            num_sentiments=opt.num_sentiments,
                            pad_id=vocab.pad_id)
     return Loader(senti_corpus_id, bs, fn, shuffle=True, seed=seed)
+
+
+def rl_fact_loader(fc_store, att_store, captions_id, concepts_id,
+                   sentiments_id, vocab, opt: Opts, bs: int, fn2row=None,
+                   shuffle=True, drop_last=True, seed=0) -> Loader:
+    """One row an image, with its ground-truth captions and one of them,
+    drawn by the collate's own generator (``collate.rl_fact_batch``),
+    which the loader keeps as ``caption_rng`` (a resume replays its
+    draws)."""
+    items = [(fn, caps, concepts_id[fn], sentiments_id[fn])
+             for fn, caps in captions_id.items()]
+    rng = np.random.default_rng(seed)
+    fn = functools.partial(collate.rl_fact_batch, max_seq_len=opt.max_seq_len,
+                           num_concepts=opt.num_concepts,
+                           num_sentiments=opt.num_sentiments,
+                           pad_id=vocab.pad_id, fc_store=fc_store,
+                           att_store=att_store, rng=rng, fn2row=fn2row)
+    loader = Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                    seed=seed)
+    loader.caption_rng = rng
+    return loader
+
+
+def rl_senti_loader(fc_store, att_store, senti_imgs, concepts_id,
+                    sentiments_id, label2idx, vocab, opt: Opts, bs: int,
+                    shuffle=True, drop_last=True, seed=0) -> Loader:
+    """senti_imgs: [[fn, senti_name], ...] (an img_senti_labels.json
+    split)."""
+    items = [(fn, concepts_id[fn], sentiments_id[fn], label2idx[senti])
+             for fn, senti in senti_imgs]
+    fn = functools.partial(collate.rl_senti_batch,
+                           num_concepts=opt.num_concepts,
+                           num_sentiments=opt.num_sentiments,
+                           pad_id=vocab.pad_id, fc_store=fc_store,
+                           att_store=att_store)
+    return Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                  seed=seed)
 
 
 def concept_loader(fc_store, items, num_total_concepts: int, bs: int,

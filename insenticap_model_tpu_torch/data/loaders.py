@@ -8,10 +8,12 @@ partial last batch; eval pads it by repeating the last item and reports
 ``valid``. One process: the JAX package's multi-host stripes (its
 ``shard``) come with multi-device.
 
-Two additions serve an exact resume: ``Loader.advance(passes)`` replays
-the shuffles of passes already taken, and ``CycleIterator.skip(n)``
-passes over n batches without assembling them, so that a run resumed at
-epoch e meets the batches an uninterrupted run meets there.
+Three additions serve an exact resume: ``Loader.advance(passes)`` replays
+the shuffles of passes already taken, ``CycleIterator.skip(n)`` passes
+over n batches without assembling them, and ``Loader.iterate(limit)``
+assembles no batch past a pass's first ``limit`` (the RL stage's epoch
+cap), so that a run resumed at epoch e meets the batches an
+uninterrupted run meets there.
 ``device_prefetch`` keeps batches staged ahead of the step; the
 ``put_fn`` the CLIs pass (``cli/common.Runtime.put``) copies from pinned
 host memory without blocking, so the copy of batch i+1 overlaps step i.
@@ -21,7 +23,7 @@ from __future__ import annotations
 import queue
 import threading
 from collections import deque
-from typing import Callable, Iterator, List
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
@@ -74,7 +76,12 @@ class Loader:
         return out
 
     def __iter__(self) -> Iterator:
-        batches = self._index_batches()
+        return self.iterate()
+
+    def iterate(self, limit: Optional[int] = None) -> Iterator:
+        """One pass (one shuffle); with ``limit``, its first ``limit``
+        batches only, none assembled past them."""
+        batches = self._index_batches()[:limit]
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         stop = threading.Event()  # the consumer left the iterator

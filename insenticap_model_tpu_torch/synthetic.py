@@ -10,8 +10,12 @@ package's CLIs take a ``.isc`` store before a ``.h5`` one at the same
 stem, so both packages train on the same tree.
 
 ``write_det_concepts`` stands in for the concept stage (``detect_concepts``
-writes ``img_det_concepts.json`` from a trained concept detector, not
-ported yet): each image's detected concepts are its own concept words.
+writes ``img_det_concepts.json`` from a trained concept detector): each
+image's detected concepts are its own concept words. ``write_rl_inputs``
+adds what the RL stage reads besides: detected concepts for the sentiment
+images too, and the detected sentiment words that the preprocessing
+derives from the concepts (``img_det_sentiments.json``, with the
+``sentiment_words.json`` table they come from).
 """
 from __future__ import annotations
 
@@ -130,3 +134,31 @@ def write_det_concepts(root: str) -> None:
            for fn, words in split.items()}
     with open(os.path.join(cap, "img_det_concepts.json"), "w") as f:
         json.dump(det, f)
+
+
+def write_rl_inputs(root: str) -> None:
+    """The RL stage's inputs beyond ``write_det_concepts``:
+    ``img_det_concepts.json`` for the captioned and the sentiment images
+    (the latter two concept words each, by position), and
+    ``img_det_sentiments.json`` (two sentiment words an image) with the
+    ``sentiment_words.json`` table."""
+    root = os.path.abspath(root)
+    cap = os.path.join(root, "data/captions/coco")
+    with open(os.path.join(cap, "img_concepts.json")) as f:
+        img_concepts = json.load(f)
+    with open(os.path.join(root, "data/captions/img_senti_labels.json")) as f:
+        senti_imgs = [fn for split in json.load(f).values()
+                      for fn, _ in split]
+    det = {fn: words for split in img_concepts.values()
+           for fn, words in split.items()}
+    for i, fn in enumerate(senti_imgs):
+        det[fn] = [CONCEPTS[i % 4], CONCEPTS[4 + i % 4]]
+    with open(os.path.join(cap, "img_det_concepts.json"), "w") as f:
+        json.dump(det, f)
+    with open(os.path.join(cap, "part", "img_det_sentiments.json"),
+              "w") as f:
+        json.dump({fn: ["happy", "sad"] for fn in det}, f)
+    corpus = os.path.join(root, "data/corpus/part")
+    os.makedirs(corpus, exist_ok=True)
+    with open(os.path.join(corpus, "sentiment_words.json"), "w") as f:
+        json.dump({"positive": {"happy": 1.0}, "negative": {"sad": 1.0}}, f)

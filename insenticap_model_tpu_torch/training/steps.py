@@ -1,7 +1,8 @@
-"""Train and eval steps: the XE stage and the three head stages.
+"""Train and eval steps: the XE stage, the RL stage and the three head
+stages.
 
-Counterpart of ``insenticap_model_tpu/training/steps.py`` (:38-128 and
-:340-409), with the reference trainers' loss semantics:
+Counterpart of ``insenticap_model_tpu/training/steps.py``, with the
+reference trainers' loss semantics:
 
   XE stage      train_xe.py:144-196: XE on the captions, the
                 domain-alignment MSE between the concept and image
@@ -9,22 +10,29 @@ Counterpart of ``insenticap_model_tpu/training/steps.py`` (:38-128 and
                 sentiment-corpus batch, with the captions' sentiment
                 labels given by the frozen sentence classifier (pseudo
                 labels, under ``torch.no_grad``)
+  RL stage      models/decoder.py:52-180: SCST (a multinomial rollout
+                against the greedy baseline, rewarded by CIDEr-D on the
+                device and the frozen classifier's per-token reward),
+                with the domain-alignment, XE and seq2seq auxiliary
+                losses
   concept       train_cpt.py: the multi-label BCE
   sentiment     train_senti.py: cross entropy (either detector head,
                 ``sentiment_detector.module_for``)
   sentence-cls  train_sent_senti_cls_rnn.py: cross entropy
 
 A train step is plain PyTorch with autograd (the JAX package's training
-steps reach no Pallas kernel either); the gradient clamp and Adam are
-``optim.Adam``. A head stage's train step runs forward and backward under
-``nn.exact_numerics``, so that the detector's f32 convolutions and their
-gradients stay f32 on the card (cuDNN's default is TF32). Eval steps run
-under ``torch.no_grad``: on a CUDA bf16 batch the detector's eval forward
-takes the Winograd kernels, which refuse operands that require grad.
+steps reach no Pallas kernel either; in the RL step only the frozen
+detector's bf16 forward does, under ``torch.no_grad``); the gradient
+clamp and Adam are ``optim.Adam``. A head stage's train step runs forward
+and backward under ``nn.exact_numerics``, so that the detector's f32
+convolutions and their gradients stay f32 on the card (cuDNN's default is
+TF32). Eval steps run under ``torch.no_grad``: on a CUDA bf16 batch the
+detector's eval forward takes the Winograd kernels, which refuse operands
+that require grad.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -33,7 +41,14 @@ from ..models import captioner as cap
 from ..models import concept_detector as cpt_det
 from ..models import sent_senti_cls as ss_cls
 from ..models import sentiment_detector as senti_det
+from ..ops import ciderd_device, lm_device
 from . import optim
+
+CLS_FLAG = 0.4        # reference decoder.py:39
+SEQ_FLAG = 1.0        # reference decoder.py:40
+SENTI_THRESHOLD = 0.7  # reference decoder.py:41
+RL_XE_SS_PROB = 0.5   # reference decoder.py:139
+RL_SEQ_SS_PROB = 0.25  # reference decoder.py:155
 
 
 def _row_mask(batch, bs: int, dtype=torch.float32, device="cpu"):
@@ -125,6 +140,192 @@ def make_xe_steps(settings, opt: optim.Adam):
                 {"xe_loss": xe_cnt, "da_loss": da_cnt})
 
     return train_step, eval_step
+
+
+# ---------------------------------------------------------------------------
+# RL stage (the reference Detector.forward inner loop, decoder.py:52-180)
+# ---------------------------------------------------------------------------
+
+class RLModels(NamedTuple):
+    """The trainable captioner's frozen companions."""
+    senti_detector: Any
+    sent_senti_cls: Any
+
+
+@torch.no_grad()
+def _cls_reward(cls_params, sample_seq, seq_masks, senti_labels, settings):
+    """The per-token classifier reward (reference get_cls_reward,
+    self_critical/utils.py:120-151): 1{pred == target} x the classifier's
+    excitation weights. No baseline (SURVEY.md §8.9)."""
+    lens = seq_masks.sum(dim=-1).to(torch.int32)
+    logits, weights = ss_cls.forward(cls_params, sample_seq, lens,
+                                     settings=settings, deterministic=True)
+    correct = (logits.argmax(dim=-1) == senti_labels).to(weights.dtype)
+    return correct[:, None] * weights
+
+
+def make_rl_steps(settings, opt: optim.Adam, ids: cap.TokenIds,
+                  max_seq_len: int,
+                  cider_tables: Optional[ciderd_device.CiderTables],
+                  lm_tables: Optional[lm_device.LMTables] = None,
+                  lm_flag: float = 0.0):
+    """The RL steps of the captioner ``opt.params``, keyed (data_type,
+    training).
+
+    fact batch: {fc, att, caps, lengths, cpts, sentis, img_rows}
+    senti batch: {fc, att, cpts, sentis, senti_labels}
+    scs_batch as in XE.
+
+    ``train_step(frozen, batch, scs_batch, gen)`` takes one optimizer step
+    and returns the detached losses (the JAX package's keys);
+    ``eval_step(frozen, batch, gen)`` returns masked (sums, counts) a term,
+    so that the eval loader's padding rows add nothing. ``frozen`` is an
+    ``RLModels``; ``gen`` the step's generator (dropout, the multinomial
+    rollout, scheduled sampling). The scheduled-sampling probabilities
+    are read here, when the steps are built.
+
+    The frozen detector labels the fact and eval batches in the dtype of
+    its staged params (the JAX step's rule, steps.py:185-193): bf16 takes
+    the Winograd kernels on the card, f32 the direct convolution (no TF32).
+    It, the greedy rollout and every reward run under ``torch.no_grad``;
+    the multinomial rollout stays on the plain, differentiable decode
+    cell. lm_tables / lm_flag: the optional per-sentiment trigram LM
+    reward, lm_flag * sign(lm(greedy) - lm(sample)) (``ops/lm_device.py``;
+    the reference's is wired but off, train_rl.py:212-216)."""
+    params = opt.params
+    det = senti_det.module_for(settings)
+    xe_ss, s2s_ss = RL_XE_SS_PROB, RL_SEQ_SS_PROB
+
+    @torch.no_grad()
+    def _detect(frozen: RLModels, att):
+        det_params = frozen.senti_detector
+        dt = det_params["convs"][0]["weight"].dtype
+        with nn.exact_numerics():
+            labels, _, _ = det.sample(det_params, att.to(dt),
+                                      SENTI_THRESHOLD, ids.neutral)
+        return labels
+
+    def _forward(frozen: RLModels, batch, scs_batch, gen, data_type: str,
+                 training: bool):
+        """(total, aux losses, sums, counts). Every term is formed as a
+        masked sum first; the train means divide inside the batch (all
+        rows true: train loaders never pad), the eval sums are summed
+        across batches by the caller."""
+        fc, att = batch["fc"], batch["att"]
+        rmask = _row_mask(batch, fc.shape[0], device=fc.device)
+        if data_type == "fact" or not training:
+            senti_labels = _detect(frozen, att)   # decoder.py:82-84
+        else:
+            senti_labels = batch["senti_labels"]
+        sums: Dict[str, torch.Tensor] = {}
+        counts: Dict[str, torch.Tensor] = {}
+        n_rows = rmask.sum()
+
+        sample_seq, sample_lp, sample_masks, aux = cap.forward_rl(
+            params, fc, att, batch["cpts"], batch["sentis"], senti_labels,
+            settings=settings, ids=ids, max_seq_len=max_seq_len,
+            sample_max=False, gen=gen, deterministic=not training)
+        sample_masks = sample_masks * rmask[:, None]
+        da_sum, _ = cap.domain_alignment_sums(aux["cpt_feats"],
+                                              aux["fc_emb"], rmask)
+        da_loss = da_sum / n_rows
+        sums["da_loss"], counts["da_loss"] = da_sum, n_rows
+        with torch.no_grad():
+            greedy_seq, _, _, _ = cap.forward_rl(
+                params, fc, att, batch["cpts"], batch["sentis"],
+                senti_labels, settings=settings, ids=ids,
+                max_seq_len=max_seq_len, sample_max=True,
+                deterministic=True)
+
+        aux_losses = {"da_loss": da_loss}
+        if data_type == "fact":
+            fact_reward = ciderd_device.self_critical_reward(
+                cider_tables, sample_seq, greedy_seq, batch["img_rows"],
+                ids.eos)
+            fr_sum = (fact_reward[:, 0] * rmask).sum()
+            aux_losses["fact_reward"] = fr_sum / n_rows
+            sums["fact_reward"], counts["fact_reward"] = fr_sum, n_rows
+        else:
+            fact_reward = 0.0
+
+        cls_reward = _cls_reward(frozen.sent_senti_cls, sample_seq,
+                                 sample_masks, senti_labels, settings)
+        n_tok_slots = n_rows * cls_reward.shape[1]
+        cr_sum = (cls_reward * rmask[:, None]).sum()
+        aux_losses["cls_reward"] = cr_sum / n_tok_slots
+        sums["cls_reward"], counts["cls_reward"] = cr_sum, n_tok_slots
+
+        rewards = fact_reward + CLS_FLAG * cls_reward
+        if lm_tables is not None and lm_flag > 0.0:
+            lmr = lm_device.lm_reward(lm_tables, sample_seq, greedy_seq,
+                                      senti_labels, ids.eos)
+            lm_sum = (lmr * rmask[:, None]).sum()
+            aux_losses["lm_reward"] = lm_sum / n_tok_slots
+            sums["lm_reward"], counts["lm_reward"] = lm_sum, n_tok_slots
+            rewards = rewards + lm_flag * lmr
+        rw_sum = (rewards * rmask[:, None]).sum()
+        aux_losses["all_rewards"] = rw_sum / n_tok_slots
+        sums["all_rewards"], counts["all_rewards"] = rw_sum, n_tok_slots
+        rl_sum, rl_cnt = cap.reward_criterion_sums(sample_lp, sample_masks,
+                                                   rewards)
+        rl_loss = rl_sum / rl_cnt
+        aux_losses["cap_loss"] = rl_loss
+        sums["cap_loss"], counts["cap_loss"] = rl_sum, rl_cnt
+        total = rl_loss + da_loss
+
+        if data_type == "fact":
+            # XE on a ground-truth caption with pseudo labels
+            # (decoder.py:131-141)
+            caps = batch["caps"]
+            xe_labels = _pseudo_senti_labels(frozen.sent_senti_cls, caps,
+                                             batch["lengths"], settings)
+            pred, _ = cap.forward_xe(
+                params, fc, att, batch["cpts"], caps, xe_labels,
+                settings=settings, gen=gen, ss_prob=xe_ss,
+                deterministic=not training)
+            lengths = batch["lengths"] * rmask.to(batch["lengths"].dtype)
+            xe_sum, xe_cnt = cap.xe_criterion_sums(pred, caps[:, 1:],
+                                                   lengths)
+            xe_loss = xe_sum / xe_cnt
+            aux_losses["xe_loss"] = xe_loss
+            sums["xe_loss"], counts["xe_loss"] = xe_sum, xe_cnt
+            total = total + xe_loss
+
+        if training and scs_batch is not None:
+            # seq2seq (decoder.py:143-159)
+            s2s_pred = cap.forward_seq2seq(
+                params, scs_batch["caps"], scs_batch["cpts"],
+                scs_batch["sentis"], scs_batch["senti_labels"],
+                settings=settings, gen=gen, ss_prob=s2s_ss,
+                deterministic=False)
+            s2s_loss = SEQ_FLAG * cap.xe_criterion(
+                s2s_pred, scs_batch["caps"][:, 1:], scs_batch["lengths"])
+            aux_losses["seq2seq_loss"] = s2s_loss
+            total = total + s2s_loss
+        return total, aux_losses, sums, counts
+
+    def make_train(data_type: str):
+        def train_step(frozen: RLModels, batch, scs_batch, gen):
+            opt.zero_grad()
+            total, losses, _, _ = _forward(frozen, batch, scs_batch, gen,
+                                           data_type, training=True)
+            total.backward()
+            opt.step()
+            return {k: v.detach() for k, v in losses.items()}
+        return train_step
+
+    def make_eval(data_type: str):
+        @torch.no_grad()
+        def eval_step(frozen: RLModels, batch, gen):
+            _, _, sums, counts = _forward(frozen, batch, None, gen,
+                                          data_type, training=False)
+            return sums, counts
+        return eval_step
+
+    return {("fact", True): make_train("fact"),
+            ("senti", True): make_train("senti"),
+            ("fact", False): make_eval("fact"),
+            ("senti", False): make_eval("senti")}
 
 
 # ---------------------------------------------------------------------------
