@@ -216,6 +216,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -244,8 +245,8 @@ ENC_BS = 32                  # the encode ladder's top bucket
 # the stem's pool inputs at ENC_BS for the 448x448 and 384x512 buckets
 POOL_SHAPES = {"448x448": (ENC_BS, 224, 224, 64),
                "384x512": (ENC_BS, 192, 256, 64)}
-TRAINED_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "assets", "bench_trained.ckpt")
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+TRAINED_CKPT = os.path.join(REPO_DIR, "assets", "bench_trained.ckpt")
 ATT_BEAMS = (1, BEAM, 8)     # v1's checks: narrowest, serving, widest
 # each kernel's design on this card: "redesigned" for the Hopper-specific
 # designs that replaced the first port, "first design" for the others
@@ -261,8 +262,7 @@ DESIGNS = {"beam_content_attention": "redesigned",
 # expected.npz holding PIL's decoded arrays; tests/torch_images.py rebuilds
 # them): name -> what phase 3e expects of the port's decoders, "decode"
 # (identical to expected.npz) or "refuse" (ValueError, so a 400)
-FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "tests", "data", "torch_images")
+FIXTURE_DIR = os.path.join(REPO_DIR, "tests", "data", "torch_images")
 FIXTURES = {"j444.jpg": "decode", "j422.jpg": "decode",
             "j420_448.jpg": "decode", "grey.jpg": "decode",
             "rst.jpg": "decode", "prog.jpg": "refuse", "rgb.png": "decode",
@@ -309,6 +309,16 @@ RL_BS = 40
 RL_LR = 4e-5
 RL_N_IMG = {"train": 80, "val": 40, "test": 40}
 RL_N_SENTI_IMG = {"train": 40, "val": 4, "test": 40}
+# phase 3i, the offline and evaluation CLIs: 40 images for the features
+# (the 8 fixtures the port decodes and 32 PNGs, over the three buckets) in
+# encode batches of 32, the reference CLI's; two of them again on the CPU,
+# whose f32 convolutions sum in other orders than cuDNN's through 104
+# layers: fc and att within 1e-4 of their largest magnitude (the port and
+# the JAX package agree within 1e-5 on the CPU, test_torch_encoder.py; a
+# layout or weight fault is O(1))
+PP_N_PNG = 32
+PP_FEAT_BS = 32
+PP_CPU_TOL = 1e-4
 SWITCH_SETS = {"default": {}, "fused_topk": {"ISC_FUSED_TOPK": "1"},
                "v2": {"ISC_ATT_KERNEL": "v2"},
                "both": {"ISC_FUSED_TOPK": "1", "ISC_ATT_KERNEL": "v2"}}
@@ -1788,18 +1798,18 @@ def _head_stages(torch, np, dev, settings, zero_counters, read_counters):
 
 
 def _train_rl(torch, np, dev, settings, zero_counters, read_counters,
-              trained):
+              trained, tmp):
     """Phase 3h: the RL stage through ``cli.train_rl.train`` at full width
-    on a synthetic tree, bootstrapped from checkpoints the port's writer
-    saves (a seeded XE captioner, phase 3g's trained detector and
-    classifier): one f32 epoch, a resumed epoch, one bf16 epoch with the
-    bf16 detector, ``eval_cls_rnn`` on the dump; the device CIDEr-D
+    on a synthetic tree under ``tmp``, bootstrapped from checkpoints the
+    port's writer saves (a seeded XE captioner, phase 3g's trained detector
+    and classifier): one f32 epoch, a resumed epoch, one bf16 epoch with
+    the bf16 detector, ``eval_cls_rnn`` on the dump; the device CIDEr-D
     against the host scorer, one fact step on the card against the CPU,
     the detector's and the dump's kernels against their plain twins, and
-    the step, reward and dump times."""
+    the step, reward and dump times. ``out["files"]`` names what phase 3i
+    reuses: the tree, the f32 run's composite and checkpoint root, and the
+    detector's file."""
     import dataclasses
-    import shutil
-    import tempfile
     from insenticap_model_tpu_torch import inference, nn, synthetic
     from insenticap_model_tpu_torch.cli import common, eval_cls_rnn, train_rl
     from insenticap_model_tpu_torch.config import Opts
@@ -1865,438 +1875,441 @@ def _train_rl(torch, np, dev, settings, zero_counters, read_counters,
             walls.append(time.perf_counter() - t0)
         return statistics.median(walls) * 1e3
 
-    with tempfile.TemporaryDirectory(prefix="rl_") as tmp:
-        # 1. the tree at full feature width (the vocabulary padded to VOCAB
-        # words) and the RL inputs; the bootstrap's checkpoints through
-        # the port's writer: a seeded XE captioner, phase 3g's trained
-        # detector and classifier
-        t0 = time.time()
-        synthetic.build_tree(tmp, settings, seed=0, n_img=RL_N_IMG,
-                             n_senti_img=RL_N_SENTI_IMG)
-        synthetic.write_rl_inputs(tmp)
-        vpath = os.path.join(tmp, "data/captions/coco/part/idx2word.json")
-        with open(vpath) as f:
-            words = json.load(f)
-        words += [f"w{i}" for i in range(len(words), VOCAB)]
-        with open(vpath, "w") as f:
-            json.dump(words, f)
-        out["tree_s"] = time.time() - t0
-        meta = {"settings": settings.to_dict(), "idx2word": words,
-                "sentiment_categories": cats, "dataset_name": "coco",
-                "corpus_type": "part"}
-        cap0 = cap.init_params(torch.Generator().manual_seed(3), VOCAB,
-                               NUM_CATS, settings, device=dev)
-        det_file = os.path.join(tmp, "det.ckpt")
-        tck.save(det_file, trained["detector"], None, meta)
-        boot = {"xe": cap0, "sent_senti_cls": trained["classifier"]}
+    # 1. the tree at full feature width (the vocabulary padded to VOCAB
+    # words) and the RL inputs; the bootstrap's checkpoints through
+    # the port's writer: a seeded XE captioner, phase 3g's trained
+    # detector and classifier
+    t0 = time.time()
+    synthetic.build_tree(tmp, settings, seed=0, n_img=RL_N_IMG,
+                         n_senti_img=RL_N_SENTI_IMG)
+    synthetic.write_rl_inputs(tmp)
+    vpath = os.path.join(tmp, "data/captions/coco/part/idx2word.json")
+    with open(vpath) as f:
+        words = json.load(f)
+    words += [f"w{i}" for i in range(len(words), VOCAB)]
+    with open(vpath, "w") as f:
+        json.dump(words, f)
+    out["tree_s"] = time.time() - t0
+    meta = {"settings": settings.to_dict(), "idx2word": words,
+            "sentiment_categories": cats, "dataset_name": "coco",
+            "corpus_type": "part"}
+    cap0 = cap.init_params(torch.Generator().manual_seed(3), VOCAB,
+                           NUM_CATS, settings, device=dev)
+    det_file = os.path.join(tmp, "det.ckpt")
+    tck.save(det_file, trained["detector"], None, meta)
+    boot = {"xe": cap0, "sent_senti_cls": trained["classifier"]}
 
-        def opts(name, **kw):
-            ck = os.path.join(tmp, "ck_" + name)
-            for stage, params in boot.items():
-                d = os.path.join(ck, stage, "coco", "part")
-                os.makedirs(d, exist_ok=True)
-                tck.save(os.path.join(d, "model-best.ckpt"), params, None,
-                         meta)
-            return Opts(**dict(dict(
-                settings=settings, rl_bs=RL_BS, beam_size=BEAM,
-                max_seq_len=T, seed=0, rl_senti_times=1,
-                rl_senti_resume=det_file,
-                img_senti_labels=os.path.join(
-                    tmp, "data/captions/img_senti_labels.json"),
-                captions_dir=os.path.join(tmp, "data/captions"),
-                feats_dir=os.path.join(tmp, "data/features"),
-                checkpoint=ck, result_dir=os.path.join(tmp, "res_" + name),
-                device=str(dev)), **kw))
+    def opts(name, **kw):
+        ck = os.path.join(tmp, "ck_" + name)
+        for stage, params in boot.items():
+            d = os.path.join(ck, stage, "coco", "part")
+            os.makedirs(d, exist_ok=True)
+            tck.save(os.path.join(d, "model-best.ckpt"), params, None,
+                     meta)
+        return Opts(**dict(dict(
+            settings=settings, rl_bs=RL_BS, beam_size=BEAM,
+            max_seq_len=T, seed=0, rl_senti_times=1,
+            rl_senti_resume=det_file,
+            img_senti_labels=os.path.join(
+                tmp, "data/captions/img_senti_labels.json"),
+            captions_dir=os.path.join(tmp, "data/captions"),
+            feats_dir=os.path.join(tmp, "data/features"),
+            checkpoint=ck, result_dir=os.path.join(tmp, "res_" + name),
+            device=str(dev)), **kw))
 
-        def stage(o, *parts):
-            return os.path.join(o.checkpoint, "rl", "coco", "part", *parts)
+    def stage(o, *parts):
+        return os.path.join(o.checkpoint, "rl", "coco", "part", *parts)
 
-        def metrics_of(o):
-            with open(stage(o, "metrics.jsonl")) as f:
-                return [json.loads(x) for x in f]
+    def metrics_of(o):
+        with open(stage(o, "metrics.jsonl")) as f:
+            return [json.loads(x) for x in f]
 
-        def finite(metrics):
-            return all(math.isfinite(v) for m in metrics for v in m.values()
-                       if isinstance(v, float))
+    def finite(metrics):
+        return all(math.isfinite(v) for m in metrics for v in m.values()
+                   if isinstance(v, float))
 
-        # 2. the epochs: f32, then resumed from its checkpoint, then bf16
-        # with the bf16 detector; the kernels counted over each run, the
-        # bf16 detector's calls and the beam's decode steps beside them
-        runs = {}
-        tck.save, sd.forward = recording_save, counting_fwd
-        ft.classifier_topk_plain = counting_tail
-        try:
-            for tag, kw in (
-                    ("f32", dict(rl_epochs=1)),
-                    ("resume", dict(rl_epochs=2)),
-                    ("bf16", dict(rl_epochs=1, compute_dtype="bfloat16",
-                                  rl_detector_dtype="bf16"))):
-                if tag == "resume":
-                    kw["rl_resume"] = stage(runs["f32"]["opts"],
-                                            "model_0.ckpt")
-                o = opts(tag, **kw)
-                calls.update(detector_bf16=0, decode_steps=0)
-                zero_counters()
-                t0 = time.time()
-                params = train_rl.train(o)
-                torch.cuda.synchronize()
-                runs[tag] = {"opts": o, "s": time.time() - t0,
-                             "launches": read_counters(),
-                             "calls": dict(calls), "metrics": metrics_of(o),
-                             "params": params}
-        finally:
-            tck.save, sd.forward = orig_save, orig_fwd
-            ft.classifier_topk_plain = orig_tail
-        for tag, r in runs.items():
-            m, n = r["metrics"], r["launches"]
-            _check(finite(m), f"train_rl {tag}: non-finite metrics {m}")
-            _check([x["epoch"] for x in m] == ([1] if tag == "resume"
-                                                else [0]),
-                   f"train_rl {tag}: epochs {[x['epoch'] for x in m]}")
-            _check(n["beam_content_attention"] == r["calls"]["decode_steps"]
-                   and n["beam_content_attention"] > 0,
-                   f"train_rl {tag}: v1 launches {n['beam_content_attention']}"
-                   f" != the dump's decode steps {r['calls']['decode_steps']}")
-            want = r["calls"]["detector_bf16"]
-            _check([n[k] for k in wino] == [want] * 3
-                   and (want > 0) == (tag == "bf16"),
-                   f"train_rl {tag}: Winograd launches "
-                   f"{[n[k] for k in wino]}, bf16 detector calls {want}")
-            read_back(stage(r["opts"], f"model_{m[0]['epoch']}.ckpt"))
-        out["epochs"] = {tag: {k: v for k, v in r.items()
-                               if k not in ("opts", "params")}
-                         for tag, r in runs.items()}
+    # 2. the epochs: f32, then resumed from its checkpoint, then bf16
+    # with the bf16 detector; the kernels counted over each run, the
+    # bf16 detector's calls and the beam's decode steps beside them
+    runs = {}
+    tck.save, sd.forward = recording_save, counting_fwd
+    ft.classifier_topk_plain = counting_tail
+    try:
+        for tag, kw in (
+                ("f32", dict(rl_epochs=1)),
+                ("resume", dict(rl_epochs=2)),
+                ("bf16", dict(rl_epochs=1, compute_dtype="bfloat16",
+                              rl_detector_dtype="bf16"))):
+            if tag == "resume":
+                kw["rl_resume"] = stage(runs["f32"]["opts"],
+                                        "model_0.ckpt")
+            o = opts(tag, **kw)
+            calls.update(detector_bf16=0, decode_steps=0)
+            zero_counters()
+            t0 = time.time()
+            params = train_rl.train(o)
+            torch.cuda.synchronize()
+            runs[tag] = {"opts": o, "s": time.time() - t0,
+                         "launches": read_counters(),
+                         "calls": dict(calls), "metrics": metrics_of(o),
+                         "params": params}
+    finally:
+        tck.save, sd.forward = orig_save, orig_fwd
+        ft.classifier_topk_plain = orig_tail
+    for tag, r in runs.items():
+        m, n = r["metrics"], r["launches"]
+        _check(finite(m), f"train_rl {tag}: non-finite metrics {m}")
+        _check([x["epoch"] for x in m] == ([1] if tag == "resume"
+                                            else [0]),
+               f"train_rl {tag}: epochs {[x['epoch'] for x in m]}")
+        _check(n["beam_content_attention"] == r["calls"]["decode_steps"]
+               and n["beam_content_attention"] > 0,
+               f"train_rl {tag}: v1 launches {n['beam_content_attention']}"
+               f" != the dump's decode steps {r['calls']['decode_steps']}")
+        want = r["calls"]["detector_bf16"]
+        _check([n[k] for k in wino] == [want] * 3
+               and (want > 0) == (tag == "bf16"),
+               f"train_rl {tag}: Winograd launches "
+               f"{[n[k] for k in wino]}, bf16 detector calls {want}")
+        read_back(stage(r["opts"], f"model_{m[0]['epoch']}.ckpt"))
+    out["epochs"] = {tag: {k: v for k, v in r.items()
+                           if k not in ("opts", "params")}
+                     for tag, r in runs.items()}
 
-        # 3. eval_cls_rnn on the f32 dump's sentiment split (the trained
-        # detector labels it with all three sentiments)
-        o = runs["f32"]["opts"]
-        prefix = os.path.join(o.result_dir, "rl", "coco", "part",
-                              "result_0")
-        for c in cats:
-            _check(os.path.exists(f"{prefix}_{c}_senti.txt"),
-                   f"the dump has no {c} captions of the sentiment split")
-        t0 = time.time()
-        out["cls_acc"] = eval_cls_rnn.compute_cls(prefix, "senti",
-                                                  o.checkpoint, device=dev)
-        out["eval_cls_s"] = time.time() - t0
-        _check(set(out["cls_acc"]) == {"all", *cats} and all(
-            0.0 <= v <= 1.0 for v in out["cls_acc"].values()),
-            f"eval_cls_rnn: {out['cls_acc']}")
+    # 3. eval_cls_rnn on the f32 dump's sentiment split (the trained
+    # detector labels it with all three sentiments)
+    o = runs["f32"]["opts"]
+    prefix = os.path.join(o.result_dir, "rl", "coco", "part",
+                          "result_0")
+    for c in cats:
+        _check(os.path.exists(f"{prefix}_{c}_senti.txt"),
+               f"the dump has no {c} captions of the sentiment split")
+    t0 = time.time()
+    out["cls_acc"] = eval_cls_rnn.compute_cls(prefix, "senti",
+                                              o.checkpoint, device=dev)
+    out["eval_cls_s"] = time.time() - t0
+    _check(set(out["cls_acc"]) == {"all", *cats} and all(
+        0.0 <= v <= 1.0 for v in out["cls_acc"].values()),
+        f"eval_cls_rnn: {out['cls_acc']}")
 
-        # 4. the inputs of the checks: the tree's first fact batch, a
-        # seq2seq batch, the tables (timed, with their bytes)
-        vocab = Vocab(words)
-        caps_id = common.tokenize_captions(common.load_json(
-            common.dataset_path(o, "img_captions.json")), vocab)
-        cpts_id = common.tokenize_concepts(common.load_json(
-            common.dataset_path(o, "img_det_concepts.json")), vocab)
-        sentis_id = common.tokenize_sentiments(common.load_json(
-            common.corpus_path(o, "img_det_sentiments.json")), vocab)
-        scs_id = common.tokenize_senti_corpus(common.load_json(
-            common.corpus_path(o, "senti_captions.json")), vocab, cats)
-        t0 = time.time()
-        scorer = build_scorer(caps_id, vocab.sos_id, vocab.eos_id)
-        gts = {**caps_id["train"], **caps_id["val"]}
-        tables, fn2row = ciderd_device.build_tables(
-            scorer, gts, list(gts), T, vocab.sos_id, vocab.eos_id,
-            device=dev)
-        torch.cuda.synchronize()
-        out["tables"] = {"build_s": time.time() - t0,
-                         "bytes": tables.nbytes(), "images": len(fn2row),
-                         "ngrams": int(tables.df_h1.numel())}
-        cpu_tables, _ = ciderd_device.build_tables(
-            scorer, gts, list(gts), T, vocab.sos_id, vocab.eos_id)
-        fc_s, att_s = (common.open_store(p) for p in common.feature_paths(o))
-        loader = common.rl_fact_loader(fc_s, att_s, caps_id["train"],
-                                       cpts_id, sentis_id, vocab, o, RL_BS,
-                                       fn2row=fn2row)
-        batch = loader.assemble(loader._index_batches()[0])
-        scs_loader = common.scs_loader(scs_id, vocab, o, train_rl.SCS_BS)
-        scs_b = scs_loader.assemble(scs_loader._index_batches()[0])
-        rt = common.Runtime(Opts(device=str(dev)))
-        b = rt.put(batch)
+    # 4. the inputs of the checks: the tree's first fact batch, a
+    # seq2seq batch, the tables (timed, with their bytes)
+    vocab = Vocab(words)
+    caps_id = common.tokenize_captions(common.load_json(
+        common.dataset_path(o, "img_captions.json")), vocab)
+    cpts_id = common.tokenize_concepts(common.load_json(
+        common.dataset_path(o, "img_det_concepts.json")), vocab)
+    sentis_id = common.tokenize_sentiments(common.load_json(
+        common.corpus_path(o, "img_det_sentiments.json")), vocab)
+    scs_id = common.tokenize_senti_corpus(common.load_json(
+        common.corpus_path(o, "senti_captions.json")), vocab, cats)
+    t0 = time.time()
+    scorer = build_scorer(caps_id, vocab.sos_id, vocab.eos_id)
+    gts = {**caps_id["train"], **caps_id["val"]}
+    tables, fn2row = ciderd_device.build_tables(
+        scorer, gts, list(gts), T, vocab.sos_id, vocab.eos_id,
+        device=dev)
+    torch.cuda.synchronize()
+    out["tables"] = {"build_s": time.time() - t0,
+                     "bytes": tables.nbytes(), "images": len(fn2row),
+                     "ngrams": int(tables.df_h1.numel())}
+    cpu_tables, _ = ciderd_device.build_tables(
+        scorer, gts, list(gts), T, vocab.sos_id, vocab.eos_id)
+    fc_s, att_s = (common.open_store(p) for p in common.feature_paths(o))
+    loader = common.rl_fact_loader(fc_s, att_s, caps_id["train"],
+                                   cpts_id, sentis_id, vocab, o, RL_BS,
+                                   fn2row=fn2row)
+    batch = loader.assemble(loader._index_batches()[0])
+    scs_loader = common.scs_loader(scs_id, vocab, o, train_rl.SCS_BS)
+    scs_b = scs_loader.assemble(scs_loader._index_batches()[0])
+    rt = common.Runtime(Opts(device=str(dev)))
+    b = rt.put(batch)
 
-        # 5. the device CIDEr-D against the host scorer on one fact batch:
-        # the sample and greedy rollouts of the seeded captioner, and
-        # ground-truth captions (which score high)
+    # 5. the device CIDEr-D against the host scorer on one fact batch:
+    # the sample and greedy rollouts of the seeded captioner, and
+    # ground-truth captions (which score high)
+    with torch.no_grad():
+        labels = sd.sample(trained["detector"], b["att"], 0.7,
+                           ids.neutral)[0]
+        rolls = [cap.forward_rl(
+            cap0, b["fc"], b["att"], b["cpts"], b["sentis"], labels,
+            settings=settings, ids=ids, max_seq_len=T, sample_max=greedy,
+            gen=torch.Generator(device=dev).manual_seed(1),
+            deterministic=True)[0] for greedy in (False, True)]
+    gt_rows = torch.from_numpy(batch["caps"][:, 1:]).to(dev)
+    hyps = torch.cat(rolls + [gt_rows.to(torch.int32)])
+    img = torch.cat([b["img_rows"]] * 3)
+    cid, clen = ciderd_device.canonicalize(hyps, ids.eos, T + 1)
+    card = ciderd_device.cider_d(tables, cid, clen, img).cpu().numpy()
+    fns = batch["fns"] * 3
+    host = scorer.compute_score(
+        {str(i): [seq_from_ids(c, ids.sos, ids.eos)
+                  for c in batch["ground_truth"][fn]]
+         for i, fn in enumerate(fns)},
+        [{"image_id": str(i), "caption": [seq_from_ids(
+            h, ids.sos, ids.eos)]} for i, h in
+         enumerate(hyps.cpu().numpy())])[1]
+    rel = np.abs(card - host) / np.maximum(np.abs(host), 1e-30)
+    out["cider_vs_host"] = {
+        "rows": len(host), "max_rel": float(np.where(
+            host != 0, rel, np.abs(card)).max()),
+        "mean_sample": float(host[:RL_BS].mean()),
+        "mean_greedy": float(host[RL_BS:2 * RL_BS].mean()),
+        "mean_ground_truth": float(host[2 * RL_BS:].mean())}
+    _check(np.allclose(card, host, rtol=2e-5, atol=0),
+           f"device CIDEr-D against the host scorer: "
+           f"{out['cider_vs_host']} (tolerance rtol 2e-5)")
+    out["reward_device_ms"] = device_ms(
+        lambda: ciderd_device.self_critical_reward(
+            tables, rolls[0], rolls[1], b["img_rows"], ids.eos),
+        iters=10)
+
+    # 6. one fact step with dropout off and the draw forced to
+    # argmax(logprobs + G) (G one seeded Gumbel array), the
+    # scheduled-sampling probabilities 0, on the card and on the CPU
+    # from the same weights; a seeded detector (its labels far from
+    # the threshold) and the trained classifier. In f32: the losses
+    # within 1e-5 relative, the params within 1e-5 of Adam's first
+    # update of each side's gradient. The gradients of att_embed and
+    # att2att are near-cancelling sums over the batch's 7,840
+    # positions, which f32 rounds to up to 1e-3 of their norms, on
+    # either device (each side against float64 is printed); the same
+    # step in float64 on both holds each leaf's gradient within
+    # XE_GRAD_RTOL of its norm (the two softmax-invariant biases, zero
+    # but for rounding, aside)
+    nodrop = dataclasses.replace(settings, dropout_p=0.0)
+    gumbel = torch.from_numpy(np.random.default_rng(123).gumbel(
+        size=(train_rl.SCS_BS, VOCAB)).astype(np.float32))
+    det_seeded = sd.init_params(torch.Generator().manual_seed(3),
+                                NUM_CATS, settings, device="cpu")
+    step_losses, step_grads = [], []    # card, CPU; f32, then f64
+
+    def forced(gen, logprobs):
+        g = gumbel[:logprobs.shape[0]].to(logprobs.device)
+        return (logprobs.float() + g).argmax(dim=-1)
+
+    def rl_steps(adam):
+        p0 = nn.tree_leaves(adam.params)[0]
+        d, dt = p0.device, p0.dtype
+        rl = steps.make_rl_steps(
+            nodrop, adam, ids, T, tables if d.type == "cuda"
+            else cpu_tables)
+
+        def put(t):
+            return t.to(d, dt) if t.is_floating_point() else t.to(d)
+        fz = steps.RLModels(nn.tree_map(put, det_seeded),
+                            nn.tree_map(put, trained["classifier"]))
+        scs = {k: put(v) if torch.is_tensor(v) else v
+               for k, v in common.Runtime(Opts(
+                   device=str(d))).put(scs_b).items()}
+
+        def step(b_, gen):
+            b_ = {k: put(v) if torch.is_tensor(v) else v
+                  for k, v in b_.items()}
+            losses = rl[("fact", True)](fz, b_, scs, gen)
+            step_losses.append({k: float(v) for k, v in losses.items()})
+            step_grads.append(adam.grads)
+            return losses["cap_loss"] + losses["xe_loss"]
+        return step, None
+    saved_ss = steps.RL_XE_SS_PROB, steps.RL_SEQ_SS_PROB
+    orig_cat = cap._categorical
+    steps.RL_XE_SS_PROB = steps.RL_SEQ_SS_PROB = 0.0
+    cap._categorical = forced
+    t0 = time.time()
+    try:
+        card_cpu = {tag: _step_card_vs_cpu(
+            torch, dev, lambda d, dt=dt: cap.init_params(
+                torch.Generator().manual_seed(3), VOCAB, NUM_CATS,
+                nodrop, device=d, dtype=dt), rl_steps, batch, RL_LR,
+            skip=SOFTMAX_INVARIANT)
+            for tag, dt in (("f32", torch.float32),
+                            ("f64", torch.float64))}
+    finally:
+        steps.RL_XE_SS_PROB, steps.RL_SEQ_SS_PROB = saved_ss
+        cap._categorical = orig_cat
+    out["cpu_step_s"] = time.time() - t0
+
+    def rel_max(a, b):
+        return max(abs(a[k] - b[k]) / abs(b[k]) if b[k] else abs(a[k])
+                   for k in b)
+
+    def grad_vs(got, want):
+        """(max over leaves of |got - want| / |want| (L2), its leaf),
+        the softmax-invariant biases aside."""
+        r = {"/".join(map(str, p)): float((a.double() - b).norm()
+                                          / b.norm())
+             for (p, a), (_, b) in zip(got, want)
+             if p not in SOFTMAX_INVARIANT}
+        worst = max(r, key=r.get)
+        return r[worst], worst
+    l32c, l32p, l64c, l64p = step_losses
+    g32c, g32p, g64c, g64p = step_grads
+    rec = {"losses_card": l32c, "losses_cpu": l32p,
+           "losses_max_rel": rel_max(l32c, l32p),
+           "losses_f64_max_rel": rel_max(l64c, l64p)}
+    for tag, (_, _, grad_rel, params) in card_cpu.items():
+        worst = max(grad_rel, key=grad_rel.get)
+        rec[f"grad_max_rel_{tag}"] = grad_rel[worst]
+        rec[f"grad_max_rel_leaf_{tag}"] = worst
+        rec[f"params_max_abs_{tag}"] = params["max_abs"]
+        rec[f"params_raw_max_abs_{tag}"] = params["raw_max_abs"]
+    for side, g32, g64 in (("card", g32c, g64c), ("cpu", g32p, g64p)):
+        rec[f"grad_f32_vs_f64_{side}"] = grad_vs(g32, g64)
+    out["card_vs_cpu"] = rec
+    _check(set(l32c) == set(l32p) and rec["losses_max_rel"] <= 1e-5
+           and rec["losses_f64_max_rel"] <= 1e-5
+           and rec["params_max_abs_f32"] <= 1e-5
+           and rec["params_max_abs_f64"] <= 1e-5
+           and rec["grad_max_rel_f64"] <= XE_GRAD_RTOL,
+           f"train_rl card step against the CPU's: {rec} (tolerances: "
+           "losses 1e-5 relative, params 1e-5 of Adam's first update "
+           f"of each side's gradient, the f64 gradients {XE_GRAD_RTOL} "
+           "of the norm)")
+
+    # 7. the bf16 detector: its logits through the kernels against the
+    # plain twins' (phase 2's tolerances) and its labels against the
+    # f32 direct conv's at thresholds 0 and 0.7, on the fact batch and
+    # the sentiment split's first batch
+    senti_imgs = common.load_json(o.img_senti_labels)["train"]
+    s_att = common.open_store(common.sniff_store_path(os.path.join(
+        o.feats_dir, "sentiment", "feats_att.h5"))).batch(
+        [fn for fn, _ in senti_imgs[:RL_BS]])
+    feats = torch.cat([b["att"], torch.from_numpy(s_att).to(dev)])
+    det16 = cast_bf16(trained["detector"])
+    with torch.no_grad():
+        with nn.exact_numerics():
+            l32 = sd.forward(trained["detector"], feats,
+                             use_kernels=False)[0]
+        f16 = feats.bfloat16()
+        wk.wino_input.launches = 0
+        lk = sd.forward(det16, f16)[0]
+        _check(wk.wino_input.launches == 1,
+               "the bf16 detector did not take the Winograd kernels")
+        with _wino_plain(wk):
+            lp = sd.forward(det16, f16)[0]
+    ok, err = _within_rounding(torch, lk, lp, 1e-2, 1e-3)
+    _check(ok, "train_rl bf16 detector: the logits through the Winograd "
+           "kernels disagree with the plain twins' (rtol 1e-2, 1e-3 of "
+           f"the scale): max |diff| {err:.4g}")
+    agree = {}
+    for thr in (0.0, 0.7):
+        lab32 = sd.threshold_labels(l32, thr, ids.neutral)[0]
+        for k, v in (("kernels", lk), ("plain_twins", lp)):
+            agree[f"{k}_vs_f32_t{thr}"] = float(
+                (sd.threshold_labels(v, thr, ids.neutral)[0] == lab32)
+                .float().mean())
+    out["detector_bf16"] = {
+        "images": int(feats.shape[0]),
+        "logits_kernels_vs_twins_max_abs_err": err,
+        "logits_scale": float(l32.abs().max()), "labels": agree}
+
+    # 8. the dump's decode (detect_and_decode: the detector, then the
+    # beam with v1) against the plain path: the f32-trained captioner
+    # on the tree's test images in f32, every top beam identical and
+    # scores within 1e-3; in bf16 on XE_CMP_BATCHES batches of
+    # standard-normal features, phase 4's gate (the share of identical
+    # top beams at least v1 with tanhf's, rounded down to a percent)
+    test_fns = sorted(caps_id["test"])[:RL_BS]
+    tb = next(train_rl.fact_test_batches(test_fns, RL_BS, fc_s, att_s,
+                                         sentis_id, vocab, o))
+    vs_plain = {}
+    for tag in ("f32", "bf16"):
+        rt_ = common.Runtime(Opts(device=str(dev), compute_dtype=(
+            "bfloat16" if tag == "bf16" else "float32")))
+        sp = inference.ServingParams(
+            rt_.cast(nn.tree_map(lambda x: x.detach().float(),
+                                 runs["f32"]["params"])),
+            rt_.cast(trained["detector"]))
+        kwd = dict(settings=settings, ids=ids, beam_size=BEAM,
+                   max_seq_len=T)
         with torch.no_grad():
-            labels = sd.sample(trained["detector"], b["att"], 0.7,
-                               ids.neutral)[0]
-            rolls = [cap.forward_rl(
-                cap0, b["fc"], b["att"], b["cpts"], b["sentis"], labels,
-                settings=settings, ids=ids, max_seq_len=T, sample_max=greedy,
-                gen=torch.Generator(device=dev).manual_seed(1),
-                deterministic=True)[0] for greedy in (False, True)]
-        gt_rows = torch.from_numpy(batch["caps"][:, 1:]).to(dev)
-        hyps = torch.cat(rolls + [gt_rows.to(torch.int32)])
-        img = torch.cat([b["img_rows"]] * 3)
-        cid, clen = ciderd_device.canonicalize(hyps, ids.eos, T + 1)
-        card = ciderd_device.cider_d(tables, cid, clen, img).cpu().numpy()
-        fns = batch["fns"] * 3
-        host = scorer.compute_score(
-            {str(i): [seq_from_ids(c, ids.sos, ids.eos)
-                      for c in batch["ground_truth"][fn]]
-             for i, fn in enumerate(fns)},
-            [{"image_id": str(i), "caption": [seq_from_ids(
-                h, ids.sos, ids.eos)]} for i, h in
-             enumerate(hyps.cpu().numpy())])[1]
-        rel = np.abs(card - host) / np.maximum(np.abs(host), 1e-30)
-        out["cider_vs_host"] = {
-            "rows": len(host), "max_rel": float(np.where(
-                host != 0, rel, np.abs(card)).max()),
-            "mean_sample": float(host[:RL_BS].mean()),
-            "mean_greedy": float(host[RL_BS:2 * RL_BS].mean()),
-            "mean_ground_truth": float(host[2 * RL_BS:].mean())}
-        _check(np.allclose(card, host, rtol=2e-5, atol=0),
-               f"device CIDEr-D against the host scorer: "
-               f"{out['cider_vs_host']} (tolerance rtol 2e-5)")
-        out["reward_device_ms"] = device_ms(
-            lambda: ciderd_device.self_critical_reward(
-                tables, rolls[0], rolls[1], b["img_rows"], ids.eos),
-            iters=10)
-
-        # 6. one fact step with dropout off and the draw forced to
-        # argmax(logprobs + G) (G one seeded Gumbel array), the
-        # scheduled-sampling probabilities 0, on the card and on the CPU
-        # from the same weights; a seeded detector (its labels far from
-        # the threshold) and the trained classifier. In f32: the losses
-        # within 1e-5 relative, the params within 1e-5 of Adam's first
-        # update of each side's gradient. The gradients of att_embed and
-        # att2att are near-cancelling sums over the batch's 7,840
-        # positions, which f32 rounds to up to 1e-3 of their norms, on
-        # either device (each side against float64 is printed); the same
-        # step in float64 on both holds each leaf's gradient within
-        # XE_GRAD_RTOL of its norm (the two softmax-invariant biases, zero
-        # but for rounding, aside)
-        nodrop = dataclasses.replace(settings, dropout_p=0.0)
-        gumbel = torch.from_numpy(np.random.default_rng(123).gumbel(
-            size=(train_rl.SCS_BS, VOCAB)).astype(np.float32))
-        det_seeded = sd.init_params(torch.Generator().manual_seed(3),
-                                    NUM_CATS, settings, device="cpu")
-        step_losses, step_grads = [], []    # card, CPU; f32, then f64
-
-        def forced(gen, logprobs):
-            g = gumbel[:logprobs.shape[0]].to(logprobs.device)
-            return (logprobs.float() + g).argmax(dim=-1)
-
-        def rl_steps(adam):
-            p0 = nn.tree_leaves(adam.params)[0]
-            d, dt = p0.device, p0.dtype
-            rl = steps.make_rl_steps(
-                nodrop, adam, ids, T, tables if d.type == "cuda"
-                else cpu_tables)
-
-            def put(t):
-                return t.to(d, dt) if t.is_floating_point() else t.to(d)
-            fz = steps.RLModels(nn.tree_map(put, det_seeded),
-                                nn.tree_map(put, trained["classifier"]))
-            scs = {k: put(v) if torch.is_tensor(v) else v
-                   for k, v in common.Runtime(Opts(
-                       device=str(d))).put(scs_b).items()}
-
-            def step(b_, gen):
-                b_ = {k: put(v) if torch.is_tensor(v) else v
-                      for k, v in b_.items()}
-                losses = rl[("fact", True)](fz, b_, scs, gen)
-                step_losses.append({k: float(v) for k, v in losses.items()})
-                step_grads.append(adam.grads)
-                return losses["cap_loss"] + losses["xe_loss"]
-            return step, None
-        saved_ss = steps.RL_XE_SS_PROB, steps.RL_SEQ_SS_PROB
-        orig_cat = cap._categorical
-        steps.RL_XE_SS_PROB = steps.RL_SEQ_SS_PROB = 0.0
-        cap._categorical = forced
-        t0 = time.time()
-        try:
-            card_cpu = {tag: _step_card_vs_cpu(
-                torch, dev, lambda d, dt=dt: cap.init_params(
-                    torch.Generator().manual_seed(3), VOCAB, NUM_CATS,
-                    nodrop, device=d, dtype=dt), rl_steps, batch, RL_LR,
-                skip=SOFTMAX_INVARIANT)
-                for tag, dt in (("f32", torch.float32),
-                                ("f64", torch.float64))}
-        finally:
-            steps.RL_XE_SS_PROB, steps.RL_SEQ_SS_PROB = saved_ss
-            cap._categorical = orig_cat
-        out["cpu_step_s"] = time.time() - t0
-
-        def rel_max(a, b):
-            return max(abs(a[k] - b[k]) / abs(b[k]) if b[k] else abs(a[k])
-                       for k in b)
-
-        def grad_vs(got, want):
-            """(max over leaves of |got - want| / |want| (L2), its leaf),
-            the softmax-invariant biases aside."""
-            r = {"/".join(map(str, p)): float((a.double() - b).norm()
-                                              / b.norm())
-                 for (p, a), (_, b) in zip(got, want)
-                 if p not in SOFTMAX_INVARIANT}
-            worst = max(r, key=r.get)
-            return r[worst], worst
-        l32c, l32p, l64c, l64p = step_losses
-        g32c, g32p, g64c, g64p = step_grads
-        rec = {"losses_card": l32c, "losses_cpu": l32p,
-               "losses_max_rel": rel_max(l32c, l32p),
-               "losses_f64_max_rel": rel_max(l64c, l64p)}
-        for tag, (_, _, grad_rel, params) in card_cpu.items():
-            worst = max(grad_rel, key=grad_rel.get)
-            rec[f"grad_max_rel_{tag}"] = grad_rel[worst]
-            rec[f"grad_max_rel_leaf_{tag}"] = worst
-            rec[f"params_max_abs_{tag}"] = params["max_abs"]
-            rec[f"params_raw_max_abs_{tag}"] = params["raw_max_abs"]
-        for side, g32, g64 in (("card", g32c, g64c), ("cpu", g32p, g64p)):
-            rec[f"grad_f32_vs_f64_{side}"] = grad_vs(g32, g64)
-        out["card_vs_cpu"] = rec
-        _check(set(l32c) == set(l32p) and rec["losses_max_rel"] <= 1e-5
-               and rec["losses_f64_max_rel"] <= 1e-5
-               and rec["params_max_abs_f32"] <= 1e-5
-               and rec["params_max_abs_f64"] <= 1e-5
-               and rec["grad_max_rel_f64"] <= XE_GRAD_RTOL,
-               f"train_rl card step against the CPU's: {rec} (tolerances: "
-               "losses 1e-5 relative, params 1e-5 of Adam's first update "
-               f"of each side's gradient, the f64 gradients {XE_GRAD_RTOL} "
-               "of the norm)")
-
-        # 7. the bf16 detector: its logits through the kernels against the
-        # plain twins' (phase 2's tolerances) and its labels against the
-        # f32 direct conv's at thresholds 0 and 0.7, on the fact batch and
-        # the sentiment split's first batch
-        senti_imgs = common.load_json(o.img_senti_labels)["train"]
-        s_att = common.open_store(common.sniff_store_path(os.path.join(
-            o.feats_dir, "sentiment", "feats_att.h5"))).batch(
-            [fn for fn, _ in senti_imgs[:RL_BS]])
-        feats = torch.cat([b["att"], torch.from_numpy(s_att).to(dev)])
-        det16 = cast_bf16(trained["detector"])
-        with torch.no_grad():
-            with nn.exact_numerics():
-                l32 = sd.forward(trained["detector"], feats,
-                                 use_kernels=False)[0]
-            f16 = feats.bfloat16()
-            wk.wino_input.launches = 0
-            lk = sd.forward(det16, f16)[0]
-            _check(wk.wino_input.launches == 1,
-                   "the bf16 detector did not take the Winograd kernels")
-            with _wino_plain(wk):
-                lp = sd.forward(det16, f16)[0]
-        ok, err = _within_rounding(torch, lk, lp, 1e-2, 1e-3)
-        _check(ok, "train_rl bf16 detector: the logits through the Winograd "
-               "kernels disagree with the plain twins' (rtol 1e-2, 1e-3 of "
-               f"the scale): max |diff| {err:.4g}")
-        agree = {}
-        for thr in (0.0, 0.7):
-            lab32 = sd.threshold_labels(l32, thr, ids.neutral)[0]
-            for k, v in (("kernels", lk), ("plain_twins", lp)):
-                agree[f"{k}_vs_f32_t{thr}"] = float(
-                    (sd.threshold_labels(v, thr, ids.neutral)[0] == lab32)
-                    .float().mean())
-        out["detector_bf16"] = {
-            "images": int(feats.shape[0]),
-            "logits_kernels_vs_twins_max_abs_err": err,
-            "logits_scale": float(l32.abs().max()), "labels": agree}
-
-        # 8. the dump's decode (detect_and_decode: the detector, then the
-        # beam with v1) against the plain path: the f32-trained captioner
-        # on the tree's test images in f32, every top beam identical and
-        # scores within 1e-3; in bf16 on XE_CMP_BATCHES batches of
-        # standard-normal features, phase 4's gate (the share of identical
-        # top beams at least v1 with tanhf's, rounded down to a percent)
-        test_fns = sorted(caps_id["test"])[:RL_BS]
-        tb = next(train_rl.fact_test_batches(test_fns, RL_BS, fc_s, att_s,
-                                             sentis_id, vocab, o))
-        vs_plain = {}
-        for tag in ("f32", "bf16"):
-            rt_ = common.Runtime(Opts(device=str(dev), compute_dtype=(
-                "bfloat16" if tag == "bf16" else "float32")))
-            sp = inference.ServingParams(
-                rt_.cast(nn.tree_map(lambda x: x.detach().float(),
-                                     runs["f32"]["params"])),
-                rt_.cast(trained["detector"]))
-            kwd = dict(settings=settings, ids=ids, beam_size=BEAM,
-                       max_seq_len=T)
-            with torch.no_grad():
-                if tag == "f32":
-                    x = rt_.put(tb)
-                    ks, ksc, kl = inference.detect_and_decode(
-                        sp, x["fc"], x["att"], x["sentis"], **kwd)
-                    ps, psc, pl = inference.detect_and_decode(
-                        sp, x["fc"], x["att"], x["sentis"], **kwd,
-                        use_kernels=False)
-                    eq, dscore = _top_beams_vs_plain(ks, ksc, ps, psc)
-                    vs_plain[tag] = {"images": int(eq.numel()),
-                                     "top_beam_identical":
-                                     float(eq.float().mean()),
-                                     "labels_identical":
-                                     bool(torch.equal(kl, pl)),
-                                     "max_score_diff": dscore}
-                    _check(bool(eq.all()) and dscore <= 1e-3
-                           and torch.equal(kl, pl),
-                           f"train_rl f32 dump against the plain path: "
-                           f"{vs_plain[tag]}")
-                    dump_ms = wall_ms(lambda: inference.detect_and_decode(
-                        sp, x["fc"], x["att"], x["sentis"], **kwd))
-                    continue
-                g = torch.Generator(device=dev).manual_seed(6)
-                got = {"kernel": [], "plain": [], "tanhf": []}
-                for _ in range(XE_CMP_BATCHES):
-                    fc = torch.randn(RL_BS, settings.fc_feat_dim,
-                                     generator=g, device=dev)
-                    att = torch.randn(RL_BS, 14, 14, settings.att_feat_dim,
-                                      generator=g, device=dev)
-                    sw = torch.randint(4, VOCAB, (RL_BS, M), generator=g,
-                                       device=dev)
-                    fc, att = fc.bfloat16(), att.bfloat16()
-                    got["kernel"].append(inference.detect_and_decode(
+            if tag == "f32":
+                x = rt_.put(tb)
+                ks, ksc, kl = inference.detect_and_decode(
+                    sp, x["fc"], x["att"], x["sentis"], **kwd)
+                ps, psc, pl = inference.detect_and_decode(
+                    sp, x["fc"], x["att"], x["sentis"], **kwd,
+                    use_kernels=False)
+                eq, dscore = _top_beams_vs_plain(ks, ksc, ps, psc)
+                vs_plain[tag] = {"images": int(eq.numel()),
+                                 "top_beam_identical":
+                                 float(eq.float().mean()),
+                                 "labels_identical":
+                                 bool(torch.equal(kl, pl)),
+                                 "max_score_diff": dscore}
+                _check(bool(eq.all()) and dscore <= 1e-3
+                       and torch.equal(kl, pl),
+                       f"train_rl f32 dump against the plain path: "
+                       f"{vs_plain[tag]}")
+                dump_ms = wall_ms(lambda: inference.detect_and_decode(
+                    sp, x["fc"], x["att"], x["sentis"], **kwd))
+                continue
+            g = torch.Generator(device=dev).manual_seed(6)
+            got = {"kernel": [], "plain": [], "tanhf": []}
+            for _ in range(XE_CMP_BATCHES):
+                fc = torch.randn(RL_BS, settings.fc_feat_dim,
+                                 generator=g, device=dev)
+                att = torch.randn(RL_BS, 14, 14, settings.att_feat_dim,
+                                  generator=g, device=dev)
+                sw = torch.randint(4, VOCAB, (RL_BS, M), generator=g,
+                                   device=dev)
+                fc, att = fc.bfloat16(), att.bfloat16()
+                got["kernel"].append(inference.detect_and_decode(
+                    sp, fc, att, sw, **kwd)[:2])
+                got["plain"].append(inference.detect_and_decode(
+                    sp, fc, att, sw, **kwd, use_kernels=False)[:2])
+                with _v1_exact_tanh(fa):
+                    got["tanhf"].append(inference.detect_and_decode(
                         sp, fc, att, sw, **kwd)[:2])
-                    got["plain"].append(inference.detect_and_decode(
-                        sp, fc, att, sw, **kwd, use_kernels=False)[:2])
-                    with _v1_exact_tanh(fa):
-                        got["tanhf"].append(inference.detect_and_decode(
-                            sp, fc, att, sw, **kwd)[:2])
-            cat = {k: [torch.cat([r[i] for r in v]) for i in (0, 1)]
-                   for k, v in got.items()}
-            eq, dscore = _top_beams_vs_plain(*cat["kernel"], *cat["plain"])
-            eq_t, _ = _top_beams_vs_plain(*cat["tanhf"], *cat["plain"])
-            share, share_t = float(eq.float().mean()), float(
-                eq_t.float().mean())
-            gate = math.floor(100 * share_t + 1e-9) / 100
-            vs_plain[tag] = {"images": int(eq.numel()),
-                             "top_beam_identical": share,
-                             "top_beam_identical_tanhf": share_t,
-                             "max_score_diff": dscore, "gate": gate}
-            _check(share >= gate, f"train_rl bf16 dump against the plain "
-                   f"path: {vs_plain[tag]}")
-        out["dump_vs_plain"] = vs_plain
-        out["dump_ms"] = dump_ms
-        out["dump_captions_per_s"] = RL_BS / dump_ms * 1e3
+        cat = {k: [torch.cat([r[i] for r in v]) for i in (0, 1)]
+               for k, v in got.items()}
+        eq, dscore = _top_beams_vs_plain(*cat["kernel"], *cat["plain"])
+        eq_t, _ = _top_beams_vs_plain(*cat["tanhf"], *cat["plain"])
+        share, share_t = float(eq.float().mean()), float(
+            eq_t.float().mean())
+        gate = math.floor(100 * share_t + 1e-9) / 100
+        vs_plain[tag] = {"images": int(eq.numel()),
+                         "top_beam_identical": share,
+                         "top_beam_identical_tanhf": share_t,
+                         "max_score_diff": dscore, "gate": gate}
+        _check(share >= gate, f"train_rl bf16 dump against the plain "
+               f"path: {vs_plain[tag]}")
+    out["dump_vs_plain"] = vs_plain
+    out["dump_ms"] = dump_ms
+    out["dump_captions_per_s"] = RL_BS / dump_ms * 1e3
 
-        # 9. ms an RL fact step (rl_bs 40 + the seq2seq batch of 80, the
-        # default dropout and scheduled sampling; host clock, median of 5
-        # after one warm-up), f32 and bf16 (the bf16 detector), its device
-        # time and idle share (the profiler over 5 steps)
-        timing = {}
-        for tag, cdt in (("f32", "float32"), ("bf16", "bfloat16")):
-            rt_ = common.Runtime(Opts(device=str(dev), compute_dtype=cdt))
-            params = nn.tree_map(lambda x: x.requires_grad_(True),
-                                 rt_.cast(nn.tree_map(torch.clone, cap0)))
-            rl = steps.make_rl_steps(settings, optim.Adam(params, RL_LR),
-                                     ids, T, tables)
-            fz = steps.RLModels(
-                (cast_bf16(trained["detector"]) if tag == "bf16"
-                 else trained["detector"]), rt_.cast(trained["classifier"]))
-            bb, ss = rt_.put(batch), rt_.put(scs_b)
-            gen = torch.Generator(device=dev).manual_seed(0)
+    # 9. ms an RL fact step (rl_bs 40 + the seq2seq batch of 80, the
+    # default dropout and scheduled sampling; host clock, median of 5
+    # after one warm-up), f32 and bf16 (the bf16 detector), its device
+    # time and idle share (the profiler over 5 steps)
+    timing = {}
+    for tag, cdt in (("f32", "float32"), ("bf16", "bfloat16")):
+        rt_ = common.Runtime(Opts(device=str(dev), compute_dtype=cdt))
+        params = nn.tree_map(lambda x: x.requires_grad_(True),
+                             rt_.cast(nn.tree_map(torch.clone, cap0)))
+        rl = steps.make_rl_steps(settings, optim.Adam(params, RL_LR),
+                                 ids, T, tables)
+        fz = steps.RLModels(
+            (cast_bf16(trained["detector"]) if tag == "bf16"
+             else trained["detector"]), rt_.cast(trained["classifier"]))
+        bb, ss = rt_.put(batch), rt_.put(scs_b)
+        gen = torch.Generator(device=dev).manual_seed(0)
 
-            def one():
-                return rl[("fact", True)](fz, bb, ss, gen)
-            ms = wall_ms(one)
-            by_kernel = device_ms_by_kernel(one, iters=5, warm=1)
-            busy = sum(by_kernel.values())
-            timing[tag] = {
-                "train_step_ms": ms, "device_ms": busy,
-                "idle_share": max(0.0, 1.0 - busy / ms),
-                "top_kernels_ms": dict(sorted(
-                    by_kernel.items(), key=lambda kv: -kv[1])[:6])}
-        out["timing"] = timing
+        def one():
+            return rl[("fact", True)](fz, bb, ss, gen)
+        ms = wall_ms(one)
+        by_kernel = device_ms_by_kernel(one, iters=5, warm=1)
+        busy = sum(by_kernel.values())
+        timing[tag] = {
+            "train_step_ms": ms, "device_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / ms),
+            "top_kernels_ms": dict(sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:6])}
+    out["timing"] = timing
+    f32_opts = runs["f32"]["opts"]
+    out["files"] = {"root": tmp, "checkpoint": f32_opts.checkpoint,
+                    "composite": stage(f32_opts, "model_0.ckpt"),
+                    "detector": det_file}
     smi = _smi()
     ep = out["epochs"]
     print(f"train_rl (phase 3h, full width, vocab {VOCAB}, rl_bs {RL_BS}, "
@@ -2358,6 +2371,627 @@ def _train_rl(torch, np, dev, settings, zero_counters, read_counters,
     return out
 
 
+@contextlib.contextmanager
+def _patched(obj, **attrs):
+    """``obj``'s attributes set to ``attrs`` for the block, restored on
+    exit."""
+    saved = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(obj, k, v)
+
+
+def _timed(fn, seconds, key, results=None):
+    """``fn`` that adds its host seconds to ``seconds[key]`` (and keeps its
+    return value in ``results[key]``)."""
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            r = fn(*args, **kw)
+            if results is not None:
+                results[key] = r
+            return r
+        finally:
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+    return wrapped
+
+
+def _resnet_state_dict(enc):
+    """The encoder's params as a torchvision ResNet-101 state dict (OIHW
+    convs, BatchNorm weight / bias / running_mean / running_var), CPU
+    tensors: what ``encoder.convert_torch_state_dict`` reads."""
+    sd = {}
+
+    def conv(name, p):
+        sd[name + ".weight"] = p["weight"].detach().cpu().permute(
+            3, 2, 0, 1).contiguous()
+
+    def bn(name, p):
+        for ours, theirs in (("scale", "weight"), ("bias", "bias"),
+                             ("mean", "running_mean"),
+                             ("var", "running_var")):
+            sd[f"{name}.{theirs}"] = p[ours].detach().cpu().clone()
+    conv("conv1", enc["conv1"])
+    bn("bn1", enc["bn1"])
+    for li, layer in enumerate(enc["layers"]):
+        for b, blk in enumerate(layer):
+            base = f"layer{li + 1}.{b}"
+            for k in (1, 2, 3):
+                conv(f"{base}.conv{k}", blk[f"conv{k}"])
+                bn(f"{base}.bn{k}", blk[f"bn{k}"])
+            if "downsample" in blk:
+                conv(base + ".downsample.0", blk["downsample"]["conv"])
+                bn(base + ".downsample.1", blk["downsample"]["bn"])
+    return sd
+
+
+def _same_tree(torch, a, b):
+    """Two param trees with the same paths, dtypes and bits."""
+    pa, pb = _tree_paths(a), _tree_paths(b)
+    return [p for p, _ in pa] == [p for p, _ in pb] and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for (_, x), (_, y) in zip(pa, pb))
+
+
+def _shift_test_features(torch, np, dev, det, tree, write_store):
+    """Give the captioned test images of phase 3h's tree the sentiment
+    images' class shift (``synthetic.build_tree``: 2.0 on the k-th third
+    of the channels), image i (by name) taking class i % 3, so that the
+    dump's fact split, like its sentiment split, holds captions of every
+    sentiment and cls% and ppl have their inputs (on noise features a
+    detector tends to give one label). Checks that ``det`` (the trained
+    detector) then detects all three; returns its labels' counts."""
+    from insenticap_model_tpu_torch.data.feature_store import open_store
+    from insenticap_model_tpu_torch.models import sentiment_detector as sd
+    path = os.path.join(tree, "features/coco/coco_att.isc")
+    store = open_store(path)
+    rows = {fn: store.get(fn) for fn in store.keys()}
+    del store
+    tests = sorted(fn for fn in rows if fn.startswith("test_"))
+    third = next(iter(rows.values())).shape[-1] // 3
+    for i, fn in enumerate(tests):
+        k = i % 3
+        rows[fn] = rows[fn].copy()
+        rows[fn][..., k * third:(k + 1) * third] += 2.0
+    write_store(path, rows.items(), next(iter(rows.values())).shape,
+                dtype="float32")
+    with torch.no_grad():
+        att = torch.from_numpy(np.stack([rows[fn] for fn in tests]))
+        labels = sd.sample(det, att.to(dev), 0.7, 2)[0].cpu().numpy()
+    counts = np.bincount(labels, minlength=3).tolist()
+    _check(min(counts) > 0, f"the shifted test images' detected labels "
+           f"{counts}: not every sentiment")
+    return counts
+
+
+def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
+                  read_counters, files):
+    """Phase 3i: the offline and evaluation CLIs on phase 3h's tree and
+    checkpoints (``files``), nothing trained again. ``preprocess``'s text
+    stages on a caption dataset and a sentiment corpus in the reference's
+    schemas (the tree's captions), its LMs through ``isclm``;
+    ``preprocess features`` (ResNet-101 from a reference-named ``.pth``,
+    f32, the pool kernel) on 40 images; ``convert_checkpoint`` of the RL
+    composite written as a reference ``.pth``, and of the ResNet-101;
+    ``reproduce_table`` on the ``.ckpt`` and the ``.pth``, in f32 against
+    the plain path and in bf16 (the Winograd kernels); ``eval_metrics``,
+    ``eval_ppl`` and ``eval_senti`` as CLIs. The CLIs read ``./data/...``
+    below their working directory, so the phase runs in a directory of its
+    own under the tree."""
+    import functools
+    import io
+    import types
+    import zlib
+    from insenticap_model_tpu_torch import convert, inference
+    from insenticap_model_tpu_torch import preprocessing as pp
+    from insenticap_model_tpu_torch.cli import (
+        convert_checkpoint, eval_cls_rnn, eval_metrics, eval_ppl,
+        eval_senti, preprocess)
+    from insenticap_model_tpu_torch.cli import reproduce_table as repro
+    from insenticap_model_tpu_torch.config import Opts
+    from insenticap_model_tpu_torch.data.feature_store import (
+        open_store, write_native_store)
+    from insenticap_model_tpu_torch.models import sentiment_detector as sd
+    from insenticap_model_tpu_torch.ops import fused_attention as fa
+    from insenticap_model_tpu_torch.ops import fused_topk as ft
+    from insenticap_model_tpu_torch.ops import winograd_kernels as wk
+    from insenticap_model_tpu_torch.rewards.meteor import Meteor
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    cats = ["positive", "negative", "neutral"]
+    wino = ("wino_input", "wino_middle", "wino_output")
+    root = files["root"]
+    tree = os.path.join(root, "data")
+    work = os.path.join(root, "offline")
+    os.makedirs(work)
+    out, home, t_phase = {}, os.getcwd(), time.time()
+    log, quiet = io.StringIO(), contextlib.ExitStack()
+    os.chdir(work)
+    try:
+        # the CLIs' own print-outs go to chiprun_out/offline_clis.log
+        quiet.enter_context(contextlib.redirect_stdout(log))
+        # 1. the text stages: a caption dataset (the tree's captions, and
+        # the sentiment test images with train images' captions, so that
+        # the anno captions cover both test splits) and a sentiment corpus
+        # in the reference's schemas; senti_labels over image names
+        with open(os.path.join(tree, "captions/coco/img_captions.json")) as f:
+            tree_caps = json.load(f)
+        with open(os.path.join(tree, "captions/img_senti_labels.json")) as f:
+            senti_test = [fn for fn, _ in json.load(f)["test"]]
+
+        def sents(caps):
+            return [{"raw": " ".join(c).capitalize() + "."} for c in caps]
+        images = [{"filename": fn, "split": split, "sentences": sents(cs)}
+                  for split, by_fn in tree_caps.items()
+                  for fn, cs in by_fn.items()]
+        train = list(tree_caps["train"].values())
+        images += [{"filename": fn, "split": "test",
+                    "sentences": sents(train[i % len(train)])}
+                   for i, fn in enumerate(senti_test)]
+        os.makedirs("datasets")
+        with open("datasets/dataset_coco.json", "w") as f:
+            json.dump({"images": images}, f)
+        rng = np.random.default_rng(11)
+        adjs = {"positive": ("happy", "nice", "good"),
+                "negative": ("sad", "ugly", "bad")}
+        corpus = {senti: [
+            f"The {a[int(rng.integers(3))]} {n} {v} near the "
+            f"{('red', 'blue')[int(rng.integers(2))]} tree."
+            for n, v in zip(rng.choice(["cat", "dog", "man"], 600),
+                            rng.choice(["runs", "sits"], 600))]
+            for senti, a in adjs.items()}
+        os.makedirs("data/corpus/part")
+        with open("data/corpus/part/senti_corpus.json", "w") as f:
+            json.dump(corpus, f)
+        os.makedirs("senti_imgs")
+        for senti, n in (("positive", 260), ("negative", 240),
+                         ("neutral", 150)):
+            for i in range(n):
+                open(f"senti_imgs/{senti}_{i}.jpg", "w").close()
+        flags = ["--caption_datasets_dir", "datasets", "--dataset_names",
+                 "coco", "--captions_dir", "data/captions", "--corpus_dir",
+                 "data/corpus", "--senti_imgs_dir", "senti_imgs",
+                 "--img_senti_labels", "data/captions/img_senti_labels.json"]
+        stage_s, lm_s = {}, {}
+
+        def run_lm(cmd, **kw):          # each LM trained, timed apart
+            return _timed(subprocess.run, lm_s,
+                          os.path.basename(cmd[-1]))(cmd, **kw)
+        stages = ("process_caption_datasets", "process_senti_corpus",
+                  "build_idx2concept", "build_idx2word",
+                  "get_senti_captions", "get_anno_captions", "get_lm_sents",
+                  "get_img_senti_labels", "get_img_det_sentiments")
+        with _patched(pp, subprocess=types.SimpleNamespace(run=run_lm),
+                      **{k: _timed(getattr(pp, k), stage_s, k)
+                         for k in stages}):
+            preprocess.main(["corpus_all", *flags])
+            preprocess.main(["senti_labels", *flags])
+            with open(os.path.join(tree, "captions/coco/"
+                                   "img_det_concepts.json")) as f:
+                det_concepts = json.load(f)
+            with open("data/captions/coco/img_det_concepts.json", "w") as f:
+                json.dump(det_concepts, f)
+            preprocess.main(["det_sentiments", *flags])
+        written = sorted(os.path.join(d, n) for d, _, ns in os.walk("data")
+                         for n in ns if n.endswith(".json"))
+        for path in written:
+            with open(path) as f:
+                _check(json.load(f) is not None, f"{path} is empty")
+        lms = [f"data/captions/coco/part/lm/{c}_w.sri" for c in cats]
+        _check(all(os.path.getsize(p) > 0 for p in lms),
+               f"preprocess lms: missing LMs among {lms}")
+        with open("data/captions/coco/part/senti_captions.json") as f:
+            n_senti_caps = {k: len(v) for k, v in json.load(f).items()}
+        _check(set(n_senti_caps) == set(cats) and min(
+            n_senti_caps.values()) > 0, f"senti_captions: {n_senti_caps}")
+        out["text"] = {"stage_s": stage_s, "lm_s": lm_s,
+                       "json_files": len(written),
+                       "senti_captions": n_senti_caps}
+
+        # 2. the features: the 8 fixtures the port decodes (prog.jpg, a
+        # progressive JPEG, is refused by the decoders, phase 3e) and 32
+        # PNGs over the three buckets, through `preprocess features` with
+        # ResNet-101 read from a reference-named .pth, f32, encode batches
+        # of 32; the pool's launches against the batches flushed
+        os.makedirs("images")
+        for name, what in FIXTURES.items():
+            if what == "decode":
+                with open(os.path.join(FIXTURE_DIR, name), "rb") as src, \
+                        open(os.path.join("images", name), "wb") as dst:
+                    dst.write(src.read())
+        sizes = [(448, 448), (480, 640), (640, 480), (500, 500), (300, 420),
+                 (420, 300), (384, 512), (512, 384)]
+        for i in range(PP_N_PNG):
+            h, w = sizes[i % len(sizes)]
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            with open(f"images/gen{i:02d}.png", "wb") as f:
+                f.write(_png_bytes(img, zlib))
+        names = sorted(os.listdir("images"))
+        by_bucket = {}
+        for n in names:
+            h, w = pp.load_image(os.path.join("images", n)).shape[:2]
+            b = pp.bucket_for_shape(h, w, pp.DEFAULT_BUCKET_SHAPES)
+            by_bucket[b] = by_bucket.get(b, 0) + 1
+        flushes = sum(-(-n // PP_FEAT_BS) for n in by_bucket.values())
+        pth = os.path.join(work, "resnet101.pth")
+        torch.save(_resnet_state_dict(enc32), pth)
+        feat_s, rows = {}, {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            with _patched(pp, extract_imgs_feat=_timed(
+                    pp.extract_imgs_feat, feat_s, "kernel", rows)):
+                zero_counters()
+                preprocess.main(["features", "--imgs_dir", "images",
+                                 "--feats_dir", "feats", "--resnet101_file",
+                                 pth, "--feat_batch_size", str(PP_FEAT_BS),
+                                 "--device", str(dev)])
+                torch.cuda.synchronize()
+                launches_pp = read_counters()
+            # the same extraction with the pool's plain version on the card
+            plain = _timed(pp.extract_imgs_feat, feat_s, "plain")(
+                "images", "feats_plain", enc32, batch_size=PP_FEAT_BS,
+                bucket_mode="resize", device=dev, use_kernels=False)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        got = {n: (fc, att) for n, fc, att in rows["kernel"]}
+        _check(sorted(got) == names, "features: the images written differ "
+               "from the images given")
+        _check(launches_pp["ceil_maxpool_3x3s2"] == flushes and flushes > 0,
+               f"preprocess features: pool launches "
+               f"{launches_pp['ceil_maxpool_3x3s2']} != the {flushes} "
+               f"encode batches flushed ({by_bucket})")
+        for kind, i in (("fc", 0), ("att", 1)):
+            store = open_store(f"feats/feats_{kind}.isc")
+            _check(all(np.array_equal(store.get(n), got[n][i])
+                       for n in names), f"feats_{kind}.isc does not read "
+                   "back equal to the arrays extracted")
+        _check(all(np.array_equal(got[n][0], fc) and
+                   np.array_equal(got[n][1], att) for n, fc, att in plain),
+               "features: fc/att through the pool kernel differ from the "
+               "plain pool's on the card (the pool is exact)")
+        fin = all(np.isfinite(v).all() for r in got.values() for v in r)
+        _check(fin, "features: non-finite fc/att")
+        # two images on the CPU: one at a bucket's shape, one resized
+        os.makedirs("images_cpu")
+        two = ["j420_448.jpg", "gen03.png"]
+        for n in two:
+            with open(os.path.join("images", n), "rb") as src, \
+                    open(os.path.join("images_cpu", n), "wb") as dst:
+                dst.write(src.read())
+        t0 = time.time()
+        cpu = pp.extract_imgs_feat("images_cpu", "feats_cpu", enc32,
+                                   batch_size=2, bucket_mode="resize",
+                                   device="cpu")
+        cpu_s = time.time() - t0
+        cpu_err = {}
+        for n, fc, att in cpu:
+            for kind, a, b in (("fc", fc, got[n][0]), ("att", att,
+                                                       got[n][1])):
+                cpu_err[f"{n} {kind}"] = float(
+                    np.abs(a - b).max() / np.abs(b).max())
+        _check(max(cpu_err.values()) <= PP_CPU_TOL,
+               f"features on the CPU against the card's: {cpu_err} "
+               f"(tolerance {PP_CPU_TOL} of the largest magnitude)")
+        out["features"] = {
+            "images": len(names), "by_bucket": {
+                f"{h}x{w}": n for (h, w), n in by_bucket.items()},
+            "flushes": flushes, "launches": launches_pp,
+            "s": feat_s["kernel"], "plain_s": feat_s["plain"],
+            "images_per_s": len(names) / feat_s["kernel"],
+            "cpu_rel_err": cpu_err, "cpu_s": cpu_s}
+
+        # 3. convert_checkpoint: phase 3h's composite as a reference .pth
+        # (reference names and settings), converted with `detector` onto
+        # the card, reads back bit-identical; the ResNet-101 .pth too
+        composite, meta = tck.load(files["composite"], device=dev)
+        ref_settings = {k: v for k, v in meta["settings"].items() if k in (
+            "word_emb_dim", "fc_feat_dim", "att_feat_dim", "feat_emb_dim",
+            "dropout_p", "rnn_hid_dim", "att_hid_dim", "sentiment_convs_num",
+            "sentiment_fcs_num")}
+        ref_settings["concept_mid_him"] = meta["settings"]["concept_mid_dim"]
+        t0 = time.time()
+        ref_sd = convert.reference_state_dict("detector", composite)
+        torch.save({"model": ref_sd,
+                    "settings": ref_settings, "idx2word": meta["idx2word"],
+                    "sentiment_categories": meta["sentiment_categories"],
+                    "dataset_name": "coco", "corpus_type": "part",
+                    "max_seq_len": meta["max_seq_len"],
+                    "epoch": meta["epoch"]}, "rl.pth")
+        convert_checkpoint.main(["detector", "rl.pth", "rl.ckpt",
+                                 "--device", str(dev)])
+        convert_checkpoint.main(["resnet101", pth, "resnet101.ckpt",
+                                 "--device", str(dev)])
+        conv_s = time.time() - t0
+        back, back_meta = tck.load("rl.ckpt", device=dev)
+        _check(_same_tree(torch, back, composite),
+               "convert_checkpoint detector: the .ckpt does not read back "
+               "bit-identical to phase 3h's composite")
+        _check(back_meta["settings"] == ref_settings
+               and back_meta["kind"] == "detector",
+               f"convert_checkpoint detector: metadata {back_meta}")
+        _check(_same_tree(torch, tck.load("resnet101.ckpt", device=dev)[0],
+                          enc32), "convert_checkpoint resnet101: the .ckpt "
+               "does not read back bit-identical to the encoder's params")
+        out["convert"] = {"s": conv_s, "bytes": {
+            k: os.path.getsize(k) for k in ("rl.pth", "rl.ckpt",
+                                            "resnet101.ckpt")}}
+        del back, composite
+
+        # 4. reproduce_table at rl_bs 40, beam 3 with the anno captions and
+        # the LMs of step 1, the captioned test images shifted as the
+        # sentiment images are, so that phase 3g's detector (inside the
+        # composite) detects all three sentiments: on the .ckpt and the
+        # .pth, the plain path, and bf16 (kernels, plain path, v1 with
+        # tanhf); each run's launches with the dump's decode steps and the
+        # bf16 detector's calls
+        composite, _ = tck.load(files["composite"], device=dev)
+        out["test_labels"] = _shift_test_features(
+            torch, np, dev, composite["senti_detector"], tree,
+            write_native_store)
+        del composite
+        anno = os.path.join(work, "data/captions/coco/anno_captions.json")
+        calls = {"decode_steps": 0, "detector_bf16": 0}
+        # the bf16 kernel run's detector inputs, held against the plain
+        # twins below
+        rec = {"on": False, "inputs": []}
+        orig_tail, orig_fwd = ft.classifier_topk_plain, sd.forward
+        orig_dd = inference.detect_and_decode
+
+        def counting_tail(*args, **kw):
+            calls["decode_steps"] += 1
+            return orig_tail(*args, **kw)
+
+        def counting_fwd(params, features, **kw):
+            if features.dtype == torch.bfloat16 and features.is_cuda:
+                calls["detector_bf16"] += 1
+                if rec["on"]:
+                    rec["inputs"].append((params, features.clone(), kw))
+            return orig_fwd(params, features, **kw)
+
+        def reproduce(tag, model, dtype="float32", plain=False,
+                      tanhf=False):
+            parts = {}
+            o = Opts(settings=settings, rl_bs=RL_BS, beam_size=BEAM,
+                     max_seq_len=T, compute_dtype=dtype, device=str(dev),
+                     captions_dir=os.path.join(tree, "captions"),
+                     feats_dir=os.path.join(tree, "features"),
+                     checkpoint=files["checkpoint"],
+                     img_senti_labels=os.path.join(
+                         tree, "captions/img_senti_labels.json"),
+                     result_dir=os.path.join(work, "res_" + tag))
+            dd = functools.partial(orig_dd, use_kernels=False) if plain \
+                else orig_dd
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(_patched(
+                    repro, load_composite=_timed(repro.load_composite,
+                                                 parts, "load"),
+                    run_test_dump=_timed(repro.run_test_dump, parts,
+                                         "dump")))
+                stack.enter_context(_patched(
+                    eval_metrics, compute_metrics=_timed(
+                        eval_metrics.compute_metrics, parts, "metrics")))
+                stack.enter_context(_patched(
+                    eval_cls_rnn, compute_cls=_timed(
+                        eval_cls_rnn.compute_cls, parts, "cls")))
+                stack.enter_context(_patched(
+                    eval_ppl, compute_ppl=_timed(eval_ppl.compute_ppl,
+                                                 parts, "ppl")))
+                stack.enter_context(_patched(
+                    ft, classifier_topk_plain=counting_tail))
+                stack.enter_context(_patched(sd, forward=counting_fwd))
+                stack.enter_context(_patched(inference,
+                                             detect_and_decode=dd))
+                if tanhf:
+                    stack.enter_context(_v1_exact_tanh(fa))
+                calls.update(decode_steps=0, detector_bf16=0)
+                rec["on"] = tag == "bf16"
+                zero_counters()
+                t0 = time.time()
+                table = repro.reproduce(o, model, tag=tag, anno_file=anno,
+                                        out=os.path.join(work,
+                                                         f"{tag}.json"))
+                torch.cuda.synchronize()
+                s_ = time.time() - t0
+                launches = read_counters()
+                rec["on"] = False
+            res_dir = os.path.join(o.result_dir, "rl", "coco", "part")
+            caps = {}
+            for n in os.listdir(res_dir):
+                if n.startswith(f"result_{tag}_") and n.endswith(
+                        ("_fact.json", "_senti.json")) and \
+                        "_sentis_" not in n:
+                    with open(os.path.join(res_dir, n)) as f:
+                        for r in json.load(f):
+                            caps[n.rsplit("_", 1)[1], r["image_id"]] = \
+                                r["caption"]
+            return {"table": table, "s": s_, "parts_s": parts,
+                    "launches": launches, "calls": dict(calls),
+                    "captions": caps}
+        runs = {"ckpt": reproduce("ckpt", files["composite"]),
+                "pth": reproduce("pth", "rl.pth"),
+                "plain": reproduce("plain", files["composite"], plain=True),
+                "bf16": reproduce("bf16", files["composite"], "bfloat16"),
+                "bf16_plain": reproduce("bf16_plain", files["composite"],
+                                        "bfloat16", plain=True),
+                "bf16_tanhf": reproduce("bf16_tanhf", files["composite"],
+                                        "bfloat16", tanhf=True)}
+        t32 = runs["ckpt"]["table"]
+        for d in t32["splits"].values():
+            _check(d["quality"] and d["cls"] is not None
+                   and d["ppl"] is not None,
+                   f"reproduce f32: a column is null: {d}")
+        _check(runs["pth"]["table"] == t32, "reproduce f32: the .pth's "
+               "table differs from the .ckpt's")
+        _check(runs["plain"]["table"] == t32, "reproduce f32: the kernel "
+               "path's table differs from the plain path's")
+        _check(runs["plain"]["captions"] == runs["ckpt"]["captions"],
+               "reproduce f32: the dump differs from the plain path's")
+        for tag, r in runs.items():
+            n, c = r["launches"], r["calls"]
+            v1 = 0 if tag.endswith("plain") else c["decode_steps"]
+            _check(n["beam_content_attention"] == v1 and c["decode_steps"]
+                   > 0, f"reproduce {tag}: v1 launches "
+                   f"{n['beam_content_attention']}, decode steps "
+                   f"{c['decode_steps']}")
+            want = c["detector_bf16"] if tag in ("bf16", "bf16_tanhf") \
+                else 0
+            _check([n[k] for k in wino] == [want] * 3 and (want > 0) == (
+                tag in ("bf16", "bf16_tanhf")),
+                f"reproduce {tag}: Winograd launches {[n[k] for k in wino]}"
+                f", bf16 detector calls {c['detector_bf16']}")
+        plain16 = runs["bf16_plain"]["captions"]
+
+        def share(tag):
+            caps = runs[tag]["captions"]
+            return sum(caps.get(k) == v for k, v in plain16.items()) \
+                / len(plain16)
+        same, same_t = share("bf16"), share("bf16_tanhf")
+        gate = math.floor(100 * same_t + 1e-9) / 100
+        _check(same >= gate, f"reproduce bf16: captions identical to the "
+               f"plain path's {same:.4f}, below v1 with tanhf's "
+               f"{same_t:.4f} rounded down ({gate:.2f})")
+        # the Winograd kernels on the dump's own bf16 detector batches
+        # (the fact and senti test splits, rl_bs rows each) against their
+        # plain twins: the logits within phase 3h's rounding (rtol 1e-2,
+        # 1e-3 of the scale), the same labels, the same wrong rate as the
+        # bf16 plain path's table
+        ins = rec["inputs"]
+        _check(len(ins) == runs["bf16"]["calls"]["detector_bf16"] == 2
+               and all(f.shape[0] == RL_BS for _, f, _ in ins),
+               f"reproduce bf16: detector batches "
+               f"{[tuple(f.shape) for _, f, _ in ins]}")
+        wino_err = []
+        with torch.no_grad():
+            for params, f, kw in ins:
+                lk = orig_fwd(params, f, **kw)[0]
+                with _wino_plain(wk):
+                    lp = orig_fwd(params, f, **kw)[0]
+                ok, err = _within_rounding(torch, lk, lp, 1e-2, 1e-3)
+                _check(ok, "reproduce bf16: the dump's detector logits "
+                       "through the Winograd kernels disagree with the "
+                       "plain twins' (rtol 1e-2, 1e-3 of the scale): max "
+                       f"|diff| {err:.4g}")
+                _check(torch.equal(lk.argmax(-1), lp.argmax(-1)),
+                       "reproduce bf16: the dump's detector labels through "
+                       "the Winograd kernels differ from the plain twins'")
+                wino_err.append(err)
+        wr = {t: runs[t]["table"]["det_sentis_wrong_rate"]
+              for t in ("bf16", "bf16_plain")}
+        _check(wr["bf16"] == wr["bf16_plain"], f"reproduce bf16: "
+               f"det_sentis_wrong_rate {wr} differs from the plain path's")
+        del ins[:], lk, lp
+        out["reproduce"] = {
+            tag: {k: v for k, v in r.items() if k != "captions"}
+            for tag, r in runs.items()}
+        out["reproduce_bf16_vs_plain"] = {
+            "captions": len(plain16), "identical": same,
+            "identical_tanhf": same_t, "gate": gate,
+            "wino_logits_max_abs_err": wino_err}
+        n_caps = len(runs["ckpt"]["captions"])
+        out["dump_captions_per_s"] = n_caps / runs["ckpt"]["parts_s"]["dump"]
+        out["meteor_mode"] = Meteor().mode
+
+        # 5. the evaluation CLIs on those files (their ppl and BLEU-1 the
+        # f32 table's); eval_senti on phase 3g's f32 detector with a
+        # hand-labeled file the phase writes (the tree's captioned images,
+        # labels in turn)
+        prefix = os.path.join(work, "res_ckpt/rl/coco/part/result_ckpt")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            eval_metrics.main([prefix, "fact", anno])
+            eval_ppl.main([prefix, "fact"])
+        printed = buf.getvalue().splitlines()
+        fact = t32["splits"]["fact"]
+        ppl_line = next(x for x in printed if x.startswith("ppl scores: {"))
+        bleu1 = next(x for x in printed if x.startswith("Bleu-1 ")).split()
+        header = next(x for x in printed if x.startswith("Metric ")).split()
+        _check(ppl_line == f"ppl scores: {fact['ppl']}" and bleu1[1:] == [
+            f"{fact['quality'][c]['Bleu-1']:.1f}" for c in header[1:]],
+            f"eval_metrics / eval_ppl disagree with reproduce's f32 table: "
+            f"{printed}")
+        fns = sorted(fn for by_fn in tree_caps.values() for fn in by_fn)
+        labeled = {c: fns[i::3] for i, c in enumerate(cats)}
+        os.makedirs("data/labeled_data")
+        with open("data/labeled_data/at_most_one_disagree.json", "w") as f:
+            json.dump(labeled, f)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            eval_senti.main(["--rl_senti_resume", files["detector"],
+                             "--feats_dir", os.path.join(tree, "features"),
+                             "--device", str(dev)])
+        lines = buf.getvalue().splitlines()
+        acc0 = float(lines[lines.index("THRESHOLD: 0.0") + 4].split(
+            ": ")[1])
+        det, _ = tck.load(files["detector"], device=dev)
+        att = open_store(os.path.join(tree, "features/coco/coco_att.isc"))
+        hits = n_all = 0
+        with torch.no_grad():
+            for i, c in enumerate(cats):
+                x = torch.from_numpy(att.batch(labeled[c])).to(dev)
+                hits += int((orig_fwd(det, x)[0].argmax(-1) == i).sum())
+                n_all += len(labeled[c])
+        _check(acc0 == hits / n_all and sum(
+            x.startswith("THRESHOLD:") for x in lines) == 21,
+            f"eval_senti: threshold-0 accuracy {acc0} != the share of "
+            f"argmax labels matching the file {hits}/{n_all}")
+        out["eval"] = {"eval_ppl": fact["ppl"], "eval_senti_acc_t0": acc0}
+    finally:
+        quiet.close()
+        os.chdir(home)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "offline_clis.log"), "w") as f:
+            f.write(log.getvalue())
+    out["phase_s"] = time.time() - t_phase
+    smi = _smi()
+    tx, fe = out["text"], out["features"]
+    print(f"offline CLIs (phase 3i): {out['phase_s']:.1f} s in all; text "
+          "stages, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in tx["stage_s"].items())
+        + f"; {tx['json_files']} JSON files read back, senti_captions "
+        f"{tx['senti_captions']}")
+    print("offline CLIs LMs trained (isclm), s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(tx["lm_s"].items())))
+    print(f"offline CLIs features on {smi}: {fe['images']} images "
+          f"{fe['by_bucket']}, batch {PP_FEAT_BS}, f32: {fe['s']:.2f} s -> "
+          f"{fe['images_per_s']:.1f} images/s (plain pool "
+          f"{fe['plain_s']:.2f} s, fc/att equal); pool launches "
+          f"{fe['launches']['ceil_maxpool_3x3s2']} = batches flushed "
+          f"{fe['flushes']}; 2 images on the CPU ({fe['cpu_s']:.1f} s) max "
+          f"rel err {max(fe['cpu_rel_err'].values()):.3g} (tolerance "
+          f"{PP_CPU_TOL})")
+    print(f"offline CLIs convert_checkpoint (detector, resnet101) "
+          f"{out['convert']['s']:.2f} s with the .pth write, read back "
+          f"bit-identical: {out['convert']['bytes']} bytes")
+    for tag, r in out["reproduce"].items():
+        n, c = r["launches"], r["calls"]
+        print(f"offline CLIs reproduce {tag}: {r['s']:.2f} s (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in r["parts_s"].items())
+            + f"); v1 launches {n['beam_content_attention']}, decode steps "
+            f"{c['decode_steps']}; Winograd {[n[k] for k in wino]}, bf16 "
+            f"detector calls {c['detector_bf16']}; wrong rate "
+            f"{r['table']['det_sentis_wrong_rate']:.3f}")
+    b16 = out["reproduce_bf16_vs_plain"]
+    print(f"offline CLIs reproduce bf16 against the bf16 plain path: "
+          f"captions identical {b16['identical']:.2%} of {b16['captions']} "
+          f"(v1 tanhf {b16['identical_tanhf']:.2%}, gate {b16['gate']:.2f})"
+          f"; the dump's bf16 detector batches ({RL_BS} rows) through the "
+          f"Winograd kernels against the plain twins: logits max |diff| "
+          f"{b16['wino_logits_max_abs_err']} (rtol 1e-2, 1e-3 of the "
+          f"scale), labels equal")
+    for tag in ("ckpt", "bf16"):
+        print(f"offline CLIs reproduce {tag} table:")
+        repro._print_section6(out["reproduce"][tag]["table"])
+    print(f"offline CLIs dump on {smi}: {out['dump_captions_per_s']:.1f} "
+          f"captions/s; METEOR* mode: {out['meteor_mode']}; eval_senti "
+          f"threshold-0 accuracy {out['eval']['eval_senti_acc_t0']:.4f}")
+    out["device"] = smi
+    return out
+
+
 def main():
     t_start = time.time()
     import torch
@@ -2411,9 +3045,15 @@ def main():
     build_s = time.time() - t0
     t0 = time.time()
     _build.build_host("imgdec")            # the host image decoders (c++)
+    isclm = os.path.join(REPO_DIR, "native", "build", "isclm")
+    if not os.path.exists(isclm):          # the LM tool of phase 3i
+        os.makedirs(os.path.dirname(isclm), exist_ok=True)
+        subprocess.run([_build._cxx(), "-O2", "-std=c++17", "-o", isclm,
+                        os.path.join(REPO_DIR, "native", "isclm.cc")],
+                       check=True)
     host_build_s = time.time() - t0
-    print(f"kernel build: {build_s:.1f} s; host decoder build: "
-          f"{host_build_s:.1f} s")
+    print(f"kernel build: {build_s:.1f} s; host builds (image decoders, "
+          f"isclm where absent): {host_build_s:.1f} s")
     report["host_build_s"] = host_build_s
     for name, log in sorted(_build.build_logs.items()):
         for line in log.splitlines():
@@ -3072,10 +3712,18 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 3h. the RL fine-tuning stage (train_rl) -------------------------
-    report["train_rl"] = _train_rl(torch, np, dev, settings, zero_counters,
-                                   read_counters, trained)
-    del trained
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="rl_") as rl_tmp:
+        report["train_rl"] = _train_rl(torch, np, dev, settings,
+                                       zero_counters, read_counters, trained,
+                                       rl_tmp)
+        del trained
+        torch.cuda.empty_cache()
+
+        # -- 3i. the offline and evaluation CLIs, on 3h's tree ------------
+        report["offline_clis"] = _offline_clis(
+            torch, np, dev, settings, enc32, zero_counters, read_counters,
+            report["train_rl"]["files"])
+        torch.cuda.empty_cache()
 
     # -- 4. f32 end to end: kernel path against the plain path -------------
     params32 = inference.ServingParams(cap32, det32)
@@ -3314,6 +3962,9 @@ def main():
         "launches_train_rl": sum(
             r["launches"]["beam_content_attention"]
             for r in report["train_rl"]["epochs"].values()),
+        "launches_reproduce": sum(
+            r["launches"]["beam_content_attention"]
+            for r in report["offline_clis"]["reproduce"].values()),
         "max_abs_err": checks["attention_bf16"],
         "ms": a_dev["total"], "ms_events": a_ms,
         "query_ms": a_dev["query_"], "attention_ms": a_dev["beam_att_kernel"],
@@ -3442,6 +4093,9 @@ def main():
                 "launches"][name],
             "launches_train_rl": report["train_rl"]["epochs"]["bf16"][
                 "launches"][name],
+            "launches_reproduce": sum(
+                r["launches"][name]
+                for r in report["offline_clis"]["reproduce"].values()),
             "max_abs_err": checks[name], "ms": k_dev[name + "_kernel"],
             "ms_events": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd, "bound_by": by_, "library_ms": None,
@@ -3534,6 +4188,8 @@ def main():
         "source": "insenticap_model_tpu_torch/csrc/maxpool.cu",
         "replaces": "insenticap_model_tpu/ops/pool_pallas.py:38",
         "launches": launches_c["ceil_maxpool_3x3s2"],
+        "launches_preprocess": report["offline_clis"]["features"][
+            "launches"]["ceil_maxpool_3x3s2"],
         "max_abs_err": checks["ceil_maxpool_3x3s2"], "ms": p16["ms"],
         "plain_ms": p16["plain_ms"], "bound_ms": p16["bound_ms"],
         "bound_by": p16["bound_by"], "library_ms": p16["library_ms"],

@@ -1,2 +1,3 @@
-"""Host reward scorers (the port's copies of the JAX package's
-``rewards/ciderd.py`` and ``rewards/rewards.py``)."""
+"""Host scorers (the port's copies of the JAX package's ``rewards/``):
+CIDEr-D (``ciderd``), BLEU (``bleu``), METEOR* (``meteor``) and the reward
+helpers (``rewards``)."""

@@ -198,3 +198,10 @@ def assert_params_match(port_params, jax_params, steps, lr):
     for (path, a), (_, b) in zip(got, want):
         tol = lr * steps if path in SOFTMAX_INVARIANT else 1e-6
         np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=path)
+
+
+def reference_state_dict(kind, jax_tree):
+    """A JAX params tree as the reference's PyTorch state dict of ``kind``
+    (the port's ``convert.reference_state_dict``, whose names the JAX
+    package's ``*_from_torch`` must read): float32 CPU tensors."""
+    return convert.reference_state_dict(kind, to_port(jax_tree))
