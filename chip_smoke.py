@@ -14,7 +14,8 @@ into the git-ignored build directory) and the host image decoders
 2. holds every kernel against its plain PyTorch version on the card, at
    the serving shapes (bs=384; attention v1 at beams 1, 3 and 8 and v2 at
    beam 3, in bf16 and f32, v1's bf16 instance also with tanhf in place of
-   tanh.approx.f32, both within the same tolerance; the
+   tanh.approx.f32, both within the same tolerance, and v1 also at the RL
+   and reproduce dumps' shape, bs=40 at beam 3; the
    Winograd transforms in bf16, the input transform also on the
    detector's permuted NHWC view, which must give the contiguous input's
    V exactly, and the stack on that view; the fused classifier top-k at 1152 rows x
@@ -69,13 +70,16 @@ into the git-ignored build directory) and the host image decoders
    requests (auto and forced), ``image_b64`` of the committed JPEG and PNG
    fixtures and two ``image_path`` requests from threads, each with a
    caption and 5 distinct concepts, v1 and the pool launched (counts set
-   to 0 just before); a path outside the root and a progressive JPEG are
-   400s, an oversized body 413, /stats, /metrics and /healthz 200, and the
-   server drains on shutdown (p50/p99 per bucket printed); the port's
-   decoders on this host give the fixtures' committed PIL arrays exactly;
-   ``cli.caption.run`` on two fixtures in f32 dumps attention maps that
-   sum to 1 within 1e-5; and the host's decode of a 448x448 JPEG (4:2:0)
-   and PNG and a 480x640 ``resize_to_bucket`` are timed (median of 5);
+   to 0 just before; the three progressive JPEGs among the fixtures); a
+   path outside the root and a CMYK JPEG (a format the decoders refuse)
+   are 400s, an oversized body 413, /stats, /metrics and /healthz 200,
+   and the server drains on shutdown (p50/p99 per bucket printed); the
+   port's decoders on this host give the fixtures' committed PIL arrays
+   exactly; ``cli.caption.run`` on two fixtures in f32 dumps attention
+   maps that sum to 1 within 1e-5; and the host's decode of a 448x448
+   JPEG (4:2:0), baseline and progressive (the same photo), and PNG and a
+   480x640 ``resize_to_bucket`` are timed (median of 5, the card's name
+   and power limit beside them);
 3f. drives the XE pre-training stage (``cli.train_xe.train``) at full
    width (``Settings()``, the vocabulary padded to 10,000 words, xe_bs 20,
    the seq2seq batch 80, 16 tokens, beam 3) on a synthetic tree the
@@ -159,6 +163,17 @@ into the git-ignored build directory) and the host image decoders
    ms an RL step (f32, bf16; median of 5), its device time, idle share and
    largest kernels, the CIDEr-D reward's device time, the tables' build
    seconds and bytes and the dump's captions/s;
+3i. drives the offline and evaluation CLIs on phase 3h's tree:
+   ``preprocess`` (the text stages, the LMs, the features of the 11
+   decodable fixtures and 32 PNGs, the pool's launches equal to the encode
+   batches flushed), ``convert_checkpoint``, ``reproduce_table`` in f32
+   (the ``.ckpt``, the ``.pth`` and the plain path, one table) and in bf16
+   (kernels, plain path, tanhf: v1 launches equal to the decode steps, the
+   Winograd kernels on the dump's own detector batches within rounding of
+   their twins, the kernel path's captions equal to the plain path's on
+   at least tanhf's share); as a record, the bf16 plain path's captions
+   against the f32 path's and the f32 scores of the captions the two bf16
+   paths part on; and ``eval_metrics``, ``eval_ppl``, ``eval_senti``;
 4. runs ``detect_and_decode`` at bs=384 in f32 on the kernel path and on
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
@@ -189,7 +204,9 @@ into the git-ignored build directory) and the host image decoders
    and ``torch.matmul``, some 30-100 us a call, by
    the profiler's device time (the latter two from phase 3d), since events
    around back-to-back launches of that size also read the host's
-   dispatch; the three Winograd transforms by the profiler's device time
+   dispatch (each profiler session must hold every launch its calls made,
+   by the ops' launch counters, or is taken again, then refused); the
+   three Winograd transforms by the profiler's device time
    beside events (the input transform on the permuted view the detector
    passes, and on contiguous x), and the stack's device time split into
    the transforms, the two products, the per-call filter transform and
@@ -265,8 +282,14 @@ DESIGNS = {"beam_content_attention": "redesigned",
 FIXTURE_DIR = os.path.join(REPO_DIR, "tests", "data", "torch_images")
 FIXTURES = {"j444.jpg": "decode", "j422.jpg": "decode",
             "j420_448.jpg": "decode", "grey.jpg": "decode",
-            "rst.jpg": "decode", "prog.jpg": "refuse", "rgb.png": "decode",
-            "rgba.png": "decode", "p.png": "decode"}
+            "rst.jpg": "decode", "prog.jpg": "decode",
+            "prog420_448.jpg": "decode", "prog_rst.jpg": "decode",
+            "cmyk.jpg": "refuse", "rgb.png": "decode", "rgba.png": "decode",
+            "p.png": "decode"}
+# a fixture whose PIL array is another's: the same photo at the same
+# quality and sampling, written progressive (the same coefficients, so
+# the same pixels); expected.npz holds the array once, under the other name
+SAME_PIXELS = {"prog420_448.jpg": "j420_448.jpg"}
 # phase 3f, the XE stage: the reference trainer's xe batch and learning
 # rate; 34 train images of 3 captions give 5 batches, 7 val images 2 (the
 # last padded), 20 test images one dump batch
@@ -309,8 +332,8 @@ RL_BS = 40
 RL_LR = 4e-5
 RL_N_IMG = {"train": 80, "val": 40, "test": 40}
 RL_N_SENTI_IMG = {"train": 40, "val": 4, "test": 40}
-# phase 3i, the offline and evaluation CLIs: 40 images for the features
-# (the 8 fixtures the port decodes and 32 PNGs, over the three buckets) in
+# phase 3i, the offline and evaluation CLIs: 43 images for the features
+# (the 11 fixtures the port decodes and 32 PNGs, over the three buckets) in
 # encode batches of 32, the reference CLI's; two of them again on the CPU,
 # whose f32 convolutions sum in other orders than cuDNN's through 104
 # layers: fc and att within 1e-4 of their largest magnitude (the port and
@@ -326,9 +349,12 @@ SWITCH_SETS = {"default": {}, "fused_topk": {"ISC_FUSED_TOPK": "1"},
 
 def decode_expected(npz) -> dict:
     """{file name: PIL's array} from a loaded expected.npz, which stores
-    each array as its differences along each row (uint8, wrapping)."""
+    each array as its differences along each row (uint8, wrapping), and
+    once for the names in ``SAME_PIXELS``."""
     import numpy as np
-    return {k: np.cumsum(npz[k], axis=1, dtype=np.uint8) for k in npz.files}
+    out = {k: np.cumsum(npz[k], axis=1, dtype=np.uint8) for k in npz.files}
+    out.update({k: out[v] for k, v in SAME_PIXELS.items()})
+    return out
 
 
 def _fail(msg):
@@ -669,6 +695,7 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                      for s_ in ("auto", "negative", "auto", "positive")]
             images = [n for n, w in FIXTURES.items()
                       if w == "decode"]
+            progressive = [n for n in images if n.startswith("prog")]
             b64 = {n: base64.b64encode(open(os.path.join(fixtures, n),
                                             "rb").read()).decode()
                    for n in images}
@@ -703,11 +730,12 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                 __file__)})
             _check(status == 400 and "outside --image_root" in
                    body["error"], f"path outside the root: {status} {body}")
+            # a format the decoders still refuse (a CMYK JPEG) is a 400
             status, body = _post(port, {"image_b64": base64.b64encode(
-                open(os.path.join(fixtures, "prog.jpg"), "rb").read())
+                open(os.path.join(fixtures, "cmyk.jpg"), "rb").read())
                 .decode()})
             _check(status == 400 and "image_b64" in body["error"],
-                   f"progressive JPEG: {status} {body}")
+                   f"CMYK JPEG: {status} {body}")
             status, body = _post(port, length=17_000_000)
             _check(status == 413, f"oversized body: {status} {body}")
             gets = {p_: _get(port, p_) for p_ in ("/stats", "/metrics",
@@ -728,8 +756,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
         print(f"serving surface: daemon up in {start_s:.1f} s (warm); "
               f"{len(payloads)} requests ({len(feats)} feature, "
               f"{len(images)} image_b64, 2 image_path) in {serve_s:.2f} s, "
-              f"all 200; 400 outside the root, 400 progressive JPEG, 413 "
-              f"oversized; launches {launches}")
+              f"all 200 (progressive JPEGs {progressive} among them); 400 "
+              f"outside the root, 400 CMYK JPEG, 413 oversized; launches "
+              f"{launches}")
         for stage, by in lat.items():
             print(f"  {stage} latency by bucket: " + ", ".join(
                 f"{b}: n={v['n']} p50 {v['p50_ms']:.1f} ms p99 "
@@ -755,7 +784,7 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                    and np.array_equal(got, expected[name]),
                    f"{name} decodes unlike PIL")
         print(f"serving surface: {len(expected)} fixtures decode identical "
-              "to PIL's arrays, progressive refused")
+              "to PIL's arrays (progressive ones included), CMYK refused")
 
         # 4. the caption command in f32 with the attention dump
         img_args = [os.path.join(fixtures, "j420_448.jpg"),
@@ -790,8 +819,10 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                                        if k != "attention"} for r in recs],
                           "map_sum_err": sums_err}
 
-    # 5. host times: decode and resize, median of 5
+    # 5. host times: decode and resize, median of 5; the progressive
+    # fixture is the same photo, quality and sampling as the baseline one
     jpeg = open(os.path.join(fixtures, "j420_448.jpg"), "rb").read()
+    prog = open(os.path.join(fixtures, "prog420_448.jpg"), "rb").read()
     img448 = pre.load_image_bytes(jpeg)
     png = _png_bytes(img448, zlib)
     img480 = np.random.default_rng(9).integers(0, 256, (480, 640, 3),
@@ -813,19 +844,25 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                 cpu = line.split(":", 1)[1].strip()
                 break
     times = {"jpeg_448_420_ms": host_ms(lambda: pre.load_image_bytes(jpeg)),
+             "jpeg_448_420_progressive_ms": host_ms(
+                 lambda: pre.load_image_bytes(prog)),
              "png_448_ms": host_ms(lambda: pre.load_image_bytes(png)),
              "resize_480x640_ms": host_ms(
                  lambda: pre.resize_to_bucket(img480, bucket))}
     _check(np.array_equal(pre.load_image_bytes(png), img448),
            "the PNG does not decode to its pixels")
+    card = _smi()
     print(f"serving surface host times (median of 5, host CPU {cpu}, "
-          f"{os.cpu_count()} cores): decode 448x448 JPEG 4:2:0 "
-          f"({len(jpeg)} B) {times['jpeg_448_420_ms']:.2f} ms, 448x448 PNG "
+          f"{os.cpu_count()} cores, card {card}): decode 448x448 JPEG 4:2:0 "
+          f"({len(jpeg)} B) {times['jpeg_448_420_ms']:.2f} ms, progressive "
+          f"({len(prog)} B, 10 scans) "
+          f"{times['jpeg_448_420_progressive_ms']:.2f} ms, 448x448 PNG "
           f"({len(png)} B) {times['png_448_ms']:.2f} ms, resize_to_bucket "
           f"480x640 -> {bucket[0]}x{bucket[1]} "
           f"{times['resize_480x640_ms']:.2f} ms")
     out["host_times"] = dict(times, cpu=cpu, jpeg_bytes=len(jpeg),
-                             png_bytes=len(png))
+                             progressive_bytes=len(prog), png_bytes=len(png),
+                             card=card)
     return out
 
 
@@ -2468,6 +2505,51 @@ def _shift_test_features(torch, np, dev, det, tree, write_store):
     return counts
 
 
+def _f32_score_gaps(torch, cap32, settings, base, kernel, plain):
+    """The captions on which two bf16 dumps (``kernel``, ``plain``: the
+    batches ``recording_dd`` kept) part, each scored by the f32 captioner
+    ``cap32`` on the f32 dump's (``base``) features: the teacher-forced sum
+    of log-probabilities through the first EOS, under each dump's own
+    detected label. [{"kernel", "plain", "gap" (kernel - plain),
+    "bf16_rounding" (one bf16 ulp of each step's log-probability, summed
+    over both captions)}]."""
+    from insenticap_model_tpu_torch.models import captioner as cap
+    out = []
+    with torch.no_grad():
+        for b32, bk, bp in zip(base, kernel, plain, strict=True):
+            _check(torch.equal(b32["sentis"], bk["sentis"]),
+                   "the f32 and bf16 dumps' batches differ")
+            rows = (bk["seqs"] != bp["seqs"]).any(1).nonzero()[:, 0]
+            if len(rows) == 0:
+                continue
+            scores = []
+            for run in (bk, bp):
+                ids = run["ids"]
+                seqs = run["seqs"][rows].long()
+                ctx = cap.build_visual_context(
+                    cap32, b32["fc"][rows].float(), b32["att"][rows].float(),
+                    senti_words=run["sentis"][rows],
+                    senti_labels=run["labels"][rows], pad_id=ids.pad)
+                sos = torch.full_like(seqs[:, :1], ids.sos)
+                lp = cap._teacher_forced_scan(
+                    cap32, ctx, torch.cat([sos, seqs], 1), mode="rl",
+                    dropout_p=0.0, gen=None, ss_prob=0.0, deterministic=True,
+                    hid_dim=settings.rnn_hid_dim)
+                tok = lp.gather(2, seqs[..., None])[..., 0].double()
+                eos = (seqs == ids.eos).long()
+                keep = (eos.cumsum(1) - eos) == 0
+                ulp = torch.ldexp(torch.ones_like(tok),
+                                  torch.frexp(tok).exponent - 8)
+                scores.append(((tok * keep).sum(1),
+                               (ulp * (tok != 0) * keep).sum(1)))
+            for j in range(len(rows)):
+                k_, p_ = float(scores[0][0][j]), float(scores[1][0][j])
+                out.append({"kernel": k_, "plain": p_, "gap": k_ - p_,
+                            "bf16_rounding": float(scores[0][1][j]
+                                                   + scores[1][1][j])})
+    return out
+
+
 def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
                   read_counters, files):
     """Phase 3i: the offline and evaluation CLIs on phase 3h's tree and
@@ -2591,8 +2673,8 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
                        "json_files": len(written),
                        "senti_captions": n_senti_caps}
 
-        # 2. the features: the 8 fixtures the port decodes (prog.jpg, a
-        # progressive JPEG, is refused by the decoders, phase 3e) and 32
+        # 2. the features: the 11 fixtures the port decodes (the three
+        # progressive JPEGs among them) and 32
         # PNGs over the three buckets, through `preprocess features` with
         # ResNet-101 read from a reference-named .pth, f32, encode batches
         # of 32; the pool's launches against the batches flushed
@@ -2765,6 +2847,16 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
                      result_dir=os.path.join(work, "res_" + tag))
             dd = functools.partial(orig_dd, use_kernels=False) if plain \
                 else orig_dd
+            # each dump batch's inputs and top beams, for the f32 scores
+            # of the captions the bf16 paths part on
+            served = []
+
+            def recording_dd(params, fc, att, sentis, **kw):
+                res = dd(params, fc, att, sentis, **kw)
+                served.append({"fc": fc, "att": att, "sentis": sentis,
+                               "seqs": res[0][:, 0].clone(),
+                               "labels": res[2].clone(), "ids": kw["ids"]})
+                return res
             with contextlib.ExitStack() as stack:
                 stack.enter_context(_patched(
                     repro, load_composite=_timed(repro.load_composite,
@@ -2783,8 +2875,8 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
                 stack.enter_context(_patched(
                     ft, classifier_topk_plain=counting_tail))
                 stack.enter_context(_patched(sd, forward=counting_fwd))
-                stack.enter_context(_patched(inference,
-                                             detect_and_decode=dd))
+                stack.enter_context(_patched(
+                    inference, detect_and_decode=recording_dd))
                 if tanhf:
                     stack.enter_context(_v1_exact_tanh(fa))
                 calls.update(decode_steps=0, detector_bf16=0)
@@ -2810,7 +2902,9 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
                                 r["caption"]
             return {"table": table, "s": s_, "parts_s": parts,
                     "launches": launches, "calls": dict(calls),
-                    "captions": caps}
+                    "captions": caps,
+                    "served": served if tag in ("ckpt", "bf16", "bf16_plain")
+                    else []}
         runs = {"ckpt": reproduce("ckpt", files["composite"]),
                 "pth": reproduce("pth", "rl.pth"),
                 "plain": reproduce("plain", files["composite"], plain=True),
@@ -2854,6 +2948,17 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
         _check(same >= gate, f"reproduce bf16: captions identical to the "
                f"plain path's {same:.4f}, below v1 with tanhf's "
                f"{same_t:.4f} rounded down ({gate:.2f})")
+        # is that share bf16's own? (a) the bf16 plain path against the
+        # f32 one; (b) each caption the kernel and plain bf16 paths part
+        # on, both scored in f32 (not a gate: a record)
+        caps32 = runs["ckpt"]["captions"]
+        plain_vs_f32 = sum(caps32.get(k) == v for k, v in plain16.items()) \
+            / len(plain16)
+        gaps = _f32_score_gaps(torch, tck.load(files["composite"],
+                                               device=dev)[0]["captioner"],
+                               settings, runs["ckpt"]["served"],
+                               runs["bf16"]["served"],
+                               runs["bf16_plain"]["served"])
         # the Winograd kernels on the dump's own bf16 detector batches
         # (the fact and senti test splits, rl_bs rows each) against their
         # plain twins: the logits within phase 3h's rounding (rtol 1e-2,
@@ -2885,12 +2990,17 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
                f"det_sentis_wrong_rate {wr} differs from the plain path's")
         del ins[:], lk, lp
         out["reproduce"] = {
-            tag: {k: v for k, v in r.items() if k != "captions"}
+            tag: {k: v for k, v in r.items() if k not in ("captions",
+                                                          "served")}
             for tag, r in runs.items()}
         out["reproduce_bf16_vs_plain"] = {
             "captions": len(plain16), "identical": same,
             "identical_tanhf": same_t, "gate": gate,
-            "wino_logits_max_abs_err": wino_err}
+            "wino_logits_max_abs_err": wino_err,
+            "plain_bf16_identical_to_f32": plain_vs_f32,
+            "f32_logprob_gaps": gaps}
+        for r in runs.values():
+            del r["served"]
         n_caps = len(runs["ckpt"]["captions"])
         out["dump_captions_per_s"] = n_caps / runs["ckpt"]["parts_s"]["dump"]
         out["meteor_mode"] = Meteor().mode
@@ -2982,6 +3092,19 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
           f"Winograd kernels against the plain twins: logits max |diff| "
           f"{b16['wino_logits_max_abs_err']} (rtol 1e-2, 1e-3 of the "
           f"scale), labels equal")
+    gaps = b16["f32_logprob_gaps"]
+    inside = sum(abs(x["gap"]) <= x["bf16_rounding"] for x in gaps)
+    print(f"offline CLIs reproduce bf16 plain path against the f32 path: "
+          f"captions identical {b16['plain_bf16_identical_to_f32']:.2%}; "
+          f"the {len(gaps)} captions where the bf16 kernel and plain paths "
+          f"part, scored in f32 (sum of log-probabilities through EOS, "
+          f"kernel minus plain): gaps "
+          + ", ".join(f"{x['gap']:.4f}" for x in gaps)
+          + f"; largest |gap| "
+          f"{max([abs(x['gap']) for x in gaps] or [0.0]):.4f}; {inside} of "
+          f"{len(gaps)} within bf16 rounding of the steps' log-probabilities"
+          f" (budgets {min([x['bf16_rounding'] for x in gaps] or [0.0]):.4f}"
+          f"-{max([x['bf16_rounding'] for x in gaps] or [0.0]):.4f})")
     for tag in ("ckpt", "bf16"):
         print(f"offline CLIs reproduce {tag} table:")
         repro._print_section6(out["reproduce"][tag]["table"])
@@ -3022,7 +3145,8 @@ def main():
         from insenticap_model_tpu_torch.utils.dtypes import (cast_bf16,
                                                              cast_f32)
         from insenticap_model_tpu_torch.utils.timing import (
-            cuda_ms, device_ms, device_ms_by_kernel, device_ms_by_name)
+            SESSIONS, cuda_ms, device_ms, device_ms_by_kernel,
+            device_ms_by_name, launches_per_call)
         from insenticap_model_tpu_torch.utils.tolerance import bf16_ulp_error
         from insenticap_model_tpu_torch.vocab import Vocab
         from tools import bench_torch_int8 as bti
@@ -3124,6 +3248,28 @@ def main():
             if b_ == BEAM:
                 h, want = hb, want_b
         checks[f"attention_{tag}"] = checks[f"attention_{tag}_B{BEAM}"]
+        # v1 at the RL and reproduce dumps' shape, rl_bs 40 at beam 3
+        # (bf16 also with tanhf), on inputs of their own
+        gd = torch.Generator(device=dev).manual_seed(40)
+        hd = (torch.rand(RL_BS * BEAM, H, generator=gd, device=dev) * 2
+              - 1).to(dt)
+        attd = torch.rand(RL_BS, N, Fe, generator=gd, device=dev).to(dt)
+        p_attd = torch.rand(RL_BS, N, Ah, generator=gd, device=dev).to(dt)
+        want_d = fa.beam_content_attention_plain(hd, p_cont, attd, p_attd,
+                                                 B=BEAM)
+        for exact in ((False, True) if dt == torch.bfloat16 else (False,)):
+            got = fa.beam_content_attention(hd, p_cont, attd, p_attd, B=BEAM,
+                                            exact_tanh=exact)
+            torch.cuda.synchronize()
+            ok, err = att_tol(dt, got, want_d)
+            key = f"attention_{tag}_bs{RL_BS}" + ("_tanhf" if exact else "")
+            checks[key] = err
+            print(f"check attention {tag} bs={RL_BS} B={BEAM}"
+                  f"{' with tanhf' if exact else ''} (the dumps' shape): "
+                  f"max_abs_err={err:.3g} {'ok' if ok else 'FAIL'}")
+            _check(ok, f"attention kernel {tag} at bs={RL_BS} B={BEAM} "
+                   "disagrees with its plain version")
+        del hd, attd, p_attd, want_d
         if dt == torch.bfloat16:
             # the bf16 instance's tanh.approx.f32 against tanhf: both held
             # to the same tolerance, both errors kept
@@ -3912,13 +4058,21 @@ def main():
     # v1 is two launches of some 0.1 ms together, near the host's dispatch
     # of a call: the line carries the profiler's device time, split into
     # the query product and the attention, with CUDA events beside it
+    # Each session's instances of every part are held to the launches one
+    # call adds to its op's counter, times the calls (a short session is
+    # taken again, then refused: utils/timing.device_ms_by_name)
+    def split(fn, parts, op, attr="launches"):
+        return device_ms_by_name(fn, parts, per_call=launches_per_call(
+            fn, {p_: (op, attr) for p_ in parts}))
     v1_parts = ("query_", "beam_att_kernel")
-    a_dev = device_ms_by_name(lambda: fa.beam_content_attention(
-        h, p_cont, att16, p_att16, B=BEAM), v1_parts)
+    a_dev = split(lambda: fa.beam_content_attention(
+        h, p_cont, att16, p_att16, B=BEAM), v1_parts,
+        fa.beam_content_attention)
     a_ms = cuda_ms(lambda: fa.beam_content_attention(
         h, p_cont, att16, p_att16, B=BEAM))
-    a_tanhf = device_ms_by_name(lambda: fa.beam_content_attention(
-        h, p_cont, att16, p_att16, B=BEAM, exact_tanh=True), v1_parts)
+    a_tanhf = split(lambda: fa.beam_content_attention(
+        h, p_cont, att16, p_att16, B=BEAM, exact_tanh=True), v1_parts,
+        fa.beam_content_attention)
     a_plain = cuda_ms(lambda: fa.beam_content_attention_plain(
         h, p_cont, att16, p_att16, B=BEAM), iters=5)
     rows = BS * BEAM
@@ -3930,8 +4084,9 @@ def main():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     a_bound, a_by = _bound(a_bytes, a_flops, F32_FLOP_S, a_tanh, sms)
     h32, p32, att32, patt32 = att_in[torch.float32]
-    a32_dev = device_ms_by_name(lambda: fa.beam_content_attention(
-        h32, p32, att32, patt32, B=BEAM), v1_parts)
+    a32_dev = split(lambda: fa.beam_content_attention(
+        h32, p32, att32, patt32, B=BEAM), v1_parts,
+        fa.beam_content_attention)
     a32_ms = cuda_ms(lambda: fa.beam_content_attention(
         h32, p32, att32, patt32, B=BEAM))
     a32_bound, _ = _bound(2 * a_bytes, a_flops, F32_FLOP_S, a_tanh, sms)
@@ -3943,9 +4098,10 @@ def main():
         if b_ != BEAM:
             hb = (torch.rand(BS * b_, H, generator=g, device=dev) * 2
                   - 1).bfloat16()
-            a_by_beam[b_] = device_ms_by_name(
+            a_by_beam[b_] = split(
                 lambda: fa.beam_content_attention(hb, p_cont, att16, p_att16,
-                                                  B=b_), v1_parts)
+                                                  B=b_), v1_parts,
+                fa.beam_content_attention)
     del hb
     report["attention_bf16"] = {"device_ms": a_dev, "ms_events": a_ms,
                                 "device_ms_tanhf": a_tanhf,
@@ -3975,8 +4131,9 @@ def main():
     # (kRoundW), the same bound
     v2_ms = cuda_ms(lambda: fa.beam_content_attention(
         h, p_cont, att16, p_att16, B=BEAM, variant="v2"))
-    v2_dev = device_ms_by_name(lambda: fa.beam_content_attention(
-        h, p_cont, att16, p_att16, B=BEAM, variant="v2"), v1_parts)
+    v2_dev = split(lambda: fa.beam_content_attention(
+        h, p_cont, att16, p_att16, B=BEAM, variant="v2"), v1_parts,
+        fa.beam_content_attention, "launches_v2")
     v2_plain = cuda_ms(lambda: fa.beam_content_attention_plain(
         h, p_cont, att16, p_att16, B=BEAM, variant="v2"), iters=5)
     v2_32 = cuda_ms(lambda: fa.beam_content_attention(
@@ -4004,8 +4161,8 @@ def main():
     # for the product alone (no one call computes the top-k)
     tk16, tk32 = topk_in[torch.bfloat16], topk_in[torch.float32]
     tk_parts = ("topk_wgmma", "topk_merge")
-    tk_dev = device_ms_by_name(lambda: ft.classifier_topk(
-        *tk16, k=BEAM, banned=BANNED), tk_parts)
+    tk_dev = split(lambda: ft.classifier_topk(
+        *tk16, k=BEAM, banned=BANNED), tk_parts, ft.classifier_topk)
     tk_ms = cuda_ms(lambda: ft.classifier_topk(*tk16, k=BEAM,
                                                banned=BANNED))
     tk_plain = cuda_ms(lambda: ft.classifier_topk_plain(
@@ -4013,8 +4170,9 @@ def main():
     wt16 = tk16[1].t()
     mm16_dev = device_ms(lambda: torch.matmul(tk16[0], wt16))
     mm16_ms = cuda_ms(lambda: torch.matmul(tk16[0], wt16))
-    tk32_dev = device_ms_by_name(lambda: ft.classifier_topk(
-        *tk32, k=BEAM, banned=BANNED), ("topk_tiles_f32", "topk_merge"))
+    tk32_dev = split(lambda: ft.classifier_topk(
+        *tk32, k=BEAM, banned=BANNED), ("topk_tiles_f32", "topk_merge"),
+        ft.classifier_topk)
     tk32_ms = cuda_ms(lambda: ft.classifier_topk(*tk32, k=BEAM,
                                                  banned=BANNED))
     tk32_plain = cuda_ms(lambda: ft.classifier_topk_plain(
@@ -4076,8 +4234,13 @@ def main():
     wino_names = ("wino_input_kernel", "wino_middle_kernel",
                   "wino_output_kernel")
     wino_times = {}
+    # one call of a transform: one activity of its kernel, none of the
+    # other two
+    wino_counters = {n_: (getattr(wk, n_.replace("_kernel", "")), "launches")
+                     for n_ in wino_names}
     for name, replaces, kfn, pfn, nbytes, flops in specs:
-        k_dev = device_ms_by_name(kfn, wino_names)
+        k_dev = device_ms_by_name(kfn, wino_names, per_call=launches_per_call(
+            kfn, wino_counters))
         k_ms = cuda_ms(kfn)
         p_ms = cuda_ms(pfn, iters=3)
         bnd, by_ = _bound(nbytes, flops, F32_FLOP_S)
@@ -4101,8 +4264,10 @@ def main():
             "bound_ms": bnd, "bound_by": by_, "library_ms": None,
             "passed": True})
     wino_times["wino_input_contiguous"] = {
-        "device_ms": device_ms_by_name(lambda: wk.wino_input(x16c),
-                                       wino_names)["wino_input_kernel"],
+        "device_ms": device_ms_by_name(
+            lambda: wk.wino_input(x16c), wino_names,
+            per_call=launches_per_call(lambda: wk.wino_input(x16c),
+                                       wino_counters))["wino_input_kernel"],
         "ms_events": cuda_ms(lambda: wk.wino_input(x16c))}
     report["winograd_transforms"] = wino_times
 
@@ -4204,16 +4369,18 @@ def main():
     # one PyTorch call computes it: the bf16 v1 kernel on the same values,
     # timed the same way, is its reference
     i8_parts = bti.I8_PARTS
-    i8_dev = device_ms_by_name(lambda: fa8.beam_content_attention_i8(
-        *i8_in, B=BEAM), i8_parts)
+    i8_dev = split(lambda: fa8.beam_content_attention_i8(
+        *i8_in, B=BEAM), i8_parts, fa8.beam_content_attention_i8)
     i8_ms = cuda_ms(lambda: fa8.beam_content_attention_i8(*i8_in, B=BEAM))
-    i8_tanhf = device_ms_by_name(lambda: fa8.beam_content_attention_i8(
-        *i8_in, B=BEAM, exact_tanh=True), i8_parts)
+    i8_tanhf = split(lambda: fa8.beam_content_attention_i8(
+        *i8_in, B=BEAM, exact_tanh=True), i8_parts,
+        fa8.beam_content_attention_i8)
     i8_plain = cuda_ms(lambda: fa8.beam_content_attention_i8_plain(
         *i8_in, B=BEAM), iters=5)
     att16_i8, p_att16_i8 = att_f.bfloat16(), p_att_f.bfloat16()
-    i8_ref = device_ms_by_name(lambda: fa.beam_content_attention(
-        h16, p_cont16, att16_i8, p_att16_i8, B=BEAM), v1_parts)
+    i8_ref = split(lambda: fa.beam_content_attention(
+        h16, p_cont16, att16_i8, p_att16_i8, B=BEAM), v1_parts,
+        fa.beam_content_attention)
     i8_ref_ms = cuda_ms(lambda: fa.beam_content_attention(
         h16, p_cont16, att16_i8, p_att16_i8, B=BEAM))
     i8_bytes = BS * N * (Ah + Fe) + 4 * BS * (Ah + Fe) \
@@ -4443,6 +4610,10 @@ def main():
               f"{r['mean_len']:.2f} max {r['max_len']}"
               + (f", {r['decode_steps']} decode steps"
                  if "decode_steps" in r else ""))
+    report["profiler_sessions"] = dict(SESSIONS)
+    print(f"profiler sessions: {SESSIONS['taken']} taken, "
+          f"{SESSIONS['short']} of them taken again for a part's instance "
+          "count (utils/timing.device_ms_by_name)")
     for k in kernels:
         k["design"] = DESIGNS[k["name"]]
         print(f"  {k['name']} ({k['design']}): {k['ms']:.4f} ms, plain "

@@ -29,7 +29,7 @@ decodes and resizes on the host (``preprocessing``: the port's own JPEG
 and PNG decoders and PIL's bilinear resize, no PIL) onto the static shape
 ladder, then rides ``EncodeBatcher`` (ResNet-101 + concept top-k, batched)
 into the decode ``DynamicBatcher``. An image the decoders refuse
-(progressive JPEG, 16-bit PNG, ...) is a 400, as any decode failure is in
+(CMYK JPEG, 16-bit PNG, ...) is a 400, as any decode failure is in
 the JAX package.
 
 Request bodies are size-capped (413 past --max_body_mb, before the read);

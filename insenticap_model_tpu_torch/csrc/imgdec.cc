@@ -1,5 +1,5 @@
-// Host image decoding for the serving surface: baseline and extended-
-// sequential Huffman JPEG, and PNG's row filters.
+// Host image decoding for the serving surface: baseline, extended-
+// sequential and progressive Huffman JPEG, and PNG's row filters.
 //
 // The JAX package decodes with PIL (insenticap_model_tpu/preprocessing.py:
 // 50-80); the machine that serves the port has no PIL, so the port decodes
@@ -9,7 +9,15 @@
 //
 //  * entropy decoding: Huffman (DHT tables of any kind), DRI and RSTn
 //    restart markers, interleaved and single-component scans, any number
-//    of scans of SOF0 or SOF1 at 8 bits;
+//    of scans of SOF0, SOF1 or SOF2 at 8 bits. Progressive scans (T.81
+//    Annex G, libjpeg-turbo's jdphuff.c) are DC first and refinement, AC
+//    first (a band Ss..Se, EOB runs) and AC refinement, into whole-image
+//    coefficient arrays; their parameters are checked as libjpeg's
+//    start_pass_phuff_decoder checks them (what it refuses is refused,
+//    what it only warns of is decoded);
+//  * block smoothing: a progressive file that ends with some of AC
+//    coefficients 1-9 still inexact (an incomplete progression) is
+//    decoded as libjpeg-turbo 2.1+'s decompress_smooth_data does it;
 //  * IDCT: jpeg_idct_islow (jidctint.c; CONST_BITS 13, PASS1_BITS 2) and
 //    its range-limit table; libjpeg-turbo's SIMD versions give the same
 //    numbers;
@@ -22,12 +30,13 @@
 //  * colour: jdcolor.c's fixed-point YCbCr -> RGB tables (SCALEBITS 16),
 //    range-limited.
 //
-// Refused, with a message that names what: progressive, lossless,
-// hierarchical and arithmetic-coded JPEG, precision other than 8 bits,
-// 2 or 4 or more components (CMYK, YCCK), and 3-component files that
-// libjpeg takes as RGB (an Adobe marker with transform 0, or component ids
-// 'R' 'G' 'B' without JFIF). A file that ends, or whose entropy data ends,
-// before every block of every scan is decoded is refused as truncated.
+// Refused, with a message that names what: lossless, hierarchical and
+// arithmetic-coded JPEG, precision other than 8 bits, 2 or 4 or more
+// components (CMYK, YCCK), and 3-component files that libjpeg takes as RGB
+// (an Adobe marker with transform 0, or component ids 'R' 'G' 'B' without
+// JFIF). A file that ends, or whose entropy data ends, before every block
+// of every scan is decoded is refused as truncated (libjpeg would fill the
+// rest with zeros and warn; PIL refuses a file that ends early).
 //
 // PNG: the Python side (preprocessing.py) parses the chunks, checks their
 // CRCs and inflates IDAT with zlib; isc_png_unfilter undoes the five row
@@ -35,6 +44,7 @@
 //
 // C interface (ctypes): every entry returns 0, or non-zero with a
 // NUL-terminated message in err[errlen].
+#include <limits.h>
 #include <stdint.h>
 #include <stdio.h>
 #include <string.h>
@@ -133,13 +143,16 @@ struct Component {
   int16_t qt[64] = {};
   std::vector<int16_t> coef;     // [bh][bw][64], natural order
   bool seen = false;             // in some scan
+  // progressive: the Al of each coefficient's last scan (zigzag order),
+  // -1 before any; libjpeg's coef_bits
+  int bits[64];
 };
 
 struct Jpeg {
   const uint8_t* d;
   size_t n, pos = 0;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
-  bool sof = false, jfif = false, adobe = false;
+  bool sof = false, jfif = false, adobe = false, progressive = false;
   int adobe_transform = -1;
   int restart_interval = 0;
   uint16_t qtab[4][64] = {};
@@ -147,6 +160,7 @@ struct Jpeg {
   Huff dc[4], ac[4];
   std::vector<Component> comp;
   int mcux = 0, mcuy = 0;
+  int eobrun = 0;      // blocks left in a progressive scan's end-of-band run
 
   // entropy reader
   uint64_t bitbuf = 0;
@@ -209,7 +223,7 @@ struct Jpeg {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    (void)marker;
+    progressive = marker == 0xC2;
     pos = end;
     mcux = (width + 8 * hmax - 1) / (8 * hmax);
     mcuy = (height + 8 * vmax - 1) / (8 * vmax);
@@ -221,6 +235,7 @@ struct Jpeg {
       c.dw = (int)(((long long)width * c.h + hmax - 1) / hmax);
       c.dh = (int)(((long long)height * c.v + vmax - 1) / vmax);
       c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      std::fill(c.bits, c.bits + 64, -1);
     }
   }
 
@@ -356,11 +371,19 @@ struct Jpeg {
     return r < (1 << (s - 1)) ? r - (1 << s) + 1 : r;
   }
 
+  // the DC predictor plus a difference, refused where it would leave int
+  // (libjpeg's JERR_BAD_DCT_COEF)
+  static void add_dc(int& pred, int s) {
+    if ((pred >= 0 && s > INT_MAX - pred) || (pred < 0 && s < INT_MIN - pred))
+      fail("JPEG: corrupt data (DC coefficient out of range)");
+    pred += s;
+  }
+
   void decode_block(int16_t* blk, const Huff& dct, const Huff& act,
                     int& pred) {
     int s = decode(dct);
     if (s) s = extend(get_bits(s), s);
-    pred += s;
+    add_dc(pred, s);
     blk[0] = (int16_t)pred;
     for (int k = 1; k < 64; ++k) {
       int rs = decode(act);
@@ -392,6 +415,102 @@ struct Jpeg {
     expected = (expected + 1) & 7;
   }
 
+  // -- progressive scans: ITU T.81 Annex G, as libjpeg-turbo's jdphuff.c --
+  // Coefficients keep their full scale: a first scan stores v << Al, a
+  // refinement scan adds the bit 1 << Al. k runs to at most 63 + 15 on
+  // corrupt data, inside kNatural's 16 spare entries.
+
+  void dc_first(int16_t* blk, const Huff& t, int& pred, int al) {
+    int s = decode(t);
+    if (s) s = extend(get_bits(s), s);
+    add_dc(pred, s);
+    blk[0] = (int16_t)((unsigned)pred << al);
+  }
+
+  void dc_refine(int16_t* blk, int al) {
+    if (get_bits(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+  }
+
+  void ac_first(int16_t* blk, const Huff& t, int ss, int se, int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      const int rs = decode(t);
+      const int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = (int16_t)((unsigned)extend(get_bits(s), s) << al);
+      } else if (r == 15) {
+        k += 15;                       // ZRL
+      } else {                         // EOBr: 2^r + r bits blocks
+        eobrun = (1 << r) + get_bits(r) - 1;
+        break;
+      }
+    }
+  }
+
+  // a correction bit for each coefficient that is already nonzero: 1 adds
+  // 1 << Al to its magnitude
+  void refine(int16_t& coef, int p1) {
+    if (get_bits(1) && (coef & p1) == 0)
+      coef = (int16_t)(coef >= 0 ? coef + p1 : coef - p1);
+  }
+
+  void ac_refine(int16_t* blk, const Huff& t, int ss, int se, int al) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        const int rs = decode(t);
+        int r = rs >> 4;
+        int s = rs & 15;
+        if (s) {                       // a new coefficient of +-1 << Al
+          s = get_bits(1) ? p1 : -p1;
+        } else if (r != 15) {
+          eobrun = (1 << r) + get_bits(r);
+          break;
+        }
+        // pass the nonzero coefficients (refining each) and r zero ones;
+        // the new coefficient takes the zero after them
+        do {
+          int16_t& c = blk[kNatural[k]];
+          if (c != 0) {
+            refine(c, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& c = blk[kNatural[k]];
+        if (c != 0) refine(c, p1);
+      }
+      --eobrun;
+    }
+  }
+
+  // libjpeg's start_pass_phuff_decoder: a scan it refuses, refused
+  void check_progression(int ns, int ss, int se, int ah, int al) const {
+    bool bad = false;
+    if (ss == 0) {
+      bad = se != 0;
+    } else {
+      bad = ss > se || se > 63 || ns != 1;   // an AC scan: one component
+    }
+    if (ah != 0 && al != ah - 1) bad = true;
+    if (al > 13) bad = true;
+    if (bad)
+      fail("JPEG: corrupt data (bad progressive scan: Ss " +
+           std::to_string(ss) + ", Se " + std::to_string(se) + ", Ah " +
+           std::to_string(ah) + ", Al " + std::to_string(al) + ")");
+  }
+
   void parse_sos() {
     if (!sof) fail("JPEG: scan before frame header");
     const int len = word();
@@ -412,8 +531,6 @@ struct Jpeg {
       td[i] = t >> 4;
       ta[i] = t & 15;
       if (td[i] > 3 || ta[i] > 3) fail("JPEG: bad scan table ids");
-      if (!dc[td[i]].defined || !ac[ta[i]].defined)
-        fail("JPEG: scan uses an undefined Huffman table");
     }
     if (ns > 1) {
       int blocks = 0;
@@ -422,8 +539,16 @@ struct Jpeg {
         fail("JPEG: sampling factors too large for an interleaved scan");
     }
     const int ss = byte(), se = byte(), ahal = byte();
-    if (ss != 0 || se != 63 || ahal != 0)
+    const int ah = ahal >> 4, al = ahal & 15;
+    if (!progressive && (ss != 0 || se != 63 || ahal != 0))
       fail("JPEG: bad spectral selection for a sequential scan");
+    if (progressive) check_progression(ns, ss, se, ah, al);
+    // the tables a scan reads: a DC refinement reads none
+    const bool need_dc = !progressive || (ss == 0 && ah == 0);
+    const bool need_ac = !progressive || ss != 0;
+    for (int i = 0; i < ns; ++i)
+      if ((need_dc && !dc[td[i]].defined) || (need_ac && !ac[ta[i]].defined))
+        fail("JPEG: scan uses an undefined Huffman table");
     pos = end;
     for (int ci : sc) {
       Component& c = comp[ci];
@@ -433,12 +558,15 @@ struct Jpeg {
         c.latched = true;
       }
       c.seen = true;
+      if (progressive)
+        for (int k = ss; k <= se; ++k) c.bits[k] = al;
     }
 
     reset_bits();
     int preds[4] = {0, 0, 0, 0};
     int expected_rst = 0;
     int left = restart_interval;
+    eobrun = 0;
     long long total;
     int bx, by;
     if (ns == 1) {
@@ -451,11 +579,25 @@ struct Jpeg {
       by = mcuy;
       total = (long long)mcux * mcuy;
     }
+    // one block of component i of the scan
+    auto block = [&](int i, int16_t* blk) {
+      if (!progressive)
+        decode_block(blk, dc[td[i]], ac[ta[i]], preds[i]);
+      else if (ss == 0 && ah == 0)
+        dc_first(blk, dc[td[i]], preds[i], al);
+      else if (ss == 0)
+        dc_refine(blk, al);
+      else if (ah == 0)
+        ac_first(blk, ac[ta[i]], ss, se, al);
+      else
+        ac_refine(blk, ac[ta[i]], ss, se, al);
+    };
     for (long long m = 0; m < total; ++m) {
       if (restart_interval) {
         if (left == 0) {
           restart(expected_rst);
           memset(preds, 0, sizeof(preds));
+          eobrun = 0;
           left = restart_interval;
         }
         --left;
@@ -463,8 +605,7 @@ struct Jpeg {
       const int mx = (int)(m % bx), my = (int)(m / bx);
       if (ns == 1) {
         Component& c = comp[sc[0]];
-        decode_block(&c.coef[((size_t)my * c.bw + mx) * 64], dc[td[0]],
-                     ac[ta[0]], preds[0]);
+        block(0, &c.coef[((size_t)my * c.bw + mx) * 64]);
       } else {
         for (int i = 0; i < ns; ++i) {
           Component& c = comp[sc[i]];
@@ -472,7 +613,7 @@ struct Jpeg {
             for (int xx = 0; xx < c.h; ++xx) {
               const size_t b =
                   (size_t)(my * c.v + yy) * c.bw + (mx * c.h + xx);
-              decode_block(&c.coef[b * 64], dc[td[i]], ac[ta[i]], preds[i]);
+              block(i, &c.coef[b * 64]);
             }
         }
       }
@@ -485,16 +626,14 @@ struct Jpeg {
     pos = 2;
     for (;;) {
       const int m = next_marker();
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         parse_sof(m);
         if (header_only) return;
-      } else if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) {
-        fail("JPEG: unsupported: progressive");
       } else if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF) {
         fail("JPEG: unsupported: lossless");
-      } else if (m == 0xC5) {
+      } else if (m == 0xC5 || m == 0xC6) {
         fail("JPEG: unsupported: hierarchical");
-      } else if (m == 0xC9) {
+      } else if (m == 0xC9 || m == 0xCA || m == 0xCE) {
         fail("JPEG: unsupported: arithmetic coding");
       } else if (m == 0xCC) {
         fail("JPEG: unsupported: arithmetic coding (DAC)");
@@ -663,6 +802,140 @@ void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
   }
 }
 
+// -- block smoothing: an incomplete progression ------------------------------
+//
+// A progressive file that ends with DC known and some of the first nine AC
+// coefficients still inexact is decoded by libjpeg-turbo (2.1 and later)
+// through jdcoefct.c's decompress_smooth_data: each such coefficient that is
+// still zero is estimated from the DC values of the block's 5x5
+// neighbourhood, and where no AC coefficient 1-9 has arrived at all, the
+// DC is smoothed as well. This follows it term for term.
+
+// natural positions of zigzag coefficients 0-9
+const int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+// libjpeg's smoothing_ok: progressive, every quantiser of coefficients
+// 0-9 nonzero, every DC known, and some coefficient 1-9 inexact
+bool smoothing_ok(const Jpeg& j) {
+  if (!j.progressive) return false;
+  bool useful = false;
+  for (const Component& c : j.comp) {
+    for (int q : kSmoothPos)
+      if (c.qt[q] == 0) return false;
+    if (c.bits[0] < 0) return false;
+    for (int k = 1; k < 10; ++k)
+      if (c.bits[k] != 0) useful = true;
+  }
+  return useful;
+}
+
+// The estimates for one block: dc[5 * row + col] is the DC of the block at
+// (row - 2, col - 2) from it, as libjpeg's DC01..DC25; ws a copy of the
+// block's coefficients.
+void smooth_block(const Component& c, bool change_dc, const int* dc,
+                  int16_t* ws) {
+  auto D = [&](int i) -> long { return dc[i - 1]; };   // DC01 is D(1)
+  const long q00 = (uint16_t)c.qt[0];
+  auto estimate = [&](int zz, long num) {
+    const int pos = kSmoothPos[zz], al = c.bits[zz];
+    if (al == 0 || ws[pos] != 0) return;
+    const long q = (uint16_t)c.qt[pos];
+    num *= q00;
+    int pred = (int)(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    ws[pos] = (int16_t)(num >= 0 ? pred : -pred);
+  };
+  estimate(1, change_dc
+                  ? -D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) -
+                        13 * D(9) + 3 * D(10) - 3 * D(11) + 38 * D(12) -
+                        38 * D(14) + 3 * D(15) - 3 * D(16) + 13 * D(17) -
+                        13 * D(19) + 3 * D(20) - D(21) - D(22) + D(24) +
+                        D(25)
+                  : -7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15));
+  estimate(2, change_dc
+                  ? -D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) +
+                        13 * D(7) + 38 * D(8) + 13 * D(9) - D(10) + D(16) -
+                        13 * D(17) - 38 * D(18) - 13 * D(19) + D(20) +
+                        D(21) + 3 * D(22) + 3 * D(23) + 3 * D(24) + D(25)
+                  : -7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23));
+  estimate(3, change_dc
+                  ? D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) -
+                        14 * D(13) - 5 * D(14) + 2 * D(17) + 7 * D(18) +
+                        2 * D(19) + D(23)
+                  : -D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23));
+  estimate(4, change_dc
+                  ? -D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) +
+                        9 * D(19) + D(21) - D(25)
+                  : D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) +
+                        D(22) - D(24) + D(4) - D(6) + 10 * D(7) -
+                        10 * D(9));
+  estimate(5, change_dc
+                  ? 2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) -
+                        14 * D(13) + 7 * D(14) + D(15) + 2 * D(17) -
+                        5 * D(18) + 2 * D(19)
+                  : -D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15));
+  if (!change_dc) return;
+  estimate(6, D(7) - D(9) + 2 * D(12) - 2 * D(14) + D(17) - D(19));
+  estimate(7, D(7) - 3 * D(8) + D(9) - D(17) + 3 * D(18) - D(19));
+  estimate(8, D(7) - D(9) - 3 * D(12) + 3 * D(14) + D(17) - D(19));
+  estimate(9, D(7) + 2 * D(8) + D(9) - D(17) - 2 * D(18) - D(19));
+  const long num =
+      q00 * (-2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) -
+             6 * D(6) + 6 * D(7) + 42 * D(8) + 6 * D(9) - 6 * D(10) -
+             8 * D(11) + 42 * D(12) + 152 * D(13) + 42 * D(14) - 8 * D(15) -
+             6 * D(16) + 6 * D(17) + 42 * D(18) + 6 * D(19) - 6 * D(20) -
+             2 * D(21) - 6 * D(22) - 8 * D(23) - 6 * D(24) - 2 * D(25));
+  const int pred = (int)(((q00 << 7) + (num >= 0 ? num : -num)) / (q00 << 8));
+  ws[0] = (int16_t)(num >= 0 ? pred : -pred);
+}
+
+// One component's IDCT plane [bh*8][bw*8] (stride bw*8): the block rows
+// and columns that cover its downsampled size, smoothed where `smooth`.
+// Which neighbour rows a block sees follows libjpeg's iMCU-row arithmetic,
+// which in the last iMCU row of a component with v > 1 counts rows as if
+// every iMCU row were as short as the last (it then clamps a row early);
+// rows below the image in an iMCU row are read as their (dummy) blocks.
+void idct_plane(const Component& c, int imcu_rows, bool smooth,
+                uint8_t* plane) {
+  const int stride = c.bw * 8;
+  const int rows_b = (c.dh + 7) / 8, cols_b = (c.dw + 7) / 8;
+  bool change_dc = true;
+  for (int k = 1; k < 10; ++k) change_dc = change_dc && c.bits[k] == -1;
+  int16_t ws[64];
+  int dc[25];
+  auto dc_at = [&](int row, int col) -> int {
+    row = std::min(row, c.bh - 1);
+    col = col < 0 ? 0 : (col >= cols_b ? cols_b - 1 : col);
+    return c.coef[((size_t)row * c.bw + col) * 64];
+  };
+  for (int by = 0; by < rows_b; ++by) {
+    int rows[5];
+    if (smooth) {
+      const int r = by / c.v;
+      int block_rows = c.v;
+      if (r == imcu_rows - 1 && rows_b % c.v) block_rows = rows_b % c.v;
+      const int i = r * block_rows + by % c.v, n = block_rows * imcu_rows;
+      rows[2] = by;
+      rows[1] = i > 0 ? by - 1 : by;
+      rows[0] = i > 1 ? by - 2 : rows[1];
+      rows[3] = i < n - 1 ? by + 1 : by;
+      rows[4] = i < n - 2 ? by + 2 : rows[3];
+    }
+    for (int bx = 0; bx < cols_b; ++bx) {
+      const int16_t* blk = &c.coef[((size_t)by * c.bw + bx) * 64];
+      if (smooth) {
+        memcpy(ws, blk, sizeof(ws));
+        for (int y = 0; y < 5; ++y)
+          for (int x = 0; x < 5; ++x)
+            dc[5 * y + x] = dc_at(rows[y], bx + x - 2);
+        smooth_block(c, change_dc, dc, ws);
+        blk = ws;
+      }
+      idct_islow(blk, c.qt, &plane[(size_t)by * 8 * stride + bx * 8], stride);
+    }
+  }
+}
+
 // -- upsampling -------------------------------------------------------------
 
 // One component's samples at full size [H][W], from its IDCT plane
@@ -791,16 +1064,11 @@ int isc_jpeg_decode(const uint8_t* data, long long n, uint8_t* out,
       fail("JPEG: output buffer size");
     std::vector<std::vector<uint8_t>> full(j.ncomp);
     std::vector<uint8_t> plane;
+    const bool smooth = smoothing_ok(j);
     for (int ci = 0; ci < j.ncomp; ++ci) {
       const Component& c = j.comp[ci];
-      const int stride = c.bw * 8;
-      // only the block rows and columns that cover the downsampled size
-      const int rows_b = (c.dh + 7) / 8, cols_b = (c.dw + 7) / 8;
-      plane.assign((size_t)c.bh * 8 * stride, 0);
-      for (int by = 0; by < rows_b; ++by)
-        for (int bx = 0; bx < cols_b; ++bx)
-          idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], c.qt,
-                     &plane[(size_t)by * 8 * stride + bx * 8], stride);
+      plane.assign((size_t)c.bh * 8 * c.bw * 8, 0);
+      idct_plane(c, j.mcuy, smooth, plane.data());
       if (j.ncomp == 1) {
         upsample(c, plane.data(), j.hmax, j.vmax, W, H, out);
       } else {

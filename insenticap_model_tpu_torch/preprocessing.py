@@ -16,16 +16,18 @@ The JAX package decodes and resizes with PIL (:50-117). The port has no
 PIL, so it carries its own, to give PIL's arrays bit for bit:
 
 * ``load_image`` / ``load_image_bytes``: JPEG through the host library
-  ``csrc/imgdec.cc`` (libjpeg's integer IDCT, fancy upsampling and colour
-  tables; built by ``ops/_build.load_host`` at first use) and PNG here
-  (chunks and CRCs, zlib, then the row filters in the same library). The
-  arrays are ``_pil_to_array``'s: "L" stays 2-D, "RGBA" drops its alpha,
-  every other mode becomes RGB. What the decoders do not take raises
-  ``ValueError`` naming it: progressive, lossless and arithmetic-coded
-  JPEG, CMYK/YCCK and Adobe-RGB JPEG, 12-bit JPEG, interlaced PNG and
-  16-bit PNG. Greyscale PNG at 1, 2 and 4 bits is read as PIL reads it:
-  1 bit is mode "1" (RGB of 0 and 255), 2 and 4 bits are "L" scaled to
-  0..255.
+  ``csrc/imgdec.cc`` (baseline, extended-sequential and progressive
+  Huffman JPEG; libjpeg's integer IDCT, fancy upsampling and colour
+  tables, and libjpeg-turbo's block smoothing of an incomplete
+  progression; built by ``ops/_build.load_host`` at first use) and PNG
+  here (chunks and CRCs, zlib, then the row filters in the same library).
+  The arrays are ``_pil_to_array``'s: "L" stays 2-D, "RGBA" drops its
+  alpha, every other mode becomes RGB. What the decoders do not take
+  raises ``ValueError`` naming it: lossless, hierarchical and
+  arithmetic-coded JPEG, CMYK/YCCK and Adobe-RGB JPEG, 12-bit JPEG,
+  interlaced PNG and 16-bit PNG. Greyscale PNG at 1, 2 and 4 bits is
+  read as PIL reads it: 1 bit is mode "1" (RGB of 0 and 255), 2 and 4
+  bits are "L" scaled to 0..255.
 * ``resize_to_bucket``: Pillow's ``BILINEAR`` resampler
   (``libImaging/Resample.c``) in numpy: separable, the horizontal pass
   first with a uint8 round between the passes, the triangle filter widened

@@ -945,7 +945,9 @@ def test_attention_i8_kernel_launches_the_query_product_and_the_attention(
               fa8.beam_content_attention_i8.launches)
     parts = device_ms_by_name(
         lambda: fa8.beam_content_attention_i8(*args, B=3),
-        ("query_bf16_kernel", "beam_att_i8_kernel"), iters=2, warm=1)
+        ("query_bf16_kernel", "beam_att_i8_kernel"),
+        per_call={"query_bf16_kernel": 1, "beam_att_i8_kernel": 1},
+        iters=2, warm=1)
     assert parts["query_bf16_kernel"] > 0 and parts["beam_att_i8_kernel"] > 0
     assert parts["query_bf16_kernel"] + parts["beam_att_i8_kernel"] \
         == pytest.approx(parts["total"])

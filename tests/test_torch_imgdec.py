@@ -4,15 +4,20 @@ against PIL 12.1 (the JAX package's ``load_image_bytes``), on the CPU.
 
 JPEG: subsampling 4:4:4, 4:2:2 and 4:2:0 and grey at qualities 50, 75 and
 95, ``optimize=True`` tables, restart markers by blocks and by rows, sizes
-1x1 to 448x448, smooth and random pixels; and, from a small baseline
+1x1 to 448x448, smooth and random pixels, baseline and progressive (PIL's
+scan script: spectral selection and successive approximation); every cut
+of a progressive file at a scan boundary (an incomplete progression,
+which libjpeg-turbo decodes with block smoothing); and, from a small
 writer here (PIL writes none of them), the sampling ratios 4:4:0 (h1v2),
 4:1:1, 3x1 and 1x4 (libjpeg's integral replication), sizes whose
 downsampled width is 1 or 2 (no fancy upsampling), one scan a component
-and restart intervals. PNG: L, LA, RGB, RGBA, P (and P at 1/2/4 bits, with
-tRNS), mode "1", and PNGs built here with each of the five row filters and
-greyscale and palette at 1, 2, 4 and 8 bits. What the decoders refuse
-raises ValueError: progressive, CMYK, 16-bit PNG, interlaced PNG,
-truncated and CRC-corrupt files. The committed fixtures under
+and restart intervals, baseline and progressive by spectral selection.
+PNG: L, LA, RGB, RGBA, P (and P at 1/2/4 bits, with tRNS), mode "1", and
+PNGs built here with each of the five row filters and greyscale and
+palette at 1, 2, 4 and 8 bits. What the decoders refuse raises
+ValueError: lossless, hierarchical and arithmetic-coded JPEG, a
+progression libjpeg refuses, CMYK, 16-bit PNG, interlaced PNG, truncated
+and CRC-corrupt files. The committed fixtures under
 ``tests/data/torch_images`` are rebuilt with PIL and must equal what is
 committed."""
 import io
@@ -29,6 +34,7 @@ from insenticap_model_tpu_torch import preprocessing as tpre
 import torch_images
 
 Image = pytest.importorskip("PIL.Image")
+ImageFile = pytest.importorskip("PIL.ImageFile")
 
 SIZES = [(1, 1), (7, 9), (9, 7), (17, 33), (37, 53), (3, 4), (448, 448)]
 
@@ -79,6 +85,131 @@ def test_jpeg_matches_pil(size, kind, subsampling):
                         **extra))
 
 
+@pytest.fixture
+def whole_image_buffer(monkeypatch):
+    """PIL writes a progressive JPEG (as an optimised one) in one piece,
+    through a buffer it sizes at a guess that a random 448x448 image
+    outgrows: a larger one."""
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 1 << 23)
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2],
+                         ids=["444", "422", "420"])
+@pytest.mark.parametrize("kind", ["smooth", "random"])
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_progressive_jpeg_matches_pil(size, kind, subsampling,
+                                      whole_image_buffer):
+    img = _image(*size, kind)
+    for quality in (50, 75, 95):
+        for extra in ({}, {"restart_marker_blocks": 2},
+                      {"restart_marker_rows": 1}):
+            _same(_jpeg(img, quality=quality, subsampling=subsampling,
+                        progressive=True, **extra))
+
+
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_grey_progressive_jpeg_matches_pil(size, whole_image_buffer):
+    for kind in ("smooth", "random"):
+        for quality in (50, 75, 95):
+            for extra in ({}, {"restart_marker_blocks": 3}):
+                data = _jpeg(_image(*size, kind)[:, :, 0], quality=quality,
+                             progressive=True, **extra)
+                assert tpre.load_image_bytes(data).ndim == 2
+                _same(data)
+
+
+def _scans(data):
+    """(start, end) of each scan of a JPEG: its SOS marker, and the marker
+    that follows its entropy-coded data."""
+    out, pos = [], 2
+    while data[pos + 1] != 0xD9:
+        nxt = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if data[pos + 1] == 0xDA:
+            while not (data[nxt] == 0xFF and data[nxt + 1] != 0
+                       and not 0xD0 <= data[nxt + 1] <= 0xD7):
+                nxt += 1
+            out.append((pos, nxt))
+        pos = nxt
+    return out
+
+
+# PIL's progressions (libjpeg's jpeg_simple_progression): 10 scans for
+# YCbCr (DC at Al 1; Y 1-5 and 6-63 at Al 2, Cb and Cr 1-63 at Al 1; then
+# the refinements), 6 for grey
+_N_SCANS = {"rgb": 10, "grey": 6}
+
+
+@pytest.mark.parametrize("what,n", [(w, n) for w, k in _N_SCANS.items()
+                                    for n in range(k)],
+                         ids=lambda x: str(x))
+def test_progressive_scan_cuts_match_pil(what, n):
+    """The file cut before scan ``n`` with EOI appended: after DC's first
+    scan alone libjpeg-turbo smooths DC and estimates AC 1-9 from a 5x5 of
+    DC values, after later ones it estimates the AC coefficients 1-5 that
+    are still inexact; with no scan at all both refuse it. 37 rows at 4:2:0
+    leave luma's last iMCU row one block row high."""
+    for size in [(37, 53), (9, 7), (100, 36), (64, 48)]:
+        for kind in ("smooth", "random"):
+            img = _image(*size, kind)
+            for sub in ((0, 1, 2) if what == "rgb" else (0,)):
+                data = _jpeg(img if what == "rgb" else img[:, :, 0],
+                             quality=75, subsampling=sub, progressive=True)
+                scans = _scans(data)
+                assert len(scans) == _N_SCANS[what]
+                cut = data[:scans[n][0]] + b"\xff\xd9"
+                if n == 0:
+                    with pytest.raises(OSError):
+                        jpre.load_image_bytes(cut)
+                    _refused(cut, "truncated")
+                else:
+                    _same(cut)
+
+
+def test_progressive_truncated_or_bad_refused():
+    """A file cut inside a scan is refused as truncated (PIL: "image file
+    is truncated"); a scan whose parameters libjpeg refuses (its
+    JERR_BAD_PROGRESSION) is refused by name; a progression libjpeg only
+    warns of (a scan repeated, a refinement missing) decodes as PIL's."""
+    data = _jpeg(_image(40, 50, "smooth"), quality=75, progressive=True)
+    scans = _scans(data)
+    for start, end in scans:
+        for cut in ((start + end) // 2, end - 1):
+            with pytest.raises(OSError):
+                jpre.load_image_bytes(data[:cut])
+            _refused(data[:cut], "truncated")
+
+    def edit(n, **kw):
+        d = bytearray(data)
+        q = scans[n][0] + 2 + int.from_bytes(d[scans[n][0] + 2:
+                                               scans[n][0] + 4], "big") - 3
+        for i, key in enumerate(("ss", "se", "ahal")):
+            if key in kw:
+                d[q + i] = kw[key]
+        return bytes(d)
+
+    for bad in (edit(1, ss=6, se=5), edit(1, se=64), edit(1, ahal=14),
+                edit(5, ahal=0x20), edit(0, se=1), edit(0, ss=1, se=5)):
+        with pytest.raises(OSError):
+            jpre.load_image_bytes(bad)
+        _refused(bad, "bad progressive scan")
+    _same(data[:scans[2][0]] + data[scans[1][0]:])      # scan 2 twice
+    _same(data[:scans[6][0]] + data[scans[6][1]:])      # no DC refinement
+
+
+@pytest.mark.parametrize("marker,name", [
+    (0xC3, "lossless"), (0xC5, "hierarchical"), (0xC6, "hierarchical"),
+    (0xC9, "arithmetic coding"), (0xCA, "arithmetic coding"),
+    (0xCE, "arithmetic coding")], ids=lambda x: f"{x:x}"
+    if isinstance(x, int) else x.split()[0])
+def test_other_frame_types_refused(marker, name):
+    data = bytearray(_jpeg(_image(16, 24, "smooth"), quality=75))
+    sof = data.index(b"\xff\xc0")
+    data[sof + 1] = marker
+    _refused(bytes(data), "unsupported: " + name)
+    with pytest.raises(ValueError, match="unsupported: " + name):
+        tpre._decode_jpeg(bytes(data[:sof + 20]))      # the header alone
+
+
 @pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_grey_jpeg_matches_pil(size):
     for kind in ("smooth", "random"):
@@ -104,11 +235,36 @@ def _category(v):
     return int(abs(v)).bit_length()
 
 
-def write_jpeg(width, height, factors, g, *, separate=False, dri=0):
-    """A baseline JFIF JPEG of random sparse quantised coefficients (any
-    block content is a valid image): ``factors`` [(h, v)] a component, one
+def _band_syms(zz, i, ss, se, eob):
+    """The AC symbols of zigzag coefficients ``ss..se`` of one block:
+    runs of zeros (ZRL for 16), and at the band's end an EOB where ``eob``,
+    else (a progressive scan's EOB run) the count of trailing zeros."""
+    last = max([k for k in range(ss, se + 1) if zz[k]] or [ss - 1])
+    syms, run = [], 0
+    for k in range(ss, last + 1):
+        if zz[k] == 0:
+            run += 1
+            continue
+        while run > 15:
+            syms.append(((1, i), 0xF0, 0, 0))
+            run -= 16
+        s = _category(zz[k])
+        syms.append(((1, i), (run << 4) | s, zz[k], s))
+        run = 0
+    if last < se and eob:
+        syms.append(((1, i), 0x00, 0, 0))
+    return syms, last < se
+
+
+def write_jpeg(width, height, factors, g, *, separate=False, dri=0,
+               progressive=False):
+    """A JFIF JPEG of random sparse quantised coefficients (any block
+    content is a valid image): ``factors`` [(h, v)] a component, one
     interleaved scan or one scan a component, restart interval ``dri``
-    MCUs, Huffman tables of one code length fitted to the symbols used."""
+    MCUs, Huffman tables of one code length fitted to the symbols used.
+    ``progressive``: SOF2 with spectral selection only (Al 0): the DC scan
+    (interleaved unless ``separate``), then bands 1-5 and 6-63 of each
+    component, all-zero bands coded as EOB runs."""
     hmax = max(h for h, _ in factors)
     vmax = max(v for _, v in factors)
     mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
@@ -127,12 +283,19 @@ def write_jpeg(width, height, factors, g, *, separate=False, dri=0):
                              b"\x00\x00")
     for t in range(2):
         out += _seg(0xDB, bytes([t]) + bytes(g.integers(1, 9, 64).tolist()))
-    out += _seg(0xC0, struct.pack(">BHHB", 8, height, width, len(comps))
+    out += _seg(0xC2 if progressive else 0xC0,
+                struct.pack(">BHHB", 8, height, width, len(comps))
                 + b"".join(bytes([c["id"], (c["h"] << 4) | c["v"], ci % 2])
                            for ci, c in enumerate(comps)))
     if dri:
         out += _seg(0xDD, struct.pack(">H", dri))
-    for group in ([[c] for c in comps] if separate else [comps]):
+    groups = [[c] for c in comps] if separate else [comps]
+    if progressive:
+        scans = [(grp, 0, 0) for grp in groups] + [
+            ([c], ss, se) for c in comps for ss, se in ((1, 5), (6, 63))]
+    else:
+        scans = [(grp, 0, 63) for grp in groups]
+    for group, ss, se in scans:
         if len(group) > 1:
             units = [[(i, my * c["v"] + yy, mx * c["h"] + xx)
                       for i, c in enumerate(group)
@@ -141,37 +304,47 @@ def write_jpeg(width, height, factors, g, *, separate=False, dri=0):
         else:
             units = [[(0, by, bx)] for by in range(group[0]["nby"])
                      for bx in range(group[0]["nbx"])]
-        syms, pred = [], [0] * len(group)
+        syms, pred, eobrun = [], [0] * len(group), 0
+
+        def end_run():
+            nonlocal eobrun
+            if eobrun:
+                r = eobrun.bit_length() - 1
+                syms.append(((1, 0), r << 4, eobrun - (1 << r), r))
+                eobrun = 0
+
         for u, unit in enumerate(units):
             if dri and u and u % dri == 0:
+                end_run()
                 pred = [0] * len(group)
                 syms.append(None)                      # a restart marker
             for i, by, bx in unit:
                 blk = group[i]["coef"][by, bx]
-                diff = int(blk[0]) - pred[i]
-                pred[i] = int(blk[0])
-                s = _category(diff)
-                syms.append(((0, i), s, diff, s))
                 zz = [int(blk[_ZIGZAG[k]]) for k in range(64)]
-                last = max([k for k in range(1, 64) if zz[k]] or [0])
-                run = 0
-                for k in range(1, last + 1):
-                    if zz[k] == 0:
-                        run += 1
-                        continue
-                    while run > 15:
-                        syms.append(((1, i), 0xF0, 0, 0))
-                        run -= 16
-                    s = _category(zz[k])
-                    syms.append(((1, i), (run << 4) | s, zz[k], s))
-                    run = 0
-                if last < 63:
-                    syms.append(((1, i), 0x00, 0, 0))
+                if ss == 0:
+                    diff = zz[0] - pred[i]
+                    pred[i] = zz[0]
+                    s = _category(diff)
+                    syms.append(((0, i), s, diff, s))
+                if se == 0:
+                    continue
+                band, open_end = _band_syms(zz, i, max(ss, 1), se,
+                                            not progressive)
+                if band:
+                    end_run()
+                syms.extend(band)
+                if progressive and open_end:
+                    eobrun += 1
+                    if eobrun == 0x7FFF:
+                        end_run()
+        end_run()
         tables, body = {}, b""
         for i in range(len(group)):
             for tc in (0, 1):
                 used = sorted({x[1] for x in syms
                                if x is not None and x[0] == (tc, i)})
+                if not used:
+                    continue
                 L = max(1, len(used).bit_length())
                 tables[(tc, i)] = (L, {s: j for j, s in enumerate(used)})
                 counts = [0] * 16
@@ -180,7 +353,7 @@ def write_jpeg(width, height, factors, g, *, separate=False, dri=0):
         out += _seg(0xC4, body)
         out += _seg(0xDA, bytes([len(group)]) + b"".join(
             bytes([c["id"], (i << 4) | i]) for i, c in enumerate(group))
-            + b"\x00\x3f\x00")
+            + bytes([ss, se, 0]))
         bits, data, rst = [], bytearray(), 0
 
         def flush():
@@ -207,19 +380,33 @@ def write_jpeg(width, height, factors, g, *, separate=False, dri=0):
     return out + b"\xff\xd9"
 
 
-@pytest.mark.parametrize("factors", [
+RATIOS = [
     [(1, 2), (1, 1), (1, 1)], [(4, 1), (1, 1), (1, 1)],
     [(2, 1), (1, 1), (1, 1)], [(2, 2), (1, 1), (1, 1)],
     [(1, 1), (1, 1), (1, 1)], [(2, 2), (1, 2), (2, 1)],
-    [(1, 4), (1, 1), (1, 1)], [(3, 1), (1, 1), (1, 1)], [(1, 1)], [(2, 2)]],
-    ids=lambda f: "_".join(f"{h}{v}" for h, v in f))
-def test_sampling_ratios_match_pil(factors):
+    [(1, 4), (1, 1), (1, 1)], [(3, 1), (1, 1), (1, 1)], [(1, 1)], [(2, 2)]]
+
+
+def _ratios_match_pil(factors, progressive):
     g = np.random.default_rng(len(factors) * 10 + factors[0][0])
     for size in [(1, 1), (7, 9), (9, 7), (2, 5), (5, 2), (3, 4), (40, 44)]:
         for separate in (False, True):
             for dri in (0, 1, 3):
                 _same(write_jpeg(size[1], size[0], factors, g,
-                                 separate=separate, dri=dri))
+                                 separate=separate, dri=dri,
+                                 progressive=progressive))
+
+
+@pytest.mark.parametrize("factors", RATIOS,
+                         ids=lambda f: "_".join(f"{h}{v}" for h, v in f))
+def test_sampling_ratios_match_pil(factors):
+    _ratios_match_pil(factors, False)
+
+
+@pytest.mark.parametrize("factors", RATIOS,
+                         ids=lambda f: "_".join(f"{h}{v}" for h, v in f))
+def test_progressive_sampling_ratios_match_pil(factors):
+    _ratios_match_pil(factors, True)
 
 
 def test_mcu_over_libjpeg_limit_refused():
@@ -331,9 +518,6 @@ def _refused(data, match):
 
 def test_refusals():
     img = _image(40, 50, "smooth")
-    _refused(_jpeg(img, progressive=True), "progressive")
-    _refused(_jpeg(img, quality=75, subsampling=2,
-                   progressive=True, optimize=True), "progressive")
     cmyk = io.BytesIO()
     Image.fromarray(img).convert("CMYK").save(cmyk, "JPEG")
     _refused(cmyk.getvalue(), "CMYK")
@@ -391,10 +575,17 @@ def test_mutated_files_raise_value_error_or_decode(seed):
                    **kw) for s_ in range(3)
              for kw in ({}, {"restart_marker_blocks": 1})]
     seeds.append(_jpeg(_image(20, 21, "random")[:, :, 0]))
+    seeds += [_jpeg(_image(37, 53, "random", seed=s_), subsampling=s_,
+                    progressive=True, **kw) for s_ in range(3)
+              for kw in ({}, {"restart_marker_blocks": 1})]
+    seeds.append(_jpeg(_image(20, 21, "random")[:, :, 0], progressive=True))
+    seeds.append(write_jpeg(21, 19, [(2, 2), (1, 1), (1, 1)],
+                            np.random.default_rng(100), dri=2,
+                            progressive=True))
     for mode in ("RGB", "P", "L", "RGBA"):
         seeds.append(_png_pil(Image.fromarray(
             _image(19, 23, "random")).convert(mode)))
-    for i in range(300):
+    for i in range(600):
         d = bytearray(seeds[i % len(seeds)])
         kind = i % 4
         if kind == 0:
@@ -474,7 +665,7 @@ def test_fixtures_match_pil():
             assert f.read() == data, name
     sizes = sum(os.path.getsize(os.path.join(torch_images.DIR, n))
                 for n in committed)
-    assert len(committed) <= 12 and sizes < 200_000
+    assert len(committed) <= 14 and sizes < 200_000
     with np.load(os.path.join(torch_images.DIR, "expected.npz")) as npz:
         want = torch_images.decode_expected(npz)
     pil = torch_images.expected(files)

@@ -236,10 +236,17 @@ def test_server_status_codes(tree, settings, fakes, monkeypatch):
         status, body = post({"image_b64":
                              base64.b64encode(b"nonsense").decode()})
         assert status == 400 and "image_b64" in body["error"]
-        # a progressive JPEG: PIL reads it, the port's decoder refuses it
+        # a progressive JPEG: the port decodes it as PIL does; a CMYK JPEG
+        # (PIL reads it) the port's decoder refuses
         buf = io.BytesIO()
         Image.fromarray(np.full((16, 16, 3), 90, np.uint8)).save(
             buf, "JPEG", progressive=True)
+        status, body = post({"image_b64":
+                             base64.b64encode(buf.getvalue()).decode()})
+        assert status == 200 and body["caption"] and body["concepts"], body
+        buf = io.BytesIO()
+        Image.fromarray(np.full((16, 16, 3), 90, np.uint8)).convert(
+            "CMYK").save(buf, "JPEG")
         status, body = post({"image_b64":
                              base64.b64encode(buf.getvalue()).decode()})
         assert status == 400 and "image_b64" in body["error"]
@@ -252,7 +259,7 @@ def test_server_status_codes(tree, settings, fakes, monkeypatch):
         assert status == 200 and json.loads(body) == {"ok": True}
         status, _, body = get("/stats")
         stats = json.loads(body)
-        assert status == 200 and stats["encode"]["requests"] == 2
+        assert status == 200 and stats["encode"]["requests"] == 3
         status, ctype, body = get("/metrics")
         assert status == 200 and ctype.startswith("text/plain")
         assert 'isc_stalled_seconds{stage="encode"}' in body.decode()

@@ -3,7 +3,8 @@
 ``expected.npz`` holding PIL's decoded arrays (the JAX package's
 ``load_image_bytes``), for the card's machine, which has no PIL. The
 arrays are stored as differences along each row (uint8, wrapping), which
-zlib packs to half the size; ``decode_expected`` undoes that.
+zlib packs to half the size, and an array two fixtures share once
+(``SAME_PIXELS``); ``decode_expected`` undoes both.
 
     python tests/torch_images.py      # rewrites the directory
 
@@ -19,7 +20,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import FIXTURE_DIR as DIR, FIXTURES, decode_expected  # noqa: E402,F401
+from chip_smoke import (FIXTURE_DIR as DIR, FIXTURES, SAME_PIXELS,  # noqa: E402,F401
+                        decode_expected)
 
 
 def _photo(h, w, seed, noise=6.0):
@@ -53,6 +55,12 @@ def build():
     save("rst.jpg", Image.fromarray(_photo(37, 53, 2)), "JPEG", quality=85,
          subsampling=2, restart_marker_blocks=3)
     save("prog.jpg", small, "JPEG", quality=75, progressive=True)
+    save("prog420_448.jpg", Image.fromarray(_photo(448, 448, 1, 1.0)),
+         "JPEG", quality=75, subsampling=2, progressive=True)
+    save("prog_rst.jpg", Image.fromarray(_photo(37, 53, 8)), "JPEG",
+         quality=85, subsampling=2, progressive=True,
+         restart_marker_blocks=2)
+    save("cmyk.jpg", small.convert("CMYK"), "JPEG", quality=75)
     save("rgb.png", Image.fromarray(_photo(33, 47, 3)), "PNG")
     rgba = np.concatenate([_photo(29, 41, 4),
                            _photo(29, 41, 5)[:, :, :1]], -1)
@@ -71,11 +79,13 @@ def expected(files):
 
 def npz_bytes(arrays) -> bytes:
     """expected.npz's bytes: each array as its row differences, keyed by
-    the file name."""
+    the file name; a name in ``SAME_PIXELS`` is left to its twin's."""
+    for k, v in SAME_PIXELS.items():
+        assert np.array_equal(arrays[k], arrays[v]), k
     buf = io.BytesIO()
     np.savez_compressed(buf, **{
         k: np.diff(v.astype(np.int16), axis=1, prepend=0).astype(np.uint8)
-        for k, v in sorted(arrays.items())})
+        for k, v in sorted(arrays.items()) if k not in SAME_PIXELS})
     return buf.getvalue()
 
 

@@ -247,8 +247,8 @@ def attention(device, iters=16, reps=8, warm=3, **shape):
     kernel calls made)."""
     from insenticap_model_tpu_torch.ops import fused_attention as fa
     from insenticap_model_tpu_torch.ops import fused_attention_i8 as fa8
-    from insenticap_model_tpu_torch.utils.timing import (cuda_ms,
-                                                         device_ms_by_name)
+    from insenticap_model_tpu_torch.utils.timing import (
+        cuda_ms, device_ms_by_name, launches_per_call)
     beam = shape.get("beam", 3)
     h0, p_cont, att_f, patt_f = attention_inputs(device, **shape)
     att, patt = att_f.bfloat16(), patt_f.bfloat16()
@@ -267,11 +267,16 @@ def attention(device, iters=16, reps=8, warm=3, **shape):
                                              patt_q, patt_s, B=beam)
 
     kw = dict(iters=iters, reps=reps, warm=warm)
+    once = {"v1": launches_per_call(bf16, {
+                p: (fa.beam_content_attention, "launches") for p in V1_PARTS}),
+            "i8": launches_per_call(i8, {
+                p: (fa8.beam_content_attention_i8, "launches")
+                for p in I8_PARTS})}
     times = {"bf16_ms": cuda_ms(bf16, **kw), "int8_ms": cuda_ms(i8, **kw),
-             "bf16_device_ms": device_ms_by_name(bf16, V1_PARTS,
-                                                 iters=iters, warm=warm),
-             "int8_device_ms": device_ms_by_name(i8, I8_PARTS, iters=iters,
-                                                 warm=warm)}
+             "bf16_device_ms": device_ms_by_name(
+                 bf16, V1_PARTS, per_call=once["v1"], iters=iters, warm=warm),
+             "int8_device_ms": device_ms_by_name(
+                 i8, I8_PARTS, per_call=once["i8"], iters=iters, warm=warm)}
     got, ref = i8().float(), bf16().float()
     ideal = fa.beam_content_attention_plain(
         h0.float(), {k: {kk: vv.float() for kk, vv in v.items()}

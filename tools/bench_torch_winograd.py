@@ -53,8 +53,8 @@ def main():
     from insenticap_model_tpu_torch.ops import _build
     from insenticap_model_tpu_torch.ops import winograd_kernels as wk
     from insenticap_model_tpu_torch.ops.winograd import transform_filter
-    from insenticap_model_tpu_torch.utils.timing import (cuda_ms,
-                                                         device_ms_by_name)
+    from insenticap_model_tpu_torch.utils.timing import (
+        cuda_ms, device_ms_by_name, launches_per_call)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -93,6 +93,11 @@ def main():
             with open(args.out, "a") as f:
                 f.write(line + "\n")
 
+    # each transform's launch counter: one call of a transform records
+    # one activity of its kernel and none of the other two
+    counters = {n: (getattr(wk, n.replace("_kernel", "")), "launches")
+                for n in NAMES}
+
     def measure(rnd):
         calls = {"wino_input": lambda: wk.wino_input(x),
                  "wino_input_view": lambda: wk.wino_input(xv),
@@ -107,7 +112,8 @@ def main():
                 err = (got.float() - ref.float()).abs()
                 tol = 1e-2 * ref.float().abs() + 1e-3 * ref.float().abs().max()
                 ok = bool((err <= tol).all())
-                dev_ms = device_ms_by_name(fn, NAMES)
+                dev_ms = device_ms_by_name(
+                    fn, NAMES, per_call=launches_per_call(fn, counters))
                 kname = name.replace("_view", "") + "_kernel"
                 bound = nbytes[name.replace("_view", "")] / HBM_BYTES_S * 1e3
                 rec[name] = {"ok": ok, "max_abs_err": float(err.max()),
@@ -116,9 +122,10 @@ def main():
                              "events_ms": cuda_ms(fn), "bound_ms": bound}
                 del got
             stack = lambda: wk.conv3x3_stack_sm(xv, layers)  # noqa: E731
-            parts = device_ms_by_name(stack, NAMES + ("gemm", "xmma",
-                                                      "nvjet", "copy",
-                                                      "elementwise"))
+            parts = device_ms_by_name(
+                stack, NAMES + ("gemm", "xmma", "nvjet", "copy",
+                                "elementwise"),
+                per_call=launches_per_call(stack, counters))
             rec["stack"] = {"device": parts, "events_ms": cuda_ms(
                 stack, iters=5)}
 
@@ -126,17 +133,19 @@ def main():
                 with nn.exact_numerics():
                     return [transform_filter(w).bfloat16() for w in ws]
             rec["filter_transform_device"] = device_ms_by_name(
-                filters, ("gemm", "xmma", "nvjet", "copy", "elementwise"))
+                filters, ("gemm", "xmma", "nvjet", "copy", "elementwise"),
+                per_call={})
             vv = [v1.reshape(49, -1, C0), v2.reshape(49, -1, C1)]
             rec["bmm_device"] = [device_ms_by_name(
-                lambda i=i: torch.bmm(vv[i], us[i]), ())["total"]
-                for i in range(2)]
+                lambda i=i: torch.bmm(vv[i], us[i]), (),
+                per_call={})["total"] for i in range(2)]
             # a yardstick of the card's streaming rate: a plain device
             # copy of M (the middle transform's bytes, each way) and of V
             rec["copy_yardstick"] = {}
             for name, src in (("M", m1), ("V", v1)):
                 dst = torch.empty_like(src)
-                ms = device_ms_by_name(lambda: dst.copy_(src), ())["total"]
+                ms = device_ms_by_name(lambda: dst.copy_(src), (),
+                                       per_call={})["total"]
                 rec["copy_yardstick"][name] = {
                     "device_ms": ms,
                     "tb_s": 2 * src.numel() * src.element_size() / ms / 1e9}
