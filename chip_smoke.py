@@ -70,16 +70,18 @@ into the git-ignored build directory) and the host image decoders
    requests (auto and forced), ``image_b64`` of the committed JPEG and PNG
    fixtures and two ``image_path`` requests from threads, each with a
    caption and 5 distinct concepts, v1 and the pool launched (counts set
-   to 0 just before; the three progressive JPEGs among the fixtures); a
-   path outside the root and a CMYK JPEG (a format the decoders refuse)
+   to 0 just before; the three progressive JPEGs, CMYK (4:4:4 and a
+   448x448 4:2:0), YCCK and Adobe-RGB JPEGs, Adam7 RGB and 4-bit palette
+   PNGs and 16-bit RGB and grey PNGs among the fixtures); a path outside
+   the root and a 12-bit JPEG (which the decoders and PIL both refuse)
    are 400s, an oversized body 413, /stats, /metrics and /healthz 200,
    and the server drains on shutdown (p50/p99 per bucket printed); the
    port's decoders on this host give the fixtures' committed PIL arrays
    exactly; ``cli.caption.run`` on two fixtures in f32 dumps attention
    maps that sum to 1 within 1e-5; and the host's decode of a 448x448
-   JPEG (4:2:0), baseline and progressive (the same photo), and PNG and a
-   480x640 ``resize_to_bucket`` are timed (median of 5, the card's name
-   and power limit beside them);
+   JPEG (4:2:0), baseline, progressive and CMYK (the same photo), and
+   PNG, plain and Adam7 (its pixels), and a 480x640 ``resize_to_bucket``
+   are timed (median of 5, the card's name and power limit beside them);
 3f. drives the XE pre-training stage (``cli.train_xe.train``) at full
    width (``Settings()``, the vocabulary padded to 10,000 words, xe_bs 20,
    the seq2seq batch 80, 16 tokens, beam 3) on a synthetic tree the
@@ -275,21 +277,29 @@ DESIGNS = {"beam_content_attention": "redesigned",
            "ceil_maxpool_3x3s2": "first design",
            "beam_content_attention_i8": "redesigned",
            "tiled_mm": "redesigned"}
-# the committed image fixtures (JPEGs and PNGs written by PIL, and
-# expected.npz holding PIL's decoded arrays; tests/torch_images.py rebuilds
-# them): name -> what phase 3e expects of the port's decoders, "decode"
-# (identical to expected.npz) or "refuse" (ValueError, so a 400)
+# the committed image fixtures (JPEGs and PNGs written by PIL, or by
+# tests/torch_images.py's writers where PIL cannot: Adam7, 16-bit RGB,
+# YCCK; expected.npz holding PIL's decoded arrays; tests/torch_images.py
+# rebuilds them): name -> what phase 3e expects of the port's decoders,
+# "decode" (identical to expected.npz) or "refuse" (ValueError, so a 400;
+# PIL refuses it too)
 FIXTURE_DIR = os.path.join(REPO_DIR, "tests", "data", "torch_images")
 FIXTURES = {"j444.jpg": "decode", "j422.jpg": "decode",
             "j420_448.jpg": "decode", "grey.jpg": "decode",
             "rst.jpg": "decode", "prog.jpg": "decode",
             "prog420_448.jpg": "decode", "prog_rst.jpg": "decode",
-            "cmyk.jpg": "refuse", "rgb.png": "decode", "rgba.png": "decode",
-            "p.png": "decode"}
-# a fixture whose PIL array is another's: the same photo at the same
-# quality and sampling, written progressive (the same coefficients, so
-# the same pixels); expected.npz holds the array once, under the other name
-SAME_PIXELS = {"prog420_448.jpg": "j420_448.jpg"}
+            "cmyk.jpg": "decode", "cmyk420_448.jpg": "decode",
+            "adobe_rgb.jpg": "decode", "ycck.jpg": "decode",
+            "j12bit.jpg": "refuse", "rgb.png": "decode",
+            "adam7.png": "decode", "rgb16.png": "decode",
+            "grey16.png": "decode", "adam7_p4.png": "decode",
+            "rgba.png": "decode", "p.png": "decode"}
+# a fixture whose PIL array is another's, stored once in expected.npz
+# under the other name: the same photo at the same quality and sampling,
+# written progressive (the same coefficients, so the same pixels), and
+# rgb.png's pixels interlaced, and as the high bytes of 16-bit samples
+SAME_PIXELS = {"prog420_448.jpg": "j420_448.jpg", "adam7.png": "rgb.png",
+               "rgb16.png": "rgb.png"}
 # phase 3f, the XE stage: the reference trainer's xe batch and learning
 # rate; 34 train images of 3 captions give 5 batches, 7 val images 2 (the
 # last padded), 20 test images one dump batch
@@ -332,8 +342,8 @@ RL_BS = 40
 RL_LR = 4e-5
 RL_N_IMG = {"train": 80, "val": 40, "test": 40}
 RL_N_SENTI_IMG = {"train": 40, "val": 4, "test": 40}
-# phase 3i, the offline and evaluation CLIs: 43 images for the features
-# (the 11 fixtures the port decodes and 32 PNGs, over the three buckets) in
+# phase 3i, the offline and evaluation CLIs: 51 images for the features
+# (the 19 fixtures the port decodes and 32 PNGs, over the three buckets) in
 # encode batches of 32, the reference CLI's; two of them again on the CPU,
 # whose f32 convolutions sum in other orders than cuDNN's through 104
 # layers: fc and att within 1e-4 of their largest magnitude (the port and
@@ -578,35 +588,44 @@ def _get(port, path):
         c.close()
 
 
-def _png_bytes(img, zlib):
+def _png_bytes(img, zlib, interlace=False):
     """A PNG of an RGB uint8 image, the five row filters in turn (the
-    decoder's sequential Sub and Paeth among them), from zlib and crc32."""
+    decoder's sequential Sub and Paeth among them), from zlib and crc32;
+    ``interlace``: Adam7, each of the seven passes filtered on its own."""
     import struct
     import numpy as np
     h, w, _ = img.shape
-    rows = img.reshape(h, -1).astype(np.int32)
+    passes = ([img] if not interlace else
+              [img[y0::dy, x0::dx] for x0, y0, dx, dy in (
+                  (0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+                  (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))])
     out = []
-    for y in range(h):
-        ft = y % 5
-        r = rows[y]
-        up = rows[y - 1] if y else np.zeros_like(r)
-        a = np.concatenate([np.zeros(3, np.int32), r[:-3]])
-        c = np.concatenate([np.zeros(3, np.int32), up[:-3]])
-        if ft == 4:
-            p = a + up - c
-            pa, pb, pc = abs(p - a), abs(p - up), abs(p - c)
-            pred = np.where((pa <= pb) & (pa <= pc), a,
-                            np.where(pb <= pc, up, c))
-        else:
-            pred = [0 * r, a, up, (a + up) // 2][ft]
-        out.append(bytes([ft]) + ((r - pred) % 256).astype(np.uint8)
-                   .tobytes())
+    for sub in passes:
+        if not sub.size:
+            continue
+        rows = sub.reshape(sub.shape[0], -1).astype(np.int32)
+        for y in range(len(rows)):
+            ft = y % 5
+            r = rows[y]
+            up = rows[y - 1] if y else np.zeros_like(r)
+            a = np.concatenate([np.zeros(3, np.int32), r[:-3]])
+            c = np.concatenate([np.zeros(3, np.int32), up[:-3]])
+            if ft == 4:
+                p = a + up - c
+                pa, pb, pc = abs(p - a), abs(p - up), abs(p - c)
+                pred = np.where((pa <= pb) & (pa <= pc), a,
+                                np.where(pb <= pc, up, c))
+            else:
+                pred = [0 * r, a, up, (a + up) // 2][ft]
+            out.append(bytes([ft]) + ((r - pred) % 256).astype(np.uint8)
+                       .tobytes())
 
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
     return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
+                                         int(interlace)))
             + chunk(b"IDAT", zlib.compress(b"".join(out)))
             + chunk(b"IEND", b""))
 
@@ -696,6 +715,10 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
             images = [n for n, w in FIXTURES.items()
                       if w == "decode"]
             progressive = [n for n in images if n.startswith("prog")]
+            # the CMYK, YCCK and Adobe-RGB JPEGs and the Adam7 and 16-bit
+            # PNGs among them
+            added = [n for n in images if n.startswith(
+                ("cmyk", "ycck", "adobe", "adam7")) or "16" in n]
             b64 = {n: base64.b64encode(open(os.path.join(fixtures, n),
                                             "rb").read()).decode()
                    for n in images}
@@ -730,12 +753,15 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                 __file__)})
             _check(status == 400 and "outside --image_root" in
                    body["error"], f"path outside the root: {status} {body}")
-            # a format the decoders still refuse (a CMYK JPEG) is a 400
-            status, body = _post(port, {"image_b64": base64.b64encode(
-                open(os.path.join(fixtures, "cmyk.jpg"), "rb").read())
-                .decode()})
-            _check(status == 400 and "image_b64" in body["error"],
-                   f"CMYK JPEG: {status} {body}")
+            # a file that the decoders and PIL both refuse (a 12-bit JPEG)
+            # is a 400
+            refused = [n for n, w in FIXTURES.items() if w == "refuse"]
+            for n in refused:
+                status, body = _post(port, {"image_b64": base64.b64encode(
+                    open(os.path.join(fixtures, n), "rb").read())
+                    .decode()})
+                _check(status == 400 and "image_b64" in body["error"],
+                       f"{n}: {status} {body}")
             status, body = _post(port, length=17_000_000)
             _check(status == 413, f"oversized body: {status} {body}")
             gets = {p_: _get(port, p_) for p_ in ("/stats", "/metrics",
@@ -756,9 +782,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
         print(f"serving surface: daemon up in {start_s:.1f} s (warm); "
               f"{len(payloads)} requests ({len(feats)} feature, "
               f"{len(images)} image_b64, 2 image_path) in {serve_s:.2f} s, "
-              f"all 200 (progressive JPEGs {progressive} among them); 400 "
-              f"outside the root, 400 CMYK JPEG, 413 oversized; launches "
-              f"{launches}")
+              f"all 200 (progressive JPEGs {progressive}, and {added} "
+              f"among them); 400 outside the root, 400 {refused}, 413 "
+              f"oversized; launches {launches}")
         for stage, by in lat.items():
             print(f"  {stage} latency by bucket: " + ", ".join(
                 f"{b}: n={v['n']} p50 {v['p50_ms']:.1f} ms p99 "
@@ -784,7 +810,10 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                    and np.array_equal(got, expected[name]),
                    f"{name} decodes unlike PIL")
         print(f"serving surface: {len(expected)} fixtures decode identical "
-              "to PIL's arrays (progressive ones included), CMYK refused")
+              "to PIL's arrays (progressive, CMYK, YCCK, Adobe-RGB JPEG, "
+              "Adam7 and 16-bit PNG included), "
+              f"{[n for n, w in FIXTURES.items() if w == 'refuse']} "
+              "refused")
 
         # 4. the caption command in f32 with the attention dump
         img_args = [os.path.join(fixtures, "j420_448.jpg"),
@@ -819,12 +848,15 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                                        if k != "attention"} for r in recs],
                           "map_sum_err": sums_err}
 
-    # 5. host times: decode and resize, median of 5; the progressive
-    # fixture is the same photo, quality and sampling as the baseline one
+    # 5. host times: decode and resize, median of 5; the progressive and
+    # CMYK fixtures are the same photo, quality and sampling as the
+    # baseline one, the PNGs (plain and Adam7) its decoded pixels
     jpeg = open(os.path.join(fixtures, "j420_448.jpg"), "rb").read()
     prog = open(os.path.join(fixtures, "prog420_448.jpg"), "rb").read()
+    cmyk = open(os.path.join(fixtures, "cmyk420_448.jpg"), "rb").read()
     img448 = pre.load_image_bytes(jpeg)
     png = _png_bytes(img448, zlib)
+    png_i = _png_bytes(img448, zlib, interlace=True)
     img480 = np.random.default_rng(9).integers(0, 256, (480, 640, 3),
                                                dtype=np.uint8)
     bucket = pre.bucket_for_shape(480, 640, pre.DEFAULT_BUCKET_SHAPES)
@@ -846,23 +878,31 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
     times = {"jpeg_448_420_ms": host_ms(lambda: pre.load_image_bytes(jpeg)),
              "jpeg_448_420_progressive_ms": host_ms(
                  lambda: pre.load_image_bytes(prog)),
+             "jpeg_448_cmyk_ms": host_ms(lambda: pre.load_image_bytes(cmyk)),
              "png_448_ms": host_ms(lambda: pre.load_image_bytes(png)),
+             "png_448_adam7_ms": host_ms(
+                 lambda: pre.load_image_bytes(png_i)),
              "resize_480x640_ms": host_ms(
                  lambda: pre.resize_to_bucket(img480, bucket))}
-    _check(np.array_equal(pre.load_image_bytes(png), img448),
-           "the PNG does not decode to its pixels")
+    _check(np.array_equal(pre.load_image_bytes(png), img448)
+           and np.array_equal(pre.load_image_bytes(png_i), img448),
+           "the PNGs do not decode to their pixels")
     card = _smi()
     print(f"serving surface host times (median of 5, host CPU {cpu}, "
           f"{os.cpu_count()} cores, card {card}): decode 448x448 JPEG 4:2:0 "
           f"({len(jpeg)} B) {times['jpeg_448_420_ms']:.2f} ms, progressive "
           f"({len(prog)} B, 10 scans) "
-          f"{times['jpeg_448_420_progressive_ms']:.2f} ms, 448x448 PNG "
-          f"({len(png)} B) {times['png_448_ms']:.2f} ms, resize_to_bucket "
+          f"{times['jpeg_448_420_progressive_ms']:.2f} ms, CMYK "
+          f"({len(cmyk)} B) {times['jpeg_448_cmyk_ms']:.2f} ms, 448x448 PNG "
+          f"({len(png)} B) {times['png_448_ms']:.2f} ms, Adam7 "
+          f"({len(png_i)} B) {times['png_448_adam7_ms']:.2f} ms, "
+          f"resize_to_bucket "
           f"480x640 -> {bucket[0]}x{bucket[1]} "
           f"{times['resize_480x640_ms']:.2f} ms")
     out["host_times"] = dict(times, cpu=cpu, jpeg_bytes=len(jpeg),
-                             progressive_bytes=len(prog), png_bytes=len(png),
-                             card=card)
+                             progressive_bytes=len(prog),
+                             cmyk_bytes=len(cmyk), png_bytes=len(png),
+                             png_adam7_bytes=len(png_i), card=card)
     return out
 
 
@@ -2673,8 +2713,8 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
                        "json_files": len(written),
                        "senti_captions": n_senti_caps}
 
-        # 2. the features: the 11 fixtures the port decodes (the three
-        # progressive JPEGs among them) and 32
+        # 2. the features: the 19 fixtures the port decodes (the
+        # progressive and CMYK JPEGs and Adam7 PNGs among them) and 32
         # PNGs over the three buckets, through `preprocess features` with
         # ResNet-101 read from a reference-named .pth, f32, encode batches
         # of 32; the pool's launches against the batches flushed

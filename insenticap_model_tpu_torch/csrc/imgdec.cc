@@ -8,13 +8,13 @@
 // integer paths exactly:
 //
 //  * entropy decoding: Huffman (DHT tables of any kind), DRI and RSTn
-//    restart markers, interleaved and single-component scans, any number
-//    of scans of SOF0, SOF1 or SOF2 at 8 bits. Progressive scans (T.81
-//    Annex G, libjpeg-turbo's jdphuff.c) are DC first and refinement, AC
-//    first (a band Ss..Se, EOB runs) and AC refinement, into whole-image
-//    coefficient arrays; their parameters are checked as libjpeg's
-//    start_pass_phuff_decoder checks them (what it refuses is refused,
-//    what it only warns of is decoded);
+//    restart markers, interleaved and single-component scans of 1, 3 or 4
+//    components, any number of scans of SOF0, SOF1 or SOF2 at 8 bits.
+//    Progressive scans (T.81 Annex G, libjpeg-turbo's jdphuff.c) are DC
+//    first and refinement, AC first (a band Ss..Se, EOB runs) and AC
+//    refinement, into whole-image coefficient arrays; their parameters are
+//    checked as libjpeg's start_pass_phuff_decoder checks them (what it
+//    refuses is refused, what it only warns of is decoded);
 //  * block smoothing: a progressive file that ends with some of AC
 //    coefficients 1-9 still inexact (an incomplete progression) is
 //    decoded as libjpeg-turbo 2.1+'s decompress_smooth_data does it;
@@ -27,20 +27,28 @@
 //    plain replication otherwise and for any other integral ratio
 //    (int_upsample). Edges replicate at the component's downsampled width
 //    and height, ceil(size * h / hmax);
-//  * colour: jdcolor.c's fixed-point YCbCr -> RGB tables (SCALEBITS 16),
-//    range-limited.
+//  * colour: the colour space libjpeg's default_decompress_parms
+//    (jdapimin.c) takes from the markers and component ids, then what PIL
+//    asks for. Grey stays grey. Three components are YCbCr, converted by
+//    jdcolor.c's fixed-point tables (SCALEBITS 16, range-limited), or RGB,
+//    left as they are (an Adobe marker with transform 0, or ids 'R' 'G'
+//    'B', and no JFIF marker). Four are CMYK (no Adobe marker, or
+//    transform 0) or YCCK (any other transform: ycck_cmyk_convert, the
+//    same tables, 255 minus each, K passed through); PIL reads them as
+//    "CMYK;I" (inverted) and converts to RGB with its cmyk2rgb.
 //
 // Refused, with a message that names what: lossless, hierarchical and
-// arithmetic-coded JPEG, precision other than 8 bits, 2 or 4 or more
-// components (CMYK, YCCK), and 3-component files that libjpeg takes as RGB
-// (an Adobe marker with transform 0, or component ids 'R' 'G' 'B' without
-// JFIF). A file that ends, or whose entropy data ends, before every block
-// of every scan is decoded is refused as truncated (libjpeg would fill the
-// rest with zeros and warn; PIL refuses a file that ends early).
+// arithmetic-coded JPEG, precision other than 8 bits, 2 or more than 4
+// components. A file that ends, or whose entropy data ends, before every
+// block of every scan is decoded is refused as truncated (libjpeg would
+// fill the rest with zeros and warn; PIL refuses a file that ends early),
+// and so is a Huffman code that no table holds (libjpeg warns and goes on
+// with zeros).
 //
 // PNG: the Python side (preprocessing.py) parses the chunks, checks their
-// CRCs and inflates IDAT with zlib; isc_png_unfilter undoes the five row
-// filters, which run sequentially along a row (Sub, Paeth).
+// CRCs, inflates IDAT with zlib and scatters Adam7's passes;
+// isc_png_unfilter undoes the five row filters of an image or a pass,
+// which run sequentially along a row (Sub, Paeth).
 //
 // C interface (ctypes): every entry returns 0, or non-zero with a
 // NUL-terminated message in err[errlen].
@@ -148,6 +156,8 @@ struct Component {
   int bits[64];
 };
 
+enum class Colour { kGrey, kYcc, kRgb, kCmyk, kYcck };
+
 struct Jpeg {
   const uint8_t* d;
   size_t n, pos = 0;
@@ -205,9 +215,7 @@ struct Jpeg {
     if (height == 0)
       fail("JPEG: unsupported: height 0 (DNL marker)");
     if (width == 0) fail("JPEG: width 0");
-    if (ncomp == 4)
-      fail("JPEG: unsupported: 4 components (CMYK/YCCK)");
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       fail("JPEG: unsupported: " + std::to_string(ncomp) + " components");
     if ((size_t)len != 8 + 3 * (size_t)ncomp) fail("JPEG: bad SOF length");
     comp.resize(ncomp);
@@ -279,7 +287,8 @@ struct Jpeg {
     if (len < 2) fail("JPEG: bad segment length");
     const size_t start = pos, end = pos + len - 2;
     if (end > n) fail("JPEG: truncated file");
-    if (marker == 0xE0 && len >= 7 && memcmp(d + start, "JFIF\0", 5) == 0)
+    // jdmarker.c's examine_app0/app14: 14 and 12 bytes of data at least
+    if (marker == 0xE0 && len - 2 >= 14 && memcmp(d + start, "JFIF\0", 5) == 0)
       jfif = true;
     if (marker == 0xEE && len >= 14 && memcmp(d + start, "Adobe", 5) == 0) {
       adobe = true;
@@ -665,18 +674,17 @@ struct Jpeg {
       if (!c.seen) fail("JPEG: truncated file (a component has no scan)");
   }
 
-  // libjpeg's colour space choice for 3 components (jdapimin.c)
-  void check_colour() const {
-    if (ncomp != 3) return;
-    bool rgb = false;
-    if (jfif) {
-      rgb = false;
-    } else if (adobe) {
-      rgb = adobe_transform == 0;
-    } else if (comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66) {
-      rgb = true;
-    }
-    if (rgb) fail("JPEG: unsupported: RGB colour transform (Adobe)");
+  // libjpeg's colour space of the file (jdapimin.c's
+  // default_decompress_parms)
+  Colour colour() const {
+    if (ncomp == 1) return Colour::kGrey;
+    if (ncomp == 4)
+      return adobe && adobe_transform != 0 ? Colour::kYcck : Colour::kCmyk;
+    if (jfif) return Colour::kYcc;
+    if (adobe) return adobe_transform == 0 ? Colour::kRgb : Colour::kYcc;
+    const bool rgb_ids =
+        comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
+    return rgb_ids ? Colour::kRgb : Colour::kYcc;
   }
 };
 
@@ -1002,22 +1010,60 @@ inline uint8_t clamp255(int v) {
   return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
-void ycc_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
-                size_t count, uint8_t* out) {
+// jdcolor.c's YCbCr -> RGB, before its range limit
+struct YccTables {
   int cr_r[256], cb_b[256];
   long cr_g[256], cb_g[256];
-  for (int i = 0; i < 256; ++i) {
-    const long x = i - 128;
-    cr_r[i] = (int)((fix(1.40200) * x + kOneHalf) >> kScaleBits);
-    cb_b[i] = (int)((fix(1.77200) * x + kOneHalf) >> kScaleBits);
-    cr_g[i] = -fix(0.71414) * x;
-    cb_g[i] = -fix(0.34414) * x + kOneHalf;
+  YccTables() {
+    for (int i = 0; i < 256; ++i) {
+      const long x = i - 128;
+      cr_r[i] = (int)((fix(1.40200) * x + kOneHalf) >> kScaleBits);
+      cb_b[i] = (int)((fix(1.77200) * x + kOneHalf) >> kScaleBits);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + kOneHalf;
+    }
   }
+  int r(int y, int cr) const { return y + cr_r[cr]; }
+  int g(int y, int cb, int cr) const {
+    return y + (int)((cb_g[cb] + cr_g[cr]) >> kScaleBits);
+  }
+  int b(int y, int cb) const { return y + cb_b[cb]; }
+};
+
+void ycc_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+                size_t count, uint8_t* out) {
+  const YccTables t;
   for (size_t i = 0; i < count; ++i) {
-    const int yy = y[i], b = cb[i], r = cr[i];
-    out[3 * i + 0] = clamp255(yy + cr_r[r]);
-    out[3 * i + 1] = clamp255(yy + (int)((cb_g[b] + cr_g[r]) >> kScaleBits));
-    out[3 * i + 2] = clamp255(yy + cb_b[b]);
+    out[3 * i + 0] = clamp255(t.r(y[i], cr[i]));
+    out[3 * i + 1] = clamp255(t.g(y[i], cb[i], cr[i]));
+    out[3 * i + 2] = clamp255(t.b(y[i], cb[i]));
+  }
+}
+
+// PIL's MULDIV255: a * b / 255, rounded as libImaging rounds it
+inline int muldiv255(int a, int b) {
+  const int t = a * b + 128;
+  return ((t >> 8) + t) >> 8;
+}
+
+// Four components to RGB as PIL gives them: libjpeg's CMYK output (the
+// samples themselves, or ycck_cmyk_convert's 255 - RGB of the first three
+// and K as it is), read as "CMYK;I" (each inverted), then libImaging's
+// cmyk2rgb: with nk = 255 - K, each channel nk - MULDIV255(C, nk).
+void cmyk_to_rgb(const uint8_t* const p[4], bool ycck, size_t count,
+                 uint8_t* out) {
+  const YccTables t;
+  for (size_t i = 0; i < count; ++i) {
+    int c[3] = {p[0][i], p[1][i], p[2][i]};
+    if (ycck) {
+      const int y = c[0], cb = c[1], cr = c[2];
+      c[0] = clamp255(255 - t.r(y, cr));
+      c[1] = clamp255(255 - t.g(y, cb, cr));
+      c[2] = clamp255(255 - t.b(y, cb));
+    }
+    const int nk = p[3][i];               // 255 - (255 - K)
+    for (int k = 0; k < 3; ++k)
+      out[3 * i + k] = clamp255(nk - muldiv255(255 - c[k], nk));
   }
 }
 
@@ -1030,8 +1076,9 @@ void set_err(char* err, int errlen, const std::string& m) {
 
 extern "C" {
 
-// Header of a JPEG: its height, width and number of output channels (1 or
-// 3). Refuses what isc_jpeg_decode refuses at the frame header.
+// Header of a JPEG: its height, width and number of output channels (1 for
+// grey, 3 for the rest). Refuses what isc_jpeg_decode refuses at the frame
+// header.
 int isc_jpeg_info(const uint8_t* data, long long n, int* h, int* w, int* c,
                   char* err, int errlen) {
   try {
@@ -1040,7 +1087,7 @@ int isc_jpeg_info(const uint8_t* data, long long n, int* h, int* w, int* c,
     if (!j.sof) fail("JPEG: no frame header");
     *h = j.height;
     *w = j.width;
-    *c = j.ncomp;
+    *c = j.ncomp == 1 ? 1 : 3;
     return 0;
   } catch (const Error& e) {
     set_err(err, errlen, e.msg);
@@ -1052,15 +1099,16 @@ int isc_jpeg_info(const uint8_t* data, long long n, int* h, int* w, int* c,
 }
 
 // Decode a JPEG into out [h][w][c] uint8 (c from isc_jpeg_info; grey
-// stays one channel, YCbCr becomes RGB).
+// stays one channel, YCbCr, RGB, CMYK and YCCK become RGB).
 int isc_jpeg_decode(const uint8_t* data, long long n, uint8_t* out,
                     long long out_size, char* err, int errlen) {
   try {
     Jpeg j(data, (size_t)n);
     j.parse(false);
-    j.check_colour();
+    const Colour colour = j.colour();
     const int W = j.width, H = j.height;
-    if ((long long)W * H * j.ncomp != out_size)
+    const size_t count = (size_t)W * H;
+    if ((long long)count * (j.ncomp == 1 ? 1 : 3) != out_size)
       fail("JPEG: output buffer size");
     std::vector<std::vector<uint8_t>> full(j.ncomp);
     std::vector<uint8_t> plane;
@@ -1072,13 +1120,20 @@ int isc_jpeg_decode(const uint8_t* data, long long n, uint8_t* out,
       if (j.ncomp == 1) {
         upsample(c, plane.data(), j.hmax, j.vmax, W, H, out);
       } else {
-        full[ci].resize((size_t)W * H);
+        full[ci].resize(count);
         upsample(c, plane.data(), j.hmax, j.vmax, W, H, full[ci].data());
       }
     }
-    if (j.ncomp == 3)
-      ycc_to_rgb(full[0].data(), full[1].data(), full[2].data(),
-                 (size_t)W * H, out);
+    if (colour == Colour::kYcc) {
+      ycc_to_rgb(full[0].data(), full[1].data(), full[2].data(), count, out);
+    } else if (colour == Colour::kRgb) {
+      for (size_t i = 0; i < count; ++i)
+        for (int k = 0; k < 3; ++k) out[3 * i + k] = full[k][i];
+    } else if (colour != Colour::kGrey) {
+      const uint8_t* p[4] = {full[0].data(), full[1].data(), full[2].data(),
+                             full[3].data()};
+      cmyk_to_rgb(p, colour == Colour::kYcck, count, out);
+    }
     return 0;
   } catch (const Error& e) {
     set_err(err, errlen, e.msg);

@@ -17,17 +17,21 @@ PIL, so it carries its own, to give PIL's arrays bit for bit:
 
 * ``load_image`` / ``load_image_bytes``: JPEG through the host library
   ``csrc/imgdec.cc`` (baseline, extended-sequential and progressive
-  Huffman JPEG; libjpeg's integer IDCT, fancy upsampling and colour
-  tables, and libjpeg-turbo's block smoothing of an incomplete
-  progression; built by ``ops/_build.load_host`` at first use) and PNG
-  here (chunks and CRCs, zlib, then the row filters in the same library).
-  The arrays are ``_pil_to_array``'s: "L" stays 2-D, "RGBA" drops its
-  alpha, every other mode becomes RGB. What the decoders do not take
-  raises ``ValueError`` naming it: lossless, hierarchical and
-  arithmetic-coded JPEG, CMYK/YCCK and Adobe-RGB JPEG, 12-bit JPEG,
-  interlaced PNG and 16-bit PNG. Greyscale PNG at 1, 2 and 4 bits is
-  read as PIL reads it: 1 bit is mode "1" (RGB of 0 and 255), 2 and 4
-  bits are "L" scaled to 0..255.
+  Huffman JPEG of 1, 3 or 4 components; libjpeg's integer IDCT, fancy
+  upsampling, colour space choice and colour tables, and libjpeg-turbo's
+  block smoothing of an incomplete progression; YCbCr, RGB (Adobe
+  transform 0 or ids 'R' 'G' 'B'), CMYK and YCCK, the last two read as
+  PIL reads them, inverted, then its CMYK -> RGB; built by
+  ``ops/_build.load_host`` at first use) and PNG here (chunks and CRCs,
+  zlib, Adam7's passes, then the row filters in the same library). The
+  arrays are ``_pil_to_array``'s: "L" stays 2-D, "RGBA" drops its alpha,
+  every other mode becomes RGB. What the decoders do not take raises
+  ``ValueError`` naming it: lossless, hierarchical and arithmetic-coded
+  JPEG, 12-bit and 2-component JPEG. Greyscale PNG at 1, 2 and 4 bits
+  is read as PIL reads it: 1 bit is mode "1" (RGB of 0 and 255), 2 and
+  4 bits are "L" scaled to 0..255. At 16 bits PIL keeps grey as "I;16",
+  whose RGB clamps each sample at 255, and takes the high byte of every
+  other type (grey+alpha as RGBA, grey in R, G and B).
 * ``resize_to_bucket``: Pillow's ``BILINEAR`` resampler
   (``libImaging/Resample.c``) in numpy: separable, the horizontal pass
   first with a uint8 round between the passes, the triangle filter widened
@@ -83,9 +87,13 @@ _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 # PIL refuses an image of more than twice Image.MAX_IMAGE_PIXELS (its
 # DecompressionBombError); so do the decoders, before allocating anything
 MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
-# PNG colour type -> (channels, bit depths the port reads)
-_PNG_TYPES = {0: (1, (1, 2, 4, 8)), 2: (3, (8,)), 3: (1, (1, 2, 4, 8)),
-              4: (2, (8,)), 6: (4, (8,))}
+# PNG colour type -> (channels, bit depths)
+_PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+              4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7's seven passes: (x0, y0, dx, dy), each a sub-image of the pixels
+# (x0 + i dx, y0 + j dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _lib():
@@ -145,6 +153,21 @@ def _unpack_bits(rows: np.ndarray, depth: int, w: int) -> np.ndarray:
     return vals.reshape(rows.shape[0], rows.shape[1] * per)[:, :w]
 
 
+def _png_passes(w: int, h: int, interlace: int):
+    """The sub-images the image data holds, in order: [(x0, y0, dx, dy,
+    width, height)], the whole image, or Adam7's seven passes less the
+    empty ones (a pass with no column or no row has no bytes, not even
+    filter bytes). PIL takes any nonzero interlace method as Adam7."""
+    if not interlace:
+        return [(0, 0, 1, 1, w, h)]
+    out = []
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            out.append((x0, y0, dx, dy, pw, ph))
+    return out
+
+
 def _decode_png(data: bytes) -> np.ndarray:
     ihdr, plte, idat = None, None, []
     for kind, body in _png_chunks(data):
@@ -162,45 +185,67 @@ def _decode_png(data: bytes) -> np.ndarray:
         raise ValueError(f"PNG: bad header (colour type {ctype}, size "
                          f"{w}x{h})")
     channels, depths = _PNG_TYPES[ctype]
-    if depth == 16:
-        raise ValueError("PNG: unsupported: 16-bit samples")
     if depth not in depths:
         raise ValueError(f"PNG: bad bit depth {depth} for colour type "
                          f"{ctype}")
-    if interlace:
-        raise ValueError("PNG: unsupported: interlaced (Adam7)")
     _check_pixels(h, w)
-    rowbytes = (w * channels * depth + 7) // 8
+    passes = _png_passes(w, h, interlace)
+
+    def rowbytes(width):
+        return (width * channels * depth + 7) // 8
     try:      # no more than the image holds, whatever the stream inflates to
-        raw = zlib.decompressobj().decompress(b"".join(idat),
-                                              h * (rowbytes + 1))
+        raw = zlib.decompressobj().decompress(
+            b"".join(idat), sum(ph * (rowbytes(pw) + 1)
+                                for *_, pw, ph in passes))
     except zlib.error as e:
         raise ValueError(f"PNG: corrupt image data ({e})") from None
-    rows = np.empty((h, rowbytes), np.uint8)
-    _call(_lib().isc_png_unfilter, raw, len(raw), rows.ctypes.data, h,
-          rowbytes, max(1, channels * depth // 8))
-    if depth < 8:
-        rows = _unpack_bits(rows, depth, w)
+    # the samples [h, w, channels], uint8 (big-endian uint16 at 16 bits),
+    # pass by pass
+    buf = np.frombuffer(raw, np.uint8)
+    dtype = np.dtype(">u2" if depth == 16 else np.uint8)
+    samples = np.empty((h, w, channels), dtype)
+    pos = 0
+    for x0, y0, dx, dy, pw, ph in passes:
+        rows = np.empty((ph, rowbytes(pw)), np.uint8)
+        _call(_lib().isc_png_unfilter, buf[pos:].ctypes.data, len(buf) - pos,
+              rows.ctypes.data, ph, rows.shape[1],
+              max(1, channels * depth // 8))
+        pos += rows.size + ph
+        if depth < 8:
+            part = _unpack_bits(rows, depth, pw)[:, :, None]
+        else:
+            part = rows.view(dtype).reshape(ph, pw, channels)
+        samples[y0::dy, x0::dx] = part
+    if depth == 16:
+        if ctype == 0:                  # "I;16", then RGB: clamped at 255
+            return np.repeat(np.minimum(samples, 255).astype(np.uint8), 3,
+                             axis=2)
+        samples = (samples >> 8).astype(np.uint8)     # "RGB;16B" etc.
     if ctype == 3:
         if plte is None or len(plte) % 3:
             raise ValueError("PNG: palette image without a valid PLTE")
         pal = np.zeros((256, 3), np.uint8)
         pal[:len(plte) // 3] = np.frombuffer(plte, np.uint8).reshape(-1, 3)
-        return pal[rows]
+        return pal[samples[:, :, 0]]
     if ctype == 0:
+        grey = samples[:, :, 0]
         if depth == 1:                  # PIL mode "1", then RGB
-            return np.repeat((rows * 255)[:, :, None], 3, axis=2)
-        return rows * (255 // ((1 << depth) - 1))    # "L;2", "L;4", "L"
-    img = rows.reshape(h, w, channels)
-    if ctype == 4:                      # "LA" -> RGB
-        return np.repeat(img[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(img[:, :, :3])       # RGB, RGBA
+            return np.repeat((grey * 255)[:, :, None], 3, axis=2)
+        return grey * (255 // ((1 << depth) - 1))    # "L;2", "L;4", "L"
+    if ctype == 4:                      # "LA" (or "LA;16B" as RGBA) -> RGB
+        return np.repeat(samples[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(samples[:, :, :3])   # RGB, RGBA
 
 
 def load_image_bytes(data: bytes) -> np.ndarray:
     """Encoded JPEG or PNG bytes -> HWC uint8 RGB, or HW uint8 for a
-    greyscale image, as the JAX package's PIL path gives them. Anything
-    else, or what the decoders do not take, raises ValueError."""
+    greyscale image (8-bit grey PNG, one-component JPEG), as the JAX
+    package's PIL path gives them: every PNG (any colour type and depth,
+    Adam7 or not) and every 8-bit Huffman JPEG of 1, 3 or 4 components
+    (YCbCr, RGB, CMYK, YCCK), baseline or progressive. Anything else, or
+    what the decoders do not take (lossless, hierarchical, arithmetic,
+    12-bit or 2-component JPEG, a truncated or corrupt file), raises
+    ValueError."""
     data = bytes(data)
     if data[:2] == b"\xff\xd8":
         return _decode_jpeg(data)

@@ -3,7 +3,8 @@
 stage on the caption datasets and sentiment corpus of
 ``tests/test_preprocessing.py``'s ``corpus_tree`` (the LMs trained by the
 repo's ``isclm``), and feature extraction in both bucket modes at full
-ResNet-101 depth on tiny PNGs, with the same weights.
+ResNet-101 depth on tiny PNGs (and on a CMYK JPEG and an Adam7-interlaced
+PNG, which the port decodes as PIL does), with the same weights.
 
 Tolerances: every file the text stages write is held byte for byte. The
 features within 1e-5 of the output's largest magnitude (f32, sums in
@@ -24,6 +25,7 @@ from insenticap_model_tpu_torch import preprocessing as tpp
 from insenticap_model_tpu_torch.cli import preprocess as tcli
 from insenticap_model_tpu_torch.data.feature_store import open_store
 from test_preprocessing import corpus_tree  # noqa: F401 (a fixture)
+from torch_images import make_png
 from torch_parity import encoder_params, resnet_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -149,6 +151,34 @@ def test_preprocess_features_resize_mode_matches_jax(weights, tmp_path):
                "--feat_batch_size", "2", "--device", "cpu"])
     _assert_stores_close(str(tmp_path / "jax"), str(tmp_path / "port"),
                          ["a.png", "b.png", "c.png", "d.png"])
+
+
+def test_preprocess_features_reads_cmyk_and_interlaced(weights, tmp_path):
+    """``preprocess features`` over a folder of one CMYK JPEG and one
+    Adam7-interlaced PNG (both refused by the port's decoder before, which
+    stopped the whole extraction): the features equal the JAX package's,
+    whose PIL reads both."""
+    from PIL import Image
+    jp, _ = weights
+    imgs = tmp_path / "imgs"
+    os.makedirs(imgs)
+    g = np.random.default_rng(5)
+    Image.fromarray(g.integers(0, 256, (70, 90, 3)).astype(np.uint8)
+                    ).convert("CMYK").save(imgs / "cmyk.jpg", quality=80)
+    (imgs / "adam7.png").write_bytes(make_png(
+        g.integers(0, 256, (64, 64, 3)), 8, 2, interlace=1))
+    pth = str(tmp_path / "resnet101.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                resnet_state_dict(0).items()}, pth)
+    jpp.extract_imgs_feat(str(imgs), str(tmp_path / "jax"), jp, batch_size=2,
+                          store_format="native", bucket_mode="resize",
+                          bucket_shapes=((64, 64), (48, 64), (64, 48)))
+    tcli.main(["features", "--imgs_dir", str(imgs),
+               "--feats_dir", str(tmp_path / "port"),
+               "--resnet101_file", pth, "--feat_bucket_shapes", BUCKETS,
+               "--feat_batch_size", "2", "--device", "cpu"])
+    _assert_stores_close(str(tmp_path / "jax"), str(tmp_path / "port"),
+                         ["adam7.png", "cmyk.jpg"])
 
 
 def test_h5_store_is_refused_by_name(tmp_path):

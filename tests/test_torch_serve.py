@@ -2,14 +2,16 @@
 
 ``ServeApp.handle_caption`` of both packages, on the same checkpoints
 (written by the JAX package) and the same payloads: feature mode, auto and
-forced; image_b64 JPEG and PNG; image_path. Both use the same substituted
+forced; image_b64 JPEG and PNG, a CMYK JPEG and an Adam7-interlaced PNG
+among them; image_path. Both use the same substituted
 tiny encoder, as the JAX package's own daemon test does (the encoder has
 its own parity tests). Captions, sentiments and concepts must be identical
 and scores within 1e-4. Then the port's server over a real socket gives
 the status codes that the JAX package's daemon tests assert
 (``tests/test_cli_stages.py``: 200, 400, 404, 413, /healthz 503 past
---unhealthy_after_s), a 400 for an image its decoders refuse, and drains
-on SIGTERM in a subprocess."""
+--unhealthy_after_s), 200 for a progressive and a CMYK JPEG and an
+interlaced PNG, a 400 for an image that its decoders and PIL both refuse
+(a 12-bit JPEG), and drains on SIGTERM in a subprocess."""
 import base64
 import http.client
 import io
@@ -37,6 +39,8 @@ from insenticap_model_tpu.models import sentiment_detector as jsd
 from insenticap_model_tpu.training import checkpoint as jck
 
 from insenticap_model_tpu_torch.cli import serve as tserve
+
+from torch_images import make_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CATS = ["positive", "negative", "neutral"]
@@ -80,6 +84,10 @@ def tree(tmp_path_factory, settings):
                      + g.normal(0, 10, (24, 31, 3)), 0, 255).astype(np.uint8)
     Image.fromarray(smooth).save(d / "imgs" / "photo.jpg", quality=85,
                                  subsampling=2)
+    Image.fromarray(smooth[::-1]).convert("CMYK").save(
+        d / "imgs" / "cmyk.jpg", quality=85)
+    (d / "imgs" / "adam7.png").write_bytes(
+        make_png(smooth[:, ::-1], 8, 2, interlace=1))
     return d
 
 
@@ -136,6 +144,9 @@ def _payloads(d, settings):
             "jpeg_b64": {"image_b64": b64("photo.jpg"), "sentiment": "auto"},
             "png_b64": {"image_b64": b64("ok.png"),
                         "sentiment": "positive"},
+            "cmyk_b64": {"image_b64": b64("cmyk.jpg"), "sentiment": "auto"},
+            "adam7_b64": {"image_b64": b64("adam7.png"),
+                          "sentiment": "neutral"},
             "path": {"image_path": str(d / "imgs" / "photo.jpg")}}
 
 
@@ -236,19 +247,22 @@ def test_server_status_codes(tree, settings, fakes, monkeypatch):
         status, body = post({"image_b64":
                              base64.b64encode(b"nonsense").decode()})
         assert status == 400 and "image_b64" in body["error"]
-        # a progressive JPEG: the port decodes it as PIL does; a CMYK JPEG
-        # (PIL reads it) the port's decoder refuses
+        # a progressive and a CMYK JPEG and an interlaced PNG: the port
+        # decodes them as PIL does
         buf = io.BytesIO()
         Image.fromarray(np.full((16, 16, 3), 90, np.uint8)).save(
             buf, "JPEG", progressive=True)
+        for data in (buf.getvalue(), (tree / "imgs" / "cmyk.jpg").read_bytes(),
+                     (tree / "imgs" / "adam7.png").read_bytes()):
+            status, body = post({"image_b64":
+                                 base64.b64encode(data).decode()})
+            assert status == 200 and body["caption"] and body["concepts"], \
+                body
+        # a 12-bit JPEG: the port's decoder refuses it, as PIL does
+        data = bytearray(buf.getvalue())
+        data[data.index(b"\xff\xc2") + 4] = 12
         status, body = post({"image_b64":
-                             base64.b64encode(buf.getvalue()).decode()})
-        assert status == 200 and body["caption"] and body["concepts"], body
-        buf = io.BytesIO()
-        Image.fromarray(np.full((16, 16, 3), 90, np.uint8)).convert(
-            "CMYK").save(buf, "JPEG")
-        status, body = post({"image_b64":
-                             base64.b64encode(buf.getvalue()).decode()})
+                             base64.b64encode(bytes(data)).decode()})
         assert status == 400 and "image_b64" in body["error"]
         status, body = post(None, raw="x" * 300_000)   # before the read
         assert status == 413
@@ -259,7 +273,7 @@ def test_server_status_codes(tree, settings, fakes, monkeypatch):
         assert status == 200 and json.loads(body) == {"ok": True}
         status, _, body = get("/stats")
         stats = json.loads(body)
-        assert status == 200 and stats["encode"]["requests"] == 3
+        assert status == 200 and stats["encode"]["requests"] == 5
         status, ctype, body = get("/metrics")
         assert status == 200 and ctype.startswith("text/plain")
         assert 'isc_stalled_seconds{stage="encode"}' in body.decode()

@@ -1,6 +1,10 @@
 """The committed image fixtures of the port's decoders
-(``tests/data/torch_images/``): JPEGs and PNGs written by PIL, and
-``expected.npz`` holding PIL's decoded arrays (the JAX package's
+(``tests/data/torch_images/``) and the small writers of the files PIL
+cannot write.
+
+The fixtures: JPEGs and PNGs written by PIL, or by the writers here
+(``write_jpeg``: YCCK; ``make_png``: Adam7-interlaced and 16-bit RGB),
+and ``expected.npz`` holding PIL's decoded arrays (the JAX package's
 ``load_image_bytes``), for the card's machine, which has no PIL. The
 arrays are stored as differences along each row (uint8, wrapping), which
 zlib packs to half the size, and an array two fixtures share once
@@ -11,10 +15,17 @@ zlib packs to half the size, and an array two fixtures share once
 ``tests/test_torch_imgdec.py`` rebuilds them and requires them equal to
 what is committed, so that they cannot drift from PIL. The fixtures'
 names, their directory and ``decode_expected`` live in ``chip_smoke.py``,
-which reads them on the card without this file's PIL and JAX imports."""
+which reads them on the card without this file's PIL and JAX imports.
+
+The writers: ``write_jpeg`` writes baseline or progressive JPEGs of random
+quantised coefficients at any sampling factors, of 1 to 4 components,
+with or without JFIF and Adobe markers; ``make_png`` writes PNGs of any
+colour type and depth, each of the five row filters, Adam7 or not."""
 import io
 import os
+import struct
 import sys
+import zlib
 
 import numpy as np
 
@@ -36,8 +47,302 @@ def _photo(h, w, seed, noise=6.0):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+# -- a small JPEG writer: what PIL cannot write ------------------------------
+
+_ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19,
+           26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49,
+           56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52,
+           45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
+JFIF = b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+
+
+def seg(marker, body):
+    """A JPEG marker segment."""
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def adobe(transform):
+    """An Adobe APP14 segment (version 100) with ``transform``."""
+    return seg(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([transform]))
+
+
+def _category(v):
+    return int(abs(v)).bit_length()
+
+
+def _band_syms(zz, i, ss, se, eob):
+    """The AC symbols of zigzag coefficients ``ss..se`` of one block:
+    runs of zeros (ZRL for 16), and at the band's end an EOB where ``eob``,
+    else (a progressive scan's EOB run) the count of trailing zeros."""
+    last = max([k for k in range(ss, se + 1) if zz[k]] or [ss - 1])
+    syms, run = [], 0
+    for k in range(ss, last + 1):
+        if zz[k] == 0:
+            run += 1
+            continue
+        while run > 15:
+            syms.append(((1, i), 0xF0, 0, 0))
+            run -= 16
+        s = _category(zz[k])
+        syms.append(((1, i), (run << 4) | s, zz[k], s))
+        run = 0
+    if last < se and eob:
+        syms.append(((1, i), 0x00, 0, 0))
+    return syms, last < se
+
+
+def write_jpeg(width, height, factors, g, *, separate=False, dri=0,
+               progressive=False, markers=seg(0xE0, JFIF), ids=None):
+    """A JPEG of random sparse quantised coefficients (any block content
+    is a valid image): ``factors`` [(h, v)] a component (1 to 4), one
+    interleaved scan or one scan a component, restart interval ``dri``
+    MCUs, Huffman tables of one code length fitted to the symbols used.
+    ``markers`` follow SOI (a JFIF APP0 by default; ``adobe(t)`` for an
+    Adobe one, ``b""`` for none); ``ids`` are the component ids (1, 2, ...
+    by default). ``progressive``: SOF2 with spectral selection only (Al 0):
+    the DC scan (interleaved unless ``separate``), then bands 1-5 and 6-63
+    of each component, all-zero bands coded as EOB runs."""
+    hmax = max(h for h, _ in factors)
+    vmax = max(v for _, v in factors)
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    ids = ids or list(range(1, len(factors) + 1))
+    comps = []
+    for ci, (h, v) in enumerate(factors):
+        bh, bw = mcuy * v, mcux * h
+        coef = np.zeros((bh, bw, 64), np.int64)
+        coef[..., 0] = g.integers(-60, 60, (bh, bw))
+        for k in range(1, 20):
+            coef[..., k] = np.where(g.random((bh, bw)) < 0.3,
+                                    g.integers(-30, 31, (bh, bw)), 0)
+        comps.append({"id": ids[ci], "h": h, "v": v, "coef": coef,
+                      "nbx": -(-(-(-width * h // hmax)) // 8),
+                      "nby": -(-(-(-height * v // vmax)) // 8)})
+    out = b"\xff\xd8" + markers
+    for t in range(2):
+        out += seg(0xDB, bytes([t]) + bytes(g.integers(1, 9, 64).tolist()))
+    out += seg(0xC2 if progressive else 0xC0,
+               struct.pack(">BHHB", 8, height, width, len(comps))
+               + b"".join(bytes([c["id"], (c["h"] << 4) | c["v"], ci % 2])
+                          for ci, c in enumerate(comps)))
+    if dri:
+        out += seg(0xDD, struct.pack(">H", dri))
+    groups = [[c] for c in comps] if separate else [comps]
+    if progressive:
+        scans = [(grp, 0, 0) for grp in groups] + [
+            ([c], ss, se) for c in comps for ss, se in ((1, 5), (6, 63))]
+    else:
+        scans = [(grp, 0, 63) for grp in groups]
+    for group, ss, se in scans:
+        if len(group) > 1:
+            units = [[(i, my * c["v"] + yy, mx * c["h"] + xx)
+                      for i, c in enumerate(group)
+                      for yy in range(c["v"]) for xx in range(c["h"])]
+                     for my in range(mcuy) for mx in range(mcux)]
+        else:
+            units = [[(0, by, bx)] for by in range(group[0]["nby"])
+                     for bx in range(group[0]["nbx"])]
+        syms, pred, eobrun = [], [0] * len(group), 0
+
+        def end_run():
+            nonlocal eobrun
+            if eobrun:
+                r = eobrun.bit_length() - 1
+                syms.append(((1, 0), r << 4, eobrun - (1 << r), r))
+                eobrun = 0
+
+        for u, unit in enumerate(units):
+            if dri and u and u % dri == 0:
+                end_run()
+                pred = [0] * len(group)
+                syms.append(None)                      # a restart marker
+            for i, by, bx in unit:
+                blk = group[i]["coef"][by, bx]
+                zz = [int(blk[_ZIGZAG[k]]) for k in range(64)]
+                if ss == 0:
+                    diff = zz[0] - pred[i]
+                    pred[i] = zz[0]
+                    s = _category(diff)
+                    syms.append(((0, i), s, diff, s))
+                if se == 0:
+                    continue
+                band, open_end = _band_syms(zz, i, max(ss, 1), se,
+                                            not progressive)
+                if band:
+                    end_run()
+                syms.extend(band)
+                if progressive and open_end:
+                    eobrun += 1
+                    if eobrun == 0x7FFF:
+                        end_run()
+        end_run()
+        tables, body = {}, b""
+        for i in range(len(group)):
+            for tc in (0, 1):
+                used = sorted({x[1] for x in syms
+                               if x is not None and x[0] == (tc, i)})
+                if not used:
+                    continue
+                L = max(1, len(used).bit_length())
+                tables[(tc, i)] = (L, {s: j for j, s in enumerate(used)})
+                counts = [0] * 16
+                counts[L - 1] = len(used)
+                body += bytes([(tc << 4) | i]) + bytes(counts) + bytes(used)
+        out += seg(0xC4, body)
+        out += seg(0xDA, bytes([len(group)]) + b"".join(
+            bytes([c["id"], (i << 4) | i]) for i, c in enumerate(group))
+            + bytes([ss, se, 0]))
+        bits, data, rst = [], bytearray(), 0
+
+        def flush():
+            bits.extend([1] * (-len(bits) % 8))
+            for j in range(0, len(bits), 8):
+                b = int("".join(map(str, bits[j:j + 8])), 2)
+                data.extend([b, 0] if b == 0xFF else [b])
+            bits.clear()
+
+        for x in syms:
+            if x is None:
+                flush()
+                data.extend([0xFF, 0xD0 + rst])
+                rst = (rst + 1) & 7
+                continue
+            key, sym, val, nb = x
+            L, codes = tables[key]
+            bits.extend(int(b) for b in format(codes[sym], f"0{L}b"))
+            if nb:
+                v = val if val >= 0 else val + (1 << nb) - 1
+                bits.extend(int(b) for b in format(v, f"0{nb}b"))
+        flush()
+        out += bytes(data)
+    return out + b"\xff\xd9"
+
+
+def write_lossless_jpeg(img):
+    """A lossless JPEG (SOF3) of a uint8 grey image [h, w]: predictor 1
+    (the left neighbour; the row above in the first column, 128 first),
+    no point transform, one Huffman table of all 17 difference categories
+    at 5 bits. PIL 12.1 (libjpeg-turbo 3) decodes it."""
+    h, w = img.shape
+    x = img.astype(np.int64)
+    pred = np.empty_like(x)
+    pred[:, 1:] = x[:, :-1]
+    pred[1:, 0] = x[:-1, 0]
+    pred[0, 0] = 128
+    bits = []
+    for d in (x - pred).ravel().tolist():
+        s = abs(d).bit_length()
+        bits += [int(c) for c in format(s, "05b")]
+        if s:
+            v = d if d >= 0 else d + (1 << s) - 1
+            bits += [int(c) for c in format(v, f"0{s}b")]
+    bits += [1] * (-len(bits) % 8)
+    data = bytearray()
+    for j in range(0, len(bits), 8):
+        b = int("".join(map(str, bits[j:j + 8])), 2)
+        data.extend([b, 0] if b == 0xFF else [b])
+    counts = [0] * 16
+    counts[4] = 17
+    return (b"\xff\xd8"
+            + seg(0xC3, struct.pack(">BHHB", 8, h, w, 1) + b"\x01\x11\x00")
+            + seg(0xC4, b"\x00" + bytes(counts) + bytes(range(17)))
+            + seg(0xDA, b"\x01\x01\x00\x01\x00\x00") + bytes(data)
+            + b"\xff\xd9")
+
+
+# -- a small PNG writer: interlaced and 16-bit, each row filter -----------
+
+# Adam7's passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def chunk(kind, body):
+    """A PNG chunk with its CRC."""
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def filtered(rows, bpp, ft):
+    """[h, rowbytes] uint8 rows under filter ``ft`` (-1: each row its own,
+    in turn), each with its filter byte."""
+    rows = np.asarray(rows, np.int64).reshape(len(rows), -1)
+    out = []
+    for y, r in enumerate(rows):
+        f = ft if ft >= 0 else y % 5
+        up = rows[y - 1] if y else np.zeros_like(r)
+        if f in (0, 2):           # no left neighbour: vectorised
+            enc = r - (up if f == 2 else 0)
+        else:                     # Sub, Average, Paeth: from the raw row
+            a = np.concatenate([np.zeros(bpp, np.int64), r[:-bpp]])[:len(r)]
+            c = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])[:len(r)]
+            pred = {1: a, 3: (a + up) // 2, 4: _paeth(a, up, c)}[f]
+            enc = r - pred
+        out.append(bytes([f]) + (enc % 256).astype(np.uint8).tobytes())
+    return b"".join(out)
+
+
+def _pack(samples, depth):
+    """[h, w, c] sample values -> [h, rowbytes] uint8 rows (big-endian
+    within a byte below 8 bits, and at 16)."""
+    h, w, c = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").reshape(h, -1).view(np.uint8)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, -1)
+    per = 8 // depth
+    v = np.zeros((h, -(-w // per) * per), np.uint8)
+    v[:, :w] = samples[:, :, 0]
+    v = v.reshape(h, -1, per) << np.arange(8 - depth, -1, -depth,
+                                           dtype=np.uint8)
+    return np.bitwise_or.reduce(v, axis=2).astype(np.uint8)
+
+
+def png_file(w, h, depth, ctype, idat, *, interlace=0, plte=None,
+             chunks=b""):
+    """A PNG of the (filtered) image data ``idat``, deflated; ``chunks``
+    go between IHDR (and PLTE) and IDAT."""
+    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    if plte is not None:
+        data += chunk(b"PLTE", plte)
+    return (data + chunks + chunk(b"IDAT", zlib.compress(idat))
+            + chunk(b"IEND", b""))
+
+
+def image_data(samples, depth, ft=-1, interlace=0):
+    """PNG image data (before deflate) of ``samples`` [h, w, channels] at
+    ``depth`` bits, each row under filter ``ft`` (-1: each of the five in
+    turn); ``interlace`` 1: Adam7, each pass filtered as an image of its
+    own, empty passes left out."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[:, :, None]
+    subs = ([samples] if not interlace else
+            [samples[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7])
+    bpp = max(1, samples.shape[2] * depth // 8)
+    return b"".join(filtered(_pack(s, depth), bpp, ft) for s in subs
+                    if s.size)
+
+
+def make_png(samples, depth, ctype, ft=-1, *, interlace=0, plte=None,
+             chunks=b""):
+    """A PNG of ``samples`` [h, w, channels] (the colour type's channels;
+    palette indices for type 3): ``image_data``, deflated."""
+    h, w = np.shape(samples)[:2]
+    return png_file(w, h, depth, ctype,
+                    image_data(samples, depth, ft, interlace),
+                    interlace=interlace, plte=plte, chunks=chunks)
+
+
 def build():
-    """{file name: bytes} of every fixture, written by PIL."""
+    """{file name: bytes} of every fixture, written by PIL or, where PIL
+    cannot, by the writers here."""
     from PIL import Image
     out = {}
 
@@ -49,19 +354,41 @@ def build():
     small = Image.fromarray(_photo(45, 61, 0))
     save("j444.jpg", small, "JPEG", quality=90, subsampling=0)
     save("j422.jpg", small, "JPEG", quality=75, subsampling=1)
-    save("j420_448.jpg", Image.fromarray(_photo(448, 448, 1, 1.0)), "JPEG",
-         quality=75, subsampling=2)
+    photo448 = Image.fromarray(_photo(448, 448, 1, 1.0))
+    save("j420_448.jpg", photo448, "JPEG", quality=75, subsampling=2)
     save("grey.jpg", small.convert("L"), "JPEG", quality=80)
     save("rst.jpg", Image.fromarray(_photo(37, 53, 2)), "JPEG", quality=85,
          subsampling=2, restart_marker_blocks=3)
     save("prog.jpg", small, "JPEG", quality=75, progressive=True)
-    save("prog420_448.jpg", Image.fromarray(_photo(448, 448, 1, 1.0)),
-         "JPEG", quality=75, subsampling=2, progressive=True)
+    save("prog420_448.jpg", photo448, "JPEG", quality=75, subsampling=2,
+         progressive=True)
     save("prog_rst.jpg", Image.fromarray(_photo(37, 53, 8)), "JPEG",
          quality=85, subsampling=2, progressive=True,
          restart_marker_blocks=2)
     save("cmyk.jpg", small.convert("CMYK"), "JPEG", quality=75)
-    save("rgb.png", Image.fromarray(_photo(33, 47, 3)), "PNG")
+    # j420_448's photo as CMYK: PIL's 4:2:0 samples C at 2x2, M, Y, K 1x1
+    save("cmyk420_448.jpg", photo448.convert("CMYK"), "JPEG", quality=75,
+         subsampling=2)
+    save("adobe_rgb.jpg", small, "JPEG", quality=75, subsampling=0,
+         keep_rgb=True)                 # Adobe transform 0, no JFIF
+    out["ycck.jpg"] = write_jpeg(37, 29, [(2, 2), (1, 1), (1, 1), (2, 2)],
+                                 np.random.default_rng(12),
+                                 markers=adobe(2))
+    # a 12-bit frame header: PIL and the port both refuse it
+    j12 = bytearray(out["j444.jpg"])
+    j12[j12.index(b"\xff\xc0") + 4] = 12
+    out["j12bit.jpg"] = bytes(j12)
+    rgb = _photo(33, 47, 3)
+    save("rgb.png", Image.fromarray(rgb), "PNG")
+    out["adam7.png"] = make_png(rgb, 8, 2, interlace=1)
+    g = np.random.default_rng(13)
+    out["rgb16.png"] = make_png((rgb.astype(np.uint16) << 8)
+                                | g.integers(0, 256, rgb.shape), 16, 2)
+    save("grey16.png", Image.fromarray(
+        g.integers(0, 600, (23, 29)).astype(np.uint16)), "PNG")
+    pal = Image.fromarray(_photo(31, 39, 14)).quantize(16)
+    out["adam7_p4.png"] = make_png(np.asarray(pal), 4, 3, interlace=1,
+                                   plte=bytes(pal.getpalette()[:48]))
     rgba = np.concatenate([_photo(29, 41, 4),
                            _photo(29, 41, 5)[:, :, :1]], -1)
     save("rgba.png", Image.fromarray(rgba), "PNG")
