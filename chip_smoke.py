@@ -5,8 +5,9 @@
 
 Builds the port's hand-written kernels from ``insenticap_model_tpu_torch/
 csrc`` (``nvcc`` for sm_90a, one process a source, all started together,
-into the git-ignored build directory) and the host image decoders
-(``csrc/imgdec.cc``, the host's C++ compiler), then:
+into the git-ignored build directory), the host image decoders and the
+feature-store gather (``csrc/imgdec.cc``, ``csrc/fstore.cc``, the host's
+C++ compiler), then:
 
 1. prints the card's name and power limit, the build time and ptxas's
    registers and spills of the int8 attention's instances (the B = 3
@@ -106,7 +107,15 @@ into the git-ignored build directory) and the host image decoders
    images of standard-normal features, in f32 every top beam identical
    with scores within 1e-3, in bf16 the share of identical top beams at
    least v1 with tanhf's, rounded down to a whole percent (phase 4's
-   gate);
+   gate); a ``StepTimer`` over the two f32 epochs' steps (one JSONL
+   record a step, its median beside the timed step); one f32 step under
+   ``maybe_trace`` with ``annotate`` spans around its batch's gather and
+   the step (the trace must hold both spans and a kernel of the card);
+   and the first train batch's att gather (20 records of 14x14x2048)
+   through the native and the numpy reader, from an fp16 copy of the
+   tree's store (widened to f32) and from the f32 store itself: the
+   arrays bit for bit identical, the medians of 9 taken in turns and
+   their shares of the f32 step;
 3g. drives the head-stage trainers and the concept CLIs at full width
    (``Settings()``: 2048-d features on a 14x14 grid, the detector 2048 ->
    1024 -> 512, 2000 concepts, vocab 10,000, bs 80) on a synthetic tree
@@ -317,6 +326,8 @@ XE_GRAD_RTOL = 1e-4
 # the dump's decode with the trained captioner against the plain path: 20
 # batches of 20 (400 images, as phase 4's 384)
 XE_CMP_BATCHES = 20
+# the XE batch's att gather, each reader timed this many times in turns
+GATHER_RUNS = 9
 # the captioner's attention-score biases, to which the softmax over
 # positions is invariant (their gradient is zero up to rounding)
 SOFTMAX_INVARIANT = (("attention", "cont", "att_alpha", "bias"),
@@ -950,16 +961,21 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
     from insenticap_model_tpu_torch.cli import common
     from insenticap_model_tpu_torch.cli import train_xe
     from insenticap_model_tpu_torch.config import Opts
+    from insenticap_model_tpu_torch.data import feature_store as tfs
     from insenticap_model_tpu_torch.models import captioner as cap
     from insenticap_model_tpu_torch.models import sent_senti_cls as ss_cls
     from insenticap_model_tpu_torch.ops import fused_attention as fa
     from insenticap_model_tpu_torch.training import checkpoint as tck
     from insenticap_model_tpu_torch.training import optim, steps
+    from insenticap_model_tpu_torch.utils.profiling import (StepTimer,
+                                                            annotate,
+                                                            maybe_trace)
     from insenticap_model_tpu_torch.utils.timing import device_ms_by_kernel
     from insenticap_model_tpu_torch.vocab import Vocab
     cats = ["positive", "negative", "neutral"]
     out = {}
     saved, step_losses = {}, []
+    timer = {}          # "t": the StepTimer of the two f32 epochs' steps
     orig_save, orig_make = tck.save, steps.make_xe_steps
 
     def recording_save(path, params, opt_state, metadata):
@@ -970,11 +986,17 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
         orig_save(path, params, opt_state, metadata)
 
     def recording_make(settings_, adam):
-        """make_xe_steps whose train step also records its losses."""
+        """make_xe_steps whose train step also records its losses, each
+        step timed by ``timer["t"]`` where one is set."""
         train_step, eval_step = orig_make(settings_, adam)
 
         def step(*args):
-            losses = train_step(*args)
+            t = timer.get("t")
+            if t is None:
+                losses = train_step(*args)
+            else:
+                with t.step(len(step_losses), items=XE_BS):
+                    losses = t.sink(train_step(*args))
             step_losses.append({k: float(v) for k, v in losses.items()})
             return losses
         return step, eval_step
@@ -1066,15 +1088,29 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
             # 0.05. No training step reaches a kernel, so v1's count, set
             # to 0 here, counts the two epochs' beam dumps
             o32 = opts("f32", xe_epochs=2)
+            timer_log = os.path.join(tmp, "step_timer.jsonl")
+            timer["t"] = StepTimer(log_path=timer_log)
             zero_counters()
             t0 = time.time()
             full = train_xe.train(o32)
             torch.cuda.synchronize()
             out["f32_two_epochs_s"] = time.time() - t0
+            timer.clear()
             out["launches"] = read_counters()
             metrics = [json.loads(x) for x in open(stage(o32,
                                                          "metrics.jsonl"))]
             f32_steps = [s["all_loss"] for s in step_losses]
+            # the StepTimer's JSONL: one record a step, in order
+            recs = [json.loads(x) for x in open(timer_log)]
+            _check([r["step"] for r in recs] == list(range(len(f32_steps)))
+                   and all(r["step_time_s"] > 0 and r["items_per_s"] > 0
+                           for r in recs),
+                   f"StepTimer: {len(recs)} records for {len(f32_steps)} "
+                   f"steps: {recs[:3]}")
+            out["step_timer"] = {
+                "records": len(recs), "steps": len(f32_steps),
+                "median_step_ms": statistics.median(
+                    r["step_time_s"] for r in recs) * 1e3}
             _check(len(metrics) == 2 and all(
                 math.isfinite(v) for m in metrics for v in m.values()
                 if isinstance(v, float)) and all(
@@ -1259,6 +1295,10 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
             by_kernel = device_ms_by_kernel(
                 lambda: train_step(c, b, s, gen, 0.0), iters=5, warm=1)
             busy = sum(by_kernel.values())
+            if tag == "f32":
+                out["trace"] = _trace_xe_step(
+                    os.path.join(tmp, "trace"), rt, loader, train_step,
+                    lambda b_: (c, b_, s, gen, 0.0), maybe_trace, annotate)
             feats = rt.put({"fc": fc_s.batch(test_fns),
                             "att": att_s.batch(test_fns)})
             with torch.no_grad():
@@ -1294,6 +1334,17 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
                 "dump_captions_per_s": XE_BS / dump_ms * 1e3,
                 "dump_vs_plain": vs_plain}
         out["timing"] = timing
+
+        # 9. the XE batch's att gather (the first train batch's 20 images)
+        # both ways, on the tree's store rewritten in fp16 (as the feature
+        # extraction writes it; widened to f32) and on the f32 store itself
+        f16_path = os.path.join(tmp, "coco_att_f16.isc")
+        tfs.write_native_store(
+            f16_path, ((fn, att_s.get(fn)) for fn in att_s.keys()),
+            att_s.shape, dtype="float16")
+        out["gather"] = _gather_both_ways(
+            np, tfs, {"fp16": f16_path, "f32": att_s.path},
+            list(batch["fns"]), timing["f32"]["train_step_ms"])
     smi = _smi()
     print(f"train_xe (phase 3f, full width, vocab {VOCAB}, xe_bs {XE_BS}, "
           f"seq2seq {train_xe.SCS_BS}): tree {out['tree_s']:.1f} s; two f32 "
@@ -1308,6 +1359,27 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
           f"{out['resume_max_abs_diff']['softmax_invariant_biases']:.3g}); "
           f"bf16 epoch {out['bf16_epoch_s']:.1f} s, step all_loss "
           + " ".join(f"{v:.4f}" for v in bf16_steps))
+    st, ga, tr = out["step_timer"], out["gather"], out["trace"]
+    print(f"train_xe StepTimer over the two f32 epochs' steps on {smi}: "
+          f"{st['records']} records for {st['steps']} steps, median "
+          f"step_time_s {st['median_step_ms']:.2f} ms (the phase's timed "
+          f"f32 step, median of 5: {timing['f32']['train_step_ms']:.2f} "
+          "ms)")
+    for kind in ("fp16", "f32"):
+        g_ = ga[kind]
+        print(f"train_xe att gather ({kind} store, {g_['records']} records "
+              f"of 14x14x{settings.att_feat_dim}, "
+              f"{g_['bytes_read'] / 1e6:.1f} MB read, "
+              f"{g_['bytes_written'] / 1e6:.1f} MB written; median of "
+              f"{GATHER_RUNS} in turns, page cache warm) on {smi}: native "
+              f"{g_['native_ms']:.3f} ms, numpy {g_['numpy_ms']:.3f} ms, "
+              f"arrays identical; share of the f32 XE step "
+              f"({timing['f32']['train_step_ms']:.2f} ms): native "
+              f"{g_['native_share']:.2%}, numpy {g_['numpy_share']:.2%}")
+    print(f"train_xe trace of one f32 step (maybe_trace): "
+          f"{tr['file_mb']:.1f} MB, {tr['kernel_events']} kernel events, "
+          "spans " + ", ".join(f"{k} {v:.3f} ms"
+                               for k, v in tr["spans_ms"].items()))
     cv = out["card_vs_cpu"]
     print(f"train_xe card step against the CPU's (f32, dropout off): loss "
           f"{cv['losses_card']['all_loss']:.6f} vs "
@@ -1335,6 +1407,64 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
               f"{vt['top_beam_identical_tanhf']:.2%}, gate {vt['gate']:.2f},"
               f" score diff {vt['max_score_diff']:.3g})")
     out["device"] = smi
+    return out
+
+
+def _trace_xe_step(trace_dir, rt, loader, train_step, args, maybe_trace,
+                   annotate):
+    """One f32 XE step under ``maybe_trace``, its batch's gather and its
+    step inside ``annotate`` spans; the trace file must exist and hold both
+    spans and at least one kernel of the card."""
+    with maybe_trace(trace_dir):
+        with annotate("xe_gather"):
+            b = rt.put(loader.assemble(loader._index_batches()[0]))
+        with annotate("xe_train_step"):
+            train_step(*args(b))
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+             if f.endswith(".pt.trace.json")] if os.path.isdir(
+                 trace_dir) else []
+    _check(len(files) == 1, f"maybe_trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"]: e.get("dur", 0) / 1e3 for e in events
+             if e.get("cat") == "user_annotation"}
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    _check({"xe_gather", "xe_train_step"} <= set(spans) and kernels > 0,
+           f"the trace holds spans {sorted(spans)} and {kernels} kernel "
+           "events")
+    return {"file_mb": os.path.getsize(files[0]) / 1e6,
+            "kernel_events": kernels, "spans_ms": spans}
+
+
+def _gather_both_ways(np, tfs, paths, fns, step_ms):
+    """The batch's gather from each store of ``paths`` ({kind: path})
+    through the native and the numpy reader: the arrays must be bit for bit
+    identical; the medians of ``GATHER_RUNS`` times each, taken in turns,
+    and their shares of ``step_ms``."""
+    out = {}
+    for kind, path in paths.items():
+        readers = {r: tfs.NativeFeatureStore(path, reader=r)
+                   for r in ("native", "numpy")}
+        a, b = (readers[r].batch(fns) for r in ("native", "numpy"))
+        _check(a.dtype == b.dtype == np.float32 and a.shape == b.shape
+               and np.array_equal(a.view(np.uint32), b.view(np.uint32)),
+               f"{kind} store: the native gather differs from numpy's")
+        walls = {r: [] for r in readers}
+        for _ in range(GATHER_RUNS):
+            for r, st in readers.items():
+                t0 = time.perf_counter()
+                st.batch(fns)
+                walls[r].append(time.perf_counter() - t0)
+        res = {"records": len(fns), "bytes_written": a.nbytes,
+               "bytes_read": a[0].size * len(fns)
+               * readers["native"].dtype.itemsize}
+        for name, w in walls.items():
+            res[f"{name}_ms"] = statistics.median(w) * 1e3
+            res[f"{name}_share"] = res[f"{name}_ms"] / step_ms
+            res[f"{name}_all_ms"] = [x * 1e3 for x in w]
+        for st in readers.values():
+            st.close()
+        out[kind] = res
     return out
 
 
@@ -3209,15 +3339,13 @@ def main():
     build_s = time.time() - t0
     t0 = time.time()
     _build.build_host("imgdec")            # the host image decoders (c++)
-    isclm = os.path.join(REPO_DIR, "native", "build", "isclm")
-    if not os.path.exists(isclm):          # the LM tool of phase 3i
-        os.makedirs(os.path.dirname(isclm), exist_ok=True)
-        subprocess.run([_build._cxx(), "-O2", "-std=c++17", "-o", isclm,
-                        os.path.join(REPO_DIR, "native", "isclm.cc")],
-                       check=True)
+    _build.build_host("fstore")            # the feature-store gather (c++)
+    from tools.build_anchor_torch import ensure_isclm
+    ensure_isclm()                         # the LM tool of phase 3i
     host_build_s = time.time() - t0
     print(f"kernel build: {build_s:.1f} s; host builds (image decoders, "
-          f"isclm where absent): {host_build_s:.1f} s")
+          "feature-store gather, isclm where absent): "
+          f"{host_build_s:.1f} s")
     report["host_build_s"] = host_build_s
     for name, log in sorted(_build.build_logs.items()):
         for line in log.splitlines():

@@ -5,8 +5,12 @@
 
 The index JSON is ``{"dtype", "shape", "entries": {file name: record}}``;
 every record has the one shape and dtype, so the data region is one
-[records, *shape] array, memory-mapped here. The JAX package reads the
-same file (through its C++ reader or numpy). The reference's HDF5 files
+[records, *shape] array. ``NativeFeatureStore`` gathers it through the
+port's C++ reader (``utils/native.py``, ``csrc/fstore.cc``: threaded
+``pread``, fp16 widened in the workers), or, where the caller passes
+``reader="numpy"``, through a numpy take on a memory map; both give the
+same bytes. The JAX package reads the same file (through its C++ reader
+or numpy). The reference's HDF5 files
 are not read: the card's machine has no h5py, and ``open_store`` refuses
 one with a message naming the ``.isc`` format (the JAX package's feature
 extraction writes it under ``store_format="isc"``, and so does the
@@ -73,10 +77,18 @@ def write_native_store(path: str, data_iter, shape,
 
 
 class NativeFeatureStore:
-    """A memory-mapped record file; ``batch`` gathers the records in one
-    numpy take and widens them to ``out_dtype``."""
+    """A native record file. ``reader="native"`` gathers a batch in one
+    call of the C++ reader (``num_threads`` ``pread`` workers, the GIL
+    released), as the JAX package's store does when its library is built
+    (JAX data/feature_store.py:160-186); ``reader="numpy"`` takes the
+    records from a memory map. Either widens to ``out_dtype``. The port
+    builds its reader or raises: the numpy path is taken only when asked
+    for."""
 
-    def __init__(self, path: str, out_dtype=np.float32):
+    def __init__(self, path: str, num_threads: int = 8,
+                 out_dtype=np.float32, reader: str = "native"):
+        if reader not in ("native", "numpy"):
+            raise ValueError(f"reader {reader!r}: 'native' or 'numpy'")
         self.path = path
         with open(path, "rb") as f:
             magic = f.read(8)
@@ -88,28 +100,44 @@ class NativeFeatureStore:
         self.dtype = np.dtype(index["dtype"])
         self.shape = tuple(index["shape"])
         self.entries: Dict[str, int] = index["entries"]
-        rec_elems = int(np.prod(self.shape))
-        n = (os.path.getsize(path) - data_off) // (rec_elems
-                                                  * self.dtype.itemsize)
-        self._mm = np.memmap(path, mode="r", dtype=self.dtype,
-                             offset=data_off, shape=(n, rec_elems))
         self.out_dtype = out_dtype
+        self.reader = reader
+        rec_elems = int(np.prod(self.shape))
+        self._native = self._mm = None
+        if reader == "native":
+            from ..utils.native import FStoreReader
+            self._native = FStoreReader(path, data_off, self.dtype,
+                                        rec_elems, num_threads)
+        else:
+            n = (os.path.getsize(path) - data_off) // (
+                rec_elems * self.dtype.itemsize)
+            self._mm = np.memmap(path, mode="r", dtype=self.dtype,
+                                 offset=data_off, shape=(n, rec_elems))
 
     def get(self, fn):
-        rec = self._mm[self.entries[fn]]
+        idx = self.entries[fn]
+        rec = (self._native.read(idx) if self._native is not None
+               else self._mm[idx])
         return np.asarray(rec, dtype=self.out_dtype).reshape(self.shape)
 
     def batch(self, fns: Sequence[str]) -> np.ndarray:
         idx = np.asarray([self.entries[fn] for fn in fns], np.int64)
-        return self._mm[idx].astype(self.out_dtype, copy=False).reshape(
+        flat = (self._native.gather(idx) if self._native is not None
+                else self._mm[idx])
+        return flat.astype(self.out_dtype, copy=False).reshape(
             (len(fns),) + self.shape)
 
     def keys(self) -> List[str]:
         return list(self.entries.keys())
 
+    def close(self):
+        if self._native is not None:
+            self._native.close()
+
 
 def open_store(path: str) -> NativeFeatureStore:
-    """Open a native (``.isc``) record store; refuse anything else."""
+    """Open a native (``.isc``) record store with the C++ reader; refuse
+    anything else."""
     with open(path, "rb") as f:
         magic = f.read(8)
     if magic != MAGIC:

@@ -8,10 +8,11 @@ flags, so an edited source is never served from a stale build. Pointers
 and the CUDA stream cross as ``c_void_p``; every C entry point returns
 ``cudaGetLastError()`` after its launch and ``check`` raises on a non-zero
 code. There is no fallback: a missing ``nvcc`` or a failed build raises.
-Host code (``csrc/<name>.cc``, the image decoders) builds the same way
-with the host's C++ compiler (``load_host``), no ``nvcc`` needed; its
-name also hashes the machine, its C library and the compiler's version,
-so a library built on one host is never loaded on another.
+Host code (``csrc/<name>.cc``: the image decoders, the feature-store
+gather) builds the same way with the host's C++ compiler (``load_host``),
+no ``nvcc`` needed; its name also hashes the machine, its C library and
+the compiler's version, so a library built on one host is never loaded
+on another.
 ``no_grad_guard`` is every wrapper's refusal to launch a kernel where
 autograd would record a graph through it.
 """
@@ -32,7 +33,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

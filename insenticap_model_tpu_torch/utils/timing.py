@@ -43,6 +43,19 @@ def instance_mismatches(events, per_call, iters: int) -> list:
 # profiler sessions taken by ``_device_events``, and of them those taken
 # again because a part's instance count was off
 SESSIONS = {"taken": 0, "short": 0}
+# the short spins a profiler session starts with (``spin``)
+SPINS = 64
+
+
+def spin(n: int = SPINS) -> None:
+    """``n`` short spins of the card (``torch.cuda._sleep``, some 5 us
+    each; the profiler names them ``spin_kernel``): launches of its own
+    for a new profiler session to lose. A session can lose the records of
+    its first launches (up to 17 on an H100 in
+    ``tools/profiler_session_loss.py``'s run, all else whole); a long spin
+    first does not help, launches do."""
+    for _ in range(n):
+        torch.cuda._sleep(10_000)
 
 
 def _device_events(fn, iters: int, warm: int, attempts: int = 3,
@@ -51,11 +64,9 @@ def _device_events(fn, iters: int, warm: int, attempts: int = 3,
     ``torch.profiler`` records over ``iters`` calls of ``fn`` after
     ``warm`` calls.
 
-    A profiling session can lose the records of its first launches (up
-    to 17 on an H100 in ``tools/profiler_session_loss.py``'s run, all
-    else whole). So each session starts with launches of its own to
-    lose: 64 short spins of the card (``torch.cuda._sleep``, some 5 us
-    each, left out of the events), then the calls. A session
+    Each session starts with launches of its own to lose: ``SPINS``
+    short spins of the card (``spin``, left out of the events), then the
+    calls. A session
     that is empty, or whose count of a part of ``per_call`` is not
     ``iters`` times its count a call (``instance_mismatches``), is taken
     again with 4x the spins, up to ``attempts`` sessions; then it raises,
@@ -70,8 +81,7 @@ def _device_events(fn, iters: int, warm: int, attempts: int = 3,
         SESSIONS["taken"] += 1
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(64 * 4 ** attempt):
-                torch.cuda._sleep(10_000)
+            spin(SPINS * 4 ** attempt)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()

@@ -135,15 +135,16 @@ def _port_sources():
     yield os.path.join(REPO, "tools", "bench_torch_megacell.py")
     yield os.path.join(REPO, "tools", "bench_torch_winograd.py")
     yield os.path.join(REPO, "tools", "profiler_session_loss.py")
+    yield os.path.join(REPO, "tools", "build_anchor_torch.py")
 
 
 def test_port_imports_no_jax():
     """No module of the port, not chip_smoke.py and not the port's tools
-    (the profilers, the int8, decode-cell and Winograd studies and the
-    profiler-session check) imports jax, flax, optax, msgpack (the card's
-    machine has none: the port decodes checkpoints itself), PIL or h5py
-    (neither is there either) or the JAX package (the port keeps its own
-    copies)."""
+    (the profilers, the int8, decode-cell and Winograd studies, the
+    profiler-session check and the metrics anchor) imports jax, flax,
+    optax, msgpack (the card's machine has none: the port decodes
+    checkpoints itself), PIL or h5py (neither is there either) or the JAX
+    package (the port keeps its own copies)."""
     banned = ("jax", "flax", "optax", "msgpack", "PIL", "h5py",
               "insenticap_model_tpu")
     offenders = []
