@@ -185,6 +185,31 @@ C++ compiler), then:
    at least tanhf's share); as a record, the bf16 plain path's captions
    against the f32 path's and the f32 scores of the captions the two bf16
    paths part on; and ``eval_metrics``, ``eval_ppl``, ``eval_senti``;
+3j. drives data-parallel training (``parallel/mesh.py``): (a)
+   ``cli.train_xe`` in a process of its own started as torchrun starts a
+   rank (``env://``, RANK 0 of WORLD_SIZE 1) with ``--mesh_shape [1]``,
+   so on NCCL, for epoch 0 on phase 3f's tree rebuilt from its seeds: its
+   metrics line, its epoch-0 checkpoint (params and Adam state) and its
+   dump equal phase 3f's f32 run's bit for bit, v1 launched in its dump;
+   (b) two ranks over gloo, processes of their own sharing the one card
+   (NCCL refuses two ranks on one device), each joined within a time
+   limit (a rank that fails fails the run), on CUDA tensors: the params
+   broadcast from rank 0, the full-width f32 XE step (default dropout,
+   each rank 10 rows of phase 3f's first batch and 40 of its seq2seq
+   batch) and the bf16 sentiment-detector step at HEAD_BS (40 rows a
+   rank) with its eval step, whose two forwards each launch every
+   Winograd transform once in each rank (the launch counts set to 0 just
+   before and read just after), against the one-process steps on the whole
+   batches on the card: f32 losses within 1e-5 relative, each leaf's
+   summed gradient within 1e-5 of its norm (but the two softmax-invariant
+   biases), the params within 1e-5 of Adam's first update of each side's
+   gradient; bf16 within its rounding (1e-2 relative for the loss, each
+   leaf's gradient and the eval loss sum, the params also within one bf16
+   ulp, 2^-7 of their value), the labels equal on at least 99%, the two
+   ranks' params bit for bit alike; (c) the f32 XE step's time per global
+   batch of 20,
+   one process against the two ranks (host clock, median of 5, the
+   card's name and power limit beside it; a reading, no limit);
 4. runs ``detect_and_decode`` at bs=384 in f32 on the kernel path and on
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
@@ -360,6 +385,18 @@ RL_N_SENTI_IMG = {"train": 40, "val": 4, "test": 40}
 # layers: fc and att within 1e-4 of their largest magnitude (the port and
 # the JAX package agree within 1e-5 on the CPU, test_torch_encoder.py; a
 # layout or weight fault is O(1))
+# phase 3j, data parallelism: two ranks share the one card over gloo, the
+# XE batch split 10 + 10 and the detector's HEAD_BS 40 + 40; the ranks'
+# f32 gradient a sum of two halves against one sum of the whole (within
+# 1e-5 of the leaf's norm); the bf16 detector step summed in f32 from two
+# bf16 halves against one bf16 backward (within bf16's rounding, phase
+# 2's 1e-2); each rank process joined within DP_TIMEOUT_S
+DP_RANKS = 2
+WINO_NAMES = ("wino_input", "wino_middle", "wino_output")
+DP_TIMEOUT_S = 300
+DP_TIMED_STEPS = 5
+DP_GRAD_RTOL = 1e-5
+DP_BF16_RTOL = 1e-2
 PP_N_PNG = 32
 PP_FEAT_BS = 32
 PP_CPU_TOL = 1e-4
@@ -947,23 +984,72 @@ def _param_diff(a, b):
     return rest, inv
 
 
+def _xe_tree(torch, dev, settings, tmp):
+    """Phase 3f's tree under ``tmp`` (>= 5 train batches, val with its last
+    batch padded, test; the vocabulary padded to VOCAB words) and a seeded
+    full-width sentence classifier saved there by the port's writer and
+    read back bit-identical -> (words, the classifier, its file)."""
+    from insenticap_model_tpu_torch import synthetic
+    from insenticap_model_tpu_torch.models import sent_senti_cls as ss_cls
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    synthetic.build_tree(tmp, settings, seed=0, n_img=XE_N_IMG)
+    synthetic.write_det_concepts(tmp)
+    vpath = os.path.join(tmp, "data/captions/coco/part/idx2word.json")
+    with open(vpath) as f:
+        words = json.load(f)
+    words += [f"w{i}" for i in range(len(words), VOCAB)]
+    with open(vpath, "w") as f:
+        json.dump(words, f)
+    cls = ss_cls.init_params(torch.Generator().manual_seed(5), VOCAB,
+                             NUM_CATS, settings, device=dev)
+    cls_file = os.path.join(tmp, "cls.ckpt")
+    tck.save(cls_file, cls, None, {
+        "settings": settings.to_dict(), "idx2word": words,
+        "sentiment_categories": ["positive", "negative", "neutral"],
+        "dataset_name": "coco", "corpus_type": "part"})
+    back, _ = tck.load(cls_file, device=dev)
+    _check([p for p, _ in _tree_paths(back)]
+           == [p for p, _ in _tree_paths(cls)] and all(
+               torch.equal(a, b) for (_, a), (_, b) in
+               zip(_tree_paths(back), _tree_paths(cls))),
+           "the classifier checkpoint did not read back bit-identical")
+    return words, cls, cls_file
+
+
+def _xe_opts(settings, tmp, cls_file, name, **kw):
+    """Phase 3f's train_xe options for a run ``name`` on the tree at
+    ``tmp``, the classifier copied under its checkpoint root."""
+    import shutil
+    from insenticap_model_tpu_torch.config import Opts
+    ck = os.path.join(tmp, "ck_" + name)
+    d = os.path.join(ck, "sent_senti_cls", "coco", "part")
+    os.makedirs(d)
+    shutil.copy(cls_file, os.path.join(d, "model-best.ckpt"))
+    return Opts(**dict(dict(
+        settings=settings, xe_bs=XE_BS, beam_size=BEAM, max_seq_len=T,
+        seed=0, scheduled_sampling_increase_every=1,
+        captions_dir=os.path.join(tmp, "data/captions"),
+        feats_dir=os.path.join(tmp, "data/features"), checkpoint=ck,
+        result_dir=os.path.join(tmp, "res_" + name)), **kw))
+
+
 def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
-              read_counters):
+              read_counters, keep):
     """Phase 3f: the XE pre-training stage through ``cli.train_xe.train``
     at full width on a synthetic tree: two f32 epochs, the epoch-0
     checkpoint read back bit for bit, a resume from it against the
     uninterrupted run, one f32 step on the card against the same step on
-    the CPU, one bf16 epoch, and the step and dump times."""
+    the CPU, one bf16 epoch, and the step and dump times. ``keep`` gets,
+    for phase 3j, the epoch-0 params, optimizer state, metrics and dump of
+    the f32 run and the first train and seq2seq batches."""
     import dataclasses
-    import shutil
     import tempfile
-    from insenticap_model_tpu_torch import inference, nn, synthetic
+    from insenticap_model_tpu_torch import inference, nn
     from insenticap_model_tpu_torch.cli import common
     from insenticap_model_tpu_torch.cli import train_xe
     from insenticap_model_tpu_torch.config import Opts
     from insenticap_model_tpu_torch.data import feature_store as tfs
     from insenticap_model_tpu_torch.models import captioner as cap
-    from insenticap_model_tpu_torch.models import sent_senti_cls as ss_cls
     from insenticap_model_tpu_torch.ops import fused_attention as fa
     from insenticap_model_tpu_torch.training import checkpoint as tck
     from insenticap_model_tpu_torch.training import optim, steps
@@ -1038,46 +1124,16 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
 
     with tempfile.TemporaryDirectory() as tmp:
         # 1. the tree: >= 5 train batches, val (its last batch padded) and
-        # test; the vocabulary padded to VOCAB words
+        # test; the vocabulary padded to VOCAB words; 2. a seeded
+        # full-width sentence classifier through the port's writer and
+        # reader
         t0 = time.time()
-        synthetic.build_tree(tmp, settings, seed=0, n_img=XE_N_IMG)
-        synthetic.write_det_concepts(tmp)
-        vpath = os.path.join(tmp, "data/captions/coco/part/idx2word.json")
-        with open(vpath) as f:
-            words = json.load(f)
-        words += [f"w{i}" for i in range(len(words), VOCAB)]
-        with open(vpath, "w") as f:
-            json.dump(words, f)
+        words, cls, cls_file = _xe_tree(torch, dev, settings, tmp)
         out["tree_s"] = time.time() - t0
 
-        # 2. a seeded full-width sentence classifier through the port's
-        # writer and reader
-        cls = ss_cls.init_params(torch.Generator().manual_seed(5), VOCAB,
-                                 NUM_CATS, settings, device=dev)
-        cls_file = os.path.join(tmp, "cls.ckpt")
-        tck.save(cls_file, cls, None, {
-            "settings": settings.to_dict(), "idx2word": words,
-            "sentiment_categories": cats, "dataset_name": "coco",
-            "corpus_type": "part"})
-        back, _ = tck.load(cls_file, device=dev)
-        _check([p for p, _ in _tree_paths(back)]
-               == [p for p, _ in _tree_paths(cls)] and all(
-                   torch.equal(a, b) for (_, a), (_, b) in
-                   zip(_tree_paths(back), _tree_paths(cls))),
-               "the classifier checkpoint did not read back bit-identical")
-
         def opts(name, **kw):
-            ck = os.path.join(tmp, "ck_" + name)
-            d = os.path.join(ck, "sent_senti_cls", "coco", "part")
-            os.makedirs(d)
-            shutil.copy(cls_file, os.path.join(d, "model-best.ckpt"))
-            return Opts(**dict(dict(
-                settings=settings, xe_bs=XE_BS, beam_size=BEAM,
-                max_seq_len=T, seed=0, scheduled_sampling_increase_every=1,
-                captions_dir=os.path.join(tmp, "data/captions"),
-                feats_dir=os.path.join(tmp, "data/features"),
-                checkpoint=ck, result_dir=os.path.join(tmp, "res_" + name),
-                device=str(dev)), **kw))
+            return _xe_opts(settings, tmp, cls_file, name,
+                            **dict(dict(device=str(dev)), **kw))
 
         def stage(o, *parts):
             return os.path.join(o.checkpoint, "xe", "coco", "part", *parts)
@@ -1148,6 +1204,11 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
                     f"epoch-0 {what} did not read back bit-identical")
             _check(int(s_back["count"]) == len(f32_steps) // 2
                    and meta0["epoch"] == 0, "epoch-0 step count")
+            keep["epoch0"] = {
+                "params": p_saved, "opt_state": s_saved,
+                "metrics": metrics[0], "steps": f32_steps[:len(f32_steps)
+                                                         // 2],
+                "result_0": res0}
 
             # 5. --xe_resume from it: epoch 1 again, against the
             # uninterrupted run (the same batches and draws)
@@ -1198,6 +1259,9 @@ def _train_xe(torch, np, dev, settings, cap_t, zero_counters,
         batch = loader.assemble(loader._index_batches()[0])
         scs_loader = common.scs_loader(scs_id, vocab, o, train_xe.SCS_BS)
         scs_b = scs_loader.assemble(scs_loader._index_batches()[0])
+        keep["batch"], keep["scs"] = (
+            {k: v for k, v in b_.items() if k not in common.HOST_KEYS}
+            for b_ in (batch, scs_b))
         nodrop = dataclasses.replace(settings, dropout_p=0.0)
 
         class RecordingAdam(optim.Adam):
@@ -1465,6 +1529,382 @@ def _gather_both_ways(np, tfs, paths, fns, step_ms):
         for st in readers.values():
             st.close()
         out[kind] = res
+    return out
+
+
+def _dp_steps(torch, np, dev, inputs, settings):
+    """Phase 3j(b)'s work on this process's rank (the whole batch where
+    there is no process group): the full-width f32 XE step (the default
+    dropout, ss_prob 0) on its rows of phase 3f's first train and seq2seq
+    batches, then DP_TIMED_STEPS more steps, each timed between barriers;
+    then the bf16 detector's train step and its eval step (two forwards
+    through the Winograd kernels, their launch counts set to 0 just
+    before and read just after) on its rows of a seeded HEAD_BS batch.
+    Every rank seeds alike; the params are broadcast from rank 0
+    (``mesh.replicate``); the gradients recorded are those Adam steps on."""
+    from insenticap_model_tpu_torch import nn
+    from insenticap_model_tpu_torch.models import captioner as cap
+    from insenticap_model_tpu_torch.models import sent_senti_cls as ss_cls
+    from insenticap_model_tpu_torch.models import sentiment_detector as sd
+    from insenticap_model_tpu_torch.ops import winograd_kernels as wk
+    from insenticap_model_tpu_torch.parallel import mesh
+    from insenticap_model_tpu_torch.training import optim, steps
+
+    class RecordingAdam(optim.Adam):
+        """Adam that keeps, on the host, the gradients it steps on."""
+        def step(self):
+            self.grads = [torch.zeros(p.shape) if p.grad is None
+                          else p.grad.detach().float().cpu().clone()
+                          for _, p in _tree_paths(self.params)]
+            super().step()
+
+    rank, world = mesh.rank(), mesh.world_size()
+
+    def rows(batch, n):
+        sl = mesh.shard_rows(n, rank, world)
+        return {k: torch.from_numpy(np.ascontiguousarray(v[sl])).to(dev)
+                for k, v in batch.items() if k != "valid"}
+
+    def record(adam, params):
+        return {"grads": adam.grads,
+                "paths": [q for q, _ in _tree_paths(params)],
+                "params": [p.detach().float().cpu().clone()
+                           for _, p in _tree_paths(params)]}
+
+    wino = (wk.wino_input, wk.wino_middle, wk.wino_output)
+    out = {"rank": rank, "world": world}
+    with nn.exact_numerics():
+        params = nn.tree_map(
+            lambda x: x.requires_grad_(True),
+            mesh.replicate(cap.init_params(torch.Generator().manual_seed(3),
+                                           VOCAB, NUM_CATS, settings,
+                                           device=dev)))
+        cls = mesh.replicate(ss_cls.init_params(
+            torch.Generator().manual_seed(5), VOCAB, NUM_CATS, settings,
+            device=dev))
+        adam = RecordingAdam(params, XE_LR)
+        train_step, _ = steps.make_xe_steps(settings, adam)
+        b = rows(inputs["batch"], len(inputs["batch"]["caps"]))
+        s = rows(inputs["scs"], len(inputs["scs"]["caps"]))
+        losses = train_step(cls, b, s, torch.Generator(
+            device=dev).manual_seed(0), 0.0)
+        out["xe"] = dict(record(adam, params), losses={
+            k: float(v) for k, v in losses.items()})
+        walls = []
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (
+            lambda: None)
+        for i in range(DP_TIMED_STEPS):
+            mesh.barrier()
+            sync()
+            t0 = time.perf_counter()
+            train_step(cls, b, s, torch.Generator(device=dev).manual_seed(
+                1 + i), 0.0)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["xe"]["step_ms"] = walls
+        # the gradient's all-reduce alone (the identity with one rank)
+        walls = []
+        for _ in range(DP_TIMED_STEPS):
+            mesh.barrier()
+            sync()
+            t0 = time.perf_counter()
+            mesh.reduce_gradients(params)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["xe"]["allreduce_ms"] = walls
+        out["xe"]["grad_bytes"] = 4 * sum(p.numel() for _, p in
+                                          _tree_paths(params))
+
+        det = nn.tree_map(
+            lambda x: x.to(torch.bfloat16).requires_grad_(True),
+            mesh.replicate(sd.init_params(torch.Generator().manual_seed(7),
+                                          NUM_CATS, settings, device=dev)))
+        adam = RecordingAdam(det, HEAD_LR)
+        train_step, eval_step = steps.make_senti_steps(settings, adam)
+        g = torch.Generator().manual_seed(8)
+        batch = {"att": torch.randn((HEAD_BS, 14, 14, settings.att_feat_dim),
+                                    generator=g).numpy(),
+                 "labels": torch.randint(0, NUM_CATS, (HEAD_BS,),
+                                         generator=g).int().numpy()}
+        b = rows(batch, HEAD_BS)
+        b["att"] = b["att"].to(torch.bfloat16)
+        loss = train_step(b, torch.Generator(device=dev).manual_seed(0))
+        for c in wino:
+            c.launches = 0
+        eval_sum, eval_rows, labels = eval_step(b)
+        out["senti"] = dict(
+            record(adam, det), loss=float(loss), eval_sum=float(eval_sum),
+            eval_rows=float(eval_rows), labels=labels.cpu(),
+            launches=[c.launches for c in wino])
+    return out
+
+
+def _dp_rank(rank, world, pg_file, inputs_path, out_path, device,
+             settings_dict):
+    """A rank of phase 3j(b) in a process of its own, every rank on the
+    one card ``device``: joins the gloo group through ``pg_file``, runs
+    ``_dp_steps`` on the inputs at ``inputs_path`` and saves its record to
+    ``out_path``."""
+    import numpy as np
+    import torch
+    from insenticap_model_tpu_torch.config import Settings
+    from insenticap_model_tpu_torch.parallel import mesh
+    mesh.init(world, rank, "gloo", "file://" + pg_file,
+              timeout_s=DP_TIMEOUT_S)
+    try:
+        out = _dp_steps(torch, np, torch.device(device),
+                        torch.load(inputs_path, weights_only=False),
+                        Settings.from_dict(settings_dict))
+    finally:
+        mesh.teardown()
+    torch.save(out, out_path)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_one_rank_cli(torch, dev, settings, keep):
+    """Phase 3j(a): ``cli.train_xe`` in a process of its own, started as
+    torchrun starts a rank (``env://``: RANK 0, WORLD_SIZE 1, LOCAL_RANK
+    0) with ``--mesh_shape [1]``, so on NCCL, for epoch 0 on phase 3f's
+    tree rebuilt from its seeds: its metrics line, its epoch-0 checkpoint
+    (params and optimizer state) and its dump must equal phase 3f's f32
+    run's bit for bit, and v1 must be launched in its dump."""
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="dp_") as tmp:
+        t0 = time.time()
+        _, _, cls_file = _xe_tree(torch, dev, settings, tmp)
+        o = _xe_opts(settings, tmp, cls_file, "nccl1", device=str(dev))
+        out["tree_s"] = time.time() - t0
+        argv = ["--mesh_shape", "[1]", "--xe_epochs", "1",
+                "--device", o.device,
+                "--settings_json", json.dumps(settings.to_dict()),
+                "--xe_bs", str(o.xe_bs), "--beam_size", str(o.beam_size),
+                "--max_seq_len", str(o.max_seq_len), "--seed", str(o.seed),
+                "--scheduled_sampling_increase_every",
+                str(o.scheduled_sampling_increase_every),
+                "--captions_dir", o.captions_dir, "--feats_dir", o.feats_dir,
+                "--checkpoint", o.checkpoint, "--result_dir", o.result_dir]
+        code = ("import sys\n"
+                "from insenticap_model_tpu_torch.cli import train_xe\n"
+                "from insenticap_model_tpu_torch.ops import "
+                "fused_attention as fa\n"
+                "train_xe.main(sys.argv[1:])\n"
+                "print('V1_LAUNCHES', fa.beam_content_attention.launches)\n")
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                   PYTHONPATH=os.pathsep.join(
+                       [REPO_DIR] + [p for p in [os.environ.get(
+                           "PYTHONPATH")] if p]))
+        t0 = time.time()
+        try:
+            r = subprocess.run([sys.executable, "-c", code, *argv],
+                               cwd=REPO_DIR, env=env, capture_output=True,
+                               text=True, timeout=DP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            _fail(f"train_xe --mesh_shape [1] ran past {DP_TIMEOUT_S} s")
+        out["cli_s"] = time.time() - t0
+        _check(r.returncode == 0, f"train_xe --mesh_shape [1] exited "
+               f"{r.returncode}: {r.stderr[-3000:]}")
+        _check("rank 0 of 1 over nccl" in r.stdout,
+               f"train_xe --mesh_shape [1] joined no NCCL group: "
+               f"{r.stdout[-2000:]}")
+        out["v1_launches"] = int(re.findall(r"V1_LAUNCHES (\d+)",
+                                            r.stdout)[-1])
+        _check(out["v1_launches"] > 0, "no v1 launch in the rank's dump")
+        stage = os.path.join(o.checkpoint, "xe", "coco", "part")
+        with open(os.path.join(stage, "metrics.jsonl")) as f:
+            metrics = [json.loads(x) for x in f]
+        ref = keep["epoch0"]
+        _check(metrics == [ref["metrics"]], f"train_xe --mesh_shape [1] "
+               f"metrics {metrics} != phase 3f's {ref['metrics']}")
+        [name] = [f for f in os.listdir(stage) if f.startswith("model_0_")]
+        p, st, _ = tck.load(os.path.join(stage, name), device="cpu",
+                            with_opt_state=True)
+        for tree_a, tree_b, what in ((p, ref["params"], "params"),
+                                     (st, ref["opt_state"], "opt_state")):
+            pa, pb = _tree_paths(tree_a), _tree_paths(tree_b)
+            _check([q for q, _ in pa] == [q for q, _ in pb] and all(
+                a.dtype == b.dtype and torch.equal(a, b.cpu())
+                for (_, a), (_, b) in zip(pa, pb)),
+                f"train_xe --mesh_shape [1] epoch-0 {what} differ from "
+                "phase 3f's")
+        with open(os.path.join(o.result_dir, "xe", "coco", "part",
+                               "result_0.json")) as f:
+            _check(json.load(f) == ref["result_0"], "train_xe --mesh_shape "
+                   "[1] dump differs from phase 3f's")
+        out["metrics"] = metrics[0]
+    return out
+
+
+def _dp_gaps(torch, rec, ref, lr, clip, eps, bf16=False):
+    """A rank's step record against the one-process one: (the largest
+    per-leaf |g - g_1| / |g_1| (L2) but the two softmax-invariant biases,
+    that leaf, the largest param gap, the elements past its tolerance).
+    The params hold Adam's first update of each side's gradient: the gap
+    is |p - p_1 - lr (u(g_1) - u(g))|, u = c / (|c| + eps) of the clipped
+    gradient (float64 on the host), held within 1e-5, and in bf16 also
+    within one ulp of the params' rounding (2^-7 of the value: each side
+    rounds its own update to the bf16 grid)."""
+    def u(g):
+        c = g.double().clamp(-clip, clip)
+        return c / (c.abs() + eps)
+    worst, leaf, gap, over = 0.0, None, 0.0, 0
+    for path, g, g1, p, p1 in zip(ref["paths"], rec["grads"], ref["grads"],
+                                  rec["params"], ref["params"]):
+        if path not in SOFTMAX_INVARIANT:
+            n = float(g1.norm())
+            rel = float((g - g1).norm()) / n if n else \
+                (0.0 if torch.equal(g, g1) else math.inf)
+            if rel >= worst:
+                worst, leaf = rel, "/".join(map(str, path))
+        d = (p.double() - p1.double()) - lr * (u(g1) - u(g))
+        tol = 1e-5 + (2.0 ** -7 * p1.double().abs() if bf16 else 0.0)
+        gap = max(gap, float(d.abs().max()))
+        over += int((d.abs() > tol).sum())
+    return worst, leaf, gap, over
+
+
+def _data_parallel(torch, np, dev, settings, keep):
+    """Phase 3j: data-parallel training. (a) one rank on NCCL through the
+    CLI (``_dp_one_rank_cli``); (b) DP_RANKS ranks over gloo, processes of
+    their own sharing the one card (NCCL refuses two ranks on one
+    device), each joined with a time limit, through ``parallel/mesh.py``
+    on CUDA tensors (``_dp_rank``): the f32 XE step and the bf16 detector
+    step on their rows, against the one-process steps on the whole
+    batches on the card; (c) the f32 XE step's time per global batch of
+    XE_BS, one process against the ranks (host clock, median of
+    DP_TIMED_STEPS; a reading, no limit)."""
+    import torch.multiprocessing as mp
+    from insenticap_model_tpu_torch.training import optim
+    t_phase = time.time()
+    out = {"one_rank_nccl": _dp_one_rank_cli(torch, dev, settings, keep)}
+    inputs = {"batch": keep["batch"], "scs": keep["scs"]}
+    with tempfile.TemporaryDirectory(prefix="dp_ranks_") as tmp:
+        inputs_path = os.path.join(tmp, "inputs.pt")
+        torch.save(inputs, inputs_path)
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_dp_rank, args=(
+            r, DP_RANKS, os.path.join(tmp, "pg"), inputs_path,
+            os.path.join(tmp, f"rank{r}.pt"), str(dev),
+            settings.to_dict())) for r in range(DP_RANKS)]
+        t0 = time.time()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        _check(not alive, f"ranks {alive} ran past {DP_TIMEOUT_S} s")
+        _check(all(p.exitcode == 0 for p in procs), "a rank failed: exit "
+               f"codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_RANKS)]
+        out["ranks_s"] = time.time() - t0
+    ref = _dp_steps(torch, np, dev, inputs, settings)   # one process
+
+    rows = []
+    for rec in ranks:
+        xe, se = rec["xe"], rec["senti"]
+        loss_rel = max(abs(xe["losses"][k] - ref["xe"]["losses"][k])
+                       / abs(ref["xe"]["losses"][k]) for k in xe["losses"])
+        g_xe, leaf_xe, gap_xe, over_xe = _dp_gaps(
+            torch, xe, ref["xe"], XE_LR, 0.1, optim.EPS)
+        s_rel = abs(se["loss"] - ref["senti"]["loss"]) / abs(
+            ref["senti"]["loss"])
+        g_se, leaf_se, gap_se, over_se = _dp_gaps(
+            torch, se, ref["senti"], HEAD_LR, 0.1, optim.EPS, bf16=True)
+        rows.append({"rank": rec["rank"], "xe_loss_rel": loss_rel,
+                     "xe_grad_rel": g_xe, "xe_grad_leaf": leaf_xe,
+                     "xe_param_gap": gap_xe, "xe_param_over": over_xe,
+                     "senti_loss_rel": s_rel, "senti_grad_rel": g_se,
+                     "senti_grad_leaf": leaf_se, "senti_param_gap": gap_se,
+                     "senti_param_over": over_se,
+                     "wino_launches": se["launches"]})
+        _check(loss_rel <= 1e-5, f"rank {rec['rank']} XE losses "
+               f"{xe['losses']} against one process's "
+               f"{ref['xe']['losses']}: {loss_rel} relative (tolerance "
+               "1e-5)")
+        _check(g_xe <= DP_GRAD_RTOL, f"rank {rec['rank']} XE gradient of "
+               f"{leaf_xe} differs from one process's by {g_xe} of its "
+               f"norm (tolerance {DP_GRAD_RTOL})")
+        _check(over_xe == 0, f"rank {rec['rank']} XE params: {over_xe} "
+               f"elements past 1e-5 of Adam's update (largest {gap_xe})")
+        _check(s_rel <= DP_BF16_RTOL and g_se <= DP_BF16_RTOL
+               and over_se == 0, f"rank {rec['rank']} bf16 detector step "
+               f"against one process's: loss {s_rel}, gradient {g_se} "
+               f"({leaf_se}; tolerance {DP_BF16_RTOL}), params {over_se} "
+               f"elements past their tolerance (largest {gap_se})")
+        _check(se["launches"] == ref["senti"]["launches"] == [2, 2, 2],
+               f"rank {rec['rank']} Winograd launches {se['launches']} "
+               f"(one process {ref['senti']['launches']}); the eval step's "
+               "two forwards launch each transform once")
+    _check(all(torch.equal(a, b) for r in ranks[1:] for a, b in zip(
+        r["xe"]["params"] + r["senti"]["params"],
+        ranks[0]["xe"]["params"] + ranks[0]["senti"]["params"])),
+        "the ranks' params differ")
+    labels = torch.cat([r["senti"]["labels"] for r in ranks])
+    share = float((labels == ref["senti"]["labels"]).float().mean())
+    eval_sum = sum(r["senti"]["eval_sum"] for r in ranks)
+    eval_rel = abs(eval_sum - ref["senti"]["eval_sum"]) / abs(
+        ref["senti"]["eval_sum"])
+    _check(sum(r["senti"]["eval_rows"] for r in ranks) == HEAD_BS
+           and eval_rel <= DP_BF16_RTOL and share >= HEAD_LABEL_GATE,
+           f"the ranks' bf16 eval against one process's: loss sum "
+           f"{eval_rel} relative (tolerance {DP_BF16_RTOL}), labels equal "
+           f"on {share:.2%} (gate {HEAD_LABEL_GATE:.0%})")
+    per_batch = [max(r["xe"]["step_ms"][i] for r in ranks)
+                 for i in range(DP_TIMED_STEPS)]
+    allreduce = [max(r["xe"]["allreduce_ms"][i] for r in ranks)
+                 for i in range(DP_TIMED_STEPS)]
+    out.update(ranks=rows, eval_sum_rel=eval_rel, labels_equal=share,
+               time={"one_process_ms": statistics.median(
+                   ref["xe"]["step_ms"]),
+                   "ranks_ms": statistics.median(per_batch),
+                   "allreduce_ms": statistics.median(allreduce),
+                   "grad_mb": ranks[0]["xe"]["grad_bytes"] / 1e6,
+                   "one_process_all_ms": ref["xe"]["step_ms"],
+                   "ranks_all_ms": per_batch, "allreduce_all_ms": allreduce},
+               phase_s=time.time() - t_phase)
+    smi = _smi()
+    a = out["one_rank_nccl"]
+    print(f"data parallel (phase 3j) (a) train_xe --mesh_shape [1] on NCCL "
+          f"(env://, world size 1): epoch 0's metrics, checkpoint and dump "
+          f"bit for bit phase 3f's (train all_loss "
+          f"{a['metrics']['train_all_loss']:.6f}), v1 launches "
+          f"{a['v1_launches']}, {a['cli_s']:.1f} s with the process's start")
+    for r in rows:
+        print(f"data parallel (b) rank {r['rank']} of {DP_RANKS} over gloo "
+              f"on the one card against one process: f32 XE step (rows "
+              f"{XE_BS // DP_RANKS} of {XE_BS}) losses max rel "
+              f"{r['xe_loss_rel']:.3g}, gradient max rel "
+              f"{r['xe_grad_rel']:.3g} ({r['xe_grad_leaf']}), params gap "
+              f"{r['xe_param_gap']:.3g}; bf16 detector step (rows "
+              f"{HEAD_BS // DP_RANKS} of {HEAD_BS}) loss rel "
+              f"{r['senti_loss_rel']:.3g}, gradient max rel "
+              f"{r['senti_grad_rel']:.3g}, params past tolerance "
+              f"{r['senti_param_over']}; Winograd launches (input, middle, "
+              f"output) {r['wino_launches']}")
+    print(f"data parallel (b) bf16 eval over the ranks: loss sum rel "
+          f"{eval_rel:.3g}, labels equal to one process's on {share:.2%}; "
+          f"ranks' processes {out['ranks_s']:.1f} s with their start")
+    t = out["time"]
+    print(f"data parallel (c) f32 XE step per global batch of {XE_BS} on "
+          f"{smi}: one process {t['one_process_ms']:.2f} ms, {DP_RANKS} "
+          f"ranks sharing the card over gloo {t['ranks_ms']:.2f} ms, of "
+          f"which the gradient's all-reduce alone ({t['grad_mb']:.1f} MB "
+          f"f32) {t['allreduce_ms']:.2f} ms (medians of {DP_TIMED_STEPS}; "
+          f"host clock); phase 3j {out['phase_s']:.1f} s")
+    out["device"] = smi
     return out
 
 
@@ -4016,8 +4456,9 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 3f. the XE pre-training stage (train_xe) -------------------------
+    xe_keep = {}
     report["train_xe"] = _train_xe(torch, np, dev, settings, cap_t,
-                                   zero_counters, read_counters)
+                                   zero_counters, read_counters, xe_keep)
     torch.cuda.empty_cache()
 
     # -- 3g. the head-stage trainers and the concept CLIs -----------------
@@ -4038,6 +4479,12 @@ def main():
             torch, np, dev, settings, enc32, zero_counters, read_counters,
             report["train_rl"]["files"])
         torch.cuda.empty_cache()
+
+    # -- 3j. data-parallel training (parallel/mesh.py) ---------------------
+    report["data_parallel"] = _data_parallel(torch, np, dev, settings,
+                                             xe_keep)
+    del xe_keep
+    torch.cuda.empty_cache()
 
     # -- 4. f32 end to end: kernel path against the plain path -------------
     params32 = inference.ServingParams(cap32, det32)
@@ -4283,6 +4730,8 @@ def main():
         "launches": launches["beam_content_attention"],
         "launches_train_xe": report["train_xe"]["launches"][
             "beam_content_attention"],
+        "launches_data_parallel": report["data_parallel"]["one_rank_nccl"][
+            "v1_launches"],
         "launches_train_rl": sum(
             r["launches"]["beam_content_attention"]
             for r in report["train_rl"]["epochs"].values()),
@@ -4427,6 +4876,9 @@ def main():
             "launches_reproduce": sum(
                 r["launches"][name]
                 for r in report["offline_clis"]["reproduce"].values()),
+            "launches_data_parallel": sum(
+                r["wino_launches"][WINO_NAMES.index(name)]
+                for r in report["data_parallel"]["ranks"]),
             "max_abs_err": checks[name], "ms": k_dev[name + "_kernel"],
             "ms_events": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd, "bound_by": by_, "library_ms": None,

@@ -5,11 +5,22 @@ Inference side (:34-83): JSON artefact reading, the decode's special ids,
 the concept checkpoint bootstrap and the detected-concepts ->
 sentiment-word ids step. Training side (:39-50, :86-143, :341-486): the
 artefact paths (``sniff_store_path``: the ``.isc`` store beside a
-reference ``.h5`` path) and reference-compatible tokenizers, a
-single-device ``Runtime`` (batch placement from pinned memory and the
-dtype policy), each step's seed, the caption, sentiment-corpus, RL fact
-and sentiment-image, concept, sentiment-image and sentence loaders,
-stage directories, checkpoint selection and result and metrics writing.
+reference ``.h5`` path) and reference-compatible tokenizers, the
+``Runtime`` (the rank's device and process group under data parallelism,
+batch placement from pinned memory and the dtype policy), each step's
+seed, the caption, sentiment-corpus, RL fact and sentiment-image,
+concept, sentiment-image and sentence loaders (each rank's stripe,
+``host_shard``), stage directories, checkpoint selection and result and
+metrics writing (rank 0's).
+
+Data parallelism (``--mesh_shape [n]``, n processes launched by
+``torchrun --nproc_per_node n``): each rank loads ``round_bs(bs) / n``
+rows of its stripe of the train split a step, and the steps
+(``training/steps.py``) all-reduce the counts and the gradients, so that
+the ranks' step is the one-process step on the global batch (the ranks'
+batches concatenated in rank order). The eval loaders are not striped:
+every rank evaluates the whole split, so the val loss, and the
+learning-rate halving that reads it, are the same on every rank.
 
 Artefact schemas are the reference's JSON contracts (SURVEY.md §1):
 idx2word.json (list), img_captions.json ({split: {fn: [[word, ...],
@@ -18,6 +29,7 @@ idx2word.json (list), img_captions.json ({split: {fn: [[word, ...],
 """
 from __future__ import annotations
 
+import atexit
 import functools
 import json
 import os
@@ -32,6 +44,7 @@ from ..data import collate
 from ..data.feature_store import open_store  # noqa: F401 (re-export, as
 #   the JAX module: the trainers open stores as common.open_store)
 from ..data.loaders import Loader, device_prefetch
+from ..parallel import mesh
 from ..training import checkpoint as ckpt
 from ..training import optim
 from ..utils.dtypes import resolve_device
@@ -154,30 +167,95 @@ def flatten_caption_items(captions_id: Dict, concepts_id: Dict) -> List:
 
 
 # ---------------------------------------------------------------------------
-# Runtime: one device, placement and dtype policy
+# Runtime: the rank's device and process group, placement and dtype policy
 # ---------------------------------------------------------------------------
 
-class Runtime:
-    """Device and dtype policy for a CLI run: the card unless
-    ``opt.device`` says cpu, float32 or bfloat16 compute. One device: a
-    ``mesh_shape`` of more than one device exits with a message."""
+def mesh_ranks(mesh_shape) -> int:
+    """The ranks of a ``--mesh_shape``: () and (1,) one, (n,) n; a mesh of
+    more than one axis exits with a message (the JAX package's 2-D ``data
+    x model`` mesh is not ported)."""
+    shape = tuple(mesh_shape or ())
+    if len(shape) > 1:
+        raise SystemExit(
+            f"--mesh_shape {list(shape)}: the 2-D data x model mesh is not "
+            "ported yet (it comes after sharded and multi-host serving); "
+            "give a 1-D --mesh_shape [n] for data parallelism")
+    return int(shape[0]) if shape else 1
 
-    def __init__(self, opt: Opts):
-        if int(np.prod(opt.mesh_shape or (1,))) > 1:
-            raise SystemExit(
-                f"--mesh_shape {list(opt.mesh_shape)}: multi-device "
-                "training is not ported yet; train on one device (leave "
-                "--mesh_shape unset)")
+
+class Runtime:
+    """Device, process group and dtype policy for a CLI run: the card
+    unless ``opt.device`` says cpu, float32 or bfloat16 compute.
+
+    ``--mesh_shape [n]`` trains data-parallel over n ranks, launched as n
+    processes by ``torchrun`` (``env://``: ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``): the rank's device is ``cuda:LOCAL_RANK`` (or the CPU
+    under ``--device cpu``), its backend NCCL on the card and gloo on the
+    CPU. A process group the caller joined already (``mesh.init``) is
+    used as it is. Exits with a message where n disagrees with the
+    world size, the mesh is not 1-D, or ``LOCAL_RANK`` has no card of its
+    own. An explicit ``--mesh_shape [1]`` under torchrun joins a group of
+    one rank; without a ``--mesh_shape`` the run is one process. The
+    trainers that run data-parallel pass ``data_parallel=True``; for the
+    other entry points (``unported``: why) more than one rank exits with
+    a message."""
+
+    def __init__(self, opt: Opts, data_parallel: bool = False,
+                 unported: str = "multi-device runs of this entry point "
+                 "are not ported yet; run it on one device"):
+        n = mesh_ranks(opt.mesh_shape)
+        if n > 1 and not data_parallel:
+            raise SystemExit(f"--mesh_shape {list(opt.mesh_shape)}: "
+                             f"{unported}; leave --mesh_shape unset")
+        env_world = os.environ.get("WORLD_SIZE")
         self.opt = opt
         self.device = resolve_device(opt.device)
+        if mesh.initialized():
+            if mesh.world_size() != n:
+                raise SystemExit(
+                    f"--mesh_shape [{n}] disagrees with the process group's "
+                    f"{mesh.world_size()} ranks")
+        elif opt.mesh_shape and env_world is not None:
+            self._join_env(n, int(env_world))
+        elif n > 1:
+            raise SystemExit(
+                f"--mesh_shape [{n}]: launch {n} processes, e.g. torchrun "
+                f"--nproc_per_node {n} -m <this module> --mesh_shape "
+                f"'[{n}]' (WORLD_SIZE is unset)")
+        elif env_world not in (None, "1"):
+            raise SystemExit(
+                f"WORLD_SIZE={env_world} but no --mesh_shape: give "
+                f"--mesh_shape '[{env_world}]' to train data-parallel")
+        self.ranks = mesh.world_size()
         self.dtype = torch.bfloat16 if opt.compute_dtype == "bfloat16" \
             else torch.float32
+        group = f" over {mesh.backend()}" if mesh.initialized() else ""
         print(f"====> device: {self.device}, compute dtype "
-              f"{opt.compute_dtype}")
+              f"{opt.compute_dtype}, rank {mesh.rank()} of {self.ranks}"
+              f"{group}")
+
+    def _join_env(self, n: int, world: int) -> None:
+        """Join torchrun's process group (``env://``) as rank RANK."""
+        if world != n:
+            raise SystemExit(f"--mesh_shape [{n}] disagrees with "
+                             f"WORLD_SIZE={world}")
+        rank = int(os.environ["RANK"])
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        if self.device.type == "cuda":
+            cards = torch.cuda.device_count()
+            if local >= cards:
+                raise SystemExit(
+                    f"LOCAL_RANK {local} has no card of its own ({cards} "
+                    "visible): one rank a card, or --device cpu for gloo")
+            torch.cuda.set_device(local)
+            self.device = torch.device("cuda", local)
+        mesh.init(n, rank, mesh.backend_for(self.device), "env://")
+        atexit.register(mesh.teardown)
 
     def round_bs(self, bs: int) -> int:
-        """The batch size (one device: as given)."""
-        return bs
+        """The global batch size: ``bs`` rounded up to a multiple of the
+        ranks (each rank loads ``round_bs(bs) / ranks`` rows a step)."""
+        return -(-bs // self.ranks) * self.ranks
 
     def put(self, batch: Dict) -> Dict:
         """Array values to the device (from pinned memory, not blocking,
@@ -207,7 +285,9 @@ def start_training(rt: Runtime, params, lr: float, resume: str, validate):
     from the stage's ``init_params``), or the checkpoint ``resume`` with
     its optimizer state and learning rate, which must have ``params``'
     structure and shapes and pass ``validate(metadata)``. The params are
-    cast to the compute dtype and then require grad; Adam keeps float32
+    cast to the compute dtype, broadcast from rank 0 under data
+    parallelism (``mesh.replicate``; a resume loads on every rank, and so
+    do its Adam moments), and then require grad; Adam keeps float32
     moments. Returns (adam, lr, the first epoch to run)."""
     epoch0, opt_state = 0, None
     if resume:
@@ -220,10 +300,12 @@ def start_training(rt: Runtime, params, lr: float, resume: str, validate):
         lr = meta.get("lr", lr)
         epoch0 = meta["epoch"] + 1
         print(f"====> loaded checkpoint, epoch: {meta['epoch']}")
-    params = nn.tree_map(lambda t: t.requires_grad_(True), rt.cast(params))
+    params = nn.tree_map(lambda t: t.requires_grad_(True),
+                         mesh.replicate(rt.cast(params)))
     adam = optim.Adam(params, lr, rt.opt.grad_clip)
     if opt_state is not None:
         optim.load_optax_state(adam, opt_state)
+        mesh.replicate([adam.mu, adam.nu])
         optim.set_lr(adam, lr)
     return adam, lr, epoch0
 
@@ -239,6 +321,26 @@ def step_seed(seed: int, *keys: int) -> int:
 # dataloader.py:275-370)
 # ---------------------------------------------------------------------------
 
+def host_shard():
+    """This rank's item stripe, (rank, ranks), under data parallelism;
+    None for one process. Every training loader takes it (the JAX
+    package's ``host_shard`` on a 1-D mesh, cli/common.py:272-299)."""
+    n = mesh.world_size()
+    return (mesh.rank(), n) if n > 1 else None
+
+
+def _loader(items, bs: int, fn, *, shuffle=True, drop_last=True, seed=0,
+            stripe=None) -> Loader:
+    """The Loader of a ``*_loader`` function: with ``stripe`` (training), this
+    rank's stripe of the items in batches of ``bs / ranks`` rows, ``bs``
+    being the global batch (``Runtime.round_bs``); else every item, in
+    batches of ``bs``."""
+    if stripe is not None:
+        bs //= stripe[1]
+    return Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                  seed=seed, shard=stripe)
+
+
 def caption_loader(fc_store, att_store, captions_id, concepts_id, vocab,
                    opt: Opts, bs: int, shuffle=True, drop_last=True,
                    seed=0) -> Loader:
@@ -247,8 +349,8 @@ def caption_loader(fc_store, att_store, captions_id, concepts_id, vocab,
                            max_seq_len=opt.max_seq_len,
                            num_concepts=opt.num_concepts, pad_id=vocab.pad_id,
                            fc_store=fc_store, att_store=att_store)
-    return Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
-                  seed=seed)
+    return _loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                   seed=seed, stripe=host_shard() if shuffle else None)
 
 
 def scs_loader(senti_corpus_id, vocab, opt: Opts, bs: int, seed=0) -> Loader:
@@ -256,7 +358,7 @@ def scs_loader(senti_corpus_id, vocab, opt: Opts, bs: int, seed=0) -> Loader:
                            num_concepts=opt.num_concepts,
                            num_sentiments=opt.num_sentiments,
                            pad_id=vocab.pad_id)
-    return Loader(senti_corpus_id, bs, fn, shuffle=True, seed=seed)
+    return _loader(senti_corpus_id, bs, fn, seed=seed, stripe=host_shard())
 
 
 def rl_fact_loader(fc_store, att_store, captions_id, concepts_id,
@@ -274,8 +376,8 @@ def rl_fact_loader(fc_store, att_store, captions_id, concepts_id,
                            num_sentiments=opt.num_sentiments,
                            pad_id=vocab.pad_id, fc_store=fc_store,
                            att_store=att_store, rng=rng, fn2row=fn2row)
-    loader = Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
-                    seed=seed)
+    loader = _loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                     seed=seed, stripe=host_shard() if shuffle else None)
     loader.caption_rng = rng
     return loader
 
@@ -292,8 +394,8 @@ def rl_senti_loader(fc_store, att_store, senti_imgs, concepts_id,
                            num_sentiments=opt.num_sentiments,
                            pad_id=vocab.pad_id, fc_store=fc_store,
                            att_store=att_store)
-    return Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
-                  seed=seed)
+    return _loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                   seed=seed, stripe=host_shard() if shuffle else None)
 
 
 def concept_loader(fc_store, items, num_total_concepts: int, bs: int,
@@ -302,16 +404,16 @@ def concept_loader(fc_store, items, num_total_concepts: int, bs: int,
     fn = functools.partial(collate.concept_batch,
                            num_total_concepts=num_total_concepts,
                            fc_store=fc_store)
-    return Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
-                  seed=seed)
+    return _loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                   seed=seed, stripe=host_shard() if shuffle else None)
 
 
 def senti_image_loader(att_store, items, bs: int, shuffle=True,
                        drop_last=True, seed=0) -> Loader:
     """items [(fn, label)] -> {att, labels}."""
     fn = functools.partial(collate.senti_image_batch, att_store=att_store)
-    return Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
-                  seed=seed)
+    return _loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                   seed=seed, stripe=host_shard() if shuffle else None)
 
 
 def senti_sents_loader(items, max_seq_len: int, pad_id: int, bs: int,
@@ -319,16 +421,17 @@ def senti_sents_loader(items, max_seq_len: int, pad_id: int, bs: int,
     """items [[label, ids]] -> {caps, lengths, labels}."""
     fn = functools.partial(collate.senti_sents_batch,
                            max_seq_len=max_seq_len, pad_id=pad_id)
-    return Loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
-                  seed=seed)
+    return _loader(items, bs, fn, shuffle=shuffle, drop_last=drop_last,
+                   seed=seed, stripe=host_shard() if shuffle else None)
 
 
 def train_epoch(train_step, loader, rt: Runtime, seed: int,
                 epoch: int) -> float:
     """A head stage's train pass over ``loader``: step i draws its dropout
     mask from a generator on the device seeded ``step_seed(seed, epoch,
-    i)``; the losses are summed on the device in float64 and read once.
-    Returns the mean loss."""
+    i)`` (alike on every rank); the losses, each the global batch's, are
+    summed on the device in float64 and read once. Returns the mean loss,
+    the same on every rank."""
     tot, n = 0.0, 0
     for i, b in enumerate(device_prefetch(loader, rt.put)):
         gen = torch.Generator(device=rt.device).manual_seed(
@@ -342,7 +445,8 @@ def masked_mean(eval_step, loader, rt: Runtime) -> float:
     """A head stage's eval loss over a split: ``eval_step``'s masked sums
     and row counts, summed on the device and divided once, so that the
     eval loader's padding rows add nothing and the batching does not move
-    the result."""
+    the result. The eval loaders are not striped: every rank reads the
+    whole split and gets the same loss, with no collective."""
     tot = cnt = 0.0
     for b in device_prefetch(loader, rt.put):
         s, c, _ = eval_step(b)
@@ -355,7 +459,9 @@ def masked_mean(eval_step, loader, rt: Runtime) -> float:
 # ---------------------------------------------------------------------------
 
 def ensure_dir(path: str) -> str:
-    os.makedirs(path, exist_ok=True)
+    """``path``, made on rank 0 (the one rank that writes files)."""
+    if mesh.rank() == 0:
+        os.makedirs(path, exist_ok=True)
     return path
 
 
@@ -386,7 +492,10 @@ def best_checkpoint(opt: Opts, stage: str) -> str:
 def dump_results(result_dir: str, tag: str, results: List[Dict],
                  vocab: Optional[Vocab] = None) -> None:
     """result_<tag>.json + .txt, and the id form .txt when ids are present
-    (the input of eval_cls_rnn, reference train_rl.py:283-309)."""
+    (the input of eval_cls_rnn, reference train_rl.py:283-309); rank 0
+    alone writes."""
+    if mesh.rank() != 0:
+        return
     with open(os.path.join(result_dir, f"result_{tag}.json"), "w") as f:
         json.dump([{"image_id": r["image_id"], "caption": r["caption"]}
                    for r in results], f)
@@ -400,7 +509,9 @@ def dump_results(result_dir: str, tag: str, results: List[Dict],
 
 
 def metrics_line(log_path: str, record: Dict) -> None:
-    """One JSON line of metrics."""
+    """One JSON line of metrics, written by rank 0 alone."""
+    if mesh.rank() != 0:
+        return
     with open(log_path, "a") as f:
         f.write(json.dumps(record, sort_keys=True) + "\n")
 

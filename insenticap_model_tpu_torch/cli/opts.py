@@ -84,8 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
     # the JAX package's additions (no reference equivalent)
     p.add_argument("--mesh_shape", type=json.loads,
                    default=json.dumps(list(d.mesh_shape)),
-                   help="the JAX package's mesh; the port trains on one "
-                        "device and refuses a mesh of more than one")
+                   help="[n]: train data-parallel over n ranks, launched "
+                        "by torchrun --nproc_per_node n (the trainers of "
+                        "the XE and head stages); a 2-D mesh and the "
+                        "other entry points refuse more than one device")
     p.add_argument("--compute_dtype", type=str, default=d.compute_dtype,
                    choices=["float32", "bfloat16"])
     p.add_argument("--seed", type=int, default=d.seed)

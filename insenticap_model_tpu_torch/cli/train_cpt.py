@@ -16,6 +16,12 @@ Each step draws its dropout mask from a generator seeded from (seed,
 epoch, step). ``--concept_resume`` restores the parameters, the optimizer
 state and the learning rate, and replays the train loader's shuffles of
 the epochs before it (the JAX CLI restarts its loader's stream instead).
+
+Data-parallel under ``--mesh_shape '[n]'`` (``torchrun --nproc_per_node
+n``; ``cli/train_xe.py`` says how): each rank trains on its stripe of the
+train images, ``round_bs(concept_bs) / n`` rows a step; every rank
+evaluates the whole val and test splits; rank 0 alone writes the metrics
+and the checkpoints, and the other ranks wait at a barrier.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from .opts import parse_opt
 
 def train(opt: Opts):
     """Run the stage; returns the trained params."""
-    rt = common.Runtime(opt)
+    rt = common.Runtime(opt, data_parallel=True)
     idx2concept = common.load_json(
         common.dataset_path(opt, "idx2concept.json"))
     img_concepts = common.load_json(

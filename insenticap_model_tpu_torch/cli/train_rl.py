@@ -131,7 +131,10 @@ def _replay(loader, limit: int = MAX_BATCHES_PER_EPOCH) -> int:
 
 def train(opt: Opts):
     """Run the stage; returns the trained captioner params."""
-    rt = common.Runtime(opt)
+    rt = common.Runtime(opt, unported=(
+        "the RL stage's data-parallel training is not ported yet (it is "
+        "the next stage to come: its two rollouts a step and its epoch "
+        "cap need their own wiring); train it on one device"))
     vocab = common.load_vocab(opt)
     ids = common.token_ids(vocab, opt.sentiment_categories)
     label2idx = {w: i for i, w in enumerate(opt.sentiment_categories)}

@@ -19,6 +19,12 @@ from the other's.
 Each step draws its dropout masks from a generator seeded from (seed,
 epoch, step); ``--senti_resume`` replays the train loader's shuffles of
 the epochs before it (the JAX CLI restarts its loader's stream instead).
+
+Data-parallel under ``--mesh_shape '[n]'`` (``torchrun --nproc_per_node
+n``; ``cli/train_xe.py`` says how): each rank trains on its stripe of the
+train sentences, ``round_bs(80) / n`` rows a step; every rank evaluates
+the whole val split; rank 0 alone writes the metrics and the checkpoints,
+and the other ranks wait at a barrier.
 """
 from __future__ import annotations
 
@@ -75,7 +81,7 @@ def build_datasets(senti_captions, vocab, sentiment_categories, seed=100):
 
 def train(opt: Opts):
     """Run the stage; returns the trained params."""
-    rt = common.Runtime(opt)
+    rt = common.Runtime(opt, data_parallel=True)
     vocab = common.load_vocab(opt)
     senti_captions = common.load_json(
         common.corpus_path(opt, "senti_captions.json"))

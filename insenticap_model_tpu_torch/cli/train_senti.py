@@ -20,6 +20,13 @@ labels) take the Winograd kernels on a CUDA bf16 batch. Each step draws
 its dropout mask from a generator seeded from (seed, epoch, step);
 ``--senti_resume`` replays the train loader's shuffles of the epochs
 before it (the JAX CLI restarts its loader's stream instead).
+
+Data-parallel under ``--mesh_shape '[n]'`` (``torchrun --nproc_per_node
+n``; ``cli/train_xe.py`` says how): each rank trains on its stripe of the
+train images, ``round_bs(senti_bs) / n`` rows a step, through the
+Winograd kernels in its eval steps on the card; every rank evaluates the
+whole val and test splits; rank 0 alone writes the metrics and the
+checkpoints, and the other ranks wait at a barrier.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch
 
 from ..config import Opts
 from ..models import sentiment_detector as senti_det
+from ..parallel import mesh
 from ..training import checkpoint as ckpt
 from ..training import optim, steps
 from . import common
@@ -37,7 +45,7 @@ from .opts import parse_opt
 
 def train(opt: Opts):
     """Run the stage; returns the trained params."""
-    rt = common.Runtime(opt)
+    rt = common.Runtime(opt, data_parallel=True)
     params = senti_det.module_for(opt.settings).init_params(
         torch.Generator().manual_seed(opt.seed),
         len(opt.sentiment_categories), opt.settings, device=rt.device)
@@ -89,6 +97,7 @@ def train(opt: Opts):
         common.metrics_line(os.path.join(ck_dir, "metrics.jsonl"), {
             "epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
             "corr_rate": corr_rate})
+        mesh.barrier()                 # rank 0's metrics
         if epoch == 0 or epoch > 5:
             ckpt.save(
                 ckpt.checkpoint_name(ck_dir, epoch, train_loss, val_loss),

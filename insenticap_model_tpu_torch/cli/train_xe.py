@@ -20,6 +20,14 @@ parameters, the optimizer state and the learning rate, and replays the
 loaders' shuffles of the epochs before it, so that a resumed run meets
 the batches and draws an uninterrupted one meets (the JAX CLI restarts
 its loaders' streams instead).
+
+Data-parallel (``torchrun --nproc_per_node n -m
+insenticap_model_tpu_torch.cli.train_xe --mesh_shape '[n]'``, with
+``--device cpu`` for gloo): each rank trains on its stripe of the train
+captions and of the seq2seq corpus, ``round_bs(xe_bs) / n`` and
+``round_bs(80) / n`` rows a step, and every rank evaluates the whole val
+split. Rank 0 alone decodes the test split and writes the dump, the
+metrics and the checkpoints; the other ranks wait at a barrier.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from .. import inference, nn
 from ..config import Opts
 from ..data.loaders import CycleIterator, device_prefetch
 from ..models import captioner as cap
+from ..parallel import mesh
 from ..training import checkpoint as ckpt
 from ..training import optim, steps
 from . import common
@@ -69,7 +78,7 @@ def ss_prob_at(opt: Opts, epoch: int) -> float:
 
 def train(opt: Opts):
     """Run the stage; returns the trained captioner params."""
-    rt = common.Runtime(opt)
+    rt = common.Runtime(opt, data_parallel=True)
     vocab = common.load_vocab(opt)
     ids = common.token_ids(vocab, opt.sentiment_categories)
     img_captions = common.load_json(
@@ -148,10 +157,11 @@ def train(opt: Opts):
         val_loss["cap_loss"] = val_loss["xe_loss"] + val_loss["da_loss"]
         val_loss["all_loss"] = val_loss["cap_loss"]
 
-        common.dump_results(result_dir, str(epoch),
-                            decode_split(params, fc_store, att_store,
-                                         test_fns, bs, rt, opt, ids, vocab),
-                            vocab)
+        if mesh.rank() == 0:
+            common.dump_results(result_dir, str(epoch),
+                                decode_split(params, fc_store, att_store,
+                                             test_fns, bs, rt, opt, ids,
+                                             vocab), vocab)
 
         if previous_loss is not None and \
                 val_loss["all_loss"] > previous_loss:
@@ -164,6 +174,7 @@ def train(opt: Opts):
             "epoch": epoch, "ss_prob": ss_prob, "lr": lr,
             **{f"train_{k}": v for k, v in train_loss.items()},
             **{f"val_{k}": v for k, v in val_loss.items()}})
+        mesh.barrier()                 # rank 0's dump and metrics
         if epoch in CKPT_EPOCHS:
             ckpt.save(
                 ckpt.checkpoint_name(ck_dir, epoch, train_loss["all_loss"],

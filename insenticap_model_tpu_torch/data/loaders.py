@@ -5,8 +5,10 @@ the same items, batch size and seed, ``Loader`` yields the JAX package's
 batches in the JAX package's order (one ``numpy.random.default_rng(seed)``
 shuffle a pass), collated on a background thread. Training drops the
 partial last batch; eval pads it by repeating the last item and reports
-``valid``. One process: the JAX package's multi-host stripes (its
-``shard``) come with multi-device.
+``valid``. ``shard=(idx, count)`` keeps the JAX package's stripe of the
+items (``items[idx::count]``, cut to ``len(items) // count`` so that
+every rank takes the same number of batches): each data-parallel rank
+reads its own stripe (``cli/common.host_shard``).
 
 Three additions serve an exact resume: ``Loader.advance(passes)`` replays
 the shuffles of passes already taken, ``CycleIterator.skip(n)`` passes
@@ -31,9 +33,16 @@ import numpy as np
 class Loader:
     def __init__(self, items: List, batch_size: int, collate: Callable,
                  shuffle: bool = True, drop_last: bool = True,
-                 seed: int = 0, prefetch: int = 2):
+                 seed: int = 0, prefetch: int = 2,
+                 shard: Optional[tuple] = None):
         if not items:
             raise ValueError("empty dataset")
+        if shard is not None:
+            idx, count = shard
+            per = len(items) // count
+            if per == 0:
+                raise ValueError(f"shard {idx}/{count} is empty")
+            items = items[idx::count][:per]
         self.items = items
         self.batch_size = batch_size
         self.collate = collate

@@ -10,9 +10,13 @@ port runs a Python loop over the fixed ``max_seq_len`` steps.
 Randomness (dropout masks, scheduled sampling, multinomial rollouts)
 draws from one ``torch.Generator`` on the tensors' device, passed as
 ``gen``: the JAX package splits keys instead, so the two agree in
-distribution, not draw for draw. ``deterministic=True`` (the default of
-the eval-mode entries serving uses) draws nothing and returns the inputs
-of every dropout site unchanged.
+distribution, not draw for draw. Every draw is one a row of the global
+batch (``parallel.mesh.rank_rows``), so that a data-parallel rank's rows
+get the draws they get in one process; the rollouts' tokens come from an
+inverse CDF at one uniform a row (``_categorical``).
+``deterministic=True`` (the default of the eval-mode entries serving
+uses) draws nothing and returns the inputs of every dropout site
+unchanged.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from .. import nn
+from ..parallel import mesh
 from ..utils.dtypes import resolve_device
 
 
@@ -278,9 +283,23 @@ def decode_step(params, ctx: DecodeContext, state: DecodeState, it, *,
     return logprobs, new_state, weights
 
 
+def _uniform_rows(gen, rows: int, device):
+    """One uniform in [0, 1) a row, drawn for the global batch under data
+    parallelism and this rank's rows kept (``mesh.rank_rows``)."""
+    return mesh.rank_rows(
+        lambda n: torch.rand((n,), generator=gen, device=device), rows)
+
+
 def _categorical(gen, logprobs):
-    """One draw a row from the distribution exp(logprobs) -> [rows]."""
-    return torch.multinomial(logprobs.float().exp(), 1, generator=gen)[:, 0]
+    """One draw a row from the distribution exp(logprobs) -> [rows]: the
+    inverse CDF at one uniform a row, the first index whose cumulative
+    probability exceeds u times the row's total (a zero-probability index
+    is never taken). A rank draws the global batch's uniforms, so its rows
+    get the tokens they get in one process."""
+    cdf = logprobs.float().exp().cumsum(dim=-1)
+    u = _uniform_rows(gen, cdf.shape[0], cdf.device)
+    idx = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)
+    return idx[:, 0].clamp_max(cdf.shape[-1] - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +321,7 @@ def _teacher_forced_scan(params, ctx: DecodeContext, captions, *, mode: str,
     for t in range(tp1 - 1):
         it = captions[:, t]
         if not deterministic and t >= 1 and ss_prob > 0:
-            use = torch.rand((bs,), generator=gen,
-                             device=captions.device) < ss_prob
+            use = _uniform_rows(gen, bs, captions.device) < ss_prob
             it = torch.where(use, _categorical(gen, outs[-1].detach()),
                              it.long())
         logprobs, state, _ = decode_step(

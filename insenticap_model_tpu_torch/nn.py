@@ -26,6 +26,8 @@ from typing import Callable, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .parallel import mesh as _mesh
+
 
 # ---------------------------------------------------------------------------
 # Initialisers (torch defaults)
@@ -158,11 +160,16 @@ def dropout(gen: Optional[torch.Generator], x, rate: float,
             deterministic: bool):
     """Inverted dropout (torch semantics: kept values scaled by 1/(1-p) at
     train time), the mask drawn from ``gen``, a generator on x's device.
-    Deterministic or rate 0 returns x itself."""
+    x's leading axis is the batch's rows: under data parallelism the mask
+    is drawn for the global batch and each rank keeps its rows
+    (``parallel.mesh.rank_rows``), as the JAX package draws one mask over
+    the global array. Deterministic or rate 0 returns x itself."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    mask = _mesh.rank_rows(
+        lambda rows: torch.rand((rows, *x.shape[1:]), generator=gen,
+                                device=x.device), x.shape[0]) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -44,6 +44,7 @@ from ..models import concept_detector as cpt_det
 from ..models import encoder
 from ..models import sent_senti_cls as ss_cls
 from ..models import sentiment_detector as senti_det
+from ..parallel import mesh
 from ..utils import msgpack
 from ..utils.dtypes import resolve_device, to_device
 
@@ -75,11 +76,20 @@ def save(path: str, params: Any, opt_state: Any, metadata: Dict) -> None:
     ``checkpoint.save`` writes them: the 8-byte header length, the JSON
     metadata (sorted keys), the msgpack payload ``{"params": ...,
     "opt_state": ...}``; through a temporary file and ``os.replace``, so
-    a reader never sees half a file."""
+    a reader never sees half a file. Under data parallelism every rank
+    calls it: rank 0 alone writes (the ranks hold the same params), and
+    every rank then waits at a barrier, so that none reads the file
+    before it is whole (the JAX package's process 0, :53-60)."""
     if opt_state is not None and set(opt_state) != OPTAX_STATE_KEYS:
         raise ValueError("checkpoint.save: the optimizer state must be "
                          "optax's tree, as optim.to_optax_state gives it "
                          f"(keys {sorted(OPTAX_STATE_KEYS)})")
+    if mesh.rank() == 0:
+        _write(path, params, opt_state, metadata)
+    mesh.barrier()
+
+
+def _write(path: str, params: Any, opt_state: Any, metadata: Dict) -> None:
     payload = {"params": _state_dict(convert.to_jax_tensors(params))}
     if opt_state is not None:
         payload["opt_state"] = _state_dict(opt_state)

@@ -20,6 +20,16 @@ reference trainers' loss semantics:
                 ``sentiment_detector.module_for``)
   sentence-cls  train_sent_senti_cls_rnn.py: cross entropy
 
+Under data parallelism (``parallel.mesh``, one process a rank, each with
+its rows of the global batch) every training loss is a rank's local sum
+over the global count (the counts all-reduced before the backward pass),
+the gradients are summed over the ranks before the optimizer's clamp and
+Adam, and the returned losses are the global batch's: the ranks' step is
+the one-process step on the global batch (an average of per-rank means
+would not be, wherever the ranks' token or row counts differ). With one
+rank each collective is the identity. The eval steps run no collective
+(every rank evaluates the whole split).
+
 A train step is plain PyTorch with autograd (the JAX package's training
 steps reach no Pallas kernel either; in the RL step only the frozen
 detector's bf16 forward does, under ``torch.no_grad``); the gradient
@@ -42,6 +52,7 @@ from ..models import concept_detector as cpt_det
 from ..models import sent_senti_cls as ss_cls
 from ..models import sentiment_detector as senti_det
 from ..ops import ciderd_device, lm_device
+from ..parallel import mesh
 from . import optim
 
 CLS_FLAG = 0.4        # reference decoder.py:39
@@ -61,6 +72,35 @@ def _row_mask(batch, bs: int, dtype=torch.float32, device="cpu"):
     return (torch.arange(bs, device=device) < valid).to(dtype)
 
 
+def _global_shares(sums: Dict[str, torch.Tensor],
+                   counts: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each term's local sum over its global count (the counts summed over
+    the ranks in float32, then cast to the sum's type): the shares of the
+    ranks add up to the global batch's loss, and so do their gradients."""
+    keys = list(sums)
+    total = mesh.all_reduce_sum(torch.stack([counts[k].float()
+                                             for k in keys]))
+    return {k: sums[k] / total[i].to(sums[k].dtype)
+            for i, k in enumerate(keys)}
+
+
+def _global_values(shares: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The detached shares summed over the ranks: the global batch's
+    losses."""
+    keys = list(shares)
+    total = mesh.all_reduce_sum(torch.stack([shares[k].detach()
+                                             for k in keys]))
+    return {k: total[i] for i, k in enumerate(keys)}
+
+
+def _apply_gradients(opt: optim.Adam, loss: torch.Tensor) -> None:
+    """Backward from a rank's share, its gradients summed over the ranks,
+    then the clamp and Adam on the global gradient."""
+    loss.backward()
+    mesh.reduce_gradients(opt.params)
+    opt.step()
+
+
 @torch.no_grad()
 def _pseudo_senti_labels(cls_params, caps, lengths, settings):
     """The frozen classifier's labels of the ground-truth captions
@@ -77,46 +117,48 @@ def make_xe_steps(settings, opt: optim.Adam):
     scs_batch: {caps, lengths, cpts, sentis, senti_labels}
 
     ``train_step(cls_params, batch, scs_batch, gen, ss_prob)`` takes one
-    optimizer step and returns the detached losses (the JAX package's
-    keys); ``gen`` is the step's generator on the device.
+    optimizer step and returns the detached losses of the global batch
+    (the JAX package's keys); ``gen`` is the step's generator on the
+    device, seeded alike on every rank.
     ``eval_step(cls_params, batch)`` returns masked (sums, counts) of the
     XE and domain-alignment terms."""
     params = opt.params
 
-    def _losses(cls_params, batch, scs_batch: Optional[Dict], gen,
-                ss_prob: float, deterministic: bool):
-        labels = _pseudo_senti_labels(cls_params, batch["caps"],
-                                      batch["lengths"], settings)
+    def _train_sums(cls_params, batch, scs_batch, gen, ss_prob: float):
+        """The terms' (sums, counts) on this rank's rows: XE, domain
+        alignment and seq2seq (train_xe.py:144-183)."""
+        caps = batch["caps"]
+        labels = _pseudo_senti_labels(cls_params, caps, batch["lengths"],
+                                      settings)
         logprobs, aux = cap.forward_xe(
-            params, batch["fc"], batch["att"], batch["cpts"], batch["caps"],
-            labels, settings=settings, gen=gen, ss_prob=ss_prob,
-            deterministic=deterministic)
-        xe_loss = cap.xe_criterion(logprobs, batch["caps"][:, 1:],
-                                   batch["lengths"])
-        da_loss = cap.domain_alignment_loss(aux["cpt_feats"], aux["fc_emb"])
-        losses = {"xe_loss": xe_loss, "da_loss": da_loss,
-                  "cap_loss": xe_loss + da_loss}
-        total = xe_loss + da_loss
-        if scs_batch is not None:  # training only (train_xe.py:169-183)
-            s2s_logprobs = cap.forward_seq2seq(
-                params, scs_batch["caps"], scs_batch["cpts"],
-                scs_batch["sentis"], scs_batch["senti_labels"],
-                settings=settings, gen=gen, ss_prob=ss_prob,
-                deterministic=deterministic)
-            s2s = cap.xe_criterion(s2s_logprobs, scs_batch["caps"][:, 1:],
-                                   scs_batch["lengths"])
-            losses["seq2seq_loss"] = s2s
-            total = total + s2s
-        losses["all_loss"] = total
-        return total, losses
+            params, batch["fc"], batch["att"], batch["cpts"], caps, labels,
+            settings=settings, gen=gen, ss_prob=ss_prob,
+            deterministic=False)
+        sums, counts = {}, {}
+        sums["xe_loss"], counts["xe_loss"] = cap.xe_criterion_sums(
+            logprobs, caps[:, 1:], batch["lengths"])
+        sums["da_loss"], counts["da_loss"] = cap.domain_alignment_sums(
+            aux["cpt_feats"], aux["fc_emb"],
+            _row_mask(batch, caps.shape[0], device=caps.device))
+        s2s_logprobs = cap.forward_seq2seq(
+            params, scs_batch["caps"], scs_batch["cpts"],
+            scs_batch["sentis"], scs_batch["senti_labels"],
+            settings=settings, gen=gen, ss_prob=ss_prob,
+            deterministic=False)
+        sums["seq2seq_loss"], counts["seq2seq_loss"] = \
+            cap.xe_criterion_sums(s2s_logprobs, scs_batch["caps"][:, 1:],
+                                  scs_batch["lengths"])
+        return sums, counts
 
     def train_step(cls_params, batch, scs_batch, gen, ss_prob: float):
         opt.zero_grad()
-        total, losses = _losses(cls_params, batch, scs_batch, gen, ss_prob,
-                                deterministic=False)
-        total.backward()
-        opt.step()
-        return {k: v.detach() for k, v in losses.items()}
+        shares = _global_shares(*_train_sums(cls_params, batch, scs_batch,
+                                             gen, ss_prob))
+        _apply_gradients(opt, sum(shares.values()))
+        losses = _global_values(shares)
+        losses["cap_loss"] = losses["xe_loss"] + losses["da_loss"]
+        losses["all_loss"] = losses["cap_loss"] + losses["seq2seq_loss"]
+        return losses
 
     @torch.no_grad()
     def eval_step(cls_params, batch):
@@ -332,23 +374,25 @@ def make_rl_steps(settings, opt: optim.Adam, ids: cap.TokenIds,
 # Head stages
 # ---------------------------------------------------------------------------
 
-def _head_steps(opt: optim.Adam, loss_fn, eval_fn):
+def _head_steps(opt: optim.Adam, rows_fn, eval_fn):
     """(train_step, eval_step) of a head stage on ``opt.params``.
 
-    ``train_step(batch, gen)`` takes one optimizer step on
-    ``loss_fn(params, batch, gen)`` and returns the detached loss;
-    ``eval_step(batch)`` returns (the masked sum of ``eval_fn``'s per-row
-    losses, the count of true rows, its outputs), so that the eval
-    loader's padding rows add nothing."""
+    ``train_step(batch, gen)`` takes one optimizer step on the mean over
+    the global batch's rows of ``rows_fn(params, batch, gen)``'s per-row
+    losses and returns it, detached; ``eval_step(batch)`` returns (the
+    masked sum of ``eval_fn``'s per-row losses, the count of true rows,
+    its outputs), so that the eval loader's padding rows add nothing."""
     params = opt.params
 
     def train_step(batch, gen):
         opt.zero_grad()
         with nn.exact_numerics():
-            loss = loss_fn(params, batch, gen)
-            loss.backward()
-        opt.step()
-        return loss.detach()
+            rows = rows_fn(params, batch, gen)
+            share = _global_shares(
+                {"loss": rows.sum()},
+                {"loss": torch.tensor(rows.shape[0], device=rows.device)})
+            _apply_gradients(opt, share["loss"])
+        return _global_values(share)["loss"]
 
     @torch.no_grad()
     def eval_step(batch):
@@ -362,16 +406,16 @@ def _head_steps(opt: optim.Adam, loss_fn, eval_fn):
 def make_concept_steps(settings, opt: optim.Adam):
     """The concept detector's steps; batch {fc, cpts}. The eval outputs
     are the sigmoid scores [bs, C]."""
-    def loss_fn(p, batch, gen):
+    def rows_fn(p, batch, gen):
         out = cpt_det.forward(p, batch["fc"], dropout_p=settings.dropout_p,
                               gen=gen, deterministic=False)
-        return cpt_det.multi_label_loss(out, batch["cpts"])
+        return cpt_det.multi_label_loss_rows(out, batch["cpts"])
 
     def eval_fn(p, batch):
         out = cpt_det.forward(p, batch["fc"])
         return cpt_det.multi_label_loss_rows(out, batch["cpts"]), out
 
-    return _head_steps(opt, loss_fn, eval_fn)
+    return _head_steps(opt, rows_fn, eval_fn)
 
 
 def make_senti_steps(settings, opt: optim.Adam):
@@ -382,26 +426,26 @@ def make_senti_steps(settings, opt: optim.Adam):
     once for the loss, once for the labels."""
     sd = senti_det.module_for(settings)
 
-    def loss_fn(p, batch, gen):
-        return sd.xent_loss(p, batch["att"], batch["labels"],
-                            dropout_p=settings.dropout_p, gen=gen,
-                            deterministic=False)
+    def rows_fn(p, batch, gen):
+        logits, _ = sd.forward(p, batch["att"], dropout_p=settings.dropout_p,
+                               gen=gen, deterministic=False)
+        return sd.nll_rows(logits, batch["labels"])
 
     def eval_fn(p, batch):
         rows = sd.xent_nll_rows(p, batch["att"], batch["labels"])
         labels, _, _ = sd.sample(p, batch["att"], 0.0, 0)
         return rows, labels
 
-    return _head_steps(opt, loss_fn, eval_fn)
+    return _head_steps(opt, rows_fn, eval_fn)
 
 
 def make_cls_steps(settings, opt: optim.Adam):
     """The sentence classifier's steps; batch {caps, lengths, labels}.
     The eval outputs are the predicted labels."""
-    def loss_fn(p, batch, gen):
-        return ss_cls.xent_loss(p, batch["caps"], batch["lengths"],
-                                batch["labels"], settings=settings, gen=gen,
-                                deterministic=False)
+    def rows_fn(p, batch, gen):
+        return ss_cls.xent_nll_rows(p, batch["caps"], batch["lengths"],
+                                    batch["labels"], settings=settings,
+                                    gen=gen, deterministic=False)
 
     def eval_fn(p, batch):
         rows = ss_cls.xent_nll_rows(p, batch["caps"], batch["lengths"],
@@ -410,4 +454,4 @@ def make_cls_steps(settings, opt: optim.Adam):
                                 settings=settings)
         return rows, pred
 
-    return _head_steps(opt, loss_fn, eval_fn)
+    return _head_steps(opt, rows_fn, eval_fn)

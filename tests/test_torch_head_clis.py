@@ -451,4 +451,8 @@ def test_entry_point_runs_as_a_module_and_defaults_to_the_card(name):
          "--device", "cpu", "--mesh_shape", "[2]"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
-    assert "not ported yet" in r.stderr, r.stderr[-2000:]
+    # the trainers run data-parallel, launched by torchrun; the concept
+    # CLIs stay on one device
+    want = "not ported yet" if name in ("detect_concepts", "test_cpt") \
+        else "WORLD_SIZE is unset"
+    assert want in r.stderr, r.stderr[-2000:]
