@@ -210,6 +210,29 @@ C++ compiler), then:
    batch of 20,
    one process against the two ranks (host clock, median of 5, the
    card's name and power limit beside it; a reading, no limit);
+3k. drives the RL stage's data-parallel training on phase 3h's tree (a
+   copy taken before phase 3i writes into it): (a) ``cli.train_rl`` in a
+   process of its own started as torchrun starts a rank (``env://``,
+   RANK 0 of WORLD_SIZE 1, so NCCL) with ``--mesh_shape [1]`` for epoch
+   0: its metrics line, its composite checkpoint (the three parts and
+   Adam's state) and every file of its dump equal phase 3h's f32 run's
+   bit for bit, v1 launched in its dump as often as there; (b) two ranks
+   over gloo sharing the one card, on CUDA tensors, each building the
+   CIDEr-D tables itself: the full-width f32 fact and senti RL steps
+   (the default dropout, the real sampler, the RL scheduled sampling;
+   each rank 20 rows of phase 3h's first fact and sentiment batches and
+   40 of its seq2seq batch), and both again in float64, against the
+   one-process steps on the whole batches on the card under phase 3j's
+   gates (losses within 1e-5 relative, each leaf's summed gradient within
+   1e-5 of its norm but the two softmax-invariant biases, the params
+   within 1e-5 of Adam's first update of each side's gradient), the
+   ranks' params bit for bit alike; then a fact step with the detector
+   in bf16, which launches each Winograd transform once in each rank
+   (the launch counts set to 0 just before and read just after); (c)
+   the f32 fact step's time per global batch of 40 (a plain Adam, no
+   copy of the gradients to the host), one process against the two
+   ranks (host clock, median of 5 after one warm-up step, the card's
+   name and power limit beside it; a reading, no limit);
 4. runs ``detect_and_decode`` at bs=384 in f32 on the kernel path and on
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
@@ -396,6 +419,9 @@ WINO_NAMES = ("wino_input", "wino_middle", "wino_output")
 DP_TIMEOUT_S = 300
 DP_TIMED_STEPS = 5
 DP_GRAD_RTOL = 1e-5
+# phase 3k's steps, each held to 3j's gates; the float64 ones show how far
+# the f32 gaps are the rounding of a sum of two halves against one sum
+RL_DP_STEPS = ("fact", "senti", "fact_f64", "senti_f64")
 DP_BF16_RTOL = 1e-2
 PP_N_PNG = 32
 PP_FEAT_BS = 32
@@ -1532,6 +1558,22 @@ def _gather_both_ways(np, tfs, paths, fns, step_ms):
     return out
 
 
+def _recording_adam(torch, optim):
+    """Adam that keeps, on the host, the gradients it steps on, in
+    ``_tree_paths`` order (float32 copies, float64 for a float64 leaf;
+    zeros for a leaf without a gradient)."""
+    class RecordingAdam(optim.Adam):
+        def step(self):
+            self.grads = [
+                torch.zeros(p.shape) if p.grad is None else
+                p.grad.detach().cpu().to(
+                    torch.float64 if p.grad.dtype == torch.float64
+                    else torch.float32, copy=True)
+                for _, p in _tree_paths(self.params)]
+            super().step()
+    return RecordingAdam
+
+
 def _dp_steps(torch, np, dev, inputs, settings):
     """Phase 3j(b)'s work on this process's rank (the whole batch where
     there is no process group): the full-width f32 XE step (the default
@@ -1550,14 +1592,7 @@ def _dp_steps(torch, np, dev, inputs, settings):
     from insenticap_model_tpu_torch.parallel import mesh
     from insenticap_model_tpu_torch.training import optim, steps
 
-    class RecordingAdam(optim.Adam):
-        """Adam that keeps, on the host, the gradients it steps on."""
-        def step(self):
-            self.grads = [torch.zeros(p.shape) if p.grad is None
-                          else p.grad.detach().float().cpu().clone()
-                          for _, p in _tree_paths(self.params)]
-            super().step()
-
+    RecordingAdam = _recording_adam(torch, optim)
     rank, world = mesh.rank(), mesh.world_size()
 
     def rows(batch, n):
@@ -1639,12 +1674,12 @@ def _dp_steps(torch, np, dev, inputs, settings):
     return out
 
 
-def _dp_rank(rank, world, pg_file, inputs_path, out_path, device,
+def _dp_rank(work, rank, world, pg_file, inputs_path, out_path, device,
              settings_dict):
-    """A rank of phase 3j(b) in a process of its own, every rank on the
-    one card ``device``: joins the gloo group through ``pg_file``, runs
-    ``_dp_steps`` on the inputs at ``inputs_path`` and saves its record to
-    ``out_path``."""
+    """A rank of phase 3j(b) or 3k(b) in a process of its own, every rank
+    on the one card ``device``: joins the gloo group through ``pg_file``,
+    runs ``work`` (``_dp_steps`` or ``_rl_dp_steps``) on the inputs at
+    ``inputs_path`` and saves its record to ``out_path``."""
     import numpy as np
     import torch
     from insenticap_model_tpu_torch.config import Settings
@@ -1652,12 +1687,45 @@ def _dp_rank(rank, world, pg_file, inputs_path, out_path, device,
     mesh.init(world, rank, "gloo", "file://" + pg_file,
               timeout_s=DP_TIMEOUT_S)
     try:
-        out = _dp_steps(torch, np, torch.device(device),
-                        torch.load(inputs_path, weights_only=False),
-                        Settings.from_dict(settings_dict))
+        out = work(torch, np, torch.device(device),
+                   torch.load(inputs_path, weights_only=False),
+                   Settings.from_dict(settings_dict))
     finally:
         mesh.teardown()
     torch.save(out, out_path)
+
+
+def _spawn_ranks(torch, work, inputs, dev, settings):
+    """``work`` in DP_RANKS processes of their own over gloo, every rank on
+    the one card (NCCL refuses two ranks on one device), each joined
+    within DP_TIMEOUT_S (a rank that fails fails the run) -> (the ranks'
+    records in rank order, seconds from their start)."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(prefix="dp_ranks_") as tmp:
+        inputs_path = os.path.join(tmp, "inputs.pt")
+        torch.save(inputs, inputs_path)
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_dp_rank, args=(
+            work, r, DP_RANKS, os.path.join(tmp, "pg"), inputs_path,
+            os.path.join(tmp, f"rank{r}.pt"), str(dev),
+            settings.to_dict())) for r in range(DP_RANKS)]
+        t0 = time.time()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        _check(not alive, f"ranks {alive} ran past {DP_TIMEOUT_S} s")
+        _check(all(p.exitcode == 0 for p in procs), "a rank failed: exit "
+               f"codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_RANKS)]
+        return ranks, time.time() - t0
 
 
 def _free_port():
@@ -1665,6 +1733,45 @@ def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def _one_rank_run(module, argv):
+    """``cli.<module>.main(argv)`` in a process of its own, started as
+    torchrun starts a rank (``env://``: RANK 0, WORLD_SIZE 1, LOCAL_RANK
+    0), with ``--mesh_shape [1]`` in ``argv``, so on NCCL -> (the launches
+    of v1 and of the three Winograd transforms in that process, in
+    WINO_NAMES order, seconds from its start). Fails where it exits
+    non-zero, runs past DP_TIMEOUT_S or joins no NCCL group."""
+    what = f"{module} --mesh_shape [1]"
+    code = ("import json, sys\n"
+            f"from insenticap_model_tpu_torch.cli import {module}\n"
+            "from insenticap_model_tpu_torch.ops import "
+            "fused_attention as fa\n"
+            "from insenticap_model_tpu_torch.ops import "
+            "winograd_kernels as wk\n"
+            f"{module}.main(sys.argv[1:])\n"
+            "print('LAUNCHES', json.dumps([fa.beam_content_attention."
+            f"launches] + [getattr(wk, n).launches for n in {WINO_NAMES!r}"
+            "]))\n")
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               PYTHONPATH=os.pathsep.join(
+                   [REPO_DIR] + [p for p in [os.environ.get(
+                       "PYTHONPATH")] if p]))
+    t0 = time.time()
+    try:
+        r = subprocess.run([sys.executable, "-c", code, *argv],
+                           cwd=REPO_DIR, env=env, capture_output=True,
+                           text=True, timeout=DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _fail(f"{what} ran past {DP_TIMEOUT_S} s")
+    seconds = time.time() - t0
+    _check(r.returncode == 0, f"{what} exited {r.returncode}: "
+           f"{r.stderr[-3000:]}")
+    _check("rank 0 of 1 over nccl" in r.stdout,
+           f"{what} joined no NCCL group: {r.stdout[-2000:]}")
+    launches = json.loads(re.findall(r"LAUNCHES (\[.*\])", r.stdout)[-1])
+    return launches[0], launches[1:], seconds
 
 
 def _dp_one_rank_cli(torch, dev, settings, keep):
@@ -1690,32 +1797,8 @@ def _dp_one_rank_cli(torch, dev, settings, keep):
                 str(o.scheduled_sampling_increase_every),
                 "--captions_dir", o.captions_dir, "--feats_dir", o.feats_dir,
                 "--checkpoint", o.checkpoint, "--result_dir", o.result_dir]
-        code = ("import sys\n"
-                "from insenticap_model_tpu_torch.cli import train_xe\n"
-                "from insenticap_model_tpu_torch.ops import "
-                "fused_attention as fa\n"
-                "train_xe.main(sys.argv[1:])\n"
-                "print('V1_LAUNCHES', fa.beam_content_attention.launches)\n")
-        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
-                   PYTHONPATH=os.pathsep.join(
-                       [REPO_DIR] + [p for p in [os.environ.get(
-                           "PYTHONPATH")] if p]))
-        t0 = time.time()
-        try:
-            r = subprocess.run([sys.executable, "-c", code, *argv],
-                               cwd=REPO_DIR, env=env, capture_output=True,
-                               text=True, timeout=DP_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            _fail(f"train_xe --mesh_shape [1] ran past {DP_TIMEOUT_S} s")
-        out["cli_s"] = time.time() - t0
-        _check(r.returncode == 0, f"train_xe --mesh_shape [1] exited "
-               f"{r.returncode}: {r.stderr[-3000:]}")
-        _check("rank 0 of 1 over nccl" in r.stdout,
-               f"train_xe --mesh_shape [1] joined no NCCL group: "
-               f"{r.stdout[-2000:]}")
-        out["v1_launches"] = int(re.findall(r"V1_LAUNCHES (\d+)",
-                                            r.stdout)[-1])
+        out["v1_launches"], _, out["cli_s"] = _one_rank_run("train_xe",
+                                                            argv)
         _check(out["v1_launches"] > 0, "no v1 launch in the rank's dump")
         stage = os.path.join(o.checkpoint, "xe", "coco", "part")
         with open(os.path.join(stage, "metrics.jsonl")) as f:
@@ -1780,36 +1863,12 @@ def _data_parallel(torch, np, dev, settings, keep):
     batches on the card; (c) the f32 XE step's time per global batch of
     XE_BS, one process against the ranks (host clock, median of
     DP_TIMED_STEPS; a reading, no limit)."""
-    import torch.multiprocessing as mp
     from insenticap_model_tpu_torch.training import optim
     t_phase = time.time()
     out = {"one_rank_nccl": _dp_one_rank_cli(torch, dev, settings, keep)}
     inputs = {"batch": keep["batch"], "scs": keep["scs"]}
-    with tempfile.TemporaryDirectory(prefix="dp_ranks_") as tmp:
-        inputs_path = os.path.join(tmp, "inputs.pt")
-        torch.save(inputs, inputs_path)
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_dp_rank, args=(
-            r, DP_RANKS, os.path.join(tmp, "pg"), inputs_path,
-            os.path.join(tmp, f"rank{r}.pt"), str(dev),
-            settings.to_dict())) for r in range(DP_RANKS)]
-        t0 = time.time()
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + DP_TIMEOUT_S
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-        alive = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        _check(not alive, f"ranks {alive} ran past {DP_TIMEOUT_S} s")
-        _check(all(p.exitcode == 0 for p in procs), "a rank failed: exit "
-               f"codes {[p.exitcode for p in procs]}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                            weights_only=False) for r in range(DP_RANKS)]
-        out["ranks_s"] = time.time() - t0
+    ranks, out["ranks_s"] = _spawn_ranks(torch, _dp_steps, inputs, dev,
+                                         settings)
     ref = _dp_steps(torch, np, dev, inputs, settings)   # one process
 
     rows = []
@@ -1905,6 +1964,272 @@ def _data_parallel(torch, np, dev, settings, keep):
           f"f32) {t['allreduce_ms']:.2f} ms (medians of {DP_TIMED_STEPS}; "
           f"host clock); phase 3j {out['phase_s']:.1f} s")
     out["device"] = smi
+    return out
+
+
+def _keep_rl_tree(src, dst, opts):
+    """Copy what phase 3k's ``train_rl`` run reads of phase 3h's tree
+    ``src`` into ``dst`` before phase 3i writes into the tree: the data,
+    the detector's file and the f32 run's bootstrap checkpoints (the XE
+    captioner and the classifier)."""
+    import shutil
+    shutil.copytree(os.path.join(src, "data"), os.path.join(dst, "data"))
+    shutil.copy(os.path.join(src, "det.ckpt"), dst)
+    for stage in ("xe", "sent_senti_cls"):
+        shutil.copytree(os.path.join(opts.checkpoint, stage),
+                        os.path.join(dst, "ck", stage))
+
+
+def _rl_one_rank_cli(torch, dev, settings, keep):
+    """Phase 3k(a): ``cli.train_rl`` in a process of its own, started as
+    torchrun starts a rank (``_one_rank_run``: NCCL, world size 1) with
+    ``--mesh_shape [1]``, for epoch 0 on phase 3h's tree (the copy
+    ``keep["root"]``) with phase 3h's f32 run's options: its metrics line,
+    its composite checkpoint (the three parts and Adam's state) and every
+    file of its dump must equal that run's bit for bit, and v1 must
+    launch as often as there (the Winograd kernels not at all: the f32
+    detector)."""
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    o, root = keep["opts"], keep["root"]
+    argv = ["--mesh_shape", "[1]", "--rl_epochs", "1", "--device", o.device,
+            "--settings_json", json.dumps(settings.to_dict()),
+            "--rl_bs", str(o.rl_bs), "--beam_size", str(o.beam_size),
+            "--max_seq_len", str(o.max_seq_len), "--seed", str(o.seed),
+            "--rl_senti_times", str(o.rl_senti_times),
+            "--rl_senti_resume", os.path.join(root, "det.ckpt"),
+            "--img_senti_labels",
+            os.path.join(root, "data/captions/img_senti_labels.json"),
+            "--captions_dir", os.path.join(root, "data/captions"),
+            "--feats_dir", os.path.join(root, "data/features"),
+            "--checkpoint", os.path.join(root, "ck"),
+            "--result_dir", os.path.join(root, "res")]
+    out = {}
+    out["v1_launches"], out["wino_launches"], out["cli_s"] = \
+        _one_rank_run("train_rl", argv)
+    _check(out["v1_launches"] == keep["v1_launches"] > 0
+           and out["wino_launches"] == [0, 0, 0],
+           f"train_rl --mesh_shape [1]: v1 launches {out['v1_launches']} "
+           f"(phase 3h's f32 run {keep['v1_launches']}), Winograd "
+           f"{out['wino_launches']} (the f32 detector takes none)")
+    stage = os.path.join(root, "ck", "rl", "coco", "part")
+    with open(os.path.join(stage, "metrics.jsonl")) as f:
+        metrics = [json.loads(x) for x in f]
+    _check(metrics == keep["metrics"], f"train_rl --mesh_shape [1] metrics "
+           f"{metrics} != phase 3h's {keep['metrics']}")
+    p, st, _ = tck.load(os.path.join(stage, "model_0.ckpt"), device="cpu",
+                        with_opt_state=True)
+    for tree_a, tree_b, what in zip((p, st), keep["composite"],
+                                    ("parts", "opt_state")):
+        pa, pb = _tree_paths(tree_a), _tree_paths(tree_b)
+        _check([q for q, _ in pa] == [q for q, _ in pb] and all(
+            a.dtype == b.dtype and torch.equal(a, b.cpu())
+            for (_, a), (_, b) in zip(pa, pb)),
+            f"train_rl --mesh_shape [1] epoch-0 {what} differ from phase "
+            "3h's")
+    res = os.path.join(root, "res", "rl", "coco", "part")
+    names = sorted(os.listdir(res))
+    _check(names == sorted(keep["results"]), f"train_rl --mesh_shape [1] "
+           f"dump files {names} != phase 3h's {sorted(keep['results'])}")
+    for name in names:
+        with open(os.path.join(res, name), "rb") as f:
+            _check(f.read() == keep["results"][name], f"train_rl "
+                   f"--mesh_shape [1] dump file {name} differs from phase "
+                   "3h's")
+    out.update(metrics=metrics[0], files=len(names))
+    return out
+
+
+def _rl_dp_steps(torch, np, dev, inputs, settings):
+    """Phase 3k(b)'s work on this process's rank (the whole batches where
+    there is no process group), every rank seeding alike, the captioner
+    broadcast from rank 0 and the CIDEr-D tables built by each rank from
+    the same captions: from the seeded XE captioner of phase 3h, one f32
+    fact step and one f32 senti step (the default dropout, the real
+    sampler, the RL scheduled sampling, the f32 frozen detector and
+    classifier of phase 3h) on its rows of phase 3h's first fact (RL_BS),
+    sentiment (RL_BS) and seq2seq (80) batches; both again in float64;
+    then, with a plain Adam (no copy of the gradients to the host), one
+    f32 fact step to warm up and DP_TIMED_STEPS more, each timed between
+    barriers, and one fact step with the detector in bf16, the Winograd
+    kernels' launch counts set to 0 just before and read just after."""
+    from insenticap_model_tpu_torch import nn
+    from insenticap_model_tpu_torch.models import captioner as cap
+    from insenticap_model_tpu_torch.ops import ciderd_device
+    from insenticap_model_tpu_torch.ops import winograd_kernels as wk
+    from insenticap_model_tpu_torch.parallel import mesh
+    from insenticap_model_tpu_torch.rewards.ciderd import build_scorer
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    from insenticap_model_tpu_torch.training import optim, steps
+    from insenticap_model_tpu_torch.utils.dtypes import cast_bf16
+    RecordingAdam = _recording_adam(torch, optim)
+    ids = cap.TokenIds(pad=0, unk=1, sos=2, eos=3, neutral=2)
+    rank, world = mesh.rank(), mesh.world_size()
+    caps_id = inputs["caps_id"]
+    gts = {**caps_id["train"], **caps_id["val"]}
+    tables, _ = ciderd_device.build_tables(
+        build_scorer(caps_id, ids.sos, ids.eos), gts, list(gts), T,
+        ids.sos, ids.eos, device=dev)
+    det = tck.load(inputs["det_file"], device=dev, dtype=torch.float32)[0]
+    cls = tck.load(inputs["cls_file"], device=dev, dtype=torch.float32)[0]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def rows(batch, dtype):
+        sl = mesh.shard_rows(len(batch["fc" if "fc" in batch else "caps"]),
+                             rank, world)
+        out = {}
+        for k, v in batch.items():
+            if k == "valid":
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(v[sl])).to(dev)
+            out[k] = t.to(dtype) if t.is_floating_point() else t
+        return out
+
+    def train_step(data_type, dtype, adam_cls=RecordingAdam):
+        """(a fresh ``adam_cls`` on the seeded captioner, its RL train
+        step on this rank's rows of ``data_type``'s batch and of the
+        seq2seq batch, bound to those rows: step(frozen, seed))."""
+        params = nn.tree_map(
+            lambda x: x.requires_grad_(True),
+            mesh.replicate(cap.init_params(
+                torch.Generator().manual_seed(3), VOCAB, NUM_CATS, settings,
+                device=dev, dtype=dtype)))
+        adam = adam_cls(params, RL_LR)
+        step = steps.make_rl_steps(settings, adam, ids, T,
+                                   tables)[(data_type, True)]
+        b, s = rows(inputs[data_type], dtype), rows(inputs["scs"], dtype)
+        return adam, lambda frozen, seed: step(
+            frozen, b, s, torch.Generator(device=dev).manual_seed(seed))
+
+    def one_step(data_type, dtype, frozen):
+        """One step from the seeded captioner -> its record."""
+        adam, step = train_step(data_type, dtype)
+        losses = step(frozen, 0)
+        return {"grads": adam.grads,
+                "paths": [q for q, _ in _tree_paths(adam.params)],
+                "params": [p.detach().float().cpu().clone()
+                           for _, p in _tree_paths(adam.params)],
+                "losses": {k: float(v) for k, v in losses.items()}}
+
+    f32 = steps.RLModels(det, cls)
+    f64 = steps.RLModels(*(nn.tree_map(lambda t: t.double(), m)
+                           for m in (det, cls)))
+    out = {"rank": rank, "world": world}
+    for data_type in ("fact", "senti"):
+        out[data_type] = one_step(data_type, torch.float32, f32)
+        out[data_type + "_f64"] = one_step(data_type, torch.float64, f64)
+    _, step = train_step("fact", torch.float32, optim.Adam)
+    step(f32, 0)
+    walls = []
+    for i in range(DP_TIMED_STEPS):
+        mesh.barrier()
+        sync()
+        t0 = time.perf_counter()
+        step(f32, 1 + i)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = walls
+    bf16 = steps.RLModels(cast_bf16(det), cls)
+    for name in WINO_NAMES:
+        getattr(wk, name).launches = 0
+    step(bf16, 0)
+    out["wino_launches"] = [getattr(wk, n).launches for n in WINO_NAMES]
+    return out
+
+
+def _rl_data_parallel(torch, np, dev, settings, keep):
+    """Phase 3k: the RL stage's data-parallel training. (a) one rank on
+    NCCL through the CLI (``_rl_one_rank_cli``) against phase 3h's f32
+    epoch 0; (b) DP_RANKS ranks over gloo sharing the one card
+    (``_spawn_ranks`` of ``_rl_dp_steps``) against the one-process steps
+    on the whole batches on the card, under phase 3j's gates; (c) the f32
+    fact step's time per global batch of RL_BS, one process against the
+    ranks (host clock, median of DP_TIMED_STEPS; a reading, no limit)."""
+    from insenticap_model_tpu_torch.training import optim
+    t_phase = time.time()
+    out = {"one_rank_nccl": _rl_one_rank_cli(torch, dev, settings, keep)}
+    inputs = dict(keep["inputs"],
+                  det_file=os.path.join(keep["root"], "det.ckpt"),
+                  cls_file=os.path.join(keep["root"], "ck", "sent_senti_cls",
+                                        "coco", "part", "model-best.ckpt"))
+    ranks, out["ranks_s"] = _spawn_ranks(torch, _rl_dp_steps, inputs, dev,
+                                         settings)
+    ref = _rl_dp_steps(torch, np, dev, inputs, settings)   # one process
+
+    def loss_rel(got, want):
+        return max(abs(got[k] - want[k]) / abs(want[k]) if want[k]
+                   else abs(got[k]) for k in want)
+    rows = []
+    for rec in ranks:
+        row = {"rank": rec["rank"], "wino_launches": rec["wino_launches"]}
+        for tag in RL_DP_STEPS:
+            g, leaf, gap, over = _dp_gaps(torch, rec[tag], ref[tag], RL_LR,
+                                          0.1, optim.EPS)
+            _check(set(rec[tag]["losses"]) == set(ref[tag]["losses"]),
+                   f"rank {rec['rank']} {tag} loss keys")
+            row[tag] = {"loss_rel": loss_rel(rec[tag]["losses"],
+                                             ref[tag]["losses"]),
+                        "grad_rel": g, "grad_leaf": leaf, "param_gap": gap,
+                        "param_over": over}
+        rows.append(row)
+    per_batch = [max(r["step_ms"][i] for r in ranks)
+                 for i in range(DP_TIMED_STEPS)]
+    same = all(torch.equal(a, b) for r in ranks[1:] for tag in
+               ("fact", "senti") for a, b in zip(r[tag]["params"],
+                                                 ranks[0][tag]["params"]))
+    out.update(ranks=rows, params_alike=same,
+               one_process_wino_launches=ref["wino_launches"],
+               losses={t: ref[t]["losses"] for t in ("fact", "senti")},
+               time={"one_process_ms": statistics.median(ref["step_ms"]),
+                     "ranks_ms": statistics.median(per_batch),
+                     "one_process_all_ms": ref["step_ms"],
+                     "ranks_all_ms": per_batch},
+               phase_s=time.time() - t_phase)
+    smi = _smi()
+    a = out["one_rank_nccl"]
+    n_scs = len(inputs["scs"]["caps"])
+    print(f"RL data parallel (phase 3k) (a) train_rl --mesh_shape [1] on "
+          f"NCCL (env://, world size 1): epoch 0's metrics, composite "
+          f"checkpoint and {a['files']} dump files bit for bit phase 3h's "
+          f"f32 run's (val cap_loss {a['metrics']['val_cap_loss']:.6f}), v1 "
+          f"launches {a['v1_launches']}, {a['cli_s']:.1f} s with the "
+          "process's start")
+    for r in rows:
+        print(f"RL data parallel (b) rank {r['rank']} of {DP_RANKS} over "
+              f"gloo on the one card against one process (rows "
+              f"{RL_BS // DP_RANKS} of {RL_BS}, seq2seq "
+              f"{n_scs // DP_RANKS} of {n_scs}): " + "; ".join(
+                  f"{t} losses max rel {v['loss_rel']:.3g}, gradient max "
+                  f"rel {v['grad_rel']:.3g} ({v['grad_leaf']}), params gap "
+                  f"{v['param_gap']:.3g} ({v['param_over']} past 1e-5)"
+                  for t, v in r.items() if isinstance(v, dict))
+              + f"; bf16 detector's Winograd launches (input, middle, "
+              f"output) {r['wino_launches']}")
+    t = out["time"]
+    print(f"RL data parallel (c) f32 RL fact step per global batch of "
+          f"{RL_BS} (+ {n_scs} seq2seq rows) on {smi}: one process "
+          f"{t['one_process_ms']:.2f} ms, {DP_RANKS} ranks sharing the card "
+          f"over gloo {t['ranks_ms']:.2f} ms (medians of {DP_TIMED_STEPS}; "
+          f"host clock); ranks' processes {out['ranks_s']:.1f} s with their "
+          f"start; phase 3k {out['phase_s']:.1f} s")
+    out["device"] = smi
+    for r in rows:
+        for tag in RL_DP_STEPS:
+            v = r[tag]
+            _check(v["loss_rel"] <= 1e-5, f"rank {r['rank']} RL {tag} "
+                   f"losses against one process's: {v['loss_rel']} "
+                   "relative (tolerance 1e-5)")
+            _check(v["grad_rel"] <= DP_GRAD_RTOL, f"rank {r['rank']} RL "
+                   f"{tag} gradient of {v['grad_leaf']} differs from one "
+                   f"process's by {v['grad_rel']} of its norm (tolerance "
+                   f"{DP_GRAD_RTOL})")
+            _check(v["param_over"] == 0, f"rank {r['rank']} RL {tag} "
+                   f"params: {v['param_over']} elements past 1e-5 of Adam's "
+                   f"update (largest {v['param_gap']})")
+        _check(r["wino_launches"] == ref["wino_launches"] == [1, 1, 1],
+               f"rank {r['rank']} Winograd launches {r['wino_launches']} "
+               f"(one process {ref['wino_launches']}); the bf16 detector "
+               "labels the fact batch once a step")
+    _check(same, "the ranks' params differ")
     return out
 
 
@@ -2445,7 +2770,7 @@ def _head_stages(torch, np, dev, settings, zero_counters, read_counters):
 
 
 def _train_rl(torch, np, dev, settings, zero_counters, read_counters,
-              trained, tmp):
+              trained, tmp, keep):
     """Phase 3h: the RL stage through ``cli.train_rl.train`` at full width
     on a synthetic tree under ``tmp``, bootstrapped from checkpoints the
     port's writer saves (a seeded XE captioner, phase 3g's trained detector
@@ -2455,7 +2780,10 @@ def _train_rl(torch, np, dev, settings, zero_counters, read_counters,
     the detector's and the dump's kernels against their plain twins, and
     the step, reward and dump times. ``out["files"]`` names what phase 3i
     reuses: the tree, the f32 run's composite and checkpoint root, and the
-    detector's file."""
+    detector's file. Into ``keep`` go what phase 3k reuses: the f32 run's
+    options, its epoch 0 (metrics, the composite's trees, the dump's
+    files, v1's launches) and the first fact, sentiment and seq2seq train
+    batches with the tokenized captions."""
     import dataclasses
     from insenticap_model_tpu_torch import inference, nn, synthetic
     from insenticap_model_tpu_torch.cli import common, eval_cls_rnn, train_rl
@@ -2957,6 +3285,26 @@ def _train_rl(torch, np, dev, settings, zero_counters, read_counters,
     out["files"] = {"root": tmp, "checkpoint": f32_opts.checkpoint,
                     "composite": stage(f32_opts, "model_0.ckpt"),
                     "detector": det_file}
+    res_dir = os.path.join(f32_opts.result_dir, "rl", "coco", "part")
+    results = {}
+    for name in sorted(os.listdir(res_dir)):
+        with open(os.path.join(res_dir, name), "rb") as f:
+            results[name] = f.read()
+    s_stores = [common.open_store(common.sniff_store_path(os.path.join(
+        o.feats_dir, "sentiment", f"feats_{kind}.h5")))
+        for kind in ("fc", "att")]
+    s_loader = common.rl_senti_loader(
+        *s_stores, senti_imgs, cpts_id, sentis_id,
+        {c: i for i, c in enumerate(cats)}, vocab, o, RL_BS)
+    host_free = [{k: v for k, v in b_.items() if k not in common.HOST_KEYS}
+                 for b_ in (batch, s_loader.assemble(
+                     s_loader._index_batches()[0]), scs_b)]
+    keep.update(opts=f32_opts, metrics=runs["f32"]["metrics"],
+                composite=saved[stage(f32_opts, "model_0.ckpt")],
+                results=results, v1_launches=runs["f32"]["launches"][
+                    "beam_content_attention"],
+                inputs=dict(zip(("fact", "senti", "scs"), host_free),
+                            caps_id=caps_id))
     smi = _smi()
     ep = out["epochs"]
     print(f"train_rl (phase 3h, full width, vocab {VOCAB}, rl_bs {RL_BS}, "
@@ -4467,12 +4815,16 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 3h. the RL fine-tuning stage (train_rl) -------------------------
-    with tempfile.TemporaryDirectory(prefix="rl_") as rl_tmp:
+    rl_keep = {}
+    with tempfile.TemporaryDirectory(prefix="rl_") as rl_tmp, \
+            tempfile.TemporaryDirectory(prefix="rl_keep_") as rl_copy:
         report["train_rl"] = _train_rl(torch, np, dev, settings,
                                        zero_counters, read_counters, trained,
-                                       rl_tmp)
+                                       rl_tmp, rl_keep)
         del trained
         torch.cuda.empty_cache()
+        _keep_rl_tree(rl_tmp, rl_copy, rl_keep["opts"])
+        rl_keep["root"] = rl_copy
 
         # -- 3i. the offline and evaluation CLIs, on 3h's tree ------------
         report["offline_clis"] = _offline_clis(
@@ -4480,11 +4832,17 @@ def main():
             report["train_rl"]["files"])
         torch.cuda.empty_cache()
 
-    # -- 3j. data-parallel training (parallel/mesh.py) ---------------------
-    report["data_parallel"] = _data_parallel(torch, np, dev, settings,
-                                             xe_keep)
-    del xe_keep
-    torch.cuda.empty_cache()
+        # -- 3j. data-parallel training (parallel/mesh.py) -----------------
+        report["data_parallel"] = _data_parallel(torch, np, dev, settings,
+                                                 xe_keep)
+        del xe_keep
+        torch.cuda.empty_cache()
+
+        # -- 3k. the RL stage's data-parallel training, on 3h's tree ------
+        report["rl_data_parallel"] = _rl_data_parallel(torch, np, dev,
+                                                       settings, rl_keep)
+        del rl_keep
+        torch.cuda.empty_cache()
 
     # -- 4. f32 end to end: kernel path against the plain path -------------
     params32 = inference.ServingParams(cap32, det32)
@@ -4731,6 +5089,7 @@ def main():
         "launches_train_xe": report["train_xe"]["launches"][
             "beam_content_attention"],
         "launches_data_parallel": report["data_parallel"]["one_rank_nccl"][
+            "v1_launches"] + report["rl_data_parallel"]["one_rank_nccl"][
             "v1_launches"],
         "launches_train_rl": sum(
             r["launches"]["beam_content_attention"]
@@ -4878,7 +5237,8 @@ def main():
                 for r in report["offline_clis"]["reproduce"].values()),
             "launches_data_parallel": sum(
                 r["wino_launches"][WINO_NAMES.index(name)]
-                for r in report["data_parallel"]["ranks"]),
+                for r in report["data_parallel"]["ranks"]
+                + report["rl_data_parallel"]["ranks"]),
             "max_abs_err": checks[name], "ms": k_dev[name + "_kernel"],
             "ms_events": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd, "bound_by": by_, "library_ms": None,

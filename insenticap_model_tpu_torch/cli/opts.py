@@ -85,8 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_shape", type=json.loads,
                    default=json.dumps(list(d.mesh_shape)),
                    help="[n]: train data-parallel over n ranks, launched "
-                        "by torchrun --nproc_per_node n (the trainers of "
-                        "the XE and head stages); a 2-D mesh and the "
+                        "by torchrun --nproc_per_node n (every trainer: XE, "
+                        "RL and the head stages); a 2-D mesh and the "
                         "other entry points refuse more than one device")
     p.add_argument("--compute_dtype", type=str, default=d.compute_dtype,
                    choices=["float32", "bfloat16"])

@@ -29,6 +29,19 @@ parameters, Adam's state and learning rate, and replays the loaders'
 shuffles and caption draws of the epochs before it, so that a resumed run
 meets the batches and draws an uninterrupted one meets (the JAX CLI
 restarts its loaders' streams and Adam's state instead).
+
+Data-parallel (``torchrun --nproc_per_node n -m
+insenticap_model_tpu_torch.cli.train_rl --mesh_shape '[n]'``, with
+``--device cpu`` for gloo): the train passes are striped. Each rank takes
+its stripe of the sentiment and captioned train images and of the
+seq2seq corpus, ``round_bs(rl_bs) / n`` and ``round_bs(80) / n`` rows a
+step, and as many steps a pass as every other rank; the step's losses
+are the global batch's. The val pass runs whole on every rank: each
+evaluates every val image and draws its rollouts as one process does
+(``mesh.whole_batch``). Each rank builds the CIDEr-D tables (and the LM
+tables) itself from the same files, and a resume replays each rank's own
+stripe. Rank 0 alone runs the test dump and writes its files, the
+metrics and the checkpoints; the other ranks wait at a barrier.
 """
 from __future__ import annotations
 
@@ -45,6 +58,7 @@ from ..config import Opts
 from ..data.loaders import CycleIterator, device_prefetch
 from ..models import sentiment_detector as senti_det
 from ..ops import ciderd_device
+from ..parallel import mesh
 from ..rewards.ciderd import build_scorer
 from ..training import checkpoint as ckpt
 from ..training import optim, steps
@@ -116,11 +130,12 @@ def load_models(opt: Opts, vocab, device):
     return params, senti, cls, None, 0
 
 
-def _replay(loader, limit: int = MAX_BATCHES_PER_EPOCH) -> int:
-    """One pass of ``loader`` (its first ``limit`` batches) without
-    assembling a batch: its shuffle and, for the fact loaders, the caption
-    draws of its collate's generator. Returns the pass's batch count."""
-    batches = loader._index_batches()[:limit]
+def _replay(loader) -> int:
+    """One pass of ``loader`` (its first ``MAX_BATCHES_PER_EPOCH``
+    batches) without assembling a batch: its shuffle and, for the fact
+    loaders, the caption draws of its collate's generator. Returns the
+    pass's batch count."""
+    batches = loader._index_batches()[:MAX_BATCHES_PER_EPOCH]
     rng = getattr(loader, "caption_rng", None)
     if rng is not None:
         for b in batches:
@@ -131,10 +146,7 @@ def _replay(loader, limit: int = MAX_BATCHES_PER_EPOCH) -> int:
 
 def train(opt: Opts):
     """Run the stage; returns the trained captioner params."""
-    rt = common.Runtime(opt, unported=(
-        "the RL stage's data-parallel training is not ported yet (it is "
-        "the next stage to come: its two rollouts a step and its epoch "
-        "cap need their own wiring); train it on one device"))
+    rt = common.Runtime(opt, data_parallel=True)
     vocab = common.load_vocab(opt)
     ids = common.token_ids(vocab, opt.sentiment_categories)
     label2idx = {w: i for i, w in enumerate(opt.sentiment_categories)}
@@ -221,10 +233,12 @@ def train(opt: Opts):
         lm_tables = lm_device.build_lm_tables(paths, len(vocab),
                                               device=rt.device)
 
-    params = nn.tree_map(lambda t: t.requires_grad_(True), rt.cast(params))
+    params = nn.tree_map(lambda t: t.requires_grad_(True),
+                         mesh.replicate(rt.cast(params)))
     adam = optim.Adam(params, opt.rl_lrs.get("cap_lr", 4e-5), opt.grad_clip)
     if opt_state is not None:
         optim.load_optax_state(adam, opt_state)
+        mesh.replicate([adam.mu, adam.nu])
     rl = steps.make_rl_steps(opt.settings, adam, ids, opt.max_seq_len,
                              tables, lm_tables=lm_tables,
                              lm_flag=opt.rl_lm_flag)
@@ -242,8 +256,9 @@ def train(opt: Opts):
     senti_params, cls_params = rt.cast(senti_params), frozen.sent_senti_cls
 
     def run_split(loader, data_type, training, epoch, use_scs, pass_idx=0):
-        """A pass's mean train losses, or the eval pass's summed sums over
-        summed counts (so padding rows add nothing)."""
+        """A pass's mean of the global batches' train losses, or the eval
+        pass's summed sums over summed counts (so padding rows add
+        nothing; the eval step draws as one process does)."""
         phase = PHASES[data_type if training else "val"]
         agg, n, sums, cnts = {}, 0, {}, {}
         for i, b in enumerate(device_prefetch(
@@ -284,18 +299,20 @@ def train(opt: Opts):
         print(f"fact_val_loss: {val_loss}")
 
         # test: both splits through the serving path, grouped by the
-        # detected sentiment (train_rl.py:252-309)
-        sparams = inference.ServingParams(
-            captioner=nn.tree_map(torch.Tensor.detach, params),
-            senti_detector=senti_params)
-        results, det_sentis, wrong_rate = run_test_dump(
-            rt, opt, vocab, serving, sparams, test_fns, bs, fc_store,
-            att_store, sentiments_id, senti_loaders["test"])
-        dump_rl_results(result_dir, epoch, results, det_sentis, wrong_rate,
-                        vocab)
-        common.metrics_line(os.path.join(ck_dir, "metrics.jsonl"), {
-            "epoch": epoch, "det_sentis_wrong_rate": wrong_rate,
-            **{f"val_{k}": v for k, v in val_loss.items()}})
+        # detected sentiment (train_rl.py:252-309), on rank 0
+        if mesh.rank() == 0:
+            sparams = inference.ServingParams(
+                captioner=nn.tree_map(torch.Tensor.detach, params),
+                senti_detector=senti_params)
+            results, det_sentis, wrong_rate = run_test_dump(
+                rt, opt, vocab, serving, sparams, test_fns, bs, fc_store,
+                att_store, sentiments_id, senti_loaders["test"])
+            dump_rl_results(result_dir, epoch, results, det_sentis,
+                            wrong_rate, vocab)
+            common.metrics_line(os.path.join(ck_dir, "metrics.jsonl"), {
+                "epoch": epoch, "det_sentis_wrong_rate": wrong_rate,
+                **{f"val_{k}": v for k, v in val_loss.items()}})
+        mesh.barrier()                 # rank 0's dump and metrics
         ckpt.save(os.path.join(ck_dir, f"model_{epoch}.ckpt"),
                   {"captioner": params, "senti_detector": senti_params,
                    "sent_senti_cls": cls_params},

@@ -19,6 +19,10 @@ collectives are explicit:
                             sampling uniforms: every rank seeds the same
                             generator, so row i of the global batch gets
                             the draw it gets in one process)
+  ``whole_batch``           marks the draws inside it as those of a pass
+                            that every rank runs whole (an unstriped eval
+                            pass): ``rank_rows`` then draws the rank's
+                            rows alone, as one process does
   ``reduce_gradients``      every leaf's ``.grad`` summed over the ranks
   ``all_reduce_sum``        one tensor summed over the ranks
   ``barrier``
@@ -30,13 +34,18 @@ refuses a mesh of more than one axis.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import datetime
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 import torch.distributed as dist
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+# set inside ``whole_batch`` only (a context variable: each thread and
+# task has its own, and the block's exit restores it)
+_WHOLE_BATCH = contextvars.ContextVar("whole_batch", default=False)
 
 
 def backend_for(device) -> str:
@@ -98,11 +107,25 @@ def rank_rows(draw: Callable[[int], torch.Tensor],
     """``draw(rows)`` -> a tensor of ``rows`` leading rows; returns this
     rank's block of ``draw(local_rows * world)``, so that a draw from a
     generator seeded alike on every rank gives each row the value it
-    gets in one process."""
+    gets in one process. Inside ``whole_batch`` (every rank holds the
+    whole batch) it returns ``draw(local_rows)``."""
     w = world_size()
-    if w == 1:
+    if w == 1 or _WHOLE_BATCH.get():
         return draw(local_rows)
     return draw(local_rows * w)[shard_rows(local_rows * w, rank(), w)]
+
+
+@contextlib.contextmanager
+def whole_batch() -> Iterator[None]:
+    """Mark the draws inside the block as those of a pass that every rank
+    runs on the same whole batch (an unstriped eval pass): each rank then
+    draws what one process draws, not its block of a global batch n
+    times larger."""
+    token = _WHOLE_BATCH.set(True)
+    try:
+        yield
+    finally:
+        _WHOLE_BATCH.reset(token)
 
 
 @torch.no_grad()

@@ -60,6 +60,9 @@ SEQ_FLAG = 1.0        # reference decoder.py:40
 SENTI_THRESHOLD = 0.7  # reference decoder.py:41
 RL_XE_SS_PROB = 0.5   # reference decoder.py:139
 RL_SEQ_SS_PROB = 0.25  # reference decoder.py:155
+# the RL train step's loss terms, summed in this order (the rewards are
+# reported, not differentiated)
+RL_LOSS_TERMS = ("cap_loss", "da_loss", "xe_loss", "seq2seq_loss")
 
 
 def _row_mask(batch, bs: int, dtype=torch.float32, device="cpu"):
@@ -219,12 +222,17 @@ def make_rl_steps(settings, opt: optim.Adam, ids: cap.TokenIds,
     scs_batch as in XE.
 
     ``train_step(frozen, batch, scs_batch, gen)`` takes one optimizer step
-    and returns the detached losses (the JAX package's keys);
-    ``eval_step(frozen, batch, gen)`` returns masked (sums, counts) a term,
-    so that the eval loader's padding rows add nothing. ``frozen`` is an
-    ``RLModels``; ``gen`` the step's generator (dropout, the multinomial
-    rollout, scheduled sampling). The scheduled-sampling probabilities
-    are read here, when the steps are built.
+    on the global batch and returns its detached losses and rewards (the
+    JAX package's keys; each a local sum over the global count, as in
+    ``make_xe_steps``); ``eval_step(frozen, batch, gen)`` returns masked
+    (sums, counts) a term, so that the eval loader's padding rows add
+    nothing, and draws as one process does (``mesh.whole_batch``: every
+    rank evaluates the same whole batch). ``frozen`` is an ``RLModels``;
+    ``gen`` the step's generator (dropout, the multinomial rollout,
+    scheduled sampling), seeded alike on every rank. The
+    scheduled-sampling probabilities are read here, when the steps are
+    built. The rollouts run all ``max_seq_len`` steps, so every rank
+    takes as many draws as one process.
 
     The frozen detector labels the fact and eval batches in the dtype of
     its staged params (the JAX step's rule, steps.py:185-193): bf16 takes
@@ -247,12 +255,12 @@ def make_rl_steps(settings, opt: optim.Adam, ids: cap.TokenIds,
                                       SENTI_THRESHOLD, ids.neutral)
         return labels
 
-    def _forward(frozen: RLModels, batch, scs_batch, gen, data_type: str,
-                 training: bool):
-        """(total, aux losses, sums, counts). Every term is formed as a
-        masked sum first; the train means divide inside the batch (all
-        rows true: train loaders never pad), the eval sums are summed
-        across batches by the caller."""
+    def _sums(frozen: RLModels, batch, scs_batch, gen, data_type: str,
+              training: bool):
+        """Every term's (sum, count) on this rank's rows, masked so that
+        the eval loader's padding rows add nothing: the SCST loss, the
+        domain alignment, the rewards, and for the fact data the XE term;
+        with ``scs_batch`` also the seq2seq term."""
         fc, att = batch["fc"], batch["att"]
         rmask = _row_mask(batch, fc.shape[0], device=fc.device)
         if data_type == "fact" or not training:
@@ -268,10 +276,8 @@ def make_rl_steps(settings, opt: optim.Adam, ids: cap.TokenIds,
             settings=settings, ids=ids, max_seq_len=max_seq_len,
             sample_max=False, gen=gen, deterministic=not training)
         sample_masks = sample_masks * rmask[:, None]
-        da_sum, _ = cap.domain_alignment_sums(aux["cpt_feats"],
-                                              aux["fc_emb"], rmask)
-        da_loss = da_sum / n_rows
-        sums["da_loss"], counts["da_loss"] = da_sum, n_rows
+        sums["da_loss"], counts["da_loss"] = cap.domain_alignment_sums(
+            aux["cpt_feats"], aux["fc_emb"], rmask)
         with torch.no_grad():
             greedy_seq, _, _, _ = cap.forward_rl(
                 params, fc, att, batch["cpts"], batch["sentis"],
@@ -279,41 +285,32 @@ def make_rl_steps(settings, opt: optim.Adam, ids: cap.TokenIds,
                 max_seq_len=max_seq_len, sample_max=True,
                 deterministic=True)
 
-        aux_losses = {"da_loss": da_loss}
         if data_type == "fact":
             fact_reward = ciderd_device.self_critical_reward(
                 cider_tables, sample_seq, greedy_seq, batch["img_rows"],
                 ids.eos)
-            fr_sum = (fact_reward[:, 0] * rmask).sum()
-            aux_losses["fact_reward"] = fr_sum / n_rows
-            sums["fact_reward"], counts["fact_reward"] = fr_sum, n_rows
+            sums["fact_reward"] = (fact_reward[:, 0] * rmask).sum()
+            counts["fact_reward"] = n_rows
         else:
             fact_reward = 0.0
 
         cls_reward = _cls_reward(frozen.sent_senti_cls, sample_seq,
                                  sample_masks, senti_labels, settings)
         n_tok_slots = n_rows * cls_reward.shape[1]
-        cr_sum = (cls_reward * rmask[:, None]).sum()
-        aux_losses["cls_reward"] = cr_sum / n_tok_slots
-        sums["cls_reward"], counts["cls_reward"] = cr_sum, n_tok_slots
+        sums["cls_reward"] = (cls_reward * rmask[:, None]).sum()
+        counts["cls_reward"] = n_tok_slots
 
         rewards = fact_reward + CLS_FLAG * cls_reward
         if lm_tables is not None and lm_flag > 0.0:
             lmr = lm_device.lm_reward(lm_tables, sample_seq, greedy_seq,
                                       senti_labels, ids.eos)
-            lm_sum = (lmr * rmask[:, None]).sum()
-            aux_losses["lm_reward"] = lm_sum / n_tok_slots
-            sums["lm_reward"], counts["lm_reward"] = lm_sum, n_tok_slots
+            sums["lm_reward"] = (lmr * rmask[:, None]).sum()
+            counts["lm_reward"] = n_tok_slots
             rewards = rewards + lm_flag * lmr
-        rw_sum = (rewards * rmask[:, None]).sum()
-        aux_losses["all_rewards"] = rw_sum / n_tok_slots
-        sums["all_rewards"], counts["all_rewards"] = rw_sum, n_tok_slots
-        rl_sum, rl_cnt = cap.reward_criterion_sums(sample_lp, sample_masks,
-                                                   rewards)
-        rl_loss = rl_sum / rl_cnt
-        aux_losses["cap_loss"] = rl_loss
-        sums["cap_loss"], counts["cap_loss"] = rl_sum, rl_cnt
-        total = rl_loss + da_loss
+        sums["all_rewards"] = (rewards * rmask[:, None]).sum()
+        counts["all_rewards"] = n_tok_slots
+        sums["cap_loss"], counts["cap_loss"] = cap.reward_criterion_sums(
+            sample_lp, sample_masks, rewards)
 
         if data_type == "fact":
             # XE on a ground-truth caption with pseudo labels
@@ -326,42 +323,39 @@ def make_rl_steps(settings, opt: optim.Adam, ids: cap.TokenIds,
                 settings=settings, gen=gen, ss_prob=xe_ss,
                 deterministic=not training)
             lengths = batch["lengths"] * rmask.to(batch["lengths"].dtype)
-            xe_sum, xe_cnt = cap.xe_criterion_sums(pred, caps[:, 1:],
-                                                   lengths)
-            xe_loss = xe_sum / xe_cnt
-            aux_losses["xe_loss"] = xe_loss
-            sums["xe_loss"], counts["xe_loss"] = xe_sum, xe_cnt
-            total = total + xe_loss
+            sums["xe_loss"], counts["xe_loss"] = cap.xe_criterion_sums(
+                pred, caps[:, 1:], lengths)
 
-        if training and scs_batch is not None:
+        if scs_batch is not None:
             # seq2seq (decoder.py:143-159)
             s2s_pred = cap.forward_seq2seq(
                 params, scs_batch["caps"], scs_batch["cpts"],
                 scs_batch["sentis"], scs_batch["senti_labels"],
                 settings=settings, gen=gen, ss_prob=s2s_ss,
                 deterministic=False)
-            s2s_loss = SEQ_FLAG * cap.xe_criterion(
+            s2s_sum, counts["seq2seq_loss"] = cap.xe_criterion_sums(
                 s2s_pred, scs_batch["caps"][:, 1:], scs_batch["lengths"])
-            aux_losses["seq2seq_loss"] = s2s_loss
-            total = total + s2s_loss
-        return total, aux_losses, sums, counts
+            sums["seq2seq_loss"] = SEQ_FLAG * s2s_sum
+        return sums, counts
 
     def make_train(data_type: str):
         def train_step(frozen: RLModels, batch, scs_batch, gen):
             opt.zero_grad()
-            total, losses, _, _ = _forward(frozen, batch, scs_batch, gen,
-                                           data_type, training=True)
-            total.backward()
-            opt.step()
-            return {k: v.detach() for k, v in losses.items()}
+            shares = _global_shares(*_sums(frozen, batch, scs_batch, gen,
+                                           data_type, training=True))
+            _apply_gradients(opt, sum(shares[k] for k in RL_LOSS_TERMS
+                                      if k in shares))
+            return _global_values(shares)
         return train_step
 
     def make_eval(data_type: str):
         @torch.no_grad()
         def eval_step(frozen: RLModels, batch, gen):
-            _, _, sums, counts = _forward(frozen, batch, None, gen,
-                                          data_type, training=False)
-            return sums, counts
+            # every rank evaluates the same whole batch: its rollout draws
+            # are one process's, not a block of a global batch's
+            with mesh.whole_batch():
+                return _sums(frozen, batch, None, gen, data_type,
+                             training=False)
         return eval_step
 
     return {("fact", True): make_train("fact"),

@@ -299,7 +299,8 @@ def test_entry_point_runs_as_a_module_and_defaults_to_the_card(name, args,
                                                                tmp_path):
     """``python -m`` reaches each CLI's ``main``; with no ``--device`` it
     asks for the card and stops where CUDA is absent (this host); with
-    ``--device cpu`` it goes on (and stops at what it then lacks)."""
+    ``--device cpu`` it goes on (and stops at what it then lacks: the
+    trainer, data-parallel under ``--mesh_shape [2]``, a torchrun launch)."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     mod = f"insenticap_model_tpu_torch.cli.{name}"
     r = subprocess.run([sys.executable, "-m", mod, *args], cwd=REPO, env=env,
@@ -312,7 +313,8 @@ def test_entry_point_runs_as_a_module_and_defaults_to_the_card(name, args,
                         *extra], cwd=REPO, env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode != 0
-    want = "not ported yet" if name == "train_rl" else "no checkpoint under"
+    want = "WORLD_SIZE is unset" if name == "train_rl" else \
+        "no checkpoint under"
     assert want in r.stderr, r.stderr[-2000:]
 
 

@@ -14,6 +14,8 @@ JAX package; each also runs in the test's own process with
 """
 import builtins
 import contextlib
+import copy
+import functools
 import os
 import time
 import traceback
@@ -183,6 +185,125 @@ def xe_steps(rank, world, params_np, cls_np, batches, settings_dict,
     return out
 
 
+# the conftest vocabulary's special ids (``torch_parity.JIDS``)
+RL_IDS = dict(pad=0, unk=1, sos=2, eos=3, neutral=2)
+
+
+def _rl_tables(corpus, max_seq_len):
+    """The port's CIDEr-D tables of ``corpus`` ({fn: [caption ids]}; row i
+    the i-th fn), built in the rank from the same data, as every rank of
+    ``train_rl`` builds them."""
+    from insenticap_model_tpu_torch.ops import ciderd_device as tcd
+    from insenticap_model_tpu_torch.rewards.ciderd import build_scorer
+    sos, eos = RL_IDS["sos"], RL_IDS["eos"]
+    tables, _ = tcd.build_tables(build_scorer({"train": corpus}, sos, eos),
+                                 corpus, list(corpus), max_seq_len, sos,
+                                 eos)
+    return tables
+
+
+@contextlib.contextmanager
+def _rl_draws(gumbel, ss_probs):
+    """The RL step's draws for a block: with ``gumbel`` every categorical
+    draw forced to argmax(logprobs + G), G's rows those of the global
+    batch (``mesh.rank_rows``); with ``ss_probs`` the two
+    scheduled-sampling probabilities (xe, seq2seq) in place of the
+    step's. Restored on exit."""
+    from insenticap_model_tpu_torch.models import captioner as cap
+    from insenticap_model_tpu_torch.parallel import mesh
+    from insenticap_model_tpu_torch.training import steps
+    saved = cap._categorical, steps.RL_XE_SS_PROB, steps.RL_SEQ_SS_PROB
+    if gumbel is not None:
+        g = torch.from_numpy(gumbel)
+
+        def forced(gen, logprobs):
+            rows = mesh.rank_rows(lambda n: g[:n], logprobs.shape[0])
+            return (logprobs.float() + rows).argmax(dim=-1)
+        cap._categorical = forced
+    if ss_probs is not None:
+        steps.RL_XE_SS_PROB, steps.RL_SEQ_SS_PROB = ss_probs
+    try:
+        yield
+    finally:
+        cap._categorical, steps.RL_XE_SS_PROB, steps.RL_SEQ_SS_PROB = saved
+
+
+def _rl_setup(spec, dtype):
+    """(params, the RL steps on them, the frozen models) of an
+    ``rl_steps`` or ``rl_eval`` spec, in ``dtype``."""
+    from insenticap_model_tpu_torch import nn
+    from insenticap_model_tpu_torch.config import Settings
+    from insenticap_model_tpu_torch.models import captioner as cap
+    from insenticap_model_tpu_torch.ops import lm_device
+    from insenticap_model_tpu_torch.training import optim, steps
+    params = nn.tree_map(lambda x: x.requires_grad_(True),
+                         tensors(spec["params"], dtype))
+    lm = None
+    if spec.get("lm_paths"):
+        lm = lm_device.build_lm_tables(spec["lm_paths"], spec["vocab"])
+    rl = steps.make_rl_steps(
+        Settings.from_dict(spec["settings"]),
+        optim.Adam(params, spec.get("lr", 1e-3)),
+        cap.TokenIds(**RL_IDS), spec["max_seq_len"],
+        _rl_tables(spec["corpus"], spec["max_seq_len"]), lm_tables=lm,
+        lm_flag=spec.get("lm_flag", 0.0))
+    frozen = steps.RLModels(*(tensors(t, dtype) for t in spec["frozen"]))
+    return params, rl, frozen
+
+
+def rl_steps(rank, world, spec):
+    """The port's RL train step (``spec["data_type"]``: fact or senti) on
+    this rank's rows of each global (batch, scs_batch) of
+    ``spec["batches"]``, step i's generator seeded i on every rank ->
+    {losses, grads (the reduced gradient of each step), params}.
+
+    spec: params, frozen (the detector's and the classifier's numpy
+    trees), corpus (the CIDEr-D tables' {fn: [caption ids]}), settings
+    (a dict), dtype, lr, max_seq_len; optional lm_paths, vocab and
+    lm_flag (the LM reward), gumbel (every draw forced) and ss_probs."""
+    dtype = spec["dtype"]
+    with _rl_draws(spec.get("gumbel"), spec.get("ss_probs")):
+        params, rl, frozen = _rl_setup(spec, dtype)
+        step = rl[(spec["data_type"], True)]
+        out = {"losses": [], "grads": []}
+        for i, (b, scs) in enumerate(spec["batches"]):
+            losses = step(frozen, tensors(_rows(b, rank, world), dtype),
+                          tensors(_rows(scs, rank, world), dtype),
+                          torch.Generator().manual_seed(i))
+            out["losses"].append({k: float(v) for k, v in losses.items()})
+            out["grads"].append(_grads(params))
+    out["params"] = numpy_tree(params)
+    return out
+
+
+def rl_eval(rank, world, spec):
+    """The RL fact eval step on the whole of ``spec["batch"]`` on every
+    rank (the val pass is not striped), the real sampler, generator
+    seeded 0 -> {"sums", "counts"} as floats, and ``mesh.rank_rows`` of
+    ``arange`` (3 local rows) outside ``whole_batch``, inside it, and
+    after a block left by an exception."""
+    from insenticap_model_tpu_torch.parallel import mesh
+    dtype = spec["dtype"]
+    _, rl, frozen = _rl_setup(spec, dtype)
+    sums, counts = rl[("fact", False)](frozen, tensors(spec["batch"], dtype),
+                                       torch.Generator().manual_seed(0))
+
+    def draw():
+        return mesh.rank_rows(lambda n: torch.arange(n), 3).tolist()
+    marks = [draw()]
+    with mesh.whole_batch():
+        marks.append(draw())
+    try:
+        with mesh.whole_batch():
+            raise KeyError("left")
+    except KeyError:
+        pass
+    marks.append(draw())
+    return {"sums": {k: float(v) for k, v in sums.items()},
+            "counts": {k: float(v) for k, v in counts.items()},
+            "rank_rows": marks}
+
+
 def head_steps(rank, world, stage, params_np, batches, settings_dict,
                dtype, lr):
     """A head stage's train step (``stage``: concept, senti or cls) on
@@ -241,14 +362,18 @@ def watch_writes(root):
         builtins.open, os.makedirs, os.replace = orig
 
 
-def cli_runs(rank, world, root, runs):
+def cli_runs(rank, world, root, runs, patches=()):
     """Run each (module name, Opts keywords) of ``runs`` with
-    ``--mesh_shape [world]`` on the CPU -> {"params": [each run's trained
+    ``--mesh_shape [world]`` on the CPU, each (module name, attribute,
+    value) of ``patches`` set first -> {"params": [each run's trained
     params as numpy], "writes": the files a rank other than 0 opened for
     writing under ``root``}."""
     import glob
     import importlib
     from insenticap_model_tpu_torch.config import Opts, Settings
+    for name, attr, value in patches:
+        setattr(importlib.import_module(
+            f"insenticap_model_tpu_torch.cli.{name}"), attr, value)
     out = {"params": [], "writes": []}
     for name, kw in runs:
         mod = importlib.import_module(f"insenticap_model_tpu_torch.cli.{name}")
@@ -290,6 +415,8 @@ class GlobalLoader:
         return {k: (sum(o[k] for o in outs) if k == "valid" else
                     [x for o in outs for x in o[k]]
                     if isinstance(outs[0][k], list) else
+                    {x: v for o in outs for x, v in o[k].items()}
+                    if isinstance(outs[0][k], dict) else
                     np.concatenate([o[k] for o in outs]))
                 for k in outs[0]}
 
@@ -303,15 +430,23 @@ class GlobalLoader:
 
 def global_loaders(monkeypatch, common, world):
     """Make ``common``'s training loaders (one process) the
-    ``GlobalLoader`` of ``world`` ranks' stripes."""
+    ``GlobalLoader`` of ``world`` ranks' stripes. A collate that draws
+    from a generator of its own (``rng``, the RL fact loader's caption
+    draws) gets a copy a stripe, as each rank has its own."""
     orig = common._loader
+
+    def own_rng(fn):
+        if not isinstance(fn, functools.partial) or "rng" not in fn.keywords:
+            return fn
+        return functools.partial(fn.func, *fn.args, **dict(
+            fn.keywords, rng=copy.deepcopy(fn.keywords["rng"])))
 
     def loader(items, bs, fn, *, shuffle=True, drop_last=True, seed=0,
                stripe=None):
         if not shuffle:
             return orig(items, bs, fn, shuffle=False, drop_last=drop_last,
                         seed=seed)
-        return GlobalLoader([orig(items, bs, fn, shuffle=True,
+        return GlobalLoader([orig(items, bs, own_rng(fn), shuffle=True,
                                   drop_last=drop_last, seed=seed,
                                   stripe=(r, world))
                              for r in range(world)])
