@@ -233,6 +233,30 @@ C++ compiler), then:
    copy of the gradients to the host), one process against the two
    ranks (host clock, median of 5 after one warm-up step, the card's
    name and power limit beside it; a reading, no limit);
+3l. drives sharded serving in one process (``parallel.mesh.DeviceMesh``,
+   a worker thread a device; the one card named twice, ``[cuda:0,
+   cuda:0]``, where only one is visible): (a) every serving kernel (v1,
+   v2, the top-k, the three Winograd transforms, the pool) from a fresh
+   thread whose device was never set, against its twin, and where a
+   second card is visible on ``cuda:1`` while ``cuda:0`` is current (else
+   a line saying so); (b) ``make_sharded_serving_fn`` at bs=384, f32 and
+   bf16: bit for bit the one-device function on each 192-row block,
+   within the port's gate of it on all 384 rows (identical labels, at
+   least 99% identical top beams, scores within 1e-3; the rows that differ
+   counted), each Winograd transform launched once a block in bf16 and v1
+   on every decode step of both blocks; (c) a bf16
+   ``DynamicBatcher(mesh=)``, its default ladder (2, 8, 32, 128, 384),
+   answering phase 3's requests as phase 3's one-device batcher did; (d)
+   a bf16 ``EncodeBatcher(mesh=)`` on 40 images against the one-device
+   one: the concept ids equal, fc and att within bf16 rounding, the
+   pool's launches twice the image encode groups; (e) ``serve
+   --mesh_shape [1]`` on phase 3e's checkpoints answering 3e's feature
+   requests with 3e's JSON, and ``--mesh_shape [2]`` exiting with a
+   message naming the visible card; (f) ``reproduce_table --mesh_shape
+   [1]``, and its serving function over ``[cuda:0, cuda:0]``, on phase
+   3i's tree writing 3i's bf16 dump files and table byte for byte; (g)
+   the bf16 bs=384 step on one device, on one 192-row block and on the
+   two workers (host clock, median of 6 in turns; a reading, no limit);
 4. runs ``detect_and_decode`` at bs=384 in f32 on the kernel path and on
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
@@ -706,11 +730,15 @@ def _png_bytes(img, zlib, interlace=False):
 
 def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                      words, idx2concept, senti_table, zero_counters,
-                     read_counters):
+                     read_counters, keep):
     """Phase 3e: checkpoints written by the port's writer and read back
     bit for bit, the daemon on a real socket in bf16 (feature and image
     mode, the status codes, the drain), the decoders against PIL's arrays,
-    the caption command in f32, and the host's decode and resize times."""
+    the caption command in f32, and the host's decode and resize times.
+    Into ``keep`` go what phase 3l reuses: copies of the RL composite, the
+    concept checkpoint and the sentiment table in ``keep["dir"]``, and the
+    four feature requests with the daemon's answers."""
+    import shutil
     import base64
     import io
     import tempfile
@@ -762,6 +790,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
         senti_json = os.path.join(tmp, "senti.json")
         with open(senti_json, "w") as f:
             json.dump(senti_table, f)
+        for k, path in (("rl", paths["rl"]), ("concept", paths["concept"]),
+                        ("senti", senti_json)):
+            keep[k] = shutil.copy(path, keep["dir"])
         del back_rl
         out["checkpoint_bytes"] = sizes
         out["checkpoint_write_s"] = write_s
@@ -809,6 +840,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                 (range(4), range(4, len(payloads))))
             launches = read_counters()
             _check(not errors, f"daemon requests failed: {errors}")
+            keep["feature_requests"] = feats
+            keep["feature_answers"] = [body for _, body in results[:4]]
             for (status, body), pl in zip(results, payloads):
                 _check(status == 200, f"daemon gave {status}: {body}")
                 _check(isinstance(body["caption"], str) and body["caption"],
@@ -3509,7 +3542,7 @@ def _f32_score_gaps(torch, cap32, settings, base, kernel, plain):
 
 
 def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
-                  read_counters, files):
+                  read_counters, files, keep):
     """Phase 3i: the offline and evaluation CLIs on phase 3h's tree and
     checkpoints (``files``), nothing trained again. ``preprocess``'s text
     stages on a caption dataset and a sentiment corpus in the reference's
@@ -3521,7 +3554,9 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
     the plain path and in bf16 (the Winograd kernels); ``eval_metrics``,
     ``eval_ppl`` and ``eval_senti`` as CLIs. The CLIs read ``./data/...``
     below their working directory, so the phase runs in a directory of its
-    own under the tree."""
+    own under the tree. Into ``keep`` go what phase 3l's ``reproduce_table``
+    runs reuse: the working directory, the bf16 run's options and its
+    dump directory."""
     import functools
     import io
     import types
@@ -3792,17 +3827,24 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
                     rec["inputs"].append((params, features.clone(), kw))
             return orig_fwd(params, features, **kw)
 
+        def repro_opts(tag, dtype):
+            return dict(settings=settings, rl_bs=RL_BS, beam_size=BEAM,
+                        max_seq_len=T, compute_dtype=dtype, device=str(dev),
+                        captions_dir=os.path.join(tree, "captions"),
+                        feats_dir=os.path.join(tree, "features"),
+                        checkpoint=files["checkpoint"],
+                        img_senti_labels=os.path.join(
+                            tree, "captions/img_senti_labels.json"),
+                        result_dir=os.path.join(work, "res_" + tag))
+        keep.update(work=work, model=files["composite"], anno=anno,
+                    bf16_opts=repro_opts("bf16", "bfloat16"),
+                    bf16_dump=os.path.join(work, "res_bf16", "rl", "coco",
+                                           "part"))
+
         def reproduce(tag, model, dtype="float32", plain=False,
                       tanhf=False):
             parts = {}
-            o = Opts(settings=settings, rl_bs=RL_BS, beam_size=BEAM,
-                     max_seq_len=T, compute_dtype=dtype, device=str(dev),
-                     captions_dir=os.path.join(tree, "captions"),
-                     feats_dir=os.path.join(tree, "features"),
-                     checkpoint=files["checkpoint"],
-                     img_senti_labels=os.path.join(
-                         tree, "captions/img_senti_labels.json"),
-                     result_dir=os.path.join(work, "res_" + tag))
+            o = Opts(**repro_opts(tag, dtype))
             dd = functools.partial(orig_dd, use_kernels=False) if plain \
                 else orig_dd
             # each dump batch's inputs and top beams, for the f32 scores
@@ -4070,6 +4112,656 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
           f"captions/s; METEOR* mode: {out['meteor_mode']}; eval_senti "
           f"threshold-0 accuracy {out['eval']['eval_senti_acc_t0']:.4f}")
     out["device"] = smi
+    return out
+
+
+def _serving_kernel_checks(torch, device, settings, cap16):
+    """Each serving kernel on ``device``'s tensors against its plain twin
+    there, at the decode's and the detector's per-device shapes (RL_BS
+    images, beam 3): {name: max_abs_err}; a disagreement fails the run.
+    The caller picks the thread and its current device."""
+    from insenticap_model_tpu_torch.ops import fused_attention as fa
+    from insenticap_model_tpu_torch.ops import fused_topk as ft
+    from insenticap_model_tpu_torch.ops import pool
+    from insenticap_model_tpu_torch.ops import winograd_kernels as wk
+    from insenticap_model_tpu_torch.utils.dtypes import to_device
+    g = torch.Generator(device=device).manual_seed(21)
+    bf16 = torch.bfloat16
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=device).to(bf16)
+    p_cont = to_device(cap16["attention"]["cont"], device)
+    cls = to_device(cap16["classifier"], device)
+    H, Ah, Fe = (settings.rnn_hid_dim, settings.att_hid_dim,
+                 settings.feat_emb_dim)
+    errs = {}
+    h, att, p_att = (rand(RL_BS * BEAM, H) * 2 - 1, rand(RL_BS, 196, Fe),
+                     rand(RL_BS, 196, Ah))
+    for variant in ("v1", "v2"):
+        got = fa.beam_content_attention(h, p_cont, att, p_att, B=BEAM,
+                                        variant=variant)
+        want = fa.beam_content_attention_plain(h, p_cont, att, p_att, B=BEAM,
+                                               variant=variant)
+        ok, errs[f"attention_{variant}"] = _within_rounding(
+            torch, got, want, 1e-2, 1e-3)
+        _check(ok and got.device == device, f"attention {variant} on "
+               f"{device} disagrees with its plain version")
+    last = torch.randint(0, VOCAB, (RL_BS * BEAM,), generator=g,
+                         device=device)
+    args = (h, cls["weight"], cls["bias"], last)
+    gv, gi = ft.classifier_topk(*args, k=BEAM, banned=BANNED)
+    pv, pi = ft.classifier_topk_plain(*args, k=BEAM + 1, banned=BANNED)
+    gv, gi, pv, pi = gv.cpu(), gi.cpu(), pv.cpu(), pi.cpu()
+    errs["classifier_topk"] = float((gv - pv[:, :BEAM]).abs().max())
+    swapped = (gi != pi[:, :BEAM]).nonzero().tolist()
+    _check(errs["classifier_topk"] <= 1e-4 and all(
+        min(abs(float(pv[r, j] - pv[r, q])) for q in (j - 1, j + 1)
+            if 0 <= q <= BEAM) <= 1e-4 for r, j in swapped),
+        f"classifier_topk on {device} disagrees with its plain version")
+    x = rand(14, 14, RL_BS, 256)
+    v = wk.wino_input(x)
+    ok, errs["wino_input"] = _within_rounding(
+        torch, v, wk.wino_input_plain(x), 1e-2, 1e-3)
+    _check(ok, f"wino_input on {device} disagrees with its plain version")
+    m, bias = rand(*v.shape) * 2 - 1, rand(256)
+    for name, kern, twin in (("wino_middle", wk.wino_middle,
+                              wk.wino_middle_plain),
+                             ("wino_output", wk.wino_output,
+                              wk.wino_output_plain)):
+        ok, errs[name] = _within_rounding(
+            torch, kern(m, bias, 14, 14), twin(m, bias, 14, 14), 1e-2, 1e-3)
+        _check(ok, f"{name} on {device} disagrees with its plain version")
+    xp = rand(4, 112, 112, 64)
+    same = torch.equal(pool.ceil_maxpool_3x3s2_nhwc(xp),
+                       pool.ceil_maxpool_3x3s2_plain(xp))
+    errs["ceil_maxpool_3x3s2"] = 0.0 if same else float("inf")
+    _check(same, f"the max pool on {device} differs from its plain version")
+    torch.cuda.synchronize(device)
+    return errs
+
+
+def _in_thread(fn):
+    """``fn()`` on a thread of its own (started fresh, its CUDA device
+    never set unless ``fn`` sets it); its exception raises here."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 — raised below
+            box["err"] = e
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=900)
+    _check(not th.is_alive(), "a kernel check's thread never returned")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def _dump_captions(res_dir):
+    """{(split, image): (detected sentiment, caption)} of a bf16 dump's
+    result_bf16_<sentiment>_<split>.json files."""
+    caps = {}
+    for n in os.listdir(res_dir):
+        m = re.fullmatch(r"result_bf16_([a-z]+)_(fact|senti)\.json", n)
+        if m:
+            with open(os.path.join(res_dir, n)) as f:
+                for r in json.load(f):
+                    caps[m.group(2), r["image_id"]] = (m.group(1),
+                                                       r["caption"])
+    return caps
+
+
+def _mesh_decode_batcher(torch, np, mesh2, settings, ids, cap32, det32,
+                         phase3, zero_counters, read_counters):
+    """Phase 3l(c): ``DynamicBatcher(mesh=mesh2)`` in bf16 on phase 3's
+    requests (``phase3``: their features, labels, groups and phase 3's
+    answers). Returns the record of the checks.
+
+    On its default ladder every dispatched block must equal the one-device
+    functions on that block bit for bit; its answers against phase 3's
+    are recorded, not held, since a row's bf16 answer depends on the rows
+    its products run with (cuBLAS may round 12 decode rows otherwise than
+    24). On twice phase 3's ladder, where each block is phase 3's bucket,
+    the answers must be phase 3's exactly."""
+    from insenticap_model_tpu_torch import inference
+    from insenticap_model_tpu_torch.serving_daemon import DynamicBatcher
+    out = {}
+    card = mesh2.devices[0]
+    kw = dict(beam_size=BEAM, max_seq_len=T)
+    wino = ("wino_input", "wino_middle", "wino_output")
+    fcs, atts, sentis, forced, groups, results = phase3
+    one_detect = inference.make_detect_fn(inference.SENTI_THRESHOLD,
+                                          ids.neutral, settings)
+    one_forced = inference.make_forced_serving_fn(settings, ids, **kw)
+
+    def mesh_batcher(ladder, warm, record=None):
+        db = DynamicBatcher(cap32, det32, settings=settings, ids=ids,
+                            beam_size=BEAM, max_seq_len=T,
+                            max_wait_s=0.25, num_sentiments=M,
+                            num_cats=NUM_CATS, bucket_sizes=ladder,
+                            compute_dtype="bfloat16", mesh=mesh2)
+        try:
+            with _switches("default"):
+                db.warm(warm)
+                if record is not None:      # each dispatch's blocks
+                    for name in ("_detect", "_serve"):
+                        def spy(*a, _f=getattr(db, name), _n=name):
+                            res = _f(*a)
+                            record.append((_n, a, res))
+                            return res
+                        setattr(db, name, spy)
+                torch.cuda.synchronize()
+                zero_counters()
+                got, errors, serve_s = _serve(db, fcs, atts, sentis,
+                                              forced, groups)
+                launches = read_counters()
+            return db._buckets, got, errors, serve_s, launches, \
+                db.stats()
+        finally:
+            db.close()
+
+    def differ_from_phase3(got):
+        return [i for i, (a_, b_) in enumerate(zip(got, results))
+                if not (np.array_equal(a_[0], b_[0])
+                        and np.array_equal(a_[1], b_[1])
+                        and a_[2] == b_[2])]
+    record = []
+    ladder, got_c, errors_c, serve_s, launches_c, stats_c = \
+        mesh_batcher(None, [2, 8, 32], record)
+    _check_results(got_c, errors_c)
+    _check(ladder == (2, 8, 32, 128, 384),
+           f"mesh batcher's default ladder {ladder}")
+    blocks_ok = n_blocks = 0
+    with _switches("default"):
+        for name, args, res in record:
+            params, xs = args[0], args[1:]
+            for i in range(mesh2.size):
+                if name == "_detect":
+                    want = (one_detect(params.trees[i], xs[0][i]),)
+                    got_b = (res[i],)
+                else:
+                    want = one_forced(params.trees[i],
+                                      *(x[i] for x in xs))
+                    got_b = tuple(r[i] for r in res)
+                n_blocks += 1
+                blocks_ok += all(torch.equal(a_, b_)
+                                 for a_, b_ in zip(got_b, want))
+    differ = differ_from_phase3(got_c)
+    top_differ = [i for i in differ if not np.array_equal(
+        got_c[i][0][0], results[i][0][0]) or got_c[i][2] != results[i][2]]
+    del record
+    ladder2, got_2, errors_2, serve_2_s, _, stats_2 = mesh_batcher(
+        (2, 16, 64, 256, 768), [2, 16, 64])
+    _check_results(got_2, errors_2)
+    differ_2 = differ_from_phase3(got_2)
+    out.update({
+        "serve_s": serve_s, "by_bucket": stats_c["by_bucket"],
+        "launches": launches_c, "blocks": n_blocks,
+        "blocks_bitwise": blocks_ok, "differ_from_phase3": differ,
+        "top_beam_or_label_differ": top_differ,
+        "doubled_ladder": {"by_bucket": stats_2["by_bucket"],
+                           "serve_s": serve_2_s, "differ": differ_2}})
+    print(f"sharded serving (c) DynamicBatcher(mesh=[{card}, {card}]) "
+          f"bf16: default ladder {ladder}, {len(got_c)} requests of "
+          f"phase 3 in {serve_s:.2f} s, batches by bucket "
+          f"{stats_c['by_bucket']}, launches {launches_c}; "
+          f"{blocks_ok} of {n_blocks} dispatched blocks bit for bit the "
+          f"one-device functions on the block; answers differing from "
+          f"phase 3's (buckets of 8 where these blocks are 4 rows): "
+          f"{differ}, top beam or label among them: {top_differ}")
+    print(f"sharded serving (c) on the ladder {ladder2} (blocks of "
+          f"phase 3's buckets): batches by bucket {stats_2['by_bucket']}"
+          f", answers differing from phase 3's one-device batcher: "
+          f"{differ_2}")
+    _check(n_blocks > 0 and blocks_ok == n_blocks, f"mesh batcher: "
+           f"{n_blocks - blocks_ok} blocks differ from the one-device "
+           "functions on them")
+    _check(not differ_2, f"mesh batcher answers differ from the "
+           f"one-device batcher's on requests {differ_2}")
+    for k in ("beam_content_attention",) + wino:
+        _check(launches_c[k] > 0, f"{k} never launched by the mesh "
+               "batcher")
+    return out
+
+
+def _mesh_encode_batcher(torch, np, mesh2, settings, enc32, cpt32,
+                         zero_counters, read_counters):
+    """Phase 3l(d): ``EncodeBatcher(mesh=mesh2)`` in bf16 on 40 images
+    against the one-device batcher. Returns the record of the checks.
+
+    On the mesh's default ladder every block the workers ran must equal
+    the one-device applies on that block bit for bit, and the pool
+    launch once a block. Against the one-device batcher the features
+    part by more than bf16's rounding of one layer, since a row's bf16
+    features depend on the batch its convolutions run in (cuDNN's
+    algorithm for 2 images is not its algorithm for 4) and 104 layers
+    compound that: recorded, not held. Held exactly instead: on twice the
+    one-device ladder, where the image groups (1, 3, 9 and 1 images a
+    shape) put each image in a block of the one-device batch's size, fc,
+    att and the concept ids equal the one-device batcher's."""
+    from insenticap_model_tpu_torch.models import encoder
+    from insenticap_model_tpu_torch.preprocessing import (
+        DEFAULT_BUCKET_SHAPES)
+    from insenticap_model_tpu_torch.serving.encode import make_cpt_apply
+    from insenticap_model_tpu_torch.serving_daemon import (
+        EncodeBatcher, default_encode_buckets)
+    from insenticap_model_tpu_torch.utils.dtypes import cast_bf16
+    out = {}
+    card = mesh2.devices[0]
+    rng = np.random.default_rng(61)
+    imgs = [rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+            for h, w in (DEFAULT_BUCKET_SHAPES[i % 3]
+                         for i in range(40))]
+    enc_groups = ([0], range(1, 10), range(10, 37), range(37, 40))
+    enc16 = cast_bf16(enc32)
+    enc_reps = mesh2.replicate(enc32).map(cast_bf16)
+    one_enc = lambda x: encoder.forward_raw_batch(enc16, x)  # noqa: E731
+    one_cpt = make_cpt_apply(cpt32, K_CONCEPTS)
+    mesh_cpt = make_cpt_apply(mesh2.replicate(cpt32), K_CONCEPTS)
+    record, lock = [], threading.Lock()
+
+    def recorded(fn, name):          # each block the mesh's workers ran
+        def wrapped(x):
+            res = fn(x)
+            with lock:
+                record.append((name, x, res))
+            return res
+        return wrapped
+
+    def run(mesh_, ladder, enc_apply, cpt_apply):
+        eb = EncodeBatcher(enc_apply, cpt_apply,
+                           fc_dim=settings.fc_feat_dim,
+                           shape_buckets=DEFAULT_BUCKET_SHAPES,
+                           batch_buckets=ladder, max_wait_s=0.05,
+                           device=card, mesh=mesh_)
+        try:
+            eb.warm()
+            torch.cuda.synchronize()
+            zero_counters()
+            res, errs, _ = _run_groups(
+                lambda i: eb.submit_image(imgs[i], timeout=600),
+                len(imgs), enc_groups)
+            launches = read_counters()
+            st = eb.stats()
+        finally:
+            eb.close()
+        _check(not errs, f"encode requests failed (ladder {ladder}): "
+               f"{errs}")
+        return res, launches, st
+
+    one_r, _, _ = run(None, default_encode_buckets(), one_enc, one_cpt)
+    ladder = default_encode_buckets(mesh2)
+    mesh_r, launches, st = run(mesh2, ladder, recorded(
+        lambda x: encoder.forward_raw_batch(enc_reps.on(x.device), x),
+        "enc"), recorded(mesh_cpt, "cpt"))
+    blocks_ok, n_blocks = 0, len(record)
+    for name, x, res in record:
+        want = one_enc(x) if name == "enc" else (one_cpt(x),)
+        got_b = res if name == "enc" else (res,)
+        blocks_ok += all(torch.equal(a_, b_) for a_, b_ in zip(got_b, want))
+    del record[:]
+    groups = sum(st["by_bucket"][f"{h}x{w}"]
+                 for h, w in DEFAULT_BUCKET_SHAPES)
+
+    def compare(rows):
+        """(images with fc and att bit for bit, images whose concept ids
+        differ, the largest rms(diff) / rms of fc and att) against the
+        one-device batcher's rows."""
+        rms = lambda a: float(np.sqrt(np.mean(  # noqa: E731
+            np.square(a, dtype=np.float64))))
+        same = sum(np.array_equal(a_[0], b_[0]) and np.array_equal(
+            a_[1], b_[1]) for a_, b_ in zip(rows, one_r))
+        ids_differ = [i for i, (a_, b_) in enumerate(zip(rows, one_r))
+                      if not np.array_equal(a_[2], b_[2])]
+        rel = max(rms(a_[k] - b_[k]) / rms(b_[k])
+                  for a_, b_ in zip(rows, one_r) for k in (0, 1))
+        return same, ids_differ, rel
+    same, ids_differ, rel = compare(mesh_r)
+    ladder2 = tuple(2 * b for b in default_encode_buckets())
+    mesh2_r, _, st2 = run(mesh2, ladder2, lambda x: encoder.forward_raw_batch(
+        enc_reps.on(x.device), x), mesh_cpt)
+    same2, ids_differ2, rel2 = compare(mesh2_r)
+    out.update({"ladder": ladder, "by_bucket": st["by_bucket"],
+                "launches": launches, "groups": groups, "blocks": n_blocks,
+                "blocks_bitwise": blocks_ok, "features_bitwise": same,
+                "ids_differ": ids_differ, "max_rms_rel": rel,
+                "doubled_ladder": {"ladder": ladder2,
+                                   "by_bucket": st2["by_bucket"],
+                                   "features_bitwise": same2,
+                                   "ids_differ": ids_differ2}})
+    print(f"sharded serving (d) EncodeBatcher(mesh=[{card}, {card}]) bf16 "
+          f"on {len(imgs)} images: ladder {ladder}, groups by bucket "
+          f"{st['by_bucket']}, pool launches "
+          f"{launches['ceil_maxpool_3x3s2']} (2 x {groups} groups); "
+          f"{blocks_ok} of {n_blocks} blocks (warm-up included) bit for bit "
+          f"the one-device applies on the block; against the one-device "
+          f"batcher (a record): fc and att bit for bit on {same} images, "
+          f"largest rms(diff)/rms {rel:.3g}, concept ids differing on "
+          f"{ids_differ}")
+    print(f"sharded serving (d) on the ladder {ladder2} (blocks of the "
+          f"one-device batches): groups by bucket {st2['by_bucket']}; fc "
+          f"and att bit for bit the one-device batcher's on {same2} of "
+          f"{len(imgs)} images, concept ids differing on {ids_differ2}")
+    _check(n_blocks > 0 and blocks_ok == n_blocks, f"mesh encode batcher: "
+           f"{n_blocks - blocks_ok} blocks differ from the one-device "
+           "applies on them")
+    _check(launches["ceil_maxpool_3x3s2"] == 2 * groups > 0,
+           f"pool launches {launches['ceil_maxpool_3x3s2']} != 2 x "
+           f"{groups} encode groups")
+    _check(same2 == len(imgs) and not ids_differ2, "mesh encode batcher "
+           "on blocks of the one-device batches differs from the "
+           "one-device batcher")
+    return out
+
+
+def _sharded_serving(torch, np, settings, ids, cap32, det32, enc32, cpt32,
+                     phase3, serve_keep, offline_keep, zero_counters,
+                     read_counters):
+    """Phase 3l: one process serving on the devices of a ``DeviceMesh``:
+    (a) the launch repair (kernels from a fresh thread, and on a second
+    card while the first is current where there is one); (b) the sharded
+    serving function over [card, card] at bs=384 in f32 and bf16, bit for
+    bit the one-device function on each 192-row block, within the port's
+    gate of it on all 384 rows, its launch counts; (c) the mesh
+    DynamicBatcher on phase 3's requests against phase 3's answers; (d)
+    the mesh EncodeBatcher against the one-device one on 40 images; (e)
+    ``serve --mesh_shape [1]`` on phase 3e's checkpoints answering 3e's
+    feature requests with 3e's JSON, ``[2]`` refused on one card; (f)
+    ``reproduce_table`` at ``--mesh_shape [1]`` and on [card, card]
+    writing phase 3i's bf16 dump files; (g) the bf16 bs=384 step on one
+    device, on one 192-row block and on [card, card], in turns."""
+    import io
+    from insenticap_model_tpu_torch import inference
+    from insenticap_model_tpu_torch.cli import reproduce_table as repro
+    from insenticap_model_tpu_torch.cli import serve as serve_cli
+    from insenticap_model_tpu_torch.config import Opts
+    from insenticap_model_tpu_torch.models import encoder
+    from insenticap_model_tpu_torch.ops import fused_topk as ft
+    from insenticap_model_tpu_torch.parallel import mesh as pmesh
+    from insenticap_model_tpu_torch.preprocessing import (
+        DEFAULT_BUCKET_SHAPES)
+    from insenticap_model_tpu_torch.serving.encode import make_cpt_apply
+    from insenticap_model_tpu_torch.serving_daemon import (
+        DynamicBatcher, EncodeBatcher, default_encode_buckets)
+    from insenticap_model_tpu_torch.utils.dtypes import cast_bf16
+    out, t_phase = {}, time.time()
+    card = torch.device("cuda", torch.cuda.current_device())
+    cards = torch.cuda.device_count()
+    cap16, det16 = cast_bf16(cap32), cast_bf16(det32)
+    wino = ("wino_input", "wino_middle", "wino_output")
+
+    # (a) the launch repair: every serving kernel from a fresh thread whose
+    # device was never set; on cuda:1 while cuda:0 is current where a
+    # second card is visible
+    out["fresh_thread"] = _in_thread(
+        lambda: _serving_kernel_checks(torch, card, settings, cap16))
+    if cards > 1:
+        def other_card():
+            torch.cuda.set_device(0)
+            return _serving_kernel_checks(torch, torch.device("cuda", 1),
+                                          settings, cap16)
+        out["cuda1_while_cuda0"] = _in_thread(other_card)
+        print(f"sharded serving (a): the serving kernels on cuda:1 while "
+              f"cuda:0 is current agree with their twins: "
+              f"{out['cuda1_while_cuda0']}")
+    else:
+        print("sharded serving (a): one card is visible, so the check of "
+              "the kernels on cuda:1 while cuda:0 is current did not run")
+    print(f"sharded serving (a): the serving kernels from a fresh thread "
+          f"(its device never set) agree with their twins: "
+          f"{out['fresh_thread']}")
+
+    mesh2 = pmesh.DeviceMesh([card, card])
+    try:
+        # (b) the sharded serving function at bs=384 against the one-device
+        # function on each block (bit for bit) and on the whole batch (the
+        # port's gate), with its launches
+        g = torch.Generator(device=card).manual_seed(33)
+        fc = torch.rand(BS, settings.fc_feat_dim, generator=g, device=card)
+        att = torch.rand(BS, 14, 14, settings.att_feat_dim, generator=g,
+                         device=card)
+        sw = torch.randint(4, VOCAB, (BS, M), generator=g, device=card)
+        kw = dict(beam_size=BEAM, max_seq_len=T)
+        one = inference.make_serving_fn(settings, ids, **kw)
+        sharded = inference.make_sharded_serving_fn(mesh2, settings, ids,
+                                                    **kw)
+        steps, lock = {"n": 0}, threading.Lock()
+        orig_tail = ft.classifier_topk_plain
+
+        def counting_tail(*a, **k):       # a decode step, either block
+            with lock:
+                steps["n"] += 1
+            return orig_tail(*a, **k)
+        half = BS // 2
+        out["function"] = {}
+        for tag, params, dt in (
+                ("f32", (cap32, det32), torch.float32),
+                ("bf16", (cap16, det16), torch.bfloat16)):
+            p = inference.ServingParams(*params)
+            fcx, attx = fc.to(dt), att.to(dt)
+            with _switches("default"), _patched(
+                    ft, classifier_topk_plain=counting_tail):
+                torch.cuda.synchronize()
+                zero_counters()
+                steps["n"] = 0
+                got = sharded(mesh2.replicate(p), fcx, attx, sw)
+                torch.cuda.synchronize()
+                launches, n_steps = read_counters(), steps["n"]
+                blocks = [one(p, fcx[i:i + half], attx[i:i + half],
+                              sw[i:i + half]) for i in (0, half)]
+                whole = one(p, fcx, attx, sw)
+            bitwise = all(torch.equal(got[k][i * half:(i + 1) * half],
+                                      blocks[i][k])
+                          for k in range(3) for i in range(2))
+            eq = (got[0][:, 0] == whole[0][:, 0]).all(dim=1)
+            rows_differ = int((got[0] != whole[0]).flatten(1).any(1).sum()
+                              + (got[2] != whole[2]).sum())
+            share = float(eq.float().mean())
+            dscore = float((got[1][eq, 0].float() - whole[1][eq, 0].float())
+                           .abs().max()) if eq.any() else float("inf")
+            labels_eq = bool(torch.equal(got[2], whole[2]))
+            want_wino = 2 if dt == torch.bfloat16 else 0
+            out["function"][tag] = {
+                "bitwise_vs_blocks": bitwise, "labels_equal": labels_eq,
+                "top_beam_identical": share, "max_score_diff": dscore,
+                "rows_differing_from_whole": rows_differ,
+                "launches": launches, "decode_steps": n_steps}
+            print(f"sharded serving (b) {tag} bs={BS} over [{card}, {card}]: "
+                  f"bit for bit the one-device fn on each {half}-row block "
+                  f"{bitwise}; against the whole batch: labels equal "
+                  f"{labels_eq}, top beams identical {share:.2%}, max score "
+                  f"diff on those {dscore:.3g}, rows differing "
+                  f"{rows_differ} of {BS}; launches {launches}, decode "
+                  f"steps of both blocks {n_steps}")
+            _check(bitwise, f"sharded fn {tag}: not bit for bit the "
+                   "one-device fn on its blocks")
+            _check(labels_eq and share >= 0.99 and dscore <= 1e-3,
+                   f"sharded fn {tag}: outside the gate of the one-device "
+                   "fn on the whole batch")
+            _check([launches[k] for k in wino] == [want_wino] * 3,
+                   f"sharded fn {tag}: Winograd launches "
+                   f"{[launches[k] for k in wino]} != {want_wino} each "
+                   "(once a block a call in bf16)")
+            _check(n_steps > 0 and launches["beam_content_attention"]
+                   == n_steps, f"sharded fn {tag}: v1 launches "
+                   f"{launches['beam_content_attention']} != decode steps "
+                   f"{n_steps}")
+        del got, blocks, whole
+
+        # (c) the mesh decode batcher in bf16 on phase 3's requests
+        out["batcher"] = _mesh_decode_batcher(
+            torch, np, mesh2, settings, ids, cap32, det32, phase3,
+            zero_counters, read_counters)
+
+        # (d) the mesh encode batcher against the one-device one, bf16
+        out["encode"] = _mesh_encode_batcher(
+            torch, np, mesh2, settings, enc32, cpt32, zero_counters,
+            read_counters)
+
+        # (e) the serve CLI: --mesh_shape [1] on phase 3e's checkpoints
+        # answers 3e's feature requests with 3e's JSON; [2] refused on one
+        # card, naming it
+        base = ["--rl_model", serve_keep["rl"], "--concept_model",
+                serve_keep["concept"], "--sentiment_detector_json",
+                serve_keep["senti"], "--compute_dtype", "bfloat16",
+                "--host", "127.0.0.1", "--port", "0", "--max_wait_ms",
+                "20", "--device", str(card)]
+        srv = serve_cli.make_server(serve_cli.build_parser().parse_args(
+            base + ["--mesh_shape", "[1]"]))
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            feats = serve_keep["feature_requests"]
+            answers, errors_e, _ = _run_groups(
+                lambda i: _post(srv.server_address[1], feats[i]),
+                len(feats), [range(len(feats))])
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.app.close()
+            th.join(timeout=60)
+        _check(not errors_e and not th.is_alive(), f"serve --mesh_shape [1]:"
+               f" {errors_e}")
+        same_json = [body for _, body in answers] == \
+            serve_keep["feature_answers"]
+        print(f"sharded serving (e) serve --mesh_shape [1]: "
+              f"{len(answers)} feature requests, statuses "
+              f"{[st_ for st_, _ in answers]}, JSON identical to phase 3e's "
+              f"{same_json}")
+        _check(all(st_ == 200 for st_, _ in answers) and same_json,
+               "serve --mesh_shape [1] answers differ from phase 3e's: "
+               f"{answers} != {serve_keep['feature_answers']}")
+        if cards == 1:
+            refusal = None
+            try:
+                serve_cli.ServeApp(serve_cli.build_parser().parse_args(
+                    base + ["--mesh_shape", "[2]"]))
+            except SystemExit as e:
+                refusal = e
+            msg = str(refusal)
+            _check(refusal is not None and isinstance(refusal.code, str)
+                   and "1 is visible" in msg
+                   and torch.cuda.get_device_name(0) in msg,
+                   f"serve --mesh_shape [2] on one card: {refusal!r}")
+            out["serve_2_refusal"] = msg
+            print(f"sharded serving (e) serve --mesh_shape [2] on one card "
+                  f"exits non-zero: {msg}")
+        else:
+            print(f"sharded serving (e): {cards} cards are visible, so the "
+                  "refusal of --mesh_shape [2] on one card did not run")
+
+        # (f) reproduce_table at --mesh_shape [1], and on [card, card]
+        # through run_test_dump's sharded fn: phase 3i's bf16 dump files and
+        # table exactly, the latter at twice 3i's rl_bs, so that each block
+        # is 3i's batch; at 3i's rl_bs (blocks of 20 where 3i's batches are
+        # 40: another rounding in bf16, as (c)) the files are recorded
+        want_dir = offline_keep["bf16_dump"]
+        want_names = sorted(n for n in os.listdir(want_dir)
+                            if n.startswith("result_bf16_"))
+        home, log = os.getcwd(), io.StringIO()
+        out["reproduce"] = {}
+        os.chdir(offline_keep["work"])
+        try:
+            for tag, shape, rl_bs, held in (
+                    ("mesh1", (1,), RL_BS, True),
+                    ("mesh_twice", (2,), 2 * RL_BS, True),
+                    ("mesh_twice_bs40", (2,), RL_BS, False)):
+                o = Opts(**dict(offline_keep["bf16_opts"],
+                                result_dir=os.path.join(
+                                    offline_keep["work"], "res_" + tag),
+                                mesh_shape=shape, rl_bs=rl_bs))
+                with contextlib.ExitStack() as stack:
+                    stack.enter_context(contextlib.redirect_stdout(log))
+                    if shape == (2,):   # two entries for the one card
+                        stack.enter_context(_patched(
+                            pmesh, make_device_mesh=lambda n, device:
+                            pmesh.DeviceMesh([card] * n)))
+                    zero_counters()
+                    t0 = time.time()
+                    repro.reproduce(o, offline_keep["model"], tag="bf16",
+                                    anno_file=offline_keep["anno"],
+                                    out=os.path.join(
+                                        offline_keep["work"], tag + ".json"))
+                    torch.cuda.synchronize()
+                    s_ = time.time() - t0
+                    launches_f = read_counters()
+                got_dir = os.path.join(o.result_dir, "rl", "coco", "part")
+                names = sorted(n for n in os.listdir(got_dir)
+                               if n.startswith("result_bf16_"))
+                differ_f = [n for n in want_names if n not in names or open(
+                    os.path.join(got_dir, n), "rb").read() != open(
+                    os.path.join(want_dir, n), "rb").read()]
+                table_same = open(tag + ".json", "rb").read() == open(
+                    "bf16.json", "rb").read()
+                caps = [_dump_captions(d) for d in (got_dir, want_dir)]
+                caps_differ = sum(caps[0].get(k) != v
+                                  for k, v in caps[1].items())
+                out["reproduce"][tag] = {
+                    "s": s_, "launches": launches_f, "files": len(names),
+                    "files_differing": differ_f, "table_identical":
+                    table_same, "captions_differing": caps_differ,
+                    "captions": len(caps[1])}
+                print(f"sharded serving (f) reproduce_table bf16 "
+                      f"--mesh_shape {list(shape)}"
+                      + (f" on [{card}, {card}]" if shape == (2,) else "")
+                      + f", rl_bs {rl_bs}: {s_:.2f} s, {len(names)} dump "
+                      f"files, {len(differ_f)} differing from phase 3i's "
+                      f"({caps_differ} of {len(caps[1])} captions or "
+                      f"detected sentiments); table identical "
+                      f"{table_same}; launches {launches_f}"
+                      + ("" if held else " (a record)"))
+                _check(not held or (names == want_names and not differ_f
+                                    and table_same),
+                       f"reproduce_table --mesh_shape {list(shape)}: dump "
+                       f"files or table differ from phase 3i's bf16 run: "
+                       f"{differ_f}")
+                _check(launches_f["beam_content_attention"] > 0 and [
+                    launches_f[k] for k in wino] == [2 * shape[0]] * 3,
+                    f"reproduce_table --mesh_shape {list(shape)}: launches "
+                    f"{launches_f}")
+        finally:
+            os.chdir(home)
+            os.makedirs("chiprun_out", exist_ok=True)
+            with open(os.path.join("chiprun_out", "sharded_serving.log"),
+                      "w") as f:
+                f.write(log.getvalue())
+
+        # (g) the bf16 bs=384 step: one device, one 192-row block, and
+        # [card, card], in turns (host clock, median of 6)
+        p16 = inference.ServingParams(cap16, det16)
+        reps16 = mesh2.replicate(p16)
+        fc16, att16 = fc.bfloat16(), att.bfloat16()
+        variants = {
+            "one_device_384": lambda: one(p16, fc16, att16, sw),
+            "one_block_192": lambda: one(p16, fc16[:half], att16[:half],
+                                         sw[:half]),
+            "mesh_twice_384": lambda: sharded(reps16, fc16, att16, sw)}
+        walls = {k: [] for k in variants}
+        with _switches("default"):
+            for _ in range(6):
+                for k, f_ in variants.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    f_()
+                    torch.cuda.synchronize()
+                    walls[k].append(time.perf_counter() - t0)
+        med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+        smi = _smi()
+        out["step_ms"] = dict(med, card=smi,
+                              overlap=2 * med["one_block_192"]
+                              / med["mesh_twice_384"])
+        print(f"sharded serving (g) bf16 bs={BS} step on {smi} (host clock, "
+              f"median of 6, in turns): one device "
+              f"{med['one_device_384']:.1f} ms, one {half}-row block "
+              f"{med['one_block_192']:.1f} ms, two workers on [{card}, "
+              f"{card}] {med['mesh_twice_384']:.1f} ms (2 x block / mesh = "
+              f"{out['step_ms']['overlap']:.2f}; a reading, no limit)")
+    finally:
+        mesh2.close()
+    out["phase_s"] = time.time() - t_phase
+    print(f"sharded serving (phase 3l): {out['phase_s']:.1f} s")
     return out
 
 
@@ -4580,6 +5272,8 @@ def main():
         _check(launches[k] > 0, f"kernel {k} never launched on the main path")
     report.update(serve_s=serve_s, by_bucket=by, launches=launches,
                   labels=sorted({r[2] for r in results}))
+    # phase 3l's mesh batcher answers the same requests
+    phase3 = (fcs, atts, sentis, forced, groups, results)
 
     # -- 3b. the trained path: checkpoint weights, both kernel switches ----
     t0 = time.time()
@@ -4798,9 +5492,11 @@ def main():
                          "megacell": mega, "launches": launches_d}
 
     # -- 3e. the serving surface: the HTTP daemon and the caption command --
+    serve_keep_dir = tempfile.TemporaryDirectory(prefix="serve_keep_")
+    serve_keep = {"dir": serve_keep_dir.name}
     report["serving_surface"] = _serving_surface(
         torch, np, dev, settings, cap32, det32, cpt32, enc32, words,
-        idx2concept, senti_table, zero_counters, read_counters)
+        idx2concept, senti_table, zero_counters, read_counters, serve_keep)
     torch.cuda.empty_cache()
 
     # -- 3f. the XE pre-training stage (train_xe) -------------------------
@@ -4827,9 +5523,10 @@ def main():
         rl_keep["root"] = rl_copy
 
         # -- 3i. the offline and evaluation CLIs, on 3h's tree ------------
+        offline_keep = {}
         report["offline_clis"] = _offline_clis(
             torch, np, dev, settings, enc32, zero_counters, read_counters,
-            report["train_rl"]["files"])
+            report["train_rl"]["files"], offline_keep)
         torch.cuda.empty_cache()
 
         # -- 3j. data-parallel training (parallel/mesh.py) -----------------
@@ -4842,6 +5539,14 @@ def main():
         report["rl_data_parallel"] = _rl_data_parallel(torch, np, dev,
                                                        settings, rl_keep)
         del rl_keep
+        torch.cuda.empty_cache()
+
+        # -- 3l. sharded serving in one process (a DeviceMesh) -------------
+        report["sharded_serving"] = _sharded_serving(
+            torch, np, settings, ids, cap32, det32, enc32, cpt32, phase3,
+            serve_keep, offline_keep, zero_counters, read_counters)
+        serve_keep_dir.cleanup()
+        del offline_keep, serve_keep
         torch.cuda.empty_cache()
 
     # -- 4. f32 end to end: kernel path against the plain path -------------

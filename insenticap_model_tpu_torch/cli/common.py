@@ -13,14 +13,16 @@ concept, sentiment-image and sentence loaders (each rank's stripe,
 ``host_shard``), stage directories, checkpoint selection and result and
 metrics writing (rank 0's).
 
-Data parallelism (``--mesh_shape [n]``, n processes launched by
-``torchrun --nproc_per_node n``): each rank loads ``round_bs(bs) / n``
+Data parallelism in training (``--mesh_shape [n]``, n processes launched
+by ``torchrun --nproc_per_node n``): each rank loads ``round_bs(bs) / n``
 rows of its stripe of the train split a step, and the steps
 (``training/steps.py``) all-reduce the counts and the gradients, so that
 the ranks' step is the one-process step on the global batch (the ranks'
 batches concatenated in rank order). The eval loaders are not striped:
 every rank evaluates the whole split, so the val loss, and the
-learning-rate halving that reads it, are the same on every rank.
+learning-rate halving that reads it, are the same on every rank. The
+entry points that serve (``reproduce_table``) take ``--mesh_shape [n]``
+as n devices driven by one process (``Runtime(opt, serving=True)``).
 
 Artefact schemas are the reference's JSON contracts (SURVEY.md §1):
 idx2word.json (list), img_captions.json ({split: {fn: [[word, ...],
@@ -170,10 +172,10 @@ def flatten_caption_items(captions_id: Dict, concepts_id: Dict) -> List:
 # Runtime: the rank's device and process group, placement and dtype policy
 # ---------------------------------------------------------------------------
 
-def mesh_ranks(mesh_shape) -> int:
-    """The ranks of a ``--mesh_shape``: () and (1,) one, (n,) n; a mesh of
-    more than one axis exits with a message (the JAX package's 2-D ``data
-    x model`` mesh is not ported)."""
+def mesh_devices(mesh_shape) -> int:
+    """The devices of a ``--mesh_shape``: () and (1,) one, (n,) n; a mesh
+    of more than one axis exits with a message (the JAX package's 2-D
+    ``data x model`` mesh is not ported)."""
     shape = tuple(mesh_shape or ())
     if len(shape) > 1:
         raise SystemExit(
@@ -183,34 +185,79 @@ def mesh_ranks(mesh_shape) -> int:
     return int(shape[0]) if shape else 1
 
 
+def serving_mesh(mesh_shape, device):
+    """The ``DeviceMesh`` of a serving entry point's ``--mesh_shape`` (None
+    without one): n devices of ``device`` driven by this one process.
+    Exits with a message under a ``WORLD_SIZE`` above 1 (multi-host
+    serving, a mesh over processes, is not ported), for a mesh of more
+    than one axis, and where fewer than n cards are visible."""
+    world = os.environ.get("WORLD_SIZE")
+    if world not in (None, "1"):
+        raise SystemExit(
+            f"WORLD_SIZE={world}: multi-host serving (a mesh over "
+            "processes, followers mirroring process 0) is not ported yet; "
+            "run this entry point in one process")
+    if not mesh_shape:
+        return None
+    shape = tuple(mesh_shape)
+    if len(shape) != 1:
+        # serving only shards over `data`; a silent extra axis would
+        # replicate all serving work across it
+        raise SystemExit(
+            f"--mesh_shape must be 1-D for serving (got {shape}); "
+            f"use '[{int(np.prod(shape))}]'")
+    return mesh.make_device_mesh(shape[0], device)
+
+
 class Runtime:
     """Device, process group and dtype policy for a CLI run: the card
     unless ``opt.device`` says cpu, float32 or bfloat16 compute.
 
-    ``--mesh_shape [n]`` trains data-parallel over n ranks, launched as n
-    processes by ``torchrun`` (``env://``: ``RANK``, ``WORLD_SIZE``,
-    ``LOCAL_RANK``): the rank's device is ``cuda:LOCAL_RANK`` (or the CPU
-    under ``--device cpu``), its backend NCCL on the card and gloo on the
-    CPU. A process group the caller joined already (``mesh.init``) is
-    used as it is. Exits with a message where n disagrees with the
-    world size, the mesh is not 1-D, or ``LOCAL_RANK`` has no card of its
-    own. An explicit ``--mesh_shape [1]`` under torchrun joins a group of
-    one rank; without a ``--mesh_shape`` the run is one process. The
-    trainers that run data-parallel pass ``data_parallel=True``; for the
-    other entry points (``unported``: why) more than one rank exits with
-    a message."""
+    ``--mesh_shape [n]`` names n devices in all, and a process drives
+    n / world size of them: a trainer's n ranks one device each, a
+    serving entry point's one process all n.
+
+    The trainers (``data_parallel=True``) train data-parallel over n
+    ranks, launched as n processes by ``torchrun`` (``env://``: ``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``): the rank's device is
+    ``cuda:LOCAL_RANK`` (or the CPU under ``--device cpu``), its backend
+    NCCL on the card and gloo on the CPU. A process group the caller
+    joined already (``mesh.init``) is used as it is. Exits with a message
+    where n disagrees with the world size, the mesh is not 1-D, or
+    ``LOCAL_RANK`` has no card of its own. An explicit ``--mesh_shape
+    [1]`` under torchrun joins a group of one rank; without a
+    ``--mesh_shape`` the run is one process.
+
+    The entry points that serve (``serving=True``) run in one process,
+    rank 0 of 1, on ``self.mesh``, a ``parallel.mesh.DeviceMesh`` of n
+    devices (``serving_mesh``: exits where fewer cards are visible, and
+    under a ``WORLD_SIZE`` above 1), or on one device without a
+    ``--mesh_shape``; ``self.device`` is the mesh's first device,
+    ``replicate`` copies params to every device, and ``close()`` stops
+    the mesh's workers.
+
+    ``round_bs`` rounds a batch to a multiple of the n devices either
+    way. For the other entry points (``unported``: why) a mesh of more
+    than one device exits with a message."""
 
     def __init__(self, opt: Opts, data_parallel: bool = False,
+                 serving: bool = False,
                  unported: str = "multi-device runs of this entry point "
                  "are not ported yet; run it on one device"):
-        n = mesh_ranks(opt.mesh_shape)
-        if n > 1 and not data_parallel:
+        n = mesh_devices(opt.mesh_shape)
+        if n > 1 and not (data_parallel or serving):
             raise SystemExit(f"--mesh_shape {list(opt.mesh_shape)}: "
                              f"{unported}; leave --mesh_shape unset")
         env_world = os.environ.get("WORLD_SIZE")
         self.opt = opt
         self.device = resolve_device(opt.device)
-        if mesh.initialized():
+        self.mesh = None
+        self.devices = n
+        if serving:
+            self.mesh = serving_mesh(opt.mesh_shape, self.device)
+            if self.mesh is not None:
+                self.device = self.mesh.devices[0]
+        elif mesh.initialized():
             if mesh.world_size() != n:
                 raise SystemExit(
                     f"--mesh_shape [{n}] disagrees with the process group's "
@@ -230,7 +277,8 @@ class Runtime:
         self.dtype = torch.bfloat16 if opt.compute_dtype == "bfloat16" \
             else torch.float32
         group = f" over {mesh.backend()}" if mesh.initialized() else ""
-        print(f"====> device: {self.device}, compute dtype "
+        on = "" if self.mesh is None else f" (mesh {self.mesh})"
+        print(f"====> device: {self.device}{on}, compute dtype "
               f"{opt.compute_dtype}, rank {mesh.rank()} of {self.ranks}"
               f"{group}")
 
@@ -254,8 +302,19 @@ class Runtime:
 
     def round_bs(self, bs: int) -> int:
         """The global batch size: ``bs`` rounded up to a multiple of the
-        ranks (each rank loads ``round_bs(bs) / ranks`` rows a step)."""
-        return -(-bs // self.ranks) * self.ranks
+        mesh's devices (a trainer's rank loads ``round_bs(bs) / ranks``
+        rows a step; a serving mesh splits them over its devices)."""
+        return -(-bs // self.devices) * self.devices
+
+    def replicate(self, tree):
+        """``tree`` copied to every device of the serving mesh
+        (``Replicas``); ``tree`` itself without one."""
+        return tree if self.mesh is None else self.mesh.replicate(tree)
+
+    def close(self) -> None:
+        """Stop the serving mesh's worker threads, if there is a mesh."""
+        if self.mesh is not None:
+            self.mesh.close()
 
     def put(self, batch: Dict) -> Dict:
         """Array values to the device (from pinned memory, not blocking,

@@ -5,7 +5,8 @@ table (reference README.md:29-36).
     python -m insenticap_model_tpu_torch.cli.reproduce_table \\
         --rl_model DETECTOR.ckpt|.pth [--dataset_name coco] \\
         [--corpus_type part] [--tag repro] [--beam_size 3] [--rl_bs 40] \\
-        [--anno_file F] [--out result/repro_table.json] [--device cpu]
+        [--anno_file F] [--out result/repro_table.json] [--device cpu] \\
+        [--mesh_shape '[n]']
 
 Counterpart of ``insenticap_model_tpu/cli/reproduce_table.py``: load the
 composite (either package's ``.ckpt``, or the reference's ``.pth``
@@ -19,10 +20,15 @@ sentence classifier on the device) and ``eval_ppl`` (ppl against the
 per-sentiment trigram LMs, a subprocess); then print the table and write
 it as JSON. The cls and ppl columns are null where their inputs (the
 classifier checkpoint or the composite's metadata, the LM files) are
-absent, as in the JAX CLI. The port is single-device: the params are only
-cast to the run's compute dtype (``Opts.compute_dtype``; the JAX CLI also
-replicates them over its mesh and keeps its Pallas calls off a sharded
-decode).
+absent, as in the JAX CLI. The params are cast to the run's compute
+dtype (``Opts.compute_dtype``). ``--mesh_shape [n]`` decodes in this one
+process on n devices of ``--device`` (``Runtime(opt, serving=True)``):
+the captioner and the detector replicated, each test batch (``rl_bs``
+rounded up to a multiple of n) split over the devices by the sharded
+serving function, every device running the kernels on its block; the
+dump, the metrics and the table are the one-device run's. (The JAX CLI
+replicates over its mesh too, and keeps its Pallas calls off a sharded
+decode, which the port's per-device blocks do not need.)
 """
 from __future__ import annotations
 
@@ -84,26 +90,10 @@ def _materialize_cls_checkpoint(opt: Opts, composite, meta,
     return out_dir
 
 
-def reproduce(opt: Opts, rl_model: str, tag: str = "repro",
-              anno_file: str = "", out: str = "") -> dict:
-    composite, meta = load_composite(rl_model, device=opt.device)
-    if "settings" in meta and not isinstance(meta["settings"], dict):
-        meta["settings"] = meta["settings"].to_dict()
-    settings = Settings.from_dict(meta["settings"]) \
-        if "settings" in meta else opt.settings
-    opt.settings = settings
-    vocab = Vocab(meta["idx2word"]) if "idx2word" in meta \
-        else common.load_vocab(opt)
-    cats = list(meta.get("sentiment_categories",
-                         opt.sentiment_categories))
-    opt.sentiment_categories = cats
-    ids = common.token_ids(vocab, cats)
-    label2idx = {w: i for i, w in enumerate(cats)}
-
-    rt = common.Runtime(opt)
-    params = rt.cast(composite["captioner"])
-    senti_params = rt.cast(composite["senti_detector"])
-
+def _decode_test_splits(opt: Opts, rt, composite, meta, settings, vocab,
+                        ids, label2idx):
+    """Both test splits through the serving path on ``rt``'s device or
+    mesh: ``run_test_dump``'s (results, det_sentis, wrong_rate)."""
     # artefacts and stores (the inputs the RL test dump reads)
     img_captions = common.load_json(
         common.dataset_path(opt, "img_captions.json"))
@@ -131,16 +121,45 @@ def reproduce(opt: Opts, rl_model: str, tag: str = "repro",
         sentiments_id, label2idx, vocab, opt, bs, shuffle=False,
         drop_last=False)
 
-    serving = inference.make_serving_fn(
-        settings, ids, beam_size=opt.beam_size,
-        max_seq_len=meta.get("max_seq_len", opt.max_seq_len))
-    sparams = inference.ServingParams(captioner=params,
-                                      senti_detector=senti_params)
+    max_seq_len = meta.get("max_seq_len", opt.max_seq_len)
+    if rt.mesh is None:
+        serving = inference.make_serving_fn(
+            settings, ids, beam_size=opt.beam_size, max_seq_len=max_seq_len)
+    else:
+        serving = inference.make_sharded_serving_fn(
+            rt.mesh, settings, ids, beam_size=opt.beam_size,
+            max_seq_len=max_seq_len)
+    sparams = rt.replicate(inference.ServingParams(
+        captioner=rt.cast(composite["captioner"]),
+        senti_detector=rt.cast(composite["senti_detector"])))
 
     print("====> decoding test splits")
-    results, det_sentis, wrong_rate = run_test_dump(
-        rt, opt, vocab, serving, sparams, test_fns, bs, fc_store,
-        att_store, sentiments_id, senti_test)
+    return run_test_dump(rt, opt, vocab, serving, sparams, test_fns, bs,
+                         fc_store, att_store, sentiments_id, senti_test)
+
+
+def reproduce(opt: Opts, rl_model: str, tag: str = "repro",
+              anno_file: str = "", out: str = "") -> dict:
+    composite, meta = load_composite(rl_model, device=opt.device)
+    if "settings" in meta and not isinstance(meta["settings"], dict):
+        meta["settings"] = meta["settings"].to_dict()
+    settings = Settings.from_dict(meta["settings"]) \
+        if "settings" in meta else opt.settings
+    opt.settings = settings
+    vocab = Vocab(meta["idx2word"]) if "idx2word" in meta \
+        else common.load_vocab(opt)
+    cats = list(meta.get("sentiment_categories",
+                         opt.sentiment_categories))
+    opt.sentiment_categories = cats
+    ids = common.token_ids(vocab, cats)
+    label2idx = {w: i for i, w in enumerate(cats)}
+
+    rt = common.Runtime(opt, serving=True)
+    try:
+        results, det_sentis, wrong_rate = _decode_test_splits(
+            opt, rt, composite, meta, settings, vocab, ids, label2idx)
+    finally:
+        rt.close()
     _, result_dir = common.stage_dirs(opt, "rl")
     dump_rl_results(result_dir, tag, results, det_sentis, wrong_rate, vocab)
     prefix = os.path.join(result_dir, f"result_{tag}")
@@ -255,13 +274,18 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="the port's device: cuda (default; refused where "
                         "CUDA is absent) or cpu")
+    p.add_argument("--mesh_shape", default="",
+                   help="e.g. '[2]': decode in this process on n devices "
+                        "of --device (rl_bs rounds up to a multiple of n)")
     return p
 
 
 def main(argv=None):
     a = build_parser().parse_args(argv)
     opt = Opts(dataset_name=a.dataset_name, corpus_type=a.corpus_type,
-               beam_size=a.beam_size, rl_bs=a.rl_bs, device=a.device)
+               beam_size=a.beam_size, rl_bs=a.rl_bs, device=a.device,
+               mesh_shape=tuple(json.loads(a.mesh_shape))
+               if a.mesh_shape else ())
     reproduce(opt, a.rl_model, tag=a.tag, anno_file=a.anno_file,
               out=a.out)
 

@@ -7,7 +7,8 @@ same flags, endpoints, status codes and request path:
     python -m insenticap_model_tpu_torch.cli.serve \\
         --rl_model rl.ckpt --concept_model concept.ckpt \\
         [--resnet101_ckpt resnet101.ckpt --image_root /data/imgs] \\
-        [--compute_dtype bfloat16] [--port 8500] [--warm] [--device cpu]
+        [--compute_dtype bfloat16] [--port 8500] [--warm] [--device cpu] \\
+        [--mesh_shape '[n]']
 
 Endpoints (JSON over HTTP):
   POST /caption   {"fc": [...], "att": [[[...]]],          feature mode
@@ -37,9 +38,16 @@ image_path is disabled unless --image_root is set, and then confined to
 that directory, lexically and by realpath.
 
 Added flag: ``--device`` (``cuda`` by default, refused where CUDA is
-absent; ``cpu`` runs the plain PyTorch versions). Not ported yet:
-``--mesh_shape`` (multi-device serving, exits with a message) and the
-multi-host follower.
+absent; ``cpu`` runs the plain PyTorch versions). ``--mesh_shape [n]``
+serves in this one process on n devices of ``--device`` (``cuda:0`` to
+``cuda:n-1``; n slots of the CPU under ``--device cpu``): both batchers
+take the mesh, the captioner, the detectors, the concept MLP and the
+encoder are replicated, each batch's rows split over the devices, and the
+default ladders round up to multiples of n. It exits with a message where
+fewer than n cards are visible, for a mesh of more than one axis, and
+under a ``WORLD_SIZE`` above 1: the JAX package's multi-host serving (a
+mesh over processes, its followers mirroring process 0) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -116,13 +124,12 @@ def build_parser():
                    help="bfloat16 = the measured TPU serving policy; "
                         "also halves request host->device bytes")
     p.add_argument("--mesh_shape", type=str, default="",
-                   help="e.g. '[8]': data-parallel serving over a 1-D "
-                        "device mesh (shard_map per-device programs; every "
-                        "bucket size must be a multiple of the data-axis "
-                        "size). When the mesh spans jax.distributed "
-                        "processes, run this SAME command on every host "
-                        "(same checkpoints): process 0 serves HTTP, the "
-                        "rest mirror its dispatches in lockstep")
+                   help="e.g. '[8]': data-parallel serving in this process "
+                        "over n devices of --device (each device runs the "
+                        "one-device programs on its block of every batch; "
+                        "every bucket size must be a multiple of n). A "
+                        "mesh over several processes (multi-host serving) "
+                        "is not ported yet")
     p.add_argument("--warm", action="store_true",
                    help="pre-compile every bucket before accepting "
                         "traffic (first full-size TPU compile is "
@@ -134,17 +141,23 @@ def build_parser():
     return p
 
 
-def _load_encoder(resnet101_ckpt: str, compute_dtype: str, device):
+def _load_encoder(resnet101_ckpt: str, compute_dtype: str, device,
+                  mesh=None):
     """Converted-ResNet checkpoint -> the raw-uint8 batch apply (uint8
     [B,H,W,3] on ``device`` -> (fc [B,2048], att [B,14,14,2048])), its
     params held on the device once, cast to bf16 for that policy
-    (``EncodeBatcher`` hands results back as f32). A separate function so
-    that tests can substitute a settings-matched tiny encoder."""
+    (``EncodeBatcher`` hands results back as f32). Under a ``mesh`` the
+    params are replicated (then cast, on each copy) and each call takes
+    the copy on its batch's device. A separate function so that tests can
+    substitute a settings-matched tiny encoder."""
     from ..models import encoder
     params, _ = ckpt.load(resnet101_ckpt, device=device)
-    if compute_dtype == "bfloat16":
-        params = cast_bf16(params)
-    return lambda x: encoder.forward_raw_batch(params, x)
+    cast = cast_bf16 if compute_dtype == "bfloat16" else (lambda t: t)
+    if mesh is None:
+        params = cast(params)
+        return lambda x: encoder.forward_raw_batch(params, x)
+    reps = mesh.replicate(params).map(cast)
+    return lambda x: encoder.forward_raw_batch(reps.on(x.device), x)
 
 
 class ServeApp:
@@ -152,21 +165,24 @@ class ServeApp:
     (tests drive handle_caption directly or over a real socket)."""
 
     def __init__(self, a):
-        if a.mesh_shape:
-            raise SystemExit(
-                f"--mesh_shape {a.mesh_shape}: multi-device serving is not "
-                "ported yet; serve on one device (leave --mesh_shape "
-                "unset)")
         device = resolve_device(a.device)
-        batcher, vocab, cats, settings = \
-            serving_daemon.make_batcher_from_checkpoint(
-                a.rl_model, beam_size=a.beam_size,
-                max_seq_len=a.max_seq_len,
-                bucket_sizes=(tuple(json.loads(a.bucket_sizes))
-                              if a.bucket_sizes else None),
-                max_wait_s=a.max_wait_ms / 1e3,
-                compute_dtype=a.compute_dtype,
-                num_sentiments=a.num_sentiments, device=device)
+        self.mesh = mesh = common.serving_mesh(
+            json.loads(a.mesh_shape), device) if a.mesh_shape else None
+        try:
+            batcher, vocab, cats, settings = \
+                serving_daemon.make_batcher_from_checkpoint(
+                    a.rl_model, beam_size=a.beam_size,
+                    max_seq_len=a.max_seq_len,
+                    bucket_sizes=(tuple(json.loads(a.bucket_sizes))
+                                  if a.bucket_sizes else None),
+                    max_wait_s=a.max_wait_ms / 1e3,
+                    compute_dtype=a.compute_dtype,
+                    num_sentiments=a.num_sentiments, device=device,
+                    mesh=mesh)
+        except BaseException:
+            if mesh is not None:
+                mesh.close()
+            raise
         self.batcher = batcher
         self.vocab = vocab
         self.cats = list(cats)
@@ -183,11 +199,14 @@ class ServeApp:
         try:
             self.cpt_params, self.idx2concept, _ = \
                 common.load_concept_model(a.concept_model, device=device)
+            if mesh is not None:
+                self.cpt_params = mesh.replicate(self.cpt_params)
             # f32 scoring whatever the serving dtype (the ranking is the
             # product; bf16 fc rows from the encoder cast up in the apply)
             cpt_apply = make_cpt_apply(self.cpt_params, self.num_concepts)
             enc_apply = _load_encoder(a.resnet101_ckpt, a.compute_dtype,
-                                      device) if a.resnet101_ckpt else None
+                                      device, mesh) \
+                if a.resnet101_ckpt else None
             # the encode batcher exists even without an encoder: feature-
             # mode concept top-k batches through it instead of running bs=1
             self.enc_batcher = serving_daemon.EncodeBatcher(
@@ -195,10 +214,13 @@ class ServeApp:
                 shape_buckets=self.image_shapes,
                 batch_buckets=(tuple(json.loads(a.enc_bucket_sizes))
                                if a.enc_bucket_sizes
-                               else serving_daemon.default_encode_buckets()),
-                max_wait_s=a.max_wait_ms / 1e3, device=device)
+                               else serving_daemon.default_encode_buckets(
+                                   mesh)),
+                max_wait_s=a.max_wait_ms / 1e3, device=device, mesh=mesh)
         except BaseException:
             self.batcher.close()
+            if mesh is not None:
+                mesh.close()
             raise
         try:
             self.senti_table = common.load_json(a.sentiment_detector_json)
@@ -298,6 +320,8 @@ class ServeApp:
     def close(self):
         self.enc_batcher.close()
         self.batcher.close()
+        if self.mesh is not None:
+            self.mesh.close()
 
 
 def make_server(a) -> ThreadingHTTPServer:
@@ -381,8 +405,8 @@ def main(argv=None):
     srv = make_server(a)
     host, port = srv.server_address[:2]
     print(f"serving on http://{host}:{port} "
-          f"(buckets {a.bucket_sizes}, wait {a.max_wait_ms} ms, device "
-          f"{a.device})", flush=True)
+          f"(buckets {srv.app.batcher._buckets}, wait {a.max_wait_ms} ms, "
+          f"device {a.device}, mesh {srv.app.mesh})", flush=True)
 
     # graceful drain on SIGTERM/SIGINT: stop accepting, let in-flight
     # handler threads finish against still-live batchers (server_close

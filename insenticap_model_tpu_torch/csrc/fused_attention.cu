@@ -76,7 +76,8 @@
 // walked the positions serially with no copy ahead (int8: B x 16
 // accumulators a thread, spilling at large B): now the ring, B x 8
 // accumulators, 4 position slices in parallel; (4) the dynamic
-// shared-memory limit was set on every launch: now once an instance. And
+// shared-memory limit was set on every launch: now once an instance on
+// each device. And
 // for int8: (5) tanhf took two MUFU operations a tanh, 2B a value: the
 // default entry takes 1 + B (e^2p once for the B beams, one reciprocal a
 // beam), as accurate; (6) every int8 value went through the int-to-float
@@ -95,6 +96,8 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -916,8 +919,16 @@ beam_att_i8_kernel(const float* __restrict__ q, const bf16* __restrict__ alpha,
 
 // -- launch ----------------------------------------------------------------
 
-// raises a kernel's dynamic shared-memory limit to the device's opt-in
-// maximum; returns that maximum, or minus a CUDA error code
+// cudaFuncSetAttribute acts on the calling thread's current device only:
+// an instance's shared-memory limit is raised once on each device, at its
+// first launch there, and kept in that device's slot of ``limits`` (0
+// until then; two threads that race on one device both raise it, to the
+// same value)
+constexpr int kMaxDevices = 64;
+
+// raises a kernel's dynamic shared-memory limit on the current device to
+// that device's opt-in maximum; returns that maximum, or minus a CUDA
+// error code
 template <typename Kernel>
 int raise_smem_limit(Kernel kernel) {
   int dev = 0, optin = 0;
@@ -931,18 +942,32 @@ int raise_smem_limit(Kernel kernel) {
   return err == cudaSuccess ? optin : -(int)err;
 }
 
-// the limit of each instance, raised once
+// an instance's limit on the current device, or minus a CUDA error code
+template <typename Kernel>
+int device_smem_limit(std::atomic<int> (&limits)[kMaxDevices],
+                      Kernel kernel) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (dev < 0 || dev >= kMaxDevices) return -(int)cudaErrorInvalidDevice;
+  int limit = limits[dev].load(std::memory_order_acquire);
+  if (limit == 0) {
+    limit = raise_smem_limit(kernel);
+    limits[dev].store(limit, std::memory_order_release);
+  }
+  return limit;
+}
+
 template <typename T, int B, bool kFast, bool kRoundW>
 int smem_limit() {
-  static const int limit =
-      raise_smem_limit(beam_att_kernel<T, B, kFast, kRoundW>);
-  return limit;
+  static std::atomic<int> limits[kMaxDevices];
+  return device_smem_limit(limits, beam_att_kernel<T, B, kFast, kRoundW>);
 }
 
 template <int B, bool kFast>
 int smem_limit_i8() {
-  static const int limit = raise_smem_limit(beam_att_i8_kernel<B, kFast>);
-  return limit;
+  static std::atomic<int> limits[kMaxDevices];
+  return device_smem_limit(limits, beam_att_i8_kernel<B, kFast>);
 }
 
 int launch_query(const float* h, const float* w, const float* b, float* q,

@@ -78,6 +78,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -695,14 +697,38 @@ topk_merge(const float* __restrict__ part_f, const int* __restrict__ part_i,
 
 // -- launch ----------------------------------------------------------------
 
+// cudaFuncSetAttribute acts on the calling thread's current device only:
+// an instance's shared-memory limit is raised once on each device, at its
+// first launch there. ``done`` keeps one slot a device, 0 until then, else
+// raise()'s result + 1; two threads that race on one device both raise it,
+// to the same value.
+constexpr int kMaxDevices = 64;
+
+template <typename Raise>
+cudaError_t once_per_device(std::atomic<int> (&done)[kMaxDevices],
+                            Raise raise) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int v = done[dev].load(std::memory_order_acquire);
+  if (v == 0) {
+    v = (int)raise() + 1;
+    done[dev].store(v, std::memory_order_release);
+  }
+  return (cudaError_t)(v - 1);
+}
+
 // raises the instance's dynamic shared-memory limit to what the largest H
-// needs, once
+// needs, once on each device
 template <int K>
 cudaError_t wgmma_smem_limit() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      topk_wgmma<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemW);
-  return err;
+  static std::atomic<int> done[kMaxDevices];
+  return once_per_device(done, [] {
+    return cudaFuncSetAttribute(
+        topk_wgmma<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmemW);
+  });
 }
 
 template <int K>

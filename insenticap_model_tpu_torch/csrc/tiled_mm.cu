@@ -72,6 +72,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -589,13 +591,39 @@ bool cached_map(CUtensorMap* map, const void* ptr, int outer, int inner,
   return true;
 }
 
+// cudaFuncSetAttribute acts on the calling thread's current device only:
+// an instance's shared-memory limit is raised once on each device, at its
+// first launch there. ``done`` keeps one slot a device, 0 until then, else
+// raise()'s result + 1; two threads that race on one device both raise it,
+// to the same value.
+constexpr int kMaxDevices = 64;
+
+template <typename Raise>
+cudaError_t once_per_device(std::atomic<int> (&done)[kMaxDevices],
+                            Raise raise) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int v = done[dev].load(std::memory_order_acquire);
+  if (v == 0) {
+    v = (int)raise() + 1;
+    done[dev].store(v, std::memory_order_release);
+  }
+  return (cudaError_t)(v - 1);
+}
+
 template <int NT, bool kResident, bool kWide>
 int launch(const void* x, const void* w, void* out, int rows, int tile_rows,
            int K, int N, int stages, int groups, size_t smem, void* stream) {
-  // the dynamic shared-memory limit is raised once per instantiation
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      tiled_mm_kernel<NT, kResident, kWide>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
+  // the dynamic shared-memory limit is raised once per instantiation on
+  // each device
+  static std::atomic<int> done[kMaxDevices];
+  const cudaError_t attr = once_per_device(done, [] {
+    return cudaFuncSetAttribute(tiled_mm_kernel<NT, kResident, kWide>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmemBudget);
+  });
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap xmap, wmap;
   if (!cached_map(&xmap, x, rows, K, stage_rows(NT)) ||

@@ -81,6 +81,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kM = 5;            // output tile
@@ -483,8 +485,30 @@ bool bad_extent(int H, int W, int cols) {
          tiles_of(W) > kMaxTiles;
 }
 
+// cudaFuncSetAttribute acts on the calling thread's current device only:
+// an instance's shared-memory limit is raised once on each device, at its
+// first launch there. ``done`` keeps one slot a device, 0 until then, else
+// raise()'s result + 1; two threads that race on one device both raise it,
+// to the same value.
+constexpr int kMaxDevices = 64;
+
+template <typename Raise>
+cudaError_t once_per_device(std::atomic<int> (&done)[kMaxDevices],
+                            Raise raise) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int v = done[dev].load(std::memory_order_acquire);
+  if (v == 0) {
+    v = (int)raise() + 1;
+    done[dev].store(v, std::memory_order_release);
+  }
+  return (cudaError_t)(v - 1);
+}
+
 // raises an instance's dynamic shared-memory limit to what the largest
-// extent (15 x 15) needs, once
+// extent (15 x 15) needs, once on each device
 template <typename Kernel>
 cudaError_t smem_limit(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -493,17 +517,19 @@ cudaError_t smem_limit(Kernel kernel, size_t bytes) {
 }
 template <typename T, bool kVec>
 cudaError_t input_smem_limit() {
-  static const cudaError_t err =
-      smem_limit(wino_input_kernel<T, kVec>,
-                 sizeof(T) * kMaxExtent * kMaxExtent * kCB);
-  return err;
+  static std::atomic<int> done[kMaxDevices];
+  return once_per_device(done, [] {
+    return smem_limit(wino_input_kernel<T, kVec>,
+                      sizeof(T) * kMaxExtent * kMaxExtent * kCB);
+  });
 }
 template <typename T, bool kVec>
 cudaError_t middle_smem_limit() {
-  static const cudaError_t err =
-      smem_limit(wino_middle_kernel<T, kVec>,
-                 sizeof(float) * kMaxExtent * kMaxExtent * kCB);
-  return err;
+  static std::atomic<int> done[kMaxDevices];
+  return once_per_device(done, [] {
+    return smem_limit(wino_middle_kernel<T, kVec>,
+                      sizeof(float) * kMaxExtent * kMaxExtent * kCB);
+  });
 }
 
 template <typename T, bool kVec>

@@ -5,8 +5,11 @@ Counterpart of ``insenticap_model_tpu/inference.py`` (:26-65, 96-137,
 182-192): the detector's label (threshold -> neutral fallback) conditions a
 sentiment-aware beam search over the whole batch. PyTorch runs eagerly, so
 the ``make_*`` factories return plain callables with the static
-configuration bound; there is no compilation to mirror. The data-parallel
-variants come with the multi-device slice.
+configuration bound; there is no compilation to mirror. The
+``make_sharded_*`` factories run the same local bodies on every device of
+a ``parallel.mesh.DeviceMesh``, each on its block of the batch's rows
+(the JAX package's ``shard_map`` serving, :140-233): params replicated, no
+collective, the rows joined in order.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from .models import captioner as cap
 from .models import sentiment_detector as senti_det
 from .ops import beam
+from .parallel import mesh as pmesh
 
 SENTI_THRESHOLD = 0.7  # reference decoder.py:41
 
@@ -120,24 +124,24 @@ def make_serving_fn(settings, ids: cap.TokenIds, beam_size: int = 3,
     return fn
 
 
-def make_detect_fn(senti_threshold: float = SENTI_THRESHOLD,
-                   neutral: int = 2, settings=None):
-    """Image-sentiment label detection: fn(params, att) -> labels [bs].
-    ``settings`` selects the detector variant
-    (``sentiment_detector.module_for``); None is the standard head."""
-    sd = senti_det.module_for(settings)
+def make_sharded_serving_fn(mesh: pmesh.DeviceMesh, settings,
+                            ids: cap.TokenIds, beam_size: int = 3,
+                            max_seq_len: int = 16):
+    """detect_and_decode data-parallel over ``mesh``: each device runs the
+    whole single-device serving step on its block of the rows, on its copy
+    of the params. fn(params, fc, att, sentis): params a ``ServingParams``
+    (replicated at each call) or ``mesh.replicate`` of one; the batch's
+    rows a multiple of the mesh's size (else ValueError). Outputs as
+    ``make_serving_fn``'s, joined in row order (``Shards`` for ``Shards``
+    inputs)."""
+    return pmesh.shard_map(make_serving_fn(settings, ids, beam_size,
+                                           max_seq_len), mesh)
 
-    def fn(params, att):
-        return sd.sample(params, att, senti_threshold, neutral)[0]
-    return fn
 
-
-def make_forced_serving_fn(settings, ids: cap.TokenIds, beam_size: int = 3,
-                           max_seq_len: int = 16,
-                           return_weights: bool = False):
-    """Sentiment-forced beam decode: like detect_and_decode, but the label
-    comes from the caller (the paper's controllable-sentiment mode).
-    fn(cap_params, fc, att, sentis, senti_labels) -> (seqs, scores)."""
+def _forced_decode_local(settings, ids: cap.TokenIds, beam_size: int,
+                         max_seq_len: int, return_weights: bool = False):
+    """The forced-label decode body that the single-device and the sharded
+    factories share, so that the two daemons cannot drift apart."""
     def fn(cap_params, fc, att, sentis, senti_labels):
         ctx = cap.build_visual_context(cap_params, fc, att,
                                        senti_words=sentis,
@@ -148,3 +152,50 @@ def make_forced_serving_fn(settings, ids: cap.TokenIds, beam_size: int = 3,
             beam_size=beam_size, max_seq_len=max_seq_len, mode="rl",
             return_weights=return_weights)
     return fn
+
+
+def _detect_local(senti_threshold: float, neutral: int, settings=None):
+    """The label-detection body that the single-device and the sharded
+    factories share; ``settings`` selects the detector variant
+    (``sentiment_detector.module_for``), None the standard head."""
+    sd = senti_det.module_for(settings)
+
+    def fn(params, att):
+        return sd.sample(params, att, senti_threshold, neutral)[0]
+    return fn
+
+
+def make_detect_fn(senti_threshold: float = SENTI_THRESHOLD,
+                   neutral: int = 2, settings=None):
+    """Image-sentiment label detection: fn(params, att) -> labels [bs]."""
+    return _detect_local(senti_threshold, neutral, settings)
+
+
+def make_sharded_detect_fn(mesh: pmesh.DeviceMesh,
+                           senti_threshold: float = SENTI_THRESHOLD,
+                           neutral: int = 2, settings=None):
+    """``make_detect_fn``'s body data-parallel over ``mesh``:
+    fn(params, att) -> labels, each device on its block of the rows."""
+    return pmesh.shard_map(_detect_local(senti_threshold, neutral,
+                                         settings), mesh)
+
+
+def make_forced_serving_fn(settings, ids: cap.TokenIds, beam_size: int = 3,
+                           max_seq_len: int = 16,
+                           return_weights: bool = False):
+    """Sentiment-forced beam decode: like detect_and_decode, but the label
+    comes from the caller (the paper's controllable-sentiment mode).
+    fn(cap_params, fc, att, sentis, senti_labels) -> (seqs, scores)."""
+    return _forced_decode_local(settings, ids, beam_size, max_seq_len,
+                                return_weights)
+
+
+def make_sharded_forced_serving_fn(mesh: pmesh.DeviceMesh, settings,
+                                   ids: cap.TokenIds, beam_size: int = 3,
+                                   max_seq_len: int = 16):
+    """The forced-label decode data-parallel over ``mesh`` (the decode
+    batcher's mesh path: the labels are an input, so auto and forced rows
+    mix in one batch): fn(cap_params, fc, att, sentis, senti_labels) ->
+    (seqs, scores), each device on its block of the rows."""
+    return pmesh.shard_map(_forced_decode_local(settings, ids, beam_size,
+                                                max_seq_len), mesh)

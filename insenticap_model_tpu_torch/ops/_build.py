@@ -14,10 +14,17 @@ no ``nvcc`` needed; its name also hashes the machine, its C library and
 the compiler's version, so a library built on one host is never loaded
 on another.
 ``no_grad_guard`` is every wrapper's refusal to launch a kernel where
-autograd would record a graph through it.
+autograd would record a graph through it. ``launch`` is every ctypes
+launch's context: the operands' card made the calling thread's current
+device (a C entry point launches, and raises its kernel's shared-memory
+limit, on the current device) and that card's current stream handed in;
+``count`` bumps a wrapper's launch counter under a lock, so that counts
+stay exact when several threads launch at once (one worker thread a
+device of a ``parallel.mesh.DeviceMesh``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _typed: set = set()          # (library, entry point) whose types are set
 _host_key: bytes = b""       # _host_target's host part, once computed
@@ -203,6 +211,27 @@ def no_grad_guard(what: str, *tensors) -> None:
             "version")
 
 
-def stream_ptr(device) -> int:
+@contextlib.contextmanager
+def launch(what: str, *tensors):
+    """The context of one ctypes launch on ``tensors`` (``None`` entries
+    skipped): their card is the calling thread's current device inside,
+    and the block gets the pointer of that card's current stream. A
+    thread whose current device is another card would otherwise hand the
+    C entry point one card's stream and pointers while it launches on
+    its own. Operands on two devices raise ValueError."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: the operands lie on "
+                         f"{sorted(map(str, devices))}, not on one card")
+    (device,) = devices
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
+def count(fn, attr: str = "launches") -> None:
+    """``fn.<attr> += 1`` under a lock: a bare read-modify-write from two
+    threads can lose a count, and the smoke run holds the counts
+    exactly."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)

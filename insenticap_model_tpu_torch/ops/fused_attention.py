@@ -171,15 +171,14 @@ def beam_content_attention(h, p_cont, att, p_att, *, B: int,
     fn = getattr(lib, fns[att.dtype])
     if variant == "v1" and exact_tanh and att.dtype == torch.bfloat16:
         fn = getattr(lib, _V1_BF16_TANHF)
-    _build.check(fn(h.data_ptr(), w.data_ptr(), b.data_ptr(),
-                    alpha.data_ptr(), p_att.data_ptr(), att.data_ptr(),
-                    out.data_ptr(), q.data_ptr(), bs, B, H, Ah, N, Fe,
-                    _build.stream_ptr(att.device)),
-                 f"beam_content_attention {variant}")
-    if variant == "v2":
-        beam_content_attention.launches_v2 += 1
-    else:
-        beam_content_attention.launches += 1
+    what = f"beam_content_attention {variant}"
+    with _build.launch(what, h, w, b, alpha, p_att, att, out, q) as stream:
+        _build.check(fn(h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                        alpha.data_ptr(), p_att.data_ptr(), att.data_ptr(),
+                        out.data_ptr(), q.data_ptr(), bs, B, H, Ah, N, Fe,
+                        stream), what)
+    _build.count(beam_content_attention,
+                 "launches_v2" if variant == "v2" else "launches")
     return out
 
 

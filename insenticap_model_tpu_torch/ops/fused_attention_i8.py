@@ -147,12 +147,14 @@ def beam_content_attention_i8(h, p_cont, att_q, att_s, p_att_q, p_att_s, *,
     out = torch.empty((bs * B, Fe), dtype=torch.bfloat16, device=att_q.device)
     q = torch.empty((bs * B, Ah), dtype=torch.float32, device=att_q.device)
     fn = getattr(_lib(), _FN_TANHF if exact_tanh else _FN)
-    _build.check(fn(
-        h.data_ptr(), w.data_ptr(), b.data_ptr(), alpha.data_ptr(),
-        p_att_q.data_ptr(), p_att_s.data_ptr(), att_q.data_ptr(),
-        att_s.data_ptr(), out.data_ptr(), q.data_ptr(), bs, B, H, Ah, N, Fe,
-        _build.stream_ptr(att_q.device)), "beam_content_attention_i8")
-    beam_content_attention_i8.launches += 1
+    with _build.launch("beam_content_attention_i8", h, w, b, alpha,
+                       att_q, att_s, p_att_q, p_att_s, out, q) as stream:
+        _build.check(fn(
+            h.data_ptr(), w.data_ptr(), b.data_ptr(), alpha.data_ptr(),
+            p_att_q.data_ptr(), p_att_s.data_ptr(), att_q.data_ptr(),
+            att_s.data_ptr(), out.data_ptr(), q.data_ptr(), bs, B, H, Ah, N,
+            Fe, stream), "beam_content_attention_i8")
+    _build.count(beam_content_attention_i8)
     return out
 
 

@@ -191,13 +191,15 @@ def classifier_topk(h, w, b, last: Optional[torch.Tensor], *, k: int,
     out_i = torch.empty((rows, k), dtype=torch.int64, device=h.device)
     ban = (ctypes.c_int * MAX_BANNED)(*banned)
     fn = getattr(_lib(), _FNS[h.dtype])
-    _build.check(fn(h.data_ptr(), w.data_ptr(), b.data_ptr(),
-                    None if last is None else last.data_ptr(), ban,
-                    len(banned), rows, H, V, k, groups, part_f.data_ptr(),
-                    part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                    _build.stream_ptr(h.device)),
-                 "classifier_topk")
-    classifier_topk.launches += 1
+    with _build.launch("classifier_topk", h, w, b, last, part_f, part_i,
+                       out_v, out_i) as stream:
+        _build.check(fn(h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                        None if last is None else last.data_ptr(), ban,
+                        len(banned), rows, H, V, k, groups,
+                        part_f.data_ptr(), part_i.data_ptr(),
+                        out_v.data_ptr(), out_i.data_ptr(), stream),
+                     "classifier_topk")
+    _build.count(classifier_topk)
     return out_v, out_i
 
 
@@ -221,8 +223,9 @@ def wgmma_product(h, w):
                          f"{tuple(w.shape)}")
     h, w = _aligned(h), _aligned(w)
     out = torch.empty((rows, V), dtype=torch.float32, device=h.device)
-    _build.check(getattr(_lib(), _PRODUCT)(
-        h.data_ptr(), w.data_ptr(), out.data_ptr(), rows, H, V,
-        vocab_groups(rows, V, _sms(h.device)),
-        _build.stream_ptr(h.device)), "wgmma_product")
+    with _build.launch("wgmma_product", h, w, out) as stream:
+        _build.check(getattr(_lib(), _PRODUCT)(
+            h.data_ptr(), w.data_ptr(), out.data_ptr(), rows, H, V,
+            vocab_groups(rows, V, _sms(h.device)), stream),
+            "wgmma_product")
     return out

@@ -91,11 +91,11 @@ def _launch(xv, yv):
                and all(s % vec == 0 for s in xv.stride()[:3] + yv.stride()[:3])
                and xv.data_ptr() % 16 == 0 and yv.data_ptr() % 16 == 0)
     fn = getattr(_lib(), _FNS[xv.dtype])
-    _build.check(fn(xv.data_ptr(), yv.data_ptr(), B, H, W, C,
-                    *xv.stride()[:3], *yv.stride()[:3],
-                    vec if aligned else 1, _build.stream_ptr(xv.device)),
-                 "ceil_maxpool_3x3s2")
-    ceil_maxpool_3x3s2_nhwc.launches += 1
+    with _build.launch("ceil_maxpool_3x3s2", xv, yv) as stream:
+        _build.check(fn(xv.data_ptr(), yv.data_ptr(), B, H, W, C,
+                        *xv.stride()[:3], *yv.stride()[:3],
+                        vec if aligned else 1, stream), "ceil_maxpool_3x3s2")
+    _build.count(ceil_maxpool_3x3s2_nhwc)
     return yv
 
 

@@ -153,12 +153,12 @@ def tiled_mm(x, w, *, tile_rows: int):
         raise ValueError("tiled_mm needs 16-byte aligned operands")
     p = plan(rows, tile_rows, K, N, _sms(x.device.index))
     out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
-    _build.check(_lib().isc_tiled_mm_bf16(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, tile_rows, K, N,
-        int(p.resident), int(p.wide), p.stages, p.groups,
-        _build.stream_ptr(x.device)),
-        "tiled_mm")
-    tiled_mm.launches += 1
+    with _build.launch("tiled_mm", x, w, out) as stream:
+        _build.check(_lib().isc_tiled_mm_bf16(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, tile_rows, K,
+            N, int(p.resident), int(p.wide), p.stages, p.groups, stream),
+            "tiled_mm")
+    _build.count(tiled_mm)
     return out
 
 

@@ -167,10 +167,11 @@ def wino_input(x):
     v = torch.empty((T5 * T5, th * tw, bsz, c), dtype=x.dtype,
                     device=x.device)
     fn = getattr(_lib(), f"isc_wino_input_{_DT[x.dtype]}")
-    _build.check(fn(x.data_ptr(), v.data_ptr(), _MATS.ctypes.data, h, w,
-                    bsz, c, x.stride(0), x.stride(1), x.stride(2),
-                    _build.stream_ptr(x.device)), "wino_input")
-    wino_input.launches += 1
+    with _build.launch("wino_input", x, v) as stream:
+        _build.check(fn(x.data_ptr(), v.data_ptr(), _MATS.ctypes.data, h, w,
+                        bsz, c, x.stride(0), x.stride(1), x.stride(2),
+                        stream), "wino_input")
+    _build.count(wino_input)
     return v
 
 
@@ -190,10 +191,11 @@ def wino_middle(m, bias, h: int, w: int):
     v = torch.empty_like(m)
     k = m.shape[-1]
     fn = getattr(_lib(), f"isc_wino_middle_{_DT[m.dtype]}")
-    _build.check(fn(m.data_ptr(), b32.data_ptr(), v.data_ptr(),
-                    _MATS.ctypes.data, h, w, k, m.shape[2] * k,
-                    _build.stream_ptr(m.device)), "wino_middle")
-    wino_middle.launches += 1
+    with _build.launch("wino_middle", m, b32, v) as stream:
+        _build.check(fn(m.data_ptr(), b32.data_ptr(), v.data_ptr(),
+                        _MATS.ctypes.data, h, w, k, m.shape[2] * k, stream),
+                     "wino_middle")
+    _build.count(wino_middle)
     return v
 
 
@@ -212,10 +214,11 @@ def wino_output(m, bias, h: int, w: int):
     bsz, k = m.shape[2], m.shape[3]
     y = torch.empty((h, w, bsz, k), dtype=m.dtype, device=m.device)
     fn = getattr(_lib(), f"isc_wino_output_{_DT[m.dtype]}")
-    _build.check(fn(m.data_ptr(), b32.data_ptr(), y.data_ptr(),
-                    _MATS.ctypes.data, h, w, k, bsz * k,
-                    _build.stream_ptr(m.device)), "wino_output")
-    wino_output.launches += 1
+    with _build.launch("wino_output", m, b32, y) as stream:
+        _build.check(fn(m.data_ptr(), b32.data_ptr(), y.data_ptr(),
+                        _MATS.ctypes.data, h, w, k, bsz * k, stream),
+                     "wino_output")
+    _build.count(wino_output)
     return y
 
 

@@ -1,5 +1,6 @@
-"""Data parallelism over ``torch.distributed``: one process a rank, the
-batch split over the ranks, the parameters replicated.
+"""Data parallelism, two ways: over ``torch.distributed`` (one process a
+rank, for training) and over a ``DeviceMesh`` (one process driving n
+devices, for serving).
 
 Counterpart of ``insenticap_model_tpu/parallel/mesh.py`` (:31-75) for its
 ``data`` story, the production default there: where the JAX package
@@ -28,16 +29,40 @@ collectives are explicit:
   ``barrier``
 
 Each collective is the identity, and issues none, when the world size is
-1. The 2-D ``data x model`` mesh
-(``captioner_shardings``, :79-103) is not ported: ``cli/common.Runtime``
-refuses a mesh of more than one axis.
+1.
+
+Serving needs no collective: a row's beam never reads another row. Where
+the JAX package runs its serving programs under ``jax.shard_map``
+(params replicated, the batch's rows split over ``data``, each device
+running the single-device program on its block), one process here drives
+every device of a ``DeviceMesh`` (``make_device_mesh``):
+
+  ``DeviceMesh.replicate``   a param tree copied to each device
+                             (``Replicas``)
+  ``DeviceMesh.shard_batch`` a batch's rows in n equal blocks, block i on
+                             device i (``Shards``)
+  ``DeviceMesh.run``         a callable on every block, each on a worker
+                             thread of its device's own
+  ``shard_map``              a single-device function made a sharded one
+                             (in_specs ``P()`` for the params and
+                             ``P("data")`` for the batch, out_specs
+                             ``P("data")``)
+  ``join``                   blocks concatenated in row order
+
+The worker threads are persistent, one a device, each with its CUDA
+device set once: ``ops/beam.py`` syncs the host on every decode step, so
+one host thread would run the blocks one after another, and PyTorch keeps
+its cuBLAS handles and current device per thread. The 2-D ``data x
+model`` mesh (``captioner_shardings``, :79-103) is not ported:
+``cli/common.mesh_devices`` refuses a mesh of more than one axis.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import contextvars
 import datetime
-from typing import Callable, Iterator
+from typing import Callable, Iterator, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -181,3 +206,196 @@ def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
 def barrier() -> None:
     if world_size() > 1:
         dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# One process, n devices: the serving mesh
+# ---------------------------------------------------------------------------
+
+class Shards(tuple):
+    """A batch's rows in blocks, block i on the mesh's device i, in row
+    order: the port's counterpart of an array sharded over ``data``."""
+
+
+class Replicas:
+    """A param tree copied to each device of a mesh: ``trees[i]`` on
+    ``devices[i]`` (a device that the mesh names twice holds one copy)."""
+
+    def __init__(self, devices: Sequence[torch.device], trees: Sequence):
+        self.devices = tuple(devices)
+        self.trees = tuple(trees)
+
+    def on(self, device):
+        """The copy on ``device``."""
+        return self.trees[self.devices.index(_device(device))]
+
+    def map(self, fn: Callable) -> "Replicas":
+        """``fn`` on each copy, once a copy (the bf16 cast of a device's
+        params, say)."""
+        done = {}
+        for t in self.trees:
+            if id(t) not in done:
+                done[id(t)] = fn(t)
+        return Replicas(self.devices, [done[id(t)] for t in self.trees])
+
+
+def _device(d) -> torch.device:
+    """``d`` as a torch.device, a CUDA device without an index given the
+    current one (a tensor's device always has its index)."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _to(tree, device):
+    """Every tensor of a dict/list/tuple tree moved to ``device``, the
+    containers' types kept (a ``ServingParams`` stays one)."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
+def _bind(device: torch.device) -> None:
+    """A mesh worker's start: its CUDA device set once, for good."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+
+
+class DeviceMesh:
+    """An ordered tuple of devices that one process drives, each from a
+    persistent worker thread of its own (started at its first work, its
+    CUDA device set then). The tuple may name a device more than once
+    (``["cpu"] * n`` in the tests, ``cuda:0`` twice on a one-card
+    machine): each entry is a device of the mesh, with its own thread and
+    its own block of every batch. Callers that build a mesh close it."""
+
+    def __init__(self, devices: Sequence):
+        self.devices = tuple(_device(d) for d in devices)
+        if not self.devices:
+            raise ValueError("a device mesh needs at least one device")
+        self._pools = [concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix=f"isc-mesh-{i}", initializer=_bind,
+            initargs=(d,)) for i, d in enumerate(self.devices)]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self) -> str:
+        return f"DeviceMesh({[str(d) for d in self.devices]})"
+
+    def replicate(self, tree) -> Replicas:
+        """``tree`` copied to every device of the mesh (leaves already on
+        a device are not copied there)."""
+        if isinstance(tree, Replicas):
+            if tree.devices != self.devices:
+                raise ValueError(f"replicas on {tree.devices}, not on "
+                                 f"{self.devices}")
+            return tree
+        copies = {}
+        for d in self.devices:
+            if d not in copies:
+                copies[d] = _to(tree, d)
+        return Replicas(self.devices, [copies[d] for d in self.devices])
+
+    def shard_batch(self, x) -> Shards:
+        """The rows of ``x`` (a tensor or a host array) in ``size`` equal
+        blocks, block i moved to device i. Rows that are not a multiple
+        of the mesh's size raise ValueError."""
+        if isinstance(x, Shards):
+            if len(x) != self.size:
+                raise ValueError(f"{len(x)} blocks for a mesh of "
+                                 f"{self.size}")
+            return x
+        t = torch.as_tensor(x)
+        rows = t.shape[0]
+        if rows % self.size:
+            raise ValueError(f"{rows} rows do not split into {self.size} "
+                             "equal blocks over the mesh's devices")
+        b = rows // self.size
+        return Shards(t[i * b:(i + 1) * b].to(d)
+                      for i, d in enumerate(self.devices))
+
+    def run(self, fn: Callable, *per_device: Sequence) -> List:
+        """``fn(args[0][i], args[1][i], ...)`` for every device i, each on
+        device i's worker thread, under the caller's grad mode. Returns
+        the results in device order once every worker has finished; where
+        a worker raised, the first such exception (in device order)
+        raises here and no result comes back."""
+        grad = torch.is_grad_enabled()
+
+        def call(*args):
+            with torch.set_grad_enabled(grad):
+                return fn(*args)
+        futures = [pool.submit(call, *(a[i] for a in per_device))
+                   for i, pool in enumerate(self._pools)]
+        concurrent.futures.wait(futures)
+        return [f.result() for f in futures]
+
+    def close(self) -> None:
+        """Stop the worker threads (after the work they hold)."""
+        for pool in self._pools:
+            pool.shutdown(wait=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def make_device_mesh(n: int, device="cuda") -> DeviceMesh:
+    """A mesh of ``n`` devices: ``cuda:0`` to ``cuda:n-1``, or n slots of
+    the CPU (the counterpart of the JAX tests' forced host devices) for
+    ``device="cpu"``. Where fewer cards are visible it exits with a
+    message: it never shrinks ``n`` and never moves to the CPU."""
+    from ..utils.dtypes import resolve_device
+    dev = resolve_device(device)
+    if n < 1:
+        raise ValueError(f"a mesh of {n} devices")
+    if dev.type == "cpu":
+        return DeviceMesh([dev] * n)
+    visible = torch.cuda.device_count()
+    if n > visible:
+        raise SystemExit(
+            f"--mesh_shape [{n}] needs {n} cards in this process, and "
+            f"{visible} {'is' if visible == 1 else 'are'} visible ("
+            + ", ".join(f"cuda:{i} {torch.cuda.get_device_name(i)}"
+                        for i in range(visible)) + ")")
+    return DeviceMesh([torch.device("cuda", i) for i in range(n)])
+
+
+def join(shards: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    """Blocks concatenated in row order on ``device`` (the first block's
+    by default)."""
+    device = shards[0].device if device is None else torch.device(device)
+    return torch.cat([s.to(device) for s in shards])
+
+
+def shard_map(fn: Callable, mesh: DeviceMesh) -> Callable:
+    """``fn(params, *batch)``, a single-device function, made a sharded
+    one over ``mesh``: the returned function takes the params (``Replicas``
+    of the mesh, or a tree it replicates at each call) and batch arguments
+    (tensors, host arrays or ``Shards``), runs ``fn`` on every device's
+    copy and blocks, and returns each output as ``Shards`` where the
+    batch came as ``Shards``, else joined in row order on the first batch
+    argument's device. The port's ``jax.shard_map`` with in_specs
+    ``(P(), P("data"), ...)`` and out_specs ``P("data")``."""
+    def sharded(params, *batch):
+        reps = mesh.replicate(params)
+        blocks = [mesh.shard_batch(x) for x in batch]
+        outs = mesh.run(fn, reps.trees, *blocks)
+        single = not isinstance(outs[0], tuple)
+        cols = [Shards(o if single else o[k] for o in outs)
+                for k in range(1 if single else len(outs[0]))]
+        if not any(isinstance(x, Shards) for x in batch):
+            home = torch.as_tensor(batch[0]).device
+            cols = [join(c, home) for c in cols]
+        return cols[0] if single else tuple(cols)
+    return sharded

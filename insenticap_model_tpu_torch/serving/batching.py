@@ -1,17 +1,18 @@
 """Dynamic-batching core: the stage-agnostic two-stage batcher.
 
 Counterpart of ``insenticap_model_tpu/serving/batching.py``: the bucket
-ladder, ``_BatcherBase`` (producer submit with backpressure, the dispatch
-thread, the completion thread, stats with per-bucket latency percentiles,
-the stall watchdog, close/drain) and ``prometheus_metrics``.
+ladders and their rounding to a mesh, ``_BatcherBase`` (producer submit
+with backpressure, the dispatch thread, the completion thread, stats with
+per-bucket latency percentiles, the stall watchdog, close/drain) and
+``prometheus_metrics``.
 
 Thread model (per batcher): any number of producer threads call
 ``submit``; a dispatch thread stacks, stages and launches each batch on the
 device, and a completion thread copies results back and fans them out, at
 most two batches in flight. ``close()`` drains and joins both threads.
-
-The mesh rounding of the ladders is left out: this slice serves on one
-device, and the data-parallel batcher comes with the multi-device slice.
+With a ``parallel.mesh.DeviceMesh`` a batch's rows split into one equal
+block a device (``_stage``), so every bucket is a multiple of the mesh's
+size.
 """
 from __future__ import annotations
 
@@ -19,10 +20,12 @@ import collections
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import Shards
 
 AUTO = -1  # submit(forced_label=AUTO) -> use the image sentiment detector
 
@@ -36,14 +39,47 @@ DEFAULT_ENCODE_BUCKETS = (1, 4, 16, 32)
 _LAT_WINDOW = 1024
 
 
-def default_buckets():
-    """The default decode-stage bucket ladder."""
-    return DEFAULT_BUCKETS
+def _round_ladder(buckets: Sequence[int], mesh) -> Tuple[int, ...]:
+    """A bucket ladder rounded up to multiples of the mesh's size (each
+    device takes an equal block), deduped: (1,8,32,128,384) on 8 devices
+    is (8,32,128,384). The ladder as it is without a mesh."""
+    if mesh is None:
+        return tuple(buckets)
+    n = mesh.size
+    return tuple(sorted({-(-b // n) * n for b in buckets}))
 
 
-def default_encode_buckets():
-    """The default encode-stage batch ladder."""
-    return DEFAULT_ENCODE_BUCKETS
+def _require_mesh_multiples(buckets: Sequence[int], mesh, hint: str):
+    """An explicit ladder must already be multiples of the mesh's size:
+    a silently rounded explicit value would serve other shapes than the
+    ones asked for."""
+    n = mesh.size
+    bad = [b for b in buckets if b % n]
+    if bad:
+        raise ValueError(
+            f"bucket sizes {bad} are not multiples of the mesh data "
+            f"axis ({n}) — use {hint} or pass multiples")
+
+
+def default_buckets(mesh=None) -> Tuple[int, ...]:
+    """The default decode-stage bucket ladder (rounded to the mesh)."""
+    return _round_ladder(DEFAULT_BUCKETS, mesh)
+
+
+def default_encode_buckets(mesh=None) -> Tuple[int, ...]:
+    """The default encode-stage batch ladder (rounded to the mesh)."""
+    return _round_ladder(DEFAULT_ENCODE_BUCKETS, mesh)
+
+
+def to_host(x) -> np.ndarray:
+    """A device result as a host array, bfloat16 widened to float32 on the
+    device first: a tensor copied back, or the blocks of ``Shards`` copied
+    back and joined in row order."""
+    def one(t):
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+    if isinstance(x, Shards):
+        return np.concatenate([one(b) for b in x])
+    return one(x)
 
 
 class Saturated(RuntimeError):
@@ -64,15 +100,16 @@ class _RequestBase:
 class _BatcherBase:
     """Shared two-stage (dispatch + completion) batching machinery.
 
-    Subclasses set ``self._device`` before ``super().__init__`` and
-    implement ``_dispatch(batch)`` (stack/stage/launch, then
-    ``self._fq.put(item)``) and ``_finish(item)`` (copy back, record stats
-    via ``_record_batch``, fan out)."""
+    Subclasses set ``self._device`` (and ``self._mesh``, a ``DeviceMesh``
+    or None) before ``super().__init__`` and implement ``_dispatch(batch)``
+    (stack/stage/launch, then ``self._fq.put(item)``) and ``_finish(item)``
+    (copy back, record stats via ``_record_batch``, fan out)."""
 
     def __init__(self, *, cap_n: int, max_wait_s: float, max_queue: int,
                  bucket_keys: Sequence, name: str):
         self._cap_n = int(cap_n)
         self._max_wait_s = float(max_wait_s)
+        self._mesh = getattr(self, "_mesh", None)
         # health watchdog state: monotonic start of the in-progress
         # dispatch/finish step, None when idle (see stalled_for)
         self._dispatch_started: Optional[float] = None
@@ -202,11 +239,15 @@ class _BatcherBase:
         return batch
 
     def _stage(self, x: np.ndarray, dtype: Optional[torch.dtype] = None):
-        """Host array -> device tensor; a dtype cast happens on the host
-        first (bf16 halves the bytes shipped)."""
+        """Host array -> device tensor, or with a mesh ``Shards``: each
+        device's block of the rows shipped straight to it. A dtype cast
+        happens on the host first (bf16 halves the bytes shipped). The
+        dispatch and ``warm()`` both stage through here."""
         t = torch.as_tensor(x)
         if dtype is not None:
             t = t.to(dtype)
+        if self._mesh is not None:
+            return self._mesh.shard_batch(t)
         return t.to(self._device)
 
     def _loop(self) -> None:

@@ -1,10 +1,11 @@
 """Encode stage: batched image -> features + concept top-k.
 
-Counterpart of ``insenticap_model_tpu/serving/encode.py``'s single-device
+Counterpart of ``insenticap_model_tpu/serving/encode.py``'s
 ``EncodeBatcher``, the front half of the two-stage serving pipeline: its
 results (fc, att, concept ids) feed the decode stage's ``DynamicBatcher``
-through ``cli.common.senti_word_ids``. The mesh branch comes with the
-multi-device slice.
+through ``cli.common.senti_word_ids``. With a mesh the encoder and the
+concept top-k run on every device's block of a batch, on that device's
+copy of the params (JAX :56-79).
 """
 from __future__ import annotations
 
@@ -12,8 +13,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..parallel.mesh import Replicas, Shards
 from ..utils.dtypes import resolve_device
-from .batching import DEFAULT_ENCODE_BUCKETS, _BatcherBase, _RequestBase
+from .batching import (DEFAULT_ENCODE_BUCKETS, _BatcherBase, _RequestBase,
+                       _require_mesh_multiples, to_host)
 
 _FC_KEY = "fc"   # stats bucket label of the feature-mode concept-only rows
 
@@ -21,12 +24,14 @@ _FC_KEY = "fc"   # stats bucket label of the feature-mode concept-only rows
 def make_cpt_apply(cpt_params, num_concepts: int):
     """fc [B, Ff] -> the top ``num_concepts`` concept ids [B, K], scored in
     f32 whatever the encoder's dtype (the ranking is the product; the JAX
-    package's serve.py does the same)."""
+    package's serve.py does the same). ``cpt_params`` may be ``Replicas``
+    (a mesh's copies): each call takes the copy on fc's device."""
     from ..models import concept_detector
 
     def apply(fc):
-        return concept_detector.sample(cpt_params, fc.float(),
-                                       num_concepts)[1]
+        params = cpt_params.on(fc.device) \
+            if isinstance(cpt_params, Replicas) else cpt_params
+        return concept_detector.sample(params, fc.float(), num_concepts)[1]
     return apply
 
 
@@ -61,6 +66,14 @@ class EncodeBatcher(_BatcherBase):
     batch_buckets: ascending batch ladder shared by every group.
     device: "cuda" by default, refused when CUDA is absent; "cpu" runs the
         plain PyTorch versions.
+    mesh: a ``parallel.mesh.DeviceMesh``, or None: each batch's rows split
+        into one block a device of the mesh, and ``enc_apply`` and
+        ``cpt_apply`` run on every block from that device's worker
+        thread, so they must take their params on the block's device
+        (``Replicas.on``; ``make_cpt_apply`` does). Every batch bucket
+        must be a multiple of the mesh's size
+        (``default_encode_buckets(mesh)`` rounds the default ladder).
+        ``device`` is then the first device of the mesh.
     Results come back as f32 numpy (fc, att) and integer numpy (top).
     """
 
@@ -68,10 +81,15 @@ class EncodeBatcher(_BatcherBase):
                  *, fc_dim: int, shape_buckets: Sequence[Tuple[int, int]],
                  batch_buckets: Sequence[int] = DEFAULT_ENCODE_BUCKETS,
                  max_wait_s: float = 0.005, max_queue: int = 1024,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if list(batch_buckets) != sorted(set(batch_buckets)):
             raise ValueError(f"batch_buckets must be ascending/unique: "
                              f"{batch_buckets}")
+        if mesh is not None:
+            _require_mesh_multiples(batch_buckets, mesh,
+                                    "default_encode_buckets(mesh)")
+            device = mesh.devices[0]
+        self._mesh = mesh
         self._device = resolve_device(device)
         self._enc_apply = enc_apply
         self._cpt_apply = cpt_apply
@@ -134,22 +152,36 @@ class EncodeBatcher(_BatcherBase):
             pad = bucket - n
             if key == _FC_KEY:
                 fcs = np.stack([r.fc for r in rs] + [rs[-1].fc] * pad)
-                top = self._cpt_apply(self._stage(fcs))
+                top = self._on_blocks(self._cpt_apply, self._stage(fcs))
                 launched.append((rs, key, pad, None, None, top))
             else:
                 imgs = np.stack([r.img for r in rs] + [rs[-1].img] * pad)
-                fc, att = self._enc_apply(self._stage(imgs))
-                top = self._cpt_apply(fc)
+                fc, att, top = self._on_blocks(self._encode,
+                                               self._stage(imgs))
                 launched.append((rs, key, pad, fc, att, top))
         self._fq.put(launched)
+
+    def _encode(self, imgs):
+        fc, att = self._enc_apply(imgs)
+        return fc, att, self._cpt_apply(fc)
+
+    def _on_blocks(self, fn, x):
+        """``fn(x)``; with a mesh, ``fn`` on every device's block of x
+        (``Shards``) on that device's worker, each output as ``Shards``."""
+        if self._mesh is None:
+            return fn(x)
+        outs = self._mesh.run(fn, x)
+        if not isinstance(outs[0], tuple):
+            return Shards(outs)
+        return tuple(Shards(col) for col in zip(*outs))
 
     def _finish(self, launched) -> None:
         for rs, key, pad, fc, att, top in launched:
             try:
-                top = top.cpu().numpy()
+                # a mesh's blocks are joined here, in row order
+                top = to_host(top)
                 if fc is not None:
-                    fc = fc.float().cpu().numpy()
-                    att = att.float().cpu().numpy()
+                    fc, att = to_host(fc), to_host(att)
             except BaseException as e:   # runtime device errors land here
                 self._fail_batch(rs, e)
                 continue
@@ -163,13 +195,13 @@ class EncodeBatcher(_BatcherBase):
 
     def warm(self, batch_buckets: Optional[Sequence[int]] = None) -> None:
         """Run every (shape, batch) encoder call and the feature-mode
-        top-k ladder once on zero inputs, so that the first requests find
+        top-k ladder once on zero inputs, through the dispatch's staging
+        (so with a mesh on every device), so that the first requests find
         the kernels built and the libraries initialised."""
         for b in (batch_buckets or self._batch_buckets):
             if self._enc_apply is not None:
                 for h, w in self._shapes:
-                    fc, _ = self._enc_apply(
-                        self._stage(np.zeros((b, h, w, 3), np.uint8)))
-                    self._cpt_apply(fc).cpu()
-            self._cpt_apply(
-                self._stage(np.zeros((b, self._fc_dim), np.float32))).cpu()
+                    to_host(self._on_blocks(self._encode, self._stage(
+                        np.zeros((b, h, w, 3), np.uint8)))[2])
+            to_host(self._on_blocks(self._cpt_apply, self._stage(
+                np.zeros((b, self._fc_dim), np.float32))))

@@ -1,7 +1,7 @@
 """Dynamic-batching serving: concurrent caption requests ride the batched
 beam search.
 
-Counterpart of ``insenticap_model_tpu/serving_daemon.py``'s single-device
+Counterpart of ``insenticap_model_tpu/serving_daemon.py``'s
 ``DynamicBatcher`` (:83-334):
 
 * requests (features, sentiment-word ids, an auto or forced label) queue
@@ -11,12 +11,23 @@ Counterpart of ``insenticap_model_tpu/serving_daemon.py``'s single-device
   on the live rows;
 * sentiment is resolved row-wise: the detector runs on the whole batch
   when any row asks for it, forced rows override the detected label on
-  the device, and one forced-label decode serves the mixed batch.
+  the device, and one forced-label decode serves the mixed batch;
+* with a ``parallel.mesh.DeviceMesh`` (``mesh=``) one process serves on n
+  devices: the params are replicated, each batch's rows split into one
+  block a device, the detector and the forced decode run through the
+  sharded factories (``inference.make_sharded_*``: every device runs the
+  single-device body on its block from a worker thread of its own), the
+  labels merge on each device, and the completion thread joins the
+  blocks in row order. Each block's answers are bit for bit the
+  one-device functions' on that block; a whole batch's match one device's
+  token for token where the products round alike at both row counts (in
+  bf16 on the card cuBLAS may round 12 decode rows otherwise than 24).
 
 ``make_batcher_from_checkpoint`` builds one from a JAX-written RL
 checkpoint. The encode stage, ``EncodeBatcher`` (``serving/encode.py``),
-and its ladder are re-exported here, as the JAX module does. The mesh and
-multi-host branches come in later slices.
+and its ladder are re-exported here, as the JAX module does. The
+multi-host branch (``serving/multihost.py``: a mesh over processes) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -27,10 +38,12 @@ import torch
 
 from . import inference
 from .config import Settings
+from .parallel.mesh import Shards
 from .serving.batching import (AUTO, DEFAULT_BUCKETS,   # noqa: F401
                                Saturated, _BatcherBase, _RequestBase,
-                               default_buckets, default_encode_buckets,
-                               prometheus_metrics)
+                               _require_mesh_multiples, default_buckets,
+                               default_encode_buckets, prometheus_metrics,
+                               to_host)
 from .serving.encode import EncodeBatcher  # noqa: F401 (re-export)
 from .utils.dtypes import cast_bf16, resolve_device, to_device
 
@@ -59,6 +72,11 @@ class DynamicBatcher(_BatcherBase):
     features on the host per batch (the serving policy); "float32" keeps
     f32. device: "cuda" by default, refused when CUDA is absent; "cpu"
     runs the plain PyTorch versions.
+    mesh: a ``parallel.mesh.DeviceMesh`` or None: the params replicate to
+    every device of the mesh (then the bf16 cast, on each copy), every
+    batch splits into one block a device, and every bucket must be a
+    multiple of the mesh's size (``default_buckets(mesh)`` rounds the
+    default ladder); ``device`` is then the mesh's first device.
     """
 
     def __init__(self, cap_params, senti_params, *, settings, ids,
@@ -68,24 +86,38 @@ class DynamicBatcher(_BatcherBase):
                  senti_threshold: float = inference.SENTI_THRESHOLD,
                  num_sentiments: int = 10, att_hw: Tuple[int, int] = (14, 14),
                  num_cats: int = 3, compute_dtype: str = "float32",
-                 device="cuda", max_queue: int = 4096):
+                 device="cuda", max_queue: int = 4096, mesh=None):
         if bucket_sizes is None:
-            bucket_sizes = default_buckets()
+            bucket_sizes = default_buckets(mesh)
         if list(bucket_sizes) != sorted(set(bucket_sizes)):
             raise ValueError(f"bucket_sizes must be ascending/unique: "
                              f"{bucket_sizes}")
+        if mesh is not None:
+            _require_mesh_multiples(bucket_sizes, mesh,
+                                    "default_buckets(mesh)")
+            device = mesh.devices[0]
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype!r}")
+        self._mesh = mesh
         self._device = resolve_device(device)
         self._ids = ids
         self._feat_dtype = _DTYPES[compute_dtype]
-        cap_params = to_device(cap_params, self._device)
-        senti_params = to_device(senti_params, self._device)
-        if compute_dtype == "bfloat16":
-            cap_params = cast_bf16(cap_params)
-            senti_params = cast_bf16(senti_params)
-        self._cap_params = cap_params
-        self._senti_params = senti_params
+        cast = cast_bf16 if compute_dtype == "bfloat16" else (lambda t: t)
+        if mesh is None:
+            self._cap_params = cast(to_device(cap_params, self._device))
+            self._senti_params = cast(to_device(senti_params,
+                                                self._device))
+            self._detect = inference.make_detect_fn(
+                senti_threshold, ids.neutral, settings)
+            self._serve = inference.make_forced_serving_fn(
+                settings, ids, beam_size, max_seq_len)
+        else:
+            self._cap_params = mesh.replicate(cap_params).map(cast)
+            self._senti_params = mesh.replicate(senti_params).map(cast)
+            self._detect = inference.make_sharded_detect_fn(
+                mesh, senti_threshold, ids.neutral, settings)
+            self._serve = inference.make_sharded_forced_serving_fn(
+                mesh, settings, ids, beam_size, max_seq_len)
         # per-row feature shapes are fixed at construction and enforced
         # in submit()
         self._fc_shape = (settings.fc_feat_dim,)
@@ -93,10 +125,6 @@ class DynamicBatcher(_BatcherBase):
         self._m = int(num_sentiments)
         self._num_cats = int(num_cats)
         self._buckets = tuple(int(b) for b in bucket_sizes)
-        self._detect = inference.make_detect_fn(senti_threshold,
-                                                ids.neutral, settings)
-        self._serve = inference.make_forced_serving_fn(
-            settings, ids, beam_size, max_seq_len)
         super().__init__(cap_n=self._buckets[-1], max_wait_s=max_wait_s,
                          max_queue=max_queue, bucket_keys=self._buckets,
                          name="isc-serve")
@@ -132,10 +160,15 @@ class DynamicBatcher(_BatcherBase):
     # -- dispatch/finish --------------------------------------------------
 
     def _run(self, fc, att, sentis, forced, run_detect: bool):
-        """The device work of one batch: labels merge on the device."""
+        """The device work of one batch: labels merge on the device (with
+        a mesh, on each device, block by block)."""
         if run_detect:
             detected = self._detect(self._senti_params, att)
-            labels = torch.where(forced == AUTO, detected, forced)
+            if isinstance(forced, Shards):
+                labels = Shards(torch.where(f == AUTO, d, f)
+                                for f, d in zip(forced, detected))
+            else:
+                labels = torch.where(forced == AUTO, detected, forced)
         else:
             labels = forced
         seqs, scores = self._serve(self._cap_params, fc, att, sentis,
@@ -158,12 +191,12 @@ class DynamicBatcher(_BatcherBase):
         self._fq.put((batch, bucket, pad) + out)
 
     def _finish(self, item) -> None:
-        """Stage 2: copy device outputs back, fan results out."""
+        """Stage 2: copy device outputs back (a mesh's blocks joined in
+        row order), fan results out."""
         batch, bucket, pad, seqs, scores, labels = item
         try:
-            seqs = seqs.cpu().numpy()
-            scores = scores.float().cpu().numpy()
-            labels = labels.cpu().numpy()
+            seqs, scores, labels = to_host(seqs), to_host(scores), \
+                to_host(labels)
         except BaseException as e:   # runtime device errors land here
             self._fail_batch(batch, e)
             return
@@ -176,8 +209,10 @@ class DynamicBatcher(_BatcherBase):
 
     def warm(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run the detector and the decode once per bucket (default: all)
-        on zero inputs, so the first real requests find the kernels built
-        and the libraries initialised. Call before accepting traffic."""
+        on zero inputs, staged as the dispatch stages them (so with a mesh
+        on every device), so the first real requests find the kernels
+        built and the libraries initialised. Call before accepting
+        traffic."""
         for b in (buckets or self._buckets):
             seqs, _, _ = self._run(
                 self._stage(np.zeros((b,) + self._fc_shape, np.float32),
@@ -186,7 +221,7 @@ class DynamicBatcher(_BatcherBase):
                             self._feat_dtype),
                 self._stage(np.full((b, self._m), self._ids.pad, np.int64)),
                 self._stage(np.zeros((b,), np.int32)), True)
-            seqs.cpu()
+            to_host(seqs)
 
 
 def make_batcher_from_checkpoint(rl_model: str, *, beam_size: int = 3,
@@ -194,16 +229,20 @@ def make_batcher_from_checkpoint(rl_model: str, *, beam_size: int = 3,
                                  bucket_sizes=None,
                                  max_wait_s: float = 0.005,
                                  compute_dtype: str = "float32",
-                                 num_sentiments: int = 10, device="cuda"):
+                                 num_sentiments: int = 10, device="cuda",
+                                 mesh=None):
     """A DynamicBatcher (plus vocab, categories and settings) from a
     composite RL checkpoint written by the JAX package (its
     ``serving_daemon.make_batcher_from_checkpoint``, :337-369). The
     checkpoint must carry ``idx2word`` and ``sentiment_categories`` in its
-    metadata and both the captioner and the detector in its tree."""
+    metadata and both the captioner and the detector in its tree. With a
+    ``mesh`` the batcher serves on its devices (the params read onto the
+    first, then replicated)."""
     from .training import checkpoint as ckpt
     from .vocab import Vocab, token_ids
 
-    device = resolve_device(device)
+    device = resolve_device(mesh.devices[0] if mesh is not None
+                            else device)
     meta = ckpt.load_metadata(rl_model)
     if meta.get("idx2word") is None:
         raise ckpt.CheckpointError(f"{rl_model}: no idx2word in metadata")
@@ -219,5 +258,6 @@ def make_batcher_from_checkpoint(rl_model: str, *, beam_size: int = 3,
                        beam_size=beam_size, max_seq_len=max_seq_len,
                        bucket_sizes=bucket_sizes, max_wait_s=max_wait_s,
                        num_cats=len(cats), compute_dtype=compute_dtype,
-                       num_sentiments=num_sentiments, device=device)
+                       num_sentiments=num_sentiments, device=device,
+                       mesh=mesh)
     return b, vocab, cats, settings

@@ -11,7 +11,10 @@ with ``isclm``).
 Tolerances: none. Both packages decode the same weights in f32 to the same
 beams (``test_torch_train_rl_cli.py`` holds their dumps byte for byte), so
 the tables are held equal as Python values and every file the dump and
-the table write byte for byte. Also: the six CLIs' ``--help`` with JAX,
+the table write byte for byte. The port at ``--mesh_shape [2]`` (one
+process, two CPU slots, each decoding its block of every test batch) and
+the JAX CLI at ``mesh_shape=(2,)`` write the one-device run's files. Also:
+the six CLIs' ``--help`` with JAX,
 h5py, PIL and nltk unimportable, and the device-taking ones stop without
 a card unless ``--device cpu`` is given.
 """
@@ -168,6 +171,20 @@ def tables(tree):
                       device="cpu"),
                 str(root / f"rl.{src}"), tag=src, anno_file=anno,
                 out=str(root / f"table_port_{src}.json"))
+        # the .ckpt again on a mesh of two: the same tag, so the same file
+        # names, in result directories of their own
+        out["jax", "mesh"] = jrepro.reproduce(
+            JOpts(**dict(_kw(root, s, "jax", "ckpt"),
+                         result_dir=str(root / "res_jax_mesh")),
+                  mesh_shape=(2,)),
+            str(root / "rl.ckpt"), tag="ckpt", anno_file=anno,
+            out=str(root / "table_jax_mesh.json"))
+        out["port", "mesh"] = trepro.reproduce(
+            TOpts(**dict(_kw(root, port_settings(s), "port", "ckpt"),
+                         result_dir=str(root / "res_port_mesh")),
+                  device="cpu", mesh_shape=(2,)),
+            str(root / "rl.ckpt"), tag="ckpt", anno_file=anno,
+            out=str(root / "table_port_mesh.json"))
     finally:
         mp.undo()
     return root, out
@@ -191,6 +208,32 @@ def test_reproduce_equals_jax(tables, src):
         n for n in os.listdir(tdir) if n.startswith("result_"))
     for n in names:
         assert (tdir / n).read_bytes() == (jdir / n).read_bytes(), n
+
+
+def test_reproduce_on_a_mesh_of_two(tables, monkeypatch):
+    """``--mesh_shape [2] --device cpu``: the dump files and the table of
+    the one-device run, byte for byte, and those of the JAX CLI at
+    ``mesh_shape=(2,)``; the CLI's flag reaches the options."""
+    root, out = tables
+    assert out["port", "mesh"] == out["port", "ckpt"] == out["jax", "mesh"]
+    tables_ = [(root / f"table_{w}.json").read_bytes()
+               for w in ("port_mesh", "port_ckpt", "jax_mesh")]
+    assert tables_[0] == tables_[1] == tables_[2]
+    dirs = [root / d / "rl" / "coco" / "part"
+            for d in ("res_port_mesh", "res_port_ckpt", "res_jax_mesh")]
+    names = sorted(n for n in os.listdir(dirs[0]) if n.startswith("result_"))
+    assert names
+    for d in dirs[1:]:
+        assert names == sorted(n for n in os.listdir(d)
+                               if n.startswith("result_"))
+        for n in names:
+            assert (dirs[0] / n).read_bytes() == (d / n).read_bytes(), n
+    seen = {}
+    monkeypatch.setattr(trepro, "reproduce",
+                        lambda opt, *a, **kw: seen.update(opt=opt))
+    trepro.main(["--rl_model", "x.ckpt", "--device", "cpu", "--mesh_shape",
+                 "[2]", "--rl_bs", "5"])
+    assert seen["opt"].mesh_shape == (2,) and seen["opt"].device == "cpu"
 
 
 def test_pth_and_ckpt_give_one_table(tables):

@@ -126,7 +126,8 @@ def fakes(monkeypatch, settings):
 
     monkeypatch.setattr(jserve, "_load_encoder",
                         lambda ck, dt, mesh=None: jfake)
-    monkeypatch.setattr(tserve, "_load_encoder", lambda ck, dt, device: tfake)
+    monkeypatch.setattr(tserve, "_load_encoder",
+                        lambda ck, dt, device, mesh=None: tfake)
 
 
 def _payloads(d, settings):
@@ -178,14 +179,61 @@ def test_handle_caption_matches_jax(tree, settings, fakes):
     assert stats["encode"]["by_bucket"]["12x16"] >= 1     # the JPEG
 
 
-def test_serve_refuses_mesh_and_missing_card(tree, fakes):
-    a = _args(tserve.build_parser(), tree,
-              extra=["--device", "cpu", "--mesh_shape", "[2]"])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tserve.ServeApp(a)
+def test_serve_refuses_mesh_and_missing_card(tree, settings, fakes,
+                                            monkeypatch):
+    """``--mesh_shape``: a 2-D shape exits ("must be 1-D", JAX
+    tests/test_cli_stages.py:548), ``[8]`` on the CPU serves in one
+    process over 8 slots with the default ladder rounded to
+    (8,32,128,384) and answers a feature request over HTTP as the
+    one-device server does; a WORLD_SIZE above 1 exits naming multi-host
+    serving; without CUDA the default device still refuses."""
+    parser = tserve.build_parser()
+    base = ["--rl_model", str(tree / "rl.ckpt"), "--concept_model",
+            str(tree / "cpt.ckpt"), "--sentiment_detector_json",
+            str(tree / "senti.json"), "--beam_size", "2", "--max_seq_len",
+            "8", "--num_concepts", "3", "--device", "cpu", "--port", "0",
+            "--max_wait_ms", "20"]
+    with pytest.raises(SystemExit, match="must be 1-D"):
+        tserve.ServeApp(parser.parse_args(base + ["--mesh_shape", "[2,2]"]))
+    g = np.random.default_rng(5)
+    payload = {"fc": g.normal(size=(settings.fc_feat_dim,)).tolist(),
+               "att": g.normal(size=(14, 14, settings.att_feat_dim))
+               .tolist(), "sentiment": "auto"}
+    answers = {}
+    for mesh_args in ([], ["--mesh_shape", "[8]"]):
+        srv = tserve.make_server(parser.parse_args(base + mesh_args))
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            if mesh_args:
+                assert srv.app.batcher._buckets == (8, 32, 128, 384)
+                assert srv.app.enc_batcher._batch_buckets == (8, 16, 32)
+                assert srv.app.mesh.devices == (torch.device("cpu"),) * 8
+            c = http.client.HTTPConnection("127.0.0.1",
+                                           srv.server_address[1],
+                                           timeout=120)
+            c.request("POST", "/caption", json.dumps(payload),
+                      {"Content-Type": "application/json"})
+            r = c.getresponse()
+            answers[bool(mesh_args)] = (r.status, json.loads(r.read()))
+            c.close()
+        finally:
+            srv.shutdown()
+            srv.app.close()
+            srv.server_close()
+            th.join(timeout=30)
+        assert not th.is_alive()
+    assert answers[True][0] == answers[False][0] == 200
+    assert answers[True][1] == answers[False][1]
+    assert answers[True][1]["caption"]
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match="multi-host serving"):
+        tserve.ServeApp(parser.parse_args(base + ["--mesh_shape", "[2]"]))
+    monkeypatch.delenv("WORLD_SIZE")
     if torch.cuda.is_available():
         return
-    a = _args(tserve.build_parser(), tree)
+    a = _args(parser, tree)
     assert a.device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tserve.ServeApp(a)

@@ -172,13 +172,14 @@ def host_parts(device, tile_rows=24, rows=96, tiles_in_turn=10):
     w = make_inputs(K, N, device)[1]
     out = torch.empty(rows, N, device=device, dtype=torch.bfloat16)
     p = tmm.plan(rows, tile_rows, K, N)
-    lib, stream = tmm._lib(), _build.stream_ptr(device)
+    lib = tmm._lib()
 
     def entry(x):
-        _build.check(lib.isc_tiled_mm_bf16(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, tile_rows, K,
-            N, int(p.resident), int(p.wide), p.stages, p.groups, stream),
-            "tiled_mm")
+        with _build.launch("tiled_mm", x, w, out) as stream:
+            _build.check(lib.isc_tiled_mm_bf16(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, tile_rows,
+                K, N, int(p.resident), int(p.wide), p.stages, p.groups,
+                stream), "tiled_mm")
     turn = iter(range(10**9))
     return {
         "wrapper_us": host_us(lambda: tmm.tiled_mm(xs[0], w,
