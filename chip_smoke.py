@@ -257,6 +257,33 @@ C++ compiler), then:
    3i's tree writing 3i's bf16 dump files and table byte for byte; (g)
    the bf16 bs=384 step on one device, on one 192-row block and on the
    two workers (host clock, median of 6 in turns; a reading, no limit);
+3m. drives multi-host serving (``serving/multihost.py``): two processes
+   of their own share the one card as two one-card hosts would run (RANK
+   0 and 1, WORLD_SIZE 2, LOCAL_RANK 0, the card as CUDA_VISIBLE_DEVICES,
+   MASTER_ADDR and MASTER_PORT on a free port, each within a time limit:
+   a process that fails or hangs fails the run), joined over gloo as
+   ``serve`` joins them: (a) a bf16 ``DynamicBatcher`` of phase 3's
+   weights on the mesh over both, process 0 warming and answering phase
+   3's 41 requests, the other mirroring from ``follower_loop`` until
+   process 0 closes it: the answers bit for bit 3l(c)'s, every stripe
+   mirrored, v1 and the Winograd transforms launched in both processes;
+   (b) the bs=384 batch through the lockstep path, f32 and bf16: bit for
+   bit the one-device function on each 192-row block (3l(b)), in each
+   process v1 launched once a decode step and each Winograd transform
+   once in bf16 (the counts set to 0 just before the stripe and read just
+   after); (c) ``python -m insenticap_model_tpu_torch.cli.serve
+   --mesh_shape [2]`` in two processes on phase 3e's checkpoints: process
+   0 answers 3e's feature and image requests, sent one at a time, with
+   the JSON of 3e's daemon in one process on one device to the same
+   requests (the image encode stays on process 0; the comparison with
+   3e's concurrent answers recorded), the follower prints its two lines,
+   SIGTERM drains process 0 and releases the follower, both exit 0;
+   ``reproduce_table`` under WORLD_SIZE=2 exits with its message; (d) the
+   bf16 bs=384 batch through the lockstep path, in turns with one device
+   and one 192-row block: the control plane's ms and MB (batch out,
+   results back), each process's compute ms, the whole dispatch (host
+   clock, median of 6; a reading, no limit; print-outs of (c) in
+   ``chiprun_out/multihost_serving.log``);
 4. runs ``detect_and_decode`` at bs=384 in f32 on the kernel path and on
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
@@ -313,6 +340,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -735,9 +763,10 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
     bit for bit, the daemon on a real socket in bf16 (feature and image
     mode, the status codes, the drain), the decoders against PIL's arrays,
     the caption command in f32, and the host's decode and resize times.
-    Into ``keep`` go what phase 3l reuses: copies of the RL composite, the
-    concept checkpoint and the sentiment table in ``keep["dir"]``, and the
-    four feature requests with the daemon's answers."""
+    Into ``keep`` go what phases 3l and 3m reuse: copies of the RL
+    composite, the concept and encoder checkpoints and the sentiment table
+    in ``keep["dir"]``, and the feature and image requests with the
+    daemon's answers."""
     import shutil
     import base64
     import io
@@ -791,6 +820,7 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
         with open(senti_json, "w") as f:
             json.dump(senti_table, f)
         for k, path in (("rl", paths["rl"]), ("concept", paths["concept"]),
+                        ("resnet101", paths["resnet101"]),
                         ("senti", senti_json)):
             keep[k] = shutil.copy(path, keep["dir"])
         del back_rl
@@ -842,6 +872,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
             _check(not errors, f"daemon requests failed: {errors}")
             keep["feature_requests"] = feats
             keep["feature_answers"] = [body for _, body in results[:4]]
+            keep["image_requests"] = payloads[4:]
+            keep["image_answers"] = [body for _, body in results[4:]]
             for (status, body), pl in zip(results, payloads):
                 _check(status == 200, f"daemon gave {status}: {body}")
                 _check(isinstance(body["caption"], str) and body["caption"],
@@ -4180,6 +4212,46 @@ def _serving_kernel_checks(torch, device, settings, cap16):
     return errs
 
 
+def _launch_counters():
+    """(zero, read): set the serving kernels' launch counts of this process
+    to 0, and read them."""
+    from insenticap_model_tpu_torch.ops import fused_attention as fa
+    from insenticap_model_tpu_torch.ops import fused_topk as ft
+    from insenticap_model_tpu_torch.ops import pool
+    from insenticap_model_tpu_torch.ops import winograd_kernels as wk
+
+    def zero():
+        fa.beam_content_attention.launches = 0
+        fa.beam_content_attention.launches_v2 = 0
+        ft.classifier_topk.launches = 0
+        for c in (wk.wino_input, wk.wino_middle, wk.wino_output,
+                  pool.ceil_maxpool_3x3s2_nhwc):
+            c.launches = 0
+
+    def read():
+        return {"beam_content_attention": fa.beam_content_attention.launches,
+                "beam_content_attention_v2":
+                fa.beam_content_attention.launches_v2,
+                "classifier_topk": ft.classifier_topk.launches,
+                "wino_input": wk.wino_input.launches,
+                "wino_middle": wk.wino_middle.launches,
+                "wino_output": wk.wino_output.launches,
+                "ceil_maxpool_3x3s2": pool.ceil_maxpool_3x3s2_nhwc.launches}
+    return zero, read
+
+
+def _mesh_inputs(torch, card, settings):
+    """Phase 3l(b)'s bs=384 inputs on ``card`` (fc, att, sentiment words),
+    from a seeded generator of the card, so that phase 3m's process 0
+    makes the same."""
+    g = torch.Generator(device=card).manual_seed(33)
+    fc = torch.rand(BS, settings.fc_feat_dim, generator=g, device=card)
+    att = torch.rand(BS, 14, 14, settings.att_feat_dim, generator=g,
+                     device=card)
+    sw = torch.randint(4, VOCAB, (BS, M), generator=g, device=card)
+    return fc, att, sw
+
+
 def _in_thread(fn):
     """``fn()`` on a thread of its own (started fresh, its CUDA device
     never set unless ``fn`` sets it); its exception raises here."""
@@ -4214,7 +4286,7 @@ def _dump_captions(res_dir):
 
 
 def _mesh_decode_batcher(torch, np, mesh2, settings, ids, cap32, det32,
-                         phase3, zero_counters, read_counters):
+                         phase3, zero_counters, read_counters, mp_keep):
     """Phase 3l(c): ``DynamicBatcher(mesh=mesh2)`` in bf16 on phase 3's
     requests (``phase3``: their features, labels, groups and phase 3's
     answers). Returns the record of the checks.
@@ -4224,7 +4296,9 @@ def _mesh_decode_batcher(torch, np, mesh2, settings, ids, cap32, det32,
     are recorded, not held, since a row's bf16 answer depends on the rows
     its products run with (cuBLAS may round 12 decode rows otherwise than
     24). On twice phase 3's ladder, where each block is phase 3's bucket,
-    the answers must be phase 3's exactly."""
+    the answers must be phase 3's exactly. The default ladder's answers
+    go into ``mp_keep["answers"]`` (phase 3m's two processes run the same
+    blocks)."""
     from insenticap_model_tpu_torch import inference
     from insenticap_model_tpu_torch.serving_daemon import DynamicBatcher
     out = {}
@@ -4271,6 +4345,7 @@ def _mesh_decode_batcher(torch, np, mesh2, settings, ids, cap32, det32,
     ladder, got_c, errors_c, serve_s, launches_c, stats_c = \
         mesh_batcher(None, [2, 8, 32], record)
     _check_results(got_c, errors_c)
+    mp_keep.update(answers=got_c, by_bucket=stats_c["by_bucket"])
     _check(ladder == (2, 8, 32, 128, 384),
            f"mesh batcher's default ladder {ladder}")
     blocks_ok = n_blocks = 0
@@ -4458,7 +4533,7 @@ def _mesh_encode_batcher(torch, np, mesh2, settings, enc32, cpt32,
 
 def _sharded_serving(torch, np, settings, ids, cap32, det32, enc32, cpt32,
                      phase3, serve_keep, offline_keep, zero_counters,
-                     read_counters):
+                     read_counters, mp_keep):
     """Phase 3l: one process serving on the devices of a ``DeviceMesh``:
     (a) the launch repair (kernels from a fresh thread, and on a second
     card while the first is current where there is one); (b) the sharded
@@ -4471,7 +4546,9 @@ def _sharded_serving(torch, np, settings, ids, cap32, det32, enc32, cpt32,
     feature requests with 3e's JSON, ``[2]`` refused on one card; (f)
     ``reproduce_table`` at ``--mesh_shape [1]`` and on [card, card]
     writing phase 3i's bf16 dump files; (g) the bf16 bs=384 step on one
-    device, on one 192-row block and on [card, card], in turns."""
+    device, on one 192-row block and on [card, card], in turns. Into
+    ``mp_keep`` go what phase 3m compares with: the one-device function's
+    rows, block by block, f32 and bf16 ((b)), and (c)'s answers."""
     import io
     from insenticap_model_tpu_torch import inference
     from insenticap_model_tpu_torch.cli import reproduce_table as repro
@@ -4518,11 +4595,7 @@ def _sharded_serving(torch, np, settings, ids, cap32, det32, enc32, cpt32,
         # (b) the sharded serving function at bs=384 against the one-device
         # function on each block (bit for bit) and on the whole batch (the
         # port's gate), with its launches
-        g = torch.Generator(device=card).manual_seed(33)
-        fc = torch.rand(BS, settings.fc_feat_dim, generator=g, device=card)
-        att = torch.rand(BS, 14, 14, settings.att_feat_dim, generator=g,
-                         device=card)
-        sw = torch.randint(4, VOCAB, (BS, M), generator=g, device=card)
+        fc, att, sw = _mesh_inputs(torch, card, settings)
         kw = dict(beam_size=BEAM, max_seq_len=T)
         one = inference.make_serving_fn(settings, ids, **kw)
         sharded = inference.make_sharded_serving_fn(mesh2, settings, ids,
@@ -4555,6 +4628,10 @@ def _sharded_serving(torch, np, settings, ids, cap32, det32, enc32, cpt32,
             bitwise = all(torch.equal(got[k][i * half:(i + 1) * half],
                                       blocks[i][k])
                           for k in range(3) for i in range(2))
+            # phase 3m's lockstep path runs a block a process: its rows
+            mp_keep["blocks_" + tag] = [
+                torch.cat([blk[k] for blk in blocks]).cpu()
+                for k in range(3)]
             eq = (got[0][:, 0] == whole[0][:, 0]).all(dim=1)
             rows_differ = int((got[0] != whole[0]).flatten(1).any(1).sum()
                               + (got[2] != whole[2]).sum())
@@ -4593,7 +4670,7 @@ def _sharded_serving(torch, np, settings, ids, cap32, det32, enc32, cpt32,
         # (c) the mesh decode batcher in bf16 on phase 3's requests
         out["batcher"] = _mesh_decode_batcher(
             torch, np, mesh2, settings, ids, cap32, det32, phase3,
-            zero_counters, read_counters)
+            zero_counters, read_counters, mp_keep)
 
         # (d) the mesh encode batcher against the one-device one, bf16
         out["encode"] = _mesh_encode_batcher(
@@ -4762,6 +4839,429 @@ def _sharded_serving(torch, np, settings, ids, cap32, det32, enc32, cpt32,
         mesh2.close()
     out["phase_s"] = time.time() - t_phase
     print(f"sharded serving (phase 3l): {out['phase_s']:.1f} s")
+    return out
+
+
+MH_TIMEOUT_S = 300               # a phase 3m process's time limit
+
+
+def _multihost_rank(work):
+    """One process of phase 3m's pair (RANK, WORLD_SIZE=2, LOCAL_RANK=0,
+    CUDA_VISIBLE_DEVICES and MASTER_ADDR/PORT in its environment; the one
+    card shared): joins the serving group as ``serve`` does
+    (``cli.common.serving_mesh([2], processes=True)``: gloo over env://),
+    then (a), (b) and (d) on DynamicBatchers of phase 3's weights over the
+    two processes, process 0 batching and the other mirroring from
+    ``follower_loop``. Every stripe a process runs is logged with its
+    time, launches and decode steps (the counts set to 0 just before and
+    read just after). Writes its record to ``work/rank<r>.pt``."""
+    import numpy as np
+    import torch
+    from insenticap_model_tpu_torch import inference
+    from insenticap_model_tpu_torch.cli import common
+    from insenticap_model_tpu_torch.config import Settings
+    from insenticap_model_tpu_torch.models.captioner import TokenIds
+    from insenticap_model_tpu_torch.ops import fused_topk as ft
+    from insenticap_model_tpu_torch.serving import multihost as mh
+    from insenticap_model_tpu_torch.serving_daemon import AUTO, DynamicBatcher
+    spec = torch.load(os.path.join(work, "spec.pt"), weights_only=False)
+    settings = Settings.from_dict(spec["settings"])
+    pm = common.serving_mesh([2], "cuda", processes=True)
+    rank, card = pm.rank, pm.devices[0]
+    zero, read = _launch_counters()
+    lock, steps, log, tag = threading.Lock(), {"n": 0}, [], {"now": ""}
+    real_tail, real_run = ft.classifier_topk_plain, mh.run_stripe
+
+    def counting_tail(*a, **k):        # a decode step of this stripe
+        with lock:
+            steps["n"] += 1
+        return real_tail(*a, **k)
+
+    def logged_run(b, stripe, run_detect):
+        torch.cuda.synchronize()
+        zero()
+        steps["n"] = 0
+        t0 = time.perf_counter()
+        res = real_run(b, stripe, run_detect)     # ends in a host copy
+        log.append({"tag": tag["now"], "rows": int(stripe[0].shape[0]),
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": read(), "steps": steps["n"]})
+        return res
+    ft.classifier_topk_plain = counting_tail
+    mh.run_stripe = logged_run
+
+    def lockstep(name, dtype, work0):
+        """A batcher over the two processes: process 0 runs ``work0`` on it
+        and closes it (STOP), the other mirrors until then."""
+        tag["now"] = name
+        db = DynamicBatcher(spec["cap"], spec["det"], settings=settings,
+                            ids=TokenIds(*spec["ids"]), beam_size=BEAM,
+                            max_seq_len=T, max_wait_s=0.25, num_sentiments=M,
+                            num_cats=NUM_CATS, compute_dtype=dtype, mesh=pm)
+        try:
+            if rank != 0:
+                db.follower_loop()
+                return None
+            return work0(db)
+        finally:
+            db.close()
+
+    def batcher_run(db):               # (a)
+        db.warm([2, 8, 32])
+        got, errors, serve_s = _serve(db, *spec["phase3"])
+        return {"answers": got, "errors": errors, "serve_s": serve_s,
+                "stats": db.stats(), "ladder": db._buckets}
+
+    out = {"rank": rank, "device": str(card), "world": pm.world}
+    try:
+        with _switches("default"):
+            out["a"] = lockstep("a", "bfloat16", batcher_run)
+            if rank == 0:
+                fc, att, sw = _mesh_inputs(torch, card, settings)
+                host = (fc.cpu(), att.cpu(), sw.cpu(),
+                        np.full(BS, AUTO, np.int32))
+            for name, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+                out["b_" + name] = lockstep(   # (b) through _launch
+                    "b_" + name, dtype,
+                    lambda db: db._launch(BS, *host, True))
+
+            def timing(db):                # (d), in turns with one device
+                batch = (host[0].bfloat16(), host[1].bfloat16()) + host[2:]
+                p16 = inference.ServingParams(db._cap_params.trees[0],
+                                              db._senti_params.trees[0])
+                one = inference.make_serving_fn(settings, db._ids,
+                                                beam_size=BEAM,
+                                                max_seq_len=T)
+                fc16, att16, half = fc.bfloat16(), att.bfloat16(), BS // 2
+                walls = {k: [] for k in ("dispatch", "send", "compute",
+                                         "back", "one_device_384",
+                                         "one_block_192")}
+                for _ in range(6):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    mh.send_control(db, mh.MP_EXEC, BS, True)
+                    stripe = mh.scatter_batch(db, BS, batch)
+                    t1 = time.perf_counter()
+                    res = mh.run_stripe(db, stripe, True)
+                    t2 = time.perf_counter()
+                    whole = mh.gather_results(db, res)
+                    t3 = time.perf_counter()
+                    for k, v in (("send", t1 - t0), ("compute", t2 - t1),
+                                 ("back", t3 - t2), ("dispatch", t3 - t0)):
+                        walls[k].append(v * 1e3)
+                    for k, args in (
+                            ("one_device_384", (fc16, att16, sw)),
+                            ("one_block_192", (fc16[:half], att16[:half],
+                                               sw[:half]))):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        one(p16, *args)
+                        torch.cuda.synchronize()
+                        walls[k].append((time.perf_counter() - t0) * 1e3)
+                w = pm.world
+                return {"walls": walls, "last": whole,
+                        "send_bytes": sum(x.nbytes for x in batch)
+                        * (w - 1) // w,
+                        "back_bytes": sum(x.nbytes for x in whole)
+                        * (w - 1) // w}
+            out["d"] = lockstep("d", "bfloat16", timing)
+    finally:
+        pm.close()
+        out["log"] = log
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def _pair_env(torch, rank, port):
+    """The environment of a phase 3m process, as torchrun starts a rank of
+    a two-process job on two one-card hosts: RANK, WORLD_SIZE=2,
+    LOCAL_RANK=0, the one card as CUDA_VISIBLE_DEVICES, MASTER_ADDR and
+    MASTER_PORT on ``port``, the repo on the path."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    card = visible.split(",")[torch.cuda.current_device()] if visible \
+        else str(torch.cuda.current_device())
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
+                CUDA_VISIBLE_DEVICES=card, MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port), PYTHONPATH=os.pathsep.join(
+                    [REPO_DIR] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+
+
+def _start_pair(torch, cmd, work, name):
+    """``cmd`` in two processes of their own (``_pair_env``), their output
+    to files under ``work`` -> the Popen objects, rank order."""
+    port = _free_port()
+    procs = []
+    for r in range(2):
+        out = open(os.path.join(work, f"{name}{r}.out"), "w")
+        err = open(os.path.join(work, f"{name}{r}.err"), "w")
+        procs.append(subprocess.Popen(cmd, cwd=REPO_DIR, stdout=out,
+                                      stderr=err, env=_pair_env(torch, r,
+                                                                port)))
+    return procs
+
+
+def _wait_pair(procs, work, name, deadline):
+    """Wait for both processes until ``deadline`` (killing one that
+    outlives it) -> (exit codes, stdouts, stderrs); a process that hangs
+    fails the phase."""
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+    hung = [r for r, p in enumerate(procs) if p.poll() is None]
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    texts = [[open(os.path.join(work, f"{name}{r}.{k}")).read()
+              for r in range(2)] for k in ("out", "err")]
+    _check(not hung, f"phase 3m {name}: processes {hung} ran past "
+           f"{MH_TIMEOUT_S} s: {[t[-2000:] for t in texts[1]]}")
+    return [p.returncode for p in procs], texts[0], texts[1]
+
+
+def _multihost_serving(torch, np, settings, ids, cap32, det32, phase3,
+                       serve_keep, mp_keep):
+    """Phase 3m: multi-host serving, two processes sharing the one card as
+    two one-card hosts would run (``_pair_env``), over gloo: (a) the bf16
+    DynamicBatcher of phase 3's weights on the mesh over both, process 0
+    answering phase 3's 41 requests bit for bit as 3l(c)'s one-process
+    [card, card] batcher did (each process runs the one-device body on
+    the same block), the follower leaving its loop at STOP; (b) the bs=384
+    batch through the lockstep path, f32 and bf16, bit for bit the
+    one-device function on each 192-row block (3l(b)), each process's
+    launches: v1 once a decode step, each Winograd transform once in bf16;
+    (c) ``python -m ...cli.serve --mesh_shape [2]`` in two processes on
+    3e's checkpoints: process 0's answers to 3e's feature and image
+    requests equal those of 3e's daemon in one process on one device to
+    the same requests sent one at a time (the answers to 3e's concurrent
+    requests recorded beside them), the follower's two lines, SIGTERM
+    draining process 0 and releasing the follower, both exiting 0;
+    ``reproduce_table`` under WORLD_SIZE=2 exiting with its message; (d)
+    the bf16 bs=384 batch through the lockstep path, its control plane's
+    ms and MB, each process's compute ms, the whole dispatch, against one
+    device and one block, in turns (host clock, median of 6)."""
+    from insenticap_model_tpu_torch import nn
+    from insenticap_model_tpu_torch.cli import serve as serve_cli
+    out, t_phase, smi = {}, time.time(), _smi()
+    wino = ("wino_input", "wino_middle", "wino_output")
+    with tempfile.TemporaryDirectory(prefix="multihost_") as work:
+        host = lambda t: t.cpu()  # noqa: E731
+        torch.save({"settings": settings.to_dict(), "ids": tuple(ids),
+                    "cap": nn.tree_map(host, cap32),
+                    "det": nn.tree_map(host, det32),
+                    "phase3": phase3[:5]}, os.path.join(work, "spec.pt"))
+        code = (f"import sys; sys.path.insert(0, {REPO_DIR!r}); "
+                "import chip_smoke; chip_smoke._multihost_rank(sys.argv[1])")
+        t0 = time.time()
+        procs = _start_pair(torch, [sys.executable, "-c", code, work], work,
+                            "rank")
+        rcs, outs, errs = _wait_pair(procs, work, "rank",
+                                     time.monotonic() + MH_TIMEOUT_S)
+        pair_s = time.time() - t0
+        _check(rcs == [0, 0], f"phase 3m ranks exited {rcs}: "
+               f"{[e[-3000:] for e in errs]}")
+        p0, p1 = (torch.load(os.path.join(work, f"rank{r}.pt"),
+                             weights_only=False) for r in range(2))
+
+        # (a) the batcher: 3l(c)'s answers bit for bit
+        a = p0["a"]
+        _check_results(a["answers"], a["errors"])
+        differ = [i for i, (x, y) in enumerate(zip(a["answers"],
+                                                   mp_keep["answers"]))
+                  if not (np.array_equal(x[0], y[0])
+                          and np.array_equal(x[1], y[1]) and x[2] == y[2])]
+        logs = {r: [e for e in rec["log"] if e["tag"] == "a"]
+                for r, rec in ((0, p0), (1, p1))}
+        launches_a = {r: {k: sum(e["launches"][k] for e in es)
+                          for k in ("beam_content_attention",) + wino}
+                      for r, es in logs.items()}
+        st = a["stats"]
+        out["batcher"] = {"serve_s": a["serve_s"], "ladder": a["ladder"],
+                          "by_bucket": st["by_bucket"],
+                          "batches": st["batches"],
+                          "padded_rows": st["padded_rows"],
+                          "differ_from_3l": differ,
+                          "stripes": {r: len(es) for r, es in logs.items()},
+                          "launches": launches_a}
+        print(f"multi-host serving (a) bf16 DynamicBatcher over 2 processes "
+              f"on {smi}: ladder {a['ladder']}, {len(a['answers'])} requests "
+              f"in {a['serve_s']:.2f} s, {st['batches']} batches by bucket "
+              f"{st['by_bucket']} ({mp_keep['by_bucket']} in 3l(c)), "
+              f"{st['padded_rows']} padded rows; stripes run: process 0 "
+              f"{len(logs[0])}, follower {len(logs[1])} (the warm-up's "
+              f"included); launches {launches_a}; answers differing from "
+              f"3l(c)'s one-process [card, card] batcher: {differ}")
+        _check(not differ, f"multi-host batcher answers differ from 3l(c)'s "
+               f"on requests {differ}")
+        _check(len(logs[0]) == len(logs[1]) > 0,
+               f"the follower mirrored {len(logs[1])} of process 0's "
+               f"{len(logs[0])} stripes")
+        _check(all(launches_a[r][k] > 0 for r in (0, 1)
+                   for k in ("beam_content_attention",) + wino),
+               f"a kernel never launched in a process: {launches_a}")
+
+        # (b) the bs=384 batch, bit for bit the one-device fn's blocks
+        out["function"] = {}
+        for name in ("f32", "bf16"):
+            seqs, scores, labels = p0["b_" + name]
+            want = mp_keep["blocks_" + name]
+            same = (np.array_equal(seqs, want[0].numpy())
+                    and np.array_equal(scores, want[1].float().numpy())
+                    and np.array_equal(labels, want[2].numpy()))
+            per = {r: [e for e in rec["log"] if e["tag"] == "b_" + name]
+                   for r, rec in ((0, p0), (1, p1))}
+            launches = {r: es[0]["launches"] for r, es in per.items()}
+            n_steps = {r: es[0]["steps"] for r, es in per.items()}
+            want_wino = 1 if name == "bf16" else 0
+            out["function"][name] = {"bitwise_vs_blocks": same,
+                                     "launches": launches,
+                                     "decode_steps": n_steps}
+            print(f"multi-host serving (b) {name} bs={BS} through the "
+                  f"lockstep path over 2 processes: bit for bit the "
+                  f"one-device fn on each {BS // 2}-row block {same}; "
+                  f"launches {launches}, decode steps {n_steps}")
+            _check(same, f"lockstep {name}: not bit for bit the one-device "
+                   "fn on its blocks")
+            for r in (0, 1):
+                _check(len(per[r]) == 1 and per[r][0]["rows"] == BS // 2,
+                       f"lockstep {name}: process {r} ran {per[r]}")
+                _check([launches[r][k] for k in wino] == [want_wino] * 3,
+                       f"lockstep {name}: process {r}'s Winograd launches "
+                       f"{launches[r]} != {want_wino} each")
+                _check(n_steps[r] > 0 and n_steps[r] == launches[r][
+                    "beam_content_attention"], f"lockstep {name}: process "
+                    f"{r}'s v1 launches {launches[r]} != decode steps "
+                    f"{n_steps[r]}")
+
+        # (d) the timing, in turns within the pair
+        d = p0["d"]
+        med = {k: statistics.median(v) for k, v in d["walls"].items()}
+        follower_ms = statistics.median(
+            e["ms"] for e in p1["log"] if e["tag"] == "d")
+        p0_ms = statistics.median(
+            e["ms"] for e in p0["log"] if e["tag"] == "d")
+        last = d["last"]
+        _check(all(np.array_equal(x, y) for x, y in zip(last, p0["b_bf16"])),
+               "a timed lockstep dispatch differs from (b)'s bf16 answers")
+        out["timing"] = {"ms": med, "process0_compute_ms": p0_ms,
+                         "follower_compute_ms": follower_ms,
+                         "send_MB": d["send_bytes"] / 1e6,
+                         "back_MB": d["back_bytes"] / 1e6,
+                         "pair_s": pair_s, "card": smi}
+        print(f"multi-host serving (d) bf16 bs={BS} on {smi} (host clock, "
+              f"median of 6 in turns): the lockstep dispatch "
+              f"{med['dispatch']:.1f} ms = control and batch scatter "
+              f"{med['send']:.1f} ms ({d['send_bytes'] / 1e6:.1f} MB to the "
+              f"follower) + process 0's stripe {med['compute']:.1f} ms + "
+              f"results back {med['back']:.1f} ms "
+              f"({d['back_bytes'] / 1e6:.3f} MB, waiting on the follower "
+              f"included); each process's compute: process 0 {p0_ms:.1f} "
+              f"ms, follower {follower_ms:.1f} ms; one device "
+              f"{med['one_device_384']:.1f} ms, one {BS // 2}-row block "
+              f"{med['one_block_192']:.1f} ms; the pair's processes "
+              f"{pair_s:.1f} s")
+
+        # (c) the serve CLI over two processes, and reproduce_table refused
+        out["cli"] = _multihost_cli(torch, serve_cli, serve_keep, work)
+    out["phase_s"] = time.time() - t_phase
+    print(f"multi-host serving (phase 3m): {out['phase_s']:.1f} s")
+    return out
+
+
+def _multihost_cli(torch, serve_cli, keep, work):
+    """Phase 3m(c): ``serve --mesh_shape [2]`` in two processes on 3e's
+    checkpoints, held to 3e's daemon in one process on the same requests
+    sent one at a time; ``reproduce_table`` under WORLD_SIZE=2 refused."""
+    out = {}
+    base = ["--rl_model", keep["rl"], "--concept_model", keep["concept"],
+            "--resnet101_ckpt", keep["resnet101"],
+            "--sentiment_detector_json", keep["senti"], "--image_root",
+            FIXTURE_DIR, "--compute_dtype", "bfloat16", "--warm", "--host",
+            "127.0.0.1", "--port", "0", "--max_wait_ms", "20",
+            "--max_body_mb", "16"]
+    requests = keep["feature_requests"] + keep["image_requests"]
+    concurrent = keep["feature_answers"] + keep["image_answers"]
+    repro = subprocess.Popen(
+        [sys.executable, "-m", "insenticap_model_tpu_torch.cli."
+         "reproduce_table", "--rl_model", keep["rl"], "--mesh_shape", "[2]"],
+        cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=_pair_env(torch, 0, _free_port()))
+    procs = _start_pair(torch, [sys.executable, "-m",
+                                "insenticap_model_tpu_torch.cli.serve",
+                                "--mesh_shape", "[2]"] + base, work, "serve")
+    deadline = time.monotonic() + MH_TIMEOUT_S
+    try:
+        # the reference: 3e's daemon in this process on the one card
+        srv = serve_cli.make_server(serve_cli.build_parser().parse_args(
+            base + ["--device", "cuda"]))
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            want = [_post(srv.server_address[1], r) for r in requests]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.app.close()
+            th.join(timeout=60)
+        m = None
+        while m is None and time.monotonic() < deadline:
+            _check(procs[0].poll() is None, "serve --mesh_shape [2] process "
+                   "0 exited: " + open(os.path.join(work, "serve0.err"))
+                   .read()[-3000:])
+            m = re.search(r"serving on http://127\.0\.0\.1:(\d+)",
+                          open(os.path.join(work, "serve0.out")).read())
+            if m is None:
+                time.sleep(0.5)
+        _check(m is not None, "serve --mesh_shape [2] never served")
+        port = int(m.group(1))
+        t0 = time.time()
+        got = [_post(port, r) for r in requests]
+        serve_s = time.time() - t0
+    finally:
+        if procs[0].poll() is None:
+            procs[0].send_signal(signal.SIGTERM)
+        rcs, outs, errs = _wait_pair(procs, work, "serve", deadline)
+        try:
+            r_out, r_err = repro.communicate(timeout=max(
+                1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            repro.kill()
+            r_out, r_err = repro.communicate()
+    same = [g == w for g, w in zip(got, want)]
+    as_3e = sum(g[1] == c for g, c in zip(got, concurrent))
+    lines = outs[1].splitlines()
+    out.update(requests=len(requests), serve_s=serve_s, rcs=rcs,
+               identical_to_one_process=sum(same),
+               identical_to_3e_concurrent=as_3e, follower_lines=lines,
+               reproduce_table_rc=repro.returncode)
+    print(f"multi-host serving (c) serve --mesh_shape [2] over 2 processes: "
+          f"{len(requests)} requests (4 feature, {len(requests) - 4} image, "
+          f"one at a time) in {serve_s:.2f} s, statuses "
+          f"{sorted({g[0] for g in got})}, JSON identical to 3e's daemon "
+          f"in one process on the same requests {sum(same)} of "
+          f"{len(requests)} (to 3e's concurrent answers, a record: {as_3e});"
+          f" process 0 {'drained' if 'drained, exiting' in outs[0] else '?'}"
+          f"; follower printed {lines}; exit codes {rcs}; reproduce_table "
+          f"under WORLD_SIZE=2 exited {repro.returncode}: "
+          f"{r_err.strip().splitlines()[-1:] if r_err else r_err!r}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "multihost_serving.log"), "w") as f:
+        for k, texts in (("out", outs), ("err", errs)):
+            for r, t in enumerate(texts):
+                f.write(f"== serve process {r}, std{k} ==\n{t}\n")
+    _check(all(g[0] == 200 for g in got) and all(same),
+           f"serve --mesh_shape [2]: answers differ from one process's on "
+           f"requests {[i for i, s_ in enumerate(same) if not s_]}")
+    _check(rcs == [0, 0] and "drained, exiting" in outs[0],
+           f"serve --mesh_shape [2]: exit codes {rcs}, "
+           f"{[e[-2000:] for e in errs]}")
+    _check(lines == ["follower 1/2: mirroring process 0", "follower done"],
+           f"the follower printed {lines}")
+    _check(repro.returncode not in (0, None) and "only serve runs a mesh "
+           "over processes" in r_err, f"reproduce_table under WORLD_SIZE=2"
+           f" exited {repro.returncode}: {r_err[-2000:]}")
     return out
 
 
@@ -5227,23 +5727,7 @@ def main():
         [AUTO if i % 3 else i % NUM_CATS for i in range(30)] + [0, 1, 2, 1]
     groups = ([0], range(1, 7), range(7, 37), range(37, 41))
 
-    def zero_counters():
-        fa.beam_content_attention.launches = 0
-        fa.beam_content_attention.launches_v2 = 0
-        ft.classifier_topk.launches = 0
-        for c in (wk.wino_input, wk.wino_middle, wk.wino_output,
-                  pool.ceil_maxpool_3x3s2_nhwc):
-            c.launches = 0
-
-    def read_counters():
-        return {"beam_content_attention": fa.beam_content_attention.launches,
-                "beam_content_attention_v2":
-                fa.beam_content_attention.launches_v2,
-                "classifier_topk": ft.classifier_topk.launches,
-                "wino_input": wk.wino_input.launches,
-                "wino_middle": wk.wino_middle.launches,
-                "wino_output": wk.wino_output.launches,
-                "ceil_maxpool_3x3s2": pool.ceil_maxpool_3x3s2_nhwc.launches}
+    zero_counters, read_counters = _launch_counters()
 
     with _switches("default"):
         batcher = DynamicBatcher(cap32, det32, settings=settings, ids=ids,
@@ -5542,9 +6026,17 @@ def main():
         torch.cuda.empty_cache()
 
         # -- 3l. sharded serving in one process (a DeviceMesh) -------------
+        mp_keep = {}
         report["sharded_serving"] = _sharded_serving(
             torch, np, settings, ids, cap32, det32, enc32, cpt32, phase3,
-            serve_keep, offline_keep, zero_counters, read_counters)
+            serve_keep, offline_keep, zero_counters, read_counters, mp_keep)
+        torch.cuda.empty_cache()
+
+        # -- 3m. multi-host serving: two processes sharing the one card ---
+        report["multihost_serving"] = _multihost_serving(
+            torch, np, settings, ids, cap32, det32, phase3, serve_keep,
+            mp_keep)
+        del mp_keep
         serve_keep_dir.cleanup()
         del offline_keep, serve_keep
         torch.cuda.empty_cache()

@@ -22,7 +22,8 @@ batches concatenated in rank order). The eval loaders are not striped:
 every rank evaluates the whole split, so the val loss, and the
 learning-rate halving that reads it, are the same on every rank. The
 entry points that serve (``reproduce_table``) take ``--mesh_shape [n]``
-as n devices driven by one process (``Runtime(opt, serving=True)``).
+as n devices driven by one process (``Runtime(opt, serving=True)``);
+``serve`` alone also runs a mesh over processes (``serving_mesh``).
 
 Artefact schemas are the reference's JSON contracts (SURVEY.md §1):
 idx2word.json (list), img_captions.json ({split: {fn: [[word, ...],
@@ -185,19 +186,41 @@ def mesh_devices(mesh_shape) -> int:
     return int(shape[0]) if shape else 1
 
 
-def serving_mesh(mesh_shape, device):
-    """The ``DeviceMesh`` of a serving entry point's ``--mesh_shape`` (None
-    without one): n devices of ``device`` driven by this one process.
-    Exits with a message under a ``WORLD_SIZE`` above 1 (multi-host
-    serving, a mesh over processes, is not ported), for a mesh of more
-    than one axis, and where fewer than n cards are visible."""
-    world = os.environ.get("WORLD_SIZE")
-    if world not in (None, "1"):
+def serving_world(processes: bool = False) -> int:
+    """The processes a serving entry point runs in: the joined group's, or
+    ``WORLD_SIZE`` (1 without either). Above 1 it exits with a message
+    unless ``processes`` (``serve``, the one entry point with a mesh over
+    processes)."""
+    world = mesh.world_size() if mesh.initialized() \
+        else int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not processes:
         raise SystemExit(
-            f"WORLD_SIZE={world}: multi-host serving (a mesh over "
-            "processes, followers mirroring process 0) is not ported yet; "
-            "run this entry point in one process")
+            f"WORLD_SIZE={world}: only serve runs a mesh over processes "
+            "(multi-host serving, followers mirroring process 0); this "
+            "entry point has no process-aware path, as in the JAX package: "
+            "run it in one process")
+    return world
+
+
+def serving_mesh(mesh_shape, device, processes: bool = False):
+    """The mesh of a serving entry point's ``--mesh_shape`` (None without
+    one). In one process a ``DeviceMesh``: n devices of ``device``. Under
+    a ``WORLD_SIZE`` above 1, for ``processes=True`` (``serve``), a
+    ``ProcessMesh`` over the ranks (multi-host serving): the process joins
+    the gloo group through ``env://`` as torchrun starts it (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), or uses a group the
+    caller joined (``mesh.init``), and drives n / WORLD_SIZE devices
+    (``mesh.local_devices``). Exits with a message under a ``WORLD_SIZE``
+    above 1 for the other entry points, without a ``--mesh_shape`` or a
+    ``RANK`` there, where the processes do not divide n, for a mesh of
+    more than one axis, and where fewer cards are visible than the
+    process drives."""
+    world = serving_world(processes)
     if not mesh_shape:
+        if world > 1:
+            raise SystemExit(
+                f"WORLD_SIZE={world} but no --mesh_shape: multi-host serving "
+                f"needs --mesh_shape '[n]', n a multiple of {world}")
         return None
     shape = tuple(mesh_shape)
     if len(shape) != 1:
@@ -206,7 +229,21 @@ def serving_mesh(mesh_shape, device):
         raise SystemExit(
             f"--mesh_shape must be 1-D for serving (got {shape}); "
             f"use '[{int(np.prod(shape))}]'")
-    return mesh.make_device_mesh(shape[0], device)
+    if world == 1:
+        return mesh.make_device_mesh(shape[0], device)
+    if not mesh.initialized():
+        if "RANK" not in os.environ:
+            raise SystemExit(
+                f"WORLD_SIZE={world} but RANK is unset: multi-host serving "
+                "joins its group through env:// as torchrun starts a process "
+                "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
+        rank = int(os.environ["RANK"])
+        # the split and this process's cards, before any rank waits on it
+        mesh.local_devices(shape[0], world,
+                           int(os.environ.get("LOCAL_RANK", rank)), device)
+        mesh.init(world, rank, "gloo", "env://")
+        atexit.register(mesh.teardown)
+    return mesh.make_process_mesh(shape[0], device)
 
 
 class Runtime:
@@ -228,13 +265,16 @@ class Runtime:
     [1]`` under torchrun joins a group of one rank; without a
     ``--mesh_shape`` the run is one process.
 
-    The entry points that serve (``serving=True``) run in one process,
-    rank 0 of 1, on ``self.mesh``, a ``parallel.mesh.DeviceMesh`` of n
-    devices (``serving_mesh``: exits where fewer cards are visible, and
-    under a ``WORLD_SIZE`` above 1), or on one device without a
+    The entry points that serve (``serving=True``: ``reproduce_table``)
+    run in one process, rank 0 of 1, on ``self.mesh``, a
+    ``parallel.mesh.DeviceMesh`` of n devices (``serving_mesh``: exits
+    where fewer cards are visible), or on one device without a
     ``--mesh_shape``; ``self.device`` is the mesh's first device,
     ``replicate`` copies params to every device, and ``close()`` stops
-    the mesh's workers.
+    the mesh's workers. Under a ``WORLD_SIZE`` above 1 they exit with a
+    message: only ``serve`` runs a mesh over processes (it calls
+    ``serving_mesh`` itself), since the JAX package's ``reproduce_table``
+    has no process-aware path.
 
     ``round_bs`` rounds a batch to a multiple of the n devices either
     way. For the other entry points (``unported``: why) a mesh of more

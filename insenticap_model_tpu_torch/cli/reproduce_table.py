@@ -140,6 +140,7 @@ def _decode_test_splits(opt: Opts, rt, composite, meta, settings, vocab,
 
 def reproduce(opt: Opts, rl_model: str, tag: str = "repro",
               anno_file: str = "", out: str = "") -> dict:
+    common.serving_world()         # one process only: refused before the load
     composite, meta = load_composite(rl_model, device=opt.device)
     if "settings" in meta and not isinstance(meta["settings"], dict):
         meta["settings"] = meta["settings"].to_dict()

@@ -44,10 +44,29 @@ serves in this one process on n devices of ``--device`` (``cuda:0`` to
 take the mesh, the captioner, the detectors, the concept MLP and the
 encoder are replicated, each batch's rows split over the devices, and the
 default ladders round up to multiples of n. It exits with a message where
-fewer than n cards are visible, for a mesh of more than one axis, and
-under a ``WORLD_SIZE`` above 1: the JAX package's multi-host serving (a
-mesh over processes, its followers mirroring process 0) is not ported
-yet.
+fewer than n cards are visible and for a mesh of more than one axis.
+
+Under a ``WORLD_SIZE`` w above 1 the mesh spans w processes (multi-host
+serving), each started as torchrun starts a rank::
+
+    torchrun --nproc_per_node w -m insenticap_model_tpu_torch.cli.serve \\
+        --mesh_shape '[n]' ...        # n a multiple of w
+
+Each process joins the gloo group through ``env://`` and drives n / w
+devices (``cuda:LOCAL_RANK*(n/w)`` on), the same checkpoints loaded in
+every process. Process 0 serves HTTP: its decode batcher batches, and
+each dispatch runs in lockstep on every process, each on its stripe of
+the batch (``serving/multihost.py``), the ladders rounded to n. The
+encode stage stays local to process 0 on its first device, with no mesh
+and the one-device encode ladder, since HTTP and image decoding live
+there. Only process 0 warms (``--warm``); the followers warm in step. A
+follower serves no HTTP: it prints ``follower r/w: mirroring process
+0``, mirrors process 0's dispatches until process 0 closes, closes its
+encode batcher and its mesh, and prints ``follower done``. SIGTERM or
+SIGINT to process 0 drains it as in one process, and its close releases
+the followers, so every process exits with 0. Under a ``WORLD_SIZE``
+above 1 it exits with a message without a ``--mesh_shape``, without a
+``RANK``, and where w does not divide n.
 """
 from __future__ import annotations
 
@@ -61,6 +80,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from .. import preprocessing, serving_daemon
+from ..parallel.mesh import ProcessMesh
 from ..serving.encode import make_cpt_apply
 from ..training import checkpoint as ckpt
 from ..utils.dtypes import cast_bf16, resolve_device
@@ -127,9 +147,10 @@ def build_parser():
                    help="e.g. '[8]': data-parallel serving in this process "
                         "over n devices of --device (each device runs the "
                         "one-device programs on its block of every batch; "
-                        "every bucket size must be a multiple of n). A "
-                        "mesh over several processes (multi-host serving) "
-                        "is not ported yet")
+                        "every bucket size must be a multiple of n). Under "
+                        "a WORLD_SIZE w above 1 (torchrun) the mesh spans "
+                        "the w processes, n / w devices each, process 0 "
+                        "serving HTTP and the others mirroring it")
     p.add_argument("--warm", action="store_true",
                    help="pre-compile every bucket before accepting "
                         "traffic (first full-size TPU compile is "
@@ -167,7 +188,15 @@ class ServeApp:
     def __init__(self, a):
         device = resolve_device(a.device)
         self.mesh = mesh = common.serving_mesh(
-            json.loads(a.mesh_shape), device) if a.mesh_shape else None
+            json.loads(a.mesh_shape) if a.mesh_shape else None, device,
+            processes=True)
+        # a mesh over processes: the encode stage stays on process 0's
+        # first device, with no mesh (HTTP and image decoding live there)
+        multi = isinstance(mesh, ProcessMesh)
+        self.is_follower = multi and mesh.rank != 0
+        enc_mesh = None if multi else mesh
+        if mesh is not None:
+            device = mesh.devices[0]
         try:
             batcher, vocab, cats, settings = \
                 serving_daemon.make_batcher_from_checkpoint(
@@ -199,13 +228,13 @@ class ServeApp:
         try:
             self.cpt_params, self.idx2concept, _ = \
                 common.load_concept_model(a.concept_model, device=device)
-            if mesh is not None:
-                self.cpt_params = mesh.replicate(self.cpt_params)
+            if enc_mesh is not None:
+                self.cpt_params = enc_mesh.replicate(self.cpt_params)
             # f32 scoring whatever the serving dtype (the ranking is the
             # product; bf16 fc rows from the encoder cast up in the apply)
             cpt_apply = make_cpt_apply(self.cpt_params, self.num_concepts)
             enc_apply = _load_encoder(a.resnet101_ckpt, a.compute_dtype,
-                                      device, mesh) \
+                                      device, enc_mesh) \
                 if a.resnet101_ckpt else None
             # the encode batcher exists even without an encoder: feature-
             # mode concept top-k batches through it instead of running bs=1
@@ -215,8 +244,9 @@ class ServeApp:
                 batch_buckets=(tuple(json.loads(a.enc_bucket_sizes))
                                if a.enc_bucket_sizes
                                else serving_daemon.default_encode_buckets(
-                                   mesh)),
-                max_wait_s=a.max_wait_ms / 1e3, device=device, mesh=mesh)
+                                   enc_mesh)),
+                max_wait_s=a.max_wait_ms / 1e3, device=device,
+                mesh=enc_mesh)
         except BaseException:
             self.batcher.close()
             if mesh is not None:
@@ -224,8 +254,8 @@ class ServeApp:
             raise
         try:
             self.senti_table = common.load_json(a.sentiment_detector_json)
-            if a.warm:
-                self.batcher.warm()
+            if a.warm and not self.is_follower:
+                self.batcher.warm()     # the followers warm in step
                 self.enc_batcher.warm()
         except BaseException:
             self.close()
@@ -324,8 +354,10 @@ class ServeApp:
             self.mesh.close()
 
 
-def make_server(a) -> ThreadingHTTPServer:
-    app = ServeApp(a)
+def make_server(a, app=None) -> ThreadingHTTPServer:
+    """The HTTP server over ``app`` (a ``ServeApp(a)`` built here by
+    default)."""
+    app = app or ServeApp(a)
     max_body = int(a.max_body_mb * 1e6)
 
     class Handler(BaseHTTPRequestHandler):
@@ -402,7 +434,19 @@ def main(argv=None):
     import threading
 
     a = build_parser().parse_args(argv)
-    srv = make_server(a)
+    app = ServeApp(a)
+    if app.is_follower:
+        # a mesh over processes: mirror process 0's dispatches until it
+        # closes; no HTTP here
+        print(f"follower {app.mesh.rank}/{app.mesh.world}: mirroring "
+              "process 0", flush=True)
+        try:
+            app.batcher.follower_loop()
+        finally:
+            app.close()      # the encode batcher and the mesh
+        print("follower done", flush=True)
+        return
+    srv = make_server(a, app)
     host, port = srv.server_address[:2]
     print(f"serving on http://{host}:{port} "
           f"(buckets {srv.app.batcher._buckets}, wait {a.max_wait_ms} ms, "

@@ -52,9 +52,23 @@ every device of a ``DeviceMesh`` (``make_device_mesh``):
 The worker threads are persistent, one a device, each with its CUDA
 device set once: ``ops/beam.py`` syncs the host on every decode step, so
 one host thread would run the blocks one after another, and PyTorch keeps
-its cuBLAS handles and current device per thread. The 2-D ``data x
-model`` mesh (``captioner_shardings``, :79-103) is not ported:
-``cli/common.mesh_devices`` refuses a mesh of more than one axis.
+its cuBLAS handles and current device per thread.
+
+A serving mesh may also span processes (multi-host serving, the JAX
+package's mesh over ``jax.process_count()`` processes):
+``make_process_mesh`` gives a ``ProcessMesh`` of n devices over the w
+ranks of the process group, each rank driving a ``DeviceMesh`` of its
+n / w devices (``cuda:LOCAL_RANK*(n/w)`` and the ones after it, or n / w
+CPU slots) and serving rows ``shard_rows(bucket, rank, w)`` of every
+batch, which its local mesh splits further, so that the rows come back in
+global device order (JAX's process-major mesh). Serving moves host data
+only, so its two groups are gloo whatever the device (two ranks may then
+share one card, which NCCL refuses): ``control`` for the control vector,
+with a timeout that no idle daemon reaches, and ``data`` for the batches
+and results, with the caller's (``serving/multihost.py``).
+
+The 2-D ``data x model`` mesh (``captioner_shardings``, :79-103) is not
+ported: ``cli/common.mesh_devices`` refuses a mesh of more than one axis.
 """
 from __future__ import annotations
 
@@ -62,6 +76,7 @@ import concurrent.futures
 import contextlib
 import contextvars
 import datetime
+import os
 from typing import Callable, Iterator, List, Sequence
 
 import torch
@@ -399,3 +414,102 @@ def shard_map(fn: Callable, mesh: DeviceMesh) -> Callable:
             cols = [join(c, home) for c in cols]
         return cols[0] if single else tuple(cols)
     return sharded
+
+
+# ---------------------------------------------------------------------------
+# A serving mesh over processes
+# ---------------------------------------------------------------------------
+
+# The control group's timeout. A follower waits on the control vector for
+# as long as process 0 receives no request, which may be hours, so the
+# wait must outlast any idle time: ten years is beyond any daemon's life,
+# and within what gloo's clocks hold. A dead process 0 still ends the wait
+# at once, as its sockets close.
+CONTROL_TIMEOUT_S = 10 * 365 * 86400.0
+
+
+class ProcessMesh:
+    """A serving mesh of ``size`` devices over the ``world`` processes of
+    the process group: this process, rank ``rank``, drives ``local`` (a
+    ``DeviceMesh`` of size / world devices, ``devices``) and serves rows
+    ``shard_rows(bucket, rank, world)`` of every batch. ``control`` and
+    ``data`` are its gloo groups (``make_process_mesh``). Callers that
+    build one close it."""
+
+    def __init__(self, local: DeviceMesh, rank: int, world: int,
+                 control=None, data=None):
+        self.local = local
+        self.rank = int(rank)
+        self.world = int(world)
+        self.control = control
+        self.data = data
+
+    @property
+    def size(self) -> int:
+        """The devices of the whole mesh, over every process."""
+        return self.local.size * self.world
+
+    @property
+    def devices(self):
+        """This process's devices."""
+        return self.local.devices
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh(rank {self.rank} of {self.world}, "
+                f"{self.size} devices; here {[str(d) for d in self.devices]})")
+
+    def close(self) -> None:
+        """Stop the local mesh's worker threads."""
+        self.local.close()
+
+
+def local_devices(n: int, world: int, local_rank: int, device="cuda"):
+    """The devices that a process of a ``world``-process mesh of ``n``
+    devices drives: ``cuda:local_rank*(n/world)`` and the ``n/world - 1``
+    after it, or ``n/world`` CPU slots. Exits with a message where
+    ``world`` does not divide ``n`` or this process sees too few cards: it
+    never shrinks the mesh and never moves to the CPU."""
+    from ..utils.dtypes import resolve_device
+    if n < 1 or n % world:
+        raise SystemExit(
+            f"--mesh_shape [{n}] over WORLD_SIZE={world} processes: the "
+            f"mesh's {n} devices must split evenly over the processes (n "
+            "a multiple of WORLD_SIZE)")
+    k = n // world
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev] * k
+    first, visible = local_rank * k, torch.cuda.device_count()
+    if first + k > visible:
+        raise SystemExit(
+            f"--mesh_shape [{n}] over {world} processes: LOCAL_RANK "
+            f"{local_rank} drives cuda:{first} to cuda:{first + k - 1}, and "
+            f"{visible} {'is' if visible == 1 else 'are'} visible ("
+            + ", ".join(f"cuda:{i} {torch.cuda.get_device_name(i)}"
+                        for i in range(visible)) + ")")
+    return [torch.device("cuda", first + i) for i in range(k)]
+
+
+def make_process_mesh(n: int, device="cuda",
+                      timeout_s: float = 1800.0) -> ProcessMesh:
+    """The ``ProcessMesh`` of ``n`` devices over the process group that
+    this process joined (``init``): its local devices (``local_devices``,
+    ``LOCAL_RANK`` from the environment, the rank without one), the card's
+    first set current, and two new gloo groups of every rank, ``control``
+    (``CONTROL_TIMEOUT_S``) and ``data`` (``timeout_s``). Every rank calls
+    it, in the same order as its other groups."""
+    if not initialized():
+        raise RuntimeError("a mesh over processes needs the process group "
+                           "joined first (mesh.init)")
+    w, r = world_size(), rank()
+    devices = local_devices(n, w, int(os.environ.get("LOCAL_RANK", r)),
+                            device)
+    if devices[0].type == "cuda":
+        torch.cuda.set_device(devices[0])
+    ranks = list(range(w))
+    control = dist.new_group(ranks, backend="gloo",
+                             timeout=datetime.timedelta(
+                                 seconds=CONTROL_TIMEOUT_S))
+    data = dist.new_group(ranks, backend="gloo",
+                          timeout=datetime.timedelta(seconds=timeout_s))
+    return ProcessMesh(DeviceMesh(devices), r, w, control, data)

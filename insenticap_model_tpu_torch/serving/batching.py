@@ -12,7 +12,8 @@ device, and a completion thread copies results back and fans them out, at
 most two batches in flight. ``close()`` drains and joins both threads.
 With a ``parallel.mesh.DeviceMesh`` a batch's rows split into one equal
 block a device (``_stage``), so every bucket is a multiple of the mesh's
-size.
+size; under a ``ProcessMesh`` a multiple of the devices of every process
+(its ``size``), so that each process's stripe splits evenly over its own.
 """
 from __future__ import annotations
 
@@ -41,8 +42,9 @@ _LAT_WINDOW = 1024
 
 def _round_ladder(buckets: Sequence[int], mesh) -> Tuple[int, ...]:
     """A bucket ladder rounded up to multiples of the mesh's size (each
-    device takes an equal block), deduped: (1,8,32,128,384) on 8 devices
-    is (8,32,128,384). The ladder as it is without a mesh."""
+    device takes an equal block; a ``ProcessMesh``'s size counts the
+    devices of every process), deduped: (1,8,32,128,384) on 8 devices is
+    (8,32,128,384). The ladder as it is without a mesh."""
     if mesh is None:
         return tuple(buckets)
     n = mesh.size
@@ -74,7 +76,11 @@ def default_encode_buckets(mesh=None) -> Tuple[int, ...]:
 def to_host(x) -> np.ndarray:
     """A device result as a host array, bfloat16 widened to float32 on the
     device first: a tensor copied back, or the blocks of ``Shards`` copied
-    back and joined in row order."""
+    back and joined in row order; a host array (what the lockstep path of
+    a mesh over processes returns) as it is."""
+    if isinstance(x, np.ndarray):
+        return x
+
     def one(t):
         return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
     if isinstance(x, Shards):

@@ -21,13 +21,18 @@ Counterpart of ``insenticap_model_tpu/serving_daemon.py``'s
   blocks in row order. Each block's answers are bit for bit the
   one-device functions' on that block; a whole batch's match one device's
   token for token where the products round alike at both row counts (in
-  bf16 on the card cuBLAS may round 12 decode rows otherwise than 24).
+  bf16 on the card cuBLAS may round 12 decode rows otherwise than 24);
+* with a ``parallel.mesh.ProcessMesh`` (a mesh over processes) process 0
+  batches and every other process mirrors its dispatches from
+  ``follower_loop()`` (``serving/multihost.py``): each dispatch runs
+  synchronously through the lockstep control plane, every process runs
+  the body above on its stripe over its own devices, and the results come
+  back to process 0 as host arrays. ``submit`` and ``warm`` are process
+  0's; ``close()`` there releases the followers, once.
 
 ``make_batcher_from_checkpoint`` builds one from a JAX-written RL
 checkpoint. The encode stage, ``EncodeBatcher`` (``serving/encode.py``),
-and its ladder are re-exported here, as the JAX module does. The
-multi-host branch (``serving/multihost.py``: a mesh over processes) is
-not ported yet.
+and its ladder are re-exported here, as the JAX module does.
 """
 from __future__ import annotations
 
@@ -38,7 +43,8 @@ import torch
 
 from . import inference
 from .config import Settings
-from .parallel.mesh import Shards
+from .parallel.mesh import ProcessMesh, Shards
+from .serving import multihost as _mh
 from .serving.batching import (AUTO, DEFAULT_BUCKETS,   # noqa: F401
                                Saturated, _BatcherBase, _RequestBase,
                                _require_mesh_multiples, default_buckets,
@@ -76,7 +82,10 @@ class DynamicBatcher(_BatcherBase):
     every device of the mesh (then the bf16 cast, on each copy), every
     batch splits into one block a device, and every bucket must be a
     multiple of the mesh's size (``default_buckets(mesh)`` rounds the
-    default ladder); ``device`` is then the mesh's first device.
+    default ladder); ``device`` is then the mesh's first device. Or a
+    ``parallel.mesh.ProcessMesh``: the same over this process's devices
+    for its stripe of each batch, the buckets multiples of the devices
+    of every process; every process builds the batcher alike.
     """
 
     def __init__(self, cap_params, senti_params, *, settings, ids,
@@ -98,6 +107,13 @@ class DynamicBatcher(_BatcherBase):
             device = mesh.devices[0]
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype!r}")
+        # a mesh over processes: lockstep dispatch (serving/multihost.py)
+        # over this process's part of it
+        self._mp = isinstance(mesh, ProcessMesh)
+        self._pmesh = mesh if self._mp else None
+        self._mp_stop_sent = False
+        if self._mp:
+            mesh = mesh.local
         self._mesh = mesh
         self._device = resolve_device(device)
         self._ids = ids
@@ -154,6 +170,7 @@ class DynamicBatcher(_BatcherBase):
         if forced_label != AUTO and not 0 <= forced_label < self._num_cats:
             raise ValueError(f"forced_label {forced_label} not in "
                              f"[0, {self._num_cats}) or AUTO")
+        self._require_process_0("submit()")
         r = _Request(fc, att, sentis, int(forced_label))
         return self._enqueue_and_wait(r, timeout, enqueue_timeout)
 
@@ -175,19 +192,35 @@ class DynamicBatcher(_BatcherBase):
                                    labels)
         return seqs, scores, labels
 
+    def _launch(self, bucket: int, fc, att, sentis, forced,
+                run_detect: bool):
+        """One batch's work from its host arrays, the features cast to the
+        serving dtype on the host first (bf16 halves the bytes shipped):
+        staged and launched on this process's device(s), or with a mesh
+        over processes run through the lockstep path, which returns host
+        arrays."""
+        fc, att = (torch.as_tensor(x).to(self._feat_dtype)
+                   for x in (fc, att))
+        if self._mp:
+            return _mh.mp_dispatch(self, bucket, fc, att, sentis, forced,
+                                   run_detect)
+        return self._run(self._stage(fc), self._stage(att),
+                         self._stage(sentis), self._stage(forced),
+                         run_detect)
+
     def _dispatch(self, batch: List[_Request]) -> None:
         """Stage 1: stack, stage and launch; the completion thread copies
-        the results back while this thread collects the next batch."""
+        the results back while this thread collects the next batch (with
+        a mesh over processes they are on the host already)."""
         n = len(batch)
         bucket = next(b for b in self._buckets if b >= n)
         pad = bucket - n
         rows = batch + [batch[-1]] * pad      # repeat a live row
         forced_h = np.asarray([r.forced_label for r in rows], np.int32)
-        out = self._run(
-            self._stage(np.stack([r.fc for r in rows]), self._feat_dtype),
-            self._stage(np.stack([r.att for r in rows]), self._feat_dtype),
-            self._stage(np.stack([r.sentis for r in rows])),
-            self._stage(forced_h), bool((forced_h == AUTO).any()))
+        out = self._launch(bucket, np.stack([r.fc for r in rows]),
+                           np.stack([r.att for r in rows]),
+                           np.stack([r.sentis for r in rows]), forced_h,
+                           bool((forced_h == AUTO).any()))
         self._fq.put((batch, bucket, pad) + out)
 
     def _finish(self, item) -> None:
@@ -210,18 +243,42 @@ class DynamicBatcher(_BatcherBase):
     def warm(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run the detector and the decode once per bucket (default: all)
         on zero inputs, staged as the dispatch stages them (so with a mesh
-        on every device), so the first real requests find the kernels
-        built and the libraries initialised. Call before accepting
-        traffic."""
+        on every device; with a mesh over processes through the lockstep
+        path, the followers warming in step), so the first real requests
+        find the kernels built and the libraries initialised. Call before
+        accepting traffic."""
+        self._require_process_0("warm()")
         for b in (buckets or self._buckets):
-            seqs, _, _ = self._run(
-                self._stage(np.zeros((b,) + self._fc_shape, np.float32),
-                            self._feat_dtype),
-                self._stage(np.zeros((b,) + self._att_shape, np.float32),
-                            self._feat_dtype),
-                self._stage(np.full((b, self._m), self._ids.pad, np.int64)),
-                self._stage(np.zeros((b,), np.int32)), True)
+            seqs, _, _ = self._launch(
+                b, np.zeros((b,) + self._fc_shape, np.float32),
+                np.zeros((b,) + self._att_shape, np.float32),
+                np.full((b, self._m), self._ids.pad, np.int64),
+                np.zeros((b,), np.int32), True)
             to_host(seqs)
+
+    # -- a mesh over processes (serving/multihost.py) ---------------------
+
+    def _require_process_0(self, what: str) -> None:
+        if self._mp and self._pmesh.rank != 0:
+            raise RuntimeError(
+                f"multi-host serving: {what} only on process 0 (process "
+                f"{self._pmesh.rank} runs follower_loop)")
+
+    def follower_loop(self) -> None:
+        """On every process but 0 of a mesh over processes: mirror process
+        0's dispatches until it closes, then close this batcher."""
+        _mh.follower_loop(self)
+
+    def close(self) -> None:
+        """Drain and stop (the base close); then, on process 0 of a mesh
+        over processes, release the followers once: a second close sends
+        nothing."""
+        super().close()
+        if self._mp and self._pmesh.rank == 0:
+            with self._stats_lock:
+                sent, self._mp_stop_sent = self._mp_stop_sent, True
+            if not sent:
+                _mh.mp_stop(self)
 
 
 def make_batcher_from_checkpoint(rl_model: str, *, beam_size: int = 3,

@@ -185,8 +185,10 @@ def test_serve_refuses_mesh_and_missing_card(tree, settings, fakes,
     tests/test_cli_stages.py:548), ``[8]`` on the CPU serves in one
     process over 8 slots with the default ladder rounded to
     (8,32,128,384) and answers a feature request over HTTP as the
-    one-device server does; a WORLD_SIZE above 1 exits naming multi-host
-    serving; without CUDA the default device still refuses."""
+    one-device server does; a WORLD_SIZE above 1 without RANK exits
+    naming multi-host serving (its processes join through env://,
+    tests/test_torch_multihost.py); without CUDA the default device still
+    refuses."""
     parser = tserve.build_parser()
     base = ["--rl_model", str(tree / "rl.ckpt"), "--concept_model",
             str(tree / "cpt.ckpt"), "--sentiment_detector_json",

@@ -457,3 +457,178 @@ def sequence(rank, world, calls):
     """Each (rank function, args) of ``calls`` in turn on one group ->
     their results (one spawn of the ranks for several checks)."""
     return [fn(rank, world, *args) for fn, args in calls]
+
+
+# ---------------------------------------------------------------------------
+# multi-host serving (serving/multihost.py)
+# ---------------------------------------------------------------------------
+
+def _submit_threads(submit, requests):
+    """``submit(request)`` for every request, each from a thread of its
+    own, all at once -> the answers in request order (an exception where
+    one raised)."""
+    import threading
+    out = [None] * len(requests)
+
+    def go(i):
+        try:
+            out[i] = submit(requests[i])
+        except Exception as e:  # noqa: BLE001 — returned to the test
+            out[i] = e
+    ts = [threading.Thread(target=go, args=(i,)) for i in range(len(requests))]
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join(timeout=RANK_TIMEOUT_S)
+    return out
+
+
+def _counted(module, name, counts):
+    """Wrap ``module.name`` so that each call adds its first argument after
+    the batcher to ``counts[name]`` (the opcode of a control vector, the
+    stripe of a run)."""
+    real = getattr(module, name)
+    counts[name] = []
+
+    def wrapped(b, first, *a, **k):
+        counts[name].append(first)
+        return real(b, first, *a, **k)
+    setattr(module, name, wrapped)
+
+
+def multihost_daemon(rank, world, spec):
+    """A ``DynamicBatcher`` on a mesh of ``spec["n"]`` CPU devices over the
+    ``world`` ranks (``mesh.make_process_mesh``; with ``world=1`` and no
+    group a one-process ``DeviceMesh`` of n slots, the reference). Process
+    0 warms (``spec["warm"]``), submits ``spec["requests"]`` from
+    concurrent threads and closes twice, after ``spec["idle_s"]`` seconds
+    of idleness where given; the others try ``submit``, then mirror from
+    ``follower_loop``. With ``idle_s`` the data group takes
+    ``spec["timeout_s"]``, and a follower first waits that long on a probe
+    group of the same timeout that process 0 never sends on (the premise:
+    such a wait times out). With ``fail_follower`` the followers' stripes
+    raise, and process 0 records what its requests and its close get."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from insenticap_model_tpu_torch.config import Settings
+    from insenticap_model_tpu_torch.models.captioner import TokenIds
+    from insenticap_model_tpu_torch.parallel import mesh
+    from insenticap_model_tpu_torch.serving import multihost
+    from insenticap_model_tpu_torch.serving_daemon import DynamicBatcher
+
+    counts = {}
+    for name in ("send_control", "run_stripe"):
+        _counted(multihost, name, counts)
+    if world > 1:
+        mesh.barrier()
+        pm = mesh.make_process_mesh(spec["n"], "cpu",
+                                    timeout_s=spec.get("timeout_s", 120.0))
+    else:
+        pm = mesh.make_device_mesh(spec["n"], "cpu")
+    out = {}
+    try:
+        b = DynamicBatcher(
+            tensors(spec["cap"]), tensors(spec["det"]),
+            settings=Settings.from_dict(spec["settings"]),
+            ids=TokenIds(*spec["ids"]), beam_size=spec["beam"],
+            max_seq_len=spec["T"], bucket_sizes=spec["buckets"],
+            max_wait_s=0.25, num_sentiments=spec["M"], device="cpu",
+            compute_dtype=spec.get("dtype", "float32"), mesh=pm)
+        if spec.get("idle_s"):
+            probe = dist.new_group(backend="gloo", timeout=datetime.timedelta(
+                seconds=spec["timeout_s"]))
+        if rank != 0:
+            if spec.get("idle_s"):
+                t0 = time.monotonic()
+                try:
+                    dist.broadcast(torch.zeros(1), 0, group=probe)
+                    out["probe_timed_out"] = False
+                except RuntimeError:
+                    out["probe_timed_out"] = True
+                out["probe_s"] = time.monotonic() - t0
+            req = spec["requests"][0]
+            try:
+                b.submit(req[0], req[1], req[2], forced_label=req[3])
+                out["submit_raised"] = ""
+            except RuntimeError as e:
+                out["submit_raised"] = str(e)
+            if spec.get("fail_follower"):
+                def fault(*a, **k):
+                    raise RuntimeError("device fault in a follower")
+                multihost.run_stripe = fault
+            t0 = time.monotonic()
+            try:
+                b.follower_loop()      # returns after process 0's STOP
+            except RuntimeError as e:
+                out["loop_error"] = str(e)
+            out.update(loop_s=time.monotonic() - t0, closed=b._closed,
+                       stripes=len(counts["run_stripe"]))
+            return out
+        if spec.get("idle_s"):
+            time.sleep(spec["idle_s"])
+        if spec.get("warm"):
+            b.warm()
+        answers = _submit_threads(
+            lambda r: b.submit(r[0], r[1], r[2], forced_label=r[3],
+                               timeout=RANK_TIMEOUT_S), spec["requests"])
+        stats = b.stats()
+        try:
+            b.close()
+            b.close()                  # sends no second STOP
+        except RuntimeError as e:      # a follower gone: STOP cannot go
+            out["close_error"] = str(e)
+        ops = counts["send_control"]
+        from insenticap_model_tpu_torch.serving.multihost import MP_STOP
+        out.update(answers=answers, batches=stats["batches"],
+                   failed=stats["failed_requests"], buckets=b._buckets,
+                   stops=sum(op == MP_STOP for op in ops),
+                   dispatches=sum(op != MP_STOP for op in ops),
+                   stripes=len(counts["run_stripe"]))
+        return out
+    finally:
+        pm.close()
+
+
+def multihost_serve(rank, world, argv, payloads):
+    """``cli/serve.py`` on a mesh over the ``world`` ranks: process 0 builds
+    the ``ServeApp`` and answers ``payloads`` one after another, then
+    closes it; the others run ``serve.main(argv)``, whose follower branch
+    returns after process 0's close (its print-outs captured). Counts
+    ``DynamicBatcher.warm`` calls and the stripes each process ran."""
+    import io
+    from contextlib import redirect_stdout
+
+    from insenticap_model_tpu_torch.cli import serve
+    from insenticap_model_tpu_torch.parallel import mesh
+    from insenticap_model_tpu_torch.serving import multihost
+    from insenticap_model_tpu_torch.serving_daemon import DynamicBatcher
+
+    counts = {}
+    _counted(multihost, "run_stripe", counts)
+    real_warm = DynamicBatcher.warm
+    counts["warm"] = 0
+
+    def warm(self, *a, **k):
+        counts["warm"] += 1
+        return real_warm(self, *a, **k)
+    DynamicBatcher.warm = warm
+    mesh.barrier()
+    if rank != 0:
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            serve.main(argv)
+        return {"stdout": buf.getvalue(), "warms": counts["warm"],
+                "stripes": len(counts["run_stripe"])}
+    app = serve.ServeApp(serve.build_parser().parse_args(argv))
+    try:
+        answers = {k: app.handle_caption(p) for k, p in payloads.items()}
+        info = {"buckets": app.batcher._buckets,
+                "enc_buckets": app.enc_batcher._batch_buckets,
+                "enc_mesh": app.enc_batcher._mesh,
+                "is_follower": app.is_follower}
+    finally:
+        app.close()
+    return dict(info, answers=answers, warms=counts["warm"],
+                stripes=len(counts["run_stripe"]))
