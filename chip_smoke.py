@@ -284,6 +284,25 @@ C++ compiler), then:
    results back), each process's compute ms, the whole dispatch (host
    clock, median of 6; a reading, no limit; print-outs of (c) in
    ``chiprun_out/multihost_serving.log``);
+3n. drives the 2-D data x model mesh (``parallel/mesh.py``'s grid,
+   ``parallel/vocab.py``): ranks of their own share the one card over
+   gloo, each joining the group itself, the captioner's 10,000 words split
+   over a model axis of two: (a) ``cli.train_xe.train`` at
+   ``--mesh_shape [1, 2]`` for epoch 0 on phase 3f's tree rebuilt from its
+   seeds: its metrics within 1e-5 of phase 3f's f32 epoch 0, rank 0's
+   checkpoint the one-process file (read in one process; its params past
+   1e-5 of 3f's on at most 1e-3 of the elements), its dump bit for bit one
+   process's decode of those params, v1 launched in both; (b) the f32 XE
+   stage step (scheduled sampling at 0.25), the RL fact rollouts (sampled
+   and greedy) and the RL fact step at [1, 2] and [2, 2] (four processes)
+   against one process on phase 3f's and 3h's first batches under phase
+   3j's gates, the tokens identical, the replicated leaves alike on every
+   rank and each shard on its data group, a bf16-detector RL step's
+   Winograd launches; (c) the XE step's ms a global batch (one process,
+   [1, 2], [2, 2]), its model-axis collectives (count, MB, the ms of the
+   same collectives replayed alone) and the captioner's training state a
+   rank (params, grads, moments, the peak allocated) (host clock, medians
+   of 5; readings, no limit);
 4. runs ``detect_and_decode`` at bs=384 in f32 on the kernel path and on
    the plain path, on random weights with the default kernels and on the
    trained weights with both switches, and requires identical labels,
@@ -475,6 +494,23 @@ DP_GRAD_RTOL = 1e-5
 # the f32 gaps are the rounding of a sum of two halves against one sum
 RL_DP_STEPS = ("fact", "senti", "fact_f64", "senti_f64")
 DP_BF16_RTOL = 1e-2
+# phase 3n, the 2-D data x model mesh: ranks sharing the one card over
+# gloo (each a process of its own), the captioner's VOCAB words split
+# over a model axis of two; the XE and RL fact steps at [1, 2] and [2, 2]
+# against one process under phase 3j's gates (the XE step with
+# scheduled sampling at TP_SS_PROB, so that its draws cross the shards);
+# each rank process joined within DP_TIMEOUT_S. train_xe's epoch at
+# [1, 2] against phase 3f's: its checkpoint's params may part from 3f's
+# by more than 1e-5 only where Adam's update of a near-zero gradient
+# turns rounding into up to lr a step, on at most TP_PARAM_SHARE of the
+# elements
+TP_GRIDS = ((1, 2), (2, 2))
+TP_TIMED_STEPS = 5
+TP_SS_PROB = 0.25
+TP_PARAM_SHARE = 1e-3
+# the captioner's vocab-sized leaves, in _tree_paths' form
+TP_VOCAB_LEAVES = (("classifier", "bias"), ("classifier", "weight"),
+                   ("word_embed", "weight"))
 PP_N_PNG = 32
 PP_FEAT_BS = 32
 PP_CPU_TOL = 1e-4
@@ -1741,10 +1777,11 @@ def _dp_steps(torch, np, dev, inputs, settings):
 
 def _dp_rank(work, rank, world, pg_file, inputs_path, out_path, device,
              settings_dict):
-    """A rank of phase 3j(b) or 3k(b) in a process of its own, every rank
-    on the one card ``device``: joins the gloo group through ``pg_file``,
-    runs ``work`` (``_dp_steps`` or ``_rl_dp_steps``) on the inputs at
-    ``inputs_path`` and saves its record to ``out_path``."""
+    """A rank of phase 3j(b), 3k(b) or 3n in a process of its own, every
+    rank on the one card ``device``: joins the gloo group through
+    ``pg_file``, runs ``work`` (``_dp_steps``, ``_rl_dp_steps``,
+    ``_tp_cli`` or ``_tp_steps``) on the inputs at ``inputs_path`` and
+    saves its record to ``out_path``."""
     import numpy as np
     import torch
     from insenticap_model_tpu_torch.config import Settings
@@ -1760,10 +1797,11 @@ def _dp_rank(work, rank, world, pg_file, inputs_path, out_path, device,
     torch.save(out, out_path)
 
 
-def _spawn_ranks(torch, work, inputs, dev, settings):
-    """``work`` in DP_RANKS processes of their own over gloo, every rank on
-    the one card (NCCL refuses two ranks on one device), each joined
-    within DP_TIMEOUT_S (a rank that fails fails the run) -> (the ranks'
+def _spawn_ranks(torch, work, inputs, dev, settings, world=DP_RANKS,
+                 timeout_s=DP_TIMEOUT_S):
+    """``work`` in ``world`` processes of their own over gloo, every rank
+    on the one card (NCCL refuses two ranks on one device), each joined
+    within ``timeout_s`` (a rank that fails fails the run) -> (the ranks'
     records in rank order, seconds from their start)."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory(prefix="dp_ranks_") as tmp:
@@ -1771,13 +1809,13 @@ def _spawn_ranks(torch, work, inputs, dev, settings):
         torch.save(inputs, inputs_path)
         ctx = mp.get_context("spawn")
         procs = [ctx.Process(target=_dp_rank, args=(
-            work, r, DP_RANKS, os.path.join(tmp, "pg"), inputs_path,
+            work, r, world, os.path.join(tmp, "pg"), inputs_path,
             os.path.join(tmp, f"rank{r}.pt"), str(dev),
-            settings.to_dict())) for r in range(DP_RANKS)]
+            settings.to_dict())) for r in range(world)]
         t0 = time.time()
         for p in procs:
             p.start()
-        deadline = time.monotonic() + DP_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
         alive = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -1785,11 +1823,11 @@ def _spawn_ranks(torch, work, inputs, dev, settings):
             if p.is_alive():
                 p.kill()
                 p.join()
-        _check(not alive, f"ranks {alive} ran past {DP_TIMEOUT_S} s")
+        _check(not alive, f"ranks {alive} of {world} ran past {timeout_s} s")
         _check(all(p.exitcode == 0 for p in procs), "a rank failed: exit "
                f"codes {[p.exitcode for p in procs]}")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                            weights_only=False) for r in range(DP_RANKS)]
+                            weights_only=False) for r in range(world)]
         return ranks, time.time() - t0
 
 
@@ -5265,6 +5303,435 @@ def _multihost_cli(torch, serve_cli, keep, work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 3n: the 2-D data x model mesh (the captioner's vocabulary sharded)
+# ---------------------------------------------------------------------------
+
+def _tp_cli(torch, np, dev, inputs, settings):
+    """Phase 3n(a)'s work on this rank: ``cli.train_xe.train`` with the
+    options ``inputs["opts"]`` (``--mesh_shape [1, 2]``) on the process
+    group the rank joined, v1's launches (rank 0's dump) and the
+    model-axis collectives counted from 0."""
+    from insenticap_model_tpu_torch.cli import train_xe
+    from insenticap_model_tpu_torch.ops import fused_attention as fa
+    from insenticap_model_tpu_torch.parallel import mesh, vocab
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.world_size()))
+    fa.beam_content_attention.launches = 0
+    vocab.stats.update(collectives=0, bytes=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    train_xe.train(inputs["opts"])
+    torch.cuda.synchronize()
+    return {"rank": mesh.rank(), "s": time.time() - t0,
+            "v1_launches": fa.beam_content_attention.launches,
+            "collectives": vocab.stats["collectives"],
+            "bytes": vocab.stats["bytes"],
+            "peak_mb": torch.cuda.max_memory_allocated() / 1e6}
+
+
+def _tp_steps(torch, np, dev, inputs, settings):
+    """Phase 3n(b)'s and (c)'s work on this rank, on ``inputs["grid"]``
+    (None: one process, the whole batches): from the seeded full-width
+    captioner, its vocab leaves and their moments sharded over the model
+    axis, (1) the f32 XE stage step (XE, domain alignment, seq2seq; the
+    default dropout, scheduled sampling at TP_SS_PROB) on the data
+    group's rows of phase 3f's first batches, recorded; (2) with a plain
+    Adam, one step to warm up, one with the model-axis collectives
+    recorded, then TP_TIMED_STEPS timed between barriers, and the
+    recorded collectives replayed alone, timed; (3) the sampled and
+    greedy rollouts of phase 3h's first fact batch's rows (the f32
+    detector's labels), their tokens; (4) the f32 RL fact step on those
+    rows and the seq2seq batch's, recorded, then one with the detector in
+    bf16, the Winograd launch counts set to 0 just before and read just
+    after. Every rank seeds alike; the params are broadcast from rank 0
+    before they are sharded."""
+    import torch.distributed as dist
+    from insenticap_model_tpu_torch import nn
+    from insenticap_model_tpu_torch.models import captioner as cap
+    from insenticap_model_tpu_torch.models import sent_senti_cls as ss_cls
+    from insenticap_model_tpu_torch.models import sentiment_detector as sd
+    from insenticap_model_tpu_torch.ops import ciderd_device
+    from insenticap_model_tpu_torch.ops import winograd_kernels as wk
+    from insenticap_model_tpu_torch.parallel import mesh, vocab
+    from insenticap_model_tpu_torch.rewards.ciderd import build_scorer
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    from insenticap_model_tpu_torch.training import optim, steps
+    from insenticap_model_tpu_torch.utils.dtypes import cast_bf16
+    RecordingAdam = _recording_adam(torch, optim)
+    # the host's cores shared among the ranks (gloo's loops spin)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.world_size()))
+    grid = inputs["grid"]
+    if grid is not None:
+        mesh.init_grid(grid)
+    shard = mesh.vocab_shard(VOCAB)
+    r, n = mesh.data_rank(), mesh.data_size()
+    torch.cuda.reset_peak_memory_stats()
+    ids = cap.TokenIds(pad=0, unk=1, sos=2, eos=3, neutral=2)
+
+    def rows(batch):
+        sl = mesh.shard_rows(len(batch["fc" if "fc" in batch else "caps"]),
+                             r, n)
+        return {k: torch.from_numpy(np.ascontiguousarray(v[sl])).to(dev)
+                for k, v in batch.items() if k != "valid"}
+
+    def captioner(adam_cls, lr):
+        params = nn.tree_map(
+            lambda x: x.requires_grad_(True),
+            mesh.replicate(cap.init_params(torch.Generator().manual_seed(3),
+                                           VOCAB, NUM_CATS, settings,
+                                           device=dev)))
+        adam = adam_cls(params, lr)
+        optim.shard_captioner(adam, shard)
+        return adam
+
+    def record(adam, losses):
+        return {"grads": adam.grads,
+                "paths": [q for q, _ in _tree_paths(adam.params)],
+                "params": [p.detach().float().cpu().clone()
+                           for _, p in _tree_paths(adam.params)],
+                "losses": {k: float(v) for k, v in losses.items()}}
+
+    out = {"rank": mesh.rank(), "grid": grid,
+           "shard": shard and (shard.start, shard.size)}
+    b, s = rows(inputs["batch"]), rows(inputs["scs"])
+    with nn.exact_numerics():
+        cls = mesh.replicate(ss_cls.init_params(
+            torch.Generator().manual_seed(5), VOCAB, NUM_CATS, settings,
+            device=dev))
+        adam = captioner(RecordingAdam, XE_LR)
+        train_step, _ = steps.make_xe_steps(settings, adam)
+        out["xe"] = record(adam, train_step(
+            cls, b, s, torch.Generator(device=dev).manual_seed(0),
+            TP_SS_PROB))
+        del adam, train_step
+        adam = captioner(optim.Adam, XE_LR)
+        train_step, _ = steps.make_xe_steps(settings, adam)
+        state = nn.tree_leaves([adam.params, adam.mu, adam.nu])
+        out["state_mb"] = {
+            "params": 4e-6 * sum(p.numel() for p in nn.tree_leaves(
+                adam.params)),
+            "grads": 4e-6 * sum(p.numel() for p in nn.tree_leaves(
+                adam.params)),
+            "moments": 4e-6 * sum(p.numel() for p in state[len(state) // 3:])}
+
+        def step(i):
+            return train_step(cls, b, s, torch.Generator(
+                device=dev).manual_seed(1 + i), TP_SS_PROB)
+        step(0)
+        vocab.stats.update(collectives=0, bytes=0, sizes=[])
+        step(0)
+        sizes = vocab.stats["sizes"]
+        out["collectives"] = {"count": vocab.stats["collectives"],
+                              "mb": vocab.stats["bytes"] / 1e6}
+        vocab.stats["sizes"] = None
+        walls = []
+        for i in range(TP_TIMED_STEPS):
+            mesh.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(1 + i)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["step_ms"] = walls
+        # the step's model-axis collectives alone, on buffers made first
+        bufs = [torch.zeros(k, dtype=dt, device=dev) for k, dt in sizes]
+        walls = []
+        for _ in range(TP_TIMED_STEPS):
+            mesh.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for buf in bufs:
+                dist.all_reduce(buf, group=shard.group)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["collectives"]["ms"] = walls if bufs else [0.0]
+        del adam, train_step, bufs
+
+    caps_id = inputs["caps_id"]
+    gts = {**caps_id["train"], **caps_id["val"]}
+    tables, _ = ciderd_device.build_tables(
+        build_scorer(caps_id, ids.sos, ids.eos), gts, list(gts), T,
+        ids.sos, ids.eos, device=dev)
+    det = tck.load(inputs["det_file"], device=dev, dtype=torch.float32)[0]
+    rl_cls = tck.load(inputs["cls_file"], device=dev, dtype=torch.float32)[0]
+    fb, sb = rows(inputs["fact"]), rows(inputs["scs_rl"])
+    adam = captioner(RecordingAdam, RL_LR)
+    rl = steps.make_rl_steps(settings, adam, ids, T, tables)
+    with torch.no_grad(), nn.exact_numerics():
+        labels, _, _ = sd.module_for(settings).sample(
+            det, fb["att"], steps.SENTI_THRESHOLD, ids.neutral)
+        rollouts = {}
+        with vocab.sharded(shard):
+            for name, greedy in (("sampled", False), ("greedy", True)):
+                seq, _, _, _ = cap.forward_rl(
+                    adam.params, fb["fc"], fb["att"], fb["cpts"],
+                    fb["sentis"], labels, settings=settings, ids=ids,
+                    max_seq_len=T, sample_max=greedy,
+                    gen=torch.Generator(device=dev).manual_seed(100),
+                    deterministic=greedy)
+                rollouts[name] = seq.cpu()
+    out["rollouts"] = rollouts
+    out["rl"] = record(adam, rl[("fact", True)](
+        steps.RLModels(det, rl_cls), fb, sb,
+        torch.Generator(device=dev).manual_seed(0)))
+    for name in WINO_NAMES:
+        getattr(wk, name).launches = 0
+    rl[("fact", True)](steps.RLModels(cast_bf16(det), rl_cls), fb, sb,
+                       torch.Generator(device=dev).manual_seed(1))
+    out["wino_launches"] = [getattr(wk, n).launches for n in WINO_NAMES]
+    out["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    return out
+
+
+def _tp_sliced(ref, shard):
+    """A one-process step record cut to a rank's vocabulary ``shard``
+    (start, size): the vocab leaves' gradients and params their rows."""
+    sl = slice(shard[0], shard[0] + shard[1])
+    cut = [(g[sl], p[sl]) if path in TP_VOCAB_LEAVES else (g, p)
+           for path, g, p in zip(ref["paths"], ref["grads"], ref["params"])]
+    return dict(ref, grads=[g for g, _ in cut], params=[p for _, p in cut])
+
+
+def _tp_cli_check(torch, dev, settings, keep):
+    """Phase 3n(a): ``cli.train_xe`` at ``--mesh_shape [1, 2]`` in two
+    processes sharing the card over gloo, each joining the group itself,
+    for epoch 0 on phase 3f's tree rebuilt from its seeds: its metrics
+    within 3j's loss gate of phase 3f's f32 epoch 0; rank 0's checkpoint
+    read in one process (the one-process file: the structure, shapes and
+    types of phase 3f's, its step count) with its params against phase
+    3f's epoch-0 params (the share of elements past 1e-5 within
+    TP_PARAM_SHARE: the two runs' gradients part by rounding, and Adam's
+    update turns that into up to lr a step where a gradient is near
+    zero); its dump bit for bit one process's ``decode_split`` of the
+    checkpoint's params, v1 launched in both."""
+    from insenticap_model_tpu_torch.cli import common, train_xe
+    from insenticap_model_tpu_torch.ops import fused_attention as fa
+    from insenticap_model_tpu_torch.training import checkpoint as tck
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
+        _, _, cls_file = _xe_tree(torch, dev, settings, tmp)
+        o = _xe_opts(settings, tmp, cls_file, "tp", device=str(dev),
+                     xe_epochs=1, mesh_shape=(1, 2))
+        ranks, out["cli_s"] = _spawn_ranks(torch, _tp_cli, {"opts": o}, dev,
+                                           settings, 2)
+        out["ranks"] = ranks
+        stage = os.path.join(o.checkpoint, "xe", "coco", "part")
+        with open(os.path.join(stage, "metrics.jsonl")) as f:
+            metrics = [json.loads(x) for x in f]
+        ref = keep["epoch0"]
+        _check(len(metrics) == 1 and set(metrics[0]) == set(ref["metrics"]),
+               f"train_xe --mesh_shape [1, 2] metrics {metrics}")
+        rel = max(abs(metrics[0][k] - v) / abs(v) if v else abs(metrics[0][k])
+                  for k, v in ref["metrics"].items())
+        out.update(metrics=metrics[0], metrics_rel=rel)
+        _check(rel <= 1e-5, f"train_xe --mesh_shape [1, 2] metrics "
+               f"{metrics[0]} against phase 3f's {ref['metrics']}: {rel} "
+               "relative (tolerance 1e-5)")
+        [name] = [f for f in os.listdir(stage) if f.startswith("model_0_")]
+        p, st, meta = tck.load(os.path.join(stage, name), device="cpu",
+                               with_opt_state=True)
+        pa, pb = _tree_paths(p), _tree_paths(ref["params"])
+        _check([q for q, _ in pa] == [q for q, _ in pb] and all(
+            a.dtype == b.dtype and a.shape == b.shape
+            for (_, a), (_, b) in zip(pa, pb))
+            and int(st["count"]) == int(ref["opt_state"]["count"]),
+            "train_xe --mesh_shape [1, 2]: rank 0's checkpoint is not the "
+            "one-process file of phase 3f's structure")
+        over = total = 0
+        gap = 0.0
+        for (_, a), (_, b) in zip(pa, pb):
+            d = (a.double() - b.detach().cpu().double()).abs()
+            gap = max(gap, float(d.max()))
+            over += int((d > 1e-5).sum())
+            total += d.numel()
+        out.update(param_gap=gap, param_over=over, param_total=total)
+        _check(over <= TP_PARAM_SHARE * total, f"train_xe --mesh_shape "
+               f"[1, 2] epoch-0 params: {over} of {total} elements past "
+               f"1e-5 of phase 3f's (largest {gap}; gate "
+               f"{TP_PARAM_SHARE:.0e} of them)")
+        # the dump against one process's decode of the checkpoint's params
+        whole, _ = tck.load(os.path.join(stage, name), device=dev)
+        o1 = _xe_opts(settings, tmp, cls_file, "tp_decode", device=str(dev))
+        rt = common.Runtime(o1)
+        vocab_ = common.load_vocab(o1)
+        ids = common.token_ids(vocab_, o1.sentiment_categories)
+        stores = [common.open_store(q) for q in common.feature_paths(o1)]
+        fns = sorted(common.load_json(common.dataset_path(
+            o1, "img_captions.json"))["test"])
+        fa.beam_content_attention.launches = 0
+        want = train_xe.decode_split(whole, *stores, fns, XE_BS, rt, o1, ids,
+                                     vocab_)
+        out["decode_v1_launches"] = fa.beam_content_attention.launches
+        with open(os.path.join(o.result_dir, "xe", "coco", "part",
+                               "result_0.json")) as f:
+            got = json.load(f)
+        _check(got == [{"image_id": x["image_id"], "caption": x["caption"]}
+                       for x in want], "train_xe --mesh_shape [1, 2]: rank "
+               "0's dump differs from one process's decode of its "
+               "checkpoint's params")
+        _check(ranks[0]["v1_launches"] == out["decode_v1_launches"] > 0
+               and ranks[1]["v1_launches"] == 0, f"v1 launches: ranks "
+               f"{[x['v1_launches'] for x in ranks]}, one process's decode "
+               f"{out['decode_v1_launches']}")
+    return out
+
+
+def _model_parallel(torch, np, dev, settings, xe_keep, rl_keep):
+    """Phase 3n: the 2-D data x model mesh. (a) ``train_xe --mesh_shape
+    [1, 2]`` through the CLI (``_tp_cli_check``); (b) the f32 XE stage
+    step, the RL fact rollouts (sampled and greedy) and the RL fact step
+    (``_tp_steps``) at [1, 2] and [2, 2], ranks sharing the one card over
+    gloo, against one process (a process of its own, the whole batches)
+    under phase 3j's gates, the sampled and greedy tokens identical, the
+    replicated leaves alike on every rank and each shard on every rank of
+    its data group; (c) the XE step's ms a global batch, its model-axis
+    collectives (count, MB, ms alone) and the captioner's training state
+    a rank (host clock, medians of TP_TIMED_STEPS; readings, no limit)."""
+    from insenticap_model_tpu_torch.training import optim
+    t_phase = time.time()
+    out = {"cli": _tp_cli_check(torch, dev, settings, xe_keep)}
+    inputs = dict(batch=xe_keep["batch"], scs=xe_keep["scs"],
+                  fact=rl_keep["inputs"]["fact"],
+                  scs_rl=rl_keep["inputs"]["scs"],
+                  caps_id=rl_keep["inputs"]["caps_id"],
+                  det_file=os.path.join(rl_keep["root"], "det.ckpt"),
+                  cls_file=os.path.join(rl_keep["root"], "ck",
+                                        "sent_senti_cls", "coco", "part",
+                                        "model-best.ckpt"))
+    [ref], out["one_s"] = _spawn_ranks(torch, _tp_steps,
+                                       dict(inputs, grid=None), dev,
+                                       settings, 1)
+    runs = {}
+    for grid in TP_GRIDS:
+        world = grid[0] * grid[1]
+        runs[grid], out[f"ranks_s_{grid[0]}x{grid[1]}"] = _spawn_ranks(
+            torch, _tp_steps, dict(inputs, grid=grid), dev, settings, world)
+    rows = []
+    for grid, ranks in runs.items():
+        for rec in ranks:
+            row = {"grid": list(grid), "rank": rec["rank"],
+                   "shard": rec["shard"], "wino_launches":
+                   rec["wino_launches"], "peak_mb": rec["peak_mb"]}
+            for tag, lr in (("xe", XE_LR), ("rl", RL_LR)):
+                want = _tp_sliced(ref[tag], rec["shard"])
+                g, leaf, gap, over = _dp_gaps(torch, rec[tag], want, lr, 0.1,
+                                              optim.EPS)
+                got_l, want_l = rec[tag]["losses"], want["losses"]
+                _check(set(got_l) == set(want_l), f"3n {grid} rank "
+                       f"{rec['rank']} {tag} loss keys")
+                row[tag] = {"loss_rel": max(
+                    abs(got_l[k] - v) / abs(v) if v else abs(got_l[k])
+                    for k, v in want_l.items()), "grad_rel": g,
+                    "grad_leaf": leaf, "param_gap": gap, "param_over": over}
+            row["tokens_equal"] = {k: bool(torch.equal(
+                rec["rollouts"][k], ref["rollouts"][k][_tp_rows(
+                    ref, rec, grid)])) for k in ("sampled", "greedy")}
+            rows.append(row)
+        # replicated leaves alike everywhere, shards within a data group
+        tp = grid[1]
+        for rec in ranks:
+            twin = ranks[rec["rank"] % tp]
+            for tag in ("xe", "rl"):
+                _check(all(torch.equal(a, b) for a, b in zip(
+                    rec[tag]["params"], twin[tag]["params"])),
+                    f"3n {grid}: rank {rec['rank']}'s {tag} params differ "
+                    f"from rank {twin['rank']}'s (the same shard)")
+                _check(all(torch.equal(a, b) for q, a, b in zip(
+                    rec[tag]["paths"], rec[tag]["params"],
+                    ranks[0][tag]["params"]) if q not in TP_VOCAB_LEAVES),
+                    f"3n {grid}: rank {rec['rank']}'s replicated {tag} "
+                    "params differ from rank 0's")
+    times = {"one_process_ms": statistics.median(ref["step_ms"])}
+    for grid, ranks in runs.items():
+        tag = f"{grid[0]}x{grid[1]}"
+        per_batch = [max(x["step_ms"][i] for x in ranks)
+                     for i in range(TP_TIMED_STEPS)]
+        alone = [max(x["collectives"]["ms"][i] for x in ranks)
+                 for i in range(TP_TIMED_STEPS)]
+        times[tag] = {"ms": statistics.median(per_batch),
+                      "all_ms": per_batch,
+                      "collectives": ranks[0]["collectives"]["count"],
+                      "collectives_mb": ranks[0]["collectives"]["mb"],
+                      "collectives_ms": statistics.median(alone),
+                      "state_mb": ranks[0]["state_mb"],
+                      "peak_mb": max(x["peak_mb"] for x in ranks)}
+    times["one_process_state_mb"] = ref["state_mb"]
+    times["one_process_peak_mb"] = ref["peak_mb"]
+    out.update(ranks=rows, time=times, phase_s=time.time() - t_phase)
+    smi = _smi()
+    a = out["cli"]
+    print(f"model parallel (phase 3n) (a) train_xe --mesh_shape [1, 2] "
+          f"(two processes sharing the card over gloo): epoch 0's metrics "
+          f"within {a['metrics_rel']:.3g} of phase 3f's f32 run's (train "
+          f"all_loss {a['metrics']['train_all_loss']:.6f}); rank 0's "
+          f"checkpoint read in one process, params {a['param_over']} of "
+          f"{a['param_total']} elements past 1e-5 of phase 3f's (largest "
+          f"{a['param_gap']:.3g}); its dump bit for bit one process's decode "
+          f"of those params, v1 launches {a['ranks'][0]['v1_launches']} "
+          f"(rank 0) and {a['decode_v1_launches']} (the decode); model-axis "
+          f"collectives in the epoch {a['ranks'][0]['collectives']} "
+          f"({a['ranks'][0]['bytes'] / 1e6:.1f} MB); {a['cli_s']:.1f} s "
+          "with the processes' start")
+    for r in rows:
+        print(f"model parallel (b) {r['grid']} rank {r['rank']} (vocab rows "
+              f"{r['shard'][0]}-{r['shard'][0] + r['shard'][1] - 1}) against "
+              f"one process: " + "; ".join(
+                  f"{t} losses max rel {r[t]['loss_rel']:.3g}, gradient max "
+                  f"rel {r[t]['grad_rel']:.3g} ({r[t]['grad_leaf']}), params "
+                  f"gap {r[t]['param_gap']:.3g} ({r[t]['param_over']} past "
+                  "1e-5)" for t in ("xe", "rl"))
+              + f"; RL tokens identical {r['tokens_equal']}; bf16 "
+              f"detector's Winograd launches {r['wino_launches']}")
+    t = times
+    print(f"model parallel (c) f32 XE step per global batch of {XE_BS} "
+          f"(+ {len(inputs['scs']['caps'])} seq2seq rows, ss_prob "
+          f"{TP_SS_PROB}) on {smi}: one process {t['one_process_ms']:.2f} "
+          "ms, " + ", ".join(
+              f"[{g.replace('x', ', ')}] {t[g]['ms']:.2f} ms ({t[g]['collectives']} "
+              f"model-axis collectives a step, {t[g]['collectives_mb']:.3f} "
+              f"MB, {t[g]['collectives_ms']:.2f} ms replayed alone)"
+              for g in ("1x2", "2x2"))
+          + f" (medians of {TP_TIMED_STEPS}; host clock)")
+    print(f"model parallel (c) the captioner's training state a rank, MB "
+          f"(params + grads + moments, f32): one process "
+          f"{sum(t['one_process_state_mb'].values()):.1f} (peak allocated "
+          f"{t['one_process_peak_mb']:.1f}), " + ", ".join(
+              f"[{g.replace('x', ', ')}] {sum(t[g]['state_mb'].values()):.1f} "
+              f"(params {t[g]['state_mb']['params']:.1f}; peak allocated "
+              f"{t[g]['peak_mb']:.1f})" for g in ("1x2", "2x2"))
+          + f" on {smi}; phase 3n {out['phase_s']:.1f} s")
+    out["device"] = smi
+    for r in rows:
+        for tag in ("xe", "rl"):
+            v = r[tag]
+            _check(v["loss_rel"] <= 1e-5, f"3n {r['grid']} rank {r['rank']}"
+                   f" {tag} losses against one process's: {v['loss_rel']} "
+                   "relative (tolerance 1e-5)")
+            _check(v["grad_rel"] <= DP_GRAD_RTOL, f"3n {r['grid']} rank "
+                   f"{r['rank']} {tag} gradient of {v['grad_leaf']} differs "
+                   f"from one process's by {v['grad_rel']} of its norm "
+                   f"(tolerance {DP_GRAD_RTOL})")
+            _check(v["param_over"] == 0, f"3n {r['grid']} rank {r['rank']} "
+                   f"{tag} params: {v['param_over']} elements past 1e-5 of "
+                   f"Adam's update (largest {v['param_gap']})")
+        _check(all(r["tokens_equal"].values()), f"3n {r['grid']} rank "
+               f"{r['rank']}: RL rollout tokens differ from one process's "
+               f"{r['tokens_equal']}")
+        _check(r["wino_launches"] == ref["wino_launches"] == [1, 1, 1],
+               f"3n {r['grid']} rank {r['rank']} Winograd launches "
+               f"{r['wino_launches']} (one process {ref['wino_launches']})")
+    return out
+
+
+def _tp_rows(ref, rec, grid):
+    """The rows of the one-process batch that a rank of ``grid`` holds:
+    its data group's block."""
+    n = len(ref["rollouts"]["sampled"])
+    b = n // grid[0]
+    d = rec["rank"] // grid[1]
+    return slice(d * b, (d + 1) * b)
+
+
 def main():
     t_start = time.time()
     import torch
@@ -6016,13 +6483,11 @@ def main():
         # -- 3j. data-parallel training (parallel/mesh.py) -----------------
         report["data_parallel"] = _data_parallel(torch, np, dev, settings,
                                                  xe_keep)
-        del xe_keep
         torch.cuda.empty_cache()
 
         # -- 3k. the RL stage's data-parallel training, on 3h's tree ------
         report["rl_data_parallel"] = _rl_data_parallel(torch, np, dev,
                                                        settings, rl_keep)
-        del rl_keep
         torch.cuda.empty_cache()
 
         # -- 3l. sharded serving in one process (a DeviceMesh) -------------
@@ -6039,6 +6504,12 @@ def main():
         del mp_keep
         serve_keep_dir.cleanup()
         del offline_keep, serve_keep
+        torch.cuda.empty_cache()
+
+        # -- 3n. the 2-D data x model mesh: the vocabulary over two ranks --
+        report["model_parallel"] = _model_parallel(torch, np, dev, settings,
+                                                   xe_keep, rl_keep)
+        del xe_keep, rl_keep
         torch.cuda.empty_cache()
 
     # -- 4. f32 end to end: kernel path against the plain path -------------
@@ -6288,6 +6759,8 @@ def main():
         "launches_data_parallel": report["data_parallel"]["one_rank_nccl"][
             "v1_launches"] + report["rl_data_parallel"]["one_rank_nccl"][
             "v1_launches"],
+        "launches_model_parallel": report["model_parallel"]["cli"]["ranks"][
+            0]["v1_launches"],
         "launches_train_rl": sum(
             r["launches"]["beam_content_attention"]
             for r in report["train_rl"]["epochs"].values()),
@@ -6436,6 +6909,9 @@ def main():
                 r["wino_launches"][WINO_NAMES.index(name)]
                 for r in report["data_parallel"]["ranks"]
                 + report["rl_data_parallel"]["ranks"]),
+            "launches_model_parallel": sum(
+                r["wino_launches"][WINO_NAMES.index(name)]
+                for r in report["model_parallel"]["ranks"]),
             "max_abs_err": checks[name], "ms": k_dev[name + "_kernel"],
             "ms_events": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd, "bound_by": by_, "library_ms": None,

@@ -25,6 +25,18 @@ entry points that serve (``reproduce_table``) take ``--mesh_shape [n]``
 as n devices driven by one process (``Runtime(opt, serving=True)``);
 ``serve`` alone also runs a mesh over processes (``serving_mesh``).
 
+The 2-D ``data x model`` mesh (``--mesh_shape [dp, tp]``, dp * tp
+processes): rank r is data coordinate r // tp and model coordinate
+r % tp (``parallel.mesh.init_grid``). The batch splits over the dp data
+groups only (``round_bs`` rounds to a multiple of dp, ``host_shard`` is
+the data group's stripe), and the ranks of a model group hold the same
+rows. The captioner stages (``train_xe``, ``train_rl``) shard the
+captioner's word embedding and classifier by vocabulary over the model
+axis (``Runtime.place_captioner``, params and Adam's moments; replicated,
+with the JAX package's warning, where tp does not divide the vocabulary);
+the head trainers run data-parallel over ``data`` and repeat their work
+across ``model``, as the JAX package's do (its NOTE is printed).
+
 Artefact schemas are the reference's JSON contracts (SURVEY.md §1):
 idx2word.json (list), img_captions.json ({split: {fn: [[word, ...],
 ...]}}), img_det_concepts.json ({fn: [word]}), senti_captions.json
@@ -36,7 +48,7 @@ import atexit
 import functools
 import json
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -173,17 +185,21 @@ def flatten_caption_items(captions_id: Dict, concepts_id: Dict) -> List:
 # Runtime: the rank's device and process group, placement and dtype policy
 # ---------------------------------------------------------------------------
 
-def mesh_devices(mesh_shape) -> int:
-    """The devices of a ``--mesh_shape``: () and (1,) one, (n,) n; a mesh
-    of more than one axis exits with a message (the JAX package's 2-D
-    ``data x model`` mesh is not ported)."""
-    shape = tuple(mesh_shape or ())
-    if len(shape) > 1:
+def mesh_axes(mesh_shape) -> Tuple[int, int]:
+    """(dp, tp) of a ``--mesh_shape``: () one device, (n,) n over
+    ``data``, (dp, tp) the 2-D ``data x model`` mesh. A mesh of more than
+    two axes exits with a message naming it (the JAX package's ``pipe``
+    and ``expert`` axes shard nothing)."""
+    shape = tuple(int(a) for a in (mesh_shape or ()))
+    if len(shape) > 2 or any(a < 1 for a in shape):
         raise SystemExit(
-            f"--mesh_shape {list(shape)}: the 2-D data x model mesh is not "
-            "ported yet (it comes after sharded and multi-host serving); "
-            "give a 1-D --mesh_shape [n] for data parallelism")
-    return int(shape[0]) if shape else 1
+            f"--mesh_shape {list(shape)}: the port runs a 1-D mesh [n] "
+            "(data) or a 2-D mesh [dp, tp] (data x model); a mesh of "
+            f"{len(shape)} axes names axes (the JAX package's pipe and "
+            "expert) that shard nothing")
+    if not shape:
+        return 1, 1
+    return shape[0], shape[1] if len(shape) == 2 else 1
 
 
 def serving_world(processes: bool = False) -> int:
@@ -260,8 +276,8 @@ class Runtime:
     ``cuda:LOCAL_RANK`` (or the CPU under ``--device cpu``), its backend
     NCCL on the card and gloo on the CPU. A process group the caller
     joined already (``mesh.init``) is used as it is. Exits with a message
-    where n disagrees with the world size, the mesh is not 1-D, or
-    ``LOCAL_RANK`` has no card of its own. An explicit ``--mesh_shape
+    where n disagrees with the world size, the mesh has more than two
+    axes, or ``LOCAL_RANK`` has no card of its own. An explicit ``--mesh_shape
     [1]`` under torchrun joins a group of one rank; without a
     ``--mesh_shape`` the run is one process.
 
@@ -276,15 +292,23 @@ class Runtime:
     ``serving_mesh`` itself), since the JAX package's ``reproduce_table``
     has no process-aware path.
 
-    ``round_bs`` rounds a batch to a multiple of the n devices either
-    way. For the other entry points (``unported``: why) a mesh of more
-    than one device exits with a message."""
+    A trainer's ``--mesh_shape [dp, tp]`` is a grid of dp * tp ranks
+    (``parallel.mesh.init_grid``: data groups and model groups); exits
+    where dp * tp disagrees with the world size, and prints the JAX
+    package's NOTE that only the captioner shards over the model axis.
+    ``place_captioner`` shards a captioner stage's params and moments.
+
+    ``round_bs`` rounds a batch to a multiple of the data axis: the n
+    devices of a 1-D mesh, dp of a 2-D one (the model axis does not
+    split the batch). For the other entry points (``unported``: why) a
+    mesh of more than one device exits with a message."""
 
     def __init__(self, opt: Opts, data_parallel: bool = False,
                  serving: bool = False,
                  unported: str = "multi-device runs of this entry point "
                  "are not ported yet; run it on one device"):
-        n = mesh_devices(opt.mesh_shape)
+        dp, tp = mesh_axes(opt.mesh_shape)
+        n = dp * tp
         if n > 1 and not (data_parallel or serving):
             raise SystemExit(f"--mesh_shape {list(opt.mesh_shape)}: "
                              f"{unported}; leave --mesh_shape unset")
@@ -292,7 +316,9 @@ class Runtime:
         self.opt = opt
         self.device = resolve_device(opt.device)
         self.mesh = None
-        self.devices = n
+        self.dp, self.tp = dp, tp
+        # the mesh as given, [n] or [dp, tp], for the messages
+        shape = str(list(opt.mesh_shape)) if opt.mesh_shape else f"[{n}]"
         if serving:
             self.mesh = serving_mesh(opt.mesh_shape, self.device)
             if self.mesh is not None:
@@ -300,32 +326,42 @@ class Runtime:
         elif mesh.initialized():
             if mesh.world_size() != n:
                 raise SystemExit(
-                    f"--mesh_shape [{n}] disagrees with the process group's "
-                    f"{mesh.world_size()} ranks")
+                    f"--mesh_shape {shape} disagrees with the process "
+                    f"group's {mesh.world_size()} ranks")
         elif opt.mesh_shape and env_world is not None:
-            self._join_env(n, int(env_world))
+            self._join_env(n, int(env_world), shape)
         elif n > 1:
             raise SystemExit(
-                f"--mesh_shape [{n}]: launch {n} processes, e.g. torchrun "
+                f"--mesh_shape {shape}: launch {n} processes, e.g. torchrun "
                 f"--nproc_per_node {n} -m <this module> --mesh_shape "
-                f"'[{n}]' (WORLD_SIZE is unset)")
+                f"'{shape}' (WORLD_SIZE is unset)")
         elif env_world not in (None, "1"):
             raise SystemExit(
                 f"WORLD_SIZE={env_world} but no --mesh_shape: give "
                 f"--mesh_shape '[{env_world}]' to train data-parallel")
+        if not serving and mesh.initialized():
+            mesh.init_grid((dp, tp))
         self.ranks = mesh.world_size()
         self.dtype = torch.bfloat16 if opt.compute_dtype == "bfloat16" \
             else torch.float32
         group = f" over {mesh.backend()}" if mesh.initialized() else ""
         on = "" if self.mesh is None else f" (mesh {self.mesh})"
+        grid = "" if tp == 1 else (
+            f", mesh [{dp}, {tp}]: data {mesh.data_rank()} of {dp}, model "
+            f"{mesh.model_rank()} of {tp}")
         print(f"====> device: {self.device}{on}, compute dtype "
               f"{opt.compute_dtype}, rank {mesh.rank()} of {self.ranks}"
-              f"{group}")
+              f"{group}{grid}")
+        if tp > 1:
+            print("====> NOTE: the model axis only shards the captioner "
+                  "(train_xe/train_rl via place_captioner); trainers "
+                  "without a captioner duplicate work across it — use a "
+                  "1-D mesh for those")
 
-    def _join_env(self, n: int, world: int) -> None:
+    def _join_env(self, n: int, world: int, shape: str) -> None:
         """Join torchrun's process group (``env://``) as rank RANK."""
         if world != n:
-            raise SystemExit(f"--mesh_shape [{n}] disagrees with "
+            raise SystemExit(f"--mesh_shape {shape} disagrees with "
                              f"WORLD_SIZE={world}")
         rank = int(os.environ["RANK"])
         local = int(os.environ.get("LOCAL_RANK", rank))
@@ -342,9 +378,24 @@ class Runtime:
 
     def round_bs(self, bs: int) -> int:
         """The global batch size: ``bs`` rounded up to a multiple of the
-        mesh's devices (a trainer's rank loads ``round_bs(bs) / ranks``
-        rows a step; a serving mesh splits them over its devices)."""
-        return -(-bs // self.devices) * self.devices
+        data axis (a trainer's rank loads ``round_bs(bs) / dp`` rows a
+        step; a serving mesh splits them over its devices)."""
+        return -(-bs // self.dp) * self.dp
+
+    def place_captioner(self, adam: optim.Adam) -> None:
+        """Shard a captioner stage's params and Adam's moments (``adam``'s
+        trees, replaced) by vocabulary over the model axis
+        (``optim.shard_captioner``; ``adam.shard`` this rank's rows); on a
+        mesh without a model axis nothing changes. Where tp does not
+        divide the vocabulary the captioner stays replicated, with the
+        JAX package's warning (cli/common.py:191-199), and the ranks of a
+        model group repeat each other's work."""
+        vocab = adam.params["word_embed"]["weight"].shape[0]
+        shard = mesh.vocab_shard(vocab)
+        if self.tp > 1 and shard is None:
+            print(f"====> WARNING: vocab {vocab} does not divide model "
+                  f"axis {self.tp}; captioner params replicated instead")
+        optim.shard_captioner(adam, shard)
 
     def replicate(self, tree):
         """``tree`` copied to every device of the serving mesh
@@ -379,7 +430,8 @@ class Runtime:
                            if t.dtype == torch.float32 else t, tree)
 
 
-def start_training(rt: Runtime, params, lr: float, resume: str, validate):
+def start_training(rt: Runtime, params, lr: float, resume: str, validate,
+                   captioner: bool = False):
     """The trainable params and their Adam for a stage: ``params`` (float32,
     from the stage's ``init_params``), or the checkpoint ``resume`` with
     its optimizer state and learning rate, which must have ``params``'
@@ -387,7 +439,10 @@ def start_training(rt: Runtime, params, lr: float, resume: str, validate):
     cast to the compute dtype, broadcast from rank 0 under data
     parallelism (``mesh.replicate``; a resume loads on every rank, and so
     do its Adam moments), and then require grad; Adam keeps float32
-    moments. Returns (adam, lr, the first epoch to run)."""
+    moments. A ``captioner`` stage's params and moments are then sharded
+    over a 2-D mesh's model axis (``rt.place_captioner``; a checkpoint
+    holds the whole tensors). Returns (adam, lr, the first epoch to
+    run)."""
     epoch0, opt_state = 0, None
     if resume:
         print(f"====> loading checkpoint '{resume}'")
@@ -406,6 +461,8 @@ def start_training(rt: Runtime, params, lr: float, resume: str, validate):
         optim.load_optax_state(adam, opt_state)
         mesh.replicate([adam.mu, adam.nu])
         optim.set_lr(adam, lr)
+    if captioner:
+        rt.place_captioner(adam)
     return adam, lr, epoch0
 
 
@@ -421,11 +478,13 @@ def step_seed(seed: int, *keys: int) -> int:
 # ---------------------------------------------------------------------------
 
 def host_shard():
-    """This rank's item stripe, (rank, ranks), under data parallelism;
-    None for one process. Every training loader takes it (the JAX
-    package's ``host_shard`` on a 1-D mesh, cli/common.py:272-299)."""
-    n = mesh.world_size()
-    return (mesh.rank(), n) if n > 1 else None
+    """This rank's item stripe, (data coordinate, dp), under data
+    parallelism: the ranks of a model group load the same rows; None
+    where the data axis is one rank. Every training loader takes it (the
+    JAX package's ``host_shard``, cli/common.py:272-299, per data group
+    as ``tools/multiprocess_check.py:118-124`` expects)."""
+    n = mesh.data_size()
+    return (mesh.data_rank(), n) if n > 1 else None
 
 
 def _loader(items, bs: int, fn, *, shuffle=True, drop_last=True, seed=0,

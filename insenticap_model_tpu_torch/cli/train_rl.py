@@ -42,6 +42,17 @@ evaluates every val image and draws its rollouts as one process does
 tables) itself from the same files, and a resume replays each rank's own
 stripe. Rank 0 alone runs the test dump and writes its files, the
 metrics and the checkpoints; the other ranks wait at a barrier.
+
+On the 2-D mesh (``--mesh_shape '[dp, tp]'``) the passes split over the
+dp data groups, and the captioner's word embedding and classifier (and
+their Adam moments) shard by vocabulary over the model axis after the
+broadcast (``common.Runtime.place_captioner``); the rollouts' draws and
+argmaxes, the picked log-probs and the teacher-forced passes run
+``parallel/vocab.py``'s operations over the model group, so that the
+ranks of a model group take the same tokens. Every rank gathers the
+whole captioner for the test dump, which rank 0 runs on the one-device
+serving path, and for ``checkpoint.save``, with the moments gathered
+likewise, so that rank 0 writes the one-process composite.
 """
 from __future__ import annotations
 
@@ -145,7 +156,8 @@ def _replay(loader) -> int:
 
 
 def train(opt: Opts):
-    """Run the stage; returns the trained captioner params."""
+    """Run the stage; returns the trained captioner params (on a 2-D mesh
+    this rank's shards of the vocab leaves)."""
     rt = common.Runtime(opt, data_parallel=True)
     vocab = common.load_vocab(opt)
     ids = common.token_ids(vocab, opt.sentiment_categories)
@@ -239,6 +251,8 @@ def train(opt: Opts):
     if opt_state is not None:
         optim.load_optax_state(adam, opt_state)
         mesh.replicate([adam.mu, adam.nu])
+    rt.place_captioner(adam)          # the model axis's shards, if any
+    params = adam.params
     rl = steps.make_rl_steps(opt.settings, adam, ids, opt.max_seq_len,
                              tables, lm_tables=lm_tables,
                              lm_flag=opt.rl_lm_flag)
@@ -299,10 +313,12 @@ def train(opt: Opts):
         print(f"fact_val_loss: {val_loss}")
 
         # test: both splits through the serving path, grouped by the
-        # detected sentiment (train_rl.py:252-309), on rank 0
+        # detected sentiment (train_rl.py:252-309), on rank 0, on the
+        # whole captioner (gathered by every rank)
+        whole = mesh.gather_captioner(params, adam.shard)
         if mesh.rank() == 0:
             sparams = inference.ServingParams(
-                captioner=nn.tree_map(torch.Tensor.detach, params),
+                captioner=nn.tree_map(torch.Tensor.detach, whole),
                 senti_detector=senti_params)
             results, det_sentis, wrong_rate = run_test_dump(
                 rt, opt, vocab, serving, sparams, test_fns, bs, fc_store,
@@ -314,7 +330,7 @@ def train(opt: Opts):
                 **{f"val_{k}": v for k, v in val_loss.items()}})
         mesh.barrier()                 # rank 0's dump and metrics
         ckpt.save(os.path.join(ck_dir, f"model_{epoch}.ckpt"),
-                  {"captioner": params, "senti_detector": senti_params,
+                  {"captioner": whole, "senti_detector": senti_params,
                    "sent_senti_cls": cls_params},
                   optim.to_optax_state(adam), {
                       "epoch": epoch, "settings": opt.settings.to_dict(),

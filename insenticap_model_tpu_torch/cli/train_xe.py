@@ -28,6 +28,18 @@ captions and of the seq2seq corpus, ``round_bs(xe_bs) / n`` and
 ``round_bs(80) / n`` rows a step, and every rank evaluates the whole val
 split. Rank 0 alone decodes the test split and writes the dump, the
 metrics and the checkpoints; the other ranks wait at a barrier.
+
+On the 2-D mesh (``--mesh_shape '[dp, tp]'``, dp * tp processes) the
+batch splits over the dp data groups, and the captioner's word embedding
+and classifier shard by vocabulary over the model axis
+(``common.Runtime.place_captioner``), their Adam moments with them; the
+steps run the vocabulary's operations over the model group
+(``parallel/vocab.py``). Each epoch every rank gathers the whole
+captioner (``parallel.mesh.gather_captioner``) before rank 0 decodes the
+test split on it with the one-device ``inference.decode_xe``, so that the
+dump is the one-process decode of the same params; every rank gathers
+the shards and their moments the same way for ``checkpoint.save``, and
+rank 0 writes the one-process file.
 """
 from __future__ import annotations
 
@@ -77,7 +89,8 @@ def ss_prob_at(opt: Opts, epoch: int) -> float:
 
 
 def train(opt: Opts):
-    """Run the stage; returns the trained captioner params."""
+    """Run the stage; returns the trained captioner params (on a 2-D mesh
+    this rank's shards of the vocab leaves)."""
     rt = common.Runtime(opt, data_parallel=True)
     vocab = common.load_vocab(opt)
     ids = common.token_ids(vocab, opt.sentiment_categories)
@@ -96,7 +109,8 @@ def train(opt: Opts):
         lambda meta: ckpt.validate_metadata(
             meta, settings=opt.settings, idx2word=vocab.idx2word,
             sentiment_categories=opt.sentiment_categories,
-            dataset_name=opt.dataset_name, corpus_type=opt.corpus_type))
+            dataset_name=opt.dataset_name, corpus_type=opt.corpus_type),
+        captioner=True)
     params = adam.params
 
     cls_params = rt.cast(load_frozen_cls(opt, vocab, rt.device))
@@ -157,9 +171,10 @@ def train(opt: Opts):
         val_loss["cap_loss"] = val_loss["xe_loss"] + val_loss["da_loss"]
         val_loss["all_loss"] = val_loss["cap_loss"]
 
+        whole = mesh.gather_captioner(params, adam.shard)  # every rank
         if mesh.rank() == 0:
             common.dump_results(result_dir, str(epoch),
-                                decode_split(params, fc_store, att_store,
+                                decode_split(whole, fc_store, att_store,
                                              test_fns, bs, rt, opt, ids,
                                              vocab), vocab)
 
@@ -179,7 +194,7 @@ def train(opt: Opts):
             ckpt.save(
                 ckpt.checkpoint_name(ck_dir, epoch, train_loss["all_loss"],
                                      val_loss["all_loss"]),
-                params, optim.to_optax_state(adam), {
+                whole, optim.to_optax_state(adam), {
                     "epoch": epoch, "lr": lr,
                     "settings": opt.settings.to_dict(),
                     "idx2word": vocab.idx2word,

@@ -17,6 +17,15 @@ inverse CDF at one uniform a row (``_categorical``).
 ``deterministic=True`` (the default of the eval-mode entries serving
 uses) draws nothing and returns the inputs of every dropout site
 unchanged.
+
+Inside ``parallel.vocab.sharded(shard)`` (the train and eval steps of a
+captioner sharded over a ``[dp, tp]`` mesh's model axis) the params hold
+this rank's rows of the word embedding and the classifier, and the
+vocabulary's operations (the word lookups, the classifier's input and
+log-softmax, ``_categorical``, the rollouts' argmax and picked log-probs,
+``xe_criterion_sums``' pick) are ``parallel/vocab.py``'s, over the model
+group; the logprobs are then this rank's columns. Outside it they run
+the one-process code.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from .. import nn
-from ..parallel import mesh
+from ..parallel import mesh, vocab
 from ..utils.dtypes import resolve_device
 
 
@@ -100,7 +109,11 @@ def _relu_linear(p, x):
 def embed_word(params, ids):
     """ReLU'd word embedding with hard-zero pad rows (pad id 0 by
     vocabulary construction; reference captioner.py:133-135)."""
-    return torch.relu(nn.embed(params["word_embed"], ids, pad_id=0))
+    shard = vocab.current()
+    if shard is None:
+        return torch.relu(nn.embed(params["word_embed"], ids, pad_id=0))
+    x = vocab.embed(params["word_embed"]["weight"], ids, shard)
+    return torch.relu(x * (ids != 0).unsqueeze(-1).to(x.dtype))
 
 
 def init_state(batch: int, hid_dim: int, dtype=torch.float32,
@@ -279,8 +292,17 @@ def decode_step(params, ctx: DecodeContext, state: DecodeState, it, *,
     out, new_state, weights = decode_cell(
         params, ctx, state, it, mode=mode, dropout_p=dropout_p, gen=gen,
         deterministic=deterministic)
-    logprobs = nn.log_softmax(nn.linear(params["classifier"], out))
-    return logprobs, new_state, weights
+    return log_probs(params, out), new_state, weights
+
+
+def log_probs(params, out):
+    """The classifier and the log-softmax over the vocabulary: out [rows,
+    H] -> [rows, V] (a shard's columns inside ``vocab.sharded``)."""
+    shard = vocab.current()
+    if shard is None:
+        return nn.log_softmax(nn.linear(params["classifier"], out))
+    return vocab.log_softmax(nn.linear(
+        params["classifier"], vocab.copy_to_model(out, shard)), shard)
 
 
 def _uniform_rows(gen, rows: int, device):
@@ -295,11 +317,34 @@ def _categorical(gen, logprobs):
     inverse CDF at one uniform a row, the first index whose cumulative
     probability exceeds u times the row's total (a zero-probability index
     is never taken). A rank draws the global batch's uniforms, so its rows
-    get the tokens they get in one process."""
-    cdf = logprobs.float().exp().cumsum(dim=-1)
-    u = _uniform_rows(gen, cdf.shape[0], cdf.device)
-    idx = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)
+    get the tokens they get in one process. The CDF is summed in float64:
+    a sum in another order (a vocabulary sharded over a model axis,
+    ``parallel.vocab.categorical``) then parts from it by far less than
+    any token's mass, and takes the same tokens."""
+    u = _uniform_rows(gen, logprobs.shape[0], logprobs.device)
+    shard = vocab.current()
+    if shard is not None:
+        return vocab.categorical(logprobs, u, shard)
+    cdf = logprobs.double().exp().cumsum(dim=-1)
+    idx = torch.searchsorted(cdf, (u.double() * cdf[:, -1])[:, None],
+                             right=True)
     return idx[:, 0].clamp_max(cdf.shape[-1] - 1)
+
+
+def _pick(logprobs, ids):
+    """``logprobs[..., ids]`` (ids with logprobs' leading axes)."""
+    shard = vocab.current()
+    if shard is not None:
+        return vocab.pick(logprobs, ids, shard)
+    return logprobs.gather(-1, ids.long().unsqueeze(-1)).squeeze(-1)
+
+
+def _greedy(logprobs):
+    """(the first maximal index a row, its log-prob)."""
+    shard = vocab.current()
+    if shard is not None:
+        return vocab.argmax(logprobs, shard)
+    return logprobs.argmax(dim=-1), logprobs.amax(dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -392,11 +437,10 @@ def forward_rl(params, fc_feats, att_feats, cpt_words, senti_words,
             params, ctx, state, it, mode="rl", dropout_p=p, gen=gen,
             deterministic=deterministic)
         if sample_max:
-            nxt = logprobs.argmax(dim=-1)     # the first maximal index
-            samp_lp = logprobs.amax(dim=-1)
+            nxt, samp_lp = _greedy(logprobs)
         else:
             nxt = _categorical(gen, logprobs.detach())
-            samp_lp = logprobs.gather(-1, nxt[:, None])[:, 0]
+            samp_lp = _pick(logprobs, nxt)
         masks.append(unfinished)
         nxt = torch.where(unfinished, nxt, torch.zeros_like(nxt))
         unfinished = unfinished & (nxt != ids.eos)
@@ -425,7 +469,7 @@ def xe_criterion_sums(logprobs, targets, lengths):
     xe_criterion, for batch-boundary-invariant eval aggregation (rows
     left out of an eval get length 0 and add nothing)."""
     mask = length_mask(lengths, targets.shape[1], logprobs.dtype)
-    nll = -logprobs.gather(-1, targets.long()[..., None])[..., 0]
+    nll = -_pick(logprobs, targets)
     return (nll * mask).sum(), mask.sum()
 
 

@@ -79,7 +79,14 @@ def save(path: str, params: Any, opt_state: Any, metadata: Dict) -> None:
     a reader never sees half a file. Under data parallelism every rank
     calls it: rank 0 alone writes (the ranks hold the same params), and
     every rank then waits at a barrier, so that none reads the file
-    before it is whole (the JAX package's process 0, :53-60)."""
+    before it is whole (the JAX package's process 0, :53-60).
+
+    On a ``[dp, tp]`` mesh a captioner stage's every rank hands in the
+    whole captioner, gathered over its model group
+    (``parallel.mesh.gather_captioner``, a collective that every model
+    group runs; ``optim.to_optax_state`` gathers the moments likewise),
+    so that rank 0 writes the one-process file byte for byte, read by
+    either package in one process or at another mesh."""
     if opt_state is not None and set(opt_state) != OPTAX_STATE_KEYS:
         raise ValueError("checkpoint.save: the optimizer state must be "
                          "optax's tree, as optim.to_optax_state gives it "

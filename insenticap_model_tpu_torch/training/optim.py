@@ -20,6 +20,13 @@ count serves every parameter, as optax's ``count`` does.
 ``to_optax_state``/``load_optax_state`` turn the state into the tree that
 the JAX package's checkpoints hold (flax's state dict of optax's
 ``inject_hyperparams`` chain) and back.
+
+Under a ``[dp, tp]`` mesh a captioner's moments shard like its params
+(``shard_captioner``: the update is element by element, so a shard's
+moments are the whole moments' rows), and ``Adam.shard`` names the
+vocabulary rows its trees hold; the checkpoint's tree holds the whole
+moments, which ``to_optax_state`` gathers over the model group and
+``load_optax_state`` reads before the trees are sharded.
 """
 from __future__ import annotations
 
@@ -29,16 +36,20 @@ import numpy as np
 import torch
 
 from .. import convert, nn
+from ..parallel import mesh
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 class Adam:
     """Adam over a parameter tree whose float leaves require grad; the
-    gradients are read from ``.grad`` after ``backward``."""
+    gradients are read from ``.grad`` after ``backward``. ``shard``: the
+    vocabulary rows (``parallel.mesh.VocabShard``) that a captioner's
+    params and moments hold, None where they are whole."""
 
     def __init__(self, params, lr: float, grad_clip: float = 0.1):
         self.params = params
+        self.shard = None
         self.lr = float(lr)
         self.grad_clip = float(grad_clip)
         self.count = 0
@@ -70,6 +81,17 @@ class Adam:
             p.copy_(p.float() - self.lr * u)
 
 
+def shard_captioner(opt: Adam, shard) -> None:
+    """Keep this rank's vocabulary ``shard`` of a captioner's params and
+    moments (``parallel.mesh.shard_captioner``, each tree replaced) and
+    record it as ``opt.shard``; nothing changes where ``shard`` is
+    None."""
+    opt.params = mesh.shard_captioner(opt.params, shard)
+    opt.mu = mesh.shard_captioner(opt.mu, shard)
+    opt.nu = mesh.shard_captioner(opt.nu, shard)
+    opt.shard = shard
+
+
 def get_lr(opt: Adam) -> float:
     return opt.lr
 
@@ -84,8 +106,11 @@ def to_optax_state(opt: Adam) -> Dict:
     (``inject_hyperparams(chain(clip, scale_by_adam, scale))``, flax's
     state dict): CPU tensors, the moments
     in the JAX package's parameter layout, copies that later steps leave
-    alone."""
+    alone. Where ``opt.shard`` is set the captioner's sharded moments are
+    gathered over the model group first (a collective: every rank of
+    every model group calls it)."""
     def moments(tree):
+        tree = mesh.gather_captioner(tree, opt.shard)
         return nn.tree_map(torch.clone, convert.to_jax_tensors(tree))
     adam = {"count": torch.tensor(opt.count, dtype=torch.int32),
             "mu": moments(opt.mu), "nu": moments(opt.nu)}

@@ -30,6 +30,17 @@ would not be, wherever the ranks' token or row counts differ). With one
 rank each collective is the identity. The eval steps run no collective
 (every rank evaluates the whole split).
 
+On a ``[dp, tp]`` mesh those sums run over the rank's data group, and a
+captioner stage's steps read the rank's shard of the vocabulary from the
+optimizer (``opt.shard``, set by ``optim.shard_captioner``; None where
+nothing is sharded): its forward passes run inside
+``parallel.vocab.sharded(opt.shard)``, so that the
+captioner's word lookups, classifier, log-softmax, draws and picks
+(train and eval steps alike) are ``parallel/vocab.py``'s over the model
+group. Every rank of a model group then computes the same losses, the
+whole gradient of every replicated leaf and its shard's of the two vocab
+leaves, which the clamp and Adam update element by element.
+
 A train step is plain PyTorch with autograd (the JAX package's training
 steps reach no Pallas kernel either; in the RL step only the frozen
 detector's bf16 forward does, under ``torch.no_grad``); the gradient
@@ -52,7 +63,7 @@ from ..models import concept_detector as cpt_det
 from ..models import sent_senti_cls as ss_cls
 from ..models import sentiment_detector as senti_det
 from ..ops import ciderd_device, lm_device
-from ..parallel import mesh
+from ..parallel import mesh, vocab
 from . import optim
 
 CLS_FLAG = 0.4        # reference decoder.py:39
@@ -114,7 +125,8 @@ def _pseudo_senti_labels(cls_params, caps, lengths, settings):
 
 
 def make_xe_steps(settings, opt: optim.Adam):
-    """Returns (train_step, eval_step) for the captioner ``opt.params``.
+    """Returns (train_step, eval_step) for the captioner ``opt.params``
+    (this rank's ``opt.shard`` of its vocabulary where it is sharded).
 
     batch: {fc, att, caps [bs, T+1], lengths, cpts}
     scs_batch: {caps, lengths, cpts, sentis, senti_labels}
@@ -125,7 +137,7 @@ def make_xe_steps(settings, opt: optim.Adam):
     device, seeded alike on every rank.
     ``eval_step(cls_params, batch)`` returns masked (sums, counts) of the
     XE and domain-alignment terms."""
-    params = opt.params
+    params, shard = opt.params, opt.shard
 
     def _train_sums(cls_params, batch, scs_batch, gen, ss_prob: float):
         """The terms' (sums, counts) on this rank's rows: XE, domain
@@ -155,8 +167,9 @@ def make_xe_steps(settings, opt: optim.Adam):
 
     def train_step(cls_params, batch, scs_batch, gen, ss_prob: float):
         opt.zero_grad()
-        shares = _global_shares(*_train_sums(cls_params, batch, scs_batch,
-                                             gen, ss_prob))
+        with vocab.sharded(shard):
+            shares = _global_shares(*_train_sums(cls_params, batch,
+                                                 scs_batch, gen, ss_prob))
         _apply_gradients(opt, sum(shares.values()))
         losses = _global_values(shares)
         losses["cap_loss"] = losses["xe_loss"] + losses["da_loss"]
@@ -174,11 +187,12 @@ def make_xe_steps(settings, opt: optim.Adam):
         lengths = batch["lengths"] * rmask.to(batch["lengths"].dtype)
         labels = _pseudo_senti_labels(cls_params, caps, batch["lengths"],
                                       settings)
-        logprobs, aux = cap.forward_xe(
-            params, batch["fc"], batch["att"], batch["cpts"], caps, labels,
-            settings=settings, deterministic=True)
-        xe_sum, xe_cnt = cap.xe_criterion_sums(logprobs, caps[:, 1:],
-                                               lengths)
+        with vocab.sharded(shard):
+            logprobs, aux = cap.forward_xe(
+                params, batch["fc"], batch["att"], batch["cpts"], caps,
+                labels, settings=settings, deterministic=True)
+            xe_sum, xe_cnt = cap.xe_criterion_sums(logprobs, caps[:, 1:],
+                                                   lengths)
         da_sum, da_cnt = cap.domain_alignment_sums(aux["cpt_feats"],
                                                    aux["fc_emb"], rmask)
         return ({"xe_loss": xe_sum, "da_loss": da_sum},
@@ -214,8 +228,9 @@ def make_rl_steps(settings, opt: optim.Adam, ids: cap.TokenIds,
                   cider_tables: Optional[ciderd_device.CiderTables],
                   lm_tables: Optional[lm_device.LMTables] = None,
                   lm_flag: float = 0.0):
-    """The RL steps of the captioner ``opt.params``, keyed (data_type,
-    training).
+    """The RL steps of the captioner ``opt.params`` (this rank's
+    ``opt.shard`` of its vocabulary where it is sharded), keyed
+    (data_type, training).
 
     fact batch: {fc, att, caps, lengths, cpts, sentis, img_rows}
     senti batch: {fc, att, cpts, sentis, senti_labels}
@@ -242,7 +257,7 @@ def make_rl_steps(settings, opt: optim.Adam, ids: cap.TokenIds,
     cell. lm_tables / lm_flag: the optional per-sentiment trigram LM
     reward, lm_flag * sign(lm(greedy) - lm(sample)) (``ops/lm_device.py``;
     the reference's is wired but off, train_rl.py:212-216)."""
-    params = opt.params
+    params, shard = opt.params, opt.shard
     det = senti_det.module_for(settings)
     xe_ss, s2s_ss = RL_XE_SS_PROB, RL_SEQ_SS_PROB
 
@@ -341,8 +356,10 @@ def make_rl_steps(settings, opt: optim.Adam, ids: cap.TokenIds,
     def make_train(data_type: str):
         def train_step(frozen: RLModels, batch, scs_batch, gen):
             opt.zero_grad()
-            shares = _global_shares(*_sums(frozen, batch, scs_batch, gen,
-                                           data_type, training=True))
+            with vocab.sharded(shard):
+                shares = _global_shares(*_sums(frozen, batch, scs_batch,
+                                               gen, data_type,
+                                               training=True))
             _apply_gradients(opt, sum(shares[k] for k in RL_LOSS_TERMS
                                       if k in shares))
             return _global_values(shares)
@@ -353,7 +370,7 @@ def make_rl_steps(settings, opt: optim.Adam, ids: cap.TokenIds,
         def eval_step(frozen: RLModels, batch, gen):
             # every rank evaluates the same whole batch: its rollout draws
             # are one process's, not a block of a global batch's
-            with mesh.whole_batch():
+            with mesh.whole_batch(), vocab.sharded(shard):
                 return _sums(frozen, batch, None, gen, data_type,
                              training=False)
         return eval_step

@@ -151,6 +151,8 @@ def test_port_imports_no_jax():
     sources = list(_port_sources())
     assert os.path.join(REPO, "insenticap_model_tpu_torch", "serving",
                         "multihost.py") in sources
+    assert os.path.join(REPO, "insenticap_model_tpu_torch", "parallel",
+                        "vocab.py") in sources
     for path in sources:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)

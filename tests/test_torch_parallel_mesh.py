@@ -123,17 +123,18 @@ def test_collectives_across_ranks(world, tmp_path):
 
 
 def test_runtime_exits_with_a_message(monkeypatch):
-    """A 2-D mesh, a mesh that disagrees with WORLD_SIZE, ranks without
-    torchrun, torchrun without a mesh, a LOCAL_RANK with no card of its
-    own, and a data-parallel mesh given to an entry point that runs on one
-    device: each exits, naming what is wrong."""
+    """A mesh of three axes, a mesh (1-D or 2-D) that disagrees with
+    WORLD_SIZE, ranks without torchrun, torchrun without a mesh, a
+    LOCAL_RANK with no card of its own, and a data-parallel mesh given to
+    an entry point that runs on one device: each exits, naming what is
+    wrong."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
 
     def exits(match, data_parallel=True, **kw):
         with pytest.raises(SystemExit, match=match):
             tcommon.Runtime(Opts(**dict(dict(device="cpu"), **kw)),
                             data_parallel=data_parallel)
-    exits("2-D data x model mesh", mesh_shape=(2, 2))
+    exits(r"\[1, 2, 2\].*a mesh of 3 axes", mesh_shape=(1, 2, 2))
     exits("WORLD_SIZE is unset", mesh_shape=(2,))
     exits("not ported yet", data_parallel=False, mesh_shape=(2,))
     monkeypatch.setenv("WORLD_SIZE", "3")
@@ -141,6 +142,7 @@ def test_runtime_exits_with_a_message(monkeypatch):
     exits(r"\[2\] disagrees with WORLD_SIZE=3", mesh_shape=(2,))
     exits("no --mesh_shape", mesh_shape=())
     monkeypatch.setenv("WORLD_SIZE", "2")
+    exits(r"\[2, 2\] disagrees with WORLD_SIZE=2", mesh_shape=(2, 2))
     monkeypatch.setenv("RANK", "1")
     monkeypatch.setenv("LOCAL_RANK", "1")
     monkeypatch.setattr(tcommon, "resolve_device",

@@ -160,28 +160,142 @@ def grad_of(i, rank, shape, dtype):
     return torch.randn(shape, generator=g, dtype=torch.float64).to(dtype)
 
 
+def _grid_adam(params, lr, grid):
+    """Adam over ``params``; with ``grid`` (dp, tp) the ranks split into
+    that grid first (``mesh.init_grid``) and the captioner's vocab leaves
+    and their moments sharded over the model axis -> (adam, shard, this
+    rank's data coordinate, dp)."""
+    from insenticap_model_tpu_torch.parallel import mesh
+    from insenticap_model_tpu_torch.training import optim
+    adam = optim.Adam(params, lr)
+    if grid is None:
+        return adam, None, mesh.rank(), mesh.world_size()
+    mesh.init_grid(grid)
+    shard = mesh.vocab_shard(params["word_embed"]["weight"].shape[0])
+    optim.shard_captioner(adam, shard)
+    return adam, shard, mesh.data_rank(), mesh.data_size()
+
+
 def xe_steps(rank, world, params_np, cls_np, batches, settings_dict,
-             ss_prob, dtype, lr):
+             ss_prob, dtype, lr, grid=None):
     """The port's XE train step on this rank's rows of each global
     (batch, scs_batch), step i's generator seeded i on every rank ->
-    {losses, grads (the reduced gradient of each step), params}."""
+    {losses, grads (the reduced gradient of each step), params}. With
+    ``grid`` (dp, tp) the ranks form that grid, the rows are the data
+    group's and the captioner's vocab leaves this rank's shards (their
+    gradients and params too); ``shard`` is (start, size) then."""
     from insenticap_model_tpu_torch import nn
     from insenticap_model_tpu_torch.config import Settings
-    from insenticap_model_tpu_torch.training import optim, steps
+    from insenticap_model_tpu_torch.training import steps
     params = nn.tree_map(lambda x: x.requires_grad_(True),
                          tensors(params_np, dtype))
     cls = tensors(cls_np, dtype)
-    adam = optim.Adam(params, lr)
+    adam, shard, r, n = _grid_adam(params, lr, grid)
+    params = adam.params
     train_step, _ = steps.make_xe_steps(Settings.from_dict(settings_dict),
                                         adam)
-    out = {"losses": [], "grads": []}
+    out = {"losses": [], "grads": [],
+           "shard": shard and (shard.start, shard.size)}
     for i, (b, scs) in enumerate(batches):
-        losses = train_step(cls, tensors(_rows(b, rank, world), dtype),
-                            tensors(_rows(scs, rank, world), dtype),
+        losses = train_step(cls, tensors(_rows(b, r, n), dtype),
+                            tensors(_rows(scs, r, n), dtype),
                             torch.Generator().manual_seed(i), ss_prob)
         out["losses"].append({k: float(v) for k, v in losses.items()})
         out["grads"].append(_grads(params))
     out["params"] = numpy_tree(params)
+    out["moments"] = numpy_tree([adam.mu, adam.nu])
+    return out
+
+
+def vocab_ops(rank, world, spec):
+    """The vocabulary's operations of the captioner (``cap.embed_word``,
+    ``cap.log_probs``: the classifier's input and log-softmax,
+    ``cap._pick``, ``cap._greedy``, ``cap._categorical``) on a [1, world]
+    grid's shards (world 1: the one-process code), on ``spec``'s params
+    ({word_embed, classifier}, E = H), ids [rows, k], h [rows, H],
+    targets [rows], the draws' generator seeded 0, and the gradients of
+    one loss through them all: the picked log-probs, half the maxima, and
+    the log-probs weighted by ``spec["weights"]`` [rows, V] (a sum over
+    every shard's columns) -> their values (this shard's columns of the
+    log-probs), ids, and the gradients of h and of this shard's rows."""
+    from insenticap_model_tpu_torch import nn
+    from insenticap_model_tpu_torch.models import captioner as cap
+    from insenticap_model_tpu_torch.parallel import mesh, vocab
+    if world > 1:
+        mesh.init_grid((1, world))
+    full = nn.tree_map(lambda x: x.requires_grad_(True),
+                       tensors(spec["params"]))
+    shard = mesh.vocab_shard(full["classifier"]["weight"].shape[0])
+    p = mesh.shard_captioner(full, shard)
+    cols = slice(None) if shard is None else slice(
+        shard.start, shard.start + shard.size)
+    h = torch.from_numpy(spec["h"]).requires_grad_(True)
+    ids = torch.from_numpy(spec["ids"])
+    targets = torch.from_numpy(spec["targets"])
+    weights = torch.from_numpy(spec["weights"])[:, cols]
+    vocab.stats.update(collectives=0, bytes=0)
+    with vocab.sharded(shard):
+        e = cap.embed_word(p, ids)
+        lp = cap.log_probs(p, h + e.mean(dim=1))
+        picked = cap._pick(lp, targets)
+        greedy, best = cap._greedy(lp)
+        draws = cap._categorical(torch.Generator().manual_seed(0),
+                                 lp.detach())
+    loss = picked.sum() + 0.5 * best.sum() + (lp * weights).sum()
+    loss.backward()
+    leaves = [p["word_embed"]["weight"], p["classifier"]["weight"],
+              p["classifier"]["bias"]]
+    return {"embed": e.detach(), "logprobs": lp.detach(),
+            "picked": picked.detach(), "greedy": greedy, "best":
+            best.detach(), "draws": draws, "h_grad": h.grad,
+            "grads": [t.grad for t in leaves],
+            "shard": shard and (shard.start, shard.size),
+            "stats": {k: vocab.stats[k] for k in ("collectives", "bytes")}}
+
+
+def runtime_grid(rank, world, vocab_sizes):
+    """The ``Runtime`` of ``--mesh_shape [2, world / 2]`` on the caller's
+    group: its round_bs, host_shard and grid coordinates; for each of
+    ``vocab_sizes`` a seeded captioner's rows and its moments' after
+    ``place_captioner`` and what it printed; and the exits of a 3-axis
+    mesh and of a mesh that disagrees with the group."""
+    import io
+    from contextlib import redirect_stdout
+    from insenticap_model_tpu_torch.cli import common
+    from insenticap_model_tpu_torch.config import Opts, Settings
+    from insenticap_model_tpu_torch.models import captioner as cap
+    from insenticap_model_tpu_torch.parallel import mesh
+    from insenticap_model_tpu_torch.training import optim
+    grid = (2, world // 2)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rt = common.Runtime(Opts(device="cpu", mesh_shape=grid),
+                            data_parallel=True)
+    out = {"round_bs": rt.round_bs(3), "host_shard": common.host_shard(),
+           "coords": (mesh.data_rank(), mesh.model_rank()),
+           "printed": buf.getvalue(), "placed": {}}
+    s = Settings(word_emb_dim=8, fc_feat_dim=8, att_feat_dim=8,
+                 feat_emb_dim=8, rnn_hid_dim=8, att_hid_dim=8)
+    for v in vocab_sizes:
+        adam = optim.Adam(cap.init_params(torch.Generator().manual_seed(0),
+                                          v, 3, s, device="cpu"), 1e-3)
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            rt.place_captioner(adam)
+        out["placed"][v] = {
+            "rows": [t[k][n].shape[0] for t in (adam.params, adam.mu,
+                                                 adam.nu)
+                     for k, n in mesh.VOCAB_LEAVES],
+            "shard": adam.shard and (adam.shard.start, adam.shard.size),
+            "printed": buf.getvalue()}
+    out["exits"] = []
+    for shape in ((1, 2, 2), (world, 2)):
+        try:
+            common.Runtime(Opts(device="cpu", mesh_shape=shape),
+                           data_parallel=True)
+        except SystemExit as e:
+            out["exits"].append(str(e))
+    mesh.barrier()
     return out
 
 
@@ -229,26 +343,53 @@ def _rl_draws(gumbel, ss_probs):
 
 
 def _rl_setup(spec, dtype):
-    """(params, the RL steps on them, the frozen models) of an
-    ``rl_steps`` or ``rl_eval`` spec, in ``dtype``."""
+    """(params, the RL steps on them, the frozen models, the vocabulary
+    shard, this rank's data coordinate, dp) of an ``rl_steps`` or
+    ``rl_eval`` spec, in ``dtype`` (on ``spec["grid"]`` where given)."""
     from insenticap_model_tpu_torch import nn
     from insenticap_model_tpu_torch.config import Settings
     from insenticap_model_tpu_torch.models import captioner as cap
     from insenticap_model_tpu_torch.ops import lm_device
-    from insenticap_model_tpu_torch.training import optim, steps
+    from insenticap_model_tpu_torch.training import steps
     params = nn.tree_map(lambda x: x.requires_grad_(True),
                          tensors(spec["params"], dtype))
     lm = None
     if spec.get("lm_paths"):
         lm = lm_device.build_lm_tables(spec["lm_paths"], spec["vocab"])
+    adam, shard, r, n = _grid_adam(params, spec.get("lr", 1e-3),
+                                   spec.get("grid"))
     rl = steps.make_rl_steps(
-        Settings.from_dict(spec["settings"]),
-        optim.Adam(params, spec.get("lr", 1e-3)),
+        Settings.from_dict(spec["settings"]), adam,
         cap.TokenIds(**RL_IDS), spec["max_seq_len"],
         _rl_tables(spec["corpus"], spec["max_seq_len"]), lm_tables=lm,
         lm_flag=spec.get("lm_flag", 0.0))
     frozen = steps.RLModels(*(tensors(t, dtype) for t in spec["frozen"]))
-    return params, rl, frozen
+    return adam.params, rl, frozen, shard, r, n
+
+
+@torch.no_grad()
+def _rollouts(params, frozen, batch, spec, shard):
+    """The sampled (generator seeded 100, dropout on) and greedy rollouts'
+    tokens and log-probs of the captioner on ``batch``, the frozen
+    detector's labels as their sentiments."""
+    from insenticap_model_tpu_torch.config import Settings
+    from insenticap_model_tpu_torch.models import captioner as cap
+    from insenticap_model_tpu_torch.models import sentiment_detector as sd
+    from insenticap_model_tpu_torch.parallel import vocab
+    settings = Settings.from_dict(spec["settings"])
+    labels, _, _ = sd.module_for(settings).sample(
+        frozen.senti_detector, batch["att"], 0.7, RL_IDS["neutral"])
+    out = {}
+    with vocab.sharded(shard):
+        for name, greedy in (("sampled", False), ("greedy", True)):
+            seq, lp, _, _ = cap.forward_rl(
+                params, batch["fc"], batch["att"], batch["cpts"],
+                batch["sentis"], labels, settings=settings,
+                ids=cap.TokenIds(**RL_IDS), max_seq_len=spec["max_seq_len"],
+                sample_max=greedy, gen=torch.Generator().manual_seed(100),
+                deterministic=greedy)
+            out[name] = (seq, lp)
+    return out
 
 
 def rl_steps(rank, world, spec):
@@ -260,15 +401,23 @@ def rl_steps(rank, world, spec):
     spec: params, frozen (the detector's and the classifier's numpy
     trees), corpus (the CIDEr-D tables' {fn: [caption ids]}), settings
     (a dict), dtype, lr, max_seq_len; optional lm_paths, vocab and
-    lm_flag (the LM reward), gumbel (every draw forced) and ss_probs."""
+    lm_flag (the LM reward), gumbel (every draw forced), ss_probs, grid
+    (dp, tp: the ranks' grid, the rows the data group's and the vocab
+    leaves this rank's shards) and rollouts (the first batch's rows'
+    sampled and greedy rollouts before the steps, ``_rollouts``)."""
     dtype = spec["dtype"]
     with _rl_draws(spec.get("gumbel"), spec.get("ss_probs")):
-        params, rl, frozen = _rl_setup(spec, dtype)
+        params, rl, frozen, shard, r, n = _rl_setup(spec, dtype)
         step = rl[(spec["data_type"], True)]
-        out = {"losses": [], "grads": []}
+        out = {"losses": [], "grads": [],
+               "shard": shard and (shard.start, shard.size)}
+        if spec.get("rollouts"):
+            out["rollouts"] = _rollouts(
+                params, frozen, tensors(_rows(spec["batches"][0][0], r, n),
+                                        dtype), spec, shard)
         for i, (b, scs) in enumerate(spec["batches"]):
-            losses = step(frozen, tensors(_rows(b, rank, world), dtype),
-                          tensors(_rows(scs, rank, world), dtype),
+            losses = step(frozen, tensors(_rows(b, r, n), dtype),
+                          tensors(_rows(scs, r, n), dtype),
                           torch.Generator().manual_seed(i))
             out["losses"].append({k: float(v) for k, v in losses.items()})
             out["grads"].append(_grads(params))
@@ -284,7 +433,7 @@ def rl_eval(rank, world, spec):
     after a block left by an exception."""
     from insenticap_model_tpu_torch.parallel import mesh
     dtype = spec["dtype"]
-    _, rl, frozen = _rl_setup(spec, dtype)
+    _, rl, frozen, _, _, _ = _rl_setup(spec, dtype)
     sums, counts = rl[("fact", False)](frozen, tensors(spec["batch"], dtype),
                                        torch.Generator().manual_seed(0))
 
@@ -362,12 +511,12 @@ def watch_writes(root):
         builtins.open, os.makedirs, os.replace = orig
 
 
-def cli_runs(rank, world, root, runs, patches=()):
+def cli_runs(rank, world, root, runs, patches=(), mesh_shape=None):
     """Run each (module name, Opts keywords) of ``runs`` with
-    ``--mesh_shape [world]`` on the CPU, each (module name, attribute,
-    value) of ``patches`` set first -> {"params": [each run's trained
-    params as numpy], "writes": the files a rank other than 0 opened for
-    writing under ``root``}."""
+    ``--mesh_shape [world]`` (or ``mesh_shape``) on the CPU, each (module
+    name, attribute, value) of ``patches`` set first -> {"params": [each
+    run's trained params as numpy], "writes": the files a rank other than
+    0 opened for writing under ``root``}."""
     import glob
     import importlib
     from insenticap_model_tpu_torch.config import Opts, Settings
@@ -382,7 +531,7 @@ def cli_runs(rank, world, root, runs, patches=()):
               if isinstance(v, str) and v.startswith("glob:") else v
               for k, v in kw.items()}
         kw = dict(kw, settings=Settings.from_dict(kw["settings"]),
-                  mesh_shape=(world,), device="cpu")
+                  mesh_shape=tuple(mesh_shape or (world,)), device="cpu")
         with watch_writes(root) as seen:
             params = mod.train(Opts(**kw))
         out["params"].append(numpy_tree(params))
