@@ -68,21 +68,26 @@ C++ compiler), then:
    full ResNet-101), and its reader must read every leaf back
    bit-identical; ``cli.serve.make_server`` on 127.0.0.1:0 (bf16,
    ``--warm``, ``--image_root`` the committed fixtures) answers feature
-   requests (auto and forced), ``image_b64`` of the committed JPEG and PNG
-   fixtures and two ``image_path`` requests from threads, each with a
-   caption and 5 distinct concepts, v1 and the pool launched (counts set
-   to 0 just before; the three progressive JPEGs, CMYK (4:4:4 and a
+   requests (auto and forced), ``image_b64`` of the committed JPEG, PNG,
+   GIF and BMP fixtures and two ``image_path`` requests from threads, each
+   with a caption and 5 distinct concepts, v1 and the pool launched (counts
+   set to 0 just before; the three progressive JPEGs, CMYK (4:4:4 and a
    448x448 4:2:0), YCCK and Adobe-RGB JPEGs, Adam7 RGB and 4-bit palette
-   PNGs and 16-bit RGB and grey PNGs among the fixtures); a path outside
-   the root and a 12-bit JPEG (which the decoders and PIL both refuse)
-   are 400s, an oversized body 413, /stats, /metrics and /healthz 200,
+   PNGs, 16-bit RGB and grey PNGs, an interlaced palette GIF, a grey-ramp
+   GIF and a GIF frame at an offset with a transparency index, and 8-bit
+   palette, 24-bit, RLE8 and 5-6-5 bitfields BMPs among the fixtures); a
+   path outside the root and a 12-bit JPEG (which the decoders and PIL
+   both refuse) are 400s, an oversized body 413, /stats, /metrics and /healthz 200,
    and the server drains on shutdown (p50/p99 per bucket printed); the
    port's decoders on this host give the fixtures' committed PIL arrays
    exactly; ``cli.caption.run`` on two fixtures in f32 dumps attention
    maps that sum to 1 within 1e-5; and the host's decode of a 448x448
    JPEG (4:2:0), baseline, progressive and CMYK (the same photo), and
-   PNG, plain and Adam7 (its pixels), and a 480x640 ``resize_to_bucket``
-   are timed (median of 5, the card's name and power limit beside them);
+   PNG, plain and Adam7 (its pixels), GIF and BMP, 24-bit and RLE8 (its
+   pixels in the 3-3-2 colour cube for the GIF and RLE8, each written
+   here without PIL and decoding to the pixels written), and a 480x640
+   ``resize_to_bucket`` are timed (median of 5, the card's name and power
+   limit beside them);
 3f. drives the XE pre-training stage (``cli.train_xe.train``) at full
    width (``Settings()``, the vocabulary padded to 10,000 words, xe_bs 20,
    the seq2seq batch 80, 16 tokens, beam 3) on a synthetic tree the
@@ -175,7 +180,7 @@ C++ compiler), then:
    largest kernels, the CIDEr-D reward's device time, the tables' build
    seconds and bytes and the dump's captions/s;
 3i. drives the offline and evaluation CLIs on phase 3h's tree:
-   ``preprocess`` (the text stages, the LMs, the features of the 11
+   ``preprocess`` (the text stages, the LMs, the features of the 26
    decodable fixtures and 32 PNGs, the pool's launches equal to the encode
    batches flushed), ``convert_checkpoint``, ``reproduce_table`` in f32
    (the ``.ckpt``, the ``.pth`` and the plain path, one table) and in bf16
@@ -405,9 +410,11 @@ DESIGNS = {"beam_content_attention": "redesigned",
            "ceil_maxpool_3x3s2": "first design",
            "beam_content_attention_i8": "redesigned",
            "tiled_mm": "redesigned"}
-# the committed image fixtures (JPEGs and PNGs written by PIL, or by
-# tests/torch_images.py's writers where PIL cannot: Adam7, 16-bit RGB,
-# YCCK; expected.npz holding PIL's decoded arrays; tests/torch_images.py
+# the committed image fixtures (JPEGs, PNGs, GIFs and BMPs written by PIL,
+# or by tests/torch_images.py's writers where PIL cannot: Adam7, 16-bit
+# RGB, YCCK, a GIF frame at an offset with a transparency index, RLE8 and
+# 5-6-5 bitfields BMPs; expected.npz holding PIL's decoded arrays;
+# tests/torch_images.py
 # rebuilds them): name -> what phase 3e expects of the port's decoders,
 # "decode" (identical to expected.npz) or "refuse" (ValueError, so a 400;
 # PIL refuses it too)
@@ -421,13 +428,18 @@ FIXTURES = {"j444.jpg": "decode", "j422.jpg": "decode",
             "j12bit.jpg": "refuse", "rgb.png": "decode",
             "adam7.png": "decode", "rgb16.png": "decode",
             "grey16.png": "decode", "adam7_p4.png": "decode",
-            "rgba.png": "decode", "p.png": "decode"}
+            "rgba.png": "decode", "p.png": "decode",
+            "interlaced.gif": "decode", "ramp.gif": "decode",
+            "offset.gif": "decode", "p8.bmp": "decode",
+            "rgb24.bmp": "decode", "rle8.bmp": "decode",
+            "bf565.bmp": "decode"}
 # a fixture whose PIL array is another's, stored once in expected.npz
 # under the other name: the same photo at the same quality and sampling,
 # written progressive (the same coefficients, so the same pixels), and
-# rgb.png's pixels interlaced, and as the high bytes of 16-bit samples
+# rgb.png's pixels interlaced, as the high bytes of 16-bit samples and as
+# a 24-bit BMP
 SAME_PIXELS = {"prog420_448.jpg": "j420_448.jpg", "adam7.png": "rgb.png",
-               "rgb16.png": "rgb.png"}
+               "rgb16.png": "rgb.png", "rgb24.bmp": "rgb.png"}
 # phase 3f, the XE stage: the reference trainer's xe batch and learning
 # rate; 34 train images of 3 captions give 5 batches, 7 val images 2 (the
 # last padded), 20 test images one dump batch
@@ -472,8 +484,8 @@ RL_BS = 40
 RL_LR = 4e-5
 RL_N_IMG = {"train": 80, "val": 40, "test": 40}
 RL_N_SENTI_IMG = {"train": 40, "val": 4, "test": 40}
-# phase 3i, the offline and evaluation CLIs: 51 images for the features
-# (the 19 fixtures the port decodes and 32 PNGs, over the three buckets) in
+# phase 3i, the offline and evaluation CLIs: 58 images for the features
+# (the 26 fixtures the port decodes and 32 PNGs, over the three buckets) in
 # encode batches of 32, the reference CLI's; two of them again on the CPU,
 # whose f32 convolutions sum in other orders than cuDNN's through 104
 # layers: fc and att within 1e-4 of their largest magnitude (the port and
@@ -792,6 +804,198 @@ def _png_bytes(img, zlib, interlace=False):
             + chunk(b"IEND", b""))
 
 
+
+def gif_lzw(np, indices, min_size=8, *, clear_when_full=True,
+            end_after=None):
+    """GIF's LZW code stream (before the sub-blocks) of a sequence of
+    palette indices below 2^min_size: a clear code first, each code as wide
+    as the decoder reads it (one bit more once it has filled the codes of
+    the width), the end code last. A full table (4096 entries) is cleared
+    where ``clear_when_full``, else the codes go on at 12 bits with no new
+    entries; ``end_after``: an end code also after that many codes, the
+    stream going on after it."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    bits = nbits = 0
+    out = bytearray()
+    width, dec_next, table, first, n_codes = min_size + 1, end + 1, {}, True, 0
+
+    def emit(code):
+        nonlocal bits, nbits, width, dec_next, first, n_codes
+        bits |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(bits & 255)
+            bits >>= 8
+            nbits -= 8
+        if code in (clear, end):
+            return
+        # the decoder adds an entry on every code but the first after a
+        # clear, and widens its codes once it has made the last of a width
+        if not first and dec_next < 4096:
+            if dec_next == (1 << width) - 1 and width < 12:
+                width += 1
+            dec_next += 1
+        first = False
+        n_codes += 1
+        if n_codes == end_after:
+            emit(end)
+
+    emit(clear)
+    w = None
+    for k in np.ravel(indices).tolist():
+        if w is None:
+            w = k
+            continue
+        key = (w, k)
+        if key in table:
+            w = table[key]
+            continue
+        emit(w)
+        if len(table) + end + 1 < 4096:
+            table[key] = len(table) + end + 1
+        elif clear_when_full:
+            emit(clear)
+            width, dec_next, table, first = min_size + 1, end + 1, {}, True
+        w = k
+    if w is not None:
+        emit(w)
+    emit(end)
+    if nbits:
+        out.append(bits & 255)
+    return bytes(out)
+
+
+def gif_blocks(data):
+    """``data`` in GIF sub-blocks of at most 255 bytes, and the empty block
+    that ends them."""
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def _quantised(np, img):
+    """An RGB uint8 image as indices into the 3-3-2 colour cube (256
+    colours: R and G to 3 bits, B to 2) and that cube's [256, 3] palette."""
+    idx = ((img[:, :, 0] >> 5).astype(np.int64) << 5
+           | (img[:, :, 1] >> 5).astype(np.int64) << 2 | img[:, :, 2] >> 6)
+    c = np.arange(256)
+    pal = np.stack([(c >> 5) * 255 // 7, (c >> 2 & 7) * 255 // 7,
+                    (c & 3) * 85], -1).astype(np.uint8)
+    return idx.astype(np.uint8), pal
+
+
+def _gif_bytes(np, img):
+    """A plain GIF89a of an RGB uint8 image quantised to the 3-3-2 cube,
+    and the pixels it decodes to."""
+    import struct
+    idx, pal = _quantised(np, img)
+    h, w = idx.shape
+    data = (b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0)
+            + pal.tobytes() + b"," + struct.pack("<HHHHB", 0, 0, w, h, 0)
+            + b"\x08" + gif_blocks(gif_lzw(np, idx)) + b";")
+    return data, pal[idx]
+
+
+def _rle8(np, idx):
+    """BMP RLE8 of [h, w] indices, bottom-up: a run of 2 or more as an
+    encoded run, the pixels between as absolute runs (3 to 255, word
+    aligned) or runs of one, end of line after each row, end of bitmap."""
+    out = bytearray()
+    for row in idx[::-1].tolist():
+        i, n = 0, len(row)
+        while i < n:
+            j = i
+            while j < n and j - i < 255 and row[j] == row[i]:
+                j += 1
+            if j - i >= 2:
+                out += bytes([j - i, row[i]])
+                i = j
+                continue
+            j = i + 1                   # literals up to the next pair
+            while j < n and j - i < 255 and not (j + 1 < n
+                                                 and row[j] == row[j + 1]):
+                j += 1
+            lit = row[i:j]
+            if len(lit) >= 3:
+                out += bytes([0, len(lit)]) + bytes(lit) + bytes(len(lit) % 2)
+            else:
+                for v in lit:
+                    out += bytes([1, v])
+            i = j
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def write_bmp(np, px, bits, *, header=40, palette=None, compression=0,
+              masks=None, top_down=False, colors=None, offset=None,
+              rle=None):
+    """A BMP of ``px``: [h, w] palette indices (1, 4, 8 bits), [h, w]
+    16- or 32-bit pixel words, or [h, w, 3] RGB (24 bits); ``rle``: the
+    RLE data itself, byte for byte, in place of the rows. ``palette``
+    [n, 3] RGB (BGR0 entries, BGR after the 12-byte header); ``masks``
+    (r, g, b[, a]) in the header from 52 bytes on, after a 40-byte one;
+    ``colors`` the header's colour count (the palette's by default);
+    ``offset`` the pixel data's offset in the file header (where it lies
+    by default)."""
+    import struct
+    px = np.asarray(px)
+    h, w = px.shape[:2]
+    if rle is not None:
+        body = rle
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        if bits < 8:                    # the first pixel in the high bits
+            shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+            v = np.zeros((h, -(-w * bits // 8) * 8 // bits), np.uint8)
+            v[:, :w] = px
+            rows = np.bitwise_or.reduce(v.reshape(h, -1, 8 // bits) << shifts,
+                                        axis=2).astype(np.uint8)
+        elif bits == 24:
+            rows = px[:, :, ::-1].astype(np.uint8).reshape(h, -1)
+        else:
+            rows = px.astype({8: np.uint8, 16: "<u2", 32: "<u4"}[bits]
+                             ).reshape(h, -1).view(np.uint8)
+        padded = np.zeros((h, stride), np.uint8)
+        padded[:, :rows.shape[1]] = rows
+        body = (padded if top_down else padded[::-1]).tobytes()
+    entry = 3 if header == 12 else 4
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8).reshape(-1, 3)[:, ::-1]
+        pal = np.concatenate([p, np.zeros((len(p), entry - 3), np.uint8)],
+                             1).tobytes()
+    if colors is None:
+        colors = len(pal) // entry
+    if header == 12:
+        dib = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        dib = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                          1, bits, compression, len(body), 2835, 2835,
+                          colors, 0)
+        if header >= 52 and masks is not None:
+            dib += struct.pack("<4I", *(tuple(masks) + (0,))[:4])[
+                :header - 40]
+        dib += bytes(header - len(dib))
+    extra = (struct.pack("<3I", *masks[:3])
+             if header == 40 and masks is not None else b"")
+    head = dib + extra + pal
+    if offset is None:
+        offset = 14 + len(head)
+    data = b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset)
+    data += head + bytes(max(0, offset - 14 - len(head)))
+    return data + body
+
+
+def _bmp_bytes(np, img, rle8=False):
+    """A BMP (BITMAPINFOHEADER) of an RGB uint8 image: 24-bit bottom-up
+    rows, or ``rle8``: RLE8 of its 3-3-2 quantisation with the cube's
+    256-entry palette; and the pixels it decodes to."""
+    if not rle8:
+        return write_bmp(np, img, 24), img
+    idx, pal = _quantised(np, img)
+    return (write_bmp(np, idx, 8, compression=1, palette=pal,
+                      rle=_rle8(np, idx)), pal[idx])
+
+
 def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                      words, idx2concept, senti_table, zero_counters,
                      read_counters, keep):
@@ -886,10 +1090,14 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
             images = [n for n, w in FIXTURES.items()
                       if w == "decode"]
             progressive = [n for n in images if n.startswith("prog")]
-            # the CMYK, YCCK and Adobe-RGB JPEGs and the Adam7 and 16-bit
-            # PNGs among them
+            # the CMYK, YCCK and Adobe-RGB JPEGs, the Adam7 and 16-bit
+            # PNGs, the GIFs and the BMPs among them
             added = [n for n in images if n.startswith(
-                ("cmyk", "ycck", "adobe", "adam7")) or "16" in n]
+                ("cmyk", "ycck", "adobe", "adam7")) or "16" in n
+                or n.endswith((".gif", ".bmp"))]
+            _check(any(n.endswith(".gif") for n in images)
+                   and any(n.endswith(".bmp") for n in images),
+                   "no GIF or BMP among the daemon's image requests")
             b64 = {n: base64.b64encode(open(os.path.join(fixtures, n),
                                             "rb").read()).decode()
                    for n in images}
@@ -986,7 +1194,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                    f"{name} decodes unlike PIL")
         print(f"serving surface: {len(expected)} fixtures decode identical "
               "to PIL's arrays (progressive, CMYK, YCCK, Adobe-RGB JPEG, "
-              "Adam7 and 16-bit PNG included), "
+              "Adam7 and 16-bit PNG, interlaced, grey-ramp and offset GIF, "
+              "palette, 24-bit, RLE8 and bitfields BMP included), "
               f"{[n for n, w in FIXTURES.items() if w == 'refuse']} "
               "refused")
 
@@ -1025,13 +1234,18 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
 
     # 5. host times: decode and resize, median of 5; the progressive and
     # CMYK fixtures are the same photo, quality and sampling as the
-    # baseline one, the PNGs (plain and Adam7) its decoded pixels
+    # baseline one, the PNGs (plain and Adam7) and the 24-bit BMP its
+    # decoded pixels, the GIF and the RLE8 BMP those pixels in the 3-3-2
+    # colour cube
     jpeg = open(os.path.join(fixtures, "j420_448.jpg"), "rb").read()
     prog = open(os.path.join(fixtures, "prog420_448.jpg"), "rb").read()
     cmyk = open(os.path.join(fixtures, "cmyk420_448.jpg"), "rb").read()
     img448 = pre.load_image_bytes(jpeg)
     png = _png_bytes(img448, zlib)
     png_i = _png_bytes(img448, zlib, interlace=True)
+    gif, gif_px = _gif_bytes(np, img448)
+    bmp, _ = _bmp_bytes(np, img448)
+    rle, rle_px = _bmp_bytes(np, img448, rle8=True)
     img480 = np.random.default_rng(9).integers(0, 256, (480, 640, 3),
                                                dtype=np.uint8)
     bucket = pre.bucket_for_shape(480, 640, pre.DEFAULT_BUCKET_SHAPES)
@@ -1057,11 +1271,18 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
              "png_448_ms": host_ms(lambda: pre.load_image_bytes(png)),
              "png_448_adam7_ms": host_ms(
                  lambda: pre.load_image_bytes(png_i)),
+             "gif_448_ms": host_ms(lambda: pre.load_image_bytes(gif)),
+             "bmp_448_24bit_ms": host_ms(lambda: pre.load_image_bytes(bmp)),
+             "bmp_448_rle8_ms": host_ms(lambda: pre.load_image_bytes(rle)),
              "resize_480x640_ms": host_ms(
                  lambda: pre.resize_to_bucket(img480, bucket))}
     _check(np.array_equal(pre.load_image_bytes(png), img448)
            and np.array_equal(pre.load_image_bytes(png_i), img448),
            "the PNGs do not decode to their pixels")
+    _check(np.array_equal(pre.load_image_bytes(gif), gif_px)
+           and np.array_equal(pre.load_image_bytes(bmp), img448)
+           and np.array_equal(pre.load_image_bytes(rle), rle_px),
+           "the GIF and BMPs do not decode to their pixels")
     card = _smi()
     print(f"serving surface host times (median of 5, host CPU {cpu}, "
           f"{os.cpu_count()} cores, card {card}): decode 448x448 JPEG 4:2:0 "
@@ -1070,14 +1291,19 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
           f"{times['jpeg_448_420_progressive_ms']:.2f} ms, CMYK "
           f"({len(cmyk)} B) {times['jpeg_448_cmyk_ms']:.2f} ms, 448x448 PNG "
           f"({len(png)} B) {times['png_448_ms']:.2f} ms, Adam7 "
-          f"({len(png_i)} B) {times['png_448_adam7_ms']:.2f} ms, "
+          f"({len(png_i)} B) {times['png_448_adam7_ms']:.2f} ms, GIF "
+          f"({len(gif)} B) {times['gif_448_ms']:.2f} ms, BMP 24-bit "
+          f"({len(bmp)} B) {times['bmp_448_24bit_ms']:.2f} ms, RLE8 "
+          f"({len(rle)} B) {times['bmp_448_rle8_ms']:.2f} ms, "
           f"resize_to_bucket "
           f"480x640 -> {bucket[0]}x{bucket[1]} "
           f"{times['resize_480x640_ms']:.2f} ms")
     out["host_times"] = dict(times, cpu=cpu, jpeg_bytes=len(jpeg),
                              progressive_bytes=len(prog),
                              cmyk_bytes=len(cmyk), png_bytes=len(png),
-                             png_adam7_bytes=len(png_i), card=card)
+                             png_adam7_bytes=len(png_i),
+                             gif_bytes=len(gif), bmp_24bit_bytes=len(bmp),
+                             bmp_rle8_bytes=len(rle), card=card)
     return out
 
 
@@ -3736,8 +3962,9 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
                        "json_files": len(written),
                        "senti_captions": n_senti_caps}
 
-        # 2. the features: the 19 fixtures the port decodes (the
-        # progressive and CMYK JPEGs and Adam7 PNGs among them) and 32
+        # 2. the features: the 26 fixtures the port decodes (the
+        # progressive and CMYK JPEGs, Adam7 PNGs, GIFs and BMPs among
+        # them) and 32
         # PNGs over the three buckets, through `preprocess features` with
         # ResNet-101 read from a reference-named .pth, f32, encode batches
         # of 32; the pool's launches against the batches flushed

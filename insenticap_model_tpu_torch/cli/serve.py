@@ -13,7 +13,8 @@ same flags, endpoints, status codes and request path:
 Endpoints (JSON over HTTP):
   POST /caption   {"fc": [...], "att": [[[...]]],          feature mode
                    "sentiment": "auto"|"positive"|...}
-                  {"image_b64": "<base64 jpeg/png>", ...}  image mode
+                  {"image_b64": "<base64 image>", ...}     image mode
+                                   (JPEG, PNG, GIF or BMP)
                   {"image_path": "/data/imgs/a.jpg", ...}  image mode,
                                    needs --resnet101_ckpt; image_path
                                    additionally needs --image_root

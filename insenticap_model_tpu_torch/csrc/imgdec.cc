@@ -1,5 +1,6 @@
 // Host image decoding for the serving surface: baseline, extended-
-// sequential and progressive Huffman JPEG, and PNG's row filters.
+// sequential and progressive Huffman JPEG, PNG's row filters, GIF's LZW
+// and BMP's RLE8 and RLE4.
 //
 // The JAX package decodes with PIL (insenticap_model_tpu/preprocessing.py:
 // 50-80); the machine that serves the port has no PIL, so the port decodes
@@ -49,6 +50,14 @@
 // CRCs, inflates IDAT with zlib and scatters Adam7's passes;
 // isc_png_unfilter undoes the five row filters of an image or a pass,
 // which run sequentially along a row (Sub, Paeth).
+//
+// GIF and BMP: the Python side parses the headers as Pillow's
+// GifImagePlugin and BmpImagePlugin do; the two coders that run a pixel at
+// a time live here. isc_gif_lzw is Pillow's GIF decoder (GifDecode.c) over
+// the whole image data at once: the same table, code widths and sub-block
+// framing, so that a stream Pillow decodes gives the same indices and a
+// stream it cannot finish is refused. isc_bmp_rle is Pillow's BMP RLE
+// decoder (BmpRleDecoder), quirks included.
 //
 // C interface (ctypes): every entry returns 0, or non-zero with a
 // NUL-terminated message in err[errlen].
@@ -1195,6 +1204,234 @@ int isc_png_unfilter(const uint8_t* in, long long n, uint8_t* out, int h,
                     ")");
         return 1;
     }
+  }
+  return 0;
+}
+
+
+// Frame 0 of a GIF: the LZW image data at in[0, n) (the sub-blocks that
+// follow the minimum code size byte, up to the end of the file) decoded
+// into the frame [x0, x0 + fw) x [y0, y0 + fh) of plane [ph][pw] of
+// palette indices, rows in the order 0::8, 4::8, 2::4, 1::2 when
+// interlaced. As in Pillow: only a full frame ends the decoding; the
+// decoder sees the data as ImageFile.load hands it over, 64 KiB
+// (MAXBLOCK) at a time, and where it stops short of a whole sub-block, or
+// at an end code, the next 64 KiB are read and the codes after it go on
+// filling the frame, or, at the end of the file, the file is refused as
+// truncated; a code past the next free entry is refused; the table stops
+// growing at 4096 entries until a clear.
+int isc_gif_lzw(const uint8_t* in, long long n, uint8_t* plane, long long pw,
+                long long ph, long long x0, long long y0, long long fw,
+                long long fh, int bits, int interlace, char* err,
+                int errlen) {
+  enum { kTable = 4096, kBits = 12 };
+  const long long kChunk = 65536;
+  if (bits < 0 || bits > kBits) {
+    set_err(err, errlen, "GIF: bad LZW minimum code size " +
+                             std::to_string(bits));
+    return 1;
+  }
+  if (fw <= 0 || fh <= 0 || x0 < 0 || y0 < 0 || x0 + fw > pw ||
+      y0 + fh > ph) {
+    set_err(err, errlen, "GIF: frame outside the image");
+    return 1;
+  }
+  std::vector<int> link(kTable, 0);
+  std::vector<uint8_t> data(kTable, 0), buffer(kTable, 0);
+  const int clear = 1 << bits, end = clear + 1;
+  int next = 0, codesize = 0, codemask = 0, lastcode = 0, bufferindex = 0;
+  uint8_t lastdata = 0;
+  int state = 1;                  // 1: reset, 2: after a clear, 3: running
+  long long blocksize = 0, pos = 0, avail = std::min(n, kChunk);
+  auto more = [&]() -> bool {     // the next chunk, if the file has one
+    if (avail == n) {
+      set_err(err, errlen, "GIF: truncated image data");
+      return false;
+    }
+    avail = std::min(n, avail + kChunk);
+    return true;
+  };
+  uint32_t bitbuffer = 0;
+  int bitcount = 0;
+  // rows: pass (0 plain), step; the frame's (x, y)
+  int pass = interlace ? 1 : 0;
+  long long step = interlace ? 8 : 1, x = 0, y = 0;
+  auto newline = [&]() -> bool {  // false once the frame is full
+    x = 0;
+    y += step;
+    while (y >= fh) {
+      if (pass == 1) {
+        y = 4;
+        pass = 2;
+      } else if (pass == 2) {
+        step = 4;
+        y = 2;
+        pass = 3;
+      } else if (pass == 3) {
+        step = 2;
+        y = 1;
+        pass = 0;
+      } else {
+        return false;
+      }
+    }
+    return true;
+  };
+  for (;;) {
+    if (state == 1) {
+      next = clear + 2;
+      codesize = bits + 1;
+      codemask = (1 << codesize) - 1;
+      bufferindex = kTable;
+      state = 2;
+    }
+    const uint8_t* p;
+    int count;
+    if (bufferindex < kTable) {   // the rest of the last string
+      count = kTable - bufferindex;
+      p = &buffer[bufferindex];
+      bufferindex = kTable;
+    } else {
+      while (bitcount < codesize) {
+        if (blocksize > 0) {
+          bitbuffer |= (uint32_t)in[pos++] << bitcount;
+          bitcount += 8;
+          --blocksize;
+        } else if (pos >= avail || avail - pos < (long long)in[pos] + 1) {
+          if (!more()) return 1;  // a sub-block is decoded whole
+        } else {
+          blocksize = in[pos++];
+        }
+      }
+      int c = (int)(bitbuffer & (uint32_t)codemask);
+      bitbuffer >>= codesize;
+      bitcount -= codesize;
+      if (c == clear) {
+        if (state != 2) state = 1;
+        continue;
+      }
+      if (c == end) {
+        if (!more()) return 1;
+        continue;
+      }
+      count = 1;
+      p = &lastdata;
+      if (state == 2) {
+        if (c > clear) {
+          set_err(err, errlen, "GIF: corrupt image data (first code)");
+          return 1;
+        }
+        lastdata = (uint8_t)c;
+        lastcode = c;
+        state = 3;
+      } else {
+        const int thiscode = c;
+        if (c > next) {
+          set_err(err, errlen, "GIF: corrupt image data (undefined code)");
+          return 1;
+        }
+        if (c == next) {
+          if (bufferindex <= 0) {
+            set_err(err, errlen, "GIF: corrupt image data");
+            return 1;
+          }
+          buffer[--bufferindex] = lastdata;
+          c = lastcode;
+        }
+        while (c >= clear) {
+          if (bufferindex <= 0 || c >= kTable) {
+            set_err(err, errlen, "GIF: corrupt image data");
+            return 1;
+          }
+          buffer[--bufferindex] = data[c];
+          c = link[c];
+        }
+        lastdata = (uint8_t)c;
+        if (next < kTable) {
+          data[next] = (uint8_t)c;
+          link[next] = lastcode;
+          if (next == codemask && codesize < kBits) {
+            ++codesize;
+            codemask = (1 << codesize) - 1;
+          }
+          ++next;
+        }
+        lastcode = thiscode;
+      }
+    }
+    for (int k = 0; k < count; ++k) {
+      plane[(size_t)(y0 + y) * pw + x0 + x] = p[k];
+      if (++x >= fw && !newline()) return 0;
+    }
+  }
+}
+
+// A BMP's RLE8 or RLE4 pixels (in[0, n): the file from the pixel data's
+// offset `base` on) into out[h * w] palette indices, rows in the file's
+// order: Pillow's BmpRleDecoder. An encoded run is cut at the row's end
+// (its column count is not reset by a row that an absolute run or a delta
+// filled); end of line pads the row with index 0; a delta skips the two
+// bytes after it and takes right and up from the next two; an absolute run
+// of RLE4 reads count / 2 bytes (two pixels a byte), then the file
+// position is made even; end of bitmap, or the data running out, ends the
+// pixels, and too few of them is refused.
+int isc_bmp_rle(const uint8_t* in, long long n, long long base, uint8_t* out,
+                long long w, long long h, int rle4, char* err, int errlen) {
+  const long long dest = w * h;
+  long long len = 0, x = 0, pos = 0;
+  auto put = [&](uint8_t v) {
+    if (len < dest) out[len] = v;
+    ++len;
+  };
+  auto zeros = [&](long long k) {
+    for (long long i = len; i < len + k && i < dest; ++i) out[i] = 0;
+    len += k;
+  };
+  while (len < dest) {
+    if (n - pos < 2) break;
+    long long count = in[pos];
+    const uint8_t b = in[pos + 1];
+    pos += 2;
+    if (count) {
+      if (x + count > w) count = std::max(0LL, w - x);
+      for (long long i = 0; i < count; ++i)
+        put(rle4 ? (uint8_t)(i % 2 ? b & 15 : b >> 4) : b);
+      x += count;
+    } else if (b == 0) {          // end of line
+      zeros((w - len % w) % w);
+      x = 0;
+    } else if (b == 1) {          // end of bitmap
+      break;
+    } else if (b == 2) {          // delta
+      if (n - pos < 2) break;
+      pos += 2;
+      if (n - pos < 2) {
+        set_err(err, errlen, "BMP: truncated RLE delta");
+        return 1;
+      }
+      zeros(in[pos] + (long long)in[pos + 1] * w);
+      pos += 2;
+      x = len % w;
+    } else {                      // absolute run
+      const long long want = rle4 ? b / 2 : b;
+      const long long got = std::min(want, n - pos);
+      for (long long i = 0; i < got; ++i) {
+        if (rle4) {
+          put(in[pos + i] >> 4);
+          put(in[pos + i] & 15);
+        } else {
+          put(in[pos + i]);
+        }
+      }
+      pos += got;
+      if (got < want) break;
+      x += b;
+      if ((base + pos) % 2) ++pos;
+    }
+  }
+  if (len < dest) {
+    set_err(err, errlen, "BMP: not enough RLE image data");
+    return 1;
   }
   return 0;
 }

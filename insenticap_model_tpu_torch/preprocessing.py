@@ -31,7 +31,18 @@ PIL, so it carries its own, to give PIL's arrays bit for bit:
   is read as PIL reads it: 1 bit is mode "1" (RGB of 0 and 255), 2 and
   4 bits are "L" scaled to 0..255. At 16 bits PIL keeps grey as "I;16",
   whose RGB clamps each sample at 255, and takes the high byte of every
-  other type (grey+alpha as RGBA, grey in R, G and B).
+  other type (grey+alpha as RGBA, grey in R, G and B). GIF (its first
+  frame) and BMP follow Pillow's GifImagePlugin and BmpImagePlugin here,
+  with GIF's LZW and BMP's RLE8/RLE4 in the same library: a GIF frame on
+  its logical screen (grown to hold it; the rest index 0, or the
+  transparency index), "L" without a colour table or with the identity
+  grey ramp, else RGB through the frame's table; BMP at 1, 4 and 8 bits
+  through the palette (black and white as "1", the grey ramp as "L", each
+  read with Pillow's raw mode), 16 bits (5-5-5, 5-6-5) with Pillow's
+  floor-division expansion, 24 and 32 bits (the bitfield layouts Pillow
+  names), RLE8 and RLE4, headers of 12 to 124 bytes. The other formats
+  that Pillow's plugins recognise by signature (WebP, TIFF, PPM, ...) are
+  refused by name.
 * ``resize_to_bucket``: Pillow's ``BILINEAR`` resampler
   (``libImaging/Resample.c``) in numpy: separable, the horizontal pass
   first with a uint8 round between the passes, the triangle filter widened
@@ -82,8 +93,55 @@ _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGS = {"isc_jpeg_info": [_P, _LL, _IP, _IP, _IP, _P, _I],
          "isc_jpeg_decode": [_P, _LL, _P, _LL, _P, _I],
-         "isc_png_unfilter": [_P, _LL, _P, _I, _LL, _I, _P, _I]}
+         "isc_png_unfilter": [_P, _LL, _P, _I, _LL, _I, _P, _I],
+         "isc_gif_lzw": [_P, _LL, _P] + [_LL] * 6 + [_I, _I, _P, _I],
+         "isc_bmp_rle": [_P, _LL, _LL, _P, _LL, _LL, _I, _P, _I]}
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# formats that Pillow's plugins recognise (by their ``_accept``
+# signatures) and the decoders do not read: a refusal names them. Each
+# entry: (name, offset, prefixes)
+_REFUSED = (("WebP", 8, (b"WEBP",)),
+            ("TIFF", 0, (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*",
+                         b"MM\0+", b"II+\0")),
+            ("XV thumbnail", 0, (b"P7 332",)),
+            ("PPM (PBM, PGM, PNM, PFM)", 0,
+             tuple(b"P" + bytes([c]) for c in b"0123456fy")),
+            ("ICO", 0, (b"\0\0\1\0",)),
+            ("CUR or TGA", 0, (b"\0\0\2\0",)),
+            ("JPEG 2000", 0, (b"\xffO\xffQ", b"\0\0\0\x0cjP  \r\n\x87\n")),
+            ("AVIF", 4, (b"ftypavif", b"ftypavis")),
+            ("QOI", 0, (b"qoif",)), ("PSD", 0, (b"8BPS",)),
+            ("DDS", 0, (b"DDS ",)), ("ICNS", 0, (b"icns",)),
+            ("SGI", 0, (b"\x01\xda",)), ("Sun raster", 0, (b"Y\xa6j\x95",)),
+            ("PCX", 0, (b"\n\0", b"\n\2", b"\n\3", b"\n\5")),
+            ("DCX", 0, (b"\xb1h\xde:",)), ("BLP", 0, (b"BLP1", b"BLP2")),
+            ("FTEX", 0, (b"FTEX",)), ("MSP", 0, (b"DanM", b"LinS")),
+            ("IM", 0, (b"Image type:",)), ("FITS", 0, (b"SIMPLE",)),
+            ("HDF5", 0, (b"\x89HDF\r\n\x1a\n",)),
+            ("EPS", 0, (b"%!PS", b"\xc5\xd0\xd3\xc6")),
+            ("XPM", 0, (b"/* XPM */",)), ("XBM", 0, (b"#define",)),
+            ("MPEG", 0, (b"\0\0\1\xb3",)))
+# BMP: the DIB header sizes Pillow reads; its raw mode for each depth, and
+# for each bitfields layout (bits, masks); a raw mode's bits a pixel (32
+# for the others); the bytes of R, G and B in a 24- or 32-bit pixel
+_BMP_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+_BMP_RAW = {1: "P;1", 4: "P;4", 8: "P", 16: "BGR;15", 24: "BGR", 32: "BGRX"}
+_BMP_MASKS = {(32, (0xFF0000, 0xFF00, 0xFF, 0)): "BGRX",
+              (32, (0xFF000000, 0xFF0000, 0xFF00, 0)): "XBGR",
+              (32, (0xFF000000, 0xFF00, 0xFF, 0)): "BGXR",
+              (32, (0xFF000000, 0xFF0000, 0xFF00, 0xFF)): "ABGR",
+              (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)): "RGBA",
+              (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)): "BGRA",
+              (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): "BGAR",
+              (32, (0, 0, 0, 0)): "BGRA",
+              (24, (0xFF0000, 0xFF00, 0xFF)): "BGR",
+              (16, (0xF800, 0x7E0, 0x1F)): "BGR;16",
+              (16, (0x7C00, 0x3E0, 0x1F)): "BGR;15"}
+_RAW_BITS = {"1": 1, "L": 8, "P;1": 1, "P;4": 4, "P": 8, "BGR;15": 16,
+             "BGR;16": 16, "BGR": 24}
+_RAW_RGB = {"BGR": (2, 1, 0), "BGRX": (2, 1, 0), "XBGR": (3, 2, 1),
+            "BGXR": (3, 1, 0), "ABGR": (3, 2, 1), "RGBA": (0, 1, 2),
+            "BGRA": (2, 1, 0), "BGAR": (3, 1, 0)}
 # PIL refuses an image of more than twice Image.MAX_IMAGE_PIXELS (its
 # DecompressionBombError); so do the decoders, before allocating anything
 MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
@@ -237,21 +295,258 @@ def _decode_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(samples[:, :, :3])   # RGB, RGBA
 
 
+def _palette_rgb(entries: bytes, width: int, order=(0, 1, 2)) -> np.ndarray:
+    """[256, 3] uint8 RGB of a palette of ``width``-byte entries (R, G, B at
+    ``order``), as Pillow's ``putpalette`` takes it: more than 256 entries
+    refused, the indices past the last entry black."""
+    n = len(entries) // width
+    if n > 256:
+        raise ValueError(f"invalid palette size ({n} entries)")
+    pal = np.zeros((256, 3), np.uint8)
+    pal[:n] = np.frombuffer(entries[:n * width], np.uint8).reshape(
+        n, width)[:, list(order)]
+    return pal
+
+
+def _gif_palette_needed(p: bytes) -> bool:
+    """GifImagePlugin's ``_is_palette_needed``: False for the identity grey
+    ramp (entry i is (i, i, i)), which Pillow reads as mode "L"."""
+    for i in range(0, len(p), 3):
+        for k in range(3):
+            if len(p) <= i + k:        # Pillow's IndexError: not a GIF
+                raise ValueError("GIF: truncated colour table")
+            if p[i + k] != (i // 3 if k == 0 else p[i]):
+                return True
+    return False
+
+
+def _decode_gif(data: bytes) -> np.ndarray:
+    """The first frame of a GIF, as PIL's ``Image.open`` gives it: pasted
+    at its offset into the logical screen (grown to hold a frame that
+    reaches past it), the rest of the screen palette index 0, or frame 0's
+    transparency index where its graphic control block sets one. Mode "L"
+    (the index plane, 2-D) without a colour table or with the identity grey
+    ramp, else "P" as RGB through the table (the frame's own, or the
+    global one)."""
+    if len(data) < 13:
+        raise ValueError("GIF: truncated header")
+    w, h, flags = struct.unpack("<HHB", data[6:11])
+    pos = 13
+    palette = None                       # None: none; False: the grey ramp
+    if flags & 128:
+        table = data[pos:pos + (3 << ((flags & 7) + 1))]
+        pos += len(table)
+        if _gif_palette_needed(table):
+            palette = table
+
+    def read(k):
+        nonlocal pos
+        out = data[pos:pos + k]
+        pos += len(out)
+        return out
+
+    def sub_block():
+        k = read(1)
+        return read(k[0]) if k and k[0] else None
+    transparency = frame = None
+    s = read(1)
+    if not s or s == b";":
+        raise ValueError("GIF: no image in the file")
+    while True:                          # GifImagePlugin's _seek(0)
+        if not s:
+            s = read(1)
+        if not s or s == b";":
+            break
+        if s == b"!":                    # an extension
+            s = read(1)
+            if not s:
+                raise ValueError("GIF: truncated extension")
+            block = sub_block()
+            if s[0] == 249 and block is not None:
+                if len(block) < 3 or (block[0] & 1 and len(block) < 4):
+                    raise ValueError("GIF: truncated graphic control block")
+                if block[0] & 1:
+                    transparency = block[3]
+            elif s[0] == 254:            # a comment: its blocks, no more
+                while block:
+                    block = sub_block()
+                s = b""
+                continue
+            elif s[0] == 255 and block is not None and block.startswith(
+                    b"NETSCAPE2.0"):     # its loop count: one block more
+                sub_block()
+            while sub_block():
+                pass
+        elif s == b",":                  # the image descriptor
+            d = read(9)
+            if len(d) < 9:
+                raise ValueError("GIF: truncated image descriptor")
+            x0, y0, fw, fh, fl = struct.unpack("<HHHHB", d)
+            w, h = max(w, x0 + fw), max(h, y0 + fh)
+            if fl & 128:
+                table = read(3 << ((fl & 7) + 1))
+                palette = table if _gif_palette_needed(table) else False
+            k = read(1)
+            if not k:
+                raise ValueError("GIF: truncated image data")
+            frame = (x0, y0, fw, fh, bool(fl & 64), k[0], pos)
+            break
+        s = b""
+    if frame is None:
+        raise ValueError("GIF: no image in the file")
+    if not (w and h):
+        raise ValueError(f"GIF: empty image ({w}x{h})")
+    _check_pixels(h, w)
+    x0, y0, fw, fh, interlace, bits, pos = frame
+    plane = np.full((h, w), transparency or 0, np.uint8)
+    lzw = data[pos:]
+    _call(_lib().isc_gif_lzw, lzw, len(lzw), plane.ctypes.data, w, h, x0,
+          y0, fw, fh, bits, int(interlace))
+    if not palette:
+        return plane
+    return _palette_rgb(palette, 3)[plane]
+
+
+def _unpack16(px: np.ndarray, green_bits: int) -> np.ndarray:
+    """Pillow's BGR;15 (5-5-5) or BGR;16 (5-6-5) samples -> RGB: each
+    field v of b bits read as v * 255 // (2^b - 1)."""
+    px = px.astype(np.uint32)
+    b = px & 31
+    g = (px >> 5) & ((1 << green_bits) - 1)
+    r = (px >> (5 + green_bits)) & 31
+    gmax = (1 << green_bits) - 1
+    return np.stack([r * 255 // 31, g * 255 // gmax, b * 255 // 31],
+                    -1).astype(np.uint8)
+
+
+def _decode_bmp(data: bytes) -> np.ndarray:
+    """A BMP as PIL's BmpImagePlugin opens it: 1, 4 and 8 bits through
+    the palette (a black-and-white one read as mode "1", the identity grey
+    ramp as "L", each with its own raw mode over the file's rows), 16 bits
+    as 5-5-5 or 5-6-5, 24 and 32 bits (the bitfield layouts Pillow names,
+    the alpha dropped), RLE8 and RLE4; bottom-up or top-down rows padded to
+    4 bytes."""
+    if len(data) < 18:
+        raise ValueError("BMP: truncated header")
+    offset, hsize = struct.unpack("<II", data[10:18])
+    if hsize not in _BMP_HEADERS:
+        raise ValueError(f"BMP: unsupported header size {hsize}")
+    if len(data) < 14 + hsize:
+        raise ValueError("BMP: truncated header")
+    hd = data[18:14 + hsize]
+    pos = 14 + hsize
+    direction, compression, colors, masks = -1, 0, 0, None
+    if hsize == 12:                      # OS/2 1.x: 16-bit sizes
+        w, h, _, bits = struct.unpack("<HHHH", hd[:8])
+        pad = 3
+    else:
+        w, h, _, bits, compression = struct.unpack("<IIHHI", hd[:16])
+        (colors,) = struct.unpack("<I", hd[28:32])
+        if hd[7] == 0xFF:                # a negative height: top-down rows
+            direction, h = 1, 2 ** 32 - h
+        pad = 4
+        if compression == 3:             # the bitfields' masks
+            if hsize >= 52:
+                masks = struct.unpack("<4I", hd[36:52] if hsize >= 56
+                                      else hd[36:48] + bytes(4))
+            else:
+                if len(data) < pos + 12:
+                    raise ValueError("BMP: truncated bitfield masks")
+                masks = struct.unpack("<3I", data[pos:pos + 12]) + (0,)
+                pos += 12
+    if bits not in _BMP_RAW:
+        raise ValueError(f"BMP: unsupported bit depth {bits}")
+    colors = colors or 1 << bits
+    if offset == 14 + hsize and bits <= 8:
+        offset += 4 * colors
+    raw = _BMP_RAW[bits]
+    rle = compression in (1, 2)
+    if compression == 3:
+        key = (bits, masks if bits == 32 else masks[:3])
+        if key not in _BMP_MASKS:
+            raise ValueError(f"BMP: unsupported bitfields layout "
+                             f"({bits} bits, masks {masks})")
+        raw = _BMP_MASKS[key]
+    elif compression not in (0, 1, 2):
+        names = {4: "JPEG", 5: "PNG"}
+        raise ValueError(f"BMP: unsupported compression "
+                         f"{names.get(compression, compression)}")
+    pal = None
+    if bits <= 8:
+        if not 0 < colors <= 65536:
+            raise ValueError(f"BMP: unsupported palette size {colors}")
+        entries = data[pos:pos + pad * colors]
+        pos += len(entries)
+        grey = ((0, 255) if colors == 2 else range(colors))
+        if all(entries[i * pad:i * pad + 3] == bytes([v & 255] * 3)
+               for i, v in enumerate(grey)):
+            raw = "1" if colors == 2 else "L"
+        else:
+            pal = _palette_rgb(entries, pad, (2, 1, 0))
+    if not (w and h):
+        raise ValueError(f"BMP: empty image ({w}x{h})")
+    _check_pixels(h, w)
+    start = offset or pos
+    if rle:
+        if raw not in ("P", "L", "P;1", "P;4"):
+            raise ValueError(f"BMP: RLE at {bits} bits ({raw})")
+        px = np.empty((h, w), np.uint8)
+        body = data[start:]
+        _call(_lib().isc_bmp_rle, body, len(body), start, px.ctypes.data, w,
+              h, int(compression == 2))
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        row = (w * _RAW_BITS.get(raw, 32) + 7) // 8
+        if row > stride:
+            raise ValueError(f"BMP: rows of {stride} bytes hold no {raw} "
+                             f"row of {w} pixels")
+        if len(data) - start < (h - 1) * stride + row:
+            raise ValueError("BMP: truncated image data")
+        rows = np.frombuffer(data, np.uint8, h * stride - stride + row,
+                             start)
+        rows = np.lib.stride_tricks.as_strided(rows, (h, row), (stride, 1))
+        if raw in ("1", "P;1", "P;4"):
+            px = _unpack_bits(rows, 4 if raw == "P;4" else 1, w)
+        elif raw in ("L", "P"):
+            px = rows
+        elif raw in ("BGR;15", "BGR;16"):
+            px = _unpack16(rows[:, :2 * w].copy().view("<u2"),
+                           5 if raw == "BGR;15" else 6)
+        else:
+            px = rows.reshape(h, w, -1)[:, :, list(_RAW_RGB[raw])]
+    if direction < 0:
+        px = px[::-1]
+    if raw == "1":                       # mode "1", then RGB
+        return np.repeat((px * 255)[:, :, None], 3, axis=2)
+    if pal is not None:
+        return pal[px]
+    return np.ascontiguousarray(px)
+
+
 def load_image_bytes(data: bytes) -> np.ndarray:
-    """Encoded JPEG or PNG bytes -> HWC uint8 RGB, or HW uint8 for a
-    greyscale image (8-bit grey PNG, one-component JPEG), as the JAX
-    package's PIL path gives them: every PNG (any colour type and depth,
-    Adam7 or not) and every 8-bit Huffman JPEG of 1, 3 or 4 components
-    (YCbCr, RGB, CMYK, YCCK), baseline or progressive. Anything else, or
-    what the decoders do not take (lossless, hierarchical, arithmetic,
-    12-bit or 2-component JPEG, a truncated or corrupt file), raises
-    ValueError."""
+    """Encoded image bytes -> HWC uint8 RGB, or HW uint8 for a greyscale
+    image (8-bit grey PNG, one-component JPEG, a GIF or BMP of grey
+    indices), as the JAX package's PIL path gives them: every PNG (any
+    colour type and depth, Adam7 or not), every 8-bit Huffman JPEG of 1, 3
+    or 4 components (YCbCr, RGB, CMYK, YCCK), baseline or progressive,
+    every GIF (its first frame) and every BMP that PIL opens. What PIL
+    refuses, and what the decoders do not take (lossless, hierarchical,
+    arithmetic, 12-bit or 2-component JPEG; WebP, TIFF, PPM and the other
+    formats of ``_REFUSED``, by name), raises ValueError."""
     data = bytes(data)
     if data[:2] == b"\xff\xd8":
         return _decode_jpeg(data)
     if data[:8] == _PNG_SIG:
         return _decode_png(data)
-    raise ValueError("not a JPEG or PNG image")
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return _decode_gif(data)
+    if data[:2] == b"BM":
+        return _decode_bmp(data)
+    for name, at, prefixes in _REFUSED:
+        if data[at:].startswith(prefixes):
+            raise ValueError(f"unsupported: {name} (the decoders read "
+                             "JPEG, PNG, GIF and BMP)")
+    raise ValueError("not an image the decoders read (JPEG, PNG, GIF, BMP)")
 
 
 def load_image(path: str) -> np.ndarray:

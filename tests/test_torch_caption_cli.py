@@ -1,7 +1,7 @@
 """The port's caption command against the JAX package's on the CPU in f32:
 the same checkpoints (written by the JAX package's ``checkpoint.save`` at
 small decode widths, the ResNet-101 at full depth), the same JPEG and PNG,
-auto and forced sentiment. The records must be identical apart from the
+auto and forced sentiment, and a GIF and a BMP. The records must be identical apart from the
 score (within 1e-4), and the dumped attention maps within 1e-5."""
 import json
 
@@ -57,6 +57,8 @@ def tree(tmp_path_factory):
                   + g.normal(0, 20, (64, 64, 3)), 0, 255).astype(np.uint8)
     Image.fromarray(img).save(d / "a.jpg", quality=90)
     Image.fromarray(img[::-1]).save(d / "b.png")
+    Image.fromarray(img[:, ::-1]).quantize(128).save(d / "c.gif")
+    Image.fromarray(img.transpose(1, 0, 2)).save(d / "d.bmp")
     return d
 
 
@@ -97,6 +99,28 @@ def test_caption_run_matches_jax(tree, sentiment, capsys):
             if k not in ("tokens", "words"):
                 np.testing.assert_allclose(ga[k], wa[k], atol=1e-5, rtol=0)
         np.testing.assert_allclose(ga["cont"].sum((-1, -2)), 1.0, atol=1e-5)
+
+
+def test_caption_run_reads_gif_and_bmp_as_jax(tree):
+    """A GIF and a 24-bit BMP, which the port's decoders refused before
+    (stopping the command at the first): the records equal the JAX
+    package's, whose PIL reads both."""
+    d = tree
+    args = ["-i", str(d / "c.gif"), str(d / "d.bmp"),
+            "--rl_model", str(d / "rl.ckpt"),
+            "--concept_model", str(d / "cpt.ckpt"),
+            "--resnet101_ckpt", str(d / "resnet.ckpt"),
+            "--sentiment_detector_json", str(d / "senti.json"),
+            "--max_seq_len", "6", "--beam_size", "2", "--num_concepts", "3",
+            "--num_sentiments", "4"]
+    want = jcaption.run(jcaption.build_parser().parse_args(args))
+    got = tcaption.run(tcaption.build_parser().parse_args(
+        args + ["--device", "cpu"]))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert {k: v for k, v in g.items() if k != "score"} == \
+            {k: v for k, v in w.items() if k != "score"}
+        assert abs(g["score"] - w["score"]) <= 1e-4
 
 
 def test_caption_refuses_cuda_without_a_card(tree):

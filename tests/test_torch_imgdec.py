@@ -24,9 +24,11 @@ with and without tRNS. What the decoders refuse raises ValueError naming
 it: lossless, hierarchical and arithmetic-coded JPEG, 12-bit and
 2-component JPEG, a progression libjpeg refuses, a Huffman code no table
 holds, truncated and CRC-corrupt files; each such case also records
-whether PIL decodes it. The committed fixtures under
-``tests/data/torch_images`` are rebuilt and must equal what is
-committed."""
+whether PIL decodes it. Corrupted files of every format (GIF and BMP
+among them: ``test_torch_imgdec_gifbmp.py`` holds their matrix) decode or
+raise ValueError, and headers past PIL's pixel limit are refused. The
+committed fixtures under ``tests/data/torch_images`` are rebuilt and must
+equal what is committed."""
 import io
 import os
 import struct
@@ -40,8 +42,8 @@ from insenticap_model_tpu_torch import preprocessing as tpre
 
 import torch_images
 from torch_images import (JFIF, adobe, chunk, filtered, image_data,
-                          make_png, png_file, seg, write_jpeg,
-                          write_lossless_jpeg)
+                          make_png, png_file, seg, write_bmp, write_gif,
+                          write_jpeg, write_lossless_jpeg)
 
 Image = pytest.importorskip("PIL.Image")
 ImageFile = pytest.importorskip("PIL.ImageFile")
@@ -71,6 +73,13 @@ def _same(data):
     assert got.dtype == want.dtype == np.uint8
     assert got.shape == want.shape
     np.testing.assert_array_equal(got, want)
+
+
+def _pil(im, fmt, **kw):
+    """PIL's file of an image, in ``fmt``."""
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
 
 
 def _jpeg(img, **kw):
@@ -460,7 +469,7 @@ def test_refusals():
     bad = bytearray(png)
     bad[40] ^= 1
     _refused(bytes(bad), "CRC")
-    _refused(b"nonsense", "not a JPEG or PNG")
+    _refused(b"nonsense", "not an image the decoders read")
     # an Adobe marker with transform 0 and no JFIF marker (which would
     # win): libjpeg takes the samples as RGB, and so does the port
     assert data[2:4] == b"\xff\xe0"
@@ -521,13 +530,29 @@ def test_still_refused(kind):
 
 def test_decompression_bombs_refused():
     """Headers that declare more pixels than PIL allows are refused before
-    anything is allocated, interlaced or not; a PNG whose zlib stream
-    inflates past the image (or past the sum of its Adam7 passes) is read
-    only as far as the image."""
+    anything is allocated, interlaced or not (a JPEG frame, a PNG header,
+    a GIF screen and a GIF frame that grows it, a BMP header, bottom-up
+    and top-down), as PIL refuses each; a PNG whose zlib stream inflates
+    past the image (or past the sum of its Adam7 passes) is read only as
+    far as the image."""
     data = bytearray(_jpeg(_image(16, 16, "smooth")))
     sof = data.index(b"\xff\xc0")
     data[sof + 5:sof + 9] = struct.pack(">HH", 60000, 60000)
     _refused(bytes(data), "exceeds the limit")
+    idx = np.zeros((4, 4), np.int64)
+    bombs = [write_gif(idx, screen=(60000, 60000), table=bytes(12),
+                     min_size=2),
+             write_gif(idx, screen=(4, 4), pos=(59990, 59990),
+                       table=bytes(12), min_size=2)]
+    for top_down in (False, True):
+        bmp = bytearray(write_bmp(_image(2, 3, "random"), 24,
+                                  top_down=top_down))
+        bmp[18:26] = struct.pack("<ii", 50000, -50000 if top_down else 50000)
+        bombs.append(bytes(bmp))
+    for data in bombs:
+        _refused(data, "exceeds the limit")
+        with pytest.raises(Image.DecompressionBombError):
+            jpre.load_image_bytes(data)
     raw = filtered(np.zeros((2, 3 * 50000), np.uint8), 3, 0)
     for interlace in (0, 1):
         _refused(png_file(50000, 50000, 8, 2, raw, interlace=interlace),
@@ -573,9 +598,30 @@ def test_mutated_files_raise_value_error_or_decode(seed):
                           plte=bytes(range(48))))
     seeds.append(make_png(g16.integers(0, 1 << 16, (19, 23, 4)), 16, 6,
                           interlace=1))
-    for i in range(600):
+    # GIF and BMP: PIL's palette GIF (interlaced) and grey ramp, the
+    # writer's offset frame with a transparency index; PIL's 8-bit, 1-bit
+    # and 24-bit BMPs, the writer's RLE8, RLE4 and 5-6-5 bitfields
+    photo = Image.fromarray(_image(19, 23, "random"))
+    seeds += [_pil(photo.quantize(40), "GIF"),
+              _pil(photo.convert("1"), "GIF"),
+              write_gif(g16.integers(0, 6, (9, 11)), screen=(15, 13),
+                        pos=(3, 2), table=bytes(range(24)), transparency=5,
+                        min_size=3),
+              _pil(photo.quantize(40), "BMP"), _pil(photo.convert("1"), "BMP"),
+              _pil(photo, "BMP"),
+              write_bmp(np.zeros((4, 6)), 8, compression=1,
+                        palette=g16.integers(0, 256, (8, 3)),
+                        rle=bytes([4, 7, 0, 0, 0, 5, 1, 2, 3, 4, 5, 0, 0, 2,
+                                   9, 9, 2, 1, 6, 3, 0, 0, 3, 6, 0, 1])),
+              write_bmp(np.zeros((3, 5)), 4, compression=2,
+                        palette=g16.integers(0, 256, (16, 3)),
+                        rle=bytes([5, 0x12, 0, 0, 0, 4, 0x34, 0x56, 0, 0,
+                                   3, 0x78, 0, 0, 0, 1])),
+              write_bmp(g16.integers(0, 1 << 16, (7, 9)), 16, header=124,
+                        compression=3, masks=(0xF800, 0x7E0, 0x1F))]
+    for i in range(24 * len(seeds)):    # each seed 6 times each kind
         d = bytearray(seeds[i % len(seeds)])
-        kind = i % 4
+        kind = i // len(seeds) % 4
         if kind == 0:
             for _ in range(int(g.integers(1, 8))):
                 d[int(g.integers(0, len(d)))] = int(g.integers(0, 256))
@@ -653,7 +699,7 @@ def test_fixtures_match_pil():
             assert f.read() == data, name
     sizes = sum(os.path.getsize(os.path.join(torch_images.DIR, n))
                 for n in committed)
-    assert len(committed) <= 22 and sizes < 300_000
+    assert len(committed) <= 28 and sizes < 300_000
     with np.load(os.path.join(torch_images.DIR, "expected.npz")) as npz:
         want = torch_images.decode_expected(npz)
     pil = torch_images.expected(files)

@@ -3,8 +3,9 @@
 stage on the caption datasets and sentiment corpus of
 ``tests/test_preprocessing.py``'s ``corpus_tree`` (the LMs trained by the
 repo's ``isclm``), and feature extraction in both bucket modes at full
-ResNet-101 depth on tiny PNGs (and on a CMYK JPEG and an Adam7-interlaced
-PNG, which the port decodes as PIL does), with the same weights.
+ResNet-101 depth on tiny PNGs (and on a CMYK JPEG, an Adam7-interlaced
+PNG, GIFs and BMPs, which the port decodes as PIL does), with the same
+weights.
 
 Tolerances: every file the text stages write is held byte for byte. The
 features within 1e-5 of the output's largest magnitude (f32, sums in
@@ -25,7 +26,7 @@ from insenticap_model_tpu_torch import preprocessing as tpp
 from insenticap_model_tpu_torch.cli import preprocess as tcli
 from insenticap_model_tpu_torch.data.feature_store import open_store
 from test_preprocessing import corpus_tree  # noqa: F401 (a fixture)
-from torch_images import make_png
+from torch_images import make_png, write_bmp
 from torch_parity import encoder_params, resnet_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -179,6 +180,39 @@ def test_preprocess_features_reads_cmyk_and_interlaced(weights, tmp_path):
                "--feat_batch_size", "2", "--device", "cpu"])
     _assert_stores_close(str(tmp_path / "jax"), str(tmp_path / "port"),
                          ["adam7.png", "cmyk.jpg"])
+
+
+def test_preprocess_features_reads_gif_and_bmp(weights, tmp_path):
+    """``preprocess features`` over a folder of a palette GIF, a grey-ramp
+    GIF (PIL's "L"), a 24-bit BMP and an RLE8 BMP (each refused by the
+    port's decoder before, which stopped the whole extraction): the
+    features equal the JAX package's, whose PIL reads them all."""
+    from PIL import Image
+    jp, _ = weights
+    imgs = tmp_path / "imgs"
+    os.makedirs(imgs)
+    g = np.random.default_rng(6)
+    photo = Image.fromarray(g.integers(0, 256, (70, 90, 3)).astype(np.uint8))
+    photo.quantize(64).save(imgs / "p.gif")
+    photo.convert("1").save(imgs / "grey.gif")
+    photo.save(imgs / "rgb.bmp")
+    (imgs / "rle.bmp").write_bytes(write_bmp(
+        np.zeros((64, 64)), 8, compression=1,
+        palette=g.integers(0, 256, (256, 3)),
+        rle=b"".join(bytes([64, int(v), 0, 0]) for v in
+                     g.integers(0, 256, 64)) + b"\0\1"))
+    pth = str(tmp_path / "resnet101.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                resnet_state_dict(0).items()}, pth)
+    jpp.extract_imgs_feat(str(imgs), str(tmp_path / "jax"), jp, batch_size=2,
+                          store_format="native", bucket_mode="resize",
+                          bucket_shapes=((64, 64), (48, 64), (64, 48)))
+    tcli.main(["features", "--imgs_dir", str(imgs),
+               "--feats_dir", str(tmp_path / "port"),
+               "--resnet101_file", pth, "--feat_bucket_shapes", BUCKETS,
+               "--feat_batch_size", "2", "--device", "cpu"])
+    _assert_stores_close(str(tmp_path / "jax"), str(tmp_path / "port"),
+                         ["grey.gif", "p.gif", "rgb.bmp", "rle.bmp"])
 
 
 def test_h5_store_is_refused_by_name(tmp_path):

@@ -2,8 +2,9 @@
 
 ``ServeApp.handle_caption`` of both packages, on the same checkpoints
 (written by the JAX package) and the same payloads: feature mode, auto and
-forced; image_b64 JPEG and PNG, a CMYK JPEG and an Adam7-interlaced PNG
-among them; image_path. Both use the same substituted
+forced; image_b64 JPEG and PNG, a CMYK JPEG, an Adam7-interlaced PNG, a
+palette GIF, a grey-ramp GIF (PIL's "L") and a palette BMP among them;
+image_path. Both use the same substituted
 tiny encoder, as the JAX package's own daemon test does (the encoder has
 its own parity tests). Captions, sentiments and concepts must be identical
 and scores within 1e-4. Then the port's server over a real socket gives
@@ -88,6 +89,11 @@ def tree(tmp_path_factory, settings):
         d / "imgs" / "cmyk.jpg", quality=85)
     (d / "imgs" / "adam7.png").write_bytes(
         make_png(smooth[:, ::-1], 8, 2, interlace=1))
+    Image.fromarray(smooth).quantize(64).save(d / "imgs" / "photo.gif")
+    Image.fromarray(smooth[:, ::-1]).convert("1").save(d / "imgs" /
+                                                       "grey.gif")
+    Image.fromarray(smooth[::-1]).quantize(100).save(d / "imgs" /
+                                                     "photo.bmp")
     return d
 
 
@@ -148,6 +154,11 @@ def _payloads(d, settings):
             "cmyk_b64": {"image_b64": b64("cmyk.jpg"), "sentiment": "auto"},
             "adam7_b64": {"image_b64": b64("adam7.png"),
                           "sentiment": "neutral"},
+            "gif_b64": {"image_b64": b64("photo.gif"), "sentiment": "auto"},
+            "grey_gif_b64": {"image_b64": b64("grey.gif"),
+                             "sentiment": "auto"},
+            "bmp_b64": {"image_b64": b64("photo.bmp"),
+                        "sentiment": "negative"},
             "path": {"image_path": str(d / "imgs" / "photo.jpg")}}
 
 

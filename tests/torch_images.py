@@ -20,7 +20,14 @@ which reads them on the card without this file's PIL and JAX imports.
 The writers: ``write_jpeg`` writes baseline or progressive JPEGs of random
 quantised coefficients at any sampling factors, of 1 to 4 components,
 with or without JFIF and Adobe markers; ``make_png`` writes PNGs of any
-colour type and depth, each of the five row filters, Adam7 or not."""
+colour type and depth, each of the five row filters, Adam7 or not;
+``write_gif`` writes GIFs of any colour tables, minimum code size and
+frame placement, with graphic control and other extensions and more
+frames (its LZW coder, ``chip_smoke.gif_lzw``, clears a full table or goes
+on at 12 bits); ``write_bmp`` (``chip_smoke.write_bmp``, which also
+writes the BMPs the smoke run times) writes BMPs of every header size,
+depth, palette, bitfield layout and row order, or of RLE data given byte
+for byte."""
 import io
 import os
 import struct
@@ -31,8 +38,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+import chip_smoke  # noqa: E402
 from chip_smoke import (FIXTURE_DIR as DIR, FIXTURES, SAME_PIXELS,  # noqa: E402,F401
-                        decode_expected)
+                        decode_expected, gif_blocks)
 
 
 def _photo(h, w, seed, noise=6.0):
@@ -340,6 +348,62 @@ def make_png(samples, depth, ctype, ft=-1, *, interlace=0, plte=None,
                     interlace=interlace, plte=plte, chunks=chunks)
 
 
+# -- a small GIF writer: what PIL cannot write ------------------------------
+
+def _table_bits(table):
+    """A colour table's size field: 3 << (bits + 1) bytes."""
+    return max(0, (len(table) // 3 - 1).bit_length() - 1)
+
+
+def gif_frame(idx, pos=(0, 0), *, local_table=None, transparency=None,
+              interlace=False, min_size=8, **lzw):
+    """One GIF image: a graphic control block where ``transparency`` is an
+    index, the image descriptor of [h, w] indices ``idx`` at ``pos`` (x,
+    y), its ``local_table`` (RGB bytes, 2^k entries) if any, the
+    LZW data of its rows (in the interlaced order 0::8, 4::8, 2::4, 1::2
+    where ``interlace``) at ``min_size``; ``lzw``: ``gif_lzw``'s
+    options."""
+    idx = np.asarray(idx)
+    h, w = idx.shape
+    out = b""
+    if transparency is not None:
+        out += b"!\xf9\x04\x01\x00\x00" + bytes([transparency]) + b"\x00"
+    flags = (0x40 if interlace else 0) | (
+        0x80 | _table_bits(local_table) if local_table is not None else 0)
+    out += b"," + struct.pack("<HHHHB", pos[0], pos[1], w, h, flags)
+    if local_table is not None:
+        out += local_table
+    if interlace:
+        idx = np.concatenate([idx[0::8], idx[4::8], idx[2::4], idx[1::2]])
+    return out + bytes([min_size]) + gif_blocks(
+        chip_smoke.gif_lzw(np, idx, min_size, **lzw))
+
+
+def write_gif(idx, *, screen=None, table=None, background=0, version=b"89a",
+              extensions=b"", frames=(), **frame):
+    """A GIF of frame ``idx`` (``gif_frame``'s arguments in ``frame``) on
+    a logical ``screen`` (w, h; the frame's size by default) with global
+    colour ``table`` (RGB bytes, 2^k entries) if any; ``extensions`` (raw
+    blocks) before the first frame, ``frames`` (keyword dicts of
+    ``gif_frame``) after it."""
+    h, w = np.shape(idx)
+    sw, sh = screen or (w, h)
+    flags = 0x80 | _table_bits(table) if table is not None else 0
+    out = (b"GIF" + version + struct.pack("<HHBBB", sw, sh, flags,
+                                          background, 0)
+           + (table or b"") + extensions + gif_frame(idx, **frame))
+    for f in frames:
+        out += gif_frame(**f)
+    return out + b";"
+
+
+# -- the BMP writer (every header, depth and layout) is chip_smoke's -------
+
+def write_bmp(px, bits, **kw):
+    """``chip_smoke.write_bmp`` with numpy."""
+    return chip_smoke.write_bmp(np, px, bits, **kw)
+
+
 def build():
     """{file name: bytes} of every fixture, written by PIL or, where PIL
     cannot, by the writers here."""
@@ -393,6 +457,32 @@ def build():
                            _photo(29, 41, 5)[:, :, :1]], -1)
     save("rgba.png", Image.fromarray(rgba), "PNG")
     save("p.png", Image.fromarray(_photo(31, 39, 6)).quantize(37), "PNG")
+    # GIF: PIL's interlaced palette GIF (both sides 16 or more) and its
+    # grey ramp (written from mode "1", read as "L"); the writer's frame
+    # at an offset in a larger screen, with a transparency index
+    save("interlaced.gif", Image.fromarray(_photo(31, 39, 15)).quantize(64),
+         "GIF")
+    save("ramp.gif", Image.fromarray(_photo(23, 29, 16)).convert("1"), "GIF")
+    g = np.random.default_rng(17)
+    out["offset.gif"] = write_gif(
+        g.integers(0, 6, (9, 11)), screen=(15, 13), pos=(3, 2),
+        table=bytes(g.integers(0, 256, 24, dtype=np.uint8).tolist()),
+        transparency=5, min_size=3)
+    # BMP: PIL's 8-bit palette and 24-bit files (rgb.png's pixels); the
+    # writer's RLE8 with a delta and 5-6-5 bitfields
+    save("p8.bmp", Image.fromarray(_photo(31, 39, 6)).quantize(37), "BMP")
+    save("rgb24.bmp", Image.fromarray(rgb), "BMP")
+    # 6x4, bottom-up: an encoded run, end of line, an absolute run (word
+    # aligned), a delta (Pillow reads the two bytes after its escape as
+    # padding, then right 2 and up 1), an encoded run cut at the row's
+    # end that fills the image before the end of line and of bitmap
+    rle = bytes([4, 7, 0, 0, 0, 5, 1, 2, 3, 4, 5, 0, 0, 2, 9, 9, 2, 1,
+                 6, 3, 0, 0, 3, 6, 0, 1])
+    out["rle8.bmp"] = write_bmp(np.zeros((4, 6)), 8, rle=rle, compression=1,
+                                palette=g.integers(0, 256, (8, 3)))
+    out["bf565.bmp"] = write_bmp(g.integers(0, 1 << 16, (13, 17)), 16,
+                                 header=124, compression=3,
+                                 masks=(0xF800, 0x7E0, 0x1F))
     return out
 
 
