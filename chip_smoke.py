@@ -69,23 +69,29 @@ C++ compiler), then:
    bit-identical; ``cli.serve.make_server`` on 127.0.0.1:0 (bf16,
    ``--warm``, ``--image_root`` the committed fixtures) answers feature
    requests (auto and forced), ``image_b64`` of the committed JPEG, PNG,
-   GIF and BMP fixtures and two ``image_path`` requests from threads, each
+   GIF, BMP and lossless WebP fixtures and three ``image_path`` requests
+   (a JPEG, a PNG and a WebP animation) from threads, each
    with a caption and 5 distinct concepts, v1 and the pool launched (counts
    set to 0 just before; the three progressive JPEGs, CMYK (4:4:4 and a
    448x448 4:2:0), YCCK and Adobe-RGB JPEGs, Adam7 RGB and 4-bit palette
    PNGs, 16-bit RGB and grey PNGs, an interlaced palette GIF, a grey-ramp
    GIF and a GIF frame at an offset with a transparency index, and 8-bit
-   palette, 24-bit, RLE8 and 5-6-5 bitfields BMPs among the fixtures); a
+   palette, 24-bit, RLE8 and 5-6-5 bitfields BMPs, and lossless WebPs
+   (simple, RGBA, palette, VP8X with ICC, an animation whose first frame
+   lies at an offset on its canvas) among the fixtures); a
    path outside the root and a 12-bit JPEG (which the decoders and PIL
    both refuse) are 400s, an oversized body 413, /stats, /metrics and /healthz 200,
    and the server drains on shutdown (p50/p99 per bucket printed); the
    port's decoders on this host give the fixtures' committed PIL arrays
-   exactly; ``cli.caption.run`` on two fixtures in f32 dumps attention
+   exactly; ``cli.caption.run`` on three fixtures (a JPEG, a PNG and a
+   lossless WebP) in f32 dumps attention
    maps that sum to 1 within 1e-5; and the host's decode of a 448x448
    JPEG (4:2:0), baseline, progressive and CMYK (the same photo), and
    PNG, plain and Adam7 (its pixels), GIF and BMP, 24-bit and RLE8 (its
    pixels in the 3-3-2 colour cube for the GIF and RLE8, each written
-   here without PIL and decoding to the pixels written), and a 480x640
+   here without PIL and decoding to the pixels written), lossless WebP
+   (PIL's of its pixels, committed; a corner of it written here decodes
+   to its pixels too), and a 480x640
    ``resize_to_bucket`` are timed (median of 5, the card's name and power
    limit beside them);
 3f. drives the XE pre-training stage (``cli.train_xe.train``) at full
@@ -180,7 +186,7 @@ C++ compiler), then:
    largest kernels, the CIDEr-D reward's device time, the tables' build
    seconds and bytes and the dump's captions/s;
 3i. drives the offline and evaluation CLIs on phase 3h's tree:
-   ``preprocess`` (the text stages, the LMs, the features of the 26
+   ``preprocess`` (the text stages, the LMs, the features of the 32
    decodable fixtures and 32 PNGs, the pool's launches equal to the encode
    batches flushed), ``convert_checkpoint``, ``reproduce_table`` in f32
    (the ``.ckpt``, the ``.pth`` and the plain path, one table) and in bf16
@@ -432,14 +438,20 @@ FIXTURES = {"j444.jpg": "decode", "j422.jpg": "decode",
             "interlaced.gif": "decode", "ramp.gif": "decode",
             "offset.gif": "decode", "p8.bmp": "decode",
             "rgb24.bmp": "decode", "rle8.bmp": "decode",
-            "bf565.bmp": "decode"}
+            "bf565.bmp": "decode", "lossless_rgb.webp": "decode",
+            "lossless_p.webp": "decode", "lossless_rgba.webp": "decode",
+            "lossless_icc.webp": "decode", "lossless_anim.webp": "decode",
+            "lossless_448.webp": "decode"}
 # a fixture whose PIL array is another's, stored once in expected.npz
 # under the other name: the same photo at the same quality and sampling,
 # written progressive (the same coefficients, so the same pixels), and
 # rgb.png's pixels interlaced, as the high bytes of 16-bit samples and as
-# a 24-bit BMP
+# a 24-bit BMP; lossless WebPs of PNGs' and a JPEG's decoded pixels
 SAME_PIXELS = {"prog420_448.jpg": "j420_448.jpg", "adam7.png": "rgb.png",
-               "rgb16.png": "rgb.png", "rgb24.bmp": "rgb.png"}
+               "rgb16.png": "rgb.png", "rgb24.bmp": "rgb.png",
+               "lossless_rgb.webp": "rgb.png", "lossless_p.webp": "p.png",
+               "lossless_rgba.webp": "rgba.png",
+               "lossless_448.webp": "j420_448.jpg"}
 # phase 3f, the XE stage: the reference trainer's xe batch and learning
 # rate; 34 train images of 3 captions give 5 batches, 7 val images 2 (the
 # last padded), 20 test images one dump batch
@@ -484,8 +496,8 @@ RL_BS = 40
 RL_LR = 4e-5
 RL_N_IMG = {"train": 80, "val": 40, "test": 40}
 RL_N_SENTI_IMG = {"train": 40, "val": 4, "test": 40}
-# phase 3i, the offline and evaluation CLIs: 58 images for the features
-# (the 26 fixtures the port decodes and 32 PNGs, over the three buckets) in
+# phase 3i, the offline and evaluation CLIs: 64 images for the features
+# (the 32 fixtures the port decodes and 32 PNGs, over the three buckets) in
 # encode batches of 32, the reference CLI's; two of them again on the CPU,
 # whose f32 convolutions sum in other orders than cuDNN's through 104
 # layers: fc and att within 1e-4 of their largest magnitude (the port and
@@ -872,6 +884,365 @@ def gif_blocks(data):
                     for i in range(0, len(data), 255)) + b"\0"
 
 
+# -- a VP8L (WebP lossless) writer: the bitstream and its containers --------
+
+# the 120 short distance codes of VP8L: (dx, dy), a distance dy * width + dx
+_VP8L_DISTANCE_MAP = (
+    (0, 1), (1, 0), (1, 1), (-1, 1), (0, 2), (2, 0), (1, 2), (-1, 2), (2, 1),
+    (-2, 1), (2, 2), (-2, 2), (0, 3), (3, 0), (1, 3), (-1, 3), (3, 1),
+    (-3, 1), (2, 3), (-2, 3), (3, 2), (-3, 2), (0, 4), (4, 0), (1, 4),
+    (-1, 4), (4, 1), (-4, 1), (3, 3), (-3, 3), (2, 4), (-2, 4), (4, 2),
+    (-4, 2), (0, 5), (3, 4), (-3, 4), (4, 3), (-4, 3), (5, 0), (1, 5),
+    (-1, 5), (5, 1), (-5, 1), (2, 5), (-2, 5), (5, 2), (-5, 2), (4, 4),
+    (-4, 4), (3, 5), (-3, 5), (5, 3), (-5, 3), (0, 6), (6, 0), (1, 6),
+    (-1, 6), (6, 1), (-6, 1), (2, 6), (-2, 6), (6, 2), (-6, 2), (4, 5),
+    (-4, 5), (5, 4), (-5, 4), (3, 6), (-3, 6), (6, 3), (-6, 3), (0, 7),
+    (7, 0), (1, 7), (-1, 7), (5, 5), (-5, 5), (7, 1), (-7, 1), (4, 6),
+    (-4, 6), (6, 4), (-6, 4), (2, 7), (-2, 7), (7, 2), (-7, 2), (3, 7),
+    (-3, 7), (7, 3), (-7, 3), (5, 6), (-5, 6), (6, 5), (-6, 5), (8, 0),
+    (4, 7), (-4, 7), (7, 4), (-7, 4), (8, 1), (8, 2), (6, 6), (-6, 6),
+    (8, 3), (5, 7), (-5, 7), (7, 5), (-7, 5), (8, 4), (6, 7), (-6, 7),
+    (7, 6), (-7, 6), (8, 5), (7, 7), (-7, 7), (8, 6), (8, 7))
+_VP8L_TRANSFORMS = {"predictor": 0, "cross_colour": 1, "subtract_green": 2,
+                    "colour_indexing": 3}
+
+
+class VP8LBitWriter:
+    """VP8L's bits: least significant first."""
+
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, value, nbits):
+        self.acc |= (value & ((1 << nbits) - 1)) << self.n
+        self.n += nbits
+        while self.n >= 8:
+            self.out.append(self.acc & 255)
+            self.acc >>= 8
+            self.n -= 8
+
+    def code(self, code, length):
+        """A prefix code, its first (most significant) bit first."""
+        for i in range(length - 1, -1, -1):
+            self.put(code >> i & 1, 1)
+
+    def bytes(self):
+        return bytes(self.out) + (bytes([self.acc]) if self.n else b"")
+
+
+def _vp8l_prefix(v):
+    """A length or distance code v >= 1 as VP8L's prefix symbol, its
+    number of extra bits and their value."""
+    if v <= 4:
+        return v - 1, 0, 0
+    hi = (v - 1).bit_length() - 1
+    second = (v - 1) >> (hi - 1) & 1
+    return 2 * hi + second, hi - 1, v - 1 - ((2 + second) << (hi - 1))
+
+
+def _huffman_lengths(freq, limit):
+    """Code lengths of a Huffman code of the symbol frequencies, none past
+    ``limit`` (the frequencies halved until it fits); one used symbol gets
+    length 1."""
+    import heapq
+    used = [s for s, f in enumerate(freq) if f]
+    lens = [0] * len(freq)
+    if len(used) == 1:
+        lens[used[0]] = 1
+        return lens
+    f = list(freq)
+    while True:
+        heap = [(f[s], k, (s,)) for k, s in enumerate(used)]
+        heapq.heapify(heap)
+        depth = dict.fromkeys(used, 0)
+        k = len(heap)
+        while len(heap) > 1:
+            a, b = heapq.heappop(heap), heapq.heappop(heap)
+            for s in a[2] + b[2]:
+                depth[s] += 1
+            heapq.heappush(heap, (a[0] + b[0], k, a[2] + b[2]))
+            k += 1
+        if max(depth.values()) <= limit:
+            break
+        f = [(x + 1) // 2 for x in f]
+    for s, d in depth.items():
+        lens[s] = d
+    return lens
+
+
+def _canonical(lens):
+    """{symbol: (code, length)} of the canonical code of ``lens``; {} for a
+    code of one symbol (read in no bits)."""
+    order = sorted((n, s) for s, n in enumerate(lens) if n)
+    if len(order) < 2:
+        return {}
+    out, code, prev = {}, 0, order[0][0]
+    for n, s in order:
+        code <<= n - prev
+        prev = n
+        out[s] = (code, n)
+        code += 1
+    return out
+
+
+def _length_tokens(lens, rle):
+    """The code lengths as code-length symbols (symbol, extra bits, their
+    value): literals 0-15, 16 (repeat the last non-zero literal, 8 before
+    any, 3-6 times), 17 (3-10 zeros) and 18 (11-138 zeros)."""
+    out, prev, i = [], 8, 0
+    while i < len(lens):
+        v, j = lens[i], i
+        while j < len(lens) and lens[j] == v:
+            j += 1
+        run, i = j - i, j
+        if rle and v == 0:
+            while run >= 3:
+                k = min(run, 138)
+                out.append((18, 7, k - 11) if k >= 11 else (17, 3, k - 3))
+                run -= k
+        elif rle:
+            if prev != v:
+                out.append((v, 0, 0))
+                run -= 1
+                prev = v
+            while run >= 3:
+                k = min(run, 6)
+                out.append((16, 2, k - 3))
+                run -= k
+        out += [(v, 0, 0)] * run
+        prev = v or prev
+    return out
+
+
+def _write_code(bw, freq, *, normal=False, max_symbol=True, rle=True):
+    """One prefix code of the symbol frequencies (a code of one symbol 0
+    where none is used), simple where it can be (one or two symbols below
+    256, unless ``normal``), else normal: its lengths as code-length symbols
+    (``rle``: with repeats), trailing zeros cut by ``max_symbol``. Returns
+    {symbol: (code, length)}."""
+    freq = list(freq)
+    if not any(freq):
+        freq[0] = 1
+    used = [s for s, f in enumerate(freq) if f]
+    if not normal and len(used) <= 2 and used[-1] < 256:
+        bw.put(1, 1)
+        bw.put(len(used) - 1, 1)
+        bw.put(used[0] >= 2, 1)
+        bw.put(used[0], 8 if used[0] >= 2 else 1)
+        if len(used) == 2:
+            bw.put(used[1], 8)
+        return _canonical([1 if f else 0 for f in freq])
+    lens = _huffman_lengths(freq, 15)
+    tokens = _length_tokens(lens, rle)
+    cut = tokens
+    if max_symbol:
+        while cut and cut[-1][0] in (0, 17, 18):
+            cut = cut[:-1]
+    cut = cut if max_symbol and 2 <= len(cut) < len(tokens) else tokens
+    cl_freq = [0] * 19
+    for s, _, _ in cut:
+        cl_freq[s] += 1
+    cl_lens = _huffman_lengths(cl_freq, 7)
+    order = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+    ncodes = max([4] + [k + 1 for k, s in enumerate(order) if cl_lens[s]])
+    bw.put(0, 1)
+    bw.put(ncodes - 4, 4)
+    for s in order[:ncodes]:
+        bw.put(cl_lens[s], 3)
+    if cut is tokens:
+        bw.put(0, 1)
+    else:
+        nbits = next(b for b in range(2, 17, 2) if len(cut) - 2 < 1 << b)
+        bw.put(1, 1)
+        bw.put((nbits - 2) // 2, 3)
+        bw.put(len(cut) - 2, nbits)
+    cl_codes = _canonical(cl_lens)
+    for s, nbits, extra in cut:
+        if cl_codes:
+            bw.code(*cl_codes[s])
+        bw.put(extra, nbits)
+    return _canonical(lens)
+
+
+def _vp8l_stream(np, bw, img, *, cache_bits=0, meta=None, level0=False,
+                 distances=range(1, 121), min_match=3, codes=None):
+    """One VP8L image stream of ARGB ``img`` [h, w] (uint32): the colour
+    cache, the meta codes (``meta``: (bits, [h', w'] group indices), the top
+    level only), a prefix code group for each group index, then the pixels
+    as literals, cache hits and backward references. ``distances``: the
+    distance codes tried at each pixel, the longest match of at least
+    ``min_match`` pixels taken (1-120: the distance map; above: that less
+    120); ``codes``: ``_write_code``'s options."""
+    codes = codes or {}
+    h, w = img.shape
+    px = [int(v) for v in np.ravel(img)]
+    bw.put(cache_bits > 0, 1)
+    if cache_bits:
+        bw.put(cache_bits, 4)
+    groups, gbits = None, 0
+    if level0:
+        bw.put(meta is not None, 1)
+        if meta is not None:
+            gbits, groups = meta[0], np.asarray(meta[1], np.int64)
+            bw.put(gbits - 2, 3)
+            _vp8l_stream(np, bw, ((groups & 0xFFFF) << 8).astype(np.uint32),
+                         distances=distances, codes=codes)
+    dists = []
+    for c in distances:
+        if c <= 120:
+            dx, dy = _VP8L_DISTANCE_MAP[c - 1]
+            dists.append((c, max(1, dy * w + dx)))
+        else:
+            dists.append((c, c - 120))
+    cache = [0] * (1 << cache_bits)
+    tokens, i = [], 0
+    while i < len(px):
+        best = (0, 0)
+        for c, d in dists:
+            if d <= i:
+                n = 0
+                while (n < 4096 and i + n < len(px)
+                       and px[i + n] == px[i + n - d]):
+                    n += 1
+                if n > best[0]:
+                    best = (n, c)
+        g = 0 if groups is None else int(
+            groups[(i // w) >> gbits, (i % w) >> gbits])
+        if best[0] >= min_match:
+            n = best[0]
+            tokens.append((g, "copy", n, best[1]))
+        else:
+            n = 1
+            key = (0x1E35A7BD * px[i] & 0xFFFFFFFF) >> (32 - cache_bits)
+            if cache_bits and cache[key] == px[i]:
+                tokens.append((g, "cache", key))
+            else:
+                tokens.append((g, "literal", px[i]))
+        for v in px[i:i + n]:
+            if cache_bits:
+                cache[(0x1E35A7BD * v & 0xFFFFFFFF) >> (32 - cache_bits)] = v
+        i += n
+    ngroups = 1 if groups is None else int(groups.max()) + 1
+    sizes = (280 + (1 << cache_bits if cache_bits else 0), 256, 256, 256, 40)
+    freq = [[[0] * n for n in sizes] for _ in range(ngroups)]
+    for t in tokens:
+        f = freq[t[0]]
+        if t[1] == "literal":
+            v = t[2]
+            for k, ch in ((0, v >> 8), (1, v >> 16), (2, v), (3, v >> 24)):
+                f[k][ch & 255] += 1
+        elif t[1] == "cache":
+            f[0][280 + t[2]] += 1
+        else:
+            f[0][256 + _vp8l_prefix(t[2])[0]] += 1
+            f[4][_vp8l_prefix(t[3])[0]] += 1
+    tables = [[_write_code(bw, fk, **codes) for fk in f] for f in freq]
+
+    def sym(table, s):
+        if table:
+            bw.code(*table[s])
+    for t in tokens:
+        tb = tables[t[0]]
+        if t[1] == "literal":
+            v = t[2]
+            for k, ch in ((0, v >> 8), (1, v >> 16), (2, v), (3, v >> 24)):
+                sym(tb[k], ch & 255)
+        elif t[1] == "cache":
+            sym(tb[0], 280 + t[2])
+        else:
+            for k, v, base in ((0, t[2], 256), (4, t[3], 0)):
+                s, nbits, extra = _vp8l_prefix(v)
+                sym(tb[k], base + s)
+                bw.put(extra, nbits)
+
+
+def vp8l(np, coded, *, size=None, transforms=(), cache_bits=0, meta=None,
+         sub_cache_bits=0, **stream):
+    """A VP8L bitstream (the chunk's payload) of ``coded`` [h, w'] ARGB
+    (uint32), the pixels as coded: what the decoder reads before it undoes
+    the transforms. ``size``: the header's (width, height), (w', h) by
+    default (the width before colour indexing packs the pixels);
+    ``transforms``: in the order written, ("predictor", bits, modes),
+    ("cross_colour", bits, multipliers), ("subtract_green",) and
+    ("colour_indexing", palette), each sub-image ARGB (the predictor's mode
+    in green; green_to_red, green_to_blue, red_to_blue in blue, green and
+    red; the palette [n] delta-coded); ``meta``: (bits, group indices);
+    ``sub_cache_bits``: the sub-images' colour cache; the rest is
+    ``_vp8l_stream``'s."""
+    coded = np.asarray(coded, np.uint32)
+    w, h = size or (coded.shape[1], coded.shape[0])
+    bw = VP8LBitWriter()
+    bw.put(0x2F, 8)
+    bw.put(w - 1, 14)
+    bw.put(h - 1, 14)
+    bw.put(0, 4)                        # alpha_is_used, version 0
+    for kind, *args in transforms:
+        bw.put(1, 1)
+        bw.put(_VP8L_TRANSFORMS[kind], 2)
+        if kind in ("predictor", "cross_colour"):
+            bw.put(args[0] - 2, 3)
+            sub = np.asarray(args[1], np.uint32)
+        elif kind == "colour_indexing":
+            sub = np.asarray(args[0], np.uint32).reshape(1, -1)
+            bw.put(sub.size - 1, 8)
+        else:
+            continue
+        _vp8l_stream(np, bw, sub, cache_bits=sub_cache_bits, **stream)
+    bw.put(0, 1)
+    _vp8l_stream(np, bw, coded, cache_bits=cache_bits, meta=meta,
+                 level0=True, **stream)
+    return bw.bytes()
+
+
+def webp_chunk(tag, payload):
+    """A RIFF chunk: tag, little-endian size, payload, a pad byte to an
+    even size."""
+    import struct
+    return tag + struct.pack("<I", len(payload)) + payload + bytes(
+        len(payload) & 1)
+
+
+def webp_file(*chunks):
+    """A WebP file of the chunks: RIFF, its size, WEBP."""
+    import struct
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_vp8x(w, h, flags=0):
+    """A VP8X chunk: flags (0x02 animation, 0x04 XMP, 0x08 EXIF, 0x10
+    alpha, 0x20 ICC) and the canvas size."""
+    return webp_chunk(b"VP8X", bytes([flags, 0, 0, 0])
+                      + (w - 1).to_bytes(3, "little")
+                      + (h - 1).to_bytes(3, "little"))
+
+
+def webp_anmf(x, y, w, h, *chunks):
+    """An ANMF chunk: the frame's offset (even) and size, a duration of
+    100 ms, no flags (blending, no disposal), then its chunks."""
+    head = b"".join(v.to_bytes(3, "little")
+                    for v in (x // 2, y // 2, w - 1, h - 1, 100))
+    return webp_chunk(b"ANMF", head + b"\0" + b"".join(chunks))
+
+
+def webp_anim(background=0):
+    """An ANIM chunk: the background colour (BGRA), loops 0 (forever)."""
+    return webp_chunk(b"ANIM", background.to_bytes(4, "little") + bytes(2))
+
+
+def _webp_bytes(np, img):
+    """A lossless WebP of an RGB uint8 image written here: the
+    subtract-green transform, a colour cache and backward references
+    (the short distance codes and plain distances up to 64); and the pixels
+    it decodes to."""
+    img = np.asarray(img, np.uint32)
+    r, g, b = img[:, :, 0], img[:, :, 1], img[:, :, 2]
+    coded = (0xFF000000 | ((r - g) & 255) << 16 | g << 8 | ((b - g) & 255))
+    data = vp8l(np, coded, transforms=[("subtract_green",)], cache_bits=6,
+                distances=list(range(1, 121)) + list(range(121, 185)))
+    return webp_file(webp_chunk(b"VP8L", data)), img.astype(np.uint8)
+
+
 def _quantised(np, img):
     """An RGB uint8 image as indices into the 3-3-2 colour cube (256
     colours: R and G to 3 bits, B to 2) and that cube's [256, 3] palette."""
@@ -1091,13 +1462,13 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                       if w == "decode"]
             progressive = [n for n in images if n.startswith("prog")]
             # the CMYK, YCCK and Adobe-RGB JPEGs, the Adam7 and 16-bit
-            # PNGs, the GIFs and the BMPs among them
+            # PNGs, the GIFs, the BMPs and the lossless WebPs among them
             added = [n for n in images if n.startswith(
                 ("cmyk", "ycck", "adobe", "adam7")) or "16" in n
-                or n.endswith((".gif", ".bmp"))]
-            _check(any(n.endswith(".gif") for n in images)
-                   and any(n.endswith(".bmp") for n in images),
-                   "no GIF or BMP among the daemon's image requests")
+                or n.endswith((".gif", ".bmp", ".webp"))]
+            _check(all(any(n.endswith(x) for n in images)
+                       for x in (".gif", ".bmp", ".webp")),
+                   "no GIF, BMP or WebP among the daemon's image requests")
             b64 = {n: base64.b64encode(open(os.path.join(fixtures, n),
                                             "rb").read()).decode()
                    for n in images}
@@ -1106,7 +1477,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                 for i, n in enumerate(images)] + [
                 {"image_path": os.path.join(fixtures, "j420_448.jpg")},
                 {"image_path": os.path.join(fixtures, "rgba.png"),
-                 "sentiment": "positive"}]
+                 "sentiment": "positive"},
+                {"image_path": os.path.join(fixtures, "lossless_anim.webp")}]
             torch.cuda.synchronize()
             zero_counters()
             results, errors, serve_s = _run_groups(
@@ -1164,7 +1536,7 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                "encode": stats["encode"]["latency_by_bucket"]}
         print(f"serving surface: daemon up in {start_s:.1f} s (warm); "
               f"{len(payloads)} requests ({len(feats)} feature, "
-              f"{len(images)} image_b64, 2 image_path) in {serve_s:.2f} s, "
+              f"{len(images)} image_b64, 3 image_path) in {serve_s:.2f} s, "
               f"all 200 (progressive JPEGs {progressive}, and {added} "
               f"among them); 400 outside the root, 400 {refused}, 413 "
               f"oversized; launches {launches}")
@@ -1195,13 +1567,16 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
         print(f"serving surface: {len(expected)} fixtures decode identical "
               "to PIL's arrays (progressive, CMYK, YCCK, Adobe-RGB JPEG, "
               "Adam7 and 16-bit PNG, interlaced, grey-ramp and offset GIF, "
-              "palette, 24-bit, RLE8 and bitfields BMP included), "
+              "palette, 24-bit, RLE8 and bitfields BMP, lossless WebP "
+              "(simple, VP8X, an animation's offset first frame) "
+              "included), "
               f"{[n for n, w in FIXTURES.items() if w == 'refuse']} "
               "refused")
 
         # 4. the caption command in f32 with the attention dump
         img_args = [os.path.join(fixtures, "j420_448.jpg"),
-                    os.path.join(fixtures, "rgb.png")]
+                    os.path.join(fixtures, "rgb.png"),
+                    os.path.join(fixtures, "lossless_rgba.webp")]
         cap_out = io.StringIO()
         with contextlib.redirect_stdout(cap_out):
             recs = caption_cli.run(caption_cli.build_parser().parse_args(
@@ -1210,7 +1585,7 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                  paths["resnet101"], "--sentiment_detector_json",
                  senti_json, "--dump_attention",
                  os.path.join(tmp, "att"), "--device", str(dev)]))
-        _check(len(recs) == 2, f"caption records {recs}")
+        _check(len(recs) == len(img_args), f"caption records {recs}")
         sums_err = 0.0
         for rec in recs:
             _check(rec["caption"] and rec["sentiment"] in cats,
@@ -1223,7 +1598,7 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                                            .max()))
         _check(sums_err <= 1e-5, f"attention maps sum to 1 within "
                f"{sums_err}")
-        print(f"serving surface: caption (f32) on 2 images: "
+        print(f"serving surface: caption (f32) on {len(recs)} images: "
               + "; ".join(f"{r['image']}: {r['sentiment']}, "
                           f"{len(r['caption'].split())} words"
                           for r in recs)
@@ -1234,10 +1609,11 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
 
     # 5. host times: decode and resize, median of 5; the progressive and
     # CMYK fixtures are the same photo, quality and sampling as the
-    # baseline one, the PNGs (plain and Adam7) and the 24-bit BMP its
-    # decoded pixels, the GIF and the RLE8 BMP those pixels in the 3-3-2
-    # colour cube
+    # baseline one, the PNGs (plain and Adam7), the 24-bit BMP and the
+    # lossless WebP (PIL's, method 4) its decoded pixels, the GIF and the
+    # RLE8 BMP those pixels in the 3-3-2 colour cube
     jpeg = open(os.path.join(fixtures, "j420_448.jpg"), "rb").read()
+    webp = open(os.path.join(fixtures, "lossless_448.webp"), "rb").read()
     prog = open(os.path.join(fixtures, "prog420_448.jpg"), "rb").read()
     cmyk = open(os.path.join(fixtures, "cmyk420_448.jpg"), "rb").read()
     img448 = pre.load_image_bytes(jpeg)
@@ -1246,6 +1622,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
     gif, gif_px = _gif_bytes(np, img448)
     bmp, _ = _bmp_bytes(np, img448)
     rle, rle_px = _bmp_bytes(np, img448, rle8=True)
+    # a lossless WebP of a corner of it written here, without PIL
+    own_webp, own_webp_px = _webp_bytes(np, img448[:64, :96] // 32 * 32)
     img480 = np.random.default_rng(9).integers(0, 256, (480, 640, 3),
                                                dtype=np.uint8)
     bucket = pre.bucket_for_shape(480, 640, pre.DEFAULT_BUCKET_SHAPES)
@@ -1274,6 +1652,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
              "gif_448_ms": host_ms(lambda: pre.load_image_bytes(gif)),
              "bmp_448_24bit_ms": host_ms(lambda: pre.load_image_bytes(bmp)),
              "bmp_448_rle8_ms": host_ms(lambda: pre.load_image_bytes(rle)),
+             "webp_448_lossless_ms": host_ms(
+                 lambda: pre.load_image_bytes(webp)),
              "resize_480x640_ms": host_ms(
                  lambda: pre.resize_to_bucket(img480, bucket))}
     _check(np.array_equal(pre.load_image_bytes(png), img448)
@@ -1283,6 +1663,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
            and np.array_equal(pre.load_image_bytes(bmp), img448)
            and np.array_equal(pre.load_image_bytes(rle), rle_px),
            "the GIF and BMPs do not decode to their pixels")
+    _check(np.array_equal(pre.load_image_bytes(webp), img448)
+           and np.array_equal(pre.load_image_bytes(own_webp), own_webp_px),
+           "the lossless WebPs do not decode to their pixels")
     card = _smi()
     print(f"serving surface host times (median of 5, host CPU {cpu}, "
           f"{os.cpu_count()} cores, card {card}): decode 448x448 JPEG 4:2:0 "
@@ -1294,7 +1677,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
           f"({len(png_i)} B) {times['png_448_adam7_ms']:.2f} ms, GIF "
           f"({len(gif)} B) {times['gif_448_ms']:.2f} ms, BMP 24-bit "
           f"({len(bmp)} B) {times['bmp_448_24bit_ms']:.2f} ms, RLE8 "
-          f"({len(rle)} B) {times['bmp_448_rle8_ms']:.2f} ms, "
+          f"({len(rle)} B) {times['bmp_448_rle8_ms']:.2f} ms, lossless "
+          f"WebP ({len(webp)} B) {times['webp_448_lossless_ms']:.2f} ms, "
           f"resize_to_bucket "
           f"480x640 -> {bucket[0]}x{bucket[1]} "
           f"{times['resize_480x640_ms']:.2f} ms")
@@ -1303,7 +1687,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                              cmyk_bytes=len(cmyk), png_bytes=len(png),
                              png_adam7_bytes=len(png_i),
                              gif_bytes=len(gif), bmp_24bit_bytes=len(bmp),
-                             bmp_rle8_bytes=len(rle), card=card)
+                             bmp_rle8_bytes=len(rle),
+                             webp_lossless_bytes=len(webp), card=card)
     return out
 
 
@@ -3962,9 +4347,9 @@ def _offline_clis(torch, np, dev, settings, enc32, zero_counters,
                        "json_files": len(written),
                        "senti_captions": n_senti_caps}
 
-        # 2. the features: the 26 fixtures the port decodes (the
-        # progressive and CMYK JPEGs, Adam7 PNGs, GIFs and BMPs among
-        # them) and 32
+        # 2. the features: the 32 fixtures the port decodes (the
+        # progressive and CMYK JPEGs, Adam7 PNGs, GIFs, BMPs and lossless
+        # WebPs among them) and 32
         # PNGs over the three buckets, through `preprocess features` with
         # ResNet-101 read from a reference-named .pth, f32, encode batches
         # of 32; the pool's launches against the batches flushed

@@ -1,6 +1,6 @@
 // Host image decoding for the serving surface: baseline, extended-
-// sequential and progressive Huffman JPEG, PNG's row filters, GIF's LZW
-// and BMP's RLE8 and RLE4.
+// sequential and progressive Huffman JPEG, PNG's row filters, GIF's LZW,
+// BMP's RLE8 and RLE4, and WebP's lossless (VP8L) bitstream.
 //
 // The JAX package decodes with PIL (insenticap_model_tpu/preprocessing.py:
 // 50-80); the machine that serves the port has no PIL, so the port decodes
@@ -58,6 +58,9 @@
 // framing, so that a stream Pillow decodes gives the same indices and a
 // stream it cannot finish is refused. isc_bmp_rle is Pillow's BMP RLE
 // decoder (BmpRleDecoder), quirks included.
+//
+// WebP: the Python side walks the RIFF container as libwebp's demuxer
+// does; isc_vp8l_decode decodes a VP8L chunk's bitstream (RFC 9649) to RGB.
 //
 // C interface (ctypes): every entry returns 0, or non-zero with a
 // NUL-terminated message in err[errlen].
@@ -1083,6 +1086,449 @@ void set_err(char* err, int errlen, const std::string& m) {
 
 }  // namespace
 
+// -- WebP lossless (VP8L) ----------------------------------------------------
+//
+// The bitstream of RFC 9649, computing what libwebp's vp8l_dec.c,
+// huffman_utils.c and lossless.c compute: the same prefix codes (and the
+// same refusals of codes that are incomplete, over-subscribed or empty),
+// the same LZ77 distances, colour cache and inverse transforms, so that a
+// stream libwebp decodes gives its ARGB bit for bit and a stream it refuses
+// is refused. Bits past the end of the data read as zeros, and a stream
+// that consumes more bits than it holds is refused. (libwebp's bit reader
+// allows 64 bits of a stream shorter than 8 bytes; no stream so short
+// holds the five prefix codes of an image, whose last starts at bit 59
+// with a 1, so the two refuse the same streams.)
+namespace vp8l {
+
+enum { kPredictor = 0, kCrossColour = 1, kSubtractGreen = 2, kIndexing = 3 };
+const int kNumLiterals = 256, kNumLengths = 24, kNumDistances = 40;
+const int kMaxCacheBits = 11;
+const int kCodeLengthOrder[19] = {17, 18, 0, 1,  2,  3,  4,  5,  16, 6,
+                                  7,  8,  9, 10, 11, 12, 13, 14, 15};
+// the 120 short distance codes: (dx, dy) as libwebp's kCodeToPlane packs
+// them, dy << 4 | (8 - dx)
+const uint8_t kCodeToPlane[120] = {
+    0x18, 0x07, 0x17, 0x19, 0x28, 0x06, 0x27, 0x29, 0x16, 0x1a, 0x26, 0x2a,
+    0x38, 0x05, 0x37, 0x39, 0x15, 0x1b, 0x36, 0x3a, 0x25, 0x2b, 0x48, 0x04,
+    0x47, 0x49, 0x14, 0x1c, 0x35, 0x3b, 0x46, 0x4a, 0x24, 0x2c, 0x58, 0x45,
+    0x4b, 0x34, 0x3c, 0x03, 0x57, 0x59, 0x13, 0x1d, 0x56, 0x5a, 0x23, 0x2d,
+    0x44, 0x4c, 0x55, 0x5b, 0x33, 0x3d, 0x68, 0x02, 0x67, 0x69, 0x12, 0x1e,
+    0x66, 0x6a, 0x22, 0x2e, 0x54, 0x5c, 0x43, 0x4d, 0x65, 0x6b, 0x32, 0x3e,
+    0x78, 0x01, 0x77, 0x79, 0x53, 0x5d, 0x11, 0x1f, 0x64, 0x6c, 0x42, 0x4e,
+    0x76, 0x7a, 0x21, 0x2f, 0x75, 0x7b, 0x31, 0x3f, 0x63, 0x6d, 0x52, 0x5e,
+    0x00, 0x74, 0x7c, 0x41, 0x4f, 0x10, 0x20, 0x62, 0x6e, 0x30, 0x73, 0x7d,
+    0x51, 0x5f, 0x40, 0x72, 0x7e, 0x61, 0x6f, 0x50, 0x71, 0x7f, 0x60, 0x70};
+
+// LSB-first bits; past the end, zeros
+struct Bits {
+  const uint8_t* p;
+  uint64_t n, pos = 0, buf = 0, used = 0, limit;
+  int cnt = 0;
+  Bits(const uint8_t* p_, uint64_t n_) : p(p_), n(n_), limit(8 * n_) {}
+  uint32_t peek(int k) {
+    while (cnt < k) {
+      buf |= (uint64_t)(pos < n ? p[pos] : 0) << cnt;
+      ++pos;
+      cnt += 8;
+    }
+    return (uint32_t)(buf & ((1ull << k) - 1));
+  }
+  void skip(int k) {
+    buf >>= k;
+    cnt -= k;
+    used += k;
+    if (used > limit) fail("WebP: truncated VP8L data");
+  }
+  uint32_t read(int k) {
+    if (k == 0) return 0;
+    const uint32_t v = peek(k);
+    skip(k);
+    return v;
+  }
+};
+
+// A canonical prefix code: the symbols of up to 8 bits by a table of the
+// next 8 bits, the longer ones code by code
+struct Code {
+  int single = -1;                 // a code of one symbol: no bits
+  uint16_t lut[256];               // length << 12 | symbol, 0 for longer
+  int count[16];
+  std::vector<uint16_t> sorted;    // by (length, symbol)
+
+  int decode(Bits& br) const {
+    if (single >= 0) return single;
+    const uint32_t v = br.peek(15);
+    const uint16_t e = lut[v & 255];
+    if (e) {
+      br.skip(e >> 12);
+      return e & 4095;
+    }
+    int code = 0, first = 0, index = 0;
+    for (int l = 1; l <= 15; ++l) {
+      code |= (v >> (l - 1)) & 1;
+      if (code - count[l] < first) {
+        br.skip(l);
+        return sorted[index + code - first];
+      }
+      index += count[l];
+      first = (first + count[l]) << 1;
+      code <<= 1;
+    }
+    fail("WebP: VP8L prefix code");  // a complete code never gets here
+  }
+};
+
+// huffman_utils.c's BuildHuffmanTable: one symbol of any length, or a
+// complete code of lengths 1 to 15; false for anything else
+bool build(Code& c, const int* len, int n) {
+  int count[16] = {0};
+  for (int s = 0; s < n; ++s) {
+    if (len[s] < 0 || len[s] > 15) return false;
+    ++count[len[s]];
+  }
+  if (count[0] == n) return false;
+  c.sorted.clear();
+  for (int l = 1; l <= 15; ++l)
+    for (int s = 0; s < n; ++s)
+      if (len[s] == l) c.sorted.push_back((uint16_t)s);
+  c.single = c.sorted.size() == 1 ? c.sorted[0] : -1;
+  if (c.single >= 0) return true;
+  long long open = 1;
+  for (int l = 1; l <= 15; ++l) {
+    open = 2 * open - count[l];
+    if (open < 0) return false;     // over-subscribed
+  }
+  if (open != 0) return false;      // incomplete
+  memcpy(c.count, count, sizeof(count));
+  memset(c.lut, 0, sizeof(c.lut));
+  int code = 0;
+  size_t k = 0;
+  for (int l = 1; l <= 8; ++l) {
+    for (int i = 0; i < count[l]; ++i, ++k, ++code) {
+      int rev = 0;
+      for (int b = 0; b < l; ++b) rev |= ((code >> b) & 1) << (l - 1 - b);
+      for (int j = rev; j < 256; j += 1 << l)
+        c.lut[j] = (uint16_t)(l << 12 | c.sorted[k]);
+    }
+    code <<= 1;
+  }
+  return true;
+}
+
+// ReadHuffmanCode: a simple code (one or two symbols) or a normal one
+// (code lengths coded by a code-length code, with repeats)
+void read_code(Bits& br, int alphabet, Code& c, std::vector<int>& lens) {
+  lens.assign(alphabet, 0);
+  if (br.read(1)) {
+    const int nsym = (int)br.read(1) + 1;
+    int s = (int)br.read(br.read(1) ? 8 : 1);
+    if (s < alphabet) lens[s] = 1;
+    if (nsym == 2) {
+      s = (int)br.read(8);
+      if (s < alphabet) lens[s] = 1;
+    }
+  } else {
+    int cl[19] = {0};
+    const int ncodes = (int)br.read(4) + 4;
+    for (int i = 0; i < ncodes; ++i) cl[kCodeLengthOrder[i]] = br.read(3);
+    Code clc;
+    if (!build(clc, cl, 19)) fail("WebP: invalid VP8L code-length code");
+    int max_symbol = alphabet;
+    if (br.read(1)) {
+      const int nbits = 2 + 2 * (int)br.read(3);
+      max_symbol = 2 + (int)br.read(nbits);
+      if (max_symbol > alphabet)
+        fail("WebP: VP8L code lengths past the alphabet");
+    }
+    int prev = 8, sym = 0;
+    while (sym < alphabet && max_symbol-- > 0) {
+      const int v = clc.decode(br);
+      if (v < 16) {
+        lens[sym++] = v;
+        if (v) prev = v;
+      } else {
+        static const int kExtra[3] = {2, 3, 7}, kOffset[3] = {3, 3, 11};
+        const int rep = (int)br.read(kExtra[v - 16]) + kOffset[v - 16];
+        if (sym + rep > alphabet)
+          fail("WebP: VP8L code length repeat past the alphabet");
+        for (int i = 0; i < rep; ++i) lens[sym++] = v == 16 ? prev : 0;
+      }
+    }
+  }
+  if (!build(c, lens.data(), alphabet)) fail("WebP: invalid VP8L prefix code");
+}
+
+inline int subsample(int size, int bits) {
+  return (int)(((long long)size + (1 << bits) - 1) >> bits);
+}
+
+// GetCopyDistance / GetCopyLength: a prefix symbol and its extra bits
+inline int copy_value(int sym, Bits& br) {
+  if (sym < 4) return sym + 1;
+  const int extra = (sym - 2) >> 1;
+  return ((2 + (sym & 1)) << extra) + (int)br.read(extra) + 1;
+}
+
+inline uint32_t add_pixels(uint32_t a, uint32_t b) {
+  return (((a & 0xff00ff00u) + (b & 0xff00ff00u)) & 0xff00ff00u) |
+         (((a & 0x00ff00ffu) + (b & 0x00ff00ffu)) & 0x00ff00ffu);
+}
+
+inline uint32_t average2(uint32_t a, uint32_t b) {
+  return (((a ^ b) & 0xfefefefeu) >> 1) + (a & b);
+}
+
+inline int clip255(int v) { return v < 0 ? 0 : v > 255 ? 255 : v; }
+
+inline uint32_t select(uint32_t t, uint32_t l, uint32_t tl) {
+  int d = 0;
+  for (int s = 0; s < 32; s += 8) {
+    const int a = (t >> s) & 255, b = (l >> s) & 255, c = (tl >> s) & 255;
+    d += abs(b - c) - abs(a - c);
+  }
+  return d <= 0 ? t : l;
+}
+
+inline uint32_t add_sub_full(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t out = 0;
+  for (int s = 0; s < 32; s += 8)
+    out |= (uint32_t)clip255((int)((a >> s) & 255) + (int)((b >> s) & 255) -
+                             (int)((c >> s) & 255)) << s;
+  return out;
+}
+
+inline uint32_t add_sub_half(uint32_t a, uint32_t b, uint32_t c) {
+  const uint32_t ave = average2(a, b);
+  uint32_t out = 0;
+  for (int s = 0; s < 32; s += 8) {
+    const int x = (ave >> s) & 255, y = (c >> s) & 255;
+    out |= (uint32_t)clip255(x + (x - y) / 2) << s;   // C's division
+  }
+  return out;
+}
+
+// the 14 predictors (and modes 14, 15, which libwebp runs as mode 0) of
+// pixel p with left L, top row pointer t (t[-1] TL, t[0] T, t[1] TR)
+inline uint32_t predict(int mode, uint32_t l, const uint32_t* t) {
+  switch (mode) {
+    case 1: return l;
+    case 2: return t[0];
+    case 3: return t[1];
+    case 4: return t[-1];
+    case 5: return average2(average2(l, t[1]), t[0]);
+    case 6: return average2(l, t[-1]);
+    case 7: return average2(l, t[0]);
+    case 8: return average2(t[-1], t[0]);
+    case 9: return average2(t[0], t[1]);
+    case 10: return average2(average2(l, t[-1]), average2(t[0], t[1]));
+    case 11: return select(t[0], l, t[-1]);
+    case 12: return add_sub_full(l, t[0], t[-1]);
+    case 13: return add_sub_half(l, t[0], t[-1]);
+    default: return 0xff000000u;
+  }
+}
+
+struct Transform {
+  int type, bits, xsize;
+  std::vector<uint32_t> data;
+};
+
+struct Decoder {
+  Bits br;
+  Transform tr[4];
+  int ntr = 0, seen = 0;
+
+  Decoder(const uint8_t* p, uint64_t n) : br(p, n) {}
+
+  // DecodeImageStream: an image of xsize x ysize (the top level reads
+  // the transforms, which may change xsize, and a meta code image)
+  std::vector<uint32_t> stream(int xsize, int ysize, bool level0) {
+    if (level0) {
+      while (br.read(1)) {
+        const int type = (int)br.read(2);
+        if (seen & (1 << type)) fail("WebP: VP8L transform used twice");
+        seen |= 1 << type;
+        Transform& t = tr[ntr++];
+        t.type = type;
+        t.xsize = xsize;
+        t.bits = 0;
+        if (type == kPredictor || type == kCrossColour) {
+          t.bits = 2 + (int)br.read(3);
+          t.data = stream(subsample(xsize, t.bits), subsample(ysize, t.bits),
+                          false);
+        } else if (type == kIndexing) {
+          const int ncolours = (int)br.read(8) + 1;
+          t.bits = ncolours > 16 ? 0 : ncolours > 4 ? 1 : ncolours > 2 ? 2 : 3;
+          xsize = subsample(xsize, t.bits);
+          const std::vector<uint32_t> pal = stream(ncolours, 1, false);
+          // delta-coded per channel; the entries past the palette that a
+          // bundle width can index are transparent black
+          t.data.assign((size_t)1 << (8 >> t.bits), 0);
+          t.data[0] = pal[0];
+          for (int i = 1; i < ncolours; ++i)
+            t.data[i] = add_pixels(pal[i], t.data[i - 1]);
+        }
+      }
+    }
+    int cache_bits = 0;
+    if (br.read(1)) {
+      cache_bits = (int)br.read(4);
+      if (cache_bits < 1 || cache_bits > kMaxCacheBits)
+        fail("WebP: bad VP8L colour cache size");
+    }
+    // the meta codes: a group index a block of pixels, in green and red
+    int meta_bits = 0, meta_xsize = 0;
+    std::vector<uint32_t> meta;
+    std::vector<int> mapping(1, 0);
+    int ngroups_max = 1, ngroups = 1;
+    if (level0 && br.read(1)) {
+      meta_bits = 2 + (int)br.read(3);
+      meta_xsize = subsample(xsize, meta_bits);
+      meta = stream(meta_xsize, subsample(ysize, meta_bits), false);
+      for (uint32_t& g : meta) {
+        g = (g >> 8) & 0xffff;
+        ngroups_max = std::max(ngroups_max, (int)g + 1);
+      }
+      // only the groups the image uses are kept (the others are read)
+      mapping.assign(ngroups_max, -1);
+      ngroups = 0;
+      for (uint32_t& g : meta) {
+        if (mapping[g] < 0) mapping[g] = ngroups++;
+        g = (uint32_t)mapping[g];
+      }
+    }
+    const int cache_size = cache_bits ? 1 << cache_bits : 0;
+    const int alphabet[5] = {kNumLiterals + kNumLengths + cache_size,
+                             kNumLiterals, kNumLiterals, kNumLiterals,
+                             kNumDistances};
+    std::vector<Code> groups((size_t)ngroups * 5);
+    std::vector<int> lens;
+    Code scratch;
+    for (int g = 0; g < ngroups_max; ++g)
+      for (int j = 0; j < 5; ++j)
+        read_code(br, alphabet[j],
+                  mapping[g] < 0 ? scratch : groups[(size_t)mapping[g] * 5 + j],
+                  lens);
+    return pixels(xsize, ysize, cache_bits, groups, meta, meta_bits,
+                  meta_xsize);
+  }
+
+  // DecodeImageData: literals, backward references and colour cache
+  // lookups until every pixel is decoded
+  std::vector<uint32_t> pixels(int xsize, int ysize, int cache_bits,
+                               const std::vector<Code>& groups,
+                               const std::vector<uint32_t>& meta,
+                               int meta_bits, int meta_xsize) {
+    const size_t total = (size_t)xsize * ysize;
+    std::vector<uint32_t> data(total);
+    std::vector<uint32_t> cache(cache_bits ? (size_t)1 << cache_bits : 0, 0);
+    size_t i = 0, cached = 0;
+    int x = 0, y = 0;
+    const int len_limit = kNumLiterals + kNumLengths;
+    while (i < total) {
+      const Code* g = groups.data();
+      if (meta_bits)
+        g += (size_t)meta[(size_t)(y >> meta_bits) * meta_xsize +
+                          (x >> meta_bits)] * 5;
+      const int s = g[0].decode(br);
+      if (s < kNumLiterals) {
+        const uint32_t r = g[1].decode(br), b = g[2].decode(br),
+                       a = g[3].decode(br);
+        data[i++] = a << 24 | r << 16 | (uint32_t)s << 8 | b;
+        if (++x == xsize) x = 0, ++y;
+      } else if (s < len_limit) {
+        const size_t length = (size_t)copy_value(s - kNumLiterals, br);
+        const int code = copy_value(g[4].decode(br), br);
+        size_t dist;
+        if (code > 120) {
+          dist = (size_t)(code - 120);
+        } else {
+          const int p = kCodeToPlane[code - 1];
+          const long long d = (long long)(p >> 4) * xsize + 8 - (p & 15);
+          dist = d >= 1 ? (size_t)d : 1;
+        }
+        if (i < dist || total - i < length)
+          fail("WebP: VP8L backward reference outside the image");
+        for (size_t k = 0; k < length; ++k, ++i) data[i] = data[i - dist];
+        x += (int)(length % xsize);
+        y += (int)(length / xsize);
+        if (x >= xsize) x -= xsize, ++y;
+      } else {
+        for (; cached < i; ++cached)
+          cache[(0x1e35a7bdu * data[cached]) >> (32 - cache_bits)] =
+              data[cached];
+        data[i++] = cache[s - len_limit];
+        if (++x == xsize) x = 0, ++y;
+      }
+    }
+    return data;
+  }
+};
+
+// the inverse transforms, in place on the image of width `xsize` x h
+void inverse_predictor(const Transform& t, uint32_t* d, int h) {
+  const int w = t.xsize, tiles = subsample(w, t.bits);
+  d[0] = add_pixels(d[0], 0xff000000u);
+  for (int x = 1; x < w; ++x) d[x] = add_pixels(d[x], d[x - 1]);
+  for (int y = 1; y < h; ++y) {
+    uint32_t* row = d + (size_t)y * w;
+    const uint32_t* top = row - w;
+    const uint32_t* modes = t.data.data() + (size_t)(y >> t.bits) * tiles;
+    row[0] = add_pixels(row[0], top[0]);
+    for (int x = 1; x < w; ++x) {
+      const int mode = (modes[x >> t.bits] >> 8) & 15;
+      row[x] = add_pixels(row[x], predict(mode, row[x - 1], top + x));
+    }
+  }
+}
+
+inline int colour_delta(int8_t m, int8_t c) { return ((int)m * c) >> 5; }
+
+void inverse_cross_colour(const Transform& t, uint32_t* d, int h) {
+  const int w = t.xsize, tiles = subsample(w, t.bits);
+  for (int y = 0; y < h; ++y) {
+    const uint32_t* m = t.data.data() + (size_t)(y >> t.bits) * tiles;
+    for (int x = 0; x < w; ++x) {
+      const uint32_t code = m[x >> t.bits];
+      uint32_t& p = d[(size_t)y * w + x];
+      const int8_t green = (int8_t)(p >> 8);
+      int red = (p >> 16) & 255, blue = p & 255;
+      red = (red + colour_delta((int8_t)(code & 255), green)) & 255;
+      blue += colour_delta((int8_t)((code >> 8) & 255), green);
+      blue = (blue + colour_delta((int8_t)((code >> 16) & 255),
+                                  (int8_t)red)) & 255;
+      p = (p & 0xff00ff00u) | (uint32_t)red << 16 | (uint32_t)blue;
+    }
+  }
+}
+
+void inverse_subtract_green(uint32_t* d, size_t n) {
+  for (size_t i = 0; i < n; ++i) {
+    const uint32_t g = (d[i] >> 8) & 255;
+    d[i] = (d[i] & 0xff00ff00u) |
+           (((d[i] & 0x00ff00ffu) + (g << 16 | g)) & 0x00ff00ffu);
+  }
+}
+
+// colour indexing: the indices in green, 2^bits of them a pixel (the
+// first in the low bits), through the palette
+std::vector<uint32_t> inverse_indexing(const Transform& t,
+                                       const std::vector<uint32_t>& in,
+                                       int h) {
+  const int w = t.xsize, packed = subsample(w, t.bits);
+  const int per = 8 >> t.bits, mask = (1 << per) - 1;
+  std::vector<uint32_t> out((size_t)w * h);
+  for (int y = 0; y < h; ++y)
+    for (int x = 0; x < w; ++x) {
+      const uint32_t g = (in[(size_t)y * packed + (x >> t.bits)] >> 8) & 255;
+      out[(size_t)y * w + x] =
+          t.data[(g >> ((x & ((1 << t.bits) - 1)) * per)) & mask];
+    }
+  return out;
+}
+
+}  // namespace vp8l
+
 extern "C" {
 
 // Header of a JPEG: its height, width and number of output channels (1 for
@@ -1434,6 +1880,47 @@ int isc_bmp_rle(const uint8_t* in, long long n, long long base, uint8_t* out,
     return 1;
   }
   return 0;
+}
+
+// A VP8L bitstream (in[0, n): a VP8L chunk's payload, with its pad byte
+// where the file holds one) of a w x h image into out[h][w][3], the RGB of
+// its ARGB (libwebp's RGBA output, not premultiplied, the alpha dropped).
+// The header must give w x h; the transforms are undone in the reverse
+// order of their reading.
+int isc_vp8l_decode(const uint8_t* in, long long n, uint8_t* out,
+                    long long w, long long h, char* err, int errlen) {
+  try {
+    vp8l::Decoder d(in, (uint64_t)n);
+    if (d.br.read(8) != 0x2f) fail("WebP: bad VP8L signature");
+    const int iw = (int)d.br.read(14) + 1, ih = (int)d.br.read(14) + 1;
+    d.br.read(1);                     // alpha_is_used: a hint only
+    if (d.br.read(3) != 0) fail("WebP: unknown VP8L version");
+    if (iw != w || ih != h) fail("WebP: VP8L size unlike its header's");
+    std::vector<uint32_t> px = d.stream(iw, ih, true);
+    for (int k = d.ntr - 1; k >= 0; --k) {
+      const vp8l::Transform& t = d.tr[k];
+      if (t.type == vp8l::kPredictor)
+        vp8l::inverse_predictor(t, px.data(), ih);
+      else if (t.type == vp8l::kCrossColour)
+        vp8l::inverse_cross_colour(t, px.data(), ih);
+      else if (t.type == vp8l::kSubtractGreen)
+        vp8l::inverse_subtract_green(px.data(), px.size());
+      else
+        px = vp8l::inverse_indexing(t, px, ih);
+    }
+    for (size_t i = 0; i < px.size(); ++i) {
+      out[3 * i] = (uint8_t)(px[i] >> 16);
+      out[3 * i + 1] = (uint8_t)(px[i] >> 8);
+      out[3 * i + 2] = (uint8_t)px[i];
+    }
+    return 0;
+  } catch (const Error& e) {
+    set_err(err, errlen, e.msg);
+    return 1;
+  } catch (const std::exception& e) {
+    set_err(err, errlen, std::string("WebP: ") + e.what());
+    return 2;
+  }
 }
 
 }  // extern "C"

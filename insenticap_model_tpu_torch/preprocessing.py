@@ -40,9 +40,14 @@ PIL, so it carries its own, to give PIL's arrays bit for bit:
   through the palette (black and white as "1", the grey ramp as "L", each
   read with Pillow's raw mode), 16 bits (5-5-5, 5-6-5) with Pillow's
   floor-division expansion, 24 and 32 bits (the bitfield layouts Pillow
-  names), RLE8 and RLE4, headers of 12 to 124 bytes. The other formats
-  that Pillow's plugins recognise by signature (WebP, TIFF, PPM, ...) are
-  refused by name.
+  names), RLE8 and RLE4, headers of 12 to 124 bytes. Lossless WebP as
+  libwebp 1.6 decodes it for PIL: the RIFF container (simple, VP8X with
+  its metadata chunks skipped, or an animation's first frame on a canvas
+  cleared to transparent black) checked here as libwebp's demuxer checks
+  it, the VP8L bitstream (prefix codes, LZ77, colour cache, the four
+  transforms) in the same library, RGB always. Lossy WebP and the other
+  formats that Pillow's plugins recognise by signature (TIFF, PPM, ...)
+  are refused by name.
 * ``resize_to_bucket``: Pillow's ``BILINEAR`` resampler
   (``libImaging/Resample.c``) in numpy: separable, the horizontal pass
   first with a uint8 round between the passes, the triangle filter widened
@@ -95,7 +100,8 @@ _SIGS = {"isc_jpeg_info": [_P, _LL, _IP, _IP, _IP, _P, _I],
          "isc_jpeg_decode": [_P, _LL, _P, _LL, _P, _I],
          "isc_png_unfilter": [_P, _LL, _P, _I, _LL, _I, _P, _I],
          "isc_gif_lzw": [_P, _LL, _P] + [_LL] * 6 + [_I, _I, _P, _I],
-         "isc_bmp_rle": [_P, _LL, _LL, _P, _LL, _LL, _I, _P, _I]}
+         "isc_bmp_rle": [_P, _LL, _LL, _P, _LL, _LL, _I, _P, _I],
+         "isc_vp8l_decode": [_P, _LL, _P, _LL, _LL, _P, _I]}
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 # formats that Pillow's plugins recognise (by their ``_accept``
 # signatures) and the decoders do not read: a refusal names them. Each
@@ -121,6 +127,11 @@ _REFUSED = (("WebP", 8, (b"WEBP",)),
             ("EPS", 0, (b"%!PS", b"\xc5\xd0\xd3\xc6")),
             ("XPM", 0, (b"/* XPM */",)), ("XBM", 0, (b"#define",)),
             ("MPEG", 0, (b"\0\0\1\xb3",)))
+# WebP: libwebp's largest chunk payload (MAX_CHUNK_PAYLOAD) and the VP8X
+# flags: animation, alpha, and all five that it knows (with ICC, EXIF and
+# XMP)
+_WEBP_MAX_PAYLOAD = 0xFFFFFFFF - 9
+_WEBP_ANIMATION, _WEBP_ALPHA, _WEBP_VALID_FLAGS = 0x02, 0x10, 0x3E
 # BMP: the DIB header sizes Pillow reads; its raw mode for each depth, and
 # for each bitfields layout (bits, masks); a raw mode's bits a pixel (32
 # for the others); the bytes of R, G and B in a 24- or 32-bit pixel
@@ -523,16 +534,266 @@ def _decode_bmp(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(px)
 
 
+def _le(b: bytes, at: int, n: int) -> int:
+    return int.from_bytes(b[at:at + n], "little")
+
+
+def _vp8l_info(b: bytes):
+    """VP8LGetInfo: (width, height) of a VP8L bitstream's header, or None
+    (short, a bad signature or version)."""
+    if len(b) < 5 or b[0] != 0x2F or b[4] >> 5:
+        return None
+    v = _le(b, 1, 4)
+    return (v & 0x3FFF) + 1, (v >> 14 & 0x3FFF) + 1
+
+
+def _vp8_info(b: bytes, size: int):
+    """VP8GetInfo: (width, height) of a lossy key frame's header, or None."""
+    if len(b) < 10 or b[3:6] != b"\x9d\x01\x2a":
+        return None
+    bits = _le(b, 0, 3)
+    w, h = _le(b, 6, 2) & 0x3FFF, _le(b, 8, 2) & 0x3FFF
+    if (bits & 1 or bits >> 1 & 7 > 3 or not bits >> 4 & 1
+            or bits >> 5 >= size or not (w and h)):
+        return None
+    return w, h
+
+
+class _WebPFrame:
+    """A frame of libwebp's demuxer: its place on the canvas, its size (the
+    image chunk's own), its image and ALPH chunks (offset, size with the
+    chunk header; None until read) and its number, 0 until a chunk sets
+    it."""
+
+    def __init__(self, x=0, y=0, w=0, h=0):
+        self.x, self.y, self.w, self.h = x, y, w, h
+        self.image = self.alpha = None
+        self.num = 0
+
+
+class _WebPDemux:
+    """libwebp's demuxer (src/demux/demux.c) over a whole file: the RIFF
+    header, then a simple file (one VP8L or VP8 chunk and what follows it)
+    or an extended one (VP8X, then its chunks, the frames of an animation
+    in ANMF chunks), then the validation of either; any fault raises
+    ValueError, as WebPDemux returns no demuxer. Bytes past the RIFF size
+    are ignored; a file shorter than it is refused. The first chunk is one
+    of VP8X, VP8L and VP8 (Pillow opens no other)."""
+
+    def __init__(self, data: bytes):
+        self.d = data
+        if len(data) < 20:
+            self.fail("truncated file")
+        riff = _le(data, 4, 4)
+        if not 8 <= riff <= _WEBP_MAX_PAYLOAD:
+            self.fail(f"bad RIFF size {riff}")
+        self.end = riff + 8
+        if len(data) < self.end:
+            self.fail("truncated file (shorter than its RIFF size)")
+        self.pos, self.flags = 12, 0
+        self.canvas, self.frames = None, []
+        if data[12:16] == b"VP8X":
+            self.vp8x()
+            self.validate_extended()
+        else:                           # simple: its image is the canvas
+            self.single_image()
+
+    @staticmethod
+    def fail(what):
+        raise ValueError(f"WebP: {what}")
+
+    def avail(self):
+        return self.end - self.pos
+
+    def chunk_header(self):
+        """(tag, size, padded size) of the chunk at pos, pos past its
+        header; refused where the padded chunk reaches past the RIFF."""
+        tag, size = self.d[self.pos:self.pos + 4], _le(self.d, self.pos + 4, 4)
+        self.pos += 8
+        if size > _WEBP_MAX_PAYLOAD or size + (size & 1) > self.avail():
+            self.fail(f"chunk {tag!r} of {size} bytes past the RIFF size")
+        return tag, size, size + (size & 1)
+
+    def more_or_end(self):
+        """At the end of the RIFF: True; else the next chunk's header must
+        be there."""
+        if self.pos == self.end:
+            return True
+        if self.avail() < 8:
+            self.fail("truncated chunk header")
+        return False
+
+    def store_frame(self, num, min_size, f):
+        """StoreFrame: the ALPH and image chunks of a frame, up to the
+        first other chunk (or a second of either)."""
+        if self.avail() < max(8, min_size):
+            self.fail("truncated frame")
+        while True:
+            start = self.pos
+            tag, _, padded = self.chunk_header()
+            if tag == b"ALPH" and f.alpha is None:
+                f.alpha, f.num = (start, 8 + padded), num
+            elif tag == b"VP8L" and f.alpha is not None:
+                self.fail("a VP8L chunk after an ALPH chunk")
+            elif tag in (b"VP8 ", b"VP8L") and f.image is None:
+                # WebPGetFeatures of the chunk: its header, whole
+                head = self.d[start + 8:min(start + 18, self.pos + padded)]
+                wh = (_vp8l_info(head) if tag == b"VP8L"
+                      else _vp8_info(head, _le(self.d, start + 4, 4)))
+                if wh is None:
+                    self.fail(f"bad {tag.decode().strip()} header")
+                f.w, f.h = wh
+                f.image, f.num = (start, 8 + padded), num
+            else:
+                self.pos = start
+                return
+            self.pos += padded
+            if self.more_or_end():
+                return
+
+    def single_image(self):
+        if self.frames or self.avail() < 8:
+            self.fail("misplaced image chunk")
+        f = _WebPFrame()
+        self.store_frame(1, 0, f)
+        if not self.flags & _WEBP_ALPHA:
+            f.alpha = None
+        if self.canvas is None:
+            self.canvas = (f.w, f.h)
+        self.frames.append(f)
+
+    def vp8x(self):
+        if self.avail() < 8:
+            self.fail("truncated VP8X chunk")
+        _, size, padded = self.chunk_header()
+        if size < 10:
+            self.fail(f"VP8X chunk of {size} bytes")
+        d, p = self.d, self.pos
+        self.flags = d[p]
+        self.canvas = 1 + _le(d, p + 4, 3), 1 + _le(d, p + 7, 3)
+        if self.canvas[0] * self.canvas[1] >= 1 << 32:
+            self.fail(f"canvas of {self.canvas[0]}x{self.canvas[1]}")
+        self.pos += padded
+        if self.avail() < 8:
+            self.fail("no chunk after VP8X")
+        animation = self.flags & _WEBP_ANIMATION
+        anim_seen = False
+        while True:
+            start = self.pos
+            tag, _, padded = self.chunk_header()
+            if tag == b"VP8X":
+                self.fail("a second VP8X chunk")
+            if tag in (b"ALPH", b"VP8 ", b"VP8L"):
+                if anim_seen or animation:
+                    self.fail("an image outside the animation's frames")
+                self.pos = start
+                self.single_image()
+            elif tag == b"ANIM":
+                if padded < 6:
+                    self.fail("ANIM chunk too short")
+                anim_seen = True
+                self.pos += padded
+            elif tag == b"ANMF":
+                if not anim_seen:
+                    self.fail("ANMF chunk before ANIM")
+                self.anmf(padded, animation)
+            else:                         # ICCP, EXIF, XMP, unknown
+                self.pos += padded
+            if self.more_or_end():
+                return
+
+    def anmf(self, size, animation):
+        """ParseAnimationFrame: the ANMF header (offset / 2, size - 1,
+        duration, flags), then its image chunks, which give the frame its
+        size."""
+        if self.avail() < 16 or size < 16:
+            self.fail("ANMF chunk too short")
+        d, p = self.d, self.pos
+        f = _WebPFrame(2 * _le(d, p, 3), 2 * _le(d, p + 3, 3),
+                       1 + _le(d, p + 6, 3), 1 + _le(d, p + 9, 3))
+        if f.w * f.h >= 1 << 32:
+            self.fail(f"frame of {f.w}x{f.h}")
+        self.pos += 16
+        self.store_frame(len(self.frames) + 1, size - 16, f)
+        if self.pos - p - 16 > size - 16:
+            self.fail("frame data past its ANMF chunk")
+        if animation and f.num > 0:
+            self.frames.append(f)
+
+    def validate_extended(self):
+        """IsValidExtendedFormat: known flags, some frame, each whole (an
+        ALPH chunk before its image), on the canvas (the whole canvas
+        without animation)."""
+        animation = self.flags & _WEBP_ANIMATION
+        if not self.frames or self.flags & ~_WEBP_VALID_FLAGS:
+            self.fail("no frame, or unknown VP8X flags")
+        cw, ch = self.canvas
+        for f in self.frames:
+            if not animation and f.num > 1:
+                self.fail("more than one image without animation")
+            if f.image is None or (f.alpha is not None
+                                   and f.alpha[0] > f.image[0]):
+                self.fail("an incomplete frame")
+            if animation:
+                inside = f.x + f.w <= cw and f.y + f.h <= ch
+            else:
+                inside = (f.x, f.y, f.w, f.h) == (0, 0, cw, ch)
+            if not inside:
+                self.fail(f"a frame of {f.w}x{f.h} at ({f.x}, {f.y}) off "
+                          f"the {cw}x{ch} canvas")
+
+
+def _decode_webp(data: bytes) -> np.ndarray:
+    """A WebP file as PIL opens it (its WebPAnimDecoder, libwebp 1.6): the
+    container checked as libwebp's demuxer and WebPGetFeatures check it,
+    then the first frame's VP8L bitstream decoded by ``isc_vp8l_decode``
+    onto a canvas cleared to transparent black, at the frame's offset (the
+    first frame of an animation is a key frame: no blending, ANIM's
+    background colour unused). RGB always (a grey or paletted image was
+    coded as ARGB; the alpha is dropped, the RGB under it kept exactly).
+    Lossy WebP (a VP8 chunk, with ALPH or not, or an animation whose first
+    frame is one) is refused by name."""
+    if data[12:16] == b"VP8 ":
+        raise ValueError("unsupported: WebP lossy (VP8) (the decoders read "
+                         "lossless WebP)")
+    if data[12:16] not in (b"VP8L", b"VP8X"):    # Pillow's _accept
+        raise ValueError(f"WebP: unknown first chunk {data[12:16]!r}")
+    # the animation decoder's WebPGetFeatures of the whole file refuses a
+    # VP8X chunk of another size than 10 (its other checks are the
+    # demuxer's too)
+    if data[12:16] == b"VP8X" and _le(data, 16, 4) != 10:
+        raise ValueError("WebP: VP8X chunk not of 10 bytes")
+    demux = _WebPDemux(data)
+    cw, ch = demux.canvas
+    _check_pixels(ch, cw)
+    f = demux.frames[0]
+    start, size = f.image               # a VP8L frame has no ALPH chunk
+    if data[start:start + 4] != b"VP8L":
+        raise ValueError("unsupported: WebP lossy (VP8) frame (the decoders "
+                         "read lossless WebP)")
+    frame = np.empty((f.h, f.w, 3), np.uint8)
+    body = data[start + 8:start + size]
+    _call(_lib().isc_vp8l_decode, body, len(body), frame.ctypes.data, f.w,
+          f.h)
+    if (f.w, f.h) == (cw, ch):
+        return frame
+    canvas = np.zeros((ch, cw, 3), np.uint8)
+    canvas[f.y:f.y + f.h, f.x:f.x + f.w] = frame
+    return canvas
+
+
 def load_image_bytes(data: bytes) -> np.ndarray:
     """Encoded image bytes -> HWC uint8 RGB, or HW uint8 for a greyscale
     image (8-bit grey PNG, one-component JPEG, a GIF or BMP of grey
     indices), as the JAX package's PIL path gives them: every PNG (any
     colour type and depth, Adam7 or not), every 8-bit Huffman JPEG of 1, 3
     or 4 components (YCbCr, RGB, CMYK, YCCK), baseline or progressive,
-    every GIF (its first frame) and every BMP that PIL opens. What PIL
-    refuses, and what the decoders do not take (lossless, hierarchical,
-    arithmetic, 12-bit or 2-component JPEG; WebP, TIFF, PPM and the other
-    formats of ``_REFUSED``, by name), raises ValueError."""
+    every GIF (its first frame), every BMP and every lossless WebP (VP8L,
+    simple, extended or the first frame of an animation) that PIL opens.
+    What PIL refuses, and what the decoders do not take (lossless,
+    hierarchical, arithmetic, 12-bit or 2-component JPEG; lossy WebP, TIFF,
+    PPM and the other formats of ``_REFUSED``, by name), raises
+    ValueError."""
     data = bytes(data)
     if data[:2] == b"\xff\xd8":
         return _decode_jpeg(data)
@@ -542,11 +803,14 @@ def load_image_bytes(data: bytes) -> np.ndarray:
         return _decode_gif(data)
     if data[:2] == b"BM":
         return _decode_bmp(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return _decode_webp(data)
     for name, at, prefixes in _REFUSED:
         if data[at:].startswith(prefixes):
             raise ValueError(f"unsupported: {name} (the decoders read "
-                             "JPEG, PNG, GIF and BMP)")
-    raise ValueError("not an image the decoders read (JPEG, PNG, GIF, BMP)")
+                             "JPEG, PNG, GIF, BMP and lossless WebP)")
+    raise ValueError("not an image the decoders read (JPEG, PNG, GIF, BMP, "
+                     "lossless WebP)")
 
 
 def load_image(path: str) -> np.ndarray:

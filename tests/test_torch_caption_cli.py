@@ -123,6 +123,34 @@ def test_caption_run_reads_gif_and_bmp_as_jax(tree):
         assert abs(g["score"] - w["score"]) <= 1e-4
 
 
+def test_caption_run_reads_lossless_webp_as_jax(tree, tmp_path):
+    """Lossless WebPs (a simple RGBA file, whose RGB under alpha is kept,
+    and a VP8X file with an ICC profile), which the port's decoders
+    refused before: the records equal the JAX package's."""
+    from PIL import Image
+    d = tree
+    img = np.asarray(Image.open(d / "b.png"))
+    Image.fromarray(np.dstack([img, img[:, :, :1]])).save(
+        tmp_path / "e.webp", lossless=True, exact=True)
+    Image.fromarray(img[:, ::-1]).save(tmp_path / "f.webp", lossless=True,
+                                       icc_profile=b"icc")
+    args = ["-i", str(tmp_path / "e.webp"), str(tmp_path / "f.webp"),
+            "--rl_model", str(d / "rl.ckpt"),
+            "--concept_model", str(d / "cpt.ckpt"),
+            "--resnet101_ckpt", str(d / "resnet.ckpt"),
+            "--sentiment_detector_json", str(d / "senti.json"),
+            "--max_seq_len", "6", "--beam_size", "2", "--num_concepts", "3",
+            "--num_sentiments", "4"]
+    want = jcaption.run(jcaption.build_parser().parse_args(args))
+    got = tcaption.run(tcaption.build_parser().parse_args(
+        args + ["--device", "cpu"]))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert {k: v for k, v in g.items() if k != "score"} == \
+            {k: v for k, v in w.items() if k != "score"}
+        assert abs(g["score"] - w["score"]) <= 1e-4
+
+
 def test_caption_refuses_cuda_without_a_card(tree):
     import torch
     if torch.cuda.is_available():

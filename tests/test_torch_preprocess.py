@@ -26,7 +26,8 @@ from insenticap_model_tpu_torch import preprocessing as tpp
 from insenticap_model_tpu_torch.cli import preprocess as tcli
 from insenticap_model_tpu_torch.data.feature_store import open_store
 from test_preprocessing import corpus_tree  # noqa: F401 (a fixture)
-from torch_images import make_png, write_bmp
+from torch_images import (make_png, vp8l, webp_anim, webp_anmf, webp_chunk,
+                          webp_file, webp_vp8x, write_bmp)
 from torch_parity import encoder_params, resnet_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -213,6 +214,41 @@ def test_preprocess_features_reads_gif_and_bmp(weights, tmp_path):
                "--feat_batch_size", "2", "--device", "cpu"])
     _assert_stores_close(str(tmp_path / "jax"), str(tmp_path / "port"),
                          ["grey.gif", "p.gif", "rgb.bmp", "rle.bmp"])
+
+
+def test_preprocess_features_reads_lossless_webp(weights, tmp_path):
+    """``preprocess features`` over a folder with lossless WebPs (simple,
+    VP8X with an ICC profile, and an animation whose first frame lies at
+    an offset on its canvas), each refused by the port's decoder before,
+    which stopped the whole extraction: the features equal the JAX
+    package's, whose PIL reads them all."""
+    from PIL import Image
+    jp, _ = weights
+    imgs = tmp_path / "imgs"
+    os.makedirs(imgs)
+    g = np.random.default_rng(7)
+    photo = Image.fromarray(g.integers(0, 256, (70, 90, 3)).astype(np.uint8))
+    photo.save(imgs / "rgb.webp", lossless=True)
+    photo.quantize(50).save(imgs / "icc.webp", lossless=True,
+                            icc_profile=b"icc")
+    frames = [vp8l(np, 0xFF000000 | g.integers(0, 1 << 24, s).astype(
+        np.uint32)) for s in ((40, 50), (64, 80))]
+    (imgs / "anim.webp").write_bytes(webp_file(
+        webp_vp8x(80, 64, 0x02), webp_anim(),
+        webp_anmf(10, 6, 50, 40, webp_chunk(b"VP8L", frames[0])),
+        webp_anmf(0, 0, 80, 64, webp_chunk(b"VP8L", frames[1]))))
+    pth = str(tmp_path / "resnet101.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                resnet_state_dict(0).items()}, pth)
+    jpp.extract_imgs_feat(str(imgs), str(tmp_path / "jax"), jp, batch_size=2,
+                          store_format="native", bucket_mode="resize",
+                          bucket_shapes=((64, 64), (48, 64), (64, 48)))
+    tcli.main(["features", "--imgs_dir", str(imgs),
+               "--feats_dir", str(tmp_path / "port"),
+               "--resnet101_file", pth, "--feat_bucket_shapes", BUCKETS,
+               "--feat_batch_size", "2", "--device", "cpu"])
+    _assert_stores_close(str(tmp_path / "jax"), str(tmp_path / "port"),
+                         ["anim.webp", "icc.webp", "rgb.webp"])
 
 
 def test_h5_store_is_refused_by_name(tmp_path):

@@ -94,6 +94,8 @@ def tree(tmp_path_factory, settings):
                                                        "grey.gif")
     Image.fromarray(smooth[::-1]).quantize(100).save(d / "imgs" /
                                                      "photo.bmp")
+    Image.fromarray(np.dstack([smooth[:, ::-1], smooth[:, :, :1]])).save(
+        d / "imgs" / "photo.webp", lossless=True, exact=True)
     return d
 
 
@@ -159,6 +161,8 @@ def _payloads(d, settings):
                              "sentiment": "auto"},
             "bmp_b64": {"image_b64": b64("photo.bmp"),
                         "sentiment": "negative"},
+            "webp_b64": {"image_b64": b64("photo.webp"), "sentiment": "auto"},
+            "webp_path": {"image_path": str(d / "imgs" / "photo.webp")},
             "path": {"image_path": str(d / "imgs" / "photo.jpg")}}
 
 
@@ -186,6 +190,7 @@ def test_handle_caption_matches_jax(tree, settings, fakes):
     assert got["fc_forced"]["sentiment"] == "negative"
     assert got["png_b64"]["sentiment"] == "positive"
     assert got["jpeg_b64"] == got["path"]      # the same file, two ways
+    assert got["webp_b64"] == got["webp_path"]
     assert stats["requests"] == len(payloads)
     assert stats["encode"]["by_bucket"]["12x16"] >= 1     # the JPEG
 

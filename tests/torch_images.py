@@ -2,9 +2,11 @@
 (``tests/data/torch_images/``) and the small writers of the files PIL
 cannot write.
 
-The fixtures: JPEGs and PNGs written by PIL, or by the writers here
-(``write_jpeg``: YCCK; ``make_png``: Adam7-interlaced and 16-bit RGB),
-and ``expected.npz`` holding PIL's decoded arrays (the JAX package's
+The fixtures: JPEGs, PNGs, GIFs, BMPs and lossless WebPs written by PIL,
+or by the writers here (``write_jpeg``: YCCK; ``make_png``:
+Adam7-interlaced and 16-bit RGB; ``write_gif``, ``write_bmp``: what PIL
+does not write; ``vp8l``: an animation whose first frame lies at an
+offset), and ``expected.npz`` holding PIL's decoded arrays (the JAX package's
 ``load_image_bytes``), for the card's machine, which has no PIL. The
 arrays are stored as differences along each row (uint8, wrapping), which
 zlib packs to half the size, and an array two fixtures share once
@@ -27,7 +29,13 @@ frames (its LZW coder, ``chip_smoke.gif_lzw``, clears a full table or goes
 on at 12 bits); ``write_bmp`` (``chip_smoke.write_bmp``, which also
 writes the BMPs the smoke run times) writes BMPs of every header size,
 depth, palette, bitfield layout and row order, or of RLE data given byte
-for byte."""
+for byte; ``vp8l`` (``chip_smoke.vp8l``) writes VP8L bitstreams of given
+coded pixels: any of the four transforms in any order, a colour cache,
+meta prefix codes, simple and normal prefix codes (repeat codes and
+``max_symbol`` or not), literals, cache hits and backward references by
+the distance map or plain distances; ``webp_file``, ``webp_chunk``,
+``webp_vp8x``, ``webp_anim`` and ``webp_anmf`` wrap them in RIFF, VP8X and
+ANIM/ANMF containers."""
 import io
 import os
 import struct
@@ -40,7 +48,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke  # noqa: E402
 from chip_smoke import (FIXTURE_DIR as DIR, FIXTURES, SAME_PIXELS,  # noqa: E402,F401
-                        decode_expected, gif_blocks)
+                        VP8LBitWriter, decode_expected, gif_blocks, vp8l,
+                        webp_anim, webp_anmf, webp_chunk, webp_file,
+                        webp_vp8x)
 
 
 def _photo(h, w, seed, noise=6.0):
@@ -483,6 +493,26 @@ def build():
     out["bf565.bmp"] = write_bmp(g.integers(0, 1 << 16, (13, 17)), 16,
                                  header=124, compression=3,
                                  masks=(0xF800, 0x7E0, 0x1F))
+    # lossless WebP: PIL's of rgb.png's, p.png's and rgba.png's pixels (the
+    # RGB under alpha kept exactly), a VP8X file with an ICC profile, and
+    # j420_448.jpg's decoded pixels at PIL's default method; the writer's
+    # animation, its first frame at an offset on a larger canvas
+    save("lossless_rgb.webp", Image.fromarray(rgb), "WEBP", lossless=True)
+    save("lossless_p.webp", Image.fromarray(_photo(31, 39, 6)).quantize(37),
+         "WEBP", lossless=True)
+    save("lossless_rgba.webp", Image.fromarray(rgba), "WEBP", lossless=True,
+         exact=True)
+    save("lossless_icc.webp", Image.fromarray(_photo(27, 35, 18)), "WEBP",
+         lossless=True, icc_profile=bytes(range(64)))
+    save("lossless_448.webp", Image.open(io.BytesIO(out["j420_448.jpg"])),
+         "WEBP", lossless=True)
+    g = np.random.default_rng(19)
+    frames = [vp8l(np, 0xFF000000 | g.integers(0, 1 << 24, s).astype(
+        np.uint32), cache_bits=3) for s in ((7, 10), (15, 19))]
+    out["lossless_anim.webp"] = webp_file(
+        webp_vp8x(19, 15, 0x02), webp_anim(),
+        webp_anmf(6, 4, 10, 7, webp_chunk(b"VP8L", frames[0])),
+        webp_anmf(0, 0, 19, 15, webp_chunk(b"VP8L", frames[1])))
     return out
 
 
