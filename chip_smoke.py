@@ -69,29 +69,34 @@ C++ compiler), then:
    bit-identical; ``cli.serve.make_server`` on 127.0.0.1:0 (bf16,
    ``--warm``, ``--image_root`` the committed fixtures) answers feature
    requests (auto and forced), ``image_b64`` of the committed JPEG, PNG,
-   GIF, BMP and lossless WebP fixtures and three ``image_path`` requests
-   (a JPEG, a PNG and a WebP animation) from threads, each
+   GIF, BMP and WebP (lossless and lossy) fixtures and four
+   ``image_path`` requests (a JPEG, a PNG, a lossless WebP animation and
+   a lossy RGBA WebP) from threads, each
    with a caption and 5 distinct concepts, v1 and the pool launched (counts
    set to 0 just before; the three progressive JPEGs, CMYK (4:4:4 and a
    448x448 4:2:0), YCCK and Adobe-RGB JPEGs, Adam7 RGB and 4-bit palette
    PNGs, 16-bit RGB and grey PNGs, an interlaced palette GIF, a grey-ramp
    GIF and a GIF frame at an offset with a transparency index, and 8-bit
-   palette, 24-bit, RLE8 and 5-6-5 bitfields BMPs, and lossless WebPs
+   palette, 24-bit, RLE8 and 5-6-5 bitfields BMPs, lossless WebPs
    (simple, RGBA, palette, VP8X with ICC, an animation whose first frame
-   lies at an offset on its canvas) among the fixtures); a
+   lies at an offset on its canvas) and lossy WebPs (odd-sized, grey,
+   RGBA with its ALPH chunk, a lossy first frame at an offset, the test
+   writer's frame with the simple filter and four token partitions, and
+   448x448 at quality 80 and 100) among the fixtures); a
    path outside the root and a 12-bit JPEG (which the decoders and PIL
    both refuse) are 400s, an oversized body 413, /stats, /metrics and /healthz 200,
    and the server drains on shutdown (p50/p99 per bucket printed); the
    port's decoders on this host give the fixtures' committed PIL arrays
-   exactly; ``cli.caption.run`` on three fixtures (a JPEG, a PNG and a
-   lossless WebP) in f32 dumps attention
+   exactly; ``cli.caption.run`` on four fixtures (a JPEG, a PNG, a
+   lossless and a lossy RGBA WebP) in f32 dumps attention
    maps that sum to 1 within 1e-5; and the host's decode of a 448x448
    JPEG (4:2:0), baseline, progressive and CMYK (the same photo), and
    PNG, plain and Adam7 (its pixels), GIF and BMP, 24-bit and RLE8 (its
    pixels in the 3-3-2 colour cube for the GIF and RLE8, each written
    here without PIL and decoding to the pixels written), lossless WebP
    (PIL's of its pixels, committed; a corner of it written here decodes
-   to its pixels too), and a 480x640
+   to its pixels too), lossy WebP at quality 80 and 100 (PIL's of its
+   pixels, committed, each equal to its PIL array), and a 480x640
    ``resize_to_bucket`` are timed (median of 5, the card's name and power
    limit beside them);
 3f. drives the XE pre-training stage (``cli.train_xe.train``) at full
@@ -441,7 +446,10 @@ FIXTURES = {"j444.jpg": "decode", "j422.jpg": "decode",
             "bf565.bmp": "decode", "lossless_rgb.webp": "decode",
             "lossless_p.webp": "decode", "lossless_rgba.webp": "decode",
             "lossless_icc.webp": "decode", "lossless_anim.webp": "decode",
-            "lossless_448.webp": "decode"}
+            "lossless_448.webp": "decode", "lossy_rgb.webp": "decode",
+            "lossy_grey.webp": "decode", "lossy_rgba.webp": "decode",
+            "lossy_anim.webp": "decode", "lossy_hand.webp": "decode",
+            "lossy_448.webp": "decode", "lossy_448_q100.webp": "decode"}
 # a fixture whose PIL array is another's, stored once in expected.npz
 # under the other name: the same photo at the same quality and sampling,
 # written progressive (the same coefficients, so the same pixels), and
@@ -1478,7 +1486,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                 {"image_path": os.path.join(fixtures, "j420_448.jpg")},
                 {"image_path": os.path.join(fixtures, "rgba.png"),
                  "sentiment": "positive"},
-                {"image_path": os.path.join(fixtures, "lossless_anim.webp")}]
+                {"image_path": os.path.join(fixtures, "lossless_anim.webp")},
+                {"image_path": os.path.join(fixtures, "lossy_rgba.webp"),
+                 "sentiment": "negative"}]
             torch.cuda.synchronize()
             zero_counters()
             results, errors, serve_s = _run_groups(
@@ -1536,7 +1546,7 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                "encode": stats["encode"]["latency_by_bucket"]}
         print(f"serving surface: daemon up in {start_s:.1f} s (warm); "
               f"{len(payloads)} requests ({len(feats)} feature, "
-              f"{len(images)} image_b64, 3 image_path) in {serve_s:.2f} s, "
+              f"{len(images)} image_b64, 4 image_path) in {serve_s:.2f} s, "
               f"all 200 (progressive JPEGs {progressive}, and {added} "
               f"among them); 400 outside the root, 400 {refused}, 413 "
               f"oversized; launches {launches}")
@@ -1568,15 +1578,18 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
               "to PIL's arrays (progressive, CMYK, YCCK, Adobe-RGB JPEG, "
               "Adam7 and 16-bit PNG, interlaced, grey-ramp and offset GIF, "
               "palette, 24-bit, RLE8 and bitfields BMP, lossless WebP "
-              "(simple, VP8X, an animation's offset first frame) "
-              "included), "
+              "(simple, VP8X, an animation's offset first frame), lossy "
+              "WebP (simple, grey, ALPH, an animation's offset first "
+              "frame, the simple filter and four partitions, 448x448 at "
+              "quality 80 and 100) included), "
               f"{[n for n, w in FIXTURES.items() if w == 'refuse']} "
               "refused")
 
         # 4. the caption command in f32 with the attention dump
         img_args = [os.path.join(fixtures, "j420_448.jpg"),
                     os.path.join(fixtures, "rgb.png"),
-                    os.path.join(fixtures, "lossless_rgba.webp")]
+                    os.path.join(fixtures, "lossless_rgba.webp"),
+                    os.path.join(fixtures, "lossy_rgba.webp")]
         cap_out = io.StringIO()
         with contextlib.redirect_stdout(cap_out):
             recs = caption_cli.run(caption_cli.build_parser().parse_args(
@@ -1611,9 +1624,13 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
     # CMYK fixtures are the same photo, quality and sampling as the
     # baseline one, the PNGs (plain and Adam7), the 24-bit BMP and the
     # lossless WebP (PIL's, method 4) its decoded pixels, the GIF and the
-    # RLE8 BMP those pixels in the 3-3-2 colour cube
+    # RLE8 BMP those pixels in the 3-3-2 colour cube; the lossy WebPs
+    # (PIL's of those pixels at quality 80 and 100) equal to PIL's arrays
     jpeg = open(os.path.join(fixtures, "j420_448.jpg"), "rb").read()
     webp = open(os.path.join(fixtures, "lossless_448.webp"), "rb").read()
+    lossy = {q: open(os.path.join(fixtures, name), "rb").read()
+             for q, name in ((80, "lossy_448.webp"),
+                             (100, "lossy_448_q100.webp"))}
     prog = open(os.path.join(fixtures, "prog420_448.jpg"), "rb").read()
     cmyk = open(os.path.join(fixtures, "cmyk420_448.jpg"), "rb").read()
     img448 = pre.load_image_bytes(jpeg)
@@ -1654,6 +1671,10 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
              "bmp_448_rle8_ms": host_ms(lambda: pre.load_image_bytes(rle)),
              "webp_448_lossless_ms": host_ms(
                  lambda: pre.load_image_bytes(webp)),
+             "webp_448_lossy_q80_ms": host_ms(
+                 lambda: pre.load_image_bytes(lossy[80])),
+             "webp_448_lossy_q100_ms": host_ms(
+                 lambda: pre.load_image_bytes(lossy[100])),
              "resize_480x640_ms": host_ms(
                  lambda: pre.resize_to_bucket(img480, bucket))}
     _check(np.array_equal(pre.load_image_bytes(png), img448)
@@ -1666,6 +1687,11 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
     _check(np.array_equal(pre.load_image_bytes(webp), img448)
            and np.array_equal(pre.load_image_bytes(own_webp), own_webp_px),
            "the lossless WebPs do not decode to their pixels")
+    _check(all(np.array_equal(pre.load_image_bytes(lossy[q]),
+                              expected[name]) for q, name in (
+                                  (80, "lossy_448.webp"),
+                                  (100, "lossy_448_q100.webp"))),
+           "the lossy WebPs do not decode to PIL's arrays")
     card = _smi()
     print(f"serving surface host times (median of 5, host CPU {cpu}, "
           f"{os.cpu_count()} cores, card {card}): decode 448x448 JPEG 4:2:0 "
@@ -1682,13 +1708,20 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
           f"resize_to_bucket "
           f"480x640 -> {bucket[0]}x{bucket[1]} "
           f"{times['resize_480x640_ms']:.2f} ms")
+    print(f"serving surface host times, lossy WebP (median of 5, card "
+          f"{card}): decode 448x448 at quality 80 ({len(lossy[80])} B) "
+          f"{times['webp_448_lossy_q80_ms']:.2f} ms, at quality 100 "
+          f"({len(lossy[100])} B) {times['webp_448_lossy_q100_ms']:.2f} ms")
     out["host_times"] = dict(times, cpu=cpu, jpeg_bytes=len(jpeg),
                              progressive_bytes=len(prog),
                              cmyk_bytes=len(cmyk), png_bytes=len(png),
                              png_adam7_bytes=len(png_i),
                              gif_bytes=len(gif), bmp_24bit_bytes=len(bmp),
                              bmp_rle8_bytes=len(rle),
-                             webp_lossless_bytes=len(webp), card=card)
+                             webp_lossless_bytes=len(webp),
+                             webp_lossy_q80_bytes=len(lossy[80]),
+                             webp_lossy_q100_bytes=len(lossy[100]),
+                             card=card)
     return out
 
 

@@ -1,6 +1,7 @@
 // Host image decoding for the serving surface: baseline, extended-
 // sequential and progressive Huffman JPEG, PNG's row filters, GIF's LZW,
-// BMP's RLE8 and RLE4, and WebP's lossless (VP8L) bitstream.
+// BMP's RLE8 and RLE4, WebP's lossless (VP8L) bitstream and its lossy
+// (VP8) key frame.
 //
 // The JAX package decodes with PIL (insenticap_model_tpu/preprocessing.py:
 // 50-80); the machine that serves the port has no PIL, so the port decodes
@@ -60,7 +61,10 @@
 // decoder (BmpRleDecoder), quirks included.
 //
 // WebP: the Python side walks the RIFF container as libwebp's demuxer
-// does; isc_vp8l_decode decodes a VP8L chunk's bitstream (RFC 9649) to RGB.
+// does; isc_vp8l_decode decodes a VP8L chunk's bitstream (RFC 9649) to RGB,
+// isc_vp8_decode a VP8 chunk's key frame (RFC 6386), and
+// isc_vp8l_alpha_check an ALPH chunk's VP8L stream as far as libwebp
+// refuses it.
 //
 // C interface (ctypes): every entry returns 0, or non-zero with a
 // NUL-terminated message in err[errlen].
@@ -1094,10 +1098,10 @@ void set_err(char* err, int errlen, const std::string& m) {
 // the same LZ77 distances, colour cache and inverse transforms, so that a
 // stream libwebp decodes gives its ARGB bit for bit and a stream it refuses
 // is refused. Bits past the end of the data read as zeros, and a stream
-// that consumes more bits than it holds is refused. (libwebp's bit reader
-// allows 64 bits of a stream shorter than 8 bytes; no stream so short
-// holds the five prefix codes of an image, whose last starts at bit 59
-// with a 1, so the two refuse the same streams.)
+// that consumes more bits than it holds (64 at least: libwebp's bit reader
+// loads a stream shorter than 8 bytes into a 64-bit window) is refused;
+// an alpha plane that libwebp decodes by its 8-bit path (Decoder::alpha)
+// only where such a read leaves pixels undecoded.
 namespace vp8l {
 
 enum { kPredictor = 0, kCrossColour = 1, kSubtractGreen = 2, kIndexing = 3 };
@@ -1124,7 +1128,9 @@ struct Bits {
   const uint8_t* p;
   uint64_t n, pos = 0, buf = 0, used = 0, limit;
   int cnt = 0;
-  Bits(const uint8_t* p_, uint64_t n_) : p(p_), n(n_), limit(8 * n_) {}
+  bool lenient = false, over = false;   // over: read past the limit
+  Bits(const uint8_t* p_, uint64_t n_)
+      : p(p_), n(n_), limit(std::max<uint64_t>(8 * n_, 64)) {}
   uint32_t peek(int k) {
     while (cnt < k) {
       buf |= (uint64_t)(pos < n ? p[pos] : 0) << cnt;
@@ -1137,7 +1143,10 @@ struct Bits {
     buf >>= k;
     cnt -= k;
     used += k;
-    if (used > limit) fail("WebP: truncated VP8L data");
+    if (used > limit) {
+      if (!lenient) fail("WebP: truncated VP8L data");
+      over = true;
+    }
   }
   uint32_t read(int k) {
     if (k == 0) return 0;
@@ -1337,6 +1346,11 @@ struct Decoder {
   Bits br;
   Transform tr[4];
   int ntr = 0, seen = 0;
+  // an alpha plane (ALPH): libwebp decodes one whose only transform is
+  // colour indexing, with no colour cache and red, blue and alpha codes
+  // of one symbol, by DecodeAlphaData, which refuses a read past the end
+  // only where pixels are left to decode
+  bool alpha = false;
 
   Decoder(const uint8_t* p, uint64_t n) : br(p, n) {}
 
@@ -1409,6 +1423,13 @@ struct Decoder {
         read_code(br, alphabet[j],
                   mapping[g] < 0 ? scratch : groups[(size_t)mapping[g] * 5 + j],
                   lens);
+    if (level0 && alpha && ntr == 1 && tr[0].type == kIndexing &&
+        !cache_bits) {
+      br.lenient = true;
+      for (size_t g = 0; g < groups.size(); g += 5)
+        for (int j = 1; j < 4; ++j)
+          br.lenient = br.lenient && groups[g + j].single >= 0;
+    }
     return pixels(xsize, ysize, cache_bits, groups, meta, meta_bits,
                   meta_xsize);
   }
@@ -1460,6 +1481,7 @@ struct Decoder {
         data[i++] = cache[s - len_limit];
         if (++x == xsize) x = 0, ++y;
       }
+      if (br.over && i < total) fail("WebP: truncated VP8L data");
     }
     return data;
   }
@@ -1528,6 +1550,1405 @@ std::vector<uint32_t> inverse_indexing(const Transform& t,
 }
 
 }  // namespace vp8l
+
+// -- WebP lossy (VP8 key frames) ---------------------------------------------
+//
+// A key frame of RFC 6386 to RGB, computing what libwebp 1.6's vp8_dec.c,
+// tree_dec.c, quant_dec.c, frame_dec.c and its dsp (dec.c, upsampling.c,
+// yuv.h) compute, so that a frame libwebp decodes gives its pixels bit for
+// bit and a frame it refuses is refused:
+//
+//  * the boolean decoder with libwebp's end of data: a load that finds no
+//    byte left shifts in one zero byte and sets eof, which fails the first
+//    partition at the end of a row of modes and a token partition at the
+//    end of a macroblock;
+//  * the frame header (colour space, clamping type and the refresh bit read
+//    and ignored, as libwebp ignores them, and so the profile and the scale
+//    bits), segments, loop filter and its deltas, 1 to 8 token partitions
+//    (sizes clipped to the data), the quantisers (quant_dec.c's tables and
+//    rules), the coefficient probability updates, the skip probability;
+//  * per macroblock: segment, skip flag, the 16x16 or 4x4 intra modes and
+//    the chroma mode, then the coefficient tokens (contexts from the
+//    neighbours' non-zero flags, the Y2 block of a 16x16 one); the inverse
+//    WHT and DCT; the intra predictors on libwebp's work buffer, whose
+//    borders are 127 above the frame and 129 left of it;
+//  * the simple or normal loop filter over the whole frame (prediction
+//    reads unfiltered pixels), macroblock by macroblock, each with its
+//    segment's and mode's strengths (PrecomputeFilterStrengths);
+//  * libwebp's fancy upsampling of the 4:2:0 chroma and its YUV -> RGB
+//    (14-bit BT.601 studio range, not the JPEG decoder's conversion).
+//
+// The full inverse DCT is computed as libwebp's SSE2 code computes it on
+// x86, in wrapping 16-bit lanes (its C code computes in int; the two part
+// only on coefficients no encoder writes); its DC-only and three-
+// coefficient shortcuts, and the WHT, as its C code does. The tables are
+// RFC 6386's, in libwebp's layout: its order of the 4x4 modes (DC, TM, VE,
+// HE, RD, VR, LD, VL, HD, HU) indexes kBModesProba.
+namespace vp8 {
+
+enum { kBPS = 32 };   // the work buffer's stride (libwebp's BPS)
+enum { B_DC, B_TM, B_VE, B_HE, B_RD, B_VR, B_LD, B_VL, B_HD, B_HU };
+
+const uint8_t kCoeffsProba0[4][8][3][11] = {
+    {{{128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128},
+      {128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128},
+      {128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128}},
+     {{253, 136, 254, 255, 228, 219, 128, 128, 128, 128, 128},
+      {189, 129, 242, 255, 227, 213, 255, 219, 128, 128, 128},
+      {106, 126, 227, 252, 214, 209, 255, 255, 128, 128, 128}},
+     {{1, 98, 248, 255, 236, 226, 255, 255, 128, 128, 128},
+      {181, 133, 238, 254, 221, 234, 255, 154, 128, 128, 128},
+      {78, 134, 202, 247, 198, 180, 255, 219, 128, 128, 128}},
+     {{1, 185, 249, 255, 243, 255, 128, 128, 128, 128, 128},
+      {184, 150, 247, 255, 236, 224, 128, 128, 128, 128, 128},
+      {77, 110, 216, 255, 236, 230, 128, 128, 128, 128, 128}},
+     {{1, 101, 251, 255, 241, 255, 128, 128, 128, 128, 128},
+      {170, 139, 241, 252, 236, 209, 255, 255, 128, 128, 128},
+      {37, 116, 196, 243, 228, 255, 255, 255, 128, 128, 128}},
+     {{1, 204, 254, 255, 245, 255, 128, 128, 128, 128, 128},
+      {207, 160, 250, 255, 238, 128, 128, 128, 128, 128, 128},
+      {102, 103, 231, 255, 211, 171, 128, 128, 128, 128, 128}},
+     {{1, 152, 252, 255, 240, 255, 128, 128, 128, 128, 128},
+      {177, 135, 243, 255, 234, 225, 128, 128, 128, 128, 128},
+      {80, 129, 211, 255, 194, 224, 128, 128, 128, 128, 128}},
+     {{1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128},
+      {246, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128},
+      {255, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128}}},
+    {{{198, 35, 237, 223, 193, 187, 162, 160, 145, 155, 62},
+      {131, 45, 198, 221, 172, 176, 220, 157, 252, 221, 1},
+      {68, 47, 146, 208, 149, 167, 221, 162, 255, 223, 128}},
+     {{1, 149, 241, 255, 221, 224, 255, 255, 128, 128, 128},
+      {184, 141, 234, 253, 222, 220, 255, 199, 128, 128, 128},
+      {81, 99, 181, 242, 176, 190, 249, 202, 255, 255, 128}},
+     {{1, 129, 232, 253, 214, 197, 242, 196, 255, 255, 128},
+      {99, 121, 210, 250, 201, 198, 255, 202, 128, 128, 128},
+      {23, 91, 163, 242, 170, 187, 247, 210, 255, 255, 128}},
+     {{1, 200, 246, 255, 234, 255, 128, 128, 128, 128, 128},
+      {109, 178, 241, 255, 231, 245, 255, 255, 128, 128, 128},
+      {44, 130, 201, 253, 205, 192, 255, 255, 128, 128, 128}},
+     {{1, 132, 239, 251, 219, 209, 255, 165, 128, 128, 128},
+      {94, 136, 225, 251, 218, 190, 255, 255, 128, 128, 128},
+      {22, 100, 174, 245, 186, 161, 255, 199, 128, 128, 128}},
+     {{1, 182, 249, 255, 232, 235, 128, 128, 128, 128, 128},
+      {124, 143, 241, 255, 227, 234, 128, 128, 128, 128, 128},
+      {35, 77, 181, 251, 193, 211, 255, 205, 128, 128, 128}},
+     {{1, 157, 247, 255, 236, 231, 255, 255, 128, 128, 128},
+      {121, 141, 235, 255, 225, 227, 255, 255, 128, 128, 128},
+      {45, 99, 188, 251, 195, 217, 255, 224, 128, 128, 128}},
+     {{1, 1, 251, 255, 213, 255, 128, 128, 128, 128, 128},
+      {203, 1, 248, 255, 255, 128, 128, 128, 128, 128, 128},
+      {137, 1, 177, 255, 224, 255, 128, 128, 128, 128, 128}}},
+    {{{253, 9, 248, 251, 207, 208, 255, 192, 128, 128, 128},
+      {175, 13, 224, 243, 193, 185, 249, 198, 255, 255, 128},
+      {73, 17, 171, 221, 161, 179, 236, 167, 255, 234, 128}},
+     {{1, 95, 247, 253, 212, 183, 255, 255, 128, 128, 128},
+      {239, 90, 244, 250, 211, 209, 255, 255, 128, 128, 128},
+      {155, 77, 195, 248, 188, 195, 255, 255, 128, 128, 128}},
+     {{1, 24, 239, 251, 218, 219, 255, 205, 128, 128, 128},
+      {201, 51, 219, 255, 196, 186, 128, 128, 128, 128, 128},
+      {69, 46, 190, 239, 201, 218, 255, 228, 128, 128, 128}},
+     {{1, 191, 251, 255, 255, 128, 128, 128, 128, 128, 128},
+      {223, 165, 249, 255, 213, 255, 128, 128, 128, 128, 128},
+      {141, 124, 248, 255, 255, 128, 128, 128, 128, 128, 128}},
+     {{1, 16, 248, 255, 255, 128, 128, 128, 128, 128, 128},
+      {190, 36, 230, 255, 236, 255, 128, 128, 128, 128, 128},
+      {149, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128}},
+     {{1, 226, 255, 128, 128, 128, 128, 128, 128, 128, 128},
+      {247, 192, 255, 128, 128, 128, 128, 128, 128, 128, 128},
+      {240, 128, 255, 128, 128, 128, 128, 128, 128, 128, 128}},
+     {{1, 134, 252, 255, 255, 128, 128, 128, 128, 128, 128},
+      {213, 62, 250, 255, 255, 128, 128, 128, 128, 128, 128},
+      {55, 93, 255, 128, 128, 128, 128, 128, 128, 128, 128}},
+     {{128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128},
+      {128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128},
+      {128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128}}},
+    {{{202, 24, 213, 235, 186, 191, 220, 160, 240, 175, 255},
+      {126, 38, 182, 232, 169, 184, 228, 174, 255, 187, 128},
+      {61, 46, 138, 219, 151, 178, 240, 170, 255, 216, 128}},
+     {{1, 112, 230, 250, 199, 191, 247, 159, 255, 255, 128},
+      {166, 109, 228, 252, 211, 215, 255, 174, 128, 128, 128},
+      {39, 77, 162, 232, 172, 180, 245, 178, 255, 255, 128}},
+     {{1, 52, 220, 246, 198, 199, 249, 220, 255, 255, 128},
+      {124, 74, 191, 243, 183, 193, 250, 221, 255, 255, 128},
+      {24, 71, 130, 219, 154, 170, 243, 182, 255, 255, 128}},
+     {{1, 182, 225, 249, 219, 240, 255, 224, 128, 128, 128},
+      {149, 150, 226, 252, 216, 205, 255, 171, 128, 128, 128},
+      {28, 108, 170, 242, 183, 194, 254, 223, 255, 255, 128}},
+     {{1, 81, 230, 252, 204, 203, 255, 192, 128, 128, 128},
+      {123, 102, 209, 247, 188, 196, 255, 233, 128, 128, 128},
+      {20, 95, 153, 243, 164, 173, 255, 203, 128, 128, 128}},
+     {{1, 222, 248, 255, 216, 213, 128, 128, 128, 128, 128},
+      {168, 175, 246, 252, 235, 205, 255, 255, 128, 128, 128},
+      {47, 116, 215, 255, 211, 212, 255, 255, 128, 128, 128}},
+     {{1, 121, 236, 253, 212, 214, 255, 255, 128, 128, 128},
+      {141, 84, 213, 252, 201, 202, 255, 219, 128, 128, 128},
+      {42, 80, 160, 240, 162, 185, 255, 205, 128, 128, 128}},
+     {{1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128},
+      {244, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128},
+      {238, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128}}}};
+const uint8_t kCoeffsUpdateProba[4][8][3][11] = {
+    {{{255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{176, 246, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {223, 241, 252, 255, 255, 255, 255, 255, 255, 255, 255},
+      {249, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 244, 252, 255, 255, 255, 255, 255, 255, 255, 255},
+      {234, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 246, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {239, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {251, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {251, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 254, 253, 255, 254, 255, 255, 255, 255, 255, 255},
+      {250, 255, 254, 255, 254, 255, 255, 255, 255, 255, 255},
+      {254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}}},
+    {{{217, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {225, 252, 241, 253, 255, 255, 254, 255, 255, 255, 255},
+      {234, 250, 241, 250, 253, 255, 253, 254, 255, 255, 255}},
+     {{255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {223, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {238, 253, 254, 254, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {249, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 253, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {247, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {252, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255},
+      {250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}}},
+    {{{186, 251, 250, 255, 255, 255, 255, 255, 255, 255, 255},
+      {234, 251, 244, 254, 255, 255, 255, 255, 255, 255, 255},
+      {251, 251, 243, 253, 254, 255, 254, 255, 255, 255, 255}},
+     {{255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {236, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {251, 253, 253, 254, 254, 255, 255, 255, 255, 255, 255}},
+     {{255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {254, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {254, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}}},
+    {{{248, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {250, 254, 252, 254, 255, 255, 255, 255, 255, 255, 255},
+      {248, 254, 249, 253, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255},
+      {246, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255},
+      {252, 254, 251, 254, 254, 255, 255, 255, 255, 255, 255}},
+     {{255, 254, 252, 255, 255, 255, 255, 255, 255, 255, 255},
+      {248, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255},
+      {253, 255, 254, 254, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {245, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {253, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 251, 253, 255, 255, 255, 255, 255, 255, 255, 255},
+      {252, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 252, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {249, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 255, 253, 255, 255, 255, 255, 255, 255, 255, 255},
+      {250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
+     {{255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+      {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}}}};
+const uint8_t kBModesProba[10][10][9] = {
+    {{231, 120, 48, 89, 115, 113, 120, 152, 112},
+     {152, 179, 64, 126, 170, 118, 46, 70, 95},
+     {175, 69, 143, 80, 85, 82, 72, 155, 103},
+     {56, 58, 10, 171, 218, 189, 17, 13, 152},
+     {114, 26, 17, 163, 44, 195, 21, 10, 173},
+     {121, 24, 80, 195, 26, 62, 44, 64, 85},
+     {144, 71, 10, 38, 171, 213, 144, 34, 26},
+     {170, 46, 55, 19, 136, 160, 33, 206, 71},
+     {63, 20, 8, 114, 114, 208, 12, 9, 226},
+     {81, 40, 11, 96, 182, 84, 29, 16, 36}},
+    {{134, 183, 89, 137, 98, 101, 106, 165, 148},
+     {72, 187, 100, 130, 157, 111, 32, 75, 80},
+     {66, 102, 167, 99, 74, 62, 40, 234, 128},
+     {41, 53, 9, 178, 241, 141, 26, 8, 107},
+     {74, 43, 26, 146, 73, 166, 49, 23, 157},
+     {65, 38, 105, 160, 51, 52, 31, 115, 128},
+     {104, 79, 12, 27, 217, 255, 87, 17, 7},
+     {87, 68, 71, 44, 114, 51, 15, 186, 23},
+     {47, 41, 14, 110, 182, 183, 21, 17, 194},
+     {66, 45, 25, 102, 197, 189, 23, 18, 22}},
+    {{88, 88, 147, 150, 42, 46, 45, 196, 205},
+     {43, 97, 183, 117, 85, 38, 35, 179, 61},
+     {39, 53, 200, 87, 26, 21, 43, 232, 171},
+     {56, 34, 51, 104, 114, 102, 29, 93, 77},
+     {39, 28, 85, 171, 58, 165, 90, 98, 64},
+     {34, 22, 116, 206, 23, 34, 43, 166, 73},
+     {107, 54, 32, 26, 51, 1, 81, 43, 31},
+     {68, 25, 106, 22, 64, 171, 36, 225, 114},
+     {34, 19, 21, 102, 132, 188, 16, 76, 124},
+     {62, 18, 78, 95, 85, 57, 50, 48, 51}},
+    {{193, 101, 35, 159, 215, 111, 89, 46, 111},
+     {60, 148, 31, 172, 219, 228, 21, 18, 111},
+     {112, 113, 77, 85, 179, 255, 38, 120, 114},
+     {40, 42, 1, 196, 245, 209, 10, 25, 109},
+     {88, 43, 29, 140, 166, 213, 37, 43, 154},
+     {61, 63, 30, 155, 67, 45, 68, 1, 209},
+     {100, 80, 8, 43, 154, 1, 51, 26, 71},
+     {142, 78, 78, 16, 255, 128, 34, 197, 171},
+     {41, 40, 5, 102, 211, 183, 4, 1, 221},
+     {51, 50, 17, 168, 209, 192, 23, 25, 82}},
+    {{138, 31, 36, 171, 27, 166, 38, 44, 229},
+     {67, 87, 58, 169, 82, 115, 26, 59, 179},
+     {63, 59, 90, 180, 59, 166, 93, 73, 154},
+     {40, 40, 21, 116, 143, 209, 34, 39, 175},
+     {47, 15, 16, 183, 34, 223, 49, 45, 183},
+     {46, 17, 33, 183, 6, 98, 15, 32, 183},
+     {57, 46, 22, 24, 128, 1, 54, 17, 37},
+     {65, 32, 73, 115, 28, 128, 23, 128, 205},
+     {40, 3, 9, 115, 51, 192, 18, 6, 223},
+     {87, 37, 9, 115, 59, 77, 64, 21, 47}},
+    {{104, 55, 44, 218, 9, 54, 53, 130, 226},
+     {64, 90, 70, 205, 40, 41, 23, 26, 57},
+     {54, 57, 112, 184, 5, 41, 38, 166, 213},
+     {30, 34, 26, 133, 152, 116, 10, 32, 134},
+     {39, 19, 53, 221, 26, 114, 32, 73, 255},
+     {31, 9, 65, 234, 2, 15, 1, 118, 73},
+     {75, 32, 12, 51, 192, 255, 160, 43, 51},
+     {88, 31, 35, 67, 102, 85, 55, 186, 85},
+     {56, 21, 23, 111, 59, 205, 45, 37, 192},
+     {55, 38, 70, 124, 73, 102, 1, 34, 98}},
+    {{125, 98, 42, 88, 104, 85, 117, 175, 82},
+     {95, 84, 53, 89, 128, 100, 113, 101, 45},
+     {75, 79, 123, 47, 51, 128, 81, 171, 1},
+     {57, 17, 5, 71, 102, 57, 53, 41, 49},
+     {38, 33, 13, 121, 57, 73, 26, 1, 85},
+     {41, 10, 67, 138, 77, 110, 90, 47, 114},
+     {115, 21, 2, 10, 102, 255, 166, 23, 6},
+     {101, 29, 16, 10, 85, 128, 101, 196, 26},
+     {57, 18, 10, 102, 102, 213, 34, 20, 43},
+     {117, 20, 15, 36, 163, 128, 68, 1, 26}},
+    {{102, 61, 71, 37, 34, 53, 31, 243, 192},
+     {69, 60, 71, 38, 73, 119, 28, 222, 37},
+     {68, 45, 128, 34, 1, 47, 11, 245, 171},
+     {62, 17, 19, 70, 146, 85, 55, 62, 70},
+     {37, 43, 37, 154, 100, 163, 85, 160, 1},
+     {63, 9, 92, 136, 28, 64, 32, 201, 85},
+     {75, 15, 9, 9, 64, 255, 184, 119, 16},
+     {86, 6, 28, 5, 64, 255, 25, 248, 1},
+     {56, 8, 17, 132, 137, 255, 55, 116, 128},
+     {58, 15, 20, 82, 135, 57, 26, 121, 40}},
+    {{164, 50, 31, 137, 154, 133, 25, 35, 218},
+     {51, 103, 44, 131, 131, 123, 31, 6, 158},
+     {86, 40, 64, 135, 148, 224, 45, 183, 128},
+     {22, 26, 17, 131, 240, 154, 14, 1, 209},
+     {45, 16, 21, 91, 64, 222, 7, 1, 197},
+     {56, 21, 39, 155, 60, 138, 23, 102, 213},
+     {83, 12, 13, 54, 192, 255, 68, 47, 28},
+     {85, 26, 85, 85, 128, 128, 32, 146, 171},
+     {18, 11, 7, 63, 144, 171, 4, 4, 246},
+     {35, 27, 10, 146, 174, 171, 12, 26, 128}},
+    {{190, 80, 35, 99, 180, 80, 126, 54, 45},
+     {85, 126, 47, 87, 176, 51, 41, 20, 32},
+     {101, 75, 128, 139, 118, 146, 116, 128, 85},
+     {56, 41, 15, 176, 236, 85, 37, 9, 62},
+     {71, 30, 17, 119, 118, 255, 17, 18, 138},
+     {101, 38, 60, 138, 55, 70, 43, 26, 142},
+     {146, 36, 19, 30, 171, 255, 97, 27, 20},
+     {138, 45, 61, 62, 219, 1, 81, 188, 64},
+     {32, 41, 20, 117, 151, 142, 20, 21, 163},
+     {112, 19, 12, 61, 195, 128, 48, 4, 24}}};
+const uint8_t kDcTable[128] = {
+    4, 5, 6, 7, 8, 9, 10, 10, 11, 12, 13, 14, 15, 16,
+    17, 17, 18, 19, 20, 20, 21, 21, 22, 22, 23, 23, 24, 25,
+    25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 37,
+    38, 39, 40, 41, 42, 43, 44, 45, 46, 46, 47, 48, 49, 50,
+    51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63, 64,
+    65, 66, 67, 68, 69, 70, 71, 72, 73, 74, 75, 76, 76, 77,
+    78, 79, 80, 81, 82, 83, 84, 85, 86, 87, 88, 89, 91, 93,
+    95, 96, 98, 100, 101, 102, 104, 106, 108, 110, 112, 114, 116, 118,
+    122, 124, 126, 128, 130, 132, 134, 136, 138, 140, 143, 145, 148, 151,
+    154, 157};
+const uint16_t kAcTable[128] = {
+    4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17,
+    18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31,
+    32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45,
+    46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 60,
+    62, 64, 66, 68, 70, 72, 74, 76, 78, 80, 82, 84, 86, 88,
+    90, 92, 94, 96, 98, 100, 102, 104, 106, 108, 110, 112, 114, 116,
+    119, 122, 125, 128, 131, 134, 137, 140, 143, 146, 149, 152, 155, 158,
+    161, 164, 167, 170, 173, 177, 181, 185, 189, 193, 197, 201, 205, 209,
+    213, 217, 221, 225, 229, 234, 239, 245, 249, 254, 259, 264, 269, 274,
+    279, 284};
+
+const uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14,
+                             15};
+// a coefficient's band, by its index in zigzag order (the 17th: past the
+// last)
+const uint8_t kBands[17] = {0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0};
+// DCT_CAT3 to DCT_CAT6: the probabilities of their extra bits
+const uint8_t kCat3[] = {173, 148, 140, 0};
+const uint8_t kCat4[] = {176, 155, 140, 135, 0};
+const uint8_t kCat5[] = {180, 157, 141, 134, 130, 0};
+const uint8_t kCat6[] = {254, 254, 243, 230, 196, 177, 153, 140, 133, 130,
+                         129, 0};
+const uint8_t* const kCat3456[4] = {kCat3, kCat4, kCat5, kCat6};
+// the 4x4 mode tree: a leaf is minus its mode, a node the index of its pair
+const int8_t kYModesIntra4[18] = {-B_DC, 1, -B_TM, 2, -B_VE, 3, 4, 6, -B_HE,
+                                  5, -B_RD, -B_VR, -B_LD, 7, -B_VL, 8, -B_HD,
+                                  -B_HU};
+// the 4x4 blocks' offsets in the work buffer, in raster order
+const int kScan[16] = {0,        4,        8,        12,
+                       4 * kBPS, 4 + 4 * kBPS, 8 + 4 * kBPS, 12 + 4 * kBPS,
+                       8 * kBPS, 4 + 8 * kBPS, 8 + 8 * kBPS, 12 + 8 * kBPS,
+                       12 * kBPS, 4 + 12 * kBPS, 8 + 12 * kBPS,
+                       12 + 12 * kBPS};
+
+// VP8BitReader as libwebp builds it for a 64-bit host: 56 bits at a time
+// while 8 bytes are left, then a byte at a time; past the end one zero byte
+// and eof. The range is kept less one. A corrupt stream drives the value
+// past the range, where the bits kept in the 64-bit value and the 32-bit
+// comparisons decide what is read, so they are libwebp's here too.
+struct BoolDec {
+  const uint8_t* buf = nullptr;
+  const uint8_t* buf_end = nullptr;
+  const uint8_t* buf_max = nullptr;   // the last start of an 8-byte load
+  uint64_t value = 0;
+  uint32_t range = 254;
+  int bits = -8;
+  bool eof = false;
+
+  void init(const uint8_t* start, size_t n) {
+    buf = start;
+    buf_end = start + n;
+    buf_max = n >= 8 ? start + n - 8 + 1 : start;
+    value = 0;
+    range = 254;
+    bits = -8;
+    eof = false;
+    load();
+  }
+  // VP8LoadNewBytes and VP8LoadFinalBytes
+  void load() {
+    if (buf < buf_max) {
+      uint64_t in = 0;
+      for (int i = 0; i < 7; ++i) in = in << 8 | buf[i];
+      buf += 7;
+      value = in | value << 56;
+      bits += 56;
+    } else if (buf < buf_end) {
+      bits += 8;
+      value = value << 8 | *buf++;
+    } else if (!eof) {
+      value <<= 8;
+      bits += 8;
+      eof = true;
+    } else {
+      bits = 0;
+    }
+  }
+  // VP8GetBit
+  int bit(int prob) {
+    if (bits < 0) load();
+    uint32_t r = range;
+    const uint32_t split = (r * (uint32_t)prob) >> 8;
+    const int b = (uint32_t)(value >> bits) > split;
+    if (b) {
+      r -= split;
+      value -= (uint64_t)(split + 1) << bits;
+    } else {
+      r = split + 1;
+    }
+    const int shift = 7 ^ (31 - __builtin_clz(r));
+    range = (r << shift) - 1;
+    bits -= shift;
+    return b;
+  }
+  // VP8GetSigned: v or -v by a bit of probability 1/2, its comparison a
+  // 32-bit difference's sign
+  int sign(int v) {
+    if (bits < 0) load();
+    const uint32_t split = range >> 1;
+    const uint32_t val = (uint32_t)(value >> bits);
+    const int32_t mask = (int32_t)(split - val) >> 31;
+    value -= (uint64_t)((split + 1) & (uint32_t)mask) << bits;
+    range = (range + (uint32_t)mask) | 1;
+    bits -= 1;
+    return (v ^ mask) - mask;
+  }
+  // VP8GetValue, VP8GetSignedValue
+  int value_bits(int n) {
+    int v = 0;
+    while (n-- > 0) v |= bit(0x80) << n;
+    return v;
+  }
+  int signed_value(int n) {
+    const int v = value_bits(n);
+    return bit(0x80) ? -v : v;
+  }
+  int flag() { return bit(0x80); }
+};
+
+struct Quant {
+  int y1[2], y2[2], uv[2];   // DC, AC
+};
+
+struct FInfo {
+  uint8_t limit = 0, ilevel = 0, inner = 0, hev = 0;
+};
+
+// a macroblock's modes and coefficients
+struct MBData {
+  int16_t coeffs[384];
+  uint8_t imodes[16];
+  uint8_t is_i4x4 = 0, uvmode = 0, segment = 0, skip = 0;
+  uint32_t non_zero_y = 0, non_zero_uv = 0;
+};
+
+// the non-zero flags a macroblock leaves its neighbours: bits 0-3 luma,
+// 4-5 U, 6-7 V; and the Y2 block's
+struct NZ {
+  uint8_t nz = 0, nz_dc = 0;
+};
+
+inline uint8_t clip8(int v) { return v < 0 ? 0 : v > 255 ? 255 : (uint8_t)v; }
+inline int clamp(int v, int lo, int hi) { return v < lo ? lo : v > hi ? hi : v; }
+
+// -- the inverse transforms, added to dst (the work buffer's stride) -------
+
+inline int mul1(int a) { return ((a * 20091) >> 16) + a; }
+inline int mul2(int a) { return (a * 35468) >> 16; }
+inline int16_t w16(int v) { return (int16_t)v; }
+inline int16_t mulhi(int16_t a, int k) { return (int16_t)(((int)a * k) >> 16); }
+
+// Transform_SSE2: the 4x4 inverse DCT, columns then rows, in 16-bit lanes
+// (x * 35468 >> 16 as mulhi(x, 35468 - 65536) + x)
+void transform(const int16_t* in, uint8_t* dst) {
+  int16_t t[16];
+  for (int pass = 0; pass < 2; ++pass) {
+    int16_t o[16];
+    for (int i = 0; i < 4; ++i) {
+      const int16_t* s = pass ? t + i : in + i;   // a column, then a row
+      const int16_t i0 = pass ? w16(s[0] + 4) : s[0];
+      const int16_t i1 = s[4], i2 = s[8], i3 = s[12];
+      const int16_t a = w16(i0 + i2), b = w16(i0 - i2);
+      const int16_t c = w16(w16(i1 - i3) +
+                            w16(mulhi(i1, -30068) - mulhi(i3, 20091)));
+      const int16_t d = w16(w16(i1 + i3) +
+                            w16(mulhi(i1, 20091) + mulhi(i3, -30068)));
+      o[4 * i] = w16(a + d);
+      o[4 * i + 1] = w16(b + c);
+      o[4 * i + 2] = w16(b - c);
+      o[4 * i + 3] = w16(a - d);
+    }
+    // t[4 i + k]: after the columns, column i's k-th value; after the
+    // rows, row i's k-th
+    memcpy(t, o, sizeof(t));
+  }
+  for (int y = 0; y < 4; ++y)
+    for (int x = 0; x < 4; ++x)
+      dst[y * kBPS + x] = clip8(dst[y * kBPS + x] + (t[4 * y + x] >> 3));
+}
+
+// TransformDC_C and TransformAC3_C (coefficients 0, 1 and 4 alone)
+void transform_dc(const int16_t* in, uint8_t* dst) {
+  const int dc = in[0] + 4;
+  for (int y = 0; y < 4; ++y)
+    for (int x = 0; x < 4; ++x)
+      dst[y * kBPS + x] = clip8(dst[y * kBPS + x] + (dc >> 3));
+}
+
+void transform_ac3(const int16_t* in, uint8_t* dst) {
+  const int a = in[0] + 4, c4 = mul2(in[4]), d4 = mul1(in[4]);
+  const int c1 = mul2(in[1]), d1 = mul1(in[1]);
+  const int rows[4] = {a + d4, a + c4, a - c4, a - d4};
+  for (int y = 0; y < 4; ++y) {
+    const int v[4] = {rows[y] + d1, rows[y] + c1, rows[y] - c1,
+                      rows[y] - d1};
+    for (int x = 0; x < 4; ++x)
+      dst[y * kBPS + x] = clip8(dst[y * kBPS + x] + (v[x] >> 3));
+  }
+}
+
+// DoTransform: by the block's two bits of non_zero_y (3: any
+// coefficient past the third, 2: past the first, 1: the DC alone)
+void do_transform(uint32_t bits, const int16_t* in, uint8_t* dst) {
+  switch (bits >> 30) {
+    case 3: transform(in, dst); break;
+    case 2: transform_ac3(in, dst); break;
+    case 1: transform_dc(in, dst); break;
+    default: break;
+  }
+}
+
+// DoUVTransform: four chroma blocks, by any AC coefficient among them
+void do_uv_transform(uint32_t bits, const int16_t* in, uint8_t* dst) {
+  if (!(bits & 0xff)) return;
+  for (int k = 0; k < 4; ++k) {
+    uint8_t* d = dst + (k >> 1) * 4 * kBPS + (k & 1) * 4;
+    if (bits & 0xaa)
+      transform(in + 16 * k, d);
+    else
+      transform_dc(in + 16 * k, d);
+  }
+}
+
+// TransformWHT_C: the Y2 block into the 16 luma blocks' DCs
+void transform_wht(const int16_t* in, int16_t* out) {
+  int tmp[16];
+  for (int i = 0; i < 4; ++i) {
+    const int a0 = in[i] + in[12 + i], a1 = in[4 + i] + in[8 + i];
+    const int a2 = in[4 + i] - in[8 + i], a3 = in[i] - in[12 + i];
+    tmp[i] = a0 + a1;
+    tmp[8 + i] = a0 - a1;
+    tmp[4 + i] = a3 + a2;
+    tmp[12 + i] = a3 - a2;
+  }
+  for (int i = 0; i < 4; ++i) {
+    const int dc = tmp[4 * i] + 3;
+    const int a0 = dc + tmp[4 * i + 3], a1 = tmp[4 * i + 1] + tmp[4 * i + 2];
+    const int a2 = tmp[4 * i + 1] - tmp[4 * i + 2], a3 = dc - tmp[4 * i + 3];
+    out[0] = w16((a0 + a1) >> 3);
+    out[16] = w16((a3 + a2) >> 3);
+    out[32] = w16((a0 - a1) >> 3);
+    out[48] = w16((a3 - a2) >> 3);
+    out += 64;
+  }
+}
+
+// -- the intra predictors, on the work buffer (top row at dst - kBPS, left
+// column at dst[-1]) -------------------------------------------------------
+
+inline uint8_t avg3(int a, int b, int c) { return (uint8_t)((a + 2 * b + c + 2) >> 2); }
+inline uint8_t avg2(int a, int b) { return (uint8_t)((a + b + 1) >> 1); }
+
+void fill(uint8_t* dst, int size, int v) {
+  for (int y = 0; y < size; ++y) memset(dst + y * kBPS, v, size);
+}
+
+void true_motion(uint8_t* dst, int size) {
+  const uint8_t* top = dst - kBPS;
+  for (int y = 0; y < size; ++y)
+    for (int x = 0; x < size; ++x)
+      dst[y * kBPS + x] = clip8(top[x] + dst[y * kBPS - 1] - top[-1]);
+}
+
+// a 16x16 luma or 8x8 chroma block; DC without the top row or the left
+// column (or both) on the frame's first row and column, as CheckMode picks
+void predict_block(uint8_t* dst, int size, int mode, int mb_x, int mb_y) {
+  const int log = size == 16 ? 4 : 3;
+  switch (mode) {
+    case B_TM: true_motion(dst, size); return;
+    case B_VE:
+      for (int y = 0; y < size; ++y) memcpy(dst + y * kBPS, dst - kBPS, size);
+      return;
+    case B_HE:
+      for (int y = 0; y < size; ++y)
+        memset(dst + y * kBPS, dst[y * kBPS - 1], size);
+      return;
+    default: break;
+  }
+  int dc = 0;
+  if (mb_x > 0)
+    for (int j = 0; j < size; ++j) dc += dst[j * kBPS - 1];
+  if (mb_y > 0)
+    for (int j = 0; j < size; ++j) dc += dst[j - kBPS];
+  if (mb_x > 0 && mb_y > 0)
+    dc = (dc + size) >> (log + 1);
+  else if (mb_x > 0 || mb_y > 0)
+    dc = (dc + size / 2) >> log;
+  else
+    dc = 0x80;
+  fill(dst, size, dc);
+}
+
+#define DST(x, y) dst[(x) + (y) * kBPS]
+void predict4(uint8_t* dst, int mode) {
+  const uint8_t* top = dst - kBPS;
+  const int X = top[-1], A = top[0], B = top[1], C = top[2], D = top[3];
+  const int E = top[4], F = top[5], G = top[6], H = top[7];
+  const int I = dst[-1], J = dst[kBPS - 1], K = dst[2 * kBPS - 1],
+            L = dst[3 * kBPS - 1];
+  switch (mode) {
+    case B_DC: {
+      int dc = 4;
+      for (int i = 0; i < 4; ++i) dc += top[i] + dst[i * kBPS - 1];
+      fill(dst, 4, dc >> 3);
+      break;
+    }
+    case B_TM: true_motion(dst, 4); break;
+    case B_VE: {
+      const uint8_t v[4] = {avg3(X, A, B), avg3(A, B, C), avg3(B, C, D),
+                            avg3(C, D, E)};
+      for (int y = 0; y < 4; ++y) memcpy(dst + y * kBPS, v, 4);
+      break;
+    }
+    case B_HE: {
+      const uint8_t v[4] = {avg3(X, I, J), avg3(I, J, K), avg3(J, K, L),
+                            avg3(K, L, L)};
+      for (int y = 0; y < 4; ++y) memset(dst + y * kBPS, v[y], 4);
+      break;
+    }
+    case B_RD:
+      DST(0, 3) = avg3(J, K, L);
+      DST(1, 3) = DST(0, 2) = avg3(I, J, K);
+      DST(2, 3) = DST(1, 2) = DST(0, 1) = avg3(X, I, J);
+      DST(3, 3) = DST(2, 2) = DST(1, 1) = DST(0, 0) = avg3(A, X, I);
+      DST(3, 2) = DST(2, 1) = DST(1, 0) = avg3(B, A, X);
+      DST(3, 1) = DST(2, 0) = avg3(C, B, A);
+      DST(3, 0) = avg3(D, C, B);
+      break;
+    case B_LD:
+      DST(0, 0) = avg3(A, B, C);
+      DST(1, 0) = DST(0, 1) = avg3(B, C, D);
+      DST(2, 0) = DST(1, 1) = DST(0, 2) = avg3(C, D, E);
+      DST(3, 0) = DST(2, 1) = DST(1, 2) = DST(0, 3) = avg3(D, E, F);
+      DST(3, 1) = DST(2, 2) = DST(1, 3) = avg3(E, F, G);
+      DST(3, 2) = DST(2, 3) = avg3(F, G, H);
+      DST(3, 3) = avg3(G, H, H);
+      break;
+    case B_VR:
+      DST(0, 0) = DST(1, 2) = avg2(X, A);
+      DST(1, 0) = DST(2, 2) = avg2(A, B);
+      DST(2, 0) = DST(3, 2) = avg2(B, C);
+      DST(3, 0) = avg2(C, D);
+      DST(0, 3) = avg3(K, J, I);
+      DST(0, 2) = avg3(J, I, X);
+      DST(0, 1) = DST(1, 3) = avg3(I, X, A);
+      DST(1, 1) = DST(2, 3) = avg3(X, A, B);
+      DST(2, 1) = DST(3, 3) = avg3(A, B, C);
+      DST(3, 1) = avg3(B, C, D);
+      break;
+    case B_VL:
+      DST(0, 0) = avg2(A, B);
+      DST(1, 0) = DST(0, 2) = avg2(B, C);
+      DST(2, 0) = DST(1, 2) = avg2(C, D);
+      DST(3, 0) = DST(2, 2) = avg2(D, E);
+      DST(0, 1) = avg3(A, B, C);
+      DST(1, 1) = DST(0, 3) = avg3(B, C, D);
+      DST(2, 1) = DST(1, 3) = avg3(C, D, E);
+      DST(3, 1) = DST(2, 3) = avg3(D, E, F);
+      DST(3, 2) = avg3(E, F, G);
+      DST(3, 3) = avg3(F, G, H);
+      break;
+    case B_HD:
+      DST(0, 0) = DST(2, 1) = avg2(I, X);
+      DST(0, 1) = DST(2, 2) = avg2(J, I);
+      DST(0, 2) = DST(2, 3) = avg2(K, J);
+      DST(0, 3) = avg2(L, K);
+      DST(3, 0) = avg3(A, B, C);
+      DST(2, 0) = avg3(X, A, B);
+      DST(1, 0) = DST(3, 1) = avg3(I, X, A);
+      DST(1, 1) = DST(3, 2) = avg3(J, I, X);
+      DST(1, 2) = DST(3, 3) = avg3(K, J, I);
+      DST(1, 3) = avg3(L, K, J);
+      break;
+    default:   // B_HU
+      DST(0, 0) = avg2(I, J);
+      DST(2, 0) = DST(0, 1) = avg2(J, K);
+      DST(2, 1) = DST(0, 2) = avg2(K, L);
+      DST(1, 0) = avg3(I, J, K);
+      DST(3, 0) = DST(1, 1) = avg3(J, K, L);
+      DST(3, 1) = DST(1, 2) = avg3(K, L, L);
+      DST(3, 2) = DST(2, 2) = DST(0, 3) = DST(1, 3) = DST(2, 3) =
+          DST(3, 3) = (uint8_t)L;
+      break;
+  }
+}
+#undef DST
+
+// -- the loop filter (dsp/dec.c), p at the first pixel past the edge,
+// `step` across it ---------------------------------------------------------
+
+inline int sclip1(int v) { return clamp(v, -128, 127); }
+inline int sclip2(int v) { return clamp(v, -16, 15); }
+
+inline void filter2(uint8_t* p, int step) {
+  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
+  const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
+  const int a1 = sclip2((a + 4) >> 3), a2 = sclip2((a + 3) >> 3);
+  p[-step] = clip8(p0 + a2);
+  p[0] = clip8(q0 - a1);
+}
+
+inline void filter4(uint8_t* p, int step) {
+  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
+  const int a = 3 * (q0 - p0);
+  const int a1 = sclip2((a + 4) >> 3), a2 = sclip2((a + 3) >> 3);
+  const int a3 = (a1 + 1) >> 1;
+  p[-2 * step] = clip8(p1 + a3);
+  p[-step] = clip8(p0 + a2);
+  p[0] = clip8(q0 - a1);
+  p[step] = clip8(q1 - a3);
+}
+
+inline void filter6(uint8_t* p, int step) {
+  const int p2 = p[-3 * step], p1 = p[-2 * step], p0 = p[-step];
+  const int q0 = p[0], q1 = p[step], q2 = p[2 * step];
+  const int a = sclip1(3 * (q0 - p0) + sclip1(p1 - q1));
+  const int a1 = (27 * a + 63) >> 7, a2 = (18 * a + 63) >> 7,
+            a3 = (9 * a + 63) >> 7;
+  p[-3 * step] = clip8(p2 + a3);
+  p[-2 * step] = clip8(p1 + a2);
+  p[-step] = clip8(p0 + a1);
+  p[0] = clip8(q0 - a1);
+  p[step] = clip8(q1 - a2);
+  p[2 * step] = clip8(q2 - a3);
+}
+
+inline bool hev(const uint8_t* p, int step, int thresh) {
+  return abs(p[-2 * step] - p[-step]) > thresh ||
+         abs(p[step] - p[0]) > thresh;
+}
+
+inline bool needs_filter(const uint8_t* p, int step, int t) {
+  return 4 * abs(p[-step] - p[0]) + abs(p[-2 * step] - p[step]) <= t;
+}
+
+inline bool needs_filter2(const uint8_t* p, int step, int t, int it) {
+  const int p3 = p[-4 * step], p2 = p[-3 * step], p1 = p[-2 * step];
+  const int p0 = p[-step], q0 = p[0], q1 = p[step], q2 = p[2 * step],
+            q3 = p[3 * step];
+  if (4 * abs(p0 - q0) + abs(p1 - q1) > t) return false;
+  return abs(p3 - p2) <= it && abs(p2 - p1) <= it && abs(p1 - p0) <= it &&
+         abs(q3 - q2) <= it && abs(q2 - q1) <= it && abs(q1 - q0) <= it;
+}
+
+// `size` pixels along an edge (`along` between them): the simple filter,
+// or the normal one of a macroblock edge (six taps) or an inner one (four)
+void simple_edge(uint8_t* p, int step, int along, int thresh) {
+  for (int i = 0; i < 16; ++i, p += along)
+    if (needs_filter(p, step, 2 * thresh + 1)) filter2(p, step);
+}
+
+void normal_edge(uint8_t* p, int step, int along, int size, int thresh,
+                 int ithresh, int hev_thresh, bool mb_edge) {
+  for (int i = 0; i < size; ++i, p += along) {
+    if (!needs_filter2(p, step, 2 * thresh + 1, ithresh)) continue;
+    if (hev(p, step, hev_thresh))
+      filter2(p, step);
+    else if (mb_edge)
+      filter6(p, step);
+    else
+      filter4(p, step);
+  }
+}
+
+// GetLargeValue: a token's magnitude past 1 (DCT_CAT1 to DCT_CAT6)
+int large_value(BoolDec& br, const uint8_t* p) {
+  if (!br.bit(p[3])) {
+    if (!br.bit(p[4])) return 2;
+    return 3 + br.bit(p[5]);
+  }
+  if (!br.bit(p[6])) {
+    if (!br.bit(p[7])) return 5 + br.bit(159);
+    const int v = 7 + 2 * br.bit(165);
+    return v + br.bit(145);
+  }
+  const int bit1 = br.bit(p[8]);
+  const int bit0 = br.bit(p[9 + bit1]);
+  const int cat = 2 * bit1 + bit0;
+  int v = 0;
+  for (const uint8_t* tab = kCat3456[cat]; *tab; ++tab) v += v + br.bit(*tab);
+  return v + 3 + (8 << cat);
+}
+
+// GetCoeffs: a block's tokens from index n, dequantised into out (natural
+// order, int16 as libwebp stores them); the index past the last non-zero
+// one, or 16 where the block ends in a run of zeros
+int get_coeffs(BoolDec& br, const uint8_t (*prob)[3][11], int ctx,
+               const int* dq, int n, int16_t* out) {
+  const uint8_t* p = prob[kBands[n]][ctx];
+  for (; n < 16; ++n) {
+    if (!br.bit(p[0])) return n;
+    while (!br.bit(p[1])) {
+      p = prob[kBands[++n]][0];
+      if (n == 16) return 16;
+    }
+    const uint8_t (*next)[11] = prob[kBands[n + 1]];
+    int v;
+    if (!br.bit(p[2])) {
+      v = 1;
+      p = next[1];
+    } else {
+      v = large_value(br, p);
+      p = next[2];
+    }
+    out[kZigzag[n]] = w16(br.sign(v) * dq[n > 0]);
+  }
+  return 16;
+}
+
+inline uint32_t nz_code_bits(uint32_t codes, int nz, int dc_nz) {
+  return codes << 2 | (nz > 3 ? 3 : nz > 1 ? 2 : dc_nz);
+}
+
+struct Decoder {
+  int w = 0, h = 0, mbw = 0, mbh = 0;
+  BoolDec br, parts[8];
+  int last_part = 0;
+  // segments
+  bool use_segment = false, update_map = false, absolute_delta = true;
+  int quantizer[4] = {0, 0, 0, 0}, filter_strength[4] = {0, 0, 0, 0};
+  int seg_proba[3] = {255, 255, 255};
+  // the loop filter
+  int simple = 0, level = 0, sharpness = 0, use_lf_delta = 0;
+  int ref_lf_delta[4] = {0, 0, 0, 0}, mode_lf_delta[4] = {0, 0, 0, 0};
+  int filter_type = 0;   // 0 none, 1 simple, 2 normal
+  FInfo fstrengths[4][2];
+  Quant dqm[4];
+  uint8_t proba[4][8][3][11];
+  bool use_skip_proba = false;
+  int skip_p = 0;
+  // per row and column: the 4x4 mode contexts, the non-zero flags
+  std::vector<uint8_t> intra_t;
+  uint8_t intra_l[4];
+  std::vector<NZ> nz_top;
+  NZ nz_left;
+  std::vector<MBData> row;
+  std::vector<FInfo> finfo;   // every macroblock's, for the filter
+  // the work buffer (libwebp's yuv_b_) and each column's unfiltered
+  // bottom rows (yuv_t_), the planes on the macroblock grid
+  uint8_t yuv_b[kBPS * 17 + kBPS * 9];
+  std::vector<uint8_t> top_y, top_u, top_v, Y, U, V;
+
+  void header(const uint8_t* data, size_t n);
+  void precompute_filter();
+  void parse_segments();
+  void parse_filter();
+  void parse_partitions(const uint8_t* buf, size_t size);
+  void parse_quant();
+  void parse_proba();
+  void parse_modes(int mb_x);
+  bool parse_residuals(MBData& block, NZ& top, BoolDec& tok);
+  void decode_mb(int mb_x, int mb_y, BoolDec& tok);
+  void reconstruct_row(int mb_y);
+  void filter();
+  void to_rgb(uint8_t* out) const;
+};
+
+// VP8GetHeaders: the frame tag, the key frame's start code and size, then
+// the first partition's header, to the skip probability
+void Decoder::header(const uint8_t* data, size_t n) {
+  if (n < 10) fail("WebP: truncated VP8 frame header");
+  const uint32_t bits = data[0] | data[1] << 8 | data[2] << 16;
+  if (bits & 1) fail("WebP: VP8 frame is not a key frame");
+  if ((bits >> 1 & 7) > 3) fail("WebP: bad VP8 profile");
+  if (!(bits >> 4 & 1)) fail("WebP: VP8 frame not shown");
+  if (data[3] != 0x9d || data[4] != 0x01 || data[5] != 0x2a)
+    fail("WebP: bad VP8 start code");
+  w = (data[6] | data[7] << 8) & 0x3fff;     // the scale bits ignored
+  h = (data[8] | data[9] << 8) & 0x3fff;
+  if (!w || !h) fail("WebP: VP8 frame of no pixels");
+  mbw = (w + 15) >> 4;
+  mbh = (h + 15) >> 4;
+  const size_t part0 = bits >> 5;
+  if (part0 > n - 10) fail("WebP: VP8 first partition past the data");
+  br.init(data + 10, part0);
+  br.flag();   // colour space
+  br.flag();   // clamping type
+  parse_segments();
+  parse_filter();
+  parse_partitions(data + 10 + part0, n - 10 - part0);
+  parse_quant();
+  br.flag();   // refresh entropy probabilities: one frame, unused
+  parse_proba();
+}
+
+void Decoder::parse_segments() {
+  use_segment = br.flag();
+  if (use_segment) {
+    update_map = br.flag();
+    if (br.flag()) {   // update the data
+      absolute_delta = br.flag();
+      for (int& q : quantizer) q = br.flag() ? br.signed_value(7) : 0;
+      for (int& f : filter_strength) f = br.flag() ? br.signed_value(6) : 0;
+    }
+    if (update_map)
+      for (int& p : seg_proba) p = br.flag() ? br.value_bits(8) : 255;
+  }
+  if (br.eof) fail("WebP: VP8 segment header past its partition");
+}
+
+void Decoder::parse_filter() {
+  simple = br.flag();
+  level = br.value_bits(6);
+  sharpness = br.value_bits(3);
+  use_lf_delta = br.flag();
+  if (use_lf_delta && br.flag()) {   // update the deltas
+    for (int& d : ref_lf_delta)
+      if (br.flag()) d = br.signed_value(6);
+    for (int& d : mode_lf_delta)
+      if (br.flag()) d = br.signed_value(6);
+  }
+  filter_type = level == 0 ? 0 : simple ? 1 : 2;
+  if (br.eof) fail("WebP: VP8 filter header past its partition");
+}
+
+// ParsePartitions: 3-byte sizes of all but the last, each clipped to the
+// data left; the last takes the rest and must not be empty
+void Decoder::parse_partitions(const uint8_t* buf, size_t size) {
+  last_part = (1 << br.value_bits(2)) - 1;
+  if (size < 3 * (size_t)last_part)
+    fail("WebP: VP8 partition sizes past the data");
+  const uint8_t* sz = buf;
+  const uint8_t* start = buf + 3 * last_part;
+  size_t left = size - 3 * last_part;
+  for (int p = 0; p < last_part; ++p, sz += 3) {
+    size_t psize = sz[0] | sz[1] << 8 | sz[2] << 16;
+    if (psize > left) psize = left;
+    parts[p].init(start, psize);
+    start += psize;
+    left -= psize;
+  }
+  parts[last_part].init(start, left);
+  if (start >= buf + size) fail("WebP: VP8 token partition past the data");
+}
+
+// VP8ParseQuant
+void Decoder::parse_quant() {
+  const int base = br.value_bits(7);
+  int d[5];   // y1 DC, y2 DC, y2 AC, uv DC, uv AC
+  for (int& v : d) v = br.flag() ? br.signed_value(4) : 0;
+  for (int s = 0; s < 4; ++s) {
+    int q = base;
+    if (use_segment) {
+      q = quantizer[s] + (absolute_delta ? 0 : base);
+    } else if (s > 0) {
+      dqm[s] = dqm[0];
+      continue;
+    }
+    Quant& m = dqm[s];
+    m.y1[0] = kDcTable[clamp(q + d[0], 0, 127)];
+    m.y1[1] = kAcTable[clamp(q, 0, 127)];
+    m.y2[0] = kDcTable[clamp(q + d[1], 0, 127)] * 2;
+    m.y2[1] = std::max(kAcTable[clamp(q + d[2], 0, 127)] * 101581 >> 16, 8);
+    m.uv[0] = kDcTable[clamp(q + d[3], 0, 117)];
+    m.uv[1] = kAcTable[clamp(q + d[4], 0, 127)];
+  }
+}
+
+// VP8ParseProba: the 1056 update flags, each with its value or the
+// default; the skip probability
+void Decoder::parse_proba() {
+  for (int t = 0; t < 4; ++t)
+    for (int b = 0; b < 8; ++b)
+      for (int c = 0; c < 3; ++c)
+        for (int p = 0; p < 11; ++p)
+          proba[t][b][c][p] = (uint8_t)(br.bit(kCoeffsUpdateProba[t][b][c][p])
+                                            ? br.value_bits(8)
+                                            : kCoeffsProba0[t][b][c][p]);
+  use_skip_proba = br.flag();
+  if (use_skip_proba) skip_p = br.value_bits(8);
+}
+
+// ParseIntraMode: segment, skip flag, luma modes (their contexts set as
+// 4x4 modes), chroma mode
+void Decoder::parse_modes(int mb_x) {
+  MBData& block = row[mb_x];
+  uint8_t* top = &intra_t[4 * mb_x];
+  block.segment = 0;
+  if (update_map)
+    block.segment = !br.bit(seg_proba[0]) ? br.bit(seg_proba[1])
+                                          : br.bit(seg_proba[2]) + 2;
+  block.skip = use_skip_proba ? br.bit(skip_p) : 0;
+  block.is_i4x4 = !br.bit(145);
+  if (!block.is_i4x4) {
+    const int ymode = br.bit(156) ? (br.bit(128) ? B_TM : B_HE)
+                                  : (br.bit(163) ? B_VE : B_DC);
+    block.imodes[0] = (uint8_t)ymode;
+    memset(top, ymode, 4);
+    memset(intra_l, ymode, 4);
+  } else {
+    for (int y = 0; y < 4; ++y) {
+      int ymode = intra_l[y];
+      for (int x = 0; x < 4; ++x) {
+        const uint8_t* prob = kBModesProba[top[x]][ymode];
+        int i = kYModesIntra4[br.bit(prob[0])];
+        while (i > 0) i = kYModesIntra4[2 * i + br.bit(prob[i])];
+        ymode = -i;
+        top[x] = (uint8_t)ymode;
+      }
+      memcpy(block.imodes + 4 * y, top, 4);
+      intra_l[y] = (uint8_t)ymode;
+    }
+  }
+  block.uvmode = !br.bit(142) ? B_DC : !br.bit(114) ? B_VE
+                                   : br.bit(183) ? B_TM : B_HE;
+}
+
+// ParseResiduals: the tokens of a macroblock; true where all are zero
+bool Decoder::parse_residuals(MBData& block, NZ& top, BoolDec& tok) {
+  NZ& left = nz_left;
+  const Quant& q = dqm[block.segment];
+  int16_t* dst = block.coeffs;
+  memset(dst, 0, sizeof(block.coeffs));
+  int first;
+  const uint8_t (*ac_proba)[3][11];
+  if (!block.is_i4x4) {   // the Y2 block: the luma blocks' DCs
+    int16_t dc[16] = {0};
+    const int nz = get_coeffs(tok, proba[1], top.nz_dc + left.nz_dc, q.y2, 0,
+                              dc);
+    top.nz_dc = left.nz_dc = nz > 0;
+    if (nz > 1) {
+      transform_wht(dc, dst);
+    } else {
+      const int dc0 = (dc[0] + 3) >> 3;
+      for (int i = 0; i < 256; i += 16) dst[i] = w16(dc0);
+    }
+    first = 1;
+    ac_proba = proba[0];
+  } else {
+    first = 0;
+    ac_proba = proba[3];
+  }
+  uint8_t tnz = top.nz & 0x0f, lnz = left.nz & 0x0f;
+  uint32_t non_zero_y = 0, non_zero_uv = 0;
+  for (int y = 0; y < 4; ++y) {
+    int l = lnz & 1;
+    uint32_t codes = 0;
+    for (int x = 0; x < 4; ++x, dst += 16) {
+      const int nz = get_coeffs(tok, ac_proba, l + (tnz & 1), q.y1, first,
+                                dst);
+      l = nz > first;
+      tnz = (uint8_t)(tnz >> 1 | l << 7);
+      codes = nz_code_bits(codes, nz, dst[0] != 0);
+    }
+    tnz >>= 4;
+    lnz = (uint8_t)(lnz >> 1 | l << 7);
+    non_zero_y = non_zero_y << 8 | codes;
+  }
+  uint32_t out_t = tnz, out_l = lnz >> 4;
+  for (int ch = 0; ch < 4; ch += 2) {
+    uint32_t codes = 0;
+    tnz = (uint8_t)(top.nz >> (4 + ch));
+    lnz = (uint8_t)(left.nz >> (4 + ch));
+    for (int y = 0; y < 2; ++y) {
+      int l = lnz & 1;
+      for (int x = 0; x < 2; ++x, dst += 16) {
+        const int nz = get_coeffs(tok, proba[2], l + (tnz & 1), q.uv, 0, dst);
+        l = nz > 0;
+        tnz = (uint8_t)(tnz >> 1 | l << 3);
+        codes = nz_code_bits(codes, nz, dst[0] != 0);
+      }
+      tnz >>= 2;
+      lnz = (uint8_t)(lnz >> 1 | l << 5);
+    }
+    non_zero_uv |= codes << (4 * ch);
+    out_t |= (uint32_t)(tnz << 4) << ch;
+    out_l |= (uint32_t)(lnz & 0xf0) << ch;
+  }
+  top.nz = (uint8_t)out_t;
+  left.nz = (uint8_t)out_l;
+  block.non_zero_y = non_zero_y;
+  block.non_zero_uv = non_zero_uv;
+  return !(non_zero_y | non_zero_uv);
+}
+
+// VP8DecodeMB: the tokens (none where the skip flag is set) and the
+// macroblock's filter strengths, inner edges too where it is 4x4 or has
+// coefficients
+void Decoder::decode_mb(int mb_x, int mb_y, BoolDec& tok) {
+  MBData& block = row[mb_x];
+  NZ& top = nz_top[mb_x];
+  bool skip = use_skip_proba && block.skip;
+  if (!skip) {
+    skip = parse_residuals(block, top, tok);
+  } else {
+    nz_left.nz = top.nz = 0;
+    if (!block.is_i4x4) nz_left.nz_dc = top.nz_dc = 0;
+    block.non_zero_y = block.non_zero_uv = 0;
+  }
+  if (filter_type > 0) {
+    FInfo& f = finfo[(size_t)mb_y * mbw + mb_x];
+    f = fstrengths[block.segment][block.is_i4x4];
+    f.inner |= !skip;
+  }
+}
+
+// ReconstructRow: each macroblock predicted and its residuals added in
+// the work buffer (left samples rotated in from the previous one, top
+// samples from the row above, unfiltered), then copied to the planes
+void Decoder::reconstruct_row(int mb_y) {
+  uint8_t* const y_dst = yuv_b + kBPS + 8;
+  uint8_t* const u_dst = y_dst + 16 * kBPS + kBPS;
+  uint8_t* const v_dst = u_dst + 16;
+  for (int j = 0; j < 16; ++j) y_dst[j * kBPS - 1] = 129;
+  for (int j = 0; j < 8; ++j) u_dst[j * kBPS - 1] = v_dst[j * kBPS - 1] = 129;
+  if (mb_y > 0) {
+    y_dst[-1 - kBPS] = u_dst[-1 - kBPS] = v_dst[-1 - kBPS] = 129;
+  } else {
+    memset(y_dst - kBPS - 1, 127, 16 + 4 + 1);
+    memset(u_dst - kBPS - 1, 127, 8 + 1);
+    memset(v_dst - kBPS - 1, 127, 8 + 1);
+  }
+  const size_t ys = (size_t)16 * mbw, uvs = (size_t)8 * mbw;
+  for (int mb_x = 0; mb_x < mbw; ++mb_x) {
+    const MBData& block = row[mb_x];
+    if (mb_x > 0) {
+      for (int j = -1; j < 16; ++j)
+        memcpy(y_dst + j * kBPS - 4, y_dst + j * kBPS + 12, 4);
+      for (int j = -1; j < 8; ++j) {
+        memcpy(u_dst + j * kBPS - 4, u_dst + j * kBPS + 4, 4);
+        memcpy(v_dst + j * kBPS - 4, v_dst + j * kBPS + 4, 4);
+      }
+    }
+    uint8_t* ty = &top_y[16 * (size_t)mb_x];
+    uint8_t* tu = &top_u[8 * (size_t)mb_x];
+    uint8_t* tv = &top_v[8 * (size_t)mb_x];
+    if (mb_y > 0) {
+      memcpy(y_dst - kBPS, ty, 16);
+      memcpy(u_dst - kBPS, tu, 8);
+      memcpy(v_dst - kBPS, tv, 8);
+    }
+    uint32_t bits = block.non_zero_y;
+    if (block.is_i4x4) {
+      uint8_t* top_right = y_dst - kBPS + 16;
+      if (mb_y > 0) {
+        if (mb_x >= mbw - 1)
+          memset(top_right, ty[15], 4);
+        else
+          memcpy(top_right, ty + 16, 4);
+      }
+      for (int k = 1; k < 4; ++k) memcpy(top_right + 4 * k * kBPS, top_right, 4);
+      for (int n = 0; n < 16; ++n, bits <<= 2) {
+        uint8_t* dst = y_dst + kScan[n];
+        predict4(dst, block.imodes[n]);
+        do_transform(bits, block.coeffs + 16 * n, dst);
+      }
+    } else {
+      predict_block(y_dst, 16, block.imodes[0], mb_x, mb_y);
+      if (bits)
+        for (int n = 0; n < 16; ++n, bits <<= 2)
+          do_transform(bits, block.coeffs + 16 * n, y_dst + kScan[n]);
+    }
+    predict_block(u_dst, 8, block.uvmode, mb_x, mb_y);
+    predict_block(v_dst, 8, block.uvmode, mb_x, mb_y);
+    do_uv_transform(block.non_zero_uv, block.coeffs + 16 * 16, u_dst);
+    do_uv_transform(block.non_zero_uv >> 8, block.coeffs + 20 * 16, v_dst);
+    if (mb_y < mbh - 1) {
+      memcpy(ty, y_dst + 15 * kBPS, 16);
+      memcpy(tu, u_dst + 7 * kBPS, 8);
+      memcpy(tv, v_dst + 7 * kBPS, 8);
+    }
+    for (int j = 0; j < 16; ++j)
+      memcpy(&Y[(16 * (size_t)mb_y + j) * ys + 16 * (size_t)mb_x],
+             y_dst + j * kBPS, 16);
+    for (int j = 0; j < 8; ++j) {
+      memcpy(&U[(8 * (size_t)mb_y + j) * uvs + 8 * (size_t)mb_x],
+             u_dst + j * kBPS, 8);
+      memcpy(&V[(8 * (size_t)mb_y + j) * uvs + 8 * (size_t)mb_x],
+             v_dst + j * kBPS, 8);
+    }
+  }
+}
+
+// DoFilter over every macroblock in raster order: its left edge, its inner
+// vertical edges, its top edge, its inner horizontal edges
+void Decoder::filter() {
+  if (filter_type == 0) return;
+  const int ys = 16 * mbw, uvs = 8 * mbw;
+  for (int mb_y = 0; mb_y < mbh; ++mb_y)
+    for (int mb_x = 0; mb_x < mbw; ++mb_x) {
+      const FInfo& f = finfo[(size_t)mb_y * mbw + mb_x];
+      const int limit = f.limit;
+      if (limit == 0) continue;
+      uint8_t* y = &Y[(size_t)16 * mb_y * ys + 16 * mb_x];
+      if (filter_type == 1) {
+        if (mb_x > 0) simple_edge(y, 1, ys, limit + 4);
+        if (f.inner)
+          for (int k = 4; k < 16; k += 4) simple_edge(y + k, 1, ys, limit);
+        if (mb_y > 0) simple_edge(y, ys, 1, limit + 4);
+        if (f.inner)
+          for (int k = 4; k < 16; k += 4)
+            simple_edge(y + k * ys, ys, 1, limit);
+        continue;
+      }
+      const int il = f.ilevel, hv = f.hev;
+      uint8_t* uv[2] = {&U[(size_t)8 * mb_y * uvs + 8 * mb_x],
+                        &V[(size_t)8 * mb_y * uvs + 8 * mb_x]};
+      if (mb_x > 0) {
+        normal_edge(y, 1, ys, 16, limit + 4, il, hv, true);
+        for (uint8_t* c : uv) normal_edge(c, 1, uvs, 8, limit + 4, il, hv, true);
+      }
+      if (f.inner) {
+        for (int k = 4; k < 16; k += 4)
+          normal_edge(y + k, 1, ys, 16, limit, il, hv, false);
+        for (uint8_t* c : uv) normal_edge(c + 4, 1, uvs, 8, limit, il, hv, false);
+      }
+      if (mb_y > 0) {
+        normal_edge(y, ys, 1, 16, limit + 4, il, hv, true);
+        for (uint8_t* c : uv) normal_edge(c, uvs, 1, 8, limit + 4, il, hv, true);
+      }
+      if (f.inner) {
+        for (int k = 4; k < 16; k += 4)
+          normal_edge(y + k * ys, ys, 1, 16, limit, il, hv, false);
+        for (uint8_t* c : uv)
+          normal_edge(c + 4 * uvs, uvs, 1, 8, limit, il, hv, false);
+      }
+    }
+}
+
+// yuv.h's VP8YUVToR/G/B: 14-bit fixed point, clipped
+inline int mult_hi(int v, int coeff) { return (v * coeff) >> 8; }
+inline uint8_t yuv_clip(int v) {
+  return (v & ~16383) == 0 ? (uint8_t)(v >> 6) : v < 0 ? 0 : 255;
+}
+
+// EmitFancyRGB with UpsampleRgbaLinePair: each output row's chroma from
+// the two nearest chroma rows (the first and, for an even height, the
+// last from one), each pixel's from the two nearest columns, weighted
+// 9-3-3-1 in two rounded steps (the edges 3-1)
+void Decoder::to_rgb(uint8_t* out) const {
+  const size_t ys = (size_t)16 * mbw, uvs = (size_t)8 * mbw;
+  const int last_pair = (w - 1) >> 1;
+  std::vector<uint8_t> cu(w), cv(w);
+  for (int r = 0; r < h; ++r) {
+    // the chroma rows above and below the output row, and which of the
+    // pair it is
+    int top_c, cur_c;
+    bool bottom = false;
+    if (r == 0) {
+      top_c = cur_c = 0;
+    } else if (r & 1) {
+      top_c = (r - 1) >> 1;
+      cur_c = r + 1 < h ? top_c + 1 : top_c;
+    } else {
+      top_c = r / 2 - 1;
+      cur_c = r / 2;
+      bottom = true;
+    }
+    for (int ch = 0; ch < 2; ++ch) {
+      const uint8_t* plane = ch ? V.data() : U.data();
+      const uint8_t* t = plane + (size_t)top_c * uvs;
+      const uint8_t* c = plane + (size_t)cur_c * uvs;
+      uint8_t* o = ch ? cv.data() : cu.data();
+      // the "top" role weights the first row 3 to 1, "bottom" the second
+      const uint8_t* near = bottom ? c : t;
+      const uint8_t* far = bottom ? t : c;
+      o[0] = (uint8_t)((3 * near[0] + far[0] + 2) >> 2);
+      for (int x = 1; x <= last_pair; ++x) {
+        const int tl = t[x - 1], tt = t[x], l = c[x - 1], cc = c[x];
+        const int avg = tl + tt + l + cc + 8;
+        const int diag_12 = (avg + 2 * (tt + l)) >> 3;
+        const int diag_03 = (avg + 2 * (tl + cc)) >> 3;
+        if (!bottom) {
+          o[2 * x - 1] = (uint8_t)((diag_12 + tl) >> 1);
+          o[2 * x] = (uint8_t)((diag_03 + tt) >> 1);
+        } else {
+          o[2 * x - 1] = (uint8_t)((diag_03 + l) >> 1);
+          o[2 * x] = (uint8_t)((diag_12 + cc) >> 1);
+        }
+      }
+      if (!(w & 1))
+        o[w - 1] = (uint8_t)((3 * near[last_pair] + far[last_pair] + 2) >> 2);
+    }
+    const uint8_t* yr = &Y[(size_t)r * ys];
+    uint8_t* dst = out + (size_t)r * w * 3;
+    for (int x = 0; x < w; ++x, dst += 3) {
+      const int y = mult_hi(yr[x], 19077), u = cu[x], v = cv[x];
+      dst[0] = yuv_clip(y + mult_hi(v, 26149) - 14234);
+      dst[1] = yuv_clip(y - mult_hi(u, 6419) - mult_hi(v, 13320) + 8708);
+      dst[2] = yuv_clip(y + mult_hi(u, 33050) - 17685);
+    }
+  }
+}
+
+// PrecomputeFilterStrengths: per segment and for 16x16 / 4x4 macroblocks
+void Decoder::precompute_filter() {
+  if (filter_type == 0) return;
+  for (int s = 0; s < 4; ++s) {
+    int base = level;
+    if (use_segment)
+      base = filter_strength[s] + (absolute_delta ? 0 : level);
+    for (int i4x4 = 0; i4x4 <= 1; ++i4x4) {
+      FInfo& info = fstrengths[s][i4x4];
+      int lv = base;
+      if (use_lf_delta) {
+        lv += ref_lf_delta[0];
+        if (i4x4) lv += mode_lf_delta[0];
+      }
+      lv = clamp(lv, 0, 63);
+      info = FInfo();
+      if (lv > 0) {
+        int ilevel = lv;
+        if (sharpness > 0) {
+          ilevel >>= sharpness > 4 ? 2 : 1;
+          ilevel = std::min(ilevel, 9 - sharpness);
+        }
+        ilevel = std::max(ilevel, 1);
+        info.ilevel = (uint8_t)ilevel;
+        info.limit = (uint8_t)(2 * lv + ilevel);
+        info.hev = lv >= 40 ? 2 : lv >= 15 ? 1 : 0;
+      }
+      info.inner = (uint8_t)i4x4;
+    }
+  }
+}
+
+// the whole frame into out[h][w][3]
+void decode(const uint8_t* data, size_t n, uint8_t* out, int want_w,
+            int want_h) {
+  Decoder d;
+  d.header(data, n);
+  if (d.w != want_w || d.h != want_h)
+    fail("WebP: VP8 size unlike its header's");
+  d.precompute_filter();
+  const size_t ys = (size_t)16 * d.mbw, uvs = (size_t)8 * d.mbw;
+  d.intra_t.assign(4 * (size_t)d.mbw, B_DC);
+  d.nz_top.assign(d.mbw, NZ());
+  d.row.resize(d.mbw);
+  d.finfo.assign((size_t)d.mbw * d.mbh, FInfo());
+  d.top_y.assign(ys, 0);
+  d.top_u.assign(uvs, 0);
+  d.top_v.assign(uvs, 0);
+  d.Y.assign(ys * 16 * d.mbh, 0);
+  d.U.assign(uvs * 8 * d.mbh, 0);
+  d.V.assign(uvs * 8 * d.mbh, 0);
+  memset(d.yuv_b, 0, sizeof(d.yuv_b));
+  for (int mb_y = 0; mb_y < d.mbh; ++mb_y) {
+    BoolDec& tok = d.parts[mb_y & d.last_part];
+    memset(d.intra_l, B_DC, 4);
+    d.nz_left = NZ();
+    for (int mb_x = 0; mb_x < d.mbw; ++mb_x) d.parse_modes(mb_x);
+    if (d.br.eof) fail("WebP: VP8 first partition ends early");
+    for (int mb_x = 0; mb_x < d.mbw; ++mb_x) {
+      d.decode_mb(mb_x, mb_y, tok);
+      if (tok.eof) fail("WebP: VP8 token partition ends early");
+    }
+    d.reconstruct_row(mb_y);
+  }
+  d.filter();
+  d.to_rgb(out);
+}
+
+}  // namespace vp8
 
 extern "C" {
 
@@ -1913,6 +3334,46 @@ int isc_vp8l_decode(const uint8_t* in, long long n, uint8_t* out,
       out[3 * i + 1] = (uint8_t)(px[i] >> 8);
       out[3 * i + 2] = (uint8_t)px[i];
     }
+    return 0;
+  } catch (const Error& e) {
+    set_err(err, errlen, e.msg);
+    return 1;
+  } catch (const std::exception& e) {
+    set_err(err, errlen, std::string("WebP: ") + e.what());
+    return 2;
+  }
+}
+
+// A VP8 key frame (in[0, n): a VP8 chunk's payload with its pad byte,
+// where the file holds one, as libwebp's demuxer hands it over) of a w x h
+// image into out[h][w][3], libwebp's RGB of it. The frame header must give
+// w x h.
+int isc_vp8_decode(const uint8_t* in, long long n, uint8_t* out,
+                   long long w, long long h, char* err, int errlen) {
+  try {
+    vp8::decode(in, (size_t)n, out, (int)w, (int)h);
+    return 0;
+  } catch (const Error& e) {
+    set_err(err, errlen, e.msg);
+    return 1;
+  } catch (const std::exception& e) {
+    set_err(err, errlen, std::string("WebP: ") + e.what());
+    return 2;
+  }
+}
+
+// The VP8L bitstream of a WebP ALPH chunk (in[0, n): after its header
+// byte) of a w x h alpha plane: its image stream, with no VP8L header,
+// decoded as libwebp decodes it, to refuse what libwebp refuses. The
+// alpha itself is not kept (the decoders return RGB), so neither the
+// inverse transforms nor the chunk's filtering and level reduction are
+// undone.
+int isc_vp8l_alpha_check(const uint8_t* in, long long n, long long w,
+                         long long h, char* err, int errlen) {
+  try {
+    vp8l::Decoder d(in, (uint64_t)n);
+    d.alpha = true;
+    d.stream((int)w, (int)h, true);
     return 0;
   } catch (const Error& e) {
     set_err(err, errlen, e.msg);

@@ -40,12 +40,15 @@ PIL, so it carries its own, to give PIL's arrays bit for bit:
   through the palette (black and white as "1", the grey ramp as "L", each
   read with Pillow's raw mode), 16 bits (5-5-5, 5-6-5) with Pillow's
   floor-division expansion, 24 and 32 bits (the bitfield layouts Pillow
-  names), RLE8 and RLE4, headers of 12 to 124 bytes. Lossless WebP as
-  libwebp 1.6 decodes it for PIL: the RIFF container (simple, VP8X with
-  its metadata chunks skipped, or an animation's first frame on a canvas
-  cleared to transparent black) checked here as libwebp's demuxer checks
-  it, the VP8L bitstream (prefix codes, LZ77, colour cache, the four
-  transforms) in the same library, RGB always. Lossy WebP and the other
+  names), RLE8 and RLE4, headers of 12 to 124 bytes. WebP as libwebp 1.6
+  decodes it for PIL: the RIFF container (simple, VP8X with its metadata
+  chunks skipped, or an animation's first frame on a canvas cleared to
+  transparent black) checked here as libwebp's demuxer checks it; in the
+  same library the lossless VP8L bitstream (prefix codes, LZ77, colour
+  cache, the four transforms) and the lossy VP8 key frame (boolean-coded
+  modes and tokens, the inverse transforms, intra prediction, the loop
+  filters, fancy upsampling and libwebp's YUV -> RGB), whose ALPH chunk is
+  decoded only as far as libwebp refuses it; RGB always. The other
   formats that Pillow's plugins recognise by signature (TIFF, PPM, ...)
   are refused by name.
 * ``resize_to_bucket``: Pillow's ``BILINEAR`` resampler
@@ -101,13 +104,14 @@ _SIGS = {"isc_jpeg_info": [_P, _LL, _IP, _IP, _IP, _P, _I],
          "isc_png_unfilter": [_P, _LL, _P, _I, _LL, _I, _P, _I],
          "isc_gif_lzw": [_P, _LL, _P] + [_LL] * 6 + [_I, _I, _P, _I],
          "isc_bmp_rle": [_P, _LL, _LL, _P, _LL, _LL, _I, _P, _I],
-         "isc_vp8l_decode": [_P, _LL, _P, _LL, _LL, _P, _I]}
+         "isc_vp8l_decode": [_P, _LL, _P, _LL, _LL, _P, _I],
+         "isc_vp8_decode": [_P, _LL, _P, _LL, _LL, _P, _I],
+         "isc_vp8l_alpha_check": [_P, _LL, _LL, _LL, _P, _I]}
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 # formats that Pillow's plugins recognise (by their ``_accept``
 # signatures) and the decoders do not read: a refusal names them. Each
 # entry: (name, offset, prefixes)
-_REFUSED = (("WebP", 8, (b"WEBP",)),
-            ("TIFF", 0, (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*",
+_REFUSED = (("TIFF", 0, (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*",
                          b"MM\0+", b"II+\0")),
             ("XV thumbnail", 0, (b"P7 332",)),
             ("PPM (PBM, PGM, PNM, PFM)", 0,
@@ -743,20 +747,38 @@ class _WebPDemux:
                           f"the {cw}x{ch} canvas")
 
 
+def _check_alph(chunk: bytes, w: int, h: int) -> None:
+    """An ALPH chunk's payload, as libwebp's ALPHInit and ALPHDecode refuse
+    it: no data past the header byte; a compression other than none (0)
+    or VP8L (1), a pre-processing past level reduction (1), reserved bits
+    set; raw data shorter than the w x h plane; a VP8L stream (no header
+    of its own, the frame's size) that ``isc_vp8l_alpha_check`` refuses.
+    The alpha is not decoded further: PIL's RGB does not depend on it."""
+    if len(chunk) <= 1:
+        raise ValueError("WebP: empty ALPH chunk")
+    method, pre, reserved = chunk[0] & 3, chunk[0] >> 4 & 3, chunk[0] >> 6
+    if method > 1 or pre > 1 or reserved:
+        raise ValueError(f"WebP: bad ALPH header {chunk[0]:#04x}")
+    if method == 0:
+        if len(chunk) - 1 < w * h:
+            raise ValueError("WebP: truncated raw ALPH data")
+        return
+    body = chunk[1:]
+    _call(_lib().isc_vp8l_alpha_check, body, len(body), w, h)
+
+
 def _decode_webp(data: bytes) -> np.ndarray:
     """A WebP file as PIL opens it (its WebPAnimDecoder, libwebp 1.6): the
     container checked as libwebp's demuxer and WebPGetFeatures check it,
-    then the first frame's VP8L bitstream decoded by ``isc_vp8l_decode``
-    onto a canvas cleared to transparent black, at the frame's offset (the
-    first frame of an animation is a key frame: no blending, ANIM's
-    background colour unused). RGB always (a grey or paletted image was
-    coded as ARGB; the alpha is dropped, the RGB under it kept exactly).
-    Lossy WebP (a VP8 chunk, with ALPH or not, or an animation whose first
-    frame is one) is refused by name."""
-    if data[12:16] == b"VP8 ":
-        raise ValueError("unsupported: WebP lossy (VP8) (the decoders read "
-                         "lossless WebP)")
-    if data[12:16] not in (b"VP8L", b"VP8X"):    # Pillow's _accept
+    then the first frame decoded onto a canvas cleared to transparent
+    black, at the frame's offset (the first frame of an animation is a key
+    frame: no blending, ANIM's background colour unused): a VP8L bitstream
+    by ``isc_vp8l_decode``, a VP8 key frame by ``isc_vp8_decode``, with
+    its ALPH chunk, where the demuxer keeps one, checked by ``_check_alph``
+    (decoded as far as libwebp refuses it). RGB always: a grey or paletted
+    image was coded as ARGB or YUV 4:2:0; the alpha is dropped, the RGB
+    under it kept exactly (libwebp's RGBA is not premultiplied)."""
+    if data[12:16] not in (b"VP8 ", b"VP8L", b"VP8X"):   # Pillow's _accept
         raise ValueError(f"WebP: unknown first chunk {data[12:16]!r}")
     # the animation decoder's WebPGetFeatures of the whole file refuses a
     # VP8X chunk of another size than 10 (its other checks are the
@@ -767,14 +789,15 @@ def _decode_webp(data: bytes) -> np.ndarray:
     cw, ch = demux.canvas
     _check_pixels(ch, cw)
     f = demux.frames[0]
-    start, size = f.image               # a VP8L frame has no ALPH chunk
-    if data[start:start + 4] != b"VP8L":
-        raise ValueError("unsupported: WebP lossy (VP8) frame (the decoders "
-                         "read lossless WebP)")
+    start, size = f.image
     frame = np.empty((f.h, f.w, 3), np.uint8)
     body = data[start + 8:start + size]
-    _call(_lib().isc_vp8l_decode, body, len(body), frame.ctypes.data, f.w,
-          f.h)
+    lossless = data[start:start + 4] == b"VP8L"
+    _call(_lib().isc_vp8l_decode if lossless else _lib().isc_vp8_decode,
+          body, len(body), frame.ctypes.data, f.w, f.h)
+    if f.alpha is not None:             # a VP8 frame's: VP8L has no ALPH
+        a = f.alpha[0] + 8
+        _check_alph(data[a:a + _le(data, a - 4, 4)], f.w, f.h)
     if (f.w, f.h) == (cw, ch):
         return frame
     canvas = np.zeros((ch, cw, 3), np.uint8)
@@ -788,12 +811,12 @@ def load_image_bytes(data: bytes) -> np.ndarray:
     indices), as the JAX package's PIL path gives them: every PNG (any
     colour type and depth, Adam7 or not), every 8-bit Huffman JPEG of 1, 3
     or 4 components (YCbCr, RGB, CMYK, YCCK), baseline or progressive,
-    every GIF (its first frame), every BMP and every lossless WebP (VP8L,
-    simple, extended or the first frame of an animation) that PIL opens.
-    What PIL refuses, and what the decoders do not take (lossless,
-    hierarchical, arithmetic, 12-bit or 2-component JPEG; lossy WebP, TIFF,
-    PPM and the other formats of ``_REFUSED``, by name), raises
-    ValueError."""
+    every GIF (its first frame), every BMP and every WebP, lossless (VP8L)
+    or lossy (VP8, with ALPH or not), simple, extended or the first frame
+    of an animation, that PIL opens. What PIL refuses, and what the
+    decoders do not take (lossless, hierarchical, arithmetic, 12-bit or
+    2-component JPEG; TIFF, PPM and the other formats of ``_REFUSED``, by
+    name), raises ValueError."""
     data = bytes(data)
     if data[:2] == b"\xff\xd8":
         return _decode_jpeg(data)
@@ -808,9 +831,9 @@ def load_image_bytes(data: bytes) -> np.ndarray:
     for name, at, prefixes in _REFUSED:
         if data[at:].startswith(prefixes):
             raise ValueError(f"unsupported: {name} (the decoders read "
-                             "JPEG, PNG, GIF, BMP and lossless WebP)")
+                             "JPEG, PNG, GIF, BMP and WebP)")
     raise ValueError("not an image the decoders read (JPEG, PNG, GIF, BMP, "
-                     "lossless WebP)")
+                     "WebP)")
 
 
 def load_image(path: str) -> np.ndarray:

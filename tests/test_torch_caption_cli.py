@@ -151,6 +151,31 @@ def test_caption_run_reads_lossless_webp_as_jax(tree, tmp_path):
         assert abs(g["score"] - w["score"]) <= 1e-4
 
 
+def test_caption_run_reads_lossy_webp_as_jax(tree, tmp_path):
+    """A lossy RGBA WebP (VP8X, ALPH, VP8; PIL's default quality), which
+    the port's decoders refused before: the record equals the JAX
+    package's."""
+    from PIL import Image
+    d = tree
+    img = np.asarray(Image.open(d / "b.png"))
+    Image.fromarray(np.dstack([img, img[:, :, 1:2]])).save(
+        tmp_path / "g.webp")
+    assert (tmp_path / "g.webp").read_bytes()[12:16] == b"VP8X"
+    args = ["-i", str(tmp_path / "g.webp"), "--rl_model", str(d / "rl.ckpt"),
+            "--concept_model", str(d / "cpt.ckpt"),
+            "--resnet101_ckpt", str(d / "resnet.ckpt"),
+            "--sentiment_detector_json", str(d / "senti.json"),
+            "--max_seq_len", "6", "--beam_size", "2", "--num_concepts", "3",
+            "--num_sentiments", "4"]
+    want = jcaption.run(jcaption.build_parser().parse_args(args))
+    got = tcaption.run(tcaption.build_parser().parse_args(
+        args + ["--device", "cpu"]))
+    assert len(got) == len(want) == 1
+    assert {k: v for k, v in got[0].items() if k != "score"} == \
+        {k: v for k, v in want[0].items() if k != "score"}
+    assert abs(got[0]["score"] - want[0]["score"]) <= 1e-4
+
+
 def test_caption_refuses_cuda_without_a_card(tree):
     import torch
     if torch.cuda.is_available():

@@ -537,8 +537,8 @@ def test_smoke_timing_files_match_pil(what):
 
 # every format PIL writes here, opens again, and the port refuses by name
 # (TGA, which has no signature, shares CUR's first bytes)
-NAMED = [("WEBP", "RGB", "WebP"), ("TIFF", "RGB", "TIFF"),
-         ("PPM", "RGB", "PPM"), ("PPM", "L", "PPM"), ("PPM", "1", "PPM"),
+NAMED = [("TIFF", "RGB", "TIFF"), ("PPM", "RGB", "PPM"), ("PPM", "L", "PPM"),
+         ("PPM", "1", "PPM"),
          ("ICO", "RGB", "ICO"), ("JPEG2000", "RGB", "JPEG 2000"),
          ("QOI", "RGB", "QOI"), ("DDS", "RGB", "DDS"),
          ("ICNS", "RGB", "ICNS"), ("SGI", "RGB", "SGI"),
@@ -558,10 +558,8 @@ def test_other_formats_refused_by_name(fmt, mode, name):
         tpre.load_image_bytes(data)
 
 
-# the bytes before a signature that lies past the file's start, and those
-# after one that Pillow reads further (WebP's first chunk)
-_LEAD = {"WebP": b"RIFF\0\0\0\0", "AVIF": b"\0\0\0\x1c"}
-_TAIL = {"WebP": b"VP8 "}
+# the bytes before a signature that lies past the file's start
+_LEAD = {"AVIF": b"\0\0\0\x1c"}
 SIGNATURES = [(name, at, p) for name, at, prefixes in tpre._REFUSED
               for p in prefixes]
 
@@ -574,8 +572,7 @@ def test_refused_signatures_are_pillows(name, at, prefix):
     ``test_other_formats_refused_by_name`` decodes an IM file), and the
     refusal names the format the signature belongs to."""
     Image.init()
-    data = _LEAD.get(name, bytes(at)) + prefix + _TAIL.get(name, b"")
-    data += bytes(64)
+    data = _LEAD.get(name, bytes(at)) + prefix + bytes(64)
     assert len(_LEAD.get(name, bytes(at))) == at
     takers = [f for f, (_, accept) in Image.OPEN.items()
               if accept is not None and accept(data)]

@@ -17,11 +17,11 @@ symbol, with and without repeats and ``max_symbol``, the 120 short
 distance codes on narrow images, plain distances, self-overlapping copies,
 random streams of all of it; PIL's files at methods 0, 4 and 6; VP8X with
 ICCP, EXIF and XMP; the first frame of an animation, at an offset on a
-larger canvas. Lossy WebP is refused by name; malformed containers and
-bitstreams, and mutated and truncated files, are refused where PIL refuses
-them and decode as PIL decodes them otherwise."""
+larger canvas. Lossy WebP decodes as PIL decodes it (the files here; the
+lossy decoder's own matrix is ``test_torch_imgdec_vp8.py``); malformed
+containers and bitstreams, and mutated and truncated files, are refused
+where PIL refuses them and decode as PIL decodes them otherwise."""
 import io
-import re
 
 import numpy as np
 import pytest
@@ -441,10 +441,11 @@ def test_containers(name):
 
 # -- refusals ----------------------------------------------------------------
 
-def test_lossy_refused_by_name():
-    """Lossy WebP: plain (VP8), with alpha (VP8X, ALPH, VP8) and an
-    animation whose first frame is lossy. PIL decodes them; the port names
-    them."""
+def test_lossy_agrees_with_pil():
+    """Lossy WebP: plain (VP8), with alpha (VP8X, ALPH, VP8), PIL's
+    animation whose first frame is lossy and one built here of the RGBA
+    file's ALPH and VP8 chunks. The port decodes them as PIL does
+    (``test_torch_imgdec_vp8.py`` holds the lossy decoder to PIL in full)."""
     img = _photo(16, 20, 11)
     rgba = Image.fromarray(np.dstack([img, img[:, :, :1]]))
     buf = io.BytesIO()
@@ -454,9 +455,7 @@ def test_lossy_refused_by_name():
                      webp_anmf(0, 0, 20, 16, *_pil_chunks(_pil(rgba))[1:]))
     for data in (_pil(Image.fromarray(img)), _pil(rgba), buf.getvalue(),
                  hand):
-        assert jpre.load_image_bytes(data).shape == (16, 20, 3)
-        with pytest.raises(ValueError, match=re.escape("unsupported: WebP")):
-            tpre.load_image_bytes(data)
+        assert _same(data).shape == (16, 20, 3)
 
 
 def test_decompression_bomb_refused():

@@ -251,6 +251,36 @@ def test_preprocess_features_reads_lossless_webp(weights, tmp_path):
                          ["anim.webp", "icc.webp", "rgb.webp"])
 
 
+def test_preprocess_features_reads_lossy_webp(weights, tmp_path):
+    """``preprocess features`` over a folder holding a lossy WebP (PIL's,
+    quality 80) beside a JPEG: the port's decoder refused it before, which
+    stopped the whole extraction; the features equal the JAX package's."""
+    from PIL import Image
+    jp, _ = weights
+    imgs = tmp_path / "imgs"
+    os.makedirs(imgs)
+    g = np.random.default_rng(8)
+    y, x = np.mgrid[0:60, 0:84]
+    photo = np.clip(np.stack([128 + 90 * np.sin(x / 9), 128 + 90 * np.cos(
+        y / 7), (x + y) * 1.5], -1) + g.normal(0, 8, (60, 84, 3)), 0,
+        255).astype(np.uint8)
+    Image.fromarray(photo).save(imgs / "lossy.webp", quality=80)
+    Image.fromarray(photo[::-1]).save(imgs / "b.jpg", quality=90)
+    assert (imgs / "lossy.webp").read_bytes()[12:16] == b"VP8 "
+    pth = str(tmp_path / "resnet101.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                resnet_state_dict(0).items()}, pth)
+    jpp.extract_imgs_feat(str(imgs), str(tmp_path / "jax"), jp, batch_size=2,
+                          store_format="native", bucket_mode="resize",
+                          bucket_shapes=((64, 64), (48, 64), (64, 48)))
+    tcli.main(["features", "--imgs_dir", str(imgs),
+               "--feats_dir", str(tmp_path / "port"),
+               "--resnet101_file", pth, "--feat_bucket_shapes", BUCKETS,
+               "--feat_batch_size", "2", "--device", "cpu"])
+    _assert_stores_close(str(tmp_path / "jax"), str(tmp_path / "port"),
+                         ["b.jpg", "lossy.webp"])
+
+
 def test_h5_store_is_refused_by_name(tmp_path):
     with pytest.raises(ValueError, match="HDF5"):
         tpp.extract_imgs_feat(str(tmp_path), str(tmp_path / "f"), {},

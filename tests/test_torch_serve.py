@@ -96,6 +96,8 @@ def tree(tmp_path_factory, settings):
                                                      "photo.bmp")
     Image.fromarray(np.dstack([smooth[:, ::-1], smooth[:, :, :1]])).save(
         d / "imgs" / "photo.webp", lossless=True, exact=True)
+    Image.fromarray(smooth[::-1, ::-1]).save(d / "imgs" / "lossy.webp",
+                                             quality=80)
     return d
 
 
@@ -163,6 +165,10 @@ def _payloads(d, settings):
                         "sentiment": "negative"},
             "webp_b64": {"image_b64": b64("photo.webp"), "sentiment": "auto"},
             "webp_path": {"image_path": str(d / "imgs" / "photo.webp")},
+            "lossy_webp_b64": {"image_b64": b64("lossy.webp"),
+                               "sentiment": "auto"},
+            "lossy_webp_path": {"image_path": str(d / "imgs" /
+                                                  "lossy.webp")},
             "path": {"image_path": str(d / "imgs" / "photo.jpg")}}
 
 
@@ -191,6 +197,7 @@ def test_handle_caption_matches_jax(tree, settings, fakes):
     assert got["png_b64"]["sentiment"] == "positive"
     assert got["jpeg_b64"] == got["path"]      # the same file, two ways
     assert got["webp_b64"] == got["webp_path"]
+    assert got["lossy_webp_b64"] == got["lossy_webp_path"]
     assert stats["requests"] == len(payloads)
     assert stats["encode"]["by_bucket"]["12x16"] >= 1     # the JPEG
 

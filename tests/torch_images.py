@@ -2,11 +2,12 @@
 (``tests/data/torch_images/``) and the small writers of the files PIL
 cannot write.
 
-The fixtures: JPEGs, PNGs, GIFs, BMPs and lossless WebPs written by PIL,
-or by the writers here (``write_jpeg``: YCCK; ``make_png``:
-Adam7-interlaced and 16-bit RGB; ``write_gif``, ``write_bmp``: what PIL
-does not write; ``vp8l``: an animation whose first frame lies at an
-offset), and ``expected.npz`` holding PIL's decoded arrays (the JAX package's
+The fixtures: JPEGs, PNGs, GIFs, BMPs and lossless and lossy WebPs
+written by PIL, or by the writers here (``write_jpeg``: YCCK;
+``make_png``: Adam7-interlaced and 16-bit RGB; ``write_gif``,
+``write_bmp``: what PIL does not write; ``vp8l``: an animation whose
+first frame lies at an offset; ``vp8_frame``: a key frame with the simple
+filter, four token partitions and filter deltas), and ``expected.npz`` holding PIL's decoded arrays (the JAX package's
 ``load_image_bytes``), for the card's machine, which has no PIL. The
 arrays are stored as differences along each row (uint8, wrapping), which
 zlib packs to half the size, and an array two fixtures share once
@@ -35,7 +36,13 @@ meta prefix codes, simple and normal prefix codes (repeat codes and
 ``max_symbol`` or not), literals, cache hits and backward references by
 the distance map or plain distances; ``webp_file``, ``webp_chunk``,
 ``webp_vp8x``, ``webp_anim`` and ``webp_anmf`` wrap them in RIFF, VP8X and
-ANIM/ANMF containers."""
+ANIM/ANMF containers; ``vp8_frame`` writes VP8 key frames (lossy WebP)
+through an RFC 6386 boolean encoder (``BoolEncoder``), every header
+option (filter type, level, sharpness and deltas, segments, 1-8 token
+partitions, the skip probability, probability updates, profile and the
+scale bits) and each macroblock's modes and levels (``random_mb`` draws
+them) by argument, with the decoder's tables (``vp8_tables``, read from
+``csrc/imgdec.cc``)."""
 import io
 import os
 import struct
@@ -414,6 +421,332 @@ def write_bmp(px, bits, **kw):
     return chip_smoke.write_bmp(np, px, bits, **kw)
 
 
+# -- a VP8 key-frame writer (lossy WebP): every header option by argument ---
+
+# the 4x4 intra modes in libwebp's order; the 16x16 and chroma modes are
+# DC, TM, V (VE) and H (HE)
+B_DC, B_TM, B_VE, B_HE, B_RD, B_VR, B_LD, B_VL, B_HD, B_HU = range(10)
+_VP8_BANDS = (0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0)
+_VP8_CATS = ((173, 148, 140), (176, 155, 140, 135),
+             (180, 157, 141, 134, 130),
+             (254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129))
+# the 4x4 mode tree (a leaf is minus its mode, a node its pair's index)
+_VP8_TREE = (-B_DC, 1, -B_TM, 2, -B_VE, 3, 4, 6, -B_HE, 5, -B_RD, -B_VR,
+             -B_LD, 7, -B_VL, 8, -B_HD, -B_HU)
+_IMGDEC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "insenticap_model_tpu_torch", "csrc", "imgdec.cc")
+
+
+def vp8_tables():
+    """The decoder's RFC 6386 tables, read from ``csrc/imgdec.cc`` (one
+    copy for the decoder and this writer): {name: int array}."""
+    import re
+    src = open(_IMGDEC).read()
+    out = {}
+    for name, shape in (("kCoeffsProba0", (4, 8, 3, 11)),
+                        ("kCoeffsUpdateProba", (4, 8, 3, 11)),
+                        ("kBModesProba", (10, 10, 9)), ("kDcTable", (128,)),
+                        ("kAcTable", (128,))):
+        body = re.search(r"\b%s\[[^=]*=\s*\{(.*?)\};" % name, src, re.S)
+        out[name] = np.array(re.findall(r"\d+", body.group(1)),
+                             int).reshape(shape)
+    return out
+
+
+def _tree_paths(tree):
+    """{leaf: [(node, bit), ...]} of a tree coded as ``_VP8_TREE``."""
+    paths, todo = {}, [(0, [])]
+    while todo:
+        node, path = todo.pop()
+        for bit in (0, 1):
+            nxt = tree[2 * node + bit]
+            step = path + [(node, bit)]
+            if nxt > 0:
+                todo.append((nxt, step))
+            else:
+                paths[-nxt] = step
+    return paths
+
+
+_BMODE_PATHS = _tree_paths(_VP8_TREE)
+
+
+class BoolEncoder:
+    """RFC 6386's boolean encoder (section 7.3) on an unbounded integer:
+    the interval's low end, shifted as the range is renormalised; the
+    bytes are that end, its last byte filled with zeros (the fewest the
+    decoder reads without reaching past them)."""
+
+    def __init__(self):
+        self.low, self.range, self.shifts = 0, 255, 0
+
+    def put(self, bit, prob):
+        split = 1 + (((self.range - 1) * int(prob)) >> 8)
+        if bit:
+            self.low += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            self.low <<= 1
+            self.shifts += 1
+
+    def value(self, v, bits):
+        for i in reversed(range(bits)):
+            self.put(v >> i & 1, 128)
+
+    def signed(self, v, bits):
+        self.value(abs(v), bits)
+        self.put(v < 0, 128)
+
+    def flagged(self, v, bits, signed=True):
+        """A flag, then the value where it is not None."""
+        self.put(v is not None, 128)
+        if v is not None:
+            (self.signed if signed else self.value)(v, bits)
+
+    def bytes(self, pad=0):
+        n = (self.shifts + 15) // 8
+        return (self.low << (8 * n - 8 - self.shifts)).to_bytes(n, "big") \
+            + bytes(pad)
+
+
+def _put_large(enc, v, p):
+    """GetLargeValue's tree: a magnitude of 2 to 2114."""
+    if v <= 4:
+        enc.put(0, p[3])
+        enc.put(v > 2, p[4])
+        if v > 2:
+            enc.put(v - 3, p[5])
+    elif v <= 10:
+        enc.put(1, p[3])
+        enc.put(0, p[6])
+        enc.put(v > 6, p[7])
+        if v <= 6:
+            enc.put(v - 5, 159)
+        else:
+            enc.put((v - 7) >> 1, 165)
+            enc.put((v - 7) & 1, 145)
+    else:
+        cat = 0 if v < 19 else 1 if v < 35 else 2 if v < 67 else 3
+        assert v <= 2114, v
+        enc.put(1, p[3])
+        enc.put(1, p[6])
+        enc.put(cat >> 1, p[8])
+        enc.put(cat & 1, p[9 + (cat >> 1)])
+        tab, extra = _VP8_CATS[cat], v - 3 - (8 << cat)
+        for i, pr in enumerate(tab):
+            enc.put(extra >> (len(tab) - 1 - i) & 1, pr)
+
+
+def _put_tokens(enc, prob, ctx, levels, first):
+    """A block's levels (zigzag order) from index ``first``: EOB after the
+    last non-zero one; True where one is non-zero."""
+    nz = [i for i in range(first, 16) if levels[i]]
+    last = nz[-1] if nz else -1
+    n, p = first, prob[_VP8_BANDS[first]][ctx]
+    while n < 16:
+        enc.put(n <= last, p[0])
+        if n > last:
+            break
+        while not levels[n]:
+            enc.put(0, p[1])
+            n += 1
+            p = prob[_VP8_BANDS[n]][0]
+        enc.put(1, p[1])
+        v, nxt = abs(int(levels[n])), prob[_VP8_BANDS[n + 1]]
+        enc.put(v > 1, p[2])
+        if v > 1:
+            _put_large(enc, v, p)
+        p = nxt[2 if v > 1 else 1]
+        enc.put(levels[n] < 0, 128)
+        n += 1
+    return bool(nz)
+
+
+def random_mb(g, p4=0.5, density=0.3, big=0.05, large=2114):
+    """A macroblock of ``vp8_frame``: 4x4 modes (share ``p4``) or a 16x16
+    mode with Y2 levels, a chroma mode, and levels in -3..3 (a ``density``
+    share non-zero), a block in ``big`` with one level up to ``large``
+    (DCT_CAT6); segment and skip flag random."""
+    def levels():
+        v = g.integers(-3, 4, 16) * (g.random(16) < density)
+        if g.random() < big:
+            v[g.integers(0, 16)] = int(g.integers(-large, large + 1))
+        return v.tolist()
+    mb = {"uvmode": int(g.integers(0, 4)), "segment": int(g.integers(0, 4)),
+          "skip": bool(g.random() < 0.2)}
+    if g.random() < p4:
+        mb["bmodes"] = g.integers(0, 10, 16).tolist()
+    else:
+        mb.update(ymode=int(g.integers(0, 4)), y2=levels())
+    mb.update(y=[levels() for _ in range(16)], u=[levels() for _ in range(4)],
+              v=[levels() for _ in range(4)])
+    return mb
+
+
+def webp_chunks(data):
+    """The chunks of a WebP file, each with its header and pad byte."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        n = int.from_bytes(data[pos + 4:pos + 8], "little")
+        out.append(data[pos:pos + 8 + n + (n & 1)])
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def vp8_frame(w, h, mbs, *, q=40, dq=(None,) * 5, simple=0, level=0,
+              sharpness=0, lf_delta=None, segments=None, partitions=1,
+              skip_prob=None, updates=None, profile=0, scale=(0, 0),
+              colour_space=0, clamp_type=0, refresh=0, pad=0):
+    """A VP8 key frame of w x h (a VP8 chunk's payload).
+
+    ``mbs``: a dict a macroblock, in raster order: ``ymode`` (a 16x16
+    mode: B_DC, B_TM, B_VE, B_HE) or ``bmodes`` (16 4x4 modes, raster
+    order), ``uvmode``, ``segment``, ``skip`` (coded where ``skip_prob``
+    is given: then no tokens), and levels in zigzag order, each a list of
+    16: ``y2`` (a 16x16 macroblock's), ``y`` (16 blocks; a 16x16 one's DCs
+    ignored), ``u`` and ``v`` (4 each); absent ones are zeros.
+
+    The header: quantiser ``q`` and the five deltas ``dq`` (y1 DC, y2 DC,
+    y2 AC, uv DC, uv AC; None uncoded); the filter (``simple``, ``level``,
+    ``sharpness``); ``lf_delta``: None, or {"update": bool, "ref": 4,
+    "mode": 4} (None entries uncoded); ``segments``: None, or {"map": 3
+    probabilities (None entries uncoded: 255) or None for no map, "data":
+    None or {"absolute": bool, "quant": 4, "filter": 4}}; 1, 2, 4 or 8
+    token ``partitions`` (macroblock row r in partition r mod the count);
+    ``updates``: {(t, b, c, p): probability}; ``profile``, the two
+    ``scale`` fields, the colour space, clamping type and refresh bits
+    (read and ignored); ``pad`` zero bytes after each partition."""
+    mbw, mbh = (w + 15) >> 4, (h + 15) >> 4
+    assert len(mbs) == mbw * mbh
+    tabs = vp8_tables()
+    proba = tabs["kCoeffsProba0"].copy()
+    for k, v in (updates or {}).items():
+        proba[k] = v
+    hdr = BoolEncoder()
+    hdr.put(colour_space, 128)
+    hdr.put(clamp_type, 128)
+    seg = segments or {}
+    hdr.put(segments is not None, 128)
+    if segments is not None:
+        hdr.put(seg.get("map") is not None, 128)
+        data = seg.get("data")
+        hdr.put(data is not None, 128)
+        if data is not None:
+            hdr.put(data["absolute"], 128)
+            for v in data["quant"]:
+                hdr.flagged(v, 7)
+            for v in data["filter"]:
+                hdr.flagged(v, 6)
+        for v in seg.get("map") or ():
+            hdr.flagged(v, 8, signed=False)
+    hdr.put(simple, 128)
+    hdr.value(level, 6)
+    hdr.value(sharpness, 3)
+    hdr.put(lf_delta is not None, 128)
+    if lf_delta is not None:
+        hdr.put(lf_delta["update"], 128)
+        if lf_delta["update"]:
+            for v in list(lf_delta["ref"]) + list(lf_delta["mode"]):
+                hdr.flagged(v, 6)
+    hdr.value({1: 0, 2: 1, 4: 2, 8: 3}[partitions], 2)
+    hdr.value(q, 7)
+    for v in dq:
+        hdr.flagged(v, 4)
+    hdr.put(refresh, 128)
+    upd = tabs["kCoeffsUpdateProba"]
+    for k in np.ndindex(4, 8, 3, 11):
+        hdr.put(k in (updates or {}), upd[k])
+        if k in (updates or {}):
+            hdr.value(updates[k], 8)
+    hdr.put(skip_prob is not None, 128)
+    if skip_prob is not None:
+        hdr.value(skip_prob, 8)
+    parts = [BoolEncoder() for _ in range(partitions)]
+    seg_map = seg.get("map")
+    intra_t = [B_DC] * (4 * mbw)
+    top = {"y": [0] * (4 * mbw), "u": [0] * (2 * mbw), "v": [0] * (2 * mbw),
+           "dc": [0] * mbw}
+    for mb_y in range(mbh):
+        intra_l = [B_DC] * 4
+        left = {"y": [0] * 4, "u": [0] * 2, "v": [0] * 2, "dc": [0]}
+        tok = parts[mb_y % partitions]
+        for mb_x in range(mbw):
+            mb = mbs[mb_y * mbw + mb_x]
+            if seg_map is not None:
+                s = mb.get("segment", 0)
+                probs = [255 if p is None else p for p in seg_map]
+                hdr.put(s >= 2, probs[0])
+                hdr.put(s & 1, probs[1 + (s >= 2)])
+            skip = skip_prob is not None and mb.get("skip", False)
+            if skip_prob is not None:
+                hdr.put(skip, skip_prob)
+            i4x4 = "bmodes" in mb
+            hdr.put(not i4x4, 145)
+            if not i4x4:
+                m = mb["ymode"]
+                hdr.put(m in (B_TM, B_HE), 156)
+                if m in (B_TM, B_HE):
+                    hdr.put(m == B_TM, 128)
+                else:
+                    hdr.put(m == B_VE, 163)
+                intra_t[4 * mb_x:4 * mb_x + 4] = [m] * 4
+                intra_l = [m] * 4
+            else:
+                for y in range(4):
+                    for x in range(4):
+                        m = mb["bmodes"][4 * y + x]
+                        prob = tabs["kBModesProba"][intra_t[4 * mb_x + x],
+                                                    intra_l[y]]
+                        for node, bit in _BMODE_PATHS[m]:
+                            hdr.put(bit, prob[node])
+                        intra_t[4 * mb_x + x] = intra_l[y] = m
+            uv = mb.get("uvmode", B_DC)
+            hdr.put(uv != B_DC, 142)
+            if uv != B_DC:
+                hdr.put(uv != B_VE, 114)
+                if uv != B_VE:
+                    hdr.put(uv == B_TM, 183)
+            if skip:
+                for k, n in (("y", 4), ("u", 2), ("v", 2)):
+                    top[k][n * mb_x:n * mb_x + n] = [0] * n
+                    left[k] = [0] * n
+                if not i4x4:
+                    top["dc"][mb_x] = left["dc"][0] = 0
+                continue
+            zero = [0] * 16
+            if not i4x4:
+                t = top["dc"][mb_x]
+                nz = _put_tokens(tok, proba[1], t + left["dc"][0],
+                                 mb.get("y2", zero), 0)
+                top["dc"][mb_x] = left["dc"][0] = int(nz)
+            first, t_y = (0, 3) if i4x4 else (1, 0)
+            ys = mb.get("y", [zero] * 16)
+            for y in range(4):
+                for x in range(4):
+                    i = 4 * mb_x + x
+                    nz = _put_tokens(tok, proba[t_y], top["y"][i]
+                                     + left["y"][y], ys[4 * y + x], first)
+                    top["y"][i] = left["y"][y] = int(nz)
+            for k in ("u", "v"):
+                bl = mb.get(k, [zero] * 4)
+                for y in range(2):
+                    for x in range(2):
+                        i = 2 * mb_x + x
+                        nz = _put_tokens(tok, proba[2], top[k][i]
+                                         + left[k][y], bl[2 * y + x], 0)
+                        top[k][i] = left[k][y] = int(nz)
+    first = hdr.bytes(pad)
+    rest = [p.bytes(pad) for p in parts]
+    bits = profile << 1 | 1 << 4 | len(first) << 5
+    return (bits.to_bytes(3, "little") + b"\x9d\x01\x2a"
+            + struct.pack("<HH", w | scale[0] << 14, h | scale[1] << 14)
+            + first + b"".join(len(p).to_bytes(3, "little")
+                               for p in rest[:-1]) + b"".join(rest))
+
+
 def build():
     """{file name: bytes} of every fixture, written by PIL or, where PIL
     cannot, by the writers here."""
@@ -513,6 +846,34 @@ def build():
         webp_vp8x(19, 15, 0x02), webp_anim(),
         webp_anmf(6, 4, 10, 7, webp_chunk(b"VP8L", frames[0])),
         webp_anmf(0, 0, 19, 15, webp_chunk(b"VP8L", frames[1])))
+    # lossy WebP: PIL's (quality 80 unless named) of rgb.png's pixels (odd
+    # sizes), of a grey image (which opens as RGB), of rgba.png's (VP8X,
+    # ALPH, VP8), and of j420_448.jpg's decoded pixels at quality 80 and
+    # 100; a lossy RGBA frame of PIL's (its ALPH and VP8 chunks) at an
+    # offset as an animation's first frame; the writer's frame with the
+    # simple filter, sharpness 3, four token partitions and filter deltas
+    save("lossy_rgb.webp", Image.fromarray(rgb), "WEBP")
+    save("lossy_grey.webp", small.convert("L"), "WEBP", quality=70)
+    save("lossy_rgba.webp", Image.fromarray(rgba), "WEBP")
+    save("lossy_448.webp", Image.open(io.BytesIO(out["j420_448.jpg"])),
+         "WEBP")
+    save("lossy_448_q100.webp", Image.open(io.BytesIO(out["j420_448.jpg"])),
+         "WEBP", quality=100)
+    frames = []
+    for px in (rgba[:13, :17], rgb[:21, :25]):
+        buf = io.BytesIO()
+        Image.fromarray(px).save(buf, "WEBP", quality=60)
+        frames.append(webp_chunks(buf.getvalue()))
+    out["lossy_anim.webp"] = webp_file(
+        webp_vp8x(25, 21, 0x12), webp_anim(),
+        webp_anmf(6, 4, 17, 13, *frames[0][1:]),    # ALPH, VP8
+        webp_anmf(0, 0, 25, 21, *frames[1]))
+    g = np.random.default_rng(20)
+    out["lossy_hand.webp"] = webp_file(webp_chunk(b"VP8 ", vp8_frame(
+        37, 29, [random_mb(g) for _ in range(6)], q=30, simple=1, level=24,
+        sharpness=3, partitions=4, lf_delta={"update": True,
+                                             "ref": [-6, None, 4, None],
+                                             "mode": [9, None, None, -3]})))
     return out
 
 
