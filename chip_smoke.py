@@ -449,17 +449,22 @@ FIXTURES = {"j444.jpg": "decode", "j422.jpg": "decode",
             "lossless_448.webp": "decode", "lossy_rgb.webp": "decode",
             "lossy_grey.webp": "decode", "lossy_rgba.webp": "decode",
             "lossy_anim.webp": "decode", "lossy_hand.webp": "decode",
-            "lossy_448.webp": "decode", "lossy_448_q100.webp": "decode"}
+            "lossy_448.webp": "decode", "lossy_448_q100.webp": "decode",
+            "rgb.tif": "decode", "p_packbits.tif": "decode",
+            "lab.tif": "decode", "rgba_o6.tif": "decode",
+            "cmyk_tiles.tif": "decode", "grey16_big.tif": "decode"}
 # a fixture whose PIL array is another's, stored once in expected.npz
 # under the other name: the same photo at the same quality and sampling,
 # written progressive (the same coefficients, so the same pixels), and
 # rgb.png's pixels interlaced, as the high bytes of 16-bit samples and as
-# a 24-bit BMP; lossless WebPs of PNGs' and a JPEG's decoded pixels
+# a 24-bit BMP; lossless WebPs of PNGs' and a JPEG's decoded pixels; PIL's
+# TIFFs of rgb.png's and p.png's
 SAME_PIXELS = {"prog420_448.jpg": "j420_448.jpg", "adam7.png": "rgb.png",
                "rgb16.png": "rgb.png", "rgb24.bmp": "rgb.png",
                "lossless_rgb.webp": "rgb.png", "lossless_p.webp": "p.png",
                "lossless_rgba.webp": "rgba.png",
-               "lossless_448.webp": "j420_448.jpg"}
+               "lossless_448.webp": "j420_448.jpg", "rgb.tif": "rgb.png",
+               "p_packbits.tif": "p.png"}
 # phase 3f, the XE stage: the reference trainer's xe batch and learning
 # rate; 34 train images of 3 captions give 5 batches, 7 val images 2 (the
 # last padded), 20 test images one dump batch
@@ -1375,6 +1380,118 @@ def _bmp_bytes(np, img, rle8=False):
                       rle=_rle8(np, idx)), pal[idx])
 
 
+def packbits(data):
+    """PackBits of a byte string: runs of 3 to 128 equal bytes as a repeat
+    (-(n - 1), byte), the bytes between as literals of up to 128."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i                           # literals up to the next run of 3
+        while j < n and j - i < 128 and not (
+                j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def tiff_file(pages, *, order="<", bigtiff=False, magic=None, loop=False):
+    """A TIFF file: the header, each page's data blocks (word aligned),
+    then the pages' IFDs, chained, each with its values that do not fit
+    in an entry after it. ``pages``: [(entries, blocks)], an entry (tag,
+    type, values) written in the order given, values a list of numbers
+    (of pairs flattened for the rationals), bytes (types 1, 2 and 7), or
+    "offsets" / "counts": the offsets / lengths of the page's blocks.
+    ``magic``: the header's first four bytes in place of the byte order's
+    own; ``loop``: the last IFD's next pointer back at the first IFD."""
+    import struct
+    from insenticap_model_tpu_torch.preprocessing import _TIFF_TYPES
+    big = order == ">"
+    head = 16 if bigtiff else 8
+    off, cnt, esize, inline = ("Q", "Q", 20, 8) if bigtiff else (
+        "I", "H", 12, 4)
+    body = bytearray()
+    placed = []
+    for _, blocks in pages:
+        offs = []
+        for b in blocks:
+            offs.append(head + len(body))
+            body += b + bytes(len(b) % 2)
+        placed.append((offs, [len(b) for b in blocks]))
+
+    def value_bytes(typ, vals, offs, counts):
+        if isinstance(vals, str):
+            vals = offs if vals == "offsets" else counts
+        if isinstance(vals, (bytes, bytearray)):
+            return bytes(vals), len(vals)
+        size, code = _TIFF_TYPES[typ]
+        code = code or "B"
+        return struct.pack(order + code * len(vals), *vals), len(vals) * (
+            struct.calcsize("=" + code)) // size
+    ifds, pos = [], head + len(body)
+    for (entries, _), (offs, counts) in zip(pages, placed):
+        table_end = pos + struct.calcsize(cnt) + esize * len(entries) + (
+            struct.calcsize(off))
+        table, extra = struct.pack(order + cnt, len(entries)), bytearray()
+        for tag, typ, vals in entries:
+            data, n = value_bytes(typ, vals, offs, counts)
+            if len(data) <= inline:
+                field = data + bytes(inline - len(data))
+            else:
+                field = struct.pack(order + off, table_end + len(extra))
+                extra += data + bytes(len(data) % 2)
+            table += struct.pack(order + "HH" + cnt.replace("H", "I"),
+                                 tag, typ, n) + field
+        ifds.append((pos, table, extra))
+        pos = table_end + len(extra)
+    out = bytearray((b"MM" if big else b"II") + struct.pack(
+        order + "H", 43 if bigtiff else 42))
+    if bigtiff:
+        out += struct.pack(order + "HH", 8, 0)
+    out += struct.pack(order + off, ifds[0][0] if ifds else 0)
+    if magic is not None:
+        out[:4] = magic
+    out += body
+    for i, (at, table, extra) in enumerate(ifds):
+        nxt = (ifds[i + 1][0] if i + 1 < len(ifds)
+               else ifds[0][0] if loop else 0)
+        out += table + struct.pack(order + off, nxt) + extra
+    return bytes(out)
+
+
+def _tiff_bytes(np, zlib, img, compression=1):
+    """A little-endian TIFF of an RGB uint8 image, written here: one IFD,
+    strips of about 64 KiB (as PIL's writer cuts them), uncompressed (1),
+    PackBits (32773, row by row) or Deflate (8) with horizontal
+    differencing (predictor 2); and the pixels it decodes to."""
+    h, w, _ = img.shape
+    rows = max(1, min(h, 65536 // (3 * w)))
+    strips = []
+    for y in range(0, h, rows):
+        part = np.ascontiguousarray(img[y:y + rows])
+        if compression == 8:
+            diff = part.copy()
+            diff[:, 1:] -= part[:, :-1]      # wraps in uint8
+            strips.append(zlib.compress(diff.tobytes()))
+        elif compression == 32773:
+            strips.append(b"".join(packbits(r.tobytes()) for r in part))
+        else:
+            strips.append(part.tobytes())
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+               (259, 3, [compression]), (262, 3, [2]),
+               (273, 4, "offsets"), (277, 3, [3]), (278, 4, [rows]),
+               (279, 4, "counts"), (284, 3, [1])]
+    if compression == 8:
+        entries.append((317, 3, [2]))
+    return tiff_file([(entries, strips)]), img
+
+
 def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                      words, idx2concept, senti_table, zero_counters,
                      read_counters, keep):
@@ -1470,13 +1587,14 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                       if w == "decode"]
             progressive = [n for n in images if n.startswith("prog")]
             # the CMYK, YCCK and Adobe-RGB JPEGs, the Adam7 and 16-bit
-            # PNGs, the GIFs, the BMPs and the lossless WebPs among them
+            # PNGs, the GIFs, the BMPs, the WebPs and the TIFFs among them
             added = [n for n in images if n.startswith(
                 ("cmyk", "ycck", "adobe", "adam7")) or "16" in n
-                or n.endswith((".gif", ".bmp", ".webp"))]
+                or n.endswith((".gif", ".bmp", ".webp", ".tif"))]
             _check(all(any(n.endswith(x) for n in images)
-                       for x in (".gif", ".bmp", ".webp")),
-                   "no GIF, BMP or WebP among the daemon's image requests")
+                       for x in (".gif", ".bmp", ".webp", ".tif")),
+                   "no GIF, BMP, WebP or TIFF among the daemon's image "
+                   "requests")
             b64 = {n: base64.b64encode(open(os.path.join(fixtures, n),
                                             "rb").read()).decode()
                    for n in images}
@@ -1488,7 +1606,10 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                  "sentiment": "positive"},
                 {"image_path": os.path.join(fixtures, "lossless_anim.webp")},
                 {"image_path": os.path.join(fixtures, "lossy_rgba.webp"),
-                 "sentiment": "negative"}]
+                 "sentiment": "negative"},
+                {"image_path": os.path.join(fixtures, "rgba_o6.tif")},
+                {"image_path": os.path.join(fixtures, "cmyk_tiles.tif"),
+                 "sentiment": "positive"}]
             torch.cuda.synchronize()
             zero_counters()
             results, errors, serve_s = _run_groups(
@@ -1546,7 +1667,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                "encode": stats["encode"]["latency_by_bucket"]}
         print(f"serving surface: daemon up in {start_s:.1f} s (warm); "
               f"{len(payloads)} requests ({len(feats)} feature, "
-              f"{len(images)} image_b64, 4 image_path) in {serve_s:.2f} s, "
+              f"{len(images)} image_b64, "
+              f"{len(payloads) - len(feats) - len(images)} image_path) in "
+              f"{serve_s:.2f} s, "
               f"all 200 (progressive JPEGs {progressive}, and {added} "
               f"among them); 400 outside the root, 400 {refused}, 413 "
               f"oversized; launches {launches}")
@@ -1581,7 +1704,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
               "(simple, VP8X, an animation's offset first frame), lossy "
               "WebP (simple, grey, ALPH, an animation's offset first "
               "frame, the simple filter and four partitions, 448x448 at "
-              "quality 80 and 100) included), "
+              "quality 80 and 100), TIFF (uncompressed, PackBits, Deflate "
+              "with predictor 2 and orientation 6, planar big-endian CMYK "
+              "tiles, CIELAB, 16-bit BigTIFF) included), "
               f"{[n for n, w in FIXTURES.items() if w == 'refuse']} "
               "refused")
 
@@ -1589,7 +1714,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
         img_args = [os.path.join(fixtures, "j420_448.jpg"),
                     os.path.join(fixtures, "rgb.png"),
                     os.path.join(fixtures, "lossless_rgba.webp"),
-                    os.path.join(fixtures, "lossy_rgba.webp")]
+                    os.path.join(fixtures, "lossy_rgba.webp"),
+                    os.path.join(fixtures, "rgba_o6.tif")]
         cap_out = io.StringIO()
         with contextlib.redirect_stdout(cap_out):
             recs = caption_cli.run(caption_cli.build_parser().parse_args(
@@ -1641,6 +1767,10 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
     rle, rle_px = _bmp_bytes(np, img448, rle8=True)
     # a lossless WebP of a corner of it written here, without PIL
     own_webp, own_webp_px = _webp_bytes(np, img448[:64, :96] // 32 * 32)
+    # TIFFs of its pixels written here: uncompressed, PackBits, Deflate
+    # with predictor 2
+    tiffs = {code: _tiff_bytes(np, zlib, img448, code)[0]
+             for code in (1, 32773, 8)}
     img480 = np.random.default_rng(9).integers(0, 256, (480, 640, 3),
                                                dtype=np.uint8)
     bucket = pre.bucket_for_shape(480, 640, pre.DEFAULT_BUCKET_SHAPES)
@@ -1675,6 +1805,12 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                  lambda: pre.load_image_bytes(lossy[80])),
              "webp_448_lossy_q100_ms": host_ms(
                  lambda: pre.load_image_bytes(lossy[100])),
+             "tiff_448_raw_ms": host_ms(
+                 lambda: pre.load_image_bytes(tiffs[1])),
+             "tiff_448_packbits_ms": host_ms(
+                 lambda: pre.load_image_bytes(tiffs[32773])),
+             "tiff_448_deflate_pred2_ms": host_ms(
+                 lambda: pre.load_image_bytes(tiffs[8])),
              "resize_480x640_ms": host_ms(
                  lambda: pre.resize_to_bucket(img480, bucket))}
     _check(np.array_equal(pre.load_image_bytes(png), img448)
@@ -1692,6 +1828,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                                   (80, "lossy_448.webp"),
                                   (100, "lossy_448_q100.webp"))),
            "the lossy WebPs do not decode to PIL's arrays")
+    _check(all(np.array_equal(pre.load_image_bytes(t_), img448)
+               for t_ in tiffs.values()),
+           "the TIFFs do not decode to their pixels")
     card = _smi()
     print(f"serving surface host times (median of 5, host CPU {cpu}, "
           f"{os.cpu_count()} cores, card {card}): decode 448x448 JPEG 4:2:0 "
@@ -1712,6 +1851,13 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
           f"{card}): decode 448x448 at quality 80 ({len(lossy[80])} B) "
           f"{times['webp_448_lossy_q80_ms']:.2f} ms, at quality 100 "
           f"({len(lossy[100])} B) {times['webp_448_lossy_q100_ms']:.2f} ms")
+    print(f"serving surface host times, TIFF (median of 5, card {card}): "
+          f"decode 448x448 uncompressed ({len(tiffs[1])} B) "
+          f"{times['tiff_448_raw_ms']:.2f} ms, PackBits "
+          f"({len(tiffs[32773])} B) {times['tiff_448_packbits_ms']:.2f} ms, "
+          f"Deflate with predictor 2 ({len(tiffs[8])} B) "
+          f"{times['tiff_448_deflate_pred2_ms']:.2f} ms, beside the baseline "
+          f"JPEG's {times['jpeg_448_420_ms']:.2f} ms")
     out["host_times"] = dict(times, cpu=cpu, jpeg_bytes=len(jpeg),
                              progressive_bytes=len(prog),
                              cmyk_bytes=len(cmyk), png_bytes=len(png),
@@ -1721,6 +1867,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                              webp_lossless_bytes=len(webp),
                              webp_lossy_q80_bytes=len(lossy[80]),
                              webp_lossy_q100_bytes=len(lossy[100]),
+                             tiff_bytes={str(k): len(v)
+                                         for k, v in tiffs.items()},
                              card=card)
     return out
 

@@ -14,7 +14,7 @@ Endpoints (JSON over HTTP):
   POST /caption   {"fc": [...], "att": [[[...]]],          feature mode
                    "sentiment": "auto"|"positive"|...}
                   {"image_b64": "<base64 image>", ...}     image mode
-                                   (JPEG, PNG, GIF, BMP or lossless WebP)
+                                   (JPEG, PNG, GIF, BMP, WebP or TIFF)
                   {"image_path": "/data/imgs/a.jpg", ...}  image mode,
                                    needs --resnet101_ckpt; image_path
                                    additionally needs --image_root
@@ -28,11 +28,12 @@ Endpoints (JSON over HTTP):
 
 Feature mode serves fc/att rows as a feature store holds them; image mode
 decodes and resizes on the host (``preprocessing``: the port's own JPEG,
-PNG, GIF, BMP and lossless WebP decoders and PIL's bilinear resize, no
-PIL) onto the static shape ladder, then rides ``EncodeBatcher``
-(ResNet-101 + concept top-k, batched) into the decode ``DynamicBatcher``.
-An image the decoders refuse (12-bit JPEG, lossy WebP, ...) is a 400, as
-any decode failure is in the JAX package.
+PNG, GIF, BMP, WebP (lossless and lossy) and TIFF (uncompressed, PackBits
+and Deflate) decoders and PIL's bilinear resize, no PIL) onto the static
+shape ladder, then rides ``EncodeBatcher`` (ResNet-101 + concept top-k,
+batched) into the decode ``DynamicBatcher``. An image the decoders refuse
+(12-bit JPEG, LZW TIFF, PPM, ...) is a 400, as any decode failure is in
+the JAX package.
 
 Request bodies are size-capped (413 past --max_body_mb, before the read);
 image_path is disabled unless --image_root is set, and then confined to

@@ -60,6 +60,11 @@
 // stream it cannot finish is refused. isc_bmp_rle is Pillow's BMP RLE
 // decoder (BmpRleDecoder), quirks included.
 //
+// TIFF: the Python side reads the header, the first IFD and the strips
+// or tiles as Pillow's TiffImagePlugin (and, for the compressed ones,
+// libtiff) reads them; isc_tiff_packbits decodes a PackBits strip or tile
+// as libtiff's PackBitsDecode does.
+//
 // WebP: the Python side walks the RIFF container as libwebp's demuxer
 // does; isc_vp8l_decode decodes a VP8L chunk's bitstream (RFC 9649) to RGB,
 // isc_vp8_decode a VP8 chunk's key frame (RFC 6386), and
@@ -3382,6 +3387,102 @@ int isc_vp8l_alpha_check(const uint8_t* in, long long n, long long w,
     set_err(err, errlen, std::string("WebP: ") + e.what());
     return 2;
   }
+}
+
+// A PackBits strip or tile (in[0, n)) into out[0, out_n), as libtiff
+// 4.7's PackBitsDecode fills it: a header byte of -128 is skipped; a run
+// or a literal that reaches past the output is cut at its end (libtiff
+// warns and goes on); data that ends before the output is full is
+// refused.
+int isc_tiff_packbits(const uint8_t* in, long long n, uint8_t* out,
+                      long long out_n, char* err, int errlen) {
+  long long pos = 0, o = 0;
+  while (pos < n && o < out_n) {
+    long long k = (int8_t)in[pos++];
+    if (k < 0) {                  // a run: the next byte 1 - k times
+      if (k == -128) continue;
+      k = std::min(1 - k, out_n - o);
+      if (pos == n) break;
+      memset(out + o, in[pos++], (size_t)k);
+      o += k;
+    } else {                      // a literal: the next k + 1 bytes
+      k = std::min(k + 1, out_n - o);
+      if (n - pos < k) break;
+      memcpy(out + o, in + pos, (size_t)k);
+      o += k;
+      pos += k;
+    }
+  }
+  if (o < out_n) {
+    set_err(err, errlen, "TIFF: not enough PackBits data for the strip");
+    return 1;
+  }
+  return 0;
+}
+
+// TIFF CIELAB to RGB as PIL converts it (Image.convert's LAB branch:
+// LittleCMS 2.17, a built-in Lab v2 profile to its built-in sRGB, 8 bits
+// in and out): each pixel's L, a, b bytes (in[i * step + k], as PIL's
+// "LAB" mode holds them) widened to 16 bits (v * 257), then the
+// 16-bit tetrahedral interpolation (TetrahedralInterp16) of the
+// optimised transform's 33 x 33 x 33 table clut[L][a][b][3], then cut to
+// 8 bits (FROM_16_TO_8) into out[i * 3 + k]. Differences of neighbouring
+// nodes times the fractions are summed in 64 bits.
+int isc_tiff_lab(const uint8_t* in, long long n, long long step,
+                 const uint16_t* clut, uint8_t* out, char* err,
+                 int errlen) {
+  (void)err;
+  (void)errlen;
+  const long long opta[3] = {33 * 33 * 3, 33 * 3, 3};
+  for (long long i = 0; i < n; ++i) {
+    long long base[3], next[3], r[3];
+    for (int k = 0; k < 3; ++k) {
+      const long long v = in[i * step + k] * 257LL;
+      const long long fx = v * 32 + (v * 32 + 0x7fff) / 0xffff;
+      base[k] = opta[k] * (fx >> 16);
+      next[k] = base[k] + (v == 0xffff ? 0 : opta[k]);
+      r[k] = fx & 0xffff;
+    }
+    const long long X0 = base[0], Y0 = base[1], Z0 = base[2];
+    const long long X1 = next[0], Y1 = next[1], Z1 = next[2];
+    const long long rx = r[0], ry = r[1], rz = r[2];
+    for (int o = 0; o < 3; ++o) {
+      auto d = [&](long long x, long long y, long long z) {
+        return (long long)clut[x + y + z + o];
+      };
+      const long long c0 = d(X0, Y0, Z0);
+      long long c1, c2, c3;
+      if (rx >= ry && ry >= rz) {
+        c1 = d(X1, Y0, Z0) - c0;
+        c2 = d(X1, Y1, Z0) - d(X1, Y0, Z0);
+        c3 = d(X1, Y1, Z1) - d(X1, Y1, Z0);
+      } else if (rx >= rz && rz >= ry) {
+        c1 = d(X1, Y0, Z0) - c0;
+        c2 = d(X1, Y1, Z1) - d(X1, Y0, Z1);
+        c3 = d(X1, Y0, Z1) - d(X1, Y0, Z0);
+      } else if (rz >= rx && rx >= ry) {
+        c1 = d(X1, Y0, Z1) - d(X0, Y0, Z1);
+        c2 = d(X1, Y1, Z1) - d(X1, Y0, Z1);
+        c3 = d(X0, Y0, Z1) - c0;
+      } else if (ry >= rx && rx >= rz) {
+        c1 = d(X1, Y1, Z0) - d(X0, Y1, Z0);
+        c2 = d(X0, Y1, Z0) - c0;
+        c3 = d(X1, Y1, Z1) - d(X1, Y1, Z0);
+      } else if (ry >= rz && rz >= rx) {
+        c1 = d(X1, Y1, Z1) - d(X0, Y1, Z1);
+        c2 = d(X0, Y1, Z0) - c0;
+        c3 = d(X0, Y1, Z1) - d(X0, Y1, Z0);
+      } else {
+        c1 = d(X1, Y1, Z1) - d(X0, Y1, Z1);
+        c2 = d(X0, Y1, Z1) - d(X0, Y0, Z1);
+        c3 = d(X0, Y0, Z1) - c0;
+      }
+      const long long rest = c1 * rx + c2 * ry + c3 * rz + 0x8001;
+      const long long w = (c0 + ((rest + (rest >> 16)) >> 16)) & 0xffff;
+      out[i * 3 + o] = (uint8_t)(((w * 65281 + 8388608) >> 24) & 0xff);
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -48,9 +48,18 @@ PIL, so it carries its own, to give PIL's arrays bit for bit:
   cache, the four transforms) and the lossy VP8 key frame (boolean-coded
   modes and tokens, the inverse transforms, intra prediction, the loop
   filters, fancy upsampling and libwebp's YUV -> RGB), whose ALPH chunk is
-  decoded only as far as libwebp refuses it; RGB always. The other
-  formats that Pillow's plugins recognise by signature (TIFF, PPM, ...)
-  are refused by name.
+  decoded only as far as libwebp refuses it; RGB always. TIFF's first
+  page as Pillow's TiffImagePlugin reads it: its IFD as
+  ImageFileDirectory_v2 reads it, the layout's mode and raw mode of
+  OPEN_INFO, uncompressed strips and tiles by Pillow's raw decoders (its
+  tile list, strides and quirks), PackBits (in the same library) and
+  Deflate as libtiff decodes them for Pillow (fill order, predictor 2,
+  native 16-bit order, planes a band each), the Orientation tag applied,
+  then PIL's conversion to RGB (CIELAB through LittleCMS's transform,
+  emulated: its 33^3 table and tetrahedral interpolation, the latter in
+  the same library). The other formats that Pillow's plugins recognise
+  by signature (PPM, ...), and TIFF's other compressions, are refused by
+  name.
 * ``resize_to_bucket``: Pillow's ``BILINEAR`` resampler
   (``libImaging/Resample.c``) in numpy: separable, the horizontal pass
   first with a uint8 round between the passes, the triangle filter widened
@@ -68,6 +77,7 @@ readers refuse HDF5 (the card's machine has no h5py).
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import math
 import os
@@ -78,6 +88,7 @@ import subprocess
 import zlib
 from collections import Counter, defaultdict
 from copy import deepcopy
+from fractions import Fraction
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -106,14 +117,14 @@ _SIGS = {"isc_jpeg_info": [_P, _LL, _IP, _IP, _IP, _P, _I],
          "isc_bmp_rle": [_P, _LL, _LL, _P, _LL, _LL, _I, _P, _I],
          "isc_vp8l_decode": [_P, _LL, _P, _LL, _LL, _P, _I],
          "isc_vp8_decode": [_P, _LL, _P, _LL, _LL, _P, _I],
-         "isc_vp8l_alpha_check": [_P, _LL, _LL, _LL, _P, _I]}
+         "isc_vp8l_alpha_check": [_P, _LL, _LL, _LL, _P, _I],
+         "isc_tiff_packbits": [_P, _LL, _P, _LL, _P, _I],
+         "isc_tiff_lab": [_P, _LL, _LL, _P, _P, _P, _I]}
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 # formats that Pillow's plugins recognise (by their ``_accept``
 # signatures) and the decoders do not read: a refusal names them. Each
 # entry: (name, offset, prefixes)
-_REFUSED = (("TIFF", 0, (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*",
-                         b"MM\0+", b"II+\0")),
-            ("XV thumbnail", 0, (b"P7 332",)),
+_REFUSED = (("XV thumbnail", 0, (b"P7 332",)),
             ("PPM (PBM, PGM, PNM, PFM)", 0,
              tuple(b"P" + bytes([c]) for c in b"0123456fy")),
             ("ICO", 0, (b"\0\0\1\0",)),
@@ -805,18 +816,983 @@ def _decode_webp(data: bytes) -> np.ndarray:
     return canvas
 
 
+# TIFF, as Pillow 12.1's TiffImagePlugin reads it: a signature of
+# ``_accept``; the field types (size, struct code of one value; None: the
+# bytes, or the text for ASCII; the rationals two codes), of which Pillow's
+# ImageFileDirectory_v2 loads all but SLONG8 and IFD8 and libtiff reads the
+# integer ones (``_LIBTIFF_INTS``) where it wants a number; the tags whose
+# value is a single one (the first of the entry's; every other tag a
+# tuple), the names that an ASCII value of a tag stands for (TiffTags'
+# enums); COMPRESSION_INFO (1 is Pillow's raw decoders', the rest
+# libtiff's; the port reads 1, PackBits and Deflate)
+_TIFF_SIGS = (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+", b"II+\0")
+_TIFF_TYPES = {1: (1, None), 2: (1, None), 3: (2, "H"), 4: (4, "L"),
+               5: (8, "L"), 6: (1, "b"), 7: (1, None), 8: (2, "h"),
+               9: (4, "l"), 10: (8, "l"), 11: (4, "f"), 12: (8, "d"),
+               13: (4, "L"), 16: (8, "Q"), 17: (8, "q"), 18: (8, "Q")}
+_TIFF_PIL_SKIPS = (17, 18)
+_LIBTIFF_INTS = (1, 3, 4, 6, 8, 9, 16, 17)
+_INT_MAX = (1 << 31) - 1                # Pillow's bound on a strip or tile
+_TIFF_SCALAR = {256, 257, 259, 262, 266, 274, 277, 278, 284, 317, 322, 323}
+_TIFF_ENUMS = {
+    259: {"Uncompressed": 1, "CCITT 1d": 2, "Group 3 Fax": 3,
+          "Group 4 Fax": 4, "LZW": 5, "JPEG": 6, "PackBits": 32773},
+    262: {"WhiteIsZero": 0, "BlackIsZero": 1, "RGB": 2, "RGB Palette": 3,
+          "Transparency Mask": 4, "CMYK": 5, "YCbCr": 6, "CieLAB": 8,
+          "CFA": 32803, "LinearRaw": 32892},
+    284: {"Contiguous": 1, "Separate": 2},
+    317: {"none": 1, "Horizontal Differencing": 2}}
+_TIFF_CODECS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3",
+                4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG", 7: "JPEG",
+                8: "Deflate", 32771: "raw 16-bit", 32773: "PackBits",
+                32809: "ThunderScan", 32946: "Deflate", 34676: "SGILog",
+                34677: "SGILog24", 34925: "LZMA", 50000: "Zstandard",
+                50001: "WebP"}
+
+
+def _tiff_open_info():
+    """Pillow's OPEN_INFO: (byte order, photometric, sample format, fill
+    order, bits per sample, extra samples) -> (mode, raw mode)."""
+    both, info = (b"II", b"MM"), {}
+
+    def put(orders, photo, fmt, fill, bits, extra, mode, raw):
+        for o in orders:
+            info[(o, photo, (fmt,), fill, bits, extra)] = (mode, raw)
+    for depth in (1, 2, 4, 8):           # grey, min-is-white and -black
+        base = "1" if depth == 1 else "L" if depth == 8 else f"L;{depth}"
+        for photo, inv in ((0, "I"), (1, "")):
+            for fill, rev in ((1, ""), (2, "R")):
+                suffix = inv + rev
+                raw = base + (";" if suffix and ";" not in base else "") + (
+                    suffix)
+                put(both, photo, 1, fill, (depth,), (),
+                    "1" if depth == 1 else "L", raw)
+        for fill, rev in ((1, ""), (2, "R")):          # palette
+            raw = "P" + (f";{depth}" if depth < 8 else "") + (
+                (rev if depth < 8 else ";R") if rev else "")
+            put(both, 3, 1, fill, (depth,), (), "P", raw)
+    put(both, 1, 2, 1, (8,), (), "L", "L")
+    put((b"II",), 1, 1, 1, (12,), (), "I;16", "I;12")
+    put((b"II",), 0, 1, 1, (16,), (), "I;16", "I;16")
+    put((b"II",), 1, 1, 1, (16,), (), "I;16", "I;16")
+    put((b"MM",), 1, 1, 1, (16,), (), "I;16B", "I;16B")
+    put((b"II",), 1, 1, 2, (16,), (), "I;16", "I;16R")
+    put((b"II",), 1, 2, 1, (16,), (), "I", "I;16S")
+    put((b"MM",), 1, 2, 1, (16,), (), "I", "I;16BS")
+    for photo in (0, 1):
+        put((b"II",), photo, 3, 1, (32,), (), "F", "F;32F")
+        put((b"MM",), photo, 3, 1, (32,), (), "F", "F;32BF")
+    put((b"II",), 1, 1, 1, (32,), (), "I", "I;32N")
+    put((b"II",), 1, 2, 1, (32,), (), "I", "I;32S")
+    put((b"MM",), 1, 2, 1, (32,), (), "I", "I;32BS")
+    put(both, 1, 1, 1, (8, 8), (2,), "LA", "LA")
+    put(both, 2, 1, 1, (8, 8, 8), (), "RGB", "RGB")
+    put(both, 2, 1, 2, (8, 8, 8), (), "RGB", "RGB;R")
+    put(both, 2, 1, 1, (8,) * 4, (), "RGBA", "RGBA")
+    for extra, raw in (((0,), "RGBX"), ((0, 0), "RGBXX"),
+                       ((0, 0, 0), "RGBXXX")):
+        put(both, 2, 1, 1, (8,) * (3 + len(extra)), extra, "RGB", raw)
+    for first, name in ((1, "RGBa"), (2, "RGBA")):
+        for pad in range(3):
+            extra = (first,) + (0,) * pad
+            put(both, 2, 1, 1, (8,) * (4 + pad), extra, "RGBA",
+                name + "X" * pad)
+    put(both, 2, 1, 1, (8,) * 4, (999,), "RGBA", "RGBA")
+    for o, e in ((b"II", "L"), (b"MM", "B")):
+        put((o,), 2, 1, 1, (16,) * 3, (), "RGB", "RGB;16" + e)
+        put((o,), 2, 1, 1, (16,) * 4, (), "RGBA", "RGBA;16" + e)
+        put((o,), 2, 1, 1, (16,) * 4, (0,), "RGB", "RGBX;16" + e)
+        put((o,), 2, 1, 1, (16,) * 4, (1,), "RGBA", "RGBa;16" + e)
+        put((o,), 2, 1, 1, (16,) * 4, (2,), "RGBA", "RGBA;16" + e)
+        put((o,), 5, 1, 1, (16,) * 4, (), "CMYK", "CMYK;16" + e)
+    put(both, 3, 1, 1, (8, 8), (0,), "P", "PX")
+    put(both, 3, 1, 1, (8, 8), (2,), "PA", "PA")
+    for pad in range(3):
+        put(both, 5, 1, 1, (8,) * (4 + pad), (0,) * pad, "CMYK",
+            "CMYK" + "X" * pad)
+    put(both, 6, 1, 1, (8,), (), "L", "L")
+    put(both, 6, 1, 1, (8, 8, 8), (), "RGB", "RGBX")
+    put(both, 8, 1, 1, (8, 8, 8), (), "LAB", "LAB")
+    return info
+
+
+_TIFF_OPEN = _tiff_open_info()
+# the bands of the modes of more than one that the raw route's planar
+# layers fill (Pillow's unpackers of one character; "LA" and "PA" have
+# none), and the number of bands of each mode in Pillow's images
+_TIFF_BANDS = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK", "LAB": "LAB"}
+_TIFF_NBANDS = {"LA": 2, "PA": 2, "RGB": 3, "LAB": 3, "RGBA": 4, "CMYK": 4}
+# Pillow's ImageFile maps a file of one tile whose raw mode is its mode
+# (Image._MAPMODES) rather than decoding it: bytes a pixel
+_TIFF_MAP = {"L": 1, "P": 1, "I;16": 2, "I;16B": 2, "RGBA": 4, "CMYK": 4}
+_BITREV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _tiff_raw_bits(raw: str):
+    """Bits a pixel of a raw mode Pillow unpacks (Unpack.c), or None where
+    it has no unpacker for it (``L;IR``, ``P;1R``, ``P;2R``, ``P;4R``
+    among OPEN_INFO's)."""
+    if raw in ("L;IR", "P;1R", "P;2R", "P;4R"):
+        return None
+    if raw in ("I", "F"):
+        return 32
+    if len(raw) == 1:                   # a planar layer (or L, P)
+        return 1 if raw == "1" else 8
+    if raw.startswith("1"):
+        return 1
+    if raw[:2] in ("L;", "P;") and raw[2] in "124":
+        return int(raw[2])
+    if raw in ("L;I", "L;R", "P;R"):
+        return 8
+    if raw == "I;12":
+        return 12
+    if raw.startswith(("I;16", "F;32", "I;32")):
+        return int(raw[2:4])
+    wide = 16 if ";16" in raw else 8
+    return wide * len(raw.split(";")[0])
+
+
+def _tiff_unpack(raw: str, mode: str, rows: np.ndarray, xs: int):
+    """[n, rowbytes] uint8 rows -> [n, xs] or [n, xs, bands] values of
+    ``mode`` as Pillow's unpacker ``raw`` leaves them: "1" as 0 / 255,
+    "I;16" and "I;16B" as uint16, "I" as int32, "F" as float32, the rest
+    uint8 ("LA" and "PA" as two bands, L and A, P and A)."""
+    n = rows.shape[0]
+    name, _, suffix = raw.partition(";")
+    if len(raw) == 1 and raw in "IF":   # a planar layer of I or F
+        return np.ascontiguousarray(rows[:, :4 * xs]).view(
+            "=i4" if raw == "I" else "=f4").copy()
+    if name in ("1", "L", "P") and not suffix.startswith(("16", "12")):
+        depth = _tiff_raw_bits(raw)
+        if "R" in suffix:               # fill order 2: bits reversed
+            rows = _BITREV[rows]
+        v = _unpack_bits(rows, depth, xs) if depth < 8 else rows[:, :xs]
+        top = (1 << depth) - 1
+        if "I" in suffix:
+            v = top - v
+        if mode == "P":
+            return v
+        return v * np.uint8(255 // top)     # "1": 0 / 255; L;2, L;4 scaled
+    if raw == "I;12":                   # two samples in three bytes
+        t = np.pad(rows, ((0, 0), (0, 3)))[:, :(xs + 1) // 2 * 3]
+        t = t.reshape(n, -1, 3).astype(np.uint16)
+        v = np.stack([t[:, :, 0] << 4 | t[:, :, 1] >> 4,
+                      (t[:, :, 1] & 15) << 8 | t[:, :, 2]], -1)
+        return v.reshape(n, -1)[:, :xs]
+    if name in ("I", "F"):              # I;16*, I;32*, F;32*
+        if suffix == "16R":
+            rows = _BITREV[rows]
+        size = 2 if suffix.startswith("16") else 4
+        kind = ("f" if name == "F" else
+                "i" if suffix.endswith("S") or size == 4 else "u")
+        order = (">" if suffix[2:3] == "B" else
+                 "=" if suffix.endswith("N") else "<")
+        v = np.ascontiguousarray(rows[:, :xs * size]).view(
+            order + kind + str(size))
+        return v.astype({"I": np.int32, "F": np.float32}.get(mode,
+                                                             np.uint16))
+    if len(raw) == 1:                   # a planar layer: 8 bits
+        return rows[:, :xs]
+    if suffix == "R":                   # RGB;R: fill order 2
+        rows = _BITREV[rows]
+    # interleaved samples: 8 bits, or the high byte of 16 (the second
+    # byte of little-endian and, on this host, native order)
+    wide = suffix.startswith("16")
+    per = len(name) * (2 if wide else 1)
+    px = rows[:, :xs * per].reshape(n, xs, per)
+    if wide:
+        px = px[:, :, 0::2] if suffix == "16B" else px[:, :, 1::2]
+    if name == "PX":
+        return px[:, :, 0]
+    bands = {"LA": 2, "PA": 2, "LAB": 3}.get(
+        name, 4 if mode in ("RGBA", "CMYK") else 3)
+    v = px[:, :, :bands]
+    if name == "LAB":                   # a* and b* stored signed
+        return v ^ np.array([0, 128, 128], np.uint8)
+    if name.startswith("RGBa"):         # premultiplied: undone
+        return _tiff_unpremultiply(v)
+    return v
+
+
+def _tiff_unpremultiply(v: np.ndarray) -> np.ndarray:
+    """Pillow's RGBa -> RGBA: each colour times 255 over the alpha,
+    clipped (a transparent pixel black, an opaque one as it is)."""
+    a = v[:, :, 3:].astype(np.int32)
+    c = np.minimum(v[:, :, :3] * np.int32(255) // np.maximum(a, 1), 255)
+    c = np.where(a == 0, 0, np.where(a == 255, v[:, :, :3], c))
+    return np.concatenate([c, a], -1).astype(np.uint8)
+
+
+def _tiff_entries(data: bytes, at: int, big: bool, e: str):
+    """The IFD at ``at`` as it stands: (its count of entries, [(tag, type,
+    count, the value field's bytes)] for as many entries as the file
+    holds)."""
+    head, entry, inline = (8, 20, 8) if big else (2, 12, 4)
+    if at + head > len(data):
+        return 0, []
+    (count,) = struct.unpack(e + ("Q" if big else "H"), data[at:at + head])
+    entries = []
+    for pos in range(at + head, at + head + count * entry, entry):
+        if pos + entry > len(data):
+            break
+        tag, typ, n = struct.unpack(e + ("HHQ" if big else "HHL"),
+                                    data[pos:pos + entry - inline])
+        entries.append((tag, typ, n, data[pos + entry - inline:pos + entry]))
+    return count, entries
+
+
+def _tiff_tags(data: bytes, entries, big: bool, e: str) -> dict:
+    """ImageFileDirectory_v2.load of an IFD's entries: {tag: (type, its
+    bytes)}. An entry of a type Pillow has no loader for, or with no data,
+    is skipped; an entry's data that reaches past the end of the file ends
+    the reading, keeping what was read (Pillow warns), as does a table
+    that does (``_tiff_entries`` holds no more)."""
+    tags, inline = {}, 8 if big else 4
+    for tag, typ, n, field in entries:
+        if typ not in _TIFF_TYPES or typ in _TIFF_PIL_SKIPS:
+            continue
+        size = n * _TIFF_TYPES[typ][0]
+        if size > inline:
+            (off,) = struct.unpack(e + ("Q" if big else "L"), field)
+            if off + size > len(data):
+                return tags
+            field = data[off:off + size]
+        if size:
+            tags[tag] = (typ, field[:size])
+    return tags
+
+
+def _tiff_value(tag: int, typ: int, raw: bytes, e: str):
+    """A tag's value as ImageFileDirectory_v2 gives it: BYTE data as
+    bytes, ASCII as text (a name in ``_TIFF_ENUMS`` as its number), the
+    rationals as fractions (NaN over 0), the numbers as numbers; a tag of
+    ``_TIFF_SCALAR`` its first value, any other a tuple (BYTE's bytes
+    whole)."""
+    if typ == 1:
+        return raw
+    if typ in (2, 7):
+        if typ == 2:
+            text = (raw[:-1] if raw.endswith(b"\0") else raw).decode(
+                "latin-1", "replace")
+            raw = _TIFF_ENUMS.get(tag, {}).get(text, text)
+        return raw if tag in _TIFF_SCALAR else (raw,)
+    code = _TIFF_TYPES[typ][1]
+    vals = struct.unpack(f"{e}{len(raw) // struct.calcsize('=' + code)}"
+                         f"{code}", raw)
+    if typ in (5, 10):
+        vals = tuple(Fraction(a, b) if b else math.nan
+                     for a, b in zip(vals[::2], vals[1::2]))
+    return vals[0] if tag in _TIFF_SCALAR else vals
+
+
+class _Tiff:
+    """The first page of a TIFF as Pillow's TiffImageFile sets it up
+    (``_open``, ``_seek(0)``, ``_setup``): its size, orientation, mode and
+    raw mode, compression and the tags; every fault Pillow raises at open
+    raises ValueError."""
+
+    def __init__(self, data: bytes):
+        if len(data) < 8 or (data[2] == 43 and len(data) < 16):
+            raise ValueError("TIFF: truncated header")
+        self.data, self.big = data, data[2] == 43
+        self.e = e = "<" if data[:2] == b"II" else ">"
+        (first,) = struct.unpack(e + "Q", data[8:16]) if self.big else (
+            struct.unpack(e + "L", data[4:8]))
+        if not first:
+            raise ValueError("TIFF: no image in the file")
+        if first >= 1 << 63:
+            raise ValueError("TIFF: no image at the first IFD's offset")
+        self.ifd = first
+        self.nentries, self.entries = _tiff_entries(data, first, self.big, e)
+        raw = _tiff_tags(data, self.entries, self.big, e)
+        self.tags = {t: _tiff_value(t, ty, b, e) for t, (ty, b) in raw.items()}
+        try:
+            self.setup()
+        except (TypeError, IndexError, KeyError) as err:
+            raise ValueError(f"TIFF: bad tags ({err!r})") from None
+
+    def get(self, tag, default=None):
+        return self.tags.get(tag, default)
+
+    def setup(self):
+        get = self.get
+        if 0xBC01 in self.tags:
+            raise ValueError("TIFF: a Windows Media Photo file")
+        code = get(259, 1)
+        if code not in _TIFF_CODECS:
+            raise ValueError(f"TIFF: unknown compression {code!r}")
+        self.compression = code
+        self.planar = get(284, 1)
+        photo = get(262, 0)
+        if _TIFF_CODECS[code] == "old-style JPEG":
+            photo = 6
+        fill = get(266, 1)
+        if 256 not in self.tags or 257 not in self.tags:
+            raise ValueError("TIFF: missing dimensions")
+        self.w, self.h = get(256), get(257)
+        if not (isinstance(self.w, int) and isinstance(self.h, int)):
+            raise ValueError("TIFF: invalid dimensions")
+        self.orientation = get(274)
+        fmt = get(339, (1,))
+        if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
+            fmt = (1,)
+        bps = get(258, (1,))
+        extra = get(338, ())
+        count = (3 if photo in (2, 6, 8) else 4 if photo == 5 else 1) + (
+            len(extra))
+        spp = get(277, 3 if _TIFF_CODECS[code] == "old-style JPEG"
+                  and photo in (2, 6) else 1)
+        if spp > 6:
+            raise ValueError(f"TIFF: {spp} samples per pixel")
+        if spp < len(bps):
+            bps = bps[:spp]
+        elif spp > len(bps) and len(bps) == 1:
+            bps = bps * spp
+        if len(bps) != spp:
+            raise ValueError("TIFF: unknown data organization")
+        key = (self.data[:2], photo, fmt, fill, bps, extra)
+        if key not in _TIFF_OPEN:
+            raise ValueError(f"TIFF: unknown pixel mode {key[1:]}")
+        self.mode, self.raw = _TIFF_OPEN[key]
+        self.key, self.photo, self.fill = key, photo, fill
+        self.bps, self.spp, self.count = bps, spp, count
+        if self.mode in ("P", "PA"):    # ColorMap: R, then G, then B
+            cmap = [v // 256 & 255 for v in self.tags[320]]
+            n = len(cmap) // 3
+            if n > 256:
+                raise ValueError(f"TIFF: a palette of {n} entries")
+            self.palette = np.zeros((256, 3), np.uint8)
+            self.palette[:n] = np.array(cmap[:3 * n], np.uint8).reshape(
+                3, n).T
+
+    def raw_tiles(self):
+        """Pillow's tiles of the raw route (``_setup``): [(offset, (x0,
+        y0, x1, y1), raw mode, stride)], one a strip or tile offset, the
+        last offset alone where one strip or tile covers the image (planar
+        1), an edge tile's rows at the tile's stride, a planar layer's raw
+        mode the raw mode's character at its index."""
+        get = self.get
+        if 273 in self.tags:
+            offsets, h, w = self.tags[273], get(278, self.h), self.w
+        elif 324 in self.tags:
+            offsets, w, h = self.tags[324], get(322), get(323)
+            if not (isinstance(w, int) and isinstance(h, int)):
+                raise ValueError("TIFF: invalid tile dimensions")
+        else:
+            raise ValueError("TIFF: no strip or tile offsets")
+        if w == self.w and h == self.h and self.planar != 2:
+            offsets = offsets[-1:]
+        tiles, x, y, layer = [], 0, 0, 0
+        for offset in offsets:
+            stride = w * sum(self.bps) / 8 if x + w > self.w else 0
+            raw = self.raw
+            if self.planar == 2:
+                raw = self.raw[layer]
+                stride /= self.count
+            tiles.append((offset, (x, y, min(x + w, self.w),
+                                   min(y + h, self.h)), raw, int(stride)))
+            x += w
+            if x >= self.w:
+                x, y = 0, y + h
+                if y >= self.h:
+                    y, layer = 0, layer + 1
+        return tiles
+
+
+class _LibTiff:
+    """The first IFD as libtiff 4.7's TIFFReadDirectory reads it for
+    Pillow's libtiff decoder. The table whole (1 to 4096 entries), a tag's
+    first entry; SamplesPerPixel, Compression, the dimensions, PlanarConfig,
+    RowsPerStrip, ExtraSamples, the per-sample BitsPerSample, SampleFormat
+    and Min/MaxSampleValue, the offsets and byte counts read strictly (a
+    type that is not an integer's, a count or value it refuses, data past
+    the end of the file raise ValueError, where libtiff fails the
+    directory), FillOrder, Predictor and Photometric leniently (a fault
+    leaves the default). The offsets and byte counts as TIFFFetchStripThing
+    reads them (no more than the strips, too few padded with zeros);
+    missing byte counts, or one strip's of 0, as EstimateStripByteCounts
+    makes them."""
+
+    def __init__(self, t: _Tiff):
+        self.t = t
+        if not 0 < t.nentries <= 4096 or len(t.entries) < t.nentries:
+            raise ValueError("TIFF: a directory that libtiff cannot read")
+        self.first = {}
+        for ent in t.entries:
+            self.first.setdefault(ent[0], ent)
+        self.spp = self.number(277, 1, 0xFFFF)
+        if not self.spp:
+            raise ValueError("TIFF: 0 samples per pixel")
+        try:
+            self.compression = self.number(259, 1, 0xFFFF)
+        except ValueError:
+            self.compression = self.per_sample(259, 1)
+        self.w, self.h = self.number(256, 0), self.number(257, 0)
+        self.tw, self.tl = self.number(322, 0), self.number(323, 0)
+        self.planar = self.number(284, 1, 0xFFFF)
+        self.rps = self.number(278, None)
+        extra = self.ints(self.first[338]) if 338 in self.first else ()
+        if self.planar not in (1, 2) or self.rps == 0 or len(extra) > (
+                self.spp) or any(v > 2 and v != 999 for v in extra):
+            raise ValueError("TIFF: a value that libtiff refuses")
+        if 256 not in self.first and 257 not in self.first:
+            raise ValueError("TIFF: no ImageLength")
+        self.tiled = 322 in self.first or 323 in self.first
+        if self.tiled:
+            self.nstrips = -(-self.w // self.tw) * -(-self.h // self.tl) if (
+                self.tw and self.tl) else 0
+        elif self.rps in (None, 0xFFFFFFFF):
+            self.nstrips = 1
+        else:                           # TIFFhowmany_32, 0 on overflow
+            self.nstrips = -(-self.h // self.rps) if (
+                self.h < 0xFFFFFFFF - (self.rps - 1)) else 0
+        if self.planar == 2:
+            self.nstrips *= self.spp
+        if not self.nstrips:
+            raise ValueError("TIFF: no strips or tiles")
+        where = [e for e in t.entries if e[0] in (273, 324)]
+        if not where:
+            raise ValueError("TIFF: no strip or tile offsets")
+        self.bps = self.per_sample(258, 1)
+        fmt = self.per_sample(339, 1)
+        self.per_sample(280, 0)
+        self.per_sample(281, 0)
+        if not 1 <= fmt <= 6:
+            raise ValueError(f"TIFF: sample format {fmt}")
+        self.offsets = self.strips(self.first[where[-1][0]])
+        counts = [e for e in t.entries if e[0] in (279, 325)]
+        self.counts = self.strips(self.first[counts[-1][0]]) if counts else (
+            None)
+        self.fill = self.lenient(266, 1)
+        if self.fill not in (1, 2):
+            self.fill = 1
+        self.photo = self.lenient(262, None)
+        if self.photo == 3 and self.bps < 8 and not self.colormap():
+            raise ValueError("TIFF: no ColorMap that libtiff reads")
+        self.predictor = self.lenient(317, 1)
+        if self.counts is None:
+            if self.nstrips != (self.spp if self.planar == 2 else 1):
+                raise ValueError("TIFF: missing StripByteCounts")
+            self.counts = self.estimate()
+        elif (self.nstrips == 1 and not self.tiled and self.offsets[0]
+              and not self.counts[0]):
+            self.counts = self.estimate()
+
+    def ints(self, entry, limit=None, types=_LIBTIFF_INTS):
+        """TIFFReadDirEntry*Array's integers of an entry: its first
+        ``limit`` values, its field holding them where its whole count
+        fits there; a negative value refused."""
+        tag, typ, n, field = entry
+        t = self.t
+        if typ not in types:
+            raise ValueError(f"TIFF: tag {tag} of a type libtiff refuses")
+        size, code = _TIFF_TYPES[typ]
+        take = n if limit is None else min(n, limit)
+        inline = 8 if t.big else 4
+        if min(n, 10) * size > inline:
+            (off,) = struct.unpack(t.e + ("Q" if t.big else "L"),
+                                   field[:inline])
+            if off + take * size > len(t.data):
+                raise ValueError(f"TIFF: tag {tag}'s data past the end of "
+                                 "the file")
+            field = t.data[off:off + take * size]
+        vals = struct.unpack(f"{t.e}{take}{code}", field[:take * size])
+        if vals and min(vals) < 0:
+            raise ValueError(f"TIFF: tag {tag}'s value out of range")
+        return vals
+
+    def number(self, tag, default, top=0xFFFFFFFF):
+        """TIFFReadDirEntryShort (``top`` 0xFFFF) or Long of a tag read
+        strictly: one value, in range."""
+        if tag not in self.first:
+            return default
+        entry = self.first[tag]
+        if entry[2] != 1:
+            raise ValueError(f"TIFF: tag {tag} of {entry[2]} values")
+        (v,) = self.ints(entry, types=_LIBTIFF_INTS + (
+            (13, 18) if top > 0xFFFF else ()))
+        if v > top:
+            raise ValueError(f"TIFF: tag {tag}'s value out of range")
+        return v
+
+    def per_sample(self, tag, default):
+        """TIFFReadDirEntryPersampleShort where one value is not given: a
+        value a sample, all the same."""
+        if tag not in self.first or self.first[tag][2] == 1:
+            return self.number(tag, default, 0xFFFF)
+        entry = self.first[tag]
+        if entry[2] < self.spp:
+            raise ValueError(f"TIFF: tag {tag} of too few values")
+        vals = self.ints(entry)
+        if max(vals) > 0xFFFF or len(set(vals[:self.spp])) > 1:
+            raise ValueError(f"TIFF: tag {tag} of different values a "
+                             "sample")
+        return vals[0]
+
+    def lenient(self, tag, default):
+        """A tag libtiff reads leniently: the default where it cannot."""
+        try:
+            return self.number(tag, default, 0xFFFF)
+        except ValueError:
+            return default
+
+    def colormap(self) -> bool:
+        """Whether libtiff keeps the ColorMap: after BitsPerSample in the
+        table, of 3 x 2^bits values that it reads."""
+        order = [e[0] for e in self.t.entries]
+        entry = self.first.get(320)
+        if entry is None or 258 not in order[:order.index(320)] or (
+                entry[2] != 3 << self.bps):
+            return False
+        try:
+            return max(self.ints(entry)) <= 0xFFFF
+        except ValueError:
+            return False
+
+    def strips(self, entry) -> list:
+        """TIFFFetchStripThing: the first ``nstrips`` values; too few
+        padded with zeros, up to a million strips."""
+        vals = list(self.ints(entry, self.nstrips))
+        if len(vals) < self.nstrips:
+            if self.nstrips > 1000000:
+                raise ValueError(f"TIFF: {entry[2]} offsets or byte counts "
+                                 f"for {self.nstrips} strips")
+            vals += [0] * (self.nstrips - len(vals))
+        return vals
+
+    def estimate(self) -> list:
+        """EstimateStripByteCounts of a compressed page: the file's size
+        less the header, the table and every entry's values kept outside
+        it (all of the file where that is more), a plane's share under
+        planar 2; the last cut at the end of the file (0 from past it)."""
+        t = self.t
+        size = len(t.data)
+        inline = 8 if t.big else 4
+        space = (16 + 8 + t.nentries * 20 + 8) if t.big else (
+            8 + 2 + t.nentries * 12 + 4)
+        for tag, typ, n, _ in t.entries:
+            if typ not in _TIFF_TYPES:
+                raise ValueError(f"TIFF: an entry of unknown type {typ}")
+            width = _TIFF_TYPES[typ][0] * n
+            space += width if width > inline else 0
+        space = size if size < space else size - space
+        if self.planar == 2:
+            space //= self.spp
+        counts = [space] * self.nstrips
+        last = self.offsets[-1]
+        if last + space > size:
+            counts[-1] = max(size - last, 0)
+        return counts
+
+
+def _tiff_band(mode: str, raw: str):
+    """The band of ``mode`` that a planar layer's raw mode fills, or None
+    for the whole pixel (a one-band mode, or interleaved samples)."""
+    bands = _TIFF_BANDS.get(mode, "")
+    return bands.index(raw) if len(raw) == 1 and raw in bands else None
+
+
+def _tiff_canvas(t: _Tiff) -> np.ndarray:
+    """The page's array, zeros: [h, w] or [h, w, bands] of its mode."""
+    shape = (t.h, t.w) + ((_TIFF_NBANDS[t.mode],)
+                          if t.mode in _TIFF_NBANDS else ())
+    return np.zeros(shape, {"I;16": np.uint16, "I;16B": np.uint16,
+                            "I": np.int32, "F": np.float32}.get(t.mode,
+                                                                np.uint8))
+
+
+def _tiff_raw_route(t: _Tiff) -> np.ndarray:
+    """Compression 1, as Pillow's ImageFile.load decodes the tiles: in the
+    order of their offsets, each run of tiles that differ in nothing but
+    their offset decoded once (its last), each by the raw decoder: rows of
+    (width x bits + 7) / 8 bytes, the stride's padding skipped between
+    them; a tile that ends past the end of the file is refused ("image
+    file is truncated")."""
+    tiles = t.raw_tiles()
+    if not tiles:
+        raise ValueError("TIFF: no strips or tiles")
+    tiles.sort(key=lambda tile: tile[0])
+    tiles = [tile for i, tile in enumerate(tiles) if i + 1 == len(tiles)
+             or tiles[i + 1][1:] != tile[1:]]
+    data, img = t.data, _tiff_canvas(t)
+    for offset, (x0, y0, x1, y1), raw, stride in tiles:
+        xs, ys = x1 - x0, y1 - y0
+        if xs <= 0 or ys <= 0:
+            raise ValueError("TIFF: a tile outside the image")
+        bits = _tiff_raw_bits(raw)
+        band = _tiff_band(t.mode, raw)
+        if bits is None or (len(raw) == 1 and raw != t.mode
+                            and band is None):
+            raise ValueError(f"TIFF: no unpacker {raw} for mode {t.mode}")
+        nb = (xs * bits + 7) // 8
+        skip = stride - nb if stride else 0
+        if skip < 0:
+            raise ValueError("TIFF: a tile's stride shorter than its rows")
+        if offset < 0 or offset + ys * nb + (ys - 1) * skip > len(data):
+            raise ValueError("TIFF: image file is truncated")
+        rows = np.lib.stride_tricks.as_strided(
+            np.frombuffer(data, np.uint8, len(data) - offset, offset),
+            (ys, nb), (nb + skip, 1))
+        v = _tiff_unpack(raw, t.mode, rows, xs)
+        if band is None:
+            img[y0:y1, x0:x1] = v
+        else:
+            img[y0:y1, x0:x1, band] = v
+    return img
+
+
+def _tiff_codec(t: _Tiff, fill: int, chunk: bytes, size: int) -> bytes:
+    """A strip or tile's ``size`` bytes as libtiff decodes them: the stored
+    bytes' bits reversed first under (libtiff's) fill order 2, then
+    PackBits (``isc_tiff_packbits``) or zlib, no more than ``size`` bytes
+    taken from the stream (ZIPDecode stops there); too few is refused."""
+    if fill == 2:
+        chunk = _BITREV[np.frombuffer(chunk, np.uint8)].tobytes()
+    if _TIFF_CODECS[t.compression] == "PackBits":
+        out = np.empty(size, np.uint8)
+        _call(_lib().isc_tiff_packbits, chunk, len(chunk), out.ctypes.data,
+              size)
+        return out.tobytes()
+    try:
+        out = zlib.decompressobj().decompress(chunk, size)
+    except zlib.error as e:
+        raise ValueError(f"TIFF: corrupt Deflate data ({e})") from None
+    if len(out) < size:
+        raise ValueError("TIFF: not enough Deflate data for the strip")
+    return out
+
+
+def _tiff_rows(t: _Tiff, chunk: bytes, n: int, rowbytes: int,
+               predictor: int, separate: bool) -> np.ndarray:
+    """A decoded strip or tile -> [n, rowbytes] rows as libtiff hands them
+    over: horizontal differencing undone (predictor 2, each sample from
+    the one a pixel, or under planar 2 a sample, before it, modulo its
+    width), samples of 16, 32 and 64 bits in the host's byte order."""
+    rows = np.frombuffer(chunk, np.uint8).reshape(n, rowbytes)
+    bits = t.bps[0]
+    if bits not in (16, 32, 64) and predictor == 1:
+        return rows
+    dt = np.dtype(t.e + "u" + str(bits // 8)) if bits >= 8 else np.uint8
+    usable = rowbytes // dt.itemsize * dt.itemsize
+    v = rows[:, :usable].view(dt)
+    if predictor == 2:
+        stride = 1 if separate else t.spp
+        v = v.reshape(n, -1, stride).cumsum(1, dtype=dt).reshape(n, -1)
+    out = rows.copy()
+    out[:, :usable] = v.astype(dt.newbyteorder("=")).view(np.uint8)
+    return out
+
+
+def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
+    """PackBits (32773) and Deflate (8, 32946) as Pillow's libtiff decoder
+    (TiffDecode.c) reads them: libtiff's checks of the header, its reading
+    of the IFD (``_LibTiff``: a size other than Pillow's refused, as PIL
+    refuses it, other samples, bits or compression by name; its planar
+    configuration, strips or tiles and fill order taken), its check of the
+    predictor (Deflate's only); each strip (TIFFReadEncodedStrip) or tile
+    (TIFFReadTile) decoded whole, then unpacked a row at a time with the
+    raw mode of fill order 1, 16-bit samples in native order; planar 2 a
+    plane a band of the pixel (8 bits, or the high byte of 16), RGBa's
+    premultiplied colours undone after."""
+    name = _TIFF_CODECS[t.compression]
+    if name not in ("PackBits", "Deflate"):
+        raise ValueError(f"unsupported: TIFF {name} compression (the "
+                         "decoders read uncompressed, PackBits and Deflate "
+                         "TIFF)")
+    data, e = t.data, t.e
+    if not (data[:4] in (b"II*\0", b"MM\0*") or (
+            data[:4] in (b"II+\0", b"MM\0+")
+            and struct.unpack(e + "HH", data[4:8]) == (8, 0))):
+        raise ValueError("TIFF: a header that libtiff refuses")
+    lt = _LibTiff(t)
+    if 6 in (t.photo, lt.photo):
+        raise ValueError(f"unsupported: TIFF YCbCr under {name} (PIL reads "
+                         "it through libtiff's RGBA interface)")
+    if (lt.w, lt.h) != (t.w, t.h):
+        raise ValueError("TIFF: libtiff's size is not Pillow's")
+    theirs = (lt.spp, lt.bps, lt.compression)
+    if theirs != (t.spp, t.bps[0], t.compression):
+        raise ValueError("unsupported: TIFF tags that libtiff reads "
+                         "otherwise than Pillow (samples, bits, compression "
+                         f"{theirs})")
+    predictor = lt.predictor if name == "Deflate" else 1
+    bits = t.bps[0]
+    if predictor == 3:
+        raise ValueError("unsupported: TIFF floating-point predictor (3)")
+    if predictor not in (1, 2) or (predictor == 2
+                                   and bits not in (8, 16, 32, 64)):
+        raise ValueError(f"TIFF: predictor {predictor} at {bits} bits")
+    # libtiff reverses the bits itself: fill order 1's raw mode
+    raw = _TIFF_OPEN[t.key[:3] + (1,) + t.key[4:]][1]
+    if raw == "I;16":
+        raw = "I;16N"
+    elif raw.endswith((";16B", ";16L")):
+        raw = raw[:-1] + "N"
+    ubits = _tiff_raw_bits(raw)
+    if ubits is None:
+        raise ValueError(f"TIFF: no unpacker {raw} for mode {t.mode}")
+    separate = lt.planar == 2
+    planes = _TIFF_NBANDS.get(t.mode, 1) if separate else 1
+    tiled = lt.tiled
+    # planes of more samples than the mode's bands: PIL refuses them in
+    # strips, reads the mode's in tiles (past its rows for one band)
+    if separate and t.spp > 1 and (bits not in (8, 16) or (
+            t.spp != planes and not (tiled and planes > 1))):
+        raise ValueError(f"TIFF: planar {t.spp} samples of {bits} bits "
+                         f"in mode {t.mode}")
+    spp = 1 if separate else t.spp
+    w, h = t.w, t.h
+    if tiled:
+        tw, tl = lt.tw, lt.tl
+        rowbytes = (tw * bits * spp + 7) // 8
+        across, down = -(-w // tw), -(-h // tl)
+        blocks = ((p * across * down + (y // tl) * across + x // tw, x, y,
+                   tl, p) for y in range(0, h, tl) for p in range(planes)
+                  for x in range(0, w, tw))
+        whole = rowbytes * tl
+        if whole >= _INT_MAX:
+            raise ValueError("TIFF: a tile of 2 GiB or more")
+        if whole > (tl * ubits // planes + 7) // 8 * tw:
+            raise ValueError("TIFF: tiles larger than the unpacker's")
+    else:
+        tw, rowbytes = w, (w * bits * spp + 7) // 8
+        rps = h if lt.rps in (None, 0xFFFFFFFF) else lt.rps
+        if rps > _INT_MAX:
+            raise ValueError(f"TIFF: {rps} rows a strip")
+        rps = min(rps, h)
+        down = -(-h // rps)
+        blocks = ((p * down + y // rps, 0, y, min(rps, h - y), p)
+                  for y in range(0, h, rps) for p in range(planes))
+        if rowbytes > (w * ubits // planes + 7) // 8:
+            raise ValueError("TIFF: rows longer than the unpacker's")
+        whole = rowbytes * rps
+    if planes == 1 and (tw * ubits + 7) // 8 > rowbytes:
+        raise ValueError(f"TIFF: {raw} rows longer than the planes' (PIL "
+                         "reads past them)")
+    img = _tiff_canvas(t)
+    for index, x, y, n, plane in blocks:
+        start, size = lt.offsets[index], lt.counts[index]
+        if size > 1 << 20 and (size - 4096) // 10 > whole:
+            size = whole * 10 + 4096           # TIFFFillStrip's limit
+        if size <= 0 or start + size > len(data):
+            raise ValueError(f"TIFF: strip or tile {index} past the end "
+                             "of the file")
+        rows = tl if tiled else n
+        chunk = _tiff_codec(t, lt.fill, data[start:start + size],
+                            rows * rowbytes)
+        rows = _tiff_rows(t, chunk, rows, rowbytes, predictor,
+                          separate)
+        xs, ys = min(tw, w - x), min(n, h - y)
+        if separate and planes > 1:
+            v = rows[:ys, 1::2] if bits == 16 else rows[:ys]
+            img[y:y + ys, x:x + xs, plane] = v[:, :xs]
+        else:
+            img[y:y + ys, x:x + xs] = _tiff_unpack(raw, t.mode, rows[:ys],
+                                                   xs)
+    if separate and planes > 3 and t.mode == "RGBA" and t.get(
+            338, (0,))[:1] in ((0,), (1,)):
+        img[:] = _tiff_unpremultiply(img)
+    return img
+
+
+def _mat3_inverse(a):
+    """LittleCMS's _cmsMAT3inverse (cofactors over the determinant)."""
+    c0 = a[1][1] * a[2][2] - a[1][2] * a[2][1]
+    c1 = -a[1][0] * a[2][2] + a[1][2] * a[2][0]
+    c2 = a[1][0] * a[2][1] - a[1][1] * a[2][0]
+    det = a[0][0] * c0 + a[0][1] * c1 + a[0][2] * c2
+    return [[c0 / det, (a[0][2] * a[2][1] - a[0][1] * a[2][2]) / det,
+             (a[0][1] * a[1][2] - a[0][2] * a[1][1]) / det],
+            [c1 / det, (a[0][0] * a[2][2] - a[0][2] * a[2][0]) / det,
+             (-a[0][0] * a[1][2] + a[0][2] * a[1][0]) / det],
+            [c2 / det, (-a[0][0] * a[2][1] + a[0][1] * a[2][0]) / det,
+             (a[0][0] * a[1][1] - a[0][1] * a[1][0]) / det]]
+
+
+def _mat3_eval(a, v):
+    return [a[i][0] * v[0] + a[i][1] * v[1] + a[i][2] * v[2]
+            for i in range(3)]
+
+
+def _mat3_mul(a, b):
+    return [[a[i][0] * b[0][j] + a[i][1] * b[1][j] + a[i][2] * b[2][j]
+             for j in range(3)] for i in range(3)]
+
+
+def _srgb_to_xyz():
+    """The colorants of LittleCMS's built-in sRGB profile
+    (cmsCreate_sRGBProfile): Rec. 709 primaries under D65
+    (_cmsBuildRGB2XYZtransferMatrix), adapted to D50 by Bradford
+    (_cmsAdaptMatrixToD50), in its order of operations."""
+    xn, yn = 0.3127, 0.3290
+    (xr, yr), (xg, yg), (xb, yb) = (0.64, 0.33), (0.30, 0.60), (0.15, 0.06)
+    prim = [[xr, xg, xb], [yr, yg, yb],
+            [1 - xr - yr, 1 - xg - yg, 1 - xb - yb]]
+    k = _mat3_eval(_mat3_inverse(prim), [xn / yn, 1.0, (1.0 - xn - yn) / yn])
+    m = [[k[0] * xr, k[1] * xg, k[2] * xb], [k[0] * yr, k[1] * yg, k[2] * yb],
+         [k[0] * (1.0 - xr - yr), k[1] * (1.0 - xg - yg),
+          k[2] * (1.0 - xb - yb)]]
+    bradford = [[0.8951, 0.2664, -0.1614], [-0.7502, 1.7135, 0.0367],
+                [0.0389, -0.0685, 1.0296]]
+    src = _mat3_eval(bradford, [xn / yn, 1.0, (1 - xn - yn) / yn])
+    dst = _mat3_eval(bradford, [0.9642, 1.0, 0.8249])
+    cone = [[dst[0] / src[0], 0.0, 0.0], [0.0, dst[1] / src[1], 0.0],
+            [0.0, 0.0, dst[2] / src[2]]]
+    adapt = _mat3_mul(_mat3_inverse(bradford), _mat3_mul(cone, bradford))
+    return _mat3_mul(adapt, m)
+
+
+def _lcms_word(d: np.ndarray) -> np.ndarray:
+    """_cmsQuickSaturateWord: d + 0.5 saturated to 0..65535, floored by
+    the 16.16 magic-number trick (_cmsQuickFloor)."""
+    d = d + 0.5
+    t = (d - 32767.0) + 68719476736.0 * 1.5
+    low = (t.view(np.int64) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    v = (low.astype(np.int64) >> 16) + 32767
+    return np.where(d <= 0, 0, np.where(d >= 65535.0, 65535, v))
+
+
+@functools.cache
+def _lab_clut() -> np.ndarray:
+    """The 33 x 33 x 33 x 3 uint16 table of PIL's LAB -> RGB transform as
+    LittleCMS 2.17 builds it (OptimizeByResampling of the pipeline left
+    once PreOptimize drops the Lab profile's identity): each node's
+    16-bit Lab, as float32 over 65535, through Lab -> XYZ (EvaluateLab2XYZ:
+    D50, over 1 + 32767/32768), the inverse of the sRGB colorants (times
+    that), the inverted sRGB curve (parametric type -4), each stage's
+    result float32, then _cmsQuickSaturateWord of it times 65535."""
+    f32, top = np.float32, 1.0 + 32767.0 / 32768.0
+    nodes = _lcms_word(np.arange(33) * 65535.0 / 32)
+    grid = np.stack(np.meshgrid(nodes, nodes, nodes, indexing="ij"),
+                    -1).reshape(-1, 3)
+    v = (grid / 65535.0).astype(f32).astype(np.float64)
+    y = (v[:, 0] * 100.0 + 16.0) / 116.0
+    t = np.stack([y + 0.002 * (v[:, 1] * 255.0 - 128.0), y,
+                  y - 0.005 * (v[:, 2] * 255.0 - 128.0)], 1)
+    t = np.where(t <= 24.0 / 116.0, (108.0 / 841.0) * (t - 16.0 / 116.0),
+                 t * t * t)
+    xyz = (t * np.array([0.9642, 1.0, 0.8249]) / top).astype(f32).astype(
+        np.float64)
+    inv = _mat3_inverse(_srgb_to_xyz())
+    rgb = np.stack([((0.0 + xyz[:, 0] * (row[0] * top)) + xyz[:, 1] * (
+        row[1] * top)) + xyz[:, 2] * (row[2] * top) for row in inv],
+        1).astype(f32).astype(np.float64)
+    g, a, b, c, d = 2.4, 1.0 / 1.055, 0.055 / 1.055, 1.0 / 12.92, 0.04045
+    with np.errstate(invalid="ignore"):
+        hi = (np.power(rgb, 1.0 / g) - b) / a
+    rgb = np.where(rgb >= (a * d + b) ** g, hi, rgb / c).astype(f32)
+    clut = _lcms_word(rgb.astype(np.float64) * 65535.0).astype(np.uint16)
+    return np.ascontiguousarray(clut.reshape(33, 33, 33, 3))
+
+
+def _tiff_lab_to_rgb(lab: np.ndarray) -> np.ndarray:
+    """PIL's "LAB" -> RGB (``isc_tiff_lab`` over ``_lab_clut``)."""
+    lab = np.ascontiguousarray(lab)
+    out = np.empty(lab.shape[:2] + (3,), np.uint8)
+    clut = _lab_clut()
+    _call(_lib().isc_tiff_lab, lab.ctypes.data, lab.size // 3, 3,
+          clut.ctypes.data, out.ctypes.data)
+    return out
+
+
+def _tiff_to_rgb(t: _Tiff, img: np.ndarray) -> np.ndarray:
+    """``_pil_to_array`` of a decoded page: "L" 2-D, "RGB" as it is, the
+    alpha of "RGBA" dropped, every other mode through PIL's conversion to
+    RGB ("I;16" and "I" clipped to 0..255, "F" truncated and clipped, the
+    palette of "P" and "PA", CMYK by libImaging's cmyk2rgb, "LA" its L)."""
+    mode = t.mode
+    if mode == "L":
+        return img
+    if mode in ("RGB", "RGBA"):
+        return np.ascontiguousarray(img[:, :, :3])
+    if mode in ("P", "PA"):
+        return t.palette[img if mode == "P" else img[:, :, 0]]
+    if mode == "CMYK":
+        c = img.astype(np.int32)
+        nk = 255 - c[:, :, 3:]
+        v = c[:, :, :3] * nk + 128
+        return np.clip(nk - (((v >> 8) + v) >> 8), 0, 255).astype(np.uint8)
+    if mode == "LAB":
+        return _tiff_lab_to_rgb(img)
+    if mode == "LA":
+        grey = img[:, :, 0]
+    elif mode == "F":
+        with np.errstate(invalid="ignore"):   # NaN and below 0 to 0
+            grey = np.where(img >= 255, 255, np.where(img > 0, img, 0))
+        grey = grey.astype(np.uint8)
+    else:                               # "1" (0 / 255), "I;16", "I"
+        grey = np.clip(img, 0, 255).astype(np.uint8)
+    return np.repeat(grey[:, :, None], 3, 2)
+
+
+_TIFF_TRANSPOSE = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
+                   4: lambda a: a[::-1], 5: lambda a: a.swapaxes(0, 1),
+                   6: lambda a: a.swapaxes(0, 1)[:, ::-1],
+                   7: lambda a: a.swapaxes(0, 1)[::-1, ::-1],
+                   8: lambda a: a.swapaxes(0, 1)[::-1]}
+
+
+def _tiff_mapped(t: _Tiff):
+    """A page read from a path the way Pillow's ImageFile maps it: one
+    tile, its raw mode the mode itself (``_TIFF_MAP``), at a stride of
+    the tile's or the mode's width of the page's size, which is swapped
+    for orientations 5-8 (so such a page is read as the other shape, then
+    turned); None where Pillow decodes instead."""
+    tiles = t.raw_tiles() if _TIFF_CODECS[t.compression] == "raw" else []
+    if len(tiles) != 1 or tiles[0][2] != t.mode or t.mode not in _TIFF_MAP:
+        return None
+    offset, _, raw, stride = tiles[0]
+    if offset > len(t.data):
+        return None
+    w, h = (t.h, t.w) if t.orientation in (5, 6, 7, 8) else (t.w, t.h)
+    stride = stride or w * _TIFF_MAP[t.mode]
+    if offset < 0 or offset + h * stride > len(t.data):
+        raise ValueError("TIFF: buffer is not large enough")
+    rows = np.lib.stride_tricks.as_strided(
+        np.frombuffer(t.data, np.uint8, len(t.data) - offset, offset),
+        (h, stride), (stride, 1))
+    return _tiff_unpack(raw, t.mode, rows, w)
+
+
+def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
+    """The first page of a TIFF as PIL opens it: Pillow's TiffImagePlugin
+    (the header, the first IFD, the layout's mode and raw mode of
+    OPEN_INFO, the strips or tiles) and, for PackBits and Deflate,
+    libtiff's decoding; the Orientation tag applied (ImageOps.
+    exif_transpose, as ``load_end`` does for TIFF), then PIL's conversion
+    to RGB. ``mapped``: read as from a path (``_tiff_mapped``)."""
+    t = _Tiff(data)
+    _check_pixels(t.h, t.w)
+    if t.w <= 0 or t.h <= 0:
+        raise ValueError(f"TIFF: empty image ({t.w}x{t.h})")
+    try:
+        img = _tiff_mapped(t) if mapped else None
+        if img is None:
+            img = (_tiff_raw_route if _TIFF_CODECS[t.compression] == "raw"
+                   else _tiff_libtiff_route)(t)
+    except (TypeError, IndexError, KeyError, OverflowError) as err:
+        raise ValueError(f"TIFF: bad strips or tiles ({err!r})") from None
+    if t.orientation in _TIFF_TRANSPOSE:
+        img = _TIFF_TRANSPOSE[t.orientation](img)
+    return np.ascontiguousarray(_tiff_to_rgb(t, img))
+
+
 def load_image_bytes(data: bytes) -> np.ndarray:
     """Encoded image bytes -> HWC uint8 RGB, or HW uint8 for a greyscale
     image (8-bit grey PNG, one-component JPEG, a GIF or BMP of grey
-    indices), as the JAX package's PIL path gives them: every PNG (any
-    colour type and depth, Adam7 or not), every 8-bit Huffman JPEG of 1, 3
-    or 4 components (YCbCr, RGB, CMYK, YCCK), baseline or progressive,
-    every GIF (its first frame), every BMP and every WebP, lossless (VP8L)
-    or lossy (VP8, with ALPH or not), simple, extended or the first frame
-    of an animation, that PIL opens. What PIL refuses, and what the
-    decoders do not take (lossless, hierarchical, arithmetic, 12-bit or
-    2-component JPEG; TIFF, PPM and the other formats of ``_REFUSED``, by
-    name), raises ValueError."""
+    indices, a grey TIFF), as the JAX package's PIL path gives them: every
+    PNG (any colour type and depth, Adam7 or not), every 8-bit Huffman
+    JPEG of 1, 3 or 4 components (YCbCr, RGB, CMYK, YCCK), baseline or
+    progressive, every GIF (its first frame), every BMP and every WebP,
+    lossless (VP8L) or lossy (VP8, with ALPH or not), simple, extended or
+    the first frame of an animation, and the first page of every TIFF,
+    uncompressed, PackBits or Deflate (strips or tiles, planar or not,
+    either byte order, BigTIFF, its orientation applied), that PIL opens.
+    What PIL refuses, and what the decoders do not take (lossless,
+    hierarchical, arithmetic, 12-bit or 2-component JPEG; TIFF's other
+    compressions, YCbCr under PackBits or Deflate, the floating-point
+    predictor; PPM and the other formats of ``_REFUSED``, by name),
+    raises ValueError."""
     data = bytes(data)
     if data[:2] == b"\xff\xd8":
         return _decode_jpeg(data)
@@ -828,18 +1804,24 @@ def load_image_bytes(data: bytes) -> np.ndarray:
         return _decode_bmp(data)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return _decode_webp(data)
+    if data[:4] in _TIFF_SIGS:
+        return _decode_tiff(data)
     for name, at, prefixes in _REFUSED:
         if data[at:].startswith(prefixes):
             raise ValueError(f"unsupported: {name} (the decoders read "
-                             "JPEG, PNG, GIF, BMP and WebP)")
+                             "JPEG, PNG, GIF, BMP, WebP and TIFF)")
     raise ValueError("not an image the decoders read (JPEG, PNG, GIF, BMP, "
-                     "WebP)")
+                     "WebP, TIFF)")
 
 
 def load_image(path: str) -> np.ndarray:
-    """``load_image_bytes`` of a file."""
+    """``load_image_bytes`` of a file; a TIFF as PIL reads it from a path
+    (``_tiff_mapped``)."""
     with open(path, "rb") as f:
-        return load_image_bytes(f.read())
+        data = f.read()
+    if data[:4] in _TIFF_SIGS:
+        return _decode_tiff(data, mapped=True)
+    return load_image_bytes(data)
 
 
 def to_rgb_uint8(image: np.ndarray) -> np.ndarray:

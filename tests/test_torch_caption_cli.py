@@ -176,6 +176,40 @@ def test_caption_run_reads_lossy_webp_as_jax(tree, tmp_path):
     assert abs(got[0]["score"] - want[0]["score"]) <= 1e-4
 
 
+def test_caption_run_reads_tiff_as_jax(tree, tmp_path):
+    """TIFFs, which the port's decoders refused before: an RGBA under
+    Deflate with predictor 2 and orientation 6 (PIL turns it), a
+    big-endian PackBits file in planar tiles, and an uncompressed grey
+    one: the records equal the JAX package's."""
+    from PIL import Image
+    from torch_images import write_tiff
+    d = tree
+    img = np.asarray(Image.open(d / "b.png"))
+    (tmp_path / "h.tif").write_bytes(write_tiff(
+        np.dstack([img, img[:, :, 1:2]]), 8, extra_samples=(2,),
+        compression=8, predictor=2, orientation=6))
+    (tmp_path / "i.tiff").write_bytes(write_tiff(
+        img[::-1], 8, order=">", planar=2, tile=(16, 16),
+        compression=32773))
+    Image.fromarray(img).convert("L").save(tmp_path / "j.tif")
+    args = ["-i", *(str(tmp_path / n) for n in ("h.tif", "i.tiff",
+                                                "j.tif")),
+            "--rl_model", str(d / "rl.ckpt"),
+            "--concept_model", str(d / "cpt.ckpt"),
+            "--resnet101_ckpt", str(d / "resnet.ckpt"),
+            "--sentiment_detector_json", str(d / "senti.json"),
+            "--max_seq_len", "6", "--beam_size", "2", "--num_concepts", "3",
+            "--num_sentiments", "4"]
+    want = jcaption.run(jcaption.build_parser().parse_args(args))
+    got = tcaption.run(tcaption.build_parser().parse_args(
+        args + ["--device", "cpu"]))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert {k: v for k, v in g.items() if k != "score"} == \
+            {k: v for k, v in w.items() if k != "score"}
+        assert abs(g["score"] - w["score"]) <= 1e-4
+
+
 def test_caption_refuses_cuda_without_a_card(tree):
     import torch
     if torch.cuda.is_available():

@@ -699,7 +699,7 @@ def test_fixtures_match_pil():
             assert f.read() == data, name
     sizes = sum(os.path.getsize(os.path.join(torch_images.DIR, n))
                 for n in committed)
-    assert len(committed) <= 41 and sizes < 650_000
+    assert len(committed) <= 47 and sizes < 650_000
     with np.load(os.path.join(torch_images.DIR, "expected.npz")) as npz:
         want = torch_images.decode_expected(npz)
     pil = torch_images.expected(files)

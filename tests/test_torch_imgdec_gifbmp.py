@@ -536,7 +536,8 @@ def test_smoke_timing_files_match_pil(what):
 
 
 # every format PIL writes here, opens again, and the port refuses by name
-# (TGA, which has no signature, shares CUR's first bytes)
+# (TGA, which has no signature, shares CUR's first bytes; TIFF under a
+# compression the port does not read yet, LZW)
 NAMED = [("TIFF", "RGB", "TIFF"), ("PPM", "RGB", "PPM"), ("PPM", "L", "PPM"),
          ("PPM", "1", "PPM"),
          ("ICO", "RGB", "ICO"), ("JPEG2000", "RGB", "JPEG 2000"),
@@ -552,7 +553,8 @@ NAMED = [("TIFF", "RGB", "TIFF"), ("PPM", "RGB", "PPM"), ("PPM", "L", "PPM"),
 def test_other_formats_refused_by_name(fmt, mode, name):
     """What PIL decodes and the port does not read yet (ROADMAP queues
     each) is refused with its name, not as a file of no known format."""
-    data = _pil(_photo(16, 16, 10).convert(mode), fmt)
+    data = _pil(_photo(16, 16, 10).convert(mode), fmt,
+                **({"compression": "tiff_lzw"} if fmt == "TIFF" else {}))
     assert jpre.load_image_bytes(data).ndim in (2, 3)
     with pytest.raises(ValueError, match="unsupported: " + name):
         tpre.load_image_bytes(data)

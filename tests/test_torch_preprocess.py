@@ -27,7 +27,7 @@ from insenticap_model_tpu_torch.cli import preprocess as tcli
 from insenticap_model_tpu_torch.data.feature_store import open_store
 from test_preprocessing import corpus_tree  # noqa: F401 (a fixture)
 from torch_images import (make_png, vp8l, webp_anim, webp_anmf, webp_chunk,
-                          webp_file, webp_vp8x, write_bmp)
+                          webp_file, webp_vp8x, write_bmp, write_tiff)
 from torch_parity import encoder_params, resnet_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -279,6 +279,43 @@ def test_preprocess_features_reads_lossy_webp(weights, tmp_path):
                "--feat_batch_size", "2", "--device", "cpu"])
     _assert_stores_close(str(tmp_path / "jax"), str(tmp_path / "port"),
                          ["b.jpg", "lossy.webp"])
+
+
+def test_preprocess_features_reads_tiff(weights, tmp_path):
+    """``preprocess features`` over a folder holding TIFFs (PIL's
+    uncompressed RGB and PackBits palette files, the writer's Deflate RGBA
+    with predictor 2 and orientation 6 and a 16-bit grey BigTIFF in
+    tiles) beside a JPEG: the port's decoder refused them before, which
+    stopped the whole extraction; the features equal the JAX package's."""
+    from PIL import Image
+    jp, _ = weights
+    imgs = tmp_path / "imgs"
+    os.makedirs(imgs)
+    g = np.random.default_rng(9)
+    photo = g.integers(0, 256, (60, 84, 3)).astype(np.uint8)
+    Image.fromarray(photo).save(imgs / "rgb.tif")
+    Image.fromarray(photo[::-1]).quantize(60).save(imgs / "p.tif",
+                                                   compression="packbits")
+    (imgs / "turned.tiff").write_bytes(write_tiff(
+        np.dstack([photo[:, ::-1], photo[:, :, :1]]), 8, extra_samples=(2,),
+        compression=8, predictor=2, orientation=6))
+    (imgs / "grey16.tif").write_bytes(write_tiff(
+        g.integers(0, 1 << 16, (50, 70)), 16, bigtiff=True, offset_type=16,
+        tile=(32, 32), compression=32773))
+    Image.fromarray(photo[:, ::-1]).save(imgs / "b.jpg", quality=90)
+    pth = str(tmp_path / "resnet101.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                resnet_state_dict(0).items()}, pth)
+    jpp.extract_imgs_feat(str(imgs), str(tmp_path / "jax"), jp, batch_size=2,
+                          store_format="native", bucket_mode="resize",
+                          bucket_shapes=((64, 64), (48, 64), (64, 48)))
+    tcli.main(["features", "--imgs_dir", str(imgs),
+               "--feats_dir", str(tmp_path / "port"),
+               "--resnet101_file", pth, "--feat_bucket_shapes", BUCKETS,
+               "--feat_batch_size", "2", "--device", "cpu"])
+    _assert_stores_close(str(tmp_path / "jax"), str(tmp_path / "port"),
+                         ["b.jpg", "grey16.tif", "p.tif", "rgb.tif",
+                          "turned.tiff"])
 
 
 def test_h5_store_is_refused_by_name(tmp_path):

@@ -98,6 +98,13 @@ def tree(tmp_path_factory, settings):
         d / "imgs" / "photo.webp", lossless=True, exact=True)
     Image.fromarray(smooth[::-1, ::-1]).save(d / "imgs" / "lossy.webp",
                                              quality=80)
+    Image.fromarray(smooth[:, ::-1]).save(
+        d / "imgs" / "photo.tif", compression="tiff_adobe_deflate",
+        tiffinfo={317: 2})
+    Image.fromarray(smooth[:, ::-1]).save(d / "imgs" / "twin.png")
+    Image.fromarray(smooth).convert("CMYK").save(
+        d / "imgs" / "turned.tif", compression="packbits",
+        tiffinfo={274: 6})
     return d
 
 
@@ -169,6 +176,15 @@ def _payloads(d, settings):
                                "sentiment": "auto"},
             "lossy_webp_path": {"image_path": str(d / "imgs" /
                                                   "lossy.webp")},
+            "tiff_b64": {"image_b64": b64("photo.tif"), "sentiment": "auto"},
+            "tiff_path": {"image_path": str(d / "imgs" / "photo.tif")},
+            "tiff_twin_png": {"image_b64": b64("twin.png"),
+                              "sentiment": "auto"},
+            "turned_tiff_b64": {"image_b64": b64("turned.tif"),
+                                "sentiment": "positive"},
+            "turned_tiff_path": {"image_path": str(d / "imgs" /
+                                                   "turned.tif"),
+                                 "sentiment": "positive"},
             "path": {"image_path": str(d / "imgs" / "photo.jpg")}}
 
 
@@ -198,6 +214,9 @@ def test_handle_caption_matches_jax(tree, settings, fakes):
     assert got["jpeg_b64"] == got["path"]      # the same file, two ways
     assert got["webp_b64"] == got["webp_path"]
     assert got["lossy_webp_b64"] == got["lossy_webp_path"]
+    # a Deflate TIFF (predictor 2) answers as the PNG of its pixels
+    assert got["tiff_b64"] == got["tiff_path"] == got["tiff_twin_png"]
+    assert got["turned_tiff_b64"] == got["turned_tiff_path"]
     assert stats["requests"] == len(payloads)
     assert stats["encode"]["by_bucket"]["12x16"] >= 1     # the JPEG
 

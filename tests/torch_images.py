@@ -2,13 +2,15 @@
 (``tests/data/torch_images/``) and the small writers of the files PIL
 cannot write.
 
-The fixtures: JPEGs, PNGs, GIFs, BMPs and lossless and lossy WebPs
+The fixtures: JPEGs, PNGs, GIFs, BMPs, lossless and lossy WebPs and TIFFs
 written by PIL, or by the writers here (``write_jpeg``: YCCK;
 ``make_png``: Adam7-interlaced and 16-bit RGB; ``write_gif``,
 ``write_bmp``: what PIL does not write; ``vp8l``: an animation whose
 first frame lies at an offset; ``vp8_frame``: a key frame with the simple
-filter, four token partitions and filter deltas), and ``expected.npz`` holding PIL's decoded arrays (the JAX package's
-``load_image_bytes``), for the card's machine, which has no PIL. The
+filter, four token partitions and filter deltas; ``write_tiff``: an
+oriented RGBA Deflate strip, planar tiles, BigTIFF), and ``expected.npz``
+holding PIL's decoded arrays (the JAX package's ``load_image_bytes``), for
+the card's machine, which has no PIL. The
 arrays are stored as differences along each row (uint8, wrapping), which
 zlib packs to half the size, and an array two fixtures share once
 (``SAME_PIXELS``); ``decode_expected`` undoes both.
@@ -419,6 +421,128 @@ def write_gif(idx, *, screen=None, table=None, background=0, version=b"89a",
 def write_bmp(px, bits, **kw):
     """``chip_smoke.write_bmp`` with numpy."""
     return chip_smoke.write_bmp(np, px, bits, **kw)
+
+
+def _bitrev(data: bytes) -> bytes:
+    table = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+    return bytes(data).translate(table)
+
+
+def _tiff_rows(samples, bits, order, fmt):
+    """[n, w, k] samples -> [n, rowbytes] uint8 rows: MSB-first bit
+    packing below 8 bits and at 12, else each sample in the byte order
+    (unsigned, signed or IEEE float by ``fmt``, the SampleFormat)."""
+    n, w, k = samples.shape
+    if bits in (8, 16, 32, 64):
+        kind = {1: "u", 2: "i", 3: "f"}[fmt]
+        dt = np.dtype(order + kind + str(bits // 8))
+        return samples.astype(dt).reshape(n, -1).view(np.uint8)
+    vals = samples.reshape(n, w * k).astype(np.uint64)
+    shifts = np.arange(bits - 1, -1, -1, dtype=np.uint64)
+    bitrows = ((vals[:, :, None] >> shifts) & 1).reshape(n, -1)
+    pad = -bitrows.shape[1] % 8
+    bitrows = np.concatenate([bitrows, np.zeros((n, pad), np.uint64)], 1)
+    return np.packbits(bitrows.astype(np.uint8), axis=1)
+
+
+def _tiff_predict(samples, bits):
+    """Horizontal differencing (predictor 2) of [n, w, k] samples."""
+    mod = 1 << bits
+    s = samples.astype(np.int64)
+    d = s.copy()
+    d[:, 1:] -= s[:, :-1]
+    return d % mod
+
+
+def tiff_page(samples, bits=8, photometric=None, *, order="<",
+              sample_format=1, extra_samples=(), planar=1,
+              rows_per_strip=None, tile=None, compression=1, predictor=1,
+              fill_order=1, colormap=None, orientation=None, tags=(),
+              offset_type=4):
+    """(entries, blocks) of one TIFF page of ``samples`` ([h, w] or [h, w,
+    k], each sample ``bits`` wide): strips of ``rows_per_strip`` rows (all
+    by default) or ``tile`` = (width, length) tiles, padded at the edges;
+    ``planar`` 2: a plane of strips or tiles a sample; ``compression`` 1
+    (none), 32773 (PackBits, each row on its own) or 8 / 32946 (zlib, with
+    ``predictor`` 2's differencing first where asked); ``fill_order`` 2
+    reverses the bits of every stored byte. Photometric 1 (grey) for one
+    or two samples and 2 (RGB) for more, by default. ``tags``: entries
+    (tag, type, values) that replace the page's own of that tag, or add
+    one (type None drops it); the entries are sorted by tag."""
+    import zlib as _zlib
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[:, :, None]
+    h, w, k = samples.shape
+    if photometric is None:
+        photometric = 1 if k <= 2 else 2
+
+    def encode(part):                 # [n, pw, pk] samples -> stored bytes
+        if predictor == 2:
+            part = _tiff_predict(part, bits)
+        rows = _tiff_rows(part, bits, order, sample_format)
+        if compression in (8, 32946):
+            data = _zlib.compress(rows.tobytes())
+        elif compression == 32773:
+            data = b"".join(chip_smoke.packbits(r.tobytes()) for r in rows)
+        else:
+            data = rows.tobytes()
+        return _bitrev(data) if fill_order == 2 else data
+    planes = [samples] if planar == 1 else [samples[:, :, i:i + 1]
+                                            for i in range(k)]
+    blocks = []
+    for plane in planes:
+        if tile is None:
+            rps = rows_per_strip or h
+            blocks += [encode(plane[y:y + rps]) for y in range(0, h, rps)]
+        else:
+            tw, tl = tile
+            for y in range(0, h, tl):
+                for x in range(0, w, tw):
+                    part = np.zeros((tl, tw, plane.shape[2]), plane.dtype)
+                    sub = plane[y:y + tl, x:x + tw]
+                    part[:sub.shape[0], :sub.shape[1]] = sub
+                    blocks.append(encode(part))
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * k),
+               259: (3, [compression]), 262: (3, [photometric]),
+               277: (3, [k])}
+    if tile is None:
+        entries.update({273: (offset_type, "offsets"),
+                        278: (4, [rows_per_strip or h]),
+                        279: (offset_type, "counts")})
+    else:
+        entries.update({322: (4, [tile[0]]), 323: (4, [tile[1]]),
+                        324: (offset_type, "offsets"),
+                        325: (offset_type, "counts")})
+    if planar != 1:
+        entries[284] = (3, [planar])
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
+    if sample_format != 1:
+        entries[339] = (3, [sample_format] * k)
+    if extra_samples:
+        entries[338] = (3, list(extra_samples))
+    if colormap is not None:
+        entries[320] = (3, list(colormap))
+    if orientation is not None:
+        entries[274] = (3, [orientation])
+    for tag, typ, vals in tags:
+        if typ is None:
+            entries.pop(tag, None)
+        else:
+            entries[tag] = (typ, vals)
+    return [(t, typ, v) for t, (typ, v) in sorted(entries.items())], blocks
+
+
+def write_tiff(samples, bits=8, photometric=None, *, order="<",
+               bigtiff=False, magic=None, loop=False, pages=(), **kw):
+    """A TIFF of ``tiff_page(samples, ...)`` (``chip_smoke.tiff_file``),
+    then the pages ``pages`` ([(entries, blocks)]) chained after it."""
+    page = tiff_page(samples, bits, photometric, order=order, **kw)
+    return chip_smoke.tiff_file([page, *pages], order=order,
+                                bigtiff=bigtiff, magic=magic, loop=loop)
 
 
 # -- a VP8 key-frame writer (lossy WebP): every header option by argument ---
@@ -874,6 +998,26 @@ def build():
         sharpness=3, partitions=4, lf_delta={"update": True,
                                              "ref": [-6, None, 4, None],
                                              "mode": [9, None, None, -3]})))
+    # TIFF: PIL's uncompressed RGB of rgb.png's pixels and PackBits of
+    # p.png's palette image; the writer's CIELAB (a photo's bytes as L, a*,
+    # b*; PIL's own LAB file holds a profile stamped with its time), RGBA
+    # of rgba.png's pixels under Deflate with predictor 2 and orientation
+    # 6, a big-endian CMYK in planar 16x16 PackBits tiles (the edges
+    # cropped), a 16-bit grey BigTIFF in Deflate strips
+    save("rgb.tif", Image.fromarray(rgb), "TIFF")
+    save("p_packbits.tif", Image.fromarray(_photo(31, 39, 6)).quantize(37),
+         "TIFF", compression="packbits")
+    out["lab.tif"] = write_tiff(_photo(23, 29, 21), 8, 8)
+    out["rgba_o6.tif"] = write_tiff(rgba, 8, extra_samples=(2,),
+                                    compression=8, predictor=2,
+                                    orientation=6, rows_per_strip=8)
+    g = np.random.default_rng(22)
+    out["cmyk_tiles.tif"] = write_tiff(
+        g.integers(0, 256, (29, 41, 4)), 8, 5, order=">", planar=2,
+        tile=(16, 16), compression=32773)
+    out["grey16_big.tif"] = write_tiff(
+        g.integers(0, 700, (27, 33)), 16, bigtiff=True, offset_type=16,
+        compression=8, rows_per_strip=5)
     return out
 
 
