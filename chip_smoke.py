@@ -454,7 +454,8 @@ FIXTURES = {"j444.jpg": "decode", "j422.jpg": "decode",
             "lab.tif": "decode", "rgba_o6.tif": "decode",
             "cmyk_tiles.tif": "decode", "grey16_big.tif": "decode",
             "rgb_lzw.tif": "decode", "grey_lzw_old.tif": "decode",
-            "float_pred3.tif": "decode"}
+            "float_pred3.tif": "decode", "ycbcr_jpeg.tif": "decode",
+            "ycbcr_tiles_jpeg.tif": "decode", "cmyk_jpeg.tif": "decode"}
 # a fixture whose PIL array is another's, stored once in expected.npz
 # under the other name: the same photo at the same quality and sampling,
 # written progressive (the same coefficients, so the same pixels), and
@@ -1566,6 +1567,108 @@ def _tiff_bytes(np, zlib, img, compression=1):
     return tiff_file([(entries, strips)]), img
 
 
+def _tiff_jpeg_bytes(jpeg, h, w):
+    """A little-endian TIFF of one YCbCr page under JPEG (7) whose one
+    strip is the h x w 4:2:0 JPEG ``jpeg`` as it is (no encoder needed):
+    YCbCrSubsampling 2, 2, no JPEGTables."""
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+               (259, 3, [7]), (262, 3, [6]), (273, 4, "offsets"),
+               (277, 3, [3]), (278, 4, [h]), (279, 4, "counts"),
+               (284, 3, [1]), (530, 3, [2, 2])]
+    return tiff_file([(entries, [jpeg])])
+
+
+
+# times the decode of each file in argv[3:] with the port under argv[1]:
+# median of argv[2] calls after one, in ms, null where the port refuses
+# it; and the path of the port's imgdec library
+_DECODE_TIMES = r"""
+import json, os, statistics, sys, time
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, root)
+from insenticap_model_tpu_torch import preprocessing as pre
+assert pre.__file__.startswith(root + os.sep), pre.__file__
+out = {"lib": pre._lib()._name}
+for path in sys.argv[3:]:
+    data = open(path, "rb").read()
+    try:
+        pre.load_image_bytes(data)
+    except ValueError:
+        out[os.path.basename(path)] = None
+        continue
+    walls = []
+    for _ in range(int(sys.argv[2])):
+        t0 = time.perf_counter()
+        pre.load_image_bytes(data)
+        walls.append(time.perf_counter() - t0)
+    out[os.path.basename(path)] = statistics.median(walls) * 1e3
+print(json.dumps(out))
+"""
+
+
+def decode_ab(roots, calls=200, reps=21):
+    """Host decode times of the 448x448 JPEG fixtures (baseline 4:2:0,
+    progressive, CMYK), for the port in each of ``roots`` (checkouts of
+    the repo: a parent commit unpacked by ``git archive`` into a
+    git-ignored directory beside this one, for an A/B on one host), and
+    of the baseline one wrapped as a one-strip YCbCr JPEG TIFF. Each
+    root's port first decodes the files in a process of its own (its
+    imgdec library built; ``path_ms``: the whole path, median of
+    ``reps`` after one call, null where that port refuses the file).
+    Then both libraries' JPEG entry, ``isc_jpeg_decode``, are timed in
+    this one process, the roots in turns call by call (a b, then b a),
+    ``calls`` calls each (``entry_ms``: quartiles 1-3; ``wins``: calls
+    the second root took less time than the first in the same turn).
+    Prints the card's name and power limit, then one JSON line, and
+    returns it.
+
+        python3 -c "import chip_smoke; chip_smoke.decode_ab(['../parent', '.'])"
+    """
+    import ctypes
+    import numpy as np
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data", "torch_images")
+    files = [os.path.join(fixtures, name) for name in (
+        "j420_448.jpg", "prog420_448.jpg", "cmyk420_448.jpg")]
+    report = {"path_ms": {}, "entry_ms": {}, "wins": {}}
+    libs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tif = os.path.join(tmp, "j420_448.tif")
+        with open(tif, "wb") as f:
+            f.write(_tiff_jpeg_bytes(open(files[0], "rb").read(), 448, 448))
+        for root in roots:
+            run = subprocess.run(
+                [sys.executable, "-c", _DECODE_TIMES, root, str(reps)]
+                + files + [tif], capture_output=True, text=True, check=True)
+            got = json.loads(run.stdout.strip().splitlines()[-1])
+            libs[root] = ctypes.CDLL(got.pop("lib")).isc_jpeg_decode
+            report["path_ms"][root] = got
+    err = ctypes.create_string_buffer(256)
+    for path in files:
+        data = open(path, "rb").read()
+        outs = {root: np.zeros(448 * 448 * 3, np.uint8) for root in roots}
+        walls = {root: [] for root in roots}
+        for i in range(calls):
+            for root in (roots if i % 2 == 0 else roots[::-1]):
+                t0 = time.perf_counter()
+                rc = libs[root](data, ctypes.c_longlong(len(data)),
+                                ctypes.c_void_p(outs[root].ctypes.data),
+                                ctypes.c_longlong(outs[root].size), err,
+                                256)
+                walls[root].append((time.perf_counter() - t0) * 1e3)
+                _check(rc == 0, f"{root}: {err.value!r}")
+        _check(all(np.array_equal(outs[roots[0]], o) for o in outs.values()),
+               f"the roots decode {os.path.basename(path)} otherwise")
+        name = os.path.basename(path)
+        for root in roots:
+            report["entry_ms"].setdefault(root, {})[name] = \
+                statistics.quantiles(walls[root], n=4)
+        report["wins"][name] = sum(
+            b < a for a, b in zip(walls[roots[0]], walls[roots[-1]]))
+    print(f"card: {_smi()}")
+    print(json.dumps(report))
+    return report
+
 def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                      words, idx2concept, senti_table, zero_counters,
                      read_counters, keep):
@@ -1684,7 +1787,10 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                 {"image_path": os.path.join(fixtures, "rgba_o6.tif")},
                 {"image_path": os.path.join(fixtures, "cmyk_tiles.tif"),
                  "sentiment": "positive"},
-                {"image_path": os.path.join(fixtures, "rgb_lzw.tif")}]
+                {"image_path": os.path.join(fixtures, "rgb_lzw.tif")},
+                {"image_path": os.path.join(fixtures,
+                                            "ycbcr_tiles_jpeg.tif"),
+                 "sentiment": "negative"}]
             torch.cuda.synchronize()
             zero_counters()
             results, errors, serve_s = _run_groups(
@@ -1782,7 +1888,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
               "quality 80 and 100), TIFF (uncompressed, PackBits, Deflate "
               "with predictor 2 and orientation 6, planar big-endian CMYK "
               "tiles, CIELAB, 16-bit BigTIFF, LZW with predictor 2 in "
-              "strips, old-style LZW, a float under LZW with predictor 3) "
+              "strips, old-style LZW, a float under LZW with predictor 3, "
+              "PIL's YCbCr JPEG in strips, 4:2:0 JPEG tiles with "
+              "JPEGTables, a CMYK JPEG) "
               "included), "
               f"{[n for n, w in FIXTURES.items() if w == 'refuse']} "
               "refused")
@@ -1848,6 +1956,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
     # Deflate with predictor 2
     tiffs = {code: _tiff_bytes(np, zlib, img448, code)[0]
              for code in (1, 32773, 5, 8)}
+    # and the JPEG itself as a one-strip YCbCr TIFF
+    tiffs[7] = _tiff_jpeg_bytes(jpeg, *img448.shape[:2])
     img480 = np.random.default_rng(9).integers(0, 256, (480, 640, 3),
                                                dtype=np.uint8)
     bucket = pre.bucket_for_shape(480, 640, pre.DEFAULT_BUCKET_SHAPES)
@@ -1890,6 +2000,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                  lambda: pre.load_image_bytes(tiffs[8])),
              "tiff_448_lzw_pred2_ms": host_ms(
                  lambda: pre.load_image_bytes(tiffs[5])),
+             "tiff_448_jpeg_ms": host_ms(
+                 lambda: pre.load_image_bytes(tiffs[7])),
              "resize_480x640_ms": host_ms(
                  lambda: pre.resize_to_bucket(img480, bucket))}
     _check(np.array_equal(pre.load_image_bytes(png), img448)
@@ -1937,6 +2049,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
           f"Deflate with predictor 2 ({len(tiffs[8])} B) "
           f"{times['tiff_448_deflate_pred2_ms']:.2f} ms, LZW with predictor "
           f"2 ({len(tiffs[5])} B) {times['tiff_448_lzw_pred2_ms']:.2f} ms, "
+          f"JPEG 4:2:0 YCbCr in one strip ({len(tiffs[7])} B) "
+          f"{times['tiff_448_jpeg_ms']:.2f} ms, "
           f"beside the baseline JPEG's {times['jpeg_448_420_ms']:.2f} ms")
     out["host_times"] = dict(times, cpu=cpu, jpeg_bytes=len(jpeg),
                              progressive_bytes=len(prog),

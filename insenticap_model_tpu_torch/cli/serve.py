@@ -29,10 +29,11 @@ Endpoints (JSON over HTTP):
 Feature mode serves fc/att rows as a feature store holds them; image mode
 decodes and resizes on the host (``preprocessing``: the port's own JPEG,
 PNG, GIF, BMP, WebP (lossless and lossy) and TIFF (uncompressed,
-PackBits, LZW and Deflate) decoders and PIL's bilinear resize, no PIL)
+PackBits, LZW, Deflate and JPEG) decoders and PIL's bilinear resize, no
+PIL)
 onto the static shape ladder, then rides ``EncodeBatcher`` (ResNet-101 +
 concept top-k, batched) into the decode ``DynamicBatcher``. An image the
-decoders refuse (12-bit JPEG, JPEG-compressed TIFF, PPM, ...) is a 400,
+decoders refuse (12-bit JPEG, CCITT-compressed TIFF, PPM, ...) is a 400,
 as any decode failure is in the JAX package.
 
 Request bodies are size-capped (413 past --max_body_mb, before the read);

@@ -1,7 +1,7 @@
 // Host image decoding for the serving surface: baseline, extended-
 // sequential and progressive Huffman JPEG, PNG's row filters, GIF's LZW,
 // BMP's RLE8 and RLE4, WebP's lossless (VP8L) bitstream and its lossy
-// (VP8) key frame, TIFF's PackBits and LZW.
+// (VP8) key frame, TIFF's PackBits, LZW and JPEG.
 //
 // The JAX package decodes with PIL (insenticap_model_tpu/preprocessing.py:
 // 50-80); the machine that serves the port has no PIL, so the port decodes
@@ -9,20 +9,24 @@
 // JPEG with libjpeg(-turbo)'s defaults, so this file follows libjpeg's
 // integer paths exactly:
 //
-//  * entropy decoding: Huffman (DHT tables of any kind), DRI and RSTn
-//    restart markers, interleaved and single-component scans of 1, 3 or 4
-//    components, any number of scans of SOF0, SOF1 or SOF2 at 8 bits.
-//    Progressive scans (T.81 Annex G, libjpeg-turbo's jdphuff.c) are DC
-//    first and refinement, AC first (a band Ss..Se, EOB runs) and AC
-//    refinement, into whole-image coefficient arrays; their parameters are
-//    checked as libjpeg's start_pass_phuff_decoder checks them (what it
-//    refuses is refused, what it only warns of is decoded);
+//  * entropy decoding: Huffman (DHT tables of any kind, derived at the
+//    scan that uses them; libjpeg-turbo's standard tables for an undefined
+//    table 0 or 1), DRI and RSTn restart markers (a wrong one resynced as
+//    jpeg_resync_to_restart does), interleaved and single-component scans
+//    of 1, 3 or 4 components, any number of scans of SOF0, SOF1 or SOF2 at
+//    8 bits. Progressive scans (T.81 Annex G, libjpeg-turbo's jdphuff.c)
+//    are DC first and refinement, AC first (a band Ss..Se, EOB runs) and
+//    AC refinement, into whole-image coefficient arrays; their parameters
+//    are checked as libjpeg's start_pass_phuff_decoder checks them (what it
+//    refuses is refused, what it only warns of is decoded, as are a
+//    sequential scan's Ss, Se, Ah and Al and a run past coefficient 63);
 //  * block smoothing: a progressive file that ends with some of AC
 //    coefficients 1-9 still inexact (an incomplete progression) is
 //    decoded as libjpeg-turbo 2.1+'s decompress_smooth_data does it;
-//  * IDCT: jpeg_idct_islow (jidctint.c; CONST_BITS 13, PASS1_BITS 2) and
-//    its range-limit table; libjpeg-turbo's SIMD versions give the same
-//    numbers;
+//  * IDCT: jpeg_idct_islow (jidctint.c; CONST_BITS 13, PASS1_BITS 2) as
+//    libjpeg-turbo's x86 SIMD code computes it (16-bit wraps and
+//    saturation, which part from the C code's range limit only for
+//    coefficients past 16 bits);
 //  * upsampling: libjpeg-turbo's "fancy" upsampling, which PIL leaves on
 //    (and which turns merged upsampling off): h2v1 and h2v2 triangle
 //    filters where the component's downsampled width exceeds 2, h1v2 always,
@@ -41,11 +45,12 @@
 //
 // Refused, with a message that names what: lossless, hierarchical and
 // arithmetic-coded JPEG, precision other than 8 bits, 2 or more than 4
-// components. A file that ends, or whose entropy data ends, before every
-// block of every scan is decoded is refused as truncated (libjpeg would
-// fill the rest with zeros and warn; PIL refuses a file that ends early),
-// and so is a Huffman code that no table holds (libjpeg warns and goes on
-// with zeros).
+// components. Entropy-coded data that meets a marker before its scan's
+// blocks are decoded is read as libjpeg-turbo reads it (zero bits for the
+// MCU where the bits end, no later MCU of the scan decoded); a file that
+// ends early is refused as truncated, as PIL refuses it; a Huffman code
+// that no table holds is refused by name (libjpeg warns and goes on with
+// zeros).
 //
 // PNG: the Python side (preprocessing.py) parses the chunks, checks their
 // CRCs, inflates IDAT with zlib and scatters Adam7's passes;
@@ -63,9 +68,20 @@
 // TIFF: the Python side reads the header, the first IFD and the strips
 // or tiles as Pillow's TiffImagePlugin (and, for the compressed ones,
 // libtiff) reads them, and undoes libtiff's predictors; isc_tiff_packbits
-// decodes a PackBits strip or tile as libtiff's PackBitsDecode does, and
+// decodes a PackBits strip or tile as libtiff's PackBitsDecode does,
 // isc_tiff_lzw an LZW one as its LZWDecode (or, for old-style codes,
-// LZWDecodeCompat) does.
+// LZWDecodeCompat) does, and isc_tiff_jpeg a JPEG (7) one as libtiff
+// 4.7's JPEGPreDecode and JPEGDecode have libjpeg-turbo decode it for PIL
+// (isc_tiff_jpeg_tables reads the page's JPEGTables). That reuses the
+// JPEG decoder above in a mode of its own (Jpeg::tiff) for what libtiff's
+// driver changes: the tables carried from strip to strip; YCbCr converted
+// to RGB only where the caller asks (libtiff's JPEGCOLORMODE_RGB), every
+// other page's components handed over as stored (JCS_UNKNOWN); a fake EOI
+// past the strip's bytes, so that a strip that ends early decodes, where a
+// file PIL reads itself is refused; libjpeg's own marker loop; a single scan
+// decoded only as far as the rows read, and what libjpeg reads after it
+// unable to fail the strip; libtiff's checks of the frame against the
+// segment and the page. A bad Huffman code stays refused, by name.
 //
 // WebP: the Python side walks the RIFF container as libwebp's demuxer
 // does; isc_vp8l_decode decodes a VP8L chunk's bitstream (RFC 9649) to RGB,
@@ -102,7 +118,6 @@ const int kNatural[64 + 16] = {
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 struct Huff {
-  bool defined = false;
   uint8_t vals[256] = {};
   int maxcode[18] = {};
   int valoffset[18] = {};
@@ -162,7 +177,6 @@ void make_huff(Huff& t, const uint8_t counts[17], const uint8_t* vals,
       }
     }
   }
-  t.defined = true;
 }
 
 struct Component {
@@ -175,11 +189,57 @@ struct Component {
   std::vector<int16_t> coef;     // [bh][bw][64], natural order
   bool seen = false;             // in some scan
   // progressive: the Al of each coefficient's last scan (zigzag order),
-  // -1 before any; libjpeg's coef_bits
+  // -1 before any; libjpeg's coef_bits; and (libjpeg-turbo 2.1's second
+  // half of it) those before the component's latest scan, 0 where that
+  // was the first scan of the stream
   int bits[64];
+  int prev[64];
 };
 
 enum class Colour { kGrey, kYcc, kRgb, kCmyk, kYcck };
+
+// The standard Huffman tables (T.81 Annex K.3) that libjpeg-turbo takes
+// for an undefined table 0 or 1 (jstdhuff.c): counts a code length 1-16
+// (index 0 unused), then the symbols
+const uint8_t kStdDcLumaBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1,
+                                    0, 0, 0, 0, 0, 0, 0};
+const uint8_t kStdDcChromaBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1,
+                                      1, 1, 0, 0, 0, 0, 0};
+const uint8_t kStdDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kStdAcLumaBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5,
+                                    5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kStdAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kStdAcChromaBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7,
+                                      5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kStdAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 struct Jpeg {
   const uint8_t* d;
@@ -200,27 +260,70 @@ struct Jpeg {
   int bits = 0;        // bits in bitbuf (the top ones)
   int real = 0;        // of which come from the file (the rest: zeros)
   bool at_marker = false;
+  int unread = 0;      // a marker taken from the data (libjpeg's
+                       // unread_marker)
+  bool hdef[8] = {};   // DC 0-3, AC 4-7: kept raw, derived at a scan's
+  uint8_t hraw[8][17 + 256] = {};   // start
+
+  // JPEG in TIFF (isc_tiff_jpeg): the stream as libtiff 4.7 has libjpeg
+  // read it. Past its end the source hands over a fake EOI (FF D9) again
+  // and again (pos counts on into them); a marker that ends entropy-coded
+  // data is taken into ``unread``; the tables persist from stream to stream.
+  bool tiff = false;
+  bool insufficient = false;     // libjpeg's insufficient_data
+  int last_good = 0;             // libjpeg's last_good_iMCU_row
+  bool multi_scan = false;       // libjpeg's has_multiple_scans
+  int scans = 0;
+  // a single-scan stream: the MCU rows decoded for the rows read (-1: all),
+  // and whether that leaves the scan unfinished (nothing after is read)
+  long long mcu_rows = -1;
+  bool stopped = false;
+  // what libtiff checks the frame against (JPEGPreDecode) and the rows
+  // JPEGDecode reads, set by the caller
+  struct Segment {
+    long long w = 0, h = 0, rows = 0;
+    int comps = 0, hs = 1, vs = 1;
+    bool cut_ok = false;
+  } seg;
 
   Jpeg(const uint8_t* data, size_t len) : d(data), n(len) {}
 
   uint8_t byte() {
-    if (pos >= n) fail("JPEG: truncated file");
+    if (pos >= n) {
+      if (!tiff) fail("JPEG: truncated file");
+      return (pos++ - n) % 2 ? 0xD9 : 0xFF;
+    }
     return d[pos++];
   }
   int word() {
     const int hi = byte();
     return (hi << 8) | byte();
   }
+  // libtiff's skip_input_data: past the bytes left, a new fake EOI
+  void skip(long long k) {
+    if (k <= 0) return;
+    if (pos < n) {
+      pos = (long long)(n - pos) < k ? n : pos + (size_t)k;
+    } else if ((pos - n) % 2) {
+      ++pos;
+    }
+  }
+  [[noreturn]] void unsupported(const std::string& what) const {
+    fail(tiff ? "unsupported: TIFF JPEG " + what
+              : "JPEG: unsupported: " + what);
+  }
 
   int next_marker() {
-    // markers start with 0xFF; fill bytes 0xFF may precede the code
-    uint8_t b = byte();
-    while (b != 0xFF) b = byte();   // libjpeg skips such data with a warning
-    do {
-      b = byte();
-    } while (b == 0xFF);
-    if (b == 0) return next_marker();
-    return b;
+    // markers start with 0xFF; fill bytes 0xFF may precede the code; FF 00
+    // is data
+    for (;;) {
+      uint8_t b = byte();
+      while (b != 0xFF) b = byte();   // libjpeg skips such data with a warning
+      do {
+        b = byte();
+      } while (b == 0xFF);
+      if (b) return b;
+    }
   }
 
   void parse_sof(int marker) {
@@ -233,13 +336,18 @@ struct Jpeg {
     width = word();
     ncomp = byte();
     if (prec != 8)
-      fail("JPEG: unsupported: " + std::to_string(prec) +
-           "-bit samples (only 8-bit baseline/extended sequential)");
+      unsupported(std::to_string(prec) +
+                  "-bit samples (only 8-bit baseline/extended sequential)");
     if (height == 0)
-      fail("JPEG: unsupported: height 0 (DNL marker)");
+      unsupported("height 0 (DNL marker)");
     if (width == 0) fail("JPEG: width 0");
-    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
-      fail("JPEG: unsupported: " + std::to_string(ncomp) + " components");
+    // libjpeg: MAX_COMPONENTS and JPEG_MAX_DIMENSION; JCS_UNKNOWN takes
+    // any count of components
+    if (tiff ? ncomp < 1 || ncomp > 10
+             : ncomp != 1 && ncomp != 3 && ncomp != 4)
+      unsupported(std::to_string(ncomp) + " components");
+    if (width > 65500 || height > 65500)
+      fail("JPEG: a frame over 65500 samples wide or high");
     if ((size_t)len != 8 + 3 * (size_t)ncomp) fail("JPEG: bad SOF length");
     comp.resize(ncomp);
     for (int i = 0; i < ncomp; ++i) {
@@ -249,13 +357,15 @@ struct Jpeg {
       c.h = hv >> 4;
       c.v = hv & 15;
       c.tq = byte();
-      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
+      // libjpeg checks the table number when it latches the table
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
         fail("JPEG: bad sampling factors or table in the frame header");
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
     progressive = marker == 0xC2;
     pos = end;
+    if (tiff) check_segment();
     mcux = (width + 8 * hmax - 1) / (8 * hmax);
     mcuy = (height + 8 * vmax - 1) / (8 * vmax);
     for (Component& c : comp) {
@@ -267,7 +377,29 @@ struct Jpeg {
       c.dh = (int)(((long long)height * c.v + vmax - 1) / vmax);
       c.coef.assign((size_t)c.bw * c.bh * 64, 0);
       std::fill(c.bits, c.bits + 64, -1);
+      std::fill(c.prev, c.prev + 64, -1);
     }
+  }
+
+  // libtiff's JPEGPreDecode (its checks of the frame, which it makes at
+  // the first scan, made here, before the coefficients are allocated):
+  // the frame against the segment, the components and their sampling. A
+  // frame past PIL's decompression-bomb limit is refused by name.
+  void check_segment() const {
+    const bool cut = seg.cut_ok && width == seg.w && height > seg.h;
+    if (!cut && (width > seg.w || height > seg.h))
+      fail("TIFF: JPEG strip or tile of " + std::to_string(width) + "x" +
+           std::to_string(height) + " exceeds its " + std::to_string(seg.w) +
+           "x" + std::to_string(seg.h));
+    if (ncomp != seg.comps)
+      fail("TIFF: JPEG of " + std::to_string(ncomp) + " components for " +
+           std::to_string(seg.comps) + " samples");
+    for (int ci = 0; ci < ncomp; ++ci)
+      if (comp[ci].h != (ci ? 1 : seg.hs) || comp[ci].v != (ci ? 1 : seg.vs))
+        fail("TIFF: improper JPEG sampling factors");
+    if ((long long)width * height > 2LL * (1024 * 1024 * 1024 / 4 / 3))
+      unsupported("frame of " + std::to_string(width) + "x" +
+                  std::to_string(height) + " (past PIL's bomb limit)");
   }
 
   void parse_dqt() {
@@ -276,7 +408,7 @@ struct Jpeg {
     while (pos < end) {
       const int pq_tq = byte();
       const int pq = pq_tq >> 4, tq = pq_tq & 15;
-      if (tq > 3 || pq > 1) fail("JPEG: bad quantisation table");
+      if (tq > 3) fail("JPEG: bad quantisation table");
       for (int k = 0; k < 64; ++k)
         qtab[tq][kNatural[k]] = (uint16_t)(pq ? word() : byte());
       qdef[tq] = true;
@@ -300,9 +432,36 @@ struct Jpeg {
       if (total > 256) fail("JPEG: bad Huffman table (over 256 codes)");
       uint8_t vals[256];
       for (int i = 0; i < total; ++i) vals[i] = byte();
-      make_huff(tc ? ac[th] : dc[th], counts, vals, total, tc == 0);
+      uint8_t* raw = hraw[tc * 4 + th];   // derived at the scan's start
+      memcpy(raw, counts, 17);
+      memset(raw + 17, 0, 256);
+      memcpy(raw + 17, vals, total);
+      hdef[tc * 4 + th] = true;
     }
     if (pos != end) fail("JPEG: bad DHT length");
+  }
+
+  // a scan's Huffman table as jpeg_make_d_derived_tbl finds it: the one
+  // defined, or libjpeg-turbo's standard table 0 or 1 (jstdhuff.c), which
+  // then stays defined
+  void derive(int tc, int th) {
+    const int k = tc * 4 + th;
+    if (!hdef[k]) {
+      if (th > 1) fail("JPEG: scan uses an undefined Huffman table");
+      const uint8_t* counts = tc ? (th ? kStdAcChromaBits : kStdAcLumaBits)
+                                 : (th ? kStdDcChromaBits : kStdDcLumaBits);
+      const uint8_t* vals = tc ? (th ? kStdAcChromaVals : kStdAcLumaVals)
+                               : kStdDcVals;
+      int total = 0;
+      for (int l = 1; l <= 16; ++l) total += counts[l];
+      memcpy(hraw[k], counts, 17);
+      memset(hraw[k] + 17, 0, 256);
+      memcpy(hraw[k] + 17, vals, total);
+      hdef[k] = true;
+    }
+    int total = 0;
+    for (int l = 1; l <= 16; ++l) total += hraw[k][l];
+    make_huff(tc ? ac[th] : dc[th], hraw[k], hraw[k] + 17, total, tc == 0);
   }
 
   void parse_app(int marker) {
@@ -322,6 +481,10 @@ struct Jpeg {
 
   void skip_segment() {
     const int len = word();
+    if (tiff) {                       // skip_variable: a length below 2 skips
+      skip(len - 2);                  // nothing
+      return;
+    }
     if (len < 2) fail("JPEG: bad segment length");
     pos += len - 2;
     if (pos > n) fail("JPEG: truncated file");
@@ -336,10 +499,14 @@ struct Jpeg {
   }
 
   void fill() {
+    if (tiff) {
+      fill_tiff();
+      return;
+    }
     while (bits <= 56) {
       uint8_t b = 0;
       bool data = false;
-      if (!at_marker && pos < n) {
+      if (!at_marker && !unread && pos < n) {
         b = d[pos];
         if (b == 0xFF) {
           if (pos + 1 >= n) {
@@ -365,8 +532,42 @@ struct Jpeg {
     }
   }
 
+  // libjpeg's fill_bit_buffer: bytes up to a marker, which it takes
+  // (unread), zeros after it
+  void fill_tiff() {
+    while (bits <= 56) {
+      uint8_t b = 0;
+      bool data = false;
+      if (!unread) {
+        b = byte();
+        if (b == 0xFF) {
+          do {
+            b = byte();
+          } while (b == 0xFF);
+          if (b == 0) {
+            b = 0xFF;
+            data = true;
+          } else {
+            unread = b;
+            b = 0;
+          }
+        } else {
+          data = true;
+        }
+      }
+      bitbuf |= (uint64_t)b << (56 - bits);
+      bits += 8;
+      if (data) real += 8;
+    }
+  }
+
   void consume(int k) {
-    if (k > real) fail("JPEG: truncated or corrupt entropy-coded data");
+    if (k > real) {
+      // libjpeg-turbo decodes the MCU on with zero bits, and no MCU of the
+      // scan after it (insufficient_data)
+      insufficient = true;
+      real = k;
+    }
     bitbuf <<= k;
     bits -= k;
     real -= k;
@@ -392,7 +593,7 @@ struct Jpeg {
     int code = (int)(bitbuf >> (64 - l));
     while (code > t.maxcode[l]) {
       ++l;
-      if (l > 16) fail("JPEG: corrupt entropy-coded data (bad Huffman code)");
+      if (l > 16) unsupported("bad Huffman code (libjpeg decodes it as a zero)");
       code = (int)(bitbuf >> (64 - l));
     }
     consume(l);
@@ -422,8 +623,7 @@ struct Jpeg {
       const int r = rs >> 4;
       s = rs & 15;
       if (s) {
-        k += r;
-        if (k > 63) fail("JPEG: corrupt entropy-coded data (run past 63)");
+        k += r;       // libjpeg writes a run past 63 to 63 (kNatural's spares)
         blk[kNatural[k]] = (int16_t)extend(get_bits(s), s);
       } else {
         if (r != 15) break;
@@ -432,19 +632,29 @@ struct Jpeg {
     }
   }
 
+  // libjpeg's process_restart: read_restart_marker, and for another
+  // marker than the one expected jpeg_resync_to_restart; data left after
+  // the restart only where the marker was taken
   void restart(int& expected) {
-    // the rest of the byte is padding; the marker follows the data
     reset_bits();
-    while (pos < n && !(d[pos] == 0xFF && pos + 1 < n && d[pos + 1] != 0 &&
-                        d[pos + 1] != 0xFF))
-      ++pos;
-    if (pos + 1 >= n) fail("JPEG: truncated file (missing restart marker)");
-    const int m = d[pos + 1];
-    if (m != 0xD0 + expected)
-      fail("JPEG: corrupt data (expected restart marker " +
-           std::to_string(expected) + ")");
-    pos += 2;
+    if (!unread) unread = next_marker();
+    for (;;) {
+      const int m = unread;
+      const auto rst = [&](int k) { return m == 0xD0 + ((expected + k) & 7); };
+      if (m == 0xD0 + expected) {
+        unread = 0;
+        break;
+      }
+      if (m < 0xC0 || rst(-1) || rst(-2)) {
+        unread = next_marker();       // a prior restart: scan on
+        continue;
+      }
+      if (m < 0xD0 || m > 0xD7 || rst(1) || rst(2)) break;   // left unread
+      unread = 0;                     // too far off: dropped
+      break;
+    }
     expected = (expected + 1) & 7;
+    if (!unread) insufficient = false;
   }
 
   // -- progressive scans: ITU T.81 Annex G, as libjpeg-turbo's jdphuff.c --
@@ -555,14 +765,18 @@ struct Jpeg {
     for (int i = 0; i < ns; ++i) {
       const int cid = byte();
       const int t = byte();
+      // libjpeg-turbo's get_sos: among the first four components, one
+      // whose index is no slot of the scan taken yet (its index i on,
+      // sic), and none twice
       int ci = -1;
-      for (int j = 0; j < ncomp; ++j)
+      for (int j = i; j < ncomp && j < 4 && ci < 0; ++j)
         if (comp[j].id == cid) ci = j;
+      for (int p = 0; p < i && ci >= 0; ++p)
+        if (sc[p] == ci) ci = -1;
       if (ci < 0) fail("JPEG: scan names an unknown component");
       sc[i] = ci;
       td[i] = t >> 4;
       ta[i] = t & 15;
-      if (td[i] > 3 || ta[i] > 3) fail("JPEG: bad scan table ids");
     }
     if (ns > 1) {
       int blocks = 0;
@@ -572,29 +786,41 @@ struct Jpeg {
     }
     const int ss = byte(), se = byte(), ahal = byte();
     const int ah = ahal >> 4, al = ahal & 15;
-    if (!progressive && (ss != 0 || se != 63 || ahal != 0))
-      fail("JPEG: bad spectral selection for a sequential scan");
+    ++scans;
+    if (tiff) first_or_next_scan(ns);
+    // libjpeg only warns of a sequential scan's Ss, Se, Ah and Al
     if (progressive) check_progression(ns, ss, se, ah, al);
     // the tables a scan reads: a DC refinement reads none
     const bool need_dc = !progressive || (ss == 0 && ah == 0);
     const bool need_ac = !progressive || ss != 0;
-    for (int i = 0; i < ns; ++i)
-      if ((need_dc && !dc[td[i]].defined) || (need_ac && !ac[ta[i]].defined))
-        fail("JPEG: scan uses an undefined Huffman table");
     pos = end;
     for (int ci : sc) {
       Component& c = comp[ci];
       if (!c.latched) {
-        if (!qdef[c.tq]) fail("JPEG: undefined quantisation table");
+        if (c.tq > 3 || !qdef[c.tq])
+          fail("JPEG: undefined quantisation table");
         memcpy(c.qt, qtab[c.tq], sizeof(c.qt));
         c.latched = true;
       }
+    }
+    for (int i = 0; i < ns; ++i) {
+      if ((need_dc && td[i] > 3) || (need_ac && ta[i] > 3))
+        fail("JPEG: bad scan table ids");
+      if (need_dc) derive(0, td[i]);
+      if (need_ac) derive(1, ta[i]);
+    }
+    for (int ci : sc) {
+      Component& c = comp[ci];
       c.seen = true;
-      if (progressive)
+      if (progressive) {
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k)
+          c.prev[k] = scans > 1 ? c.bits[k] : 0;
         for (int k = ss; k <= se; ++k) c.bits[k] = al;
+      }
     }
 
     reset_bits();
+    insufficient = false;
     int preds[4] = {0, 0, 0, 0};
     int expected_rst = 0;
     int left = restart_interval;
@@ -624,7 +850,10 @@ struct Jpeg {
       else
         ac_refine(blk, ac[ta[i]], ss, se, al);
     };
-    for (long long m = 0; m < total; ++m) {
+    // the rows read may end the scan early (a single scan in TIFF mode)
+    const long long stop = mcu_rows >= 0 ? std::min(total, mcu_rows * bx)
+                                         : total;
+    for (long long m = 0; m < stop; ++m) {
       if (restart_interval) {
         if (left == 0) {
           restart(expected_rst);
@@ -635,6 +864,8 @@ struct Jpeg {
         --left;
       }
       const int mx = (int)(m % bx), my = (int)(m / bx);
+      if (insufficient) continue;      // libjpeg leaves the rest zero
+      last_good = ns == 1 ? my / comp[sc[0]].v : my;
       if (ns == 1) {
         Component& c = comp[sc[0]];
         block(0, &c.coef[((size_t)my * c.bw + mx) * 64]);
@@ -650,14 +881,44 @@ struct Jpeg {
         }
       }
     }
+    if (stop < total) {
+      stopped = true;
+      return;
+    }
     reset_bits();
+  }
+
+  // At a strip's first scan: jpeg_start_decompress's reading, a stream
+  // of several scans read
+  // whole (and refused at its 100th, libtiff's progress monitor), a
+  // single scan only as far as the rows read need (JPEGDecode, the
+  // upsampler's context rows included)
+  void first_or_next_scan(int ns) {
+    if (scans > 1) {
+      if (!multi_scan) fail("JPEG: a second scan in a single-scan stream");
+      if (scans >= 100)
+        fail("TIFF: JPEG of 100 scans or more (libtiff's limit)");
+      return;
+    }
+    multi_scan = progressive || ns < ncomp;
+    const long long rows = std::min<long long>(seg.rows, height);
+    if (multi_scan || rows >= height) return;
+    const long long H = 8LL * vmax, last = rows - 1;
+    bool context = false;
+    for (const Component& c : comp) {
+      const int hr = hmax / c.h, vr = vmax / c.v;
+      if (vr == 2 && (hr == 1 || (hr == 2 && c.dw > 2))) context = true;
+    }
+    mcu_rows = last / H + 1;
+    if (context && (last % H) / vmax == 7 && mcu_rows < mcuy) ++mcu_rows;
   }
 
   void parse(bool header_only) {
     if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) fail("JPEG: no SOI marker");
     pos = 2;
     for (;;) {
-      const int m = next_marker();
+      const int m = unread ? unread : next_marker();
+      unread = 0;
       if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         parse_sof(m);
         if (header_only) return;
@@ -697,6 +958,72 @@ struct Jpeg {
       if (!c.seen) fail("JPEG: truncated file (a component has no scan)");
   }
 
+  // libjpeg's read_markers as libtiff drives it: jpeg_read_header(FALSE)
+  // of the JPEGTables field (``tables_only``: tables up to EOI, no frame),
+  // or a strip's or tile's stream read as jpeg_read_header(TRUE),
+  // jpeg_start_decompress and the rows JPEGDecode reads. After a single
+  // scan whose rows were all read, jpeg_finish_decompress reads on to EOI,
+  // its tables kept, but libtiff takes its failure for success. Markers
+  // libjpeg refuses are refused; RSTn and TEM are passed over.
+  void parse_tiff(bool tables_only) {
+    if (byte() != 0xFF || byte() != 0xD8) fail("JPEG: no SOI marker");
+    while (marker_tiff(tables_only)) {
+      if (stopped) return;
+      if (scans && !multi_scan) {
+        try {
+          while (marker_tiff(false)) {
+          }
+        } catch (const Error&) {
+        }
+        return;
+      }
+    }
+    if (tables_only ? sof : !scans)
+      fail(sof ? "JPEG: a frame header and no scan" : "JPEG: no image");
+  }
+
+  // one marker and its segment (and a scan's data); false at EOI
+  bool marker_tiff(bool tables_only) {
+    const int m = unread ? unread : next_marker();
+    unread = 0;
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      parse_sof(m);
+    } else if (m == 0xC3 || m == 0xCB) {
+      unsupported("lossless");
+    } else if (m == 0xC9 || m == 0xCA) {
+      unsupported("arithmetic coding");
+    } else if (m == 0xCC) {                 // get_dac: checked, not used
+      int len = word() - 2;
+      while (len > 0) {
+        const int index = byte(), val = byte();
+        len -= 2;
+        if (index >= 32 || (index >= 16 ? val < 1 || val > 63
+                                        : (val & 15) > (val >> 4)))
+          fail("JPEG: bad DAC");
+      }
+      if (len != 0) fail("JPEG: bad DAC length");
+    } else if (m == 0xC4) {
+      parse_dht();
+    } else if (m == 0xDB) {
+      parse_dqt();
+    } else if (m == 0xDD) {
+      if (word() != 4) fail("JPEG: bad DRI length");
+      restart_interval = word();
+    } else if (m == 0xDA) {
+      if (tables_only) fail("TIFF: a scan in JPEGTables");
+      parse_sos();
+    } else if (m == 0xD9) {
+      return false;
+    } else if (m == 0xD8) {
+      fail("JPEG: corrupt data (SOI inside the image)");
+    } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
+      skip_segment();
+    } else if (!((m >= 0xD0 && m <= 0xD7) || m == 0x01)) {
+      fail("JPEG: marker " + std::to_string(m) + " that libjpeg refuses");
+    }
+    return true;
+  }
+
   // libjpeg's colour space of the file (jdapimin.c's
   // default_decompress_parms)
   Colour colour() const {
@@ -711,125 +1038,95 @@ struct Jpeg {
   }
 };
 
-// -- IDCT: jpeg_idct_islow ------------------------------------------------
+// -- IDCT: jpeg_idct_islow as libjpeg-turbo's SIMD code computes it ------
 
 constexpr int kConstBits = 13, kPass1Bits = 2;
-constexpr long kF0_298 = 2446, kF0_390 = 3196, kF0_541 = 4433,
-               kF0_765 = 6270, kF0_899 = 7373, kF1_175 = 9633,
-               kF1_501 = 12299, kF1_847 = 15137, kF1_961 = 16069,
-               kF2_053 = 16819, kF2_562 = 20995, kF3_072 = 25172;
 
-inline long descale(long x, int n) { return (x + (1L << (n - 1))) >> n; }
+// jidctint.c's islow IDCT (CONST_BITS 13, PASS1_BITS 2) as libjpeg-
+// turbo's SIMD code computes it on x86 (jidctint-sse2.asm,
+// jidctint-avx2.asm), which PIL's libjpeg-turbo runs there: the C code's
+// products, but the dequantised coefficients, in0 +- in4 and the odd
+// part's in7 + in3 and in5 + in1 held in 16 bits (wrapping), each pass's
+// results saturated to 16 bits, a block whose rows 1-7 are all zero
+// taking DC x Q << 2 in 16 bits as its first pass, and the samples
+// saturated to 0-255 where the C code's range limit wraps them. Where no
+// value leaves 16 bits the C code gives the same numbers.
+inline int16_t wrap16(int32_t v) { return (int16_t)(uint16_t)(uint32_t)v; }
 
-// the post-IDCT range limit: (x & 1023) as a signed 10-bit value, + 128,
-// clamped to 0..255
-inline uint8_t idct_limit(long x) {
-  int v = (int)(x & 1023);
-  if (v >= 512) v -= 1024;
-  v += 128;
-  return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+inline int16_t sat16(int32_t v) {
+  return (int16_t)(v > 32767 ? 32767 : (v < -32768 ? -32768 : v));
 }
 
-void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
-                int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const int16_t* qp = q + c;
-    long z1, z2, z3, z4, z5, t0, t1, t2, t3, t10, t11, t12, t13;
-    z2 = (long)ip[16] * qp[16];
-    z3 = (long)ip[48] * qp[48];
-    z1 = (z2 + z3) * kF0_541;
-    t2 = z1 + z3 * (-kF1_847);
-    t3 = z1 + z2 * kF0_765;
-    z2 = (long)ip[0] * qp[0];
-    z3 = (long)ip[32] * qp[32];
-    t0 = (z2 + z3) * (1L << kConstBits);
-    t1 = (z2 - z3) * (1L << kConstBits);
-    t10 = t0 + t3;
-    t13 = t0 - t3;
-    t11 = t1 + t2;
-    t12 = t1 - t2;
-    t0 = (long)ip[56] * qp[56];
-    t1 = (long)ip[40] * qp[40];
-    t2 = (long)ip[24] * qp[24];
-    t3 = (long)ip[8] * qp[8];
-    z1 = t0 + t3;
-    z2 = t1 + t2;
-    z3 = t0 + t2;
-    z4 = t1 + t3;
-    z5 = (z3 + z4) * kF1_175;
-    t0 *= kF0_298;
-    t1 *= kF2_053;
-    t2 *= kF3_072;
-    t3 *= kF1_501;
-    z1 *= -kF0_899;
-    z2 *= -kF2_562;
-    z3 *= -kF1_961;
-    z4 *= -kF0_390;
-    z3 += z5;
-    z4 += z5;
-    t0 += z1 + z3;
-    t1 += z2 + z4;
-    t2 += z2 + z3;
-    t3 += z1 + z4;
-    const int sh = kConstBits - kPass1Bits;
-    ws[c + 0] = (int)descale(t10 + t3, sh);
-    ws[c + 56] = (int)descale(t10 - t3, sh);
-    ws[c + 8] = (int)descale(t11 + t2, sh);
-    ws[c + 48] = (int)descale(t11 - t2, sh);
-    ws[c + 16] = (int)descale(t12 + t1, sh);
-    ws[c + 40] = (int)descale(t12 - t1, sh);
-    ws[c + 24] = (int)descale(t13 + t0, sh);
-    ws[c + 32] = (int)descale(t13 - t0, sh);
+// One 1-D pass over x[0], x[xs], ..., x[7 xs] into o[0], o[os], ...: the
+// products and sums in 32-bit lanes (wrapping), then add, shift, pack.
+template <int kShift>
+inline void idct_1d_simd(const int16_t* x, int xs, int16_t* o, int os) {
+  using U = uint32_t;
+  const U x1 = (U)x[xs], x2 = (U)x[2 * xs], x3 = (U)x[3 * xs],
+          x5 = (U)x[5 * xs], x6 = (U)x[6 * xs], x7 = (U)x[7 * xs];
+  const U tmp3 = x2 * 10703u + x6 * 4433u;
+  const U tmp2 = x2 * 4433u - x6 * 10704u;
+  const U tmp0 = (U)(int32_t)wrap16(x[0] + x[4 * xs]) << 13;
+  const U tmp1 = (U)(int32_t)wrap16(x[0] - x[4 * xs]) << 13;
+  const U t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
+  const U t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+  const U z3 = (U)(int32_t)wrap16((int)x[7 * xs] + x[3 * xs]);
+  const U z4 = (U)(int32_t)wrap16((int)x[5 * xs] + x[xs]);
+  const U Z3 = z4 * 9633u - z3 * 6436u, Z4 = z3 * 9633u + z4 * 6437u;
+  const U a0 = Z3 - x7 * 4927u - x1 * 7373u;
+  const U a3 = Z4 - x7 * 7373u + x1 * 4926u;
+  const U a1 = Z4 - x5 * 4176u - x3 * 20995u;
+  const U a2 = Z3 - x5 * 20995u + x3 * 4177u;
+  const auto d = [](U v) {
+    return sat16((int32_t)(v + (1u << (kShift - 1))) >> kShift);
+  };
+  o[0] = d(t10 + a3);
+  o[7 * os] = d(t10 - a3);
+  o[os] = d(t11 + a2);
+  o[6 * os] = d(t11 - a2);
+  o[2 * os] = d(t12 + a1);
+  o[5 * os] = d(t12 - a1);
+  o[3 * os] = d(t13 + a0);
+  o[4 * os] = d(t13 - a0);
+}
+
+void idct_simd(const int16_t* in, const int16_t* q, uint8_t* out,
+               int stride) {
+  int16_t dq[64], ws[64], res[8];
+  bool ac_rows = false;
+  for (int k = 8; k < 64; ++k) ac_rows |= in[k] != 0;
+  if (!ac_rows) {
+    for (int c = 0; c < 8; ++c) {
+      const int16_t dc = wrap16(wrap16((int32_t)in[c] * q[c]) * 4);
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
+    }
+  } else {
+    for (int k = 0; k < 64; ++k) dq[k] = wrap16((int32_t)in[k] * q[k]);
+    for (int c = 0; c < 8; ++c) {
+      bool ac = false;
+      for (int r = 1; r < 8; ++r) ac |= in[r * 8 + c] != 0;
+      if (ac) {
+        idct_1d_simd<kConstBits - kPass1Bits>(dq + c, 8, ws + c, 8);
+      } else {                  // the same pass on a lone DC: 4 x DC
+        const int16_t v = sat16(4 * (int32_t)dq[c]);
+        for (int r = 0; r < 8; ++r) ws[r * 8 + c] = v;
+      }
+    }
   }
   for (int r = 0; r < 8; ++r) {
-    const int* w = ws + 8 * r;
+    const int16_t* w = ws + r * 8;
     uint8_t* o = out + (size_t)r * stride;
-    long z1, z2, z3, z4, z5, t0, t1, t2, t3, t10, t11, t12, t13;
-    z2 = w[2];
-    z3 = w[6];
-    z1 = (z2 + z3) * kF0_541;
-    t2 = z1 + z3 * (-kF1_847);
-    t3 = z1 + z2 * kF0_765;
-    t0 = ((long)w[0] + w[4]) * (1L << kConstBits);
-    t1 = ((long)w[0] - w[4]) * (1L << kConstBits);
-    t10 = t0 + t3;
-    t13 = t0 - t3;
-    t11 = t1 + t2;
-    t12 = t1 - t2;
-    t0 = w[7];
-    t1 = w[5];
-    t2 = w[3];
-    t3 = w[1];
-    z1 = t0 + t3;
-    z2 = t1 + t2;
-    z3 = t0 + t2;
-    z4 = t1 + t3;
-    z5 = (z3 + z4) * kF1_175;
-    t0 *= kF0_298;
-    t1 *= kF2_053;
-    t2 *= kF3_072;
-    t3 *= kF1_501;
-    z1 *= -kF0_899;
-    z2 *= -kF2_562;
-    z3 *= -kF1_961;
-    z4 *= -kF0_390;
-    z3 += z5;
-    z4 += z5;
-    t0 += z1 + z3;
-    t1 += z2 + z4;
-    t2 += z2 + z3;
-    t3 += z1 + z4;
-    const int sh = kConstBits + kPass1Bits + 3;
-    o[0] = idct_limit(descale(t10 + t3, sh));
-    o[7] = idct_limit(descale(t10 - t3, sh));
-    o[1] = idct_limit(descale(t11 + t2, sh));
-    o[6] = idct_limit(descale(t11 - t2, sh));
-    o[2] = idct_limit(descale(t12 + t1, sh));
-    o[5] = idct_limit(descale(t12 - t1, sh));
-    o[3] = idct_limit(descale(t13 + t0, sh));
-    o[4] = idct_limit(descale(t13 - t0, sh));
+    if (!(w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7])) {
+      // the same pass on a lone DC: (DC + 16) >> 5
+      const int v = (w[0] + 16) >> 5;
+      memset(o, v < -128 ? 0 : (v > 127 ? 255 : v + 128), 8);
+      continue;
+    }
+    idct_1d_simd<kConstBits + kPass1Bits + 3>(w, 1, res, 1);
+    for (int c = 0; c < 8; ++c) {
+      const int v = res[c] < -128 ? -128 : (res[c] > 127 ? 127 : res[c]);
+      o[c] = (uint8_t)(v + 128);
+    }
   }
 }
 
@@ -863,12 +1160,12 @@ bool smoothing_ok(const Jpeg& j) {
 // The estimates for one block: dc[5 * row + col] is the DC of the block at
 // (row - 2, col - 2) from it, as libjpeg's DC01..DC25; ws a copy of the
 // block's coefficients.
-void smooth_block(const Component& c, bool change_dc, const int* dc,
-                  int16_t* ws) {
+void smooth_block(const Component& c, const int* bits, bool change_dc,
+                  const int* dc, int16_t* ws) {
   auto D = [&](int i) -> long { return dc[i - 1]; };   // DC01 is D(1)
   const long q00 = (uint16_t)c.qt[0];
   auto estimate = [&](int zz, long num) {
-    const int pos = kSmoothPos[zz], al = c.bits[zz];
+    const int pos = kSmoothPos[zz], al = bits[zz];
     if (al == 0 || ws[pos] != 0) return;
     const long q = (uint16_t)c.qt[pos];
     num *= q00;
@@ -926,12 +1223,21 @@ void smooth_block(const Component& c, bool change_dc, const int* dc,
 // which in the last iMCU row of a component with v > 1 counts rows as if
 // every iMCU row were as short as the last (it then clamps a row early);
 // rows below the image in an iMCU row are read as their (dummy) blocks.
+// Past iMCU row ``last_good`` (where a stream's data ran out) libjpeg-
+// turbo smooths by the coefficients' Al before the last of ``scans``.
 void idct_plane(const Component& c, int imcu_rows, bool smooth,
-                uint8_t* plane) {
+                uint8_t* plane, int last_good, int scans) {
+  int prev[64];                       // smoothing_ok's latch of them
+  for (int k = 0; k < 64; ++k) prev[k] = scans > 1 ? c.prev[k] : -1;
   const int stride = c.bw * 8;
   const int rows_b = (c.dh + 7) / 8, cols_b = (c.dw + 7) / 8;
-  bool change_dc = true;
-  for (int k = 1; k < 10; ++k) change_dc = change_dc && c.bits[k] == -1;
+  const auto dc_only = [](const int* bits) {
+    bool only = true;
+    for (int k = 1; k < 10; ++k) only = only && bits[k] == -1;
+    return only;
+  };
+  const bool change_dc = dc_only(c.bits);
+  const bool change_dc_prev = dc_only(prev);
   int16_t ws[64];
   int dc[25];
   auto dc_at = [&](int row, int col) -> int {
@@ -959,10 +1265,14 @@ void idct_plane(const Component& c, int imcu_rows, bool smooth,
         for (int y = 0; y < 5; ++y)
           for (int x = 0; x < 5; ++x)
             dc[5 * y + x] = dc_at(rows[y], bx + x - 2);
-        smooth_block(c, change_dc, dc, ws);
+        if (by / c.v > last_good)
+          smooth_block(c, prev, change_dc_prev, dc, ws);
+        else
+          smooth_block(c, c.bits, change_dc, dc, ws);
         blk = ws;
       }
-      idct_islow(blk, c.qt, &plane[(size_t)by * 8 * stride + bx * 8], stride);
+      uint8_t* dst = &plane[(size_t)by * 8 * stride + bx * 8];
+      idct_simd(blk, c.qt, dst, stride);
     }
   }
 }
@@ -1088,6 +1398,36 @@ void cmyk_to_rgb(const uint8_t* const p[4], bool ycck, size_t count,
     for (int k = 0; k < 3; ++k)
       out[3 * i + k] = clamp255(nk - muldiv255(255 - c[k], nk));
   }
+}
+
+// The tables a TIFF page's JPEG streams share: libjpeg keeps them in its
+// decompressor from stream to stream (JPEGTables read once, a stream's own
+// DQT and DHT replacing them for the streams after it). The caller holds
+// them in a buffer of 4096 bytes, zeros at first.
+struct TiffJpegTables {
+  uint16_t q[4][64];
+  uint8_t qdef[4];
+  uint8_t hdef[8];
+  uint8_t hraw[8][17 + 256];
+};
+static_assert(sizeof(TiffJpegTables) <= 4096, "the caller's buffer");
+
+void load_tables(Jpeg& j, const uint8_t* state) {
+  TiffJpegTables t;
+  memcpy(&t, state, sizeof(t));
+  memcpy(j.qtab, t.q, sizeof(t.q));
+  for (int i = 0; i < 4; ++i) j.qdef[i] = t.qdef[i];
+  for (int i = 0; i < 8; ++i) j.hdef[i] = t.hdef[i];
+  memcpy(j.hraw, t.hraw, sizeof(t.hraw));
+}
+
+void save_tables(const Jpeg& j, uint8_t* state) {
+  TiffJpegTables t;
+  memcpy(t.q, j.qtab, sizeof(t.q));
+  for (int i = 0; i < 4; ++i) t.qdef[i] = j.qdef[i];
+  for (int i = 0; i < 8; ++i) t.hdef[i] = j.hdef[i];
+  memcpy(t.hraw, j.hraw, sizeof(t.hraw));
+  memcpy(state, &t, sizeof(t));
 }
 
 void set_err(char* err, int errlen, const std::string& m) {
@@ -2999,7 +3339,7 @@ int isc_jpeg_decode(const uint8_t* data, long long n, uint8_t* out,
     for (int ci = 0; ci < j.ncomp; ++ci) {
       const Component& c = j.comp[ci];
       plane.assign((size_t)c.bh * 8 * c.bw * 8, 0);
-      idct_plane(c, j.mcuy, smooth, plane.data());
+      idct_plane(c, j.mcuy, smooth, plane.data(), j.last_good, j.scans);
       if (j.ncomp == 1) {
         upsample(c, plane.data(), j.hmax, j.vmax, W, H, out);
       } else {
@@ -3420,6 +3760,99 @@ int isc_tiff_packbits(const uint8_t* in, long long n, uint8_t* out,
     return 1;
   }
   return 0;
+}
+
+// A TIFF page's JPEGTables field (in[0, n)) read into the page's tables
+// (state, see TiffJpegTables) as libtiff's JPEGSetupDecode reads it: an
+// abbreviated stream of tables (SOI, DQT and DHT, EOI), a frame or a scan
+// refused.
+int isc_tiff_jpeg_tables(const uint8_t* in, long long n, uint8_t* state,
+                         char* err, int errlen) {
+  try {
+    Jpeg j(in, (size_t)n);
+    j.tiff = true;
+    load_tables(j, state);
+    j.parse_tiff(true);
+    save_tables(j, state);
+    return 0;
+  } catch (const Error& e) {
+    set_err(err, errlen, e.msg);
+    return 1;
+  } catch (const std::exception& e) {
+    set_err(err, errlen, std::string("TIFF: JPEG: ") + e.what());
+    return 2;
+  }
+}
+
+// A JPEG-compressed (7) strip or tile (in[0, n)) as libtiff 4.7's
+// JPEGPreDecode and JPEGDecode have libjpeg(-turbo) decode it for PIL, the
+// page's tables (state) read and updated: the frame checked against the
+// segment seg_w x seg_h (a taller one of equal width, where ``cut_ok``,
+// the last strip, cut to its rows), against ``comps`` components and
+// component 0's sampling (hs, vs; the rest 1 x 1); then min(rows, the
+// frame's height) rows of the frame's width into out (rows of ``stride``
+// bytes), YCbCr to RGB where ``rgb`` (libtiff's JPEGCOLORMODE_RGB), else
+// the components as they are (JCS_UNKNOWN: no colour transform, whatever
+// the markers say). A stream that leaves part of the need_w x need_h the
+// page reads unwritten is refused by name: PIL reads whatever its buffer
+// held there.
+int isc_tiff_jpeg(const uint8_t* in, long long n, uint8_t* state,
+                  long long seg_w, long long seg_h, long long rows,
+                  int cut_ok, int comps, int hs, int vs, int rgb,
+                  long long need_w, long long need_h, uint8_t* out,
+                  long long stride, char* err, int errlen) {
+  try {
+    Jpeg j(in, (size_t)n);
+    j.tiff = true;
+    j.seg.w = seg_w;
+    j.seg.h = seg_h;
+    j.seg.rows = rows;
+    j.seg.cut_ok = cut_ok != 0;
+    j.seg.comps = comps;
+    j.seg.hs = hs;
+    j.seg.vs = vs;
+    load_tables(j, state);
+    j.parse_tiff(false);
+    save_tables(j, state);
+    const int W = j.width, H = (int)std::min<long long>(rows, j.height);
+    const int oc = rgb ? 3 : j.ncomp;
+    if ((rgb && j.ncomp != 3) || (long long)W * oc > stride)
+      fail("TIFF: JPEG rows longer than the strip's");
+    const size_t count = (size_t)W * H;
+    std::vector<std::vector<uint8_t>> full(j.ncomp);
+    std::vector<uint8_t> plane;
+    const bool smooth = smoothing_ok(j);
+    for (int ci = 0; ci < j.ncomp; ++ci) {
+      const Component& c = j.comp[ci];
+      plane.assign((size_t)c.bh * 8 * c.bw * 8, 0);
+      idct_plane(c, j.mcuy, smooth, plane.data(), j.last_good, j.scans);
+      full[ci].resize(count);
+      upsample(c, plane.data(), j.hmax, j.vmax, W, H, full[ci].data());
+    }
+    std::vector<uint8_t> px(count * oc);
+    if (rgb) {
+      ycc_to_rgb(full[0].data(), full[1].data(), full[2].data(), count,
+                 px.data());
+    } else {
+      for (size_t i = 0; i < count; ++i)
+        for (int k = 0; k < oc; ++k) px[i * oc + k] = full[k][i];
+    }
+    for (int y = 0; y < H; ++y)
+      memcpy(out + (size_t)y * stride, &px[(size_t)y * W * oc],
+             (size_t)W * oc);
+    if (W < need_w || H < need_h)
+      j.unsupported("strip or tile of " + std::to_string(W) + "x" +
+                    std::to_string(H) + " where the page reads " +
+                    std::to_string(need_w) + "x" + std::to_string(need_h) +
+                    " (PIL reads what its buffer held past it)");
+    return 0;
+  } catch (const Error& e) {
+    set_err(err, errlen, e.msg);
+    return 1;
+  } catch (const std::exception& e) {
+    set_err(err, errlen, std::string("TIFF: JPEG: ") + e.what());
+    return 2;
+  }
 }
 
 // An LZW strip or tile (in[0, n)) into out[0, out_n), as libtiff 4.7's

@@ -17,9 +17,10 @@ PIL, so it carries its own, to give PIL's arrays bit for bit:
 
 * ``load_image`` / ``load_image_bytes``: JPEG through the host library
   ``csrc/imgdec.cc`` (baseline, extended-sequential and progressive
-  Huffman JPEG of 1, 3 or 4 components; libjpeg's integer IDCT, fancy
-  upsampling, colour space choice and colour tables, and libjpeg-turbo's
-  block smoothing of an incomplete progression; YCbCr, RGB (Adobe
+  Huffman JPEG of 1, 3 or 4 components; libjpeg's integer IDCT as
+  libjpeg-turbo's x86 SIMD code computes it, fancy upsampling, colour
+  space choice and colour tables, and libjpeg-turbo's block smoothing of
+  an incomplete progression; YCbCr, RGB (Adobe
   transform 0 or ids 'R' 'G' 'B'), CMYK and YCCK, the last two read as
   PIL reads them, inverted, then its CMYK -> RGB; built by
   ``ops/_build.load_host`` at first use) and PNG here (chunks and CRCs,
@@ -121,6 +122,9 @@ _SIGS = {"isc_jpeg_info": [_P, _LL, _IP, _IP, _IP, _P, _I],
          "isc_vp8l_alpha_check": [_P, _LL, _LL, _LL, _P, _I],
          "isc_tiff_packbits": [_P, _LL, _P, _LL, _P, _I],
          "isc_tiff_lzw": [_P, _LL, _P, _LL, _I, _P, _I],
+         "isc_tiff_jpeg_tables": [_P, _LL, _P, _P, _I],
+         "isc_tiff_jpeg": [_P, _LL, _P, _LL, _LL, _LL] + [_I] * 5 + [
+             _LL, _LL, _P, _LL, _P, _I],
          "isc_tiff_lab": [_P, _LL, _LL, _P, _P, _P, _I]}
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 # formats that Pillow's plugins recognise (by their ``_accept``
@@ -826,7 +830,7 @@ def _decode_webp(data: bytes) -> np.ndarray:
 # value is a single one (the first of the entry's; every other tag a
 # tuple), the names that an ASCII value of a tag stands for (TiffTags'
 # enums); COMPRESSION_INFO (1 is Pillow's raw decoders', the rest
-# libtiff's; the port reads 1, PackBits, LZW and Deflate)
+# libtiff's; the port reads 1, PackBits, LZW, Deflate and JPEG)
 _TIFF_SIGS = (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+", b"II+\0")
 _TIFF_TYPES = {1: (1, None), 2: (1, None), 3: (2, "H"), 4: (4, "L"),
                5: (8, "L"), 6: (1, "b"), 7: (1, None), 8: (2, "h"),
@@ -928,6 +932,13 @@ _TIFF_NBANDS = {"LA": 2, "PA": 2, "RGB": 3, "LAB": 3, "RGBA": 4, "CMYK": 4}
 # (Image._MAPMODES) rather than decoding it: bytes a pixel
 _TIFF_MAP = {"L": 1, "P": 1, "I;16": 2, "I;16B": 2, "RGBA": 4, "CMYK": 4}
 _BITREV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+# JPEG in TIFF: the bytes of the tables a page's streams share
+# (``isc_tiff_jpeg``'s TiffJpegTables); the field types libtiff reads
+# JPEGTables from (TIFFReadDirEntryByteArray); YCbCrSubsampling's values
+# that its strip and tile sizes take
+_TIFF_JPEG_STATE = 4096
+_LIBTIFF_BYTES = (2, 7) + _LIBTIFF_INTS
+_YCBCR_FACTORS = (1, 2, 4)
 
 
 def _tiff_raw_bits(raw: str):
@@ -1352,6 +1363,49 @@ class _LibTiff:
         except ValueError:
             return False
 
+    def byte_array(self, entry):
+        """TIFFReadDirEntryByteArray of an entry: BYTE, ASCII and
+        UNDEFINED data as it is, the integer types' values where all are
+        0-255; None where libtiff refuses it (or has no data), which
+        leaves the tag unset."""
+        tag, typ, n, field = entry
+        t = self.t
+        if typ not in _LIBTIFF_BYTES or not n:
+            return None
+        size, code = _TIFF_TYPES[typ]
+        if n * size > (8 if t.big else 4):
+            (off,) = struct.unpack(t.e + ("Q" if t.big else "L"),
+                                   field[:8 if t.big else 4])
+            if off + n * size > len(t.data):
+                return None
+            field = t.data[off:off + n * size]
+        raw = field[:n * size]
+        if typ in (1, 2, 7):
+            return raw
+        vals = struct.unpack(f"{t.e}{n}{code}", raw)
+        return bytes(vals) if min(vals) >= 0 and max(vals) <= 255 else None
+
+    def jpeg(self):
+        """The JPEG codec's fields (TIFFInitJPEG's): JPEGTables (347,
+        None where unset: of no values, or refused), and YCbCrSubsampling
+        (530) as JPEGSetupDecode takes it: a pair read strictly, else, for
+        a YCbCr page of three samples in one plane, the first strip's
+        frame header's (JPEGFixupTagsSubsampling), else 2, 2."""
+        entry = self.first.get(347)
+        tables = self.byte_array(entry) if entry else None
+        sub, entry = None, self.first.get(530)
+        if entry is not None and entry[2] == 2:
+            try:
+                vals = self.ints(entry)
+                sub = vals if max(vals) <= 0xFFFF else None
+            except ValueError:
+                pass
+        if sub is None and self.photo == 6 and self.planar == 1 and (
+                self.spp == 3) and self.offsets[0]:
+            sub = _jpeg_frame_sampling(self.t.data, self.offsets[0],
+                                       self.counts[0], self.spp)
+        return tables, tuple(sub or (2, 2))
+
     def strips(self, entry) -> list:
         """TIFFFetchStripThing: the first ``nstrips`` values; too few
         padded with zeros, up to a million strips."""
@@ -1386,6 +1440,64 @@ class _LibTiff:
         if last + space > size:
             counts[-1] = max(size - last, 0)
         return counts
+
+
+def _jpeg_frame_sampling(data: bytes, offset: int, count: int, spp: int):
+    """libtiff's JPEGFixupTagsSubsampling: component 0's sampling
+    factors from the frame header of the stream at ``offset`` (its
+    ``count`` bytes, read from the file in chunks of up to 2048), where
+    the other components' are 1 x 1 and both factors are 1, 2 or 4; None
+    where it finds none (a marker it does not pass over, or the end of
+    the stream or of a chunk the file cannot fill)."""
+    at, left, buf, i = offset, count, b"", 0
+
+    def byte():
+        nonlocal at, left, buf, i
+        if i == len(buf):
+            take = min(2048, left)
+            if not take or at + take > len(data):
+                raise EOFError
+            buf, i, at, left = data[at:at + take], 0, at + take, left - take
+        i += 1
+        return buf[i - 1]
+
+    def skip(k):
+        nonlocal at, left, buf, i
+        if k <= len(buf) - i:
+            i += k
+            return
+        k -= len(buf) - i
+        buf, i = b"", 0
+        at, left = (at + k, left - k) if k <= left else (at, 0)
+    try:
+        while True:
+            m = byte()
+            while m != 0xFF:
+                m = byte()
+            while m == 0xFF:
+                m = byte()
+            if m == 0xD8:
+                continue
+            length = byte() << 8 | byte() if m != 0 else 0
+            if m in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+                if length != 8 + 3 * spp:
+                    return None
+                skip(7)
+                hv = byte()
+                skip(1)
+                for _ in range(spp - 1):
+                    skip(1)
+                    if byte() != 0x11:
+                        return None
+                    skip(1)
+                h, v = hv >> 4, hv & 15
+                return (h, v) if {h, v} <= set(_YCBCR_FACTORS) else None
+            if not (m in (0xFE, 0xDB, 0xDA, 0xC4, 0xDD) or 0xE0 <= m <= 0xEF
+                    ) or length < 2:
+                return None
+            skip(length - 2)
+    except EOFError:
+        return None
 
 
 def _tiff_band(mode: str, raw: str):
@@ -1502,30 +1614,35 @@ def _tiff_rows(t: _Tiff, chunk: bytes, n: int, rowbytes: int,
 
 
 def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
-    """PackBits (32773), LZW (5) and Deflate (8, 32946) as Pillow's libtiff
-    decoder (TiffDecode.c) reads them: libtiff's checks of the header, its
-    reading of the IFD (``_LibTiff``: a size other than Pillow's refused,
-    as PIL refuses it, other samples, bits or compression by name; its
-    planar configuration, strips or tiles and fill order taken), its check
-    of the predictor (LZW's and Deflate's: PackBits has none); each strip
-    (TIFFReadEncodedStrip) or tile (TIFFReadTile) decoded whole, LZW's
-    old-style codes as LZWPreDecode finds them in the first (which fixes
-    the style of the rest), then unpacked a row at a time with the raw
-    mode of fill order 1, 16-bit samples in native order; planar 2 a
-    plane a band of the pixel (8 bits, or the high byte of 16), RGBa's
-    premultiplied colours undone after."""
+    """PackBits (32773), LZW (5), Deflate (8, 32946) and JPEG (7) as
+    Pillow's libtiff decoder (TiffDecode.c) reads them: libtiff's checks of
+    the header, its reading of the IFD (``_LibTiff``: a size other than
+    Pillow's refused, as PIL refuses it, other samples, bits or
+    compression by name; its planar configuration, strips or tiles and
+    fill order taken), its check of the predictor (LZW's and Deflate's:
+    PackBits and JPEG have none); each strip (TIFFReadEncodedStrip) or
+    tile (TIFFReadTile) decoded whole, LZW's old-style codes as
+    LZWPreDecode finds them in the first (which fixes the style of the
+    rest), a JPEG one by ``_TiffJpeg``; then unpacked a row at a time
+    with the raw mode of fill order 1, 16-bit samples in native order;
+    planar 2 a plane a band of the pixel (8 bits, or the high byte of
+    16), RGBa's premultiplied colours undone after."""
     name = _TIFF_CODECS[t.compression]
-    if name not in ("PackBits", "LZW", "Deflate"):
+    if name not in ("PackBits", "LZW", "Deflate", "JPEG"):
         raise ValueError(f"unsupported: TIFF {name} compression (the "
-                         "decoders read uncompressed, PackBits, LZW and "
-                         "Deflate TIFF)")
+                         "decoders read uncompressed, PackBits, LZW, "
+                         "Deflate and JPEG TIFF)")
     data, e = t.data, t.e
     if not (data[:4] in (b"II*\0", b"MM\0*") or (
             data[:4] in (b"II+\0", b"MM\0+")
             and struct.unpack(e + "HH", data[4:8]) == (8, 0))):
         raise ValueError("TIFF: a header that libtiff refuses")
     lt = _LibTiff(t)
-    if 6 in (t.photo, lt.photo):
+    jpeg = name == "JPEG"
+    if jpeg and (t.photo == 6) != (lt.photo == 6):
+        raise ValueError("unsupported: TIFF tags that libtiff reads "
+                         "otherwise than Pillow (photometric)")
+    if 6 in (t.photo, lt.photo) and not jpeg:
         raise ValueError(f"unsupported: TIFF YCbCr under {name} (PIL reads "
                          "it through libtiff's RGBA interface)")
     if (lt.w, lt.h) != (t.w, t.h):
@@ -1535,16 +1652,20 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
         raise ValueError("unsupported: TIFF tags that libtiff reads "
                          "otherwise than Pillow (samples, bits, compression "
                          f"{theirs})")
-    predictor = lt.predictor if name != "PackBits" else 1
     bits = t.bps[0]
+    ycbcr = jpeg and lt.photo == 6
+    if jpeg:
+        _tiff_jpeg_checks(t, lt, ycbcr)
+    predictor = lt.predictor if name in ("LZW", "Deflate") else 1
     if predictor == 3 and (lt.fmt != 3 or bits not in (16, 24, 32, 64)):
         raise ValueError(f"TIFF: floating-point predictor at {bits} bits "
                          f"of sample format {lt.fmt}")
     if predictor not in (1, 2, 3) or (predictor == 2
                                       and bits not in (8, 16, 32, 64)):
         raise ValueError(f"TIFF: predictor {predictor} at {bits} bits")
-    # libtiff reverses the bits itself: fill order 1's raw mode
-    raw = _TIFF_OPEN[t.key[:3] + (1,) + t.key[4:]][1]
+    # libtiff reverses the bits itself (but not JPEG's): fill order 1's
+    # raw mode; a YCbCr page under JPEG comes as RGB (JPEGCOLORMODE_RGB)
+    raw = "RGB" if ycbcr else _TIFF_OPEN[t.key[:3] + (1,) + t.key[4:]][1]
     if raw == "I;16":
         raw = "I;16N"
     elif raw.endswith((";16B", ";16L")):
@@ -1591,6 +1712,7 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
         raise ValueError(f"TIFF: {raw} rows longer than the planes' (PIL "
                          "reads past them)")
     img, old_lzw = _tiff_canvas(t), None
+    codec = _TiffJpeg(lt, ycbcr, spp) if jpeg else None
     for index, x, y, n, plane in blocks:
         start, size = lt.offsets[index], lt.counts[index]
         if size > 1 << 20 and (size - 4096) // 10 > whole:
@@ -1599,15 +1721,21 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
             raise ValueError(f"TIFF: strip or tile {index} past the end "
                              "of the file")
         chunk = data[start:start + size]
-        if lt.fill == 2:
-            chunk = _BITREV[np.frombuffer(chunk, np.uint8)].tobytes()
-        if old_lzw is None:
-            old_lzw = chunk[:1] == b"\0" and len(chunk) > 1 and chunk[1] & 1
         rows = tl if tiled else n
-        chunk = _tiff_codec(t, chunk, rows * rowbytes, bool(old_lzw))
-        rows = _tiff_rows(t, chunk, rows, rowbytes, predictor,
-                          separate)
         xs, ys = min(tw, w - x), min(n, h - y)
+        if codec:
+            rows = codec.decode(chunk, (tw, tl) if tiled else (w, n), rows,
+                                not tiled and y + n == h, (xs, ys),
+                                rowbytes)
+        else:
+            if lt.fill == 2:
+                chunk = _BITREV[np.frombuffer(chunk, np.uint8)].tobytes()
+            if old_lzw is None and name == "LZW":
+                old_lzw = chunk[:1] == b"\0" and len(chunk) > 1 and (
+                    chunk[1] & 1)
+            chunk = _tiff_codec(t, chunk, rows * rowbytes, bool(old_lzw))
+            rows = _tiff_rows(t, chunk, rows, rowbytes, predictor,
+                              separate)
         if separate and planes > 1:
             v = rows[:ys, 1::2] if bits == 16 else rows[:ys]
             img[y:y + ys, x:x + xs, plane] = v[:, :xs]
@@ -1618,6 +1746,64 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
             338, (0,))[:1] in ((0,), (1,)):
         img[:] = _tiff_unpremultiply(img)
     return img
+
+
+def _tiff_jpeg_checks(t: _Tiff, lt: _LibTiff, ycbcr: bool) -> None:
+    """What PIL refuses, or the port leaves to later work, of a JPEG page
+    before its strips are read: samples of other than 8 bits (named; a
+    stream's precision must equal them), a YCbCr page that Pillow and
+    libtiff lay out otherwise, or in separate planes (named: PIL reads it
+    through libtiff's RGBA interface), or whose libtiff sizes refuse its
+    subsampling, or of other than three samples (Pillow has no raw mode
+    "RGB" for its mode)."""
+    if t.bps[0] != 8:
+        raise ValueError(f"unsupported: TIFF JPEG at {t.bps[0]} bits")
+    if not ycbcr:
+        return
+    if lt.planar != 1:
+        raise ValueError("unsupported: TIFF YCbCr under JPEG in separate "
+                         "planes (PIL reads it through libtiff's RGBA "
+                         "interface)")
+    if t.planar != lt.planar:
+        raise ValueError("unsupported: TIFF tags that libtiff reads "
+                         "otherwise than Pillow (planar configuration)")
+    if t.mode != "RGB":
+        raise ValueError(f"TIFF: YCbCr in mode {t.mode} (no raw mode RGB)")
+
+
+class _TiffJpeg:
+    """A page's JPEG strips or tiles as libtiff's JPEG codec decodes them
+    for Pillow (``isc_tiff_jpeg``): JPEGTables read once, first
+    (``isc_tiff_jpeg_tables``), the tables then carried from each stream
+    to the next; YCbCr converted to RGB (under planar 1, the only YCbCr
+    layout taken), every other page's components handed over as stored;
+    the stored bytes never reversed (TIFF_NOBITREV, whatever the fill
+    order)."""
+
+    def __init__(self, lt: _LibTiff, ycbcr: bool, comps: int):
+        self.state = np.zeros(_TIFF_JPEG_STATE, np.uint8)
+        tables, self.sampling = lt.jpeg()
+        if ycbcr and not set(self.sampling) <= set(_YCBCR_FACTORS):
+            raise ValueError(f"TIFF: YCbCr subsampling {self.sampling}")
+        if not ycbcr:
+            self.sampling = (1, 1)
+        if tables is not None:
+            _call(_lib().isc_tiff_jpeg_tables, tables, len(tables),
+                  self.state.ctypes.data)
+        self.ycbcr, self.comps = ycbcr, comps
+
+    def decode(self, chunk, segment, rows, last, need, stride):
+        """[rows, stride] uint8: the stream ``chunk`` of a strip or tile
+        whose segment is ``segment`` = (width, height) (``last``: the
+        image's last strip, which a taller stream of its width may
+        overrun), of which the page reads ``need`` = (columns, rows)."""
+        out = np.zeros((rows, stride), np.uint8)
+        _call(_lib().isc_tiff_jpeg, chunk, len(chunk),
+              self.state.ctypes.data, segment[0], segment[1], rows,
+              int(last), self.comps,
+              *self.sampling, int(self.ycbcr), need[0], need[1],
+              out.ctypes.data, stride)
+        return out
 
 
 def _mat3_inverse(a):
@@ -1782,8 +1968,8 @@ def _tiff_mapped(t: _Tiff):
 def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
     """The first page of a TIFF as PIL opens it: Pillow's TiffImagePlugin
     (the header, the first IFD, the layout's mode and raw mode of
-    OPEN_INFO, the strips or tiles) and, for PackBits and Deflate,
-    libtiff's decoding; the Orientation tag applied (ImageOps.
+    OPEN_INFO, the strips or tiles) and, for PackBits, LZW, Deflate and
+    JPEG, libtiff's decoding; the Orientation tag applied (ImageOps.
     exif_transpose, as ``load_end`` does for TIFF), then PIL's conversion
     to RGB. ``mapped``: read as from a path (``_tiff_mapped``)."""
     t = _Tiff(data)
@@ -1811,13 +1997,16 @@ def load_image_bytes(data: bytes) -> np.ndarray:
     progressive, every GIF (its first frame), every BMP and every WebP,
     lossless (VP8L) or lossy (VP8, with ALPH or not), simple, extended or
     the first frame of an animation, and the first page of every TIFF,
-    uncompressed, PackBits, LZW or Deflate (strips or tiles, planar or
-    not, either byte order, BigTIFF, horizontal or floating-point
-    prediction, its orientation applied), that PIL opens. What PIL
-    refuses, and what the decoders do not take (lossless, hierarchical,
-    arithmetic, 12-bit or 2-component JPEG; TIFF's other compressions,
-    JPEG and CCITT among them, YCbCr under PackBits, LZW or Deflate; PPM
-    and the other formats of ``_REFUSED``, by name), raises ValueError."""
+    uncompressed, PackBits, LZW, Deflate or JPEG (strips or tiles, planar
+    or not, either byte order, BigTIFF, horizontal or floating-point
+    prediction, YCbCr under JPEG in one plane, its orientation applied),
+    that PIL opens. What PIL refuses, and what the decoders do not take
+    (lossless, hierarchical, arithmetic, 12-bit or 2-component JPEG;
+    TIFF's other compressions, old-style JPEG and CCITT among them, JPEG
+    at other than 8 bits, YCbCr under PackBits, LZW or Deflate or in
+    planes under JPEG, a JPEG strip with a bad Huffman code or short of
+    its segment; PPM and the other formats of ``_REFUSED``, by name),
+    raises ValueError."""
     data = bytes(data)
     if data[:2] == b"\xff\xd8":
         return _decode_jpeg(data)

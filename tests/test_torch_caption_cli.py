@@ -179,9 +179,9 @@ def test_caption_run_reads_lossy_webp_as_jax(tree, tmp_path):
 def test_caption_run_reads_tiff_as_jax(tree, tmp_path):
     """TIFFs, which the port's decoders refused before: an RGBA under
     Deflate with predictor 2 and orientation 6 (PIL turns it), a
-    big-endian PackBits file in planar tiles, an uncompressed grey one
-    and PIL's LZW with predictor 2: the records equal the JAX
-    package's."""
+    big-endian PackBits file in planar tiles, an uncompressed grey one,
+    PIL's LZW with predictor 2 and PIL's YCbCr JPEG: the records equal
+    the JAX package's."""
     from PIL import Image
     from torch_images import write_tiff
     d = tree
@@ -196,8 +196,10 @@ def test_caption_run_reads_tiff_as_jax(tree, tmp_path):
     Image.fromarray(img[:, ::-1]).save(tmp_path / "k.tif",
                                        compression="tiff_lzw",
                                        tiffinfo={317: 2})
+    Image.fromarray(img[::-1, ::-1]).convert("YCbCr").save(
+        tmp_path / "l.tif", compression="jpeg", quality=80)
     args = ["-i", *(str(tmp_path / n) for n in ("h.tif", "i.tiff",
-                                                "j.tif", "k.tif")),
+                                                "j.tif", "k.tif", "l.tif")),
             "--rl_model", str(d / "rl.ckpt"),
             "--concept_model", str(d / "cpt.ckpt"),
             "--resnet101_ckpt", str(d / "resnet.ckpt"),
@@ -207,7 +209,7 @@ def test_caption_run_reads_tiff_as_jax(tree, tmp_path):
     want = jcaption.run(jcaption.build_parser().parse_args(args))
     got = tcaption.run(tcaption.build_parser().parse_args(
         args + ["--device", "cpu"]))
-    assert len(got) == len(want) == 4
+    assert len(got) == len(want) == 5
     for g, w in zip(got, want):
         assert {k: v for k, v in g.items() if k != "score"} == \
             {k: v for k, v in w.items() if k != "score"}

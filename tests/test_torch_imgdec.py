@@ -24,7 +24,10 @@ with and without tRNS. What the decoders refuse raises ValueError naming
 it: lossless, hierarchical and arithmetic-coded JPEG, 12-bit and
 2-component JPEG, a progression libjpeg refuses, a Huffman code no table
 holds, truncated and CRC-corrupt files; each such case also records
-whether PIL decodes it. Corrupted files of every format (GIF and BMP
+whether PIL decodes it. What libjpeg only warns of decodes as PIL decodes
+it: no DHT, a sequential scan's Ss/Se, a restart marker resynced, an AC
+run past 63, coefficients past 16 bits (libjpeg-turbo's SIMD IDCT), a
+marker inside entropy-coded data. Corrupted files of every format (GIF and BMP
 among them: ``test_torch_imgdec_gifbmp.py`` holds their matrix) decode or
 raise ValueError, and headers past PIL's pixel limit are refused. The
 committed fixtures under ``tests/data/torch_images`` are rebuilt and must
@@ -528,6 +531,68 @@ def test_still_refused(kind):
             jpre.load_image_bytes(data)
 
 
+
+def _lenient(kind):
+    """A JPEG that libjpeg decodes, warning at most, where a stricter
+    reader would refuse it."""
+    base = _jpeg(_image(24, 40, "smooth"), quality=80,
+                 restart_marker_blocks=1)
+    segs = torch_images.jpeg_segments(base)
+    if kind == "no DHT":               # libjpeg-turbo's standard tables
+        return b"".join(b for m, b in segs if m != 0xC4)
+    if kind == "sequential Ss Se":     # only warned of
+        sos = bytearray(segs[-2][1])
+        sos[-3:] = b"\x07\x05\x11"
+        return b"".join(b if m != 0xDA else bytes(sos) for m, b in segs)
+    if kind in ("marker in the data", "marker in a progressive scan"):
+        # an EOI inside the first scan's data: zero bits for the MCU where
+        # the bits end, no later MCU of the scan (128s), then the end
+        data = _jpeg(_image(24, 40, "smooth"), quality=80,
+                     progressive=kind != "marker in the data")
+        sos = data.index(b"\xff\xda")
+        at = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big") + 10
+        return data[:at] + b"\xff\xd9" + data[at:]
+    if kind == "restart resync":       # RST4 where RST0 is due: dropped
+        at = base.index(b"\xff\xd0")
+        return base[:at + 1] + b"\xd4" + base[at + 2:]
+    if kind == "run past 63":
+        # an 8x8 grey block: DC category 0 (code 0), then four times AC
+        # (15, 1) (code 00) and a one bit; the last lands on coefficient
+        # 64, which libjpeg writes to 63
+        return (b"\xff\xd8" + seg(0xDB, bytes(65)[:1] + bytes([1] * 64))
+                + seg(0xC0, struct.pack(">BHHB", 8, 8, 8, 1) + b"\x01\x11\x00")
+                + seg(0xC4, b"\x00\x01" + bytes(15) + b"\x00")
+                + seg(0xC4, b"\x10\x00\x02" + bytes(14) + b"\xf1\x00")
+                + seg(0xDA, b"\x01\x01\x00\x00\x3f\x00")
+                + b"\x12\x4f\xff\xd9")
+    # quantisers raised past 16 bits of dequantised coefficients:
+    # libjpeg-turbo's x86 SIMD IDCT (16-bit wraps, saturation)
+    j = bytearray(write_jpeg(32, 24, [(2, 2), (1, 1), (1, 1)],
+                             np.random.default_rng(11)))
+    g = np.random.default_rng(12)
+    for at in [i for i in range(len(j) - 1) if j[i:i + 2] == b"\xff\xdb"]:
+        j[at + 5:at + 69] = bytes(g.integers(100, 256, 64).tolist())
+    return bytes(j)
+
+
+@pytest.mark.parametrize("kind", ["no DHT", "sequential Ss Se",
+                                  "restart resync", "run past 63",
+                                  "SIMD IDCT", "marker in the data",
+                                  "marker in a progressive scan"])
+def test_libjpeg_leniencies(kind):
+    """What libjpeg reads on where a stricter reader would refuse, as
+    PIL's own JPEG plugin reads it (the rules JPEG in TIFF shares): no
+    DHT (libjpeg-turbo's standard tables), a sequential scan's Ss, Se, Ah
+    and Al, a restart marker of a far-off number (resynced by dropping
+    it), an AC run past coefficient 63, coefficients whose dequantised
+    values leave 16 bits (libjpeg-turbo's SIMD IDCT), and a marker inside
+    a scan's entropy-coded data (libjpeg's insufficient data; a
+    progressive file's smoothing past the last good row)."""
+    data = _lenient(kind)
+    assert jpre.load_image_bytes(data).ndim in (2, 3)
+    _same(data)
+
+
 def test_decompression_bombs_refused():
     """Headers that declare more pixels than PIL allows are refused before
     anything is allocated, interlaced or not (a JPEG frame, a PNG header,
@@ -699,7 +764,7 @@ def test_fixtures_match_pil():
             assert f.read() == data, name
     sizes = sum(os.path.getsize(os.path.join(torch_images.DIR, n))
                 for n in committed)
-    assert len(committed) <= 50 and sizes < 650_000
+    assert len(committed) <= 53 and sizes < 650_000
     with np.load(os.path.join(torch_images.DIR, "expected.npz")) as npz:
         want = torch_images.decode_expected(npz)
     pil = torch_images.expected(files)

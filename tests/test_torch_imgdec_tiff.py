@@ -17,8 +17,9 @@ NaN. PIL's own
 files. Refusals as PIL refuses: truncated strips, PackBits runs past the
 strip and streams that end early, damaged Deflate streams, offsets past
 the end, layouts outside OPEN_INFO, raw YCbCr, headers PIL or libtiff
-refuse. What PIL decodes and the port refuses by name (JPEG, CCITT,
-YCbCr under PackBits or Deflate) is recorded, and queued in ROADMAP."""
+refuse. What PIL decodes and the port refuses by name (CCITT, YCbCr
+under PackBits or Deflate) is recorded, and queued in ROADMAP; JPEG's own
+matrix is ``test_torch_imgdec_tiff_jpeg.py``."""
 import io
 import zlib
 
@@ -695,12 +696,12 @@ def test_signature_without_an_image(prefix):
 
 
 @pytest.mark.parametrize("comp,what", [("group3", "CCITT Group 3"),
-                                       ("jpeg", "JPEG"),
+                                       ("tiff_ccitt", "CCITT RLE"),
                                        ("group4", "CCITT Group 4")])
 def test_other_compressions_refused_by_name(comp, what):
     """PIL writes and reads them; the port refuses each by name (queued
     in ROADMAP)."""
-    mode = "1" if comp.startswith("group") else "RGB"
+    mode = "1"
     im = Image.fromarray(np.random.default_rng(20).integers(
         0, 256, (16, 24, 3), dtype=np.uint8)).convert(mode)
     _named(_pil(im, compression=comp), what)

@@ -333,12 +333,22 @@ def test_strip_size_limit():
 
 
 @pytest.mark.parametrize("comp,what,mode", [
-    ("jpeg", "JPEG", "RGB"), ("group3", "CCITT Group 3", "1")])
+    ("ojpeg", "old-style JPEG", "RGB"), ("group3", "CCITT Group 3", "1")])
 def test_still_refused_by_name(comp, what, mode):
-    """JPEG and CCITT in TIFF stay refused by name."""
+    """Old-style JPEG (6; a YCbCr page of the writer's whose strip is
+    PIL's JPEG stream, which PIL reads through libtiff's RGBA interface)
+    and CCITT in TIFF stay refused by name."""
     im = Image.fromarray(np.random.default_rng(13).integers(
         0, 256, (16, 24, 3), dtype=np.uint8)).convert(mode)
-    _named(_pil(im, compression=comp), what)
+    if comp == "ojpeg":
+        def jpeg(part):
+            buf = io.BytesIO()
+            Image.fromarray(part.astype(np.uint8)).save(buf, "JPEG")
+            return buf.getvalue()
+        _agree_or_named(write_tiff(np.asarray(im), 8, 6, compression=6,
+                                   jpeg=jpeg), what)
+    else:
+        _named(_pil(im, compression=comp), what)
 
 
 def test_ycbcr_under_lzw_refused_by_name():

@@ -283,9 +283,10 @@ def test_preprocess_features_reads_lossy_webp(weights, tmp_path):
 
 def test_preprocess_features_reads_tiff(weights, tmp_path):
     """``preprocess features`` over a folder holding TIFFs (PIL's
-    uncompressed RGB, PackBits palette and LZW (predictor 2) files, the
-    writer's Deflate RGBA with predictor 2 and orientation 6, a 16-bit
-    grey BigTIFF in tiles and an old-style LZW grey file) beside a JPEG:
+    uncompressed RGB, PackBits palette, LZW (predictor 2) and YCbCr JPEG
+    files, the writer's Deflate RGBA with predictor 2 and orientation 6, a
+    16-bit grey BigTIFF in tiles and an old-style LZW grey file) beside a
+    JPEG:
     the port's decoder refused them before, which stopped the whole
     extraction; the features equal the JAX package's."""
     from PIL import Image
@@ -307,6 +308,8 @@ def test_preprocess_features_reads_tiff(weights, tmp_path):
         imgs / "lzw.tif", compression="tiff_lzw", tiffinfo={317: 2})
     (imgs / "old_lzw.tif").write_bytes(write_tiff(
         photo[:, :, 1], 8, compression=5, old_lzw=True, rows_per_strip=7))
+    Image.fromarray(photo[:, ::-1]).convert("YCbCr").save(
+        imgs / "jpeg.tif", compression="jpeg", quality=75)
     Image.fromarray(photo[:, ::-1]).save(imgs / "b.jpg", quality=90)
     pth = str(tmp_path / "resnet101.pth")
     torch.save({k: torch.from_numpy(v) for k, v in
@@ -319,8 +322,8 @@ def test_preprocess_features_reads_tiff(weights, tmp_path):
                "--resnet101_file", pth, "--feat_bucket_shapes", BUCKETS,
                "--feat_batch_size", "2", "--device", "cpu"])
     _assert_stores_close(str(tmp_path / "jax"), str(tmp_path / "port"),
-                         ["b.jpg", "grey16.tif", "lzw.tif", "old_lzw.tif",
-                          "p.tif", "rgb.tif", "turned.tiff"])
+                         ["b.jpg", "grey16.tif", "jpeg.tif", "lzw.tif",
+                          "old_lzw.tif", "p.tif", "rgb.tif", "turned.tiff"])
 
 
 def test_h5_store_is_refused_by_name(tmp_path):

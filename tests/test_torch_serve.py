@@ -107,6 +107,8 @@ def tree(tmp_path_factory, settings):
         tiffinfo={274: 6})
     Image.fromarray(smooth[::-1]).save(
         d / "imgs" / "lzw.tif", compression="tiff_lzw", tiffinfo={317: 2})
+    Image.fromarray(smooth[:, ::-1]).convert("YCbCr").save(
+        d / "imgs" / "jpeg.tif", compression="jpeg", quality=85)
     return d
 
 
@@ -190,6 +192,10 @@ def _payloads(d, settings):
             "lzw_tiff_b64": {"image_b64": b64("lzw.tif"),
                              "sentiment": "auto"},
             "lzw_tiff_path": {"image_path": str(d / "imgs" / "lzw.tif")},
+            "jpeg_tiff_b64": {"image_b64": b64("jpeg.tif"),
+                              "sentiment": "negative"},
+            "jpeg_tiff_path": {"image_path": str(d / "imgs" / "jpeg.tif"),
+                               "sentiment": "negative"},
             "path": {"image_path": str(d / "imgs" / "photo.jpg")}}
 
 
@@ -223,6 +229,7 @@ def test_handle_caption_matches_jax(tree, settings, fakes):
     assert got["tiff_b64"] == got["tiff_path"] == got["tiff_twin_png"]
     assert got["turned_tiff_b64"] == got["turned_tiff_path"]
     assert got["lzw_tiff_b64"] == got["lzw_tiff_path"]     # LZW, predictor 2
+    assert got["jpeg_tiff_b64"] == got["jpeg_tiff_path"]   # YCbCr JPEG
     assert stats["requests"] == len(payloads)
     assert stats["encode"]["by_bucket"]["12x16"] >= 1     # the JPEG
 

@@ -8,7 +8,8 @@ written by PIL, or by the writers here (``write_jpeg``: YCCK;
 ``write_bmp``: what PIL does not write; ``vp8l``: an animation whose
 first frame lies at an offset; ``vp8_frame``: a key frame with the simple
 filter, four token partitions and filter deltas; ``write_tiff``: an
-oriented RGBA Deflate strip, planar tiles, BigTIFF), and ``expected.npz``
+oriented RGBA Deflate strip, planar tiles, BigTIFF, JPEG tiles and a CMYK
+JPEG page of PIL's streams, ``jpeg_coder``), and ``expected.npz``
 holding PIL's decoded arrays (the JAX package's ``load_image_bytes``), for
 the card's machine, which has no PIL. The
 arrays are stored as differences along each row (uint8, wrapping), which
@@ -119,7 +120,8 @@ def _band_syms(zz, i, ss, se, eob):
 
 
 def write_jpeg(width, height, factors, g, *, separate=False, dri=0,
-               progressive=False, markers=seg(0xE0, JFIF), ids=None):
+               progressive=False, markers=seg(0xE0, JFIF), ids=None,
+               bands=((1, 5), (6, 63))):
     """A JPEG of random sparse quantised coefficients (any block content
     is a valid image): ``factors`` [(h, v)] a component (1 to 4), one
     interleaved scan or one scan a component, restart interval ``dri``
@@ -127,8 +129,9 @@ def write_jpeg(width, height, factors, g, *, separate=False, dri=0,
     ``markers`` follow SOI (a JFIF APP0 by default; ``adobe(t)`` for an
     Adobe one, ``b""`` for none); ``ids`` are the component ids (1, 2, ...
     by default). ``progressive``: SOF2 with spectral selection only (Al 0):
-    the DC scan (interleaved unless ``separate``), then bands 1-5 and 6-63
-    of each component, all-zero bands coded as EOB runs."""
+    the DC scan (interleaved unless ``separate``), then the AC ``bands``
+    (1-5 and 6-63 by default) of each component, all-zero bands coded as
+    EOB runs."""
     hmax = max(h for h, _ in factors)
     vmax = max(v for _, v in factors)
     mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
@@ -156,7 +159,7 @@ def write_jpeg(width, height, factors, g, *, separate=False, dri=0,
     groups = [[c] for c in comps] if separate else [comps]
     if progressive:
         scans = [(grp, 0, 0) for grp in groups] + [
-            ([c], ss, se) for c in comps for ss, se in ((1, 5), (6, 63))]
+            ([c], ss, se) for c in comps for ss, se in bands]
     else:
         scans = [(grp, 0, 63) for grp in groups]
     for group, ss, se in scans:
@@ -471,15 +474,17 @@ def tiff_page(samples, bits=8, photometric=None, *, order="<",
               sample_format=1, extra_samples=(), planar=1,
               rows_per_strip=None, tile=None, compression=1, predictor=1,
               fill_order=1, colormap=None, orientation=None, tags=(),
-              offset_type=4, old_lzw=False):
+              offset_type=4, old_lzw=False, jpeg=None):
     """(entries, blocks) of one TIFF page of ``samples`` ([h, w] or [h, w,
     k], each sample ``bits`` wide): strips of ``rows_per_strip`` rows (all
     by default) or ``tile`` = (width, length) tiles, padded at the edges;
     ``planar`` 2: a plane of strips or tiles a sample; ``compression`` 1
     (none), 32773 (PackBits, each row on its own), 5 (LZW, by
-    ``chip_smoke.tiff_lzw``, old-style codes where ``old_lzw``) or 8 /
-    32946 (zlib), with ``predictor`` 2's or 3's differencing first where
-    asked (3: of bits that are a whole number of bytes); ``fill_order`` 2
+    ``chip_smoke.tiff_lzw``, old-style codes where ``old_lzw``), 8 /
+    32946 (zlib) or 6 / 7 (JPEG: each strip or tile's [n, pw, pk] samples
+    coded by ``jpeg``, a function to bytes), with ``predictor`` 2's or 3's
+    differencing first where asked (3: of bits that are a whole number of
+    bytes); ``fill_order`` 2
     reverses the bits of every stored byte. Photometric 1 (grey) for one
     or two samples and 2 (RGB) for more, by default. ``tags``: entries
     (tag, type, values) that replace the page's own of that tag, or add
@@ -493,6 +498,9 @@ def tiff_page(samples, bits=8, photometric=None, *, order="<",
         photometric = 1 if k <= 2 else 2
 
     def encode(part):                 # [n, pw, pk] samples -> stored bytes
+        if compression in (6, 7):
+            data = jpeg(part)
+            return _bitrev(data) if fill_order == 2 else data
         if predictor == 3:
             rows = _tiff_fp_predict(part, bits, sample_format)
         else:
@@ -554,6 +562,44 @@ def tiff_page(samples, bits=8, photometric=None, *, order="<",
         else:
             entries[tag] = (typ, vals)
     return [(t, typ, v) for t, (typ, v) in sorted(entries.items())], blocks
+
+
+def jpeg_coder(quality=75, subsampling=2, **kw):
+    """A coder for ``tiff_page(jpeg=...)``: each [n, w, k] block as PIL's
+    JPEG encoder writes it (k 1 grey, 3 YCbCr, or RGB with ``keep_rgb``,
+    4 CMYK), ``kw`` its other options."""
+    from PIL import Image
+
+    def enc(part):
+        a = np.asarray(part, np.uint8)
+        mode = {1: "L", 3: "RGB", 4: "CMYK"}[a.shape[2]]
+        im = Image.fromarray(a[:, :, 0] if mode == "L" else a, mode)
+        buf = io.BytesIO()
+        im.save(buf, "JPEG", quality=quality, subsampling=subsampling, **kw)
+        return buf.getvalue()
+    return enc
+
+
+def jpeg_segments(j):
+    """A JPEG's marker segments up to its first scan, [(marker, bytes)],
+    then ("data", the rest)."""
+    out, pos = [(0xD8, j[:2])], 2
+    while True:
+        m, n = j[pos + 1], int.from_bytes(j[pos + 2:pos + 4], "big")
+        out.append((m, j[pos:pos + 2 + n]))
+        pos += 2 + n
+        if m == 0xDA:
+            return out + [("data", j[pos:])]
+
+
+def jpeg_split(j):
+    """(tables, the rest): a JPEG's DQT and DHT as an abbreviated tables
+    stream (SOI, tables, EOI), the JPEGTables field's, and the stream
+    without them."""
+    segs = jpeg_segments(j)
+    tables = b"\xff\xd8" + b"".join(b for m, b in segs
+                                    if m in (0xDB, 0xC4)) + b"\xff\xd9"
+    return tables, b"".join(b for m, b in segs if m not in (0xDB, 0xC4))
 
 
 def write_tiff(samples, bits=8, photometric=None, *, order="<",
@@ -1051,6 +1097,26 @@ def build():
     floats = _photo(25, 31, 24)[:, :, 0].astype(np.float32) * 1.25 - 20.5
     save("float_pred3.tif", Image.fromarray(floats, "F"), "TIFF",
          compression="tiff_lzw", tiffinfo={317: 3})
+    # JPEG (7), small smooth photos (the directory's bytes are bounded):
+    # PIL's YCbCr file in strips of 8 rows, the writer's 4:2:0 YCbCr page
+    # in 16x16 tiles (the edges cropped; each tile's own Huffman tables)
+    # with the quantisation tables in JPEGTables,
+    # and a CMYK page of PIL's CMYK JPEG stream (its components as
+    # stored)
+    save("ycbcr_jpeg.tif", Image.fromarray(_photo(16, 12, 25, 0.0)).convert(
+        "YCbCr"), "TIFF", compression="jpeg", quality=70, strip_size=288)
+    entries, blocks = tiff_page(_photo(16, 20, 26, 0.0), 8, 6,
+                                tile=(16, 16), compression=7,
+                                jpeg=jpeg_coder(70, 2, optimize=True))
+    dqt = [b"".join(b for m, b in jpeg_segments(j) if m == 0xDB)
+           for j in blocks]
+    out["ycbcr_tiles_jpeg.tif"] = chip_smoke.tiff_file([(
+        sorted(entries + [(347, 7, b"\xff\xd8" + dqt[0] + b"\xff\xd9"),
+                          (530, 3, [2, 2])]),
+        [j.replace(q, b"") for j, q in zip(blocks, dqt)])])
+    cmyk = Image.fromarray(_photo(16, 16, 27, 0.0)).convert("CMYK")
+    out["cmyk_jpeg.tif"] = write_tiff(np.asarray(cmyk), 8, 5, compression=7,
+                                      jpeg=jpeg_coder(70, 0, optimize=True))
     return out
 
 
