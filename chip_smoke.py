@@ -67,7 +67,8 @@ C++ compiler), then:
    synthetic ``idx2word``, the 2000-concept MLP with ``idx2concept``, the
    full ResNet-101), and its reader must read every leaf back
    bit-identical; ``cli.serve.make_server`` on 127.0.0.1:0 (bf16,
-   ``--warm``, ``--image_root`` the committed fixtures) answers feature
+   ``--warm``, ``--image_root`` a copy of the committed fixtures with a
+   YCbCr TIFF written beside them) answers feature
    requests (auto and forced), ``image_b64`` of the committed JPEG, PNG,
    GIF, BMP and WebP (lossless and lossy) fixtures and four
    ``image_path`` requests (a JPEG, a PNG, a lossless WebP animation and
@@ -82,7 +83,10 @@ C++ compiler), then:
    lies at an offset on its canvas) and lossy WebPs (odd-sized, grey,
    RGBA with its ALPH chunk, a lossy first frame at an offset, the test
    writer's frame with the simple filter and four token partitions, and
-   448x448 at quality 80 and 100) among the fixtures); a
+   448x448 at quality 80 and 100) among the fixtures; and three YCbCr
+   TIFFs of the 448x448 JPEG's pixels written here, which PIL reads
+   through libtiff's RGBA interface: 2 x 2 under LZW, 1 x 1 in separate
+   planes under Deflate, also as ``image_path``, and under JPEG); a
    path outside the root and a 12-bit JPEG (which the decoders and PIL
    both refuse) are 400s, an oversized body 413, /stats, /metrics and /healthz 200,
    and the server drains on shutdown (p50/p99 per bucket printed); the
@@ -96,9 +100,10 @@ C++ compiler), then:
    here without PIL and decoding to the pixels written), lossless WebP
    (PIL's of its pixels, committed; a corner of it written here decodes
    to its pixels too), lossy WebP at quality 80 and 100 (PIL's of its
-   pixels, committed, each equal to its PIL array), and a 480x640
-   ``resize_to_bucket`` are timed (median of 5, the card's name and power
-   limit beside them);
+   pixels, committed, each equal to its PIL array), the three YCbCr TIFFs
+   (each within a mean of 1 level of the pixels they were made from), and
+   a 480x640 ``resize_to_bucket`` are timed (median of 5, the card's name
+   and power limit beside them);
 3f. drives the XE pre-training stage (``cli.train_xe.train``) at full
    width (``Settings()``, the vocabulary padded to 10,000 words, xe_bs 20,
    the seq2seq batch 80, 16 tokens, beam 3) on a synthetic tree the
@@ -1579,6 +1584,151 @@ def _tiff_jpeg_bytes(jpeg, h, w):
 
 
 
+# phase 3e's YCbCr TIFFs (``_tiff_ycbcr_bytes``): name -> (subsampling,
+# compression, planar configuration)
+YCBCR_PAGES = {"ycbcr22_lzw": ((2, 2), 5, 1),
+               "ycbcr11_deflate_planar": ((1, 1), 8, 2),
+               "ycbcr_jpeg_planar": ((1, 1), 7, 2)}
+
+
+def ycbcr(np, img):
+    """RGB uint8 -> YCbCr uint8 (JFIF's full-range transform, rounded),
+    which libtiff's default YCbCrCoefficients and ReferenceBlackWhite
+    undo."""
+    c = img.astype(np.float64)
+    y = 0.299 * c[..., 0] + 0.587 * c[..., 1] + 0.114 * c[..., 2]
+    cb = 128 + (c[..., 2] - y) / 1.772
+    cr = 128 + (c[..., 0] - y) / 1.402
+    return np.clip(np.rint(np.stack([y, cb, cr], -1)), 0, 255).astype(
+        np.uint8)
+
+
+def ycbcr_units(np, part, hs, vs):
+    """[n, w, 3] Y, Cb, Cr samples -> the bytes of TIFF's subsampled
+    YCbCr in one plane: ceil(n / vs) rows of ceil(w / hs) data units, each
+    its hs x vs Y samples row by row, then one Cb and one Cr (its top-left
+    pixel's), the edges padded by repeating the last row and column."""
+    n, w, _ = part.shape
+    p = np.pad(np.asarray(part, np.uint8), ((0, -n % vs), (0, -w % hs),
+                                            (0, 0)), mode="edge")
+    down, across = p.shape[0] // vs, p.shape[1] // hs
+    y = p[:, :, 0].reshape(down, vs, across, hs).transpose(0, 2, 1, 3)
+    return np.concatenate([y.reshape(down, across, vs * hs),
+                           p[::vs, ::hs, 1:]], 2).tobytes()
+
+
+_JPEG_ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12,
+                19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35,
+                42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+                58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62,
+                63)
+_JPEG_LUMA_Q = (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60,
+                55, 14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87,
+                80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81,
+                104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95,
+                98, 112, 100, 103, 99)
+
+
+def jpeg_grey(np, plane, quality=90):
+    """A baseline JPEG of one 8-bit component (1 x 1 sampling) of a 2-D
+    uint8 ``plane``, written here without PIL: the forward DCT of each 8x8
+    block (edges repeated), the luminance table of the JPEG standard
+    scaled to ``quality`` as libjpeg scales it, and Huffman codes of one
+    length a table (the fewest bits that hold the symbols used, so that
+    no code is all ones)."""
+    import struct
+    h, w = plane.shape
+    p = np.pad(plane.astype(np.float64) - 128, ((0, -h % 8), (0, -w % 8)),
+               mode="edge")
+    k = np.arange(8)
+    dct = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) / 2
+    dct[0] /= np.sqrt(2)
+    blocks = p.reshape(p.shape[0] // 8, 8, -1, 8).transpose(0, 2, 1, 3)
+    coef = dct @ blocks @ dct.T
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    q = np.clip((np.array(_JPEG_LUMA_Q) * scale + 50) // 100, 1, 255)
+    zz = np.rint(coef.reshape(-1, 64)[:, list(_JPEG_ZIGZAG)]
+                 / q[list(_JPEG_ZIGZAG)]).astype(np.int64)
+    syms, pred = [], 0                  # (table, symbol, extra bits, width)
+    for row in zz:
+        d, pred = int(row[0]) - pred, int(row[0])
+        n = abs(d).bit_length()
+        syms.append((0, n, d if d >= 0 else d + (1 << n) - 1, n))
+        run = 0
+        for v in row[1:].tolist():
+            if v == 0:
+                run += 1
+                continue
+            while run > 15:
+                syms.append((1, 0xF0, 0, 0))
+                run -= 16
+            n = abs(v).bit_length()
+            syms.append((1, run << 4 | n, v if v >= 0 else v + (1 << n) - 1,
+                         n))
+            run = 0
+        if run:
+            syms.append((1, 0, 0, 0))
+    tables, bits = [], []
+    for t in (0, 1):
+        used = sorted({s for tt, s, _, _ in syms if tt == t})
+        width = len(used).bit_length()
+        tables.append(({s: i for i, s in enumerate(used)}, width))
+        counts = [0] * 16
+        counts[width - 1] = len(used)
+        bits.append(bytes([t << 4]) + bytes(counts) + bytes(used))
+    out = []
+    for t, sym, extra, n in syms:
+        code, width = tables[t]
+        out.append(format(code[sym], f"0{width}b"))
+        if n:
+            out.append(format(extra, f"0{n}b"))
+    stream = "".join(out)
+    stream += "1" * (-len(stream) % 8)
+    data = int(stream, 2).to_bytes(len(stream) // 8, "big") if stream else b""
+    data = data.replace(b"\xff", b"\xff\x00")
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+    return (b"\xff\xd8" + seg(0xDB, bytes([0]) + bytes(
+        q[list(_JPEG_ZIGZAG)].tolist())) + seg(0xC0, struct.pack(
+            ">BHHB", 8, h, w, 1) + bytes([1, 0x11, 0])) + seg(0xC4, bits[0])
+        + seg(0xC4, bits[1]) + seg(0xDA, bytes([1, 1, 0, 0, 63, 0])) + data
+        + b"\xff\xd9")
+
+
+def _tiff_ycbcr_bytes(np, zlib, img, subsampling=(2, 2), compression=5,
+                      planar=1):
+    """A little-endian YCbCr TIFF (photometric 6) of an RGB uint8 image,
+    written here (``ycbcr``): in one plane as data units of
+    ``subsampling`` (``ycbcr_units``), or in separate planes (planar 2,
+    1 x 1), in strips of about 64 KiB (a multiple of the vertical factor
+    of rows), under LZW (5, ``tiff_lzw``), Deflate (8) or JPEG (7, each
+    plane's strip a one-component stream of ``jpeg_grey``); which PIL reads
+    through libtiff's RGBA interface."""
+    h, w, _ = img.shape
+    hs, vs = subsampling
+    ycc = ycbcr(np, img)
+    rows = max(vs, min(h, 65536 // (3 * w)) // vs * vs)
+    strips = []
+    for plane in ([ycc] if planar == 1 else
+                  [ycc[:, :, c:c + 1] for c in range(3)]):
+        for y in range(0, h, rows):
+            part = plane[y:y + rows]
+            if compression == 7:
+                strips.append(jpeg_grey(np, part[:, :, 0]))
+                continue
+            raw = ycbcr_units(np, part, hs, vs) if planar == 1 else (
+                np.ascontiguousarray(part).tobytes())
+            strips.append(zlib.compress(raw) if compression == 8
+                          else tiff_lzw(raw))
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+               (259, 3, [compression]), (262, 3, [6]),
+               (273, 4, "offsets"), (277, 3, [3]), (278, 4, [rows]),
+               (279, 4, "counts"), (284, 3, [planar]),
+               (530, 3, [hs, vs])]
+    return tiff_file([(entries, strips)])
+
+
 # times the decode of each file in argv[3:] with the port under argv[1]:
 # median of argv[2] calls after one, in ms, null where the port refuses
 # it; and the path of the port's imgdec library
@@ -1740,12 +1890,17 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
         out["checkpoint_bytes"] = sizes
         out["checkpoint_write_s"] = write_s
 
-        # 2. the daemon on a real socket, bf16, warm
+        # 2. the daemon on a real socket, bf16, warm; its image root a
+        # copy of the fixtures (phase 3m serves it again)
+        root = keep["image_root"] = shutil.copytree(
+            fixtures, os.path.join(keep["dir"], "images"))
+        img448 = pre.load_image_bytes(open(os.path.join(
+            fixtures, "j420_448.jpg"), "rb").read())
         a = serve_cli.build_parser().parse_args([
             "--rl_model", paths["rl"], "--concept_model", paths["concept"],
             "--resnet101_ckpt", paths["resnet101"],
             "--sentiment_detector_json", senti_json, "--image_root",
-            fixtures, "--compute_dtype", "bfloat16", "--warm", "--host",
+            root, "--compute_dtype", "bfloat16", "--warm", "--host",
             "127.0.0.1", "--port", "0", "--max_wait_ms", "20",
             "--max_body_mb", "16", "--device", str(dev)])
         t0 = time.time()
@@ -1762,6 +1917,13 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                      for s_ in ("auto", "negative", "auto", "positive")]
             images = [n for n, w in FIXTURES.items()
                       if w == "decode"]
+            # YCbCr TIFFs of the 448x448 JPEG's pixels, written here, one
+            # of them beside the fixtures' copy in the image root too
+            ycc = {name: _tiff_ycbcr_bytes(np, zlib, img448, *args)
+                   for name, args in YCBCR_PAGES.items()}
+            with open(os.path.join(root, "ycbcr11_deflate_planar.tif"),
+                      "wb") as f:
+                f.write(ycc["ycbcr11_deflate_planar"])
             progressive = [n for n in images if n.startswith("prog")]
             # the CMYK, YCCK and Adobe-RGB JPEGs, the Adam7 and 16-bit
             # PNGs, the GIFs, the BMPs, the WebPs and the TIFFs among them
@@ -1778,19 +1940,23 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
             payloads = feats + [
                 {"image_b64": b64[n], "sentiment": ["auto", "neutral"][i % 2]}
                 for i, n in enumerate(images)] + [
-                {"image_path": os.path.join(fixtures, "j420_448.jpg")},
-                {"image_path": os.path.join(fixtures, "rgba.png"),
+                {"image_b64": base64.b64encode(v).decode(),
+                 "sentiment": ["auto", "negative", "positive"][i]}
+                for i, v in enumerate(ycc.values())] + [
+                {"image_path": os.path.join(root, "j420_448.jpg")},
+                {"image_path": os.path.join(root, "rgba.png"),
                  "sentiment": "positive"},
-                {"image_path": os.path.join(fixtures, "lossless_anim.webp")},
-                {"image_path": os.path.join(fixtures, "lossy_rgba.webp"),
+                {"image_path": os.path.join(root, "lossless_anim.webp")},
+                {"image_path": os.path.join(root, "lossy_rgba.webp"),
                  "sentiment": "negative"},
-                {"image_path": os.path.join(fixtures, "rgba_o6.tif")},
-                {"image_path": os.path.join(fixtures, "cmyk_tiles.tif"),
+                {"image_path": os.path.join(root, "rgba_o6.tif")},
+                {"image_path": os.path.join(root, "cmyk_tiles.tif"),
                  "sentiment": "positive"},
-                {"image_path": os.path.join(fixtures, "rgb_lzw.tif")},
-                {"image_path": os.path.join(fixtures,
-                                            "ycbcr_tiles_jpeg.tif"),
-                 "sentiment": "negative"}]
+                {"image_path": os.path.join(root, "rgb_lzw.tif")},
+                {"image_path": os.path.join(root, "ycbcr_tiles_jpeg.tif"),
+                 "sentiment": "negative"},
+                {"image_path": os.path.join(
+                    root, "ycbcr11_deflate_planar.tif")}]
             torch.cuda.synchronize()
             zero_counters()
             results, errors, serve_s = _run_groups(
@@ -1848,8 +2014,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                "encode": stats["encode"]["latency_by_bucket"]}
         print(f"serving surface: daemon up in {start_s:.1f} s (warm); "
               f"{len(payloads)} requests ({len(feats)} feature, "
-              f"{len(images)} image_b64, "
-              f"{len(payloads) - len(feats) - len(images)} image_path) in "
+              f"{len(images) + len(ycc)} image_b64, "
+              f"{len(payloads) - len(feats) - len(images) - len(ycc)} "
+              f"image_path; YCbCr TIFFs {list(ycc)} among the image_b64) in "
               f"{serve_s:.2f} s, "
               f"all 200 (progressive JPEGs {progressive}, and {added} "
               f"among them); 400 outside the root, 400 {refused}, 413 "
@@ -1958,6 +2125,10 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
              for code in (1, 32773, 5, 8)}
     # and the JPEG itself as a one-strip YCbCr TIFF
     tiffs[7] = _tiff_jpeg_bytes(jpeg, *img448.shape[:2])
+    # YCbCr TIFFs of its pixels, which PIL reads through libtiff's RGBA
+    # interface
+    ycc = {name: _tiff_ycbcr_bytes(np, zlib, img448, *args)
+           for name, args in YCBCR_PAGES.items()}
     img480 = np.random.default_rng(9).integers(0, 256, (480, 640, 3),
                                                dtype=np.uint8)
     bucket = pre.bucket_for_shape(480, 640, pre.DEFAULT_BUCKET_SHAPES)
@@ -2002,6 +2173,13 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                  lambda: pre.load_image_bytes(tiffs[5])),
              "tiff_448_jpeg_ms": host_ms(
                  lambda: pre.load_image_bytes(tiffs[7])),
+             "tiff_448_ycbcr22_lzw_ms": host_ms(
+                 lambda: pre.load_image_bytes(ycc["ycbcr22_lzw"])),
+             "tiff_448_ycbcr11_deflate_planar_ms": host_ms(
+                 lambda: pre.load_image_bytes(
+                     ycc["ycbcr11_deflate_planar"])),
+             "tiff_448_ycbcr_jpeg_planar_ms": host_ms(
+                 lambda: pre.load_image_bytes(ycc["ycbcr_jpeg_planar"])),
              "resize_480x640_ms": host_ms(
                  lambda: pre.resize_to_bucket(img480, bucket))}
     _check(np.array_equal(pre.load_image_bytes(png), img448)
@@ -2022,6 +2200,11 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
     _check(all(np.array_equal(pre.load_image_bytes(t_), img448)
                for t_ in tiffs.values()),
            "the TIFFs do not decode to their pixels")
+    ycc_err = {name: float(np.abs(pre.load_image_bytes(v).astype(np.int64)
+                                  - img448).mean())
+               for name, v in ycc.items()}
+    _check(all(e < 1 for e in ycc_err.values()),
+           f"the YCbCr TIFFs decode far from their pixels: {ycc_err}")
     card = _smi()
     print(f"serving surface host times (median of 5, host CPU {cpu}, "
           f"{os.cpu_count()} cores, card {card}): decode 448x448 JPEG 4:2:0 "
@@ -2051,7 +2234,15 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
           f"2 ({len(tiffs[5])} B) {times['tiff_448_lzw_pred2_ms']:.2f} ms, "
           f"JPEG 4:2:0 YCbCr in one strip ({len(tiffs[7])} B) "
           f"{times['tiff_448_jpeg_ms']:.2f} ms, "
-          f"beside the baseline JPEG's {times['jpeg_448_420_ms']:.2f} ms")
+          f"beside the baseline JPEG's {times['jpeg_448_420_ms']:.2f} ms; "
+          f"YCbCr through libtiff's RGBA interface: 2 x 2 under LZW "
+          f"({len(ycc['ycbcr22_lzw'])} B) "
+          f"{times['tiff_448_ycbcr22_lzw_ms']:.2f} ms, 1 x 1 in separate "
+          f"planes under Deflate ({len(ycc['ycbcr11_deflate_planar'])} B) "
+          f"{times['tiff_448_ycbcr11_deflate_planar_ms']:.2f} ms and under "
+          f"JPEG ({len(ycc['ycbcr_jpeg_planar'])} B) "
+          f"{times['tiff_448_ycbcr_jpeg_planar_ms']:.2f} ms (mean error "
+          f"against the pixels {ycc_err})")
     out["host_times"] = dict(times, cpu=cpu, jpeg_bytes=len(jpeg),
                              progressive_bytes=len(prog),
                              cmyk_bytes=len(cmyk), png_bytes=len(png),
@@ -2063,6 +2254,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                              webp_lossy_q100_bytes=len(lossy[100]),
                              tiff_bytes={str(k): len(v)
                                          for k, v in tiffs.items()},
+                             ycbcr_tiff_bytes={k: len(v)
+                                               for k, v in ycc.items()},
+                             ycbcr_tiff_mean_error=ycc_err,
                              card=card)
     return out
 
@@ -6203,7 +6397,8 @@ def _multihost_cli(torch, serve_cli, keep, work):
     base = ["--rl_model", keep["rl"], "--concept_model", keep["concept"],
             "--resnet101_ckpt", keep["resnet101"],
             "--sentiment_detector_json", keep["senti"], "--image_root",
-            FIXTURE_DIR, "--compute_dtype", "bfloat16", "--warm", "--host",
+            keep["image_root"], "--compute_dtype", "bfloat16", "--warm",
+            "--host",
             "127.0.0.1", "--port", "0", "--max_wait_ms", "20",
             "--max_body_mb", "16"]
     requests = keep["feature_requests"] + keep["image_requests"]

@@ -82,6 +82,10 @@
 // decoded only as far as the rows read, and what libjpeg reads after it
 // unable to fail the strip; libtiff's checks of the frame against the
 // segment and the page. A bad Huffman code stays refused, by name.
+// isc_tiff_inflate inflates a zlib stream as zlib's inflate does for
+// libtiff's ZIPDecode, for the bytes it writes before a fault, which
+// Python's zlib does not hand over (PIL's YCbCr pages, read through
+// libtiff's RGBA interface, keep them).
 //
 // WebP: the Python side walks the RIFF container as libwebp's demuxer
 // does; isc_vp8l_decode decodes a VP8L chunk's bitstream (RFC 9649) to RGB,
@@ -335,6 +339,9 @@ struct Jpeg {
     height = word();
     width = word();
     ncomp = byte();
+    if (prec != 8 && tiff)      // JPEGPreDecode: not the page's 8 bits
+      fail("TIFF: JPEG of " + std::to_string(prec) + "-bit samples in a "
+           "page of 8");
     if (prec != 8)
       unsupported(std::to_string(prec) +
                   "-bit samples (only 8-bit baseline/extended sequential)");
@@ -3735,7 +3742,7 @@ int isc_vp8l_alpha_check(const uint8_t* in, long long n, long long w,
 // 4.7's PackBitsDecode fills it: a header byte of -128 is skipped; a run
 // or a literal that reaches past the output is cut at its end (libtiff
 // warns and goes on); data that ends before the output is full is
-// refused.
+// refused, the rest of out zeroed (as libtiff leaves its buffer).
 int isc_tiff_packbits(const uint8_t* in, long long n, uint8_t* out,
                       long long out_n, char* err, int errlen) {
   long long pos = 0, o = 0;
@@ -3756,6 +3763,7 @@ int isc_tiff_packbits(const uint8_t* in, long long n, uint8_t* out,
     }
   }
   if (o < out_n) {
+    memset(out + o, 0, (size_t)(out_n - o));
     set_err(err, errlen, "TIFF: not enough PackBits data for the strip");
     return 1;
   }
@@ -3795,7 +3803,9 @@ int isc_tiff_jpeg_tables(const uint8_t* in, long long n, uint8_t* state,
 // the components as they are (JCS_UNKNOWN: no colour transform, whatever
 // the markers say). A stream that leaves part of the need_w x need_h the
 // page reads unwritten is refused by name: PIL reads whatever its buffer
-// held there.
+// held there. A fault in the stream's markers (what libtiff's
+// JPEGPreDecode, jpeg_read_header and its checks, refuses before a row is
+// decoded) returns 3, any other 1 or 2.
 int isc_tiff_jpeg(const uint8_t* in, long long n, uint8_t* state,
                   long long seg_w, long long seg_h, long long rows,
                   int cut_ok, int comps, int hs, int vs, int rgb,
@@ -3812,7 +3822,12 @@ int isc_tiff_jpeg(const uint8_t* in, long long n, uint8_t* state,
     j.seg.hs = hs;
     j.seg.vs = vs;
     load_tables(j, state);
-    j.parse_tiff(false);
+    try {
+      j.parse_tiff(false);
+    } catch (const Error& e) {
+      set_err(err, errlen, e.msg);
+      return 3;
+    }
     save_tables(j, state);
     const int W = j.width, H = (int)std::min<long long>(rows, j.height);
     const int oc = rgb ? 3 : j.ncomp;
@@ -3866,7 +3881,10 @@ int isc_tiff_jpeg(const uint8_t* in, long long n, uint8_t* state,
 // entry. The table has libtiff's slack of 1024 entries past 4095 (CSIZE),
 // the codes staying 12 bits wide; once it is full only CLEAR or EOI may
 // follow. EOI, or the end of the data, before out_n bytes is refused; a
-// string longer than the room left is cut, and nothing after is read.
+// string longer than the room left is cut, and nothing after is read. A
+// refused strip leaves out as libtiff leaves its buffer: what was decoded,
+// then zeros (new style) or the bytes out held before (old style, whose
+// LZWDecodeCompat clears nothing).
 int isc_tiff_lzw(const uint8_t* in, long long n, uint8_t* out,
                  long long out_n, int old, char* err, int errlen) {
   enum { kClear = 256, kEoi = 257, kFirst = 258, kSize = 4095 + 1024 };
@@ -3931,14 +3949,280 @@ int isc_tiff_lzw(const uint8_t* in, long long n, uint8_t* out,
       prev = c;
     }
   } catch (const Error& e) {
+    if (!old) memset(out + o, 0, (size_t)(out_n - o));
     set_err(err, errlen, e.msg);
     return 1;
   }
   if (o < out_n) {
+    if (!old) memset(out + o, 0, (size_t)(out_n - o));
     set_err(err, errlen, "TIFF: not enough LZW data for the strip");
     return 1;
   }
   return 0;
+}
+
+// A zlib stream (in[0, n)) inflated into out[0, out_n) as zlib's inflate
+// writes it in one call with all of the input and out_n bytes of room, as
+// libtiff's ZIPDecode makes it: the header's checks (a multiple of 31,
+// method 8, a window of at most 32 KiB, no preset dictionary), stored,
+// fixed and dynamic blocks with inflate_table's rules (an over-subscribed
+// code refused, an incomplete one too but a single code of one bit in the
+// literal/length and distance codes, whose other half is an invalid
+// code), then the Adler-32 trailer. Once out is full the decoder reads on
+// as zlib's does up to the next symbol that needs room (so a bad block
+// header, an invalid code or a bad checksum just past it is still found,
+// a distance too far back is not). Returns 0 where out is full (or the
+// stream's end checks), 1 where the data is faulty, 2 where it ends
+// before out is full; *wrote the bytes written, the rest of out untouched.
+namespace inflate_impl {
+
+struct Huff {                   // canonical code: counts a length, symbols
+  int count[16];
+  int symbol[320];
+  int max, complete_or_single;
+};
+
+struct Stream {
+  const uint8_t* in;
+  long long n, pos;
+  uint64_t bits;
+  int nbits;
+  uint8_t* out;
+  long long out_n, o;
+  int need(int k) {             // 0 where the input ends first
+    while (nbits < k) {
+      if (pos >= n) return 0;
+      bits |= (uint64_t)in[pos++] << nbits;
+      nbits += 8;
+    }
+    return 1;
+  }
+  uint32_t take(int k) {             // k <= 16
+    const uint32_t v = (uint32_t)(bits & ((1u << k) - 1));
+    bits >>= k;
+    nbits -= k;
+    return v;
+  }
+};
+
+enum { kOk = 0, kBad = 1, kShort = 2, kFull = 3 };
+
+// inflate_table's checks: -1 over-subscribed or incomplete (CODES always;
+// LENS and DISTS but a single code of length 1); max 0: no symbols (every
+// code invalid).
+int build(Huff* h, const int* len, int n, bool codes) {
+  for (int i = 0; i < 16; ++i) h->count[i] = 0;
+  for (int i = 0; i < n; ++i) h->count[len[i]]++;
+  h->max = 0;
+  for (int i = 15; i >= 1; --i)
+    if (h->count[i]) { h->max = i; break; }
+  if (h->max == 0) return 0;
+  int left = 1;
+  for (int i = 1; i < 16; ++i) {
+    left <<= 1;
+    left -= h->count[i];
+    if (left < 0) return -1;
+  }
+  if (left > 0 && (codes || h->max != 1)) return -1;
+  int offs[16];
+  offs[1] = 0;
+  for (int i = 1; i < 15; ++i) offs[i + 1] = offs[i] + h->count[i];
+  for (int i = 0; i < n; ++i)
+    if (len[i]) h->symbol[offs[len[i]]++] = i;
+  return 0;
+}
+
+// A symbol: >= 0, -1 an invalid code (none of the code's, or no codes),
+// -2 the input ends first. Bits are pulled as the code grows, as zlib's
+// table lookups pull bytes until the entry's length is in hand.
+int decode(Stream* s, const Huff* h) {
+  if (h->max == 0) {
+    if (!s->need(1)) return -2;
+    s->take(1);
+    return -1;
+  }
+  int code = 0, first = 0, index = 0;
+  for (int len = 1; len <= h->max; ++len) {
+    if (!s->need(len)) return -2;
+    code |= (int)((s->bits >> (len - 1)) & 1);
+    const int count = h->count[len];
+    if (code - count < first) {
+      s->take(len);
+      return h->symbol[index + (code - first)];
+    }
+    index += count;
+    first += count;
+    first <<= 1;
+    code <<= 1;
+  }
+  s->take(h->max);              // the other half of a single 1-bit code
+  return -1;
+}
+
+const int kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10,  11,  13,
+                          15, 17, 19, 23, 27, 31, 35, 43,  51,  59,
+                          67, 83, 99, 115, 131, 163, 195, 227, 258};
+const int kLenExtra[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
+                           2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
+const int kDistBase[30] = {1,    2,    3,    4,    5,    7,     9,     13,
+                           17,   25,   33,   49,   65,   97,    129,   193,
+                           257,  385,  513,  769,  1025, 1537,  2049,  3073,
+                           4097, 6145, 8193, 12289, 16385, 24577};
+const int kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,
+                            4, 4, 5, 5, 6, 6, 7, 7,  8,  8,
+                            9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
+
+int codes(Stream* s, const Huff* lens, const Huff* dists) {
+  for (;;) {
+    int sym = decode(s, lens);
+    if (sym == -2) return kShort;
+    if (sym < 0 || sym > 285) return kBad;
+    if (sym < 256) {
+      if (s->o == s->out_n) return kFull;
+      s->out[s->o++] = (uint8_t)sym;
+      continue;
+    }
+    if (sym == 256) return kOk;
+    sym -= 257;
+    if (!s->need(kLenExtra[sym])) return kShort;
+    const long long len = kLenBase[sym] + s->take(kLenExtra[sym]);
+    int d = decode(s, dists);
+    if (d == -2) return kShort;
+    if (d < 0 || d > 29) return kBad;
+    if (!s->need(kDistExtra[d])) return kShort;
+    const long long dist = kDistBase[d] + s->take(kDistExtra[d]);
+    if (s->o == s->out_n) return kFull;
+    if (dist > s->o) return kBad;
+    const long long k = std::min(len, s->out_n - s->o);
+    for (long long i = 0; i < k; ++i, ++s->o)
+      s->out[s->o] = s->out[s->o - dist];
+    if (k < len) return kFull;
+  }
+}
+
+int blocks(Stream* s) {
+  for (;;) {
+    if (!s->need(3)) return kShort;
+    const int last = (int)s->take(1), type = (int)s->take(2);
+    int r;
+    if (type == 0) {
+      s->take(s->nbits & 7);
+      if (!s->need(32)) return kShort;
+      const uint32_t len = s->take(16), nlen = s->take(16);
+      if (len != (~nlen & 0xffff)) return kBad;
+      r = kOk;
+      for (uint32_t i = 0; i < len; ++i) {
+        if (s->o == s->out_n) { r = kFull; break; }
+        if (!s->need(8)) { r = kShort; break; }
+        s->out[s->o++] = (uint8_t)s->take(8);
+      }
+    } else if (type == 1) {
+      int len[320];
+      for (int i = 0; i < 288; ++i)
+        len[i] = i < 144 ? 8 : i < 256 ? 9 : i < 280 ? 7 : 8;
+      for (int i = 0; i < 32; ++i) len[288 + i] = 5;
+      Huff l, d;
+      build(&l, len, 288, false);
+      build(&d, len + 288, 32, false);
+      r = codes(s, &l, &d);
+    } else if (type == 2) {
+      if (!s->need(14)) return kShort;
+      const int nlen = (int)s->take(5) + 257, ndist = (int)s->take(5) + 1;
+      const int ncode = (int)s->take(4) + 4;
+      if (nlen > 286 || ndist > 30) return kBad;
+      static const int order[19] = {16, 17, 18, 0, 8,  7, 9,  6, 10, 5,
+                                    11, 4,  12, 3, 13, 2, 14, 1, 15};
+      int len[320] = {0};
+      for (int i = 0; i < ncode; ++i) {
+        if (!s->need(3)) return kShort;
+        len[order[i]] = (int)s->take(3);
+      }
+      Huff cl;
+      if (build(&cl, len, 19, true) < 0) return kBad;
+      int have = 0;
+      int lens[320] = {0};
+      while (have < nlen + ndist) {
+        int sym;
+        if (cl.max == 0) {      // no code: each symbol 0, one bit
+          if (!s->need(1)) return kShort;
+          s->take(1);
+          sym = 0;
+        } else {
+          sym = decode(s, &cl);
+          if (sym == -2) return kShort;
+        }
+        if (sym < 16) {
+          lens[have++] = sym;
+          continue;
+        }
+        int v = 0, rep;
+        if (sym == 16) {
+          if (!s->need(2)) return kShort;
+          if (have == 0) return kBad;
+          v = lens[have - 1];
+          rep = 3 + (int)s->take(2);
+        } else if (sym == 17) {
+          if (!s->need(3)) return kShort;
+          rep = 3 + (int)s->take(3);
+        } else {
+          if (!s->need(7)) return kShort;
+          rep = 11 + (int)s->take(7);
+        }
+        if (have + rep > nlen + ndist) return kBad;
+        while (rep--) lens[have++] = v;
+      }
+      if (lens[256] == 0) return kBad;
+      Huff l, d;
+      if (build(&l, lens, nlen, false) < 0) return kBad;
+      if (build(&d, lens + nlen, ndist, false) < 0) return kBad;
+      r = codes(s, &l, &d);
+    } else {
+      return kBad;
+    }
+    if (r != kOk) return r;
+    if (last) return kOk;
+  }
+}
+
+}  // namespace inflate_impl
+
+int isc_tiff_inflate(const uint8_t* in, long long n, uint8_t* out,
+                     long long out_n, long long* wrote, char* err,
+                     int errlen) {
+  using namespace inflate_impl;
+  Stream s{in, n, 0, 0, 0, out, out_n, 0};
+  int r;
+  if (!s.need(16)) {
+    r = kShort;
+  } else {
+    const uint32_t cmf = s.take(8), flg = s.take(8);
+    if (((cmf << 8) | flg) % 31 || (cmf & 15) != 8 || (cmf >> 4) > 7 ||
+        (flg & 32)) {
+      r = kBad;
+    } else {
+      r = blocks(&s);
+      if (r == kOk) {           // the trailer: Adler-32 of all written
+        s.take(s.nbits & 7);
+        if (!s.need(32)) {
+          r = kShort;
+        } else {
+          uint32_t want = 0;
+          for (int k = 0; k < 4; ++k) want = want << 8 | s.take(8);
+          uint32_t a = 1, b = 0;
+          for (long long i = 0; i < s.o; ++i) {
+            a = (a + s.out[i]) % 65521;
+            b = (b + a) % 65521;
+          }
+          r = (b << 16 | a) == want ? kOk : kBad;
+        }
+      }
+    }
+  }
+  *wrote = s.o;
+  if (r == kFull || (r != kBad && s.o == out_n)) return 0;
+  set_err(err, errlen, r == kBad ? "TIFF: corrupt Deflate data"
+                                 : "TIFF: not enough Deflate data");
+  return r == kBad ? 1 : 2;
 }
 
 // TIFF CIELAB to RGB as PIL converts it (Image.convert's LAB branch:

@@ -55,10 +55,13 @@ PIL, so it carries its own, to give PIL's arrays bit for bit:
   OPEN_INFO, uncompressed strips and tiles by Pillow's raw decoders (its
   tile list, strides and quirks), PackBits and LZW (in the same library)
   and Deflate as libtiff decodes them for Pillow (fill order, predictors
-  2 and 3, native 16-bit order, planes a band each), the Orientation tag
-  applied, then PIL's conversion to RGB (CIELAB through LittleCMS's
-  transform, emulated: its 33^3 table and tetrahedral interpolation, the
-  latter in the same library). The other formats that Pillow's plugins
+  2 and 3, native 16-bit order, planes a band each), JPEG as libtiff
+  drives libjpeg, YCbCr but JPEG in one plane as libtiff's RGBA interface
+  reads it (data units, libtiff's buffers, its colour tables), the
+  Orientation tag applied, then PIL's conversion to RGB (CIELAB through
+  LittleCMS's transform, emulated: its 33^3 table and tetrahedral
+  interpolation, the latter in the same library). The other formats that
+  Pillow's plugins
   recognise by signature (PPM, ...), and TIFF's other compressions, are
   refused by name.
 * ``resize_to_bucket``: Pillow's ``BILINEAR`` resampler
@@ -122,6 +125,7 @@ _SIGS = {"isc_jpeg_info": [_P, _LL, _IP, _IP, _IP, _P, _I],
          "isc_vp8l_alpha_check": [_P, _LL, _LL, _LL, _P, _I],
          "isc_tiff_packbits": [_P, _LL, _P, _LL, _P, _I],
          "isc_tiff_lzw": [_P, _LL, _P, _LL, _I, _P, _I],
+         "isc_tiff_inflate": [_P, _LL, _P, _LL, _P, _P, _I],
          "isc_tiff_jpeg_tables": [_P, _LL, _P, _P, _I],
          "isc_tiff_jpeg": [_P, _LL, _P, _LL, _LL, _LL] + [_I] * 5 + [
              _LL, _LL, _P, _LL, _P, _I],
@@ -939,6 +943,16 @@ _BITREV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 _TIFF_JPEG_STATE = 4096
 _LIBTIFF_BYTES = (2, 7) + _LIBTIFF_INTS
 _YCBCR_FACTORS = (1, 2, 4)
+# YCbCr through libtiff's RGBA interface (tif_getimage.c): the field types
+# TIFFReadDirEntryFloatArray reads (the integers, the rationals, FLOAT and
+# DOUBLE); the subsamplings its put routines take in one plane
+# (putcontig8bitYCbCr{44,42,41,22,21,12,11}tile), separate planes taking
+# 1 x 1 alone; TIFFGetFieldDefaulted's YCbCrCoefficients and (for YCbCr)
+# ReferenceBlackWhite
+_LIBTIFF_FLOATS = _LIBTIFF_INTS + (5, 10, 11, 12)
+_YCBCR_CONTIG = ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))
+_YCBCR_LUMA = (0.299, 0.587, 0.114)
+_YCBCR_REFBW = (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)
 
 
 def _tiff_raw_bits(raw: str):
@@ -1301,6 +1315,7 @@ class _LibTiff:
         if typ not in types:
             raise ValueError(f"TIFF: tag {tag} of a type libtiff refuses")
         size, code = _TIFF_TYPES[typ]
+        code = code or "B"
         take = n if limit is None else min(n, limit)
         inline = 8 if t.big else 4
         if min(n, 10) * size > inline:
@@ -1393,18 +1408,60 @@ class _LibTiff:
         frame header's (JPEGFixupTagsSubsampling), else 2, 2."""
         entry = self.first.get(347)
         tables = self.byte_array(entry) if entry else None
-        sub, entry = None, self.first.get(530)
-        if entry is not None and entry[2] == 2:
-            try:
-                vals = self.ints(entry)
-                sub = vals if max(vals) <= 0xFFFF else None
-            except ValueError:
-                pass
+        sub = self.pair(530)
         if sub is None and self.photo == 6 and self.planar == 1 and (
                 self.spp == 3) and self.offsets[0]:
             sub = _jpeg_frame_sampling(self.t.data, self.offsets[0],
                                        self.counts[0], self.spp)
         return tables, tuple(sub or (2, 2))
+
+    def pair(self, tag):
+        """A pair of SHORTs as TIFFFetchNormalTag reads one
+        (TIFF_SETGET_UINT16_PAIR: two values, TIFFReadDirEntryShortArray's
+        integers in range), or None where it leaves the tag unset."""
+        entry = self.first.get(tag)
+        if entry is None or entry[2] != 2:
+            return None
+        try:
+            vals = self.ints(entry)
+        except ValueError:
+            return None
+        return vals if max(vals) <= 0xFFFF else None
+
+    def floats(self, tag, count):
+        """``count`` floats as TIFFFetchNormalTag reads them
+        (TIFF_SETGET_C0_FLOAT, TIFFReadDirEntryFloatArray), float32: an
+        integer's value, a rational's numerator over its denominator each
+        as a float (0 over 0; an SRATIONAL's denominator read unsigned), a
+        double clamped to +-FLT_MAX; None where
+        libtiff leaves the tag unset (another count or type, data past the
+        end of the file)."""
+        entry = self.first.get(tag)
+        if entry is None or entry[2] != count or entry[1] not in (
+                _LIBTIFF_FLOATS):
+            return None
+        t, typ = self.t, entry[1]
+        size, code = _TIFF_TYPES[typ]
+        code, field = code or "B", entry[3]
+        if count * size > len(field):
+            (off,) = struct.unpack(t.e + ("Q" if t.big else "L"), field)
+            if off + count * size > len(t.data):
+                return None
+            field = t.data[off:off + count * size]
+        vals = np.array(struct.unpack(
+            f"{t.e}{count * (2 if typ in (5, 10) else 1)}{code}",
+            field[:count * size]))
+        f32 = np.float32
+        if typ in (5, 10):              # an SRATIONAL's denominator unsigned
+            num, den = vals[0::2].astype(f32), (vals[1::2] % (1 << 32)
+                                                ).astype(f32)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                return np.where(den == 0, f32(0), num / den).astype(f32)
+        if typ == 12:
+            top = float(np.finfo(f32).max)
+            vals = np.where(vals > top, top, np.where(vals < -top, -top,
+                                                      vals))
+        return vals.astype(f32)
 
     def strips(self, entry) -> list:
         """TIFFFetchStripThing: the first ``nstrips`` values; too few
@@ -1617,16 +1674,19 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
     """PackBits (32773), LZW (5), Deflate (8, 32946) and JPEG (7) as
     Pillow's libtiff decoder (TiffDecode.c) reads them: libtiff's checks of
     the header, its reading of the IFD (``_LibTiff``: a size other than
-    Pillow's refused, as PIL refuses it, other samples, bits or
-    compression by name; its planar configuration, strips or tiles and
-    fill order taken), its check of the predictor (LZW's and Deflate's:
-    PackBits and JPEG have none); each strip (TIFFReadEncodedStrip) or
-    tile (TIFFReadTile) decoded whole, LZW's old-style codes as
-    LZWPreDecode finds them in the first (which fixes the style of the
-    rest), a JPEG one by ``_TiffJpeg``; then unpacked a row at a time
-    with the raw mode of fill order 1, 16-bit samples in native order;
-    planar 2 a plane a band of the pixel (8 bits, or the high byte of
-    16), RGBa's premultiplied colours undone after."""
+    Pillow's refused, as PIL refuses it; a photometric that Pillow and
+    libtiff read otherwise by name). A YCbCr page but JPEG in one plane
+    goes through libtiff's RGBA interface (``_tiff_rgba``); for the rest,
+    other samples, bits or compression refused by name, libtiff's planar
+    configuration, strips or tiles and fill order taken, its check of the
+    predictor (LZW's and Deflate's: PackBits and JPEG have none); each
+    strip (TIFFReadEncodedStrip) or tile (TIFFReadTile) decoded whole,
+    LZW's old-style codes as LZWPreDecode finds them in the first (which
+    fixes the style of the rest), a JPEG one by ``_TiffJpeg``; then
+    unpacked a row at a time with the raw mode of fill order 1, 16-bit
+    samples in native order; planar 2 a plane a band of the pixel (8
+    bits, or the high byte of 16), RGBa's premultiplied colours undone
+    after."""
     name = _TIFF_CODECS[t.compression]
     if name not in ("PackBits", "LZW", "Deflate", "JPEG"):
         raise ValueError(f"unsupported: TIFF {name} compression (the "
@@ -1639,14 +1699,13 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
         raise ValueError("TIFF: a header that libtiff refuses")
     lt = _LibTiff(t)
     jpeg = name == "JPEG"
-    if jpeg and (t.photo == 6) != (lt.photo == 6):
+    if (t.photo == 6) != (lt.photo == 6):
         raise ValueError("unsupported: TIFF tags that libtiff reads "
                          "otherwise than Pillow (photometric)")
-    if 6 in (t.photo, lt.photo) and not jpeg:
-        raise ValueError(f"unsupported: TIFF YCbCr under {name} (PIL reads "
-                         "it through libtiff's RGBA interface)")
     if (lt.w, lt.h) != (t.w, t.h):
         raise ValueError("TIFF: libtiff's size is not Pillow's")
+    if lt.photo == 6 and not (jpeg and lt.planar == 1):
+        return _tiff_rgba(t, lt, name)
     theirs = (lt.spp, lt.bps, lt.compression)
     if theirs != (t.spp, t.bps[0], t.compression):
         raise ValueError("unsupported: TIFF tags that libtiff reads "
@@ -1714,13 +1773,10 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
     img, old_lzw = _tiff_canvas(t), None
     codec = _TiffJpeg(lt, ycbcr, spp) if jpeg else None
     for index, x, y, n, plane in blocks:
-        start, size = lt.offsets[index], lt.counts[index]
-        if size > 1 << 20 and (size - 4096) // 10 > whole:
-            size = whole * 10 + 4096           # TIFFFillStrip's limit
-        if size <= 0 or start + size > len(data):
+        chunk = _tiff_fill(lt, index, whole)
+        if chunk is None:
             raise ValueError(f"TIFF: strip or tile {index} past the end "
                              "of the file")
-        chunk = data[start:start + size]
         rows = tl if tiled else n
         xs, ys = min(tw, w - x), min(n, h - y)
         if codec:
@@ -1728,8 +1784,6 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
                                 not tiled and y + n == h, (xs, ys),
                                 rowbytes)
         else:
-            if lt.fill == 2:
-                chunk = _BITREV[np.frombuffer(chunk, np.uint8)].tobytes()
             if old_lzw is None and name == "LZW":
                 old_lzw = chunk[:1] == b"\0" and len(chunk) > 1 and (
                     chunk[1] & 1)
@@ -1751,19 +1805,15 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
 def _tiff_jpeg_checks(t: _Tiff, lt: _LibTiff, ycbcr: bool) -> None:
     """What PIL refuses, or the port leaves to later work, of a JPEG page
     before its strips are read: samples of other than 8 bits (named; a
-    stream's precision must equal them), a YCbCr page that Pillow and
-    libtiff lay out otherwise, or in separate planes (named: PIL reads it
-    through libtiff's RGBA interface), or whose libtiff sizes refuse its
-    subsampling, or of other than three samples (Pillow has no raw mode
-    "RGB" for its mode)."""
+    stream's precision must equal them), a YCbCr page in one plane that
+    Pillow and libtiff lay out otherwise, or whose libtiff sizes refuse
+    its subsampling, or of other than three samples (Pillow has no raw
+    mode "RGB" for its mode). YCbCr in separate planes goes to
+    ``_tiff_rgba``."""
     if t.bps[0] != 8:
         raise ValueError(f"unsupported: TIFF JPEG at {t.bps[0]} bits")
-    if not ycbcr:
+    if not ycbcr or lt.planar != 1:
         return
-    if lt.planar != 1:
-        raise ValueError("unsupported: TIFF YCbCr under JPEG in separate "
-                         "planes (PIL reads it through libtiff's RGBA "
-                         "interface)")
     if t.planar != lt.planar:
         raise ValueError("unsupported: TIFF tags that libtiff reads "
                          "otherwise than Pillow (planar configuration)")
@@ -1796,14 +1846,306 @@ class _TiffJpeg:
         """[rows, stride] uint8: the stream ``chunk`` of a strip or tile
         whose segment is ``segment`` = (width, height) (``last``: the
         image's last strip, which a taller stream of its width may
-        overrun), of which the page reads ``need`` = (columns, rows)."""
+        overrun), of which the page reads ``need`` = (columns, rows). A
+        fault in its markers raises ``_JpegHeaderError``."""
         out = np.zeros((rows, stride), np.uint8)
-        _call(_lib().isc_tiff_jpeg, chunk, len(chunk),
-              self.state.ctypes.data, segment[0], segment[1], rows,
-              int(last), self.comps,
-              *self.sampling, int(self.ycbcr), need[0], need[1],
-              out.ctypes.data, stride)
+        err = ctypes.create_string_buffer(256)
+        rc = _lib().isc_tiff_jpeg(
+            chunk, len(chunk), self.state.ctypes.data, segment[0],
+            segment[1], rows, int(last), self.comps, *self.sampling,
+            int(self.ycbcr), need[0], need[1], out.ctypes.data, stride, err,
+            len(err))
+        if rc:
+            msg = err.value.decode(errors="replace")
+            raise (_JpegHeaderError if rc == 3 else ValueError)(msg)
         return out
+
+
+class _JpegHeaderError(ValueError):
+    """A JPEG strip or tile whose markers libtiff's JPEGPreDecode refuses,
+    so that TIFFFillStrip fails before a row is decoded."""
+
+
+@functools.lru_cache(maxsize=8)
+def _ycbcr_tables(luma: tuple, refbw: tuple):
+    """libtiff's TIFFYCbCrToRGBInit (tif_color.c) for YCbCrCoefficients
+    ``luma`` and ReferenceBlackWhite ``refbw`` (float32 values), as the
+    four tables of TIFFYCbCrtoRGB's sums: R[Y, Cr] and B[Y, Cb] (uint8),
+    Y_tab[Y] and G[Cb, Cr] (int32, green's sum before Y_tab and the
+    clamp). Float32 throughout: D1-D4 are FIX (x * 65536 + 0.5, cut to an
+    integer) of each factor clamped to 0..2 (NaN to 0); Code2V is
+    (c - int(RB)) * CR / (RW - RB), cut to an integer within +-4096."""
+    f32 = np.float32
+    lr, lg, lb = (f32(v) for v in luma)
+
+    def fix(f):
+        f = f32(0) if not f >= 0 else f32(2) if f > 2 else f
+        return int(float(f * f32(65536)) + 0.5)
+    with np.errstate(all="ignore"):
+        f1, f3 = f32(2) - f32(2) * lr, f32(2) - f32(2) * lb
+        d1, d2 = fix(f1), -fix(lr * f1 / lg)
+        d3, d4 = fix(f3), -fix(lb * f3 / lg)
+
+        def code2v(c, rb, rw, cr):
+            den = rw - rb
+            v = (c - np.int64(np.trunc(rb))).astype(f32) * f32(cr) / (
+                den if den != 0 else f32(1))
+            return np.clip(v, -4096, 4096).astype(np.int64)
+        x = np.arange(-128, 128)
+        rb = [f32(v) for v in refbw]
+        cr = code2v(x, rb[4] - f32(128), rb[5] - f32(128), 127)
+        cb = code2v(x, rb[2] - f32(128), rb[3] - f32(128), 127)
+        ytab = code2v(x + 128, rb[0], rb[1], 255)
+    half = 1 << 15
+    red = np.clip(ytab[:, None] + ((d1 * cr + half) >> 16), 0, 255)
+    blue = np.clip(ytab[:, None] + ((d3 * cb + half) >> 16), 0, 255)
+    green = ((d4 * cb + half)[:, None] + (d2 * cr)[None, :]) >> 16
+    return (red.astype(np.uint8), blue.astype(np.uint8),
+            ytab.astype(np.int32), green.astype(np.int32))
+
+
+def _ycbcr_to_rgb(y, cb, cr, tables, out) -> None:
+    """TIFFYCbCrtoRGB of uint8 Y, Cb, Cr arrays into ``out`` [..., 3]
+    uint8 RGB: a gather a channel from the tables over (Y, Cr), (Cb, Cr)
+    and (Y, Cb) as 16-bit indices."""
+    red, blue, ytab, green = tables
+    y16, cr16 = y.astype(np.uint16) << 8, cr.astype(np.uint16)
+    out[..., 0] = np.take(red.reshape(-1), y16 | cr16)
+    g = np.take(green.reshape(-1), cb.astype(np.uint16) << 8 | cr16)
+    g += np.take(ytab, y)
+    out[..., 1] = np.clip(g, 0, 255, out=g)
+    out[..., 2] = np.take(blue.reshape(-1), y16 | cb)
+
+
+def _tiff_fill(lt: _LibTiff, index: int, whole: int):
+    """TIFFFillStrip / TIFFFillTile of strip or tile ``index``: its stored
+    bytes (their bits reversed under fill order 2, but not JPEG's), a byte
+    count over 1 MiB cut to 10 x ``whole`` (the strip or tile size) +
+    4096; None where libtiff fails it (no bytes, or past the end of the
+    file)."""
+    data = lt.t.data
+    start, size = lt.offsets[index], lt.counts[index]
+    if size > 1 << 20 and (size - 4096) // 10 > whole:
+        size = whole * 10 + 4096
+    if size <= 0 or start + size > len(data):
+        return None
+    chunk = data[start:start + size]
+    if lt.fill == 2 and _TIFF_CODECS[lt.compression] != "JPEG":
+        chunk = _BITREV[np.frombuffer(chunk, np.uint8)].tobytes()
+    return chunk
+
+
+def _tiff_decode_into(name: str, chunk: bytes, buf: np.ndarray, size: int,
+                      old_lzw: bool) -> bool:
+    """A strip or tile's codec (PackBits, LZW or Deflate) into buf[:size]
+    as libtiff decodes it; whether it succeeded. A failure leaves buf as
+    libtiff leaves its buffer: what was decoded, then zeros (PackBits,
+    new-style LZW, Deflate) or the bytes buf held before (old-style LZW).
+    Where Python's zlib finds a Deflate stream faulty (which may be just
+    past a strip it filled: a bad checksum), ``isc_tiff_inflate`` writes
+    what zlib's inflate wrote before the fault, which Python's zlib does
+    not hand over."""
+    if name in ("PackBits", "LZW"):
+        out = buf[:size]
+        fn = _lib().isc_tiff_lzw if name == "LZW" else _lib().isc_tiff_packbits
+        err = ctypes.create_string_buffer(256)
+        args = (int(old_lzw),) if name == "LZW" else ()
+        return fn(chunk, len(chunk), out.ctypes.data, size, *args, err,
+                  len(err)) == 0
+    try:
+        out = zlib.decompressobj().decompress(chunk, size)
+    except zlib.error:
+        wrote = ctypes.c_longlong()
+        err = ctypes.create_string_buffer(256)
+        if _lib().isc_tiff_inflate(chunk, len(chunk), buf.ctypes.data, size,
+                                   ctypes.byref(wrote), err, len(err)) != 1:
+            raise ValueError("unsupported: TIFF YCbCr under Deflate, a "
+                             "stream zlib and isc_tiff_inflate judge "
+                             "otherwise") from None
+        buf[wrote.value:size] = 0
+        return False
+    buf[:len(out)] = np.frombuffer(out, np.uint8)
+    buf[len(out):size] = 0
+    return len(out) == size
+
+
+def _hor_acc8(buf: np.ndarray, size: int, rowsize: int, stride: int):
+    """libtiff's PredictorDecodeTile with horAcc8 over buf[:size]: rows of
+    ``rowsize`` bytes, each byte plus the one ``stride`` before it; nothing
+    where size is not a whole number of rows or a row not of whole
+    strides (libtiff fails the strip there, its bytes as decoded)."""
+    if size % rowsize or rowsize % stride or rowsize <= stride:
+        return
+    rows = buf[:size].reshape(-1, rowsize // stride, stride)
+    rows[:] = rows.cumsum(1, dtype=np.uint8)
+
+
+def _ycbcr_put(buf: np.ndarray, rows: int, width: int, skew: int, hs: int,
+               vs: int):
+    """What putcontig8bitYCbCr<hs><vs>tile reads of a strip or tile's
+    buffer for ``rows`` x ``width`` pixels, ``skew`` pixels of each row of
+    data units passed over after them: (Y, Cb, Cr), each [rows, width]
+    uint8, a data unit's Y samples row by row, then its Cb and Cr, each
+    pixel the Y of its place in its unit and the unit's Cb and Cr. A row
+    of units is ceil(width / hs) units, then skew / hs units more (4 x 4
+    counts those as units of 10 bytes, 4 x 2's, as libtiff does)."""
+    unit = hs * vs + 2
+    across, down = -(-width // hs), -(-rows // vs)
+    step = across * unit + skew // hs * (10 if (hs, vs) == (4, 4) else unit)
+    u = np.lib.stride_tricks.as_strided(buf, (down, across, unit),
+                                        (step, unit, 1))
+    y = u[:, :, :hs * vs].reshape(down, across, vs, hs).transpose(
+        0, 2, 1, 3).reshape(down * vs, across * hs)[:rows, :width]
+    chroma = [u[:, :, k] if hs == vs == 1 else np.repeat(np.repeat(
+        u[:, :, k], vs, 0), hs, 1)[:rows, :width]
+        for k in (hs * vs, hs * vs + 1)]
+    return y, chroma[0], chroma[1]
+
+
+def _tiff_rgba(t: _Tiff, lt: _LibTiff, name: str) -> np.ndarray:
+    """A YCbCr page that Pillow reads through libtiff's RGBA interface
+    (TiffDecode.c's _decodeAsRGBA: every YCbCr page but JPEG in one
+    plane), as TIFFRGBAImageBegin and its get and put routines read it:
+    8 bits, 3 samples, in one plane at a subsampling of
+    ``_YCBCR_CONTIG`` or in separate planes at 1 x 1 (anything else PIL
+    refuses); YCbCrCoefficients and ReferenceBlackWhite as
+    initYCbCrConversion checks them (NaN coefficients, a green one of 0,
+    or a reference out of range refused), into ``_ycbcr_tables``.
+
+    Pillow reads a block of RowsPerStrip or TileLength rows at a time,
+    each in a buffer of its own, zeroed, of TIFFStripSize (a subsampled
+    strip: ceil(rows / vs) rows of ceil(width / hs) data units) or
+    TIFFTileSize, three of them in separate planes; a strip is decoded
+    to the bytes of ceil(rows / vs) x vs scanlines (a row of units over
+    vs, rounded down), a tile whole, horizontal differencing (horAcc8,
+    stride 3 in one plane) over those scanlines, or a tile's rows of
+    width x 3 bytes. A strip or tile that fails is no error to PIL
+    (``stoponerr`` is 0): the first of a block that libtiff cannot read
+    at all is refused, as PIL refuses it; the rest of a block's that
+    fail are read as libtiff leaves its buffer (``_tiff_decode_into``;
+    zeros where it reads no bytes; no differencing undone after a codec
+    fails). The put routines (``_ycbcr_put``) then convert each pixel
+    (``_ycbcr_to_rgb``) to R, G, B and an alpha of 255, whose bytes
+    Pillow unpacks with the raw mode of the layout it reads itself
+    (OPEN_INFO's "RGBX" into "RGB"; "L", the first bytes of a row, where
+    Pillow finds one sample and libtiff three)."""
+    bits, spp = lt.bps, lt.spp
+    if bits != 8 or spp != 3 or lt.fmt == 3:
+        raise ValueError(f"TIFF: YCbCr of {spp} samples of {bits} bits "
+                         f"(format {lt.fmt}) that libtiff's RGBA interface "
+                         "refuses")
+    predictor = lt.predictor if name in ("LZW", "Deflate") else 1
+    if predictor not in (1, 2):
+        raise ValueError(f"TIFF: predictor {predictor} at {bits} bits")
+    hs, vs = lt.pair(530) or (2, 2)
+    separate = lt.planar == 2
+    if (hs, vs) not in (((1, 1),) if separate else _YCBCR_CONTIG):
+        raise ValueError(f"TIFF: YCbCr subsampling {hs}x{vs} "
+                         f"{'in separate planes ' if separate else ''}"
+                         "(libtiff's RGBA interface refuses it)")
+    luma = lt.floats(529, 3)
+    refbw = lt.floats(532, 6)
+    luma = tuple(np.float32(_YCBCR_LUMA) if luma is None else luma)
+    refbw = tuple(np.float32(_YCBCR_REFBW) if refbw is None else refbw)
+    if np.isnan(luma).any() or luma[1] == 0:
+        raise ValueError(f"TIFF: YCbCrCoefficients {luma} that libtiff "
+                         "refuses")
+    lo, hi = np.float32(-0x7FFFFFFF + 128), np.float32(0x7FFFFFFF)
+    if not all(lo < v < hi for v in refbw):
+        raise ValueError(f"TIFF: ReferenceBlackWhite {refbw} that libtiff "
+                         "refuses")
+    tables = _ycbcr_tables(tuple(map(float, luma)), tuple(map(float, refbw)))
+    w, h = t.w, t.h
+    block = lt.tl if lt.tiled else lt.rps
+    if block in (None, 0xFFFFFFFF):
+        block = h
+    if w > _INT_MAX // 4 or block > _INT_MAX // (4 * w):
+        raise ValueError("TIFF: a block of rows larger than Pillow's "
+                         "buffer")
+    unit = hs * vs + 2
+    if lt.tiled:
+        tw, tl = lt.tw, lt.tl
+        size = -(-tl // vs) * -(-tw // hs) * unit if not separate else (
+            tw * tl)
+        rowsize = tw * (1 if separate else 3)
+        across, down = -(-w // tw), -(-h // tl)
+    else:
+        tw = w
+        tl = min(h if lt.rps in (None, 0xFFFFFFFF) else lt.rps, h)
+        line = w if separate else -(-w // hs) * unit // vs
+        size = tl * w if separate else -(-tl // vs) * (-(-w // hs) * unit)
+        across, down = 1, -(-h // tl)
+    planes = 3 if separate else 1
+    read = size
+    codec = _TiffJpeg(lt, False, 1) if name == "JPEG" else None
+    img = np.zeros((h, w, 3), np.uint8)
+    old_lzw, raw = None, 0
+    for by in range(down):
+        y0 = by * tl
+        nrow = min(tl, h - y0)
+        if not lt.tiled:                # a scanline a row (of vs rows)
+            read = -(-nrow // vs) * vs * line
+        buf = None
+        for bx in range(across):
+            x0 = bx * tw
+            for p in range(planes):
+                index = p * across * down + by * across + bx
+                chunk = _tiff_fill(lt, index, size)
+                if codec and chunk is not None:
+                    try:
+                        out = codec.decode(
+                            chunk, (tw, tl) if lt.tiled else (w, nrow),
+                            tl if lt.tiled else nrow,
+                            not lt.tiled and y0 + nrow == h,
+                            (min(tw, w - x0), nrow), line if not lt.tiled
+                            else rowsize)
+                    except _JpegHeaderError as err:
+                        if "unsupported" in str(err):
+                            raise
+                        chunk = None            # JPEGPreDecode failed
+                    except ValueError as err:
+                        raise ValueError(
+                            "unsupported: TIFF YCbCr under JPEG in "
+                            f"separate planes, a plane libjpeg stops in "
+                            f"({err}; PIL keeps its buffer's bytes)"
+                        ) from None
+                if chunk is not None:   # libtiff's raw buffer's size
+                    raw = len(chunk) if lt.fill == 1 or codec else max(
+                        raw, -(-len(chunk) // 1024) * 1024)
+                if buf is None:         # the block's first: a new buffer
+                    if chunk is None:
+                        raise ValueError(f"TIFF: strip or tile {index} "
+                                         "past the end of the file")
+                    if lt.tiled and planes * size > 100_000_000 and (
+                            raw < size // 1000):
+                        raise ValueError(f"TIFF: tile {index}'s byte count "
+                                         "is too small for its size")
+                    buf = np.zeros(planes * size, np.uint8)
+                part = buf[p * size:(p + 1) * size]
+                if chunk is None:
+                    part[:read] = 0
+                    continue
+                if codec:
+                    part[:read] = out.reshape(-1)[:read]
+                    continue
+                if old_lzw is None and name == "LZW":
+                    old_lzw = bool(chunk[:1] == b"\0" and len(chunk) > 1
+                                   and chunk[1] & 1)
+                if _tiff_decode_into(name, chunk, part, read,
+                                     bool(old_lzw)) and predictor == 2:
+                    _hor_acc8(part, read, rowsize if lt.tiled else line,
+                              1 if separate else 3)
+            xs = min(tw, w - x0)
+            if separate:
+                y, cb, cr = (buf[p * size:(p + 1) * size].reshape(-1, tw)[
+                    :nrow, :xs] for p in range(3))
+            else:
+                y, cb, cr = _ycbcr_put(buf, nrow, xs, tw - xs, hs, vs)
+            _ycbcr_to_rgb(y, cb, cr, tables, img[y0:y0 + nrow, x0:x0 + xs])
+    if (t.mode, t.raw) == ("RGB", "RGBX"):
+        return img
+    rgba = np.concatenate([img, np.full((h, w, 1), 255, np.uint8)], 2)
+    return _tiff_unpack(t.raw, t.mode, rgba.reshape(h, 4 * w), w)
 
 
 def _mat3_inverse(a):
@@ -1999,14 +2341,16 @@ def load_image_bytes(data: bytes) -> np.ndarray:
     the first frame of an animation, and the first page of every TIFF,
     uncompressed, PackBits, LZW, Deflate or JPEG (strips or tiles, planar
     or not, either byte order, BigTIFF, horizontal or floating-point
-    prediction, YCbCr under JPEG in one plane, its orientation applied),
-    that PIL opens. What PIL refuses, and what the decoders do not take
-    (lossless, hierarchical, arithmetic, 12-bit or 2-component JPEG;
-    TIFF's other compressions, old-style JPEG and CCITT among them, JPEG
-    at other than 8 bits, YCbCr under PackBits, LZW or Deflate or in
-    planes under JPEG, a JPEG strip with a bad Huffman code or short of
-    its segment; PPM and the other formats of ``_REFUSED``, by name),
-    raises ValueError."""
+    prediction, YCbCr under JPEG in one plane, and YCbCr under PackBits,
+    LZW or Deflate at any subsampling libtiff's RGBA interface takes and
+    in separate planes under those and JPEG, as that interface reads it
+    for PIL; its orientation applied), that PIL opens. What PIL refuses,
+    and what the decoders do not take (lossless, hierarchical, arithmetic,
+    12-bit or 2-component JPEG; TIFF's other compressions, old-style JPEG
+    and CCITT among them, JPEG at other than 8 bits, a JPEG strip with a
+    bad Huffman code or short of its segment, a JPEG plane that libjpeg
+    stops in; PPM and the other formats of ``_REFUSED``, by name), raises
+    ValueError."""
     data = bytes(data)
     if data[:2] == b"\xff\xd8":
         return _decode_jpeg(data)

@@ -17,9 +17,10 @@ NaN. PIL's own
 files. Refusals as PIL refuses: truncated strips, PackBits runs past the
 strip and streams that end early, damaged Deflate streams, offsets past
 the end, layouts outside OPEN_INFO, raw YCbCr, headers PIL or libtiff
-refuse. What PIL decodes and the port refuses by name (CCITT, YCbCr
-under PackBits or Deflate) is recorded, and queued in ROADMAP; JPEG's own
-matrix is ``test_torch_imgdec_tiff_jpeg.py``."""
+refuse. What PIL decodes and the port refuses by name (CCITT) is
+recorded, and queued in ROADMAP; JPEG's own matrix is
+``test_torch_imgdec_tiff_jpeg.py``, YCbCr's through libtiff's RGBA
+interface ``test_torch_imgdec_tiff_ycbcr.py``."""
 import io
 import zlib
 
@@ -138,8 +139,10 @@ def _pil_refuses(key, comp, tiled, planar):
     "a", "A" of "LA" and "PA", "I" of "I;16" and "I;12"), a 1-bit
     palette's planar edge tile (its stride of 2 bytes is shorter than the
     3 pixels the "P" unpacker reads); on libtiff's, planar strips of more
-    samples than the mode's bands, and YCbCr grey, or planar YCbCr (which
-    libtiff's RGBA interface refuses)."""
+    samples than the mode's bands, and YCbCr grey, or planar YCbCr at a
+    subsampling other than 1 x 1 (the writer's files leave
+    YCbCrSubsampling out, so 2 x 2), which libtiff's RGBA interface
+    refuses."""
     mode, raw = OPEN_INFO[key]
     photo, spp = key[1], len(key[4])
     if comp == "raw":
@@ -159,9 +162,9 @@ def _pil_refuses(key, comp, tiled, planar):
 def test_layout_matches_pil(key, comp):
     """A layout of OPEN_INFO on its route: one strip, strips of two rows,
     16x16 tiles of a 20x35 image (the edge tiles cropped), planar 1 and 2.
-    PIL decodes each file but those ``_pil_refuses`` names. YCbCr under
-    PackBits or Deflate is refused by name where PIL decodes it (through
-    libtiff's RGBA interface); planar "PX" tiles are not compared (PIL's
+    PIL decodes each file but those ``_pil_refuses`` names; YCbCr (the
+    writer's pixels, read at the default subsampling of 2 x 2) through
+    libtiff's RGBA interface. Planar "PX" tiles are not compared (PIL's
     unpacker reads past the tile's rows there)."""
     order, photo, fmt, fill, bps, extra = key
     code = COMPRESSIONS[comp]
@@ -178,10 +181,7 @@ def test_layout_matches_pil(key, comp):
                 compression=code, planar=planar,
                 colormap=CMAP[:3 << bps[0]] if photo == 3 else None,
                 **layout)
-            if photo == 6 and code != 1:
-                decoded = _agree_or_named(data, "YCbCr")
-            else:
-                decoded = _agree(data)
+            decoded = _agree(data)
             assert decoded != _pil_refuses(key, comp, "tile" in layout,
                                            planar), (layout, planar)
 
@@ -434,12 +434,12 @@ def test_pil_files(mode, comp):
 def test_pil_ycbcr_file():
     """PIL writes YCbCr (photometric 6): uncompressed, its raw mode reads
     four bytes a pixel from three, so PIL refuses it as truncated; under
-    Deflate PIL decodes it through libtiff's RGBA interface and the port
-    refuses it by name."""
+    Deflate PIL decodes it through libtiff's RGBA interface, and so does
+    the port."""
     im = Image.fromarray(np.random.default_rng(12).integers(
         0, 256, (9, 11, 3), dtype=np.uint8)).convert("YCbCr")
     _both_refuse(_pil(im))
-    _named(_pil(im, compression="tiff_deflate"), "YCbCr")
+    _same(_pil(im, compression="tiff_deflate"))
 
 
 def test_smoke_writer_matches_pil():

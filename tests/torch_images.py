@@ -470,11 +470,29 @@ def _tiff_fp_predict(samples, bits, fmt):
     return (d % 256).astype(np.uint8)
 
 
+def _lines(raw, line, stride, predict):
+    """Bytes -> [rows, line] uint8 rows (one row where ``line`` does not
+    divide them), differenced with ``stride`` (horizontal differencing)
+    where ``predict`` and a row is a whole number of strides, as libtiff
+    undoes it."""
+    a = np.frombuffer(raw, np.uint8)
+    if not line or len(a) % line:
+        return a.reshape(1, -1)
+    rows = a.reshape(-1, line)
+    if predict and line % stride == 0 and line > stride:
+        r = rows.reshape(len(rows), -1, stride).astype(np.int64)
+        d = r.copy()
+        d[:, 1:] -= r[:, :-1]
+        rows = (d % 256).astype(np.uint8).reshape(len(rows), line)
+    return rows
+
+
 def tiff_page(samples, bits=8, photometric=None, *, order="<",
               sample_format=1, extra_samples=(), planar=1,
               rows_per_strip=None, tile=None, compression=1, predictor=1,
               fill_order=1, colormap=None, orientation=None, tags=(),
-              offset_type=4, old_lzw=False, jpeg=None):
+              offset_type=4, old_lzw=False, jpeg=None,
+              ycbcr_subsampling=None):
     """(entries, blocks) of one TIFF page of ``samples`` ([h, w] or [h, w,
     k], each sample ``bits`` wide): strips of ``rows_per_strip`` rows (all
     by default) or ``tile`` = (width, length) tiles, padded at the edges;
@@ -488,7 +506,13 @@ def tiff_page(samples, bits=8, photometric=None, *, order="<",
     reverses the bits of every stored byte. Photometric 1 (grey) for one
     or two samples and 2 (RGB) for more, by default. ``tags``: entries
     (tag, type, values) that replace the page's own of that tag, or add
-    one (type None drops it); the entries are sorted by tag."""
+    one (type None drops it); the entries are sorted by tag.
+    ``ycbcr_subsampling`` (hs, vs): Y, Cb, Cr samples of 8 bits stored as
+    data units (``chip_smoke.ycbcr_units``) in one plane, each strip or
+    tile on its own, predictor 2 differencing its bytes with a stride of
+    3 over rows of libtiff's scanline (a strip's row of units over vs) or
+    of a tile's width x 3 bytes; YCbCrSubsampling set (planar 2 stores
+    the planes whole, and only sets it)."""
     import zlib as _zlib
     samples = np.asarray(samples)
     if samples.ndim == 2:
@@ -501,7 +525,13 @@ def tiff_page(samples, bits=8, photometric=None, *, order="<",
         if compression in (6, 7):
             data = jpeg(part)
             return _bitrev(data) if fill_order == 2 else data
-        if predictor == 3:
+        if ycbcr_subsampling and planar == 1:
+            hs, vs = ycbcr_subsampling
+            line = part.shape[1] * 3 if tile else (
+                -(-part.shape[1] // hs) * (hs * vs + 2) // vs)
+            rows = _lines(chip_smoke.ycbcr_units(np, part, hs, vs), line,
+                          3, predictor == 2)
+        elif predictor == 3:
             rows = _tiff_fp_predict(part, bits, sample_format)
         else:
             if predictor == 2:
@@ -556,6 +586,8 @@ def tiff_page(samples, bits=8, photometric=None, *, order="<",
         entries[320] = (3, list(colormap))
     if orientation is not None:
         entries[274] = (3, [orientation])
+    if ycbcr_subsampling:
+        entries[530] = (3, list(ycbcr_subsampling))
     for tag, typ, vals in tags:
         if typ is None:
             entries.pop(tag, None)
