@@ -83,10 +83,13 @@ C++ compiler), then:
    lies at an offset on its canvas) and lossy WebPs (odd-sized, grey,
    RGBA with its ALPH chunk, a lossy first frame at an offset, the test
    writer's frame with the simple filter and four token partitions, and
-   448x448 at quality 80 and 100) among the fixtures; and three YCbCr
+   448x448 at quality 80 and 100) among the fixtures; three YCbCr
    TIFFs of the 448x448 JPEG's pixels written here, which PIL reads
    through libtiff's RGBA interface: 2 x 2 under LZW, 1 x 1 in separate
-   planes under Deflate, also as ``image_path``, and under JPEG); a
+   planes under Deflate, also as ``image_path``, and under JPEG; and
+   three bilevel TIFFs of those pixels thresholded, written here
+   (``tiff_fax``): Group 4 and Group 3 2D as ``image_b64``, RLE as
+   ``image_path``); a
    path outside the root and a 12-bit JPEG (which the decoders and PIL
    both refuse) are 400s, an oversized body 413, /stats, /metrics and /healthz 200,
    and the server drains on shutdown (p50/p99 per bucket printed); the
@@ -101,9 +104,11 @@ C++ compiler), then:
    (PIL's of its pixels, committed; a corner of it written here decodes
    to its pixels too), lossy WebP at quality 80 and 100 (PIL's of its
    pixels, committed, each equal to its PIL array), the three YCbCr TIFFs
-   (each within a mean of 1 level of the pixels they were made from), and
-   a 480x640 ``resize_to_bucket`` are timed (median of 5, the card's name
-   and power limit beside them);
+   (each within a mean of 1 level of the pixels they were made from), the
+   three bilevel TIFFs and a 1728x2292 (fine-mode A4) Group 4 page of the
+   thresholded pixels repeated (each equal to its bits as RGB of 0 and
+   255), and a 480x640 ``resize_to_bucket`` are timed (median of 5, the
+   card's name and power limit beside them);
 3f. drives the XE pre-training stage (``cli.train_xe.train``) at full
    width (``Settings()``, the vocabulary padded to 10,000 words, xe_bs 20,
    the seq2seq batch 80, 16 tokens, beam 3) on a synthetic tree the
@@ -376,6 +381,7 @@ line. It exits non-zero at once where CUDA is absent or the package is
 not beside it. Details go to ``chiprun_out/chip_smoke.json``.
 """
 import contextlib
+import functools
 import json
 import math
 import os
@@ -1729,6 +1735,160 @@ def _tiff_ycbcr_bytes(np, zlib, img, subsampling=(2, 2), compression=5,
     return tiff_file([(entries, strips)])
 
 
+# CCITT coding (T.4 and T.6): the codes of two-dimensional coding's modes
+# (pass, horizontal, vertical by a1 - b1) and EOL, first bit first
+FAX_MODES = {"P": "0001", "H": "001", 0: "1", 1: "011", 2: "000011",
+             3: "0000011", -1: "010", -2: "000010", -3: "0000010"}
+FAX_EOL = "000000000001"
+
+
+@functools.lru_cache(maxsize=1)
+def fax_codes():
+    """T.4's run codes as the decoder's tables hold them (``csrc/
+    imgdec.cc``, one copy for the decoder and this writer): {name: [code,
+    ...]} for kWhiteTerm and kBlackTerm (runs 0-63), kWhiteMakeUp and
+    kBlackMakeUp (64-1728) and kExtMakeUp (1792-2560, both colours), each
+    code its bits first bit first."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "insenticap_model_tpu_torch", "csrc",
+                           "imgdec.cc")) as f:
+        src = f.read()
+    out = {}
+    for name in ("kWhiteTerm", "kWhiteMakeUp", "kBlackTerm", "kBlackMakeUp",
+                 "kExtMakeUp"):
+        at = src.index(f" {name}[")
+        out[name] = re.findall(r'"([01]+)"', src[at:src.index("};", at)])
+    return out
+
+
+def fax_span(codes, run, black):
+    """One run of a colour: make-up codes of 2560 while more than 2560 are
+    left, the make-up code of the rest's multiple of 64 (the colour's own
+    to 1728, the shared ones from 1792), then the terminating code of the
+    rest below 64."""
+    colour = "Black" if black else "White"
+    term, make, ext = (codes[f"k{colour}Term"], codes[f"k{colour}MakeUp"],
+                       codes["kExtMakeUp"])
+    out = []
+    while run > 2560:
+        out.append(ext[-1])
+        run -= 2560
+    if run >= 64:
+        out.append(make[run // 64 - 1] if run < 1792 else ext[run // 64 - 28])
+        run %= 64
+    return "".join(out) + term[run]
+
+
+def fax_row_1d(codes, changes, w):
+    """A row of one-dimensional coding (Modified Huffman): its runs from
+    the changing elements ``changes`` (the pixels whose colour differs
+    from the one before, white before the first), white first."""
+    edges = [0, *changes, w]
+    return "".join(fax_span(codes, b - a, i % 2)
+                   for i, (a, b) in enumerate(zip(edges, edges[1:])))
+
+
+def fax_row_2d(codes, cur, ref, w):
+    """A row of two-dimensional coding (T.4 4.2): the changing elements
+    ``cur`` against the reference row's ``ref``, each step pass mode
+    where b2 lies before a1, vertical mode where a1 is within 3 of b1,
+    else horizontal mode (a0a1 and a1a2 as runs)."""
+    import bisect
+    cc, rc = cur + [w] * 3, ref + [w] * 3
+    out, a0, colour = [], -1, 0
+    while a0 < w:
+        a1 = cc[bisect.bisect_right(cc, a0)]
+        j = bisect.bisect_right(rc, a0)
+        j += j % 2 != colour            # b1 of the colour opposite a0's
+        b1, b2 = rc[j], rc[j + 1]
+        if b2 < a1:
+            out.append(FAX_MODES["P"])
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out.append(FAX_MODES[a1 - b1])
+            a0, colour = a1, colour ^ 1
+        else:
+            a2 = cc[min(bisect.bisect_right(cc, a1), len(cc) - 1)]
+            out += [FAX_MODES["H"], fax_span(codes, a1 - max(a0, 0), colour),
+                    fax_span(codes, a2 - a1, colour ^ 1)]
+            a0 = a2
+    return "".join(out)
+
+
+def tiff_fax(np, bits, compression, t4options=0):
+    """CCITT coding of [n, w] bits (1 black, as stored) as a strip or
+    tile's bytes, first bit first: 2 (Modified Huffman, each row from a
+    byte boundary), 3 (Group 3: an EOL before each row, filled with zeros
+    to end on a byte boundary where T4Options bit 2 is set; with bit 0 a
+    tag bit after it, every fourth row one-dimensional from the first, the
+    rest two-dimensional against the row before; RTC last) or 4 (Group 4:
+    two-dimensional against the row before, an all-white one first; EOFB
+    last)."""
+    codes = fax_codes()
+    bits = np.asarray(bits)
+    w = bits.shape[1]
+    twod = compression == 3 and t4options & 1
+    out, size, ref = [], 0, []
+
+    def put(code):
+        nonlocal size
+        out.append(code)
+        size += len(code)
+    for y, row in enumerate(bits):
+        cur = np.flatnonzero(np.diff(row.astype(np.int8), prepend=0)).tolist()
+        if compression == 3:
+            if t4options & 4:
+                put("0" * (-(size + 12) % 8))
+            put(FAX_EOL + ("" if not twod else "0" if y % 4 else "1"))
+        if compression == 4 or (twod and y % 4):
+            put(fax_row_2d(codes, cur, ref, w))
+        else:
+            put(fax_row_1d(codes, cur, w))
+        if compression == 2:
+            put("0" * (-size % 8))
+        ref = cur
+    if compression != 2:
+        put((FAX_EOL + ("1" if twod else "")) * (6 if compression == 3 else 2))
+    stream = "".join(out) + "0" * (-size % 8)
+    return int(stream, 2).to_bytes(len(stream) // 8, "big") if stream else b""
+
+
+# phase 3e's bilevel TIFFs (``_tiff_fax_bytes`` of ``fax_bits``): name ->
+# (compression, T4Options)
+FAX_PAGES = {"g4": (4, 0), "g3_2d": (3, 1), "rle": (2, 0)}
+
+
+def fax_bits(np, img, size=None):
+    """An RGB uint8 image thresholded to bits (1 black where its luma is
+    below 128), scaled by repeating pixels to ``size`` = (h, w) where
+    given (a fine-mode A4 fax page is 2292 x 1728)."""
+    luma = img.astype(np.float64) @ np.array([0.299, 0.587, 0.114])
+    bits = (luma < 128).astype(np.uint8)
+    if size is not None:
+        h, w = bits.shape
+        bits = np.repeat(np.repeat(bits, -(-size[0] // h), 0),
+                         -(-size[1] // w), 1)[:size[0], :size[1]]
+    return bits
+
+
+def _tiff_fax_bytes(np, bits, compression, t4options=0):
+    """A little-endian bilevel TIFF of [h, w] bits (1 black), written here
+    (``tiff_fax``): one strip, photometric 0 (WhiteIsZero), T4Options for
+    Group 3; and the RGB pixels it decodes to, 0 for black and 255 for
+    white."""
+    h, w = bits.shape
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [1]),
+               (259, 3, [compression]), (262, 3, [0]),
+               (273, 4, "offsets"), (277, 3, [1]), (278, 4, [h]),
+               (279, 4, "counts")]
+    if compression == 3:
+        entries.append((292, 4, [t4options]))
+    white = np.where(np.asarray(bits) != 0, 0, 255).astype(np.uint8)
+    return (tiff_file([(entries, [tiff_fax(np, bits, compression,
+                                           t4options)])]),
+            np.repeat(white[:, :, None], 3, 2))
+
+
 # times the decode of each file in argv[3:] with the port under argv[1]:
 # median of argv[2] calls after one, in ms, null where the port refuses
 # it; and the path of the port's imgdec library
@@ -1924,6 +2084,12 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
             with open(os.path.join(root, "ycbcr11_deflate_planar.tif"),
                       "wb") as f:
                 f.write(ycc["ycbcr11_deflate_planar"])
+            # bilevel TIFFs of its pixels thresholded: Group 4 and Group 3
+            # 2D posted, the RLE page beside the fixtures' copy
+            fax = {name: _tiff_fax_bytes(np, fax_bits(np, img448), *args)[0]
+                   for name, args in FAX_PAGES.items()}
+            with open(os.path.join(root, "fax_rle.tif"), "wb") as f:
+                f.write(fax["rle"])
             progressive = [n for n in images if n.startswith("prog")]
             # the CMYK, YCCK and Adobe-RGB JPEGs, the Adam7 and 16-bit
             # PNGs, the GIFs, the BMPs, the WebPs and the TIFFs among them
@@ -1943,6 +2109,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                 {"image_b64": base64.b64encode(v).decode(),
                  "sentiment": ["auto", "negative", "positive"][i]}
                 for i, v in enumerate(ycc.values())] + [
+                {"image_b64": base64.b64encode(fax[n]).decode(),
+                 "sentiment": ["auto", "positive"][i]}
+                for i, n in enumerate(("g4", "g3_2d"))] + [
                 {"image_path": os.path.join(root, "j420_448.jpg")},
                 {"image_path": os.path.join(root, "rgba.png"),
                  "sentiment": "positive"},
@@ -1956,7 +2125,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                 {"image_path": os.path.join(root, "ycbcr_tiles_jpeg.tif"),
                  "sentiment": "negative"},
                 {"image_path": os.path.join(
-                    root, "ycbcr11_deflate_planar.tif")}]
+                    root, "ycbcr11_deflate_planar.tif")},
+                {"image_path": os.path.join(root, "fax_rle.tif"),
+                 "sentiment": "neutral"}]
             torch.cuda.synchronize()
             zero_counters()
             results, errors, serve_s = _run_groups(
@@ -2129,6 +2300,12 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
     # interface
     ycc = {name: _tiff_ycbcr_bytes(np, zlib, img448, *args)
            for name, args in YCBCR_PAGES.items()}
+    # bilevel TIFFs of its pixels thresholded, and a fine-mode A4 page of
+    # them under Group 4 (2292 x 1728), each with the RGB it decodes to
+    fax = {name: _tiff_fax_bytes(np, fax_bits(np, img448), *args)
+           for name, args in FAX_PAGES.items()}
+    fax["a4_g4"] = _tiff_fax_bytes(np, fax_bits(np, img448, (2292, 1728)),
+                                   4)
     img480 = np.random.default_rng(9).integers(0, 256, (480, 640, 3),
                                                dtype=np.uint8)
     bucket = pre.bucket_for_shape(480, 640, pre.DEFAULT_BUCKET_SHAPES)
@@ -2180,6 +2357,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                      ycc["ycbcr11_deflate_planar"])),
              "tiff_448_ycbcr_jpeg_planar_ms": host_ms(
                  lambda: pre.load_image_bytes(ycc["ycbcr_jpeg_planar"])),
+             **{f"tiff_{'' if n == 'a4_g4' else '448_'}{n}_ms": host_ms(
+                 lambda v=v: pre.load_image_bytes(v[0]))
+                for n, v in fax.items()},
              "resize_480x640_ms": host_ms(
                  lambda: pre.resize_to_bucket(img480, bucket))}
     _check(np.array_equal(pre.load_image_bytes(png), img448)
@@ -2205,6 +2385,9 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                for name, v in ycc.items()}
     _check(all(e < 1 for e in ycc_err.values()),
            f"the YCbCr TIFFs decode far from their pixels: {ycc_err}")
+    _check(all(np.array_equal(pre.load_image_bytes(v), want)
+               for v, want in fax.values()),
+           "the bilevel TIFFs do not decode to their thresholded bits")
     card = _smi()
     print(f"serving surface host times (median of 5, host CPU {cpu}, "
           f"{os.cpu_count()} cores, card {card}): decode 448x448 JPEG 4:2:0 "
@@ -2243,6 +2426,15 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
           f"JPEG ({len(ycc['ycbcr_jpeg_planar'])} B) "
           f"{times['tiff_448_ycbcr_jpeg_planar_ms']:.2f} ms (mean error "
           f"against the pixels {ycc_err})")
+    print(f"serving surface host times, CCITT TIFF (median of 5, card "
+          f"{card}): decode the 448x448 page thresholded under Group 4 "
+          f"({len(fax['g4'][0])} B) {times['tiff_448_g4_ms']:.2f} ms, "
+          f"Group 3 2D ({len(fax['g3_2d'][0])} B) "
+          f"{times['tiff_448_g3_2d_ms']:.2f} ms, RLE "
+          f"({len(fax['rle'][0])} B) {times['tiff_448_rle_ms']:.2f} ms, "
+          f"a 1728x2292 (A4 fine) Group 4 page "
+          f"({len(fax['a4_g4'][0])} B) {times['tiff_a4_g4_ms']:.2f} ms, "
+          f"each equal to its bits")
     out["host_times"] = dict(times, cpu=cpu, jpeg_bytes=len(jpeg),
                              progressive_bytes=len(prog),
                              cmyk_bytes=len(cmyk), png_bytes=len(png),
@@ -2257,6 +2449,8 @@ def _serving_surface(torch, np, dev, settings, cap32, det32, cpt32, enc32,
                              ycbcr_tiff_bytes={k: len(v)
                                                for k, v in ycc.items()},
                              ycbcr_tiff_mean_error=ycc_err,
+                             fax_tiff_bytes={k: len(v[0])
+                                             for k, v in fax.items()},
                              card=card)
     return out
 

@@ -1,7 +1,7 @@
 // Host image decoding for the serving surface: baseline, extended-
 // sequential and progressive Huffman JPEG, PNG's row filters, GIF's LZW,
 // BMP's RLE8 and RLE4, WebP's lossless (VP8L) bitstream and its lossy
-// (VP8) key frame, TIFF's PackBits, LZW and JPEG.
+// (VP8) key frame, TIFF's PackBits, LZW, JPEG and CCITT fax codings.
 //
 // The JAX package decodes with PIL (insenticap_model_tpu/preprocessing.py:
 // 50-80); the machine that serves the port has no PIL, so the port decodes
@@ -85,7 +85,13 @@
 // isc_tiff_inflate inflates a zlib stream as zlib's inflate does for
 // libtiff's ZIPDecode, for the bytes it writes before a fault, which
 // Python's zlib does not hand over (PIL's YCbCr pages, read through
-// libtiff's RGBA interface, keep them).
+// libtiff's RGBA interface, keep them). isc_tiff_fax decodes a CCITT
+// strip or tile (RLE, RLEW, Group 3 one- and two-dimensional, Group 4) as
+// libtiff 4.7's tif_fax3.c does for PIL, bit for bit on damaged data too:
+// a bad code word or a row of the wrong length ends the row (padded white
+// or clipped) and decoding goes on; Group 3 data that ends while an EOL
+// is sought is read again without EOLs; a Group 4 strip may end early;
+// the run arrays and that mode pass from strip to strip.
 //
 // WebP: the Python side walks the RIFF container as libwebp's demuxer
 // does; isc_vp8l_decode decodes a VP8L chunk's bitstream (RFC 9649) to RGB,
@@ -4223,6 +4229,668 @@ int isc_tiff_inflate(const uint8_t* in, long long n, uint8_t* out,
   set_err(err, errlen, r == kBad ? "TIFF: corrupt Deflate data"
                                  : "TIFF: not enough Deflate data");
   return r == kBad ? 1 : 2;
+}
+
+// CCITT fax (TIFF compressions 2, 3, 4 and 32771) as libtiff 4.7's
+// tif_fax3.c decodes it: the state tables of mkg3states, the bit
+// accumulator read a byte at a time through libtiff's bit-reversal table,
+// Fax3DecodeRLE, Fax3Decode1D, Fax3Decode2D and Fax4Decode with their
+// recovery from bad codes (CLEANUP_RUNS pads a short row white and clips a
+// long one), _TIFFFax3fillruns.
+namespace fax_impl {
+
+enum : uint8_t { kNull, kPass, kHoriz, kV0, kVR, kVL, kExt, kTermW, kTermB,
+                 kMakeUpW, kMakeUpB, kMakeUp, kEol };
+
+struct Ent {
+  uint8_t state, width;
+  uint32_t param;
+};
+
+// T.4's codes, first bit first: terminating codes for runs 0-63, make-up
+// codes for 64-1728 of each colour, and the make-up codes for 1792-2560
+// that both colours share
+const char* const kWhiteTerm[64] = {
+    "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111",
+    "10011", "10100", "00111", "01000", "001000", "000011", "110100",
+    "110101", "101010", "101011", "0100111", "0001100", "0001000",
+    "0010111", "0000011", "0000100", "0101000", "0101011", "0010011",
+    "0100100", "0011000", "00000010", "00000011", "00011010", "00011011",
+    "00010010", "00010011", "00010100", "00010101", "00010110", "00010111",
+    "00101000", "00101001", "00101010", "00101011", "00101100", "00101101",
+    "00000100", "00000101", "00001010", "00001011", "01010010", "01010011",
+    "01010100", "01010101", "00100100", "00100101", "01011000", "01011001",
+    "01011010", "01011011", "01001010", "01001011", "00110010", "00110011",
+    "00110100"};
+const char* const kWhiteMakeUp[27] = {
+    "11011", "10010", "010111", "0110111", "00110110", "00110111",
+    "01100100", "01100101", "01101000", "01100111", "011001100",
+    "011001101", "011010010", "011010011", "011010100", "011010101",
+    "011010110", "011010111", "011011000", "011011001", "011011010",
+    "011011011", "010011000", "010011001", "010011010", "011000",
+    "010011011"};
+const char* const kBlackTerm[64] = {
+    "0000110111", "010", "11", "10", "011", "0011", "0010", "00011",
+    "000101", "000100", "0000100", "0000101", "0000111", "00000100",
+    "00000111", "000011000", "0000010111", "0000011000", "0000001000",
+    "00001100111", "00001101000", "00001101100", "00000110111",
+    "00000101000", "00000010111", "00000011000", "000011001010",
+    "000011001011", "000011001100", "000011001101", "000001101000",
+    "000001101001", "000001101010", "000001101011", "000011010010",
+    "000011010011", "000011010100", "000011010101", "000011010110",
+    "000011010111", "000001101100", "000001101101", "000011011010",
+    "000011011011", "000001010100", "000001010101", "000001010110",
+    "000001010111", "000001100100", "000001100101", "000001010010",
+    "000001010011", "000000100100", "000000110111", "000000111000",
+    "000000100111", "000000101000", "000001011000", "000001011001",
+    "000000101011", "000000101100", "000001011010", "000001100110",
+    "000001100111"};
+const char* const kBlackMakeUp[27] = {
+    "0000001111", "000011001000", "000011001001", "000001011011",
+    "000000110011", "000000110100", "000000110101", "0000001101100",
+    "0000001101101", "0000001001010", "0000001001011", "0000001001100",
+    "0000001001101", "0000001110010", "0000001110011", "0000001110100",
+    "0000001110101", "0000001110110", "0000001110111", "0000001010010",
+    "0000001010011", "0000001010100", "0000001010101", "0000001011010",
+    "0000001011011", "0000001100100", "0000001100101"};
+const char* const kExtMakeUp[13] = {
+    "00000001000", "00000001100", "00000001101", "000000010010",
+    "000000010011", "000000010100", "000000010101", "000000010110",
+    "000000010111", "000000011100", "000000011101", "000000011110",
+    "000000011111"};
+
+// mkg3states' tables: a code's entry at every index whose low bits (the
+// code's first bit lowest) are the code; indices no code reaches stay
+// kNull, of width 0
+struct Tables {
+  Ent main[128], white[4096], black[8192];
+  uint8_t rev[256];
+  static void put(Ent* t, int bits, const char* code, uint8_t state,
+                  uint32_t param) {
+    const int w = (int)strlen(code);
+    int v = 0;
+    for (int i = 0; i < w; ++i) v |= (code[i] == '1') << i;
+    for (int c = v; c < 1 << bits; c += 1 << w)
+      t[c] = Ent{state, (uint8_t)w, param};
+  }
+  Tables() : main(), white(), black() {
+    put(main, 7, "0001", kPass, 0);
+    put(main, 7, "001", kHoriz, 0);
+    put(main, 7, "1", kV0, 0);
+    put(main, 7, "011", kVR, 1);
+    put(main, 7, "000011", kVR, 2);
+    put(main, 7, "0000011", kVR, 3);
+    put(main, 7, "010", kVL, 1);
+    put(main, 7, "000010", kVL, 2);
+    put(main, 7, "0000010", kVL, 3);
+    put(main, 7, "0000001", kExt, 0);
+    put(main, 7, "0000000", kEol, 0);
+    for (int i = 0; i < 27; ++i) {
+      put(white, 12, kWhiteMakeUp[i], kMakeUpW, 64 * (i + 1));
+      put(black, 13, kBlackMakeUp[i], kMakeUpB, 64 * (i + 1));
+    }
+    for (int i = 0; i < 13; ++i) {
+      put(white, 12, kExtMakeUp[i], kMakeUp, 1792 + 64 * i);
+      put(black, 13, kExtMakeUp[i], kMakeUp, 1792 + 64 * i);
+    }
+    for (int i = 0; i < 64; ++i) {
+      put(white, 12, kWhiteTerm[i], kTermW, i);
+      put(black, 13, kBlackTerm[i], kTermB, i);
+    }
+    put(white, 12, "00000000000", kEol, 0);
+    put(black, 13, "00000000000", kEol, 0);
+    for (int i = 0; i < 256; ++i) {
+      int r = 0;
+      for (int k = 0; k < 8; ++k) r |= (i >> k & 1) << (7 - k);
+      rev[i] = (uint8_t)r;
+    }
+  }
+};
+
+const Tables& tables() {
+  static const Tables t;
+  return t;
+}
+
+enum { kRle = 0, kRlew = 1, kG31d = 2, kG32d = 3, kG4 = 4 };
+enum { kNoEol = 1 };
+
+// One strip or tile. The run arrays are libtiff's (sp->runs): two halves
+// of nruns entries, curruns and refruns, that outlive the strip (a row's
+// reference reads what earlier rows, or strips, left there); only their
+// first cap entries are kept, the rest never written (zero, as libtiff's
+// memset leaves them).
+struct Strip {
+  const uint8_t* in;
+  long long n;
+  int odd;                      // the data at an odd offset in the file
+  uint8_t* out;
+  long long rows, rowbytes;
+  int32_t lastx;
+  uint32_t* runs;
+  long long cap;
+  long long nruns;
+  int* mode;
+  long long* reach;             // a row's bits written, this strip or before
+  long long done = 0;           // rows filled
+
+  uint32_t rd(int half, long long k) const {
+    return k < cap ? runs[half * cap + k] : 0;
+  }
+  void wr(int half, long long k, uint32_t v) {
+    if (k >= cap) fail("TIFF: fax run array past its bound");
+    runs[half * cap + k] = v;
+  }
+  // _TIFFFax3fillruns into row ``done``: runs clipped to lastx in place,
+  // white bits cleared, black set; an odd count padded with a 0 run
+  void fill(int half, long long pa) {
+    if (pa & 1) wr(half, pa++, 0);
+    uint8_t* row = out + done * rowbytes;
+    const uint32_t last = (uint32_t)lastx;
+    uint32_t x = 0;
+    for (long long k = 0; k < pa; k += 2) {
+      for (int c = 0; c < 2; ++c) {
+        uint32_t run = rd(half, k + c);
+        if (x + run > last || run > last) {
+          run = last - x;
+          wr(half, k + c, run);
+        }
+        if (!run) continue;
+        for (uint32_t e = x + run; x < e;) {
+          const uint32_t bx = x & 7;
+          if (!bx && e - x >= 8) {
+            const uint32_t nb = (e - x) >> 3;
+            memset(row + (x >> 3), c ? 0xFF : 0, nb);
+            x += nb * 8;
+            continue;
+          }
+          const uint32_t k8 = std::min<uint32_t>(8 - bx, e - x);
+          const uint8_t m = (uint8_t)(((0xFF00u >> k8) & 0xFF) >> bx);
+          row[x >> 3] = c ? row[x >> 3] | m : row[x >> 3] & ~m;
+          x += k8;
+        }
+      }
+    }
+    if (x > reach[done]) reach[done] = x;
+    ++done;
+  }
+};
+
+inline int32_t wrap(uint32_t v) { return (int32_t)v; }
+
+// ---- the macros of libtiff's fax3.h, over Strip s and the locals below
+#define FAX_NEED8(n, eoflab)                                  \
+  do {                                                        \
+    if (avail < (n)) {                                        \
+      if (cp >= ep) {                                         \
+        if (avail == 0) goto eoflab;                          \
+        avail = (n);                                          \
+      } else {                                                \
+        acc |= (uint32_t)rev[in[cp++]] << avail;              \
+        avail += 8;                                           \
+      }                                                       \
+    }                                                         \
+  } while (0)
+#define FAX_NEED16(n, eoflab)                                 \
+  do {                                                        \
+    if (avail < (n)) {                                        \
+      if (cp >= ep) {                                         \
+        if (avail == 0) goto eoflab;                          \
+        avail = (n);                                          \
+      } else {                                                \
+        acc |= (uint32_t)rev[in[cp++]] << avail;              \
+        if ((avail += 8) < (n)) {                             \
+          if (cp >= ep) {                                     \
+            avail = (n);                                      \
+          } else {                                            \
+            acc |= (uint32_t)rev[in[cp++]] << avail;          \
+            avail += 8;                                       \
+          }                                                   \
+        }                                                     \
+      }                                                       \
+    }                                                         \
+  } while (0)
+#define FAX_BITS(n) (acc & ((1u << (n)) - 1))
+#define FAX_CLR(n)  \
+  do {              \
+    avail -= (n);   \
+    acc >>= (n);    \
+  } while (0)
+#define FAX_LOOKUP8(wid, tab, eoflab) \
+  do {                                \
+    FAX_NEED8(wid, eoflab);           \
+    ent = &(tab)[FAX_BITS(wid)];      \
+    FAX_CLR(ent->width);              \
+  } while (0)
+#define FAX_LOOKUP16(wid, tab, eoflab) \
+  do {                                 \
+    FAX_NEED16(wid, eoflab);           \
+    ent = &(tab)[FAX_BITS(wid)];       \
+    FAX_CLR(ent->width);               \
+  } while (0)
+#define FAX_SET(x)                                        \
+  do {                                                    \
+    const uint32_t v_ = (uint32_t)(x);                    \
+    if (pa >= s.nruns) return -1;                         \
+    s.wr(cur, pa++, (uint32_t)run_len + v_);              \
+    a0 = wrap((uint32_t)a0 + v_);                         \
+    run_len = 0;                                          \
+  } while (0)
+// EOL search at the start of a row: 11 zero bits (where the row before
+// did not end in an EOL), then any more zeros and the 1. Data that ends
+// before the search begins fails the strip (eoflab); data that ends
+// while zeros are skipped makes libtiff 4.7 take the page as Group 3
+// without EOLs from then on and decode the strip again from its start,
+// into the rows still to fill
+#define FAX_SYNC_EOL(eoflab, retry)                        \
+  do {                                                     \
+    if (!(*s.mode & kNoEol)) {                             \
+      if (eolcnt == 0) {                                   \
+        for (;;) {                                         \
+          FAX_NEED16(11, eoflab);                          \
+          if (FAX_BITS(11) == 0) break;                    \
+          FAX_CLR(1);                                      \
+        }                                                  \
+      }                                                    \
+      for (;;) {                                           \
+        FAX_NEED8(8, noeol);                               \
+        if (FAX_BITS(8)) break;                            \
+        FAX_CLR(8);                                        \
+      }                                                    \
+      while (FAX_BITS(1) == 0) FAX_CLR(1);                 \
+      FAX_CLR(1);                                          \
+      eolcnt = 0;                                          \
+      break;                                               \
+    noeol:                                                 \
+      *s.mode |= kNoEol;                                   \
+      goto retry;                                          \
+    }                                                      \
+  } while (0)
+#define FAX_CLEANUP()                                                    \
+  do {                                                                   \
+    if (run_len) FAX_SET(0);                                             \
+    if (a0 != lastx) {                                                   \
+      while (a0 > lastx && pa > 0) a0 = wrap((uint32_t)a0 - s.rd(cur, --pa)); \
+      if (a0 < lastx) {                                                  \
+        if (a0 < 0) a0 = 0;                                              \
+        if (pa & 1) FAX_SET(0);                                          \
+        FAX_SET(lastx - a0);                                             \
+      } else if (a0 > lastx) {                                           \
+        FAX_SET(lastx);                                                  \
+        FAX_SET(0);                                                      \
+      }                                                                  \
+    }                                                                    \
+  } while (0)
+#define FAX_EXPAND1D(eoflab)                                    \
+  do {                                                          \
+    for (;;) {                                                  \
+      for (;;) {                                                \
+        FAX_LOOKUP16(12, t.white, eof1d);                       \
+        switch (ent->state) {                                   \
+          case kEol:                                            \
+            eolcnt = 1;                                         \
+            goto done1d;                                        \
+          case kTermW:                                          \
+            FAX_SET(ent->param);                                \
+            goto done_white1d;                                  \
+          case kMakeUpW:                                        \
+          case kMakeUp:                                         \
+            a0 = wrap((uint32_t)a0 + ent->param);               \
+            run_len = wrap((uint32_t)run_len + ent->param);     \
+            break;                                              \
+          default:                                              \
+            goto done1d;                                        \
+        }                                                       \
+      }                                                         \
+    done_white1d:                                               \
+      if (a0 >= lastx) goto done1d;                             \
+      for (;;) {                                                \
+        FAX_LOOKUP16(13, t.black, eof1d);                       \
+        switch (ent->state) {                                   \
+          case kEol:                                            \
+            eolcnt = 1;                                         \
+            goto done1d;                                        \
+          case kTermB:                                          \
+            FAX_SET(ent->param);                                \
+            goto done_black1d;                                  \
+          case kMakeUpB:                                        \
+          case kMakeUp:                                         \
+            a0 = wrap((uint32_t)a0 + ent->param);               \
+            run_len = wrap((uint32_t)run_len + ent->param);     \
+            break;                                              \
+          default:                                              \
+            goto done1d;                                        \
+        }                                                       \
+      }                                                         \
+    done_black1d:                                               \
+      if (a0 >= lastx) goto done1d;                             \
+      if (s.rd(cur, pa - 1) == 0 && s.rd(cur, pa - 2) == 0) pa -= 2; \
+    }                                                           \
+  eof1d:                                                        \
+    FAX_CLEANUP();                                              \
+    goto eoflab;                                                \
+  done1d:                                                       \
+    FAX_CLEANUP();                                              \
+  } while (0)
+#define FAX_CHECK_B1                                        \
+  do {                                                      \
+    if (pa != 0)                                            \
+      while (b1 <= a0 && b1 < lastx) {                      \
+        if (pb + 1 >= s.nruns) return -1;                   \
+        b1 = wrap((uint32_t)b1 + s.rd(ref, pb) + s.rd(ref, pb + 1)); \
+        pb += 2;                                            \
+      }                                                     \
+  } while (0)
+#define FAX_EXPAND2D(eoflab)                                              \
+  do {                                                                    \
+    while (a0 < lastx) {                                                  \
+      if (pa >= s.nruns) return -1;                                       \
+      FAX_LOOKUP8(7, t.main, eof2d);                                      \
+      switch (ent->state) {                                               \
+        case kPass:                                                       \
+          FAX_CHECK_B1;                                                   \
+          if (pb + 1 >= s.nruns) return -1;                               \
+          b1 = wrap((uint32_t)b1 + s.rd(ref, pb++));                      \
+          run_len = wrap((uint32_t)run_len + (uint32_t)b1 - (uint32_t)a0); \
+          a0 = b1;                                                        \
+          b1 = wrap((uint32_t)b1 + s.rd(ref, pb++));                      \
+          break;                                                          \
+        case kHoriz:                                                      \
+          if (pa & 1) {                                                   \
+            for (;;) {                                                    \
+              FAX_LOOKUP16(13, t.black, eof2d);                           \
+              switch (ent->state) {                                       \
+                case kTermB:                                              \
+                  FAX_SET(ent->param);                                    \
+                  goto done_white2da;                                     \
+                case kMakeUpB:                                            \
+                case kMakeUp:                                             \
+                  a0 = wrap((uint32_t)a0 + ent->param);                   \
+                  run_len = wrap((uint32_t)run_len + ent->param);         \
+                  break;                                                  \
+                default:                                                  \
+                  goto bad2d;                                             \
+              }                                                           \
+            }                                                             \
+          done_white2da:;                                                 \
+            for (;;) {                                                    \
+              FAX_LOOKUP16(12, t.white, eof2d);                           \
+              switch (ent->state) {                                       \
+                case kTermW:                                              \
+                  FAX_SET(ent->param);                                    \
+                  goto done_black2da;                                     \
+                case kMakeUpW:                                            \
+                case kMakeUp:                                             \
+                  a0 = wrap((uint32_t)a0 + ent->param);                   \
+                  run_len = wrap((uint32_t)run_len + ent->param);         \
+                  break;                                                  \
+                default:                                                  \
+                  goto bad2d;                                             \
+              }                                                           \
+            }                                                             \
+          done_black2da:;                                                 \
+          } else {                                                        \
+            for (;;) {                                                    \
+              FAX_LOOKUP16(12, t.white, eof2d);                           \
+              switch (ent->state) {                                       \
+                case kTermW:                                              \
+                  FAX_SET(ent->param);                                    \
+                  goto done_white2db;                                     \
+                case kMakeUpW:                                            \
+                case kMakeUp:                                             \
+                  a0 = wrap((uint32_t)a0 + ent->param);                   \
+                  run_len = wrap((uint32_t)run_len + ent->param);         \
+                  break;                                                  \
+                default:                                                  \
+                  goto bad2d;                                             \
+              }                                                           \
+            }                                                             \
+          done_white2db:;                                                 \
+            for (;;) {                                                    \
+              FAX_LOOKUP16(13, t.black, eof2d);                           \
+              switch (ent->state) {                                       \
+                case kTermB:                                              \
+                  FAX_SET(ent->param);                                    \
+                  goto done_black2db;                                     \
+                case kMakeUpB:                                            \
+                case kMakeUp:                                             \
+                  a0 = wrap((uint32_t)a0 + ent->param);                   \
+                  run_len = wrap((uint32_t)run_len + ent->param);         \
+                  break;                                                  \
+                default:                                                  \
+                  goto bad2d;                                             \
+              }                                                           \
+            }                                                             \
+          done_black2db:;                                                 \
+          }                                                               \
+          FAX_CHECK_B1;                                                   \
+          break;                                                          \
+        case kV0:                                                         \
+          FAX_CHECK_B1;                                                   \
+          FAX_SET((uint32_t)b1 - (uint32_t)a0);                           \
+          if (pb >= s.nruns) return -1;                                   \
+          b1 = wrap((uint32_t)b1 + s.rd(ref, pb++));                      \
+          break;                                                          \
+        case kVR:                                                         \
+          FAX_CHECK_B1;                                                   \
+          FAX_SET((uint32_t)b1 - (uint32_t)a0 + ent->param);              \
+          if (pb >= s.nruns) return -1;                                   \
+          b1 = wrap((uint32_t)b1 + s.rd(ref, pb++));                      \
+          break;                                                          \
+        case kVL:                                                         \
+          FAX_CHECK_B1;                                                   \
+          if (b1 < wrap((uint32_t)a0 + ent->param)) goto bad2d;           \
+          FAX_SET((uint32_t)b1 - (uint32_t)a0 - ent->param);              \
+          if (pb < 1) fail("TIFF: fax reference run before its start");   \
+          b1 = wrap((uint32_t)b1 - s.rd(ref, --pb));                      \
+          break;                                                          \
+        case kExt:                                                        \
+          s.wr(cur, pa++, (uint32_t)(lastx - a0));                        \
+          goto eol2d;                                                     \
+        case kEol:                                                        \
+          s.wr(cur, pa++, (uint32_t)(lastx - a0));                        \
+          FAX_NEED8(4, eof2d);                                            \
+          FAX_CLR(4);                                                     \
+          eolcnt = 1;                                                     \
+          goto eol2d;                                                     \
+        default:                                                          \
+        bad2d:                                                            \
+          goto eol2d;                                                     \
+        eof2d:                                                            \
+          FAX_CLEANUP();                                                  \
+          goto eoflab;                                                    \
+      }                                                                   \
+    }                                                                     \
+    if (run_len) {                                                        \
+      if (run_len + a0 < lastx) {                                         \
+        FAX_NEED8(1, eof2d);                                              \
+        if (!FAX_BITS(1)) goto bad2d;                                     \
+        FAX_CLR(1);                                                       \
+      }                                                                   \
+      FAX_SET(0);                                                         \
+    }                                                                     \
+  eol2d:                                                                  \
+    FAX_CLEANUP();                                                        \
+  } while (0)
+
+#define FAX_STATE                                   \
+  const Tables& t = tables();                       \
+  const uint8_t* const rev = t.rev;                 \
+  const uint8_t* const in = s.in;                   \
+  const int32_t lastx = s.lastx;                    \
+  const Ent* ent;                                   \
+  uint32_t acc;                                     \
+  int avail, eolcnt;                                \
+  long long cp, ep;                                 \
+  int32_t a0, run_len;                              \
+  long long pa;                                     \
+  int cur = 0, ref = 1;                             \
+  int32_t b1 = 0;                                   \
+  long long pb = 0;                                 \
+  (void)b1;                                         \
+  (void)pb;                                         \
+  (void)ref
+#define FAX_CACHE \
+  do {            \
+    acc = 0;      \
+    avail = 0;    \
+    eolcnt = 0;   \
+    cp = 0;       \
+    ep = s.n;     \
+  } while (0)
+
+// Fax3DecodeRLE: rows of Modified Huffman codes, no EOLs, each starting
+// at a byte (RLE) or, for RLEW, with the bits held cut to 16 and a byte
+// skipped where the file's next word starts after it
+int decode_rle(Strip& s, bool words) {
+  FAX_STATE;
+  (void)eolcnt;
+  FAX_CACHE;
+  while (s.done < s.rows) {
+    a0 = 0;
+    run_len = 0;
+    pa = 0;
+    FAX_EXPAND1D(eof);
+    s.fill(cur, pa);
+    if (!words) {
+      const int k = avail - (avail & ~7);
+      FAX_CLR(k);
+    } else {
+      const int k = avail - (avail & ~15);
+      FAX_CLR(k);
+      if (avail == 0 && ((s.odd + cp) & 1)) cp++;
+    }
+    continue;
+  eof:
+    s.fill(cur, pa);
+    return -1;
+  }
+  return 1;
+}
+
+// Fax3Decode1D: an EOL, then a row of Modified Huffman codes
+int decode_1d(Strip& s) {
+  FAX_STATE;
+retry:
+  FAX_CACHE;
+  while (s.done < s.rows) {
+    a0 = 0;
+    run_len = 0;
+    pa = 0;
+    FAX_SYNC_EOL(eof, retry);
+    FAX_EXPAND1D(eof_a);
+    s.fill(cur, pa);
+    continue;
+  eof:
+    FAX_CLEANUP();
+  eof_a:
+    s.fill(cur, pa);
+    return -1;
+  }
+  return 1;
+}
+
+// Fax3Decode2D: an EOL, a tag bit, then a row of Modified Huffman codes
+// (1) or of modes against the row before (0)
+int decode_2d(Strip& s) {
+  FAX_STATE;
+  int is1d;
+retry:
+  FAX_CACHE;
+  while (s.done < s.rows) {
+    a0 = 0;
+    run_len = 0;
+    pa = 0;
+    FAX_SYNC_EOL(eof, retry);
+    FAX_NEED8(1, eof);
+    is1d = (int)FAX_BITS(1);
+    FAX_CLR(1);
+    pb = 0;
+    b1 = wrap(s.rd(ref, pb++));
+    if (is1d)
+      FAX_EXPAND1D(eof_a);
+    else
+      FAX_EXPAND2D(eof_a);
+    s.fill(cur, pa);
+    if (pa < s.nruns) FAX_SET(0);
+    std::swap(cur, ref);
+    continue;
+  eof:
+    FAX_CLEANUP();
+  eof_a:
+    s.fill(cur, pa);
+    return -1;
+  }
+  return 1;
+}
+
+// Fax4Decode: rows of modes against the row before, no EOLs, until EOFB
+int decode_g4(Strip& s) {
+  FAX_STATE;
+  FAX_CACHE;
+  while (s.done < s.rows) {
+    a0 = 0;
+    run_len = 0;
+    pa = 0;
+    pb = 0;
+    b1 = wrap(s.rd(ref, pb++));
+    FAX_EXPAND2D(eofb);
+    if (eolcnt) goto eofb;
+    s.fill(cur, pa);
+    FAX_SET(0);
+    std::swap(cur, ref);
+    continue;
+  eofb:
+    s.fill(cur, pa);
+    // a strip that ends early (EOFB, or the end of its data) after a row
+    // is no error: the rows after it are left as they were
+    return s.done > 1 ? 1 : -1;
+  }
+  return 1;
+}
+
+}  // namespace fax_impl
+
+// A CCITT strip or tile (in[0, n), its bytes read first bit first) into
+// rows of rowbytes bytes at out, width pixels each (a black run's bits
+// set), as libtiff 4.7 decodes it for PIL. kind: 0 RLE (2), 1 RLEW
+// (32771), 2 Group 3 1D, 3 Group 3 2D (3), 4 Group 4 (4). runs: the
+// page's two run arrays, 2 x cap uint32 zeroed before its first strip, of
+// nruns entries each to libtiff; *mode carries FAXMODE_NOEOL from strip
+// to strip; odd: the data lies at an odd offset in the file (RLEW aligns
+// rows to the file's 16-bit words). out is the caller's buffer, kept from
+// strip to strip as Pillow keeps its own: reach[r] (rows entries) is
+// raised to the bits of row r that this strip writes, so that a row's
+// first reach[r] bits are known after it, from this strip or one before.
+// Returns 0 where libtiff decodes the strip, 1 where it fails it (and PIL
+// refuses the page).
+int isc_tiff_fax(const uint8_t* in, long long n, uint8_t* out,
+                 long long rows, long long rowbytes, long long width,
+                 int kind, int odd, uint32_t* runs, long long cap,
+                 long long nruns, int* mode, long long* reach, char* err,
+                 int errlen) {
+  using namespace fax_impl;
+  Strip s{in, n, odd, out, rows, rowbytes, (int32_t)width, runs, cap,
+          nruns, mode, reach};
+  int rc;
+  try {
+    if (kind == kG32d || kind == kG4) {   // Fax3PreDecode: a white reference
+      s.wr(1, 0, (uint32_t)width);
+      s.wr(1, 1, 0);
+    }
+    rc = kind <= kRlew ? decode_rle(s, kind == kRlew)
+         : kind == kG31d ? decode_1d(s)
+         : kind == kG32d ? decode_2d(s)
+                         : decode_g4(s);
+  } catch (const Error& e) {
+    set_err(err, errlen, e.msg);
+    return 2;
+  }
+  if (rc < 0) {
+    set_err(err, errlen, "TIFF: CCITT data that libtiff fails to decode");
+    return 1;
+  }
+  return 0;
 }
 
 // TIFF CIELAB to RGB as PIL converts it (Image.convert's LAB branch:

@@ -57,11 +57,12 @@ PIL, so it carries its own, to give PIL's arrays bit for bit:
   and Deflate as libtiff decodes them for Pillow (fill order, predictors
   2 and 3, native 16-bit order, planes a band each), JPEG as libtiff
   drives libjpeg, YCbCr but JPEG in one plane as libtiff's RGBA interface
-  reads it (data units, libtiff's buffers, its colour tables), the
-  Orientation tag applied, then PIL's conversion to RGB (CIELAB through
-  LittleCMS's transform, emulated: its 33^3 table and tetrahedral
-  interpolation, the latter in the same library). The other formats that
-  Pillow's plugins
+  reads it (data units, libtiff's buffers, its colour tables), CCITT (RLE,
+  RLEW, Group 3 and Group 4, in the same library) as libtiff's fax codec
+  decodes it, its recovery from bad codes included, the Orientation tag
+  applied, then PIL's conversion to RGB (CIELAB through LittleCMS's
+  transform, emulated: its 33^3 table and tetrahedral interpolation, the
+  latter in the same library). The other formats that Pillow's plugins
   recognise by signature (PPM, ...), and TIFF's other compressions, are
   refused by name.
 * ``resize_to_bucket``: Pillow's ``BILINEAR`` resampler
@@ -129,7 +130,9 @@ _SIGS = {"isc_jpeg_info": [_P, _LL, _IP, _IP, _IP, _P, _I],
          "isc_tiff_jpeg_tables": [_P, _LL, _P, _P, _I],
          "isc_tiff_jpeg": [_P, _LL, _P, _LL, _LL, _LL] + [_I] * 5 + [
              _LL, _LL, _P, _LL, _P, _I],
-         "isc_tiff_lab": [_P, _LL, _LL, _P, _P, _P, _I]}
+         "isc_tiff_lab": [_P, _LL, _LL, _P, _P, _P, _I],
+         "isc_tiff_fax": [_P, _LL, _P] + [_LL] * 3 + [_I, _I, _P, _LL, _LL,
+                                                      _P, _P, _P, _I]}
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 # formats that Pillow's plugins recognise (by their ``_accept``
 # signatures) and the decoders do not read: a refusal names them. Each
@@ -834,7 +837,7 @@ def _decode_webp(data: bytes) -> np.ndarray:
 # value is a single one (the first of the entry's; every other tag a
 # tuple), the names that an ASCII value of a tag stands for (TiffTags'
 # enums); COMPRESSION_INFO (1 is Pillow's raw decoders', the rest
-# libtiff's; the port reads 1, PackBits, LZW, Deflate and JPEG)
+# libtiff's; the port reads 1, PackBits, LZW, Deflate, JPEG and CCITT)
 _TIFF_SIGS = (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+", b"II+\0")
 _TIFF_TYPES = {1: (1, None), 2: (1, None), 3: (2, "H"), 4: (4, "L"),
                5: (8, "L"), 6: (1, "b"), 7: (1, None), 8: (2, "h"),
@@ -854,7 +857,7 @@ _TIFF_ENUMS = {
     317: {"none": 1, "Horizontal Differencing": 2}}
 _TIFF_CODECS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3",
                 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG", 7: "JPEG",
-                8: "Deflate", 32771: "raw 16-bit", 32773: "PackBits",
+                8: "Deflate", 32771: "CCITT RLEW", 32773: "PackBits",
                 32809: "ThunderScan", 32946: "Deflate", 34676: "SGILog",
                 34677: "SGILog24", 34925: "LZMA", 50000: "Zstandard",
                 50001: "WebP"}
@@ -953,6 +956,14 @@ _LIBTIFF_FLOATS = _LIBTIFF_INTS + (5, 10, 11, 12)
 _YCBCR_CONTIG = ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))
 _YCBCR_LUMA = (0.299, 0.587, 0.114)
 _YCBCR_REFBW = (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)
+# CCITT (``_TiffFax``): each compression's decoder in ``isc_tiff_fax``
+# (Group 3 is 2 or, with T4Options bit 0, 3); the refusal of a page that
+# libtiff decodes but leaves partly unwritten, where PIL shows whatever its
+# buffer held
+_TIFF_FAX = {"CCITT RLE": 0, "CCITT RLEW": 1, "CCITT Group 3": 2,
+             "CCITT Group 4": 4}
+_TIFF_FAX_UNWRITTEN = ("unsupported: TIFF CCITT rows that libtiff leaves "
+                       "unwritten (PIL shows what its buffer held there)")
 
 
 def _tiff_raw_bits(raw: str):
@@ -1358,10 +1369,10 @@ class _LibTiff:
                              "sample")
         return vals[0]
 
-    def lenient(self, tag, default):
+    def lenient(self, tag, default, top=0xFFFF):
         """A tag libtiff reads leniently: the default where it cannot."""
         try:
-            return self.number(tag, default, 0xFFFF)
+            return self.number(tag, default, top)
         except ValueError:
             return default
 
@@ -1671,27 +1682,29 @@ def _tiff_rows(t: _Tiff, chunk: bytes, n: int, rowbytes: int,
 
 
 def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
-    """PackBits (32773), LZW (5), Deflate (8, 32946) and JPEG (7) as
-    Pillow's libtiff decoder (TiffDecode.c) reads them: libtiff's checks of
-    the header, its reading of the IFD (``_LibTiff``: a size other than
-    Pillow's refused, as PIL refuses it; a photometric that Pillow and
-    libtiff read otherwise by name). A YCbCr page but JPEG in one plane
-    goes through libtiff's RGBA interface (``_tiff_rgba``); for the rest,
-    other samples, bits or compression refused by name, libtiff's planar
-    configuration, strips or tiles and fill order taken, its check of the
-    predictor (LZW's and Deflate's: PackBits and JPEG have none); each
+    """PackBits (32773), LZW (5), Deflate (8, 32946), JPEG (7) and CCITT
+    (2, 3, 4, 32771) as Pillow's libtiff decoder (TiffDecode.c) reads
+    them: libtiff's checks of the header, its reading of the IFD
+    (``_LibTiff``: a size other than Pillow's refused, as PIL refuses it;
+    a photometric that Pillow and libtiff read otherwise by name). A YCbCr
+    page but JPEG in one plane goes through libtiff's RGBA interface
+    (``_tiff_rgba``); for the rest, other samples, bits or compression
+    refused by name, libtiff's planar configuration, strips or tiles and
+    fill order taken, its check of the predictor (LZW's and Deflate's:
+    PackBits, JPEG and CCITT have none); each
     strip (TIFFReadEncodedStrip) or tile (TIFFReadTile) decoded whole,
     LZW's old-style codes as LZWPreDecode finds them in the first (which
-    fixes the style of the rest), a JPEG one by ``_TiffJpeg``; then
-    unpacked a row at a time with the raw mode of fill order 1, 16-bit
+    fixes the style of the rest), a JPEG one by ``_TiffJpeg``, a CCITT one
+    by ``_TiffFax`` (a page of rows it leaves unwritten refused by name);
+    then unpacked a row at a time with the raw mode of fill order 1, 16-bit
     samples in native order; planar 2 a plane a band of the pixel (8
     bits, or the high byte of 16), RGBa's premultiplied colours undone
     after."""
     name = _TIFF_CODECS[t.compression]
-    if name not in ("PackBits", "LZW", "Deflate", "JPEG"):
+    if name not in ("PackBits", "LZW", "Deflate", "JPEG", *_TIFF_FAX):
         raise ValueError(f"unsupported: TIFF {name} compression (the "
                          "decoders read uncompressed, PackBits, LZW, "
-                         "Deflate and JPEG TIFF)")
+                         "Deflate, JPEG and CCITT TIFF)")
     data, e = t.data, t.e
     if not (data[:4] in (b"II*\0", b"MM\0*") or (
             data[:4] in (b"II+\0", b"MM\0+")
@@ -1772,6 +1785,8 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
                          "reads past them)")
     img, old_lzw = _tiff_canvas(t), None
     codec = _TiffJpeg(lt, ycbcr, spp) if jpeg else None
+    fax = _TiffFax(lt, name, tw, tl if tiled else rps,
+                   rowbytes) if name in _TIFF_FAX else None
     for index, x, y, n, plane in blocks:
         chunk = _tiff_fill(lt, index, whole)
         if chunk is None:
@@ -1783,6 +1798,9 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
             rows = codec.decode(chunk, (tw, tl) if tiled else (w, n), rows,
                                 not tiled and y + n == h, (xs, ys),
                                 rowbytes)
+        elif fax:
+            rows = fax.decode(chunk, lt.offsets[index] & 1, rows,
+                              (xs, ys))
         else:
             if old_lzw is None and name == "LZW":
                 old_lzw = chunk[:1] == b"\0" and len(chunk) > 1 and (
@@ -1799,6 +1817,8 @@ def _tiff_libtiff_route(t: _Tiff) -> np.ndarray:
     if separate and planes > 3 and t.mode == "RGBA" and t.get(
             338, (0,))[:1] in ((0,), (1,)):
         img[:] = _tiff_unpremultiply(img)
+    if fax and fax.unwritten:
+        raise ValueError(_TIFF_FAX_UNWRITTEN)
     return img
 
 
@@ -1859,6 +1879,71 @@ class _TiffJpeg:
             msg = err.value.decode(errors="replace")
             raise (_JpegHeaderError if rc == 3 else ValueError)(msg)
         return out
+
+
+class _TiffFax:
+    """A page's CCITT strips or tiles as libtiff's fax codec (tif_fax3.c)
+    decodes them for PIL (``isc_tiff_fax``). Fax3SetupState first: 1 bit
+    a sample and one sample a pixel in one plane (PIL refuses the rest),
+    the run arrays' size (nruns: ``width`` + 1 rounded up to 32, twice
+    that where rows are coded against the row before, Group 3 with
+    T4Options bit 0, as libtiff's directory reader reads T4Options, and
+    Group 4), an overflow refused. The arrays and FAXMODE_NOEOL (set where
+    Group 3 data ends while the EOL search skips zeros) then pass from
+    strip to strip, as libtiff keeps one codec state a page. A strip that
+    the codec fails is refused, as PIL refuses it; a tile is not
+    (TIFFReadEncodedTile takes the codec's -1 for success). The rest are
+    read into a buffer of ``rows`` rows kept from strip to strip, as
+    Pillow reuses its own, so that rows or bits libtiff leaves unwritten
+    (a Group 4 strip that ends early, a tile the codec fails) keep the
+    strip or tile before's; where they are bits that none has written,
+    PIL shows what its buffer held, and the page is marked
+    ``unwritten``."""
+
+    def __init__(self, lt: _LibTiff, name: str, width: int, rows: int,
+                 rowbytes: int):
+        self.tiled = lt.tiled
+        if lt.bps != 1:
+            raise ValueError(f"TIFF: {name} at {lt.bps} bits (libtiff's "
+                             "fax codec takes 1)")
+        if lt.spp != 1 and lt.planar == 1:
+            raise ValueError(f"TIFF: {name} of {lt.spp} samples in one "
+                             "plane")
+        kind = _TIFF_FAX[name]
+        if kind == 2 and lt.lenient(292, 0, 0xFFFFFFFF) & 1:
+            kind = 3                    # Group 3 2D: rows against the last
+        top = 0xFFFFFFFF
+        nruns = -(-(width + 1) // 32) * 32 if width + 1 < top - 30 else 0
+        if kind >= 3:
+            nruns = nruns * 2 if nruns * 2 <= top else 0
+        if not nruns or nruns * 2 > top:
+            raise ValueError(f"TIFF: {name} rows of {width} pixels, too "
+                             "wide for libtiff's run arrays")
+        # an array's entries past 8 a byte of the file are never written
+        cap = min(nruns, 8 * len(lt.t.data) + 256)
+        self.runs = np.zeros(2 * cap, np.uint32)
+        self.mode = np.zeros(1, np.int32)
+        self.buf = np.zeros((rows, rowbytes), np.uint8)
+        self.reach = np.zeros(rows, np.int64)
+        self.kind, self.width, self.cap, self.nruns = kind, width, cap, nruns
+        self.unwritten = False
+
+    def decode(self, chunk, odd, rows, need):
+        """[rows, rowbytes] uint8: the stored bytes ``chunk`` of a strip or
+        tile (``odd``: at an odd offset in the file, which RLEW's word
+        alignment reads), of which the page reads ``need`` = (columns,
+        rows)."""
+        err = ctypes.create_string_buffer(256)
+        rc = _lib().isc_tiff_fax(
+            chunk, len(chunk), self.buf.ctypes.data, rows,
+            self.buf.shape[1], self.width, self.kind, odd,
+            self.runs.ctypes.data, self.cap, self.nruns,
+            self.mode.ctypes.data, self.reach.ctypes.data, err, len(err))
+        if rc > 1 or (rc and not self.tiled):
+            raise ValueError(err.value.decode(errors="replace"))
+        if (self.reach[:need[1]] < need[0]).any():
+            self.unwritten = True
+        return self.buf[:rows]
 
 
 class _JpegHeaderError(ValueError):
@@ -2310,8 +2395,8 @@ def _tiff_mapped(t: _Tiff):
 def _decode_tiff(data: bytes, mapped: bool = False) -> np.ndarray:
     """The first page of a TIFF as PIL opens it: Pillow's TiffImagePlugin
     (the header, the first IFD, the layout's mode and raw mode of
-    OPEN_INFO, the strips or tiles) and, for PackBits, LZW, Deflate and
-    JPEG, libtiff's decoding; the Orientation tag applied (ImageOps.
+    OPEN_INFO, the strips or tiles) and, for PackBits, LZW, Deflate, JPEG
+    and CCITT, libtiff's decoding; the Orientation tag applied (ImageOps.
     exif_transpose, as ``load_end`` does for TIFF), then PIL's conversion
     to RGB. ``mapped``: read as from a path (``_tiff_mapped``)."""
     t = _Tiff(data)
@@ -2339,18 +2424,20 @@ def load_image_bytes(data: bytes) -> np.ndarray:
     progressive, every GIF (its first frame), every BMP and every WebP,
     lossless (VP8L) or lossy (VP8, with ALPH or not), simple, extended or
     the first frame of an animation, and the first page of every TIFF,
-    uncompressed, PackBits, LZW, Deflate or JPEG (strips or tiles, planar
-    or not, either byte order, BigTIFF, horizontal or floating-point
-    prediction, YCbCr under JPEG in one plane, and YCbCr under PackBits,
-    LZW or Deflate at any subsampling libtiff's RGBA interface takes and
-    in separate planes under those and JPEG, as that interface reads it
-    for PIL; its orientation applied), that PIL opens. What PIL refuses,
-    and what the decoders do not take (lossless, hierarchical, arithmetic,
-    12-bit or 2-component JPEG; TIFF's other compressions, old-style JPEG
-    and CCITT among them, JPEG at other than 8 bits, a JPEG strip with a
-    bad Huffman code or short of its segment, a JPEG plane that libjpeg
-    stops in; PPM and the other formats of ``_REFUSED``, by name), raises
-    ValueError."""
+    uncompressed, PackBits, LZW, Deflate, JPEG or CCITT (RLE, RLEW, Group
+    3 one- or two-dimensional, Group 4, damaged data read as libtiff
+    recovers from it; strips or tiles, planar or not, either byte order,
+    BigTIFF, horizontal or floating-point prediction, YCbCr under JPEG in
+    one plane, and YCbCr under PackBits, LZW or Deflate at any subsampling
+    libtiff's RGBA interface takes and in separate planes under those and
+    JPEG, as that interface reads it for PIL; its orientation applied),
+    that PIL opens. What PIL refuses, and what the decoders do not take
+    (lossless, hierarchical, arithmetic, 12-bit or 2-component JPEG;
+    TIFF's other compressions, old-style JPEG among them, JPEG at other
+    than 8 bits, a JPEG strip with a bad Huffman code or short of its
+    segment, a JPEG plane that libjpeg stops in, CCITT rows libtiff
+    leaves unwritten, where PIL shows its buffer; PPM and the other
+    formats of ``_REFUSED``, by name), raises ValueError."""
     data = bytes(data)
     if data[:2] == b"\xff\xd8":
         return _decode_jpeg(data)

@@ -17,10 +17,10 @@ NaN. PIL's own
 files. Refusals as PIL refuses: truncated strips, PackBits runs past the
 strip and streams that end early, damaged Deflate streams, offsets past
 the end, layouts outside OPEN_INFO, raw YCbCr, headers PIL or libtiff
-refuse. What PIL decodes and the port refuses by name (CCITT) is
-recorded, and queued in ROADMAP; JPEG's own matrix is
-``test_torch_imgdec_tiff_jpeg.py``, YCbCr's through libtiff's RGBA
-interface ``test_torch_imgdec_tiff_ycbcr.py``."""
+refuse. PIL's CCITT pages, which the port refused by name, agree; JPEG's
+own matrix is ``test_torch_imgdec_tiff_jpeg.py``, YCbCr's through
+libtiff's RGBA interface ``test_torch_imgdec_tiff_ycbcr.py``, CCITT's
+``test_torch_imgdec_tiff_ccitt.py``."""
 import io
 import zlib
 
@@ -699,12 +699,15 @@ def test_signature_without_an_image(prefix):
                                        ("tiff_ccitt", "CCITT RLE"),
                                        ("group4", "CCITT Group 4")])
 def test_other_compressions_refused_by_name(comp, what):
-    """PIL writes and reads them; the port refuses each by name (queued
-    in ROADMAP)."""
+    """PIL writes and reads them; the port, which refused each by name,
+    reads them as PIL does (``test_torch_imgdec_tiff_ccitt.py`` holds the
+    rest)."""
     mode = "1"
     im = Image.fromarray(np.random.default_rng(20).integers(
         0, 256, (16, 24, 3), dtype=np.uint8)).convert(mode)
-    _named(_pil(im, compression=comp), what)
+    data = _pil(im, compression=comp)
+    assert tpre._TIFF_CODECS[tpre._Tiff(data).compression] == what
+    _same(data)
 
 
 # the port's refusal, by name, of a page whose IFD libtiff and Pillow read

@@ -28,7 +28,7 @@ from insenticap_model_tpu_torch import preprocessing as tpre
 from chip_smoke import lzw_pack, tiff_file, tiff_lzw
 from test_torch_imgdec_tiff import (CMAP, KEYS, OPEN_INFO, READ_OTHERWISE,
                                     _agree, _agree_or_named, _both_refuse,
-                                    _key_id, _named, _pil, _pil_refuses,
+                                    _key_id, _pil, _pil_refuses,
                                     _same, _samples)
 from torch_images import tiff_page, write_tiff
 
@@ -334,7 +334,8 @@ def test_strip_size_limit():
 def test_still_refused_by_name(comp, what, mode):
     """Old-style JPEG (6; a YCbCr page of the writer's whose strip is
     PIL's JPEG stream, which PIL reads through libtiff's RGBA interface)
-    and CCITT in TIFF stay refused by name."""
+    stays refused by name; CCITT in TIFF, which was, is read as PIL reads
+    it (``test_torch_imgdec_tiff_ccitt.py``)."""
     im = Image.fromarray(np.random.default_rng(13).integers(
         0, 256, (16, 24, 3), dtype=np.uint8)).convert(mode)
     if comp == "ojpeg":
@@ -345,7 +346,9 @@ def test_still_refused_by_name(comp, what, mode):
         _agree_or_named(write_tiff(np.asarray(im), 8, 6, compression=6,
                                    jpeg=jpeg), what)
     else:
-        _named(_pil(im, compression=comp), what)
+        data = _pil(im, compression=comp)
+        assert tpre._TIFF_CODECS[tpre._Tiff(data).compression] == what
+        _same(data)
 
 
 def test_ycbcr_under_lzw_refused_by_name():

@@ -492,18 +492,20 @@ def tiff_page(samples, bits=8, photometric=None, *, order="<",
               rows_per_strip=None, tile=None, compression=1, predictor=1,
               fill_order=1, colormap=None, orientation=None, tags=(),
               offset_type=4, old_lzw=False, jpeg=None,
-              ycbcr_subsampling=None):
+              ycbcr_subsampling=None, t4options=0):
     """(entries, blocks) of one TIFF page of ``samples`` ([h, w] or [h, w,
     k], each sample ``bits`` wide): strips of ``rows_per_strip`` rows (all
     by default) or ``tile`` = (width, length) tiles, padded at the edges;
     ``planar`` 2: a plane of strips or tiles a sample; ``compression`` 1
     (none), 32773 (PackBits, each row on its own), 5 (LZW, by
     ``chip_smoke.tiff_lzw``, old-style codes where ``old_lzw``), 8 /
-    32946 (zlib) or 6 / 7 (JPEG: each strip or tile's [n, pw, pk] samples
-    coded by ``jpeg``, a function to bytes), with ``predictor`` 2's or 3's
-    differencing first where asked (3: of bits that are a whole number of
-    bytes); ``fill_order`` 2
-    reverses the bits of every stored byte. Photometric 1 (grey) for one
+    32946 (zlib), 6 / 7 (JPEG: each strip or tile's [n, pw, pk] samples
+    coded by ``jpeg``, a function to bytes) or 2 / 3 / 4 (CCITT of one
+    1-bit sample, by ``chip_smoke.tiff_fax``; ``t4options`` Group 3's
+    T4Options, the tag written where it is not 0), with ``predictor``
+    2's or 3's differencing first where asked (3: of bits that are a
+    whole number of bytes); ``fill_order`` 2 reverses the bits of every
+    stored byte. Photometric 1 (grey) for one
     or two samples and 2 (RGB) for more, by default. ``tags``: entries
     (tag, type, values) that replace the page's own of that tag, or add
     one (type None drops it); the entries are sorted by tag.
@@ -524,6 +526,10 @@ def tiff_page(samples, bits=8, photometric=None, *, order="<",
     def encode(part):                 # [n, pw, pk] samples -> stored bytes
         if compression in (6, 7):
             data = jpeg(part)
+            return _bitrev(data) if fill_order == 2 else data
+        if compression in (2, 3, 4):
+            data = chip_smoke.tiff_fax(np, part[:, :, 0], compression,
+                                       t4options)
             return _bitrev(data) if fill_order == 2 else data
         if ycbcr_subsampling and planar == 1:
             hs, vs = ycbcr_subsampling
@@ -588,6 +594,8 @@ def tiff_page(samples, bits=8, photometric=None, *, order="<",
         entries[274] = (3, [orientation])
     if ycbcr_subsampling:
         entries[530] = (3, list(ycbcr_subsampling))
+    if t4options:
+        entries[292] = (4, [t4options])
     for tag, typ, vals in tags:
         if typ is None:
             entries.pop(tag, None)
